@@ -14,10 +14,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
    positions from a real pack of synthetic traces and activations from the
    model's own first block; the library call that computes the same
-   function (K1: ``scaled_dot_product_attention`` under the same mask;
-   K2: ``embedding_bag`` over the stacked tables) held to the same bound;
-   kernel, plain and library times (CUDA events, median of repeated runs,
-   L2 flushed before each), and the least time the card could take (the
+   function (K1: ``scaled_dot_product_attention`` under the same mask,
+   held on live query slots; K2: ``embedding_bag`` over the stacked
+   tables) held to the same bound; K1's f32 route (its other kernel) held
+   to its plain version at R = 256; kernel, plain and library times (CUDA
+   events, median of repeated runs, L2 flushed before each), each
+   wrapper's host time per call, the same times with the host's enqueue
+   kept out (device time alone), and the least time the card could take (the
    bytes this data needs — for K2 only the table rows it gathers — over
    3.35 TB/s, operations over the peak of their type);
 4. main path — the port's sidecar serving the flagship transformer at its
@@ -51,9 +54,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core peak
 F32_FLOPS = 67e12              # outside the tensor cores
 
+SPIN_CYCLES = 5_000_000        # ~2.7 ms at 1.83 GHz: longer than any enqueue
 R_SHAPES = (256, 2048)          # smallest and largest ladder rung
 MAIN_PATH_TRACES = (64, 512, 2048, 4096, 8192)
 BURST_TRACES, BURST_REQUESTS = 2048, 8
+F32_ATTENTION_BOUND = 1e-5      # K1 f32 route vs plain, relative to
+                                # max(1, max |plain|): summation order
 PLAIN_PATH_BOUND = 2e-2         # |kernel path - plain path| on probabilities
 CPU_F32_BOUND = 3e-2            # |bf16 on the card - f32 on the CPU|
 
@@ -74,9 +80,7 @@ def bf16_step(ref_max: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(ref_max, 2.0 ** -20))) - 7)
 
 
-def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, L2 flushed
-    before each (the serving path meets its inputs cold)."""
+def _event_ms(fn, flush, reps: int, warm: int, spin: int) -> float:
     import torch
 
     for _ in range(warm):
@@ -85,6 +89,8 @@ def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
     times = []
     for _ in range(reps):
         flush()
+        if spin:
+            torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -93,6 +99,53 @@ def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, L2 flushed
+    before each (the serving path meets its inputs cold). Where the host's
+    enqueue of ``fn`` outlasts the flush, the card waits and the wait is
+    counted."""
+    return _event_ms(fn, flush, reps, warm, spin=0)
+
+
+def device_ms(fn, flush, reps: int = 20, warm: int = 3) -> float:
+    """As :func:`time_ms`, with the host's own time kept out: after the
+    flush the card spins (``torch.cuda._sleep``, a few ms) while the host
+    enqueues ``fn``, so the first event fires with ``fn``'s work already
+    queued behind it."""
+    return _event_ms(fn, flush, reps, warm, spin=SPIN_CYCLES)
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host time per call of a wrapper (checks, the ctypes call, the
+    enqueue), ``time.perf_counter`` over ``calls`` calls; the device work
+    is left out by synchronizing only around the loop. Beside kernel_ms,
+    not part of it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def timings(kernel, plain, library, flush) -> dict:
+    """The times of a kernel's wrapper, its plain version and the library
+    call: ``*_ms`` by :func:`time_ms` (the host's enqueue included where it
+    outlasts the flush), ``*device_ms`` by :func:`device_ms` (device time
+    alone), and the wrapper's host time per call."""
+    return {"kernel_ms": time_ms(kernel, flush),
+            "device_ms": device_ms(kernel, flush),
+            "host_us_per_call": host_us(kernel),
+            "plain_ms": time_ms(plain, flush),
+            "plain_device_ms": device_ms(plain, flush),
+            "library_ms": time_ms(library, flush),
+            "library_device_ms": device_ms(library, flush)}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -251,11 +304,10 @@ def phase_kernels(card: str) -> dict:
             results[("span_embed", R)] = {
                 "name": "span_embed", "R": R, "max_abs_diff": diff,
                 "bound": lim,
-                "kernel_ms": time_ms(lambda: embed.span_embed(
-                    cat, cont, pos, seg, tables, cfg.dtype), flush),
-                "plain_ms": time_ms(lambda: embed.span_embed_plain(
-                    cat, cont, pos, seg, tables, cfg.dtype), flush),
-                "library_ms": time_ms(bag, flush),
+                **timings(lambda: embed.span_embed(
+                    cat, cont, pos, seg, tables, cfg.dtype),
+                    lambda: embed.span_embed_plain(
+                        cat, cont, pos, seg, tables, cfg.dtype), bag, flush),
                 "library_max_abs_diff": lib_diff,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": nbytes, "table_rows": rows, "flops": flops}
@@ -265,6 +317,9 @@ def phase_kernels(card: str) -> dict:
             q = blk.query(h).view(R, L, H, hd)
             k = blk.key(h).view(R, L, H, hd)
             v = blk.value(h).view(R, L, H, hd)
+            check(attention.kernel_route(q, k, v, seg) == "tc",
+                  f"segment_attention R={R}: bf16 main path not on the "
+                  f"tensor-core kernel")
             a_k = attention.segment_attention(q, k, v, seg)
             a_p = attention.segment_attention_plain(q, k, v, seg)
             torch.cuda.synchronize()
@@ -275,7 +330,9 @@ def phase_kernels(card: str) -> dict:
             lim = bf16_step(ref_max)
             check(diff <= lim, f"segment_attention R={R}: max |kernel - "
                                f"plain| {diff} > {lim}")
-            # the library yardstick: one SDPA call under the same mask
+            # the library yardstick: one SDPA call under the same mask, held
+            # to the plain version on live query slots (SDPA gives a fully
+            # masked padding query another value than Flax's uniform mean)
             segl = seg.long()
             allowed = ((segl[:, :, None] == segl[:, None, :])
                        & (segl[:, :, None] > 0))[:, None]
@@ -285,6 +342,14 @@ def phase_kernels(card: str) -> dict:
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       attn_mask=allowed)
 
+            a_l = sdpa().transpose(1, 2)
+            live = seg > 0
+            lib_diff = (a_l[live].float() - a_p[live].float()).abs().max()
+            lib_diff = lib_diff.item()
+            lib_lim = bf16_step(a_p[live].float().abs().max().item())
+            check(lib_diff <= lib_lim, f"sdpa R={R}: max |library - plain| "
+                                       f"on live slots {lib_diff} > "
+                                       f"{lib_lim}")
             # work this data needs: the allowed (query, key) pairs
             pairs = int(allowed.sum().item())
             nbytes = 4 * R * L * H * hd * 2 + R * L * 4
@@ -293,13 +358,35 @@ def phase_kernels(card: str) -> dict:
             results[("segment_attention", R)] = {
                 "name": "segment_attention", "R": R, "max_abs_diff": diff,
                 "bound": lim,
-                "kernel_ms": time_ms(lambda: attention.segment_attention(
-                    q, k, v, seg), flush),
-                "plain_ms": time_ms(lambda: attention.segment_attention_plain(
-                    q, k, v, seg), flush),
-                "library_ms": time_ms(sdpa, flush),
+                **timings(lambda: attention.segment_attention(q, k, v, seg),
+                          lambda: attention.segment_attention_plain(
+                              q, k, v, seg), sdpa, flush),
+                "library_max_abs_diff_live": lib_diff,
+                "library_bound_live": lib_lim,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": nbytes, "flops": flops}
+            if R == min(R_SHAPES):
+                # the f32 route is the other kernel (CUDA cores): held to
+                # its plain version at f32 summation-order noise
+                q32, k32, v32 = (t.float() for t in (q, k, v))
+                check(attention.kernel_route(q32, k32, v32, seg)
+                      == "simt", "f32 attention not on the CUDA-core kernel")
+                f_k = attention.segment_attention(q32, k32, v32, seg)
+                f_p = attention.segment_attention_plain(q32, k32, v32, seg)
+                torch.cuda.synchronize()
+                f_diff = (f_k - f_p).abs().max().item()
+                f_lim = F32_ATTENTION_BOUND * max(
+                    1.0, f_p.abs().max().item())
+                check(f_diff <= f_lim,
+                      f"segment_attention f32 R={R}: max |kernel - plain| "
+                      f"{f_diff} > {f_lim}")
+                results[("segment_attention_f32", R)] = {
+                    "name": "segment_attention_f32", "R": R,
+                    "max_abs_diff": f_diff, "bound": f_lim,
+                    "kernel_ms": time_ms(lambda: attention.segment_attention(
+                        q32, k32, v32, seg), flush),
+                    "device_ms": device_ms(lambda: attention.segment_attention(
+                        q32, k32, v32, seg), flush)}
     for r in results.values():
         emit({"phase": "kernels", "card": card, **r})
     return results
@@ -456,19 +543,30 @@ def main() -> int:
                "span_embed": "odigos_tpu_torch/kernels/csrc/span_embed.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35"}
+    designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
+               "span_embed": "warp-per-slot vec16, small tables in smem"}
     lines = []
     for kname in ("segment_attention", "span_embed"):
         r = kern[(kname, R)]
+        small = kern[(kname, min(R_SHAPES))]
         lines.append({
             "name": kname, "route": "cuda", "source": sources[kname],
-            "replaces": replaces[kname],
+            "replaces": replaces[kname], "design": designs[kname],
             "launches": main_path["launches"][kname],
             "max_abs_err": r["max_abs_diff"],
             "max_abs_diff": r["max_abs_diff"], "bound": r["bound"],
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape_R": R, "card": card})
+            "device_ms": r["device_ms"],
+            "plain_device_ms": r["plain_device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "host_us_per_call": r["host_us_per_call"],
+            "shape_R": R, "card": card,
+            f"R{small['R']}": {k: small[k] for k in (
+                "kernel_ms", "device_ms", "plain_ms", "plain_device_ms",
+                "library_ms", "library_device_ms", "bound_ms",
+                "host_us_per_call", "max_abs_diff")}})
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

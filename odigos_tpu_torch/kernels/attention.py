@@ -7,10 +7,15 @@ segments branch): key j is allowed for query i iff
 ``segments[i] == segments[j] > 0``. Layout is JAX's DenseGeneral layout,
 ``(R, L, H, hd)`` in and out.
 
-A CUDA tensor launches the hand-written kernel (``csrc/segment_attention.cu``)
-or raises; a CPU tensor takes :func:`segment_attention_plain`, the plain
-PyTorch version of the same arithmetic, which is also what the kernel is
-held to on the card. ``launches`` counts kernel launches.
+A CUDA tensor launches one of two hand-written kernels
+(``csrc/segment_attention.cu``) or raises; :func:`kernel_route` says which.
+bf16 inputs with ``hd % 16 == 0`` and ``L % 4 == 0`` (the main path) take
+the tensor-core kernel (``"tc"``); f32 inputs, the parity path, and bf16
+shapes the tensor-core kernel does not take, take the CUDA-core kernel
+(``"simt"``).
+A CPU tensor takes :func:`segment_attention_plain`, the plain PyTorch
+version of the same arithmetic, which is also what both kernels are held
+to on the card. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import torch
 
 from . import build
 
-MAX_L = 64   # the kernel's tile: one (row, head) of <= 64 slots per CTA
+MAX_L = 64   # the kernels' tile: <= 64 slots and hd <= 64 per (row, head)
 MAX_HD = 64
+TC_SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
+_ROUTES = {"simt": 0, "tc": 1}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,11 +83,37 @@ def _check(q, k, v, segments) -> None:
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def tc_stage_bytes(L: int, H: int, hd: int) -> int:
+    """Shared memory of one stage of the tensor-core kernel: Q, K and V
+    each as the row's ``[L rounded to 16]`` slots of ``H * hd`` bf16 plus 8
+    of padding, then the row's segment ids (``tc::Geom`` in the source)."""
+    Lk = _round16(L)
+    return 3 * Lk * (H * hd + 8) * 2 + Lk * 4
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segments: torch.Tensor) -> str:
+    """``"tc"`` where the tensor-core kernel takes the inputs (bf16,
+    ``hd % 16 == 0`` for whole 16-column tiles, ``L % 4 == 0`` and
+    16-byte aligned tensors for 16-byte copies, one row's stage fits shared
+    memory), else ``"simt"``, the CUDA-core kernel."""
+    _, L, H, hd = q.shape
+    if (q.dtype == torch.bfloat16 and hd % 16 == 0 and L % 4 == 0
+            and tc_stage_bytes(L, H, hd) <= TC_SMEM_LIMIT
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, segments))):
+        return "tc"
+    return "simt"
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("segment_attention").segment_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -110,11 +143,12 @@ def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if R == 0 or L == 0 or H == 0 or hd == 0:
         return out
+    route = _ROUTES[kernel_route(q, k, v, segments)]
     fn = _kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 segments.data_ptr(), out.data_ptr(), R, L, H, hd,
-                _DTYPE_CODES[q.dtype], _scale_div(hd, q.dtype),
+                _DTYPE_CODES[q.dtype], route, _scale_div(hd, q.dtype),
                 torch.finfo(q.dtype).min,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -9,33 +9,518 @@
 //   q is divided by sqrt(hd) rounded to the working type, in that type;
 //   key j is allowed for query i iff seg[i] == seg[j] && seg[i] > 0;
 //   a disallowed score takes the FINITE finfo(T).min, never -inf, so a
-//   query on a padding slot gets the uniform average of V (as in Flax)
-//   instead of a NaN that would reach real rows through P.V next layer.
+//   query on a padding slot gets the uniform average of V over the row's
+//   L slots (as in Flax) instead of a NaN that would reach real rows
+//   through P.V next layer.
 // Scores, softmax and P.V run in f32; the output is rounded once.
 //
-// Bound on the card: bytes. At the default geometry (L=64, H=4, hd=64)
-// q, k, v and out each hold R*L*H*hd elements (8.4 MB each in bf16 at
-// R=256) while the work is 4*L*hd flops per (query, key) pair: about 32
-// flops per byte moved, far under the ~295 flop/byte where an H100 turns
-// compute-bound in bf16.
+// Bound on the card: bytes. q, k, v and out each hold R*L*H*hd elements
+// (33.6 MB each in bf16 at R=2048, L=64, H=4, hd=64) while the work is
+// 4*hd flops per allowed (query, key) pair: tens of flops per byte moved,
+// far under the ~295 flop/byte where an H100 turns compute-bound in bf16.
 //
-// Simple design: one CTA of 256 threads per (row, head). The CTA stages
-// its 64x64 Q, K and V tiles in shared memory as f32 (one read of each
-// element from device memory, coalesced along hd), computes the 64x64
-// score tile with a 4x4 register block per thread, applies the mask built
-// from the row's 64 segment ids (never an (R,1,L,L) tensor), runs the
-// softmax one warp per row with shuffles, and writes P.V with the same
-// 4x4 blocking. Each element of q, k, v and out crosses device memory
-// once. wgmma/TMA and several rows per CTA are later work.
+// Two kernels, both hand-written, chosen by the Python wrapper; a launch
+// that fails raises, there is no fallback to the plain version.
+//
+// * `segment_attention_tc_kernel` (bf16 with hd % 16 == 0, L % 4 == 0 and
+//   16-byte aligned tensors: the main path). Persistent: one CTA of 16
+//   warps per SM walks the packed rows. In the (R, L, H, hd) layout a
+//   row's q, k and v are each one contiguous L*H*hd span, so the CTA takes
+//   whole rows, all heads. Shared memory holds a two-stage ring of rows:
+//   Q, K and V as the row's slots with 16 bytes of padding after each, so
+//   that ldmatrix reads are free of bank conflicts, and the row's segment
+//   ids. Every thread copies its share of the next row with 16-byte
+//   cp.async while the current row computes (one 1-D bulk copy (TMA) per
+//   slot and tensor on an mbarrier, which the padded layout needs, measured
+//   slower than these copies). Each warp owns (head, 16 queries) items:
+//   S = Q.K^T on tensor cores (mma.sync m16n8k16 bf16 -> f32, operands by
+//   ldmatrix), the mask built in registers from the staged segment ids,
+//   the softmax in registers in f32, and P.V again on tensor cores. P
+//   stays f32 in effect: it is split into bf16 hi + lo parts and both
+//   products are accumulated in f32, so no rounding of P enters the
+//   output. A 16-key tile none of whose live segments meets the live
+//   queries' segment range is skipped (every weight in it is exactly 0)
+//   unless a query of the block is padding. The output is rounded once to
+//   bf16, staged through the warp's own (already read) Q rows and stored
+//   with 16-byte writes. mma.sync rather than wgmma: the work is bound by
+//   bytes, each (head, 16-query) product is small, and the register
+//   fragments keep the mask, the softmax and the hi/lo split in registers
+//   with no swizzled operand layouts for the odd hd the wrapper admits.
+//   Slots past L in the 16-key tiles are zero in shared memory and weigh
+//   exactly 0.
+// * `segment_attention_kernel<T>` (f32, the parity path, and the bf16
+//   shapes the tensor-core kernel does not take): one CTA of 256 threads
+//   per (row, head), tiles staged as f32 in shared memory, scores and P.V
+//   on CUDA cores with a 4x4 register block per thread, softmax one warp
+//   per row. f32 stays here because no tensor-core route is exact in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kMaxL = 64;
 constexpr int kMaxHd = 64;
+constexpr int kMaxDevices = 64;
+
+// ---- once-per-device attributes (cudaFuncSetAttribute, SM count)
+
+struct DeviceOnce {
+  std::atomic<int> state[kMaxDevices];  // 0 unset, else value + 1
+};
+
+template <typename Fn>
+cudaError_t once_per_device(DeviceOnce& once, int* value, Fn&& compute) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) {
+    const int s = once.state[dev].load(std::memory_order_acquire);
+    if (s != 0) {
+      *value = s - 1;
+      return cudaSuccess;
+    }
+  }
+  err = compute(dev, value);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    once.state[dev].store(*value + 1, std::memory_order_release);
+  return err;
+}
+
+DeviceOnce g_sm_count;
+
+cudaError_t sm_count(int* n) {
+  return once_per_device(g_sm_count, n, [](int dev, int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+  });
+}
+
+template <typename K>
+cudaError_t max_smem_once(DeviceOnce& once, K kernel, int bytes) {
+  int unused = 0;
+  return once_per_device(once, &unused, [&](int, int* v) {
+    *v = bytes;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  });
+}
+
+// =====================================================================
+// The tensor-core kernel (bf16)
+// =====================================================================
+
+namespace tc {
+
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kSmemLimit = 232448;  // 227 KB, the most a block may use
+
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+
+// Shared-memory geometry of one stage for (L, H, hd): Q, K and V each as
+// the row's [Lk][H*hd] slots (Lk = L rounded to 16 keys) with 8 elements
+// of padding after every slot, then the row's Lk segment ids.
+struct Geom {
+  int Lk, ld, tensor_bytes, stage_bytes;
+  __host__ __device__ Geom(int L, int H, int hd)
+      : Lk(round16(L)), ld(H * hd + 8),
+        tensor_bytes(round16(L) * (H * hd + 8) * 2),
+        stage_bytes(3 * round16(L) * (H * hd + 8) * 2 + round16(L) * 4) {}
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously (completes at wait_group)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a . b on tensor cores: a 16x16 (row), b 16x8 (col), bf16 -> f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// q * (1 / scale_div) rounded to bf16, on a packed pair: Flax divides q
+// in bf16; PyTorch's plain version on the card multiplies by the f32
+// reciprocal of the scalar, which this matches bit for bit
+__device__ __forceinline__ uint32_t scale_q(uint32_t x, float inv_scale) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16(f.x * inv_scale, f.y * inv_scale);
+}
+
+// p = hi + lo, both bf16: hi = bf16(p), lo = bf16(p - hi)
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// Every thread starts its share of row r's copies into one stage, 16
+// bytes each, into the padded slot rows, then commits them as one group.
+__device__ __forceinline__ void copy_row(
+    char* stage, const Geom& g, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const int32_t* __restrict__ seg, int r, int L, int H, int hd) {
+  const int cps = H * hd / 8;  // 16-byte chunks per slot of one tensor
+  const uint32_t s0 = smem_u32(stage);
+  const size_t base = (size_t)r * L * H * hd;
+  // chunk e = (slot l, chunk w); stepped without dividing in the loop
+  int e = threadIdx.x;
+  int l = e / cps;
+  int w = e - l * cps;
+  const int dl = kThreads / cps;
+  const int dw = kThreads - dl * cps;
+  for (; e < L * cps; e += kThreads) {
+    const uint32_t dst = s0 + (l * g.ld + w * 8) * 2;
+    const size_t src = base + (size_t)e * 8;
+    cp_async16(dst, q + src);
+    cp_async16(dst + g.tensor_bytes, k + src);
+    cp_async16(dst + 2 * g.tensor_bytes, v + src);
+    l += dl;
+    w += dw;
+    if (w >= cps) {
+      w -= cps;
+      ++l;
+    }
+  }
+  if ((int)threadIdx.x < L / 4)  // L % 4 == 0: the ids in 16-byte chunks
+    cp_async16(s0 + 3 * g.tensor_bytes + threadIdx.x * 16,
+               seg + (size_t)r * L + threadIdx.x * 4);
+  cp_async_commit();
+}
+
+// One warp's item: head h, queries l0..l0+15 of the row in `stage`.
+__device__ __forceinline__ void attend_item(char* stage, const Geom& g,
+                                            __nv_bfloat16* __restrict__ out,
+                                            int r, int h, int l0, int L,
+                                            int H, int hd, float inv_scale,
+                                            float big_neg) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2;  // fragment row (and +8)
+  const int tig = lane & 3;   // fragment column pair
+  const int nk16 = g.Lk >> 4;
+  const int nd16 = hd >> 4;
+  const int ld2 = g.ld * 2;   // bytes from one slot to the next
+  const uint32_t qs = smem_u32(stage) + h * hd * 2;
+  const uint32_t ks = qs + g.tensor_bytes;
+  const uint32_t vs = qs + 2 * g.tensor_bytes;
+  const int32_t* segs =
+      reinterpret_cast<const int32_t*>(stage + 3 * g.tensor_bytes);
+
+  // ---- Q fragments (16 queries x hd), scaled and rounded to bf16
+  uint32_t qf[4][4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (t < nd16) {
+      const int row = l0 + (lane & 15);
+      const int col = t * 16 + (lane >> 4) * 8;
+      ldsm_x4(qs + row * ld2 + col * 2, qf[t]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qf[t][i] = scale_q(qf[t][i], inv_scale);
+    }
+  }
+
+  // ---- the 16-key tiles these queries need. A live query's weight on a
+  // key of another segment is exp(finfo.min - max) = 0 exactly, so a tile
+  // whose live keys' segments all lie outside the live queries' range
+  // adds nothing and is skipped; a padding query (it averages every slot
+  // of the row) keeps every tile.
+  const unsigned all = 0xffffffffu;
+  const int qrow = l0 + (lane & 15);
+  const int qseg = qrow < L ? segs[qrow] : 0;
+  const bool pad_q = __any_sync(all, qrow < L && qseg <= 0);
+  const int qmin = __reduce_min_sync(all, qseg > 0 ? qseg : INT_MAX);
+  const int qmax = __reduce_max_sync(all, qseg > 0 ? qseg : 0);
+  uint32_t need = 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {  // tiles 2*half and 2*half + 1
+    const int key = lane + 32 * half;
+    const int ks_ = key < L ? segs[key] : 0;
+    int tmin = ks_ > 0 ? ks_ : INT_MAX;
+    int tmax = ks_ > 0 ? ks_ : 0;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {  // within each 16-lane half
+      tmin = min(tmin, __shfl_xor_sync(all, tmin, o));
+      tmax = max(tmax, __shfl_xor_sync(all, tmax, o));
+    }
+    const bool hit = pad_q || (tmin <= qmax && tmax >= qmin);
+    const uint32_t bits = __ballot_sync(all, hit);
+    need |= ((bits & 1u) | ((bits >> 16 & 1u) << 1)) << (2 * half);
+  }
+
+  // ---- S = Q.K^T, 16 queries x Lk keys, f32 accumulators
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    if (np < nk16 && (need >> np & 1u)) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (t < nd16) {
+          uint32_t b[4];
+          const int key = np * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+          const int col = t * 16 + ((lane >> 3) & 1) * 8;
+          ldsm_x4(ks + key * ld2 + col * 2, b);
+          mma_bf16(s[2 * np], qf[t], b[0], b[1]);
+          mma_bf16(s[2 * np + 1], qf[t], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // ---- mask (finite fill inside L, exactly 0 weight past L) + softmax
+  const int sq0 = segs[l0 + gid];      // rows past L read the zero fill
+  const int sq1 = segs[l0 + gid + 8];
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < 2 * nk16) {
+      const int key = j * 8 + tig * 2;
+      const int2 sk = *reinterpret_cast<const int2*>(segs + key);
+      const bool skip = !(need >> (j >> 1) & 1u);  // weighs 0 (see above)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int sq = (i >> 1) ? sq1 : sq0;
+        const int kseg = (i & 1) ? sk.y : sk.x;
+        const float x = (skip || key + (i & 1) >= L)
+                            ? -INFINITY
+                            : ((sq == kseg && sq > 0) ? s[j][i] : big_neg);
+        s[j][i] = x;
+        if (i >> 1) m1 = fmaxf(m1, x);
+        else m0 = fmaxf(m0, x);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  float l_0 = 0.f, l_1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < 2 * nk16 && (need >> (j >> 1) & 1u)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = expf(s[j][i] - ((i >> 1) ? m1 : m0));  // 0 past L
+        s[j][i] = e;
+        if (i >> 1) l_1 += e;
+        else l_0 += e;
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_0 += __shfl_xor_sync(0xffffffffu, l_0, o);
+    l_1 += __shfl_xor_sync(0xffffffffu, l_1, o);
+  }
+  const float inv0 = 1.f / l_0;
+  const float inv1 = 1.f / l_1;
+
+  // ---- O = P.V with P = P_hi + P_lo (both bf16), f32 accumulators
+  float o[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+#pragma unroll
+  for (int kp = 0; kp < 4; ++kp) {
+    if (kp < nk16 && (need >> kp & 1u)) {
+      // the S accumulators of key tiles 2kp, 2kp+1 are P's A fragment
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kp][0] * inv0, s[2 * kp][1] * inv0, ph[0], pl[0]);
+      split_pair(s[2 * kp][2] * inv1, s[2 * kp][3] * inv1, ph[1], pl[1]);
+      split_pair(s[2 * kp + 1][0] * inv0, s[2 * kp + 1][1] * inv0, ph[2],
+                 pl[2]);
+      split_pair(s[2 * kp + 1][2] * inv1, s[2 * kp + 1][3] * inv1, ph[3],
+                 pl[3]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (np < nd16) {
+          uint32_t b[4];
+          const int key = kp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int col = np * 16 + ((lane >> 4) & 1) * 8;
+          ldsm_x4_trans(vs + key * ld2 + col * 2, b);
+          mma_bf16(o[2 * np], ph, b[0], b[1]);
+          mma_bf16(o[2 * np], pl, b[0], b[1]);
+          mma_bf16(o[2 * np + 1], ph, b[2], b[3]);
+          mma_bf16(o[2 * np + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // ---- round once, stage in this warp's own Q rows (read above, by this
+  // warp only), then 16-byte stores of whole (slot, head) spans
+  __nv_bfloat16* qrows =
+      reinterpret_cast<__nv_bfloat16*>(stage) + h * hd;
+  const int r0 = l0 + gid;
+  const int r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < 2 * nd16) {
+      const int col = j * 8 + tig * 2;
+      if (r0 < L)
+        *reinterpret_cast<uint32_t*>(qrows + r0 * g.ld + col) =
+            pack_bf16(o[j][0], o[j][1]);
+      if (r1 < L)
+        *reinterpret_cast<uint32_t*>(qrows + r1 * g.ld + col) =
+            pack_bf16(o[j][2], o[j][3]);
+    }
+  }
+  __syncwarp();
+  const int c8 = hd >> 3;
+  const int rows = min(16, L - l0);
+  for (int e = lane; e < rows * c8; e += 32) {
+    const int l = l0 + e / c8;
+    const int c = e % c8;
+    const uint4 val =
+        *reinterpret_cast<const uint4*>(qrows + l * g.ld + c * 8);
+    *reinterpret_cast<uint4*>(out + ((size_t)(r * L + l) * H + h) * hd +
+                              c * 8) = val;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+segment_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const int32_t* __restrict__ seg,
+                            __nv_bfloat16* __restrict__ out, int R, int L,
+                            int H, int hd, int stages, float inv_scale,
+                            float big_neg) {
+  extern __shared__ __align__(128) char tc_smem[];
+  const Geom g(L, H, hd);
+  char* data = tc_smem;
+
+  // zero every stage once: the copies fill only slots < L, so the keys
+  // and queries past L in the 16-key tiles stay zero
+  {
+    uint4* z = reinterpret_cast<uint4*>(data);
+    const int n = stages * g.stage_bytes / 16;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int nqb = g.Lk >> 4;  // 16-query blocks per head
+  const int items = H * nqb;
+
+  int r = blockIdx.x;
+  if (r >= R) return;
+  copy_row(data, g, q, k, v, seg, r, L, H, hd);
+  for (int it = 0; r < R; r += gridDim.x, ++it) {
+    const int s = stages == 2 ? (it & 1) : 0;
+    char* stage = data + s * g.stage_bytes;
+    const int rn = r + gridDim.x;
+    if (stages == 2) {
+      // the other stage was released by the barrier that ended the
+      // previous row: the next row's copies fly while this row computes
+      if (rn < R)
+        copy_row(data + (s ^ 1) * g.stage_bytes, g, q, k, v, seg, rn, L, H,
+                  hd);
+      else
+        cp_async_commit();  // an empty group keeps the count of groups
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    for (int item = warp; item < items; item += kWarps)
+      attend_item(stage, g, out, r, item / nqb, (item % nqb) * 16, L, H, hd,
+                  inv_scale, big_neg);
+    __syncthreads();
+    if (stages == 1 && rn < R) copy_row(stage, g, q, k, v, seg, rn, L, H, hd);
+  }
+}
+
+DeviceOnce g_tc_attr;
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* seg, void* out, int R, int L, int H, int hd,
+                   float inv_scale, float big_neg, cudaStream_t stream) {
+  const Geom g(L, H, hd);
+  if (g.stage_bytes > kSmemLimit || hd % 16 != 0 || L % 4 != 0)
+    return cudaErrorInvalidValue;
+  const int stages = 2 * g.stage_bytes <= kSmemLimit ? 2 : 1;
+  cudaError_t err =
+      max_smem_once(g_tc_attr, segment_attention_tc_kernel, kSmemLimit);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int grid = R < sms ? R : sms;
+  segment_attention_tc_kernel<<<grid, kThreads, stages * g.stage_bytes,
+                                stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(seg),
+      static_cast<__nv_bfloat16*>(out), R, L, H, hd, stages, inv_scale,
+      big_neg);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// =====================================================================
+// The CUDA-core kernel (f32, and bf16 shapes the tensor-core one skips)
+// =====================================================================
+
+namespace simt {
+
 constexpr int kThreads = 256;
 constexpr int kLd = kMaxHd + 1;   // padded row stride of the Q/K/V tiles
 constexpr int kSld = kMaxL + 1;   // padded row stride of the score tile
@@ -63,8 +548,8 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const int32_t* __restrict__ seg,
                          T* __restrict__ out, int L, int H, int hd,
                          float scale_div, float big_neg) {
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [kMaxL][kLd]
+  extern __shared__ float simt_smem[];
+  float* qs = simt_smem;               // [kMaxL][kLd]
   float* ks = qs + kMaxL * kLd;        // [kMaxL][kLd]
   float* vs = ks + kMaxL * kLd;        // [kMaxL][kLd]
   float* sc = vs + kMaxL * kLd;        // [kMaxL][kSld] scores, then P
@@ -172,13 +657,15 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+DeviceOnce g_attr_f32, g_attr_bf16;
+
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* seg, void* out, int R, int L, int H, int hd,
-                   float scale_div, float big_neg, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      segment_attention_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+cudaError_t launch(DeviceOnce& once, const void* q, const void* k,
+                   const void* v, const void* seg, void* out, int R, int L,
+                   int H, int hd, float scale_div, float big_neg,
+                   cudaStream_t stream) {
+  cudaError_t err = max_smem_once(once, segment_attention_kernel<T>,
+                                  (int)kSmemBytes);
   if (err != cudaSuccess) return err;
   segment_attention_kernel<T><<<R * H, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -187,23 +674,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+}  // namespace simt
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Shapes are checked by the Python
-// wrapper (L <= 64, hd <= 64, R * H > 0, contiguous (R, L, H, hd)).
+// dtype: 0 = float32, 1 = bfloat16. route: 0 = the CUDA-core kernel,
+// 1 = the tensor-core kernel (bfloat16 only). Shapes are checked by the
+// Python wrapper (L <= 64, hd <= 64, R * H > 0, contiguous (R, L, H, hd);
+// route 1 also hd % 16 == 0, L % 4 == 0 and 16-byte aligned tensors).
 extern "C" int segment_attention_launch(const void* q, const void* k,
                                         const void* v, const void* seg,
                                         void* out, int R, int L, int H,
-                                        int hd, int dtype, float scale_div,
-                                        float big_neg, void* stream) {
-  if (L > kMaxL || hd > kMaxHd || R <= 0 || H <= 0)
+                                        int hd, int dtype, int route,
+                                        float scale_div, float big_neg,
+                                        void* stream) {
+  if (L > kMaxL || hd > kMaxHd || R <= 0 || H <= 0 || L <= 0 || hd <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return (int)tc::launch(q, k, v, seg, out, R, L, H, hd, 1.f / scale_div,
+                           big_neg, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, seg, out, R, L, H, hd, scale_div,
-                              big_neg, s);
+    return (int)simt::launch<float>(simt::g_attr_f32, q, k, v, seg, out, R,
+                                    L, H, hd, scale_div, big_neg, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, seg, out, R, L, H, hd,
-                                      scale_div, big_neg, s);
+    return (int)simt::launch<__nv_bfloat16>(simt::g_attr_bf16, q, k, v, seg,
+                                            out, R, L, H, hd, scale_div,
+                                            big_neg, s);
   return (int)cudaErrorInvalidValue;
 }
+

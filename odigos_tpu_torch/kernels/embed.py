@@ -13,9 +13,10 @@ service table). Tables are f32; the sum runs in f32 and is rounded once to
 range by construction).
 
 A CUDA tensor launches the hand-written kernel (``csrc/span_embed.cu``) or
-raises; a CPU tensor takes :func:`span_embed_plain`, the plain PyTorch
-version of the same sum in the same order. ``launches`` counts kernel
-launches.
+raises: with 16-byte aligned tables at ``d`` a multiple of 256 (the main
+path, :func:`vector_path`) its sliced 16-byte path, else its scalar path.
+A CPU tensor takes :func:`span_embed_plain`, the plain PyTorch version of
+the same sum in the same order. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -121,11 +122,28 @@ def _check(categorical, continuous, positions, segments,
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+SLICE_COLS = 256   # columns of one warp's slice (32 lanes x kCols in csrc)
+CTA_WARPS = 16     # warps per CTA (kWarps in csrc)
+
+
+def _aligned(tables: EmbedTables) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tables.tensors())
+
+
+def vector_path(d: int, tables: EmbedTables) -> bool:
+    """Whether the kernel takes its sliced path (each warp a fixed slice
+    of 256 columns, 16-byte loads and stores): every table 16-byte aligned
+    (outputs are fresh allocations, always aligned) and ``d`` a multiple of
+    256 whose slices divide a CTA's warps; else the scalar path."""
+    return (d % SLICE_COLS == 0 and CTA_WARPS % (d // SLICE_COLS) == 0
+            and _aligned(tables))
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("span_embed").span_embed_launch
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -167,6 +185,7 @@ def span_embed(categorical: torch.Tensor, continuous: torch.Tensor,
     t = tables
     attr_ptr = t.attr.data_ptr() if t.attr is not None else None
     n_attr = t.attr.shape[0] if t.attr is not None else 0
+    aligned = int(_aligned(tables))
     fn = _kernel()
     with torch.cuda.device(dev):
         rc = fn(categorical.data_ptr(), continuous.data_ptr(),
@@ -175,7 +194,7 @@ def span_embed(categorical: torch.Tensor, continuous: torch.Tensor,
                 t.status.data_ptr(), attr_ptr, t.cont_w.data_ptr(),
                 t.cont_b.data_ptr(), t.pos.data_ptr(), out.data_ptr(),
                 N, C, d, t.service.shape[0], t.name.shape[0], n_attr,
-                t.pos.shape[0], _DTYPE_CODES[dtype],
+                t.pos.shape[0], _DTYPE_CODES[dtype], aligned,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"span_embed launch failed: CUDA error {rc}")

@@ -56,24 +56,84 @@ def _packed(n_traces: int, max_len: int, attr_slots: int = 0, pad: int = 0):
         pad_rows_to=lambda r: r + pad)
 
 
-@pytest.mark.parametrize("L,H,hd", [(64, 4, 64), (16, 2, 32), (40, 3, 48)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_segment_attention_kernel_matches_plain(dev, L, H, hd, dtype):
-    pk = _packed(300, L, pad=2)        # real rows + 2 all-padding rows
-    R = pk.n_rows
-    g = torch.Generator(device=dev).manual_seed(0)
-    tdt = getattr(torch, dtype)
-    q, k, v = (torch.randn(R, L, H, hd, generator=g, device=dev).to(tdt)
-               for _ in range(3))
-    seg = torch.from_numpy(pk.segments).to(dev)
+def _qkv(dev, R, L, H, hd, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(R, L, H, hd, generator=g, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+def _attend_and_check(q, k, v, seg, atol=None):
+    """Launch K1 once, hold it to the plain version, return the output."""
     before = attention.launches
     got = segment_attention(q, k, v, seg)
     ref = segment_attention_plain(q, k, v, seg)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
     assert torch.isfinite(got.float()).all()
-    atol = F32_ATOL if dtype == "float32" else _step(ref)
+    atol = _step(ref) if atol is None else atol
     assert (got.float() - ref.float()).abs().max().item() <= atol
+    return got
+
+
+@pytest.mark.parametrize("L,H,hd", [(64, 4, 64), (16, 2, 32), (40, 3, 48)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_attention_kernel_matches_plain(dev, L, H, hd, dtype):
+    pk = _packed(300, L, pad=2)        # real rows + 2 all-padding rows
+    R = pk.n_rows
+    q, k, v = _qkv(dev, R, L, H, hd, getattr(torch, dtype))
+    seg = torch.from_numpy(pk.segments).to(dev)
+    # bf16 takes the tensor-core kernel (L = 40 pads to 16-key tiles whose
+    # extra slots must weigh 0), f32 the CUDA-core one
+    want = "tc" if dtype == "bfloat16" else "simt"
+    assert attention.kernel_route(q, k, v, seg) == want
+    _attend_and_check(q, k, v, seg,
+                      atol=F32_ATOL if dtype == "float32" else None)
+
+
+@pytest.mark.parametrize("R", [1, 133, 1000])
+def test_segment_attention_tc_ragged_row_counts(dev, R):
+    """R below, between and above multiples of the persistent grid (one
+    CTA per SM walking rows), at the main path's geometry."""
+    pk = _packed(300, 64, pad=2)
+    seg = torch.from_numpy(np.resize(pk.segments, (R, 64))).to(dev)
+    q, k, v = _qkv(dev, R, 64, 4, 64, torch.bfloat16, seed=R)
+    assert attention.kernel_route(q, k, v, seg) == "tc"
+    _attend_and_check(q, k, v, seg)
+
+
+def test_segment_attention_tc_padding_rows_and_single_slots(dev):
+    """An all-padding row (every query averages V uniformly over the L
+    slots, as Flax's finite fill gives), rows with one live slot, and a
+    row whose only live slots are the last ones."""
+    L, H, hd = 40, 2, 64
+    seg = np.zeros((5, L), np.int32)
+    seg[1, 0] = 1                     # one live slot, first
+    seg[2, 23] = 3                    # one live slot, middle
+    seg[3, L - 2:] = 2                # two live slots at the end
+    seg[4] = np.arange(1, L + 1)      # every slot its own segment
+    q, k, v = _qkv(dev, 5, L, H, hd, torch.bfloat16, seed=7)
+    seg = torch.from_numpy(seg).to(dev)
+    assert attention.kernel_route(q, k, v, seg) == "tc"
+    got = _attend_and_check(q, k, v, seg)
+    uniform = v[0].float().mean(0)    # (H, hd): the mean over the L slots
+    for i in range(L):
+        assert (got[0, i].float() - uniform).abs().max().item() <= \
+            _step(uniform)
+    # a slot alone in its segment attends only to itself
+    assert torch.equal(got[1, 0], v[1, 0])
+    assert torch.equal(got[2, 23], v[2, 23])
+    assert torch.equal(got[4], v[4])
+
+
+@pytest.mark.parametrize("L,H,hd", [(32, 3, 20), (30, 4, 64)])
+def test_segment_attention_simt_takes_bf16_shapes_tc_cannot(dev, L, H, hd):
+    """hd % 16 != 0 or L % 4 != 0 has no 16-byte bulk copies: the
+    CUDA-core kernel takes those bf16 shapes."""
+    pk = _packed(100, L)
+    q, k, v = _qkv(dev, pk.n_rows, L, H, hd, torch.bfloat16)
+    seg = torch.from_numpy(pk.segments).to(dev)
+    assert attention.kernel_route(q, k, v, seg) == "simt"
+    _attend_and_check(q, k, v, seg)
 
 
 def test_segment_attention_refuses_oversized_tiles(dev):
@@ -96,6 +156,39 @@ def test_span_embed_kernel_matches_plain(dev, attr_slots, dtype):
     tables = model.module.encoder.tables()
     args = [torch.from_numpy(a).to(dev) for a in (
         pk.categorical, pk.continuous, pk.positions, pk.segments)]
+    tdt = getattr(torch, dtype)
+    assert embed.vector_path(tables.service.shape[1], tables)
+    before = embed.launches
+    got = span_embed(*args, tables, tdt)
+    ref = span_embed_plain(*args, tables, tdt)
+    torch.cuda.synchronize()
+    assert embed.launches == before + 1
+    assert (got[args[3] == 0] == 0).all()
+    atol = F32_ATOL if dtype == "float32" else _step(ref)
+    assert (got.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_span_embed_scalar_path_odd_width_with_attr_slots(dev, dtype):
+    """Hand-built tables at d = 100 (not a multiple of 8: the scalar path)
+    with 3 attr slots, and out-of-range ids (clamped in both versions)."""
+    d, attr_slots = 100, 3
+    pk = _packed(300, 64, attr_slots=attr_slots, pad=2)
+    rng = np.random.default_rng(5)
+
+    def tab(rows, cols=d):
+        return torch.from_numpy(rng.standard_normal(
+            (rows, cols)).astype(np.float32)).to(dev)
+
+    tables = EmbedTables(service=tab(64), name=tab(128), kind=tab(8),
+                         status=tab(4), attr=tab(32), cont_w=tab(d, 3),
+                         cont_b=tab(1)[0].contiguous(), pos=tab(64))
+    cat = pk.categorical.copy()
+    cat[0, 0, 0] = 1000                # past the service table
+    cat[0, 1, 5] = -3                  # below the attr table
+    args = [torch.from_numpy(a).to(dev) for a in (
+        cat, pk.continuous, pk.positions, pk.segments)]
+    assert not embed.vector_path(d, tables)
     tdt = getattr(torch, dtype)
     before = embed.launches
     got = span_embed(*args, tables, tdt)

@@ -1,7 +1,7 @@
 """Guards on the port's boundary and entry points.
 
-* The port (``odigos_tpu_torch/``), ``chip_smoke.py`` and
-  ``tools/torch_trace_main_path.py`` import nothing of
+* The port (``odigos_tpu_torch/``), ``chip_smoke.py`` and the port's
+  tools (``tools/torch_*.py``) import nothing of
   ``jax``, ``flax``, ``optax``, ``orbax`` or ``odigos_tpu``: an AST scan of
   every file, and a fresh interpreter that imports every module of the
   port and then finds none of those in ``sys.modules`` (this test process
@@ -28,8 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "odigos_tpu")
 
 
 def _port_files() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_trace_main_path.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("torch_*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -132,6 +132,57 @@ def test_k1_plain_inside_mha_matches_flax_mha(seed):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
 
+def _k1_tc_emulation(q, k, v, segments):
+    """K1's tensor-core arithmetic (the bf16 route of
+    ``csrc/segment_attention.cu``) in plain torch: keys padded with zeros to
+    16-key tiles, q / sqrt(hd) rounded to bf16, f32 scores (bf16 products
+    are exact in f32), the finite fill inside L and weight exactly 0 past
+    L, f32 softmax, P split into bf16 hi + lo parts, both products
+    accumulated in f32, one rounding at the end."""
+    R, L, H, hd = q.shape
+    Lk = (L + 15) // 16 * 16
+    pad = (0, 0, 0, 0, 0, Lk - L)
+
+    def tile(x):
+        return torch.nn.functional.pad(x.float(), pad)
+
+    qs = (q.float() / attention._scale_div(hd, torch.bfloat16)).to(
+        torch.bfloat16)
+    s = torch.einsum("rqhd,rkhd->rhqk", tile(qs), tile(k))
+    seg = torch.nn.functional.pad(segments.long(), (0, Lk - L))
+    allowed = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0)
+    s = s.masked_fill(~allowed[:, None], torch.finfo(torch.bfloat16).min)
+    s[..., L:] = -torch.inf                       # past L: weight 0
+    p = torch.softmax(s, dim=-1)
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    o = (torch.einsum("rhqk,rkhd->rqhd", hi.float(), tile(v))
+         + torch.einsum("rhqk,rkhd->rqhd", lo.float(), tile(v)))
+    return o[:, :L].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("L_,hd", [(16, 32), (40, 48)])
+def test_k1_tc_arithmetic_keeps_the_one_step_bound(seed, L_, hd):
+    """The hi/lo split of P keeps the tensor-core route within one bf16
+    step of the plain version (a single bf16 P could add 2^-9 max|v|),
+    fully masked rows and the 16-key tile padding included."""
+    from odigos_tpu.features.featurizer import FeaturizerConfig
+
+    pk = jpack(jsynth(12, seed=seed), max_len=L_, config=FeaturizerConfig(),
+               pad_rows_to=lambda r: r + 2)
+    assert (pk.segments[-1] == 0).all()
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (pk.n_rows, L_, H, hd)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(3))
+    seg = torch.from_numpy(pk.segments)
+    got = _k1_tc_emulation(q, k, v, seg).float().numpy()
+    ref = segment_attention_plain(q, k, v, seg).float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_bf16_steps(ref, 1))
+
+
 class _EmbedPosMask(nn.Module):
     """SpanEmbedder + the positional add + the mask: the first lines of
     odigos_tpu's Encoder.__call__."""

@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Where a port kernel's time goes, by ablation, on one GPU.
+
+    python3 tools/torch_kernel_ablation.py
+
+The card's profilers (Nsight) do not run everywhere the port is measured,
+so this tool answers "is it the loads, the math or the stores?" by
+timing variants of each kernel with one part taken out. Each variant is
+the checkout's own source with named text edits (listed in ``VARIANTS``;
+an edit whose anchor is missing fails the run), built with the same
+``nvcc`` flags as ``odigos_tpu_torch/kernels/build.py``, and launched
+through the port's wrapper on the smoke run's main-path inputs (R = 256
+and 2048 packed rows, default ``TransformerConfig``). Times are
+``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
+host's enqueue kept out. Variants compute wrong results on purpose; only
+the unchanged build is held to the plain version.
+
+Prints the card's name and power limit, then one JSON line per (kernel,
+variant, R). Imports nothing of JAX or of the JAX package; needs a CUDA
+device and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# kernel -> variant -> {anchor text in the source: replacement}
+VARIANTS = {
+    "segment_attention": {
+        # the row copies and waits only: no attention math, no output
+        "loads_only": {
+            "      attend_item(stage, g, out, r, item / nqb, (item % nqb) "
+            "* 16, L, H, hd,\n                  inv_scale, big_neg);":
+                "      ;"},
+        # the math and the output stores only, on the zero-filled stages
+        # (every slot reads as padding: no key tile is skipped)
+        "compute_only": {
+            "  copy_row(data, g, q, k, v, seg, r, L, H, hd);\n  for (int it":
+                "  for (int it",
+            "      if (rn < R)\n        copy_row(":
+                "      if (false)\n        copy_row("},
+    },
+    "span_embed": {
+        # no service/name/parent-service row gathers from L2
+        "no_gathers": {"      if (mk[9] > 0) {": "      if (false) {"},
+        # no gathers and no sums: every slot stores zeros (the batch
+        # copies of the slots' words, the loop and the output stores)
+        "stores_only": {"      if (mk[9] > 0) {": "      if (false) {",
+                        "        if (w_c.y > 0) {": "        if (false) {"},
+    },
+}
+
+ARGTYPES = {
+    "segment_attention": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                          + [ctypes.c_float, ctypes.c_float,
+                             ctypes.c_void_p]),
+    "span_embed": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+                  + [ctypes.c_void_p],
+}
+
+
+def build_variants(tmp: str) -> dict:
+    from odigos_tpu_torch.kernels import build
+
+    procs = {}
+    for kname, variants in VARIANTS.items():
+        src = (build.CSRC / build.SOURCES[kname]).read_text()
+        for vname, edits in variants.items():
+            text = src
+            for anchor, repl in edits.items():
+                if anchor not in text:
+                    raise RuntimeError(f"{kname}/{vname}: anchor not in "
+                                       f"source: {anchor[:60]!r}")
+                text = text.replace(anchor, repl)
+            cu = os.path.join(tmp, f"{kname}-{vname}.cu")
+            with open(cu, "w") as f:
+                f.write(text)
+            so = cu[:-3] + ".so"
+            procs[(kname, vname)] = (subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
+    fns = {}
+    for (kname, vname), (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{kname}/{vname} failed to build:\n{log}")
+        fn = getattr(ctypes.CDLL(so), f"{kname}_launch")
+        fn.argtypes = ARGTYPES[kname]
+        fn.restype = ctypes.c_int
+        fns[(kname, vname)] = fn
+    return fns
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from odigos_tpu_torch.kernels import attention, build, embed
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    build.build()
+    modules = {"segment_attention": attention, "span_embed": embed}
+    built = {k: m._kernel() for k, m in modules.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build_variants(tmp)
+        fns.update({(k, "unchanged"): fn for k, fn in built.items()})
+        dev = torch.device("cuda")
+        cfg = TransformerConfig()
+        enc = TraceTransformer(cfg, device=dev, seed=0).module.encoder
+        tables = enc.tables()
+        pk = chip_smoke._packed_rows(max(chip_smoke.R_SHAPES))
+        scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        H = cfg.n_heads
+        hd = cfg.d_model // H
+        with torch.inference_mode():
+            for R in chip_smoke.R_SHAPES:
+                def rows(a, dtype):
+                    return torch.from_numpy(a[:R]).to(dev, dtype).contiguous()
+
+                cat = rows(pk.categorical, torch.int32)
+                cont = rows(pk.continuous, torch.float32)
+                seg = rows(pk.segments, torch.int32)
+                pos = rows(pk.positions, torch.int32)
+                x = embed.span_embed_plain(cat, cont, pos, seg, tables,
+                                           cfg.dtype)
+                blk = enc.blocks[0]
+                h = blk.ln1(x)
+                L = cat.shape[1]
+                q, k, v = (lin(h).view(R, L, H, hd)
+                           for lin in (blk.query, blk.key, blk.value))
+                calls = {
+                    "segment_attention": lambda: attention.segment_attention(
+                        q, k, v, seg),
+                    "span_embed": lambda: embed.span_embed(
+                        cat, cont, pos, seg, tables, cfg.dtype)}
+                for (kname, vname), fn in sorted(fns.items()):
+                    modules[kname]._fn = fn
+                    try:
+                        ms = chip_smoke.device_ms(calls[kname],
+                                                  scratch.zero_)
+                    finally:
+                        modules[kname]._fn = built[kname]
+                    print(json.dumps({"kernel": kname, "variant": vname,
+                                      "R": R, "device_ms": ms,
+                                      "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

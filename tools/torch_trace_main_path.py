@@ -13,8 +13,9 @@ activities. It prints one JSON line with:
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
   profiler saw — and the idle share of the window;
-* device time by category (K1, K2, GEMMs, LayerNorm, GELU, copies, other)
-  and the top kernels by device time;
+* device time by category (K1, K2, GEMMs, LayerNorm, GELU, copies, other),
+  each category's share of the busy time, and the top kernels by device
+  time;
 * the engine's stage medians (pack stage, device stage).
 
 It imports nothing of JAX or of the JAX package, needs a CUDA device, and
@@ -32,8 +33,8 @@ import sys
 import time
 
 CATEGORIES = (
-    ("K1 segment_attention", ("segment_attention_kernel",)),
-    ("K2 span_embed", ("span_embed_kernel",)),
+    ("K1 segment_attention", ("segment_attention",)),
+    ("K2 span_embed", ("span_embed",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("GELU", ("gelu", "GeluCUDA")),
@@ -128,6 +129,9 @@ def main() -> int:
         "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
         "device_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])),
+        "share_of_busy_by_category": {
+            c: ms / busy_ms for c, ms in sorted(by_cat.items(),
+                                                key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n[:120], "ms": v[0], "count": v[1]}
                         for n, v in top],
         "engine": stats}), flush=True)
