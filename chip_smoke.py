@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device — the card's name and power limit from ``nvidia-smi`` and
    ``torch.cuda.get_device_name(0)``;
-2. build — both CUDA kernels compiled from the checkout's sources, one
-   ``nvcc`` per source, all started together;
+2. build — every CUDA source compiled from the checkout (attention,
+   span embedding, zscore), one ``nvcc`` per source, all started together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -17,20 +17,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    function (K1: ``scaled_dot_product_attention`` under the same mask,
    held on live query slots; K2: ``embedding_bag`` over the stacked
    tables) held to the same bound; K1's f32 route (its other kernel) held
-   to its plain version at R = 256; kernel, plain and library times (CUDA
+   to its plain version at R = 256, beside f32 SDPA; kernel, plain and
+   library times (CUDA
    events, median of repeated runs, L2 flushed before each), each
    wrapper's host time per call, the same times with the host's enqueue
    kept out (device time alone), and the least time the card could take (the
    bytes this data needs — for K2 only the table rows it gathers — over
    3.35 TB/s, operations over the peak of their type);
-4. main path — the port's sidecar serving the flagship transformer at its
-   default full-width bf16 config on the card: PING, WARMUP and SCORE
+4. zscore kernels — K3 ``zscore_update`` and K4 ``zscore_score`` held
+   against their plain versions on the card at N = 4096, 65536 and 131072
+   spans, G = 8192 groups, with the otel-demo mix of synthetic traffic and
+   with every span in one group (the worst contention); the same times and
+   bound as phase 3;
+5. zscore path — the port's sidecar serving the default model, zscore, on
+   the card at full size (G 8192, min_count 32, coalescing cap 65536
+   spans, every span bucket warmed): WARMUP with 400 normal traces, SCORE
+   requests of 64 to 8192 traces and one batch with a 50x duration spike
+   in one span; the spike must score >= 0.6, every score lie in [0, 1],
+   each engine call launch K3 and K4 once, the engine run at depth 1, and
+   a replay of the same stream through the port on the CPU (the plain
+   versions) agree with the card's scores;
+6. transformer path — the port's sidecar serving the flagship transformer
+   at its default full-width bf16 config on the card: PING, WARMUP and
+   SCORE
    requests of 64 to 8192 traces (every bucket-ladder rung), then a
    concurrent burst; every reply checked (length, finite, in [0, 1]), the
    kernels' launch counters read around the scoring requests, one reply
    recomputed with the plain versions on the card, and one small request
    against an f32 CPU run of the same weights;
-5. a ``{"kernels": [...]}`` line, then the last line
+7. a ``{"kernels": [...]}`` line (K1 to K4), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -62,6 +77,17 @@ F32_ATTENTION_BOUND = 1e-5      # K1 f32 route vs plain, relative to
                                 # max(1, max |plain|): summation order
 PLAIN_PATH_BOUND = 2e-2         # |kernel path - plain path| on probabilities
 CPU_F32_BOUND = 3e-2            # |bf16 on the card - f32 on the CPU|
+
+ZS_N = (4096, 65536, 131072)    # K3/K4 shapes: a bucket, the cap, past it
+ZS_MAIN_N = 65536               # the engine's coalescing cap
+ZS_G = 8192                     # ZScoreDetector defaults
+ZS_MIN_COUNT = 32
+ZS_MEAN_ATOL = 1e-5             # K3 vs plain: f64 sums rounded to f32 may
+ZS_M2_RTOL = 1e-4               # land one f32 step apart (the reference's
+ZS_M2_ATOL = 1e-4               # streaming bound: 1e-4, 1e-3 / 1e-3)
+ZS_Z_RTOL = 1e-6                # K4 vs plain: the same IEEE-rounded ops
+ZS_CPU_BOUND = 1e-5             # zscore path, card vs CPU replay, scores
+SPIKE_FACTOR, SPIKE_MIN = 50, 0.6
 
 
 def check(ok: bool, msg: str) -> None:
@@ -136,7 +162,8 @@ def host_us(fn, calls: int = 100) -> float:
 
 def timings(kernel, plain, library, flush) -> dict:
     """The times of a kernel's wrapper, its plain version and the library
-    call: ``*_ms`` by :func:`time_ms` (the host's enqueue included where it
+    call (None where no one PyTorch call computes the same function):
+    ``*_ms`` by :func:`time_ms` (the host's enqueue included where it
     outlasts the flush), ``*device_ms`` by :func:`device_ms` (device time
     alone), and the wrapper's host time per call."""
     return {"kernel_ms": time_ms(kernel, flush),
@@ -144,8 +171,10 @@ def timings(kernel, plain, library, flush) -> dict:
             "host_us_per_call": host_us(kernel),
             "plain_ms": time_ms(plain, flush),
             "plain_device_ms": device_ms(plain, flush),
-            "library_ms": time_ms(library, flush),
-            "library_device_ms": device_ms(library, flush)}
+            "library_ms": None if library is None else time_ms(library,
+                                                               flush),
+            "library_device_ms": None if library is None else device_ms(
+                library, flush)}
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -380,16 +409,250 @@ def phase_kernels(card: str) -> dict:
                 check(f_diff <= f_lim,
                       f"segment_attention f32 R={R}: max |kernel - plain| "
                       f"{f_diff} > {f_lim}")
+                q32t, k32t, v32t = (t.transpose(1, 2) for t in
+                                    (q32, k32, v32))
+
+                def sdpa32():
+                    return F.scaled_dot_product_attention(
+                        q32t, k32t, v32t, attn_mask=allowed)
+
+                l32 = sdpa32().transpose(1, 2)
+                l32_diff = (l32[live] - f_p[live]).abs().max().item()
+                l32_lim = F32_ATTENTION_BOUND * max(
+                    1.0, f_p[live].abs().max().item())
+                check(l32_diff <= l32_lim,
+                      f"sdpa f32 R={R}: max |library - plain| on live "
+                      f"slots {l32_diff} > {l32_lim}")
+                b32_ms, b32_by = bound(2 * nbytes - R * L * 4, flops,
+                                       F32_FLOPS)
                 results[("segment_attention_f32", R)] = {
                     "name": "segment_attention_f32", "R": R,
                     "max_abs_diff": f_diff, "bound": f_lim,
-                    "kernel_ms": time_ms(lambda: attention.segment_attention(
-                        q32, k32, v32, seg), flush),
-                    "device_ms": device_ms(lambda: attention.segment_attention(
-                        q32, k32, v32, seg), flush)}
+                    **timings(lambda: attention.segment_attention(
+                        q32, k32, v32, seg),
+                        lambda: attention.segment_attention_plain(
+                            q32, k32, v32, seg), sdpa32, flush),
+                    "library_max_abs_diff_live": l32_diff,
+                    "library_bound_live": l32_lim,
+                    "bound_ms": b32_ms, "bound_by": b32_by,
+                    "bytes": 2 * nbytes - R * L * 4, "flops": flops}
     for r in results.values():
         emit({"phase": "kernels", "card": card, **r})
     return results
+
+
+def _zs_mixes(n_max: int):
+    """The two group mixes of phase 4, ``(ids, log-durations)`` of
+    ``n_max`` spans each: the otel-demo mix (featurized synthetic traces,
+    ids of a few dozen groups) and every span in one group."""
+    import numpy as np
+
+    from odigos_tpu_torch.features import featurize
+    from odigos_tpu_torch.pdata import synthesize_traces
+
+    f = featurize(synthesize_traces(n_max // 9, seed=5))
+    check(len(f) >= n_max, f"otel mix: {len(f)} spans < {n_max}")
+    otel = (np.ascontiguousarray(f.categorical[:n_max]),
+            np.ascontiguousarray(f.continuous[:n_max, 0]))
+    single = (np.tile(otel[0][:1], (n_max, 1)), otel[1].copy())
+    return {"otel": otel, "single": single}
+
+
+def phase_zscore_kernels(card: str) -> dict:
+    import torch
+
+    from odigos_tpu_torch.kernels import zscore
+
+    dev = torch.device("cuda")
+    scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch_l2.zero_()
+
+    mixes = _zs_mixes(max(ZS_N))
+    # a non-empty state: a plain update of 20000 otel-demo spans
+    cat0, x0 = (torch.from_numpy(a[:20000]).to(dev) for a in mixes["otel"])
+    zero = [torch.zeros(ZS_G, device=dev) for _ in range(3)]
+    state = zscore.zscore_update_plain(*zero, cat0, x0, torch.ones_like(x0),
+                                       ZS_G)
+    check(zscore.update_route(ZS_G) == "shared",
+          "zscore G=8192 not on the shared-memory route")
+    sums = zscore.new_scratch(ZS_G, dev)
+    results: dict = {}
+    for mix, (cat_np, x_np) in mixes.items():
+        for N in ZS_N:
+            cat = torch.from_numpy(cat_np[:N]).to(dev)
+            x = torch.from_numpy(x_np[:N]).to(dev)
+            w = torch.ones_like(x)
+            C = cat.shape[1]
+
+            def k3():
+                return zscore.zscore_update(*state, cat, x, w, ZS_G,
+                                            scratch=sums)
+
+            def k3_plain():
+                return zscore.zscore_update_plain(*state, cat, x, w, ZS_G)
+
+            def k4():
+                return zscore.zscore_score(*state, cat, x, ZS_G,
+                                           ZS_MIN_COUNT, squash=True)
+
+            def k4_plain():
+                z = zscore.zscore_score_plain(*state, cat, x, ZS_G,
+                                              ZS_MIN_COUNT)
+                return z, zscore.squash_plain(z), (z == 0).sum()
+
+            got, ref = k3(), k3_plain()
+            (z, sc, cold), (z_p, sc_p, cold_p) = k4(), k4_plain()
+            torch.cuda.synchronize()
+            check(not sums.any(), f"zscore_update N={N} {mix}: scratch "
+                                  f"not back to 0")
+            check(torch.equal(got[0], ref[0]),
+                  f"zscore_update N={N} {mix}: count differs")
+            d_mean = (got[1] - ref[1]).abs().max().item()
+            m2_excess = ((got[2] - ref[2]).abs() - ZS_M2_RTOL
+                         * ref[2].abs()).max().item()
+            check(d_mean <= ZS_MEAN_ATOL and m2_excess <= ZS_M2_ATOL,
+                  f"zscore_update N={N} {mix}: |mean diff| {d_mean}, m2 "
+                  f"beyond rtol by {m2_excess}")
+            k3_diff = max((a - b).abs().max().item()
+                          for a, b in zip(got, ref))
+            dz = ((z - z_p).abs() / z_p.abs().clamp(min=1)).max().item()
+            ds = (sc - sc_p).abs().max().item()
+            check(dz <= ZS_Z_RTOL and ds <= ZS_Z_RTOL
+                  and int(cold) == int(cold_p),
+                  f"zscore_score N={N} {mix}: z rel diff {dz}, score diff "
+                  f"{ds}, cold {int(cold)} vs {int(cold_p)}")
+            groups = int(torch.unique(zscore.group_ids(cat, ZS_G)).numel())
+            # bytes the functions need: ids (2 columns), durations and
+            # weights once; K3 reads and writes the whole state (it is
+            # out of place), K4 gathers the state of the groups present
+            # and writes z and the score
+            k3_bytes = N * (8 + 4 + 4) + 2 * 3 * ZS_G * 4
+            k3_flops = 8 * N + 10 * ZS_G
+            k4_bytes = N * (8 + 4) + groups * 12 + N * 8 + 4
+            k4_flops = 10 * N
+            for name, fn, plain, nb, fl, diff in (
+                    ("zscore_update", k3, k3_plain, k3_bytes, k3_flops,
+                     k3_diff),
+                    ("zscore_score", k4, k4_plain, k4_bytes, k4_flops,
+                     max(dz, ds))):
+                b_ms, b_by = bound(nb, fl, F32_FLOPS)
+                results[(name, mix, N)] = {
+                    "name": name, "mix": mix, "N": N, "G": ZS_G, "C": C,
+                    "groups_present": groups, "max_abs_diff": diff,
+                    **timings(fn, plain, None, flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                    "flops": fl}
+    for r in results.values():
+        emit({"phase": "zscore_kernels", "card": card, **r})
+    return results
+
+
+def _spike_batch(seed: int = 99):
+    """Fresh traffic with one SERVER span's duration multiplied by
+    ``SPIKE_FACTOR`` (the JAX package's e2e spike)."""
+    import dataclasses
+
+    import numpy as np
+
+    from odigos_tpu_torch.pdata import SpanKind, synthesize_traces
+
+    batch = synthesize_traces(10, seed=seed)
+    i = int(np.argmax(batch.col("kind") == int(SpanKind.SERVER)))
+    cols = dict(batch.columns)
+    end = cols["end_unix_nano"].copy()
+    end[i] = cols["start_unix_nano"][i] + int(batch.duration_ns[i]) \
+        * SPIKE_FACTOR
+    cols["end_unix_nano"] = end
+    return dataclasses.replace(batch, columns=cols), i
+
+
+def phase_zscore_path(card: str) -> dict:
+    import numpy as np
+
+    from odigos_tpu_torch.features import featurize
+    from odigos_tpu_torch.kernels import zscore
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import (EngineConfig, ScoringEngine,
+                                          SidecarClient, SidecarServer)
+    from odigos_tpu_torch.wire.codec import decode_batch, encode_batch
+
+    warm = synthesize_traces(400, seed=7)
+    batches = [synthesize_traces(n, seed=500 + i)
+               for i, n in enumerate(MAIN_PATH_TRACES)]
+    spiked, spike_i = _spike_batch()
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = os.path.join(tmp, "score.sock")
+        t0 = time.monotonic()
+        engine = ScoringEngine(EngineConfig(
+            model="zscore", device="cuda", max_batch_spans=ZS_MAIN_N,
+            warm_ladder=True))
+        det = engine.backend.det
+        check(det.n_groups == ZS_G and det.min_count == ZS_MIN_COUNT,
+              "zscore engine not at the detector defaults")
+        server = SidecarServer(engine, sock, score_timeout_s=60.0).start()
+        start_s = time.monotonic() - t0
+        client = SidecarClient(sock)
+        try:
+            client.ping()
+            client.warmup(warm)
+            zscore.update_launches = 0
+            zscore.score_launches = 0
+            calls0 = engine.device_calls
+            requests, replies = [], []
+            t_seq = time.perf_counter()
+            for b in batches:
+                t = time.perf_counter()
+                s = client.score(b, timeout_s=120.0)
+                lat = (time.perf_counter() - t) * 1e3
+                _check_scores(s, len(b), f"zscore SCORE of {len(b)} spans")
+                replies.append(s)
+                requests.append({"spans": len(b),
+                                 "bucket": engine.backend.last_shape[0],
+                                 "latency_ms": lat})
+            seq_s = time.perf_counter() - t_seq
+            s = client.score(spiked, timeout_s=120.0)
+            _check_scores(s, len(spiked), "zscore SCORE of the spike")
+            replies.append(s)
+            launches = {"zscore_update": zscore.update_launches,
+                        "zscore_score": zscore.score_launches}
+            calls = engine.device_calls - calls0
+        finally:
+            client.close()
+        stats = engine.stats()
+        server.shutdown()
+    spike_score = float(replies[-1][spike_i])
+    check(spike_score >= SPIKE_MIN,
+          f"the {SPIKE_FACTOR}x spike scored {spike_score} < {SPIKE_MIN}")
+    check(calls == len(batches) + 1 and all(
+        v == calls for v in launches.values()),
+        f"zscore launches {launches} for {calls} engine calls")
+    check(stats["pipeline_depth"] == 1,
+          f"zscore engine at depth {stats['pipeline_depth']}")
+    # the same stream through the port on the CPU: the plain versions
+    cpu = ScoringEngine(EngineConfig(model="zscore", device="cpu"))
+    cpu.warmup(decode_batch(encode_batch(warm)))
+    cpu_diff = 0.0
+    for b, got in zip(batches + [spiked], replies):
+        b = decode_batch(encode_batch(b))
+        ref = cpu.backend.score(b, featurize(b))
+        cpu_diff = max(cpu_diff, float(np.abs(ref - got).max()))
+    check(cpu_diff <= ZS_CPU_BOUND,
+          f"zscore card vs CPU replay {cpu_diff} > {ZS_CPU_BOUND}")
+    seq_spans = sum(r["spans"] for r in requests)
+    out = {"phase": "zscore_path", "card": card,
+           "config": f"ZScoreDetector() G={ZS_G} min_count={ZS_MIN_COUNT}, "
+                     f"max_batch_spans={ZS_MAIN_N}",
+           "server_start_s": start_s, "requests": requests,
+           "sequential_spans_per_s": seq_spans / seq_s,
+           "spike": {"factor": SPIKE_FACTOR, "score": spike_score,
+                     "min": SPIKE_MIN},
+           "device_calls": calls, "launches": launches,
+           "cpu_replay_max_abs_diff": cpu_diff,
+           "cpu_replay_bound": ZS_CPU_BOUND, "engine": stats}
+    emit(out)
+    return out
 
 
 def _check_scores(scores, n: int, what: str) -> None:
@@ -536,37 +799,58 @@ def main() -> int:
     card, name = phase_device()
     phase_build()
     kern = phase_kernels(card)
+    zs_kern = phase_zscore_kernels(card)
+    zs_path = phase_zscore_path(card)
     main_path = phase_main_path(card)
     R = max(R_SHAPES)
-    sources = {"segment_attention": "odigos_tpu_torch/kernels/csrc/"
-                                    "segment_attention.cu",
-               "span_embed": "odigos_tpu_torch/kernels/csrc/span_embed.cu"}
+    src = "odigos_tpu_torch/kernels/csrc/"
+    sources = {"segment_attention": src + "segment_attention.cu",
+               "span_embed": src + "span_embed.cu",
+               "zscore_update": src + "zscore.cu",
+               "zscore_score": src + "zscore.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
-                "span_embed": "odigos_tpu/models/layers.py:35"}
+                "span_embed": "odigos_tpu/models/layers.py:35",
+                "zscore_update": "odigos_tpu/models/zscore.py:101",
+                "zscore_score": "odigos_tpu/models/zscore.py:87"}
     designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
-               "span_embed": "warp-per-slot vec16, small tables in smem"}
-    lines = []
-    for kname in ("segment_attention", "span_embed"):
-        r = kern[(kname, R)]
-        small = kern[(kname, min(R_SHAPES))]
-        lines.append({
+               "span_embed": "warp-per-slot vec16, small tables in smem",
+               "zscore_update": "3 launches: warp-aggregated f64 sums in "
+                                "per-CTA smem, 2 passes, Chan merge",
+               "zscore_score": "thread per span gather, squash, cold count"}
+    launches = {**main_path["launches"], **zs_path["launches"]}
+    timing_keys = ("kernel_ms", "device_ms", "plain_ms", "plain_device_ms",
+                   "library_ms", "library_device_ms", "bound_ms",
+                   "host_us_per_call", "max_abs_diff")
+
+    def line(kname: str, r: dict, extra: dict) -> dict:
+        return {
             "name": kname, "route": "cuda", "source": sources[kname],
             "replaces": replaces[kname], "design": designs[kname],
-            "launches": main_path["launches"][kname],
+            "launches": launches[kname],
             "max_abs_err": r["max_abs_diff"],
-            "max_abs_diff": r["max_abs_diff"], "bound": r["bound"],
+            "max_abs_diff": r["max_abs_diff"], "bound": r.get("bound"),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
             "plain_device_ms": r["plain_device_ms"],
             "library_device_ms": r["library_device_ms"],
-            "host_us_per_call": r["host_us_per_call"],
-            "shape_R": R, "card": card,
-            f"R{small['R']}": {k: small[k] for k in (
-                "kernel_ms", "device_ms", "plain_ms", "plain_device_ms",
-                "library_ms", "library_device_ms", "bound_ms",
-                "host_us_per_call", "max_abs_diff")}})
+            "host_us_per_call": r["host_us_per_call"], "card": card,
+            **extra}
+
+    lines = []
+    for kname in ("segment_attention", "span_embed"):
+        small = kern[(kname, min(R_SHAPES))]
+        lines.append(line(kname, kern[(kname, R)], {
+            "shape_R": R,
+            f"R{small['R']}": {k: small[k] for k in timing_keys}}))
+    for kname in ("zscore_update", "zscore_score"):
+        lines.append(line(kname, zs_kern[(kname, "otel", ZS_MAIN_N)], {
+            "shape_N": ZS_MAIN_N, "G": ZS_G, "mix": "otel",
+            **{f"{mix}_N{n}": {k: zs_kern[(kname, mix, n)][k]
+                               for k in timing_keys}
+               for mix in ("otel", "single") for n in ZS_N
+               if (mix, n) != ("otel", ZS_MAIN_N)}}))
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

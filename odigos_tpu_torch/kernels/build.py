@@ -36,6 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = {
     "segment_attention": "segment_attention.cu",
     "span_embed": "span_embed.cu",
+    "zscore": "zscore.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,26 +1,39 @@
 """Batched async scoring engine — the port's scoring stage on the GPU.
 
-A trimmed port of ``odigos_tpu/serving/engine.py``: the packed transformer
-route only. The engine contract is kept:
+A trimmed port of ``odigos_tpu/serving/engine.py`` with three models: the
+streaming z-score detector (``zscore``, the default, as in the JAX
+package), the packed trace transformer (``transformer``) and the
+deterministic test model (``mock``), chosen from ``_BACKENDS``. The engine
+contract is kept:
 
 * callers ``submit()`` batches into a **bounded** queue (``submit`` returns
   None when it is full or the engine is shutting down) and wait on a
   per-request event; ``score_sync`` returns None when its deadline passes,
   so the caller forwards the spans unscored;
-* the worker's pack stage drains the queue, **coalesces** pending requests
-  into one device call, packs on the host and *dispatches* the forward
-  without blocking: the packed arrays go to pinned host memory, are copied
-  to the card with ``non_blocking=True``, the forward and the copy of the
-  scores back to pinned memory are enqueued, and a CUDA event marks the
-  end. The pinned arrays ride in the in-flight handle until harvest, so
-  the next pack cannot overwrite a copy still in progress;
-* up to ``pipeline_depth`` calls ride in flight; the harvest stage waits
-  on the oldest call's event (the one blocking host/device interaction),
-  scatters scores back to span order and wakes the requests — FIFO, so
-  results equal the serial path's;
-* packed row counts round up to a geometric **bucket ladder** of shapes,
-  optionally all run once at ``start()`` (``warm_ladder``) so the first
-  request pays no kernel build, CUDA context or module load;
+* the worker's pack stage drains the queue and **coalesces** pending
+  requests into one device call;
+* a backend with ``dispatch`` (the transformer) is **pipelined**: the pack
+  stage packs on the host and dispatches the forward without blocking —
+  the packed arrays go to pinned host memory, are copied to the card with
+  ``non_blocking=True``, the forward and the copy of the scores back to
+  pinned memory are enqueued, and a CUDA event marks the end. The pinned
+  arrays ride in the in-flight handle until harvest, so the next pack
+  cannot overwrite a copy still in progress. Up to ``pipeline_depth``
+  calls ride in flight; the harvest stage waits on the oldest call's event
+  (the one blocking host/device interaction), scatters scores back to span
+  order and wakes the requests — FIFO, so results equal the serial path's;
+* every other backend runs at **depth 1**, its whole call in the pack
+  stage under the backend lock: zscore scores a call against the state
+  before folding the call into it (``online_update``), and that order must
+  hold call by call;
+* packed row counts round up to a geometric **bucket ladder** of shapes
+  (zscore: span buckets), optionally all run once at ``start()``
+  (``warm_ladder``) so the first request pays no kernel build, CUDA context
+  or module load;
+* ``warmup(batch)`` feeds presumed-normal traffic exactly as the reference
+  does: the backend's own ``warmup`` (zscore: an update), then a score,
+  which for zscore with ``online_update`` updates again — the batch is
+  folded into the state twice;
 * ``shutdown()`` drains queued and in-flight work losslessly.
 
 ``torch.inference_mode()`` and the current CUDA stream are per thread, so
@@ -28,10 +41,11 @@ every method that touches the device enters inference mode itself, on
 whichever thread calls it; all device work goes to that thread's current
 stream (the default stream unless the caller set another).
 
-Not ported yet (later slices, listed in ROADMAP.md): the zscore,
-autoencoder, mock and remote models, failover, device meshes, int8
-serving, the fused columns route, adaptive deadline-sized coalescing, the
-flow ledger, meters, the self-tracer and latency attribution.
+Not ported yet (later slices, listed in ROADMAP.md): the autoencoder and
+remote models, failover, device meshes, int8 serving, the fused columns
+route, adaptive deadline-sized coalescing, the flow ledger, meters (the
+cold-span count is kept in ``stats()`` under the reference's metric name
+until then), the self-tracer and latency attribution.
 """
 
 from __future__ import annotations
@@ -49,38 +63,46 @@ import torch
 
 from ..features.featurizer import (
     FeaturizerConfig, SpanFeatures, featurize, pack_sequences)
+from ..kernels.zscore import zscore_score
 from ..models.transformer import TraceTransformer, TransformerConfig
-from ..pdata.spans import SpanBatch
+from ..models.zscore import ZScoreDetector
+from ..pdata.spans import SpanBatch, concat_batches
 from ..utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 
-MODELS = ("transformer",)
+COLD_METRIC = "odigos_anomaly_cold_spans_total"
+# models of the reference that later slices port
+UNPORTED_MODELS = ("autoencoder", "remote")
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    model: str = "transformer"   # the only model ported so far
+    model: str = "zscore"        # zscore | transformer | mock
     max_queue: int = 64          # pending requests bound
     max_batch_spans: int = 65536  # coalescing cap per device call
     max_len: int = 64            # spans per packed row
     trace_bucket: int = 256      # base row-shape bucket
+    online_update: bool = True   # zscore: fit on observed traffic
     featurizer: FeaturizerConfig = field(default_factory=FeaturizerConfig)
     model_config: Optional[TransformerConfig] = None
     seed: int = 0                # random weights: no checkpoints yet
     # depth 2 = double buffering: one call packing on the host while one
-    # runs on the card
+    # runs on the card (pipelined backends only; the others clamp to 1)
     pipeline_depth: int = 2
     bucket_ladder: int = 4       # geometric row buckets above trace_bucket
     warm_ladder: bool = False    # run every ladder rung at start()
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
 
     def __post_init__(self) -> None:
-        if self.model not in MODELS:
+        if self.model in UNPORTED_MODELS:
             raise ValueError(
                 f"model {self.model!r} is not ported yet (ported: "
-                f"{list(MODELS)}; zscore, autoencoder, mock and remote are "
+                f"{sorted(_BACKENDS)}; {' and '.join(UNPORTED_MODELS)} are "
                 f"later slices)")
+        if self.model not in _BACKENDS:
+            raise ValueError(f"unknown scoring model {self.model!r} "
+                             f"(known: {sorted(_BACKENDS)})")
 
 
 class BucketLadder:
@@ -161,6 +183,10 @@ class SequenceBackend:
     blocking and ``harvest`` waits for it.
     """
 
+    # packing a coalesced group reads only these columns: the engine hands
+    # it a columns-only stand-in instead of a merged SpanBatch
+    coalesce_columns = ("trace_id_hi", "trace_id_lo", "start_unix_nano")
+
     def __init__(self, cfg: EngineConfig):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -240,6 +266,81 @@ class SequenceBackend:
             self.ladder.mark_warm(R)
 
 
+class MockBackend:
+    """Deterministic test model: score = duration percentile proxy, and
+    1.0 for spans carrying the attribute ``mock.anomaly``. Host numpy, as
+    in the reference; the device is resolved like every model's, so
+    ``"cuda"`` without a card raises here too."""
+
+    def __init__(self, cfg: EngineConfig):
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.device_label = "host"
+
+    def score(self, batch: SpanBatch, features: SpanFeatures) -> np.ndarray:
+        log_dur = features.continuous[:, 0]
+        scores = np.clip((log_dur - 5.0) / 10.0, 0.0, 1.0)
+        forced = batch.attrs().mask_has("mock.anomaly")
+        return np.where(forced, 1.0, scores).astype(np.float32)
+
+
+class ZScoreBackend:
+    """The streaming z-score detector (``models/zscore.py``) as a serial
+    backend: each call stages its features once, scores them against the
+    state with K4 — which also squashes ``1 - exp(-z/4)`` and counts cold
+    spans, on the device — then, with ``online_update``, folds them into
+    the state with K3 on the same stream, and waits once for the scores.
+    No ``dispatch``: score-then-update stays ordered call by call, so the
+    engine runs it at depth 1."""
+
+    # scoring reads features only: a coalesced group needs no merged batch
+    coalesce_columns: tuple = ()
+
+    def __init__(self, cfg: EngineConfig):
+        self.cfg = cfg
+        self.det = ZScoreDetector(device=cfg.device)
+        self.device = self.det.device
+        self.device_label = (torch.cuda.get_device_name(self.device)
+                             if self.device.type == "cuda" else "cpu")
+        self.cold_spans = 0
+        self.last_shape: Optional[list[int]] = None
+
+    @torch.inference_mode()
+    def score(self, batch: Any, features: SpanFeatures) -> np.ndarray:
+        n = len(features)
+        if n == 0:
+            return np.zeros(0, np.float32)
+        det = self.det
+        st = det.stage(features)
+        self.last_shape = [int(st.cat.shape[0])]
+        _, scores, cold = zscore_score(
+            *det.state, st.cat, st.x, det.n_groups, det.min_count,
+            squash=True, n_valid=n)
+        if self.cfg.online_update:
+            det.update_staged(st)
+        out = scores[:n].cpu().numpy()  # waits for the score and the fold
+        self.cold_spans += int(cold.item())
+        return out
+
+    def warm(self) -> None:
+        """``warm_ladder``: every span bucket the coalescer can emit gets
+        its staging buffers and one run of both kernels, state untouched."""
+        with torch.inference_mode():
+            self.det.warm(self.cfg.max_batch_spans,
+                          self.cfg.featurizer.cat_width)
+
+    @torch.inference_mode()
+    def warmup(self, batch: SpanBatch) -> None:
+        self.det.update(featurize(batch, self.cfg.featurizer))
+
+
+_BACKENDS = {
+    "mock": MockBackend,
+    "zscore": ZScoreBackend,
+    "transformer": SequenceBackend,
+}
+
+
 class _ColumnBatch:
     """Columns-only stand-in for a concatenated SpanBatch: packing a
     coalesced group reads just the trace ids and start times, so only
@@ -276,7 +377,7 @@ class _InflightGroup:
     """One dispatched-but-not-harvested device call."""
 
     reqs: list[ScoreRequest]
-    handle: _Handle
+    handle: Any       # a _Handle (pipelined) or the call's scores (serial)
     t_pack0: int      # monotonic ns: pack stage start
     t_dispatch: int   # monotonic ns: device call enqueued
 
@@ -290,8 +391,12 @@ class ScoringEngine:
 
     def __init__(self, config: Optional[EngineConfig] = None):
         self.cfg = config or EngineConfig()
-        self.backend = SequenceBackend(self.cfg)
-        self._depth = max(1, self.cfg.pipeline_depth)
+        self.backend = _BACKENDS[self.cfg.model](self.cfg)
+        # only a backend with a non-blocking dispatch can overlap; the
+        # others (zscore's ordered online update, mock) run serially
+        self._pipelined = callable(getattr(self.backend, "dispatch", None))
+        self._depth = max(1, self.cfg.pipeline_depth) \
+            if self._pipelined else 1
         self._queue: queue.Queue[ScoreRequest] = queue.Queue(
             self.cfg.max_queue)
         self._thread: Optional[threading.Thread] = None
@@ -309,9 +414,10 @@ class ScoringEngine:
     # ----------------------------------------------------------- lifecycle
     def start(self) -> "ScoringEngine":
         if self._thread is None or not self._thread.is_alive():
-            if self.cfg.warm_ladder:
+            warm = getattr(self.backend, "warm", None)
+            if self.cfg.warm_ladder and warm is not None:
                 with self._backend_lock:
-                    self.backend.warm()  # blocking: the caller opted in
+                    warm()  # blocking: the caller opted in
             # per-run stop event: a worker that outlived a timed-out join
             # keeps ITS event set instead of being resurrected
             stop = threading.Event()
@@ -372,9 +478,16 @@ class ScoringEngine:
         return None
 
     def warmup(self, batch: SpanBatch) -> None:
-        """Score one batch synchronously (first-call costs paid before
-        real traffic); runs under the backend lock."""
+        """Feed presumed-normal traffic to a streaming backend (its own
+        ``warmup``), then score the batch synchronously so first-call costs
+        are paid before real traffic — as the reference does, so a zscore
+        engine with ``online_update`` folds the batch in twice. Runs under
+        the backend lock: a worker scoring concurrent traffic must not
+        interleave with the fit."""
         with self._backend_lock:
+            w = getattr(self.backend, "warmup", None)
+            if w is not None:
+                w(batch)
             self.backend.score(batch, featurize(batch, self.cfg.featurizer))
 
     def stats(self) -> dict[str, Any]:
@@ -384,7 +497,7 @@ class ScoringEngine:
             return float(np.percentile([c[key] for c in log_], 50)) \
                 if log_ else 0.0
 
-        return {
+        out = {
             "model": self.cfg.model,
             "device": self.backend.device_label,
             "pipeline_depth": self._depth,
@@ -392,10 +505,16 @@ class ScoringEngine:
             "errors": self.errors,
             "rejected": self.rejected,
             "passthrough_spans": self.passthrough_spans,
+            # a serial backend's whole call, device wait included, is in
+            # its pack stage
             "stage_pack_ms_p50": p50("pack_ms"),
             "stage_device_ms_p50": p50("device_ms"),
-            "bucket_ladder": self.backend.ladder.stats(),
+            COLD_METRIC: getattr(self.backend, "cold_spans", 0),
         }
+        ladder = getattr(self.backend, "ladder", None)
+        if ladder is not None:
+            out["bucket_ladder"] = ladder.stats()
+        return out
 
     # -------------------------------------------------------------- worker
     def _worker(self, stop: threading.Event) -> None:
@@ -445,17 +564,26 @@ class ScoringEngine:
     def _dispatch_group(self, reqs: list[ScoreRequest]
                         ) -> Optional[_InflightGroup]:
         t0 = time.monotonic_ns()
+        backend = self.backend
         try:
             if len(reqs) == 1:
                 merged: Any = reqs[0].batch
                 feats = reqs[0].features
             else:
-                merged = _ColumnBatch([r.batch for r in reqs])
+                if getattr(backend, "coalesce_columns", None) is not None:
+                    merged = _ColumnBatch([r.batch for r in reqs])
+                else:  # the backend reads more than columns (mock: attrs)
+                    merged = concat_batches([r.batch for r in reqs])
                 feats = SpanFeatures(
                     np.concatenate([r.features.categorical for r in reqs]),
                     np.concatenate([r.features.continuous for r in reqs]))
             with self._backend_lock:
-                handle = self.backend.dispatch(merged, feats)
+                if self._pipelined:
+                    handle = backend.dispatch(merged, feats)
+                else:
+                    # depth 1: the whole call, here and in order; the
+                    # handle is the scores
+                    handle = backend.score(merged, feats)
         except Exception:
             self.errors += 1
             log.exception("scoring dispatch failed")
@@ -469,8 +597,11 @@ class ScoringEngine:
     def _retire(self, grp: _InflightGroup) -> None:
         """Harvest the oldest call, split scores per request, wake them."""
         try:
-            with self._backend_lock:
-                scores = self.backend.harvest(grp.handle)
+            if self._pipelined:
+                with self._backend_lock:
+                    scores = self.backend.harvest(grp.handle)
+            else:
+                scores = grp.handle
         except Exception:
             self.errors += 1
             log.exception("scoring harvest failed")

@@ -18,14 +18,16 @@ Wire protocol (little-endian), framed like wire/codec.py:
 
 A server-side scoring timeout answers ST_ERROR. The first calls on the
 card pay the kernel build, CUDA context and module load, so ``main`` warms
-every bucket-ladder rung before it binds the socket (``--no-warm-ladder``
-turns that off).
+every bucket-ladder rung (zscore: every span bucket) before it binds the
+socket (``--no-warm-ladder`` turns that off).
 
 Run standalone:  python -m odigos_tpu_torch.serving.sidecar \\
-                     --socket /tmp/score.sock --model transformer [--device cuda]
+                     --socket /tmp/score.sock [--model zscore] [--device cuda]
 
-The model's weights are random, drawn from ``EngineConfig.seed``:
-checkpoint bundles are not ported yet.
+``--model`` is ``zscore`` (the default, as in the JAX package: WARMUP
+fits the detector), ``transformer`` or ``mock``. The transformer's weights
+are random, drawn from ``EngineConfig.seed``: checkpoint bundles are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -319,8 +321,8 @@ def build_parser():
         description="odigos-tpu-torch scoring sidecar (unix-socket Score "
                     "server on the GPU)")
     ap.add_argument("--socket", required=True)
-    ap.add_argument("--model", default="transformer",
-                    choices=["transformer"])
+    ap.add_argument("--model", default="zscore",
+                    choices=["zscore", "transformer", "mock"])
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--max-len", type=int, default=64)
@@ -328,13 +330,16 @@ def build_parser():
     ap.add_argument("--timeout-ms", type=float, default=5000.0,
                     help="server-side scoring deadline")
     ap.add_argument("--pipeline-depth", type=int, default=2,
-                    help="in-flight device calls (1 = serial)")
+                    help="in-flight device calls (transformer; 1 = "
+                         "serial; zscore and mock always run serially)")
     ap.add_argument("--bucket-ladder", type=int, default=4,
-                    help="geometric row-shape buckets above --trace-bucket")
+                    help="geometric row-shape buckets above --trace-bucket "
+                         "(transformer)")
     ap.add_argument("--warm-ladder", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="run every ladder rung before serving (default on:"
-                         " the first call otherwise pays the kernel build)")
+                    help="run every ladder rung (zscore: span bucket) "
+                         "before serving (default on: the first call "
+                         "otherwise pays the kernel build)")
     return ap
 
 

@@ -12,6 +12,13 @@ so it runs on the card's machine, which has no JAX:
 Bounds: a kernel and its plain version compute in f32 from the same inputs
 and round once, so in bf16 they may differ by one rounding step at the
 largest output magnitude (2^-7 relative); in f32 by summation order only.
+The zscore kernels (K3, K4) take the same f32 per-span terms as their plain
+versions and sum them in f64 as they do, in another order (atomics): the
+state agrees with the plain version's within ``ZS_MEAN_ATOL`` /
+``ZS_M2_RTOL`` / ``ZS_M2_ATOL`` (a rounding of an f64 sum to f32 may land
+one f32 step apart; tighter than the reference's own streaming bound, mean
+atol 1e-4 and M2 rtol 1e-3 / atol 1e-3), ``count`` exactly; z and the
+squashed score are IEEE-rounded the same way, within ``ZS_Z_RTOL``.
 """
 
 import math
@@ -21,13 +28,14 @@ import pytest
 import torch
 
 from odigos_tpu_torch.features import featurize, pack_sequences
-from odigos_tpu_torch.kernels import attention, embed
+from odigos_tpu_torch.kernels import attention, embed, zscore
 from odigos_tpu_torch.kernels.attention import (segment_attention,
                                                 segment_attention_plain)
 from odigos_tpu_torch.kernels.embed import (EmbedTables, span_embed,
                                             span_embed_plain)
 from odigos_tpu_torch.features import FeaturizerConfig
-from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+from odigos_tpu_torch.models import (TraceTransformer, TransformerConfig,
+                                     ZScoreDetector)
 from odigos_tpu_torch.pdata import synthesize_traces
 from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
 
@@ -228,7 +236,8 @@ def test_forward_kernel_path_matches_plain_path(dev, dtype):
 def test_gpu_engine_scores_like_the_cpu_engine_in_f32(dev):
     """The card's engine (pinned copies, events, depth-2 window, several
     coalesced requests) against the CPU engine on the same weights."""
-    cfg = dict(model_config=TransformerConfig(dtype=torch.float32),
+    cfg = dict(model="transformer",
+               model_config=TransformerConfig(dtype=torch.float32),
                trace_bucket=16, warm_ladder=True)
     gpu = ScoringEngine(EngineConfig(device="cuda", **cfg))
     cpu = ScoringEngine(EngineConfig(device="cpu", **cfg))
@@ -245,3 +254,166 @@ def test_gpu_engine_scores_like_the_cpu_engine_in_f32(dev):
     finally:
         gpu.shutdown()
     assert gpu.stats()["errors"] == 0
+
+
+# ------------------------------------------------------------ zscore (K3, K4)
+ZS_MEAN_ATOL = 1e-5
+ZS_M2_RTOL = 1e-4
+ZS_M2_ATOL = 1e-4
+ZS_Z_RTOL = 1e-6
+ZS_GLOBAL_G = 20000  # 2 x G doubles exceed shared memory: the global route
+
+
+@pytest.fixture(scope="module")
+def otel_mix():
+    """(ids, log-durations) of 140k spans of synthetic otel-demo traffic."""
+    batch = synthesize_traces(14000, seed=5)
+    f = featurize(batch)
+    return f.categorical[:, :2].copy(), f.continuous[:, 0].copy()
+
+
+def _mix(kind: str, n: int, otel_mix, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    if kind == "otel":
+        cat, x = otel_mix
+        assert len(x) >= n
+        return cat[:n], x[:n]
+    x = rng.normal(9.0, 1.5, n).astype(np.float32)
+    if kind == "uniform":
+        cat = rng.integers(0, 2 ** 31 - 1, (n, 2)).astype(np.int32)
+    else:  # every span in one group: the worst contention
+        cat = np.tile(np.array([[3, 17]], np.int32), (n, 1))
+    return cat, x
+
+
+def _zs_state(dev, G: int, otel_mix):
+    """A non-empty state: one plain update of 20k otel-demo spans."""
+    cat, x = otel_mix
+    zero = [torch.zeros(G, device=dev) for _ in range(3)]
+    t = [torch.from_numpy(a[:20000]).to(dev) for a in (cat, x)]
+    return zscore.zscore_update_plain(*zero, t[0], t[1],
+                                      torch.ones_like(t[1]), G)
+
+
+def _assert_zs_state(got, ref):
+    assert torch.equal(got[0], ref[0])
+    assert (got[1] - ref[1]).abs().max().item() <= ZS_MEAN_ATOL
+    assert ((got[2] - ref[2]).abs() <= ZS_M2_ATOL
+            + ZS_M2_RTOL * ref[2].abs()).all()
+
+
+@pytest.mark.parametrize("mix", ["otel", "uniform", "single"])
+@pytest.mark.parametrize("G", [1000, 8192, ZS_GLOBAL_G])
+@pytest.mark.parametrize("N", [1, 4095, 65536, 131072])
+def test_zscore_kernels_match_plain(dev, otel_mix, N, G, mix):
+    state = _zs_state(dev, G, otel_mix)
+    cat_np, x_np = _mix(mix, N, otel_mix)
+    cat = torch.from_numpy(np.ascontiguousarray(cat_np)).to(dev)
+    x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
+    w = torch.ones_like(x)
+    w[::7] = 0.0  # padding rows weigh 0
+    scratch = zscore.new_scratch(G, dev)
+    u0, s0 = zscore.update_launches, zscore.score_launches
+    got = zscore.zscore_update(*state, cat, x, w, G, scratch=scratch)
+    ref = zscore.zscore_update_plain(*state, cat, x, w, G)
+    z, s, cold = zscore.zscore_score(*got, cat, x, G, 32, squash=True,
+                                     n_valid=N - N // 3)
+    z_ref = zscore.zscore_score_plain(*got, cat, x, G, 32)
+    torch.cuda.synchronize()
+    assert zscore.update_launches == u0 + 1
+    assert zscore.score_launches == s0 + 1
+    _assert_zs_state(got, ref)
+    assert not scratch.any()  # the merge left the scratch at 0
+    assert torch.isfinite(z).all()
+    assert ((z - z_ref).abs() <= ZS_Z_RTOL * z_ref.abs().clamp(min=1)).all()
+    s_ref = zscore.squash_plain(z_ref)
+    assert ((s - s_ref).abs() <= ZS_Z_RTOL).all()
+    assert int(cold) == int((z[:N - N // 3] == 0).sum())
+
+
+def test_zscore_all_zero_weights_leave_the_state_bit_identical(dev,
+                                                               otel_mix):
+    for G in (8192, ZS_GLOBAL_G):
+        state = _zs_state(dev, G, otel_mix)
+        cat, x = (torch.from_numpy(a[:65536]).to(dev) for a in otel_mix)
+        got = zscore.zscore_update(*state, cat, x, torch.zeros_like(x), G)
+        for a, b in zip(got, state):
+            assert torch.equal(a, b)
+
+
+def test_zscore_detector_warm_is_bit_safe_on_the_card(dev, otel_mix):
+    det = ZScoreDetector(device=dev)
+    cat, x = otel_mix
+    feats = featurize(synthesize_traces(300, seed=9))
+    det.update(feats)
+    before = [t.clone() for t in det.state]
+    det.warm(max_spans=65536, cat_width=feats.categorical.shape[1])
+    torch.cuda.synchronize()
+    for a, b in zip(before, det.state):
+        assert torch.equal(a, b)
+    assert sorted(b for b, _ in det._staging) == [
+        4096, 8192, 16384, 32768, 65536, 131072]
+
+
+def test_zscore_200_updates_do_not_drift_from_the_plain_stream(dev,
+                                                               otel_mix):
+    rng = np.random.default_rng(11)
+    cat_np, x_np = otel_mix
+    G = 8192
+    k = [torch.zeros(G, device=dev) for _ in range(3)]
+    p = [t.clone() for t in k]
+    scratch = zscore.new_scratch(G, dev)
+    for i in range(200):
+        n = int(rng.integers(1, 6000))
+        lo = int(rng.integers(0, len(x_np) - n))
+        cat = torch.from_numpy(cat_np[lo:lo + n]).to(dev)
+        x = torch.from_numpy(x_np[lo:lo + n]).to(dev)
+        w = torch.ones_like(x)
+        k = zscore.zscore_update(*k, cat, x, w, G, scratch=scratch)
+        p = zscore.zscore_update_plain(*p, cat, x, w, G)
+    torch.cuda.synchronize()
+    _assert_zs_state(k, p)
+
+
+def test_zscore_kernels_refuse_what_they_do_not_take(dev):
+    G = 64
+    state = [torch.zeros(G, device=dev) for _ in range(3)]
+    x = torch.zeros(10, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        zscore.zscore_score(*state, torch.zeros((10, 5), dtype=torch.int64,
+                                                device=dev), x, G, 32)
+    with pytest.raises(ValueError, match="scratch"):
+        zscore.zscore_update(*state, torch.zeros((10, 5), dtype=torch.int32,
+                                                 device=dev), x,
+                             torch.ones_like(x), G,
+                             scratch=torch.zeros((3, G), device=dev))
+
+
+def test_gpu_zscore_engine_scores_like_the_cpu_engine(dev):
+    """The card's zscore engine (staging, K4 then K3 per call, one wait)
+    against the CPU engine (plain versions) over the same warm-up and
+    stream; one K3 and one K4 call per engine call."""
+    gpu = ScoringEngine(EngineConfig(model="zscore", device="cuda",
+                                     warm_ladder=True))
+    cpu = ScoringEngine(EngineConfig(model="zscore", device="cpu"))
+    warm = synthesize_traces(400, seed=7)
+    gpu.warmup(warm)
+    cpu.warmup(warm)
+    batches = [synthesize_traces(20 + 300 * i, seed=40 + i)
+               for i in range(6)]
+    gpu.start()
+    u0, s0 = zscore.update_launches, zscore.score_launches
+    try:
+        for b in batches:
+            got = gpu.score_sync(b, timeout_s=120)
+            ref = cpu.backend.score(b, featurize(b))
+            assert got is not None
+            np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    finally:
+        gpu.shutdown()
+    stats = gpu.stats()
+    assert stats["pipeline_depth"] == 1 and stats["errors"] == 0
+    assert zscore.update_launches - u0 == stats["device_calls"] == 6
+    assert zscore.score_launches - s0 == 6
+    _assert_zs_state(gpu.backend.det.state, [
+        t.to(dev) for t in cpu.backend.det.state])

@@ -51,12 +51,13 @@ def test_port_has_the_slice_modules():
     rel = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     for mod in ("pdata/attrstore.py", "pdata/spans.py", "pdata/gen.py",
                 "features/featurizer.py", "kernels/attention.py",
-                "kernels/embed.py", "kernels/build.py", "models/layers.py",
-                "models/transformer.py", "models/convert.py",
+                "kernels/embed.py", "kernels/build.py", "kernels/zscore.py",
+                "models/layers.py", "models/transformer.py",
+                "models/convert.py", "models/zscore.py",
                 "serving/engine.py", "serving/sidecar.py",
                 "utils/framing.py", "wire/codec.py"):
         assert mod in rel, mod
-    for src in ("segment_attention.cu", "span_embed.cu"):
+    for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -105,11 +106,13 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 def test_entry_points_default_to_cuda():
     import inspect
 
-    from odigos_tpu_torch.models import TraceTransformer
+    from odigos_tpu_torch.models import TraceTransformer, ZScoreDetector
     from odigos_tpu_torch.serving import EngineConfig
     from odigos_tpu_torch.serving.sidecar import build_parser
 
     assert inspect.signature(TraceTransformer).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(ZScoreDetector).parameters[
         "device"].default == "cuda"
     assert EngineConfig().device == "cuda"
     assert build_parser().parse_args(["--socket", "x"]).device == "cuda"

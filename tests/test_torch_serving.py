@@ -38,7 +38,8 @@ F32_TOL = 1e-5
 
 
 def _port_engine(**kw) -> ScoringEngine:
-    cfg = dict(model_config=TransformerConfig(**SMALL, dtype=torch.float32),
+    cfg = dict(model="transformer",
+               model_config=TransformerConfig(**SMALL, dtype=torch.float32),
                max_len=16, trace_bucket=8, device="cpu")
     cfg.update(kw)
     return ScoringEngine(EngineConfig(**cfg))
@@ -208,15 +209,22 @@ def test_concurrent_submitters_all_get_their_scores():
 
 
 def test_unported_models_and_missing_card_raise(sock_path):
+    # zscore (the default, as in the JAX package) and mock are ported now;
+    # the autoencoder and the remote model are later slices
+    assert EngineConfig(model="zscore").model == EngineConfig().model
+    EngineConfig(model="mock")
     with pytest.raises(ValueError, match="not ported"):
-        EngineConfig(model="zscore")
+        EngineConfig(model="autoencoder")
+    with pytest.raises(ValueError, match="unknown scoring model"):
+        EngineConfig(model="nope")
     assert EngineConfig().device == "cuda"
+    assert build_parser().parse_args(["--socket", "s"]).model == "zscore"
     assert build_parser().parse_args(["--socket", "s"]).device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this pins the no-card path")
     with pytest.raises(RuntimeError, match="is_available"):
         ScoringEngine(EngineConfig(
-            model_config=TransformerConfig(**SMALL)))
+            model="transformer", model_config=TransformerConfig(**SMALL)))
     with pytest.raises(RuntimeError, match="is_available"):
         main(["--socket", sock_path])
     assert not os.path.exists(sock_path)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch/CUDA port's main path, on one GPU.
 
-    python3 tools/torch_trace_main_path.py [--traces 4096] [--requests 6]
+    python3 tools/torch_trace_main_path.py [--model transformer|zscore]
+                                           [--traces 4096] [--requests 6]
 
-Starts the port's ``ScoringEngine`` at the default ``TransformerConfig``
-(bf16, full width) on the card with the ladder warmed, then scores
+Starts the port's ``ScoringEngine`` on the card with the ladder warmed —
+the default ``TransformerConfig`` (bf16, full width), or with ``--model
+zscore`` the default ``ZScoreDetector`` (G 8192, every span bucket warmed,
+fitted first on 400 traces through ``warmup``) — then scores
 ``--requests`` synthetic batches of ``--traces`` traces each, one after
 another through ``score_sync`` (the engine path the sidecar calls, minus
 the socket and wire codec), under ``torch.profiler`` with CPU and CUDA
@@ -13,7 +16,8 @@ activities. It prints one JSON line with:
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
   profiler saw — and the idle share of the window;
-* device time by category (K1, K2, GEMMs, LayerNorm, GELU, copies, other),
+* device time by category (K1, K2, K3, K4, GEMMs, LayerNorm, GELU,
+  copies, other),
   each category's share of the busy time, and the top kernels by device
   time;
 * the engine's stage medians (pack stage, device stage).
@@ -35,6 +39,8 @@ import time
 CATEGORIES = (
     ("K1 segment_attention", ("segment_attention",)),
     ("K2 span_embed", ("span_embed",)),
+    ("K3 zscore_update", ("zscore_pass", "zscore_merge")),
+    ("K4 zscore_score", ("zscore_score",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("GELU", ("gelu", "GeluCUDA")),
@@ -64,6 +70,8 @@ def union_us(intervals: list[tuple[float, float]]) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="transformer",
+                    choices=["transformer", "zscore"])
     ap.add_argument("--traces", type=int, default=4096)
     ap.add_argument("--requests", type=int, default=6)
     args = ap.parse_args()
@@ -87,9 +95,11 @@ def main() -> int:
     print(card, flush=True)
     batches = [synthesize_traces(args.traces, seed=300 + i)
                for i in range(args.requests + 1)]
-    engine = ScoringEngine(EngineConfig(device="cuda",
+    engine = ScoringEngine(EngineConfig(model=args.model, device="cuda",
                                         warm_ladder=True)).start()
     try:
+        if args.model == "zscore":
+            engine.warmup(synthesize_traces(400, seed=7))
         if engine.score_sync(batches[0], timeout_s=120) is None:
             raise RuntimeError("warm-up request timed out")
         torch.cuda.synchronize()
@@ -122,7 +132,7 @@ def main() -> int:
     spans = sum(len(b) for b in batches[1:])
     print(json.dumps({
         "card": card, "torch_device": torch.cuda.get_device_name(0),
-        "requests": args.requests, "traces_per_request": args.traces,
+        "model": args.model, "requests": args.requests, "traces_per_request": args.traces,
         "spans": spans, "window_s": wall_s,
         "spans_per_s": spans / wall_s,
         "device_busy_ms": busy_ms,
