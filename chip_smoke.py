@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device — the card's name and power limit from ``nvidia-smi`` and
    ``torch.cuda.get_device_name(0)``;
 2. build — every CUDA source compiled from the checkout (attention,
-   span embedding, zscore), one ``nvcc`` per source, all started together;
+   span embedding, zscore, trace sort, featurize, trace pack, span head),
+   one ``nvcc`` per source, all started together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -45,7 +46,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels' launch counters read around the scoring requests, one reply
    recomputed with the plain versions on the card, and one small request
    against an f32 CPU run of the same weights;
-7. a ``{"kernels": [...]}`` line (K1 to K4), then the last line
+7. fused kernels — K5 ``featurize_columns``, K6 ``radix_sort``, K7
+   ``next_fit_pack`` and K8 ``span_head_scatter`` held against their plain
+   versions on the card at span buckets N = 4096, 65536 and 131072, on the
+   otel-demo mix and on an adversarial frame (a trace of 200 spans, ids at
+   or above 2**63, tied starts, duplicate span ids, orphans), each at the
+   shapes the fused route gives it (K8 on the encoder's own output); the
+   same times and bound as phase 3, K6's digit passes, and the library
+   call where one computes the same function (K6's one-frame join sort:
+   ``torch.sort(stable=True)`` on the sign-flipped span ids);
+8. fused path — the transformer at full width, bf16, ladder and span
+   buckets warmed, through the engine's ``submit(batch, columns=...)``:
+   the sequential requests of phase 6, then a coalesced burst; every reply
+   checked, the kernels' launch counters read around the run (each of K1,
+   K2 and K5-K8 must have launched, K5, K7, K8 once and K6 twice per
+   fused call), the same requests scored on the host route of the same
+   engine, one request against an f32 CPU run of the fused route, a
+   legacy-JSON frame sent down the host route with its reason counted, and
+   the share of the forward's device time that the padded rows take;
+9. a ``{"kernels": [...]}`` line (K1 to K8), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -88,6 +107,14 @@ ZS_M2_ATOL = 1e-4               # streaming bound: 1e-4, 1e-3 / 1e-3)
 ZS_Z_RTOL = 1e-6                # K4 vs plain: the same IEEE-rounded ops
 ZS_CPU_BOUND = 1e-5             # zscore path, card vs CPU replay, scores
 SPIKE_FACTOR, SPIKE_MIN = 50, 0.6
+
+FUSED_N = (4096, 65536, 131072)  # K5-K8 shapes: span buckets
+FUSED_MAIN_N = 65536            # the coalescing cap's bucket
+FEAT_CONT_RTOL = 2.0 ** -23     # K5 log-duration: one f32 step (both take
+                                # log1p in f64 and round once)
+HEAD_BF16_ATOL = 2e-3           # K8 in bf16: the LN output may round to a
+                                # neighbouring bf16 value before the dot
+SPANS_PER_TRACE = 10.3          # synthesize_traces' mean (otel-demo mix)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -786,6 +813,376 @@ def phase_main_path(card: str) -> dict:
     return out
 
 
+def _fused_frame(N: int, kind: str):
+    """A frame whose spans fill span bucket ``N`` (just under it): the
+    otel-demo mix, or the adversarial frame."""
+    from odigos_tpu_torch.pdata import adversarial_traces, synthesize_traces
+    from odigos_tpu_torch.serving.fused import _span_bucket
+
+    k = int(N / SPANS_PER_TRACE * 0.95)
+    make = synthesize_traces if kind == "otel" else adversarial_traces
+    batch = make(k, seed=71 if kind == "otel" else 72)
+    check(_span_bucket(len(batch)) == N,
+          f"{kind} frame of {len(batch)} spans misses bucket {N}")
+    return batch
+
+
+def _staged(batch, dev):
+    """The frame's columns staged as the fused route stages them (a CPU
+    backend's staging, then moved to the card), with its span count."""
+    import torch
+
+    from odigos_tpu_torch.models import TransformerConfig
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+    from odigos_tpu_torch.serving.fused import _span_bucket, extract_columns
+
+    be = ScoringEngine(EngineConfig(
+        model="transformer", device="cpu",
+        model_config=TransformerConfig(d_model=32, n_heads=2, n_layers=1,
+                                       d_ff=64, dtype=torch.float32))).backend
+    cols, reason = extract_columns(batch)
+    check(reason is None, f"fused frame refused: {reason}")
+    st = be._prep_columns([cols], _span_bucket(len(batch)))
+    moved = {k: v.to(dev).contiguous() for k, v in st.cols.items()}
+    return (len(batch), st.service_table.to(dev).contiguous(),
+            st.name_table.to(dev).contiguous(), moved)
+
+
+def phase_fused_kernels(card: str) -> dict:
+    import torch
+
+    from odigos_tpu_torch.kernels import featurize as kfeat
+    from odigos_tpu_torch.kernels import head as khead
+    from odigos_tpu_torch.kernels import pack as kpack
+    from odigos_tpu_torch.kernels import sort as ksort
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+    from odigos_tpu_torch.serving.engine import BucketLadder
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig()
+    model = TraceTransformer(cfg, device=dev, seed=0)
+    enc = model.module.encoder
+    ladder = BucketLadder(256, 4)       # EngineConfig's default ladder
+    L = cfg.max_len
+    d = cfg.d_model
+    scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch_l2.zero_()
+
+    results: dict = {}
+    for kind in ("otel", "adversarial"):
+        for N in FUSED_N:
+            n, svc_t, nam_t, c = _staged(_fused_frame(N, kind), dev)
+            tb = svc_t.numel()
+            fargs = (svc_t, nam_t, c["service"], c["name"], c["kind"],
+                     c["status_code"], c["span_id"], c["parent_span_id"],
+                     c["start_unix_nano"], c["end_unix_nano"], c["frame"])
+            trace_keys = [c["trace_id_hi"], c["trace_id_lo"],
+                          c["start_unix_nano"]]
+            join_keys = [c["frame"], c["span_id"]]
+            R = ladder.round_rows(2 * n // L + 2)
+            with torch.inference_mode():
+                # ---- K5 (with its K6 sort of the declarations)
+                cat, cont = kfeat.featurize_columns(*fargs, n)
+                cat_p, cont_p = kfeat.featurize_columns_plain(*fargs, n)
+                torch.cuda.synchronize()
+                check(torch.equal(cat, cat_p),
+                      f"featurize N={N} {kind}: categorical differs")
+                cont_x = ((cont - cont_p).abs()
+                          - FEAT_CONT_RTOL * cont_p.abs()).max().item()
+                check(cont_x <= 0, f"featurize N={N} {kind}: continuous "
+                                   f"beyond one f32 step by {cont_x}")
+                k5_diff = (cont - cont_p).abs().max().item()
+                nb = n * (4 + 4 + 1 + 1 + 4 * 8 + 4) + 2 * tb * 4 + N * 32
+                b_ms, b_by = bound(nb, 12 * n, F32_FLOPS)
+                results[("featurize_columns", kind, N)] = {
+                    "name": "featurize_columns", "mix": kind, "N": N,
+                    "n": n, "max_abs_diff": k5_diff,
+                    "bound": f"cat exact; cont rtol {FEAT_CONT_RTOL}",
+                    **timings(lambda: kfeat.featurize_columns(*fargs, n),
+                              lambda: kfeat.featurize_columns_plain(
+                                  *fargs, n), None, flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+                # ---- K6: the join's one-frame sort, and the trace sort
+                passes = torch.zeros(1, dtype=torch.int32, device=dev)
+                for what, keys, key_bytes in (("join", join_keys, 12),
+                                              ("trace", trace_keys, 24)):
+                    got = ksort.radix_sort(keys, n, passes=passes)
+                    ref = ksort.radix_sort_plain(keys, n)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, ref),
+                          f"radix_sort {what} N={N} {kind}: differs")
+                    library = None
+                    lib_ok = None
+                    if what == "join":
+                        flipped = c["span_id"][:n] ^ (-(2 ** 63))
+
+                        def library():
+                            return torch.sort(flipped, stable=True).indices
+
+                        lib_ok = torch.equal(library().to(torch.int32),
+                                             got[:n])
+                        check(lib_ok, f"torch.sort N={N} {kind}: not the "
+                                      f"kernel's permutation")
+                    nb = n * key_bytes + N * 4
+                    b_ms, b_by = bound(nb, 0, F32_FLOPS)
+                    d0 = ksort.device_launches
+                    ksort.radix_sort(keys, n)
+                    results[("radix_sort", what, kind, N)] = {
+                        "name": "radix_sort", "sort": what, "mix": kind,
+                        "N": N, "n": n, "max_abs_diff": 0.0,
+                        "bound": "exact", "passes": int(passes.item()),
+                        "device_launches_per_call":
+                            ksort.device_launches - d0,
+                        **timings(lambda: ksort.radix_sort(keys, n),
+                                  lambda: ksort.radix_sort_plain(keys, n),
+                                  library, flush),
+                        "library_equal": lib_ok,
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+                perm = ksort.radix_sort(trace_keys, n)
+                # ---- K7
+                pk = kpack.next_fit_pack(perm, c["trace_id_hi"],
+                                         c["trace_id_lo"], cat, cont, n, L,
+                                         R)
+                pk_p = kpack.next_fit_pack_plain(perm, c["trace_id_hi"],
+                                                 c["trace_id_lo"], cat, cont,
+                                                 n, L, R)
+                torch.cuda.synchronize()
+                for a, b in zip(pk, pk_p):
+                    check(torch.equal(a, b),
+                          f"next_fit_pack N={N} {kind}: rows differ")
+                rows_real = int(pk.rows_used.item())
+                nb = n * (4 + 16 + 32) + R * L * 40 + N * 8
+                b_ms, b_by = bound(nb, 0, F32_FLOPS)
+                results[("next_fit_pack", kind, N)] = {
+                    "name": "next_fit_pack", "mix": kind, "N": N, "n": n,
+                    "R": R, "rows_real": rows_real, "max_abs_diff": 0.0,
+                    "bound": "exact",
+                    **timings(lambda: kpack.next_fit_pack(
+                        perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont,
+                        n, L, R), lambda: kpack.next_fit_pack_plain(
+                        perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont,
+                        n, L, R), None, flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+                # ---- K8, on the encoder's own output for these rows
+                h = enc(pk.categorical, pk.continuous, pk.positions,
+                        pk.segments, final_ln=False)
+                ln = enc.final_ln
+                hargs = (h, ln.weight, ln.bias, model.module.span_head.weight,
+                         model.module.span_head.bias, perm, pk.row_eff,
+                         pk.span_col, n)
+                got = khead.span_head_scatter(*hargs)
+                ref = khead.span_head_scatter_plain(*hargs)
+                torch.cuda.synchronize()
+                h_diff = (got - ref).abs().max().item()
+                check(h_diff <= HEAD_BF16_ATOL, f"span_head N={N} {kind}: "
+                                                f"{h_diff} > {HEAD_BF16_ATOL}")
+                check(bool((got[n:] == 0).all()), "span_head: padding "
+                                                  "scored")
+                nb = n * d * 2 + n * 12 + N * 4 + 3 * d * 4
+                b_ms, b_by = bound(nb, 8 * d * n, F32_FLOPS)
+                results[("span_head_scatter", kind, N)] = {
+                    "name": "span_head_scatter", "mix": kind, "N": N,
+                    "n": n, "R": R, "max_abs_diff": h_diff,
+                    "bound": HEAD_BF16_ATOL,
+                    **timings(lambda: khead.span_head_scatter(*hargs),
+                              lambda: khead.span_head_scatter_plain(*hargs),
+                              None, flush),
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+    for r in results.values():
+        emit({"phase": "fused_kernels", "card": card, **r})
+    return results
+
+
+FUSED_COUNTERS = (("segment_attention", "attention"), ("span_embed", "embed"),
+                  ("featurize_columns", "featurize"), ("radix_sort", "sort"),
+                  ("next_fit_pack", "pack"), ("span_head_scatter", "head"))
+
+
+def _zero_counters() -> None:
+    from odigos_tpu_torch import kernels
+
+    for _, mod in FUSED_COUNTERS:
+        getattr(kernels, mod).launches = 0
+    kernels.sort.device_launches = 0
+    kernels.pack.device_launches = 0
+
+
+def _read_counters() -> dict:
+    from odigos_tpu_torch import kernels
+
+    return {name: getattr(kernels, mod).launches
+            for name, mod in FUSED_COUNTERS}
+
+
+def phase_fused_path(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch import kernels
+    from odigos_tpu_torch.models import TransformerConfig
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+    from odigos_tpu_torch.serving.fused import _span_bucket, extract_columns
+    from odigos_tpu_torch.wire.codec import decode_frame, encode_batch
+
+    batches = [synthesize_traces(n, seed=100 + i)
+               for i, n in enumerate(MAIN_PATH_TRACES)]
+    bursts = [synthesize_traces(BURST_TRACES, seed=200 + i)
+              for i in range(BURST_REQUESTS)]
+    t0 = time.monotonic()
+    engine = ScoringEngine(EngineConfig(
+        model="transformer", device="cuda", warm_ladder=True)).start()
+    start_s = time.monotonic() - t0
+    be = engine.backend
+    try:
+        stats0 = engine.stats()
+        be.fused_rows.clear()  # the warm-up's calls are not the path's
+        _zero_counters()
+        requests, replies = [], []
+        t_seq = time.perf_counter()
+        for b in batches:
+            t = time.perf_counter()
+            req = engine.submit(b, columns=extract_columns(b)[0])
+            check(req is not None and req.done.wait(120),
+                  f"fused request of {len(b)} spans timed out")
+            lat = (time.perf_counter() - t) * 1e3
+            _check_scores(req.scores, len(b), f"fused {len(b)} spans")
+            replies.append(req.scores)
+            requests.append({"spans": len(b), "span_bucket":
+                             be.last_span_bucket, "R": be.last_shape[0],
+                             "rows_real": be.last_rows_real,
+                             "latency_ms": lat})
+        seq_s = time.perf_counter() - t_seq
+        calls_seq = engine.fused_calls - stats0["fused_calls"]
+        t_burst = time.perf_counter()
+        reqs = [engine.submit(b, columns=extract_columns(b)[0])
+                for b in bursts]
+        for r, b in zip(reqs, bursts):
+            check(r is not None and r.done.wait(300), "burst timed out")
+            _check_scores(r.scores, len(b), "fused burst")
+        burst_s = time.perf_counter() - t_burst
+        launches = _read_counters()
+        device_launches = {"radix_sort": kernels.sort.device_launches,
+                           "next_fit_pack": kernels.pack.device_launches}
+        calls = engine.fused_calls - stats0["fused_calls"]
+        calls_burst = calls - calls_seq
+        n_layers = be.model.cfg.n_layers
+        check(all(v > 0 for v in launches.values()),
+              f"fused path launched no time: {launches}")
+        want = {"segment_attention": n_layers * calls, "span_embed": calls,
+                "featurize_columns": calls, "radix_sort": 2 * calls,
+                "next_fit_pack": calls, "span_head_scatter": calls}
+        check(launches == want, f"fused launches {launches} != {want} for "
+                                f"{calls} fused calls")
+        check(calls_burst < BURST_REQUESTS,
+              f"the burst of {BURST_REQUESTS} ran as {calls_burst} calls")
+        fused_rows = list(be.fused_rows)
+
+        # the same requests on the host route of the same engine
+        host_diff = 0.0
+        t_host = time.perf_counter()
+        for b, got in zip(batches, replies):
+            ref = engine.score_sync(b, timeout_s=120)
+            check(ref is not None, "host route request timed out")
+            host_diff = max(host_diff, float(np.abs(ref - got).max()))
+        host_s = time.perf_counter() - t_host
+        check(host_diff <= PLAIN_PATH_BOUND,
+              f"fused vs host route {host_diff} > {PLAIN_PATH_BOUND}")
+
+        # a legacy-JSON frame: the caller's gate sends it down the host
+        # route and counts the reason
+        legacy, _ = decode_frame(encode_batch(batches[0],
+                                              attr_format="json"))
+        cols, reason = extract_columns(legacy)
+        check(cols is None and reason == "legacy_attrs",
+              f"legacy frame extracted as {reason}")
+        engine.count_fused_fallback(reason)
+        got = engine.score_sync(legacy, timeout_s=120)
+        check(got is not None, "legacy frame timed out")
+        _check_scores(got, len(legacy), "legacy frame")
+        stats = engine.stats()
+        check(stats["odigos_fastpath_fused_fallback_total"]["legacy_attrs"]
+              == 1, "legacy fallback not counted")
+
+        # the padded rows' share of the forward's device time: the largest
+        # sequential request's rows at its R, and cut to next-fit's rows
+        big = batches[-1]
+        staged = be._prep_columns([extract_columns(big)[0]],
+                                  _span_bucket(len(big)))
+        R = be.rows_for(len(big))
+        with torch.inference_mode():
+            c = staged.cols
+            cat, cont = kernels.featurize.featurize_columns(
+                staged.service_table, staged.name_table, c["service"],
+                c["name"], c["kind"], c["status_code"], c["span_id"],
+                c["parent_span_id"], c["start_unix_nano"],
+                c["end_unix_nano"], c["frame"], len(big))
+            perm = kernels.sort.radix_sort([c["trace_id_hi"],
+                                            c["trace_id_lo"],
+                                            c["start_unix_nano"]], len(big))
+            pk = kernels.pack.next_fit_pack(perm, c["trace_id_hi"],
+                                            c["trace_id_lo"], cat, cont,
+                                            len(big), be.max_len, R)
+            real = int(pk.rows_used.item())
+            enc = be.model.module.encoder
+
+            def fwd(rows):
+                return lambda: enc(pk.categorical[:rows],
+                                   pk.continuous[:rows],
+                                   pk.positions[:rows], pk.segments[:rows],
+                                   final_ln=False)
+
+            scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8,
+                                     device="cuda")
+            full_ms = device_ms(fwd(R), scratch_l2.zero_)
+            real_ms = device_ms(fwd(real), scratch_l2.zero_)
+        be._release(staged.N, staged.host)
+        padded = {"spans": len(big), "R": R, "rows_real": real,
+                  "forward_device_ms_R": full_ms,
+                  "forward_device_ms_rows_real": real_ms,
+                  "padded_rows_share": 1.0 - real_ms / full_ms}
+    finally:
+        engine.shutdown()
+
+    # card fused vs an f32 CPU run of the fused route, one request
+    cpu = ScoringEngine(EngineConfig(
+        model="transformer", device="cpu",
+        model_config=TransformerConfig(dtype=torch.float32)))
+    cpu.backend.model.load_state_dict({k: v.float().cpu() for k, v in
+                                       be.model.state_dict().items()})
+    ref = cpu.backend.harvest(cpu.backend.dispatch_columns(
+        [extract_columns(batches[0])[0]]))
+    cpu_diff = float(np.abs(ref - replies[0]).max())
+    check(cpu_diff <= CPU_F32_BOUND,
+          f"fused card bf16 vs CPU f32 {cpu_diff} > {CPU_F32_BOUND}")
+    seq_spans = sum(r["spans"] for r in requests)
+    burst_spans = sum(len(b) for b in bursts)
+    out = {"phase": "fused_path", "card": card,
+           "config": "TransformerConfig() bf16, d256 h4 l4 ff1024 L64, "
+                     "submit(batch, columns=extract_columns(batch)[0])",
+           "server_start_s": start_s, "requests": requests,
+           "sequential_spans_per_s": seq_spans / seq_s,
+           "host_route_sequential_spans_per_s": seq_spans / host_s,
+           "burst": {"requests": BURST_REQUESTS, "spans": burst_spans,
+                     "seconds": burst_s, "fused_calls": calls_burst,
+                     "spans_per_s": burst_spans / burst_s},
+           "fused_calls": calls, "launches": launches,
+           "launches_per_call": {k: v / calls for k, v in launches.items()},
+           "device_launches_per_call": {k: v / calls for k, v in
+                                        device_launches.items()},
+           "rows_per_call_R_vs_real": fused_rows,
+           "host_route_max_abs_diff": host_diff,
+           "host_route_bound": PLAIN_PATH_BOUND,
+           "cpu_f32_max_abs_diff": cpu_diff, "cpu_f32_bound": CPU_F32_BOUND,
+           "padded_rows": padded,
+           "stage_ms_p50_by_route": stats["stage_ms_p50_by_route"],
+           "engine": stats}
+    emit(out)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -802,22 +1199,48 @@ def main() -> int:
     zs_kern = phase_zscore_kernels(card)
     zs_path = phase_zscore_path(card)
     main_path = phase_main_path(card)
+    fused_kern = phase_fused_kernels(card)
+    fused_path = phase_fused_path(card)
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
     sources = {"segment_attention": src + "segment_attention.cu",
                "span_embed": src + "span_embed.cu",
                "zscore_update": src + "zscore.cu",
-               "zscore_score": src + "zscore.cu"}
+               "zscore_score": src + "zscore.cu",
+               "featurize_columns": src + "featurize.cu",
+               "radix_sort": src + "trace_sort.cu",
+               "next_fit_pack": src + "trace_pack.cu",
+               "span_head_scatter": src + "span_head.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
-                "zscore_score": "odigos_tpu/models/zscore.py:87"}
+                "zscore_score": "odigos_tpu/models/zscore.py:87",
+                "featurize_columns": "odigos_tpu/features/featurizer.py:335",
+                "radix_sort": "odigos_tpu/serving/fused.py:442",
+                "next_fit_pack": "odigos_tpu/serving/fused.py:512",
+                "span_head_scatter": "odigos_tpu/models/transformer.py:84"}
     designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
                "span_embed": "warp-per-slot vec16, small tables in smem",
                "zscore_update": "3 launches: warp-aggregated f64 sums in "
                                 "per-CTA smem, 2 passes, Chan merge",
-               "zscore_score": "thread per span gather, squash, cold count"}
-    launches = {**main_path["launches"], **zs_path["launches"]}
+               "zscore_score": "thread per span gather, squash, cold count",
+               "featurize_columns": "K6 sorts (frame, span); thread per "
+                                    "span: gathers, lower-bound join, "
+                                    "exact u64 duration, f64 log1p",
+               "radix_sort": "stable LSD, 8-bit digits: hist + scatter per "
+                             "live digit (match_any ranks, per-warp smem "
+                             "offsets), constant digits skipped on device",
+               "next_fit_pack": "3 launches: binary-search trace starts + "
+                                "ballot segment bitmask; one-thread "
+                                "next-fit walk in smem; slot-per-thread "
+                                "gather writing every output once",
+               "span_head_scatter": "warp per real span: f32 LN stats, "
+                                    "bf16-rounded LN out, f32 head dot, "
+                                    "sigmoid, write at perm[j]"}
+    # each kernel's launches on its own path's run: K1 and K2 on the main
+    # path (the host route), K5-K8 on the fused path
+    launches = {**fused_path["launches"], **zs_path["launches"],
+                **main_path["launches"]}
     timing_keys = ("kernel_ms", "device_ms", "plain_ms", "plain_device_ms",
                    "library_ms", "library_device_ms", "bound_ms",
                    "host_us_per_call", "max_abs_diff")
@@ -843,6 +1266,7 @@ def main() -> int:
         small = kern[(kname, min(R_SHAPES))]
         lines.append(line(kname, kern[(kname, R)], {
             "shape_R": R,
+            "fused_path_launches": fused_path["launches"][kname],
             f"R{small['R']}": {k: small[k] for k in timing_keys}}))
     for kname in ("zscore_update", "zscore_score"):
         lines.append(line(kname, zs_kern[(kname, "otel", ZS_MAIN_N)], {
@@ -851,6 +1275,31 @@ def main() -> int:
                                for k in timing_keys}
                for mix in ("otel", "single") for n in ZS_N
                if (mix, n) != ("otel", ZS_MAIN_N)}}))
+    for kname in ("featurize_columns", "next_fit_pack",
+                  "span_head_scatter"):
+        lines.append(line(kname, fused_kern[(kname, "otel", FUSED_MAIN_N)], {
+            "shape_N": FUSED_MAIN_N, "mix": "otel",
+            "launches_per_fused_call":
+                fused_path["launches_per_call"][kname],
+            "fused_path_launches": fused_path["launches"][kname],
+            **{f"{mix}_N{n}": {k: fused_kern[(kname, mix, n)][k]
+                               for k in timing_keys}
+               for mix in ("otel", "adversarial") for n in FUSED_N
+               if (mix, n) != ("otel", FUSED_MAIN_N)}}))
+    k6 = fused_kern[("radix_sort", "join", "otel", FUSED_MAIN_N)]
+    lines.append(line("radix_sort", k6, {
+        "shape_N": FUSED_MAIN_N, "mix": "otel", "sort": "join (one frame)",
+        "passes": k6["passes"],
+        "device_launches_per_call": k6["device_launches_per_call"],
+        "launches_per_fused_call": fused_path["launches_per_call"][
+            "radix_sort"],
+        **{f"{what}_{mix}_N{n}": {
+            **{k: fused_kern[("radix_sort", what, mix, n)][k]
+               for k in timing_keys},
+            "passes": fused_kern[("radix_sort", what, mix, n)]["passes"]}
+           for what in ("join", "trace") for mix in ("otel", "adversarial")
+           for n in FUSED_N
+           if (what, mix, n) != ("join", "otel", FUSED_MAIN_N)}}))
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

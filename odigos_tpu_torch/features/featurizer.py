@@ -7,7 +7,10 @@ parity tests). Two deliberate differences:
 
 * arrays come from plain numpy (``_alloc``) where the reference draws them
   from its pinned buffer pool; pooling is later work for the port;
-* the ``featurize_*_jax`` device twins (the fused route) are not carried.
+* the reference's ``featurize_*_jax`` device twins (the fused route) are
+  ``featurize_*_torch`` here, over whole u64 words (int64 tensors read as
+  unsigned) where the reference splits them into u32 halves: they are the
+  plain versions of kernel K5 (``kernels/featurize.py``).
 
 The hot path is pure columnar: string categoricals are hashed once per
 string-table entry and gathered through the index columns, the parent edge
@@ -23,8 +26,11 @@ from functools import lru_cache
 from typing import Callable, Optional, Union
 
 import numpy as np
+import torch
 
 from ..pdata.spans import SpanBatch
+
+_SIGN64 = -(2 ** 63)  # xor'd into int64 words, signed order = unsigned
 
 # categorical feature columns, in order
 CAT_FIELDS = ("service", "name", "kind", "status", "parent_service")
@@ -85,8 +91,8 @@ class SpanColumns:
     """The raw column views one frame's featurization actually reads.
     Every array is a view into the decoded SpanBatch's columns (no
     copies); ``strings`` is the frame's interned string table. This is
-    also the input contract of the fused device route, which the port
-    has not carried yet.
+    also the input contract of the fused device route
+    (``serving/fused.py``).
     """
 
     strings: tuple[str, ...]
@@ -317,6 +323,121 @@ def featurize(batch: SpanBatch,
         features.categorical[:, len(CAT_FIELDS):] = _attr_slot_matrix(
             batch, config.attr_slots, config.attr_vocab)
     return features
+
+
+def featurize_columns_torch(service_table: torch.Tensor,
+                            name_table: torch.Tensor, service: torch.Tensor,
+                            name: torch.Tensor, kind: torch.Tensor,
+                            status_code: torch.Tensor, span_id: torch.Tensor,
+                            parent_id: torch.Tensor, start: torch.Tensor,
+                            end: torch.Tensor, frame_id: torch.Tensor,
+                            n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tensor twin of :func:`featurize_columns` over a padded group, the
+    counterpart of ``featurize_columns_jax`` of the JAX package and the
+    plain version of kernel K5 (``kernels/featurize.py``).
+
+    Inputs are ``(N,)`` tensors on one device, N the span bucket, the first
+    ``n`` rows real: ``service``/``name`` int32 indices into the hashed
+    ``*_table`` (int32), ``kind``/``status_code`` int8, the u64 columns as
+    int64 bit patterns (read unsigned), ``frame_id`` int32 (the span's
+    frame ordinal in the coalesced group). Returns ``(categorical (N, 5)
+    int32, continuous (N, 3) float32)`` in CAT_FIELDS/CONT_FIELDS order,
+    zero past ``n``. The parent join is per frame, as the host route
+    featurizes each request on its own. The duration is ``end - start``
+    in 64-bit integers (0 where ``end < start``, compared unsigned; exact
+    below 2**63 ns), then ``log1p(dur / 1000)`` in f64, rounded once to f32
+    — the host's arithmetic, where the reference's device twin recomposes
+    the duration from split clocks in f32.
+
+    Three phases (:func:`featurize_hash_torch`, :func:`featurize_join_torch`,
+    :func:`featurize_assemble_torch`), so each can be timed on its own.
+    """
+    ids = featurize_hash_torch(service_table, name_table, service, name,
+                               kind, status_code)
+    found, parent_service = featurize_join_torch(ids[0], span_id, parent_id,
+                                                 frame_id, n)
+    return featurize_assemble_torch(*ids, parent_service, found, parent_id,
+                                    start, end, n)
+
+
+def featurize_hash_torch(service_table: torch.Tensor,
+                         name_table: torch.Tensor, service: torch.Tensor,
+                         name: torch.Tensor, kind: torch.Tensor,
+                         status_code: torch.Tensor
+                         ) -> tuple[torch.Tensor, ...]:
+    """HASH phase: string ids through the hashed tables (indices clamped
+    to the table, as a device gather clamps), enums widened to int32."""
+    svc = service_table[service.long().clamp(0, service_table.numel() - 1)]
+    nam = name_table[name.long().clamp(0, name_table.numel() - 1)]
+    return (svc.to(torch.int32), nam.to(torch.int32),
+            kind.to(torch.int32), status_code.to(torch.int32))
+
+
+def featurize_join_torch(service_ids: torch.Tensor, span_id: torch.Tensor,
+                         parent_id: torch.Tensor, frame_id: torch.Tensor,
+                         n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """JOIN phase: each real span's parent among the spans of its own
+    frame — the first row (lowest index) declaring ``parent_id`` there, the
+    stable sort + lower-bound search of the host spec. Returns ``(found
+    (N,) bool, parent_service (N,) int32)``."""
+    from ..kernels.sort import ordered_key, radix_sort_plain
+
+    N = span_id.shape[0]
+    dev = span_id.device
+    found = torch.zeros(N, dtype=torch.bool, device=dev)
+    parent_service = torch.zeros(N, dtype=torch.int32, device=dev)
+    if n == 0:
+        return found, parent_service
+    fr, span, par = frame_id[:n], span_id[:n], parent_id[:n]
+    decl = radix_sort_plain([fr, span]).long()
+    # lower bound of each query among the sorted declarations: sort the
+    # 2n (frame, id) keys with queries ahead of equal declarations, then
+    # count the declarations before each query
+    is_decl = torch.cat([torch.ones(n, dtype=torch.int32, device=dev),
+                         torch.zeros(n, dtype=torch.int32, device=dev)])
+    merged = radix_sort_plain([torch.cat([fr, fr]), torch.cat([span, par]),
+                               is_decl]).long()
+    d_sorted = is_decl[merged].long()
+    decls_before = torch.cumsum(d_sorted, 0) - d_sorted
+    lower = torch.empty(2 * n, dtype=torch.int64, device=dev)
+    lower[merged] = decls_before
+    lower = lower[n:]
+    hit = decl[lower.clamp(max=n - 1)]
+    ok = (lower < n) & (fr[hit] == fr) & (ordered_key(span[hit])
+                                          == ordered_key(par))
+    found[:n] = ok
+    parent_service[:n] = torch.where(ok, service_ids[hit],
+                                     torch.zeros_like(service_ids[hit]))
+    return found, parent_service
+
+
+def featurize_assemble_torch(service_ids: torch.Tensor,
+                             name_ids: torch.Tensor, kind32: torch.Tensor,
+                             status32: torch.Tensor,
+                             parent_service: torch.Tensor,
+                             found: torch.Tensor, parent_id: torch.Tensor,
+                             start: torch.Tensor, end: torch.Tensor,
+                             n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ASSEMBLE phase: the categorical block and the continuous block
+    (log-duration, is_root, depth hint), zero past ``n``."""
+    N = service_ids.shape[0]
+    dev = service_ids.device
+    cat = torch.zeros((N, len(CAT_FIELDS)), dtype=torch.int32, device=dev)
+    cont = torch.zeros((N, len(CONT_FIELDS)), dtype=torch.float32,
+                       device=dev)
+    if n == 0:
+        return cat, cont
+    cat[:n] = torch.stack([service_ids[:n], name_ids[:n], kind32[:n],
+                           status32[:n], parent_service[:n]], dim=1)
+    s, e, par = start[:n], end[:n], parent_id[:n]
+    ge = (e ^ _SIGN64) >= (s ^ _SIGN64)  # unsigned end >= start
+    dur = torch.where(ge, e - s, torch.zeros_like(s)).double()
+    dur = torch.where(dur < 0, dur + 2.0 ** 64, dur)  # u64 beyond 2**63
+    cont[:n, 0] = torch.log1p(dur / 1000.0).float()
+    root = par == 0
+    cont[:n, 1] = root.float()
+    cont[:n, 2] = torch.where(root, 0.0, torch.where(found[:n], 1.0, 0.5))
+    return cat, cont
 
 
 # shape-bucket spec for the leading (trace/row) axis of assembled tensors:

@@ -6,18 +6,29 @@
   (``csrc/span_embed.cu``);
 * ``zscore.zscore_update`` — K3, the z-score detector's weighted Welford
   segmented update, and ``zscore.zscore_score`` — K4, its score
-  (``csrc/zscore.cu``).
+  (``csrc/zscore.cu``);
+* ``featurize.featurize_columns`` — K5, the fused route's featurize over
+  raw span columns (``csrc/featurize.cu``);
+* ``sort.radix_sort`` — K6, a stable radix sort of multi-word unsigned
+  keys (``csrc/trace_sort.cu``);
+* ``pack.next_fit_pack`` — K7, next-fit packing of trace-sorted spans
+  (``csrc/trace_pack.cu``);
+* ``head.span_head_scatter`` — K8, final LayerNorm + span head + sigmoid
+  written to each span's original index (``csrc/span_head.cu``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
-plain PyTorch version for CPU tensors; ``attention.launches``,
-``embed.launches``, ``zscore.update_launches`` and
-``zscore.score_launches`` count the calls that launched. ``build``
-compiles the sources with nvcc at first use.
+plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
+``zscore.update_launches`` and ``zscore.score_launches``) counts the calls
+that launched. ``build`` compiles the sources with nvcc at first use.
 """
 
-from . import attention, build, embed, zscore
+from . import attention, build, embed, featurize, head, pack, sort, zscore
 from .attention import segment_attention, segment_attention_plain
 from .embed import EmbedTables, span_embed, span_embed_plain
+from .featurize import featurize_columns, featurize_columns_plain
+from .head import span_head_scatter, span_head_scatter_plain
+from .pack import PackedColumns, next_fit_pack, next_fit_pack_plain
+from .sort import radix_sort, radix_sort_plain
 from .zscore import (zscore_score, zscore_score_plain, zscore_update,
                      zscore_update_plain)
 
@@ -25,12 +36,25 @@ __all__ = [
     "attention",
     "build",
     "embed",
+    "featurize",
+    "head",
+    "pack",
+    "sort",
+    "zscore",
     "segment_attention",
     "segment_attention_plain",
     "EmbedTables",
     "span_embed",
     "span_embed_plain",
-    "zscore",
+    "featurize_columns",
+    "featurize_columns_plain",
+    "span_head_scatter",
+    "span_head_scatter_plain",
+    "PackedColumns",
+    "next_fit_pack",
+    "next_fit_pack_plain",
+    "radix_sort",
+    "radix_sort_plain",
     "zscore_score",
     "zscore_score_plain",
     "zscore_update",

@@ -37,6 +37,10 @@ SOURCES = {
     "segment_attention": "segment_attention.cu",
     "span_embed": "span_embed.cu",
     "zscore": "zscore.cu",
+    "trace_sort": "trace_sort.cu",
+    "featurize": "featurize.cu",
+    "trace_pack": "trace_pack.cu",
+    "span_head": "span_head.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -13,9 +13,11 @@ where torch's defaults differ:
 * embedding tables stay f32 (the gather-sum kernel reads them in f32 and
   rounds once).
 
-The two device computations of the path go through the port's kernels:
-the embedding gather-sum (``kernels.embed.span_embed``) and the packed
-attention (``kernels.attention.segment_attention``). The LN/GEMM/GELU
+The two device computations of the encoder go through the port's
+kernels: the embedding gather-sum (``kernels.embed.span_embed``) and the
+packed attention (``kernels.attention.segment_attention``); the final
+LayerNorm is fused with the span head in ``kernels.head`` when the
+transformer scores through ``score_packed_scatter``. The LN/GEMM/GELU
 chain stays ``F.layer_norm``/``F.linear``, as the JAX package left those
 plain products to XLA.
 """
@@ -139,15 +141,18 @@ class Encoder(nn.Module):
 
     def forward(self, categorical: torch.Tensor, continuous: torch.Tensor,
                 positions: torch.Tensor, segments: torch.Tensor,
-                reference: bool = False) -> torch.Tensor:
+                reference: bool = False,
+                final_ln: bool = True) -> torch.Tensor:
         """``reference=True`` runs the plain versions of both kernels
-        (the smoke run holds the kernel path against it on the card)."""
+        (the smoke run holds the kernel path against it on the card).
+        ``final_ln=False`` returns the hidden state before ``final_ln``,
+        for the span head kernel, which applies it at real spans only."""
         embed = span_embed_plain if reference else span_embed
         x = embed(categorical, continuous, positions, segments,
                   self.tables(), self.dtype)
         for blk in self.blocks:
             x = blk(x, segments, reference=reference)
-        return self.final_ln(x)
+        return self.final_ln(x) if final_ln else x
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

@@ -4,7 +4,10 @@ Counterpart of ``odigos_tpu/models/transformer.py``: a bidirectional
 transformer over the spans of each trace, emitting a per-span anomaly
 logit and a per-trace logit (masked mean-pool head). ``score_packed``
 scores packed rows (several traces per row, block-diagonal attention) and
-is what the serving engine runs; ``score_spans`` scores one trace per row.
+is what the engine's host route runs; ``score_packed_scatter``, the fused
+route's, does the same and writes each real span's probability to its
+original index through the span head kernel (K8); ``score_spans`` scores
+one trace per row.
 
 Defaults match ``odigos_tpu.models.transformer.TransformerConfig``: d_model
 256, 4 heads, 4 layers, d_ff 1024, max_len 64, vocabs 512/2048/4096, working
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.head import span_head_scatter, span_head_scatter_plain
 from ..utils.device import resolve_device
 from .layers import Encoder, init_parameters
 
@@ -134,6 +138,34 @@ class TraceTransformer:
         pos = _as_tensor(positions, torch.int32, dev)
         h = self.module.encoder(cat, cont, pos, seg, reference=reference)
         return torch.sigmoid(self.module.span_logits(h))
+
+    @torch.inference_mode()
+    def score_packed_scatter(self, categorical: Any, continuous: Any,
+                             segments: Any, positions: Any,
+                             perm: torch.Tensor, row_eff: torch.Tensor,
+                             span_col: torch.Tensor, n: int,
+                             reference: bool = False) -> torch.Tensor:
+        """Packed-rows scoring straight to span order, the fused route's
+        forward: the encoder over the ``(R, L)`` rows, then the span head
+        kernel (K8, final LayerNorm + head + sigmoid at each real span
+        only) writes span ``perm[j]``'s probability from slot
+        ``(row_eff[j], span_col[j])`` for ``j < n``; ``(N,)`` f32, 0
+        elsewhere. ``reference=True`` runs the plain versions of every
+        kernel."""
+        dev = self.device
+        cat = _as_tensor(categorical, torch.int32, dev)
+        cont = _as_tensor(continuous, torch.float32, dev)
+        seg = _as_tensor(segments, torch.int32, dev)
+        pos = _as_tensor(positions, torch.int32, dev)
+        m = self.module
+        h = m.encoder(cat, cont, pos, seg, reference=reference,
+                      final_ln=False)
+        head = span_head_scatter_plain if reference else span_head_scatter
+        ln = m.encoder.final_ln
+        return head(h, ln.weight, ln.bias, m.span_head.weight,
+                    m.span_head.bias, _as_tensor(perm, torch.int32, dev),
+                    _as_tensor(row_eff, torch.int32, dev),
+                    _as_tensor(span_col, torch.int32, dev), n, ln.eps)
 
     @torch.inference_mode()
     def score_spans(self, categorical: Any, continuous: Any, mask: Any

@@ -8,7 +8,7 @@ from .attrstore import (
     columnar_enabled,
     set_columnar_attrs,
 )
-from .gen import TraceShape, synthesize_traces
+from .gen import TraceShape, adversarial_traces, synthesize_traces
 from .spans import (
     SpanBatch,
     SpanBatchBuilder,
@@ -31,4 +31,5 @@ __all__ = [
     "concat_batches",
     "TraceShape",
     "synthesize_traces",
+    "adversarial_traces",
 ]

@@ -17,7 +17,7 @@ BASELINE config #2.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
@@ -146,3 +146,51 @@ def _emit_span(b, rng, shape, res_idx, trace_id, parent_id, service, op,
         resource_index=res_idx[service],
         attrs={"http.method": op.split(" ")[0]} if " " in op else None)
     return end_ns
+
+
+ORPHAN_PARENT = 0xDEADBEEFCAFEF00D  # a parent id no span declares
+
+
+def adversarial_traces(n_traces: int, seed: int = 0,
+                       long_trace: int = 200) -> SpanBatch:
+    """``synthesize_traces`` bent toward the corners of the fused route's
+    kernels (the port's own; the JAX package has no such generator):
+
+    * every span, trace and (non-zero) parent id has its top bit set, and
+      half the traces clear it again in ``trace_id_hi``, so unsigned and
+      signed order differ;
+    * the first ``long_trace`` spans form one trace (several chunks of 64);
+    * start times rounded down to the millisecond: spans of a trace tie,
+      and their order is the sort's stability;
+    * every seventh span repeats the previous declaration's span id (the
+      first row must win the parent join);
+    * every eleventh parent resolves nowhere; every thirteenth span ends
+      before it starts.
+    """
+    b = synthesize_traces(n_traces, seed=seed)
+    cols = dict(b.columns)
+    high = np.uint64(1 << 63)
+    for name in ("span_id", "trace_id_hi", "trace_id_lo"):
+        cols[name] = cols[name] | high
+    par = cols["parent_span_id"]
+    par = np.where(par == 0, par, par | high)
+    half = (cols["trace_id_hi"] & np.uint64(1)) == 0
+    cols["trace_id_hi"] = np.where(half, cols["trace_id_hi"] & ~high,
+                                   cols["trace_id_hi"])
+    k = min(long_trace, len(b))
+    for name in ("trace_id_hi", "trace_id_lo"):
+        col = cols[name].copy()
+        col[:k] = col[0]
+        cols[name] = col
+    ms = np.uint64(1_000_000)
+    cols["start_unix_nano"] = cols["start_unix_nano"] // ms * ms
+    span = cols["span_id"].copy()
+    span[1::7] = span[0::7][:len(span[1::7])]
+    cols["span_id"] = span
+    par = par.copy()
+    par[::11] = np.uint64(ORPHAN_PARENT)
+    cols["parent_span_id"] = par
+    end = cols["end_unix_nano"].copy()
+    end[::13] = cols["start_unix_nano"][::13] - np.uint64(5)
+    cols["end_unix_nano"] = end
+    return replace(b, columns=cols)

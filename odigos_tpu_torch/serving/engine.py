@@ -34,6 +34,15 @@ contract is kept:
   does: the backend's own ``warmup`` (zscore: an update), then a score,
   which for zscore with ``online_update`` updates again — the batch is
   folded into the state twice;
+* the **fused columns route** (``serving/fused.py``): ``submit(batch,
+  columns=cols)`` with ``cols`` from ``extract_columns(batch)`` defers
+  featurize; a group whose requests all carry columns, on a backend with
+  the fused kernels (the transformer's), scores in one non-blocking
+  dispatch that featurizes, packs, scores and scatters on the card
+  (``dispatch_columns``); any other group takes the host route, the
+  columns-carrying requests featurized in the pack stage.
+  ``stats()`` counts fused frames and columns-carrying frames that took
+  the host route under the reference's metric names.
 * ``shutdown()`` drains queued and in-flight work losslessly.
 
 ``torch.inference_mode()`` and the current CUDA stream are per thread, so
@@ -42,10 +51,10 @@ whichever thread calls it; all device work goes to that thread's current
 stream (the default stream unless the caller set another).
 
 Not ported yet (later slices, listed in ROADMAP.md): the autoencoder and
-remote models, failover, device meshes, int8 serving, the fused columns
-route, adaptive deadline-sized coalescing, the flow ledger, meters (the
-cold-span count is kept in ``stats()`` under the reference's metric name
-until then), the self-tracer and latency attribution.
+remote models, failover, device meshes, int8 serving, adaptive
+deadline-sized coalescing, the flow ledger, meters (the cold-span count
+and the fused counters are kept in ``stats()`` under the reference's
+metric names until then), the self-tracer and latency attribution.
 """
 
 from __future__ import annotations
@@ -72,6 +81,8 @@ from ..utils.device import resolve_device
 log = logging.getLogger(__name__)
 
 COLD_METRIC = "odigos_anomaly_cold_spans_total"
+FUSED_FRAMES_METRIC = "odigos_fastpath_fused_frames_total"
+FUSED_FALLBACK_METRIC = "odigos_fastpath_fused_fallback_total"
 # models of the reference that later slices port
 UNPORTED_MODELS = ("autoencoder", "remote")
 
@@ -334,10 +345,19 @@ class ZScoreBackend:
         self.det.update(featurize(batch, self.cfg.featurizer))
 
 
+def _fused_backend(cfg: EngineConfig):
+    # FusedSequenceBackend IS a SequenceBackend: the host route stays as it
+    # is and the subclass adds the columns → scores route. Imported here:
+    # serving/fused.py imports this module.
+    from .fused import FusedSequenceBackend
+
+    return FusedSequenceBackend(cfg)
+
+
 _BACKENDS = {
     "mock": MockBackend,
     "zscore": ZScoreBackend,
-    "transformer": SequenceBackend,
+    "transformer": _fused_backend,
 }
 
 
@@ -367,7 +387,12 @@ class _ColumnBatch:
 @dataclass
 class ScoreRequest:
     batch: SpanBatch
-    features: SpanFeatures
+    features: Optional[SpanFeatures]
+    # fused route: the frame's raw SpanColumns view when the caller
+    # skipped host featurize. The pack stage scores columns on the card
+    # when the whole group carries them and the backend has the fused
+    # kernels; otherwise it featurizes the batch here (the host route).
+    columns: Any = None
     done: threading.Event = field(default_factory=threading.Event)
     scores: Optional[np.ndarray] = None
 
@@ -380,6 +405,7 @@ class _InflightGroup:
     handle: Any       # a _Handle (pipelined) or the call's scores (serial)
     t_pack0: int      # monotonic ns: pack stage start
     t_dispatch: int   # monotonic ns: device call enqueued
+    fused: bool = False
 
 
 class ScoringEngine:
@@ -409,7 +435,16 @@ class ScoringEngine:
         self._count_lock = threading.Lock()
         self.rejected = 0
         self.passthrough_spans = 0
-        self._stage_log: deque[dict[str, float]] = deque(maxlen=512)
+        # fused route: calls and frames scored fused, and columns-carrying
+        # frames that took the host route — by the closed reason set, or
+        # in a group that mixed them with plain requests
+        from .fused import FALLBACK_REASONS
+
+        self.fused_calls = 0
+        self.fused_frames = 0
+        self.fused_fallback = dict.fromkeys(FALLBACK_REASONS, 0)
+        self.fused_mixed_frames = 0
+        self._stage_log: deque[dict[str, Any]] = deque(maxlen=512)
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> "ScoringEngine":
@@ -445,17 +480,20 @@ class ScoringEngine:
 
     # ------------------------------------------------------------- scoring
     def submit(self, batch: SpanBatch,
-               features: Optional[SpanFeatures] = None
-               ) -> Optional[ScoreRequest]:
+               features: Optional[SpanFeatures] = None,
+               columns: Any = None) -> Optional[ScoreRequest]:
         """Enqueue for scoring; None when the queue is full or the engine
-        is shutting down (admission control, never a stall)."""
+        is shutting down (admission control, never a stall). A request
+        with ``columns`` (``fused.extract_columns(batch)[0]``) is not
+        featurized here: its group scores on the fused route, or the pack
+        stage featurizes it."""
         if self._stop.is_set():
             with self._count_lock:
                 self.rejected += 1
             return None
-        if features is None:
+        if features is None and columns is None:
             features = featurize(batch, self.cfg.featurizer)
-        req = ScoreRequest(batch=batch, features=features)
+        req = ScoreRequest(batch=batch, features=features, columns=columns)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
@@ -490,12 +528,23 @@ class ScoringEngine:
                 w(batch)
             self.backend.score(batch, featurize(batch, self.cfg.featurizer))
 
+    def count_fused_fallback(self, reason: str) -> None:
+        """Count a frame its caller sent down the host route, by reason
+        (one of ``fused.FALLBACK_REASONS``: the caller's gate consults
+        ``fused_enabled()`` and ``extract_columns``)."""
+        if reason not in self.fused_fallback:
+            raise ValueError(f"unknown fused fallback reason {reason!r} "
+                             f"(known: {list(self.fused_fallback)})")
+        with self._count_lock:
+            self.fused_fallback[reason] += 1
+
     def stats(self) -> dict[str, Any]:
         log_ = list(self._stage_log)
 
-        def p50(key: str) -> float:
-            return float(np.percentile([c[key] for c in log_], 50)) \
-                if log_ else 0.0
+        def p50(key: str, fused: Optional[bool] = None) -> float:
+            vals = [c[key] for c in log_
+                    if fused is None or c["fused"] == fused]
+            return float(np.percentile(vals, 50)) if vals else 0.0
 
         out = {
             "model": self.cfg.model,
@@ -510,6 +559,14 @@ class ScoringEngine:
             "stage_pack_ms_p50": p50("pack_ms"),
             "stage_device_ms_p50": p50("device_ms"),
             COLD_METRIC: getattr(self.backend, "cold_spans", 0),
+            "stage_ms_p50_by_route": {
+                route: {"pack_ms": p50("pack_ms", fused),
+                        "device_ms": p50("device_ms", fused)}
+                for route, fused in (("host", False), ("fused", True))},
+            "fused_calls": self.fused_calls,
+            FUSED_FRAMES_METRIC: self.fused_frames,
+            FUSED_FALLBACK_METRIC: dict(self.fused_fallback),
+            "fused_mixed_group_frames": self.fused_mixed_frames,
         }
         ladder = getattr(self.backend, "ladder", None)
         if ladder is not None:
@@ -565,7 +622,31 @@ class ScoringEngine:
                         ) -> Optional[_InflightGroup]:
         t0 = time.monotonic_ns()
         backend = self.backend
+        carrying = sum(r.columns is not None for r in reqs)
+        fused = bool(getattr(backend, "supports_fused", False)) \
+            and carrying == len(reqs)
         try:
+            if fused:
+                with self._backend_lock:
+                    handle = backend.dispatch_columns(
+                        [r.columns for r in reqs])
+                with self._count_lock:
+                    self.fused_calls += 1
+                    self.fused_frames += len(reqs)
+                return _InflightGroup(reqs=reqs, handle=handle, t_pack0=t0,
+                                      t_dispatch=time.monotonic_ns(),
+                                      fused=True)
+            if carrying:
+                # columns-carrying requests on the host route: the host
+                # featurize the submit skipped
+                for r in reqs:
+                    if r.features is None:
+                        r.features = featurize(r.batch, self.cfg.featurizer)
+                with self._count_lock:
+                    if getattr(backend, "supports_fused", False):
+                        self.fused_mixed_frames += carrying
+                    else:
+                        self.fused_fallback["backend"] += carrying
             if len(reqs) == 1:
                 merged: Any = reqs[0].batch
                 feats = reqs[0].features
@@ -611,7 +692,8 @@ class ScoringEngine:
         self.device_calls += 1
         self._stage_log.append({
             "pack_ms": (grp.t_dispatch - grp.t_pack0) / 1e6,
-            "device_ms": (t_end - grp.t_dispatch) / 1e6})
+            "device_ms": (t_end - grp.t_dispatch) / 1e6,
+            "fused": grp.fused})
         off = 0
         for r in grp.reqs:
             n_r = len(r.batch)

@@ -12,6 +12,13 @@ so it runs on the card's machine, which has no JAX:
 Bounds: a kernel and its plain version compute in f32 from the same inputs
 and round once, so in bf16 they may differ by one rounding step at the
 largest output magnitude (2^-7 relative); in f32 by summation order only.
+The fused route's kernels: K6's permutation and K7's rows, K5's categorical
+block and every integer output are held exactly; K5's log-duration within
+one f32 step (``FEAT_CONT_RTOL``: both take log1p in f64 and round once to
+f32, the card's log1p within an ulp of the CPU's); K8's probabilities
+within ``HEAD_F32_ATOL`` in f32 and ``HEAD_BF16_ATOL`` in bf16 (its f32
+LayerNorm statistics summed in another order can round the LN output to a
+neighbouring bf16 value before the head dot).
 The zscore kernels (K3, K4) take the same f32 per-span terms as their plain
 versions and sum them in f64 as they do, in another order (atomics): the
 state agrees with the plain version's within ``ZS_MEAN_ATOL`` /
@@ -36,8 +43,13 @@ from odigos_tpu_torch.kernels.embed import (EmbedTables, span_embed,
 from odigos_tpu_torch.features import FeaturizerConfig
 from odigos_tpu_torch.models import (TraceTransformer, TransformerConfig,
                                      ZScoreDetector)
-from odigos_tpu_torch.pdata import synthesize_traces
+from odigos_tpu_torch.kernels import featurize as kfeat
+from odigos_tpu_torch.kernels import head as khead
+from odigos_tpu_torch.kernels import pack as kpack
+from odigos_tpu_torch.kernels import sort as ksort
+from odigos_tpu_torch.pdata import adversarial_traces, synthesize_traces
 from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+from odigos_tpu_torch.serving.fused import _span_bucket, extract_columns
 
 pytestmark = pytest.mark.cuda
 
@@ -417,3 +429,203 @@ def test_gpu_zscore_engine_scores_like_the_cpu_engine(dev):
     assert zscore.score_launches - s0 == 6
     _assert_zs_state(gpu.backend.det.state, [
         t.to(dev) for t in cpu.backend.det.state])
+
+
+# ------------------------------------------- the fused route (K5 to K8)
+FEAT_CONT_RTOL = 2.0 ** -23
+HEAD_F32_ATOL = 1e-6
+HEAD_BF16_ATOL = 2e-3
+TINY_CPU = dict(d_model=32, n_heads=2, n_layers=1, d_ff=64)
+
+
+def _fused_batches(kind: str, n_traces: int):
+    if kind == "otel":
+        return [synthesize_traces(n_traces, seed=61)]
+    if kind == "adversarial":
+        return [adversarial_traces(n_traces, seed=62)]
+    # three frames, the first and last the same traces
+    a = synthesize_traces(n_traces, seed=63)
+    return [a, adversarial_traces(n_traces, seed=64), a]
+
+
+def _staged_on(dev, batches):
+    """The group's staged columns (a CPU backend's staging), on the card."""
+    be = ScoringEngine(EngineConfig(
+        model="transformer", device="cpu", trace_bucket=8,
+        model_config=TransformerConfig(**TINY_CPU,
+                                       dtype=torch.float32))).backend
+    cols = [extract_columns(b)[0] for b in batches]
+    n = sum(len(c) for c in cols)
+    st = be._prep_columns(cols, _span_bucket(n))
+    moved = {k: v.to(dev).contiguous() for k, v in st.cols.items()}
+    return (n, st.service_table.to(dev).contiguous(),
+            st.name_table.to(dev).contiguous(), moved)
+
+
+def _feat_args(tabs, c):
+    return (*tabs, c["service"], c["name"], c["kind"], c["status_code"],
+            c["span_id"], c["parent_span_id"], c["start_unix_nano"],
+            c["end_unix_nano"], c["frame"])
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 2049, 65536, 131072])
+@pytest.mark.parametrize("keys", ["u64x3", "tied", "frame_span"])
+def test_radix_sort_kernel_matches_plain(dev, keys, n):
+    rng = np.random.default_rng(n + len(keys))
+    N = max(n, 1) + 5  # padding rows keep the identity
+    if keys == "u64x3":
+        words = [rng.integers(0, 2 ** 63, N, dtype=np.uint64) * 2
+                 + rng.integers(0, 2, N, dtype=np.uint64) for _ in range(3)]
+        ks = [torch.from_numpy(w.view(np.int64)).to(dev) for w in words]
+    elif keys == "tied":  # few distinct keys: the order is stability
+        w = rng.integers(0, 3, N).astype(np.uint64) << np.uint64(62)
+        ks = [torch.from_numpy(w.view(np.int64)).to(dev)]
+    else:
+        ks = [torch.from_numpy(rng.integers(0, 3, N).astype(np.int32)).to(
+            dev), torch.from_numpy(rng.integers(
+                -2 ** 63, 2 ** 63 - 1, N, dtype=np.int64)).to(dev)]
+    before = ksort.launches
+    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = ksort.radix_sort(ks, n, passes=passes)
+    ref = ksort.radix_sort_plain(ks, n)
+    torch.cuda.synchronize()
+    assert ksort.launches == before + 1
+    assert torch.equal(got, ref)
+    # a digit pass runs where the digit differs between two real keys
+    want = 0
+    for k in ks:
+        a = k[:n].cpu().numpy()
+        a = a.view(np.uint64) if a.dtype == np.int64 else a.astype(
+            np.uint64)
+        bits = 64 if k.dtype == torch.int64 else 32
+        for s in range(0, bits, 8):
+            d = (a >> np.uint64(s)) & np.uint64(255)
+            want += int(n > 0 and (d != d[0]).any())
+    assert int(passes) == want
+
+
+@pytest.mark.parametrize("kind,n_traces", [("otel", 1), ("otel", 400),
+                                           ("adversarial", 400),
+                                           ("multi", 200),
+                                           ("otel", 12800)])
+def test_featurize_kernel_matches_plain(dev, kind, n_traces):
+    n, svc_t, nam_t, c = _staged_on(dev, _fused_batches(kind, n_traces))
+    args = _feat_args((svc_t, nam_t), c)
+    before = kfeat.launches
+    cat, cont = kfeat.featurize_columns(*args, n)
+    cat_p, cont_p = kfeat.featurize_columns_plain(*args, n)
+    torch.cuda.synchronize()
+    assert kfeat.launches == before + 1
+    assert torch.equal(cat, cat_p)
+    assert ((cont - cont_p).abs() <= FEAT_CONT_RTOL * cont_p.abs()).all()
+
+
+@pytest.mark.parametrize("kind,n_traces,L", [("otel", 1, 64),
+                                             ("otel", 400, 64),
+                                             ("adversarial", 400, 64),
+                                             ("adversarial", 400, 16),
+                                             ("multi", 200, 64),
+                                             ("otel", 12800, 64)])
+@pytest.mark.parametrize("extra_rows", [0, 40])
+def test_next_fit_pack_kernel_matches_plain(dev, kind, n_traces, L,
+                                            extra_rows):
+    """Real frames, a trace of 200 spans, tied starts, high-bit ids, one
+    span, 131072-span buckets and rows that stay all padding."""
+    n, svc_t, nam_t, c = _staged_on(dev, _fused_batches(kind, n_traces))
+    cat, cont = kfeat.featurize_columns_plain(
+        *_feat_args((svc_t, nam_t), c), n)
+    perm = ksort.radix_sort_plain(
+        [c["trace_id_hi"], c["trace_id_lo"], c["start_unix_nano"]], n)
+    R = 2 * n // L + 2 + extra_rows
+    before = kpack.launches
+    got = kpack.next_fit_pack(perm, c["trace_id_hi"], c["trace_id_lo"], cat,
+                              cont, n, L, R)
+    ref = kpack.next_fit_pack_plain(perm, c["trace_id_hi"],
+                                    c["trace_id_lo"], cat, cont, n, L, R)
+    torch.cuda.synchronize()
+    assert kpack.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert 0 < int(got.rows_used) <= R
+
+
+def test_next_fit_pack_kernel_empty_group(dev):
+    z64 = torch.zeros(512, dtype=torch.int64, device=dev)
+    perm = torch.arange(512, dtype=torch.int32, device=dev)
+    cat = torch.zeros((512, 5), dtype=torch.int32, device=dev)
+    cont = torch.zeros((512, 3), device=dev)
+    got = kpack.next_fit_pack(perm, z64, z64, cat, cont, 0, 64, 256)
+    torch.cuda.synchronize()
+    assert int(got.rows_used) == 0
+    assert not got.categorical.any() and not got.segments.any()
+    assert (got.row_eff == 256).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,N", [(0, 512), (1, 512), (3000, 4096),
+                                 (131072, 131072)])
+def test_span_head_kernel_matches_plain(dev, dtype, n, N):
+    rng = np.random.default_rng(n)
+    d, L = 256, 64
+    R = max(1, 2 * n // L + 2)
+    g = torch.Generator(device=dev).manual_seed(n)
+    h = torch.randn(R, L, d, generator=g, device=dev).to(getattr(torch,
+                                                                 dtype))
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    beta = 0.1 * torch.randn(d, generator=g, device=dev)
+    w = torch.randn(d, generator=g, device=dev) / 16
+    b = torch.randn(1, generator=g, device=dev)
+    slots = rng.permutation(R * L)[:n]
+    perm = np.concatenate([rng.permutation(n), np.arange(n, N)])
+    row = np.full(N, R, np.int32)
+    col = np.zeros(N, np.int32)
+    row[:n], col[:n] = slots // L, slots % L
+    row[:n:97] = R  # dropped spans score 0
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (perm, row, col)]
+    before = khead.launches
+    got = khead.span_head_scatter(h, gamma, beta, w, b, *args, n)
+    ref = khead.span_head_scatter_plain(h, gamma, beta, w, b, *args, n)
+    torch.cuda.synchronize()
+    assert khead.launches == before + (1 if N else 0)
+    bound = HEAD_F32_ATOL if dtype == "float32" else HEAD_BF16_ATOL
+    assert (got - ref).abs().max().item() <= bound
+    assert (got[torch.from_numpy(perm[:n][row[:n] == R].astype(
+        np.int64)).to(dev)] == 0).all()
+    assert (got[n:] == 0).all()
+
+
+def test_gpu_fused_engine_scores_like_the_cpu_fused_engine(dev):
+    """The card's fused route (staging, one copy, K5-K8 and the encoder)
+    against the CPU's (plain versions) on the same f32 weights, through
+    ``submit(columns=)``, a coalesced group and an adversarial frame."""
+    cfg = dict(model="transformer",
+               model_config=TransformerConfig(dtype=torch.float32),
+               trace_bucket=16, warm_ladder=True, max_batch_spans=8192)
+    gpu = ScoringEngine(EngineConfig(device="cuda", **cfg))
+    cpu = ScoringEngine(EngineConfig(device="cpu", **cfg))
+    cpu.backend.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.backend.model.state_dict().items()})
+    batches = [synthesize_traces(20 + 7 * i, seed=40 + i) for i in range(5)]
+    batches.append(adversarial_traces(300, seed=3))
+    gpu.start()  # warms the ladder and every span bucket first
+    launches0 = (kfeat.launches, ksort.launches, kpack.launches,
+                 khead.launches)
+    try:
+        reqs = [gpu.submit(b, columns=extract_columns(b)[0])
+                for b in batches]
+        for r, b in zip(reqs, batches):
+            assert r.done.wait(120) and r.scores is not None
+            ref = cpu.backend.harvest(cpu.backend.dispatch_columns(
+                [extract_columns(b)[0]]))
+            np.testing.assert_allclose(r.scores, ref, atol=1e-4, rtol=1e-4)
+    finally:
+        gpu.shutdown()
+    stats = gpu.stats()
+    assert stats["errors"] == 0
+    calls = stats["fused_calls"]
+    assert calls >= 1 and stats["odigos_fastpath_fused_frames_total"] == 6
+    assert kfeat.launches - launches0[0] == calls
+    assert ksort.launches - launches0[1] == 2 * calls
+    assert kpack.launches - launches0[2] == calls
+    assert khead.launches - launches0[3] == calls

@@ -52,12 +52,16 @@ def test_port_has_the_slice_modules():
     for mod in ("pdata/attrstore.py", "pdata/spans.py", "pdata/gen.py",
                 "features/featurizer.py", "kernels/attention.py",
                 "kernels/embed.py", "kernels/build.py", "kernels/zscore.py",
+                "kernels/featurize.py", "kernels/sort.py",
+                "kernels/pack.py", "kernels/head.py",
                 "models/layers.py", "models/transformer.py",
                 "models/convert.py", "models/zscore.py",
-                "serving/engine.py", "serving/sidecar.py",
-                "utils/framing.py", "wire/codec.py"):
+                "serving/engine.py", "serving/fused.py",
+                "serving/sidecar.py", "utils/framing.py", "wire/codec.py"):
         assert mod in rel, mod
-    for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu"):
+    for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu",
+                "trace_sort.cu", "featurize.cu", "trace_pack.cu",
+                "span_head.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 

@@ -2,7 +2,9 @@
 """Where the time goes on the PyTorch/CUDA port's main path, on one GPU.
 
     python3 tools/torch_trace_main_path.py [--model transformer|zscore]
+                                           [--route host|fused]
                                            [--traces 4096] [--requests 6]
+                                           [--no-profile]
 
 Starts the port's ``ScoringEngine`` on the card with the ladder warmed —
 the default ``TransformerConfig`` (bf16, full width), or with ``--model
@@ -10,17 +12,27 @@ zscore`` the default ``ZScoreDetector`` (G 8192, every span bucket warmed,
 fitted first on 400 traces through ``warmup``) — then scores
 ``--requests`` synthetic batches of ``--traces`` traces each, one after
 another through ``score_sync`` (the engine path the sidecar calls, minus
-the socket and wire codec), under ``torch.profiler`` with CPU and CUDA
+the socket and wire codec) — or, with ``--route fused`` (transformer
+only), through ``submit(batch, columns=extract_columns(batch)[0])``, the
+fused columns route — under ``torch.profiler`` with CPU and CUDA
 activities. It prints one JSON line with:
 
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
   profiler saw — and the idle share of the window;
-* device time by category (K1, K2, K3, K4, GEMMs, LayerNorm, GELU,
-  copies, other),
+* device time by category (K1 to K8, GEMMs, LayerNorm, GELU, copies,
+  other),
   each category's share of the busy time, and the top kernels by device
   time;
+* each hand-written kernel by name (K1-K8: K6 and K7 are several
+  kernels each), with its launches and device ms per engine call;
 * the engine's stage medians (pack stage, device stage).
+
+With ``--no-profile`` the same requests run without the profiler and the
+line holds only the host-side numbers (window, spans/s, the engine's stage
+medians): the profiler's own host cost stays out of an A/B of two
+commits (copy this file into the other checkout's ``tools/`` to run it
+there).
 
 It imports nothing of JAX or of the JAX package, needs a CUDA device, and
 fails when the profiler records no device activity (then the device
@@ -41,6 +53,12 @@ CATEGORIES = (
     ("K2 span_embed", ("span_embed",)),
     ("K3 zscore_update", ("zscore_pass", "zscore_merge")),
     ("K4 zscore_score", ("zscore_score",)),
+    ("K5 featurize_columns", ("featurize_kernel",)),
+    ("K6 radix_sort", ("sort_prep_kernel", "sort_hist_kernel",
+                       "sort_scatter_kernel", "sort_finish_kernel")),
+    ("K7 next_fit_pack", ("pack_layout_kernel", "pack_walk_kernel",
+                          "pack_scatter_kernel")),
+    ("K8 span_head_scatter", ("span_head_kernel",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("GELU", ("gelu", "GeluCUDA")),
@@ -53,6 +71,15 @@ def category(name: str) -> str:
         if any(k in name for k in keys):
             return cat
     return "other (elementwise, reductions)"
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, namespaces' noise and
+    argument list: ``void (anonymous namespace)::k<true>(int*)`` → ``k<true>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    return name.split("(")[0][:80]
 
 
 def union_us(intervals: list[tuple[float, float]]) -> float:
@@ -72,9 +99,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="transformer",
                     choices=["transformer", "zscore"])
+    ap.add_argument("--route", default="host", choices=["host", "fused"],
+                    help="transformer: score_sync (host featurize + pack) "
+                         "or submit(columns=) (the fused route)")
     ap.add_argument("--traces", type=int, default=4096)
     ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--no-profile", action="store_true",
+                    help="host-side numbers only, without the profiler")
     args = ap.parse_args()
+    if args.route == "fused" and args.model != "transformer":
+        ap.error("--route fused needs --model transformer")
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -97,23 +131,53 @@ def main() -> int:
                for i in range(args.requests + 1)]
     engine = ScoringEngine(EngineConfig(model=args.model, device="cuda",
                                         warm_ladder=True)).start()
+
+    def score(b):
+        if args.route == "host":
+            return engine.score_sync(b, timeout_s=120)
+        from odigos_tpu_torch.serving.fused import extract_columns
+
+        req = engine.submit(b, columns=extract_columns(b)[0])
+        return req.scores if req is not None and req.done.wait(120) \
+            else None
+
     try:
         if args.model == "zscore":
             engine.warmup(synthesize_traces(400, seed=7))
-        if engine.score_sync(batches[0], timeout_s=120) is None:
+        if score(batches[0]) is None:
             raise RuntimeError("warm-up request timed out")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def run() -> float:
             t0 = time.perf_counter()
             for b in batches[1:]:
-                if engine.score_sync(b, timeout_s=120) is None:
+                if score(b) is None:
                     raise RuntimeError("request timed out")
-            wall_s = time.perf_counter() - t0
+            return time.perf_counter() - t0
+
+        if args.no_profile:
+            wall_s = run()
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_s = run()
         stats = engine.stats()
+        rows = list(getattr(engine.backend, "fused_rows", []))[-args.requests:]
     finally:
         engine.shutdown()
 
+    spans = sum(len(b) for b in batches[1:])
+    if args.no_profile:
+        print(json.dumps({
+            "card": card, "torch_device": torch.cuda.get_device_name(0),
+            "model": args.model, "route": args.route, "profiled": False,
+            "requests": args.requests, "traces_per_request": args.traces,
+            "spans": spans, "window_s": wall_s,
+            "spans_per_s": spans / wall_s,
+            "device_busy_ms": "not measured",
+            "fused_rows_R_vs_real": rows if args.route == "fused" else None,
+            "engine": stats}), flush=True)
+        return 0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity: "
@@ -129,10 +193,10 @@ def main() -> int:
         rec[0] += ms
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    spans = sum(len(b) for b in batches[1:])
     print(json.dumps({
         "card": card, "torch_device": torch.cuda.get_device_name(0),
-        "model": args.model, "requests": args.requests, "traces_per_request": args.traces,
+        "model": args.model, "route": args.route, "profiled": True,
+        "requests": args.requests, "traces_per_request": args.traces,
         "spans": spans, "window_s": wall_s,
         "spans_per_s": spans / wall_s,
         "device_busy_ms": busy_ms,
@@ -144,6 +208,13 @@ def main() -> int:
                                                 key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n[:120], "ms": v[0], "count": v[1]}
                         for n, v in top],
+        "hand_written_per_call": {
+            short_name(n): {"category": category(n),
+                                   "ms": v[0] / args.requests,
+                                   "launches": v[1] / args.requests}
+            for n, v in sorted(by_name.items())
+            if category(n).startswith("K")},
+        "fused_rows_R_vs_real": rows if args.route == "fused" else None,
         "engine": stats}), flush=True)
     return 0
 
