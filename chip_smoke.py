@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device — the card's name and power limit from ``nvidia-smi`` and
    ``torch.cuda.get_device_name(0)``;
 2. build — every CUDA source compiled from the checkout (attention,
-   span embedding, zscore, trace sort, featurize, trace pack, span head),
-   one ``nvcc`` per source, all started together;
+   span embedding, zscore, trace sort, featurize, trace pack, span head,
+   int8 quantize, int8 GEMM), one ``nvcc`` per source, all started
+   together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -64,7 +65,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    engine, one request against an f32 CPU run of the fused route, a
    legacy-JSON frame sent down the host route with its reason counted, and
    the share of the forward's device time that the padded rows take;
-9. a ``{"kernels": [...]}`` line (K1 to K8), then the last line
+9. int8 kernels — K9 ``ln_quantize`` and K10 ``qgemm`` at each step of
+   the int8 block (LN1, the fused QKV product split for K1, the context
+   quantize, the out-projection + residual, LN2, FFN1 + GELU, the GELU
+   output quantize, FFN2 + residual) on the first block's own
+   activations at R = 256 and 2048 rows (M = 16384 and 131072 tokens),
+   each held to its plain version on the same inputs — codes, scales and
+   outputs bit-equal (K10, failing that, within one bf16 step with the
+   reason printed) — with the same times and bound as phase 3 (int8
+   operations over 1,979 TOP/s), K10 beside ``torch._int_mm`` (s32 out,
+   no quantize or epilogue; checked to be the exact product) and bf16
+   ``F.linear`` at the same shape;
+10. int8 path — ``ScoringEngine(EngineConfig(model="transformer",
+   quantized=True))`` at full width, warmed: the sequential requests of
+   phase 6 and the concurrent burst, on the host route (``submit(batch)``)
+   and on the fused route (``submit(batch, columns=...)``), each route's
+   launches read around its own run (K9 and K10 four times a layer per
+   call, K1 once a layer, K2 once; K5-K8 as phase 8 on the fused route);
+   fused vs host route within max 0.05 / mean 5e-3, one request's kernel
+   path vs its plain path within 2e-2, int8 vs the bf16 float path on
+   the same f32 weights within 0.05, and card bf16 vs a CPU f32 int8 run
+   of the same int8 tree within 3e-2;
+11. a ``{"kernels": [...]}`` line (K1 to K10), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -115,6 +137,12 @@ FEAT_CONT_RTOL = 2.0 ** -23     # K5 log-duration: one f32 step (both take
 HEAD_BF16_ATOL = 2e-3           # K8 in bf16: the LN output may round to a
                                 # neighbouring bf16 value before the dot
 SPANS_PER_TRACE = 10.3          # synthesize_traces' mean (otel-demo mix)
+
+INT8_OPS = 1979e12              # int8 tensor-core peak, dense
+INT8_FLOAT_BOUND = 0.05         # int8 vs the float path on the same f32
+                                # weights (tests/test_features_models.py)
+INT8_FUSED_MAX = 0.05           # int8 fused vs host route, max and mean
+INT8_FUSED_MEAN = 5e-3          # (tests/test_fused.py)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1000,20 +1028,23 @@ FUSED_COUNTERS = (("segment_attention", "attention"), ("span_embed", "embed"),
                   ("next_fit_pack", "pack"), ("span_head_scatter", "head"))
 
 
+INT8_COUNTERS = FUSED_COUNTERS + (("ln_quantize", "quant"),
+                                  ("qgemm", "qgemm"))
+
+
 def _zero_counters() -> None:
     from odigos_tpu_torch import kernels
 
-    for _, mod in FUSED_COUNTERS:
+    for _, mod in INT8_COUNTERS:
         getattr(kernels, mod).launches = 0
     kernels.sort.device_launches = 0
     kernels.pack.device_launches = 0
 
 
-def _read_counters() -> dict:
+def _read_counters(counters=FUSED_COUNTERS) -> dict:
     from odigos_tpu_torch import kernels
 
-    return {name: getattr(kernels, mod).launches
-            for name, mod in FUSED_COUNTERS}
+    return {name: getattr(kernels, mod).launches for name, mod in counters}
 
 
 def phase_fused_path(card: str) -> dict:
@@ -1183,6 +1214,310 @@ def phase_fused_path(card: str) -> dict:
     return out
 
 
+def _k10_diff(got, ref, what: str):
+    """K10 against its plain version: bit-equal, or failing that each
+    output within one bf16 step of the plain one, with the count and the
+    reason printed. Returns ``(max |diff|, note)``."""
+    import torch
+
+    if torch.equal(got, ref):
+        return 0.0, None
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    step = torch.exp2(torch.floor(torch.log2(r.abs().clamp(
+        min=2.0 ** -126))) - 7)
+    n = int((diff > 0).sum().item())
+    check(bool((diff <= step).all()), f"{what}: {n} outputs beyond one bf16 "
+                                      f"step of the plain version")
+    note = (f"{what}: {n} of {r.numel()} outputs not bit-equal, each within "
+            f"one bf16 step: the f32 epilogue differs from the plain "
+            f"version's in a last bit before the rounding")
+    print(f"chip_smoke: {note}", flush=True)
+    return diff.max().item(), note
+
+
+def phase_int8_kernels(card: str) -> dict:
+    """K9 and K10 at each step of the int8 block, on the first block's own
+    activations (the kernel path), each held to its plain version on the
+    same inputs, timed beside ``torch._int_mm`` (K10's library yardstick:
+    it writes s32 and does no quantize or epilogue) and bf16 ``F.linear``
+    at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import attention, embed
+    from odigos_tpu_torch.kernels import qgemm as kq
+    from odigos_tpu_torch.kernels import quant as kquant
+    from odigos_tpu_torch.models import QuantizedTraceScorer, TransformerConfig
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig()
+    model = QuantizedTraceScorer(cfg, device=dev, seed=0)
+    blk = model._blocks[0]
+    pk = _packed_rows(max(R_SHAPES))
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    d, H = cfg.d_model, cfg.n_heads
+    results: dict = {}
+    for R in R_SHAPES:
+        def rows(a, dtype):
+            return torch.from_numpy(a[:R]).to(dev, dtype).contiguous()
+
+        cat = rows(pk.categorical, torch.int32)
+        cont = rows(pk.continuous, torch.float32)
+        seg = rows(pk.segments, torch.int32)
+        pos = rows(pk.positions, torch.int32)
+        L = cat.shape[1]
+
+        def k9(step, inp, ln):
+            args = (inp, *ln) if ln else (inp,)
+            got = kquant.ln_quantize(*args)
+            ref = kquant.ln_quantize_plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"ln_quantize {step} R={R}: codes or scales differ from "
+                  f"the plain version")
+            M, K = inp.shape
+            nbytes = (M * K * inp.element_size() + M * K + M * 4
+                      + (2 * K * 4 if ln else 0))
+            flops = M * K * (10 if ln else 3)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+            results[("ln_quantize", step, R)] = {
+                "name": "ln_quantize", "step": step, "R": R, "M": M, "K": K,
+                "ln": bool(ln), "max_abs_diff": 0.0,
+                "bound": "exact (codes and scales)",
+                **timings(lambda: kquant.ln_quantize(*args),
+                          lambda: kquant.ln_quantize_plain(*args), None,
+                          flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops}
+            return got
+
+        def k10(step, xq, a_s, dense, epilogue, residual, planes, x_in):
+            args = (xq, dense.w, a_s, dense.s, dense.b, cfg.dtype, epilogue,
+                    residual, planes)
+            got = kq.qgemm(*args)
+            ref = kq.qgemm_plain(*args)
+            torch.cuda.synchronize()
+            diff, note = _k10_diff(got, ref, f"qgemm {step} R={R}")
+            N, K = dense.w.shape
+            M = xq.shape[0]
+            wt = dense.w.t()
+
+            def int_mm():
+                return torch._int_mm(xq, wt)
+
+            exact = (xq.double() @ dense.w.double().t())
+            check(torch.equal(int_mm().double(), exact),
+                  f"torch._int_mm {step} R={R}: not the exact product")
+            del exact
+            wb = dense.w.to(torch.bfloat16)
+            bb = dense.b.to(torch.bfloat16)
+
+            def linear():
+                return F.linear(x_in, wb, bb)
+
+            out_bytes = M * N * got.element_size()
+            nbytes = (M * K + N * K + M * 4 + 2 * N * 4 + out_bytes
+                      + (out_bytes if residual is not None else 0))
+            ops = 2 * M * N * K
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS)
+            results[("qgemm", step, R)] = {
+                "name": "qgemm", "step": step, "R": R, "M": M, "N": N,
+                "K": K, "epilogue": epilogue, "planes": planes,
+                "max_abs_diff": diff, "bound": "exact, else one bf16 step",
+                "note": note,
+                **timings(lambda: kq.qgemm(*args),
+                          lambda: kq.qgemm_plain(*args), int_mm, flush),
+                "library": "torch._int_mm: s32 out, no quantize, no "
+                           "epilogue",
+                "bf16_linear_ms": time_ms(linear, flush),
+                "bf16_linear_device_ms": device_ms(linear, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "ops": ops}
+            return got
+
+        with torch.inference_mode():
+            x = embed.span_embed(cat, cont, pos, seg, model._tables,
+                                 cfg.dtype).view(R * L, d)
+            xq, a_s = k9("ln1", x, blk.ln1)
+            qkv = k10("qkv", xq, a_s, blk.qkv, "none", None, 3, x)
+            q, k, v = (t.view(R, L, H, d // H) for t in qkv)
+            ctx = attention.segment_attention(q, k, v, seg).view(R * L, d)
+            cq, cs = k9("ctx", ctx, None)
+            x1 = k10("out_residual", cq, cs, blk.out, "residual", x, 1, ctx)
+            hq, hs = k9("ln2", x1, blk.ln2)
+            h = k10("ffn1_gelu", hq, hs, blk.ff1, "gelu_tanh", None, 1, x1)
+            gq, gs = k9("gelu_out", h, None)
+            x2 = k10("ffn2_residual", gq, gs, blk.ff2, "residual", x1, 1, h)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(x2.float()).all()),
+                  f"int8 block R={R}: non-finite output")
+    for r in results.values():
+        emit({"phase": "int8_kernels", "card": card, **r})
+    return results
+
+
+def phase_int8_path(card: str) -> dict:
+    """The int8 transformer at full width through the engine
+    (``EngineConfig(quantized=True)``), warmed: five sequential requests
+    and a concurrent burst on the host route (``submit(batch)``) and on the
+    fused route (``submit(batch, columns=...)``), each route's kernel
+    launches read around its own run; then the four agreement bounds."""
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.features import featurize, pack_sequences
+    from odigos_tpu_torch.models import (QuantizedTraceScorer,
+                                         TraceTransformer, TransformerConfig)
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+    from odigos_tpu_torch.serving.fused import extract_columns
+
+    batches = [synthesize_traces(n, seed=100 + i)
+               for i, n in enumerate(MAIN_PATH_TRACES)]
+    bursts = [synthesize_traces(BURST_TRACES, seed=200 + i)
+              for i in range(BURST_REQUESTS)]
+    t0 = time.monotonic()
+    engine = ScoringEngine(EngineConfig(
+        model="transformer", quantized=True, device="cuda",
+        warm_ladder=True)).start()
+    start_s = time.monotonic() - t0
+    be = engine.backend
+    model = be.model
+    check(isinstance(model, QuantizedTraceScorer),
+          "quantized engine not serving the int8 scorer")
+    n_layers = model.cfg.n_layers
+
+    def wait(req, what: str):
+        check(req is not None and req.done.wait(300), f"{what} timed out")
+        return req.scores
+
+    def run(route: str) -> dict:
+        cols = route == "fused"
+
+        def submit(b):
+            return engine.submit(b, columns=extract_columns(b)[0]) \
+                if cols else engine.submit(b)
+
+        stats0 = engine.stats()
+        _zero_counters()
+        requests, replies = [], []
+        t_seq = time.perf_counter()
+        for b in batches:
+            t = time.perf_counter()
+            s = wait(submit(b), f"int8 {route} request of {len(b)} spans")
+            lat = (time.perf_counter() - t) * 1e3
+            _check_scores(s, len(b), f"int8 {route} {len(b)} spans")
+            replies.append(s)
+            requests.append({"spans": len(b), "rows": be.last_shape[0],
+                             "latency_ms": lat})
+        seq_s = time.perf_counter() - t_seq
+        t_burst = time.perf_counter()
+        reqs = [submit(b) for b in bursts]
+        for r, b in zip(reqs, bursts):
+            _check_scores(wait(r, f"int8 {route} burst"), len(b),
+                          f"int8 {route} burst")
+        burst_s = time.perf_counter() - t_burst
+        launches = _read_counters(INT8_COUNTERS)
+        stats = engine.stats()
+        calls = (stats["fused_calls"] - stats0["fused_calls"] if cols
+                 else stats["device_calls"] - stats0["device_calls"])
+        want = {"ln_quantize": 4 * n_layers * calls,
+                "qgemm": 4 * n_layers * calls,
+                "segment_attention": n_layers * calls, "span_embed": calls}
+        if cols:
+            want.update(featurize_columns=calls, radix_sort=2 * calls,
+                        next_fit_pack=calls, span_head_scatter=calls)
+        got = {k: launches[k] for k in want}
+        check(calls > 0 and got == want,
+              f"int8 {route} launches {got} != {want} for {calls} calls")
+        seq_spans = sum(r["spans"] for r in requests)
+        burst_spans = sum(len(b) for b in bursts)
+        return {"requests": requests, "replies": replies,
+                "sequential_spans_per_s": seq_spans / seq_s,
+                "burst": {"requests": BURST_REQUESTS, "spans": burst_spans,
+                          "seconds": burst_s,
+                          "spans_per_s": burst_spans / burst_s},
+                "calls": calls, "launches": launches,
+                "launches_per_call": {k: v / calls
+                                      for k, v in launches.items()}}
+
+    try:
+        host = run("host")
+        fused = run("fused")
+        stats = engine.stats()
+    finally:
+        engine.shutdown()
+    # fused vs host route: the same requests
+    fh = np.concatenate([np.abs(a - b) for a, b in
+                         zip(fused["replies"], host["replies"])])
+    fh_max, fh_mean = float(fh.max()), float(fh.mean())
+    check(fh_max < INT8_FUSED_MAX and fh_mean < INT8_FUSED_MEAN,
+          f"int8 fused vs host route max {fh_max}, mean {fh_mean}")
+    ref_b = batches[2]
+    pkr = pack_sequences(ref_b, featurize(ref_b), max_len=64,
+                         pad_rows_to=be.ladder.round_rows)
+
+    def spans(probs):
+        out = np.zeros(len(ref_b), np.float32)
+        out[pkr.span_index[pkr.mask]] = probs[pkr.mask]
+        return out
+
+    args = (pkr.categorical, pkr.continuous, pkr.segments, pkr.positions)
+    # the int8 kernel path against the int8 plain path on the card
+    plain = spans(model.score_packed(*args, reference=True).cpu().numpy())
+    plain_diff = float(np.abs(plain - host["replies"][2]).max())
+    check(plain_diff <= PLAIN_PATH_BOUND,
+          f"int8 kernel path vs plain path {plain_diff} > "
+          f"{PLAIN_PATH_BOUND}")
+    # int8 against the bf16 float path on the same f32 weights (the same
+    # seed draws them; the float model casts its block weights to bf16)
+    flt_model = TraceTransformer(TransformerConfig(), device="cuda", seed=0)
+    flt = spans(flt_model.score_packed(*args).cpu().numpy())
+    del flt_model
+    flt_diff = float(np.abs(flt - host["replies"][2]).max())
+    flt_mean = float(np.abs(flt - host["replies"][2]).mean())
+    check(flt_diff < INT8_FLOAT_BOUND,
+          f"int8 vs bf16 float path {flt_diff} >= {INT8_FLOAT_BOUND}")
+    # one request against an f32 int8 run on the CPU, same int8 tree
+    cpu = QuantizedTraceScorer(TransformerConfig(dtype=torch.float32),
+                               device="cpu")
+    cpu.load_quantized({k: v.cpu() for k, v in model.state_dict().items()})
+    small = batches[0]
+    pks = pack_sequences(small, featurize(small), max_len=64)
+    probs = cpu.score_packed(pks.categorical, pks.continuous, pks.segments,
+                             pks.positions).numpy()
+    ref = np.zeros(len(small), np.float32)
+    ref[pks.span_index[pks.mask]] = probs[pks.mask]
+    cpu_diff = float(np.abs(ref - host["replies"][0]).max())
+    check(cpu_diff <= CPU_F32_BOUND,
+          f"int8 card bf16 vs CPU f32 {cpu_diff} > {CPU_F32_BOUND}")
+    for r in (host, fused):
+        del r["replies"]
+    out = {"phase": "int8_path", "card": card,
+           "config": "TransformerConfig() bf16, d256 h4 l4 ff1024 L64, "
+                     "EngineConfig(quantized=True): int8 W8A8",
+           "engine_start_s": start_s, "host_route": host,
+           "fused_route": fused,
+           "fused_vs_host_max_abs_diff": fh_max,
+           "fused_vs_host_mean_abs_diff": fh_mean,
+           "fused_vs_host_bounds": [INT8_FUSED_MAX, INT8_FUSED_MEAN],
+           "plain_path_max_abs_diff": plain_diff,
+           "plain_path_bound": PLAIN_PATH_BOUND,
+           "float_path_max_abs_diff": flt_diff,
+           "float_path_mean_abs_diff": flt_mean,
+           "float_path_bound": INT8_FLOAT_BOUND,
+           "cpu_f32_max_abs_diff": cpu_diff, "cpu_f32_bound": CPU_F32_BOUND,
+           "stage_ms_p50_by_route": stats["stage_ms_p50_by_route"],
+           "engine": stats}
+    emit(out)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1201,6 +1536,8 @@ def main() -> int:
     main_path = phase_main_path(card)
     fused_kern = phase_fused_kernels(card)
     fused_path = phase_fused_path(card)
+    int8_kern = phase_int8_kernels(card)
+    int8_path = phase_int8_path(card)
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
     sources = {"segment_attention": src + "segment_attention.cu",
@@ -1210,7 +1547,9 @@ def main() -> int:
                "featurize_columns": src + "featurize.cu",
                "radix_sort": src + "trace_sort.cu",
                "next_fit_pack": src + "trace_pack.cu",
-               "span_head_scatter": src + "span_head.cu"}
+               "span_head_scatter": src + "span_head.cu",
+               "ln_quantize": src + "quant.cu",
+               "qgemm": src + "qgemm.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -1218,7 +1557,9 @@ def main() -> int:
                 "featurize_columns": "odigos_tpu/features/featurizer.py:335",
                 "radix_sort": "odigos_tpu/serving/fused.py:442",
                 "next_fit_pack": "odigos_tpu/serving/fused.py:512",
-                "span_head_scatter": "odigos_tpu/models/transformer.py:84"}
+                "span_head_scatter": "odigos_tpu/models/transformer.py:84",
+                "ln_quantize": "odigos_tpu/models/quantized.py:81",
+                "qgemm": "odigos_tpu/models/quantized.py:63"}
     designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
                "span_embed": "warp-per-slot vec16, small tables in smem",
                "zscore_update": "3 launches: warp-aggregated f64 sums in "
@@ -1236,11 +1577,19 @@ def main() -> int:
                                 "gather writing every output once",
                "span_head_scatter": "warp per real span: f32 LN stats, "
                                     "bf16-rounded LN out, f32 head dot, "
-                                    "sigmoid, write at perm[j]"}
+                                    "sigmoid, write at perm[j]",
+               "ln_quantize": "warp per row, 16-byte loads in registers: "
+                              "exact f64 LN sums, bf16-rounded LN out, "
+                              "absmax * f32(1/127), rint(y / a_s)",
+               "qgemm": "mma.sync m16n8k32 s8, 128x128 tile, 8 warps, "
+                        "cp.async 2-stage ring; dequant + bias + "
+                        "residual/GELU epilogue, QKV split in planes"}
     # each kernel's launches on its own path's run: K1 and K2 on the main
     # path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
-                **main_path["launches"]}
+                **main_path["launches"],
+                **{k: int8_path["host_route"]["launches"][k]
+                   for k in ("ln_quantize", "qgemm")}}
     timing_keys = ("kernel_ms", "device_ms", "plain_ms", "plain_device_ms",
                    "library_ms", "library_device_ms", "bound_ms",
                    "host_us_per_call", "max_abs_diff")
@@ -1300,6 +1649,25 @@ def main() -> int:
            for what in ("join", "trace") for mix in ("otel", "adversarial")
            for n in FUSED_N
            if (what, mix, n) != ("join", "otel", FUSED_MAIN_N)}}))
+    int8_steps = {"ln_quantize": ("ln1", "ctx", "ln2", "gelu_out"),
+                  "qgemm": ("qkv", "out_residual", "ffn1_gelu",
+                            "ffn2_residual")}
+    for kname, steps in int8_steps.items():
+        extra_keys = timing_keys + ("bound_ms", "bound_by")
+        if kname == "qgemm":
+            extra_keys += ("bf16_linear_ms", "bf16_linear_device_ms", "note")
+        head = int8_kern[(kname, steps[0], R)]
+        lines.append(line(kname, head, {
+            "shape_R": R, "step": steps[0],
+            "library": head.get("library"),
+            "launches_per_call": int8_path["host_route"][
+                "launches_per_call"][kname],
+            "fused_path_launches": int8_path["fused_route"]["launches"][
+                kname],
+            **{f"{st}_R{r}": {k: int8_kern[(kname, st, r)].get(k)
+                              for k in extra_keys}
+               for st in steps for r in R_SHAPES
+               if (st, r) != (steps[0], R)}}))
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -14,7 +14,12 @@
 * ``pack.next_fit_pack`` — K7, next-fit packing of trace-sorted spans
   (``csrc/trace_pack.cu``);
 * ``head.span_head_scatter`` — K8, final LayerNorm + span head + sigmoid
-  written to each span's original index (``csrc/span_head.cu``).
+  written to each span's original index (``csrc/span_head.cu``);
+* ``quant.ln_quantize`` — K9, per-token int8 quantize with an optional
+  LayerNorm in front (``csrc/quant.cu``);
+* ``qgemm.qgemm`` — K10, the int8 tensor-core GEMM with the dequantize,
+  bias and residual or GELU fused into its epilogue (``csrc/qgemm.cu``;
+  the package's ``qgemm`` is the module, which holds the launch count).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
@@ -22,12 +27,15 @@ plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
 that launched. ``build`` compiles the sources with nvcc at first use.
 """
 
-from . import attention, build, embed, featurize, head, pack, sort, zscore
+from . import (attention, build, embed, featurize, head, pack, qgemm, quant,
+               sort, zscore)
 from .attention import segment_attention, segment_attention_plain
 from .embed import EmbedTables, span_embed, span_embed_plain
 from .featurize import featurize_columns, featurize_columns_plain
 from .head import span_head_scatter, span_head_scatter_plain
 from .pack import PackedColumns, next_fit_pack, next_fit_pack_plain
+from .qgemm import qgemm_plain
+from .quant import ln_quantize, ln_quantize_plain
 from .sort import radix_sort, radix_sort_plain
 from .zscore import (zscore_score, zscore_score_plain, zscore_update,
                      zscore_update_plain)
@@ -39,6 +47,8 @@ __all__ = [
     "featurize",
     "head",
     "pack",
+    "qgemm",
+    "quant",
     "sort",
     "zscore",
     "segment_attention",
@@ -53,6 +63,9 @@ __all__ = [
     "PackedColumns",
     "next_fit_pack",
     "next_fit_pack_plain",
+    "qgemm_plain",
+    "ln_quantize",
+    "ln_quantize_plain",
     "radix_sort",
     "radix_sort_plain",
     "zscore_score",

@@ -41,6 +41,8 @@ SOURCES = {
     "featurize": "featurize.cu",
     "trace_pack": "trace_pack.cu",
     "span_head": "span_head.cu",
+    "quant": "quant.cu",
+    "qgemm": "qgemm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

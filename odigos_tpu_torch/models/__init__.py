@@ -1,9 +1,14 @@
 """The port's scoring models: the flagship trace transformer (and the
-Flax→torch bridge) and the streaming z-score detector."""
+Flax→torch bridge), its int8 (W8A8) scorer and the streaming z-score
+detector."""
 
-from .convert import flax_to_torch
+from .convert import (flax_quantized_to_torch, flax_to_torch,
+                      quantize_state_dict)
+from .quantized import QuantizedTraceScorer, quantize_weight
 from .transformer import TraceTransformer, TransformerConfig
 from .zscore import ZScoreDetector, ZScoreState, state_from_numpy
 
-__all__ = ["TraceTransformer", "TransformerConfig", "ZScoreDetector",
-           "ZScoreState", "flax_to_torch", "state_from_numpy"]
+__all__ = ["QuantizedTraceScorer", "TraceTransformer", "TransformerConfig",
+           "ZScoreDetector", "ZScoreState", "flax_quantized_to_torch",
+           "flax_to_torch", "quantize_state_dict", "quantize_weight",
+           "state_from_numpy"]

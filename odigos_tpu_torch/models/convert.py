@@ -17,6 +17,14 @@ The layout changes:
 
 The parent-service column gathers the service table (one parameter, no
 copy), and there is no ``attr_embed`` when ``attr_slots == 0``.
+
+The int8 scorer (``models/quantized.py``) loads an **int8 tree**: the same
+names, with each block's dense ``weight`` as int8 codes ``(out, in)`` and a
+``scale`` ``(out,)`` f32 beside it (``quantized.int8_layout``).
+``quantize_state_dict(state, cfg)`` makes it from the port's f32 state
+dict; ``flax_quantized_to_torch(qparams, cfg)`` carries the JAX scorer's
+own ``QuantizedTraceScorer.params`` (as numpy) across, its ``w (in, out)``
+codes transposed. Both raise on a missing or unused entry.
 """
 
 from __future__ import annotations
@@ -33,9 +41,10 @@ _MHA = "MultiHeadDotProductAttention_0"
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     out: dict[str, Any] = {}
-    for k, v in tree.items():
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for k, v in items:
         key = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             out.update(_flatten(v, key))
         else:
             out[key] = v
@@ -100,3 +109,81 @@ def flax_to_torch(params: Mapping[str, Any],
         raise KeyError(f"flax parameters not carried across: {unused}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
             for k, v in sd.items()}
+
+
+def quantize_state_dict(state: Mapping[str, Any], cfg: TransformerConfig
+                        ) -> dict[str, torch.Tensor]:
+    """The int8 tree of the port's f32 state dict: each block's six dense
+    weights quantized per output channel (``quantized.quantize_weight``,
+    from the values as given, in f32), everything else as f32."""
+    from .quantized import dense_keys, int8_layout, quantize_weight
+
+    floats = {k: v for k, v in int8_layout(cfg).items()
+              if not k.endswith(".scale")}
+    missing = sorted(set(floats) - set(state))
+    extra = sorted(set(state) - set(floats))
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    out = {k: (v if isinstance(v, torch.Tensor)
+               else torch.as_tensor(np.asarray(v))).detach().cpu().float()
+           for k, v in state.items()}
+    for p in dense_keys(cfg.n_layers):
+        out[f"{p}.weight"], out[f"{p}.scale"] = quantize_weight(
+            out[f"{p}.weight"])
+    return out
+
+
+def flax_quantized_to_torch(qparams: Mapping[str, Any],
+                            cfg: TransformerConfig
+                            ) -> dict[str, torch.Tensor]:
+    """The JAX scorer's ``QuantizedTraceScorer.params`` (numpy leaves) as
+    the port's int8 tree: ``w (in, out)`` codes → ``weight (out, in)``,
+    ``s`` → ``scale``, ``b`` → ``bias``; the f32 leaves as
+    ``flax_to_torch`` maps them."""
+    from .quantized import DENSE
+
+    flat = _flatten(qparams)
+    used: set[str] = set()
+
+    def take(name: str) -> np.ndarray:
+        if name not in flat:
+            raise KeyError(f"quantized parameter {name!r} missing")
+        used.add(name)
+        return np.asarray(flat[name])
+
+    tree: dict[str, np.ndarray] = {}
+    for table in ("service_embed", "name_embed", "kind_embed",
+                  "status_embed"):
+        tree[f"encoder.embed.{table}.weight"] = take(
+            f"embed/{table}/embedding")
+    if cfg.attr_slots > 0:
+        tree["encoder.embed.attr_embed.weight"] = take(
+            "embed/attr_embed/embedding")
+    tree["encoder.embed.cont_proj.weight"] = take("embed/cont_proj/kernel").T
+    tree["encoder.embed.cont_proj.bias"] = take("embed/cont_proj/bias")
+    tree["encoder.pos_embed.weight"] = take("pos")
+    for i in range(cfg.n_layers):
+        src, dst = f"blocks/{i}", f"encoder.blocks.{i}"
+        for ln in ("ln1", "ln2"):
+            tree[f"{dst}.{ln}.weight"] = take(f"{src}/{ln}/scale")
+            tree[f"{dst}.{ln}.bias"] = take(f"{src}/{ln}/bias")
+        for port, jax_name in DENSE.items():
+            w = take(f"{src}/{jax_name}/w")
+            if w.dtype != np.int8:
+                raise TypeError(f"{src}/{jax_name}/w is {w.dtype}, not "
+                                f"int8")
+            tree[f"{dst}.{port}.weight"] = w.T
+            tree[f"{dst}.{port}.scale"] = take(f"{src}/{jax_name}/s")
+            tree[f"{dst}.{port}.bias"] = take(f"{src}/{jax_name}/b")
+    tree["encoder.final_ln.weight"] = take("final_ln/scale")
+    tree["encoder.final_ln.bias"] = take("final_ln/bias")
+    for head in ("span_head", "trace_head"):
+        tree[f"{head}.weight"] = take(f"{head}/kernel").T
+        tree[f"{head}.bias"] = take(f"{head}/bias")
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise KeyError(f"quantized parameters not carried across: {unused}")
+    return {k: torch.from_numpy(np.array(
+        v, dtype=np.int8 if v.dtype == np.int8 else np.float32, order="C"))
+        for k, v in tree.items()}

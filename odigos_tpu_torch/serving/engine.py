@@ -50,9 +50,13 @@ every method that touches the device enters inference mode itself, on
 whichever thread calls it; all device work goes to that thread's current
 stream (the default stream unless the caller set another).
 
+``EngineConfig.quantized`` serves the transformer with int8 (W8A8)
+products (``models/quantized.py``, kernels K9 and K10) on both routes; the
+entry points are the engine and, in the reference, the processor config.
+
 Not ported yet (later slices, listed in ROADMAP.md): the autoencoder and
-remote models, failover, device meshes, int8 serving, adaptive
-deadline-sized coalescing, the flow ledger, meters (the cold-span count
+remote models, failover, device meshes, adaptive deadline-sized
+coalescing, the flow ledger, meters (the cold-span count
 and the fused counters are kept in ``stats()`` under the reference's
 metric names until then), the self-tracer and latency attribution.
 """
@@ -73,6 +77,7 @@ import torch
 from ..features.featurizer import (
     FeaturizerConfig, SpanFeatures, featurize, pack_sequences)
 from ..kernels.zscore import zscore_score
+from ..models.quantized import QuantizedTraceScorer
 from ..models.transformer import TraceTransformer, TransformerConfig
 from ..models.zscore import ZScoreDetector
 from ..pdata.spans import SpanBatch, concat_batches
@@ -95,6 +100,9 @@ class EngineConfig:
     max_len: int = 64            # spans per packed row
     trace_bucket: int = 256      # base row-shape bucket
     online_update: bool = True   # zscore: fit on observed traffic
+    # transformer: serve with int8 (W8A8) products; the weights quantize
+    # once at load (models/quantized.py)
+    quantized: bool = False
     featurizer: FeaturizerConfig = field(default_factory=FeaturizerConfig)
     model_config: Optional[TransformerConfig] = None
     seed: int = 0                # random weights: no checkpoints yet
@@ -106,6 +114,11 @@ class EngineConfig:
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
 
     def __post_init__(self) -> None:
+        if self.quantized and self.model != "transformer":
+            # as the reference: refuse rather than serve float quietly
+            raise ValueError(
+                f"quantized serving is only implemented for the "
+                f"transformer model, not {self.model!r}")
         if self.model in UNPORTED_MODELS:
             raise ValueError(
                 f"model {self.model!r} is not ported yet (ported: "
@@ -207,8 +220,13 @@ class SequenceBackend:
             raise ValueError(
                 f"model attr_slots {model_config.attr_slots} != featurizer "
                 f"attr_slots {cfg.featurizer.attr_slots}")
-        self.model = TraceTransformer(model_config, device=self.device,
-                                      seed=cfg.seed)
+        # the int8 scorer quantizes the seed's f32 draws and keeps no
+        # float copy of the dense weights; it scores like the float model
+        # (score_packed, score_packed_scatter), so both routes serve it
+        model_cls = QuantizedTraceScorer if cfg.quantized \
+            else TraceTransformer
+        self.model = model_cls(model_config, device=self.device,
+                               seed=cfg.seed)
         # the positional table bounds the row length
         self.max_len = min(cfg.max_len, model_config.max_len)
         self.ladder = BucketLadder(cfg.trace_bucket, cfg.bucket_ladder)
@@ -548,6 +566,7 @@ class ScoringEngine:
 
         out = {
             "model": self.cfg.model,
+            "quantized": self.cfg.quantized,
             "device": self.backend.device_label,
             "pipeline_depth": self._depth,
             "device_calls": self.device_calls,

@@ -629,3 +629,180 @@ def test_gpu_fused_engine_scores_like_the_cpu_fused_engine(dev):
     assert ksort.launches - launches0[1] == 2 * calls
     assert kpack.launches - launches0[2] == calls
     assert khead.launches - launches0[3] == calls
+
+
+# ------------------------------------------------ K9 / K10, the int8 path
+#
+# K9 (ln_quantize) and K10 (qgemm) take the same IEEE-rounded steps as their
+# plain versions in the same order, with the LayerNorm's sums taken exactly
+# (f64) and the product exact (s32 on the card, f64 in the plain version):
+# codes, scales and outputs are held to the bit.
+
+from odigos_tpu_torch.kernels import qgemm as kq  # noqa: E402
+from odigos_tpu_torch.kernels import quant as kquant  # noqa: E402
+from odigos_tpu_torch.models import QuantizedTraceScorer  # noqa: E402
+
+
+def _rows(dev, M, K, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.rand(M, 1, generator=g, device=dev) * 8 + 0.05
+    x = torch.randn(M, K, generator=g, device=dev) * scale + 0.3
+    x[M // 3] = 0.0  # an all-zero row: a_s 1, codes 0
+    return x.to(getattr(torch, dtype))
+
+
+def _quantize_and_check(x, ln):
+    K = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(1)
+    w = (1 + 0.2 * torch.randn(K, generator=g, device=x.device)) \
+        if ln else None
+    b = 0.1 * torch.randn(K, generator=g, device=x.device) if ln else None
+    before = kquant.launches
+    got = kquant.ln_quantize(x, w, b)
+    ref = kquant.ln_quantize_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kquant.launches == before + 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    return got
+
+
+@pytest.mark.parametrize("M,K", [(16384, 256), (16384, 1024), (1000, 264),
+                                 (37, 8)])
+@pytest.mark.parametrize("ln", [True, False], ids=["ln", "plain"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ln_quantize_kernel_matches_plain(dev, M, K, ln, dtype):
+    x_q, a_s = _quantize_and_check(_rows(dev, M, K, dtype), ln)
+    z = M // 3
+    if not ln:
+        assert a_s[z].item() == 1.0 and (x_q[z] == 0).all()
+
+
+def test_ln_quantize_rounds_half_to_even_on_the_card(dev):
+    row = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -3.5],
+                       device=dev)
+    x_q, a_s = _quantize_and_check(row.repeat(64, 1), False)
+    assert a_s[0].item() == 1.0
+    assert x_q[0].tolist() == [127, 0, 2, 2, 0, -2, 4, -4]
+
+
+def _qgemm_inputs(dev, M, N, K, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x_q = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                        dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                        dtype=torch.int8)
+    a_s = torch.rand(M, generator=g, device=dev) * 0.05 + 1e-3
+    w_s = torch.rand(N, generator=g, device=dev) * 2e-3 + 1e-4
+    b = 0.1 * torch.randn(N, generator=g, device=dev)
+    return x_q, w_q, a_s, w_s, b
+
+
+@pytest.mark.parametrize("M,N,K,epilogue,planes", [
+    (16384, 768, 256, "none", 3),         # QKV, split for K1
+    (16384, 256, 256, "residual", 1),     # out-projection
+    (16384, 1024, 256, "gelu_tanh", 1),   # FFN1
+    (16384, 256, 1024, "residual", 1),    # FFN2
+    (1000, 200, 80, "none", 1),           # ragged M, N and K
+    (1000, 200, 80, "gelu_tanh", 1),
+    (130, 24, 48, "residual", 1),
+    (130, 48, 16, "none", 2)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_qgemm_kernel_matches_plain(dev, M, N, K, epilogue, planes, dtype):
+    out_dtype = getattr(torch, dtype)
+    x_q, w_q, a_s, w_s, b = _qgemm_inputs(dev, M, N, K)
+    res = torch.randn(M, N, device=dev).to(out_dtype) \
+        if epilogue == "residual" else None
+    before = kq.launches
+    got = kq.qgemm(x_q, w_q, a_s, w_s, b, out_dtype, epilogue, res, planes)
+    ref = kq.qgemm_plain(x_q, w_q, a_s, w_s, b, out_dtype, epilogue, res,
+                         planes)
+    torch.cuda.synchronize()
+    assert kq.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == out_dtype
+    assert torch.equal(got, ref)
+
+
+def test_qgemm_kernel_is_exact_at_the_largest_sums(dev):
+    """K = 1024 codes of ±127: |acc| = 1024 * 127^2, past 2^23; s32 on the
+    card, f64 in the plain version, both exact."""
+    M, N, K = 256, 128, 1024
+    x_q = torch.full((M, K), 127, dtype=torch.int8, device=dev)
+    x_q[1::2] = -127
+    w_q = torch.full((N, K), 127, dtype=torch.int8, device=dev)
+    w_q[::3, ::5] = -127
+    one = torch.ones
+    got = kq.qgemm(x_q, w_q, one(M, device=dev), one(N, device=dev),
+                   torch.zeros(N, device=dev), torch.float32)
+    acc = (x_q.double() @ w_q.double().t()).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, acc)
+    assert acc.abs().max().item() == K * 127 * 127
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(dev):
+    x_q, w_q, a_s, w_s, b = _qgemm_inputs(dev, 64, 64, 48)
+    with pytest.raises(ValueError, match="K % 16"):
+        kq.qgemm(x_q[:, :24].contiguous(), w_q[:, :24].contiguous(), a_s,
+                 w_s, b, torch.bfloat16)
+    with pytest.raises(ValueError, match="N, N / planes % 8"):
+        kq.qgemm(x_q, w_q[:60].contiguous(), a_s, w_s[:60], b[:60],
+                 torch.bfloat16)
+    flat = torch.zeros(64 * 48 + 1, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        kq.qgemm(flat[1:].view(64, 48), w_q, a_s, w_s, b, torch.bfloat16)
+    strided = torch.zeros(64, 96, dtype=torch.int8, device=dev)[:, :48]
+    with pytest.raises(ValueError, match="contiguous"):
+        kq.qgemm(strided, w_q, a_s, w_s, b, torch.bfloat16)
+    with pytest.raises(TypeError, match="out_dtype"):
+        kq.qgemm(x_q, w_q, a_s, w_s, b, torch.float16)
+    x = torch.randn(8, 12, device=dev)
+    with pytest.raises(ValueError, match="K % 8"):
+        kquant.ln_quantize(x)
+    with pytest.raises(ValueError, match="K % 8"):
+        kquant.ln_quantize(torch.randn(8, 2048, device=dev))
+    with pytest.raises(TypeError):
+        kquant.ln_quantize(torch.randn(8, 64, device=dev).half())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_forward_kernel_path_matches_plain_path(dev, dtype):
+    """The int8 scorer's kernel path against its plain path on the card,
+    with K9 and K10 launched four times a layer each."""
+    cfg = TransformerConfig(n_layers=2, dtype=getattr(torch, dtype))
+    model = QuantizedTraceScorer(cfg, device=dev)
+    pk = _packed(200, 64, pad=3)
+    k9, k10 = kquant.launches, kq.launches
+    got = model.score_packed(pk.categorical, pk.continuous, pk.segments,
+                             pk.positions)
+    ref = model.score_packed(pk.categorical, pk.continuous, pk.segments,
+                             pk.positions, reference=True)
+    torch.cuda.synchronize()
+    assert kquant.launches - k9 == 4 * cfg.n_layers
+    assert kq.launches - k10 == 4 * cfg.n_layers
+    live = torch.from_numpy(pk.segments > 0).to(dev)
+    assert (got - ref)[live].abs().max().item() <= 2e-2
+
+
+def test_gpu_int8_engine_scores_like_the_cpu_int8_engine(dev):
+    """Host route and fused route of the int8 engine on the card against
+    the CPU's, same int8 tree, f32. Bound 1e-2: K1, K2 and the final
+    LayerNorm sum in another order on the card, and a last-bit change of
+    an activation can move its int8 code by one, which moves a span's
+    score by ~1e-3 (tests/test_torch_quantized.py measures up to 1.3e-3
+    against the JAX scorer for the same reason)."""
+    cfg = dict(model="transformer", quantized=True,
+               model_config=TransformerConfig(dtype=torch.float32),
+               trace_bucket=16)
+    gpu = ScoringEngine(EngineConfig(device="cuda", **cfg))
+    cpu = ScoringEngine(EngineConfig(device="cpu", **cfg))
+    cpu.backend.model.load_quantized(
+        {k: v.cpu() for k, v in gpu.backend.model.state_dict().items()})
+    for seed in (41, 42):
+        b = synthesize_traces(60, seed=seed)
+        got = gpu.backend.score(b, featurize(b))
+        ref = cpu.backend.score(b, featurize(b))
+        assert np.abs(got - ref).max() <= 1e-2
+        cols = extract_columns(b)[0]
+        got = gpu.backend.harvest(gpu.backend.dispatch_columns([cols]))
+        ref = cpu.backend.harvest(cpu.backend.dispatch_columns([cols]))
+        assert np.abs(got - ref).max() <= 1e-2

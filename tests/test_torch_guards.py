@@ -54,14 +54,16 @@ def test_port_has_the_slice_modules():
                 "kernels/embed.py", "kernels/build.py", "kernels/zscore.py",
                 "kernels/featurize.py", "kernels/sort.py",
                 "kernels/pack.py", "kernels/head.py",
+                "kernels/quant.py", "kernels/qgemm.py",
                 "models/layers.py", "models/transformer.py",
+                "models/quantized.py",
                 "models/convert.py", "models/zscore.py",
                 "serving/engine.py", "serving/fused.py",
                 "serving/sidecar.py", "utils/framing.py", "wire/codec.py"):
         assert mod in rel, mod
     for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu",
                 "trace_sort.cu", "featurize.cu", "trace_pack.cu",
-                "span_head.cu"):
+                "span_head.cu", "quant.cu", "qgemm.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -110,13 +112,16 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 def test_entry_points_default_to_cuda():
     import inspect
 
-    from odigos_tpu_torch.models import TraceTransformer, ZScoreDetector
+    from odigos_tpu_torch.models import (QuantizedTraceScorer,
+                                         TraceTransformer, ZScoreDetector)
     from odigos_tpu_torch.serving import EngineConfig
     from odigos_tpu_torch.serving.sidecar import build_parser
 
     assert inspect.signature(TraceTransformer).parameters[
         "device"].default == "cuda"
     assert inspect.signature(ZScoreDetector).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(QuantizedTraceScorer).parameters[
         "device"].default == "cuda"
     assert EngineConfig().device == "cuda"
     assert build_parser().parse_args(["--socket", "x"]).device == "cuda"

@@ -10,7 +10,8 @@ the checkout's own source with named text edits (listed in ``VARIANTS``;
 an edit whose anchor is missing fails the run), built with the same
 ``nvcc`` flags as ``odigos_tpu_torch/kernels/build.py``, and launched
 through the port's wrapper on the smoke run's main-path inputs (R = 256
-and 2048 packed rows, default ``TransformerConfig``). Times are
+and 2048 packed rows, default ``TransformerConfig``; K10 ``qgemm`` at the
+int8 block's QKV product, on the first block's own codes). Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
 the unchanged build is held to the plain version.
@@ -55,6 +56,22 @@ VARIANTS = {
         "stores_only": {"      if (mk[9] > 0) {": "      if (false) {",
                         "        if (w_c.y > 0) {": "        if (false) {"},
     },
+    "qgemm": {
+        # no global->shared copies: the mma runs on stale shared memory
+        "no_copies": {
+            '  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, '
+            '%2;\\n" ::"r"(dst),\n               "l"(src), "r"(src_bytes));':
+                "  (void)dst; (void)src; (void)src_bytes;"},
+        # no tensor-core products: copies, ldmatrix and the epilogue
+        "no_mma": {
+            "          mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);":
+                "          acc[mi][ni][0] ^= (int)(a[mi][0] ^ b[ni][1]);"},
+        # the epilogue's math but no output stores (an impossible value)
+        "no_stores": {
+            "        Out<T>::store2(outp + m * plane_cols, y0, y1);":
+                "        if (y0 == 1234567.f && y1 == -7654321.f)\n"
+                "          Out<T>::store2(outp + m * plane_cols, y0, y1);"},
+    },
 }
 
 ARGTYPES = {
@@ -63,6 +80,8 @@ ARGTYPES = {
                              ctypes.c_void_p]),
     "span_embed": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                   + [ctypes.c_void_p],
+    "qgemm": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+              + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
 
 
@@ -107,8 +126,9 @@ def main() -> int:
         print("torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     import chip_smoke
-    from odigos_tpu_torch.kernels import attention, build, embed
-    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+    from odigos_tpu_torch.kernels import attention, build, embed, qgemm, quant
+    from odigos_tpu_torch.models import (QuantizedTraceScorer,
+                                         TraceTransformer, TransformerConfig)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,7 +136,8 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     build.build()
-    modules = {"segment_attention": attention, "span_embed": embed}
+    modules = {"segment_attention": attention, "span_embed": embed,
+               "qgemm": qgemm}
     built = {k: m._kernel() for k, m in modules.items()}
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(tmp)
@@ -125,6 +146,7 @@ def main() -> int:
         cfg = TransformerConfig()
         enc = TraceTransformer(cfg, device=dev, seed=0).module.encoder
         tables = enc.tables()
+        qblk = QuantizedTraceScorer(cfg, device=dev, seed=0)._blocks[0]
         pk = chip_smoke._packed_rows(max(chip_smoke.R_SHAPES))
         scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
         H = cfg.n_heads
@@ -145,11 +167,15 @@ def main() -> int:
                 L = cat.shape[1]
                 q, k, v = (lin(h).view(R, L, H, hd)
                            for lin in (blk.query, blk.key, blk.value))
+                xq, a_s = quant.ln_quantize(x.view(R * L, -1), *qblk.ln1)
+                qkv = qblk.qkv
                 calls = {
                     "segment_attention": lambda: attention.segment_attention(
                         q, k, v, seg),
                     "span_embed": lambda: embed.span_embed(
-                        cat, cont, pos, seg, tables, cfg.dtype)}
+                        cat, cont, pos, seg, tables, cfg.dtype),
+                    "qgemm": lambda: qgemm.qgemm(
+                        xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3)}
                 for (kname, vname), fn in sorted(fns.items()):
                     modules[kname]._fn = fn
                     try:

@@ -3,6 +3,7 @@
 
     python3 tools/torch_trace_main_path.py [--model transformer|zscore]
                                            [--route host|fused]
+                                           [--quantized]
                                            [--traces 4096] [--requests 6]
                                            [--no-profile]
 
@@ -15,7 +16,11 @@ another through ``score_sync`` (the engine path the sidecar calls, minus
 the socket and wire codec) — or, with ``--route fused`` (transformer
 only), through ``submit(batch, columns=extract_columns(batch)[0])``, the
 fused columns route — under ``torch.profiler`` with CPU and CUDA
-activities. It prints one JSON line with:
+activities. ``--quantized`` serves the transformer with int8 products
+(``EngineConfig(quantized=True)``) and then runs the same requests through
+the bf16 engine in the same process, so the line carries the int8 path's
+numbers and, under ``bf16_same_run``, the float path's beside them. It
+prints one JSON line with:
 
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
@@ -24,7 +29,7 @@ activities. It prints one JSON line with:
   other),
   each category's share of the busy time, and the top kernels by device
   time;
-* each hand-written kernel by name (K1-K8: K6 and K7 are several
+* each hand-written kernel by name (K1-K10: K3, K6 and K7 are several
   kernels each), with its launches and device ms per engine call;
 * the engine's stage medians (pack stage, device stage).
 
@@ -59,6 +64,8 @@ CATEGORIES = (
     ("K7 next_fit_pack", ("pack_layout_kernel", "pack_walk_kernel",
                           "pack_scatter_kernel")),
     ("K8 span_head_scatter", ("span_head_kernel",)),
+    ("K9 ln_quantize", ("ln_quantize_kernel",)),
+    ("K10 qgemm", ("qgemm_kernel",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("GELU", ("gelu", "GeluCUDA")),
@@ -95,41 +102,19 @@ def union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", default="transformer",
-                    choices=["transformer", "zscore"])
-    ap.add_argument("--route", default="host", choices=["host", "fused"],
-                    help="transformer: score_sync (host featurize + pack) "
-                         "or submit(columns=) (the fused route)")
-    ap.add_argument("--traces", type=int, default=4096)
-    ap.add_argument("--requests", type=int, default=6)
-    ap.add_argument("--no-profile", action="store_true",
-                    help="host-side numbers only, without the profiler")
-    args = ap.parse_args()
-    if args.route == "fused" and args.model != "transformer":
-        ap.error("--route fused needs --model transformer")
-
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+def measure(args, quantized: bool, card: str) -> dict:
+    """Serve the requests on one engine and return the line's numbers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
     from odigos_tpu_torch.pdata import synthesize_traces
     from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
     batches = [synthesize_traces(args.traces, seed=300 + i)
                for i in range(args.requests + 1)]
     engine = ScoringEngine(EngineConfig(model=args.model, device="cuda",
+                                        quantized=quantized,
                                         warm_ladder=True)).start()
 
     def score(b):
@@ -167,17 +152,15 @@ def main() -> int:
         engine.shutdown()
 
     spans = sum(len(b) for b in batches[1:])
+    out = {
+        "card": card, "torch_device": torch.cuda.get_device_name(0),
+        "model": args.model, "route": args.route, "quantized": quantized,
+        "profiled": not args.no_profile, "requests": args.requests,
+        "traces_per_request": args.traces, "spans": spans,
+        "window_s": wall_s, "spans_per_s": spans / wall_s,
+        "fused_rows_R_vs_real": rows if args.route == "fused" else None}
     if args.no_profile:
-        print(json.dumps({
-            "card": card, "torch_device": torch.cuda.get_device_name(0),
-            "model": args.model, "route": args.route, "profiled": False,
-            "requests": args.requests, "traces_per_request": args.traces,
-            "spans": spans, "window_s": wall_s,
-            "spans_per_s": spans / wall_s,
-            "device_busy_ms": "not measured",
-            "fused_rows_R_vs_real": rows if args.route == "fused" else None,
-            "engine": stats}), flush=True)
-        return 0
+        return {**out, "device_busy_ms": "not measured", "engine": stats}
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity: "
@@ -193,13 +176,8 @@ def main() -> int:
         rec[0] += ms
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    print(json.dumps({
-        "card": card, "torch_device": torch.cuda.get_device_name(0),
-        "model": args.model, "route": args.route, "profiled": True,
-        "requests": args.requests, "traces_per_request": args.traces,
-        "spans": spans, "window_s": wall_s,
-        "spans_per_s": spans / wall_s,
-        "device_busy_ms": busy_ms,
+    return {
+        **out, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
         "device_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])),
@@ -210,12 +188,58 @@ def main() -> int:
                         for n, v in top],
         "hand_written_per_call": {
             short_name(n): {"category": category(n),
-                                   "ms": v[0] / args.requests,
-                                   "launches": v[1] / args.requests}
+                            "ms": v[0] / args.requests,
+                            "launches": v[1] / args.requests}
             for n, v in sorted(by_name.items())
             if category(n).startswith("K")},
-        "fused_rows_R_vs_real": rows if args.route == "fused" else None,
-        "engine": stats}), flush=True)
+        "engine": stats}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="transformer",
+                    choices=["transformer", "zscore"])
+    ap.add_argument("--route", default="host", choices=["host", "fused"],
+                    help="transformer: score_sync (host featurize + pack) "
+                         "or submit(columns=) (the fused route)")
+    ap.add_argument("--quantized", action="store_true",
+                    help="transformer: the int8 (W8A8) engine, then the "
+                         "bf16 engine on the same requests")
+    ap.add_argument("--traces", type=int, default=4096)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--no-profile", action="store_true",
+                    help="host-side numbers only, without the profiler")
+    args = ap.parse_args()
+    if args.route == "fused" and args.model != "transformer":
+        ap.error("--route fused needs --model transformer")
+    if args.quantized and args.model != "transformer":
+        ap.error("--quantized needs --model transformer")
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    line = measure(args, args.quantized, card)
+    if args.quantized:
+        flt = measure(args, False, card)
+        line["bf16_same_run"] = {
+            k: flt.get(k) for k in (
+                "spans_per_s", "window_s", "device_busy_ms",
+                "device_idle_share", "device_ms_by_category",
+                "share_of_busy_by_category", "hand_written_per_call")}
+        line["bf16_same_run"]["stage_ms_p50_by_route"] = \
+            flt["engine"].get("stage_ms_p50_by_route")
+        line["int8_over_bf16_spans_per_s"] = (line["spans_per_s"]
+                                              / flt["spans_per_s"])
+    print(json.dumps(line), flush=True)
     return 0
 
 
