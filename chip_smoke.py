@@ -25,7 +25,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    wrapper's host time per call, the same times with the host's enqueue
    kept out (device time alone), and the least time the card could take (the
    bytes this data needs — for K2 only the table rows it gathers — over
-   3.35 TB/s, operations over the peak of their type);
+   3.35 TB/s, operations over the peak of their type); and B2, one
+   block's LN/GEMM/GELU chain around K1 (plain torch), timed beside its
+   bound;
 4. zscore kernels — K3 ``zscore_update`` and K4 ``zscore_score`` held
    against their plain versions on the card at N = 4096, 65536 and 131072
    spans, G = 8192 groups, with the otel-demo mix of synthetic traffic and
@@ -86,7 +88,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    path vs its plain path within 2e-2, int8 vs the bf16 float path on
    the same f32 weights within 0.05, and card bf16 vs a CPU f32 int8 run
    of the same int8 tree within 3e-2;
-11. a ``{"kernels": [...]}`` line (K1 to K10), then the last line
+11. ae kernels — K12 ``ln_masked_pool`` and K11 ``recon_ce`` on the
+   default autoencoder's own activations (the encoder's pre-LN state, the
+   decoder's output) at T = 256 and 2048 traces of L = 64, and K13
+   ``trace_rows_pack`` at the same traffic and at the fused span buckets
+   N = 4096, 65536 and 131072 (otel and adversarial frames), each held to
+   its plain version (K12 bit-equal or within one bf16 step with the
+   reason printed, K13 exact, K11 within 1e-4 on the errors), with the
+   same times and bound as phase 3 (K11: f32 operations on the real
+   positions over 67 TFLOP/s) and K11's library yardstick (four f32
+   ``F.linear`` + three ``F.cross_entropy`` + the squared error, summed);
+12. ae path — ``AutoencoderConfig()`` at full width, bf16, warmed: the
+   sidecar (``--model autoencoder``'s engine) serving phase 6's requests
+   and burst on the host route, then an engine's fused route
+   (``submit(batch, columns=...)``) on the same traffic; launches per
+   call (K2 1, K1 2, K12 1, K11 1; on the fused route also K5 1, K6 2,
+   K13 1), every score in [0, 1], the kernel path vs the plain path on
+   one request (errors and scores within 2e-2), card bf16 vs CPU f32
+   (within 3e-2), fused vs host (max 2e-2, on the default weights and on
+   a scaled-loss engine whose scores do not saturate), and the padded
+   rows' share of the fused forward;
+13. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+   ``{"kernels": [...]}`` line (K1 to K13), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -143,6 +166,16 @@ INT8_FLOAT_BOUND = 0.05         # int8 vs the float path on the same f32
                                 # weights (tests/test_features_models.py)
 INT8_FUSED_MAX = 0.05           # int8 fused vs host route, max and mean
 INT8_FUSED_MEAN = 5e-3          # (tests/test_fused.py)
+
+AE_T = (256, 2048)              # traces (rows of L = 64): K11/K12 shapes
+RECON_ATOL = 1e-4               # K11 vs plain on the errors: the heads'
+                                # f32 dots and the log-sum-exp summed in
+                                # another order
+# loss weights that keep 1 - exp(-err) off its ceiling with random weights
+AE_SCALED_WEIGHTS = dict(w_service=0.01, w_name=0.01, w_kind=0.005,
+                         w_duration=0.002)
+AE_FUSED_RTOL = 2e-5            # fused vs host route on unsaturated scores
+AE_FUSED_ATOL = 1e-6            # (tests/test_fused.py: the reference's own)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -449,6 +482,32 @@ def phase_kernels(card: str) -> dict:
                 "library_bound_live": lib_lim,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": nbytes, "flops": flops}
+            # ---- B2, the block's LN/GEMM/GELU chain around K1, still
+            # plain torch (cuBLAS products, torch's LayerNorm and GELU):
+            # its time and bound, one block at these rows
+            a_k = attention.segment_attention(q, k, v, seg).view(R, L, d)
+
+            def chain():
+                h1 = blk.ln1(x_k)
+                blk.query(h1), blk.key(h1), blk.value(h1)
+                x1 = x_k + blk.out(a_k)
+                h2 = F.gelu(blk.ff1(blk.ln2(x1)), approximate="tanh")
+                return x1 + blk.ff2(h2)
+
+            M, dff = R * L, cfg.d_ff
+            # as one function: x and the attention output in, q, k, v and
+            # the block's output out, bf16; the six weight matrices once
+            nbytes = 6 * M * d * 2 + (4 * d * d + 2 * d * dff) * 2
+            flops = 2 * M * (4 * d * d + 2 * d * dff)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            results[("dense_chain_b2", R)] = {
+                "name": "dense_chain_b2", "R": R, "M": M,
+                "what": "one block's LN1, Q/K/V, out-proj + residual, LN2, "
+                        "FFN1 + GELU, FFN2 + residual: plain torch",
+                "device_ms": device_ms(chain, flush),
+                "kernel_ms": time_ms(chain, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": flops, "layers": cfg.n_layers}
             if R == min(R_SHAPES):
                 # the f32 route is the other kernel (CUDA cores): held to
                 # its plain version at f32 summation-order noise
@@ -1031,20 +1090,28 @@ FUSED_COUNTERS = (("segment_attention", "attention"), ("span_embed", "embed"),
 INT8_COUNTERS = FUSED_COUNTERS + (("ln_quantize", "quant"),
                                   ("qgemm", "qgemm"))
 
+# (name, module, counter attribute) of every wrapper's launch count
+ALL_COUNTERS = INT8_COUNTERS + (("ln_masked_pool", "pool"),
+                                ("recon_ce", "recon"),
+                                ("trace_rows_pack", "pack", "rows_launches"))
+
 
 def _zero_counters() -> None:
     from odigos_tpu_torch import kernels
 
-    for _, mod in INT8_COUNTERS:
-        getattr(kernels, mod).launches = 0
+    for name, mod, *attr in ALL_COUNTERS:
+        setattr(getattr(kernels, mod), attr[0] if attr else "launches", 0)
     kernels.sort.device_launches = 0
     kernels.pack.device_launches = 0
+    kernels.pack.rows_device_launches = 0
 
 
 def _read_counters(counters=FUSED_COUNTERS) -> dict:
     from odigos_tpu_torch import kernels
 
-    return {name: getattr(kernels, mod).launches for name, mod in counters}
+    return {name: getattr(getattr(kernels, mod), attr[0] if attr
+                          else "launches")
+            for name, mod, *attr in counters}
 
 
 def phase_fused_path(card: str) -> dict:
@@ -1214,10 +1281,12 @@ def phase_fused_path(card: str) -> dict:
     return out
 
 
-def _k10_diff(got, ref, what: str):
-    """K10 against its plain version: bit-equal, or failing that each
-    output within one bf16 step of the plain one, with the count and the
-    reason printed. Returns ``(max |diff|, note)``."""
+def _k10_diff(got, ref, what: str,
+              reason: str = "the f32 epilogue differs from the plain "
+                            "version's in a last bit before the rounding"):
+    """A kernel against its plain version (K10, K12): bit-equal, or
+    failing that each output within one bf16 step of the plain one, with
+    the count and the reason printed. Returns ``(max |diff|, note)``."""
     import torch
 
     if torch.equal(got, ref):
@@ -1230,8 +1299,7 @@ def _k10_diff(got, ref, what: str):
     check(bool((diff <= step).all()), f"{what}: {n} outputs beyond one bf16 "
                                       f"step of the plain version")
     note = (f"{what}: {n} of {r.numel()} outputs not bit-equal, each within "
-            f"one bf16 step: the f32 epilogue differs from the plain "
-            f"version's in a last bit before the rounding")
+            f"one bf16 step: {reason}")
     print(f"chip_smoke: {note}", flush=True)
     return diff.max().item(), note
 
@@ -1518,6 +1586,565 @@ def phase_int8_path(card: str) -> dict:
     return out
 
 
+def _ae_rows(T: int, dev):
+    """T traces of the otel mix, one per row of L = 64 (no padding row),
+    on the card: ``(categorical, continuous, mask)``."""
+    import torch
+
+    from odigos_tpu_torch.features import assemble_sequences
+    from odigos_tpu_torch.pdata import synthesize_traces
+
+    seqs = assemble_sequences(synthesize_traces(T, seed=13), max_len=64)
+    check(seqs.n_traces == T, f"{T} traces assembled as {seqs.n_traces}")
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        seqs.categorical, seqs.continuous, seqs.mask))
+
+
+def phase_ae_kernels(card: str) -> dict:
+    """K12 and K11 on the default autoencoder's own activations at T =
+    256 and 2048, K13 at the same traffic and at the fused span buckets,
+    each held to its plain version on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import featurize as kfeat
+    from odigos_tpu_torch.kernels import pack as kpack
+    from odigos_tpu_torch.kernels import pool as kpool
+    from odigos_tpu_torch.kernels import recon as krecon
+    from odigos_tpu_torch.kernels import sort as ksort
+    from odigos_tpu_torch.kernels.quant import layer_norm_plain
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving.engine import BucketLadder
+
+    dev = torch.device("cuda")
+    cfg = AutoencoderConfig()
+    model = SpanAutoencoder(cfg, device=dev, seed=0)
+    m = model.module
+    enc = m.encoder
+    ladder = BucketLadder(256, 4)       # EngineConfig's default ladder
+    d, L = cfg.d_model, cfg.max_len
+    V = cfg.service_vocab + cfg.name_vocab + 8 + 1
+    weights = (cfg.w_service, cfg.w_name, cfg.w_kind, cfg.w_duration)
+    scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch_l2.zero_()
+
+    results: dict = {}
+
+    def k13(key, n, c, cat, cont, extra):
+        perm = ksort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                                 c["start_unix_nano"]], n)
+        R = ladder.round_rows(n)        # the fused route's rows
+        args = (perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont, n, L, R)
+        got = kpack.trace_rows_pack(*args)
+        ref = kpack.trace_rows_pack_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            check(torch.equal(a, b), f"trace_rows_pack {key}: differs")
+        C, D = cat.shape[1], cont.shape[1]
+        nb = n * (4 + 16 + 4 * C + 4 * D) + R * L * (4 * C + 4 * D + 5) + 4
+        b_ms, b_by = bound(nb, 0, F32_FLOPS)
+        d0 = kpack.rows_device_launches
+        kpack.trace_rows_pack(*args)
+        results[("trace_rows_pack",) + key] = {
+            "name": "trace_rows_pack", **extra, "n": n, "R": R,
+            "traces": int(got.rows_used.item()), "max_abs_diff": 0.0,
+            "bound": "exact",
+            "device_launches_per_call": kpack.rows_device_launches - d0,
+            **timings(lambda: kpack.trace_rows_pack(*args),
+                      lambda: kpack.trace_rows_pack_plain(*args), None,
+                      flush),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+
+    with torch.inference_mode():
+        for T in AE_T:
+            cat, cont, mask = _ae_rows(T, dev)
+            M = T * L
+            real = int(mask.sum().item())
+            seg = mask.to(torch.int32)
+            pos = torch.arange(L, dtype=torch.int32, device=dev).expand(
+                T, L).contiguous()
+            # ---- K12 on the encoder's own pre-LN state
+            h = enc(cat, cont, pos, seg, final_ln=False)
+            ln = enc.final_ln
+            pargs = (h, ln.weight, ln.bias, mask)
+            got = kpool.ln_masked_pool(*pargs)
+            ref = kpool.ln_masked_pool_plain(*pargs)
+            torch.cuda.synchronize()
+            diff, note = _k10_diff(
+                got, ref, f"ln_masked_pool T={T}",
+                "an f64 sum rounded to f32 then bf16 landed on the other "
+                "side of a rounding tie")
+            nb = real * d * 2 + M + T * d * 2 + 2 * d * 4
+            b_ms, b_by = bound(nb, 12 * d * real, F32_FLOPS)
+            results[("ln_masked_pool", T)] = {
+                "name": "ln_masked_pool", "T": T, "real_positions": real,
+                "max_abs_diff": diff, "note": note,
+                "bound": "bit-equal, else one bf16 step",
+                **timings(lambda: kpool.ln_masked_pool(*pargs),
+                          lambda: kpool.ln_masked_pool_plain(*pargs), None,
+                          flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                "bound_ms_all_positions": bound(
+                    M * d * 2 + M + T * d * 2, 12 * d * M, F32_FLOPS)[0]}
+            # ---- K11 on the decoder's own output
+            dec = model._decode(cat, cont, mask, reference=False)
+            dl = m.dec_ln
+            heads = m.heads()
+            flat = (cat.reshape(M, -1), cont.reshape(M, -1),
+                    mask.reshape(M))
+            rargs = (dec, dl.weight, dl.bias, heads, *flat, weights)
+            got = krecon.recon_ce(*rargs)
+            ref = krecon.recon_ce_plain(*rargs)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"recon_ce T={T}: non-finite errors")
+            check(bool((got[~flat[2]] == 0).all()),
+                  f"recon_ce T={T}: padding scored")
+            diff = (got - ref).abs().max().item()
+            check(diff <= RECON_ATOL, f"recon_ce T={T}: max |kernel - "
+                                      f"plain| {diff} > {RECON_ATOL}")
+            # the library yardstick on the real rows' LN output
+            idx = torch.nonzero(flat[2]).flatten()
+            y = layer_norm_plain(dec[idx], dl.weight, dl.bias).float()
+            lab = flat[0][idx].long()
+            c0 = flat[1][idx, 0]
+
+            def library():
+                lo = [F.linear(y, w, b) for w, b in heads]
+                e = weights[0] * F.cross_entropy(lo[0], lab[:, 0],
+                                                 reduction="none")
+                e = e + weights[1] * F.cross_entropy(lo[1], lab[:, 1],
+                                                     reduction="none")
+                e = e + weights[2] * F.cross_entropy(lo[2], lab[:, 2],
+                                                     reduction="none")
+                return e + weights[3] * (lo[3][:, 0] - c0) ** 2
+
+            lib_diff = (library() - got[idx]).abs().max().item()
+            check(lib_diff <= RECON_ATOL, f"recon_ce library T={T}: "
+                                          f"{lib_diff} > {RECON_ATOL}")
+            flops = real * 2 * d * V
+            nb = (real * d * 2 + M + M * 4 + real * 16 + V * d * 4 + V * 4
+                  + 2 * d * 4)
+            b_ms, b_by = bound(nb, flops, F32_FLOPS)
+            results[("recon_ce", T)] = {
+                "name": "recon_ce", "T": T, "M": M, "real_positions": real,
+                "max_abs_diff": diff, "bound": RECON_ATOL,
+                **timings(lambda: krecon.recon_ce(*rargs),
+                          lambda: krecon.recon_ce_plain(*rargs), library,
+                          flush),
+                "library": "4 f32 F.linear + 3 F.cross_entropy + squared "
+                           "error on the real rows' LN output, summed (no "
+                           "one call); TF32 off",
+                "library_max_abs_diff": lib_diff,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                "flops": flops,
+                "bound_ms_all_positions": M * 2 * d * V / F32_FLOPS * 1e3}
+            # ---- K13 on the same traffic, as the fused route stages it
+            n, svc_t, nam_t, c = _staged(synthesize_traces(T, seed=13), dev)
+            fcat, fcont = kfeat.featurize_columns(
+                svc_t, nam_t, c["service"], c["name"], c["kind"],
+                c["status_code"], c["span_id"], c["parent_span_id"],
+                c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+            k13(("T", T), n, c, fcat, fcont, {"T": T, "mix": "otel"})
+        # ---- K13 at the fused span buckets
+        for kind in ("otel", "adversarial"):
+            for N in FUSED_N:
+                n, svc_t, nam_t, c = _staged(_fused_frame(N, kind), dev)
+                fcat, fcont = kfeat.featurize_columns(
+                    svc_t, nam_t, c["service"], c["name"], c["kind"],
+                    c["status_code"], c["span_id"], c["parent_span_id"],
+                    c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+                k13((kind, N), n, c, fcat, fcont, {"N": N, "mix": kind})
+    for r in results.values():
+        emit({"phase": "ae_kernels", "card": card, **r})
+    return results
+
+
+AE_HOST_COUNTERS = (("span_embed", "embed"),
+                    ("segment_attention", "attention"),
+                    ("ln_masked_pool", "pool"), ("recon_ce", "recon"))
+AE_FUSED_COUNTERS = AE_HOST_COUNTERS + (
+    ("featurize_columns", "featurize"), ("radix_sort", "sort"),
+    ("trace_rows_pack", "pack", "rows_launches"),
+    ("next_fit_pack", "pack"), ("span_head_scatter", "head"))
+
+
+def _ae_scores(model, batch, reference: bool = False):
+    """One request's span errors and squashed scores through the host
+    route's assembly and ``span_errors`` (the kernel path or, with
+    ``reference``, the plain path)."""
+    import numpy as np
+
+    from odigos_tpu_torch.features import assemble_sequences, featurize
+
+    seqs = assemble_sequences(batch, featurize(batch), max_len=64)
+    err = model.span_errors(seqs.categorical, seqs.continuous, seqs.mask,
+                            reference=reference).float().cpu().numpy()
+    scores = np.zeros(len(batch), np.float32)
+    scores[seqs.span_index[seqs.mask]] = 1.0 - np.exp(-err[seqs.mask])
+    return err[seqs.mask], scores
+
+
+def _ae_fused_rows_check(be, batch) -> tuple[dict, object]:
+    """One request staged as the fused route stages it, at the route's own
+    R: K13 against its plain version (exact), K12 on the encoder's pre-LN
+    state against its plain version (bit-equal, or one bf16 step), and K11
+    in scatter mode (K13's span map, the span bucket's output) against its
+    plain version, with the model's loss weights (whose scores saturate on
+    random weights) and with AE_SCALED_WEIGHTS (whose do not): errors and
+    scores within RECON_ATOL. Returns the check's numbers and K13's rows.
+    Launches here are not the path's: the path's counters are read before.
+    """
+    import torch
+
+    from odigos_tpu_torch import kernels
+    from odigos_tpu_torch.serving.fused import _span_bucket, extract_columns
+
+    n = len(batch)
+    staged = be._prep_columns([extract_columns(batch)[0]], _span_bucket(n))
+    R, L, N = be.rows_for(n), be.max_len, staged.N
+    c = staged.cols
+    fcat, fcont = kernels.featurize.featurize_columns(
+        staged.service_table, staged.name_table, c["service"], c["name"],
+        c["kind"], c["status_code"], c["span_id"], c["parent_span_id"],
+        c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+    perm = kernels.sort.radix_sort(
+        [c["trace_id_hi"], c["trace_id_lo"], c["start_unix_nano"]], n)
+    args = (perm, c["trace_id_hi"], c["trace_id_lo"], fcat, fcont, n, L, R)
+    tr = kernels.pack.trace_rows_pack(*args)
+    ref = kernels.pack.trace_rows_pack_plain(*args)
+    torch.cuda.synchronize()
+    be._release(staged.N, staged.host)
+    for a, b in zip(tr, ref):
+        check(torch.equal(a, b), f"trace_rows_pack at R={R}: differs")
+    m = be.model.module
+    T = R
+    mask = tr.mask
+    # K12 on the encoder's own pre-LN state at R
+    seg = mask.to(torch.int32)
+    pos = torch.arange(L, dtype=torch.int32, device=mask.device).expand(
+        T, L).contiguous()
+    h = m.encoder(tr.categorical, tr.continuous, pos, seg, final_ln=False)
+    ln = m.encoder.final_ln
+    pargs = (h, ln.weight, ln.bias, mask)
+    got = kernels.pool.ln_masked_pool(*pargs)
+    want = kernels.pool.ln_masked_pool_plain(*pargs)
+    torch.cuda.synchronize()
+    pool_diff, note = _k10_diff(
+        got, want, f"ln_masked_pool at R={R}",
+        "an f64 sum rounded to f32 then bf16 landed on the other side of a "
+        "rounding tie")
+    del h, got, want
+    # K11's scatter mode on the decoder's own output at R
+    dec = be.model._decode(tr.categorical, tr.continuous, mask,
+                           reference=False)
+    dl = m.dec_ln
+    cfg = be.model.cfg
+    flat = (tr.categorical.reshape(T * L, -1),
+            tr.continuous.reshape(T * L, -1), mask.reshape(T * L))
+    out = {"spans": n, "span_bucket": N, "R": R,
+           "traces": int(tr.rows_used.item()),
+           "padded_row_share": 1.0 - int(tr.rows_used.item()) / R,
+           "trace_rows_pack_max_abs_diff": 0.0,
+           "ln_masked_pool_max_abs_diff": pool_diff,
+           "ln_masked_pool_note": note, "recon_ce_bound": RECON_ATOL}
+    for label, wts in (
+            ("model", (cfg.w_service, cfg.w_name, cfg.w_kind,
+                       cfg.w_duration)),
+            ("scaled", tuple(AE_SCALED_WEIGHTS[k] for k in (
+                "w_service", "w_name", "w_kind", "w_duration")))):
+        rargs = (dec, dl.weight, dl.bias, m.heads(), *flat, wts)
+        err, sc = kernels.recon.recon_ce(*rargs, span_map=tr.span_map.view(-1),
+                                         n_out=N)
+        perr, psc = kernels.recon.recon_ce_plain(
+            *rargs, span_map=tr.span_map.view(-1), n_out=N)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(err).all() and torch.isfinite(sc).all()),
+              f"recon_ce scatter at R={R} ({label}): non-finite")
+        check(torch.equal(sc > 0, psc > 0),
+              f"recon_ce scatter at R={R} ({label}): scores written at "
+              f"other spans than the plain version's")
+        ed = (err - perr).abs().max().item()
+        sd = (sc - psc).abs().max().item()
+        check(ed <= RECON_ATOL and sd <= RECON_ATOL,
+              f"recon_ce scatter at R={R} ({label}): errors {ed}, scores "
+              f"{sd} > {RECON_ATOL}")
+        out[f"recon_ce_{label}"] = {
+            "errors_max_abs_diff": ed, "scores_max_abs_diff": sd,
+            "scores_min_max": [float(psc[psc > 0].min()),
+                               float(psc.max())],
+            "spans_scored": int((psc > 0).sum().item())}
+    slots = int(mask.sum().item())
+    for label in ("model", "scaled"):
+        check(out[f"recon_ce_{label}"]["spans_scored"] == slots,
+              f"recon_ce scatter at R={R} ({label}): "
+              f"{out[f'recon_ce_{label}']['spans_scored']} spans scored "
+              f"for {slots} real slots")
+    return out, tr
+
+
+def phase_ae_path(card: str) -> dict:
+    """The default autoencoder at full width, bf16, warmed: the host
+    route through the sidecar, then the fused route through an engine's
+    ``submit(columns=)``, each route's launches read around its own run,
+    then the agreement bounds."""
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch import kernels
+    from odigos_tpu_torch.features import featurize
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import (EngineConfig, ScoringEngine,
+                                          SidecarClient, SidecarServer)
+    from odigos_tpu_torch.serving.fused import extract_columns
+
+    batches = [synthesize_traces(n, seed=100 + i)
+               for i, n in enumerate(MAIN_PATH_TRACES)]
+    bursts = [synthesize_traces(BURST_TRACES, seed=200 + i)
+              for i in range(BURST_REQUESTS)]
+    out: dict = {"phase": "ae_path", "card": card,
+                 "config": "AutoencoderConfig() bf16, d128 dl64 h2 l2 "
+                           "ff512 L64, vocabs 512/2048"}
+
+    def wait(req, what: str):
+        check(req is not None and req.done.wait(300), f"{what} timed out")
+        return req.scores
+
+    # ---- host route, through the sidecar
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = os.path.join(tmp, "score.sock")
+        t0 = time.monotonic()
+        engine = ScoringEngine(EngineConfig(
+            model="autoencoder", device="cuda", warm_ladder=True))
+        server = SidecarServer(engine, sock, score_timeout_s=60.0).start()
+        out["host_server_start_s"] = time.monotonic() - t0
+        client = SidecarClient(sock)
+        model = engine.backend.model
+        n_layers = model.cfg.n_layers
+        try:
+            client.ping()
+            client.warmup(synthesize_traces(64, seed=99))
+            _zero_counters()
+            calls0 = engine.device_calls
+            requests, host_replies = [], []
+            t_seq = time.perf_counter()
+            for b in batches:
+                t = time.perf_counter()
+                s = client.score(b, timeout_s=120.0)
+                lat = (time.perf_counter() - t) * 1e3
+                _check_scores(s, len(b), f"ae SCORE of {len(b)} spans")
+                host_replies.append(s)
+                requests.append({"spans": len(b),
+                                 "rows": engine.backend.last_shape[0],
+                                 "latency_ms": lat})
+            seq_s = time.perf_counter() - t_seq
+            burst_out: list = [None] * BURST_REQUESTS
+
+            def send(i: int) -> None:
+                burst_out[i] = client.score(bursts[i], timeout_s=120.0)
+
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(BURST_REQUESTS)]
+            t_burst = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            burst_s = time.perf_counter() - t_burst
+            check(not any(t.is_alive() for t in threads), "ae burst hung")
+            for s, b in zip(burst_out, bursts):
+                check(s is not None, "ae burst request failed")
+                _check_scores(s, len(b), "ae burst SCORE")
+            launches = _read_counters(AE_HOST_COUNTERS)
+            calls = engine.device_calls - calls0
+        finally:
+            client.close()
+        want = {"span_embed": calls, "segment_attention": n_layers * calls,
+                "ln_masked_pool": calls, "recon_ce": calls}
+        check(calls > 0 and launches == want,
+              f"ae host launches {launches} != {want} for {calls} calls")
+        host_stats = engine.stats()
+        server.shutdown()
+    seq_spans = sum(r["spans"] for r in requests)
+    burst_spans = sum(len(b) for b in bursts)
+    out["host_route"] = {
+        "via": "sidecar", "requests": requests,
+        "sequential_spans_per_s": seq_spans / seq_s,
+        "burst": {"requests": BURST_REQUESTS, "spans": burst_spans,
+                  "seconds": burst_s, "spans_per_s": burst_spans / burst_s},
+        "device_calls": calls, "launches": launches,
+        "launches_per_call": {k: v / calls for k, v in launches.items()},
+        "stage_ms_p50": host_stats["stage_ms_p50_by_route"]["host"]}
+
+    # ---- the kernel path against the plain path, one request, on the card
+    with torch.inference_mode():
+        err_k, sc_k = _ae_scores(model, batches[2])
+        err_p, sc_p = _ae_scores(model, batches[2], reference=True)
+    plain_err = float((np.abs(err_k - err_p) / np.abs(err_p)).max())
+    plain_diff = float(np.abs(sc_p - host_replies[2]).max())
+    check(plain_err <= PLAIN_PATH_BOUND and plain_diff <= PLAIN_PATH_BOUND,
+          f"ae kernel vs plain path: errors rel {plain_err}, scores "
+          f"{plain_diff} > {PLAIN_PATH_BOUND}")
+    # card bf16 against f32 on the CPU, same weights, the smallest request
+    cpu = SpanAutoencoder(AutoencoderConfig(dtype=torch.float32),
+                          device="cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in model.state_dict().items()})
+    err_c, sc_c = _ae_scores(cpu, batches[0])
+    with torch.inference_mode():
+        err_0, _ = _ae_scores(model, batches[0])
+    cpu_err = float((np.abs(err_0 - err_c) / np.abs(err_c)).max())
+    cpu_diff = float(np.abs(sc_c - host_replies[0]).max())
+    check(cpu_err <= CPU_F32_BOUND and cpu_diff <= CPU_F32_BOUND,
+          f"ae card bf16 vs CPU f32: errors rel {cpu_err}, scores "
+          f"{cpu_diff} > {CPU_F32_BOUND}")
+    all_host = np.concatenate(host_replies)
+    out.update({
+        "plain_path_max_rel_err": plain_err,
+        "plain_path_max_abs_diff": plain_diff,
+        "plain_path_bound": PLAIN_PATH_BOUND,
+        "cpu_f32_max_rel_err": cpu_err, "cpu_f32_max_abs_diff": cpu_diff,
+        "cpu_f32_bound": CPU_F32_BOUND,
+        "errors_min_max": [float(err_k.min()), float(err_k.max())],
+        "scores_share_above_1_minus_1e-6": float(
+            (all_host > 1 - 1e-6).mean())})
+
+    # ---- fused route, through an engine's submit(columns=)
+    t0 = time.monotonic()
+    engine = ScoringEngine(EngineConfig(
+        model="autoencoder", device="cuda", warm_ladder=True)).start()
+    out["fused_engine_start_s"] = time.monotonic() - t0
+    be = engine.backend
+    own = be.model.state_dict()
+    check(all(torch.equal(v, own[k]) for k, v in model.state_dict().items()),
+          "the fused engine's weights differ from the sidecar's")
+    try:
+        stats0 = engine.stats()
+        be.fused_rows.clear()  # the warm-up's calls are not the path's
+        _zero_counters()
+        requests, replies = [], []
+        t_seq = time.perf_counter()
+        for b in batches:
+            t = time.perf_counter()
+            s = wait(engine.submit(b, columns=extract_columns(b)[0]),
+                     f"ae fused request of {len(b)} spans")
+            lat = (time.perf_counter() - t) * 1e3
+            _check_scores(s, len(b), f"ae fused {len(b)} spans")
+            replies.append(s)
+            requests.append({"spans": len(b), "span_bucket":
+                             be.last_span_bucket, "R": be.last_shape[0],
+                             "traces": be.last_rows_real,
+                             "latency_ms": lat})
+        seq_s = time.perf_counter() - t_seq
+        calls_seq = engine.fused_calls - stats0["fused_calls"]
+        t_burst = time.perf_counter()
+        reqs = [engine.submit(b, columns=extract_columns(b)[0])
+                for b in bursts]
+        for r, b in zip(reqs, bursts):
+            _check_scores(wait(r, "ae fused burst"), len(b),
+                          "ae fused burst")
+        burst_s = time.perf_counter() - t_burst
+        launches = _read_counters(AE_FUSED_COUNTERS)
+        device_launches = {
+            "trace_rows_pack": kernels.pack.rows_device_launches,
+            "radix_sort": kernels.sort.device_launches}
+        calls = engine.fused_calls - stats0["fused_calls"]
+        want = {"span_embed": calls, "segment_attention": n_layers * calls,
+                "ln_masked_pool": calls, "recon_ce": calls,
+                "featurize_columns": calls, "radix_sort": 2 * calls,
+                "trace_rows_pack": calls, "next_fit_pack": 0,
+                "span_head_scatter": 0}
+        check(calls > 0 and launches == want,
+              f"ae fused launches {launches} != {want} for {calls} calls")
+        fused_rows = list(be.fused_rows)
+        stats = engine.stats()
+
+        # the fused route's K13, K12 and K11 (scatter mode) at its own R,
+        # each against its plain version, on two requests' staged columns
+        at_R = []
+        with torch.inference_mode():
+            for b in (batches[2], batches[-1]):
+                chk, tr = _ae_fused_rows_check(be, b)
+                at_R.append(chk)
+        big, R = batches[-1], at_R[-1]["R"]
+
+        # the padded rows' share of the forward's device time: the
+        # largest sequential request at its R, and cut to its traces
+        with torch.inference_mode():
+            real = int(tr.rows_used.item())
+
+            def fwd(rows):
+                return lambda: be.model._errors(
+                    tr.categorical[:rows], tr.continuous[:rows],
+                    tr.mask[:rows], reference=False)
+
+            scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8,
+                                     device="cuda")
+            full_ms = device_ms(fwd(R), scratch_l2.zero_, reps=5, warm=1)
+            real_ms = device_ms(fwd(real), scratch_l2.zero_, reps=5, warm=1)
+    finally:
+        engine.shutdown()
+    fh = np.concatenate([np.abs(a - b) for a, b in
+                         zip(replies, host_replies)])
+    check(float(fh.max()) <= PLAIN_PATH_BOUND,
+          f"ae fused vs host route {float(fh.max())} > {PLAIN_PATH_BOUND}")
+    seq_spans = sum(r["spans"] for r in requests)
+    out["fused_route"] = {
+        "via": "engine.submit(batch, columns=extract_columns(batch)[0])",
+        "requests": requests, "sequential_spans_per_s": seq_spans / seq_s,
+        "burst": {"requests": BURST_REQUESTS, "spans": burst_spans,
+                  "seconds": burst_s, "fused_calls": calls - calls_seq,
+                  "spans_per_s": burst_spans / burst_s},
+        "fused_calls": calls, "launches": launches,
+        "launches_per_call": {k: v / calls for k, v in launches.items()},
+        "device_launches_per_call": {
+            k: v / calls for k, v in device_launches.items()},
+        "kernels_at_R": at_R,
+        "rows_per_call_R_vs_traces": fused_rows,
+        "stage_ms_p50": stats["stage_ms_p50_by_route"]["fused"],
+        "padded_rows": {"spans": len(big), "R": R, "traces": real,
+                        "forward_device_ms_R": full_ms,
+                        "forward_device_ms_traces": real_ms,
+                        "padded_rows_share": 1.0 - real_ms / full_ms}}
+    out["fused_vs_host_max_abs_diff"] = float(fh.max())
+    out["fused_vs_host_bound"] = PLAIN_PATH_BOUND
+
+    # fused vs host where the squash does not saturate: the same seed's
+    # weights, the loss weights scaled down
+    scaled = ScoringEngine(EngineConfig(
+        model="autoencoder", device="cuda",
+        model_config=AutoencoderConfig(**AE_SCALED_WEIGHTS))).backend
+    b = batches[2]
+    host_s = scaled.score(b, featurize(b))
+    fused_s = scaled.harvest(scaled.dispatch_columns(
+        [extract_columns(b)[0]]))
+    sd = float(np.abs(host_s - fused_s).max())
+    check(sd <= PLAIN_PATH_BOUND,
+          f"ae scaled-loss fused vs host {sd} > {PLAIN_PATH_BOUND}")
+    # and at the reference's own fused-route bound: a scatter that swapped
+    # spans within a trace would move these scores by far more
+    excess = float((np.abs(host_s - fused_s)
+                    - (AE_FUSED_ATOL + AE_FUSED_RTOL * np.abs(host_s))).max())
+    check(excess <= 0.0,
+          f"ae scaled-loss fused vs host beyond rtol {AE_FUSED_RTOL} / "
+          f"atol {AE_FUSED_ATOL} by {excess}")
+    out["scaled_loss"] = {"weights": AE_SCALED_WEIGHTS,
+                          "spans": len(b),
+                          "scores_min_max": [float(host_s.min()),
+                                             float(host_s.max())],
+                          "fused_vs_host_max_abs_diff": sd,
+                          "fused_vs_host_rtol_atol": [AE_FUSED_RTOL,
+                                                      AE_FUSED_ATOL],
+                          "fused_vs_host_mean_abs_diff": float(
+                              np.abs(host_s - fused_s).mean())}
+    emit(out)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1528,16 +2155,27 @@ def main() -> int:
         return 1
     import odigos_tpu_torch  # noqa: F401 — fails outside the repository
 
-    card, name = phase_device()
-    phase_build()
-    kern = phase_kernels(card)
-    zs_kern = phase_zscore_kernels(card)
-    zs_path = phase_zscore_path(card)
-    main_path = phase_main_path(card)
-    fused_kern = phase_fused_kernels(card)
-    fused_path = phase_fused_path(card)
-    int8_kern = phase_int8_kernels(card)
-    int8_path = phase_int8_path(card)
+    seconds: dict = {}
+
+    def timed(phase, *args):
+        t0 = time.monotonic()
+        out = phase(*args)
+        seconds[phase.__name__[len("phase_"):]] = time.monotonic() - t0
+        return out
+
+    card, name = timed(phase_device)
+    timed(phase_build)
+    kern = timed(phase_kernels, card)
+    zs_kern = timed(phase_zscore_kernels, card)
+    zs_path = timed(phase_zscore_path, card)
+    main_path = timed(phase_main_path, card)
+    fused_kern = timed(phase_fused_kernels, card)
+    fused_path = timed(phase_fused_path, card)
+    int8_kern = timed(phase_int8_kernels, card)
+    int8_path = timed(phase_int8_path, card)
+    ae_kern = timed(phase_ae_kernels, card)
+    ae_path = timed(phase_ae_path, card)
+    emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
     sources = {"segment_attention": src + "segment_attention.cu",
@@ -1549,7 +2187,10 @@ def main() -> int:
                "next_fit_pack": src + "trace_pack.cu",
                "span_head_scatter": src + "span_head.cu",
                "ln_quantize": src + "quant.cu",
-               "qgemm": src + "qgemm.cu"}
+               "qgemm": src + "qgemm.cu",
+               "recon_ce": src + "recon_ce.cu",
+               "ln_masked_pool": src + "ae_pool.cu",
+               "trace_rows_pack": src + "trace_pack.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -1559,7 +2200,10 @@ def main() -> int:
                 "next_fit_pack": "odigos_tpu/serving/fused.py:512",
                 "span_head_scatter": "odigos_tpu/models/transformer.py:84",
                 "ln_quantize": "odigos_tpu/models/quantized.py:81",
-                "qgemm": "odigos_tpu/models/quantized.py:63"}
+                "qgemm": "odigos_tpu/models/quantized.py:63",
+                "recon_ce": "odigos_tpu/models/autoencoder.py:93",
+                "ln_masked_pool": "odigos_tpu/models/autoencoder.py:67",
+                "trace_rows_pack": "odigos_tpu/serving/fused.py:462"}
     designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
                "span_embed": "warp-per-slot vec16, small tables in smem",
                "zscore_update": "3 launches: warp-aggregated f64 sums in "
@@ -1583,13 +2227,29 @@ def main() -> int:
                               "absmax * f32(1/127), rint(y / a_s)",
                "qgemm": "mma.sync m16n8k32 s8, 128x128 tile, 8 warps, "
                         "cp.async 2-stage ring; dequant + bias + "
-                        "residual/GELU epilogue, QKV split in planes"}
+                        "residual/GELU epilogue, QKV split in planes",
+               "recon_ce": "CTA per 256 positions, ballot-compacted real "
+                           "ones in tiles of 64: warp LN (exact f64 "
+                           "sums) to smem, head weights streamed in 64-row "
+                           "smem tiles, 4x4 f32 FMA micro-tiles, online "
+                           "log-sum-exp, optional squash + scatter",
+               "ln_masked_pool": "warp per trace, padding skipped: exact "
+                                 "f64 LN sums, bf16-rounded LN out, f64 "
+                                 "pool sum, true division",
+               "trace_rows_pack": "3 launches: K7's layout kernel marking "
+                                  "trace starts; one-block popcount scan "
+                                  "writing trace starts; slot-per-thread "
+                                  "gather writing every output once"}
     # each kernel's launches on its own path's run: K1 and K2 on the main
     # path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
                 **main_path["launches"],
                 **{k: int8_path["host_route"]["launches"][k]
-                   for k in ("ln_quantize", "qgemm")}}
+                   for k in ("ln_quantize", "qgemm")},
+                **{k: ae_path["host_route"]["launches"][k]
+                   for k in ("recon_ce", "ln_masked_pool")},
+                "trace_rows_pack": ae_path["fused_route"]["launches"][
+                    "trace_rows_pack"]}
     timing_keys = ("kernel_ms", "device_ms", "plain_ms", "plain_device_ms",
                    "library_ms", "library_device_ms", "bound_ms",
                    "host_us_per_call", "max_abs_diff")
@@ -1668,6 +2328,33 @@ def main() -> int:
                               for k in extra_keys}
                for st in steps for r in R_SHAPES
                if (st, r) != (steps[0], R)}}))
+    for kname in ("recon_ce", "ln_masked_pool"):
+        extra_keys = timing_keys + ("bound_ms", "bound_by",
+                                    "bound_ms_all_positions")
+        head = ae_kern[(kname, max(AE_T))]
+        lines.append(line(kname, head, {
+            "shape_T": max(AE_T), "L": 64,
+            "real_positions": head["real_positions"],
+            "bound_ms_all_positions": head["bound_ms_all_positions"],
+            "library": head.get("library"), "note": head.get("note"),
+            "launches_per_call": ae_path["host_route"][
+                "launches_per_call"][kname],
+            "fused_path_launches": ae_path["fused_route"]["launches"][
+                kname],
+            **{f"T{t}": {k: ae_kern[(kname, t)].get(k) for k in extra_keys}
+               for t in AE_T if t != max(AE_T)}}))
+    k13 = ae_kern[("trace_rows_pack", "otel", FUSED_MAIN_N)]
+    lines.append(line("trace_rows_pack", k13, {
+        "shape_N": FUSED_MAIN_N, "R": k13["R"], "traces": k13["traces"],
+        "mix": "otel",
+        "device_launches_per_call": k13["device_launches_per_call"],
+        "launches_per_fused_call": ae_path["fused_route"][
+            "launches_per_call"]["trace_rows_pack"],
+        **{"_".join(str(p) for p in key[1:]): {
+            **{k: r[k] for k in timing_keys + ("bound_ms", "bound_by")},
+            "R": r["R"], "traces": r["traces"]}
+           for key, r in ae_kern.items() if key[0] == "trace_rows_pack"
+           and key != ("trace_rows_pack", "otel", FUSED_MAIN_N)}}))
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""Host featurizer and next-fit packer (the port's copy of the host route)."""
+"""Host featurizer, next-fit packer and one-trace-per-row assembly (the
+port's copy of the host route)."""
 
 from .featurizer import (
     CAT_FIELDS,
@@ -7,6 +8,8 @@ from .featurizer import (
     PackedSequences,
     SpanColumns,
     SpanFeatures,
+    TraceSequences,
+    assemble_sequences,
     batch_columns,
     featurize,
     featurize_columns,
@@ -21,6 +24,8 @@ __all__ = [
     "PackedSequences",
     "SpanColumns",
     "SpanFeatures",
+    "TraceSequences",
+    "assemble_sequences",
     "batch_columns",
     "featurize",
     "featurize_columns",

@@ -1,8 +1,9 @@
 """Span featurization: SpanBatch → fixed-width tensors (host route).
 
 The port's own copy of the host route of ``odigos_tpu/features/featurizer.py``:
-``featurize`` (with attr slots) and the next-fit packer ``pack_sequences``.
-Outputs are bitwise the reference's for the same batch (pinned by the
+``featurize`` (with attr slots), the next-fit packer ``pack_sequences``
+(the transformer's rows) and ``assemble_sequences`` (one trace per row, the
+autoencoder's). Outputs are bitwise the reference's for the same batch (pinned by the
 parity tests). Two deliberate differences:
 
 * arrays come from plain numpy (``_alloc``) where the reference draws them
@@ -458,6 +459,104 @@ def _bucket_rows(real: int, spec: RowBucket) -> int:
     if spec:
         return ((real + spec - 1) // spec) * spec
     return real
+
+
+@dataclass(frozen=True)
+class TraceSequences:
+    """Traces assembled as padded span sequences (for sequence models).
+
+    categorical: (T, L, C) int32 (0-padded)
+    continuous:  (T, L, D) float32 (0-padded)
+    mask:        (T, L) bool — True at real spans
+    span_index:  (T, L) int32 — row in the source batch, -1 at padding
+                 (used to scatter per-span scores back onto the batch)
+    n_truncated: spans dropped because a trace exceeded max_len
+    """
+
+    categorical: np.ndarray
+    continuous: np.ndarray
+    mask: np.ndarray
+    span_index: np.ndarray
+    n_truncated: int
+
+    @property
+    def n_traces(self) -> int:
+        return int(self.mask.shape[0])
+
+
+def _trace_keys(batch: SpanBatch) -> np.ndarray:
+    """Structured (hi, lo) key per span — exact, no xor-collision risk
+    (the reference's ``pdata.traces.trace_keys``)."""
+    composite = np.empty(len(batch), dtype=[("hi", np.uint64),
+                                            ("lo", np.uint64)])
+    composite["hi"] = batch.col("trace_id_hi")
+    composite["lo"] = batch.col("trace_id_lo")
+    return composite
+
+
+def assemble_sequences(batch: SpanBatch,
+                       features: Optional[SpanFeatures] = None,
+                       *,
+                       max_len: int = 64,
+                       config: Optional[FeaturizerConfig] = None,
+                       pad_traces_to: RowBucket = None) -> TraceSequences:
+    """Group spans by trace, order by start time, pad/truncate to ``max_len``.
+
+    Unique trace keys (ascending (hi, lo), unsigned) → per-span position
+    via sorted cumcount → scatter into (T, L) tensors; spans past
+    ``max_len`` in their trace are dropped and counted. ``pad_traces_to``
+    rounds T up (the engine passes its ladder's ``round_rows``).
+    """
+    features = features if features is not None else featurize(batch, config)
+    n = len(batch)
+    if n == 0:
+        C = features.categorical.shape[1] \
+            if features.categorical.ndim == 2 else len(CAT_FIELDS)
+        D = features.continuous.shape[1] \
+            if features.continuous.ndim == 2 else len(CONT_FIELDS)
+        T = _bucket_rows(0, pad_traces_to) if callable(pad_traces_to) \
+            else (pad_traces_to or 0)
+        return TraceSequences(
+            _alloc((T, max_len, C), np.int32, 0),
+            _alloc((T, max_len, D), np.float32, 0),
+            _alloc((T, max_len), bool, False),
+            _alloc((T, max_len), np.int32, -1), 0)
+
+    uniq, inverse = np.unique(_trace_keys(batch), return_inverse=True)
+    inverse = inverse.reshape(-1)
+    T_real = len(uniq)
+
+    start = batch.col("start_unix_nano")
+    order = np.lexsort((start, inverse))  # trace-major, time-minor
+    inv_sorted = inverse[order]
+    # position of each span within its trace (cumcount over sorted runs)
+    first_of_run = _alloc((n,), bool)
+    first_of_run[0] = True
+    first_of_run[1:] = inv_sorted[1:] != inv_sorted[:-1]
+    run_starts = np.nonzero(first_of_run)[0]
+    pos_in_trace = np.arange(n) - np.repeat(run_starts, np.diff(
+        np.append(run_starts, n)))
+
+    keep = pos_in_trace < max_len
+    n_truncated = int(n - keep.sum())
+    rows = order[keep]
+    t_idx = inv_sorted[keep]
+    l_idx = pos_in_trace[keep]
+
+    T = _bucket_rows(T_real, pad_traces_to)
+    C = features.categorical.shape[1]
+    D = features.continuous.shape[1]
+    cat = _alloc((T, max_len, C), np.int32, 0)
+    cont = _alloc((T, max_len, D), np.float32, 0)
+    mask = _alloc((T, max_len), bool, False)
+    span_index = _alloc((T, max_len), np.int32, -1)
+
+    cat[t_idx, l_idx] = features.categorical[rows]
+    cont[t_idx, l_idx] = features.continuous[rows]
+    mask[t_idx, l_idx] = True
+    span_index[t_idx, l_idx] = rows.astype(np.int32)
+
+    return TraceSequences(cat, cont, mask, span_index, n_truncated)
 
 
 @dataclass(frozen=True)

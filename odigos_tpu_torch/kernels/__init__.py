@@ -19,23 +19,34 @@
   LayerNorm in front (``csrc/quant.cu``);
 * ``qgemm.qgemm`` — K10, the int8 tensor-core GEMM with the dequantize,
   bias and residual or GELU fused into its epilogue (``csrc/qgemm.cu``;
-  the package's ``qgemm`` is the module, which holds the launch count).
+  the package's ``qgemm`` is the module, which holds the launch count);
+* ``recon.recon_ce`` — K11, the autoencoder's decoder LayerNorm, four f32
+  heads and weighted reconstruction error (online log-sum-exp), with an
+  optional squash-and-scatter to span order (``csrc/recon_ce.cu``);
+* ``pool.ln_masked_pool`` — K12, the autoencoder's final LayerNorm and
+  masked mean-pool over each trace (``csrc/ae_pool.cu``);
+* ``pack.trace_rows_pack`` — K13, trace-sorted spans packed one trace per
+  row (``csrc/trace_pack.cu``, beside K7).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
-``zscore.update_launches`` and ``zscore.score_launches``) counts the calls
-that launched. ``build`` compiles the sources with nvcc at first use.
+``zscore.update_launches`` and ``zscore.score_launches``; K13:
+``pack.rows_launches``) counts the calls that launched. ``build`` compiles the sources with nvcc at first use.
 """
 
-from . import (attention, build, embed, featurize, head, pack, qgemm, quant,
-               sort, zscore)
+from . import (attention, build, embed, featurize, head, pack, pool, qgemm,
+               quant, recon, sort, zscore)
 from .attention import segment_attention, segment_attention_plain
 from .embed import EmbedTables, span_embed, span_embed_plain
 from .featurize import featurize_columns, featurize_columns_plain
 from .head import span_head_scatter, span_head_scatter_plain
-from .pack import PackedColumns, next_fit_pack, next_fit_pack_plain
+from .pack import (PackedColumns, TraceRows, next_fit_pack,
+                   next_fit_pack_plain, trace_rows_pack,
+                   trace_rows_pack_plain)
+from .pool import ln_masked_pool, ln_masked_pool_plain
 from .qgemm import qgemm_plain
 from .quant import ln_quantize, ln_quantize_plain
+from .recon import recon_ce, recon_ce_plain
 from .sort import radix_sort, radix_sort_plain
 from .zscore import (zscore_score, zscore_score_plain, zscore_update,
                      zscore_update_plain)
@@ -47,8 +58,10 @@ __all__ = [
     "featurize",
     "head",
     "pack",
+    "pool",
     "qgemm",
     "quant",
+    "recon",
     "sort",
     "zscore",
     "segment_attention",
@@ -63,9 +76,16 @@ __all__ = [
     "PackedColumns",
     "next_fit_pack",
     "next_fit_pack_plain",
+    "TraceRows",
+    "trace_rows_pack",
+    "trace_rows_pack_plain",
+    "ln_masked_pool",
+    "ln_masked_pool_plain",
     "qgemm_plain",
     "ln_quantize",
     "ln_quantize_plain",
+    "recon_ce",
+    "recon_ce_plain",
     "radix_sort",
     "radix_sort_plain",
     "zscore_score",

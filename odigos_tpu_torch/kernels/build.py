@@ -7,8 +7,9 @@ a ``cudaStream_t``) and is compiled on its own into a shared library:
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``odigos_tpu_torch/kernels/build/`` (git-ignored),
-named by a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused. The build happens at first use, never at
+named by a hash of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. The build happens at first use, never at
 import: this module imports on machines without ``nvcc`` (the CPU tests).
 No PyTorch headers are compiled, so a build takes seconds. A failed build
 raises; there is no fallback.
@@ -43,6 +44,8 @@ SOURCES = {
     "span_head": "span_head.cu",
     "quant": "quant.cu",
     "qgemm": "qgemm.cu",
+    "ae_pool": "ae_pool.cu",
+    "recon_ce": "recon_ce.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -69,8 +72,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s built library lives (keyed by source + flags)."""
-    src = (CSRC / SOURCES[name]).read_bytes()
+    """Where ``name``'s built library lives (keyed by its source, the
+    shared headers and the flags)."""
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

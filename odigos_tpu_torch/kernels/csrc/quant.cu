@@ -9,16 +9,12 @@
 // (plain mode, K = d and K = d_ff).
 //
 // One warp per row of K values (bf16 or f32), read with 16-byte loads and
-// held in registers. LN mode: the mean and the mean square of the
-// deviations (two passes over the registers, as :84-85) are f32 sums of
-// the row taken exactly in f64 and rounded once, so they do not depend on
-// the summation order and the plain version (torch's f64 sum) gives the
-// same bits; var + eps, a correctly rounded sqrt and a true division for
-// the reciprocal (not rsqrtf, which is approximate); (x - mean) * rstd *
-// gamma + beta as separate IEEE-rounded steps (no contraction into FMAs,
-// which torch's separate ops do not have either); the result rounded to
-// the working type, because _layernorm returns that type and _qdense
-// reads it back. Then absmax over the row, a_s = absmax * f32(1/127)
+// held in registers. LN mode: the LayerNorm of ln_exact.cuh, shared with
+// K11 and K12 (the mean and the mean square of the deviations in two
+// passes over the registers, as :84-85, from exact f64 sums, so the plain
+// version's torch f64 sums give the same bits; IEEE steps), the result
+// rounded to the working type, because _layernorm returns that type and
+// _qdense reads it back. Then absmax over the row, a_s = absmax * f32(1/127)
 // (XLA compiles the reference's a_max / 127.0 into that product; 1 for a
 // zero row), codes = rint(y / a_s) with a true division and
 // round-half-to-even, clipped to ±127. Outputs: x_q (M, K) int8, a_s (M,)
@@ -35,16 +31,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "ln_exact.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kInv127 = 1.0f / 127.0f;  // f32(1/127), folded exactly
-
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o; o >>= 1)
@@ -68,11 +61,6 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
     v[2 * i] = __uint_as_float(w[i] << 16);
     v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-}
-
-__device__ __forceinline__ float round_to(float y, const float*) { return y; }
-__device__ __forceinline__ float round_to(float y, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(y));
 }
 
 __device__ __forceinline__ uint32_t pack4(const int* q) {
@@ -109,19 +97,15 @@ __global__ void __launch_bounds__(kThreads) ln_quantize_kernel(
       for (int i = 0; i < NV; ++i)
 #pragma unroll
         for (int j = 0; j < EPV; ++j) s += (double)v[i][j];  // 0 past K
-      const float mean = __fdiv_rn((float)warp_sum(s), (float)K);
+      const float mean = ln_mean(s, K);
       double q = 0.0;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         if ((i * 32 + lane) * EPV >= K) continue;
 #pragma unroll
-        for (int j = 0; j < EPV; ++j) {
-          const float t = __fsub_rn(v[i][j], mean);
-          q += (double)__fmul_rn(t, t);
-        }
+        for (int j = 0; j < EPV; ++j) q += ln_sq_dev(v[i][j], mean);
       }
-      const float var = __fdiv_rn((float)warp_sum(q), (float)K);
-      const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+      const float rstd = ln_rstd(q, K, eps);
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         const int k0 = (i * 32 + lane) * EPV;
@@ -133,10 +117,8 @@ __global__ void __launch_bounds__(kThreads) ln_quantize_kernel(
           load_vec(beta + k0 + j, bv + j);
         }
 #pragma unroll
-        for (int j = 0; j < EPV; ++j) {
-          const float y = __fmul_rn(__fsub_rn(v[i][j], mean), rstd);
-          v[i][j] = round_to(__fadd_rn(__fmul_rn(y, gv[j]), bv[j]), xr);
-        }
+        for (int j = 0; j < EPV; ++j)
+          v[i][j] = ln_out(v[i][j], mean, rstd, gv[j], bv[j], xr);
       }
     }
     float amax = 0.f;

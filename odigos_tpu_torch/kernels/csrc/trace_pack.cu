@@ -1,5 +1,6 @@
-// K7: next-fit packing of trace-sorted spans into (R, L) rows, for Hopper
-// (sm_90a).
+// K7: next-fit packing of trace-sorted spans into (R, L) rows, and K13: one
+// trace per row — for Hopper (sm_90a). K13 is described after K7's
+// launcher, at the end of this file.
 //
 // Replaces the layout and pack of the JAX package's fused route,
 // odigos_tpu/serving/fused.py _sorted_trace_layout (:429-459; new-trace
@@ -188,6 +189,92 @@ __global__ void __launch_bounds__(kThreads) pack_scatter_kernel(
   }
 }
 
+// ---- K13: one trace per row
+
+// One block: the trace ordinal of every trace start (a set bit of the
+// new-trace bitmask), by a block scan of each thread's popcounts over its
+// run of mask words; writes ts[o] = the sorted index where trace o starts,
+// for o <= R, the sentinel ts[total] = n when total <= R, and the number
+// of traces.
+__global__ void __launch_bounds__(kWalkThreads) rows_scan_kernel(
+    const unsigned* __restrict__ mask, long long n, int R,
+    int32_t* __restrict__ ts, int32_t* __restrict__ rows_used) {
+  __shared__ int s_warp[kWalkThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const long long words = (n + 31) >> 5;
+  const long long per = (words + kWalkThreads - 1) / kWalkThreads;
+  const long long w0 = tid * per;
+  const long long w1 = w0 + per < words ? w0 + per : words;
+  int c = 0;
+  for (long long w = w0; w < w1; ++w) c += __popc(mask[w]);
+  int x = c;  // inclusive scan within the warp
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[wid] = x;
+  __syncthreads();
+  if (wid == 0) {
+    int v = s_warp[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    s_warp[lane] = v;
+  }
+  __syncthreads();
+  int o = x - c + (wid > 0 ? s_warp[wid - 1] : 0);
+  for (long long w = w0; w < w1; ++w) {
+    unsigned m = mask[w];
+    while (m) {
+      const int b = __ffs(m) - 1;
+      m &= m - 1u;
+      if (o <= R) ts[o] = (int32_t)((w << 5) + b);
+      ++o;
+    }
+  }
+  if (tid == 0) {
+    const int total = s_warp[kWalkThreads / 32 - 1];
+    *rows_used = total;
+    if (total <= R) ts[total] = (int32_t)n;
+  }
+}
+
+// One thread per output slot (r, c): the span at sorted index ts[r] + c if
+// trace r holds it (c < its length; spans at c >= L are dropped), else
+// padding. Every output element is written once, zeros included.
+__global__ void __launch_bounds__(kThreads) rows_scatter_kernel(
+    const int32_t* __restrict__ perm, const int32_t* __restrict__ cat,
+    const float* __restrict__ cont, int C, int D,
+    const int32_t* __restrict__ ts, const int32_t* __restrict__ rows_used,
+    int L, int R, int32_t* __restrict__ catp, float* __restrict__ contp,
+    uint8_t* __restrict__ maskp, int32_t* __restrict__ span_map) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)R * L) return;
+  const int ru = *rows_used;
+  const int rows = ru < R ? ru : R;
+  const int r = (int)(t / L), c = (int)(t % L);
+  long long j = -1;
+  if (r < rows) {
+    const long long p0 = ts[r];
+    if (p0 + c < ts[r + 1]) j = p0 + c;
+  }
+  int32_t* cp = catp + t * C;
+  float* xp = contp + t * D;
+  if (j >= 0) {
+    const long long idx = perm[j];
+    for (int k = 0; k < C; ++k) cp[k] = cat[idx * C + k];
+    for (int k = 0; k < D; ++k) xp[k] = cont[idx * D + k];
+    maskp[t] = 1;
+    span_map[t] = (int32_t)idx;
+  } else {
+    for (int k = 0; k < C; ++k) cp[k] = 0;
+    for (int k = 0; k < D; ++k) xp[k] = 0.f;
+    maskp[t] = 0;
+    span_map[t] = -1;
+  }
+}
+
 }  // namespace
 
 // K7. perm (N,) int32 (K6's trace order, identity past n); thi, tlo (N,)
@@ -243,6 +330,72 @@ extern "C" int next_fit_pack_launch(
         static_cast<int32_t*>(catp), static_cast<float*>(contp),
         static_cast<int32_t*>(segs), static_cast<int32_t*>(poss),
         static_cast<int32_t*>(row_eff), static_cast<int32_t*>(span_col));
+    ++*launches;
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// K13: one trace per row, for the autoencoder's fused route. Replaces
+// odigos_tpu/serving/fused.py _build_pack_spans (:462-488; after the
+// shared _sorted_trace_layout, :429-459): row = the trace's ordinal in
+// K6's (trace_id_hi, trace_id_lo, start) order, column = the span's
+// position in its trace, spans at column >= L dropped (the host's
+// assemble_sequences truncation), traces at row >= R dropped. Three
+// launches:
+//   layout   K7's layout kernel with L = INT_MAX: a position in the trace
+//            is then a multiple of L only at 0, so its bitmask marks the
+//            first span of each trace;
+//   scan     one block: each thread's popcount over its run of mask words,
+//            a block scan, then each trace start written at its ordinal
+//            (ts, R + 1 entries, the sentinel n after the last trace) and
+//            the trace count (rows_used, read by the host at harvest);
+//   scatter  one thread per output slot, as K7's.
+// Outputs: catp (R, L, C) int32, contp (R, L, D) f32, maskp (R, L) bytes
+// and span_map (R, L) int32 (the span's original row, -1 at padding: K11
+// writes each real position's score there), every element written once.
+// Bound on the card: bytes, R * L * (4 C + 4 D + 5) out (R = 2048, L = 64:
+// 17.3 MB, 5.2 us at 3.35 TB/s) plus ~28 B a span in; the layout's
+// binary search (~17 dependent L2 reads a span) and the one-block scan set
+// the time at these sizes.
+extern "C" int trace_rows_pack_launch(
+    const void* perm, const void* thi, const void* tlo, const void* cat,
+    const void* cont, int C, int D, long long n, long long N, int L, int R,
+    void* mask, void* pic, void* ts, void* rows_used, void* catp,
+    void* contp, void* maskp, void* span_map, int* launches, void* stream) {
+  *launches = 0;
+  if (n < 0 || N < n || L < 1 || R < 0 || C < 0 || D < 0 ||
+      N > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  unsigned* m = static_cast<unsigned*>(mask);
+  if (n > 0) {
+    const long long words = (n + 31) >> 5;
+    const long long blocks = (words * 32 + kThreads - 1) / kThreads;
+    pack_layout_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const int32_t*>(perm),
+        static_cast<const unsigned long long*>(thi),
+        static_cast<const unsigned long long*>(tlo), n, 0x7fffffff, m,
+        static_cast<int32_t*>(pic));
+    ++*launches;
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  rows_scan_kernel<<<1, kWalkThreads, 0, st>>>(
+      m, n, R, static_cast<int32_t*>(ts), static_cast<int32_t*>(rows_used));
+  ++*launches;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long slots = (long long)R * L;
+  if (slots > 0) {
+    const long long blocks = (slots + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    rows_scatter_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(cat),
+        static_cast<const float*>(cont), C, D,
+        static_cast<const int32_t*>(ts),
+        static_cast<const int32_t*>(rows_used), L, R,
+        static_cast<int32_t*>(catp), static_cast<float*>(contp),
+        static_cast<uint8_t*>(maskp), static_cast<int32_t*>(span_map));
     ++*launches;
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }

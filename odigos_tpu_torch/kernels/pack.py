@@ -1,4 +1,5 @@
-"""K7: next-fit packing of trace-sorted spans into ``(R, L)`` rows.
+"""K7: next-fit packing of trace-sorted spans into ``(R, L)`` rows; K13:
+one trace per row.
 
 ``next_fit_pack(perm, trace_id_hi, trace_id_lo, categorical, continuous,
 n, max_len, rows)`` is ``_sorted_trace_layout`` + ``_build_pack_packed`` of
@@ -19,6 +20,22 @@ A CUDA tensor launches ``csrc/trace_pack.cu`` (three launches: layout,
 walk, scatter) or raises; a CPU tensor takes :func:`next_fit_pack_plain`.
 ``launches`` counts the calls that launched, ``device_launches`` the
 kernels.
+
+K13, ``trace_rows_pack(perm, trace_id_hi, trace_id_lo, categorical,
+continuous, n, max_len, rows)``, packs the same sorted spans one trace per
+row, for the autoencoder: ``_build_pack_spans`` of
+``odigos_tpu/serving/fused.py`` (:462-488). Row = the trace's ordinal in
+``perm``'s order, column = the span's position in its trace; spans at
+column >= ``max_len`` and traces at row >= ``rows`` are dropped, as the
+host's ``assemble_sequences`` and the reference's scatter with
+``mode="drop"`` drop them. It returns a :class:`TraceRows`: the ``(R, L,
+·)`` tensors the model reads, the ``(R, L)`` mask, each slot's original
+span index (``span_map``, -1 at padding; K11 writes the span's score
+there) and ``rows_used``, the real trace count (one int32 on the device,
+no sync). The kernel is three launches in ``csrc/trace_pack.cu`` (K7's
+layout kernel marking trace starts, a one-block scan, a slot scatter);
+the plain version is :func:`trace_rows_pack_plain`. ``rows_launches``
+counts its calls that launched, ``rows_device_launches`` its kernels.
 """
 
 from __future__ import annotations
@@ -34,8 +51,11 @@ from . import build
 
 launches = 0
 device_launches = 0
+rows_launches = 0
+rows_device_launches = 0
 _count_lock = threading.Lock()
 _fn = None
+_rows_fn = None
 
 
 class PackedColumns(NamedTuple):
@@ -46,6 +66,14 @@ class PackedColumns(NamedTuple):
     row_eff: torch.Tensor       # (N,) int32 by sorted index; R = none
     span_col: torch.Tensor      # (N,) int32 by sorted index
     rows_used: torch.Tensor     # (1,) int32
+
+
+class TraceRows(NamedTuple):
+    categorical: torch.Tensor   # (R, L, C) int32
+    continuous: torch.Tensor    # (R, L, D) float32
+    mask: torch.Tensor          # (R, L) bool
+    span_map: torch.Tensor      # (R, L) int32 original span, -1 = padding
+    rows_used: torch.Tensor     # (1,) int32, the real trace count
 
 
 def next_fit_pack_plain(perm: torch.Tensor, trace_id_hi: torch.Tensor,
@@ -188,4 +216,102 @@ def next_fit_pack(perm: torch.Tensor, trace_id_hi: torch.Tensor,
     with _count_lock:
         launches += 1
         device_launches += count.value
+    return out
+
+
+def trace_rows_pack_plain(perm: torch.Tensor, trace_id_hi: torch.Tensor,
+                          trace_id_lo: torch.Tensor,
+                          categorical: torch.Tensor,
+                          continuous: torch.Tensor, n: int, max_len: int,
+                          rows: int) -> TraceRows:
+    """The plain version: new-trace flags, their cumulative count as the
+    row, the cummax of trace starts for the column, one scatter."""
+    L, R = int(max_len), int(rows)
+    C, D = categorical.shape[1], continuous.shape[1]
+    dev = perm.device
+    catp = torch.zeros((R, L, C), dtype=torch.int32, device=dev)
+    contp = torch.zeros((R, L, D), dtype=torch.float32, device=dev)
+    maskp = torch.zeros((R, L), dtype=torch.bool, device=dev)
+    span_map = torch.full((R, L), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return TraceRows(catp, contp, maskp, span_map,
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+    p = perm[:n].long()
+    hi, lo = trace_id_hi[p], trace_id_lo[p]
+    new_trace = torch.ones(n, dtype=torch.bool, device=dev)
+    new_trace[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    row = torch.cumsum(new_trace.long(), 0) - 1
+    idx = torch.arange(n, device=dev)
+    col = idx - torch.cummax(torch.where(new_trace, idx, 0), 0).values
+    keep = (row < R) & (col < L)
+    r_k, c_k, p_k = row[keep], col[keep], p[keep]
+    catp[r_k, c_k] = categorical[p_k]
+    contp[r_k, c_k] = continuous[p_k]
+    maskp[r_k, c_k] = True
+    span_map[r_k, c_k] = p_k.to(torch.int32)
+    return TraceRows(catp, contp, maskp, span_map,
+                     new_trace.sum().to(torch.int32).reshape(1))
+
+
+def _rows_kernel():
+    global _rows_fn
+    if _rows_fn is None:
+        fn = build.load("trace_pack").trace_rows_pack_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 8
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _rows_fn = fn
+    return _rows_fn
+
+
+def trace_rows_pack(perm: torch.Tensor, trace_id_hi: torch.Tensor,
+                    trace_id_lo: torch.Tensor, categorical: torch.Tensor,
+                    continuous: torch.Tensor, n: int, max_len: int,
+                    rows: int) -> TraceRows:
+    """The one-trace-per-row tensors of the group (K13); see the module
+    docstring. Nothing is synchronised."""
+    global rows_launches, rows_device_launches
+    n, max_len, rows = int(n), int(max_len), int(rows)
+    _check(perm, trace_id_hi, trace_id_lo, categorical, continuous, n,
+           max_len, rows)
+    dev = perm.device
+    if dev.type == "cpu":
+        return trace_rows_pack_plain(perm, trace_id_hi, trace_id_lo,
+                                     categorical, continuous, n, max_len,
+                                     rows)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_rows_pack runs on cuda or cpu, not {dev}")
+    ins = (perm, trace_id_hi, trace_id_lo, categorical, continuous)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("trace_rows_pack needs contiguous inputs")
+    N = perm.shape[0]
+    C, D = categorical.shape[1], continuous.shape[1]
+    L, R = max_len, rows
+    out = TraceRows(
+        torch.empty((R, L, C), dtype=torch.int32, device=dev),
+        torch.empty((R, L, D), dtype=torch.float32, device=dev),
+        torch.empty((R, L), dtype=torch.bool, device=dev),
+        torch.empty((R, L), dtype=torch.int32, device=dev),
+        torch.empty(1, dtype=torch.int32, device=dev))
+    words = -(-N // 32)
+    scratch = torch.empty(words + N + R + 1, dtype=torch.int32, device=dev)
+    base = scratch.data_ptr()
+    count = ctypes.c_int(0)
+    fn = _rows_kernel()
+    with torch.cuda.device(dev):
+        rc = fn(perm.data_ptr(), trace_id_hi.data_ptr(),
+                trace_id_lo.data_ptr(), categorical.data_ptr(),
+                continuous.data_ptr(), C, D, n, N, L, R, base,
+                base + 4 * words, base + 4 * (words + N),
+                out.rows_used.data_ptr(), out.categorical.data_ptr(),
+                out.continuous.data_ptr(), out.mask.data_ptr(),
+                out.span_map.data_ptr(), ctypes.byref(count),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trace_rows_pack launch failed: CUDA error {rc}")
+    with _count_lock:
+        rows_launches += 1
+        rows_device_launches += count.value
     return out

@@ -1,0 +1,116 @@
+"""K12: the autoencoder's final LayerNorm + masked mean-pool.
+
+``ln_masked_pool(x, ln_weight, ln_bias, mask)`` takes the encoder's
+``(T, L, d)`` hidden state BEFORE its final LayerNorm and a ``(T, L)`` bool
+mask, and returns the ``(T, d)`` pooled trace vectors in ``x``'s type: the
+LayerNorm at each real position (f32 statistics, eps 1e-6, output rounded
+to the working type), summed over the real positions, the sum rounded to
+the working type and divided by ``max(mask.sum(-1), 1)`` in that type.
+That is ``final_ln`` of ``odigos_tpu/models/layers.py`` ``Encoder`` and the
+pool of ``odigos_tpu/models/autoencoder.py`` ``_AutoencoderModule``
+(:69-70).
+
+Roundings: the LayerNorm is :func:`quant.layer_norm_plain`'s (row sums
+taken exactly in f64 and rounded once to f32), and the pool's sum is taken
+in f64 and rounded to f32, then to the working type (``jnp.sum`` accumulates
+bf16 in f32 and rounds once), so the kernel and its plain version agree to
+the bit in any summation order.
+
+A CUDA tensor launches ``csrc/ae_pool.cu`` (one warp per trace, padding
+skipped; ``d`` in 32, 64, 128, 256) or raises; a CPU tensor takes
+:func:`ln_masked_pool_plain`. ``launches`` counts the calls that launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from . import build
+from .quant import layer_norm_plain
+
+LN_EPS = 1e-6
+WIDTHS = (32, 64, 128, 256)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+_count_lock = threading.Lock()
+_fn = None
+
+
+def ln_masked_pool_plain(x: torch.Tensor, ln_weight: torch.Tensor,
+                         ln_bias: torch.Tensor, mask: torch.Tensor,
+                         eps: float = LN_EPS) -> torch.Tensor:
+    """The plain version: the LayerNorm at every position, then the
+    masked f64 sum, rounded, divided."""
+    y = layer_norm_plain(x, ln_weight, ln_bias, eps)
+    m = mask.to(torch.float64)[..., None]
+    s = (y.double() * m).sum(-2).float().to(x.dtype)
+    denom = mask.sum(-1, keepdim=True).clamp(min=1).float()
+    return (s.float() / denom).to(x.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("ae_pool").ln_masked_pool_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(x, ln_weight, ln_bias, mask) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (T, L, d), got {tuple(x.shape)}")
+    T, L, d = x.shape
+    for name, t in (("ln_weight", ln_weight), ("ln_bias", ln_bias)):
+        if t.shape != (d,):
+            raise ValueError(f"{name} must be ({d},), got {tuple(t.shape)}")
+    if mask.shape != (T, L) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be ({T}, {L}) bool, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    devs = {t.device for t in (x, ln_weight, ln_bias, mask)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
+def ln_masked_pool(x: torch.Tensor, ln_weight: torch.Tensor,
+                   ln_bias: torch.Tensor, mask: torch.Tensor,
+                   eps: float = LN_EPS) -> torch.Tensor:
+    """``(T, d)`` pooled trace vectors; see the module docstring. Nothing
+    is synchronised."""
+    global launches
+    _check(x, ln_weight, ln_bias, mask)
+    dev = x.device
+    if dev.type == "cpu":
+        return ln_masked_pool_plain(x, ln_weight, ln_bias, mask, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"ln_masked_pool runs on cuda or cpu, not {dev}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
+    if ln_weight.dtype != torch.float32 or ln_bias.dtype != torch.float32:
+        raise TypeError("LayerNorm parameters must be float32")
+    T, L, d = x.shape
+    if d not in WIDTHS:
+        raise ValueError(f"ln_masked_pool takes d in {WIDTHS}, not {d}")
+    if not all(t.is_contiguous() for t in (x, ln_weight, ln_bias, mask)):
+        raise ValueError("ln_masked_pool needs contiguous inputs")
+    out = torch.empty((T, d), dtype=x.dtype, device=dev)
+    if T == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), _DTYPE_CODES[x.dtype], mask.data_ptr(),
+                ln_weight.data_ptr(), ln_bias.data_ptr(), eps, T, L, d,
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ln_masked_pool launch failed: CUDA error {rc}")
+    with _count_lock:
+        launches += 1
+    return out

@@ -1,0 +1,225 @@
+"""Span-sequence autoencoder (BASELINE config #4), in PyTorch.
+
+Counterpart of ``odigos_tpu/models/autoencoder.py``: an unsupervised trace
+model with a trace-level bottleneck. The encoder (``models/layers.py``)
+reads each trace's spans, one trace per row; the masked mean-pool of its
+output is projected to one latent vector per trace; per-position decoder
+heads reconstruct each span's service, name, kind and log-duration from
+the latent plus a positional embedding only, so a span that does not fit
+its trace's structure reconstructs poorly and scores high. The score of a
+span is its weighted reconstruction error (two cross-entropies, half a
+third, and a squared error); the serving route squashes it to
+``1 - exp(-err)``.
+
+The device computations go through the port's kernels:
+
+* the encoder's span embedding (K2) and attention (K1), with ``segments``
+  the mask itself (one trace per row, segment id 1, padding 0), so K1's
+  rule ``seg_q == seg_k > 0`` is the reference's ``mask_q & mask_k`` and
+  K2's zeroing of ``segments == 0`` its ``x * mask``;
+* the encoder's final LayerNorm and the masked mean-pool (K12,
+  ``kernels.pool``): the encoder's output is read by nothing else, so it is
+  never written;
+* ``dec_ln``, the four f32 heads and the weighted error (K11,
+  ``kernels.recon``), which never writes the logits; on the fused route it
+  also squashes each score and writes it at the span's original index.
+
+``bottleneck``, ``latent_proj``, ``dec_ff1`` + tanh-GELU and ``dec_ff2``
+are plain dense products, left to ``F.linear`` as the JAX package left
+them to XLA; they hold their weights in the working type, as Flax's
+``Dense(dtype=bf16)`` casts them. The rounding points of the reference
+are kept: the pool is divided in the working type, ``dec_pos_embed`` is
+cast to it and added to the latent projection in it, and ``dec_ln``'s
+output is rounded to it before the f32 heads.
+
+Defaults match ``odigos_tpu.models.autoencoder.AutoencoderConfig``: d_model
+128, d_latent 64, 2 heads, 2 layers, d_ff 512, max_len 64, vocabs
+512/2048/4096, bf16 over f32 parameters, loss weights 1, 1, 0.5, 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.embed import KIND_VOCAB
+from ..kernels.pool import ln_masked_pool, ln_masked_pool_plain
+from ..kernels.recon import recon_ce, recon_ce_plain
+from ..utils.device import resolve_device
+from .layers import Encoder, LayerNorm, init_parameters
+from .transformer import _as_tensor, load_module_state
+
+
+@dataclass(frozen=True)
+class AutoencoderConfig:
+    service_vocab: int = 512
+    name_vocab: int = 2048
+    attr_vocab: int = 4096
+    attr_slots: int = 0  # must match FeaturizerConfig.attr_slots
+    d_model: int = 128
+    d_latent: int = 64   # trace bottleneck width
+    n_heads: int = 2
+    n_layers: int = 2
+    d_ff: int = 512
+    max_len: int = 64
+    dtype: torch.dtype = torch.bfloat16
+    # reconstruction-loss weights: service CE, name CE, kind CE, duration MSE
+    w_service: float = 1.0
+    w_name: float = 1.0
+    w_kind: float = 0.5
+    w_duration: float = 1.0
+
+
+class _AutoencoderModule(nn.Module):
+    def __init__(self, cfg: AutoencoderConfig):
+        super().__init__()
+        c = cfg
+        self.encoder = Encoder(c.service_vocab, c.name_vocab, c.attr_vocab,
+                               c.attr_slots, c.d_model, c.n_heads,
+                               c.n_layers, c.d_ff, c.max_len, c.dtype)
+        self.bottleneck = nn.Linear(c.d_model, c.d_latent)
+        self.dec_pos_embed = nn.Embedding(c.max_len, c.d_model)
+        self.latent_proj = nn.Linear(c.d_latent, c.d_model)
+        self.dec_ff1 = nn.Linear(c.d_model, c.d_ff)
+        self.dec_ff2 = nn.Linear(c.d_ff, c.d_model)
+        self.dec_ln = LayerNorm(c.d_model, c.dtype)
+        self.service_head = nn.Linear(c.d_model, c.service_vocab)
+        self.name_head = nn.Linear(c.d_model, c.name_vocab)
+        self.kind_head = nn.Linear(c.d_model, KIND_VOCAB)
+        self.duration_head = nn.Linear(c.d_model, 1)
+
+    def dense_layers(self) -> list[nn.Linear]:
+        """The decoder's products in the working type."""
+        return [self.bottleneck, self.latent_proj, self.dec_ff1,
+                self.dec_ff2]
+
+    def heads(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """The four f32 heads in K11's order: service, name, kind,
+        duration."""
+        return [(h.weight, h.bias) for h in (
+            self.service_head, self.name_head, self.kind_head,
+            self.duration_head)]
+
+
+class SpanAutoencoder:
+    """Model + device: init from a seed (an explicit ``torch.Generator``,
+    never the global one), load weights, score.
+
+    ``device`` defaults to ``"cuda"`` and raises if CUDA is absent; pass
+    ``"cpu"`` to run the plain versions of the kernels on the CPU.
+    Scoring methods take numpy arrays or tensors and return tensors on
+    the model's device without synchronising (the caller fetches).
+    """
+
+    def __init__(self, config: Optional[AutoencoderConfig] = None,
+                 device: str | torch.device = "cuda", seed: int = 0):
+        self.cfg = config or AutoencoderConfig()
+        if self.cfg.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"working dtype must be float32 or bfloat16, "
+                             f"not {self.cfg.dtype}")
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        module = _AutoencoderModule(self.cfg)
+        init_parameters(module, torch.Generator().manual_seed(seed))
+        for lin in module.dense_layers() + [
+                lin for blk in module.encoder.blocks
+                for lin in blk.dense_layers()]:
+            lin.to(self.cfg.dtype)
+        self.module = module.to(self.device).eval()
+
+    # ------------------------------------------------------------ weights
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        return self.module.state_dict()
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Load a state dict (tensors or numpy arrays); each value is
+        cast to the parameter's own dtype and device."""
+        load_module_state(self.module, state)
+
+    # ------------------------------------------------------------ scoring
+    def _inputs(self, categorical: Any, continuous: Any, mask: Any):
+        dev = self.device
+        return (_as_tensor(categorical, torch.int32, dev),
+                _as_tensor(continuous, torch.float32, dev),
+                _as_tensor(mask, torch.bool, dev))
+
+    def _decode(self, cat: torch.Tensor, cont: torch.Tensor,
+                mask: torch.Tensor, reference: bool) -> torch.Tensor:
+        """Encoder, K12 pool, bottleneck and decoder up to ``dec_ln``:
+        the ``(T·L, d)`` rows K11 reads."""
+        m = self.module
+        T, L = mask.shape
+        seg = mask.to(torch.int32).contiguous()
+        pos = torch.arange(L, dtype=torch.int32, device=mask.device).expand(
+            T, L).contiguous()
+        h = m.encoder(cat, cont, pos, seg, reference=reference,
+                      final_ln=False)
+        pool = ln_masked_pool_plain if reference else ln_masked_pool
+        ln = m.encoder.final_ln
+        pooled = pool(h, ln.weight, ln.bias, mask, ln.eps)
+        z = m.bottleneck(pooled)
+        pos_e = m.dec_pos_embed.weight[:L].to(self.cfg.dtype)
+        dec = m.latent_proj(z)[:, None, :] + pos_e
+        dec = m.dec_ff2(F.gelu(m.dec_ff1(dec), approximate="tanh"))
+        return dec.reshape(T * L, -1)
+
+    def _errors(self, cat, cont, mask, reference: bool, span_map=None,
+                n_out: int = 0):
+        c = self.cfg
+        T, L = mask.shape
+        dec = self._decode(cat, cont, mask, reference)
+        ln = self.module.dec_ln
+        recon = recon_ce_plain if reference else recon_ce
+        return recon(dec, ln.weight, ln.bias, self.module.heads(),
+                     cat.reshape(T * L, -1), cont.reshape(T * L, -1),
+                     mask.reshape(T * L),
+                     (c.w_service, c.w_name, c.w_kind, c.w_duration),
+                     span_map=span_map, n_out=n_out, eps=ln.eps)
+
+    @torch.inference_mode()
+    def span_errors(self, categorical: Any, continuous: Any, mask: Any,
+                    reference: bool = False) -> torch.Tensor:
+        """``(T, L)`` f32 weighted reconstruction error per span, 0 at
+        padding: what the engine's host route scores. ``reference=True``
+        runs the plain versions of every kernel instead (a check, not a
+        route)."""
+        cat, cont, m = self._inputs(categorical, continuous, mask)
+        return self._errors(cat, cont, m, reference).view(m.shape)
+
+    @torch.inference_mode()
+    def score_spans(self, categorical: Any, continuous: Any, mask: Any,
+                    reference: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(T, L)`` span errors and the ``(T,)`` per-trace mean error
+        (over the real spans, 1 where a row has none)."""
+        cat, cont, m = self._inputs(categorical, continuous, mask)
+        err = self._errors(cat, cont, m, reference).view(m.shape)
+        denom = m.sum(-1).clamp(min=1).float()
+        return err, err.sum(-1) / denom
+
+    @torch.inference_mode()
+    def score_spans_scatter(self, categorical: Any, continuous: Any,
+                            mask: Any, span_map: torch.Tensor, n_out: int,
+                            reference: bool = False) -> torch.Tensor:
+        """The fused route's forward: every real slot's squashed score
+        ``1 - exp(-err)`` written at ``span_map`` (K13's original span
+        index, -1 at padding) of an ``(n_out,)`` f32 output, 0 elsewhere
+        (spans truncated from their trace stay 0)."""
+        cat, cont, m = self._inputs(categorical, continuous, mask)
+        smap = _as_tensor(span_map, torch.int32, self.device)
+        _, scores = self._errors(cat, cont, m, reference,
+                                 span_map=smap.reshape(-1), n_out=n_out)
+        return scores
+
+    @torch.inference_mode()
+    def loss_fn(self, categorical: Any, continuous: Any, mask: Any
+                ) -> torch.Tensor:
+        """Mean masked reconstruction error (forward only)."""
+        cat, cont, m = self._inputs(categorical, continuous, mask)
+        err = self._errors(cat, cont, m, reference=False)
+        return err.sum() / m.sum().clamp(min=1).float()

@@ -1,10 +1,13 @@
-"""Carry the JAX package's trace-transformer parameters into the port.
+"""Carry the JAX package's model parameters into the port.
 
 ``flax_to_torch(params, cfg)`` takes the Flax variables of
 ``odigos_tpu.models.transformer.TraceTransformer`` as numpy arrays — the
 nested dict ``init`` returns (with or without its ``"params"`` level) or a
 dict flattened with ``/`` — and returns the port's f32 state dict. Every
 source parameter must be used and every target filled, or it raises.
+``flax_autoencoder_to_torch(params, cfg)`` does the same for
+``odigos_tpu.models.autoencoder.SpanAutoencoder``: the same encoder, then
+the bottleneck, decoder and head names.
 
 The layout changes:
 
@@ -51,22 +54,36 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
     return out
 
 
-def flax_to_torch(params: Mapping[str, Any],
-                  cfg: TransformerConfig) -> dict[str, torch.Tensor]:
-    flat = _flatten(params)
-    flat = {k[len("params/"):] if k.startswith("params/") else k: v
-            for k, v in flat.items()}
-    used: set[str] = set()
+class _Taker:
+    """A flattened Flax tree (without its ``"params"`` level) that records
+    which leaves were taken."""
 
-    def take(name: str) -> np.ndarray:
-        if name not in flat:
+    def __init__(self, params: Mapping[str, Any]):
+        flat = _flatten(params)
+        self.flat = {k[len("params/"):] if k.startswith("params/") else k: v
+                     for k, v in flat.items()}
+        self.used: set[str] = set()
+
+    def __call__(self, name: str) -> np.ndarray:
+        if name not in self.flat:
             raise KeyError(f"flax parameter {name!r} missing")
-        used.add(name)
-        return np.asarray(flat[name], dtype=np.float32)
+        self.used.add(name)
+        return np.asarray(self.flat[name], dtype=np.float32)
 
-    def dense(src: str) -> tuple[np.ndarray, np.ndarray]:
-        return take(f"{src}/kernel").T, take(f"{src}/bias")
+    def dense(self, src: str) -> tuple[np.ndarray, np.ndarray]:
+        return self(f"{src}/kernel").T, self(f"{src}/bias")
 
+    def done(self, sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        unused = sorted(set(self.flat) - self.used)
+        if unused:
+            raise KeyError(f"flax parameters not carried across: {unused}")
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
+                for k, v in sd.items()}
+
+
+def _encoder(take: _Taker, cfg: Any) -> dict[str, np.ndarray]:
+    """The ``encoder`` subtree (``models/layers.py`` ``Encoder``), shared by
+    the transformer and the autoencoder."""
     H = cfg.n_heads
     d = cfg.d_model
     sd: dict[str, np.ndarray] = {}
@@ -77,7 +94,7 @@ def flax_to_torch(params: Mapping[str, Any],
     if cfg.attr_slots > 0:
         sd["encoder.embed.attr_embed.weight"] = take(
             "encoder/embed/attr_embed/embedding")
-    w, b = dense("encoder/embed/cont_proj")
+    w, b = take.dense("encoder/embed/cont_proj")
     sd["encoder.embed.cont_proj.weight"], sd["encoder.embed.cont_proj.bias"] \
         = w, b
     sd["encoder.pos_embed.weight"] = take("encoder/pos_embed/embedding")
@@ -98,17 +115,39 @@ def flax_to_torch(params: Mapping[str, Any],
                              f"says {H}")
         sd[f"{dst}.out.weight"] = kern.reshape(-1, d).T
         sd[f"{dst}.out.bias"] = take(f"{src}/{_MHA}/out/bias")
-        sd[f"{dst}.ff1.weight"], sd[f"{dst}.ff1.bias"] = dense(f"{src}/Dense_0")
-        sd[f"{dst}.ff2.weight"], sd[f"{dst}.ff2.bias"] = dense(f"{src}/Dense_1")
+        sd[f"{dst}.ff1.weight"], sd[f"{dst}.ff1.bias"] = take.dense(
+            f"{src}/Dense_0")
+        sd[f"{dst}.ff2.weight"], sd[f"{dst}.ff2.bias"] = take.dense(
+            f"{src}/Dense_1")
     sd["encoder.final_ln.weight"] = take("encoder/final_ln/scale")
     sd["encoder.final_ln.bias"] = take("encoder/final_ln/bias")
+    return sd
+
+
+def flax_to_torch(params: Mapping[str, Any],
+                  cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    take = _Taker(params)
+    sd = _encoder(take, cfg)
     for head in ("span_head", "trace_head"):
-        sd[f"{head}.weight"], sd[f"{head}.bias"] = dense(head)
-    unused = sorted(set(flat) - used)
-    if unused:
-        raise KeyError(f"flax parameters not carried across: {unused}")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-            for k, v in sd.items()}
+        sd[f"{head}.weight"], sd[f"{head}.bias"] = take.dense(head)
+    return take.done(sd)
+
+
+def flax_autoencoder_to_torch(params: Mapping[str, Any], cfg: Any
+                              ) -> dict[str, torch.Tensor]:
+    """The Flax variables of ``odigos_tpu.models.autoencoder.SpanAutoencoder``
+    as the port's ``SpanAutoencoder`` state dict: the encoder as
+    :func:`flax_to_torch` maps it, then the bottleneck, the decoder and the
+    four heads under their own names."""
+    take = _Taker(params)
+    sd = _encoder(take, cfg)
+    for dense in ("bottleneck", "latent_proj", "dec_ff1", "dec_ff2",
+                  "service_head", "name_head", "kind_head", "duration_head"):
+        sd[f"{dense}.weight"], sd[f"{dense}.bias"] = take.dense(dense)
+    sd["dec_pos_embed.weight"] = take("dec_pos_embed/embedding")
+    sd["dec_ln.weight"] = take("dec_ln/scale")
+    sd["dec_ln.bias"] = take("dec_ln/bias")
+    return take.done(sd)
 
 
 def quantize_state_dict(state: Mapping[str, Any], cfg: TransformerConfig

@@ -68,6 +68,26 @@ class _TraceTransformerModule(nn.Module):
         return self.trace_head(pooled.float())[..., 0]
 
 
+def load_module_state(module: nn.Module, state: Mapping[str, Any]) -> None:
+    """Copy a state dict (tensors or numpy arrays) into ``module``, each
+    value cast to the parameter's own dtype and device; every name must
+    match both ways and every shape agree, or it raises."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, value in state.items():
+            t = torch.as_tensor(np.asarray(value)) \
+                if not isinstance(value, torch.Tensor) else value
+            if t.shape != own[name].shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                                 f"{tuple(own[name].shape)}")
+            own[name].copy_(t)
+
+
 def _as_tensor(x: Any, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
     t = torch.as_tensor(x) if isinstance(x, np.ndarray) else x
@@ -109,20 +129,7 @@ class TraceTransformer:
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Load a state dict (tensors or numpy arrays); each value is
         cast to the parameter's own dtype and device."""
-        own = self.module.state_dict()
-        missing = sorted(set(own) - set(state))
-        extra = sorted(set(state) - set(own))
-        if missing or extra:
-            raise KeyError(f"state dict mismatch: missing {missing}, "
-                           f"unexpected {extra}")
-        with torch.no_grad():
-            for name, value in state.items():
-                t = torch.as_tensor(np.asarray(value)) \
-                    if not isinstance(value, torch.Tensor) else value
-                if t.shape != own[name].shape:
-                    raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                     f"{tuple(own[name].shape)}")
-                own[name].copy_(t)
+        load_module_state(self.module, state)
 
     # ------------------------------------------------------------ scoring
     @torch.inference_mode()

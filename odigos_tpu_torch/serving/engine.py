@@ -1,10 +1,10 @@
 """Batched async scoring engine — the port's scoring stage on the GPU.
 
-A trimmed port of ``odigos_tpu/serving/engine.py`` with three models: the
+A trimmed port of ``odigos_tpu/serving/engine.py`` with four models: the
 streaming z-score detector (``zscore``, the default, as in the JAX
-package), the packed trace transformer (``transformer``) and the
-deterministic test model (``mock``), chosen from ``_BACKENDS``. The engine
-contract is kept:
+package), the packed trace transformer (``transformer``), the span
+autoencoder (``autoencoder``, one trace per row) and the deterministic test
+model (``mock``), chosen from ``_BACKENDS``. The engine contract is kept:
 
 * callers ``submit()`` batches into a **bounded** queue (``submit`` returns
   None when it is full or the engine is shutting down) and wait on a
@@ -12,8 +12,10 @@ contract is kept:
   so the caller forwards the spans unscored;
 * the worker's pack stage drains the queue and **coalesces** pending
   requests into one device call;
-* a backend with ``dispatch`` (the transformer) is **pipelined**: the pack
-  stage packs on the host and dispatches the forward without blocking —
+* a backend with ``dispatch`` (the transformer, the autoencoder) is
+  **pipelined**: the pack stage packs on the host (the transformer: next-fit
+  packed rows; the autoencoder: one trace per row, ``assemble_sequences``)
+  and dispatches the forward without blocking —
   the packed arrays go to pinned host memory, are copied to the card with
   ``non_blocking=True``, the forward and the copy of the scores back to
   pinned memory are enqueued, and a CUDA event marks the end. The pinned
@@ -21,7 +23,9 @@ contract is kept:
   cannot overwrite a copy still in progress. Up to ``pipeline_depth``
   calls ride in flight; the harvest stage waits on the oldest call's event
   (the one blocking host/device interaction), scatters scores back to span
-  order and wakes the requests — FIFO, so results equal the serial path's;
+  order (the autoencoder's reconstruction errors squashed to ``1 -
+  exp(-err)`` first, as the reference does) and wakes the requests — FIFO,
+  so results equal the serial path's;
 * every other backend runs at **depth 1**, its whole call in the pack
   stage under the backend lock: zscore scores a call against the state
   before folding the call into it (``online_update``), and that order must
@@ -37,10 +41,10 @@ contract is kept:
 * the **fused columns route** (``serving/fused.py``): ``submit(batch,
   columns=cols)`` with ``cols`` from ``extract_columns(batch)`` defers
   featurize; a group whose requests all carry columns, on a backend with
-  the fused kernels (the transformer's), scores in one non-blocking
-  dispatch that featurizes, packs, scores and scatters on the card
-  (``dispatch_columns``); any other group takes the host route, the
-  columns-carrying requests featurized in the pack stage.
+  the fused kernels (the transformer's and the autoencoder's), scores in
+  one non-blocking dispatch that featurizes, packs, scores and scatters on
+  the card (``dispatch_columns``); any other group takes the host route,
+  the columns-carrying requests featurized in the pack stage.
   ``stats()`` counts fused frames and columns-carrying frames that took
   the host route under the reference's metric names.
 * ``shutdown()`` drains queued and in-flight work losslessly.
@@ -54,8 +58,8 @@ stream (the default stream unless the caller set another).
 products (``models/quantized.py``, kernels K9 and K10) on both routes; the
 entry points are the engine and, in the reference, the processor config.
 
-Not ported yet (later slices, listed in ROADMAP.md): the autoencoder and
-remote models, failover, device meshes, adaptive deadline-sized
+Not ported yet (later slices, listed in ROADMAP.md): the remote model,
+failover, device meshes, adaptive deadline-sized
 coalescing, the flow ledger, meters (the cold-span count
 and the fused counters are kept in ``stats()`` under the reference's
 metric names until then), the self-tracer and latency attribution.
@@ -69,7 +73,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -77,6 +81,7 @@ import torch
 from ..features.featurizer import (
     FeaturizerConfig, SpanFeatures, featurize, pack_sequences)
 from ..kernels.zscore import zscore_score
+from ..models.autoencoder import AutoencoderConfig
 from ..models.quantized import QuantizedTraceScorer
 from ..models.transformer import TraceTransformer, TransformerConfig
 from ..models.zscore import ZScoreDetector
@@ -89,12 +94,12 @@ COLD_METRIC = "odigos_anomaly_cold_spans_total"
 FUSED_FRAMES_METRIC = "odigos_fastpath_fused_frames_total"
 FUSED_FALLBACK_METRIC = "odigos_fastpath_fused_fallback_total"
 # models of the reference that later slices port
-UNPORTED_MODELS = ("autoencoder", "remote")
+UNPORTED_MODELS = ("remote",)
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    model: str = "zscore"        # zscore | transformer | mock
+    model: str = "zscore"        # zscore | transformer | autoencoder | mock
     max_queue: int = 64          # pending requests bound
     max_batch_spans: int = 65536  # coalescing cap per device call
     max_len: int = 64            # spans per packed row
@@ -104,7 +109,10 @@ class EngineConfig:
     # once at load (models/quantized.py)
     quantized: bool = False
     featurizer: FeaturizerConfig = field(default_factory=FeaturizerConfig)
-    model_config: Optional[TransformerConfig] = None
+    # the sequence model's geometry (TransformerConfig or
+    # AutoencoderConfig, by model); None = its defaults
+    model_config: Optional[Union[TransformerConfig,
+                                 AutoencoderConfig]] = None
     seed: int = 0                # random weights: no checkpoints yet
     # depth 2 = double buffering: one call packing on the host while one
     # runs on the card (pipelined backends only; the others clamp to 1)
@@ -122,8 +130,8 @@ class EngineConfig:
         if self.model in UNPORTED_MODELS:
             raise ValueError(
                 f"model {self.model!r} is not ported yet (ported: "
-                f"{sorted(_BACKENDS)}; {' and '.join(UNPORTED_MODELS)} are "
-                f"later slices)")
+                f"{sorted(_BACKENDS)}; {', '.join(UNPORTED_MODELS)}: a "
+                f"later slice)")
         if self.model not in _BACKENDS:
             raise ValueError(f"unknown scoring model {self.model!r} "
                              f"(known: {sorted(_BACKENDS)})")
@@ -204,29 +212,32 @@ class SequenceBackend:
 
     Scores are computed per packed (row, slot) and scattered back to span
     rows via ``span_index``; ``dispatch`` enqueues the device work without
-    blocking and ``harvest`` waits for it.
+    blocking and ``harvest`` waits for it. The autoencoder's backend
+    (``serving/fused.py`` ``AutoencoderBackend``) overrides the model, the
+    host pack, the squash and the padding rows.
     """
 
     # packing a coalesced group reads only these columns: the engine hands
     # it a columns-only stand-in instead of a merged SpanBatch
     coalesce_columns = ("trace_id_hi", "trace_id_lo", "start_unix_nano")
+    # the geometry EngineConfig.model_config must hold
+    config_cls: type = TransformerConfig
 
     def __init__(self, cfg: EngineConfig):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        model_config = cfg.model_config or TransformerConfig(
+        model_config = cfg.model_config or self.config_cls(
             attr_slots=cfg.featurizer.attr_slots)
+        if not isinstance(model_config, self.config_cls):
+            raise ValueError(f"model {cfg.model!r} takes a "
+                             f"{self.config_cls.__name__}, not "
+                             f"{type(model_config).__name__}")
         if model_config.attr_slots != cfg.featurizer.attr_slots:
             raise ValueError(
                 f"model attr_slots {model_config.attr_slots} != featurizer "
                 f"attr_slots {cfg.featurizer.attr_slots}")
-        # the int8 scorer quantizes the seed's f32 draws and keeps no
-        # float copy of the dense weights; it scores like the float model
-        # (score_packed, score_packed_scatter), so both routes serve it
-        model_cls = QuantizedTraceScorer if cfg.quantized \
-            else TraceTransformer
-        self.model = model_cls(model_config, device=self.device,
-                               seed=cfg.seed)
+        self.model = self._model_cls()(model_config, device=self.device,
+                                       seed=cfg.seed)
         # the positional table bounds the row length
         self.max_len = min(cfg.max_len, model_config.max_len)
         self.ladder = BucketLadder(cfg.trace_bucket, cfg.bucket_ladder)
@@ -234,20 +245,30 @@ class SequenceBackend:
                              if self.device.type == "cuda" else "cpu")
         self.last_shape: Optional[list[int]] = None
 
+    def _model_cls(self) -> type:
+        # the int8 scorer quantizes the seed's f32 draws and keeps no
+        # float copy of the dense weights; it scores like the float model
+        # (score_packed, score_packed_scatter), so both routes serve it
+        return QuantizedTraceScorer if self.cfg.quantized \
+            else TraceTransformer
+
     # ------------------------------------------------------- device stage
+    def _forward(self, *arrays: Any) -> torch.Tensor:
+        """The model's ``(R, L)`` probabilities over (categorical,
+        continuous, segments, positions)."""
+        return self.model.score_packed(*arrays)
+
     @torch.inference_mode()
-    def _device_call(self, categorical: np.ndarray, continuous: np.ndarray,
-                     segments: np.ndarray,
-                     positions: np.ndarray) -> tuple[torch.Tensor, Any, tuple]:
+    def _device_call(self, *arrays: np.ndarray
+                     ) -> tuple[torch.Tensor, Any, tuple]:
         """Enqueue the forward; returns (scores, event, keepalive)
         WITHOUT waiting on the card."""
-        arrays = (categorical, continuous, segments, positions)
         if self.device.type == "cpu":
-            return self.model.score_packed(*arrays), None, ()
+            return self._forward(*arrays), None, ()
         host = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
                      for a in arrays)
         dev = [h.to(self.device, non_blocking=True) for h in host]
-        probs = self.model.score_packed(*dev)
+        probs = self._forward(*dev)
         out = torch.empty(probs.shape, dtype=torch.float32, pin_memory=True)
         out.copy_(probs, non_blocking=True)
         event = torch.cuda.Event()
@@ -270,10 +291,15 @@ class SequenceBackend:
         """Harvest stage: wait for the call, scatter scores to span rows."""
         if handle.event is not None:
             handle.event.synchronize()
-        span_scores = handle.scores.numpy()
+        span_scores = self._span_scores(handle.scores.numpy())
         out = np.zeros(handle.n, np.float32)
         out[handle.span_index[handle.mask]] = span_scores[handle.mask]
         return out
+
+    def _span_scores(self, scores: np.ndarray) -> np.ndarray:
+        """A harvested call's ``(R, L)`` outputs as scores in [0, 1]: the
+        transformer's probabilities already are."""
+        return scores
 
     def score(self, batch: Any, features: SpanFeatures) -> np.ndarray:
         return self.harvest(self.dispatch(batch, features))
@@ -283,16 +309,20 @@ class SequenceBackend:
         kernels build and load, the CUDA context and cuBLAS handles come
         up, and the caching allocator holds each shape's buffers before
         the first request."""
-        C = self.cfg.featurizer.cat_width
-        D = self.cfg.featurizer.cont_width
-        L = self.max_len
         for R in self.ladder.buckets:
-            _, event, _ = self._device_call(
-                np.zeros((R, L, C), np.int32), np.zeros((R, L, D), np.float32),
-                np.zeros((R, L), np.int32), np.zeros((R, L), np.int32))
+            _, event, _ = self._device_call(*self._padding_rows(R))
             if event is not None:
                 event.synchronize()
             self.ladder.mark_warm(R)
+
+    def _padding_rows(self, R: int) -> tuple[np.ndarray, ...]:
+        """``R`` all-padding rows of the forward's inputs: categorical,
+        continuous, segments, positions."""
+        C = self.cfg.featurizer.cat_width
+        D = self.cfg.featurizer.cont_width
+        L = self.max_len
+        return (np.zeros((R, L, C), np.int32), np.zeros((R, L, D), np.float32),
+                np.zeros((R, L), np.int32), np.zeros((R, L), np.int32))
 
 
 class MockBackend:
@@ -372,10 +402,17 @@ def _fused_backend(cfg: EngineConfig):
     return FusedSequenceBackend(cfg)
 
 
+def _autoencoder_backend(cfg: EngineConfig):
+    from .fused import AutoencoderBackend
+
+    return AutoencoderBackend(cfg)
+
+
 _BACKENDS = {
     "mock": MockBackend,
     "zscore": ZScoreBackend,
     "transformer": _fused_backend,
+    "autoencoder": _autoencoder_backend,
 }
 
 

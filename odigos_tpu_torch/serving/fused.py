@@ -11,7 +11,12 @@ join's declarations, K5 gathers, joins and assembles), sort the spans by
 trace and start (K6), pack them next-fit into ``(R, L)`` rows (K7), run the
 transformer (K2, K1 and the dense chain) and apply the final LayerNorm,
 span head and sigmoid at each real span, writing its score at its original
-index (K8). Only the ``(n,)`` scores come back.
+index (K8). The autoencoder's chain is the same up to the sort; then K13
+packs one trace per row, the encoder runs (K2, K1), K12 pools, the decoder's
+dense products run, and K11 scores each real span, squashes its error to
+``1 - exp(-err)`` and writes it at its original index (the reference's
+``_build_pack_spans`` + ``_build_forward_spans``). Only the ``(n,)`` scores
+come back.
 
 Route discipline, as in the reference:
 
@@ -27,11 +32,14 @@ Route discipline, as in the reference:
 
 **The one deliberate departure: the row bound.** The reference sizes the
 packed rows statically from the span bucket, ``R = round_rows(2 N / L +
-2)`` with N the power-of-two bucket. The port sizes them from the real
-span count the host already knows, ``R = round_rows(2 n / L + 2)``: next-fit
-never leaves two adjacent rows holding L spans or fewer together, so
-``2 n / L + 2`` rows hold any group of n spans, and no device sync is
-needed. The scores are the same (the extra rows of the reference are all
+2)`` with N the power-of-two bucket (the autoencoder: ``R = N``, one row
+per possible trace). The port sizes them from the real span count the host
+already knows, ``R = round_rows(2 n / L + 2)``: next-fit never leaves two
+adjacent rows holding L spans or fewer together, so ``2 n / L + 2`` rows
+hold any group of n spans, and no device sync is needed (the autoencoder:
+``R = round_rows(n)``, since a trace holds at least one span; most of
+those rows are padding, ~10 spans a trace on the otel mix, and sizing R by
+the real trace count is later work). The scores are the same (the extra rows of the reference are all
 padding, and attention never crosses rows); the shape set is still the
 ladder's; the forward does up to ~2x less padding work at a bucket's low
 end. ``tests/test_torch_fused.py`` holds the port's scores to the JAX
@@ -40,8 +48,8 @@ backend's, whose R is larger.
 Other differences: u64 columns stay whole (int64 bit patterns read
 unsigned) where the reference splits them into u32 halves to serve without
 x64, so the duration is exact (the host's f64 arithmetic) instead of the
-reference's f32 recomposition; the autoencoder's sequence route, the int8
-forward and the sampled device attribution are later slices.
+reference's f32 recomposition; the sampled device attribution is a later
+slice.
 """
 
 from __future__ import annotations
@@ -56,12 +64,14 @@ import numpy as np
 import torch
 
 from ..features.featurizer import (FeaturizerConfig, SpanColumns,
-                                   _hash_table, batch_columns)
+                                   SpanFeatures, _hash_table,
+                                   assemble_sequences, batch_columns)
 from ..kernels import featurize as kfeat
 from ..kernels import pack as kpack
 from ..kernels import sort as ksort
+from ..models.autoencoder import AutoencoderConfig, SpanAutoencoder
 from ..pdata.attrstore import AttrDictView
-from .engine import EngineConfig, SequenceBackend
+from .engine import EngineConfig, SequenceBackend, _Handle
 
 # the closed set of reasons a frame takes the host route instead; callers
 # count each fallback under exactly one of these (the reference's metric
@@ -178,7 +188,8 @@ class _Staged:
 @dataclass
 class _FusedHandle:
     scores: torch.Tensor           # (n,) f32: pinned host on the card
-    rows_used: torch.Tensor        # (1,) int32, next-fit's real rows
+    rows_used: torch.Tensor        # (1,) int32: rows filled (next-fit's
+                                   # rows, or the real trace count)
     event: Optional[torch.cuda.Event]
     staged: _Staged                # kept alive until harvest
     n: int
@@ -219,7 +230,7 @@ class FusedSequenceBackend(SequenceBackend):
         self.last_span_bucket: Optional[int] = None
         self.last_bucket_hit: Optional[bool] = None
         self.last_rows_real: Optional[int] = None
-        # (R, next-fit's real rows) of the harvested fused calls
+        # (R, rows filled) of the harvested fused calls
         self.fused_rows: deque = deque(maxlen=512)
         # pinned staging buffers by span bucket, each out of the pool from
         # its dispatch until its harvest (a copy from it may be in flight)
@@ -276,8 +287,8 @@ class FusedSequenceBackend(SequenceBackend):
     def fused_forward(self, staged: _Staged, n_real: int, R: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """The device half of a fused call on staged columns: K6 + K5
-        (featurize), K6 (trace order), K7 (pack), the encoder and K8.
-        Returns ``((N,) scores in span order, (1,) next-fit rows)``."""
+        (featurize), K6 (trace order), then :meth:`pack_forward`. Returns
+        ``((N,) scores in span order, (1,) rows filled)``."""
         c = staged.cols
         cat, cont = kfeat.featurize_columns(
             staged.service_table, staged.name_table, c["service"],
@@ -287,8 +298,16 @@ class FusedSequenceBackend(SequenceBackend):
         perm = ksort.radix_sort(
             [c["trace_id_hi"], c["trace_id_lo"], c["start_unix_nano"]],
             n_real)
-        pk = kpack.next_fit_pack(perm, c["trace_id_hi"], c["trace_id_lo"],
-                                 cat, cont, n_real, self.max_len, R)
+        return self.pack_forward(c, cat, cont, perm, n_real, R)
+
+    def pack_forward(self, cols: dict, cat: torch.Tensor,
+                     cont: torch.Tensor, perm: torch.Tensor, n_real: int,
+                     R: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """K7 packs the sorted spans next-fit into R rows; the encoder and
+        K8 score them. Returns the scores and next-fit's row count."""
+        pk = kpack.next_fit_pack(perm, cols["trace_id_hi"],
+                                 cols["trace_id_lo"], cat, cont, n_real,
+                                 self.max_len, R)
         scores = self.model.score_packed_scatter(
             pk.categorical, pk.continuous, pk.segments, pk.positions, perm,
             pk.row_eff, pk.span_col, n_real)
@@ -412,3 +431,68 @@ def _warm_columns(n: int) -> SpanColumns:
         trace_id_lo=i // np.uint64(10) + np.uint64(1),
         start_unix_nano=i * np.uint64(1000),
         end_unix_nano=i * np.uint64(1000) + np.uint64(500))
+
+
+class AutoencoderBackend(FusedSequenceBackend):
+    """The span autoencoder (``models/autoencoder.py``) on both routes,
+    one trace per row.
+
+    The host route is the reference's ``"seq"`` branch: ``dispatch``
+    assembles the traces (``assemble_sequences``, rows padded onto the
+    ladder) and enqueues ``span_errors``; ``harvest`` squashes each error
+    to ``1 - exp(-err)`` on the host and scatters it to span order. The
+    fused route is the transformer's up to the sort; then K13 packs one
+    trace per row and the model scores, K11 squashing each error and
+    writing it at the span's original index. ``quantized`` is refused by
+    ``EngineConfig``, as in the reference.
+    """
+
+    config_cls = AutoencoderConfig
+
+    def _model_cls(self) -> type:
+        return SpanAutoencoder
+
+    def _forward(self, *arrays: Any) -> torch.Tensor:
+        """The ``(R, L)`` reconstruction errors over (categorical,
+        continuous, mask)."""
+        return self.model.span_errors(*arrays)
+
+    def dispatch(self, batch: Any, features: SpanFeatures) -> _Handle:
+        seqs = assemble_sequences(batch, features, max_len=self.max_len,
+                                  pad_traces_to=self.ladder.round_rows)
+        self.last_shape = list(seqs.mask.shape)
+        self.ladder.observe(seqs.n_traces)
+        scores, event, keep = self._device_call(
+            seqs.categorical, seqs.continuous, seqs.mask)
+        return _Handle(scores, event, keep, seqs.span_index, seqs.mask,
+                       len(batch))
+
+    def _span_scores(self, scores: np.ndarray) -> np.ndarray:
+        # the reconstruction error is unbounded: squash it to (0, 1) so
+        # the processor's threshold contract holds, as the reference's
+        # harvest does
+        return 1.0 - np.exp(-scores)
+
+    def _padding_rows(self, R: int) -> tuple[np.ndarray, ...]:
+        """``R`` all-padding rows: categorical, continuous, mask."""
+        cat, cont = super()._padding_rows(R)[:2]
+        return cat, cont, np.zeros(cat.shape[:2], bool)
+
+    def rows_for(self, n_real: int) -> int:
+        """One row per trace: a trace holds at least one span, so ``n``
+        rows always suffice (the module docstring's departure)."""
+        return self.ladder.round_rows(n_real)
+
+    def pack_forward(self, cols: dict, cat: torch.Tensor,
+                     cont: torch.Tensor, perm: torch.Tensor, n_real: int,
+                     R: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """K13 packs one trace per row; the model (K2, K1, K12, the dense
+        decoder, K11) scores and scatters. Returns the scores and the real
+        trace count."""
+        tr = kpack.trace_rows_pack(perm, cols["trace_id_hi"],
+                                   cols["trace_id_lo"], cat, cont, n_real,
+                                   self.max_len, R)
+        scores = self.model.score_spans_scatter(
+            tr.categorical, tr.continuous, tr.mask, tr.span_map,
+            perm.shape[0])
+        return scores, tr.rows_used

@@ -25,9 +25,9 @@ Run standalone:  python -m odigos_tpu_torch.serving.sidecar \\
                      --socket /tmp/score.sock [--model zscore] [--device cuda]
 
 ``--model`` is ``zscore`` (the default, as in the JAX package: WARMUP
-fits the detector), ``transformer`` or ``mock``. The transformer's weights
-are random, drawn from ``EngineConfig.seed``: checkpoint bundles are not
-ported yet.
+fits the detector), ``transformer``, ``autoencoder`` or ``mock``. The
+sequence models' weights are random, drawn from ``EngineConfig.seed``:
+checkpoint bundles are not ported yet.
 """
 
 from __future__ import annotations
@@ -322,7 +322,8 @@ def build_parser():
                     "server on the GPU)")
     ap.add_argument("--socket", required=True)
     ap.add_argument("--model", default="zscore",
-                    choices=["zscore", "transformer", "mock"])
+                    choices=["zscore", "transformer", "autoencoder",
+                             "mock"])
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--max-len", type=int, default=64)
@@ -330,11 +331,11 @@ def build_parser():
     ap.add_argument("--timeout-ms", type=float, default=5000.0,
                     help="server-side scoring deadline")
     ap.add_argument("--pipeline-depth", type=int, default=2,
-                    help="in-flight device calls (transformer; 1 = "
+                    help="in-flight device calls (sequence models; 1 = "
                          "serial; zscore and mock always run serially)")
     ap.add_argument("--bucket-ladder", type=int, default=4,
                     help="geometric row-shape buckets above --trace-bucket "
-                         "(transformer)")
+                         "(sequence models)")
     ap.add_argument("--warm-ladder", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="run every ladder rung (zscore: span bucket) "

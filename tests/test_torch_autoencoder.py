@@ -1,0 +1,771 @@
+"""The port's span autoencoder against the JAX package's, on the CPU.
+
+Inputs come from ``synthesize_traces`` (the same seed in both packages
+gives the same batch) and from numpy; weights come from the JAX model's
+``init`` and cross through ``flax_autoencoder_to_torch``. Every kernel
+wrapper takes its plain version on CPU tensors.
+
+Bounds:
+
+* ``assemble_sequences`` and K13's plain version against the reference's
+  ``assemble_sequences`` and ``_build_pack_spans``: exact;
+* f32 ``score_spans`` (span errors and the per-trace mean) at atol = rtol
+  = 1e-5: the same f32 arithmetic in another summation order (measured
+  <= 4.4e-7 relative on the errors, three seeds);
+* bf16: squashed scores within ``BF16_ATOL`` (2e-2; measured <= 3e-11,
+  the squash saturates, see below) and span errors within
+  ``BF16_ERR_RTOL`` relative (1e-2; measured <= 7.2e-3 at SMALL, the
+  worst of three seeds). The two round at different places: Flax rounds
+  every embedding partial sum, the attention scores and softmax to bf16,
+  the port keeps them in f32 and rounds once per kernel output;
+* K12's and K11's plain versions against the reference's pool and
+  ``_errors`` on the same input: 1e-5 in f32; in bf16 K12 within one bf16
+  step of the pooled value and K11 within ``BF16_ERR_RTOL`` (measured
+  2.2e-7: Flax's LayerNorm takes the variance as E[x^2] - E[x]^2, the
+  port two-pass, so a bf16-rounded LN output can land one step apart);
+* the engine's host and fused routes against the JAX engine's: 1e-5 (f32
+  model); the fused route against the port's own host route at the
+  reference's ``FUSED_RTOL``/``FUSED_ATOL``.
+
+With random weights the reconstruction errors are large (the duration
+head's squared error alone is ~50 on log-durations of 5-12, each
+cross-entropy ~log of its vocabulary), so ``1 - exp(-err)`` rounds to ~1
+for every span and a comparison of squashed scores would say nothing. The
+engine tests therefore scale the four loss weights down (``WEIGHTS``: a
+config field both packages take), which puts the scores across (0, 1).
+"""
+
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as fnn
+
+from odigos_tpu.features.featurizer import FeaturizerConfig as JaxFeatConfig
+from odigos_tpu.features.featurizer import assemble_sequences as jassemble
+from odigos_tpu.features.featurizer import featurize as jfeaturize
+from odigos_tpu.features.featurizer import featurize_columns_jax
+from odigos_tpu.models.autoencoder import AutoencoderConfig as JaxConfig
+from odigos_tpu.models.autoencoder import SpanAutoencoder as JaxAutoencoder
+from odigos_tpu.models.autoencoder import _ce
+from odigos_tpu.pdata import synthesize_traces as jsynth
+from odigos_tpu.serving.engine import EngineConfig as JaxEngineConfig
+from odigos_tpu.serving.engine import ScoringEngine as JaxEngine
+from odigos_tpu.serving.fused import _build_pack_spans
+from odigos_tpu.serving.fused import extract_columns as jax_extract
+from odigos_tpu.serving.sidecar import SidecarClient as JaxClient
+from odigos_tpu_torch.features import (FeaturizerConfig, SpanFeatures,
+                                       assemble_sequences, featurize)
+from odigos_tpu_torch.kernels import pack as kpack
+from odigos_tpu_torch.kernels import pool as kpool
+from odigos_tpu_torch.kernels import recon as krecon
+from odigos_tpu_torch.kernels import sort as ksort
+from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                     flax_autoencoder_to_torch)
+from odigos_tpu_torch.pdata import concat_batches
+from odigos_tpu_torch.pdata import synthesize_traces as psynth
+from odigos_tpu_torch.serving import (BucketLadder, EngineConfig,
+                                      ScoringEngine, SidecarClient,
+                                      SidecarServer)
+from odigos_tpu_torch.serving.fused import _span_bucket, extract_columns
+from odigos_tpu_torch.serving.sidecar import build_parser
+
+torch.set_num_threads(1)
+
+F32_TOL = 1e-5
+BF16_ATOL = 2e-2
+BF16_ERR_RTOL = 1e-2
+FUSED_RTOL = 2e-5   # tests/test_fused.py: the reference's own bound
+FUSED_ATOL = 1e-6
+SEEDS = (0, 1, 2)
+SMALL = dict(d_model=64, d_latent=32, n_heads=2, n_layers=2, d_ff=128,
+             max_len=16)
+# tests/test_fused.py's TINY_AE (d 32, 2 heads, 1 layer, d_ff 64, L 16,
+# vocabs 64/64), with the featurizer's vocabularies matched to it (the
+# reference gathers NaN past a table) and the loss weights scaled down
+TINY = dict(d_model=32, n_heads=2, n_layers=1, d_ff=64, max_len=16,
+            service_vocab=64, name_vocab=64)
+VOCAB = dict(service_vocab=64, name_vocab=64)
+WEIGHTS = dict(w_service=0.01, w_name=0.01, w_kind=0.005, w_duration=0.002)
+HIGH = np.uint64(1 << 63)
+
+
+def _pair(geometry: dict, f32: bool, seed: int = 0, **extra):
+    jcfg = JaxConfig(**geometry, **extra,
+                     dtype=jnp.float32 if f32 else jnp.bfloat16)
+    jm = JaxAutoencoder(jcfg)
+    variables = jm.init(jax.random.PRNGKey(seed))
+    pm = SpanAutoencoder(AutoencoderConfig(
+        **geometry, **extra, dtype=torch.float32 if f32 else torch.bfloat16),
+        device="cpu")
+    pm.load_state_dict(flax_autoencoder_to_torch(
+        jax.tree_util.tree_map(np.asarray, variables), pm.cfg))
+    return jm, variables, pm
+
+
+def _mutate(batch, kind: str):
+    """The same change to a JAX or a port SpanBatch."""
+    cols = dict(batch.columns)
+    if kind == "high_bit":
+        for name in ("trace_id_hi", "trace_id_lo"):
+            cols[name] = cols[name] | HIGH
+        flip = (cols["trace_id_hi"] & np.uint64(1)) == 0
+        cols["trace_id_hi"] = np.where(flip, cols["trace_id_hi"] & ~HIGH,
+                                       cols["trace_id_hi"])
+    elif kind == "tied_starts":
+        start = cols["start_unix_nano"].copy()
+        start[:] = start[0]
+        cols["start_unix_nano"] = start
+    elif kind == "long_trace":
+        # one trace of 40 spans: truncated at any L <= 16
+        for name in ("trace_id_lo", "trace_id_hi"):
+            col = cols[name].copy()
+            col[:40] = col[0]
+            cols[name] = col
+    else:
+        assert kind == "plain", kind
+    return replace(batch, columns=cols)
+
+
+def _both(n_traces: int, seed: int, kind: str = "plain"):
+    return (_mutate(jsynth(n_traces, seed=seed), kind),
+            _mutate(psynth(n_traces, seed=seed), kind))
+
+
+def _seqs(seed: int, max_len: int, n: int = 12, pad=None):
+    return jassemble(jsynth(n, seed=seed), max_len=max_len,
+                     pad_traces_to=pad)
+
+
+# ------------------------------------------------------ assemble_sequences
+
+ASSEMBLE_CASES = [(0, 16, "plain", None), (1, 64, "plain", 8),
+                  (2, 16, "long_trace", None), (3, 8, "long_trace", 16),
+                  (4, 16, "high_bit", "ladder"), (5, 16, "tied_starts", 3)]
+
+
+@pytest.mark.parametrize("seed,max_len,kind,pad", ASSEMBLE_CASES,
+                         ids=[f"{k}-L{L}-{p}" for _, L, k, p in
+                              ASSEMBLE_CASES])
+def test_assemble_sequences_matches_the_reference(seed, max_len, kind, pad):
+    jb, pb = _both(30, seed, kind)
+    if pad == "ladder":
+        jpad = ppad = BucketLadder(8, 2).round_rows
+    else:
+        jpad = ppad = pad
+    ref = jassemble(jb, max_len=max_len, pad_traces_to=jpad)
+    got = assemble_sequences(pb, max_len=max_len, pad_traces_to=ppad)
+    for name in ("categorical", "continuous", "mask", "span_index"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(ref, name))
+        assert getattr(got, name).dtype == getattr(ref, name).dtype
+    assert got.n_truncated == ref.n_truncated
+    if kind == "long_trace":
+        assert got.n_truncated >= 40 - max_len
+
+
+@pytest.mark.parametrize("pad", [None, 8, "ladder"])
+def test_assemble_sequences_empty_batch(pad):
+    jb, pb = jsynth(0, seed=0), psynth(0, seed=0)
+    assert len(jb) == len(pb) == 0
+    spec = BucketLadder(8, 2).round_rows if pad == "ladder" else pad
+    ref = jassemble(jb, max_len=16, pad_traces_to=spec)
+    got = assemble_sequences(pb, max_len=16, pad_traces_to=spec)
+    for name in ("categorical", "continuous", "mask", "span_index"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(ref, name))
+    assert got.n_truncated == ref.n_truncated == 0
+
+
+# ------------------------------------------------------------------ model
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_score_spans_f32_parity(seed):
+    jm, v, pm = _pair(SMALL, f32=True, seed=seed)
+    seqs = _seqs(seed, SMALL["max_len"], pad=16)
+    ref_err, ref_mean = jm.score_spans(v, seqs.categorical, seqs.continuous,
+                                       seqs.mask)
+    err, mean = pm.score_spans(seqs.categorical, seqs.continuous, seqs.mask)
+    assert err.shape == seqs.mask.shape and err.dtype == torch.float32
+    np.testing.assert_allclose(err.numpy(), np.asarray(ref_err),
+                               atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(ref_mean),
+                               atol=F32_TOL, rtol=F32_TOL)
+    assert (err.numpy()[~seqs.mask] == 0).all()
+
+
+def test_score_spans_f32_parity_default_width():
+    """One case at the served config's full width (d 128, d_latent 64, 2
+    heads, 2 layers, d_ff 512, L 64, vocabs 512/2048)."""
+    jm, v, pm = _pair({}, f32=True)
+    seqs = _seqs(3, 64, n=10)
+    ref_err, ref_mean = jm.score_spans(v, seqs.categorical, seqs.continuous,
+                                       seqs.mask)
+    err, mean = pm.score_spans(seqs.categorical, seqs.continuous, seqs.mask)
+    np.testing.assert_allclose(err.numpy(), np.asarray(ref_err),
+                               atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(ref_mean),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_score_spans_bf16_bound(seed):
+    jm, v, pm = _pair(SMALL, f32=False, seed=seed)
+    seqs = _seqs(seed, SMALL["max_len"], n=20, pad=24)
+    ref_err, _ = jm.score_spans(v, seqs.categorical, seqs.continuous,
+                                seqs.mask)
+    err, mean = pm.score_spans(seqs.categorical, seqs.continuous, seqs.mask)
+    ref_err, err = np.asarray(ref_err), err.numpy()
+    m = seqs.mask
+    assert np.isfinite(err).all() and np.isfinite(mean.numpy()).all()
+    rel = np.abs(err[m] - ref_err[m]) / np.abs(ref_err[m])
+    assert rel.max() <= BF16_ERR_RTOL
+    squash = np.abs(np.exp(-err[m]) - np.exp(-ref_err[m]))
+    assert squash.max() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_all_padding_rows_stay_finite(f32):
+    """Rows with no real span: K1's finite fill gives a uniform softmax,
+    so nothing non-finite reaches the pool or the trace mean (one NaN at a
+    padding position would poison a whole trace through NaN * 0)."""
+    jm, v, pm = _pair(SMALL, f32=f32, seed=4)
+    seqs = _seqs(4, SMALL["max_len"], n=3, pad=8)
+    assert (~seqs.mask.any(-1)).sum() >= 4
+    err, mean = pm.score_spans(seqs.categorical, seqs.continuous, seqs.mask)
+    assert torch.isfinite(err).all() and torch.isfinite(mean).all()
+    empty = ~torch.from_numpy(seqs.mask).any(-1)
+    assert (mean[empty] == 0).all() and (err[empty] == 0).all()
+    ref_err, ref_mean = jm.score_spans(v, seqs.categorical, seqs.continuous,
+                                       seqs.mask)
+    assert np.isfinite(np.asarray(ref_mean)).all()
+    if f32:
+        np.testing.assert_allclose(mean.numpy(), np.asarray(ref_mean),
+                                   atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_loss_fn_matches_the_reference():
+    jm, v, pm = _pair(SMALL, f32=True, seed=5)
+    seqs = _seqs(5, SMALL["max_len"], pad=16)
+    ref = float(jm.loss_fn(v, seqs.categorical, seqs.continuous, seqs.mask))
+    got = float(pm.loss_fn(seqs.categorical, seqs.continuous, seqs.mask))
+    assert abs(got - ref) <= F32_TOL * max(1.0, abs(ref))
+
+
+def test_kernel_free_reference_route_is_the_same_on_cpu():
+    _, _, pm = _pair(SMALL, f32=False, seed=6)
+    seqs = _seqs(6, SMALL["max_len"])
+    args = (seqs.categorical, seqs.continuous, seqs.mask)
+    assert torch.equal(pm.span_errors(*args),
+                       pm.span_errors(*args, reference=True))
+
+
+def test_flax_autoencoder_to_torch_default_tree():
+    jm = JaxAutoencoder(JaxConfig())
+    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    pm = SpanAutoencoder(AutoencoderConfig(dtype=torch.float32),
+                         device="cpu")
+    sd = flax_autoencoder_to_torch(v, pm.cfg)
+    own = pm.state_dict()
+    assert set(sd) == set(own)
+    for k, t in sd.items():
+        assert t.shape == own[k].shape and t.dtype == torch.float32, k
+    # the flattened form and the "params"-less form carry the same
+    flat = {"/".join(str(p.key) for p in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(v["params"])[0]}
+    assert all(torch.equal(sd[k], t) for k, t in
+               flax_autoencoder_to_torch(flat, pm.cfg).items())
+    np.testing.assert_array_equal(
+        sd["service_head.weight"].numpy(),
+        v["params"]["service_head"]["kernel"].T)
+
+
+def test_flax_autoencoder_to_torch_refuses_mismatched_trees():
+    jm = JaxAutoencoder(JaxConfig(**TINY))
+    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    cfg = AutoencoderConfig(**TINY)
+    extra = {"params": {**v["params"], "stray": {"kernel": np.zeros(1)}}}
+    with pytest.raises(KeyError, match="not carried across"):
+        flax_autoencoder_to_torch(extra, cfg)
+    missing = {"params": {k: t for k, t in v["params"].items()
+                          if k != "dec_ln"}}
+    with pytest.raises(KeyError, match="dec_ln"):
+        flax_autoencoder_to_torch(missing, cfg)
+    pm = SpanAutoencoder(AutoencoderConfig(**TINY), device="cpu")
+    sd = flax_autoencoder_to_torch(v, cfg)
+    sd.pop("kind_head.bias")
+    with pytest.raises(KeyError, match="kind_head.bias"):
+        pm.load_state_dict(sd)
+
+
+def test_seeded_init_is_deterministic():
+    torch.manual_seed(123)  # the global generator is not the one drawn
+    a = SpanAutoencoder(AutoencoderConfig(**TINY), device="cpu", seed=3)
+    torch.manual_seed(456)
+    b = SpanAutoencoder(AutoencoderConfig(**TINY), device="cpu", seed=3)
+    c = SpanAutoencoder(AutoencoderConfig(**TINY), device="cpu", seed=4)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["name_head.weight"], sc["name_head.weight"])
+    # Flax's shapes and working-type decoder products
+    bf = SpanAutoencoder(AutoencoderConfig(**TINY), device="cpu")
+    assert bf.module.dec_ff1.weight.dtype == torch.bfloat16
+    assert bf.module.service_head.weight.dtype == torch.float32
+    assert bf.module.dec_pos_embed.weight.shape == (16, 32)
+
+
+def test_autoencoder_defaults_to_cuda_and_raises_without_a_card():
+    import inspect
+
+    assert inspect.signature(SpanAutoencoder).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this pins the no-card path")
+    with pytest.raises(RuntimeError, match="is_available"):
+        SpanAutoencoder(AutoencoderConfig(**TINY))
+
+
+# ------------------------------------------- the kernels' plain versions
+
+
+def _jax_layer_norm(x, scale, bias, dtype):
+    ln = fnn.LayerNorm(dtype=dtype)
+    return ln.apply({"params": {"scale": scale, "bias": bias}}, x)
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_ln_masked_pool_plain_matches_the_reference_pool(f32):
+    """K12's plain version on a pre-LN state against the reference's
+    final LayerNorm followed by ``_AutoencoderModule``'s pool (:69-70)."""
+    rng = np.random.default_rng(7)
+    T, L, d = 12, 16, 64
+    x = rng.normal(0, 2, (T, L, d)).astype(np.float32)
+    mask = rng.random((T, L)) < 0.4
+    mask[3] = False  # a row of padding only
+    scale = rng.normal(1, 0.1, d).astype(np.float32)
+    bias = rng.normal(0, 0.1, d).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if f32 else (jnp.bfloat16,
+                                                        torch.bfloat16)
+    xj = jnp.asarray(x).astype(jdt)
+    h = _jax_layer_norm(xj, scale, bias, jdt)
+    denom = jnp.maximum(mask.sum(-1, keepdims=True), 1).astype(h.dtype)
+    ref = (h * jnp.asarray(mask)[..., None].astype(h.dtype)).sum(-2) / denom
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = kpool.ln_masked_pool(torch.from_numpy(x).to(tdt),
+                               torch.from_numpy(scale),
+                               torch.from_numpy(bias),
+                               torch.from_numpy(mask))
+    assert got.shape == (T, d) and got.dtype == tdt
+    got = got.float().numpy()
+    if f32:
+        np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=F32_TOL)
+    else:
+        step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(ref), 2 ** -60)))
+                       - 7)
+        assert (np.abs(got - ref) <= step).all()
+    assert (got[3] == 0).all()
+
+
+def _jax_errors(v, cfg, dec, cat, cont, mask):
+    """``SpanAutoencoder._errors`` from ``dec_ln`` on: the reference's own
+    modules and ``_ce`` on the given decoder output."""
+    p = v["params"]
+    y = _jax_layer_norm(dec, p["dec_ln"]["scale"], p["dec_ln"]["bias"],
+                        cfg.dtype)
+    out = {}
+    for name, V in (("service", cfg.service_vocab),
+                    ("name", cfg.name_vocab), ("kind", 8),
+                    ("duration", 1)):
+        out[name] = fnn.Dense(V, dtype=jnp.float32).apply(
+            {"params": p[f"{name}_head"]}, y)
+    err = cfg.w_service * _ce(out["service"], cat[..., 0])
+    err += cfg.w_name * _ce(out["name"], cat[..., 1])
+    err += cfg.w_kind * _ce(out["kind"], cat[..., 2])
+    err += cfg.w_duration * (out["duration"][..., 0] - cont[..., 0]) ** 2
+    return np.asarray(err * mask.astype(jnp.float32))
+
+
+def _recon_args(pm, dec, seqs):
+    m = pm.module
+    T, L = seqs.mask.shape
+    return (torch.from_numpy(np.array(dec, np.float32)).to(
+        pm.cfg.dtype).reshape(T * L, -1), m.dec_ln.weight, m.dec_ln.bias,
+        m.heads(), torch.from_numpy(seqs.categorical).reshape(T * L, -1),
+        torch.from_numpy(seqs.continuous).reshape(T * L, -1),
+        torch.from_numpy(seqs.mask).reshape(-1),
+        (pm.cfg.w_service, pm.cfg.w_name, pm.cfg.w_kind,
+         pm.cfg.w_duration))
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_recon_ce_plain_matches_the_reference_errors(f32):
+    jm, v, pm = _pair(SMALL, f32=f32, seed=8)
+    seqs = _seqs(8, SMALL["max_len"], pad=16)
+    T, L = seqs.mask.shape
+    rng = np.random.default_rng(8)
+    dec = rng.normal(0, 1, (T, L, SMALL["d_model"])).astype(np.float32)
+    jdec = jnp.asarray(dec).astype(jm.cfg.dtype)
+    ref = _jax_errors(v, jm.cfg, jdec, seqs.categorical, seqs.continuous,
+                      seqs.mask)
+    with torch.inference_mode():
+        got = krecon.recon_ce(*_recon_args(pm, np.array(
+            jdec.astype(jnp.float32)), seqs)).view(T, L).numpy()
+    if f32:
+        np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=F32_TOL)
+    else:
+        m = seqs.mask
+        assert (np.abs(got[m] - ref[m]) / np.abs(ref[m])).max() \
+            <= BF16_ERR_RTOL
+    assert (got[~seqs.mask] == 0).all()
+
+
+def test_recon_ce_scatter_mode_writes_squashed_scores_by_span():
+    _, _, pm = _pair(SMALL, f32=True, seed=9)
+    seqs = _seqs(9, SMALL["max_len"], pad=16)
+    T, L = seqs.mask.shape
+    rng = np.random.default_rng(9)
+    dec = rng.normal(0, 1, (T, L, SMALL["d_model"])).astype(np.float32)
+    args = _recon_args(pm, dec, seqs)
+    smap = torch.from_numpy(seqs.span_index).reshape(-1)
+    n = int(seqs.span_index.max()) + 1  # the batch's spans
+    with torch.inference_mode():
+        err, scores = krecon.recon_ce(*args, span_map=smap, n_out=n + 5)
+        assert torch.equal(err, krecon.recon_ce(*args))
+    want = np.zeros(n + 5, np.float32)
+    m = seqs.mask.reshape(-1)
+    want[seqs.span_index.reshape(-1)[m]] = 1.0 - np.exp(-err.numpy()[m])
+    np.testing.assert_allclose(scores.numpy(), want, rtol=1e-6, atol=1e-7)
+    assert (scores.numpy()[n:] == 0).all()
+
+
+def _jax_pack_spans(je, cols, L, rows):
+    be = je.backend
+    n = sum(len(c) for c in cols)
+    N = _span_bucket(n)
+    tables, arrays = be._prep_columns(cols, N)
+    (svc, nam, kind, status, span_lo, span_hi, par_lo, par_hi, start_lo,
+     start_hi, end_lo, end_hi, thi_lo, thi_hi, tlo_lo, tlo_hi,
+     frame) = (jnp.asarray(a.copy()) for a in arrays)
+    cat, cont = featurize_columns_jax(
+        *tables, svc, nam, kind, status, span_hi, span_lo, par_hi, par_lo,
+        end_hi, end_lo, start_hi, start_lo, frame)
+    packed = _build_pack_spans(L)(cat, cont, start_lo, start_hi, thi_lo,
+                                  thi_hi, tlo_lo, tlo_hi, frame, rows=rows)
+    return n, N, np.asarray(cat), np.asarray(cont), [np.asarray(a)
+                                                     for a in packed]
+
+
+def _engines(max_len: int = 16, **engine_kw):
+    tiny = dict(TINY, max_len=max_len)
+    je = JaxEngine(JaxEngineConfig(
+        model="autoencoder",
+        model_config=JaxConfig(**tiny, **WEIGHTS, dtype=jnp.float32),
+        featurizer=JaxFeatConfig(**VOCAB), max_len=max_len, trace_bucket=8,
+        bucket_ladder=2))
+    pe = ScoringEngine(EngineConfig(
+        model="autoencoder", device="cpu", max_len=max_len, trace_bucket=8,
+        bucket_ladder=2, featurizer=FeaturizerConfig(**VOCAB),
+        model_config=AutoencoderConfig(**tiny, **WEIGHTS,
+                                       dtype=torch.float32), **engine_kw))
+    pe.backend.model.load_state_dict(flax_autoencoder_to_torch(
+        jax.tree_util.tree_map(np.asarray, je.backend.variables),
+        pe.backend.model.cfg))
+    return je, pe
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """Unstarted JAX and port autoencoder engines (direct backend use)
+    with the same f32 weights."""
+    return _engines()
+
+
+@pytest.fixture(scope="module")
+def engines8():
+    """The same at max_len 8: synthetic traces (up to 17 spans) truncate."""
+    return _engines(8)
+
+
+def _port_cols(batches):
+    out = []
+    for b in batches:
+        c, reason = extract_columns(b)
+        assert reason is None
+        out.append(c)
+    return out
+
+
+PACK_CASES = [(16, "plain", 0), (16, "high_bit", 13),
+              (16, "tied_starts", 15), (8, "long_trace", 16)]
+
+
+@pytest.mark.parametrize("L,kind,seed", PACK_CASES,
+                         ids=[f"L{L}-{k}-{s}" for L, k, s in PACK_CASES])
+def test_trace_rows_pack_plain_matches_build_pack_spans(engines, L, kind,
+                                                        seed):
+    """K13's plain version on the reference's own features: exactly the
+    rows of ``_build_pack_spans`` (whose R is the span bucket; the port's
+    is the ladder's rung over the span count, the extra rows padding)."""
+    je, pe = engines
+    jb, pb = _both(40, seed, kind)
+    n = len(pb)
+    N = _span_bucket(n)
+    R_port = pe.backend.ladder.round_rows(n)
+    _, _, jcat, jcont, jp = _jax_pack_spans(
+        je, [jax_extract(jb)[0]], L, N)
+    catp, contp, maskp, jperm, row_eff, col, pad_s = jp
+    staged = pe.backend._prep_columns(_port_cols([pb]), N)
+    c = staged.cols
+    perm = ksort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                             c["start_unix_nano"]], n)
+    np.testing.assert_array_equal(perm.numpy(), jperm)
+    tr = kpack.trace_rows_pack(perm, c["trace_id_hi"], c["trace_id_lo"],
+                               torch.from_numpy(jcat.copy()),
+                               torch.from_numpy(jcont.copy()), n, L, R_port)
+    r = min(R_port, N)
+    for mine, ref in ((tr.categorical, catp), (tr.continuous, contp),
+                      (tr.mask, maskp)):
+        mine = mine.numpy()
+        np.testing.assert_array_equal(mine[:r], ref[:r])
+        assert not mine[r:].any() and not ref[r:].any()
+    want = np.full((R_port, L), -1, np.int32)
+    keep = ~pad_s & (col < L) & (row_eff < R_port)
+    want[row_eff[keep], col[keep]] = jperm[keep]
+    np.testing.assert_array_equal(tr.span_map.numpy(), want)
+    assert int(tr.rows_used[0]) == int(row_eff[~pad_s].max()) + 1
+
+
+def test_trace_rows_pack_plain_is_the_host_assembly(engines):
+    """On one frame K13 builds the host route's rows: the same tensors as
+    ``assemble_sequences``, and its span map is the host's span index."""
+    _, pe = engines
+    pb = _mutate(psynth(30, seed=17), "long_trace")
+    n = len(pb)
+    seqs = assemble_sequences(pb, featurize(pb), max_len=16,
+                              pad_traces_to=pe.backend.ladder.round_rows)
+    N = _span_bucket(n)
+    staged = pe.backend._prep_columns(_port_cols([pb]), N)
+    c = staged.cols
+    f = featurize(pb)
+    pad = N - n
+    cat = torch.from_numpy(np.concatenate(
+        [f.categorical, np.zeros((pad, f.categorical.shape[1]), np.int32)]))
+    cont = torch.from_numpy(np.concatenate(
+        [f.continuous, np.zeros((pad, 3), np.float32)]))
+    perm = ksort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                             c["start_unix_nano"]], n)
+    R = seqs.n_traces
+    tr = kpack.trace_rows_pack(perm, c["trace_id_hi"], c["trace_id_lo"],
+                               cat, cont, n, 16, R)
+    np.testing.assert_array_equal(tr.categorical.numpy(), seqs.categorical)
+    np.testing.assert_array_equal(tr.continuous.numpy(), seqs.continuous)
+    np.testing.assert_array_equal(tr.mask.numpy(), seqs.mask)
+    np.testing.assert_array_equal(tr.span_map.numpy(), seqs.span_index)
+
+
+def test_trace_rows_pack_drops_rows_past_R_and_counts_every_trace():
+    rng = np.random.default_rng(3)
+    n, N, L, R = 50, 64, 4, 6
+    tid = np.sort(rng.integers(0, 15, n)).astype(np.int64)
+    hi = torch.from_numpy(np.concatenate([tid, np.zeros(N - n, np.int64)]))
+    lo = torch.zeros(N, dtype=torch.int64)
+    perm = torch.arange(N, dtype=torch.int32)
+    cat = torch.from_numpy(rng.integers(1, 9, (N, 5)).astype(np.int32))
+    cont = torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32))
+    tr = kpack.trace_rows_pack(perm, hi, lo, cat, cont, n, L, R)
+    traces = len(np.unique(tid))
+    assert int(tr.rows_used[0]) == traces > R
+    starts = np.r_[0, np.nonzero(np.diff(tid))[0] + 1]
+    for r in range(R):
+        length = min(L, (starts[r + 1] if r + 1 < traces else n) - starts[r])
+        assert tr.mask[r, :length].all() and not tr.mask[r, length:].any()
+        np.testing.assert_array_equal(
+            tr.span_map[r, :length].numpy(),
+            np.arange(starts[r], starts[r] + length))
+        assert torch.equal(tr.categorical[r, :length],
+                           cat[starts[r]:starts[r] + length])
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    _, _, pm = _pair(SMALL, f32=False, seed=10)
+    seqs = _seqs(10, SMALL["max_len"], pad=16)
+    T, L = seqs.mask.shape
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(T, L, 64)).astype(
+        np.float32)).to(torch.bfloat16)
+    ln = pm.module.encoder.final_ln
+    mask = torch.from_numpy(seqs.mask)
+    before = kpool.launches, krecon.launches, kpack.rows_launches
+    assert torch.equal(kpool.ln_masked_pool(x, ln.weight, ln.bias, mask),
+                       kpool.ln_masked_pool_plain(x, ln.weight, ln.bias,
+                                                  mask))
+    args = _recon_args(pm, x.float().numpy(), seqs)
+    with torch.inference_mode():
+        assert torch.equal(krecon.recon_ce(*args),
+                           krecon.recon_ce_plain(*args))
+    assert (kpool.launches, krecon.launches, kpack.rows_launches) == before
+    with pytest.raises(ValueError, match="mask"):
+        kpool.ln_masked_pool(x, ln.weight, ln.bias, mask.int())
+    with pytest.raises(ValueError, match="four heads"):
+        krecon.recon_ce(args[0], args[1], args[2], args[3][:3], *args[4:])
+
+
+# ----------------------------------------------------------------- engine
+
+
+@pytest.mark.parametrize("n_traces,seed", [(1, 0), (12, 1), (60, 2)])
+def test_engine_host_route_matches_the_jax_engine(engines, n_traces, seed):
+    je, pe = engines
+    jb, pb = _both(n_traces, seed)
+    ref = je.backend.score(jb, jfeaturize(jb, JaxFeatConfig(**VOCAB)))
+    got = pe.backend.score(pb, featurize(pb, FeaturizerConfig(**VOCAB)))
+    assert got.shape == ref.shape == (len(pb),) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=F32_TOL)
+    # the loss weights keep the squash off its ceiling; spans truncated
+    # from a trace longer than L score 0, as in the reference
+    seqs = assemble_sequences(pb, max_len=16)
+    assert (got == 0).sum() == seqs.n_truncated
+    assert got.max() < 0.9
+    assert pe.backend.last_shape == [pe.backend.ladder.round_rows(
+        len(np.unique(pb.col("trace_id_lo")))), 16]
+
+
+SLICE_CASES = [("plain", 3), ("plain", 4), ("high_bit", 13),
+               ("tied_starts", 15)]
+
+
+@pytest.mark.parametrize("kind,seed", SLICE_CASES,
+                         ids=[f"{k}-{s}" for k, s in SLICE_CASES])
+def test_fused_route_matches_jax_fused_backend_and_host(engines, kind, seed):
+    je, pe = engines
+    jb, pb = _both(40, seed, kind)
+    ref = je.backend.harvest(je.backend.dispatch_columns(
+        [jax_extract(jb, JaxFeatConfig(**VOCAB))[0]]))
+    got = pe.backend.harvest(pe.backend.dispatch_columns(_port_cols([pb])))
+    assert got.shape == ref.shape == (len(pb),) and got.dtype == np.float32
+    np.testing.assert_allclose(got, ref, rtol=F32_TOL, atol=F32_TOL)
+    host = pe.backend.score(pb, featurize(pb, FeaturizerConfig(**VOCAB)))
+    np.testing.assert_allclose(got, host, rtol=FUSED_RTOL, atol=FUSED_ATOL)
+
+
+def test_fused_route_matches_on_truncated_traces(engines8):
+    je, pe = engines8
+    jb, pb = _both(30, 6, "long_trace")
+    ref = je.backend.harvest(je.backend.dispatch_columns(
+        [jax_extract(jb, JaxFeatConfig(**VOCAB))[0]]))
+    got = pe.backend.harvest(pe.backend.dispatch_columns(_port_cols([pb])))
+    np.testing.assert_allclose(got, ref, rtol=F32_TOL, atol=F32_TOL)
+    host = pe.backend.score(pb, featurize(pb, FeaturizerConfig(**VOCAB)))
+    np.testing.assert_allclose(got, host, rtol=FUSED_RTOL, atol=FUSED_ATOL)
+    # the truncated spans score 0 on both routes, as in the reference
+    truncated = assemble_sequences(pb, max_len=8).n_truncated
+    assert truncated >= 40 - 8
+    assert (got == 0).sum() == (host == 0).sum() == truncated
+
+
+def test_fused_multi_frame_group_matches_the_host_route(engines):
+    _, pe = engines
+    pbs = [psynth(n, seed=s) for n, s in ((9, 21), (13, 22), (7, 23))]
+    got = pe.backend.harvest(pe.backend.dispatch_columns(_port_cols(pbs)))
+    fc = FeaturizerConfig(**VOCAB)
+    feats = [featurize(b, fc) for b in pbs]
+    merged = SpanFeatures(np.concatenate([f.categorical for f in feats]),
+                          np.concatenate([f.continuous for f in feats]))
+    host = pe.backend.score(concat_batches(pbs), merged)
+    np.testing.assert_allclose(got, host, rtol=FUSED_RTOL, atol=FUSED_ATOL)
+
+
+def test_fused_rows_follow_the_span_count_and_count_the_traces(engines):
+    """The departure, pinned: R = round_rows(n) (a trace holds at least
+    one span), and K13's row count is the real trace count."""
+    _, pe = engines
+    be = pe.backend
+    pb = psynth(40, seed=3)
+    be.harvest(be.dispatch_columns(_port_cols([pb])))
+    n = len(pb)
+    assert be.last_shape == [be.ladder.round_rows(n), 16]
+    traces = len({(h, lo) for h, lo in zip(pb.col("trace_id_hi"),
+                                           pb.col("trace_id_lo"))})
+    assert be.last_rows_real == traces == 40
+
+
+def test_started_engine_scores_through_submit_columns_and_warm_ladder():
+    _, pe = _engines(warm_ladder=True)
+    pe.start()
+    try:
+        assert pe.backend.ladder.stats()["buckets"] == [8, 16]
+        pbs = [psynth(6, seed=40 + i) for i in range(3)]
+        reqs = [pe.submit(b, columns=extract_columns(b)[0]) for b in pbs]
+        for r, b in zip(reqs, pbs):
+            assert r is not None and r.done.wait(120)
+            assert r.scores.shape == (len(b),)
+            assert np.isfinite(r.scores).all()
+            assert ((r.scores >= 0) & (r.scores < 1)).all()
+            host = pe.score_sync(b, timeout_s=120)
+            np.testing.assert_allclose(r.scores, host, rtol=FUSED_RTOL,
+                                       atol=FUSED_ATOL)
+        assert pe.fused_calls >= 1
+        assert pe.stats()["model"] == "autoencoder"
+    finally:
+        pe.shutdown()
+
+
+def test_quantized_remote_and_mismatched_configs_are_refused():
+    with pytest.raises(ValueError, match="transformer"):
+        EngineConfig(model="autoencoder", quantized=True, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        EngineConfig(model="remote", device="cpu")
+    from odigos_tpu_torch.models import TransformerConfig
+    with pytest.raises(ValueError, match="AutoencoderConfig"):
+        ScoringEngine(EngineConfig(model="autoencoder", device="cpu",
+                                   model_config=TransformerConfig()))
+
+
+def test_attr_slot_autoencoder_serves_the_host_route_only():
+    fc = FeaturizerConfig(attr_slots=2, **VOCAB)
+    pe = ScoringEngine(EngineConfig(
+        model="autoencoder", device="cpu", max_len=16, trace_bucket=8,
+        featurizer=fc, model_config=AutoencoderConfig(
+            **TINY, attr_slots=2, **WEIGHTS, dtype=torch.float32)))
+    assert not pe.backend.supports_fused
+    pb = psynth(5, seed=2)
+    got = pe.backend.score(pb, featurize(pb, fc))
+    assert got.shape == (len(pb),) and np.isfinite(got).all()
+
+
+# ---------------------------------------------------------------- sidecar
+
+
+def test_sidecar_serves_the_autoencoder_on_the_cpu(engines, tmp_path):
+    je, _ = engines
+    _, pe = _engines()  # a server of its own: its shutdown stops it
+    sock = str(tmp_path / "score.sock")
+    server = SidecarServer(pe, sock).start()
+    jclient, pclient = JaxClient(sock), SidecarClient(sock)
+    try:
+        pclient.ping()
+        for client, synth in ((jclient, jsynth), (pclient, psynth)):
+            batch = synth(15, seed=31)
+            got = client.score(batch)
+            assert got.shape == (len(batch),)
+            jb = jsynth(15, seed=31)
+            ref = je.backend.score(jb, jfeaturize(jb,
+                                                  JaxFeatConfig(**VOCAB)))
+            np.testing.assert_allclose(got, ref, atol=F32_TOL, rtol=F32_TOL)
+        assert len(pclient.score(psynth(0, seed=1))) == 0
+    finally:
+        jclient.close()
+        pclient.close()
+        server.shutdown()
+
+
+def test_sidecar_parser_takes_the_autoencoder():
+    args = build_parser().parse_args(["--socket", "s", "--model",
+                                      "autoencoder", "--device", "cpu"])
+    assert args.model == "autoencoder" and args.device == "cpu"
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--socket", "s", "--model", "remote"])

@@ -806,3 +806,187 @@ def test_gpu_int8_engine_scores_like_the_cpu_int8_engine(dev):
         got = gpu.backend.harvest(gpu.backend.dispatch_columns([cols]))
         ref = cpu.backend.harvest(cpu.backend.dispatch_columns([cols]))
         assert np.abs(got - ref).max() <= 1e-2
+
+
+# ------------------------------------- K11 / K12 / K13, the autoencoder
+#
+# K12 (ln_masked_pool) takes the plain version's IEEE-rounded steps with
+# every sum exact (f64): bit-equal. K13 (trace_rows_pack) is integer
+# bookkeeping: exact. K11 (recon_ce) normalises to the same bits and then
+# sums the heads' dots and the log-sum-exp in another order:
+# RECON_ATOL absolute on the error, RECON_RTOL on the squashed score.
+
+from odigos_tpu_torch.kernels import pool as kpool  # noqa: E402
+from odigos_tpu_torch.kernels import recon as krecon  # noqa: E402
+from odigos_tpu_torch.models import (AutoencoderConfig,  # noqa: E402
+                                     SpanAutoencoder)
+
+RECON_ATOL = 1e-4
+
+
+def _masked_rows(dev, T, L, d, dtype, density, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(T, L, d, generator=g, device=dev) * 2 + 0.5).to(
+        getattr(torch, dtype))
+    mask = torch.rand(T, L, generator=g, device=dev) < density
+    if T > 1:
+        mask[T // 2] = False  # a row of padding only
+    return x, mask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 128, 256])
+@pytest.mark.parametrize("T,density", [(1, 1.0), (300, 0.16), (2048, 0.5)])
+def test_ln_masked_pool_kernel_matches_plain(dev, dtype, d, T, density):
+    x, mask = _masked_rows(dev, T, 64, d, dtype, density, seed=T + d)
+    g = torch.Generator(device=dev).manual_seed(d)
+    w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    b = 0.1 * torch.randn(d, generator=g, device=dev)
+    before = kpool.launches
+    got = kpool.ln_masked_pool(x, w, b, mask)
+    ref = kpool.ln_masked_pool_plain(x, w, b, mask)
+    torch.cuda.synchronize()
+    assert kpool.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (T, d)
+    assert torch.equal(got, ref)
+
+
+def _heads(dev, d, vocabs=(512, 2048, 8, 1), seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(V, d, generator=g, device=dev) / math.sqrt(d),
+             0.1 * torch.randn(V, generator=g, device=dev)) for V in vocabs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,vocabs", [(128, (512, 2048, 8, 1)),
+                                      (32, (64, 64, 8, 1)),
+                                      (256, (100, 300, 8, 1))])
+@pytest.mark.parametrize("M,density", [(1, 1.0), (4096, 0.16),
+                                       (20000, 0.9)])
+def test_recon_ce_kernel_matches_plain(dev, dtype, d, vocabs, M, density):
+    x, mask = _masked_rows(dev, M, 1, d, dtype, density, seed=M + d)
+    x, mask = x.view(M, d), mask.view(M)
+    g = torch.Generator(device=dev).manual_seed(M)
+    cat = torch.stack([torch.randint(0, V, (M,), generator=g, device=dev)
+                       for V in vocabs[:3]] + [torch.zeros(
+                           M, dtype=torch.int64, device=dev)] * 2,
+                      1).to(torch.int32)
+    cat[::7, 1] = vocabs[1] + 5  # out of its vocabulary: clamped
+    cont = torch.rand(M, 3, generator=g, device=dev) * 10
+    w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    b = 0.1 * torch.randn(d, generator=g, device=dev)
+    heads = _heads(dev, d, vocabs, seed=d)
+    weights = (1.0, 1.0, 0.5, 1.0)
+    smap = torch.randperm(M, generator=g, device=dev).to(torch.int32)
+    smap[::5] = -1
+    args = (x, w, b, heads, cat, cont, mask, weights)
+    before = krecon.launches
+    got = krecon.recon_ce(*args)
+    got_e, got_s = krecon.recon_ce(*args, span_map=smap, n_out=M + 3)
+    ref_e, ref_s = krecon.recon_ce_plain(*args, span_map=smap, n_out=M + 3)
+    torch.cuda.synchronize()
+    assert krecon.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, got_e)
+    assert (got - ref_e).abs().max().item() <= RECON_ATOL
+    assert (got[~mask] == 0).all()
+    assert (got_s - ref_s).abs().max().item() <= RECON_ATOL
+    assert (got_s[M:] == 0).all()
+
+
+@pytest.mark.parametrize("kind,n_traces,L", [("otel", 1, 64),
+                                             ("otel", 400, 64),
+                                             ("adversarial", 400, 64),
+                                             ("adversarial", 400, 16),
+                                             ("multi", 200, 64),
+                                             ("otel", 12800, 64)])
+@pytest.mark.parametrize("rows", ["bucket", "traces", "fewer"])
+def test_trace_rows_pack_kernel_matches_plain(dev, kind, n_traces, L, rows):
+    """One trace per row: real frames, a trace of 200 spans (truncated at
+    L), tied starts, high-bit ids, 131072-span buckets, all-padding rows,
+    and fewer rows than traces (the rest dropped)."""
+    n, svc_t, nam_t, c = _staged_on(dev, _fused_batches(kind, n_traces))
+    cat, cont = kfeat.featurize_columns_plain(
+        *_feat_args((svc_t, nam_t), c), n)
+    perm = ksort.radix_sort_plain(
+        [c["trace_id_hi"], c["trace_id_lo"], c["start_unix_nano"]], n)
+    ref = kpack.trace_rows_pack_plain(perm, c["trace_id_hi"],
+                                      c["trace_id_lo"], cat, cont, n, L, n)
+    traces = int(ref.rows_used)
+    R = {"bucket": n, "traces": traces, "fewer": max(1, traces // 3)}[rows]
+    before = kpack.rows_launches
+    got = kpack.trace_rows_pack(perm, c["trace_id_hi"], c["trace_id_lo"],
+                                cat, cont, n, L, R)
+    ref = kpack.trace_rows_pack_plain(perm, c["trace_id_hi"],
+                                      c["trace_id_lo"], cat, cont, n, L, R)
+    torch.cuda.synchronize()
+    assert kpack.rows_launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got.rows_used) == traces
+
+
+def test_trace_rows_pack_kernel_empty_group(dev):
+    z64 = torch.zeros(512, dtype=torch.int64, device=dev)
+    perm = torch.arange(512, dtype=torch.int32, device=dev)
+    cat = torch.zeros((512, 5), dtype=torch.int32, device=dev)
+    cont = torch.zeros((512, 3), device=dev)
+    got = kpack.trace_rows_pack(perm, z64, z64, cat, cont, 0, 64, 256)
+    torch.cuda.synchronize()
+    assert int(got.rows_used) == 0
+    assert not got.categorical.any() and not got.mask.any()
+    assert (got.span_map == -1).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autoencoder_kernel_path_matches_plain_path(dev, dtype):
+    """The autoencoder's forward with K2, K1, K12 and K11 against its plain
+    path on the card, with all-padding rows: K1, K2 and K11 sum in another
+    order, so the errors agree to a relative bound (1e-5 in f32, 2e-2 in
+    bf16, where a last-bit change of an activation rounds on)."""
+    from odigos_tpu_torch.features import assemble_sequences
+
+    model = SpanAutoencoder(AutoencoderConfig(dtype=getattr(torch, dtype)),
+                            device=dev)
+    seqs = assemble_sequences(synthesize_traces(300, seed=5), max_len=64,
+                              pad_traces_to=lambda t: t + 20)
+    args = (seqs.categorical, seqs.continuous, seqs.mask)
+    launches = (kpool.launches, krecon.launches, attention.launches,
+                embed.launches)
+    got = model.span_errors(*args)
+    ref = model.span_errors(*args, reference=True)
+    torch.cuda.synchronize()
+    assert (kpool.launches - launches[0], krecon.launches - launches[1],
+            attention.launches - launches[2],
+            embed.launches - launches[3]) == (1, 1, 2, 1)
+    m = torch.from_numpy(seqs.mask).to(dev)
+    assert torch.isfinite(got).all() and (got[~m] == 0).all()
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1))[m].max().item()
+    assert rel <= (1e-5 if dtype == "float32" else 2e-2)
+
+
+def test_gpu_autoencoder_engine_scores_like_the_cpu_engine(dev):
+    """Host route and fused route of the autoencoder engine on the card
+    against the CPU's, same f32 weights; the loss weights scaled down so
+    the squash does not saturate (tests/test_torch_autoencoder.py)."""
+    cfg = dict(model="autoencoder", trace_bucket=16, max_batch_spans=8192,
+               model_config=AutoencoderConfig(
+                   dtype=torch.float32, w_service=0.01, w_name=0.01,
+                   w_kind=0.005, w_duration=0.002))
+    gpu = ScoringEngine(EngineConfig(device="cuda", **cfg))
+    cpu = ScoringEngine(EngineConfig(device="cpu", **cfg))
+    cpu.backend.model.load_state_dict(
+        {k: v.cpu() for k, v in gpu.backend.model.state_dict().items()})
+    batches = [synthesize_traces(20 + 7 * i, seed=40 + i) for i in range(3)]
+    batches.append(adversarial_traces(300, seed=3))
+    launches0 = (kpool.launches, krecon.launches, kpack.rows_launches)
+    for b in batches:
+        got = gpu.backend.score(b, featurize(b))
+        ref = cpu.backend.score(b, featurize(b))
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+        cols = extract_columns(b)[0]
+        fgot = gpu.backend.harvest(gpu.backend.dispatch_columns([cols]))
+        np.testing.assert_allclose(fgot, ref, atol=1e-4, rtol=1e-4)
+        assert 0 < fgot.max() < 1
+    assert (kpool.launches - launches0[0], krecon.launches - launches0[1],
+            kpack.rows_launches - launches0[2]) == (8, 8, 4)

@@ -55,15 +55,17 @@ def test_port_has_the_slice_modules():
                 "kernels/featurize.py", "kernels/sort.py",
                 "kernels/pack.py", "kernels/head.py",
                 "kernels/quant.py", "kernels/qgemm.py",
+                "kernels/pool.py", "kernels/recon.py",
                 "models/layers.py", "models/transformer.py",
-                "models/quantized.py",
+                "models/quantized.py", "models/autoencoder.py",
                 "models/convert.py", "models/zscore.py",
                 "serving/engine.py", "serving/fused.py",
                 "serving/sidecar.py", "utils/framing.py", "wire/codec.py"):
         assert mod in rel, mod
     for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu",
                 "trace_sort.cu", "featurize.cu", "trace_pack.cu",
-                "span_head.cu", "quant.cu", "qgemm.cu"):
+                "span_head.cu", "quant.cu", "qgemm.cu", "ae_pool.cu",
+                "recon_ce.cu", "ln_exact.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 

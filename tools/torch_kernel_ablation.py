@@ -103,7 +103,8 @@ def build_variants(tmp: str) -> dict:
                 f.write(text)
             so = cu[:-3] + ".so"
             procs[(kname, vname)] = (subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+                 "-o", so, cu],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), so)
     fns = {}

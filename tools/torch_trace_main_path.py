@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch/CUDA port's main path, on one GPU.
 
-    python3 tools/torch_trace_main_path.py [--model transformer|zscore]
+    python3 tools/torch_trace_main_path.py [--model transformer|zscore|
+                                                    autoencoder]
                                            [--route host|fused]
                                            [--quantized]
                                            [--traces 4096] [--requests 6]
                                            [--no-profile]
 
 Starts the port's ``ScoringEngine`` on the card with the ladder warmed —
-the default ``TransformerConfig`` (bf16, full width), or with ``--model
+the default ``TransformerConfig`` (bf16, full width), with ``--model
 zscore`` the default ``ZScoreDetector`` (G 8192, every span bucket warmed,
-fitted first on 400 traces through ``warmup``) — then scores
+fitted first on 400 traces through ``warmup``), or with ``--model
+autoencoder`` the default ``AutoencoderConfig`` (bf16, full width) — then
+scores
 ``--requests`` synthetic batches of ``--traces`` traces each, one after
 another through ``score_sync`` (the engine path the sidecar calls, minus
-the socket and wire codec) — or, with ``--route fused`` (transformer
-only), through ``submit(batch, columns=extract_columns(batch)[0])``, the
+the socket and wire codec) — or, with ``--route fused`` (the sequence
+models), through ``submit(batch, columns=extract_columns(batch)[0])``, the
 fused columns route — under ``torch.profiler`` with CPU and CUDA
 activities. ``--quantized`` serves the transformer with int8 products
 (``EngineConfig(quantized=True)``) and then runs the same requests through
@@ -25,12 +28,12 @@ prints one JSON line with:
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
   profiler saw — and the idle share of the window;
-* device time by category (K1 to K8, GEMMs, LayerNorm, GELU, copies,
-  other),
+* device time by category (K1 to K13, GEMMs, LayerNorm, GELU, copies,
+  other; K7's layout kernel also runs inside K13),
   each category's share of the busy time, and the top kernels by device
   time;
-* each hand-written kernel by name (K1-K10: K3, K6 and K7 are several
-  kernels each), with its launches and device ms per engine call;
+* each hand-written kernel by name (K1-K13: K3, K6, K7 and K13 are
+  several kernels each), with its launches and device ms per engine call;
 * the engine's stage medians (pack stage, device stage).
 
 With ``--no-profile`` the same requests run without the profiler and the
@@ -61,11 +64,14 @@ CATEGORIES = (
     ("K5 featurize_columns", ("featurize_kernel",)),
     ("K6 radix_sort", ("sort_prep_kernel", "sort_hist_kernel",
                        "sort_scatter_kernel", "sort_finish_kernel")),
-    ("K7 next_fit_pack", ("pack_layout_kernel", "pack_walk_kernel",
-                          "pack_scatter_kernel")),
+    ("K7 next_fit_pack", ("pack_walk_kernel", "pack_scatter_kernel")),
+    ("K7/K13 pack layout", ("pack_layout_kernel",)),
+    ("K13 trace_rows_pack", ("rows_scan_kernel", "rows_scatter_kernel")),
     ("K8 span_head_scatter", ("span_head_kernel",)),
     ("K9 ln_quantize", ("ln_quantize_kernel",)),
     ("K10 qgemm", ("qgemm_kernel",)),
+    ("K11 recon_ce", ("recon_ce_kernel",)),
+    ("K12 ln_masked_pool", ("ln_masked_pool_kernel",)),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("GELU", ("gelu", "GeluCUDA")),
@@ -198,10 +204,10 @@ def measure(args, quantized: bool, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", default="transformer",
-                    choices=["transformer", "zscore"])
+                    choices=["transformer", "zscore", "autoencoder"])
     ap.add_argument("--route", default="host", choices=["host", "fused"],
-                    help="transformer: score_sync (host featurize + pack) "
-                         "or submit(columns=) (the fused route)")
+                    help="sequence models: score_sync (host featurize + "
+                         "pack) or submit(columns=) (the fused route)")
     ap.add_argument("--quantized", action="store_true",
                     help="transformer: the int8 (W8A8) engine, then the "
                          "bf16 engine on the same requests")
@@ -210,8 +216,8 @@ def main() -> int:
     ap.add_argument("--no-profile", action="store_true",
                     help="host-side numbers only, without the profiler")
     args = ap.parse_args()
-    if args.route == "fused" and args.model != "transformer":
-        ap.error("--route fused needs --model transformer")
+    if args.route == "fused" and args.model == "zscore":
+        ap.error("--route fused needs a sequence model")
     if args.quantized and args.model != "transformer":
         ap.error("--quantized needs --model transformer")
 
