@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.cuda.get_device_name(0)``;
 2. build — every CUDA source compiled from the checkout (attention,
    span embedding, zscore, trace sort, featurize, trace pack, span head,
-   int8 quantize, int8 GEMM), one ``nvcc`` per source, all started
-   together;
+   int8 quantize, int8 GEMM, autoencoder pool, reconstruction error,
+   dense chain), one ``nvcc`` per source, all started together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -26,8 +26,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    kept out (device time alone), and the least time the card could take (the
    bytes this data needs — for K2 only the table rows it gathers — over
    3.35 TB/s, operations over the peak of their type); and B2, one
-   block's LN/GEMM/GELU chain around K1 (plain torch), timed beside its
-   bound;
+   block's LN/GEMM/GELU chain around K1: K14/K15, their plain versions
+   and the torch chain the block ran before them (``F.layer_norm`` on an
+   f32 copy, ``F.linear``, ``F.gelu``), timed beside its bound;
+3b. dense kernels — K14 ``ln_bf16`` and K15 ``gemm_bf16`` at each step of
+   the float block (LN1, the fused QKV product split for K1, the
+   out-projection + residual, LN2, FFN1 + GELU, FFN2 + residual) on the
+   first block's own activations at R = 256 and 2048 (d 256) and at the
+   autoencoder's T = 2048 (d 128, with ``dec_ff1`` + GELU and ``dec_ff2``
+   on the decoder's own input): K14 bit-equal to its plain version, K15
+   within one bf16 step per rounding after its f32 sum, at the largest
+   magnitude of the product or the output (the differing outputs
+   counted), with the same times and bound as phase 3 and
+   ``F.layer_norm`` / ``F.linear`` as the library call;
 4. zscore kernels — K3 ``zscore_update`` and K4 ``zscore_score`` held
    against their plain versions on the card at N = 4096, 65536 and 131072
    spans, G = 8192 groups, with the otel-demo mix of synthetic traffic and
@@ -46,7 +57,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    SCORE
    requests of 64 to 8192 traces (every bucket-ladder rung), then a
    concurrent burst; every reply checked (length, finite, in [0, 1]), the
-   kernels' launch counters read around the scoring requests, one reply
+   kernels' launch counters read around the scoring requests (per call K2
+   once, K1 once a layer, K14 twice a layer and once for the final
+   LayerNorm, K15 four times a layer), one reply
    recomputed with the plain versions on the card, and one small request
    against an f32 CPU run of the same weights;
 7. fused kernels — K5 ``featurize_columns``, K6 ``radix_sort``, K7
@@ -62,11 +75,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    buckets warmed, through the engine's ``submit(batch, columns=...)``:
    the sequential requests of phase 6, then a coalesced burst; every reply
    checked, the kernels' launch counters read around the run (each of K1,
-   K2 and K5-K8 must have launched, K5, K7, K8 once and K6 twice per
-   fused call), the same requests scored on the host route of the same
-   engine, one request against an f32 CPU run of the fused route, a
-   legacy-JSON frame sent down the host route with its reason counted, and
-   the share of the forward's device time that the padded rows take;
+   K2, K5-K8, K14 and K15 must have launched, K5, K7, K8 once and K6
+   twice per fused call, K14 twice and K15 four times a layer), the same
+   requests scored on the host route of the same engine, one request
+   against an f32 CPU run of the fused route, a legacy-JSON frame sent
+   down the host route with its reason counted, and the share of the
+   forward's device time that the padded rows take;
 9. int8 kernels — K9 ``ln_quantize`` and K10 ``qgemm`` at each step of
    the int8 block (LN1, the fused QKV product split for K1, the context
    quantize, the out-projection + residual, LN2, FFN1 + GELU, the GELU
@@ -83,7 +97,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 6 and the concurrent burst, on the host route (``submit(batch)``)
    and on the fused route (``submit(batch, columns=...)``), each route's
    launches read around its own run (K9 and K10 four times a layer per
-   call, K1 once a layer, K2 once; K5-K8 as phase 8 on the fused route);
+   call, K1 once a layer, K2 once, K14 and K15 never; K5-K8 as phase 8 on
+   the fused route);
    fused vs host route within max 0.05 / mean 5e-3, one request's kernel
    path vs its plain path within 2e-2, int8 vs the bf16 float path on
    the same f32 weights within 0.05, and card bf16 vs a CPU f32 int8 run
@@ -102,14 +117,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    sidecar (``--model autoencoder``'s engine) serving phase 6's requests
    and burst on the host route, then an engine's fused route
    (``submit(batch, columns=...)``) on the same traffic; launches per
-   call (K2 1, K1 2, K12 1, K11 1; on the fused route also K5 1, K6 2,
-   K13 1), every score in [0, 1], the kernel path vs the plain path on
+   call (K2 1, K1 2, K12 1, K11 1, K14 4, K15 10; on the fused route also
+   K5 1, K6 2, K13 1), K15's ``dec_ff1`` and ``dec_ff2`` at the fused
+   route's own R x L rows (past 2^31 outputs) against their plain
+   versions, every score in [0, 1], the kernel path vs the plain path on
    one request (errors and scores within 2e-2), card bf16 vs CPU f32
    (within 3e-2), fused vs host (max 2e-2, on the default weights and on
    a scaled-loss engine whose scores do not saturate), and the padded
    rows' share of the fused forward;
 13. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
-   ``{"kernels": [...]}`` line (K1 to K13), then the last line
+   ``{"kernels": [...]}`` line (K1 to K15), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -360,7 +377,7 @@ def phase_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from odigos_tpu_torch.kernels import attention, embed
+    from odigos_tpu_torch.kernels import attention, dense, embed
     from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
 
     dev = torch.device("cuda")
@@ -431,9 +448,8 @@ def phase_kernels(card: str) -> dict:
             # ---- K1: attention, on the first block's real activations
             blk = enc.blocks[0]
             h = blk.ln1(x_k)
-            q = blk.query(h).view(R, L, H, hd)
-            k = blk.key(h).view(R, L, H, hd)
-            v = blk.value(h).view(R, L, H, hd)
+            q, k, v = dense.gemm_bf16(h.view(R * L, d), *blk.qkv(),
+                                      planes=3).view(3, R, L, H, hd)
             check(attention.kernel_route(q, k, v, seg) == "tc",
                   f"segment_attention R={R}: bf16 main path not on the "
                   f"tensor-core kernel")
@@ -482,32 +498,59 @@ def phase_kernels(card: str) -> dict:
                 "library_bound_live": lib_lim,
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": nbytes, "flops": flops}
-            # ---- B2, the block's LN/GEMM/GELU chain around K1, still
-            # plain torch (cuBLAS products, torch's LayerNorm and GELU):
-            # its time and bound, one block at these rows
-            a_k = attention.segment_attention(q, k, v, seg).view(R, L, d)
+            # ---- B2, the block's LN/GEMM/GELU chain around K1: the
+            # kernels (K14, K15), their plain versions, and the torch chain
+            # the block ran before them (F.layer_norm on an f32 copy,
+            # cuBLAS F.linear, F.gelu, two residual adds); one block here
+            a_k = attention.segment_attention(q, k, v, seg).view(R * L, d)
+            x2 = x_k.view(R * L, d)
 
-            def chain():
-                h1 = blk.ln1(x_k)
-                blk.query(h1), blk.key(h1), blk.value(h1)
-                x1 = x_k + blk.out(a_k)
-                h2 = F.gelu(blk.ff1(blk.ln2(x1)), approximate="tanh")
-                return x1 + blk.ff2(h2)
+            def chain(ln, gemm):
+                def run():
+                    h1 = ln(x2, blk.ln1.weight, blk.ln1.bias)
+                    gemm(h1, *blk.qkv(), planes=3)
+                    x1 = gemm(a_k, blk.out.weight, blk.out.bias,
+                              "residual", residual=x2)
+                    h2 = gemm(ln(x1, blk.ln2.weight, blk.ln2.bias),
+                              blk.ff1.weight, blk.ff1.bias, "gelu_tanh")
+                    return gemm(h2, blk.ff2.weight, blk.ff2.bias,
+                                "residual", residual=x1)
+                return run
 
+            def torch_chain():
+                def norm(x, m):
+                    return F.layer_norm(x.float(), (d,), m.weight, m.bias,
+                                        m.eps).to(x.dtype)
+                h1 = norm(x2, blk.ln1)
+                F.linear(h1, blk.query.weight, blk.query.bias)
+                F.linear(h1, blk.key.weight, blk.key.bias)
+                F.linear(h1, blk.value.weight, blk.value.bias)
+                x1 = x2 + F.linear(a_k, blk.out.weight, blk.out.bias)
+                h2 = F.gelu(F.linear(norm(x1, blk.ln2), blk.ff1.weight,
+                                     blk.ff1.bias), approximate="tanh")
+                return x1 + F.linear(h2, blk.ff2.weight, blk.ff2.bias)
+
+            kern = chain(dense.ln_bf16, dense.gemm_bf16)
+            plain = chain(dense.ln_bf16_plain, dense.gemm_bf16_plain)
+            out_k, out_p = kern(), plain()
+            torch.cuda.synchronize()
+            chain_diff = (out_k.float() - out_p.float()).abs().max().item()
             M, dff = R * L, cfg.d_ff
             # as one function: x and the attention output in, q, k, v and
             # the block's output out, bf16; the six weight matrices once
-            nbytes = 6 * M * d * 2 + (4 * d * d + 2 * d * dff) * 2
-            flops = 2 * M * (4 * d * d + 2 * d * dff)
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            chain_bytes = 6 * M * d * 2 + (4 * d * d + 2 * d * dff) * 2
+            chain_flops = 2 * M * (4 * d * d + 2 * d * dff)
+            b_ms, b_by = bound(chain_bytes, chain_flops, BF16_FLOPS)
             results[("dense_chain_b2", R)] = {
                 "name": "dense_chain_b2", "R": R, "M": M,
                 "what": "one block's LN1, Q/K/V, out-proj + residual, LN2, "
-                        "FFN1 + GELU, FFN2 + residual: plain torch",
-                "device_ms": device_ms(chain, flush),
-                "kernel_ms": time_ms(chain, flush),
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "flops": flops, "layers": cfg.n_layers}
+                        "FFN1 + GELU, FFN2 + residual: K14/K15 (kernel), "
+                        "their plain versions (plain), the torch chain the "
+                        "block ran before them (library)",
+                "max_abs_diff_kernel_vs_plain": chain_diff,
+                **timings(kern, plain, torch_chain, flush),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": chain_bytes,
+                "flops": chain_flops, "layers": cfg.n_layers}
             if R == min(R_SHAPES):
                 # the f32 route is the other kernel (CUDA cores): held to
                 # its plain version at f32 summation-order noise
@@ -552,6 +595,176 @@ def phase_kernels(card: str) -> dict:
                     "bytes": 2 * nbytes - R * L * 4, "flops": flops}
     for r in results.values():
         emit({"phase": "kernels", "card": card, **r})
+    return results
+
+
+def gemm_bound(x, w, ref, epilogue: str) -> float:
+    """K15's bound against its plain version: the two sum the same f32
+    products in another order, so the product rounded to bf16 may land
+    one step apart, and each rounding after it (the bias add; the GELU or
+    the residual add) may add one more: one bf16 step per rounding (2 for
+    "none", 3 otherwise) at the largest magnitude of the rounded product
+    or the output."""
+    import torch
+
+    from odigos_tpu_torch.kernels import dense
+
+    pre = dense.gemm_bf16_plain(x, w, torch.zeros_like(w[:, 0]))
+    top = max(pre.float().abs().max().item(), ref.float().abs().max().item())
+    return (2 if epilogue == "none" else 3) * bf16_step(top)
+
+
+def _gemm_diff(got, ref, lim: float, what: str) -> tuple[float, int]:
+    """K15 against its plain version within ``lim`` (:func:`gemm_bound`).
+    Returns the max |diff| and how many outputs differ at all."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    diff = (g - r).abs()
+    top = diff.max().item()
+    check(top <= lim, f"{what}: max |kernel - plain| {top} > {lim}")
+    return top, int((diff > 0).sum().item())
+
+
+def phase_dense_kernels(card: str) -> dict:
+    """K14 and K15 at each step of the float block, on the first block's
+    own activations, at R = 256 and 2048 rows (d 256) and T = 2048 traces
+    of the autoencoder (d 128, with ``dec_ff1`` and ``dec_ff2`` on the
+    decoder's own input): K14 bit-equal to its plain version, K15 within
+    :func:`gemm_bound` (the count of differing outputs printed), beside
+    ``F.layer_norm`` / ``F.linear`` at the same shape (the library call;
+    ``F.linear`` leaves the GELU or residual out) and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import attention, dense, embed
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    results: dict = {}
+
+    def k14(step, key, x, ln):
+        args = (x, ln.weight, ln.bias, ln.eps)
+        got = dense.ln_bf16(*args)
+        ref = dense.ln_bf16_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"ln_bf16 {step} {key}: not bit-equal "
+                                     f"to the plain version")
+        M, d = x.numel() // x.shape[-1], x.shape[-1]
+        wb, bb = ln.weight.to(x.dtype), ln.bias.to(x.dtype)
+
+        def lib():
+            return F.layer_norm(x, (d,), wb, bb, ln.eps)
+
+        nbytes = 2 * M * d * x.element_size() + 2 * d * 4
+        flops = 8 * M * d
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        results[("ln_bf16", step, key)] = {
+            "name": "ln_bf16", "step": step, "shape": key, "M": M, "d": d,
+            "max_abs_diff": 0.0, "differing": 0, "bound": "bit-equal",
+            **timings(lambda: dense.ln_bf16(*args),
+                      lambda: dense.ln_bf16_plain(*args), lib, flush),
+            "library": "F.layer_norm (bf16 weights)",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops}
+        return got
+
+    def k15(step, key, x, w, b, epilogue="none", residual=None, planes=1):
+        args = (x, w, b, epilogue, residual, planes)
+        got = dense.gemm_bf16(*args)
+        ref = dense.gemm_bf16_plain(*args)
+        torch.cuda.synchronize()
+        lim = gemm_bound(x, w, ref, epilogue)
+        diff, n_diff = _gemm_diff(got, ref, lim, f"gemm_bf16 {step} {key}")
+        M, K = x.shape
+        N = w.shape[0]
+
+        def lib():
+            return F.linear(x, w, b)
+
+        nbytes = 2 * (M * K + N * K + N + M * N
+                      + (M * N if residual is not None else 0))
+        flops = 2 * M * N * K
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        results[("gemm_bf16", step, key)] = {
+            "name": "gemm_bf16", "step": step, "shape": key, "M": M,
+            "N": N, "K": K, "epilogue": epilogue, "planes": planes,
+            "max_abs_diff": diff, "differing": n_diff, "outputs": M * N,
+            "bound": lim, "bf16_step_of_output": bf16_step(
+                ref.float().abs().max().item()),
+            **timings(lambda: dense.gemm_bf16(*args),
+                      lambda: dense.gemm_bf16_plain(*args), lib, flush),
+            "library": "F.linear (no GELU or residual)",
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops}
+        if n_diff:
+            print(f"chip_smoke: gemm_bf16 {step} {key}: {n_diff} of "
+                  f"{M * N} outputs differ from the plain version, by at "
+                  f"most {diff} (bound {lim}: f32 sums in another order)",
+                  flush=True)
+        return got
+
+    def block(key, blk, x, seg, R, L):
+        """One block through K14/K15 (and K1), every step checked."""
+        d = x.shape[-1]
+        H = blk.n_heads
+        x = x.view(R * L, d)
+        h = k14("ln1", key, x, blk.ln1)
+        q, k, v = k15("qkv", key, h, *blk.qkv(), planes=3).view(
+            3, R, L, H, d // H)
+        a = attention.segment_attention(q, k, v, seg).view(R * L, d)
+        x = k15("out_residual", key, a, blk.out.weight, blk.out.bias,
+                "residual", x)
+        h = k14("ln2", key, x, blk.ln2)
+        h = k15("ffn1_gelu", key, h, blk.ff1.weight, blk.ff1.bias,
+                "gelu_tanh")
+        return k15("ffn2_residual", key, h, blk.ff2.weight, blk.ff2.bias,
+                   "residual", x)
+
+    cfg = TransformerConfig()
+    model = TraceTransformer(cfg, device=dev, seed=0)
+    enc = model.module.encoder
+    pk = _packed_rows(max(R_SHAPES))
+    with torch.inference_mode():
+        for R in R_SHAPES:
+            def rows(a, dtype):
+                return torch.from_numpy(a[:R]).to(dev, dtype).contiguous()
+
+            cat = rows(pk.categorical, torch.int32)
+            cont = rows(pk.continuous, torch.float32)
+            seg = rows(pk.segments, torch.int32)
+            pos = rows(pk.positions, torch.int32)
+            x = embed.span_embed(cat, cont, pos, seg, enc.tables(), cfg.dtype)
+            out = block(f"R{R}", enc.blocks[0], x, seg, R, x.shape[1])
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"block R={R}: non-finite")
+        del model, enc
+    ae = SpanAutoencoder(AutoencoderConfig(), device=dev, seed=0)
+    m = ae.module
+    with torch.inference_mode():
+        T = max(AE_T)
+        cat, cont, mask = _ae_rows(T, dev)
+        L = mask.shape[1]
+        seg = mask.to(torch.int32).contiguous()
+        pos = torch.arange(L, dtype=torch.int32, device=dev).expand(
+            T, L).contiguous()
+        x = embed.span_embed(cat, cont, pos, seg, m.encoder.tables(),
+                             ae.cfg.dtype)
+        key = f"ae_T{T}"
+        block(key, m.encoder.blocks[0], x, seg, T, L)
+        dec_in = ae._decoder_input(cat, cont, mask, reference=False)
+        h = k15("dec_ff1_gelu", key, dec_in, m.dec_ff1.weight, m.dec_ff1.bias,
+                "gelu_tanh")
+        k15("dec_ff2", key, h, m.dec_ff2.weight, m.dec_ff2.bias)
+    for r in results.values():
+        emit({"phase": "dense_kernels", "card": card, **r})
     return results
 
 
@@ -783,7 +996,6 @@ def phase_main_path(card: str) -> dict:
     import torch
 
     from odigos_tpu_torch.features import featurize, pack_sequences
-    from odigos_tpu_torch.kernels import attention, embed
     from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
     from odigos_tpu_torch.pdata import synthesize_traces
     from odigos_tpu_torch.serving import (EngineConfig, ScoringEngine,
@@ -806,8 +1018,7 @@ def phase_main_path(card: str) -> dict:
         try:
             client.ping()
             client.warmup(synthesize_traces(64, seed=99))
-            attention.launches = 0
-            embed.launches = 0
+            _zero_counters()
             calls0 = engine.device_calls
             requests = []
             t_seq = time.perf_counter()
@@ -839,18 +1050,21 @@ def phase_main_path(card: str) -> dict:
             for s, b in zip(burst_out, bursts):
                 check(s is not None, "burst request failed")
                 _check_scores(s, len(b), "burst SCORE")
-            launches = {"segment_attention": attention.launches,
-                        "span_embed": embed.launches}
+            launches = _read_counters(MAIN_COUNTERS)
             calls = engine.device_calls - calls0
         finally:
             client.close()
         cfg = engine.backend.model.cfg
-        check(launches["span_embed"] > 0 and
-              launches["segment_attention"] > 0,
-              f"main path launched no kernel: {launches}")
-        check(launches["span_embed"] == calls and
-              launches["segment_attention"] == cfg.n_layers * calls,
-              f"launches {launches} do not match {calls} device calls")
+        check(all(v > 0 for v in launches.values()),
+              f"main path launched no time: {launches}")
+        # K14: LN1 and LN2 of every layer and the final LayerNorm; K15:
+        # QKV (one launch), out-projection, FFN1 and FFN2 of every layer
+        want = {"span_embed": calls,
+                "segment_attention": cfg.n_layers * calls,
+                "ln_bf16": (2 * cfg.n_layers + 1) * calls,
+                "gemm_bf16": 4 * cfg.n_layers * calls}
+        check(launches == want,
+              f"launches {launches} != {want} for {calls} device calls")
 
         # one reply recomputed with the plain versions on the card
         model = engine.backend.model
@@ -1082,13 +1296,21 @@ def phase_fused_kernels(card: str) -> dict:
     return results
 
 
+# K14 and K15 count in one module under two names
+DENSE_COUNTERS = (("ln_bf16", "dense", "ln_launches"),
+                  ("gemm_bf16", "dense", "gemm_launches"))
 FUSED_COUNTERS = (("segment_attention", "attention"), ("span_embed", "embed"),
                   ("featurize_columns", "featurize"), ("radix_sort", "sort"),
-                  ("next_fit_pack", "pack"), ("span_head_scatter", "head"))
+                  ("next_fit_pack", "pack"),
+                  ("span_head_scatter", "head")) + DENSE_COUNTERS
 
 
 INT8_COUNTERS = FUSED_COUNTERS + (("ln_quantize", "quant"),
                                   ("qgemm", "qgemm"))
+
+# the host route's kernels (phase 6)
+MAIN_COUNTERS = (("segment_attention", "attention"),
+                 ("span_embed", "embed")) + DENSE_COUNTERS
 
 # (name, module, counter attribute) of every wrapper's launch count
 ALL_COUNTERS = INT8_COUNTERS + (("ln_masked_pool", "pool"),
@@ -1169,9 +1391,12 @@ def phase_fused_path(card: str) -> dict:
         n_layers = be.model.cfg.n_layers
         check(all(v > 0 for v in launches.values()),
               f"fused path launched no time: {launches}")
+        # K8 keeps the final LayerNorm: K14 twice a layer
         want = {"segment_attention": n_layers * calls, "span_embed": calls,
                 "featurize_columns": calls, "radix_sort": 2 * calls,
-                "next_fit_pack": calls, "span_head_scatter": calls}
+                "next_fit_pack": calls, "span_head_scatter": calls,
+                "ln_bf16": 2 * n_layers * calls,
+                "gemm_bf16": 4 * n_layers * calls}
         check(launches == want, f"fused launches {launches} != {want} for "
                                 f"{calls} fused calls")
         check(calls_burst < BURST_REQUESTS,
@@ -1494,9 +1719,11 @@ def phase_int8_path(card: str) -> dict:
         stats = engine.stats()
         calls = (stats["fused_calls"] - stats0["fused_calls"] if cols
                  else stats["device_calls"] - stats0["device_calls"])
+        # K9/K10 carry the int8 block: the float chain never launches
         want = {"ln_quantize": 4 * n_layers * calls,
                 "qgemm": 4 * n_layers * calls,
-                "segment_attention": n_layers * calls, "span_embed": calls}
+                "segment_attention": n_layers * calls, "span_embed": calls,
+                "ln_bf16": 0, "gemm_bf16": 0}
         if cols:
             want.update(featurize_columns=calls, radix_sort=2 * calls,
                         next_fit_pack=calls, span_head_scatter=calls)
@@ -1765,7 +1992,8 @@ def phase_ae_kernels(card: str) -> dict:
 
 AE_HOST_COUNTERS = (("span_embed", "embed"),
                     ("segment_attention", "attention"),
-                    ("ln_masked_pool", "pool"), ("recon_ce", "recon"))
+                    ("ln_masked_pool", "pool"),
+                    ("recon_ce", "recon")) + DENSE_COUNTERS
 AE_FUSED_COUNTERS = AE_HOST_COUNTERS + (
     ("featurize_columns", "featurize"), ("radix_sort", "sort"),
     ("trace_rows_pack", "pack", "rows_launches"),
@@ -1791,7 +2019,8 @@ def _ae_scores(model, batch, reference: bool = False):
 def _ae_fused_rows_check(be, batch) -> tuple[dict, object]:
     """One request staged as the fused route stages it, at the route's own
     R: K13 against its plain version (exact), K12 on the encoder's pre-LN
-    state against its plain version (bit-equal, or one bf16 step), and K11
+    state against its plain version (bit-equal, or one bf16 step), K15's
+    dec_ff1 and dec_ff2 on all R x L rows (:func:`gemm_bound`), and K11
     in scatter mode (K13's span map, the span bucket's output) against its
     plain version, with the model's loss weights (whose scores saturate on
     random weights) and with AE_SCALED_WEIGHTS (whose do not): errors and
@@ -1838,9 +2067,32 @@ def _ae_fused_rows_check(be, batch) -> tuple[dict, object]:
         "an f64 sum rounded to f32 then bf16 landed on the other side of a "
         "rounding tie")
     del h, got, want
-    # K11's scatter mode on the decoder's own output at R
-    dec = be.model._decode(tr.categorical, tr.continuous, mask,
-                           reference=False)
+    # K15 at the route's own M = R x L rows (dec_ff1's output passes 2^31
+    # elements at the largest requests: the 64-bit offsets), each launched
+    # once on all rows and held to its plain version chunk by chunk
+    dec_in = be.model._decoder_input(tr.categorical, tr.continuous, mask,
+                                     reference=False)
+    gemm = {}
+    dec = dec_in
+    for step, lin, epi in (("dec_ff1_gelu", m.dec_ff1, "gelu_tanh"),
+                           ("dec_ff2", m.dec_ff2, "none")):
+        got = kernels.dense.gemm_bf16(dec, lin.weight, lin.bias, epi)
+        top, n_diff = 0.0, 0
+        for r0 in range(0, dec.shape[0], 1 << 20):
+            rows = slice(r0, r0 + (1 << 20))
+            ref = kernels.dense.gemm_bf16_plain(dec[rows], lin.weight,
+                                                lin.bias, epi)
+            t, n_d = _gemm_diff(got[rows], ref,
+                                gemm_bound(dec[rows], lin.weight, ref, epi),
+                                f"gemm_bf16 {step} at R={R}")
+            top, n_diff = max(top, t), n_diff + n_d
+        gemm[step] = {"M": dec.shape[0], "N": lin.weight.shape[0],
+                      "K": lin.weight.shape[1], "outputs": got.numel(),
+                      "max_abs_diff": top, "differing": n_diff}
+        dec = got
+    del dec_in
+    # K11's scatter mode on the decoder's own output at R (the kernel
+    # path's, just computed)
     dl = m.dec_ln
     cfg = be.model.cfg
     flat = (tr.categorical.reshape(T * L, -1),
@@ -1850,7 +2102,8 @@ def _ae_fused_rows_check(be, batch) -> tuple[dict, object]:
            "padded_row_share": 1.0 - int(tr.rows_used.item()) / R,
            "trace_rows_pack_max_abs_diff": 0.0,
            "ln_masked_pool_max_abs_diff": pool_diff,
-           "ln_masked_pool_note": note, "recon_ce_bound": RECON_ATOL}
+           "ln_masked_pool_note": note, "gemm_bf16": gemm,
+           "recon_ce_bound": RECON_ATOL}
     for label, wts in (
             ("model", (cfg.w_service, cfg.w_name, cfg.w_kind,
                        cfg.w_duration)),
@@ -1963,8 +2216,12 @@ def phase_ae_path(card: str) -> dict:
             calls = engine.device_calls - calls0
         finally:
             client.close()
+        # K14 twice a layer (K12 and K11 keep the final and decoder
+        # LayerNorms); K15 four times a layer and dec_ff1, dec_ff2
         want = {"span_embed": calls, "segment_attention": n_layers * calls,
-                "ln_masked_pool": calls, "recon_ce": calls}
+                "ln_masked_pool": calls, "recon_ce": calls,
+                "ln_bf16": 2 * n_layers * calls,
+                "gemm_bf16": (4 * n_layers + 2) * calls}
         check(calls > 0 and launches == want,
               f"ae host launches {launches} != {want} for {calls} calls")
         host_stats = engine.stats()
@@ -2055,6 +2312,8 @@ def phase_ae_path(card: str) -> dict:
         calls = engine.fused_calls - stats0["fused_calls"]
         want = {"span_embed": calls, "segment_attention": n_layers * calls,
                 "ln_masked_pool": calls, "recon_ce": calls,
+                "ln_bf16": 2 * n_layers * calls,
+                "gemm_bf16": (4 * n_layers + 2) * calls,
                 "featurize_columns": calls, "radix_sort": 2 * calls,
                 "trace_rows_pack": calls, "next_fit_pack": 0,
                 "span_head_scatter": 0}
@@ -2166,6 +2425,7 @@ def main() -> int:
     card, name = timed(phase_device)
     timed(phase_build)
     kern = timed(phase_kernels, card)
+    dense_kern = timed(phase_dense_kernels, card)
     zs_kern = timed(phase_zscore_kernels, card)
     zs_path = timed(phase_zscore_path, card)
     main_path = timed(phase_main_path, card)
@@ -2190,7 +2450,9 @@ def main() -> int:
                "qgemm": src + "qgemm.cu",
                "recon_ce": src + "recon_ce.cu",
                "ln_masked_pool": src + "ae_pool.cu",
-               "trace_rows_pack": src + "trace_pack.cu"}
+               "trace_rows_pack": src + "trace_pack.cu",
+               "ln_bf16": src + "dense.cu",
+               "gemm_bf16": src + "dense.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -2203,7 +2465,9 @@ def main() -> int:
                 "qgemm": "odigos_tpu/models/quantized.py:63",
                 "recon_ce": "odigos_tpu/models/autoencoder.py:93",
                 "ln_masked_pool": "odigos_tpu/models/autoencoder.py:67",
-                "trace_rows_pack": "odigos_tpu/serving/fused.py:462"}
+                "trace_rows_pack": "odigos_tpu/serving/fused.py:462",
+                "ln_bf16": "odigos_tpu/models/layers.py:71",
+                "gemm_bf16": "odigos_tpu/models/layers.py:78"}
     designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
                "span_embed": "warp-per-slot vec16, small tables in smem",
                "zscore_update": "3 launches: warp-aggregated f64 sums in "
@@ -2239,9 +2503,19 @@ def main() -> int:
                "trace_rows_pack": "3 launches: K7's layout kernel marking "
                                   "trace starts; one-block popcount scan "
                                   "writing trace starts; slot-per-thread "
-                                  "gather writing every output once"}
-    # each kernel's launches on its own path's run: K1 and K2 on the main
-    # path (the host route), K5-K8 on the fused path
+                                  "gather writing every output once",
+               "ln_bf16": "warp per row, two rows in flight, 16-byte "
+                          "loads in registers: exact f64 LN sums "
+                          "(ln_exact.cuh), IEEE steps, rounded to the "
+                          "working type",
+               "gemm_bf16": "persistent, wgmma m64n128k16 bf16, TMA loads "
+                            "(128-byte swizzle); 2 ping-pong consumer "
+                            "warpgroups of 128x128 tiles, each with its "
+                            "own 2-stage ring and producer warp; bias + "
+                            "residual/GELU epilogue in registers, staged "
+                            "swizzled in smem, TMA store, QKV in planes"}
+    # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
+    # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
                 **main_path["launches"],
                 **{k: int8_path["host_route"]["launches"][k]
@@ -2343,6 +2617,21 @@ def main() -> int:
                 kname],
             **{f"T{t}": {k: ae_kern[(kname, t)].get(k) for k in extra_keys}
                for t in AE_T if t != max(AE_T)}}))
+    # K14 and K15 at every step and shape; the line's own numbers are
+    # LN1's and the QKV product's at R
+    for kname, step in (("ln_bf16", "ln1"), ("gemm_bf16", "qkv")):
+        extra_keys = timing_keys + ("bound_ms", "bound_by", "differing",
+                                    "M", "N", "K", "d")
+        head = dense_kern[(kname, step, f"R{R}")]
+        lines.append(line(kname, head, {
+            "shape_R": R, "step": step, "library": head["library"],
+            "differing": head["differing"],
+            "fused_path_launches": fused_path["launches"][kname],
+            "ae_host_launches": ae_path["host_route"]["launches"][kname],
+            "ae_fused_launches": ae_path["fused_route"]["launches"][kname],
+            **{f"{st}_{key}": {k: r.get(k) for k in extra_keys}
+               for (kn, st, key), r in dense_kern.items()
+               if kn == kname and (st, key) != (step, f"R{R}")}}))
     k13 = ae_kern[("trace_rows_pack", "otel", FUSED_MAIN_N)]
     lines.append(line("trace_rows_pack", k13, {
         "shape_N": FUSED_MAIN_N, "R": k13["R"], "traces": k13["traces"],

@@ -26,17 +26,23 @@
 * ``pool.ln_masked_pool`` — K12, the autoencoder's final LayerNorm and
   masked mean-pool over each trace (``csrc/ae_pool.cu``);
 * ``pack.trace_rows_pack`` — K13, trace-sorted spans packed one trace per
-  row (``csrc/trace_pack.cu``, beside K7).
+  row (``csrc/trace_pack.cu``, beside K7);
+* ``dense.ln_bf16`` — K14, the float encoder block's exact LayerNorm, and
+  ``dense.gemm_bf16`` — K15, its bf16 tensor-core GEMM with the bias and
+  the residual or GELU fused into the epilogue (``csrc/dense.cu``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
 ``zscore.update_launches`` and ``zscore.score_launches``; K13:
-``pack.rows_launches``) counts the calls that launched. ``build`` compiles the sources with nvcc at first use.
+``pack.rows_launches``; K14/K15: ``dense.ln_launches`` and
+``dense.gemm_launches``) counts the calls that launched. ``build``
+compiles the sources with nvcc at first use.
 """
 
-from . import (attention, build, embed, featurize, head, pack, pool, qgemm,
-               quant, recon, sort, zscore)
+from . import (attention, build, dense, embed, featurize, head, pack, pool,
+               qgemm, quant, recon, sort, zscore)
 from .attention import segment_attention, segment_attention_plain
+from .dense import gemm_bf16, gemm_bf16_plain, ln_bf16, ln_bf16_plain
 from .embed import EmbedTables, span_embed, span_embed_plain
 from .featurize import featurize_columns, featurize_columns_plain
 from .head import span_head_scatter, span_head_scatter_plain
@@ -54,6 +60,7 @@ from .zscore import (zscore_score, zscore_score_plain, zscore_update,
 __all__ = [
     "attention",
     "build",
+    "dense",
     "embed",
     "featurize",
     "head",
@@ -66,6 +73,10 @@ __all__ = [
     "zscore",
     "segment_attention",
     "segment_attention_plain",
+    "gemm_bf16",
+    "gemm_bf16_plain",
+    "ln_bf16",
+    "ln_bf16_plain",
     "EmbedTables",
     "span_embed",
     "span_embed_plain",

@@ -46,6 +46,7 @@ SOURCES = {
     "qgemm": "qgemm.cu",
     "ae_pool": "ae_pool.cu",
     "recon_ce": "recon_ce.cu",
+    "dense": "dense.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,252 @@
+"""K14 and K15: the float encoder block's dense chain (queue B2).
+
+``odigos_tpu/models/layers.py`` ``EncoderBlock`` (:68-81) runs, in the
+working type over f32 parameters,
+
+    h = LN1(x); q, k, v = Dense(d)(h) x 3; a = attention(q, k, v)   # K1
+    x = x + Dense(d)(a); h = LN2(x)
+    x = x + Dense(d)(gelu(Dense(d_ff)(h)))
+
+and ``odigos_tpu/models/autoencoder.py`` (:78-80) adds ``dec_ff1`` → gelu →
+``dec_ff2`` with no residual. Everything but the attention goes through
+two kernels here:
+
+* **K14** ``ln_bf16(x, weight, bias, eps)``: Flax's ``LayerNorm(dtype)``
+  over the last dimension, output in ``x``'s type, with f32 ``weight`` and
+  ``bias``. The statistics are :func:`quant.layer_norm_plain`'s (row sums
+  taken exactly in f64 and rounded once to f32, two-pass variance, a
+  correctly rounded ``1 / sqrt``, every step a separate IEEE op), so the
+  kernel (``csrc/ln_exact.cuh``, shared with K9, K11 and K12) gives the
+  plain version's bits in any summation order.
+* **K15** ``gemm_bf16(x, w, b, epilogue, residual, planes)``:
+  ``epilogue(x @ w.T + b)`` with ``x (M, K)``, ``w (N, K)`` (the Linear
+  layout) and ``b (N,)`` all in the working type, the product summed in
+  f32 and every later step rounded where Flax rounds (``Dense(dtype)``'s
+  ``dot_general`` returns the working type, then ``y += bias`` in it):
+
+  - ``"none"``: ``round(round(acc) + b)`` (q, k, v; ``dec_ff2``);
+  - ``"residual"``: ``round(res + round(round(acc) + b))`` (the
+    out-projection, FFN2);
+  - ``"gelu_tanh"``: ``round(gelu(round(round(acc) + b)))`` (FFN1,
+    ``dec_ff1``), the tanh form of ``jax.nn.gelu`` in f32 (``nn.gelu``'s
+    default), as K10's mode 2 computes it.
+
+  ``planes > 1`` splits the N columns into ``planes`` blocks returned as
+  ``(planes, M, N / planes)``: the fused QKV product over ``[W_q; W_k;
+  W_v]`` leaves q, k and v each contiguous for K1 in one launch.
+
+A CUDA tensor launches ``csrc/dense.cu`` or raises, never handing the work
+to the plain version: K14 takes f32 or bf16 rows of ``d`` in
+``LN_WIDTHS``, 16-byte aligned; K15 takes bf16 (``wgmma`` tensor cores,
+TMA loads and stores) or f32 (CUDA cores, for the f32 model), with
+``K % 16 == 0``, ``N % 8 == 0``, ``N / planes`` a multiple of 64 when
+``planes > 1`` (each 64-column box of the output lies in one plane),
+contiguous operands and 16-byte aligned ``x``, ``w``, ``residual`` and
+output. A CPU tensor takes :func:`ln_bf16_plain` / :func:`gemm_bf16_plain`.
+``ln_launches`` and ``gemm_launches`` count the calls that launched.
+
+On the card the plain product is f32 (TF32 off) rounded once, and the
+kernel's bf16 x bf16 products are exact in its f32 accumulators: the two
+differ in summation order only, so the rounded product may land one bf16
+step apart and each rounding after it may add one more step (the bound
+``chip_smoke.gemm_bound`` holds the kernel to).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import torch
+
+from . import build
+from .qgemm import gelu_tanh_plain
+from .quant import layer_norm_plain
+
+LN_EPS = 1e-6
+LN_WIDTHS = (32, 64, 128, 256, 512, 1024)
+EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+ln_launches = 0
+gemm_launches = 0
+_count_lock = threading.Lock()
+_fns: dict = {}
+
+
+# ------------------------------------------------------------------ plain
+def ln_bf16_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = LN_EPS) -> torch.Tensor:
+    """K14's plain version: the exact LayerNorm, rounded to ``x``'s type."""
+    _check_ln(x, weight, bias)
+    return layer_norm_plain(x, weight, bias, eps)
+
+
+def _split(y: torch.Tensor, planes: int) -> torch.Tensor:
+    if planes == 1:
+        return y
+    M, N = y.shape
+    return y.view(M, planes, N // planes).transpose(0, 1).contiguous()
+
+
+def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    epilogue: str = "none",
+                    residual: Optional[torch.Tensor] = None,
+                    planes: int = 1) -> torch.Tensor:
+    """K15's plain version: the product in f32 rounded to the working type,
+    the bias added and rounded, then the epilogue (module docstring)."""
+    _check_gemm(x, w, b, epilogue, residual, planes)
+    dt = x.dtype
+    y = (x.float() @ w.float().t()).to(dt)
+    y = (y.float() + b.float()).to(dt)
+    if epilogue == "residual":
+        y = (residual.float() + y.float()).to(dt)
+    elif epilogue == "gelu_tanh":
+        y = gelu_tanh_plain(y.float()).to(dt)
+    return _split(y, planes)
+
+
+# ----------------------------------------------------------------- checks
+def _same_device(*ts) -> None:
+    devs = {t.device for t in ts if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
+def _check_ln(x, weight, bias) -> None:
+    d = x.shape[-1]
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.shape != (d,):
+            raise ValueError(f"{name} must be ({d},), got {tuple(t.shape)}")
+    _same_device(x, weight, bias)
+
+
+def _check_gemm(x, w, b, epilogue, residual, planes) -> None:
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, "
+                         f"not {epilogue!r}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"x (M, K) and w (N, K) expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    M, N = x.shape[0], w.shape[0]
+    if b.shape != (N,):
+        raise ValueError(f"b must be ({N},), got {tuple(b.shape)}")
+    if (epilogue == "residual") != (residual is not None):
+        raise ValueError("a residual is given exactly with the 'residual' "
+                         "epilogue")
+    if residual is not None and residual.shape != (M, N):
+        raise ValueError(f"residual must be ({M}, {N})")
+    if planes < 1 or N % planes or (epilogue == "residual" and planes != 1):
+        raise ValueError(f"planes must divide N = {N} (1 with a residual)")
+    for name, t in (("w", w), ("b", b), ("residual", residual)):
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError(f"{name} must be {x.dtype} like x, not "
+                            f"{t.dtype}")
+    _same_device(x, w, b, residual)
+
+
+def _card(dev: torch.device, what: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load("dense"), name)
+        if name == "ln_bf16_launch":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_float,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p]
+        else:
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+# ---------------------------------------------------------------- kernels
+def ln_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            eps: float = LN_EPS) -> torch.Tensor:
+    """K14: the LayerNorm over ``x``'s last dimension, in ``x``'s type and
+    shape; see the module docstring. Nothing is synchronised."""
+    global ln_launches
+    dev = x.device
+    if dev.type == "cpu":
+        return ln_bf16_plain(x, weight, bias, eps)
+    _check_ln(x, weight, bias)
+    _card(dev, "ln_bf16")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
+    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise TypeError("LayerNorm parameters must be float32")
+    d = x.shape[-1]
+    if d not in LN_WIDTHS:
+        raise ValueError(f"ln_bf16 takes d in {LN_WIDTHS}, not {d}")
+    if not all(t.is_contiguous() for t in (x, weight, bias)):
+        raise ValueError("ln_bf16 needs contiguous inputs")
+    if x.data_ptr() % 16:
+        raise ValueError("ln_bf16 needs x 16-byte aligned")
+    out = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _kernel("ln_bf16_launch")(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], weight.data_ptr(),
+            bias.data_ptr(), eps, rows, d, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ln_bf16 launch failed: CUDA error {rc}")
+    with _count_lock:
+        ln_launches += 1
+    return out
+
+
+def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              epilogue: str = "none",
+              residual: Optional[torch.Tensor] = None,
+              planes: int = 1) -> torch.Tensor:
+    """K15: ``(M, N)`` (or ``(planes, M, N / planes)``) in ``x``'s type;
+    see the module docstring. Nothing is synchronised."""
+    global gemm_launches
+    dev = x.device
+    if dev.type == "cpu":
+        return gemm_bf16_plain(x, w, b, epilogue, residual, planes)
+    _check_gemm(x, w, b, epilogue, residual, planes)
+    _card(dev, "gemm_bf16")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
+    M, K = x.shape
+    N = w.shape[0]
+    if K % 16 or N % 8 or (planes > 1 and (N // planes) % 64):
+        raise ValueError(f"gemm_bf16 takes K % 16 == 0, N % 8 == 0 and, "
+                         f"with planes, N / planes % 64 == 0; got K = {K}, "
+                         f"N = {N}, planes = {planes}")
+    ts = (x, w, b) + (() if residual is None else (residual,))
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("gemm_bf16 needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (x, w, residual) if t is not None):
+        raise ValueError("gemm_bf16 needs x, w and the residual 16-byte "
+                         "aligned")
+    if b.data_ptr() % 4:
+        raise ValueError("gemm_bf16 needs b 4-byte aligned")
+    shape = (M, N) if planes == 1 else (planes, M, N // planes)
+    out = torch.empty(shape, dtype=x.dtype, device=dev)
+    if M == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _kernel("gemm_bf16_launch")(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), _DTYPE_CODES[x.dtype], EPILOGUES[epilogue], M,
+            N, K, planes, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gemm_bf16 launch failed: CUDA error {rc}")
+    with _count_lock:
+        gemm_launches += 1
+    return out

@@ -14,7 +14,8 @@ fused with the inverse scatter of ``odigos_tpu/serving/fused.py``
 
 A CUDA tensor launches ``csrc/span_head.cu`` (one warp per span; padding
 costs nothing) or raises; a CPU tensor takes :func:`span_head_scatter_plain`
-(the port's ``LayerNorm`` → ``span_head`` → sigmoid → ``index_put``).
+(the port's ``LayerNorm``, K14's exact arithmetic → ``span_head`` →
+sigmoid → ``index_put``).
 ``launches`` counts the calls that launched.
 """
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,8 +50,7 @@ def span_head_scatter_plain(h: torch.Tensor, ln_weight: torch.Tensor,
     row = row_eff[:n].long()
     keep = row < R
     x = h[row[keep], span_col[:n].long()[keep]]
-    y = F.layer_norm(x.float(), (d,), ln_weight.float(), ln_bias.float(),
-                     eps).to(h.dtype)
+    y = layer_norm_plain(x, ln_weight, ln_bias, eps)
     z = F.linear(y.float(), head_weight.float().reshape(1, d),
                  head_bias.float().reshape(1))[:, 0]
     out[perm[:n].long()[keep]] = torch.sigmoid(z)

@@ -24,13 +24,19 @@ The device computations go through the port's kernels:
   ``kernels.recon``), which never writes the logits; on the fused route it
   also squashes each score and writes it at the span's original index.
 
-``bottleneck``, ``latent_proj``, ``dec_ff1`` + tanh-GELU and ``dec_ff2``
-are plain dense products, left to ``F.linear`` as the JAX package left
-them to XLA; they hold their weights in the working type, as Flax's
+* the encoder blocks' LayerNorms and dense products (K14 and K15,
+  ``kernels.dense``), and the decoder's ``dec_ff1`` + tanh-GELU and
+  ``dec_ff2`` over every position (K15, the GELU in ``dec_ff1``'s
+  epilogue).
+
+``bottleneck`` and ``latent_proj``, one small product per trace, are left
+to ``F.linear`` as the JAX package left them to XLA. The decoder's dense
+layers hold their weights in the working type, as Flax's
 ``Dense(dtype=bf16)`` casts them. The rounding points of the reference
 are kept: the pool is divided in the working type, ``dec_pos_embed`` is
-cast to it and added to the latent projection in it, and ``dec_ln``'s
-output is rounded to it before the f32 heads.
+cast to it and added to the latent projection in it, each Dense rounds its
+product before adding its bias, and ``dec_ln``'s output is rounded to the
+working type before the f32 heads.
 
 Defaults match ``odigos_tpu.models.autoencoder.AutoencoderConfig``: d_model
 128, d_latent 64, 2 heads, 2 layers, d_ff 512, max_len 64, vocabs
@@ -43,9 +49,9 @@ from dataclasses import dataclass
 from typing import Any, Mapping, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.dense import gemm_bf16, gemm_bf16_plain
 from ..kernels.embed import KIND_VOCAB
 from ..kernels.pool import ln_masked_pool, ln_masked_pool_plain
 from ..kernels.recon import recon_ce, recon_ce_plain
@@ -148,10 +154,10 @@ class SpanAutoencoder:
                 _as_tensor(continuous, torch.float32, dev),
                 _as_tensor(mask, torch.bool, dev))
 
-    def _decode(self, cat: torch.Tensor, cont: torch.Tensor,
-                mask: torch.Tensor, reference: bool) -> torch.Tensor:
-        """Encoder, K12 pool, bottleneck and decoder up to ``dec_ln``:
-        the ``(T·L, d)`` rows K11 reads."""
+    def _decoder_input(self, cat: torch.Tensor, cont: torch.Tensor,
+                       mask: torch.Tensor, reference: bool) -> torch.Tensor:
+        """Encoder, K12 pool, bottleneck, latent projection plus
+        ``dec_pos_embed``: the ``(T·L, d)`` rows ``dec_ff1`` reads."""
         m = self.module
         T, L = mask.shape
         seg = mask.to(torch.int32).contiguous()
@@ -164,9 +170,17 @@ class SpanAutoencoder:
         pooled = pool(h, ln.weight, ln.bias, mask, ln.eps)
         z = m.bottleneck(pooled)
         pos_e = m.dec_pos_embed.weight[:L].to(self.cfg.dtype)
-        dec = m.latent_proj(z)[:, None, :] + pos_e
-        dec = m.dec_ff2(F.gelu(m.dec_ff1(dec), approximate="tanh"))
-        return dec.reshape(T * L, -1)
+        return (m.latent_proj(z)[:, None, :] + pos_e).reshape(T * L, -1)
+
+    def _decode(self, cat: torch.Tensor, cont: torch.Tensor,
+                mask: torch.Tensor, reference: bool) -> torch.Tensor:
+        """The decoder up to ``dec_ln``, K15 twice (the GELU in
+        ``dec_ff1``'s epilogue): the ``(T·L, d)`` rows K11 reads."""
+        m = self.module
+        gemm = gemm_bf16_plain if reference else gemm_bf16
+        dec = gemm(self._decoder_input(cat, cont, mask, reference),
+                   m.dec_ff1.weight, m.dec_ff1.bias, "gelu_tanh")
+        return gemm(dec, m.dec_ff2.weight, m.dec_ff2.bias)
 
     def _errors(self, cat, cont, mask, reference: bool, span_map=None,
                 n_out: int = 0):

@@ -5,7 +5,7 @@ Counterparts of ``odigos_tpu/models/layers.py`` (``SpanEmbedder``,
 names ``models.convert.flax_to_torch`` maps onto. Flax's numerics are kept
 where torch's defaults differ:
 
-* ``nn.gelu`` is the tanh approximation (``F.gelu(approximate="tanh")``);
+* ``nn.gelu`` is the tanh approximation (K15's ``gelu_tanh`` epilogue);
 * ``nn.LayerNorm`` uses eps 1e-6 with statistics in f32, output in the
   working type;
 * a Dense with ``dtype=bf16`` casts both input and kernel to bf16: the
@@ -13,13 +13,17 @@ where torch's defaults differ:
 * embedding tables stay f32 (the gather-sum kernel reads them in f32 and
   rounds once).
 
-The two device computations of the encoder go through the port's
-kernels: the embedding gather-sum (``kernels.embed.span_embed``) and the
-packed attention (``kernels.attention.segment_attention``); the final
-LayerNorm is fused with the span head in ``kernels.head`` when the
-transformer scores through ``score_packed_scatter``. The LN/GEMM/GELU
-chain stays ``F.layer_norm``/``F.linear``, as the JAX package left those
-plain products to XLA.
+Every device computation of the encoder goes through the port's kernels:
+the embedding gather-sum (``kernels.embed.span_embed``, K2), the packed
+attention (``kernels.attention.segment_attention``, K1), and the block's
+dense chain (``kernels.dense``): each LayerNorm through K14 ``ln_bf16``,
+each Dense through K15 ``gemm_bf16`` with what follows it fused into the
+epilogue (the out-projection's and FFN2's residual add, FFN1's GELU), and
+q, k and v as one K15 launch over the concatenated ``[W_q; W_k; W_v]``
+(cached, rebuilt whenever a weight changes). The Dense rounding points are
+Flax's: the product rounded to the working type, then the bias added in
+it. The final LayerNorm is fused with the span head in ``kernels.head``
+when the transformer scores through ``score_packed_scatter``.
 """
 
 from __future__ import annotations
@@ -27,10 +31,10 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import segment_attention, segment_attention_plain
+from ..kernels.dense import gemm_bf16, gemm_bf16_plain, ln_bf16, ln_bf16_plain
 from ..kernels.embed import (EmbedTables, KIND_VOCAB, STATUS_VOCAB,
                              span_embed, span_embed_plain)
 
@@ -38,16 +42,17 @@ LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
 
 
 class LayerNorm(nn.LayerNorm):
-    """Flax LayerNorm: f32 statistics and params, eps 1e-6, output cast
-    to ``out_dtype``."""
+    """Flax LayerNorm: f32 statistics and params, eps 1e-6, output in
+    ``out_dtype``, the working type its input arrives in (K14)."""
 
     def __init__(self, d: int, out_dtype: torch.dtype):
         super().__init__(d, eps=LN_EPS)
         self.out_dtype = out_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.out_dtype)
+    def forward(self, x: torch.Tensor,
+                reference: bool = False) -> torch.Tensor:
+        ln = ln_bf16_plain if reference else ln_bf16
+        return ln(x.to(self.out_dtype), self.weight, self.bias, self.eps)
 
 
 class SpanEmbedder(nn.Module):
@@ -90,26 +95,50 @@ class EncoderBlock(nn.Module):
         self.ln2 = LayerNorm(d_model, dtype)
         self.ff1 = nn.Linear(d_model, d_ff)
         self.ff2 = nn.Linear(d_ff, d_model)
+        self._qkv: tuple = ((), (), None, None)  # key, held, weight, bias
 
     def dense_layers(self) -> list[nn.Linear]:
         return [self.query, self.key, self.value, self.out, self.ff1,
                 self.ff2]
 
+    def qkv(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``[W_q; W_k; W_v]`` (3d, d) and its bias (3d,), for the one K15
+        launch of the QKV product. Cached under the six tensors' addresses,
+        types and version counters (the cache holds their storage, so an
+        address is not reused while it is cached): a ``load_state_dict``,
+        an in-place copy or a move rebuilds it. Parameters made under
+        ``inference_mode`` count no versions: those are concatenated anew
+        on every call."""
+        parts = [t for lin in (self.query, self.key, self.value)
+                 for t in (lin.weight, lin.bias)]
+        key = None if any(t.is_inference() for t in parts) else tuple(
+            (t.data_ptr(), t._version, t.dtype, t.device) for t in parts)
+        if key is None or key != self._qkv[0]:
+            # plain tensors even under inference_mode: usable outside it
+            with torch.inference_mode(False), torch.no_grad():
+                held = tuple(t.detach() for t in parts)
+                w = torch.cat(held[0::2]).contiguous()
+                b = torch.cat(held[1::2]).contiguous()
+            self._qkv = (key, held, w, b)
+        return self._qkv[2], self._qkv[3]
+
     def forward(self, x: torch.Tensor, segments: torch.Tensor,
                 reference: bool = False) -> torch.Tensor:
         R, L, d = x.shape
         H = self.n_heads
-        h = self.ln1(x)
-        # (R, L, H, hd): JAX's DenseGeneral layout, the kernel's input
-        q = self.query(h).view(R, L, H, d // H)
-        k = self.key(h).view(R, L, H, d // H)
-        v = self.value(h).view(R, L, H, d // H)
+        gemm = gemm_bf16_plain if reference else gemm_bf16
+        x = x.reshape(R * L, d)
+        h = self.ln1(x, reference)
+        # q, k, v as three contiguous (R, L, H, hd) planes: JAX's
+        # DenseGeneral layout, K1's input
+        q, k, v = gemm(h, *self.qkv(), planes=3).view(3, R, L, H, d // H)
         attend = segment_attention_plain if reference else segment_attention
-        a = attend(q, k, v, segments)
-        x = x + self.out(a.view(R, L, d))
-        h = self.ln2(x)
-        h = F.gelu(self.ff1(h), approximate="tanh")
-        return x + self.ff2(h)
+        a = attend(q, k, v, segments).view(R * L, d)
+        x = gemm(a, self.out.weight, self.out.bias, "residual", residual=x)
+        h = gemm(self.ln2(x, reference), self.ff1.weight, self.ff1.bias,
+                 "gelu_tanh")
+        x = gemm(h, self.ff2.weight, self.ff2.bias, "residual", residual=x)
+        return x.view(R, L, d)
 
 
 class Encoder(nn.Module):
@@ -152,7 +181,7 @@ class Encoder(nn.Module):
                   self.tables(), self.dtype)
         for blk in self.blocks:
             x = blk(x, segments, reference=reference)
-        return self.final_ln(x) if final_ln else x
+        return self.final_ln(x, reference) if final_ln else x
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

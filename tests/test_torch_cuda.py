@@ -990,3 +990,154 @@ def test_gpu_autoencoder_engine_scores_like_the_cpu_engine(dev):
         assert 0 < fgot.max() < 1
     assert (kpool.launches - launches0[0], krecon.launches - launches0[1],
             kpack.rows_launches - launches0[2]) == (8, 8, 4)
+
+
+# -------------------------------------------- the float block's chain (B2)
+from odigos_tpu_torch.kernels import dense as kdense  # noqa: E402
+
+
+def _gemm_close(got: torch.Tensor, ref: torch.Tensor, x: torch.Tensor,
+                w: torch.Tensor, epilogue: str) -> None:
+    """K15 against its plain version. The two sum the same f32 products in
+    another order: in bf16 the rounded product may land one step apart and
+    each later rounding (the bias add; the GELU or the residual add) one
+    more, so each output is within one bf16 step per rounding (2 for
+    "none", 3 otherwise) at the largest magnitude of the rounded product
+    or the output; in f32 within F32_ATOL of that magnitude."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    g, r = got.float(), ref.float()
+    assert torch.isfinite(g).all()
+    pre = kdense.gemm_bf16_plain(x, w, torch.zeros_like(w[:, 0]))
+    top = max(r.abs().max().item(), pre.float().abs().max().item(),
+              2.0 ** -20)
+    lim = (F32_ATOL * max(1.0, top) if got.dtype == torch.float32
+           else (2 if epilogue == "none" else 3)
+           * 2.0 ** (math.floor(math.log2(top)) - 7))
+    assert (g - r).abs().max().item() <= lim
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,d", [(16384, 256), (1, 256), (1000, 128),
+                                 (333, 32), (77, 1024)])
+def test_ln_bf16_kernel_is_bit_equal_to_plain(dev, M, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(M + d)
+    x = (torch.randn(M, d, generator=g, device=dev) * 3 + 1).to(
+        getattr(torch, dtype))
+    w = torch.randn(d, generator=g, device=dev) * 0.2 + 1
+    b = torch.randn(d, generator=g, device=dev) * 0.2
+    before = kdense.ln_launches
+    got = kdense.ln_bf16(x, w, b)
+    ref = kdense.ln_bf16_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kdense.ln_launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def _dense_inputs(dev, M, N, K, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn(M, K, generator=g, device=dev).to(dt)
+    w = (torch.randn(N, K, generator=g, device=dev) / math.sqrt(K)).to(dt)
+    b = (0.3 * torch.randn(N, generator=g, device=dev)).to(dt)
+    return x, w, b
+
+
+@pytest.mark.parametrize("M,N,K,epilogue,planes", [
+    (16384, 768, 256, "none", 3),         # QKV, split for K1
+    (16384, 256, 256, "residual", 1),     # out-projection
+    (16384, 1024, 256, "gelu_tanh", 1),   # FFN1
+    (16384, 256, 1024, "residual", 1),    # FFN2
+    (4096, 384, 128, "none", 3),          # the autoencoder's QKV
+    (4096, 512, 128, "gelu_tanh", 1),     # its FFN1, dec_ff1
+    (4096, 128, 512, "none", 1),          # dec_ff2
+    (1000, 200, 80, "none", 1),           # ragged M, N and K
+    (1000, 200, 80, "gelu_tanh", 1),
+    (130, 24, 48, "residual", 1),
+    (1, 128, 16, "none", 2)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gemm_bf16_kernel_matches_plain(dev, M, N, K, epilogue, planes,
+                                        dtype):
+    x, w, b = _dense_inputs(dev, M, N, K, dtype)
+    res = torch.randn(M, N, device=dev).to(x.dtype) \
+        if epilogue == "residual" else None
+    before = kdense.gemm_launches
+    got = kdense.gemm_bf16(x, w, b, epilogue, res, planes)
+    ref = kdense.gemm_bf16_plain(x, w, b, epilogue, res, planes)
+    torch.cuda.synchronize()
+    assert kdense.gemm_launches == before + 1
+    _gemm_close(got, ref, x, w, epilogue)
+
+
+def test_gemm_bf16_kernel_past_2_31_outputs(dev):
+    """M x N past 2^31 elements (the autoencoder's fused FFN1 reaches
+    2^32): the rows at both ends against the plain version on those rows
+    alone (each output row depends on its input row only)."""
+    M, N, K = (1 << 31) // 512 + 3000, 512, 128
+    x, w, b = _dense_inputs(dev, M, N, K, "bfloat16")
+    got = kdense.gemm_bf16(x, w, b, "gelu_tanh")
+    torch.cuda.synchronize()
+    assert got.numel() > 2 ** 31
+    for rows in (slice(0, 4096), slice(M - 4096, M)):
+        _gemm_close(got[rows], kdense.gemm_bf16_plain(x[rows], w, b,
+                                                      "gelu_tanh"),
+                    x[rows], w, "gelu_tanh")
+
+
+def test_dense_kernels_refuse_what_they_do_not_take(dev):
+    x, w, b = _dense_inputs(dev, 64, 64, 48, "bfloat16")
+    with pytest.raises(ValueError, match="K % 16"):
+        kdense.gemm_bf16(x[:, :24].contiguous(), w[:, :24].contiguous(), b)
+    with pytest.raises(ValueError, match="N % 8 == 0"):
+        kdense.gemm_bf16(x, w[:60].contiguous(), b[:60])
+    with pytest.raises(ValueError, match="N / planes % 64"):
+        kdense.gemm_bf16(x, w, b, planes=2)
+    flat = torch.zeros(64 * 48 + 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        kdense.gemm_bf16(flat[1:64 * 48 + 1].view(64, 48), w, b)
+    strided = torch.zeros(64, 96, dtype=torch.bfloat16, device=dev)[:, :48]
+    with pytest.raises(ValueError, match="contiguous"):
+        kdense.gemm_bf16(strided, w, b)
+    with pytest.raises(TypeError):
+        kdense.gemm_bf16(x.half(), w.half(), b.half())
+    with pytest.raises(TypeError):
+        kdense.gemm_bf16(x, w.float(), b)
+    with pytest.raises(ValueError, match="d in"):
+        kdense.ln_bf16(torch.randn(8, 48, device=dev), torch.ones(48,
+                                                                   device=dev),
+                       torch.zeros(48, device=dev))
+    with pytest.raises(TypeError):
+        kdense.ln_bf16(torch.randn(8, 64, device=dev).half(),
+                       torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        kdense.ln_bf16(torch.randn(8, 64, device=dev),
+                       torch.ones(64, device=dev).bfloat16(),
+                       torch.zeros(64, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_forward_launches_the_dense_chain(dev, dtype):
+    """One host-route forward of the default transformer: K14 twice a layer
+    and once for the final LayerNorm, K15 four times a layer (QKV as one
+    launch); the autoencoder's: K14 twice a layer, K15 four times a layer
+    and twice in the decoder."""
+    model = TraceTransformer(TransformerConfig(dtype=getattr(torch, dtype)),
+                             device=dev)
+    pk = _packed(100, 64)
+    ln0, gemm0 = kdense.ln_launches, kdense.gemm_launches
+    model.score_packed(pk.categorical, pk.continuous, pk.segments,
+                       pk.positions)
+    torch.cuda.synchronize()
+    n = model.cfg.n_layers
+    assert (kdense.ln_launches - ln0, kdense.gemm_launches - gemm0) == \
+        (2 * n + 1, 4 * n)
+    from odigos_tpu_torch.features import assemble_sequences
+
+    ae = SpanAutoencoder(AutoencoderConfig(dtype=getattr(torch, dtype)),
+                         device=dev)
+    seqs = assemble_sequences(synthesize_traces(50, seed=5), max_len=64)
+    ln0, gemm0 = kdense.ln_launches, kdense.gemm_launches
+    ae.span_errors(seqs.categorical, seqs.continuous, seqs.mask)
+    torch.cuda.synchronize()
+    n = ae.cfg.n_layers
+    assert (kdense.ln_launches - ln0, kdense.gemm_launches - gemm0) == \
+        (2 * n, 4 * n + 2)

@@ -11,7 +11,9 @@ an edit whose anchor is missing fails the run), built with the same
 ``nvcc`` flags as ``odigos_tpu_torch/kernels/build.py``, and launched
 through the port's wrapper on the smoke run's main-path inputs (R = 256
 and 2048 packed rows, default ``TransformerConfig``; K10 ``qgemm`` at the
-int8 block's QKV product, on the first block's own codes). Times are
+int8 block's QKV product, on the first block's own codes; K15
+``gemm_bf16`` at the float block's FFN1 + GELU, on the first block's own
+LN2 output). Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
 the unchanged build is held to the plain version.
@@ -31,6 +33,18 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# K15's epilogue taken out: no accumulator is rounded, staged or stored
+# (a test that never holds keeps the products alive)
+NO_EPILOGUE = {
+    "    epilogue_rows<MODE>(acc0, 0, out_buf, bias, res, m0, n0, M, N);\n"
+    "    epilogue_rows<MODE>(acc1, 64, out_buf, bias, res, m0, n0, M, N);\n":
+        "    if (acc0[0] == 1234567.f && acc1[63] == -7654321.f) {\n"
+        "      epilogue_rows<MODE>(acc0, 0, out_buf, bias, res, m0, n0, M, "
+        "N);\n"
+        "      epilogue_rows<MODE>(acc1, 64, out_buf, bias, res, m0, n0, M, "
+        "N);\n    }\n",
+    "        if (n >= N) break;\n": "        break;\n"}
 
 # kernel -> variant -> {anchor text in the source: replacement}
 VARIANTS = {
@@ -72,7 +86,36 @@ VARIANTS = {
                 "        if (y0 == 1234567.f && y1 == -7654321.f)\n"
                 "          Out<T>::store2(outp + m * plane_cols, y0, y1);"},
     },
+    "gemm_bf16": {
+        # the TMA loads and the ring only: no products, no epilogue
+        "loads_only": {
+            "        wgmma_m64n128k16(acc0, sw128_desc(a + kk * 32), db);\n"
+            "        wgmma_m64n128k16(acc1, sw128_desc(a + 64 * 128 + kk * "
+            "32), db);":
+                "        (void)db;",
+            **NO_EPILOGUE},
+        # the products on stale shared memory and the ring: no TMA loads
+        # (the producer arrives on each stage itself), no epilogue
+        "mma_only": {
+            "          mbar_expect_tx(&full[s], kStageBytes);\n"
+            "          tma_load_2d(st, &map_x, kt * BK, m0, &full[s]);\n"
+            "          tma_load_2d(st + kTileA, &map_w, kt * BK, n0, "
+            "&full[s]);":
+                "          (void)st, (void)n0, (void)m0;\n"
+                "          mbar_arrive(&full[s]);",
+            **NO_EPILOGUE},
+        # loads and products, no epilogue
+        "no_epilogue": NO_EPILOGUE,
+    },
 }
+
+
+# kernel -> (source under build.SOURCES, its C launcher)
+LAUNCHERS = {"segment_attention": ("segment_attention",
+                                   "segment_attention_launch"),
+             "span_embed": ("span_embed", "span_embed_launch"),
+             "qgemm": ("qgemm", "qgemm_launch"),
+             "gemm_bf16": ("dense", "gemm_bf16_launch")}
 
 ARGTYPES = {
     "segment_attention": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -82,6 +125,9 @@ ARGTYPES = {
                   + [ctypes.c_void_p],
     "qgemm": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "gemm_bf16": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p]),
 }
 
 
@@ -90,7 +136,8 @@ def build_variants(tmp: str) -> dict:
 
     procs = {}
     for kname, variants in VARIANTS.items():
-        src = (build.CSRC / build.SOURCES[kname]).read_text()
+        source, launcher = LAUNCHERS[kname]
+        src = (build.CSRC / build.SOURCES[source]).read_text()
         for vname, edits in variants.items():
             text = src
             for anchor, repl in edits.items():
@@ -112,7 +159,7 @@ def build_variants(tmp: str) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{kname}/{vname} failed to build:\n{log}")
-        fn = getattr(ctypes.CDLL(so), f"{kname}_launch")
+        fn = getattr(ctypes.CDLL(so), LAUNCHERS[kname][1])
         fn.argtypes = ARGTYPES[kname]
         fn.restype = ctypes.c_int
         fns[(kname, vname)] = fn
@@ -127,7 +174,8 @@ def main() -> int:
         print("torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     import chip_smoke
-    from odigos_tpu_torch.kernels import attention, build, embed, qgemm, quant
+    from odigos_tpu_torch.kernels import (attention, build, dense, embed,
+                                          qgemm, quant)
     from odigos_tpu_torch.models import (QuantizedTraceScorer,
                                          TraceTransformer, TransformerConfig)
 
@@ -140,6 +188,14 @@ def main() -> int:
     modules = {"segment_attention": attention, "span_embed": embed,
                "qgemm": qgemm}
     built = {k: m._kernel() for k, m in modules.items()}
+    built["gemm_bf16"] = dense._kernel("gemm_bf16_launch")
+
+    def swap(kname: str, fn) -> None:
+        if kname == "gemm_bf16":
+            dense._fns["gemm_bf16_launch"] = fn
+        else:
+            modules[kname]._fn = fn
+
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(tmp)
         fns.update({(k, "unchanged"): fn for k, fn in built.items()})
@@ -164,10 +220,11 @@ def main() -> int:
                 x = embed.span_embed_plain(cat, cont, pos, seg, tables,
                                            cfg.dtype)
                 blk = enc.blocks[0]
-                h = blk.ln1(x)
                 L = cat.shape[1]
-                q, k, v = (lin(h).view(R, L, H, hd)
-                           for lin in (blk.query, blk.key, blk.value))
+                x2 = x.view(R * L, -1)
+                q, k, v = dense.gemm_bf16(blk.ln1(x2), *blk.qkv(),
+                                          planes=3).view(3, R, L, H, hd)
+                h2 = blk.ln2(x2)
                 xq, a_s = quant.ln_quantize(x.view(R * L, -1), *qblk.ln1)
                 qkv = qblk.qkv
                 calls = {
@@ -176,14 +233,16 @@ def main() -> int:
                     "span_embed": lambda: embed.span_embed(
                         cat, cont, pos, seg, tables, cfg.dtype),
                     "qgemm": lambda: qgemm.qgemm(
-                        xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3)}
+                        xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3),
+                    "gemm_bf16": lambda: dense.gemm_bf16(
+                        h2, blk.ff1.weight, blk.ff1.bias, "gelu_tanh")}
                 for (kname, vname), fn in sorted(fns.items()):
-                    modules[kname]._fn = fn
+                    swap(kname, fn)
                     try:
                         ms = chip_smoke.device_ms(calls[kname],
                                                   scratch.zero_)
                     finally:
-                        modules[kname]._fn = built[kname]
+                        swap(kname, built[kname])
                     print(json.dumps({"kernel": kname, "variant": vname,
                                       "R": R, "device_ms": ms,
                                       "card": card}), flush=True)

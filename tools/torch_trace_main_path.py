@@ -28,11 +28,11 @@ prints one JSON line with:
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
   profiler saw — and the idle share of the window;
-* device time by category (K1 to K13, GEMMs, LayerNorm, GELU, copies,
+* device time by category (K1 to K15, GEMMs, LayerNorm, GELU, copies,
   other; K7's layout kernel also runs inside K13),
   each category's share of the busy time, and the top kernels by device
   time;
-* each hand-written kernel by name (K1-K13: K3, K6, K7 and K13 are
+* each hand-written kernel by name (K1-K15: K3, K6, K7 and K13 are
   several kernels each), with its launches and device ms per engine call;
 * the engine's stage medians (pack stage, device stage).
 
@@ -72,6 +72,8 @@ CATEGORIES = (
     ("K10 qgemm", ("qgemm_kernel",)),
     ("K11 recon_ce", ("recon_ce_kernel",)),
     ("K12 ln_masked_pool", ("ln_masked_pool_kernel",)),
+    ("K14 ln_bf16", ("ln_bf16_kernel",)),
+    ("K15 gemm_bf16", ("gemm_tc_kernel", "gemm_f32_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
     ("GELU", ("gelu", "GeluCUDA")),
