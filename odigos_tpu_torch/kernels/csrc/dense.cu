@@ -29,16 +29,21 @@
 // bf16 design (the serving path): wgmma.mma_async m64n128k16 bf16 -> f32
 // with both operands in shared memory under the 128-byte swizzle, loaded
 // by TMA (cp.async.bulk.tensor, zero fill past M, N and K). A persistent
-// CTA (one per SM, 193 KB of shared memory) holds two consumer
+// CTA (one per SM, up to 225 KB of shared memory) holds two consumer
 // warpgroups, each computing whole 128 x 128 tiles (two m64 accumulators,
-// 128 registers) from its own 2-stage mbarrier ring, filled by its own
-// producer warp (one lane issues the TMA loads). The CTA's tiles
-// alternate between the warpgroups (ping-pong), so one warpgroup's
-// epilogue overlaps the other's products; consecutive CTAs walk N first
-// and share their A rows through L2. The epilogue rounds in registers,
-// writes the tile into shared memory as two 128-byte-swizzled 128 x 64
-// boxes (conflict-free), and one thread stores them with the TMA
-// (cp.async.bulk.tensor, rows past M and columns past N clipped). All
+// 128 registers) from its own mbarrier ring (2 to 4 stages), filled by
+// its own producer warp (one lane issues the TMA loads), with one wgmma
+// group kept in flight. The CTA's tiles alternate between the warpgroups
+// (ping-pong), so one warpgroup's epilogue overlaps the other's products.
+// Where K <= 256 the walk is weight-stationary: a CTA keeps one column
+// tile's W slice resident and walks row tiles, so only A streams through
+// L2 (half the traffic of reloading both at K = 256); deeper K streams A
+// and W tiles, N fastest. The epilogue takes the bias from shared memory,
+// the residual from the staging buffer (loaded there by TMA) and the GELU
+// from a shared table of the formula's own bf16 results (see gelu_index);
+// it rounds in registers, writes the tile into shared memory as
+// 128-byte-swizzled 64-column boxes (conflict-free), and one thread
+// stores them with the TMA (rows past M and columns past N clipped). All
 // offsets are 64-bit: the autoencoder's fused route reaches M = 8.1 M
 // rows, M x 512 outputs past 2^32 elements.
 // f32 (the f32 model on the card): a plain CUDA-core tiled kernel, 64 x 64
@@ -48,8 +53,7 @@
 // QKV (N 768, K 256) reads 67 MB and writes 201 MB (0.080 ms at 3.35 TB/s)
 // for 51.5 GFLOP (0.052 ms at 989 TFLOP/s); FFN1 (N 1024) 67 + 268 MB
 // (0.100 ms); FFN2 (K 1024, + residual) 268 + 67 + 67 MB (0.120 ms).
-// Measured (PERF.md): every step but FFN1 within 2x of its bound; FFN1's
-// GELU epilogue (an accurate tanhf per output) is ALU-bound, 3x.
+// Measured times are in PERF.md.
 //
 // The TMA descriptors are encoded on the host for every launch with the
 // driver's cuTensorMapEncodeTiled, fetched through the runtime's
@@ -185,17 +189,61 @@ int ln_launch_t(const T* x, const float* g, const float* b, float eps,
 }
 
 // ------------------------------------------------------- K15 epilogue
+// The GELU's input is a bf16 value (y = round(round(acc) + b)), so
+// round(gelu(y)) is a function of 16 bits. Each CTA tabulates it with
+// gelu_tanh itself for 2^-61 <= |y| < 8 (biased exponents 66..129: 64 x
+// 128 mantissas) and y = +-0 (every padded row: LN of a zero row is beta,
+// zero at init), 8,193 slots of a positive and a negative entry, 16,386
+// in all (32 KB of shared memory), indexed by y's bits. The range reaches
+// that far down because a narrower one (2^-10, 6.5 KB) left tiny values
+// in most warps' 4,096 outputs a tile. The epilogue is issue-bound (one
+// warp a scheduler runs it), so a lookup is a handful of integer steps:
+// the slot clamped into the table, the sign as its low bit. Elsewhere
+// (|y| >= 8, inf, NaN, |y| < 2^-61) a thread notes a rare value and, after
+// its rows, runs the formula on those alone. A lookup returns the
+// formula's bits: the table needs no bound of its own.
+constexpr unsigned kGeluLo = 66u << 7;  // |y|'s bits at 2^-61
+constexpr unsigned kGeluSpan = 64u << 7;  // slots of the range; zero's next
+constexpr int kGeluEntries = 2 * (kGeluSpan + 1);
+
+__device__ __forceinline__ uint16_t gelu_formula_bits(uint32_t b) {
+  const float y = __bfloat162float(__ushort_as_bfloat16((uint16_t)b));
+  return __bfloat16_as_ushort(__float2bfloat16_rn(gelu_tanh(y)));
+}
+
+// |y|'s bits a (y's bits h) outside the table: neither in the range nor 0
+__device__ __forceinline__ bool gelu_rare(uint32_t h) {
+  const uint32_t u = (h & 0x7FFFu) - kGeluLo;
+  return u >= kGeluSpan && u != 0u - kGeluLo;
+}
+
+// the entry of y's bits h: 2 x slot + sign (a rare value lands on zero's)
+__device__ __forceinline__ uint32_t gelu_index(uint32_t h) {
+  const uint32_t u = (h & 0x7FFFu) - kGeluLo;
+  return ((u < kGeluSpan ? u : kGeluSpan) << 1) | ((h >> 15) & 1u);
+}
+
+__device__ __forceinline__ void gelu_table_fill(uint16_t* tab) {
+  for (int i = threadIdx.x; i < kGeluEntries; i += blockDim.x) {
+    const uint32_t slot = (uint32_t)i >> 1;
+    tab[i] = gelu_formula_bits(((i & 1u) << 15) |
+                               (slot < kGeluSpan ? slot + kGeluLo : 0u));
+  }
+}
+
 // Two neighbouring columns at once. A bf16x2 add of two bf16 pairs is the
 // exact sum rounded once, which equals the plain version's f32 add then
 // round (the f32 sum of two bf16 values is exact unless their exponents
 // are more than 16 apart, and then both roundings return the larger).
+// MODE 2's GELU is looked up by the caller; MODE 3 evaluates the same
+// formula per output (kept to hold the table to it).
 template <int MODE>
 __device__ __forceinline__ __nv_bfloat162 epi_bf16x2(float a0, float a1,
                                                      __nv_bfloat162 b,
                                                      __nv_bfloat162 r) {
   // round(round(acc) + b)
   __nv_bfloat162 y = __hadd2(__floats2bfloat162_rn(a0, a1), b);
-  if constexpr (MODE == 2) {  // round(gelu(y)), gelu in f32
+  if constexpr (MODE == 3) {  // round(gelu(y)), gelu in f32
     const float2 f = __bfloat1622float2(y);
     y = __floats2bfloat162_rn(gelu_tanh(f.x), gelu_tanh(f.y));
   }
@@ -207,16 +255,40 @@ __device__ __forceinline__ __nv_bfloat162 epi_bf16x2(float a0, float a1,
 constexpr int BM = 128;  // rows of a tile: one consumer warpgroup's
 constexpr int BN = 128;
 constexpr int BK = 64;  // 128 bytes of bf16: one 128-byte swizzle row
-constexpr int kStages = 2;  // per consumer warpgroup: a ring each
 constexpr int kConsumerWgs = 2;
 constexpr int kTcThreads = 160 * kConsumerWgs;  // + a producer warp each
 constexpr int kTileA = BM * BK * 2;
 constexpr int kTileB = BN * BK * 2;
-constexpr int kStageBytes = kTileA + kTileB;
-constexpr int kOutHalf = BM * 64 * 2;  // 128 rows x 64 columns of bf16
-constexpr int kOutBytes = 2 * kOutHalf;  // one warpgroup's output tile
-constexpr int kTcSmem = kConsumerWgs * (kStages * kStageBytes + kOutBytes) +
-                        1024;  // + 1024-byte alignment: 193 KB
+constexpr int kMaxStages = 4;
+// Weight-stationary walk (K <= kWsMaxK): the CTA keeps its BN x K slice of
+// W resident and its ring stages hold A tiles only.
+constexpr int kWsMaxK = 256;
+constexpr int kWsSlice = kWsMaxK / BK * kTileB;
+
+// Shared memory of one build (227 KB at most): each warpgroup's ring of
+// kStages stages (streaming: an A and a W tile each; weight-stationary: an
+// A tile each, the W slice beside) and its output staging, half a tile
+// (two 64 x 64 boxes, stored and refilled twice a tile: a residual's
+// second half is loaded in between, hidden behind the other warpgroup's
+// products) or, for the weight-stationary residual steps, whose short
+// products would not hide that load, a whole 128-row tile. Half-tile
+// staging leaves room for deeper rings (4 or 3 stages) or the GELU table
+// (32 KB); then the bias pairs.
+template <int MODE, bool WS>
+struct TcCfg {
+  static constexpr bool kHalf = !(WS && MODE == 1);
+  static constexpr int kStages =
+      WS ? (MODE == 0 ? 4 : 3) : (MODE < 2 ? 3 : 2);
+  static constexpr int kStageBytes = WS ? kTileA : kTileA + kTileB;
+  static constexpr int kBoxRows = kHalf ? BM / 2 : BM;
+  static constexpr int kBoxBytes = kBoxRows * 64 * 2;  // rows x 64 columns
+  static constexpr int kWgBytes = kStages * kStageBytes + 2 * kBoxBytes;
+  static constexpr int kMain = (WS ? kWsSlice : 0) + kConsumerWgs * kWgBytes;
+  static constexpr int kTab = MODE >= 2 ? kGeluEntries * 2 : 0;
+  static constexpr int kSmem = 1024 + kMain + kTab + kConsumerWgs * BN * 2;
+  static_assert(kStages <= kMaxStages, "barrier arrays");
+  static_assert(kSmem + 256 <= 232448, "over the 227 KB a block may use");
+};
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -259,6 +331,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_u32(bar))
       : "memory");
 }
@@ -320,105 +403,229 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
 }
 
 // One warpgroup's 64 rows x 128 columns of accumulators (rows [r0, r0 +
-// 64) of the tile) through the epilogue into the output staging buffer,
-// laid out as the two 128-byte-swizzled 128 x 64 boxes the TMA store
-// reads: column pair (c, c + 1) of tile row r lands in box c / 64, row r,
-// 16-byte chunk (c % 64 / 8) ^ (r % 8). Warp w of the warpgroup holds rows
-// 16 w + lane / 4 (+ 8); acc[4 j + 2 h + e] is column 8 j + 2 (lane % 4)
-// + e of the row + 8 h (wgmma's m64nNk16 accumulator layout).
-template <int MODE>
+// 64) of the staging buffer) through the epilogue into the staging buffer,
+// laid out as the two 128-byte-swizzled ROWS x 64 boxes the TMA store
+// reads (and, for the residual, the TMA load wrote): column pair (c, c +
+// 1) of staging row r lands in box c / 64, row r, 16-byte chunk (c % 64 /
+// 8) ^ (r % 8). Warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8);
+// acc[4 j + 2 h + e] is column 8 j + 2 (lane % 4) + e of the row + 8 h
+// (wgmma's m64nNk16 accumulator layout). bias2[j] is the bias pair of
+// the thread's columns 8 j + 2 (lane % 4) + {0, 1}.
+template <int ROWS>
+__device__ __forceinline__ __nv_bfloat162* staged_pair(uint8_t* buf, int j,
+                                                       int r, int lane) {
+  return reinterpret_cast<__nv_bfloat162*>(
+      buf + (j >> 3) * (ROWS * 128) + r * 128 + (((j & 7) ^ (r & 7)) << 4) +
+      (lane & 3) * 4);
+}
+
+// MODE 2 stages the table's results and notes whether any of its values
+// is rare; a thread that has one runs its outputs again, the formula on
+// the rare ones alone (a branch around the whole pass, rarely taken). The
+// rows go in chunks of kChunk column groups: every shared-memory load of a
+// chunk (the residual, the table) is issued before its stores, so the
+// loads' latency overlaps instead of waiting behind each store.
+template <int MODE, int ROWS>
 __device__ __forceinline__ void epilogue_rows(
-    const float (&acc)[64], int r0, uint8_t* buf,
-    const __nv_bfloat16* __restrict__ bias,
-    const __nv_bfloat16* __restrict__ res, long long m0, int n0,
-    long long M, int N) {
+    const float (&acc)[64], int r0, uint8_t* __restrict__ buf,
+    const __nv_bfloat162 (&bias2)[BN / 8],
+    const uint16_t* __restrict__ tab) {
+  constexpr int kChunk = 4;
   const int lane = threadIdx.x & 31;
   const int rw = r0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  bool rare = false;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = j * 8 + (lane & 3) * 2;
-    const int n = n0 + c;
-    const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-    const __nv_bfloat162 b2 =
-        n < N ? *reinterpret_cast<const __nv_bfloat162*>(bias + n) : zero;
+  for (int j0 = 0; j0 < BN / 8; j0 += kChunk) {
+    uint32_t v[kChunk][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = rw + 8 * h;
-      __nv_bfloat162 r2 = zero;
-      if constexpr (MODE == 1) {
-        const long long m = m0 + r;
-        if (m < M && n < N)
-          r2 = *reinterpret_cast<const __nv_bfloat162*>(res + m * N + n);
+    for (int jj = 0; jj < kChunk; ++jj) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + jj;
+        __nv_bfloat162 r2 = __floats2bfloat162_rn(0.f, 0.f);
+        if constexpr (MODE == 1)  // the residual, staged by TMA
+          r2 = *staged_pair<ROWS>(buf, j, rw + 8 * h, lane);
+        const __nv_bfloat162 y = epi_bf16x2<MODE>(
+            acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], bias2[j], r2);
+        v[jj][h] = *reinterpret_cast<const uint32_t*>(&y);
       }
-      const __nv_bfloat162 y =
-          epi_bf16x2<MODE>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], b2, r2);
-      *reinterpret_cast<__nv_bfloat162*>(
-          buf + (j >> 3) * kOutHalf + r * 128 +
-          (((j & 7) ^ (r & 7)) << 4) + (lane & 3) * 4) = y;
+    }
+    if constexpr (MODE == 2) {
+      uint32_t lo[kChunk][2], hi[kChunk][2];
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rare |= gelu_rare(v[jj][h] & 0xFFFFu) | gelu_rare(v[jj][h] >> 16);
+          lo[jj][h] = tab[gelu_index(v[jj][h] & 0xFFFFu)];
+          hi[jj][h] = tab[gelu_index(v[jj][h] >> 16)];
+        }
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) v[jj][h] = lo[jj][h] | (hi[jj][h] << 16);
+    }
+#pragma unroll
+    for (int jj = 0; jj < kChunk; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(
+            staged_pair<ROWS>(buf, j0 + jj, rw + 8 * h, lane)) = v[jj][h];
+  }
+  if constexpr (MODE == 2) {
+    if (rare) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 y = epi_bf16x2<0>(
+              acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], bias2[j], bias2[j]);
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(&y);
+          uint16_t* e = reinterpret_cast<uint16_t*>(
+              staged_pair<ROWS>(buf, j, rw + 8 * h, lane));
+          if (gelu_rare(v & 0xFFFFu)) e[0] = gelu_formula_bits(v & 0xFFFFu);
+          if (gelu_rare(v >> 16)) e[1] = gelu_formula_bits(v >> 16);
+        }
+      }
     }
   }
 }
 
-// Persistent: the CTA takes tiles blockIdx.x, + gridDim.x, ... (N
-// fastest, so the tiles in flight share their A rows through L2); its
-// q-th tile goes to consumer warpgroup q % 2 (ping-pong: one warpgroup's
-// epilogue overlaps the other's products). Each warpgroup has its own
-// ring of stages, filled by its own producer warp: with one shared ring a
-// warpgroup could wait on a stage two phases ahead of its barrier, where
-// the phase parity no longer tells them apart.
-template <int MODE>
+// The residual's rows m0.. (one staging buffer's worth: two 64-column
+// boxes of BOX bytes) into the staging buffer, on barrier bar, once the
+// last store has read the buffer. Called by the warpgroup's leader.
+template <int BOX>
+__device__ __forceinline__ void load_residual(const CUtensorMap* map_res,
+                                              uint8_t* buf, long long m0,
+                                              int n0, int N, uint64_t* bar) {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  const int boxes = n0 + 64 < N ? 2 : 1;
+  mbar_expect_tx(bar, boxes * BOX);
+  for (int half = 0; half < boxes; ++half)
+    tma_load_3d(buf + half * BOX, map_res, n0 + 64 * half, (int)m0, 0, bar);
+}
+
+// The staging buffer's rows [0, ROWS) out to rows m0.. of the output, one
+// 64-column box at a time (each box lies in one plane: plane_cols % 64 ==
+// 0 when there are several); rows past M and columns past N are clipped.
+// Called by the warpgroup's leader.
+template <int ROWS>
+__device__ __forceinline__ void store_boxes(const CUtensorMap* map_out,
+                                            const uint8_t* buf, long long m0,
+                                            int n0, int N, int plane_cols) {
+  for (int half = 0; half < 2; ++half) {
+    const int n = n0 + 64 * half;
+    if (n >= N) break;
+    const int plane = n / plane_cols;
+    tma_store_3d(map_out, buf + half * (ROWS * 128), n - plane * plane_cols,
+                 (int)m0, plane);
+  }
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Persistent; each CTA's tiles alternate between its two consumer
+// warpgroups (ping-pong: one warpgroup's epilogue overlaps the other's
+// products). Each warpgroup has its own ring of stages, filled by its own
+// producer warp: with one shared ring a warpgroup could wait on a stage
+// two phases ahead of its barrier, where the phase parity no longer tells
+// them apart. The walk:
+//   WS     the CTA owns column tile blockIdx.x % n_tiles, whose W slice
+//          (BN x K, K <= kWsMaxK) it loads once, and row tiles
+//          blockIdx.x / n_tiles + i * groups; the n_tiles CTAs of a row
+//          group read the same A rows at about the same time, so A comes
+//          from L2 once per column tile and W not at all: half the L2
+//          traffic of the streaming walk at K = 256, and the room a W tile
+//          took goes to deeper A rings (the loads are latency-bound: what
+//          is in flight sets their rate);
+//   else   tiles blockIdx.x, + gridDim.x, ... in the flat (m, n) order, N
+//          fastest, each stage holding an A and a W tile.
+// The consumer keeps one wgmma group in flight (wait_group 1) and frees a
+// stage one step after its products were issued. The epilogue takes the
+// bias from shared memory (staged once a tile) and, in residual mode, the
+// residual tile from the staging buffer, loaded there by TMA while the
+// tile's products run.
+template <int MODE, bool WS>
 __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
     const __grid_constant__ CUtensorMap map_x,
     const __grid_constant__ CUtensorMap map_w,
     const __grid_constant__ CUtensorMap map_out,
-    const __nv_bfloat16* __restrict__ bias,
-    const __nv_bfloat16* __restrict__ res, long long M, int N, int K,
-    int plane_cols, int n_tiles, long long tiles) {
+    const __grid_constant__ CUtensorMap map_res,
+    const __nv_bfloat16* __restrict__ bias, long long M, int N, int K,
+    int plane_cols, int n_tiles, long long m_tiles) {
+  using C = TcCfg<MODE, WS>;
+  constexpr int S = C::kStages;
+  constexpr int kStageBytes = C::kStageBytes;
+  constexpr int ROWS = C::kBoxRows;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full_bars[kConsumerWgs][kStages];
-  __shared__ __align__(8) uint64_t empty_bars[kConsumerWgs][kStages];
+  __shared__ __align__(8) uint64_t full_bars[kConsumerWgs][kMaxStages];
+  __shared__ __align__(8) uint64_t empty_bars[kConsumerWgs][kMaxStages];
+  __shared__ __align__(8) uint64_t res_bars[kConsumerWgs];
+  __shared__ __align__(8) uint64_t w_bar;
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the rings to it
   uint8_t* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint16_t* gelu_tab = reinterpret_cast<uint16_t*>(smem + C::kMain);
+  auto* bias_smem =
+      reinterpret_cast<__nv_bfloat162*>(smem + C::kMain + C::kTab);
   const int ktiles = (K + BK - 1) / BK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int g = 0; g < kConsumerWgs; ++g)
+    for (int g = 0; g < kConsumerWgs; ++g) {
 #pragma unroll
-      for (int s = 0; s < kStages; ++s) {
+      for (int s = 0; s < S; ++s) {
         mbar_init(&full_bars[g][s], 1);
         mbar_init(&empty_bars[g][s], 4);  // the warpgroup's four warps
       }
+      mbar_init(&res_bars[g], 1);
+    }
+    mbar_init(&w_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (MODE == 2) gelu_table_fill(gelu_tab);
   __syncthreads();
 
   // warpgroup wg's ring, staging buffer and tiles (its producer warp is
   // warp 4 * kConsumerWgs + wg)
   const int wg = warp < 4 * kConsumerWgs ? warp >> 2
                                          : warp - 4 * kConsumerWgs;
-  uint8_t* ring = smem + wg * (kStages * kStageBytes + kOutBytes);
+  uint8_t* wslice = smem;  // WS: the CTA's W slice, ktiles boxes
+  uint8_t* ring = smem + (WS ? kWsSlice : 0) + wg * C::kWgBytes;
+  uint8_t* out_buf = ring + S * kStageBytes;
   uint64_t* full = full_bars[wg];
   uint64_t* empty = empty_bars[wg];
-  const long long first = blockIdx.x + wg * (long long)gridDim.x;
-  const long long step = kConsumerWgs * (long long)gridDim.x;
+  // the walk: tile q of the warpgroup's is (q / n_tiles, q % n_tiles) in
+  // the flat order, or (q, ws_col) for the weight-stationary walk
+  const long long stride = WS ? gridDim.x / n_tiles : gridDim.x;
+  const long long first =
+      (WS ? blockIdx.x / n_tiles : blockIdx.x) + wg * stride;
+  const long long step = kConsumerWgs * stride;
+  const long long limit = WS ? m_tiles : m_tiles * n_tiles;
+  const int ws_col = WS ? (int)(blockIdx.x % n_tiles) : 0;
 
   if (warp >= 4 * kConsumerWgs) {  // a producer warp: one lane loads
     if (lane == 0) {
+      // warpgroup 0 always has a tile (the grid has no more row groups
+      // than row tiles), so its consumers wait for the slice
+      if (WS && wg == 0) {
+        mbar_expect_tx(&w_bar, ktiles * kTileB);
+        for (int kt = 0; kt < ktiles; ++kt)
+          tma_load_2d(wslice + kt * kTileB, &map_w, kt * BK, ws_col * BN,
+                      &w_bar);
+      }
       long long it = 0;
-      for (long long t = first; t < tiles; t += step) {
-        const int m0 = (int)(t / n_tiles) * BM;
-        const int n0 = (int)(t % n_tiles) * BN;
+      for (long long q = first; q < limit; q += step) {
+        const int m0 = (int)(WS ? q : q / n_tiles) * BM;
+        const int n0 = (WS ? ws_col : (int)(q % n_tiles)) * BN;
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
-          const int s = (int)(it % kStages);
-          if (it >= kStages)
-            mbar_wait(&empty[s], (int)((it / kStages - 1) & 1));
+          const int s = (int)(it % S);
+          if (it >= S) mbar_wait(&empty[s], (int)((it / S - 1) & 1));
           uint8_t* st = ring + s * kStageBytes;
           mbar_expect_tx(&full[s], kStageBytes);
           tma_load_2d(st, &map_x, kt * BK, m0, &full[s]);
-          tma_load_2d(st + kTileA, &map_w, kt * BK, n0, &full[s]);
+          if constexpr (!WS)
+            tma_load_2d(st + kTileA, &map_w, kt * BK, n0, &full[s]);
         }
       }
     }
@@ -426,19 +633,22 @@ __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
   }
 
   const bool leader = (threadIdx.x & 127) == 0;
-  uint8_t* out_buf = ring + kStages * kStageBytes;
+  __nv_bfloat162* s_bias = bias_smem + wg * (BN / 2);
+  if (WS && first < limit) mbar_wait(&w_bar, 0);
   long long it = 0;
-  for (long long t = first; t < tiles; t += step) {
-    const long long m0 = (t / n_tiles) * BM;
-    const int n0 = (int)(t % n_tiles) * BN;
+  int res_phase = 0;  // residual loads waited for so far: their parity
+  for (long long q = first; q < limit; q += step) {
+    const long long m0 = (WS ? q : q / n_tiles) * BM;
+    const int n0 = (WS ? ws_col : (int)(q % n_tiles)) * BN;
     float acc0[64], acc1[64];  // tile rows [0, 64) and [64, 128)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
     for (int kt = 0; kt < ktiles; ++kt, ++it) {
-      const int s = (int)(it % kStages);
-      mbar_wait(&full[s], (int)((it / kStages) & 1));
+      const int s = (int)(it % S);
+      mbar_wait(&full[s], (int)((it / S) & 1));
       const uint32_t a = smem_u32(ring + s * kStageBytes);
-      const uint32_t b = a + kTileA;
+      const uint32_t b =
+          WS ? smem_u32(wslice + kt * kTileB) : a + kTileA;
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {  // 32 bytes along the swizzle
@@ -447,30 +657,65 @@ __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
         wgmma_m64n128k16(acc1, sw128_desc(a + 64 * 128 + kk * 32), db);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (MODE == 1 && kt == 0 && leader)
+        // the residual's (first) rows into the staging buffer, once the
+        // last tile's store has read it (rows past M arrive as zeroes)
+        load_residual<C::kBoxBytes>(&map_res, out_buf, m0, n0, N,
+                                    &res_bars[wg]);
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-
-    // the staging buffer is free once the last tile's store has read it
-    if (leader)
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    wg_sync(1 + wg);
-    epilogue_rows<MODE>(acc0, 0, out_buf, bias, res, m0, n0, M, N);
-    epilogue_rows<MODE>(acc1, 64, out_buf, bias, res, m0, n0, M, N);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    wg_sync(1 + wg);
-    if (leader) {
-      // each 64-column box lies in one plane (plane_cols % 64 == 0 when
-      // there are several); rows past M and columns past N are clipped
-      for (int half = 0; half < 2; ++half) {
-        const int n = n0 + 64 * half;
-        if (n >= N) break;
-        const int plane = n / plane_cols;
-        tma_store_3d(&map_out, out_buf + half * kOutHalf,
-                     n - plane * plane_cols, (int)m0, plane);
+      if (kt > 0) {  // the previous step's products are done: free it
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(it - 1) % S]);
       }
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % S]);
+
+    // the staging buffer is free once the last store has read it
+    if (MODE != 1 && leader)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    {  // the tile's bias pairs, once (N % 8 == 0: a pair is in or out)
+      const int t = threadIdx.x & 127;
+      if (t < BN / 2) {
+        const int n = n0 + 2 * t;
+        s_bias[t] = n < N
+                        ? *reinterpret_cast<const __nv_bfloat162*>(bias + n)
+                        : __floats2bfloat162_rn(0.f, 0.f);
+      }
+    }
+    wg_sync(1 + wg);
+    __nv_bfloat162 bias2[BN / 8];  // this thread's column pairs
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) bias2[j] = s_bias[j * 4 + (lane & 3)];
+    if constexpr (MODE == 1) mbar_wait(&res_bars[wg], res_phase++ & 1);
+    if constexpr (C::kHalf) {  // rows [0, 64), stored; then [64, 128)
+      epilogue_rows<MODE, ROWS>(acc0, 0, out_buf, bias2, gelu_tab);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(1 + wg);
+      if (leader) {
+        store_boxes<ROWS>(&map_out, out_buf, m0, n0, N, plane_cols);
+        if (MODE == 1 && m0 + 64 < M)  // the second half's residual rows
+          load_residual<C::kBoxBytes>(&map_res, out_buf, m0 + 64, n0, N,
+                                      &res_bars[wg]);
+        else
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      wg_sync(1 + wg);
+      if (MODE == 1 && m0 + 64 < M)
+        mbar_wait(&res_bars[wg], res_phase++ & 1);
+      epilogue_rows<MODE, ROWS>(acc1, 0, out_buf, bias2, gelu_tab);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(1 + wg);
+      if (leader)
+        store_boxes<ROWS>(&map_out, out_buf, m0 + 64, n0, N, plane_cols);
+    } else {
+      epilogue_rows<MODE, ROWS>(acc0, 0, out_buf, bias2, gelu_tab);
+      epilogue_rows<MODE, ROWS>(acc1, 64, out_buf, bias2, gelu_tab);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(1 + wg);
+      if (leader) store_boxes<ROWS>(&map_out, out_buf, m0, n0, N, plane_cols);
     }
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -519,47 +764,81 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MODE>
-cudaError_t launch_tc_mode(const CUtensorMap& mx, const CUtensorMap& mw,
-                           const CUtensorMap& mo, const __nv_bfloat16* b,
-                           const __nv_bfloat16* r, long long M, int N, int K,
-                           int pc, cudaStream_t st) {
+struct TcArgs {
+  CUtensorMap mx, mw, mo, mo_half, mr, mr_half;
+  const __nv_bfloat16* b;
+  long long M;
+  int N, K, pc, sms;
+};
+
+template <int MODE, bool WS>
+cudaError_t launch_tc_mode(const TcArgs& a, cudaStream_t st) {
+  using C = TcCfg<MODE, WS>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      gemm_tc_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kTcSmem);
+      gemm_tc_kernel<MODE, WS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
   if (attr != cudaSuccess) return attr;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const int n_tiles = (N + BN - 1) / BN;
-  const long long tiles = (M + BM - 1) / BM * n_tiles;
-  const long long grid = tiles < sms ? tiles : sms;
-  gemm_tc_kernel<MODE><<<(unsigned)grid, kTcThreads, kTcSmem, st>>>(
-      mx, mw, mo, b, r, M, N, K, pc, n_tiles, tiles);
+  const int n_tiles = (a.N + BN - 1) / BN;
+  const long long m_tiles = (a.M + BM - 1) / BM;
+  long long grid;
+  if (WS) {  // row groups of n_tiles CTAs, no more groups than row tiles
+    const long long groups = a.sms / n_tiles;
+    grid = (groups < m_tiles ? groups : m_tiles) * n_tiles;
+  } else {
+    const long long tiles = m_tiles * n_tiles;
+    grid = tiles < a.sms ? tiles : a.sms;
+  }
+  gemm_tc_kernel<MODE, WS><<<(unsigned)grid, kTcThreads, C::kSmem, st>>>(
+      a.mx, a.mw, C::kHalf ? a.mo_half : a.mo, C::kHalf ? a.mr_half : a.mr,
+      a.b, a.M, a.N, a.K,
+      a.pc, n_tiles, m_tiles);
   return cudaGetLastError();
+}
+
+template <bool WS>
+cudaError_t launch_tc_walk(int mode, const TcArgs& a, cudaStream_t st) {
+  switch (mode) {
+    case 0: return launch_tc_mode<0, WS>(a, st);
+    case 1: return launch_tc_mode<1, WS>(a, st);
+    case 2: return launch_tc_mode<2, WS>(a, st);
+    default: return launch_tc_mode<3, WS>(a, st);
+  }
 }
 
 cudaError_t launch_tc(int mode, const void* x, const void* w, const void* b,
                       const void* res, void* out, long long M, int N, int K,
                       int planes, cudaStream_t st) {
-  const int pc = N / planes;
-  if (planes > 1 && pc % 64 != 0) return cudaErrorInvalidValue;
+  TcArgs a;
+  a.pc = N / planes;
+  if (planes > 1 && a.pc % 64 != 0) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&a.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
   const cuuint64_t dx[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t dw[2] = {(cuuint64_t)K, (cuuint64_t)N};
-  const cuuint64_t dout[3] = {(cuuint64_t)pc, (cuuint64_t)M,
+  const cuuint64_t dout[3] = {(cuuint64_t)a.pc, (cuuint64_t)M,
                               (cuuint64_t)planes};
-  const cuuint32_t bx[2] = {BK, BM}, bw[2] = {BK, BN}, bo[3] = {64, BM, 1};
-  CUtensorMap mx, mw, mo;
-  if (!make_map(&mx, x, 2, dx, bx) || !make_map(&mw, w, 2, dw, bw) ||
-      !make_map(&mo, out, 3, dout, bo))
+  const cuuint64_t dres[3] = {(cuuint64_t)N, (cuuint64_t)M, 1};
+  const cuuint32_t bx[2] = {BK, BM}, bw[2] = {BK, BN}, bo[3] = {64, BM, 1},
+                   bh[3] = {64, BM / 2, 1};
+  if (!make_map(&a.mx, x, 2, dx, bx) || !make_map(&a.mw, w, 2, dw, bw) ||
+      !make_map(&a.mo, out, 3, dout, bo) ||
+      !make_map(&a.mo_half, out, 3, dout, bh) ||
+      !make_map(&a.mr, mode == 1 ? res : out, 3, mode == 1 ? dres : dout,
+                bo) ||
+      !make_map(&a.mr_half, mode == 1 ? res : out, 3,
+                mode == 1 ? dres : dout, bh))
     return cudaErrorInvalidValue;
-  const auto* bb = static_cast<const __nv_bfloat16*>(b);
-  const auto* rr = static_cast<const __nv_bfloat16*>(res);
-  if (mode == 0) return launch_tc_mode<0>(mx, mw, mo, bb, rr, M, N, K, pc, st);
-  if (mode == 1) return launch_tc_mode<1>(mx, mw, mo, bb, rr, M, N, K, pc, st);
-  return launch_tc_mode<2>(mx, mw, mo, bb, rr, M, N, K, pc, st);
+  a.b = static_cast<const __nv_bfloat16*>(b);
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  const int n_tiles = (N + BN - 1) / BN;
+  if (K <= kWsMaxK && n_tiles <= a.sms)
+    return launch_tc_walk<true>(mode, a, st);
+  return launch_tc_walk<false>(mode, a, st);
 }
 
 // ---------------------------------------------- K15 f32: CUDA-core route
@@ -651,7 +930,7 @@ cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
                                                   pc, n_tiles);
   else
     gemm_f32_kernel<2><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles);
+                                                  pc, n_tiles);  // 2 and 3
   return cudaGetLastError();
 }
 
@@ -676,8 +955,10 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
                      static_cast<float*>(out), st);
 }
 
-// K15. x: (M, K), w: (N, K), both 16-byte aligned with K % 16 == 0; b:
-// (N,); res: (M, N) for mode 1, else null; out: (planes, M, N / planes),
+// K15. mode 0 none, 1 residual, 2 gelu_tanh, 3 gelu_tanh by the formula
+// per output (the same results as 2). x: (M, K), w: (N, K), both 16-byte
+// aligned with K % 16 == 0; b: (N,), 4-byte aligned; res: (M, N) for
+// mode 1, else null; out: (planes, M, N / planes),
 // 16-byte aligned; all bf16 (dtype 1) or all f32 (dtype 0); N % 8 == 0
 // and (N / planes) % 8 == 0 (bf16 with planes > 1: % 64 == 0), planes ==
 // 1 for mode 1.
@@ -686,7 +967,7 @@ extern "C" int gemm_bf16_launch(const void* x, const void* w, const void* b,
                                 int mode, long long M, int N, int K,
                                 int planes, void* stream) {
   if (M < 0 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 || planes < 1 ||
-      N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 2 ||
+      N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 3 ||
       (mode == 1) != (res != nullptr) || (mode == 1 && planes != 1) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;

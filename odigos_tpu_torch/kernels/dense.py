@@ -29,7 +29,13 @@ two kernels here:
     out-projection, FFN2);
   - ``"gelu_tanh"``: ``round(gelu(round(round(acc) + b)))`` (FFN1,
     ``dec_ff1``), the tanh form of ``jax.nn.gelu`` in f32 (``nn.gelu``'s
-    default), as K10's mode 2 computes it.
+    default), as K10's mode 2 computes it. The GELU's input is a bf16
+    value, so on the card it is looked up in a table of the formula's own
+    bf16 results over ``y = +-0`` and ``2^-61 <= |y| < 8``
+    (:func:`gelu_bf16_lookup_plain` is the lookup's plain twin); the
+    formula runs elsewhere;
+  - ``"gelu_tanh_formula"``: the same function with the formula evaluated
+    per output on the card (no table), kept to hold the table to it.
 
   ``planes > 1`` splits the N columns into ``planes`` blocks returned as
   ``(planes, M, N / planes)``: the fused QKV product over ``[W_q; W_k;
@@ -66,7 +72,13 @@ from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
 LN_WIDTHS = (32, 64, 128, 256, 512, 1024)
-EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2}
+EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2,
+             "gelu_tanh_formula": 3}
+GELU_EPILOGUES = ("gelu_tanh", "gelu_tanh_formula")
+# the GELU table's bf16 range: |y|'s bits from 2^-61 (biased exponent
+# 66) for 64 exponents of 128 mantissas (to |y| < 8), each sign
+GELU_TABLE_LO = 66 << 7
+GELU_TABLE_SPAN = 64 << 7
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 ln_launches = 0
@@ -102,9 +114,32 @@ def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = (y.float() + b.float()).to(dt)
     if epilogue == "residual":
         y = (residual.float() + y.float()).to(dt)
-    elif epilogue == "gelu_tanh":
+    elif epilogue in GELU_EPILOGUES:
         y = gelu_tanh_plain(y.float()).to(dt)
     return _split(y, planes)
+
+
+def gelu_bf16_lookup_plain(y: torch.Tensor) -> torch.Tensor:
+    """The plain twin of K15's GELU lookup: ``round(gelu(y))`` for bf16
+    ``y`` from a table of ``gelu_tanh_plain`` over the table's range and
+    ``+-0``, indexed by ``y``'s bits as the kernel indexes it (entry ``2 x
+    slot + sign``, the range's slots first, zero's last); the formula for
+    the rare values (tiny ones, ``|y| >= 8``, inf and NaN). Equal to
+    ``gelu_tanh_plain(y.float()).to(bfloat16)`` bit for bit."""
+    entry = torch.arange(2 * (GELU_TABLE_SPAN + 1))
+    slot = entry >> 1
+    bits = ((entry & 1) << 15) | torch.where(slot < GELU_TABLE_SPAN,
+                                             slot + GELU_TABLE_LO, 0)
+    table = gelu_tanh_plain(bits.to(torch.int16).view(torch.bfloat16)
+                            .float()).to(torch.bfloat16).to(y.device)
+    b = y.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    u = (b & 0x7FFF) - GELU_TABLE_LO
+    inside = (u >= 0) & (u < GELU_TABLE_SPAN)
+    rare = ~inside & ((b & 0x7FFF) != 0)
+    looked = table[(torch.where(inside, u, GELU_TABLE_SPAN) << 1)
+                   | (b >> 15)]
+    return torch.where(rare, gelu_tanh_plain(y.float()).to(torch.bfloat16),
+                       looked)
 
 
 # ----------------------------------------------------------------- checks

@@ -16,11 +16,14 @@ the plain version flips the sign bit (``x ^ -2**63``) before ordering, so
 ids at or above 2**63 sort after the others, as unsigned.
 
 A CUDA tensor launches the hand-written LSD sort of ``csrc/trace_sort.cu``
-(8-bit digits; a digit that is the same in every key is skipped on the
-card, without a host sync) or raises. A CPU tensor takes
+(8-bit digits, a digit that is the same in every key skipped on the card;
+one cooperative launch a sort, its passes separated by grid barriers;
+nothing synchronised with the host) or raises. A CPU tensor takes
 :func:`radix_sort_plain`: successive ``torch.sort(stable=True)`` from the
 least significant key up. ``launches`` counts wrapper calls that launched;
-``device_launches`` the kernels they launched (a memset included).
+``device_launches`` the kernels they launched (one a call).
+:func:`plan` gives the grid: each block owns a contiguous run of ``TILE``
+key tiles, as many as its share of ``n`` needs.
 """
 
 from __future__ import annotations
@@ -34,13 +37,17 @@ import torch
 from . import build
 
 MAX_WORDS = 4
-TILE = 2048          # keys per block of the hist / scatter passes
+TILE = 1024          # keys per tile of the hist / scatter passes
+# int32 scratch a block: its OR and complement-OR of each word (u64), and
+# its 256 digit counts
+SCRATCH_PER_BLOCK = 2 * 2 * MAX_WORDS + 256
 _SIGN = -(2 ** 63)
 
 launches = 0
 device_launches = 0
 _count_lock = threading.Lock()
 _fn = None
+_max_grid: dict = {}  # device index -> radix_sort_max_grid
 
 
 def ordered_key(key: torch.Tensor) -> torch.Tensor:
@@ -82,17 +89,44 @@ def _check(keys: Sequence[torch.Tensor], n: int) -> None:
         raise ValueError(f"n must be in [0, {N}], got {n}")
 
 
+def plan(n: int, N: int, max_grid: int) -> tuple[int, int]:
+    """``(grid, tiles_per_block)`` of a sort of ``n`` real rows of ``N``:
+    enough blocks for the tiles of ``n`` (and for the padding rows' grid
+    stride), at most ``max_grid``; block ``b`` owns tiles ``[b * tpb,
+    (b + 1) * tpb)``."""
+    tiles = -(-n // TILE)
+    grid = max(1, min(max_grid, max(tiles, -(-N // TILE))))
+    return grid, -(-tiles // grid)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("trace_sort").radix_sort_launch
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 6
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_longlong] + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def max_grid(dev: torch.device) -> int:
+    """The most blocks K6 launches on ``dev`` (all resident at once)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    g = _max_grid.get(idx)
+    if g is None:
+        fn = build.load("trace_sort").radix_sort_max_grid
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            rc = fn(ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"radix_sort: no cooperative launch on {dev}: "
+                               f"CUDA error {rc}")
+        g = _max_grid[idx] = out.value
+    return g
 
 
 def radix_sort(keys: Sequence[torch.Tensor], n: Optional[int] = None,
@@ -122,25 +156,21 @@ def radix_sort(keys: Sequence[torch.Tensor], n: Optional[int] = None,
     if N == 0:
         return out
     lsf = keys[::-1]  # the kernel takes the least significant word first
-    var = torch.zeros(2 * len(lsf), dtype=torch.int64, device=dev)
-    work = torch.empty(2 * N + 256 * max(1, -(-n // TILE)),
-                       dtype=torch.int32, device=dev)
+    grid, tpb = plan(n, N, max_grid(dev))
+    scratch = torch.empty(2 * n + SCRATCH_PER_BLOCK * grid,
+                          dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_void_p * MAX_WORDS)(*[k.data_ptr() for k in lsf])
     bits = (ctypes.c_int * MAX_WORDS)(
         *[64 if k.dtype == torch.int64 else 32 for k in lsf])
-    count = ctypes.c_int(0)
     fn = _kernel()
     with torch.cuda.device(dev):
         rc = fn(ctypes.addressof(ptrs), ctypes.addressof(bits), len(lsf), n,
-                N, var.data_ptr(), work.data_ptr(),
-                work.data_ptr() + 4 * N, work.data_ptr() + 8 * N,
-                out.data_ptr(),
+                N, grid, tpb, scratch.data_ptr(), out.data_ptr(),
                 passes.data_ptr() if passes is not None else None,
-                ctypes.byref(count),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"radix_sort launch failed: CUDA error {rc}")
     with _count_lock:
         launches += 1
-        device_launches += count.value + 1  # + the zeroing of var
+        device_launches += 1
     return out

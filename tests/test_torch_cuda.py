@@ -468,8 +468,10 @@ def _feat_args(tabs, c):
             c["end_unix_nano"], c["frame"])
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 2049, 65536, 131072])
-@pytest.mark.parametrize("keys", ["u64x3", "tied", "frame_span"])
+# 1,700,001 rows: more tiles of ksort.TILE keys than the largest grid has
+# blocks (one or two an SM), so each block walks several tiles
+@pytest.mark.parametrize("n", [0, 1, 31, 2049, 65536, 131072, 1_700_001])
+@pytest.mark.parametrize("keys", ["u64x3", "tied", "frame_span", "equal"])
 def test_radix_sort_kernel_matches_plain(dev, keys, n):
     rng = np.random.default_rng(n + len(keys))
     N = max(n, 1) + 5  # padding rows keep the identity
@@ -480,17 +482,23 @@ def test_radix_sort_kernel_matches_plain(dev, keys, n):
     elif keys == "tied":  # few distinct keys: the order is stability
         w = rng.integers(0, 3, N).astype(np.uint64) << np.uint64(62)
         ks = [torch.from_numpy(w.view(np.int64)).to(dev)]
+    elif keys == "equal":  # no live digit: the identity
+        ks = [torch.full((N,), -5, dtype=torch.int64, device=dev),
+              torch.full((N,), 7, dtype=torch.int32, device=dev)]
     else:
         ks = [torch.from_numpy(rng.integers(0, 3, N).astype(np.int32)).to(
             dev), torch.from_numpy(rng.integers(
                 -2 ** 63, 2 ** 63 - 1, N, dtype=np.int64)).to(dev)]
-    before = ksort.launches
+    before, dev_before = ksort.launches, ksort.device_launches
     passes = torch.zeros(1, dtype=torch.int32, device=dev)
     got = ksort.radix_sort(ks, n, passes=passes)
     ref = ksort.radix_sort_plain(ks, n)
     torch.cuda.synchronize()
     assert ksort.launches == before + 1
+    assert ksort.device_launches - dev_before <= 2  # one sort, one launch
     assert torch.equal(got, ref)
+    if n > ksort.TILE * ksort.max_grid(dev):
+        assert ksort.plan(n, N, ksort.max_grid(dev))[1] > 1
     # a digit pass runs where the digit differs between two real keys
     want = 0
     for k in ks:
@@ -705,6 +713,7 @@ def _qgemm_inputs(dev, M, N, K, seed=0):
     (1000, 200, 80, "none", 1),           # ragged M, N and K
     (1000, 200, 80, "gelu_tanh", 1),
     (130, 24, 48, "residual", 1),
+    (130, 24, 272, "residual", 1),        # streaming, half-tile residual
     (130, 48, 16, "none", 2)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_qgemm_kernel_matches_plain(dev, M, N, K, epilogue, planes, dtype):
@@ -1053,6 +1062,7 @@ def _dense_inputs(dev, M, N, K, dtype, seed=0):
     (1000, 200, 80, "none", 1),           # ragged M, N and K
     (1000, 200, 80, "gelu_tanh", 1),
     (130, 24, 48, "residual", 1),
+    (130, 24, 272, "residual", 1),        # streaming, half-tile residual
     (1, 128, 16, "none", 2)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_gemm_bf16_kernel_matches_plain(dev, M, N, K, epilogue, planes,
@@ -1066,6 +1076,46 @@ def test_gemm_bf16_kernel_matches_plain(dev, M, N, K, epilogue, planes,
     torch.cuda.synchronize()
     assert kdense.gemm_launches == before + 1
     _gemm_close(got, ref, x, w, epilogue)
+    differing = int((got.float() != ref.float()).sum())
+    print(f"gemm_bf16 {M}x{N}x{K} {epilogue} {dtype}: {differing} of "
+          f"{got.numel()} outputs differ from the plain version")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int16)
+
+
+def test_gemm_bf16_gelu_table_is_bit_equal_to_formula_on_every_bf16(dev):
+    """x = 0, so every output is round(gelu(b_n)): b walks all 65,536 bf16
+    bit patterns (|y| < 2^-61, |y| >= 8, +-inf and NaN included) in chunks
+    of 8192 columns; the table's lookup gives the formula's bits."""
+    patterns = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).to(dev)
+    x = torch.zeros(256, 16, dtype=torch.bfloat16, device=dev)
+    for c in range(0, 65536, 8192):
+        b = patterns[c:c + 8192].contiguous()
+        w = torch.zeros(8192, 16, dtype=torch.bfloat16, device=dev)
+        got = kdense.gemm_bf16(x, w, b, "gelu_tanh")
+        ref = kdense.gemm_bf16(x, w, b, "gelu_tanh_formula")
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("M,N,K", [(16384, 1024, 256), (4096, 512, 128),
+                                   (1000, 200, 80), (16384, 1024, 1024)])
+def test_gemm_bf16_gelu_table_is_bit_equal_to_formula(dev, M, N, K):
+    """On FFN1's and dec_ff1's shapes (the weight-stationary walk), a
+    ragged one and a deep one (the streaming walk), scaled so that some
+    outputs fall below 2^-10 (the table's low end) and some at or past 8
+    (the formula's)."""
+    x, w, b = _dense_inputs(dev, M, N, K, "bfloat16", seed=7)
+    x = x * 3
+    got = kdense.gemm_bf16(x, w, b, "gelu_tanh")
+    ref = kdense.gemm_bf16(x, w, b, "gelu_tanh_formula")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(ref))
+    y = kdense.gemm_bf16_plain(x, w, b).float().abs()
+    assert bool((y < 2 ** -10).any()) and bool((y >= 8).any())
 
 
 def test_gemm_bf16_kernel_past_2_31_outputs(dev):

@@ -50,6 +50,7 @@ from odigos_tpu.pdata import synthesize_traces as jsynth
 from odigos_tpu_torch.kernels import dense
 from odigos_tpu_torch.kernels.dense import (gemm_bf16, gemm_bf16_plain,
                                             ln_bf16, ln_bf16_plain)
+from odigos_tpu_torch.kernels.qgemm import gelu_tanh_plain
 from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
                                      TraceTransformer, TransformerConfig,
                                      flax_autoencoder_to_torch,
@@ -322,3 +323,57 @@ def test_wrappers_raise_off_the_cpu_without_a_card():
         pytest.skip("a CUDA device is present; this pins the no-card path")
     with pytest.raises(RuntimeError, match="is_available"):
         TraceTransformer(TransformerConfig(**GEOM))
+
+
+# ------------------------------------------------- K15's GELU table (plain)
+ALL_BF16 = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+    torch.bfloat16)
+
+
+def test_gelu_table_lookup_equals_the_formula_on_every_bf16():
+    """The premise of K15's table: round(gelu(y)) is a function of y's 16
+    bits. The lookup's plain twin (the table built by gelu_tanh_plain, the
+    formula outside it) gives gelu_tanh_plain's bits on all 65,536."""
+    got = dense.gelu_bf16_lookup_plain(ALL_BF16).view(torch.int16)
+    want = gelu_tanh_plain(ALL_BF16.float()).to(torch.bfloat16).view(
+        torch.int16)
+    assert torch.equal(got, want)
+
+
+def test_gelu_table_holds_the_common_values_and_not_the_rare():
+    """Zero and 2^-61 <= |y| < 8 are in the table; NaN, +-inf, |y| >= 8
+    and |y| < 2^-61 take the formula. A block's FFN1 on LayerNormed rows
+    (random weights, the port's default widths) has no value outside."""
+    a = ALL_BF16.view(torch.int16).to(torch.int64) & 0x7FFF
+    lo, span = dense.GELU_TABLE_LO, dense.GELU_TABLE_SPAN
+    inside = (a == 0) | ((a >= lo) & (a < lo + span))
+    bits = {"zero": 0x0000, "neg_zero": 0x8000, "2^-61": 0x2100,
+            "below_8": 0x40FF, "8": 0x4100, "inf": 0x7F80,
+            "-inf": 0xFF80, "nan": 0x7FC0, "2^-62": 0x2080}
+    held = {k: bool(inside[v]) for k, v in bits.items()}
+    assert held == {"zero": True, "neg_zero": True, "2^-61": True,
+                    "below_8": True, "8": False, "inf": False,
+                    "-inf": False, "nan": False, "2^-62": False}
+    assert int(inside.sum()) == 2 * span + 2
+    cfg = TransformerConfig(dtype=torch.bfloat16)
+    blk = TraceTransformer(cfg, device="cpu", seed=0).module.encoder.blocks[0]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 1, (4096, cfg.d_model)).astype(
+        np.float32)).bfloat16()
+    h = ln_bf16(x, blk.ln2.weight, blk.ln2.bias)
+    y = gemm_bf16_plain(h, blk.ff1.weight, blk.ff1.bias)
+    ya = y.view(torch.int16).to(torch.int64) & 0x7FFF
+    assert bool(((ya == 0) | ((ya >= lo) & (ya < lo + span))).all())
+
+
+def test_gemm_plain_formula_epilogue_is_the_gelu():
+    """``gelu_tanh_formula`` (the card's per-output formula, kept to hold
+    the table to it) is the same function as ``gelu_tanh``."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 1, (64, 32)).astype(
+        np.float32)).bfloat16()
+    w = torch.from_numpy(rng.normal(0, 0.2, (48, 32)).astype(
+        np.float32)).bfloat16()
+    b = torch.from_numpy(rng.normal(0, 0.1, 48).astype(np.float32)).bfloat16()
+    assert torch.equal(gemm_bf16(x, w, b, "gelu_tanh_formula"),
+                       gemm_bf16_plain(x, w, b, "gelu_tanh"))

@@ -49,7 +49,7 @@ from odigos_tpu_torch.features.featurizer import (featurize_columns,
 from odigos_tpu_torch.kernels import (featurize as kfeat, head as khead,
                                       pack as kpack, sort as ksort)
 from odigos_tpu_torch.models import TransformerConfig, flax_to_torch
-from odigos_tpu_torch.pdata import concat_batches
+from odigos_tpu_torch.pdata import adversarial_traces, concat_batches
 from odigos_tpu_torch.pdata import synthesize_traces as psynth
 from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
 from odigos_tpu_torch.serving import fused
@@ -334,6 +334,82 @@ def test_radix_sort_plain_is_stable_and_unsigned():
     np.testing.assert_array_equal(padded.numpy()[4:], [4, 5])
     np.testing.assert_array_equal(padded.numpy()[:4],
                                   np.argsort(keys[:4], kind="stable"))
+
+
+def _k6_model(keys, n: int, N: int, max_grid: int):
+    """K6's own algorithm on the host: the grid of ``ksort.plan``, each
+    block owning a run of ``ksort.TILE``-key tiles; the live digits from
+    the OR and complement-OR of each word (a constant digit is skipped);
+    per live digit the block counts, the offsets (smaller digits anywhere,
+    then the same digit in earlier blocks) and each key's stable rank in
+    its block. Returns the permutation (the identity past n) and the
+    number of live passes."""
+    grid, tpb = ksort.plan(n, N, max_grid)
+    assert grid <= max_grid and grid * tpb * ksort.TILE >= n
+    span = tpb * ksort.TILE
+    words, bits = [], []
+    for k in keys[::-1]:  # least significant first, as the kernel takes
+        k = np.asarray(k)
+        bits.append(8 * k.dtype.itemsize)
+        words.append(k[:n].view(np.uint64) if k.dtype.itemsize == 8
+                     else k[:n].view(np.uint32).astype(np.uint64))
+    live = []
+    for w, (word, nbits) in enumerate(zip(words, bits)):
+        mask = np.uint64((1 << nbits) - 1)
+        var = (np.bitwise_or.reduce(word) & np.bitwise_or.reduce(~word & mask)
+               if n else np.uint64(0))
+        live += [(w, sh) for sh in range(0, nbits, 8)
+                 if int(var >> np.uint64(sh)) & 0xFF]
+    order = np.arange(n)
+    block = np.arange(n) // span
+    for w, sh in live:
+        d = ((words[w][order] >> np.uint64(sh)) & np.uint64(0xFF)).astype(
+            np.int64)
+        counts = np.zeros((grid, 256), np.int64)
+        np.add.at(counts, (block, d), 1)
+        total = counts.sum(0)
+        base = np.cumsum(total) - total
+        before = np.cumsum(counts, 0) - counts
+        group = block * 256 + d
+        by_group = np.argsort(group, kind="stable")
+        starts = np.searchsorted(group[by_group], group[by_group])
+        rank = np.empty(n, np.int64)
+        rank[by_group] = np.arange(n) - starts
+        new = np.empty(n, np.int64)
+        new[base[d] + before[block, d] + rank] = order
+        order = new
+    return np.concatenate([order, np.arange(n, N)]), len(live)
+
+
+@pytest.mark.parametrize("max_grid", [3, 264])
+@pytest.mark.parametrize("sort", ["trace", "join"])
+def test_k6_model_matches_lexsort_on_the_adversarial_frame(sort, max_grid):
+    """K6's digit skip, grid plan and tile loop, run on the host, against
+    np.lexsort on the adversarial frame (ids at or above 2^63, a 200-span
+    trace, tied starts, duplicate span ids) with one frame holding every
+    span; max_grid 3 makes each block walk several tiles."""
+    cols = adversarial_traces(2400, seed=62).columns
+    n = len(cols["span_id"])
+    N = n + 37  # padding rows keep the identity
+    assert n > 3 * ksort.TILE
+
+    def padded(a):
+        return np.concatenate([a, np.zeros(N - n, a.dtype)])
+
+    if sort == "trace":
+        keys = [padded(cols[k]) for k in ("trace_id_hi", "trace_id_lo",
+                                          "start_unix_nano")]
+    else:
+        keys = [np.zeros(N, np.int32), padded(cols["span_id"])]
+    got, passes = _k6_model(keys, n, N, max_grid)
+    want = np.lexsort([k[:n] for k in keys[::-1]])
+    np.testing.assert_array_equal(got[:n], want)
+    np.testing.assert_array_equal(got[n:], np.arange(n, N))
+    assert (sort == "join") == (passes <= 8)  # the frame word is constant
+    plain = ksort.radix_sort_plain(
+        [torch.from_numpy(k.view(np.int64) if k.dtype == np.uint64 else k)
+         for k in keys], n)
+    np.testing.assert_array_equal(plain.numpy(), got)
 
 
 def test_span_head_scatter_plain_matches_the_model_path(engines):

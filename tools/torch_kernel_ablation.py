@@ -13,7 +13,8 @@ through the port's wrapper on the smoke run's main-path inputs (R = 256
 and 2048 packed rows, default ``TransformerConfig``; K10 ``qgemm`` at the
 int8 block's QKV product, on the first block's own codes; K15
 ``gemm_bf16`` at the float block's FFN1 + GELU, on the first block's own
-LN2 output). Times are
+LN2 output; K6 ``radix_sort`` as the trace sort of the smoke run's otel
+frame at N = 65536). Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
 the unchanged build is held to the plain version.
@@ -37,14 +38,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # K15's epilogue taken out: no accumulator is rounded, staged or stored
 # (a test that never holds keeps the products alive)
 NO_EPILOGUE = {
-    "    epilogue_rows<MODE>(acc0, 0, out_buf, bias, res, m0, n0, M, N);\n"
-    "    epilogue_rows<MODE>(acc1, 64, out_buf, bias, res, m0, n0, M, N);\n":
-        "    if (acc0[0] == 1234567.f && acc1[63] == -7654321.f) {\n"
-        "      epilogue_rows<MODE>(acc0, 0, out_buf, bias, res, m0, n0, M, "
-        "N);\n"
-        "      epilogue_rows<MODE>(acc1, 64, out_buf, bias, res, m0, n0, M, "
-        "N);\n    }\n",
-    "        if (n >= N) break;\n": "        break;\n"}
+    "epilogue_rows<MODE, ROWS>(acc":
+        "if (acc0[0] == 1234567.f && acc1[63] == -7654321.f)\n"
+        "        epilogue_rows<MODE, ROWS>(acc",
+    "    if (n >= N) break;\n": "    break;\n"}
 
 # kernel -> variant -> {anchor text in the source: replacement}
 VARIANTS = {
@@ -86,6 +83,20 @@ VARIANTS = {
                 "        if (y0 == 1234567.f && y1 == -7654321.f)\n"
                 "          Out<T>::store2(outp + m * plane_cols, y0, y1);"},
     },
+    "radix_sort": {
+        # each key stored back at its own place, coalesced, in place of
+        # its rank (the loads, ranking, barriers and offsets as they are)
+        "no_scatter": {
+            "          dst[s_cnt[warp][digit[r]] + __popc(peers[r] & lt)] = "
+            "idx[r];":
+                "          dst[t * kTile + warp * kWarpTile + lane + r * 32] = "
+                "idx[r];"},
+        # prep, the grid barriers and the offset scans only: no tile is
+        # loaded, counted or scattered
+        "barriers_only": {
+            "for (long long t = t0; t < t1; ++t) {":
+                "for (long long t = t0; t < t0; ++t) {"},
+    },
     "gemm_bf16": {
         # the TMA loads and the ring only: no products, no epilogue
         "loads_only": {
@@ -94,18 +105,45 @@ VARIANTS = {
             "32), db);":
                 "        (void)db;",
             **NO_EPILOGUE},
-        # the products on stale shared memory and the ring: no TMA loads
-        # (the producer arrives on each stage itself), no epilogue
+        # the products on stale shared memory and the ring: no A/W tile
+        # loads (the producer arrives on each stage itself), no epilogue
         "mma_only": {
             "          mbar_expect_tx(&full[s], kStageBytes);\n"
             "          tma_load_2d(st, &map_x, kt * BK, m0, &full[s]);\n"
-            "          tma_load_2d(st + kTileA, &map_w, kt * BK, n0, "
+            "          if constexpr (!WS)\n"
+            "            tma_load_2d(st + kTileA, &map_w, kt * BK, n0, "
             "&full[s]);":
                 "          (void)st, (void)n0, (void)m0;\n"
                 "          mbar_arrive(&full[s]);",
             **NO_EPILOGUE},
         # loads and products, no epilogue
         "no_epilogue": NO_EPILOGUE,
+        # the GELU by the formula per output, not the table
+        "gelu_formula": {
+            "    case 2: return launch_tc_mode<2, WS>(a, st);":
+                "    case 2: return launch_tc_mode<3, WS>(a, st);"},
+        # the streaming walk (A and W tiles reloaded) at K <= 256 too
+        "streaming_walk": {
+            "  if (K <= kWsMaxK && n_tiles <= a.sms)":
+                "  if (false && K <= kWsMaxK)"},
+        # the GELU table read at a conflict-free index (each lane its own
+        # bank; wrong values): what the lookups' bank conflicts cost
+        "conflict_free_lookup": {
+            "          lo[jj][h] = tab[gelu_index(v[jj][h] & 0xFFFFu)];\n"
+            "          hi[jj][h] = tab[gelu_index(v[jj][h] >> 16)];":
+                "          lo[jj][h] = tab[((threadIdx.x & 31) << 1) | "
+                "(v[jj][h] & 1u)];\n"
+                "          hi[jj][h] = tab[((threadIdx.x & 31) << 1) | "
+                "((v[jj][h] >> 16) & 1u)];"},
+        # no rare-value check, nor the formula pass it guards (the same
+        # bits on the block's own activations, none of them rare)
+        "no_rare_check": {
+            "          rare |= gelu_rare(v[jj][h] & 0xFFFFu) | "
+            "gelu_rare(v[jj][h] >> 16);\n": ""},
+        # the consumer drains every wgmma group before freeing its stage
+        "drain": {
+            "wgmma.wait_group.sync.aligned 1;":
+                "wgmma.wait_group.sync.aligned 0;"},
     },
 }
 
@@ -115,6 +153,7 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
                                    "segment_attention_launch"),
              "span_embed": ("span_embed", "span_embed_launch"),
              "qgemm": ("qgemm", "qgemm_launch"),
+             "radix_sort": ("trace_sort", "radix_sort_launch"),
              "gemm_bf16": ("dense", "gemm_bf16_launch")}
 
 ARGTYPES = {
@@ -125,6 +164,9 @@ ARGTYPES = {
                   + [ctypes.c_void_p],
     "qgemm": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "radix_sort": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_longlong] + [ctypes.c_void_p] * 4),
     "gemm_bf16": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
                   + [ctypes.c_void_p]),
@@ -175,7 +217,7 @@ def main() -> int:
         return 1
     import chip_smoke
     from odigos_tpu_torch.kernels import (attention, build, dense, embed,
-                                          qgemm, quant)
+                                          qgemm, quant, sort)
     from odigos_tpu_torch.models import (QuantizedTraceScorer,
                                          TraceTransformer, TransformerConfig)
 
@@ -186,7 +228,7 @@ def main() -> int:
     print(card, flush=True)
     build.build()
     modules = {"segment_attention": attention, "span_embed": embed,
-               "qgemm": qgemm}
+               "qgemm": qgemm, "radix_sort": sort}
     built = {k: m._kernel() for k, m in modules.items()}
     built["gemm_bf16"] = dense._kernel("gemm_bf16_launch")
 
@@ -205,6 +247,11 @@ def main() -> int:
         tables = enc.tables()
         qblk = QuantizedTraceScorer(cfg, device=dev, seed=0)._blocks[0]
         pk = chip_smoke._packed_rows(max(chip_smoke.R_SHAPES))
+        N = chip_smoke.FUSED_MAIN_N
+        n, _, _, c = chip_smoke._staged(chip_smoke._fused_frame(N, "otel"),
+                                        dev)
+        trace_keys = [c["trace_id_hi"], c["trace_id_lo"],
+                      c["start_unix_nano"]]
         scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
         H = cfg.n_heads
         hd = cfg.d_model // H
@@ -235,16 +282,22 @@ def main() -> int:
                     "qgemm": lambda: qgemm.qgemm(
                         xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3),
                     "gemm_bf16": lambda: dense.gemm_bf16(
-                        h2, blk.ff1.weight, blk.ff1.bias, "gelu_tanh")}
+                        h2, blk.ff1.weight, blk.ff1.bias, "gelu_tanh"),
+                    "radix_sort": lambda: sort.radix_sort(trace_keys, n)}
                 for (kname, vname), fn in sorted(fns.items()):
+                    if kname == "radix_sort" and R != max(
+                            chip_smoke.R_SHAPES):
+                        continue  # one shape: the trace sort at N
                     swap(kname, fn)
                     try:
                         ms = chip_smoke.device_ms(calls[kname],
                                                   scratch.zero_)
                     finally:
                         swap(kname, built[kname])
+                    shape = ({"N": N, "n": n} if kname == "radix_sort"
+                             else {"R": R})
                     print(json.dumps({"kernel": kname, "variant": vname,
-                                      "R": R, "device_ms": ms,
+                                      **shape, "device_ms": ms,
                                       "card": card}), flush=True)
     return 0
 

@@ -32,7 +32,7 @@ prints one JSON line with:
   other; K7's layout kernel also runs inside K13),
   each category's share of the busy time, and the top kernels by device
   time;
-* each hand-written kernel by name (K1-K15: K3, K6, K7 and K13 are
+* each hand-written kernel by name (K1-K15: K3, K7 and K13 are
   several kernels each), with its launches and device ms per engine call;
 * the engine's stage medians (pack stage, device stage).
 
@@ -62,8 +62,7 @@ CATEGORIES = (
     ("K3 zscore_update", ("zscore_pass", "zscore_merge")),
     ("K4 zscore_score", ("zscore_score",)),
     ("K5 featurize_columns", ("featurize_kernel",)),
-    ("K6 radix_sort", ("sort_prep_kernel", "sort_hist_kernel",
-                       "sort_scatter_kernel", "sort_finish_kernel")),
+    ("K6 radix_sort", ("radix_sort_kernel",)),
     ("K7 next_fit_pack", ("pack_walk_kernel", "pack_scatter_kernel")),
     ("K7/K13 pack layout", ("pack_layout_kernel",)),
     ("K13 trace_rows_pack", ("rows_scan_kernel", "rows_scatter_kernel")),
