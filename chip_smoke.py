@@ -89,22 +89,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward's device time that the padded rows take;
 9. int8 kernels — K9 ``ln_quantize`` and K10 ``qgemm`` at each step of
    the int8 block (LN1, the fused QKV product split for K1, the context
-   quantize, the out-projection + residual, LN2, FFN1 + GELU, the GELU
-   output quantize, FFN2 + residual) on the first block's own
+   quantize, the out-projection + residual, LN2, FFN1 + GELU + FFN2's
+   activation quantize, FFN2 + residual) on the first block's own
    activations at R = 256 and 2048 rows (M = 16384 and 131072 tokens),
-   each held to its plain version on the same inputs — codes, scales and
-   outputs bit-equal (K10, failing that, within one bf16 step with the
-   reason printed) — with the same times and bound as phase 3 (int8
-   operations over 1,979 TOP/s), K10 beside ``torch._int_mm`` (s32 out,
-   no quantize or epilogue; checked to be the exact product) and bf16
-   ``F.linear`` at the same shape;
+   and on rows of their own the two steps the FFN1 step replaces (K10
+   FFN1 + GELU, K9's plain mode at K = d_ff), each held to its plain
+   version on the same inputs — codes, scales and outputs bit-equal (K10's
+   bf16 outputs, failing that, within one bf16 step with the reason
+   printed), the FFN1 step's codes and scales also to the two kernels' —
+   with the same times and bound as phase 3 (int8 operations over 1,979
+   TOP/s), K10 beside ``torch._int_mm`` (s32 out, no quantize or
+   epilogue; checked to be the exact product) and bf16 ``F.linear`` at
+   the same shape; then one layer's int8 chain (K9 x 3, K10 x 4) as one
+   function beside phase 3's bf16 chain (K14 x 2, K15 x 4) of the same
+   run;
 10. int8 path — ``ScoringEngine(EngineConfig(model="transformer",
    quantized=True))`` at full width, warmed: the sequential requests of
    phase 6 and the concurrent burst, on the host route (``submit(batch)``)
    and on the fused route (``submit(batch, columns=...)``), each route's
-   launches read around its own run (K9 and K10 four times a layer per
-   call, K1 once a layer, K2 once, K14 and K15 never; K5-K8 as phase 8 on
-   the fused route);
+   launches read around its own run (K9 three and K10 four times a layer
+   per call, K1 once a layer, K2 once, K14 and K15 never; K5-K8 as phase
+   8 on the fused route);
    fused vs host route within max 0.05 / mean 5e-3, one request's kernel
    path vs its plain path within 2e-2, int8 vs the bf16 float path on
    the same f32 weights within 0.05, and card bf16 vs a CPU f32 int8 run
@@ -1587,12 +1592,17 @@ def _k10_diff(got, ref, what: str,
     return diff.max().item(), note
 
 
-def phase_int8_kernels(card: str) -> dict:
+def phase_int8_kernels(card: str, kern: dict) -> dict:
     """K9 and K10 at each step of the int8 block, on the first block's own
     activations (the kernel path), each held to its plain version on the
     same inputs, timed beside ``torch._int_mm`` (K10's library yardstick:
     it writes s32 and does no quantize or epilogue) and bf16 ``F.linear``
-    at the same shape."""
+    at the same shape. FFN1 runs as the served step ("gelu_tanh_quant":
+    codes and scales for FFN2) and, on rows of their own, as the two steps
+    it replaces (K10 "gelu_tanh", then K9's plain mode at K = d_ff), held
+    to it bit for bit. Then one layer's int8 chain (K9 x 3, K10 x 4) as
+    one function, beside phase 3's bf16 chain (K14 x 2, K15 x 4) of this
+    run (``kern``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1653,7 +1663,15 @@ def phase_int8_kernels(card: str) -> dict:
             got = kq.qgemm(*args)
             ref = kq.qgemm_plain(*args)
             torch.cuda.synchronize()
-            diff, note = _k10_diff(got, ref, f"qgemm {step} R={R}")
+            quant = epilogue == "gelu_tanh_quant"
+            if quant:  # FFN2's codes and scales: bit-equal, no step
+                check(torch.equal(got[0], ref[0])
+                      and torch.equal(got[1], ref[1]),
+                      f"qgemm {step} R={R}: codes or scales differ from "
+                      f"the plain version")
+                diff, note = 0.0, None
+            else:
+                diff, note = _k10_diff(got, ref, f"qgemm {step} R={R}")
             N, K = dense.w.shape
             M = xq.shape[0]
             wt = dense.w.t()
@@ -1671,7 +1689,9 @@ def phase_int8_kernels(card: str) -> dict:
             def linear():
                 return F.linear(x_in, wb, bb)
 
-            out_bytes = M * N * got.element_size()
+            # codes and FFN2's scales for the quantize, else the output
+            out_bytes = (M * N + M * 4 if quant
+                         else M * N * got.element_size())
             nbytes = (M * K + N * K + M * 4 + 2 * N * 4 + out_bytes
                       + (out_bytes if residual is not None else 0))
             ops = 2 * M * N * K
@@ -1679,12 +1699,15 @@ def phase_int8_kernels(card: str) -> dict:
             results[("qgemm", step, R)] = {
                 "name": "qgemm", "step": step, "R": R, "M": M, "N": N,
                 "K": K, "epilogue": epilogue, "planes": planes,
-                "max_abs_diff": diff, "bound": "exact, else one bf16 step",
+                "max_abs_diff": diff,
+                "bound": ("exact (codes and scales)" if quant
+                          else "exact, else one bf16 step"),
                 "note": note,
                 **timings(lambda: kq.qgemm(*args),
                           lambda: kq.qgemm_plain(*args), int_mm, flush),
                 "library": "torch._int_mm: s32 out, no quantize, no "
                            "epilogue",
+                **({"clusters": kq.quant_clusters()} if quant else {}),
                 "bf16_linear_ms": time_ms(linear, flush),
                 "bf16_linear_device_ms": device_ms(linear, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1701,12 +1724,57 @@ def phase_int8_kernels(card: str) -> dict:
             cq, cs = k9("ctx", ctx, None)
             x1 = k10("out_residual", cq, cs, blk.out, "residual", x, 1, ctx)
             hq, hs = k9("ln2", x1, blk.ln2)
+            gq, gs = k10("ffn1_gelu_quant", hq, hs, blk.ff1,
+                         "gelu_tanh_quant", None, 1, x1)
+            # the two steps the served one replaces, on rows of their own
             h = k10("ffn1_gelu", hq, hs, blk.ff1, "gelu_tanh", None, 1, x1)
-            gq, gs = k9("gelu_out", h, None)
+            tq, ts = k9("gelu_out", h, None)
+            torch.cuda.synchronize()
+            check(torch.equal(gq, tq) and torch.equal(gs, ts),
+                  f"qgemm gelu_tanh_quant R={R}: not the codes and scales "
+                  f"of the two kernels it replaces")
             x2 = k10("ffn2_residual", gq, gs, blk.ff2, "residual", x1, 1, h)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(x2.float()).all()),
                   f"int8 block R={R}: non-finite output")
+
+            def int8_chain():
+                q1, s1 = kquant.ln_quantize(x, *blk.ln1)
+                kq.qgemm(q1, blk.qkv.w, s1, blk.qkv.s, blk.qkv.b, cfg.dtype,
+                         planes=3)
+                q2, s2 = kquant.ln_quantize(ctx)
+                y1 = kq.qgemm(q2, blk.out.w, s2, blk.out.s, blk.out.b,
+                              cfg.dtype, "residual", x)
+                q3, s3 = kquant.ln_quantize(y1, *blk.ln2)
+                q4, s4 = kq.qgemm(q3, blk.ff1.w, s3, blk.ff1.s, blk.ff1.b,
+                                  cfg.dtype, "gelu_tanh_quant")
+                return kq.qgemm(q4, blk.ff2.w, s4, blk.ff2.s, blk.ff2.b,
+                                cfg.dtype, "residual", y1)
+
+            check(torch.equal(int8_chain(), x2),
+                  f"int8 chain R={R}: not the steps' output")
+            steps = [("ln_quantize", st) for st in ("ln1", "ctx", "ln2")] + [
+                ("qgemm", st) for st in ("qkv", "out_residual",
+                                         "ffn1_gelu_quant", "ffn2_residual")]
+            chain_ms = device_ms(int8_chain, flush)
+            parts_ms = sum(results[(k, st, R)]["device_ms"] for k, st in steps)
+            bound_sum = sum(results[(k, st, R)]["bound_ms"] for k, st in steps)
+            bf16 = kern[("dense_chain_b2", R)]
+            r = results[("int8_chain", R)] = {
+                "name": "int8_chain", "R": R, "M": R * L,
+                "what": "one layer's K9 x 3 + K10 x 4 (LN1, QKV, ctx, out + "
+                        "residual, LN2, FFN1 + GELU + quantize, FFN2 + "
+                        "residual) as one function",
+                "device_ms": chain_ms, "steps_device_ms_sum": parts_ms,
+                "steps_bound_ms_sum": bound_sum,
+                "bf16_chain_device_ms": bf16["device_ms"],
+                "bf16_chain_note": "phase 3's dense_chain_b2 (K14 x 2 + "
+                                   "K15 x 4), this run",
+                "ratio_to_bf16_chain": chain_ms / bf16["device_ms"]}
+            print(f"chip_smoke: int8 chain R={R}: {chain_ms:.4f} ms (steps "
+                  f"{parts_ms:.4f}, bounds {bound_sum:.4f}); bf16 chain "
+                  f"{bf16['device_ms']:.4f} ms: "
+                  f"{r['ratio_to_bf16_chain']:.2f}x", flush=True)
     for r in results.values():
         emit({"phase": "int8_kernels", "card": card, **r})
     return results
@@ -1741,6 +1809,8 @@ def phase_int8_path(card: str) -> dict:
     model = be.model
     check(isinstance(model, QuantizedTraceScorer),
           "quantized engine not serving the int8 scorer")
+    check(model.ffn1_quant, "the bf16 int8 scorer does not quantize FFN2's "
+                            "input in FFN1's epilogue")
     n_layers = model.cfg.n_layers
 
     def wait(req, what: str):
@@ -1777,8 +1847,9 @@ def phase_int8_path(card: str) -> dict:
         stats = engine.stats()
         calls = (stats["fused_calls"] - stats0["fused_calls"] if cols
                  else stats["device_calls"] - stats0["device_calls"])
-        # K9/K10 carry the int8 block: the float chain never launches
-        want = {"ln_quantize": 4 * n_layers * calls,
+        # K9/K10 carry the int8 block: the float chain never launches;
+        # FFN1's epilogue quantizes FFN2's input (no fourth K9)
+        want = {"ln_quantize": 3 * n_layers * calls,
                 "qgemm": 4 * n_layers * calls,
                 "segment_attention": n_layers * calls, "span_embed": calls,
                 "ln_bf16": 0, "gemm_bf16": 0}
@@ -2493,7 +2564,7 @@ def main() -> int:
     main_path = timed(phase_main_path, card)
     fused_kern = timed(phase_fused_kernels, card)
     fused_path = timed(phase_fused_path, card)
-    int8_kern = timed(phase_int8_kernels, card)
+    int8_kern = timed(phase_int8_kernels, card, kern)
     int8_path = timed(phase_int8_path, card)
     ae_kern = timed(phase_ae_kernels, card)
     ae_path = timed(phase_ae_path, card)
@@ -2551,12 +2622,26 @@ def main() -> int:
                "span_head_scatter": "warp per real span: f32 LN stats, "
                                     "bf16-rounded LN out, f32 head dot, "
                                     "sigmoid, write at perm[j]",
-               "ln_quantize": "warp per row, 16-byte loads in registers: "
-                              "exact f64 LN sums, bf16-rounded LN out, "
-                              "absmax * f32(1/127), rint(y / a_s)",
-               "qgemm": "mma.sync m16n8k32 s8, 128x128 tile, 8 warps, "
-                        "cp.async 2-stage ring; dequant + bias + "
-                        "residual/GELU epilogue, QKV split in planes",
+               "ln_quantize": "warp per row (a warp walks two), 16-byte "
+                              "loads in registers, gamma/beta in "
+                              "registers once a warp: exact f64 LN sums, "
+                              "bf16-rounded LN out, absmax * f32(1/127), "
+                              "codes from y * fl(1/a_s) by the 1.5*2^23 "
+                              "add, true division only near a rounding "
+                              "boundary (bit-equal)",
+               "qgemm": "bf16: persistent, wgmma m64n128k32 s8, TMA loads "
+                        "(128-byte swizzle), 2 ping-pong consumer "
+                        "warpgroups each with own ring + producer warp; "
+                        "weight-stationary at K <= 256 (W slice resident, "
+                        "A rings 4/3 deep), else A+W 2-stage ring; "
+                        "epilogue w_s/b in smem, a_s in registers, "
+                        "residual by TMA, GELU by the 32 KB table, TMA "
+                        "store, QKV in planes; FFN1 'gelu_tanh_quant': "
+                        "2-CTA cluster per 64-row block, each CTA half of "
+                        "W1 resident, m64n64k32 chunks, bf16 h in "
+                        "registers, row maxima swapped through DSMEM, "
+                        "int8 codes + scales out; f32: PR 5's mma.sync "
+                        "m16n8k32 kernel",
                "recon_ce": "CTA per 256 positions, ballot-compacted real "
                            "ones in tiles of 64: warp LN (exact f64 "
                            "sums) to smem, head weights streamed in 64-row "
@@ -2654,8 +2739,8 @@ def main() -> int:
            for n in FUSED_N
            if (what, mix, n) != ("join", "otel", FUSED_MAIN_N)}}))
     int8_steps = {"ln_quantize": ("ln1", "ctx", "ln2", "gelu_out"),
-                  "qgemm": ("qkv", "out_residual", "ffn1_gelu",
-                            "ffn2_residual")}
+                  "qgemm": ("qkv", "out_residual", "ffn1_gelu_quant",
+                            "ffn2_residual", "ffn1_gelu")}
     for kname, steps in int8_steps.items():
         extra_keys = timing_keys + ("bound_ms", "bound_by")
         if kname == "qgemm":
@@ -2671,7 +2756,10 @@ def main() -> int:
             **{f"{st}_R{r}": {k: int8_kern[(kname, st, r)].get(k)
                               for k in extra_keys}
                for st in steps for r in R_SHAPES
-               if (st, r) != (steps[0], R)}}))
+               if (st, r) != (steps[0], R)},
+            **({"int8_chain": {f"R{r}": int8_kern[("int8_chain", r)]
+                               for r in R_SHAPES}}
+               if kname == "qgemm" else {})}))
     for kname in ("recon_ce", "ln_masked_pool"):
         extra_keys = timing_keys + ("bound_ms", "bound_by",
                                     "bound_ms_all_positions")

@@ -21,10 +21,14 @@ flips between the kernel and its plain version:
 * ``a_s = absmax * f32(1/127)``, 1 for an all-zero row: XLA compiles the
   reference's ``a_max / 127.0`` into that product, so the scales are the
   JAX scorer's bit for bit;
-* ``x / a_s`` is a true division, rounded half to even.
+* ``x / a_s`` is a true division, rounded half to even (the kernel
+  multiplies by the row's reciprocal and divides truly only where the
+  product lies near a rounding boundary: the same codes,
+  ``csrc/quant_exact.cuh``).
 
-A CUDA tensor launches ``csrc/quant.cu`` (one warp per row, 16-byte loads;
-``K % 8 == 0``, ``K <= 1024``, 16-byte aligned rows) or raises; a CPU tensor
+A CUDA tensor launches ``csrc/quant.cu`` (a warp per row, walking two,
+16-byte loads, LN parameters in registers; ``K % 8 == 0``,
+``K <= 1024``, 16-byte aligned rows) or raises; a CPU tensor
 takes :func:`ln_quantize_plain`. ``launches`` counts the calls that
 launched.
 """

@@ -714,7 +714,9 @@ def _qgemm_inputs(dev, M, N, K, seed=0):
     (1000, 200, 80, "gelu_tanh", 1),
     (130, 24, 48, "residual", 1),
     (130, 24, 272, "residual", 1),        # streaming, half-tile residual
-    (130, 48, 16, "none", 2)])
+    (130, 24, 272, "gelu_tanh", 1),
+    (130, 128, 16, "none", 2),            # planes of 64 columns
+    (300, 192, 1024, "none", 3)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_qgemm_kernel_matches_plain(dev, M, N, K, epilogue, planes, dtype):
     out_dtype = getattr(torch, dtype)
@@ -731,21 +733,112 @@ def test_qgemm_kernel_matches_plain(dev, M, N, K, epilogue, planes, dtype):
     assert torch.equal(got, ref)
 
 
-def test_qgemm_kernel_is_exact_at_the_largest_sums(dev):
-    """K = 1024 codes of ±127: |acc| = 1024 * 127^2, past 2^23; s32 on the
-    card, f64 in the plain version, both exact."""
-    M, N, K = 256, 128, 1024
+@pytest.mark.parametrize("K", [256, 1024])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qgemm_kernel_is_exact_at_the_largest_sums(dev, K, dtype):
+    """Codes of ±127 (and -128): |acc| = K * 127^2 (K = 1024: past 2^23;
+    K = 256: the weight-stationary walk's s32 -> f32 addition at its
+    edge, 256 * 128^2 = 2^22); s32 on the card, f64 in the plain version,
+    both exact, then rounded once to the output type."""
+    M, N = 256, 128
+    out_dtype = getattr(torch, dtype)
     x_q = torch.full((M, K), 127, dtype=torch.int8, device=dev)
     x_q[1::2] = -127
+    x_q[2] = -128
     w_q = torch.full((N, K), 127, dtype=torch.int8, device=dev)
     w_q[::3, ::5] = -127
+    w_q[4] = -128
     one = torch.ones
     got = kq.qgemm(x_q, w_q, one(M, device=dev), one(N, device=dev),
-                   torch.zeros(N, device=dev), torch.float32)
+                   torch.zeros(N, device=dev), out_dtype)
     acc = (x_q.double() @ w_q.double().t()).float()
     torch.cuda.synchronize()
-    assert torch.equal(got, acc)
-    assert acc.abs().max().item() == K * 127 * 127
+    assert torch.equal(got, acc.to(out_dtype))
+    assert acc.abs().max().item() == K * 128 * 128
+    assert (acc.abs() == K * 127 * 127).any()
+
+
+def _quant_pair(got, ref):
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (16384, 1024, 256),  # FFN1 at R = 256
+    (1000, 200, 80),     # ragged M, N and K; N / 2 not a multiple of 64
+    (130, 24, 48),       # the second CTA of a cluster without columns
+    (777, 1016, 256),
+    (64, 8, 16),
+    (3, 1024, 128)])     # fewer row blocks than clusters
+def test_qgemm_gelu_quant_matches_plain(dev, M, N, K):
+    """FFN1 + GELU + FFN2's activation quantize on the card: codes and
+    scales bit-equal to the plain version (the two plain steps) and to the
+    two kernels it replaces (K10 "gelu_tanh", then K9's plain mode)."""
+    x_q, w_q, a_s, w_s, b = _qgemm_inputs(dev, M, N, K)
+    args = (x_q, w_q, a_s, w_s, b, torch.bfloat16)
+    before = kq.launches
+    got = kq.qgemm(*args, "gelu_tanh_quant")
+    ref = kq.qgemm_plain(*args, "gelu_tanh_quant")
+    two = kquant.ln_quantize(kq.qgemm(*args, "gelu_tanh"))
+    torch.cuda.synchronize()
+    assert kq.launches == before + 2
+    _quant_pair(got, ref)
+    _quant_pair(got, two)
+
+
+def test_qgemm_gelu_quant_zero_rows_and_ties(dev):
+    """y = 1 + b exactly (one code of 1 a row, scales 1): the row maxima
+    127 give a_s = 1, so h = gelu(y) = y at y >= 5.5 (tanh rounds to 1 in
+    f32; y >= 8 takes the formula, y < 8 the table) lands on exact .5
+    ties, rounded half to even. Then b = 0: the rows of zero codes have
+    y = 0, h = 0, scale 1 and codes 0."""
+    M, N, K = 200, 1024, 32
+    x_q = torch.zeros(M, K, dtype=torch.int8, device=dev)
+    x_q[::2, 0] = 1
+    w_q = torch.zeros(N, K, dtype=torch.int8, device=dev)
+    w_q[:, 0] = 1
+    ties = torch.tensor([5.5, 6.5, 7.5, 8.5, 10.5, 100.5, 126.5, 127.0,
+                         -6.5, 0.0], device=dev)
+    y = ties.repeat(N // len(ties) + 1)[:N].contiguous()
+    one = torch.ones
+    for b in (y - 1.0, torch.zeros_like(y)):
+        args = (x_q, w_q, one(M, device=dev), one(N, device=dev), b,
+                torch.bfloat16)
+        got = kq.qgemm(*args, "gelu_tanh_quant")
+        ref = kq.qgemm_plain(*args, "gelu_tanh_quant")
+        torch.cuda.synchronize()
+        _quant_pair(got, ref)
+    b = y - 1.0
+    ref = kq.qgemm_plain(x_q, w_q, one(M, device=dev), one(N, device=dev),
+                         b, torch.bfloat16, "gelu_tanh_quant")
+    h = kq.qgemm_plain(x_q, w_q, one(M, device=dev), one(N, device=dev), b,
+                       torch.bfloat16, "gelu_tanh").float()
+    assert ref[1][0].item() == 1.0
+    assert bool(((h[0] / ref[1][0]).frac().abs() == 0.5).sum() >= 5)
+    assert ref[0][0, :3].tolist() == [6, 6, 8]  # 5.5, 6.5, 7.5: to even
+    assert (got[1][1::2] == 1.0).all() and (got[0][1::2] == 0).all()
+
+
+def test_qgemm_kernel_past_2_31_outputs(dev):
+    """M x N past 2^31 elements (64-bit offsets, the cluster grid's row
+    blocks past 2^15): the rows at both ends against the plain version on
+    those rows alone, in "gelu_tanh" (bf16 out) and "gelu_tanh_quant"
+    (int8 codes) mode."""
+    M, N, K = (1 << 31) // 1024 + 3000, 1024, 256
+    x_q, w_q, a_s, w_s, b = _qgemm_inputs(dev, M, N, K)
+    for epi in ("gelu_tanh", "gelu_tanh_quant"):
+        got = kq.qgemm(x_q, w_q, a_s, w_s, b, torch.bfloat16, epi)
+        torch.cuda.synchronize()
+        out = got[0] if epi == "gelu_tanh_quant" else got
+        assert out.numel() > 2 ** 31
+        for rows in (slice(0, 4096), slice(M - 4096, M)):
+            ref = kq.qgemm_plain(x_q[rows], w_q, a_s[rows], w_s, b,
+                                 torch.bfloat16, epi)
+            if epi == "gelu_tanh_quant":
+                _quant_pair((got[0][rows], got[1][rows]), ref)
+            else:
+                assert torch.equal(got[rows], ref)
+        del got, out
 
 
 def test_int8_kernels_refuse_what_they_do_not_take(dev):
@@ -764,6 +857,24 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         kq.qgemm(strided, w_q, a_s, w_s, b, torch.bfloat16)
     with pytest.raises(TypeError, match="out_dtype"):
         kq.qgemm(x_q, w_q, a_s, w_s, b, torch.float16)
+    with pytest.raises(ValueError, match="% 64"):  # bf16 planes: TMA boxes
+        kq.qgemm(x_q, w_q[:48].contiguous(), a_s, w_s[:48], b[:48],
+                 torch.bfloat16, planes=2)
+    wide = torch.zeros(1032, 48, dtype=torch.int8, device=dev)
+    ones = torch.ones(1032, device=dev)
+    for args, dt in (((x_q, wide, a_s, ones, ones), torch.bfloat16),
+                     ((x_q, w_q, a_s, w_s, b), torch.float32),
+                     ((torch.zeros(64, 272, dtype=torch.int8, device=dev),
+                       torch.zeros(64, 272, dtype=torch.int8, device=dev),
+                       a_s, w_s, b), torch.bfloat16)):
+        with pytest.raises(ValueError, match="gelu_tanh_quant"):
+            kq.qgemm(*args, dt, "gelu_tanh_quant")
+    with pytest.raises(ValueError, match="residual"):
+        kq.qgemm(x_q, w_q, a_s, w_s, b, torch.bfloat16, "gelu_tanh_quant",
+                 torch.zeros(64, 64, dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        kq.qgemm(x_q, w_q, a_s, torch.ones(65, device=dev)[1:], b,
+                 torch.bfloat16)
     x = torch.randn(8, 12, device=dev)
     with pytest.raises(ValueError, match="K % 8"):
         kquant.ln_quantize(x)
@@ -776,7 +887,8 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_int8_forward_kernel_path_matches_plain_path(dev, dtype):
     """The int8 scorer's kernel path against its plain path on the card,
-    with K9 and K10 launched four times a layer each."""
+    with K10 launched four times a layer and K9 three (bf16: FFN1's
+    epilogue quantizes FFN2's input) or four (f32)."""
     cfg = TransformerConfig(n_layers=2, dtype=getattr(torch, dtype))
     model = QuantizedTraceScorer(cfg, device=dev)
     pk = _packed(200, 64, pad=3)
@@ -786,7 +898,9 @@ def test_int8_forward_kernel_path_matches_plain_path(dev, dtype):
     ref = model.score_packed(pk.categorical, pk.continuous, pk.segments,
                              pk.positions, reference=True)
     torch.cuda.synchronize()
-    assert kquant.launches - k9 == 4 * cfg.n_layers
+    assert model.ffn1_quant == (dtype == "bfloat16")
+    assert kquant.launches - k9 == (3 if model.ffn1_quant else 4) * \
+        cfg.n_layers
     assert kq.launches - k10 == 4 * cfg.n_layers
     live = torch.from_numpy(pk.segments > 0).to(dev)
     assert (got - ref)[live].abs().max().item() <= 2e-2

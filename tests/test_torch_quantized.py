@@ -370,6 +370,88 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         ln_quantize(x, torch.ones(64))
 
 
+def _ffn1_case(f32: bool, M: int = 77, N: int = 96, K: int = 64,
+               seed: int = 4):
+    """FFN1's inputs at ragged M: random codes with one all-zero row (its
+    h is gelu(0) = 0 with b = 0: scale 1), and a row whose y = 1 + b lands
+    on exact .5 ties of h / a_s (a_s = 1 from its absmax 127; gelu(y) = y
+    there in f32)."""
+    rng = np.random.default_rng(seed)
+    x_q = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8))
+    a_s = torch.from_numpy(rng.uniform(1e-3, 0.05, M).astype(np.float32))
+    w_s = torch.from_numpy(rng.uniform(1e-4, 2e-3, N).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(N)).astype(np.float32))
+    x_q[5] = 0
+    x_q[9] = 0
+    x_q[9, 0] = 1
+    w_q[:, 0] = 1
+    w_s[:] = 1.0
+    a_s[9] = 1.0
+    # row 9: y = x_q[9] . w_q[n] * (1 * 1) + b = 1 + b
+    ties = np.tile([5.5, 6.5, 7.5, 126.5, 127.0, -6.5], N)[:N]
+    b[:] = torch.from_numpy((ties - 1.0).astype(np.float32))
+    return x_q, w_q, a_s, w_s, b, _dt(f32)[1]
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_qgemm_plain_gelu_quant_is_the_two_plain_steps(f32):
+    """"gelu_tanh_quant" is "gelu_tanh" then K9's plain mode, bit for bit:
+    ragged M, a zero h row (scale 1), exact .5 ties rounded half to even;
+    and its codes times scales are the JAX scorer's _qdense quantize of
+    the same GELU output."""
+    x_q, w_q, a_s, w_s, b, tdt = _ffn1_case(f32)
+    got = qgemm_plain(x_q, w_q, a_s, w_s, b, tdt, "gelu_tanh_quant")
+    h = qgemm_plain(x_q, w_q, a_s, w_s, b, tdt, "gelu_tanh")
+    ref = ln_quantize_plain(h)
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert got[1][9].item() == 1.0
+    q = h[9].float() / got[1][9]
+    assert int((q.frac().abs() == 0.5).sum()) >= 3
+    assert got[0][9, :3].tolist() == [6, 6, 8]  # 5.5, 6.5, 7.5: to even
+    jdt = _dt(f32)[0]
+    jref = _jax_codes_times_scale(_jnp(_f32(h), jdt), jdt)
+    np.testing.assert_array_equal(
+        (got[0].float() * got[1][:, None]).numpy(), jref)
+    # b = 0: the zero codes' row has y = 0, h = 0, scale 1, codes 0
+    zero = qgemm_plain(x_q, w_q, a_s, w_s, torch.zeros_like(b), tdt,
+                       "gelu_tanh_quant")
+    assert zero[1][5].item() == 1.0 and (zero[0][5] == 0).all()
+    assert torch.equal(zero[0], ln_quantize_plain(qgemm_plain(
+        x_q, w_q, a_s, w_s, torch.zeros_like(b), tdt, "gelu_tanh"))[0])
+
+
+def test_gelu_quant_wrapper_takes_the_plain_version_and_refuses():
+    """On the CPU the wrapper returns the plain version's codes and scales
+    without launching; on every device it refuses what the kernel does
+    not take: N > 1024, the f32 working type, K > 256, a residual."""
+    x_q, w_q, a_s, w_s, b, tdt = _ffn1_case(False)
+    kq.launches = 0
+    got = qgemm(x_q, w_q, a_s, w_s, b, tdt, "gelu_tanh_quant")
+    ref = qgemm_plain(x_q, w_q, a_s, w_s, b, tdt, "gelu_tanh_quant")
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert kq.launches == 0
+    assert kq.fused_quant_takes(1024, 256, torch.bfloat16)
+    assert not kq.fused_quant_takes(1032, 256, torch.bfloat16)
+    wide = torch.ones(1032, x_q.shape[1], dtype=torch.int8)
+    ones = torch.ones(1032)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        qgemm(x_q, wide, a_s, ones, ones, tdt, "gelu_tanh_quant")
+    with pytest.raises(ValueError, match="bf16"):
+        qgemm(x_q, w_q, a_s, w_s, b, torch.float32, "gelu_tanh_quant")
+    deep = torch.ones(x_q.shape[0], 272, dtype=torch.int8)
+    with pytest.raises(ValueError, match="K <= 256"):
+        qgemm(deep, torch.ones(96, 272, dtype=torch.int8), a_s, w_s, b, tdt,
+              "gelu_tanh_quant")
+    with pytest.raises(ValueError, match="residual"):
+        qgemm(x_q, w_q, a_s, w_s, b, tdt, "gelu_tanh_quant",
+              torch.zeros(x_q.shape[0], 96, dtype=tdt))
+    with pytest.raises(ValueError, match="residual"):
+        qgemm_plain(x_q, w_q, a_s, w_s, b, tdt, "gelu_tanh_quant",
+                    torch.zeros(x_q.shape[0], 96, dtype=tdt))
+
+
 # ----------------------------------------------- (c), (d) the scorer
 
 SCORER_CASES = [(s, a) for s in SEEDS for a in (0, 2)]
@@ -396,6 +478,26 @@ def test_scorer_bf16_matches_the_jax_scorer(seed, attr_slots):
     m = pk.segments > 0
     d = np.abs(got[m] - ref[m])
     assert d.max() <= SCORER_BF16_MAX and d.mean() <= SCORER_BF16_MEAN
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scorer_picks_the_fused_ffn1_and_keeps_its_scores(seed):
+    """At the default widths' ratio (d_ff 4 d <= 1024, d <= 256) the bf16
+    scorer quantizes FFN2's input in FFN1's epilogue on both routes; its
+    scores equal, bit for bit, those of the same scorer run through the
+    two-step composition (FFN1 + GELU, then K9). The f32 scorer keeps the
+    two steps."""
+    jm, v, js, pq = _pair(False, seed)
+    assert pq.ffn1_quant
+    assert not _pair(True, seed)[3].ffn1_quant
+    pk = _packed(seed + 3)
+    fused = pq.score_packed(*_args(pk))
+    fused_ref = pq.score_packed(*_args(pk), reference=True)
+    pq.ffn1_quant = False
+    two = pq.score_packed(*_args(pk))
+    two_ref = pq.score_packed(*_args(pk), reference=True)
+    for got, ref in ((fused, two), (fused_ref, two_ref), (fused, fused_ref)):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])

@@ -11,7 +11,9 @@ an edit whose anchor is missing fails the run), built with the same
 ``nvcc`` flags as ``odigos_tpu_torch/kernels/build.py``, and launched
 through the port's wrapper on the smoke run's main-path inputs (R = 256
 and 2048 packed rows, default ``TransformerConfig``; K10 ``qgemm`` at the
-int8 block's QKV product, on the first block's own codes; K15
+int8 block's QKV product and at its FFN1 + GELU + quantize step
+(``qgemm_ffn1``), on the first block's own codes; K9 ``ln_quantize`` at
+LN1 on the block's input; K15
 ``gemm_bf16`` at the float block's FFN1 + GELU, on the first block's own
 LN2 output; K6 ``radix_sort`` as the trace sort of the smoke run's otel
 frame at N = 65536). Times are
@@ -41,7 +43,23 @@ NO_EPILOGUE = {
     "epilogue_rows<MODE, ROWS>(acc":
         "if (acc0[0] == 1234567.f && acc1[63] == -7654321.f)\n"
         "        epilogue_rows<MODE, ROWS>(acc",
-    "    if (n >= N) break;\n": "    break;\n"}
+    "store_boxes<ROWS>(&map_out": "if (false) store_boxes<ROWS>(&map_out"}
+
+# K10's (qgemm_s8_kernel) likewise
+NO_EPILOGUE_S8 = {
+    "epilogue_rows<MODE, ROWS, WS>(acc":
+        "if (acc0[0] == 1234567 && acc1[63] == -7654321)\n"
+        "        epilogue_rows<MODE, ROWS, WS>(acc",
+    "store_boxes<ROWS>(&map_out": "if (false) store_boxes<ROWS>(&map_out"}
+
+# K10's FFN1 quantize (qgemm_s8_quant_kernel): neither pass 1 (dequantize,
+# GELU, row maxima) nor pass 2 (codes, transposes, stores) runs; the
+# maxima swap between the cluster's CTAs stays
+NO_QUANT_EPILOGUE = {
+    "      chunk_gelu(acc, c * QCH,":
+        "      if (acc[0] == 1234567 && acc[63] == -7654321)\n"
+        "      chunk_gelu(acc, c * QCH,",
+    "    block_codes(hb, xs,": "    if (false) block_codes(hb, xs,"}
 
 # kernel -> variant -> {anchor text in the source: replacement}
 VARIANTS = {
@@ -68,20 +86,118 @@ VARIANTS = {
                         "        if (w_c.y > 0) {": "        if (false) {"},
     },
     "qgemm": {
-        # no global->shared copies: the mma runs on stale shared memory
-        "no_copies": {
-            '  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, '
-            '%2;\\n" ::"r"(dst),\n               "l"(src), "r"(src_bytes));':
-                "  (void)dst; (void)src; (void)src_bytes;"},
-        # no tensor-core products: copies, ldmatrix and the epilogue
-        "no_mma": {
-            "          mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);":
-                "          acc[mi][ni][0] ^= (int)(a[mi][0] ^ b[ni][1]);"},
-        # the epilogue's math but no output stores (an impossible value)
-        "no_stores": {
-            "        Out<T>::store2(outp + m * plane_cols, y0, y1);":
-                "        if (y0 == 1234567.f && y1 == -7654321.f)\n"
-                "          Out<T>::store2(outp + m * plane_cols, y0, y1);"},
+        # the TMA loads and the ring only: no products, no epilogue
+        "loads_only": {
+            "        wgmma_s8_m64n128k32(acc0, sw128_desc(a + kk * 32), db);\n"
+            "        wgmma_s8_m64n128k32(acc1, sw128_desc(a + 64 * 128 + kk * "
+            "32), db);":
+                "        (void)db;",
+            **NO_EPILOGUE_S8},
+        # the products on stale shared memory: no A/W tile loads (the
+        # producer arrives on each stage itself), no epilogue
+        "mma_only": {
+            "          mbar_expect_tx(&full[s], kStageBytes);\n"
+            "          tma_load_2d(st, &map_x, kt * BK, m0, &full[s]);\n"
+            "          if constexpr (!WS)\n"
+            "            tma_load_2d(st + kTile, &map_w, kt * BK, n0, "
+            "&full[s]);":
+                "          (void)st, (void)n0, (void)m0;\n"
+                "          mbar_arrive(&full[s]);",
+            **NO_EPILOGUE_S8},
+        # loads and products, no epilogue
+        "no_epilogue": NO_EPILOGUE_S8,
+        # the epilogue's math and staging, no TMA stores
+        "no_stores": {"store_boxes<ROWS>(&map_out":
+                      "if (false) store_boxes<ROWS>(&map_out"},
+    },
+    "qgemm_ffn1": {
+        # the A block loads (and W half, once) only: no products, no
+        # epilogue passes
+        "loads_only": {
+            "          wgmma_s8_m64n128k32(\n              acc, sw128_desc("
+            "a_base":
+                "          if (false) wgmma_s8_m64n128k32(\n              "
+                "acc, sw128_desc(a_base",
+            **NO_QUANT_EPILOGUE},
+        # the products on stale A blocks (the producer arrives itself; the
+        # W half still loads once), no epilogue passes
+        "mma_only": {
+            "        mbar_expect_tx(&a_full[wg][s], ktiles * kQABox);\n"
+            "        for (int kt = 0; kt < ktiles; ++kt)\n"
+            "          tma_load_2d(a_mine + s * kQA + kt * kQABox, &map_x, kt "
+            "* BK,\n                      (int)(q * QBM), &a_full[wg][s]);":
+                "        mbar_arrive(&a_full[wg][s]);",
+            **NO_QUANT_EPILOGUE},
+        # loads and products, no epilogue passes
+        "no_epilogue": NO_QUANT_EPILOGUE,
+        # pass 1 and the maxima swap, no codes computed or stored
+        "no_quantize": {"    block_codes(hb, xs,":
+                        "    if (false) block_codes(hb, xs,"},
+        # pass 1's GELU by the formula on every output (no table)
+        "gelu_formula": {
+            "  rare |= gelu_rare<LO, SPAN>(v & 0xFFFFu) | gelu_rare<LO, SPAN>(v "
+            ">> 16);\n"
+            "  return (uint32_t)tab[gelu_index<LO, SPAN>(v & 0xFFFFu)] |\n"
+            "         ((uint32_t)tab[gelu_index<LO, SPAN>(v >> 16)] << 16);":
+                "  (void)tab, (void)rare;\n"
+                "  return (uint32_t)gelu_formula_bits(v & 0xFFFFu) |\n"
+                "         ((uint32_t)gelu_formula_bits(v >> 16) << 16);"},
+        # every code by the true division (no reciprocal product)
+        "true_division": {
+            "  if (near) {  // rare: a product near a rounding boundary\n"
+            "#pragma unroll\n    for (int e = 0; e < 4; ++e) {":
+                "  if (true) {\n#pragma unroll\n    for (int e = 0; e < 4; "
+                "++e) {"},
+    },
+    "ln_quantize": {
+        # two rows in flight a warp: both loaded before either is reduced
+        "two_rows": {
+            "  for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);\n"
+            "       row < M; row += warps) {\n"
+            "    float v[NV][EPV];\n"
+            "#pragma unroll\n"
+            "    for (int i = 0; i < NV; ++i) {\n"
+            "      const int k0 = (i * 32 + lane) * EPV;\n"
+            "      if (k0 < K) {\n"
+            "        load_vec(x + row * K + k0, v[i]);\n"
+            "      } else {\n"
+            "#pragma unroll\n"
+            "        for (int j = 0; j < EPV; ++j) v[i][j] = 0.f;\n"
+            "      }\n"
+            "    }\n"
+            "    quantize_row<T, NV, LN>(v, g, b, x, K, eps, xq + row * K, as + row);\n"
+            "  }":
+                "  for (long long r0 = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);\n"
+                "       r0 < M; r0 += 2 * warps) {\n"
+                "    float v[2][NV][EPV];\n"
+                "#pragma unroll\n"
+                "    for (int r = 0; r < 2; ++r)\n"
+                "#pragma unroll\n"
+                "      for (int i = 0; i < NV; ++i) {\n"
+                "        const int k0 = (i * 32 + lane) * EPV;\n"
+                "        if (r0 + r * warps < M && k0 < K) {\n"
+                "          load_vec(x + (r0 + r * warps) * K + k0, v[r][i]);\n"
+                "        } else {\n"
+                "#pragma unroll\n"
+                "          for (int j = 0; j < EPV; ++j) v[r][i][j] = 0.f;\n"
+                "        }\n"
+                "      }\n"
+                "#pragma unroll\n"
+                "    for (int r = 0; r < 2; ++r) {\n"
+                "      const long long row = r0 + r * warps;\n"
+                "      if (row >= M) break;\n"
+                "      quantize_row<T, NV, LN>(v[r], g, b, x, K, eps, xq + row * K,\n"
+                "                              as + row);\n"
+                "    }\n"
+                "  }"},
+        # PR 5's walk: a row a warp, a block per 8 rows
+        "row_per_warp": {
+            "  long long blocks = (M + kWarps * 2 - 1) / (kWarps * 2);":
+                "  long long blocks = (M + kWarps - 1) / kWarps;"},
+        # every code by the true division
+        "true_division": {
+            "    if (near) {  // rare: a product near a rounding boundary":
+                "    if (true) {"},
     },
     "radix_sort": {
         # each key stored back at its own place, coalesced, in place of
@@ -153,6 +269,8 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
                                    "segment_attention_launch"),
              "span_embed": ("span_embed", "span_embed_launch"),
              "qgemm": ("qgemm", "qgemm_launch"),
+             "qgemm_ffn1": ("qgemm", "qgemm_launch"),
+             "ln_quantize": ("quant", "ln_quantize_launch"),
              "radix_sort": ("trace_sort", "radix_sort_launch"),
              "gemm_bf16": ("dense", "gemm_bf16_launch")}
 
@@ -162,8 +280,15 @@ ARGTYPES = {
                              ctypes.c_void_p]),
     "span_embed": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                   + [ctypes.c_void_p],
-    "qgemm": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+    "qgemm": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
               + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "qgemm_ffn1": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p]),
+    "ln_quantize": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p],
     "radix_sort": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_longlong] + [ctypes.c_void_p] * 4),
@@ -231,6 +356,10 @@ def main() -> int:
                "qgemm": qgemm, "radix_sort": sort}
     built = {k: m._kernel() for k, m in modules.items()}
     built["gemm_bf16"] = dense._kernel("gemm_bf16_launch")
+    built["qgemm_ffn1"] = built["qgemm"]
+    modules["qgemm_ffn1"] = qgemm
+    modules["ln_quantize"] = quant
+    built["ln_quantize"] = quant._kernel()
 
     def swap(kname: str, fn) -> None:
         if kname == "gemm_bf16":
@@ -273,6 +402,10 @@ def main() -> int:
                                           planes=3).view(3, R, L, H, hd)
                 h2 = blk.ln2(x2)
                 xq, a_s = quant.ln_quantize(x.view(R * L, -1), *qblk.ln1)
+                # FFN1's input: LN2 of the embedding (the block's x1 is a
+                # residual step away; the product's shapes are the same)
+                hq, h_s = quant.ln_quantize(x.view(R * L, -1), *qblk.ln2)
+                ff1 = qblk.ff1
                 qkv = qblk.qkv
                 calls = {
                     "segment_attention": lambda: attention.segment_attention(
@@ -281,6 +414,11 @@ def main() -> int:
                         cat, cont, pos, seg, tables, cfg.dtype),
                     "qgemm": lambda: qgemm.qgemm(
                         xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3),
+                    "ln_quantize": lambda: quant.ln_quantize(
+                        x.view(R * L, -1), *qblk.ln1),
+                    "qgemm_ffn1": lambda: qgemm.qgemm(
+                        hq, ff1.w, h_s, ff1.s, ff1.b, cfg.dtype,
+                        "gelu_tanh_quant"),
                     "gemm_bf16": lambda: dense.gemm_bf16(
                         h2, blk.ff1.weight, blk.ff1.bias, "gelu_tanh"),
                     "radix_sort": lambda: sort.radix_sort(trace_keys, n)}
