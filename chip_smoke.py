@@ -89,27 +89,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward's device time that the padded rows take;
 9. int8 kernels — K9 ``ln_quantize`` and K10 ``qgemm`` at each step of
    the int8 block (LN1, the fused QKV product split for K1, the context
-   quantize, the out-projection + residual, LN2, FFN1 + GELU + FFN2's
-   activation quantize, FFN2 + residual) on the first block's own
+   quantize, the out-projection + residual, LN2, FFN1 + GELU, the GELU
+   output quantize, FFN2 + residual) on the first block's own
    activations at R = 256 and 2048 rows (M = 16384 and 131072 tokens),
-   and on rows of their own the two steps the FFN1 step replaces (K10
-   FFN1 + GELU, K9's plain mode at K = d_ff), each held to its plain
-   version on the same inputs — codes, scales and outputs bit-equal (K10's
-   bf16 outputs, failing that, within one bf16 step with the reason
-   printed), the FFN1 step's codes and scales also to the two kernels' —
-   with the same times and bound as phase 3 (int8 operations over 1,979
-   TOP/s), K10 beside ``torch._int_mm`` (s32 out, no quantize or
-   epilogue; checked to be the exact product) and bf16 ``F.linear`` at
-   the same shape; then one layer's int8 chain (K9 x 3, K10 x 4) as one
-   function beside phase 3's bf16 chain (K14 x 2, K15 x 4) of the same
-   run;
+   and on a row of its own K10's "gelu_tanh_quant" (FFN1 + GELU + the
+   GELU output quantize in one launch; not served, it measured slower
+   than the two steps), each held to its plain version on the same
+   inputs — codes, scales and outputs bit-equal (K10's bf16 outputs,
+   failing that, within one bf16 step with the reason printed), the fused
+   mode's codes and scales also to the two served kernels' — with the
+   same times and bound as phase 3 (int8 operations over 1,979 TOP/s),
+   K10 beside ``torch._int_mm`` (s32 out, no quantize or epilogue;
+   checked to be the exact product) and bf16 ``F.linear`` at the same
+   shape; then one layer's int8 chain (K9 x 4, K10 x 4) as one function
+   beside phase 3's bf16 chain (K14 x 2, K15 x 4) of the same run;
 10. int8 path — ``ScoringEngine(EngineConfig(model="transformer",
    quantized=True))`` at full width, warmed: the sequential requests of
    phase 6 and the concurrent burst, on the host route (``submit(batch)``)
    and on the fused route (``submit(batch, columns=...)``), each route's
-   launches read around its own run (K9 three and K10 four times a layer
-   per call, K1 once a layer, K2 once, K14 and K15 never; K5-K8 as phase
-   8 on the fused route);
+   launches read around its own run (K9 and K10 four times a layer per
+   call, K1 once a layer, K2 once, K14 and K15 never; K5-K8 as phase 8 on
+   the fused route);
    fused vs host route within max 0.05 / mean 5e-3, one request's kernel
    path vs its plain path within 2e-2, int8 vs the bf16 float path on
    the same f32 weights within 0.05, and card bf16 vs a CPU f32 int8 run
@@ -1597,11 +1597,12 @@ def phase_int8_kernels(card: str, kern: dict) -> dict:
     activations (the kernel path), each held to its plain version on the
     same inputs, timed beside ``torch._int_mm`` (K10's library yardstick:
     it writes s32 and does no quantize or epilogue) and bf16 ``F.linear``
-    at the same shape. FFN1 runs as the served step ("gelu_tanh_quant":
-    codes and scales for FFN2) and, on rows of their own, as the two steps
-    it replaces (K10 "gelu_tanh", then K9's plain mode at K = d_ff), held
-    to it bit for bit. Then one layer's int8 chain (K9 x 3, K10 x 4) as
-    one function, beside phase 3's bf16 chain (K14 x 2, K15 x 4) of this
+    at the same shape. FFN1 runs as the served two steps (K10
+    "gelu_tanh", then K9's plain mode at K = d_ff) and, on a row of its
+    own, as K10's "gelu_tanh_quant" (the same codes and scales in one
+    launch; not served: it measured slower than the two steps), held to
+    them bit for bit. Then one layer's served int8 chain (K9 x 4, K10 x 4)
+    as one function, beside phase 3's bf16 chain (K14 x 2, K15 x 4) of this
     run (``kern``)."""
     import torch
     import torch.nn.functional as F
@@ -1707,7 +1708,6 @@ def phase_int8_kernels(card: str, kern: dict) -> dict:
                           lambda: kq.qgemm_plain(*args), int_mm, flush),
                 "library": "torch._int_mm: s32 out, no quantize, no "
                            "epilogue",
-                **({"clusters": kq.quant_clusters()} if quant else {}),
                 "bf16_linear_ms": time_ms(linear, flush),
                 "bf16_linear_device_ms": device_ms(linear, flush),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -1724,16 +1724,24 @@ def phase_int8_kernels(card: str, kern: dict) -> dict:
             cq, cs = k9("ctx", ctx, None)
             x1 = k10("out_residual", cq, cs, blk.out, "residual", x, 1, ctx)
             hq, hs = k9("ln2", x1, blk.ln2)
-            gq, gs = k10("ffn1_gelu_quant", hq, hs, blk.ff1,
-                         "gelu_tanh_quant", None, 1, x1)
-            # the two steps the served one replaces, on rows of their own
             h = k10("ffn1_gelu", hq, hs, blk.ff1, "gelu_tanh", None, 1, x1)
             tq, ts = k9("gelu_out", h, None)
+            # the fused mode the two served steps would give way to
+            gq, gs = k10("ffn1_gelu_quant", hq, hs, blk.ff1,
+                         "gelu_tanh_quant", None, 1, x1)
             torch.cuda.synchronize()
             check(torch.equal(gq, tq) and torch.equal(gs, ts),
                   f"qgemm gelu_tanh_quant R={R}: not the codes and scales "
-                  f"of the two kernels it replaces")
-            x2 = k10("ffn2_residual", gq, gs, blk.ff2, "residual", x1, 1, h)
+                  f"of the two kernels it would replace")
+            fused = results[("qgemm", "ffn1_gelu_quant", R)]
+            fused["served"] = False
+            fused["two_steps_device_ms"] = (
+                results[("qgemm", "ffn1_gelu", R)]["device_ms"]
+                + results[("ln_quantize", "gelu_out", R)]["device_ms"])
+            print(f"chip_smoke: FFN1 R={R}: gelu_tanh_quant "
+                  f"{fused['device_ms']:.4f} ms, the two served steps "
+                  f"{fused['two_steps_device_ms']:.4f} ms", flush=True)
+            x2 = k10("ffn2_residual", tq, ts, blk.ff2, "residual", x1, 1, h)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(x2.float()).all()),
                   f"int8 block R={R}: non-finite output")
@@ -1746,24 +1754,26 @@ def phase_int8_kernels(card: str, kern: dict) -> dict:
                 y1 = kq.qgemm(q2, blk.out.w, s2, blk.out.s, blk.out.b,
                               cfg.dtype, "residual", x)
                 q3, s3 = kquant.ln_quantize(y1, *blk.ln2)
-                q4, s4 = kq.qgemm(q3, blk.ff1.w, s3, blk.ff1.s, blk.ff1.b,
-                                  cfg.dtype, "gelu_tanh_quant")
+                q4, s4 = kquant.ln_quantize(kq.qgemm(
+                    q3, blk.ff1.w, s3, blk.ff1.s, blk.ff1.b, cfg.dtype,
+                    "gelu_tanh"))
                 return kq.qgemm(q4, blk.ff2.w, s4, blk.ff2.s, blk.ff2.b,
                                 cfg.dtype, "residual", y1)
 
             check(torch.equal(int8_chain(), x2),
                   f"int8 chain R={R}: not the steps' output")
-            steps = [("ln_quantize", st) for st in ("ln1", "ctx", "ln2")] + [
-                ("qgemm", st) for st in ("qkv", "out_residual",
-                                         "ffn1_gelu_quant", "ffn2_residual")]
+            steps = [("ln_quantize", st) for st in ("ln1", "ctx", "ln2",
+                                                    "gelu_out")] + [
+                ("qgemm", st) for st in ("qkv", "out_residual", "ffn1_gelu",
+                                         "ffn2_residual")]
             chain_ms = device_ms(int8_chain, flush)
             parts_ms = sum(results[(k, st, R)]["device_ms"] for k, st in steps)
             bound_sum = sum(results[(k, st, R)]["bound_ms"] for k, st in steps)
             bf16 = kern[("dense_chain_b2", R)]
             r = results[("int8_chain", R)] = {
                 "name": "int8_chain", "R": R, "M": R * L,
-                "what": "one layer's K9 x 3 + K10 x 4 (LN1, QKV, ctx, out + "
-                        "residual, LN2, FFN1 + GELU + quantize, FFN2 + "
+                "what": "one layer's K9 x 4 + K10 x 4 (LN1, QKV, ctx, out + "
+                        "residual, LN2, FFN1 + GELU, GELU out, FFN2 + "
                         "residual) as one function",
                 "device_ms": chain_ms, "steps_device_ms_sum": parts_ms,
                 "steps_bound_ms_sum": bound_sum,
@@ -1809,8 +1819,6 @@ def phase_int8_path(card: str) -> dict:
     model = be.model
     check(isinstance(model, QuantizedTraceScorer),
           "quantized engine not serving the int8 scorer")
-    check(model.ffn1_quant, "the bf16 int8 scorer does not quantize FFN2's "
-                            "input in FFN1's epilogue")
     n_layers = model.cfg.n_layers
 
     def wait(req, what: str):
@@ -1847,9 +1855,8 @@ def phase_int8_path(card: str) -> dict:
         stats = engine.stats()
         calls = (stats["fused_calls"] - stats0["fused_calls"] if cols
                  else stats["device_calls"] - stats0["device_calls"])
-        # K9/K10 carry the int8 block: the float chain never launches;
-        # FFN1's epilogue quantizes FFN2's input (no fourth K9)
-        want = {"ln_quantize": 3 * n_layers * calls,
+        # K9/K10 carry the int8 block: the float chain never launches
+        want = {"ln_quantize": 4 * n_layers * calls,
                 "qgemm": 4 * n_layers * calls,
                 "segment_attention": n_layers * calls, "span_embed": calls,
                 "ln_bf16": 0, "gemm_bf16": 0}
@@ -2622,13 +2629,12 @@ def main() -> int:
                "span_head_scatter": "warp per real span: f32 LN stats, "
                                     "bf16-rounded LN out, f32 head dot, "
                                     "sigmoid, write at perm[j]",
-               "ln_quantize": "warp per row (a warp walks two), 16-byte "
-                              "loads in registers, gamma/beta in "
-                              "registers once a warp: exact f64 LN sums, "
-                              "bf16-rounded LN out, absmax * f32(1/127), "
-                              "codes from y * fl(1/a_s) by the 1.5*2^23 "
-                              "add, true division only near a rounding "
-                              "boundary (bit-equal)",
+               "ln_quantize": "warp per row, 16-byte loads in "
+                              "registers: exact f64 LN sums, bf16-rounded "
+                              "LN out, absmax * f32(1/127), codes from "
+                              "y * fl(1/a_s) by the 1.5*2^23 add, true "
+                              "division only near a rounding boundary "
+                              "(bit-equal)",
                "qgemm": "bf16: persistent, wgmma m64n128k32 s8, TMA loads "
                         "(128-byte swizzle), 2 ping-pong consumer "
                         "warpgroups each with own ring + producer warp; "
@@ -2636,12 +2642,13 @@ def main() -> int:
                         "A rings 4/3 deep), else A+W 2-stage ring; "
                         "epilogue w_s/b in smem, a_s in registers, "
                         "residual by TMA, GELU by the 32 KB table, TMA "
-                        "store, QKV in planes; FFN1 'gelu_tanh_quant': "
-                        "2-CTA cluster per 64-row block, each CTA half of "
-                        "W1 resident, m64n64k32 chunks, bf16 h in "
-                        "registers, row maxima swapped through DSMEM, "
-                        "int8 codes + scales out; f32: PR 5's mma.sync "
-                        "m16n8k32 kernel",
+                        "store, QKV in planes; f32 and bf16 planes off "
+                        "64 columns: PR 5's mma.sync m16n8k32 kernel; "
+                        "off the served path, FFN1 'gelu_tanh_quant': "
+                        "4-CTA clusters of 64-row blocks, each CTA a "
+                        "quarter of W1 resident, m64n128k32, bf16 h "
+                        "staged in swizzled smem, row maxima swapped "
+                        "through DSMEM, int8 codes + scales out",
                "recon_ce": "CTA per 256 positions, ballot-compacted real "
                            "ones in tiles of 64: warp LN (exact f64 "
                            "sums) to smem, head weights streamed in 64-row "
@@ -2739,12 +2746,13 @@ def main() -> int:
            for n in FUSED_N
            if (what, mix, n) != ("join", "otel", FUSED_MAIN_N)}}))
     int8_steps = {"ln_quantize": ("ln1", "ctx", "ln2", "gelu_out"),
-                  "qgemm": ("qkv", "out_residual", "ffn1_gelu_quant",
-                            "ffn2_residual", "ffn1_gelu")}
+                  "qgemm": ("qkv", "out_residual", "ffn1_gelu",
+                            "ffn2_residual", "ffn1_gelu_quant")}
     for kname, steps in int8_steps.items():
         extra_keys = timing_keys + ("bound_ms", "bound_by")
         if kname == "qgemm":
-            extra_keys += ("bf16_linear_ms", "bf16_linear_device_ms", "note")
+            extra_keys += ("bf16_linear_ms", "bf16_linear_device_ms", "note",
+                           "served", "two_steps_device_ms")
         head = int8_kern[(kname, steps[0], R)]
         lines.append(line(kname, head, {
             "shape_R": R, "step": steps[0],

@@ -64,10 +64,12 @@
 //   rows, so it syncs with nobody but the cluster. Rank 0 writes the
 //   scales.
 // All offsets are 64-bit.
-// f32 (dtype 0; no served route runs it on the card): PR 5's kernel, a
-// 128 x 128 output tile per CTA of 8 warps (2 x 4), each warp 64 x 32 as
-// 4 x 4 mma.sync.m16n8k32 s8 tiles, K in steps of 64 through a two-stage
-// cp.async ring, tiles on a flat grid, N fastest.
+// f32 (dtype 0; no served route runs it on the card), and bf16 split into
+// planes of a width off a multiple of 64 (a plane would cut the TMA
+// stores' 64-column boxes): PR 5's kernel, a 128 x 128 output tile per CTA
+// of 8 warps (2 x 4), each warp 64 x 32 as 4 x 4 mma.sync.m16n8k32 s8
+// tiles, K in steps of 64 through a two-stage cp.async ring, tiles on a
+// flat grid, N fastest, each output pair stored from registers.
 //
 // Bound on the card: bytes. At M = 131072 tokens: QKV (K 256, N 768) reads
 // 33.6 MB of x_q and writes 201 MB of bf16 (0.070 ms at 3.35 TB/s);
@@ -88,7 +90,7 @@
 
 namespace {
 
-// ------------------------------------- f32 (dtype 0): mma.sync, PR 5's
+// ---------------- f32 (dtype 0), bf16 planes off 64 columns: mma.sync
 constexpr int SBM = 128;
 constexpr int SBN = 128;
 constexpr int SBK = 64;
@@ -140,12 +142,37 @@ __device__ __forceinline__ void load_tile(uint8_t* smem,
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kSimtThreads) qgemm_f32_kernel(
+template <typename T>
+struct Out;
+template <>
+struct Out<float> {
+  static __device__ __forceinline__ float round(float y) { return y; }
+  static __device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+};
+template <>
+struct Out<__nv_bfloat16> {
+  static __device__ __forceinline__ float round(float y) {
+    return __bfloat162float(__float2bfloat16_rn(y));
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
+                                                float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) =
+        __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+  }
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+};
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kSimtThreads) qgemm_mma_kernel(
     const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     const float* __restrict__ as, const float* __restrict__ ws,
-    const float* __restrict__ bias, const float* __restrict__ res,
-    float* __restrict__ out, long long M, int N, int K, int plane_cols,
+    const float* __restrict__ bias, const T* __restrict__ res,
+    T* __restrict__ out, long long M, int N, int K, int plane_cols,
     int n_tiles) {
   __shared__ __align__(128) uint8_t smem[2][2][kSimtTileBytes];
   const int lane = threadIdx.x & 31;
@@ -219,8 +246,8 @@ __global__ void __launch_bounds__(kSimtThreads) qgemm_f32_kernel(
     const float ws0 = ws[n], ws1 = ws[n + 1];
     const float b0 = bias[n], b1 = bias[n + 1];
     const int plane = n / plane_cols;
-    float* outp = out + (long long)plane * M * plane_cols + (n - plane *
-                                                           plane_cols);
+    T* outp = out + (long long)plane * M * plane_cols + (n - plane *
+                                                       plane_cols);
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
@@ -228,27 +255,27 @@ __global__ void __launch_bounds__(kSimtThreads) qgemm_f32_kernel(
         const long long m = m0 + wm * 64 + mi * 16 + g + h * 8;
         if (m >= M) continue;
         const float a_s = as[m];
-        float y0 = __fadd_rn(
-            __fmul_rn((float)acc[mi][ni][2 * h], __fmul_rn(a_s, ws0)), b0);
-        float y1 = __fadd_rn(
+        float y0 = Out<T>::round(__fadd_rn(
+            __fmul_rn((float)acc[mi][ni][2 * h], __fmul_rn(a_s, ws0)), b0));
+        float y1 = Out<T>::round(__fadd_rn(
             __fmul_rn((float)acc[mi][ni][2 * h + 1], __fmul_rn(a_s, ws1)),
-            b1);
+            b1));
         if constexpr (MODE == 2) {
           y0 = gelu_tanh(y0);
           y1 = gelu_tanh(y1);
         }
         if constexpr (MODE == 1) {
-          y0 = __fadd_rn(res[m * N + n], y0);
-          y1 = __fadd_rn(res[m * N + n + 1], y1);
+          y0 = __fadd_rn(Out<T>::load(res + m * N + n), y0);
+          y1 = __fadd_rn(Out<T>::load(res + m * N + n + 1), y1);
         }
-        *reinterpret_cast<float2*>(outp + m * plane_cols) =
-            make_float2(y0, y1);
+        Out<T>::store2(outp + m * plane_cols, y0, y1);
       }
     }
   }
 }
 
-cudaError_t launch_f32(int mode, const void* xq, const void* wq,
+template <typename T>
+cudaError_t launch_mma(int mode, const void* xq, const void* wq,
                        const void* as, const void* ws, const void* b,
                        const void* res, void* out, long long M, int N, int K,
                        int planes, cudaStream_t st) {
@@ -261,18 +288,18 @@ cudaError_t launch_f32(int mode, const void* xq, const void* wq,
   const float* a = static_cast<const float*>(as);
   const float* s = static_cast<const float*>(ws);
   const float* bb = static_cast<const float*>(b);
-  const float* r = static_cast<const float*>(res);
-  float* o = static_cast<float*>(out);
+  const T* r = static_cast<const T*>(res);
+  T* o = static_cast<T*>(out);
   const int pc = N / planes;
   if (mode == 0)
-    qgemm_f32_kernel<0><<<grid, kSimtThreads, 0, st>>>(x, w, a, s, bb, r, o,
-                                                       M, N, K, pc, n_tiles);
+    qgemm_mma_kernel<T, 0><<<grid, kSimtThreads, 0, st>>>(
+        x, w, a, s, bb, r, o, M, N, K, pc, n_tiles);
   else if (mode == 1)
-    qgemm_f32_kernel<1><<<grid, kSimtThreads, 0, st>>>(x, w, a, s, bb, r, o,
-                                                       M, N, K, pc, n_tiles);
+    qgemm_mma_kernel<T, 1><<<grid, kSimtThreads, 0, st>>>(
+        x, w, a, s, bb, r, o, M, N, K, pc, n_tiles);
   else
-    qgemm_f32_kernel<2><<<grid, kSimtThreads, 0, st>>>(x, w, a, s, bb, r, o,
-                                                       M, N, K, pc, n_tiles);
+    qgemm_mma_kernel<T, 2><<<grid, kSimtThreads, 0, st>>>(
+        x, w, a, s, bb, r, o, M, N, K, pc, n_tiles);
   return cudaGetLastError();
 }
 
@@ -1017,8 +1044,6 @@ __global__ void __launch_bounds__(kTcThreads, 1) qgemm_s8_quant_kernel(
 }
 
 // ---------------------------------------------------------------- host
-int last_quant_clusters = 0;  // the clusters mode 3 can keep resident
-
 struct TcArgs {
   CUtensorMap mx, mw, mo, mo_half, mr, mr_half;
   const float *as, *ws, *b;
@@ -1079,8 +1104,7 @@ cudaError_t launch_tc(int mode, const void* x, const void* w, const void* as,
                       void* out, long long M, int N, int K, int planes,
                       cudaStream_t st) {
   TcArgs a;
-  a.pc = N / planes;
-  if (planes > 1 && a.pc % 64 != 0) return cudaErrorInvalidValue;
+  a.pc = N / planes;  // planes > 1: a multiple of 64 (qgemm_launch)
   cudaError_t e = sm_count(&a.sms);
   if (e != cudaSuccess) return e;
   const cuuint64_t dout[3] = {(cuuint64_t)a.pc, (cuuint64_t)M,
@@ -1142,7 +1166,6 @@ cudaError_t launch_quant(const void* x, const void* w, const void* as,
     if (e != cudaSuccess) return e;
     if (clusters < 1) return cudaErrorInvalidConfiguration;
   }
-  last_quant_clusters = clusters;
   const long long n = clusters < m_blocks ? clusters : m_blocks;
   cfg.gridDim = dim3((unsigned)(kQCl * n));
   return cudaLaunchKernelEx(&cfg, qgemm_s8_quant_kernel, mx, mw,
@@ -1160,10 +1183,9 @@ cudaError_t launch_quant(const void* x, const void* w, const void* as,
 // K % 16 == 0; as: (M,), ws, b: (N,) f32, 8-byte aligned; res: (M, N) in
 // the output type for mode 1, else null; out: (planes, M, N / planes) bf16
 // (dtype 1) or f32 (dtype 0), 16-byte aligned, N % 8 == 0 and (N /
-// planes) % 8 == 0 (bf16 with planes > 1: % 64 == 0), planes == 1 for
-// mode 1. Mode 3 (bf16 only, N <= 1024, K <= 256, planes 1): out is the
-// (M, N) int8 codes, scales the (M,) f32 a_s of FFN2's input; else scales
-// is null.
+// planes) % 8 == 0, planes == 1 for mode 1. Mode 3 (bf16 only, N <= 1024,
+// K <= 256, planes 1): out is the (M, N) int8 codes, scales the (M,) f32
+// a_s of FFN2's input; else scales is null.
 extern "C" int qgemm_launch(const void* xq, const void* wq, const void* as,
                             const void* ws, const void* b, const void* res,
                             void* out, void* scales, int dtype, int mode,
@@ -1181,14 +1203,12 @@ extern "C" int qgemm_launch(const void* xq, const void* wq, const void* as,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == 3)
     return (int)launch_quant(xq, wq, as, ws, b, out, scales, M, N, K, st);
-  if (dtype == 1)
-    return (int)launch_tc(mode, xq, wq, as, ws, b, res, out, M, N, K, planes,
-                          st);
-  return (int)launch_f32(mode, xq, wq, as, ws, b, res, out, M, N, K, planes,
-                         st);
+  if (dtype == 0)
+    return (int)launch_mma<float>(mode, xq, wq, as, ws, b, res, out, M, N, K,
+                                  planes, st);
+  if (planes > 1 && (N / planes) % 64 != 0)  // a plane splits a TMA box
+    return (int)launch_mma<__nv_bfloat16>(mode, xq, wq, as, ws, b, res, out,
+                                          M, N, K, planes, st);
+  return (int)launch_tc(mode, xq, wq, as, ws, b, res, out, M, N, K, planes,
+                        st);
 }
-
-// The clusters of kQCl CTAs the last mode-3 launch could keep resident on
-// the card (its grid, at most one per 64-row block), for the measurement
-// logs; 0 before one.
-extern "C" int qgemm_quant_clusters() { return last_quant_clusters; }

@@ -3,35 +3,30 @@
 //
 // Replaces the activation half of odigos_tpu/models/quantized.py _qdense
 // (:63-71: per-token a_s = absmax / 127, x_q = clip(round(x / a_s), ±127))
-// and, in LN mode, the _layernorm before it (:81-88). The bf16 int8 block
-// runs it three times a layer: LN1 and LN2 (LN mode, K = d) and the
-// attention context before the out-projection (plain mode, K = d); the
-// GELU output before FFN2 is quantized in K10's FFN1 epilogue, and takes
-// this kernel's plain mode at K = d_ff only where that epilogue does not
-// (the f32 working type).
+// and, in LN mode, the _layernorm before it (:81-88). The int8 block runs
+// it four times a layer: LN1 and LN2 (LN mode, K = d), the attention
+// context before the out-projection and the GELU output before FFN2
+// (plain mode, K = d and K = d_ff).
 //
-// A warp normalises and quantizes a row of K values (bf16 or f32) at a
-// time, read with 16-byte loads and held in registers, and walks two rows.
-// LN mode: the
-// LayerNorm of ln_exact.cuh, shared with K11, K12 and K14 (the mean and
-// the mean square of the deviations in two passes over the registers, as
-// :84-85, from exact f64 sums, so the plain version's torch f64 sums give
-// the same bits; IEEE steps), with gamma and beta loaded into registers
-// once per warp; the result rounded to the working type, because
-// _layernorm returns that type and _qdense reads it back. Then absmax over
-// the row and quant_exact.cuh's codes: a_s = absmax * f32(1/127), the
-// codes rint(y / a_s) from a product with the row's reciprocal, each code
-// whose product lies near a rounding boundary taken by the true division
-// (the same bits as dividing every value; see quant_exact.cuh), clipped
-// to ±127. Outputs: x_q (M, K) int8, a_s (M,) f32.
+// One warp per row of K values (bf16 or f32), read with 16-byte loads and
+// held in registers. LN mode: the LayerNorm of ln_exact.cuh, shared with
+// K11 and K12 (the mean and the mean square of the deviations in two
+// passes over the registers, as :84-85, from exact f64 sums, so the plain
+// version's torch f64 sums give the same bits; IEEE steps), the result
+// rounded to the working type, because _layernorm returns that type and
+// _qdense reads it back. Then absmax over the row and quant_exact.cuh's
+// codes: a_s = absmax * f32(1/127) (XLA compiles the reference's
+// a_max / 127.0 into that product; 1 for a zero row), codes = rint(y / a_s)
+// rounded half to even and clipped to ±127, taken from a product with the
+// row's reciprocal and by the true division only for a 16-byte vector
+// whose product lies near a rounding boundary (the true division's bits).
+// Outputs: x_q (M, K) int8, a_s (M,) f32.
 //
 // Bound on the card: bytes. In K * (elt + 1) bytes per row (plus 4), out
 // at M = 131072 rows: 100.7 MB at K = 256 in bf16 (0.030 ms at 3.35 TB/s),
 // 402.7 MB at K = 1024 (0.120 ms); ~10 flops per element, far below any
 // compute limit. Each lane moves 16 contiguous bytes per load and 8 (bf16)
-// or 4 (f32) contiguous code bytes per store. PR 5's version (one row in
-// flight a warp, gamma and beta reloaded per row, a division per code)
-// ran LN1 at 2.6x that bound (PERF.md).
+// or 4 (f32) contiguous code bytes per store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,74 +70,7 @@ __device__ __forceinline__ uint32_t pack4(const int* q) {
          ((uint32_t)(q[2] & 0xff) << 16) | ((uint32_t)(q[3] & 0xff) << 24);
 }
 
-// One row (the lane's NV vectors v) normalised in LN mode, quantized and
-// stored.
-template <typename T, int NV, bool LN>
-__device__ __forceinline__ void quantize_row(float (&v)[NV][16 / sizeof(T)],
-                                             const float (&g)[NV][16 / sizeof(T)],
-                                             const float (&b)[NV][16 / sizeof(T)],
-                                             const T* tag, int K, float eps,
-                                             int8_t* __restrict__ xq_row,
-                                             float* __restrict__ as_row) {
-  constexpr int EPV = 16 / sizeof(T);
-  const int lane = threadIdx.x & 31;
-  if constexpr (LN) {
-    double s = 0.0;
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-#pragma unroll
-      for (int j = 0; j < EPV; ++j) s += (double)v[i][j];  // 0 past K
-    const float mean = ln_mean(s, K);
-    double q = 0.0;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      if ((i * 32 + lane) * EPV >= K) continue;
-#pragma unroll
-      for (int j = 0; j < EPV; ++j) q += ln_sq_dev(v[i][j], mean);
-    }
-    const float rstd = ln_rstd(q, K, eps);
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-#pragma unroll
-      for (int j = 0; j < EPV; ++j)
-        v[i][j] = ln_out(v[i][j], mean, rstd, g[i][j], b[i][j], tag);
-  }
-  float amax = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if ((i * 32 + lane) * EPV >= K) continue;
-#pragma unroll
-    for (int j = 0; j < EPV; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
-  }
-  const float a = quant_scale(warp_max(amax));
-  const float inv = __fdiv_rn(1.0f, a);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int k0 = (i * 32 + lane) * EPV;
-    if (k0 >= K) continue;
-    int c[EPV];
-    bool near = false;
-#pragma unroll
-    for (int j = 0; j < EPV; ++j)
-      c[j] = quant_code_bits(v[i][j], inv, near) - kRoundMagicBits;
-    if (near) {  // rare: a product near a rounding boundary
-#pragma unroll
-      for (int j = 0; j < EPV; ++j) c[j] = quant_code_exact(v[i][j], a);
-    }
-    int8_t* dst = xq_row + k0;
-    if constexpr (EPV == 8)
-      *reinterpret_cast<uint2*>(dst) = make_uint2(pack4(c), pack4(c + 4));
-    else
-      *reinterpret_cast<uint32_t*>(dst) = pack4(c);
-  }
-  if (lane == 0) *as_row = a;
-}
-
-// NV 16-byte vectors per lane cover K <= NV * 32 * (16 / sizeof(T)). A
-// warp walks rows blockIdx.x * 8 + warp, + warps, ... (two at the
-// launch's grid), gamma and beta loaded once. Two rows in flight a warp
-// (both loaded before either is reduced), the next rows loaded ahead, or a
-// resident wave of blocks walking the rows all measured slower (PERF.md).
+// NV 16-byte vectors per lane cover K <= NV * 32 * (16 / sizeof(T)).
 template <typename T, int NV, bool LN>
 __global__ void __launch_bounds__(kThreads) ln_quantize_kernel(
     const T* __restrict__ x, long long M, int K,
@@ -150,49 +78,80 @@ __global__ void __launch_bounds__(kThreads) ln_quantize_kernel(
     float eps, int8_t* __restrict__ xq, float* __restrict__ as) {
   constexpr int EPV = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
-  float g[NV][EPV], b[NV][EPV];  // LN mode: the lane's gamma and beta
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int k0 = (i * 32 + lane) * EPV;
-#pragma unroll
-    for (int j = 0; j < EPV; j += 4) {
-      if (LN && k0 < K) {
-        load_vec(gamma + k0 + j, g[i] + j);
-        load_vec(beta + k0 + j, b[i] + j);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) g[i][j + e] = b[i][j + e] = 0.f;
-      }
-    }
-  }
   const long long warps = (long long)gridDim.x * kWarps;
   for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
        row < M; row += warps) {
+    const T* xr = x + row * K;
     float v[NV][EPV];
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int k0 = (i * 32 + lane) * EPV;
       if (k0 < K) {
-        load_vec(x + row * K + k0, v[i]);
+        load_vec(xr + k0, v[i]);
       } else {
 #pragma unroll
         for (int j = 0; j < EPV; ++j) v[i][j] = 0.f;
       }
     }
-    quantize_row<T, NV, LN>(v, g, b, x, K, eps, xq + row * K, as + row);
+    if constexpr (LN) {
+      double s = 0.0;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) s += (double)v[i][j];  // 0 past K
+      const float mean = ln_mean(s, K);
+      double q = 0.0;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if ((i * 32 + lane) * EPV >= K) continue;
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) q += ln_sq_dev(v[i][j], mean);
+      }
+      const float rstd = ln_rstd(q, K, eps);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int k0 = (i * 32 + lane) * EPV;
+        if (k0 >= K) continue;
+        float gv[EPV], bv[EPV];
+#pragma unroll
+        for (int j = 0; j < EPV; j += 4) {
+          load_vec(gamma + k0 + j, gv + j);
+          load_vec(beta + k0 + j, bv + j);
+        }
+#pragma unroll
+        for (int j = 0; j < EPV; ++j)
+          v[i][j] = ln_out(v[i][j], mean, rstd, gv[j], bv[j], xr);
+      }
+    }
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if ((i * 32 + lane) * EPV >= K) continue;
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
+    }
+    const float a = quant_scale(warp_max(amax));
+    const float inv = __fdiv_rn(1.0f, a);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k0 = (i * 32 + lane) * EPV;
+      if (k0 >= K) continue;
+      int c[EPV];  // the code is each one's low byte
+      bool near = false;
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) c[j] = quant_code_bits(v[i][j], inv, near);
+      if (near) {  // rare: a product near a rounding boundary
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) c[j] = quant_code_exact(v[i][j], a);
+      }
+      int8_t* dst = xq + row * K + k0;
+      if constexpr (EPV == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(pack4(c), pack4(c + 4));
+      else
+        *reinterpret_cast<uint32_t*>(dst) = pack4(c);
+    }
+    if (lane == 0) as[row] = a;
   }
-}
-
-// a block per 16 rows (a warp walks two), grid-stride past 2^20 blocks
-template <typename T, int NV, bool LN>
-cudaError_t launch_nv(const T* x, long long M, int K, const float* g,
-                      const float* b, float eps, int8_t* xq, float* as,
-                      cudaStream_t st) {
-  long long blocks = (M + kWarps * 2 - 1) / (kWarps * 2);
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  ln_quantize_kernel<T, NV, LN><<<(unsigned)blocks, kThreads, 0, st>>>(
-      x, M, K, g, b, eps, xq, as);
-  return cudaGetLastError();
 }
 
 template <typename T, bool LN>
@@ -201,17 +160,24 @@ cudaError_t launch_t(const T* x, long long M, int K, const float* g,
                      cudaStream_t st) {
   constexpr int EPV = 16 / sizeof(T);
   const int need = (K + 32 * EPV - 1) / (32 * EPV);
+  long long blocks = (M + kWarps - 1) / kWarps;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;
+  const dim3 grid((unsigned)blocks);
   if (need <= 1)
-    return launch_nv<T, 1, LN>(x, M, K, g, b, eps, xq, as, st);
-  if (need <= 2)
-    return launch_nv<T, 2, LN>(x, M, K, g, b, eps, xq, as, st);
-  if (need <= 4)
-    return launch_nv<T, 4, LN>(x, M, K, g, b, eps, xq, as, st);
-  if constexpr (sizeof(T) == 4) {
-    if (need <= 8)
-      return launch_nv<T, 8, LN>(x, M, K, g, b, eps, xq, as, st);
-  }
-  return cudaErrorInvalidValue;
+    ln_quantize_kernel<T, 1, LN><<<grid, kThreads, 0, st>>>(x, M, K, g, b,
+                                                            eps, xq, as);
+  else if (need <= 2)
+    ln_quantize_kernel<T, 2, LN><<<grid, kThreads, 0, st>>>(x, M, K, g, b,
+                                                            eps, xq, as);
+  else if (need <= 4)
+    ln_quantize_kernel<T, 4, LN><<<grid, kThreads, 0, st>>>(x, M, K, g, b,
+                                                            eps, xq, as);
+  else if (need <= 8 && sizeof(T) == 4)
+    ln_quantize_kernel<T, 8, LN><<<grid, kThreads, 0, st>>>(x, M, K, g, b,
+                                                            eps, xq, as);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 template <typename T>

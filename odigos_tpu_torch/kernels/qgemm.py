@@ -18,16 +18,18 @@ order (``odigos_tpu/models/quantized.py`` ``_qdense``), then:
   ``N <= 1024`` and ``K <= 256`` (``fused_quant_takes``); the wrapper
   refuses anything else on every device, so the CPU route mirrors the
   card's. The plain version computes it as the two plain steps in any
-  dtype.
+  dtype. The int8 scorer does not serve this mode: on the H100 it
+  measured slower than ``"gelu_tanh"`` followed by K9 (PERF.md).
 
 ``planes > 1`` splits the N columns into ``planes`` blocks and returns them
 as ``(planes, M, N / planes)``: the fused QKV product leaves q, k and v
 each contiguous for K1.
 
-A CUDA tensor launches ``csrc/qgemm.cu`` (bf16: ``wgmma`` s8 with TMA; f32:
-``mma.sync`` s8) or raises — on ``K % 16 != 0``, ``N % 8 != 0``, planes of
-bf16 columns not a multiple of 64, or a misaligned operand as on anything
-else it does not take; it never hands the work to the plain version. A CPU
+A CUDA tensor launches ``csrc/qgemm.cu`` (bf16: ``wgmma`` s8 with TMA;
+f32, and bf16 planes that are not a multiple of 64 columns: ``mma.sync``
+s8) or raises — on ``K % 16 != 0``, ``N % 8 != 0`` or a misaligned operand
+as on anything else it does not take; it never hands the work to the plain
+version. A CPU
 tensor takes :func:`qgemm_plain`, which computes the product exactly in
 f64 (every partial sum is an integer below 2**53; f32 would not be exact
 once ``K * 127**2`` passes ``2**24``) and the same epilogue as separate
@@ -47,8 +49,8 @@ from . import build
 from .quant import ln_quantize_plain
 
 EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2, "gelu_tanh_quant": 3}
-QUANT_MAX_N = 1024  # "gelu_tanh_quant": a 2-CTA cluster holds a row's N
-QUANT_MAX_K = 256   # columns, each CTA its half of W resident
+QUANT_MAX_N = 1024  # "gelu_tanh_quant": a 4-CTA cluster holds a row's N
+QUANT_MAX_K = 256   # columns, each CTA a quarter of W resident
 GELU_C = float(np.float32(np.sqrt(2.0 / np.pi)))  # the kernel's constants
 GELU_K = float(np.float32(0.044715))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -141,15 +143,6 @@ def _check(x_q, w_q, a_s, w_s, bias, epilogue, residual, planes) -> None:
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def quant_clusters() -> int:
-    """The 4-CTA clusters the card kept resident for the last
-    ``"gelu_tanh_quant"`` launch (its grid; 0 before one), for the
-    measurement logs."""
-    fn = build.load("qgemm").qgemm_quant_clusters
-    fn.restype = ctypes.c_int
-    return int(fn())
-
-
 def qgemm(x_q: torch.Tensor, w_q: torch.Tensor, a_s: torch.Tensor,
           w_s: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
           epilogue: str = "none", residual: Optional[torch.Tensor] = None,
@@ -179,9 +172,6 @@ def qgemm(x_q: torch.Tensor, w_q: torch.Tensor, a_s: torch.Tensor,
     if K % 16 or N % 8 or (N // planes) % 8:
         raise ValueError(f"qgemm takes K % 16 == 0 and N, N / planes % 8 "
                          f"== 0, got K = {K}, N = {N}, planes = {planes}")
-    if out_dtype == torch.bfloat16 and planes > 1 and (N // planes) % 64:
-        raise ValueError(f"qgemm in bf16 takes N / planes % 64 == 0 with "
-                         f"planes, got N = {N}, planes = {planes}")
     if residual is not None and residual.dtype != out_dtype:
         raise TypeError(f"residual must be {out_dtype}")
     ts = (x_q, w_q, a_s, w_s, bias) + (() if residual is None

@@ -26,9 +26,8 @@ flips between the kernel and its plain version:
   product lies near a rounding boundary: the same codes,
   ``csrc/quant_exact.cuh``).
 
-A CUDA tensor launches ``csrc/quant.cu`` (a warp per row, walking two,
-16-byte loads, LN parameters in registers; ``K % 8 == 0``,
-``K <= 1024``, 16-byte aligned rows) or raises; a CPU tensor
+A CUDA tensor launches ``csrc/quant.cu`` (one warp per row, 16-byte loads;
+``K % 8 == 0``, ``K <= 1024``, 16-byte aligned rows) or raises; a CPU tensor
 takes :func:`ln_quantize_plain`. ``launches`` counts the calls that
 launched.
 """

@@ -14,18 +14,15 @@ as in the float model. The forward is the reference's ``_block`` with the
 port's kernels:
 
 * K2 (``kernels.embed``) for the embedding, positional table and mask;
-* per block, K9 (``kernels.quant.ln_quantize``) three times — LN1 and LN2
-  with the LayerNorm in front, the attention context plain — and K10
-  (``kernels.qgemm.qgemm``) four times: q, k and v as one product over
-  the concatenated ``(3 d, d)`` int8 weight (per-channel scales make that
-  exact) split into three contiguous planes for K1, the out-projection
-  with the residual add in its epilogue, FFN1 with the tanh GELU and
-  FFN2's activation quantize (``"gelu_tanh_quant"``: the int8 codes and
-  scales, never the bf16 GELU output), FFN2 with the residual. Where
-  that epilogue does not take the block (the f32 working type, d_ff past
-  1024, d past 256: ``qgemm.fused_quant_takes``, decided at
-  construction), FFN1 writes the GELU output and K9 quantizes it, a
-  fourth K9 launch: the same bits;
+* per block, K9 (``kernels.quant.ln_quantize``) four times — LN1 and LN2
+  with the LayerNorm in front, the attention context and the GELU output
+  plain — and K10 (``kernels.qgemm.qgemm``) four times: q, k and v as one
+  product over the concatenated ``(3 d, d)`` int8 weight (per-channel
+  scales make that exact) split into three contiguous planes for K1, the
+  out-projection with the residual add in its epilogue, FFN1 with the
+  tanh GELU, FFN2 with the residual (K10's ``"gelu_tanh_quant"``, FFN1
+  and this K9 step in one launch, computes the same bits but is not
+  served: on the H100 it measured slower than the two launches, PERF.md);
 * K1 (``kernels.attention``) on the bf16 q, k, v viewed ``(R, L, H, hd)``;
 * the host route's final LayerNorm and f32 span head as the float model
   has them; the fused route's through K8 (``kernels.head``).
@@ -57,7 +54,7 @@ import torch.nn.functional as F
 from ..kernels.attention import segment_attention, segment_attention_plain
 from ..kernels.embed import EmbedTables, span_embed, span_embed_plain
 from ..kernels.head import span_head_scatter, span_head_scatter_plain
-from ..kernels.qgemm import fused_quant_takes, qgemm, qgemm_plain
+from ..kernels.qgemm import qgemm, qgemm_plain
 from ..kernels.quant import ln_quantize, ln_quantize_plain
 from ..utils.device import resolve_device
 from .layers import LN_EPS, init_parameters
@@ -138,9 +135,6 @@ class QuantizedTraceScorer:
             raise ValueError(f"working dtype must be float32 or bfloat16, "
                              f"not {self.cfg.dtype}")
         self.device = resolve_device(device)
-        # FFN1's epilogue quantizes FFN2's input where it takes the shape
-        self.ffn1_quant = fused_quant_takes(self.cfg.d_ff, self.cfg.d_model,
-                                            self.cfg.dtype)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         module = _TraceTransformerModule(self.cfg)
@@ -231,12 +225,8 @@ class QuantizedTraceScorer:
             xq, a_s = quant(ctx.view(R * L, d))
             x = gemm(xq, b.out.w, a_s, b.out.s, b.out.b, dt, "residual", x)
             xq, a_s = quant(x, *b.ln2)
-            if self.ffn1_quant:
-                xq, a_s = gemm(xq, b.ff1.w, a_s, b.ff1.s, b.ff1.b, dt,
-                               "gelu_tanh_quant")
-            else:
-                h = gemm(xq, b.ff1.w, a_s, b.ff1.s, b.ff1.b, dt, "gelu_tanh")
-                xq, a_s = quant(h)
+            h = gemm(xq, b.ff1.w, a_s, b.ff1.s, b.ff1.b, dt, "gelu_tanh")
+            xq, a_s = quant(h)
             x = gemm(xq, b.ff2.w, a_s, b.ff2.s, b.ff2.b, dt, "residual", x)
         return x.view(R, L, d)
 

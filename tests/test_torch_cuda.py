@@ -715,6 +715,8 @@ def _qgemm_inputs(dev, M, N, K, seed=0):
     (130, 24, 48, "residual", 1),
     (130, 24, 272, "residual", 1),        # streaming, half-tile residual
     (130, 24, 272, "gelu_tanh", 1),
+    (130, 48, 16, "none", 2),             # bf16: planes off 64 columns
+    (200, 96, 48, "gelu_tanh", 3),
     (130, 128, 16, "none", 2),            # planes of 64 columns
     (300, 192, 1024, "none", 3)])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -857,9 +859,6 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
         kq.qgemm(strided, w_q, a_s, w_s, b, torch.bfloat16)
     with pytest.raises(TypeError, match="out_dtype"):
         kq.qgemm(x_q, w_q, a_s, w_s, b, torch.float16)
-    with pytest.raises(ValueError, match="% 64"):  # bf16 planes: TMA boxes
-        kq.qgemm(x_q, w_q[:48].contiguous(), a_s, w_s[:48], b[:48],
-                 torch.bfloat16, planes=2)
     wide = torch.zeros(1032, 48, dtype=torch.int8, device=dev)
     ones = torch.ones(1032, device=dev)
     for args, dt in (((x_q, wide, a_s, ones, ones), torch.bfloat16),
@@ -887,8 +886,7 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_int8_forward_kernel_path_matches_plain_path(dev, dtype):
     """The int8 scorer's kernel path against its plain path on the card,
-    with K10 launched four times a layer and K9 three (bf16: FFN1's
-    epilogue quantizes FFN2's input) or four (f32)."""
+    with K9 and K10 launched four times a layer each."""
     cfg = TransformerConfig(n_layers=2, dtype=getattr(torch, dtype))
     model = QuantizedTraceScorer(cfg, device=dev)
     pk = _packed(200, 64, pad=3)
@@ -898,9 +896,7 @@ def test_int8_forward_kernel_path_matches_plain_path(dev, dtype):
     ref = model.score_packed(pk.categorical, pk.continuous, pk.segments,
                              pk.positions, reference=True)
     torch.cuda.synchronize()
-    assert model.ffn1_quant == (dtype == "bfloat16")
-    assert kquant.launches - k9 == (3 if model.ffn1_quant else 4) * \
-        cfg.n_layers
+    assert kquant.launches - k9 == 4 * cfg.n_layers
     assert kq.launches - k10 == 4 * cfg.n_layers
     live = torch.from_numpy(pk.segments > 0).to(dev)
     assert (got - ref)[live].abs().max().item() <= 2e-2

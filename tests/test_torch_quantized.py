@@ -480,24 +480,48 @@ def test_scorer_bf16_matches_the_jax_scorer(seed, attr_slots):
     assert d.max() <= SCORER_BF16_MAX and d.mean() <= SCORER_BF16_MEAN
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_scorer_picks_the_fused_ffn1_and_keeps_its_scores(seed):
-    """At the default widths' ratio (d_ff 4 d <= 1024, d <= 256) the bf16
-    scorer quantizes FFN2's input in FFN1's epilogue on both routes; its
-    scores equal, bit for bit, those of the same scorer run through the
-    two-step composition (FFN1 + GELU, then K9). The f32 scorer keeps the
-    two steps."""
-    jm, v, js, pq = _pair(False, seed)
-    assert pq.ffn1_quant
-    assert not _pair(True, seed)[3].ffn1_quant
-    pk = _packed(seed + 3)
-    fused = pq.score_packed(*_args(pk))
-    fused_ref = pq.score_packed(*_args(pk), reference=True)
-    pq.ffn1_quant = False
-    two = pq.score_packed(*_args(pk))
-    two_ref = pq.score_packed(*_args(pk), reference=True)
-    for got, ref in ((fused, two), (fused_ref, two_ref), (fused, fused_ref)):
-        assert torch.equal(got, ref)
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_scorer_serves_ffn1_as_two_steps(f32, monkeypatch):
+    """Both working types serve FFN1 as K10 "gelu_tanh" then K9 (four K9
+    and four K10 steps a layer); swapping each such pair for the one-launch
+    "gelu_tanh_quant" mode leaves the scores equal bit for bit."""
+    import odigos_tpu_torch.models.quantized as mq
+
+    jm, v, js, pq = _pair(f32, 0)
+    pk = _packed(3)
+    epilogues, k9 = [], []
+
+    def gemm(*a, **k):
+        epilogues.append(a[6] if len(a) > 6 else k.get("epilogue", "none"))
+        return qgemm_plain(*a, **k)
+
+    def quant(*a):
+        k9.append(len(a) > 1)
+        return ln_quantize_plain(*a)
+
+    monkeypatch.setattr(mq, "qgemm_plain", gemm)
+    monkeypatch.setattr(mq, "ln_quantize_plain", quant)
+    two = pq.score_packed(*_args(pk), reference=True)
+    n = pq.cfg.n_layers
+    assert epilogues == ["none", "residual", "gelu_tanh", "residual"] * n
+    assert k9 == [True, False, True, False] * n  # LN1, ctx, LN2, GELU out
+    fused = {}
+
+    def gemm_fused(*a, **k):
+        h = qgemm_plain(*a, **k)
+        if a[6:7] == ("gelu_tanh",):
+            fused[id(h)] = qgemm_plain(*a[:6], "gelu_tanh_quant")
+        return h
+
+    def quant_fused(*a):
+        return fused.pop(id(a[0])) if id(a[0]) in fused else \
+            ln_quantize_plain(*a)
+
+    monkeypatch.setattr(mq, "qgemm_plain", gemm_fused)
+    monkeypatch.setattr(mq, "ln_quantize_plain", quant_fused)
+    got = pq.score_packed(*_args(pk), reference=True)
+    assert not fused
+    assert torch.equal(got, two)
 
 
 @pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])

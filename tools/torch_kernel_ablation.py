@@ -150,54 +150,10 @@ VARIANTS = {
                 "++e) {"},
     },
     "ln_quantize": {
-        # two rows in flight a warp: both loaded before either is reduced
-        "two_rows": {
-            "  for (long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);\n"
-            "       row < M; row += warps) {\n"
-            "    float v[NV][EPV];\n"
-            "#pragma unroll\n"
-            "    for (int i = 0; i < NV; ++i) {\n"
-            "      const int k0 = (i * 32 + lane) * EPV;\n"
-            "      if (k0 < K) {\n"
-            "        load_vec(x + row * K + k0, v[i]);\n"
-            "      } else {\n"
-            "#pragma unroll\n"
-            "        for (int j = 0; j < EPV; ++j) v[i][j] = 0.f;\n"
-            "      }\n"
-            "    }\n"
-            "    quantize_row<T, NV, LN>(v, g, b, x, K, eps, xq + row * K, as + row);\n"
-            "  }":
-                "  for (long long r0 = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);\n"
-                "       r0 < M; r0 += 2 * warps) {\n"
-                "    float v[2][NV][EPV];\n"
-                "#pragma unroll\n"
-                "    for (int r = 0; r < 2; ++r)\n"
-                "#pragma unroll\n"
-                "      for (int i = 0; i < NV; ++i) {\n"
-                "        const int k0 = (i * 32 + lane) * EPV;\n"
-                "        if (r0 + r * warps < M && k0 < K) {\n"
-                "          load_vec(x + (r0 + r * warps) * K + k0, v[r][i]);\n"
-                "        } else {\n"
-                "#pragma unroll\n"
-                "          for (int j = 0; j < EPV; ++j) v[r][i][j] = 0.f;\n"
-                "        }\n"
-                "      }\n"
-                "#pragma unroll\n"
-                "    for (int r = 0; r < 2; ++r) {\n"
-                "      const long long row = r0 + r * warps;\n"
-                "      if (row >= M) break;\n"
-                "      quantize_row<T, NV, LN>(v[r], g, b, x, K, eps, xq + row * K,\n"
-                "                              as + row);\n"
-                "    }\n"
-                "  }"},
-        # PR 5's walk: a row a warp, a block per 8 rows
-        "row_per_warp": {
-            "  long long blocks = (M + kWarps * 2 - 1) / (kWarps * 2);":
-                "  long long blocks = (M + kWarps - 1) / kWarps;"},
         # every code by the true division
         "true_division": {
-            "    if (near) {  // rare: a product near a rounding boundary":
-                "    if (true) {"},
+            "      if (near) {  // rare: a product near a rounding boundary":
+                "      if (true) {"},
     },
     "radix_sort": {
         # each key stored back at its own place, coalesced, in place of

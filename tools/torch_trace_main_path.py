@@ -69,7 +69,7 @@ CATEGORIES = (
     ("K8 span_head_scatter", ("span_head_kernel",)),
     ("K9 ln_quantize", ("ln_quantize_kernel",)),
     ("K10 qgemm", ("qgemm_s8_kernel", "qgemm_s8_quant_kernel",
-                   "qgemm_f32_kernel")),
+                   "qgemm_mma_kernel")),
     ("K11 recon_ce", ("recon_ce_kernel",)),
     ("K12 ln_masked_pool", ("ln_masked_pool_kernel",)),
     ("K14 ln_bf16", ("ln_bf16_kernel",)),
