@@ -75,7 +75,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches (one a sort), and the library call where one computes the
    same function (K6's one-frame join sort: ``torch.sort(stable=True)`` on
    the sign-flipped span ids), with K6's time over its bound and over
-   ``torch.sort``'s;
+   ``torch.sort``'s; K7 also on a frame of traces longer than L (eight
+   otel traces under one id), every output exact, its three launches
+   (layout, walk, scatter) timed one by one from ``torch.profiler``'s
+   device events;
 8. fused path — the transformer at full width, bf16, ladder and span
    buckets warmed, through the engine's ``submit(batch, columns=...)``:
    the sequential requests of phase 6, then a coalesced burst; every reply
@@ -120,16 +123,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``trace_rows_pack`` at the same traffic and at the fused span buckets
    N = 4096, 65536 and 131072 (otel and adversarial frames), each held to
    its plain version (K12 bit-equal or within one bf16 step with the
-   reason printed, K13 exact, K11 within 1e-4 on the errors), with the
-   same times and bound as phase 3 (K11: f32 operations on the real
-   positions over 67 TFLOP/s) and K11's library yardstick (four f32
-   ``F.linear`` + three ``F.cross_entropy`` + the squared error, summed);
+   reason printed, K13 exact, K11 within 1e-4 on the errors: its bf16
+   kernel on tensor cores with the model's cached planes, and its f32
+   kernel on CUDA cores on the same rows in f32), with the same times and
+   bound as phase 3 (K11 bf16: the three planes' operations on the real
+   positions over 989 TFLOP/s, and the f32 CUDA-core figure beside) and
+   K11's library yardstick (four f32 ``F.linear`` + three
+   ``F.cross_entropy`` + the squared error, summed);
 12. ae path — ``AutoencoderConfig()`` at full width, bf16, warmed: the
    sidecar (``--model autoencoder``'s engine) serving phase 6's requests
    and burst on the host route, then an engine's fused route
    (``submit(batch, columns=...)``) on the same traffic; launches per
-   call (K2 1, K1 2, K12 1, K11 1, K14 4, K15 10; on the fused route also
-   K5 1, K6 2 in at most 4 device launches, K13 1), K15's ``dec_ff1`` and
+   call (K2 1, K1 2, K12 1, K11 1 on its tensor-core kernel, K14 4, K15
+   10; on the fused route also K5 1, K6 2 in at most 4 device launches,
+   K13 1, K11's 2 device launches), K15's ``dec_ff1`` and
    ``dec_ff2`` at the fused
    route's own R x L rows (past 2^31 outputs) against their plain
    versions, every score in [0, 1], the kernel path vs the plain path on
@@ -191,6 +198,9 @@ HEAD_BF16_ATOL = 2e-3           # K8 in bf16: the LN output may round to a
 SPANS_PER_TRACE = 10.3          # synthesize_traces' mean (otel-demo mix)
 K6_LAUNCHES_PER_SORT = 1        # one cooperative launch a sort
 K6_LAUNCHES_PER_FUSED_CALL = 4  # two sorts a call, with room for a memset
+LONG_TRACE_MERGE = 8            # phase 7's long traces: 8 otel traces as one
+K7_KERNELS = ("pack_layout_kernel", "pack_walk_kernel",
+              "pack_scatter_kernel")  # K7's three launches
 GEMM_DIFFERING_SHARE = 3e-4     # K15's outputs that may differ from the
                                 # plain version at all (f32 sums in another
                                 # order: measured up to 0.03%, PERF.md)
@@ -1160,18 +1170,71 @@ def phase_main_path(card: str) -> dict:
     return out
 
 
+def _long_traces(k: int, seed: int):
+    """``synthesize_traces(k)`` with every LONG_TRACE_MERGE consecutive
+    traces under one trace id: traces of ~80 spans, longer than L = 64, so
+    next-fit packs chunks of L and their remainders."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from odigos_tpu_torch.pdata import synthesize_traces
+
+    b = synthesize_traces(k, seed=seed)
+    cols = dict(b.columns)
+    _, first, tr = np.unique(np.stack([cols["trace_id_hi"],
+                                       cols["trace_id_lo"]], 1), axis=0,
+                             return_index=True, return_inverse=True)
+    tr = tr.reshape(-1)
+    # trace t takes the ids of trace t - t % LONG_TRACE_MERGE (by ordinal)
+    lead = first[tr - tr % LONG_TRACE_MERGE]
+    for name in ("trace_id_hi", "trace_id_lo"):
+        cols[name] = cols[name][lead]
+    return replace(b, columns=cols)
+
+
 def _fused_frame(N: int, kind: str):
     """A frame whose spans fill span bucket ``N`` (just under it): the
-    otel-demo mix, or the adversarial frame."""
+    otel-demo mix, the adversarial frame, or traces longer than L
+    (``"long"``)."""
     from odigos_tpu_torch.pdata import adversarial_traces, synthesize_traces
     from odigos_tpu_torch.serving.fused import _span_bucket
 
     k = int(N / SPANS_PER_TRACE * 0.95)
-    make = synthesize_traces if kind == "otel" else adversarial_traces
-    batch = make(k, seed=71 if kind == "otel" else 72)
+    make = {"otel": synthesize_traces, "adversarial": adversarial_traces,
+            "long": _long_traces}[kind]
+    batch = make(k, seed={"otel": 71, "adversarial": 72, "long": 73}[kind])
     check(_span_bucket(len(batch)) == N,
           f"{kind} frame of {len(batch)} spans misses bucket {N}")
     return batch
+
+
+def kernel_split_ms(fn, flush, names, reps: int = 20) -> dict:
+    """The median device time of each of ``fn``'s kernels (by a part of its
+    name, ``names``) over ``reps`` runs, L2 flushed before each, from
+    ``torch.profiler``'s device events; "not measured" where the profiler
+    recorded no such kernel in every run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    times: dict = {k: [] for k in names}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in names:
+            if k in e.name:
+                times[k].append((e.time_range.end - e.time_range.start) / 1e3)
+    return {k: statistics.median(v) if len(v) == reps else "not measured"
+            for k, v in times.items()}
 
 
 def _staged(batch, dev):
@@ -1218,7 +1281,7 @@ def phase_fused_kernels(card: str) -> dict:
         scratch_l2.zero_()
 
     results: dict = {}
-    for kind in ("otel", "adversarial"):
+    for kind in ("otel", "adversarial", "long"):
         for N in FUSED_N:
             n, svc_t, nam_t, c = _staged(_fused_frame(N, kind), dev)
             tb = svc_t.numel()
@@ -1232,99 +1295,119 @@ def phase_fused_kernels(card: str) -> dict:
             with torch.inference_mode():
                 # ---- K5 (with its K6 sort of the declarations)
                 cat, cont = kfeat.featurize_columns(*fargs, n)
-                cat_p, cont_p = kfeat.featurize_columns_plain(*fargs, n)
-                torch.cuda.synchronize()
-                check(torch.equal(cat, cat_p),
-                      f"featurize N={N} {kind}: categorical differs")
-                cont_x = ((cont - cont_p).abs()
-                          - FEAT_CONT_RTOL * cont_p.abs()).max().item()
-                check(cont_x <= 0, f"featurize N={N} {kind}: continuous "
-                                   f"beyond one f32 step by {cont_x}")
-                k5_diff = (cont - cont_p).abs().max().item()
-                nb = n * (4 + 4 + 1 + 1 + 4 * 8 + 4) + 2 * tb * 4 + N * 32
-                b_ms, b_by = bound(nb, 12 * n, F32_FLOPS)
-                results[("featurize_columns", kind, N)] = {
-                    "name": "featurize_columns", "mix": kind, "N": N,
-                    "n": n, "max_abs_diff": k5_diff,
-                    "bound": f"cat exact; cont rtol {FEAT_CONT_RTOL}",
-                    **timings(lambda: kfeat.featurize_columns(*fargs, n),
-                              lambda: kfeat.featurize_columns_plain(
-                                  *fargs, n), None, flush),
-                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
-                # ---- K6: the join's one-frame sort, and the trace sort
-                passes = torch.zeros(1, dtype=torch.int32, device=dev)
-                for what, keys, key_bytes in (("join", join_keys, 12),
-                                              ("trace", trace_keys, 24)):
-                    got = ksort.radix_sort(keys, n, passes=passes)
-                    ref = ksort.radix_sort_plain(keys, n)
+                if kind != "long":  # the long frame is K7's alone
+                    cat_p, cont_p = kfeat.featurize_columns_plain(*fargs, n)
                     torch.cuda.synchronize()
-                    check(torch.equal(got, ref),
-                          f"radix_sort {what} N={N} {kind}: differs")
-                    library = None
-                    lib_ok = None
-                    if what == "join":
-                        flipped = c["span_id"][:n] ^ (-(2 ** 63))
-
-                        def library():
-                            return torch.sort(flipped, stable=True).indices
-
-                        lib_ok = torch.equal(library().to(torch.int32),
-                                             got[:n])
-                        check(lib_ok, f"torch.sort N={N} {kind}: not the "
-                                      f"kernel's permutation")
-                    nb = n * key_bytes + N * 4
-                    b_ms, b_by = bound(nb, 0, F32_FLOPS)
-                    d0 = ksort.device_launches
-                    ksort.radix_sort(keys, n)
-                    per_sort = ksort.device_launches - d0
-                    check(per_sort <= K6_LAUNCHES_PER_SORT,
-                          f"radix_sort {what} N={N}: {per_sort} device "
-                          f"launches a sort")
-                    r = results[("radix_sort", what, kind, N)] = {
-                        "name": "radix_sort", "sort": what, "mix": kind,
-                        "N": N, "n": n, "max_abs_diff": 0.0,
-                        "bound": "exact", "passes": int(passes.item()),
-                        "device_launches_per_call": per_sort,
-                        "grid_tiles_per_block": ksort.plan(
-                            n, N, ksort.max_grid(dev)),
-                        **timings(lambda: ksort.radix_sort(keys, n),
-                                  lambda: ksort.radix_sort_plain(keys, n),
-                                  library, flush),
-                        "library_equal": lib_ok,
+                    check(torch.equal(cat, cat_p),
+                          f"featurize N={N} {kind}: categorical differs")
+                    cont_x = ((cont - cont_p).abs()
+                              - FEAT_CONT_RTOL * cont_p.abs()).max().item()
+                    check(cont_x <= 0, f"featurize N={N} {kind}: continuous "
+                                       f"beyond one f32 step by {cont_x}")
+                    k5_diff = (cont - cont_p).abs().max().item()
+                    nb = n * (4 + 4 + 1 + 1 + 4 * 8 + 4) + 2 * tb * 4 + N * 32
+                    b_ms, b_by = bound(nb, 12 * n, F32_FLOPS)
+                    results[("featurize_columns", kind, N)] = {
+                        "name": "featurize_columns", "mix": kind, "N": N,
+                        "n": n, "max_abs_diff": k5_diff,
+                        "bound": f"cat exact; cont rtol {FEAT_CONT_RTOL}",
+                        **timings(lambda: kfeat.featurize_columns(*fargs, n),
+                                  lambda: kfeat.featurize_columns_plain(
+                                      *fargs, n), None, flush),
                         "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
-                    r.update(_ratios(r))
-                    print(f"chip_smoke: radix_sort {what} {kind} N={N}: "
-                          f"{r['device_ms']:.4f} ms (bound {b_ms:.5f}, "
-                          f"{r['ratio_to_bound']:.0f}x; "
-                          + (f"torch.sort {r['library_device_ms']:.4f}, "
-                             f"{r['ratio_to_library']:.2f}x; "
-                             if library else "")
-                          + f"{r['passes']} live passes)", flush=True)
+                    # ---- K6: the join's one-frame sort, and the trace sort
+                    passes = torch.zeros(1, dtype=torch.int32, device=dev)
+                    for what, keys, key_bytes in (("join", join_keys, 12),
+                                                  ("trace", trace_keys, 24)):
+                        got = ksort.radix_sort(keys, n, passes=passes)
+                        ref = ksort.radix_sort_plain(keys, n)
+                        torch.cuda.synchronize()
+                        check(torch.equal(got, ref),
+                              f"radix_sort {what} N={N} {kind}: differs")
+                        library = None
+                        lib_ok = None
+                        if what == "join":
+                            flipped = c["span_id"][:n] ^ (-(2 ** 63))
+
+                            def library():
+                                return torch.sort(flipped, stable=True).indices
+
+                            lib_ok = torch.equal(library().to(torch.int32),
+                                                 got[:n])
+                            check(lib_ok, f"torch.sort N={N} {kind}: not the "
+                                          f"kernel's permutation")
+                        nb = n * key_bytes + N * 4
+                        b_ms, b_by = bound(nb, 0, F32_FLOPS)
+                        d0 = ksort.device_launches
+                        ksort.radix_sort(keys, n)
+                        per_sort = ksort.device_launches - d0
+                        check(per_sort <= K6_LAUNCHES_PER_SORT,
+                              f"radix_sort {what} N={N}: {per_sort} device "
+                              f"launches a sort")
+                        r = results[("radix_sort", what, kind, N)] = {
+                            "name": "radix_sort", "sort": what, "mix": kind,
+                            "N": N, "n": n, "max_abs_diff": 0.0,
+                            "bound": "exact", "passes": int(passes.item()),
+                            "device_launches_per_call": per_sort,
+                            "grid_tiles_per_block": ksort.plan(
+                                n, N, ksort.max_grid(dev)),
+                            **timings(lambda: ksort.radix_sort(keys, n),
+                                      lambda: ksort.radix_sort_plain(keys, n),
+                                      library, flush),
+                            "library_equal": lib_ok,
+                            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+                        r.update(_ratios(r))
+                        print(f"chip_smoke: radix_sort {what} {kind} N={N}: "
+                              f"{r['device_ms']:.4f} ms (bound {b_ms:.5f}, "
+                              f"{r['ratio_to_bound']:.0f}x; "
+                              + (f"torch.sort {r['library_device_ms']:.4f}, "
+                                 f"{r['ratio_to_library']:.2f}x; "
+                                 if library else "")
+                              + f"{r['passes']} live passes)", flush=True)
                 perm = ksort.radix_sort(trace_keys, n)
-                # ---- K7
-                pk = kpack.next_fit_pack(perm, c["trace_id_hi"],
-                                         c["trace_id_lo"], cat, cont, n, L,
-                                         R)
-                pk_p = kpack.next_fit_pack_plain(perm, c["trace_id_hi"],
-                                                 c["trace_id_lo"], cat, cont,
-                                                 n, L, R)
+                if kind == "long":
+                    check(torch.equal(perm, ksort.radix_sort_plain(
+                        trace_keys, n)), f"radix_sort trace N={N} {kind}: "
+                                         f"differs")
+                # ---- K7, its three launches also timed one by one
+                pargs = (perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont,
+                         n, L, R)
+                pk = kpack.next_fit_pack(*pargs)
+                pk_p = kpack.next_fit_pack_plain(*pargs)
                 torch.cuda.synchronize()
                 for a, b in zip(pk, pk_p):
                     check(torch.equal(a, b),
                           f"next_fit_pack N={N} {kind}: rows differ")
                 rows_real = int(pk.rows_used.item())
+                check(0 < rows_real <= R, f"next_fit_pack N={N} {kind}: "
+                                          f"{rows_real} rows for R={R}")
                 nb = n * (4 + 16 + 32) + R * L * 40 + N * 8
                 b_ms, b_by = bound(nb, 0, F32_FLOPS)
-                results[("next_fit_pack", kind, N)] = {
+                d0 = kpack.device_launches
+                kpack.next_fit_pack(*pargs)
+                r = results[("next_fit_pack", kind, N)] = {
                     "name": "next_fit_pack", "mix": kind, "N": N, "n": n,
                     "R": R, "rows_real": rows_real, "max_abs_diff": 0.0,
                     "bound": "exact",
-                    **timings(lambda: kpack.next_fit_pack(
-                        perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont,
-                        n, L, R), lambda: kpack.next_fit_pack_plain(
-                        perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont,
-                        n, L, R), None, flush),
+                    "device_launches_per_call": kpack.device_launches - d0,
+                    "walk_plan": kpack.walk_plan(n, L),
+                    **timings(lambda: kpack.next_fit_pack(*pargs),
+                              lambda: kpack.next_fit_pack_plain(*pargs),
+                              None, flush),
+                    "launch_device_ms": kernel_split_ms(
+                        lambda: kpack.next_fit_pack(*pargs), flush,
+                        K7_KERNELS),
                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+                r.update(_ratios(r))
+                split = r["launch_device_ms"]
+                print(f"chip_smoke: next_fit_pack {kind} N={N} R={R}: "
+                      f"{r['device_ms']:.4f} ms (bound {b_ms:.5f}; layout "
+                      f"{split['pack_layout_kernel']}, walk "
+                      f"{split['pack_walk_kernel']}, scatter "
+                      f"{split['pack_scatter_kernel']}; {rows_real} rows)",
+                      flush=True)
+                if kind == "long":
+                    continue
                 # ---- K8, on the encoder's own output for these rows
                 h = enc(pk.categorical, pk.continuous, pk.positions,
                         pk.segments, final_ln=False)
@@ -1374,6 +1457,7 @@ MAIN_COUNTERS = (("segment_attention", "attention"),
 # (name, module, counter attribute) of every wrapper's launch count
 ALL_COUNTERS = INT8_COUNTERS + (("ln_masked_pool", "pool"),
                                 ("recon_ce", "recon"),
+                                ("recon_ce_tc", "recon", "tc_launches"),
                                 ("trace_rows_pack", "pack", "rows_launches"))
 
 
@@ -1385,6 +1469,7 @@ def _zero_counters() -> None:
     kernels.sort.device_launches = 0
     kernels.pack.device_launches = 0
     kernels.pack.rows_device_launches = 0
+    kernels.recon.device_launches = 0
 
 
 def _read_counters(counters=FUSED_COUNTERS) -> dict:
@@ -2052,16 +2137,25 @@ def phase_ae_kernels(card: str) -> dict:
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
                 "bound_ms_all_positions": bound(
                     M * d * 2 + M + T * d * 2, 12 * d * M, F32_FLOPS)[0]}
-            # ---- K11 on the decoder's own output
+            # ---- K11 on the decoder's own output: the bf16 kernel (tensor
+            # cores, the served one, with the model's cached planes) and the
+            # f32 kernel (CUDA cores) on the same rows in f32
             dec = model._decode(cat, cont, mask, reference=False)
             dl = m.dec_ln
             heads = m.heads()
+            planes = m.head_planes()
             flat = (cat.reshape(M, -1), cont.reshape(M, -1),
                     mask.reshape(M))
             rargs = (dec, dl.weight, dl.bias, heads, *flat, weights)
-            got = krecon.recon_ce(*rargs)
+            check(krecon.kernel_route(dec.dtype) == "tc",
+                  f"recon_ce T={T}: bf16 does not take the tensor cores")
+            tc0, d0 = krecon.tc_launches, krecon.device_launches
+            got = krecon.recon_ce(*rargs, planes=planes)
             ref = krecon.recon_ce_plain(*rargs)
             torch.cuda.synchronize()
+            check(krecon.tc_launches == tc0 + 1,
+                  f"recon_ce T={T}: the tensor-core kernel did not launch")
+            k11_launches = krecon.device_launches - d0
             check(bool(torch.isfinite(got).all()),
                   f"recon_ce T={T}: non-finite errors")
             check(bool((got[~flat[2]] == 0).all()),
@@ -2069,6 +2163,14 @@ def phase_ae_kernels(card: str) -> dict:
             diff = (got - ref).abs().max().item()
             check(diff <= RECON_ATOL, f"recon_ce T={T}: max |kernel - "
                                       f"plain| {diff} > {RECON_ATOL}")
+            fargs = (dec.float(), dl.weight, dl.bias, heads, *flat, weights)
+            got32 = krecon.recon_ce(*fargs)
+            ref32 = krecon.recon_ce_plain(*fargs)
+            torch.cuda.synchronize()
+            diff32 = (got32 - ref32).abs().max().item()
+            check(bool(torch.isfinite(got32).all()) and diff32 <= RECON_ATOL,
+                  f"recon_ce f32 T={T}: max |kernel - plain| {diff32} > "
+                  f"{RECON_ATOL}")
             # the library yardstick on the real rows' LN output
             idx = torch.nonzero(flat[2]).flatten()
             y = layer_norm_plain(dec[idx], dl.weight, dl.bias).float()
@@ -2088,14 +2190,27 @@ def phase_ae_kernels(card: str) -> dict:
             lib_diff = (library() - got[idx]).abs().max().item()
             check(lib_diff <= RECON_ATOL, f"recon_ce library T={T}: "
                                           f"{lib_diff} > {RECON_ATOL}")
-            flops = real * 2 * d * V
+            # bound of the tensor-core design: the service and name heads
+            # in three bf16 passes, the kind and duration heads in f32
+            v_tc = cfg.service_vocab + cfg.name_vocab
+            tc_flops = real * 2 * d * v_tc * 3
+            f32_flops = real * 2 * d * (V - v_tc)
             nb = (real * d * 2 + M + M * 4 + real * 16 + V * d * 4 + V * 4
                   + 2 * d * 4)
-            b_ms, b_by = bound(nb, flops, F32_FLOPS)
-            results[("recon_ce", T)] = {
+            b_ms, b_by = bound(nb, tc_flops, BF16_FLOPS)
+            b_ms = max(b_ms, f32_flops / F32_FLOPS * 1e3)
+            # the f32 kernel's bound: every head on CUDA cores
+            b32_ms, b32_by = bound(nb + real * d * 2, real * 2 * d * V,
+                                   F32_FLOPS)
+            grid = torch.cuda.get_device_properties(dev).multi_processor_count
+            r = results[("recon_ce", T)] = {
                 "name": "recon_ce", "T": T, "M": M, "real_positions": real,
-                "max_abs_diff": diff, "bound": RECON_ATOL,
-                **timings(lambda: krecon.recon_ce(*rargs),
+                "route": "tc", "max_abs_diff": diff, "bound": RECON_ATOL,
+                "device_launches_per_call": k11_launches,
+                "slices": krecon.tc_slices(
+                    real, d, planes.w.shape[1], grid,
+                    krecon.PART_ITEMS_PER_SM * grid),
+                **timings(lambda: krecon.recon_ce(*rargs, planes=planes),
                           lambda: krecon.recon_ce_plain(*rargs), library,
                           flush),
                 "library": "4 f32 F.linear + 3 F.cross_entropy + squared "
@@ -2103,8 +2218,27 @@ def phase_ae_kernels(card: str) -> dict:
                            "one call); TF32 off",
                 "library_max_abs_diff": lib_diff,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
-                "flops": flops,
-                "bound_ms_all_positions": M * 2 * d * V / F32_FLOPS * 1e3}
+                "flops_bf16": tc_flops, "flops_f32": f32_flops,
+                "bound_ms_f32_cuda_cores": b32_ms,
+                "bound_ms_all_positions": max(
+                    M * 2 * d * v_tc * 3 / BF16_FLOPS,
+                    M * 2 * d * (V - v_tc) / F32_FLOPS) * 1e3}
+            r.update(_ratios(r))
+            r32 = results[("recon_ce_f32", T)] = {
+                "name": "recon_ce", "T": T, "M": M, "real_positions": real,
+                "route": "cuda_core", "max_abs_diff": diff32,
+                "bound": RECON_ATOL,
+                **timings(lambda: krecon.recon_ce(*fargs),
+                          lambda: krecon.recon_ce_plain(*fargs), None,
+                          flush),
+                "bound_ms": b32_ms, "bound_by": b32_by,
+                "bytes": nb + real * d * 2, "flops_f32": real * 2 * d * V}
+            print(f"chip_smoke: recon_ce T={T}: tc {r['device_ms']:.4f} ms "
+                  f"(bound {b_ms:.4f}, {r['ratio_to_bound']:.1f}x; "
+                  f"composition {r['library_device_ms']:.4f}; S "
+                  f"{r['slices']}), f32 {r32['device_ms']:.4f} ms (bound "
+                  f"{b32_ms:.4f}); diff {diff:.2e} / {diff32:.2e}",
+                  flush=True)
             # ---- K13 on the same traffic, as the fused route stages it
             n, svc_t, nam_t, c = _staged(synthesize_traces(T, seed=13), dev)
             fcat, fcont = kfeat.featurize_columns(
@@ -2129,7 +2263,8 @@ def phase_ae_kernels(card: str) -> dict:
 AE_HOST_COUNTERS = (("span_embed", "embed"),
                     ("segment_attention", "attention"),
                     ("ln_masked_pool", "pool"),
-                    ("recon_ce", "recon")) + DENSE_COUNTERS
+                    ("recon_ce", "recon"),
+                    ("recon_ce_tc", "recon", "tc_launches")) + DENSE_COUNTERS
 AE_FUSED_COUNTERS = AE_HOST_COUNTERS + (
     ("featurize_columns", "featurize"), ("radix_sort", "sort"),
     ("trace_rows_pack", "pack", "rows_launches"),
@@ -2356,6 +2491,7 @@ def phase_ae_path(card: str) -> dict:
         # LayerNorms); K15 four times a layer and dec_ff1, dec_ff2
         want = {"span_embed": calls, "segment_attention": n_layers * calls,
                 "ln_masked_pool": calls, "recon_ce": calls,
+                "recon_ce_tc": calls,
                 "ln_bf16": 2 * n_layers * calls,
                 "gemm_bf16": (4 * n_layers + 2) * calls}
         check(calls > 0 and launches == want,
@@ -2444,10 +2580,12 @@ def phase_ae_path(card: str) -> dict:
         launches = _read_counters(AE_FUSED_COUNTERS)
         device_launches = {
             "trace_rows_pack": kernels.pack.rows_device_launches,
-            "radix_sort": kernels.sort.device_launches}
+            "radix_sort": kernels.sort.device_launches,
+            "recon_ce": kernels.recon.device_launches}
         calls = engine.fused_calls - stats0["fused_calls"]
         want = {"span_embed": calls, "segment_attention": n_layers * calls,
                 "ln_masked_pool": calls, "recon_ce": calls,
+                "recon_ce_tc": calls,
                 "ln_bf16": 2 * n_layers * calls,
                 "gemm_bf16": (4 * n_layers + 2) * calls,
                 "featurize_columns": calls, "radix_sort": 2 * calls,
@@ -2455,6 +2593,9 @@ def phase_ae_path(card: str) -> dict:
                 "span_head_scatter": 0}
         check(calls > 0 and launches == want,
               f"ae fused launches {launches} != {want} for {calls} calls")
+        check(device_launches["recon_ce"] == 2 * calls,
+              f"ae fused: K11 made {device_launches['recon_ce']} device "
+              f"launches for {calls} calls (compact + score each)")
         k6_per_call = device_launches["radix_sort"] / calls
         check(k6_per_call <= K6_LAUNCHES_PER_FUSED_CALL,
               f"ae: K6 made {k6_per_call} device launches a fused call (at "
@@ -2623,9 +2764,13 @@ def main() -> int:
                              "ranks, per-warp smem offsets), blocks walking "
                              "runs of 1024-key tiles",
                "next_fit_pack": "3 launches: binary-search trace starts + "
-                                "ballot segment bitmask; one-thread "
-                                "next-fit walk in smem; slot-per-thread "
-                                "gather writing every output once",
+                                "ballot segment bitmask; one block walks "
+                                "the rows by chunks (a warp a chunk, a "
+                                "lane a candidate entry, one thread "
+                                "composing the chunks, a thread a chunk "
+                                "writing the row starts), the bitmask and "
+                                "tables in smem; slot-per-thread gather "
+                                "writing every output once",
                "span_head_scatter": "warp per real span: f32 LN stats, "
                                     "bf16-rounded LN out, f32 head dot, "
                                     "sigmoid, write at perm[j]",
@@ -2649,11 +2794,17 @@ def main() -> int:
                         "quarter of W1 resident, m64n128k32, bf16 h "
                         "staged in swizzled smem, row maxima swapped "
                         "through DSMEM, int8 codes + scales out",
-               "recon_ce": "CTA per 256 positions, ballot-compacted real "
-                           "ones in tiles of 64: warp LN (exact f64 "
-                           "sums) to smem, head weights streamed in 64-row "
-                           "smem tiles, 4x4 f32 FMA micro-tiles, online "
-                           "log-sum-exp, optional squash + scatter",
+               "recon_ce": "bf16 (served): compact the real positions "
+                           "(ballots, an atomic a block), then persistent "
+                           "CTAs over (128-position tile, vocabulary "
+                           "slice) items: warp LN (exact f64 sums) into a "
+                           "bf16 smem tile, service/name heads as 3 bf16 "
+                           "planes (hi+mid+lo == f32 W) through a 3-stage "
+                           "cp.async ring, mma.sync m16n8k16 into one f32 "
+                           "accumulator, bias + online log-sum-exp + label "
+                           "logit from the fragments, split tiles merged "
+                           "by the last slice, kind/duration heads as f32 "
+                           "dots; f32: the CUDA-core kernel",
                "ln_masked_pool": "warp per trace, padding skipped: exact "
                                  "f64 LN sums, bf16-rounded LN out, f64 "
                                  "pool sum, true division",
@@ -2720,15 +2871,24 @@ def main() -> int:
                if (mix, n) != ("otel", ZS_MAIN_N)}}))
     for kname in ("featurize_columns", "next_fit_pack",
                   "span_head_scatter"):
-        lines.append(line(kname, fused_kern[(kname, "otel", FUSED_MAIN_N)], {
+        k7 = kname == "next_fit_pack"
+        keys = timing_keys + (("bound_ms", "bound_by", "R", "rows_real",
+                               "launch_device_ms", "ratio_to_bound")
+                              if k7 else ())
+        head = fused_kern[(kname, "otel", FUSED_MAIN_N)]
+        lines.append(line(kname, head, {
             "shape_N": FUSED_MAIN_N, "mix": "otel",
             "launches_per_fused_call":
                 fused_path["launches_per_call"][kname],
             "fused_path_launches": fused_path["launches"][kname],
+            **({"R": head["R"], "launch_device_ms": head["launch_device_ms"],
+                "device_launches_per_call": head[
+                    "device_launches_per_call"]} if k7 else {}),
             **{f"{mix}_N{n}": {k: fused_kern[(kname, mix, n)][k]
-                               for k in timing_keys}
-               for mix in ("otel", "adversarial") for n in FUSED_N
-               if (mix, n) != ("otel", FUSED_MAIN_N)}}))
+                               for k in keys}
+               for mix in ("otel", "adversarial", "long") for n in FUSED_N
+               if (mix, n) != ("otel", FUSED_MAIN_N)
+               and (k7 or mix != "long")}}))
     k6 = fused_kern[("radix_sort", "join", "otel", FUSED_MAIN_N)]
     lines.append(line("radix_sort", k6, {
         "shape_N": FUSED_MAIN_N, "mix": "otel", "sort": "join (one frame)",
@@ -2770,7 +2930,9 @@ def main() -> int:
                if kname == "qgemm" else {})}))
     for kname in ("recon_ce", "ln_masked_pool"):
         extra_keys = timing_keys + ("bound_ms", "bound_by",
-                                    "bound_ms_all_positions")
+                                    "bound_ms_all_positions",
+                                    "bound_ms_f32_cuda_cores", "slices",
+                                    "ratio_to_bound", "ratio_to_library")
         head = ae_kern[(kname, max(AE_T))]
         lines.append(line(kname, head, {
             "shape_T": max(AE_T), "L": 64,
@@ -2782,7 +2944,17 @@ def main() -> int:
             "fused_path_launches": ae_path["fused_route"]["launches"][
                 kname],
             **{f"T{t}": {k: ae_kern[(kname, t)].get(k) for k in extra_keys}
-               for t in AE_T if t != max(AE_T)}}))
+               for t in AE_T if t != max(AE_T)},
+            **({"served_route": "tc (bf16, tensor cores)",
+                "bound_ms_f32_cuda_cores": head["bound_ms_f32_cuda_cores"],
+                "slices": head["slices"],
+                "device_launches_per_call": head[
+                    "device_launches_per_call"],
+                **{f"f32_cuda_core_T{t}": {
+                    k: ae_kern[("recon_ce_f32", t)].get(k)
+                    for k in timing_keys + ("bound_ms", "bound_by")}
+                   for t in AE_T}}
+               if kname == "recon_ce" else {})}))
     # K14 and K15 at every step and shape; the line's own numbers are
     # LN1's and the QKV product's at R
     for kname, step in (("ln_bf16", "ln1"), ("gemm_bf16", "qkv")):

@@ -11,8 +11,8 @@
   raw span columns (``csrc/featurize.cu``);
 * ``sort.radix_sort`` — K6, a stable radix sort of multi-word unsigned
   keys (``csrc/trace_sort.cu``);
-* ``pack.next_fit_pack`` — K7, next-fit packing of trace-sorted spans
-  (``csrc/trace_pack.cu``);
+* ``pack.next_fit_pack`` — K7, next-fit packing of trace-sorted spans,
+  the row starts walked by chunks (``csrc/trace_pack.cu``);
 * ``head.span_head_scatter`` — K8, final LayerNorm + span head + sigmoid
   written to each span's original index (``csrc/span_head.cu``);
 * ``quant.ln_quantize`` — K9, per-token int8 quantize with an optional
@@ -22,7 +22,9 @@
   the package's ``qgemm`` is the module, which holds the launch count);
 * ``recon.recon_ce`` — K11, the autoencoder's decoder LayerNorm, four f32
   heads and weighted reconstruction error (online log-sum-exp), with an
-  optional squash-and-scatter to span order (``csrc/recon_ce.cu``);
+  optional squash-and-scatter to span order; bf16 on tensor cores from
+  three bf16 planes of each head weight, f32 on CUDA cores
+  (``csrc/recon_ce.cu``);
 * ``pool.ln_masked_pool`` — K12, the autoencoder's final LayerNorm and
   masked mean-pool over each trace (``csrc/ae_pool.cu``);
 * ``pack.trace_rows_pack`` — K13, trace-sorted spans packed one trace per

@@ -15,41 +15,78 @@
 //   1. dec_ln, the LayerNorm of ln_exact.cuh shared with K9 and K12: f32
 //      statistics from exact f64 sums, IEEE steps, the output rounded to the
 //      working type (Flax's LayerNorm(dtype=bf16)) before the f32 heads;
-//   2. the logits of each head in f32, with an online log-sum-exp (running
-//      max and rescaled sum) over the service, name and kind vocabularies:
-//      the (M, 2569) logits never reach device memory (the plain version at
-//      T = 8192 traces would hold 4.3 GB of them);
+//   2. the logits of each head, with an online log-sum-exp (running max and
+//      rescaled sum) over the service, name and kind vocabularies: the (M,
+//      2569) logits never reach device memory (the plain version at T =
+//      8192 traces would hold 4.3 GB of them);
 //   3. ce = lse - logit[label] (labels clamped into the vocabulary), mse =
 //      (duration - continuous[..., 0])^2;
 //   4. err accumulated in the reference's order (:116-120) with separate
 //      IEEE steps.
-// Masked positions are skipped and write 0 (the reference multiplies finite
-// values by 0 there): on the host route ~84% of a row is padding on the
-// otel mix (10.3 spans a trace in L = 64).
+// Masked positions write 0 (the reference multiplies finite values by 0
+// there) and are not scored: on the host route ~84% of a row is padding on
+// the otel mix (10.3 spans a trace in L = 64), on the fused route (one row
+// per possible trace) ~98%.
 //
-// Design: one CTA of 256 threads per chunk of 256 consecutive positions. A
+// Two kernels, by the working type:
+//
+// bf16 (served): the heads on tensor cores. dec_ln's output is a bf16
+// value, so with each f32 weight split into three bf16 planes, W = W_hi +
+// W_mid + W_lo exactly (8 + 8 + 8 significant bits; kernels/recon.py
+// head_planes checks it), y W = y W_hi + y W_mid + y W_lo, each product
+// exact in f32: three bf16 passes with f32 accumulation give the f32
+// logits up to the summation order. Two launches:
+//   compact  a thread per position: masked ones get err = 0, real ones are
+//            listed (block ballots, one atomic a block; order is free, each
+//            position's result is its own), and eight lanes a listed row
+//            take its LayerNorm statistics (ln_exact.cuh's mean and 1 /
+//            std), once a position, with every SM's warps in flight to
+//            hide the chains of shuffles and divisions;
+//   score    persistent CTAs of 8 warps, as many as the SMs hold, over
+//            work items (a tile of 128 listed positions, a slice of the
+//            tensor-core columns) until the device-side count runs out. A
+//            tile splits into S slices when there are few tiles (T = 256:
+//            22 tiles, S = 6), S chosen on the card from the count. An item:
+//            its rows' labels and statistics read a thread a row, their
+//            decoder rows gathered by cp.async into a bf16 (128, d) A tile
+//            in shared memory and normalised there in place (ln_exact.cuh's
+//            IEEE steps from the statistics); the service and name heads'
+//            planes (each head padded to 64 columns, bias -inf there)
+//            streamed by cp.async through a 3-stage ring of (3, 64, d)
+//            tiles (each with its columns' bias); mma.sync m16n8k16 bf16
+//            -> f32, warps 4 x 2 over (128 rows, 64 columns), the three
+//            planes into one accumulator; the bias added and the online
+//            log-sum-exp and the label's logit taken from the accumulator
+//            fragments in registers. A split tile's slices leave (max,
+//            sum, label logit) partials; the last to finish (an atomic per
+//            tile) merges them. The kind (8) and duration (1) heads, too narrow
+//            for a tile, are f32 dots on CUDA cores from shared memory at
+//            the end, then the error.
+// Bound on the card: operations. 2 d (512 + 2048) bf16 x 3 planes = 1.97
+// MFLOP a real position: at T = 2048 traces (20,848 real positions) 41.0
+// GFLOP, 0.0415 ms at 989 TFLOP/s; the bytes (the real rows, labels, the
+// mask, err, 2 MB of planes) ~38 MB, 0.011 ms. mma.sync, not wgmma: the
+// A tile is built in place by the LayerNorm and the logits are consumed in
+// registers, and each CTA reads the planes from L2 once an item (~2 MB a
+// tile: 128 flops a byte, about the L2's rate at the tensor-core peak).
+//
+// f32 (the parity path; y is not bf16-exact there): a kernel on CUDA
+// cores. One CTA of 256 threads per chunk of 256 consecutive positions. A
 // ballot compacts the chunk's real positions into shared memory; they are
 // scored in tiles of P = 64: each warp normalises positions into a (P,
 // d + 4) f32 tile in shared memory, then the CTA streams each head's
 // weight rows in chunks of 64 (a (64, d + 4) tile, rows padded by 4 floats
 // so the 16-byte reads of 8 rows hit distinct banks). Thread (tp, tv) =
 // (tid / 16, tid % 16) computes the 4 x 4 logits of positions tp * 4 + i
-// and vocabulary rows tv + 16 j with f32 FMAs (CUDA cores), and keeps a
-// running (max, sum) per position; the 16 threads of a position group
-// merge theirs with shuffles at the end of each head.
-//
-// Bound on the card: operations. 2 d (512 + 2048 + 8 + 1) = 657,664 f32
-// flops a position at d = 128: at T = 2048 traces of L = 64, 86.2 GFLOP if
-// every position were scored (1.29 ms at 67 TFLOP/s), 13.9 GFLOP at the
-// otel mix's ~21,100 real positions (~0.21 ms); the bytes (the decoder
-// rows, labels, mask, err, 1.3 MB of weights) are ~38 MB, 0.011 ms. This
-// simple design reads the weights from L2 once per tile and is bound by
-// shared-memory bandwidth (8 16-byte reads per 64 FMAs); a tensor-core
-// design (bf16 x bf16 with the f32 weights split into bf16 hi + lo) is
-// later work.
+// and vocabulary rows tv + 16 j with f32 FMAs, and keeps a running (max,
+// sum) per position; the 16 threads of a position group merge theirs with
+// shuffles at the end of each head. Bound: 2 d (512 + 2048 + 8 + 1) =
+// 657,664 f32 flops a position, 0.205 ms at 67 TFLOP/s at T = 2048; it is
+// bound by shared-memory bandwidth (8 16-byte reads per 64 FMAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -73,15 +110,30 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
   s = a + b;
 }
 
+// the error of one position from its heads' log-sum-exps and label logits
+// and its duration logit, in the reference's order with IEEE steps
+__device__ __forceinline__ float weighted_error(
+    float lse_s, float zl_s, float lse_n, float zl_n, float lse_k,
+    float zl_k, float dur, float c0, float w_s, float w_n, float w_k,
+    float w_d) {
+  const float dd = __fsub_rn(dur, c0);
+  float e = __fmul_rn(w_s, __fsub_rn(lse_s, zl_s));
+  e = __fadd_rn(e, __fmul_rn(w_n, __fsub_rn(lse_n, zl_n)));
+  e = __fadd_rn(e, __fmul_rn(w_k, __fsub_rn(lse_k, zl_k)));
+  return __fadd_rn(e, __fmul_rn(w_d, __fmul_rn(dd, dd)));
+}
+
+// ---------------------------------------------------------------- f32
+
 struct Heads {
   const float* w[4];  // (V_h, d) f32, torch Linear layout
   const float* b[4];  // (V_h,) f32
   int v[4];
 };
 
-template <typename T, int PER>
+template <int PER>
 __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
-    const T* __restrict__ dec, long long M, const float* __restrict__ gamma,
+    const float* __restrict__ dec, long long M, const float* __restrict__ gamma,
     const float* __restrict__ beta, float eps, Heads heads,
     const int32_t* __restrict__ cat, int C, const float* __restrict__ cont,
     int D, const uint8_t* __restrict__ mask, float w_s, float w_n, float w_k,
@@ -126,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
       if (p < np) {
         const long long q = base + s_pos[t0 + p];
         float y[PER];
-        warp_ln_row<T, PER>(dec + q * d + lane * PER, gamma + lane * PER,
+        warp_ln_row<float, PER>(dec + q * d + lane * PER, gamma + lane * PER,
                             beta + lane * PER, eps, y);
 #pragma unroll
         for (int j = 0; j < PER; ++j) yr[j] = y[j];
@@ -232,13 +284,10 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
     // ---- the weighted error, in the reference's order
     if (tid < np) {
       const long long q = base + s_pos[t0 + tid];
-      const float dd = __fsub_rn(s_dur[tid], s_c0[tid]);
-      float e = __fmul_rn(w_s, __fsub_rn(s_lse[0][tid], s_zl[0][tid]));
-      e = __fadd_rn(e, __fmul_rn(w_n, __fsub_rn(s_lse[1][tid],
-                                                s_zl[1][tid])));
-      e = __fadd_rn(e, __fmul_rn(w_k, __fsub_rn(s_lse[2][tid],
-                                                s_zl[2][tid])));
-      e = __fadd_rn(e, __fmul_rn(w_d, __fmul_rn(dd, dd)));
+      const float e = weighted_error(
+          s_lse[0][tid], s_zl[0][tid], s_lse[1][tid], s_zl[1][tid],
+          s_lse[2][tid], s_zl[2][tid], s_dur[tid], s_c0[tid], w_s, w_n, w_k,
+          w_d);
       err[q] = e;
       if (span_map != nullptr) {
         const int idx = span_map[q];
@@ -249,98 +298,738 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
   }
 }
 
-template <typename T, int PER>
-int launch_t(const T* dec, long long M, const float* gamma,
-             const float* beta, float eps, const Heads& heads,
-             const int32_t* cat, int C, const float* cont, int D,
-             const uint8_t* mask, const float* wts, float* err,
-             const int32_t* span_map, float* scores, cudaStream_t st) {
+template <int PER>
+int launch_f32_t(const float* dec, long long M, const float* gamma,
+                 const float* beta, float eps, const Heads& heads,
+                 const int32_t* cat, int C, const float* cont, int D,
+                 const uint8_t* mask, const float* wts, float* err,
+                 const int32_t* span_map, float* scores, cudaStream_t st) {
   constexpr int ld = 32 * PER + 4;
   const int smem = (kTile + kVC) * ld * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      recon_ce_kernel<T, PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      recon_ce_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (M + kChunk - 1) / kChunk;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  recon_ce_kernel<T, PER><<<(unsigned)blocks, kThreads, smem, st>>>(
+  recon_ce_kernel<PER><<<(unsigned)blocks, kThreads, smem, st>>>(
       dec, M, gamma, beta, eps, heads, cat, C, cont, D, mask, wts[0], wts[1],
       wts[2], wts[3], err, span_map, scores);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const T* dec, long long M, int d, const float* gamma,
-           const float* beta, float eps, const Heads& heads,
-           const int32_t* cat, int C, const float* cont, int D,
-           const uint8_t* mask, const float* wts, float* err,
-           const int32_t* span_map, float* scores, cudaStream_t st) {
-  switch (d) {
-    case 32:
-      return launch_t<T, 1>(dec, M, gamma, beta, eps, heads, cat, C, cont, D,
-                            mask, wts, err, span_map, scores, st);
-    case 64:
-      return launch_t<T, 2>(dec, M, gamma, beta, eps, heads, cat, C, cont, D,
-                            mask, wts, err, span_map, scores, st);
-    case 128:
-      return launch_t<T, 4>(dec, M, gamma, beta, eps, heads, cat, C, cont, D,
-                            mask, wts, err, span_map, scores, st);
-    case 256:
-      return launch_t<T, 8>(dec, M, gamma, beta, eps, heads, cat, C, cont, D,
-                            mask, wts, err, span_map, scores, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------- bf16
+
+constexpr int kTcThreads = 256;  // 8 warps: 4 across rows, 2 across columns
+constexpr int kBM = 128;         // listed positions a tile
+constexpr int kMI = kBM / 64;    // m16 tiles a warp (4 warps across rows)
+constexpr int kRI = 2 * kMI;     // accumulator rows a thread
+static_assert(kBM % 64 == 0 && kBM <= kTcThreads, "a thread a row");
+constexpr int kPlanePad = 64;    // columns each tensor-core head pads to
+constexpr int kMaxKind = 16;     // the kind head's width (CUDA cores)
+constexpr int kMaxSlices = 16;   // vocabulary slices a tile may split into
+constexpr int kPart = 6;         // a partial row: m_s, s_s, m_n, s_n, z_s, z_n
+
+template <int D>
+struct TcGeom {
+  static constexpr int NT = D <= 128 ? 64 : 32;  // columns a ring stage
+  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr int LD = D + 8;  // bf16 a shared row: ldmatrix without
+                                    // bank conflicts (LD / 8 odd)
+  static constexpr int NW = NT / 16;  // n8 tiles a warp
+  static constexpr int A_ELEMS = kBM * LD;
+  // a stage: the three planes' NT rows, then the NT columns' f32 bias
+  static constexpr int STAGE_ELEMS = 3 * NT * LD + 2 * NT;
+  // the A tile, the ring, the kind (<= kMaxKind) and duration weights,
+  // gamma and beta
+  static constexpr int SMEM =
+      (A_ELEMS + STAGES * STAGE_ELEMS) * 2 + (kMaxKind + 3) * D * 4;
+};
+
+struct TcArgs {
+  const __nv_bfloat16* dec;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  const __nv_bfloat16* planes;  // (3, v_tc, D): W_hi, W_mid, W_lo
+  const float* pbias;           // (v_tc,), -inf at the padding columns
+  int vs_pad, v_tc, v_s, v_n;   // service columns padded; the real widths
+  const float* wk;              // kind (v_k, D) f32, bias bk
+  const float* bk;
+  int v_k;
+  const float* wd;  // duration (1, D) f32, bias bd
+  const float* bd;
+  const int32_t* cat;
+  int C;
+  const float* cont;
+  int Dc;
+  float w_s, w_n, w_k, w_d;
+  float* err;
+  const int32_t* span_map;
+  float* scores;
+  const int32_t* list;   // the compacted real positions
+  const float2* stats;   // their LayerNorm statistics (mean, 1 / std)
+  const int32_t* count;  // how many
+  float* part;           // (part_items, kPart, kBM) partials
+  int part_items;
+  int32_t* tile_done;  // per split tile, zeroed: slices finished
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a . b on tensor cores: a 16x16 (row), b 16x8 (col), bf16 -> f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The slices S a tile splits into: the fewest rounds of items over the
+// grid, each item costing its columns plus a fixed part (the LayerNorm, the
+// ring's fill: ~1.5 stages), within the partials' room.
+// kernels/recon.py tc_slices is the same rule on the host.
+__device__ __forceinline__ int plan_slices(int tiles, int vt, int grid,
+                                           int part_items) {
+  int best = 1;
+  long long best_cost = LLONG_MAX;
+  const int smax = vt < kMaxSlices ? vt : kMaxSlices;
+  for (int s = 1; s <= smax; ++s) {
+    const long long items = (long long)tiles * s;
+    if (s > 1 && items > part_items) break;
+    const long long rounds = (items + grid - 1) / grid;
+    const long long cost = rounds * (4LL * ((vt + s - 1) / s) + 6);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = s;
+    }
   }
+  return best;
+}
+
+// stage the three planes' columns [col0, col0 + NT) into a ring stage
+template <int D>
+__device__ __forceinline__ void load_stage(const __nv_bfloat16* planes,
+                                           const float* pbias, int v_tc,
+                                           int col0, __nv_bfloat16* st,
+                                           int tid) {
+  using G = TcGeom<D>;
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  constexpr int PLANE = G::NT * CH;
+  for (int e = tid; e < 3 * PLANE; e += kTcThreads) {
+    const int p = e / PLANE, r = (e % PLANE) / CH, c = e % CH;
+    cp_async16(smem_u32(st + (p * G::NT + r) * G::LD + c * 8),
+               planes + ((long long)p * v_tc + col0 + r) * D + c * 8);
+  }
+  if (tid < G::NT / 4)
+    cp_async16(smem_u32(st + 3 * G::NT * G::LD + tid * 8),
+               pbias + col0 + tid * 4);
+}
+
+// a packed pair of bf16 (the lower address first) as floats
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xFFFF0000u));
+}
+
+// fold one tile's logits (this thread's 2 NW of a row) into the row's
+// running (max, sum)
+template <int NW>
+__device__ __forceinline__ void lse_add(float& m, float& s,
+                                        const float (&z)[NW][2], float tm) {
+  const float mn = fmaxf(m, tm);
+  if (mn == -INFINITY) return;  // nothing but padding columns yet
+  float acc = m == mn ? s : m == -INFINITY ? 0.f : s * __expf(m - mn);
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) acc += __expf(z[j][e] - mn);
+  m = mn;
+  s = acc;
+}
+
+// Lists the real positions, and takes each one's LayerNorm statistics
+// (mean, 1 / std, the arithmetic of ln_exact.cuh's warp_ln_row: exact f64
+// sums, IEEE steps) at its list slot: once a position, eight lanes a row,
+// in a launch with every SM's warps in flight.
+template <int D>
+__global__ void __launch_bounds__(kThreads) recon_compact_kernel(
+    const uint8_t* __restrict__ mask, long long M,
+    const __nv_bfloat16* __restrict__ dec, float eps, float* __restrict__ err,
+    int32_t* __restrict__ list, float2* __restrict__ stats,
+    int32_t* __restrict__ count) {
+  __shared__ int s_wcount[kWarps];
+  __shared__ int s_base, s_pos[kThreads];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const long long base = (long long)blockIdx.x * kThreads;
+  const long long q = base + tid;
+  const bool real = q < M && mask[q];
+  if (q < M && !real) err[q] = 0.f;
+  const unsigned bal = __ballot_sync(0xffffffffu, real);
+  if (lane == 0) s_wcount[wid] = __popc(bal);
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    off += w < wid ? s_wcount[w] : 0;
+    total += s_wcount[w];
+  }
+  if (tid == 0) s_base = total ? atomicAdd(count, total) : 0;
+  if (real) s_pos[off + __popc(bal & ((1u << lane) - 1u))] = tid;
+  __syncthreads();
+  if (tid < total) list[s_base + tid] = (int)(base + s_pos[tid]);
+  // eight lanes a row, four rows a warp at once: each lane sums d / 8
+  // values exactly in f64 (any order), the group's sums by three shuffles
+  constexpr int V = D / 8;
+  const int sub = lane & 7;
+  for (int k = wid * 4 + (lane >> 3); k - (lane >> 3) < total;
+       k += kThreads / 8) {
+    const bool mine = k < total;
+    float v[V];
+    double sum = 0.0;
+    if (mine) {
+      const __nv_bfloat16* xr = dec + (base + s_pos[k]) * D + sub * V;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        v[j] = load_f(xr + j);
+        sum += (double)v[j];
+      }
+    }
+#pragma unroll
+    for (int o = 4; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mean = __fdiv_rn((float)sum, (float)D);
+    double sq = 0.0;
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) sq += ln_sq_dev(v[j], mean);
+    }
+#pragma unroll
+    for (int o = 4; o; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float var = __fdiv_rn((float)sq, (float)D);
+    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    if (mine && sub == 0) stats[s_base + k] = make_float2(mean, rstd);
+  }
+}
+
+// the products of one column tile: the A tile (128 rows) times the three
+// planes of a ring stage, this warp's 32 rows x NT / 2 columns, into acc
+template <int D>
+__device__ __forceinline__ void tile_products(
+    float (&acc)[kMI][TcGeom<D>::NW][4], float2 (&bias)[TcGeom<D>::NW],
+    const __nv_bfloat16* sA, const __nv_bfloat16* sb, int wm, int wn,
+    int lane) {
+  using G = TcGeom<D>;
+  constexpr int NT = G::NT, LD = G::LD, NW = G::NW;
+  // this thread's columns' bias, out of the stage before it is refilled
+  const float2* sbias = reinterpret_cast<const float2*>(sb + 3 * NT * LD);
+#pragma unroll
+  for (int j = 0; j < NW; ++j)
+    bias[j] = sbias[(wn * (NT / 2) + (lane & 3) * 2 + 8 * j) / 2];
+#pragma unroll
+  for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[kMI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+      ldsm_x4(smem_u32(sA + (wm * (kBM / 4) + mi * 16 + (lane & 15)) * LD +
+                       kk * 16 + (lane >> 4) * 8),
+              af[mi]);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const __nv_bfloat16* bp = sb + (p * NT + wn * (NT / 2)) * LD;
+#pragma unroll
+      for (int jj = 0; jj < NW / 2; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4(smem_u32(bp + (jj * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                  LD +
+                         kk * 16 + ((lane >> 3) & 1) * 8),
+                bf);
+#pragma unroll
+        for (int mi = 0; mi < kMI; ++mi) {
+          mma_bf16(acc[mi][2 * jj], af[mi], bf[0], bf[1]);
+          mma_bf16(acc[mi][2 * jj + 1], af[mi], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// one column tile's logits from the fragments: the bias added, the label's
+// logit kept, the rows' online log-sum-exp of the tile's head advanced;
+// element (j, e) of row i is column col0 + 8 j + e
+template <int NW>
+__device__ __forceinline__ void tile_epilogue(
+    const float (&acc)[kMI][NW][4], const float2 (&bias)[NW], int col0,
+    int h, const int (&lab)[2][kRI], const int (&rows_i)[kRI],
+    float (*s_zl)[kBM], float (&m)[2][kRI], float (&s)[2][kRI]) {
+#pragma unroll
+  for (int i = 0; i < kRI; ++i) {
+    const int mi = i >> 1, hf = i & 1;
+    float z[NW][2];
+    float tm = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      z[j][0] = __fadd_rn(acc[mi][j][hf * 2], bias[j].x);
+      z[j][1] = __fadd_rn(acc[mi][j][hf * 2 + 1], bias[j].y);
+      tm = fmaxf(tm, fmaxf(z[j][0], z[j][1]));
+    }
+    // the label's logit, where this thread holds its column
+    const int dl = (h == 0 ? lab[0][i] : lab[1][i]) - col0;
+    if ((unsigned)dl < 8u * NW) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (dl == 8 * j + e) s_zl[h][rows_i[i]] = z[j][e];
+    }
+    if (h == 0)
+      lse_add<NW>(m[0][i], s[0][i], z, tm);
+    else
+      lse_add<NW>(m[1][i], s[1][i], z, tm);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    recon_tc_kernel(const TcArgs a) {
+  using G = TcGeom<D>;
+  constexpr int NT = G::NT, LD = G::LD, NW = G::NW;
+  constexpr int ST = G::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sB = sA + G::A_ELEMS;
+  float* sK = reinterpret_cast<float*>(sB + G::STAGES * G::STAGE_ELEMS);
+  __shared__ int s_lab[3][kBM], s_q[kBM];
+  __shared__ float2 s_st[kBM];
+  __shared__ float s_c0[kBM], s_zl[2][kBM];
+  __shared__ float s_pm[2][2][kBM], s_ps[2][2][kBM];  // [warp col][head][row]
+  __shared__ float s_kz[kBM][kMaxKind + 1];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int count = *a.count;
+  const int tiles = (count + kBM - 1) / kBM;
+  const int vt = a.v_tc / NT;
+  const int S = plan_slices(tiles, vt, gridDim.x, a.part_items);
+  const long long items = (long long)tiles * S;
+  // this thread's four accumulator rows: (m tile, half) = (i / 2, i % 2)
+  int rows_i[kRI];
+#pragma unroll
+  for (int i = 0; i < kRI; ++i)
+    rows_i[i] = wm * (kBM / 4) + (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
+
+  // the kind and duration weights (for their dots), gamma and beta (for
+  // the LayerNorm) into shared memory
+  float* sG = sK + (kMaxKind + 1) * D;
+  for (int e = tid; e < (a.v_k + 1) * D; e += kTcThreads)
+    sK[e] = e < a.v_k * D ? __ldg(a.wk + e) : __ldg(a.wd + e - a.v_k * D);
+  for (int e = tid; e < D; e += kTcThreads) {
+    sG[e] = __ldg(a.gamma + e);
+    sG[D + e] = __ldg(a.beta + e);
+  }
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int tile = (int)(item / S), slice = (int)(item % S);
+    const int t0 = slice * vt / S, nt = (slice + 1) * vt / S - t0;
+    const int rows = min(kBM, count - tile * kBM);
+    const int32_t* list = a.list + (long long)tile * kBM;
+    __syncthreads();  // the previous item's shared tiles are consumed
+    // the tile's positions, labels, targets and LayerNorm statistics, a
+    // thread a row
+    if (tid < kBM) {
+      int q = -1;
+      float2 st = make_float2(0.f, 1.f);  // a row past the last: finite
+      if (tid < rows) {
+        q = list[tid];
+        st = a.stats[(long long)tile * kBM + tid];
+        const int32_t* c = a.cat + (long long)q * a.C;
+        s_lab[0][tid] = min(max((int)c[0], 0), a.v_s - 1);
+        s_lab[1][tid] = a.vs_pad + min(max((int)c[1], 0), a.v_n - 1);
+        s_lab[2][tid] = min(max((int)c[2], 0), a.v_k - 1);
+        s_c0[tid] = a.cont[(long long)q * a.Dc];
+      } else {
+        s_lab[0][tid] = s_lab[1][tid] = s_lab[2][tid] = -1;
+      }
+      s_q[tid] = q;
+      s_st[tid] = st;
+      s_zl[0][tid] = 0.f;
+      s_zl[1][tid] = 0.f;
+    }
+    __syncthreads();
+    // their decoder rows gathered into the A tile (zeros past the last)
+    for (int e = tid; e < kBM * (D / 8); e += kTcThreads) {
+      const int r = e / (D / 8), c = e % (D / 8);
+      __nv_bfloat16* dst = sA + r * LD + c * 8;
+      if (r < rows)
+        cp_async16(smem_u32(dst), a.dec + (long long)s_q[r] * D + c * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+    // the ring's first stages, in flight during the LayerNorm
+#pragma unroll
+    for (int s = 0; s < ST - 1; ++s) {
+      if (s < nt)
+        load_stage<D>(a.planes, a.pbias, a.v_tc, (t0 + s) * NT,
+                      sB + s * G::STAGE_ELEMS, tid);
+      cp_async_commit();
+    }
+    cp_async_wait<ST - 1>();  // the rows (the oldest group) landed
+    __syncthreads();
+    // dec_ln in place from the statistics: 8 values a thread a step
+    for (int e = tid; e < kBM * (D / 8); e += kTcThreads) {
+      const int r = e / (D / 8), c = e % (D / 8);
+      uint4* p = reinterpret_cast<uint4*>(sA + r * LD + c * 8);
+      const uint4 u = *p;
+      const float2 st = s_st[r];
+      const float* g = sG + c * 8;
+      const float* b = sG + D + c * 8;
+      uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float2 f = bf16x2_to_float2(w[h]);
+        const float y0 = ln_out(f.x, st.x, st.y, g[2 * h], b[2 * h], sA);
+        const float y1 = ln_out(f.y, st.x, st.y, g[2 * h + 1], b[2 * h + 1],
+                                sA);
+        w[h] = (__float_as_uint(y0) >> 16) |
+               (__float_as_uint(y1) & 0xFFFF0000u);
+      }
+      *p = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncthreads();
+    int lab[2][kRI];
+#pragma unroll
+    for (int i = 0; i < kRI; ++i) {
+      lab[0][i] = s_lab[0][rows_i[i]];
+      lab[1][i] = s_lab[1][rows_i[i]];
+    }
+    float m[2][kRI], s[2][kRI];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kRI; ++i) {
+        m[h][i] = -INFINITY;
+        s[h][i] = 0.f;
+      }
+
+    // the column tiles: wait for a tile's stage, refill the one the tile
+    // before it used, the products, then the logits' epilogue
+    float acc[kMI][NW][4];
+    float2 bias[NW];
+    const int cw = wn * (NT / 2) + (lane & 3) * 2;  // this thread's columns
+    for (int it = 0; it < nt; ++it) {
+      const int t = t0 + it;
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+      if (it + ST - 1 < nt)
+        load_stage<D>(a.planes, a.pbias, a.v_tc, (t + ST - 1) * NT,
+                      sB + ((it + ST - 1) % ST) * G::STAGE_ELEMS, tid);
+      cp_async_commit();
+      tile_products<D>(acc, bias, sA, sB + (it % ST) * G::STAGE_ELEMS, wm,
+                       wn, lane);
+      tile_epilogue<NW>(acc, bias, t * NT + cw, t * NT < a.vs_pad ? 0 : 1,
+                        lab, rows_i, s_zl, m, s);
+    }
+    cp_async_wait<0>();
+    // a row's (max, sum): its quad of lanes, then its two column warps
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kRI; ++i) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[h][i], o);
+          const float so = __shfl_xor_sync(0xffffffffu, s[h][i], o);
+          lse_merge(m[h][i], s[h][i], mo, so);
+        }
+        if ((lane & 3) == 0) {
+          s_pm[wn][h][rows_i[i]] = m[h][i];
+          s_ps[wn][h][rows_i[i]] = s[h][i];
+        }
+      }
+    __syncthreads();
+    float fm[2], fs[2], fz[2];
+    if (tid < kBM) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        fm[h] = s_pm[0][h][tid];
+        fs[h] = s_ps[0][h][tid];
+        lse_merge(fm[h], fs[h], s_pm[1][h][tid], s_ps[1][h][tid]);
+        fz[h] = s_zl[h][tid];
+      }
+    }
+    if (S > 1) {  // leave the partial; the tile's last slice merges
+      float* rec = a.part + item * (long long)(kPart * kBM);
+      if (tid < kBM) {
+        rec[0 * kBM + tid] = fm[0];
+        rec[1 * kBM + tid] = fs[0];
+        rec[2 * kBM + tid] = fm[1];
+        rec[3 * kBM + tid] = fs[1];
+        rec[4 * kBM + tid] = fz[0];
+        rec[5 * kBM + tid] = fz[1];
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) s_last = atomicAdd(a.tile_done + tile, 1) == S - 1;
+      __syncthreads();
+      if (!s_last) continue;
+      __threadfence();
+      if (tid < rows) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          fm[h] = -INFINITY;
+          fs[h] = 0.f;
+          fz[h] = 0.f;
+        }
+        for (int sl = 0; sl < S; ++sl) {
+          const float* rp =
+              a.part + ((long long)tile * S + sl) * (kPart * kBM) + tid;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            lse_merge(fm[h], fs[h], __ldcg(rp + (2 * h) * kBM),
+                      __ldcg(rp + (2 * h + 1) * kBM));
+            fz[h] += __ldcg(rp + (4 + h) * kBM);  // one slice holds it
+          }
+        }
+      }
+    }
+    // the kind and duration logits, f32 dots on CUDA cores: a warp's
+    // threads on one weight row (shared memory, broadcast) and 32 rows of
+    // y, 8 bf16 of y and 8 f32 of the weight a step
+    const int vk1 = a.v_k + 1;
+    for (int e = tid; e < rows * vk1; e += kTcThreads) {
+      const int j = e / rows, r = e % rows;
+      const float4* w = reinterpret_cast<const float4*>(sK + j * D);
+      const uint4* y = reinterpret_cast<const uint4*>(sA + r * LD);
+      float d4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < D / 8; ++k) {
+        const uint4 yv = y[k];
+        const float4 w0 = w[2 * k], w1 = w[2 * k + 1];
+        const float2 y0 = bf16x2_to_float2(yv.x), y1 = bf16x2_to_float2(yv.y);
+        const float2 y2 = bf16x2_to_float2(yv.z), y3 = bf16x2_to_float2(yv.w);
+        d4[0] = fmaf(y0.x, w0.x, fmaf(y0.y, w0.y, d4[0]));
+        d4[1] = fmaf(y1.x, w0.z, fmaf(y1.y, w0.w, d4[1]));
+        d4[2] = fmaf(y2.x, w1.x, fmaf(y2.y, w1.y, d4[2]));
+        d4[3] = fmaf(y3.x, w1.z, fmaf(y3.y, w1.w, d4[3]));
+      }
+      const float dot = (d4[0] + d4[1]) + (d4[2] + d4[3]);
+      s_kz[r][j] = __fadd_rn(dot, j < a.v_k ? __ldg(a.bk + j) : __ldg(a.bd));
+    }
+    __syncthreads();
+    if (tid < rows) {
+      float km = -INFINITY, ks = 0.f;
+      for (int j = 0; j < a.v_k; ++j) km = fmaxf(km, s_kz[tid][j]);
+      for (int j = 0; j < a.v_k; ++j) ks += expf(s_kz[tid][j] - km);
+      const float e = weighted_error(
+          fm[0] + logf(fs[0]), fz[0], fm[1] + logf(fs[1]), fz[1],
+          km + logf(ks), s_kz[tid][s_lab[2][tid]], s_kz[tid][a.v_k],
+          s_c0[tid], a.w_s, a.w_n, a.w_k, a.w_d);
+      const long long q = s_q[tid];
+      a.err[q] = e;
+      if (a.span_map != nullptr) {
+        const int idx = a.span_map[q];
+        if (idx >= 0) a.scores[idx] = 1.f - expf(-e);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_tc_t(const TcArgs& a, long long M, const uint8_t* mask,
+                int32_t* list, float2* stats, int32_t* count, int sms,
+                int* launches, cudaStream_t st) {
+  const long long blocks = (M + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  recon_compact_kernel<D><<<(unsigned)blocks, kThreads, 0, st>>>(
+      mask, M, a.dec, a.eps, a.err, list, stats, count);
+  ++*launches;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(recon_tc_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           TcGeom<D>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;  // the persistent CTAs: as many as the SMs hold
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, recon_tc_kernel<D>, kTcThreads, TcGeom<D>::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  recon_tc_kernel<D><<<sms * per_sm, kTcThreads, TcGeom<D>::SMEM, st>>>(a);
+  ++*launches;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K11. dec: (M, d) bf16 (dtype 1) or f32 (dtype 0), the decoder's output
-// before dec_ln; gamma, beta: (d,) f32; w0..w3: the service, name, kind and
+// K11, f32 (CUDA cores). dec: (M, d) f32, the decoder's output before
+// dec_ln; gamma, beta: (d,) f32; w0..w3: the service, name, kind and
 // duration heads' (V_h, d) f32 weights, b0..b3 their (V_h,) biases (V_3 =
 // 1); cat: (M, C) int32 (labels in columns 0-2), cont: (M, D) f32 (target
 // in column 0); mask: (M,) bytes; the four loss weights; err: (M,) f32 out.
 // span_map (nullable): (M,) int32 original span index, -1 at padding;
 // scores: zero-filled f32, written at span_map[q] for each real q. d is
 // 32, 64, 128 or 256.
-extern "C" int recon_ce_launch(
-    const void* dec, int dtype, long long M, int d, const void* gamma,
-    const void* beta, float eps, const void* w0, const void* w1,
-    const void* w2, const void* w3, const void* b0, const void* b1,
-    const void* b2, const void* b3, int v0, int v1, int v2, int v3,
-    const void* cat, int C, const void* cont, int D, const void* mask,
-    float w_s, float w_n, float w_k, float w_d, void* err,
-    const void* span_map, void* scores, void* stream) {
-  if (M < 0 || (dtype != 0 && dtype != 1) || v0 < 1 || v1 < 1 || v2 < 1 ||
-      v3 != 1 || C < 3 || D < 1 || (span_map != nullptr && scores == nullptr))
+extern "C" int recon_ce_f32_launch(
+    const void* dec, long long M, int d, const void* gamma, const void* beta,
+    float eps, const void* w0, const void* w1, const void* w2,
+    const void* w3, const void* b0, const void* b1, const void* b2,
+    const void* b3, int v0, int v1, int v2, int v3, const void* cat, int C,
+    const void* cont, int D, const void* mask, float w_s, float w_n,
+    float w_k, float w_d, void* err, const void* span_map, void* scores,
+    void* stream) {
+  if (M < 0 || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 || C < 3 || D < 1 ||
+      (span_map != nullptr && scores == nullptr))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   Heads heads;
-  heads.w[0] = static_cast<const float*>(w0);
-  heads.w[1] = static_cast<const float*>(w1);
-  heads.w[2] = static_cast<const float*>(w2);
-  heads.w[3] = static_cast<const float*>(w3);
-  heads.b[0] = static_cast<const float*>(b0);
-  heads.b[1] = static_cast<const float*>(b1);
-  heads.b[2] = static_cast<const float*>(b2);
-  heads.b[3] = static_cast<const float*>(b3);
-  heads.v[0] = v0;
-  heads.v[1] = v1;
-  heads.v[2] = v2;
-  heads.v[3] = v3;
+  const void* ws[4] = {w0, w1, w2, w3};
+  const void* bs[4] = {b0, b1, b2, b3};
+  const int vs[4] = {v0, v1, v2, v3};
+  for (int h = 0; h < 4; ++h) {
+    heads.w[h] = static_cast<const float*>(ws[h]);
+    heads.b[h] = static_cast<const float*>(bs[h]);
+    heads.v[h] = vs[h];
+  }
   const float wts[4] = {w_s, w_n, w_k, w_d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* x = static_cast<const float*>(dec);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   const int32_t* c = static_cast<const int32_t*>(cat);
-  const float* x = static_cast<const float*>(cont);
+  const float* ct = static_cast<const float*>(cont);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   float* e = static_cast<float*>(err);
   const int32_t* sm = static_cast<const int32_t*>(span_map);
   float* sc = static_cast<float*>(scores);
-  if (dtype == 1)
-    return launch(static_cast<const __nv_bfloat16*>(dec), M, d, g, b, eps,
-                  heads, c, C, x, D, m, wts, e, sm, sc, st);
-  return launch(static_cast<const float*>(dec), M, d, g, b, eps, heads, c, C,
-                x, D, m, wts, e, sm, sc, st);
+  switch (d) {
+    case 32:
+      return launch_f32_t<1>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
+                             sm, sc, st);
+    case 64:
+      return launch_f32_t<2>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
+                             sm, sc, st);
+    case 128:
+      return launch_f32_t<4>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
+                             sm, sc, st);
+    case 256:
+      return launch_f32_t<8>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
+                             sm, sc, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K11, bf16 (tensor cores). dec: (M, d) bf16; gamma, beta as above;
+// planes: (3, v_tc, d) bf16, the service and name heads' W_hi, W_mid,
+// W_lo, each head's rows padded with zeros to a multiple of 64 (service
+// rows [0, vs_pad), name rows [vs_pad, v_tc)); pbias: (v_tc,) f32, -inf at
+// the padding; v_s, v_n: the real widths; wk, bk: the kind head (v_k <=
+// 16); wd, bd: the duration head; cat, cont, mask, the loss weights, err,
+// span_map and scores as above. Scratch: list (M,) int32; stats (M, 2)
+// f32 (each listed position's LayerNorm mean and 1 / std); part:
+// part_floats f32, room for part_floats / (6 * 128) split items'
+// partials; count (1,) and tile_done (that room / 2 + 1) int32, zeroed.
+// sms: the card's multiprocessors (the persistent grid is as many CTAs as
+// they hold). dec 16-byte aligned, M < 2^31. *launches gets the kernels
+// launched.
+extern "C" int recon_ce_tc_launch(
+    const void* dec, long long M, int d, const void* gamma, const void* beta,
+    float eps, const void* planes, const void* pbias, int vs_pad, int v_tc,
+    int v_s, int v_n, const void* wk, const void* bk, int v_k,
+    const void* wd, const void* bd, const void* cat, int C,
+    const void* cont, int D, const void* mask, float w_s, float w_n,
+    float w_k, float w_d, void* err, const void* span_map, void* scores,
+    void* list, void* stats, void* count, void* part, long long part_floats,
+    void* tile_done, int sms, int* launches, void* stream) {
+  *launches = 0;
+  if (M < 0 || M > 0x7fffffffLL || v_s < 1 || v_n < 1 || v_k < 1 ||
+      v_k > kMaxKind || vs_pad < v_s || vs_pad % kPlanePad ||
+      v_tc - vs_pad < v_n || v_tc % kPlanePad || C < 3 || D < 1 ||
+      part_floats < 0 || sms < 1 || (span_map != nullptr && scores == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  TcArgs a;
+  a.dec = static_cast<const __nv_bfloat16*>(dec);
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.eps = eps;
+  a.planes = static_cast<const __nv_bfloat16*>(planes);
+  a.pbias = static_cast<const float*>(pbias);
+  a.vs_pad = vs_pad;
+  a.v_tc = v_tc;
+  a.v_s = v_s;
+  a.v_n = v_n;
+  a.wk = static_cast<const float*>(wk);
+  a.bk = static_cast<const float*>(bk);
+  a.v_k = v_k;
+  a.wd = static_cast<const float*>(wd);
+  a.bd = static_cast<const float*>(bd);
+  a.cat = static_cast<const int32_t*>(cat);
+  a.C = C;
+  a.cont = static_cast<const float*>(cont);
+  a.Dc = D;
+  a.w_s = w_s;
+  a.w_n = w_n;
+  a.w_k = w_k;
+  a.w_d = w_d;
+  a.err = static_cast<float*>(err);
+  a.span_map = static_cast<const int32_t*>(span_map);
+  a.scores = static_cast<float*>(scores);
+  a.list = static_cast<const int32_t*>(list);
+  a.stats = static_cast<const float2*>(stats);
+  a.count = static_cast<const int32_t*>(count);
+  a.part = static_cast<float*>(part);
+  a.part_items = (int)(part_floats / (kPart * kBM));
+  a.tile_done = static_cast<int32_t*>(tile_done);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  int32_t* l = static_cast<int32_t*>(list);
+  float2* sts = static_cast<float2*>(stats);
+  int32_t* n = static_cast<int32_t*>(count);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch_tc_t<32>(a, M, m, l, sts, n, sms, launches, st);
+    case 64:
+      return launch_tc_t<64>(a, M, m, l, sts, n, sms, launches, st);
+    case 128:
+      return launch_tc_t<128>(a, M, m, l, sts, n, sms, launches, st);
+    case 256:
+      return launch_tc_t<256>(a, M, m, l, sts, n, sms, launches, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

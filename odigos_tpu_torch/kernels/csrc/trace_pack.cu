@@ -15,20 +15,36 @@
 // chunks of L, and next-fit with the host's bisect_right semantics.
 //
 // Input: perm, the first n of N rows sorted by (trace_id_hi, trace_id_lo,
-// start) (K6), and the features of each row. Three launches:
+// start) (K6), and the features of each row. Three launches, the walk and
+// the scatter each by programmatic dependent launch (started while the
+// kernel before it runs, waiting in griddepcontrol.wait for its results:
+// the launch gaps overlap the work):
 //   layout   one thread per sorted index j < n: the first index of j's
-//            trace by binary search over the sorted trace ids, so the
+//            trace from the warp's new-trace ballot, or, before the warp's
+//            first trace start, by the warp probing the 32 spans before it
+//            (then every 32nd up to 1024, then a binary search), so the
 //            position in the trace needs no scan; j starts a segment
 //            (chunk) when that position is a multiple of L; a ballot per
 //            warp writes the segment starts as a bitmask (one bit per span);
-//   walk     one block: the bitmask into shared memory (16 KB at 131072
-//            spans), then one thread walks the rows. A row that starts at
-//            span p takes every whole segment ending at or before p + L, so
-//            the next row starts at the highest segment start in
-//            (p, p + L] — at most three words of the mask, found with
-//            __clz — or the row is the last one (p + L >= n). The walk
-//            costs R_real steps (~n / 50 for trace-shaped traffic), not a
-//            step per segment, and writes the row starts and R_real;
+//   walk     one block, the bitmask in shared memory. A row that starts
+//            at span p takes every whole segment ending at or before p + L,
+//            so the next row starts at nxt(p), the highest segment start in
+//            (p, p + L] (at most three words of the mask, found with
+//            __clz), or the row is the last one (p + L >= n). The row
+//            starts are the orbit of 0 under nxt. The walk cuts [0, n) into
+//            chunks of W >= L spans (pack.walk_plan). The first row start at
+//            or after a chunk's first span c W lies in [c W, c W + L) (its
+//            predecessor is below c W and nxt moves at most L) and is a
+//            segment start there: one of at most L candidates. (1) Eight
+//            lanes per chunk, a lane per candidate, walk nxt from each
+//            candidate to the first start past the chunk and record that
+//            start's candidate index in the next chunk (or the end, or a
+//            broken layout) and the rows started inside the chunk; (2) one
+//            thread composes the chunks' tables from span 0, giving each
+//            chunk its true entry and the rows before it; (3) a thread per
+//            chunk walks again from its entry and writes the row starts.
+//            With ~sqrt(n / 8) chunks the dependent steps are ~2 W / row +
+//            chunks (~70 at n = 65536), not one per row (~1,100);
 //   scatter  one thread per output slot (r, c) of the (R, L) rows: the
 //            span at sorted index rs[r] + c if the row holds it, else
 //            padding. Every output element is written once, zeros
@@ -40,10 +56,13 @@
 // is sized by the next-fit bound 2n/L + 2), get row R: dropped.
 //
 // Bound on the card: bytes. The outputs are R * L * 40 B (R = 2048, L =
-// 64: 5.2 MB, 1.6 us at 3.35 TB/s), the inputs ~36 B per span. The walk is
-// a chain of dependent shared-memory reads on one thread (~20-40 cycles a
-// row), and the layout's binary search ~17 dependent L2 reads per span:
-// latency, not bandwidth, sets the time.
+// 64: 5.2 MB, 1.6 us at 3.35 TB/s), the inputs ~36 B per span. The walk's
+// chains of dependent shared-memory reads and the layout's search for
+// each trace's start (dependent L2 reads) are latency, not bandwidth: the
+// layout takes ~2 rounds of loads a warp where a binary search takes ~17,
+// and the walk keeps its chains short (~100 steps at n = 131072, in 32-bit
+// arithmetic) by splitting them over chunks, where a walk row by row takes
+// ~1,100 steps at n = 65536.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +71,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWalkThreads = 1024;
-constexpr long long kWalkSmemWords = 12288;  // 48 KB, no attribute needed
+constexpr long long kWalkSmemWords = 12288;  // the mask in smem up to 48 KB
+constexpr int kWalkSlots = 8192;             // (chunk, candidate) slots: 64 KB
+constexpr int kWalkLanes = 8;                // the walk's lanes a chunk
+
+// programmatic dependent launch: the walk and the scatter are launched
+// while the kernel before them runs, and wait here for its results; a
+// kernel lets its dependents launch early. Both are no-ops in a kernel
+// launched without the attribute.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
 
 __device__ __forceinline__ bool key_less(unsigned long long ah,
                                          unsigned long long al,
@@ -61,88 +94,228 @@ __device__ __forceinline__ bool key_less(unsigned long long ah,
   return ah < bh || (ah == bh && al < bl);
 }
 
+// sorted span p's trace id is (h, l)
+__device__ __forceinline__ bool same_trace(
+    const int32_t* __restrict__ perm,
+    const unsigned long long* __restrict__ thi,
+    const unsigned long long* __restrict__ tlo, long long p,
+    unsigned long long h, unsigned long long l) {
+  const int r = perm[p];
+  return thi[r] == h && tlo[r] == l;
+}
+
+// The first sorted index of the trace (h, l) that holds sorted index j0 >
+// 0 and j0 - 1 (a warp's collective, every lane the same arguments): the
+// 32 spans before j0 at once, then every 32nd span up to 1024 back and the
+// 32 spans of the window that holds the start, and past that a binary
+// search: ~2 rounds of dependent loads for traces of up to ~1,000 spans,
+// not the ~17 of a binary search from 0.
+__device__ __forceinline__ long long warp_trace_start(
+    const int32_t* __restrict__ perm,
+    const unsigned long long* __restrict__ thi,
+    const unsigned long long* __restrict__ tlo, long long j0,
+    unsigned long long h, unsigned long long l, int lane) {
+  long long p = j0 - 1 - lane;
+  unsigned b = __ballot_sync(0xffffffffu,
+                             p < 0 || !same_trace(perm, thi, tlo, p, h, l));
+  if (b) return j0 - (__ffs(b) - 1);
+  p = j0 - 32 * (lane + 1);
+  b = __ballot_sync(0xffffffffu,
+                    p < 0 || !same_trace(perm, thi, tlo, p, h, l));
+  if (b) {  // the start lies in (j0 - 32 (k + 1), j0 - 32 k], k >= 1
+    const long long lo = j0 - 32 * __ffs(b) + 1;
+    b = __ballot_sync(0xffffffffu,
+                      lo + lane >= 0 &&
+                          same_trace(perm, thi, tlo, lo + lane, h, l));
+    return lo + __ffs(b) - 1;
+  }
+  long long lo = 0, hi = j0 - 32 * 32;  // hi is in the trace
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    const int r = perm[mid];
+    if (key_less(thi[r], tlo[r], h, l))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// One thread per sorted index j < n, whole warps: the new-trace flags
+// (j's trace id against j - 1's) by a ballot give each span its trace's
+// first index within the warp; the spans before the warp's first trace
+// start share one warp_trace_start. Then the position in the chunk, and
+// the segment-start bitmask a warp a word.
 __global__ void __launch_bounds__(kThreads) pack_layout_kernel(
     const int32_t* __restrict__ perm,
     const unsigned long long* __restrict__ thi,
     const unsigned long long* __restrict__ tlo, long long n, int L,
     unsigned* __restrict__ mask, int32_t* __restrict__ pic) {
+  launch_dependents();
   const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long words = (n + 31) >> 5;
   if ((j >> 5) >= words) return;  // whole warps: words * 32 is warp-aligned
+  const int lane = threadIdx.x & 31;
+  const long long j0 = j - lane;
+  unsigned long long h = 0, l = 0;
+  if (j < n) {
+    const int r = perm[j];
+    h = thi[r];
+    l = tlo[r];
+  }
+  unsigned long long ph = __shfl_up_sync(0xffffffffu, h, 1);
+  unsigned long long pl = __shfl_up_sync(0xffffffffu, l, 1);
+  if (lane == 0 && j > 0) {
+    const int r = perm[j - 1];
+    ph = thi[r];
+    pl = tlo[r];
+  }
+  const bool fresh = j < n && (j == 0 || ph != h || pl != l);
+  const unsigned nt = __ballot_sync(0xffffffffu, fresh);
+  long long first = j0;
+  if (!(nt & 1u))  // the warp starts inside a trace (j0 > 0)
+    first = warp_trace_start(perm, thi, tlo, j0,
+                             __shfl_sync(0xffffffffu, h, 0),
+                             __shfl_sync(0xffffffffu, l, 0), lane);
+  const unsigned below = nt & (lane == 31 ? ~0u : (2u << lane) - 1u);
+  if (below) first = j0 + 31 - __clz(below);
   bool seg = false;
   if (j < n) {
-    const int idx = perm[j];
-    const unsigned long long h = thi[idx], l = tlo[idx];
-    long long lo = 0, hi = j;
-    while (lo < hi) {
-      const long long mid = (lo + hi) >> 1;
-      const int r = perm[mid];
-      if (key_less(thi[r], tlo[r], h, l))
-        lo = mid + 1;
-      else
-        hi = mid;
-    }
-    const int pc = (int)((j - lo) % L);
+    const int pc = (int)((j - first) % L);
     seg = pc == 0;
     pic[j] = pc;
   }
   const unsigned b = __ballot_sync(0xffffffffu, seg);
-  if ((threadIdx.x & 31) == 0) mask[j >> 5] = b;
+  if (lane == 0) mask[j >> 5] = b;
 }
 
-template <bool kSmem>
-__global__ void __launch_bounds__(kWalkThreads)
-    pack_walk_kernel(const unsigned* __restrict__ gmask, long long n, int L,
-                     int R, int32_t* __restrict__ rs,
-                     int32_t* __restrict__ rows_used) {
-  extern __shared__ unsigned s_mask[];
-  const unsigned* mask = gmask;
-  if (kSmem) {
-    const long long words = (n + 31) >> 5;
-    for (long long i = threadIdx.x; i < words; i += kWalkThreads)
-      s_mask[i] = gmask[i];
-    __syncthreads();
-    mask = s_mask;
-  }
-  if (threadIdx.x != 0) return;
-  int r = 0;
-  long long p = 0;
-  while (p < n) {
-    if (r <= R) rs[r] = (int32_t)p;
-    ++r;
-    const long long lim = p + L;
-    if (lim >= n) break;
-    long long b = -1;
-    const long long w_lo = (p + 1) >> 5, w_hi = lim >> 5;
-    for (long long w = w_hi; w >= w_lo; --w) {
-      unsigned m = mask[w];
-      if (w == w_hi) m &= (2u << (lim & 31)) - 1u;  // bits <= lim
-      if (w == w_lo) m &= ~0u << ((p + 1) & 31);    // bits > p
-      if (m) {
-        b = (w << 5) + 31 - __clz(m);
-        break;
-      }
-    }
-    if (b < 0) {  // no segment start within L spans: a broken layout
-      r = -1;
-      break;
-    }
-    p = b;
-  }
-  *rows_used = r;
-}
+constexpr int kEnd = -1;     // the orbit ended inside the chunk
+constexpr int kBroken = -2;  // no segment start within L spans
 
-// segment starts in [a, b], a <= b < a + L
-__device__ __forceinline__ int starts_between(const unsigned* mask,
-                                              long long a, long long b) {
+// segment starts in [a, b], a <= b
+__device__ __forceinline__ int starts_between(const unsigned* mask, int a,
+                                              int b) {
   int c = 0;
-  for (long long w = a >> 5; w <= (b >> 5); ++w) {
+  for (int w = a >> 5; w <= (b >> 5); ++w) {
     unsigned m = mask[w];
     if (w == (a >> 5)) m &= ~0u << (a & 31);
     if (w == (b >> 5)) m &= (2u << (b & 31)) - 1u;
     c += __popc(m);
   }
   return c;
+}
+
+// nxt(p): the highest segment start in (p, p + L], -1 if none; p + L < n
+__device__ __forceinline__ int next_start(const unsigned* mask, int p,
+                                          int L) {
+  const int lim = p + L, w_lo = (p + 1) >> 5;
+  for (int w = lim >> 5; w >= w_lo; --w) {
+    unsigned m = mask[w];
+    if (w == (lim >> 5)) m &= (2u << (lim & 31)) - 1u;  // bits <= lim
+    if (w == w_lo) m &= ~0u << ((p + 1) & 31);          // bits > p
+    if (m) return (w << 5) + 31 - __clz(m);
+  }
+  return -1;
+}
+
+// the k-th (from 0) segment start in [lo, hi), -1 if there are fewer
+__device__ __forceinline__ int kth_start(const unsigned* mask, int lo,
+                                         int hi, int k) {
+  for (int w = lo >> 5; (w << 5) < hi; ++w) {
+    unsigned m = mask[w];
+    if (w == (lo >> 5)) m &= ~0u << (lo & 31);
+    if (w == ((hi - 1) >> 5)) m &= (2u << ((hi - 1) & 31)) - 1u;
+    const int c = __popc(m);
+    if (k < c) {
+      for (; k > 0; --k) m &= m - 1u;
+      return (w << 5) + __ffs(m) - 1;
+    }
+    k -= c;
+  }
+  return -1;
+}
+
+// Shared memory: the (chunks, L) table of (exit candidate, rows), each
+// chunk's entry candidate and rows before it, then (kSmem) the mask. Step
+// 1 gives each chunk kWalkLanes lanes (a chunk's window holds ~L / 10
+// candidates on trace-shaped traffic), so 128 chunks walk at once.
+template <bool kSmem>
+__global__ void __launch_bounds__(kWalkThreads)
+    pack_walk_kernel(const unsigned* __restrict__ gmask, int n, int L, int R,
+                     int chunks, int W, int32_t* __restrict__ rs,
+                     int32_t* __restrict__ rows_used) {
+  extern __shared__ int2 s_tab[];
+  int* s_entry = reinterpret_cast<int*>(s_tab + chunks * L);
+  int* s_base = s_entry + chunks;
+  const unsigned* mask = gmask;
+  const int tid = threadIdx.x;
+  wait_prior_grid();  // the layout's bitmask
+  launch_dependents();
+  if (kSmem) {
+    unsigned* s_mask = reinterpret_cast<unsigned*>(s_base + chunks);
+    const int words = (n + 31) >> 5;
+    for (int i = tid; i < words; i += kWalkThreads) s_mask[i] = gmask[i];
+    mask = s_mask;
+  }
+  __syncthreads();
+  // (1) each chunk's candidates walked to the next chunk
+  for (int c = tid / kWalkLanes; c < chunks;
+       c += kWalkThreads / kWalkLanes) {
+    const int lo = c * W, end = lo + W, hi = min(lo + L, n);
+    const int cands = starts_between(mask, lo, hi - 1);
+    for (int k = tid % kWalkLanes; k < cands; k += kWalkLanes) {
+      int p = kth_start(mask, lo, hi, k), rows = 0, out;
+      for (;;) {
+        ++rows;
+        if (p + L >= n) {
+          out = kEnd;
+          break;
+        }
+        const int b = next_start(mask, p, L);
+        if (b < 0) {
+          out = kBroken;
+          break;
+        }
+        p = b;
+        if (p >= end) {  // its index among the next chunk's candidates
+          out = starts_between(mask, end, p) - 1;
+          break;
+        }
+      }
+      s_tab[c * L + k] = make_int2(out, rows);
+    }
+  }
+  __syncthreads();
+  // (2) the true entries, from span 0 (candidate 0 of chunk 0)
+  if (tid == 0) {
+    int k = 0, r = 0;
+    for (int c = 0; c < chunks; ++c) {
+      s_entry[c] = k;
+      s_base[c] = r;
+      if (k >= 0) {
+        const int2 t = s_tab[c * L + k];
+        r += t.y;
+        k = t.x;
+      }
+    }
+    *rows_used = k == kBroken ? -1 : r;
+  }
+  __syncthreads();
+  // (3) each chunk's rows from its true entry
+  for (int c = tid; c < chunks; c += kWalkThreads) {
+    const int k = s_entry[c];
+    if (k < 0) continue;
+    const int lo = c * W, end = lo + W;
+    int p = kth_start(mask, lo, min(lo + L, n), k), r = s_base[c];
+    for (;;) {
+      if (r <= R) rs[r] = p;
+      ++r;
+      if (p + L >= n) break;
+      const int b = next_start(mask, p, L);
+      if (b < 0 || b >= end) break;
+      p = b;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) pack_scatter_kernel(
@@ -155,6 +328,7 @@ __global__ void __launch_bounds__(kThreads) pack_scatter_kernel(
     int32_t* __restrict__ poss, int32_t* __restrict__ row_eff,
     int32_t* __restrict__ span_col) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  wait_prior_grid();  // the walk's row starts
   int ru = *rows_used;
   if (ru < 0) ru = 0;
   const int rows = ru < R ? ru : R;
@@ -275,23 +449,35 @@ __global__ void __launch_bounds__(kThreads) rows_scatter_kernel(
   }
 }
 
+// the walk's dynamic shared memory, allowed past 48 KB
+template <bool kSmem>
+cudaError_t walk_smem(int bytes) {
+  return cudaFuncSetAttribute(pack_walk_kernel<kSmem>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
 }  // namespace
 
 // K7. perm (N,) int32 (K6's trace order, identity past n); thi, tlo (N,)
-// u64; cat (N, C) int32, cont (N, D) f32 by original row. Scratch: mask
-// ceil(N / 32) u32, pic (N,) int32, rs (R + 1,) int32. Out: rows_used (1,)
-// int32 (the rows next-fit filled, -1 on a broken layout); catp (R, L, C),
-// contp (R, L, D), segs, poss (R, L); row_eff, span_col (N,) by sorted
-// index. *launches gets the number of kernels launched.
+// u64; cat (N, C) int32, cont (N, D) f32 by original row; the walk's plan
+// (pack.walk_plan): chunks of W spans covering [0, n), none empty, W >= L
+// when chunks > 1, chunks * L <= 8192. Scratch: mask ceil(N / 32) u32,
+// pic (N,) int32, rs (R + 1,) int32. Out: rows_used (1,) int32 (the rows
+// next-fit filled, -1 on a broken layout); catp (R, L, C), contp (R, L, D),
+// segs, poss (R, L); row_eff, span_col (N,) by sorted index. *launches
+// gets the number of kernels launched.
 extern "C" int next_fit_pack_launch(
     const void* perm, const void* thi, const void* tlo, const void* cat,
     const void* cont, int C, int D, long long n, long long N, int L, int R,
-    void* mask, void* pic, void* rs, void* rows_used, void* catp,
-    void* contp, void* segs, void* poss, void* row_eff, void* span_col,
-    int* launches, void* stream) {
+    int chunks, int W, void* mask, void* pic, void* rs,
+    void* rows_used, void* catp, void* contp, void* segs, void* poss,
+    void* row_eff, void* span_col, int* launches, void* stream) {
   *launches = 0;
   if (n < 0 || N < n || L < 1 || R < 0 || C < 0 || D < 0 ||
-      N > 0x7fffffffLL)
+      N + L > 0x7fffffffLL || chunks < 0 || W < 1 ||
+      (long long)chunks * W < n || (long long)(chunks - 1) * W >= n ||
+      (chunks > 1 && W < L) || (long long)chunks * L > kWalkSlots)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -307,31 +493,54 @@ extern "C" int next_fit_pack_launch(
     ++*launches;
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  if (words <= kWalkSmemWords)
-    pack_walk_kernel<true><<<1, kWalkThreads, words * 4, st>>>(
-        m, n, L, R, static_cast<int32_t*>(rs),
-        static_cast<int32_t*>(rows_used));
+  const bool smem_mask = words <= kWalkSmemWords;
+  const int smem = (int)((long long)chunks * L * 8 + chunks * 8 +
+                         (smem_mask ? words * 4 : 0));
+  if (smem_mask)
+    err = walk_smem<true>(smem);
   else
-    pack_walk_kernel<false><<<1, kWalkThreads, 0, st>>>(
-        m, n, L, R, static_cast<int32_t*>(rs),
-        static_cast<int32_t*>(rows_used));
+    err = walk_smem<false>(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kWalkThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  const unsigned* cm = m;
+  int32_t* crs = static_cast<int32_t*>(rs);
+  int32_t* cru = static_cast<int32_t*>(rows_used);
+  err = smem_mask ? cudaLaunchKernelEx(&cfg, pack_walk_kernel<true>, cm,
+                                       (int)n, L, R, chunks, W, crs, cru)
+                  : cudaLaunchKernelEx(&cfg, pack_walk_kernel<false>, cm,
+                                       (int)n, L, R, chunks, W, crs, cru);
   ++*launches;
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess)
+    return (int)err;
   const long long slots = (long long)R * L;
   const long long work = slots > N ? slots : N;
   if (work > 0) {
     const long long blocks = (work + kThreads - 1) / kThreads;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    pack_scatter_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(cat),
-        static_cast<const float*>(cont), C, D, m,
-        static_cast<const int32_t*>(pic), static_cast<const int32_t*>(rs),
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    err = cudaLaunchKernelEx(
+        &cfg, pack_scatter_kernel, static_cast<const int32_t*>(perm),
+        static_cast<const int32_t*>(cat), static_cast<const float*>(cont), C,
+        D, cm, static_cast<const int32_t*>(pic),
+        static_cast<const int32_t*>(rs),
         static_cast<const int32_t*>(rows_used), n, N, L, R,
         static_cast<int32_t*>(catp), static_cast<float*>(contp),
         static_cast<int32_t*>(segs), static_cast<int32_t*>(poss),
         static_cast<int32_t*>(row_eff), static_cast<int32_t*>(span_col));
     ++*launches;
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess)
+      return (int)err;
   }
   return (int)cudaSuccess;
 }
@@ -356,8 +565,8 @@ extern "C" int next_fit_pack_launch(
 // writes each real position's score there), every element written once.
 // Bound on the card: bytes, R * L * (4 C + 4 D + 5) out (R = 2048, L = 64:
 // 17.3 MB, 5.2 us at 3.35 TB/s) plus ~28 B a span in; the layout's
-// binary search (~17 dependent L2 reads a span) and the one-block scan set
-// the time at these sizes.
+// search for each trace's start (dependent L2 reads) and the one-block
+// scan set the time at these sizes.
 extern "C" int trace_rows_pack_launch(
     const void* perm, const void* thi, const void* tlo, const void* cat,
     const void* cont, int C, int D, long long n, long long N, int L, int R,

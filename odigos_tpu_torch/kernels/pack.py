@@ -18,7 +18,9 @@ tensor; -1 marks a broken layout on the card), which a caller compares with
 
 A CUDA tensor launches ``csrc/trace_pack.cu`` (three launches: layout,
 walk, scatter) or raises; a CPU tensor takes :func:`next_fit_pack_plain`.
-``launches`` counts the calls that launched, ``device_launches`` the
+The walk finds the row starts by chunks of spans (:func:`walk_plan`), not
+one row at a time, and takes ``max_len`` up to ``MAX_WALK_LEN`` on the
+card. ``launches`` counts the calls that launched, ``device_launches`` the
 kernels.
 
 K13, ``trace_rows_pack(perm, trace_id_hi, trace_id_lo, categorical,
@@ -41,6 +43,7 @@ counts its calls that launched, ``rows_device_launches`` its kernels.
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from bisect import bisect_right
 from typing import NamedTuple
@@ -48,6 +51,11 @@ from typing import NamedTuple
 import torch
 
 from . import build
+
+# the walk's table of (chunk, candidate) slots (csrc/trace_pack.cu
+# kWalkSlots), and the longest max_len it takes
+WALK_SLOTS = 8192
+MAX_WALK_LEN = 1024
 
 launches = 0
 device_launches = 0
@@ -129,12 +137,29 @@ def next_fit_pack_plain(perm: torch.Tensor, trace_id_hi: torch.Tensor,
                                       device=dev))
 
 
+def walk_plan(n: int, max_len: int) -> tuple[int, int]:
+    """K7's walk geometry for ``n`` sorted spans: ``(chunks, W)``, chunks
+    of ``W`` spans covering ``[0, n)``, none empty, ``W >= max_len`` when
+    there are several. The first row start at or after a chunk's first
+    span lies within ``max_len`` spans of it (the chunk's candidates), and
+    the walk keeps ``max_len`` candidates a chunk in shared memory (at
+    most ``WALK_SLOTS``). ~sqrt(n / 8) chunks balance the walks inside the
+    chunks (~W / row steps, in parallel) against the one thread that
+    composes them (a step a chunk)."""
+    if n <= 0:
+        return 0, 1
+    chunks = max(1, min(math.isqrt(n // 8), n // max_len,
+                        WALK_SLOTS // max_len))
+    W = -(-n // chunks)
+    return -(-n // W), W
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("trace_pack").next_fit_pack_launch
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 10
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -185,6 +210,9 @@ def next_fit_pack(perm: torch.Tensor, trace_id_hi: torch.Tensor,
     ins = (perm, trace_id_hi, trace_id_lo, categorical, continuous)
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("next_fit_pack needs contiguous inputs")
+    if max_len > MAX_WALK_LEN:
+        raise ValueError(f"next_fit_pack on the card takes max_len <= "
+                         f"{MAX_WALK_LEN}, not {max_len}")
     N = perm.shape[0]
     C, D = categorical.shape[1], continuous.shape[1]
     L, R = max_len, rows
@@ -200,11 +228,12 @@ def next_fit_pack(perm: torch.Tensor, trace_id_hi: torch.Tensor,
     scratch = torch.empty(words + N + R + 1, dtype=torch.int32, device=dev)
     base = scratch.data_ptr()
     count = ctypes.c_int(0)
+    chunks, W = walk_plan(n, L)
     fn = _kernel()
     with torch.cuda.device(dev):
         rc = fn(perm.data_ptr(), trace_id_hi.data_ptr(),
                 trace_id_lo.data_ptr(), categorical.data_ptr(),
-                continuous.data_ptr(), C, D, n, N, L, R, base,
+                continuous.data_ptr(), C, D, n, N, L, R, chunks, W, base,
                 base + 4 * words, base + 4 * (words + N),
                 out.rows_used.data_ptr(), out.categorical.data_ptr(),
                 out.continuous.data_ptr(), out.segments.data_ptr(),

@@ -28,16 +28,26 @@ and the log-sum-exp are summed in another order (the kernel keeps an
 online log-sum-exp and never writes the logits), so ``err`` agrees to
 summation-order noise.
 
-A CUDA tensor launches ``csrc/recon_ce.cu`` (masked positions skipped;
-``d`` in 32, 64, 128, 256) or raises; a CPU tensor takes
-:func:`recon_ce_plain`. ``launches`` counts the calls that launched.
+A CUDA tensor launches ``csrc/recon_ce.cu`` or raises; a CPU tensor takes
+:func:`recon_ce_plain`. The kernel goes by the working type
+(:func:`kernel_route`): bf16, the served type, runs the service and name
+heads on tensor cores (two launches: compact the real positions, then a
+persistent scoring kernel), which needs each head weight split into three
+bf16 planes, ``W = W_hi + W_mid + W_lo`` exactly (:func:`head_planes`;
+dec_ln's output is a bf16 value there, so each plane's products are exact
+in f32); the caller passes them in ``planes`` (the autoencoder caches them
+per weight tree), else they are made for the call. f32 (the parity path)
+runs the CUDA-core kernel. Neither falls back to the other. ``d`` is 32,
+64, 128 or 256, the kind head at most ``MAX_KIND`` wide on the bf16 route.
+``launches`` counts the calls that launched, ``tc_launches`` those on the
+tensor-core kernel, ``device_launches`` the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -47,13 +57,32 @@ from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
 WIDTHS = (32, 64, 128, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel's geometry (csrc/recon_ce.cu): columns each tensor-core
+# head pads to, the kind head's width, positions a tile, the slices a tile
+# may split into, and room for split tiles' partials per SM
+PLANE_PAD = 64
+MAX_KIND = 16
+TILE = 128
+MAX_SLICES = 16
+PART_ITEMS_PER_SM = 8
 
 launches = 0
+tc_launches = 0
+device_launches = 0
 _count_lock = threading.Lock()
-_fn = None
+_fns: dict = {}
+_sms: dict = {}  # device index -> multiprocessors
 
 Heads = Sequence[tuple[torch.Tensor, torch.Tensor]]
+
+
+class HeadPlanes(NamedTuple):
+    """The service and name heads as the tensor-core kernel reads them."""
+    w: torch.Tensor  # (3, V_tc, d) bf16: W_hi, W_mid, W_lo of the rows
+    b: torch.Tensor  # (V_tc,) f32, -inf at the padding rows
+    vs_pad: int      # service rows, padded: name rows start here
+    v_s: int         # the real widths
+    v_n: int
 
 
 def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
@@ -91,20 +120,103 @@ def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
     return err, scores
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("recon_ce").recon_ce_launch
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_float] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4)
+def head_planes(heads: Heads) -> HeadPlanes:
+    """The service and name heads (``heads[0]``, ``heads[1]``) split into
+    three bf16 planes: ``W_hi = bf16(W)``, ``W_mid = bf16(W - W_hi)``,
+    ``W_lo = W - W_hi - W_mid`` (8 + 8 + 8 significant bits), each head's
+    rows padded with zeros to a multiple of ``PLANE_PAD`` (bias -inf
+    there). Raises if the planes do not sum to ``W`` bit for bit: a value
+    outside the split's range (beyond bf16's largest, below ~2^-110, or
+    not finite)."""
+    ws, bs, pads = [], [], []
+    with torch.no_grad():
+        for w, b in heads[:2]:
+            V, d = w.shape
+            pad = -(-V // PLANE_PAD) * PLANE_PAD
+            wp = torch.zeros((pad, d), dtype=torch.float32, device=w.device)
+            wp[:V] = w
+            bp = torch.full((pad,), float("-inf"), dtype=torch.float32,
+                            device=w.device)
+            bp[:V] = b
+            ws.append(wp)
+            bs.append(bp)
+            pads.append(pad)
+        W = torch.cat(ws)
+        hi = W.to(torch.bfloat16)
+        r = W - hi.float()
+        mid = r.to(torch.bfloat16)
+        lo = (r - mid.float()).to(torch.bfloat16)
+        if not torch.equal((hi.float() + mid.float()) + lo.float(), W):
+            raise ValueError("head weights outside the three-plane split's "
+                             "range (not finite, beyond bf16's largest or "
+                             "below ~2^-110): the tensor-core kernel would "
+                             "not compute f32 logits")
+        return HeadPlanes(torch.stack([hi, mid, lo]).contiguous(),
+                          torch.cat(bs), pads[0], heads[0][0].shape[0],
+                          heads[1][0].shape[0])
+
+
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA tensor of this working type takes: ``"tc"`` (bf16,
+    tensor cores) or ``"cuda_core"`` (f32)."""
+    return "tc" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def tc_slices(count: int, d: int, v_tc: int, grid: int,
+              part_items: int) -> int:
+    """The slices S the bf16 kernel splits each tile of ``TILE`` real
+    positions into (``plan_slices`` in csrc/recon_ce.cu, which the card
+    computes from its own count; ``grid``: its persistent CTAs, one an
+    SM): the fewest rounds of items over the grid, an item costing its
+    columns plus ~1.5 ring stages, split tiles within the partials'
+    room."""
+    nt = 64 if d <= 128 else 32
+    tiles, vt = -(-count // TILE), v_tc // nt
+    best, best_cost = 1, None
+    for s in range(1, min(vt, MAX_SLICES) + 1):
+        if s > 1 and tiles * s > part_items:
+            break
+        cost = -(-tiles * s // grid) * (4 * -(-vt // s) + 6)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _kernel(name: str):
+    """The launcher ``name`` (``recon_ce_f32_launch`` or
+    ``recon_ce_tc_launch``) of the built library."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load("recon_ce"), name)
+        if name == "recon_ce_f32_launch":
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                           + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_int, ctypes.c_void_p]
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4)
+        else:
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                            ctypes.c_void_p, ctypes.c_void_p]
+                           + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_int, ctypes.c_void_p]
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7
+                           + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
@@ -152,11 +264,12 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
              continuous: torch.Tensor, mask: torch.Tensor,
              loss_weights: Sequence[float],
              span_map: Optional[torch.Tensor] = None, n_out: int = 0,
-             eps: float = LN_EPS):
+             eps: float = LN_EPS, planes: Optional[HeadPlanes] = None):
     """``(M,)`` f32 errors, and with ``span_map`` also the ``(n_out,)``
-    squashed scores by span; see the module docstring. Nothing is
-    synchronised."""
-    global launches
+    squashed scores by span; see the module docstring. ``planes``: the
+    bf16 kernel's :func:`head_planes` of ``heads`` (made here when None).
+    Nothing is synchronised."""
+    global launches, tc_launches, device_launches
     n_out = int(n_out)
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
            loss_weights, span_map, n_out)
@@ -167,7 +280,7 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                               n_out, eps)
     if dev.type != "cuda":
         raise ValueError(f"recon_ce runs on cuda or cpu, not {dev}")
-    if dec.dtype not in _DTYPE_CODES:
+    if dec.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dec must be float32 or bfloat16, not {dec.dtype}")
     params = (ln_weight, ln_bias, *(t for pair in heads for t in pair))
     if any(t.dtype != torch.float32 for t in params):
@@ -179,31 +292,81 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
         (span_map,) if span_map is not None else ())
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("recon_ce needs contiguous inputs")
-    if any(w.data_ptr() % 16 for w, _ in heads):
+    tc = kernel_route(dec.dtype) == "tc"
+    if tc:
+        if heads[2][0].shape[0] > MAX_KIND:
+            raise ValueError(f"the bf16 kernel takes a kind head of at most "
+                             f"{MAX_KIND} outputs")
+        if M >= 2 ** 31:
+            raise ValueError(f"the bf16 kernel takes M < 2^31, not {M}")
+        if dec.data_ptr() % 16 or any(w.data_ptr() % 16
+                                      for w, _ in heads[2:]):
+            raise ValueError("recon_ce needs a 16-byte aligned dec and kind "
+                             "and duration weights")
+        planes = head_planes(heads) if planes is None else planes
+        v_tc = planes.w.shape[1]
+        if (planes.w.shape != (3, v_tc, d) or planes.w.dtype != torch.bfloat16
+                or planes.b.shape != (v_tc,)
+                or planes.b.dtype != torch.float32
+                or (planes.v_s, planes.v_n) != (heads[0][0].shape[0],
+                                                heads[1][0].shape[0])
+                or planes.vs_pad % PLANE_PAD or v_tc % PLANE_PAD
+                or not planes.w.is_contiguous() or planes.w.data_ptr() % 16
+                or not planes.b.is_contiguous() or planes.b.data_ptr() % 16
+                or {planes.w.device, planes.b.device} != {dev}):
+            raise ValueError("planes are not head_planes(heads) on the "
+                             "inputs' device")
+    elif any(w.data_ptr() % 16 for w, _ in heads):
         raise ValueError("recon_ce needs 16-byte aligned head weights")
     err = torch.empty(M, dtype=torch.float32, device=dev)
     scores = None
     if span_map is not None:
         scores = torch.zeros(n_out, dtype=torch.float32, device=dev)
     if M > 0:
-        fn = _kernel()
         (w0, b0), (w1, b1), (w2, b2), (w3, b3) = heads
         w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
+        smap = None if span_map is None else span_map.data_ptr()
+        out = None if scores is None else scores.data_ptr()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        count = ctypes.c_int(1)  # the f32 kernel's; the bf16 launcher's own
         with torch.cuda.device(dev):
-            rc = fn(dec.data_ptr(), _DTYPE_CODES[dec.dtype], M, d,
-                    ln_weight.data_ptr(), ln_bias.data_ptr(), eps,
-                    w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                    w3.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-                    b2.data_ptr(), b3.data_ptr(), w0.shape[0], w1.shape[0],
-                    w2.shape[0], w3.shape[0], categorical.data_ptr(),
+            if tc:
+                sms = _sm_count(dev)
+                part_items = PART_ITEMS_PER_SM * sms
+                lst = torch.empty(M, dtype=torch.int32, device=dev)
+                stats = torch.empty(2 * M, dtype=torch.float32, device=dev)
+                # the count and each split tile's finished slices, zeroed
+                zeros = torch.zeros(2 + part_items // 2, dtype=torch.int32,
+                                    device=dev)
+                part = torch.empty(part_items * 6 * TILE,
+                                   dtype=torch.float32, device=dev)
+                rc = _kernel("recon_ce_tc_launch")(
+                    dec.data_ptr(), M, d, ln_weight.data_ptr(),
+                    ln_bias.data_ptr(), eps, planes.w.data_ptr(),
+                    planes.b.data_ptr(), planes.vs_pad, v_tc, planes.v_s,
+                    planes.v_n, w2.data_ptr(), b2.data_ptr(), w2.shape[0],
+                    w3.data_ptr(), b3.data_ptr(), categorical.data_ptr(),
                     categorical.shape[1], continuous.data_ptr(),
                     continuous.shape[1], mask.data_ptr(), w_s, w_n, w_k, w_d,
-                    err.data_ptr(),
-                    None if span_map is None else span_map.data_ptr(),
-                    None if scores is None else scores.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    err.data_ptr(), smap, out, lst.data_ptr(),
+                    stats.data_ptr(), zeros.data_ptr(), part.data_ptr(),
+                    part.numel(),
+                    zeros.data_ptr() + 4, sms, ctypes.byref(count), stream)
+            else:
+                rc = _kernel("recon_ce_f32_launch")(
+                    dec.data_ptr(), M, d, ln_weight.data_ptr(),
+                    ln_bias.data_ptr(), eps, w0.data_ptr(), w1.data_ptr(),
+                    w2.data_ptr(), w3.data_ptr(), b0.data_ptr(),
+                    b1.data_ptr(), b2.data_ptr(), b3.data_ptr(), w0.shape[0],
+                    w1.shape[0], w2.shape[0], w3.shape[0],
+                    categorical.data_ptr(), categorical.shape[1],
+                    continuous.data_ptr(), continuous.shape[1],
+                    mask.data_ptr(), w_s, w_n, w_k, w_d, err.data_ptr(),
+                    smap, out, stream)
         if rc != 0:
             raise RuntimeError(f"recon_ce launch failed: CUDA error {rc}")
         with _count_lock:
             launches += 1
+            tc_launches += int(tc)
+            device_launches += count.value
     return err if span_map is None else (err, scores)

@@ -54,7 +54,8 @@ from torch import nn
 from ..kernels.dense import gemm_bf16, gemm_bf16_plain
 from ..kernels.embed import KIND_VOCAB
 from ..kernels.pool import ln_masked_pool, ln_masked_pool_plain
-from ..kernels.recon import recon_ce, recon_ce_plain
+from ..kernels.recon import (HeadPlanes, head_planes, recon_ce,
+                             recon_ce_plain)
 from ..utils.device import resolve_device
 from .layers import Encoder, LayerNorm, init_parameters
 from .transformer import _as_tensor, load_module_state
@@ -97,6 +98,7 @@ class _AutoencoderModule(nn.Module):
         self.name_head = nn.Linear(c.d_model, c.name_vocab)
         self.kind_head = nn.Linear(c.d_model, KIND_VOCAB)
         self.duration_head = nn.Linear(c.d_model, 1)
+        self._planes: tuple = ((), (), None)  # key, held, planes
 
     def dense_layers(self) -> list[nn.Linear]:
         """The decoder's products in the working type."""
@@ -109,6 +111,25 @@ class _AutoencoderModule(nn.Module):
         return [(h.weight, h.bias) for h in (
             self.service_head, self.name_head, self.kind_head,
             self.duration_head)]
+
+    def head_planes(self) -> HeadPlanes:
+        """K11's three bf16 planes of the service and name heads
+        (``kernels.recon.head_planes``), cached as the blocks' QKV weight
+        is: under the four tensors' addresses, types and version counters,
+        so a ``load_state_dict``, an in-place copy or a move rebuilds them;
+        parameters made under ``inference_mode`` count no versions and are
+        split anew on every call."""
+        parts = [t for h in (self.service_head, self.name_head)
+                 for t in (h.weight, h.bias)]
+        key = None if any(t.is_inference() for t in parts) else tuple(
+            (t.data_ptr(), t._version, t.dtype, t.device) for t in parts)
+        if key is None or key != self._planes[0]:
+            # plain tensors even under inference_mode: usable outside it
+            with torch.inference_mode(False), torch.no_grad():
+                held = tuple(t.detach() for t in parts)
+                planes = head_planes([held[:2], held[2:]])
+            self._planes = (key, held, planes)
+        return self._planes[2]
 
 
 class SpanAutoencoder:
@@ -188,12 +209,17 @@ class SpanAutoencoder:
         T, L = mask.shape
         dec = self._decode(cat, cont, mask, reference)
         ln = self.module.dec_ln
-        recon = recon_ce_plain if reference else recon_ce
-        return recon(dec, ln.weight, ln.bias, self.module.heads(),
-                     cat.reshape(T * L, -1), cont.reshape(T * L, -1),
-                     mask.reshape(T * L),
-                     (c.w_service, c.w_name, c.w_kind, c.w_duration),
-                     span_map=span_map, n_out=n_out, eps=ln.eps)
+        args = (dec, ln.weight, ln.bias, self.module.heads(),
+                cat.reshape(T * L, -1), cont.reshape(T * L, -1),
+                mask.reshape(T * L),
+                (c.w_service, c.w_name, c.w_kind, c.w_duration))
+        if reference:
+            return recon_ce_plain(*args, span_map=span_map, n_out=n_out,
+                                  eps=ln.eps)
+        planes = (self.module.head_planes()
+                  if dec.is_cuda and dec.dtype == torch.bfloat16 else None)
+        return recon_ce(*args, span_map=span_map, n_out=n_out, eps=ln.eps,
+                        planes=planes)
 
     @torch.inference_mode()
     def span_errors(self, categorical: Any, continuous: Any, mask: Any,

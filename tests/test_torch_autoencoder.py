@@ -63,6 +63,7 @@ from odigos_tpu_torch.kernels import pack as kpack
 from odigos_tpu_torch.kernels import pool as kpool
 from odigos_tpu_torch.kernels import recon as krecon
 from odigos_tpu_torch.kernels import sort as ksort
+from odigos_tpu_torch.kernels.quant import layer_norm_plain
 from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
                                      flax_autoencoder_to_torch)
 from odigos_tpu_torch.pdata import concat_batches
@@ -78,6 +79,7 @@ torch.set_num_threads(1)
 F32_TOL = 1e-5
 BF16_ATOL = 2e-2
 BF16_ERR_RTOL = 1e-2
+RECON_ATOL = 1e-4   # K11 on the card vs its plain version (chip_smoke.py)
 FUSED_RTOL = 2e-5   # tests/test_fused.py: the reference's own bound
 FUSED_ATOL = 1e-6
 SEEDS = (0, 1, 2)
@@ -376,6 +378,12 @@ def _jax_errors(v, cfg, dec, cat, cont, mask):
     p = v["params"]
     y = _jax_layer_norm(dec, p["dec_ln"]["scale"], p["dec_ln"]["bias"],
                         cfg.dtype)
+    return _jax_head_errors(v, cfg, y, cat, cont, mask)
+
+
+def _jax_head_errors(v, cfg, y, cat, cont, mask):
+    """The reference's four heads and ``_ce`` on ``dec_ln``'s output y."""
+    p = v["params"]
     out = {}
     for name, V in (("service", cfg.service_vocab),
                     ("name", cfg.name_vocab), ("kind", 8),
@@ -421,6 +429,153 @@ def test_recon_ce_plain_matches_the_reference_errors(f32):
         assert (np.abs(got[m] - ref[m]) / np.abs(ref[m])).max() \
             <= BF16_ERR_RTOL
     assert (got[~seqs.mask] == 0).all()
+
+
+# ---- K11's bf16 kernel: the premises of its three-plane split
+
+def _split_product_errors(y, heads, planes, cat, cont, weights):
+    """The bf16 kernel's arithmetic in plain torch, on the real positions'
+    LayerNorm output y (bf16 values): the service and name logits as y
+    times each of the three bf16 planes, in f32, summed, plus the bias;
+    the kind and duration heads as f32 products; each cross-entropy as
+    log-sum-exp minus the label's logit; the error in the reference's
+    order."""
+    yf = y.float()
+    z = sum(yf @ planes.w[p].float().T for p in range(3)) + planes.b
+    logits = [z[:, :planes.v_s],
+              z[:, planes.vs_pad:planes.vs_pad + planes.v_n],
+              torch.nn.functional.linear(yf, *heads[2]),
+              torch.nn.functional.linear(yf, *heads[3])]
+    lab = cat.long()
+
+    def ce(h):
+        lg = logits[h]
+        return (torch.logsumexp(lg, 1)
+                - lg.gather(1, lab[:, h:h + 1].clamp(0, lg.shape[1] - 1))[
+                    :, 0])
+
+    e = weights[0] * ce(0)
+    e = e + weights[1] * ce(1)
+    e = e + weights[2] * ce(2)
+    return e + weights[3] * (logits[3][:, 0] - cont[:, 0]) ** 2
+
+
+def _assert_planes_exact(w, planes, v0):
+    """The planes are bf16 and sum to w bit for bit (f64 sums, exact for
+    three bf16 values)."""
+    assert planes.w.dtype == torch.bfloat16
+    got = planes.w.double().sum(0)[v0:v0 + w.shape[0]]
+    assert torch.equal(got, w.double())
+
+
+@pytest.mark.parametrize("weights", ["default", "random"])
+def test_k11_head_planes_sum_to_the_weights_bit_for_bit(weights):
+    """W_hi + W_mid + W_lo == W for the default autoencoder's heads and for
+    f32 weights spread over 1e-30 ... 1e30 (signs, zeros, powers of two,
+    values one f32 step off a bf16 value); each head padded to a multiple
+    of 64 rows with zero planes and a -inf bias."""
+    if weights == "default":
+        heads = SpanAutoencoder(AutoencoderConfig(), device="cpu",
+                                seed=0).module.heads()
+    else:
+        rng = np.random.default_rng(11)
+        heads = []
+        for V, d in ((300, 128), (700, 128), (8, 128), (1, 128)):
+            w = (rng.standard_normal((V, d))
+                 * 10.0 ** rng.uniform(-30, 30, (V, d))).astype(np.float32)
+            w[0, :4] = [0.0, -0.0, 2.0 ** -100, -(2.0 ** 100)]
+            w[-1, :2] = np.nextafter(np.float32([1.0, -3.0]),
+                                     np.float32(np.inf))
+            heads.append((torch.from_numpy(w),
+                          torch.from_numpy(rng.standard_normal(V).astype(
+                              np.float32))))
+    planes = krecon.head_planes(heads)
+    (ws, bs), (wn, bn) = heads[:2]
+    pad_s = -(-ws.shape[0] // krecon.PLANE_PAD) * krecon.PLANE_PAD
+    pad_n = -(-wn.shape[0] // krecon.PLANE_PAD) * krecon.PLANE_PAD
+    assert planes.w.shape == (3, pad_s + pad_n, ws.shape[1])
+    assert (planes.vs_pad, planes.v_s, planes.v_n) == (
+        pad_s, ws.shape[0], wn.shape[0])
+    _assert_planes_exact(ws, planes, 0)
+    _assert_planes_exact(wn, planes, pad_s)
+    pad = torch.ones(pad_s + pad_n, dtype=torch.bool)
+    pad[:ws.shape[0]] = False
+    pad[pad_s:pad_s + wn.shape[0]] = False
+    assert (planes.w[:, pad] == 0).all()
+    assert torch.isinf(planes.b[pad]).all() and (planes.b[pad] < 0).all()
+    assert torch.equal(planes.b[~pad], torch.cat([bs, bn]))
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan"), 3.3999e38,
+                                 1e-38])
+def test_k11_head_planes_refuse_weights_outside_the_split(bad):
+    """A weight the three planes cannot hold (not finite, rounding to inf
+    in bf16, or with bits below the planes' reach) raises: the tensor-core
+    kernel would not compute f32 logits."""
+    w = torch.randn(64, 32)
+    w[3, 5] = bad * (1 + 2 ** -20)
+    heads = [(w, torch.zeros(64)), (torch.randn(64, 32), torch.zeros(64)),
+             (torch.randn(8, 32), torch.zeros(8)),
+             (torch.randn(1, 32), torch.zeros(1))]
+    with pytest.raises(ValueError, match="three-plane"):
+        krecon.head_planes(heads)
+
+
+@pytest.mark.parametrize("seed", [8, 12])
+def test_k11_split_product_matches_plain_and_reference(seed):
+    """The three-plane split product on bf16 LayerNorm outputs is within
+    RECON_ATOL (the kernel's bound on the card) of recon_ce_plain on the
+    port's own LN output, and of the reference's heads and _ce on the
+    reference's own bf16 LN output."""
+    jm, v, pm = _pair(SMALL, f32=False, seed=seed)
+    seqs = _seqs(seed, SMALL["max_len"], pad=16)
+    T, L = seqs.mask.shape
+    rng = np.random.default_rng(seed)
+    dec = (rng.normal(0, 1, (T, L, SMALL["d_model"])) * 2 + 0.5).astype(
+        np.float32)
+    args = _recon_args(pm, dec, seqs)
+    m = pm.module
+    planes = m.head_planes()
+    assert planes is m.head_planes()  # cached on the module
+    mask = args[6]
+    real = torch.nonzero(mask).flatten()
+    wts = args[7]
+    cat, cont = args[4][real], args[5][real]
+    with torch.inference_mode():
+        plain = krecon.recon_ce_plain(*args)[real]
+        y = layer_norm_plain(args[0][real], m.dec_ln.weight, m.dec_ln.bias)
+        got = _split_product_errors(y, m.heads(), planes, cat, cont, wts)
+    assert y.dtype == torch.bfloat16
+    assert (got - plain).abs().max().item() <= RECON_ATOL
+    # the reference's LN output, the same split product
+    p = v["params"]
+    jy = _jax_layer_norm(jnp.asarray(dec).astype(jnp.bfloat16),
+                         p["dec_ln"]["scale"], p["dec_ln"]["bias"],
+                         jnp.bfloat16)
+    ref = _jax_head_errors(v, jm.cfg, jy, seqs.categorical,
+                           seqs.continuous, seqs.mask).reshape(-1)[
+        real.numpy()]
+    ty = torch.from_numpy(np.array(jy.astype(jnp.float32))).reshape(
+        T * L, -1)[real].to(torch.bfloat16)
+    with torch.inference_mode():
+        got_j = _split_product_errors(ty, m.heads(), planes, cat, cont, wts)
+    assert np.abs(got_j.numpy() - ref).max() <= RECON_ATOL
+
+
+def test_k11_head_planes_cache_follows_the_weights():
+    """The module's planes are rebuilt when a head changes (an in-place
+    copy, a load_state_dict), never per call otherwise."""
+    pm = SpanAutoencoder(AutoencoderConfig(**SMALL), device="cpu", seed=3)
+    m = pm.module
+    first = m.head_planes()
+    assert m.head_planes() is first
+    with torch.no_grad():
+        m.name_head.weight.mul_(2)
+    second = m.head_planes()
+    assert second is not first
+    _assert_planes_exact(m.name_head.weight, second, second.vs_pad)
+    pm.load_state_dict({k: v.clone() for k, v in pm.state_dict().items()})
+    assert m.head_planes() is not second
 
 
 def test_recon_ce_scatter_mode_writes_squashed_scores_by_span():

@@ -443,6 +443,20 @@ def _fused_batches(kind: str, n_traces: int):
         return [synthesize_traces(n_traces, seed=61)]
     if kind == "adversarial":
         return [adversarial_traces(n_traces, seed=62)]
+    if kind == "huge":  # a trace of 5000 spans: past the layout's probes
+        return [adversarial_traces(n_traces, seed=66, long_trace=5000)]
+    if kind == "long":  # eight traces under one id: ~80 spans each
+        from dataclasses import replace
+
+        b = synthesize_traces(n_traces, seed=65)
+        cols = dict(b.columns)
+        _, first, tr = np.unique(np.stack([cols["trace_id_hi"],
+                                           cols["trace_id_lo"]], 1), axis=0,
+                                 return_index=True, return_inverse=True)
+        lead = first[tr.reshape(-1) // 8 * 8]
+        for name in ("trace_id_hi", "trace_id_lo"):
+            cols[name] = cols[name][lead]
+        return [replace(b, columns=cols)]
     # three frames, the first and last the same traces
     a = synthesize_traces(n_traces, seed=63)
     return [a, adversarial_traces(n_traces, seed=64), a]
@@ -555,6 +569,37 @@ def test_next_fit_pack_kernel_matches_plain(dev, kind, n_traces, L,
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert 0 < int(got.rows_used) <= R
+
+
+@pytest.mark.parametrize("kind,n_traces", [("otel", 12800),
+                                           ("adversarial", 4000),
+                                           ("long", 12000),
+                                           ("huge", 4000)])
+@pytest.mark.parametrize("L", [1, 8, 64])
+@pytest.mark.parametrize("rows", ["bound", "half"])
+def test_next_fit_pack_kernel_walks_many_chunks(dev, kind, n_traces, L,
+                                                rows):
+    """The walk's chunks at their smallest rows (L = 1: every span its own
+    segment and row) and largest counts (L = 8), traces longer than L and
+    than the layout's 1,056-span probes (a trace of 5000), and half the
+    rows next-fit fills (the rest dropped)."""
+    n, svc_t, nam_t, c = _staged_on(dev, _fused_batches(kind, n_traces))
+    cat, cont = kfeat.featurize_columns_plain(
+        *_feat_args((svc_t, nam_t), c), n)
+    perm = ksort.radix_sort_plain(
+        [c["trace_id_hi"], c["trace_id_lo"], c["start_unix_nano"]], n)
+    full = kpack.next_fit_pack_plain(perm, c["trace_id_hi"],
+                                     c["trace_id_lo"], cat, cont, n, L, 0)
+    used = int(full.rows_used)
+    R = used if rows == "bound" else used // 2
+    got = kpack.next_fit_pack(perm, c["trace_id_hi"], c["trace_id_lo"], cat,
+                              cont, n, L, R)
+    ref = kpack.next_fit_pack_plain(perm, c["trace_id_hi"],
+                                    c["trace_id_lo"], cat, cont, n, L, R)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got.rows_used) == used
 
 
 def test_next_fit_pack_kernel_empty_group(dev):
@@ -981,8 +1026,11 @@ def _heads(dev, d, vocabs=(512, 2048, 8, 1), seed=0):
                                       (32, (64, 64, 8, 1)),
                                       (256, (100, 300, 8, 1))])
 @pytest.mark.parametrize("M,density", [(1, 1.0), (4096, 0.16),
-                                       (20000, 0.9)])
+                                       (20000, 0.9), (300000, 0.5)])
 def test_recon_ce_kernel_matches_plain(dev, dtype, d, vocabs, M, density):
+    """Both kernels (bf16: tensor cores, tiles split into vocabulary slices
+    at the smaller M and whole at M = 300000; f32: CUDA cores) against
+    the plain version."""
     x, mask = _masked_rows(dev, M, 1, d, dtype, density, seed=M + d)
     x, mask = x.view(M, d), mask.view(M)
     g = torch.Generator(device=dev).manual_seed(M)
@@ -999,12 +1047,14 @@ def test_recon_ce_kernel_matches_plain(dev, dtype, d, vocabs, M, density):
     smap = torch.randperm(M, generator=g, device=dev).to(torch.int32)
     smap[::5] = -1
     args = (x, w, b, heads, cat, cont, mask, weights)
-    before = krecon.launches
+    before = krecon.launches, krecon.tc_launches
     got = krecon.recon_ce(*args)
     got_e, got_s = krecon.recon_ce(*args, span_map=smap, n_out=M + 3)
     ref_e, ref_s = krecon.recon_ce_plain(*args, span_map=smap, n_out=M + 3)
     torch.cuda.synchronize()
-    assert krecon.launches == before + 2
+    tc = 2 if dtype == "bfloat16" else 0
+    assert (krecon.launches, krecon.tc_launches) == (before[0] + 2,
+                                                     before[1] + tc)
     assert torch.isfinite(got).all()
     assert torch.equal(got, got_e)
     assert (got - ref_e).abs().max().item() <= RECON_ATOL
@@ -1013,12 +1063,48 @@ def test_recon_ce_kernel_matches_plain(dev, dtype, d, vocabs, M, density):
     assert (got_s[M:] == 0).all()
 
 
+def test_recon_ce_bf16_planes_from_the_model_cache(dev):
+    """The autoencoder's cached planes give the kernel the same errors as
+    planes made for the call, and as the CPU's split of the same heads;
+    planes of other heads, and a kind head wider than MAX_KIND, are
+    refused."""
+    model = SpanAutoencoder(AutoencoderConfig(), device=dev, seed=2)
+    m = model.module
+    heads = m.heads()
+    planes = m.head_planes()
+    assert m.head_planes() is planes
+    cpu = krecon.head_planes([(w.cpu(), b.cpu()) for w, b in heads])
+    assert torch.equal(planes.w.cpu(), cpu.w)
+    assert torch.equal(planes.b.cpu(), cpu.b)
+    M, d = 5000, 128
+    x, mask = _masked_rows(dev, M, 1, d, "bfloat16", 0.3, seed=4)
+    x, mask = x.view(M, d), mask.view(M)
+    g = torch.Generator(device=dev).manual_seed(4)
+    cat = torch.stack([torch.randint(0, V, (M,), generator=g, device=dev)
+                       for V in (512, 2048, 8)], 1).to(torch.int32)
+    cont = torch.rand(M, 1, generator=g, device=dev) * 10
+    args = (x, m.dec_ln.weight, m.dec_ln.bias, heads, cat, cont, mask,
+            (1.0, 1.0, 0.5, 1.0))
+    a = krecon.recon_ce(*args, planes=planes)
+    b = krecon.recon_ce(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    other = krecon.head_planes(_heads(dev, d, (512, 1024, 8, 1)))
+    with pytest.raises(ValueError, match="planes"):
+        krecon.recon_ce(*args, planes=other)
+    wide = list(heads)
+    wide[2] = (torch.randn(20, d, device=dev), torch.zeros(20, device=dev))
+    with pytest.raises(ValueError, match="kind head"):
+        krecon.recon_ce(*args[:3], wide, *args[4:])
+
+
 @pytest.mark.parametrize("kind,n_traces,L", [("otel", 1, 64),
                                              ("otel", 400, 64),
                                              ("adversarial", 400, 64),
                                              ("adversarial", 400, 16),
                                              ("multi", 200, 64),
-                                             ("otel", 12800, 64)])
+                                             ("otel", 12800, 64),
+                                             ("huge", 4000, 64)])
 @pytest.mark.parametrize("rows", ["bucket", "traces", "fewer"])
 def test_trace_rows_pack_kernel_matches_plain(dev, kind, n_traces, L, rows):
     """One trace per row: real frames, a trace of 200 spans (truncated at

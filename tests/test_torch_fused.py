@@ -412,6 +412,152 @@ def test_k6_model_matches_lexsort_on_the_adversarial_frame(sort, max_grid):
     np.testing.assert_array_equal(plain.numpy(), got)
 
 
+def _k7_walk_model(seg_start: np.ndarray, L: int, chunks: int, W: int):
+    """K7's walk on the host: the row starts as the orbit of span 0 under
+    nxt(p) (the highest segment start in (p, p + L]), found by chunks of W
+    spans. (1) From each of a chunk's candidates (the segment starts in its
+    first L spans) walk to the first start past the chunk: its candidate
+    index in the next chunk (or the end, or a broken layout) and the rows
+    started inside; (2) compose the chunks' tables from span 0; (3) walk
+    each chunk again from its true entry. Returns the row starts and the
+    rows used (-1 on a broken layout)."""
+    n = len(seg_start)
+    starts = np.flatnonzero(seg_start)
+    END, BROKEN = -1, -2
+
+    def nxt(p):
+        i = np.searchsorted(starts, p + L, side="right") - 1
+        return int(starts[i]) if i >= 0 and starts[i] > p else -1
+
+    def candidates(c):
+        lo = c * W
+        return starts[(starts >= lo) & (starts < min(lo + L, n))]
+
+    tab = {}
+    for c in range(chunks):
+        end = c * W + W
+        for k, p in enumerate(candidates(c).tolist()):
+            rows = 0
+            while True:
+                rows += 1
+                if p + L >= n:
+                    out = END
+                    break
+                b = nxt(p)
+                if b < 0:
+                    out = BROKEN
+                    break
+                p = b
+                if p >= end:
+                    out = int(((starts >= end) & (starts <= p)).sum()) - 1
+                    break
+            tab[c, k] = (out, rows)
+    k, r, entry, base = 0, 0, [], []
+    for c in range(chunks):
+        entry.append(k)
+        base.append(r)
+        if k >= 0:
+            out, rows = tab[c, k]
+            r += rows
+            k = out
+    rows_used = -1 if k == BROKEN else r
+    rs: list[int] = []
+    for c in range(chunks):
+        if entry[c] < 0:
+            continue
+        assert base[c] == len(rs)
+        end, p = c * W + W, int(candidates(c)[entry[c]])
+        while True:
+            rs.append(p)
+            if p + L >= n:
+                break
+            b = nxt(p)
+            if b < 0 or b >= end:
+                break
+            p = b
+    return np.asarray(rs, np.int64), rows_used
+
+
+def _k7_frame(kind: str, seed: int):
+    """A frame's trace ids, starts and row count: the otel mix, the
+    adversarial frame, or traces longer than L (six otel traces merged
+    into one, ~60 spans)."""
+    if kind == "adversarial":
+        cols = adversarial_traces(300, seed=seed).columns
+    else:
+        cols = psynth(300, seed=seed).columns
+    hi, lo = cols["trace_id_hi"], cols["trace_id_lo"]
+    if kind == "long":
+        _, tr = np.unique(np.stack([hi, lo], 1), axis=0, return_inverse=True)
+        tr = tr.reshape(-1) // 6
+        hi, lo = (tr + 1).astype(np.uint64), np.zeros_like(lo)
+    return hi, lo, cols["start_unix_nano"]
+
+
+K7_GEOMETRY = ["plan", "W=L", "W=2L+3", "W=5L"]
+
+
+@pytest.mark.parametrize("geometry", K7_GEOMETRY)
+@pytest.mark.parametrize("L", [8, 16, 64])
+@pytest.mark.parametrize("kind,seed", [("otel", 1), ("otel", 2),
+                                       ("adversarial", 3),
+                                       ("adversarial", 4), ("long", 5),
+                                       ("long", 6)])
+def test_k7_walk_model_matches_pack_arrays_rows(kind, seed, L, geometry):
+    """K7's chunked walk, run on the host, gives the host packer's rows:
+    each row's first span (in trace order) and the row count, with the
+    walk's own plan and with chunks as short as L (every chunk boundary a
+    candidate window)."""
+    from odigos_tpu_torch.features.featurizer import pack_arrays
+
+    hi, lo, start = _k7_frame(kind, seed)
+    n = len(hi)
+    pk = pack_arrays(hi, lo, start, np.zeros((n, 1), np.int32),
+                     np.zeros((n, 1), np.float32), max_len=L)
+    order = np.lexsort((start, lo, hi))
+    sorted_at = np.empty(n, np.int64)
+    sorted_at[order] = np.arange(n)
+    want = sorted_at[pk.span_index[:, 0]]
+    # the layout's segment starts: a position in the trace that is a
+    # multiple of L
+    hs, ls = hi[order], lo[order]
+    new = np.ones(n, bool)
+    new[1:] = (hs[1:] != hs[:-1]) | (ls[1:] != ls[:-1])
+    idx = np.arange(n)
+    first = np.maximum.accumulate(np.where(new, idx, 0))
+    seg_start = (idx - first) % L == 0
+    if kind == "long":
+        assert (np.bincount(np.cumsum(new) - 1) > L).any()
+    if geometry == "plan":
+        chunks, W = kpack.walk_plan(n, L)
+    else:
+        W = {"W=L": L, "W=2L+3": 2 * L + 3, "W=5L": 5 * L}[geometry]
+        chunks = -(-n // W)
+    assert chunks * W >= n and (chunks == 1 or W >= L)
+    rs, rows_used = _k7_walk_model(seg_start, L, chunks, W)
+    assert rows_used == len(want) == len(rs)
+    np.testing.assert_array_equal(rs, want)
+
+
+def test_k7_walk_model_reports_a_broken_layout():
+    """No segment start within L spans of a row start (a layout that
+    cannot come from traces): rows_used is -1, as the walk signals it."""
+    seg = np.zeros(40, bool)
+    seg[[0, 5, 30]] = True
+    for chunks, W in ((1, 40), (5, 8)):
+        assert _k7_walk_model(seg, 8, chunks, W)[1] == -1
+
+
+@pytest.mark.parametrize("n,L", [(0, 64), (1, 64), (2047, 64), (2048, 64),
+                                 (2049, 64), (63112, 64), (126509, 64),
+                                 (10 ** 6, 64), (5000, 1), (10 ** 6, 1024)])
+def test_k7_walk_plan_covers_the_spans(n, L):
+    chunks, W = kpack.walk_plan(n, L)
+    assert chunks * W >= n and chunks * L <= kpack.WALK_SLOTS
+    assert chunks == 0 if n == 0 else (chunks - 1) * W < n
+    assert chunks <= 1 or W >= L
+
+
 def test_span_head_scatter_plain_matches_the_model_path(engines):
     """K8's plain version is the port's LayerNorm → span_head → sigmoid →
     scatter: the same probabilities as ``score_packed`` at each span."""

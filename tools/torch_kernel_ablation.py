@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a port kernel's time goes, by ablation, on one GPU.
 
-    python3 tools/torch_kernel_ablation.py
+    python3 tools/torch_kernel_ablation.py [--kernels recon_ce,...]
 
 The card's profilers (Nsight) do not run everywhere the port is measured,
 so this tool answers "is it the loads, the math or the stores?" by
@@ -16,7 +16,16 @@ int8 block's QKV product and at its FFN1 + GELU + quantize step
 LN1 on the block's input; K15
 ``gemm_bf16`` at the float block's FFN1 + GELU, on the first block's own
 LN2 output; K6 ``radix_sort`` as the trace sort of the smoke run's otel
-frame at N = 65536). Times are
+frame at N = 65536; K7 ``next_fit_pack`` on that frame and at N = 131072,
+its launches and its walk's steps cut off in turn, and its launches
+without programmatic dependent launch; K11 ``recon_ce``'s
+bf16 kernel on the default autoencoder's decoder output at T = 256, 2048
+and 4096 traces (the last about a fused call's real positions): the
+compaction alone, no column tile, no LayerNorm, no plane loads, one
+plane, no products, no log-sum-exp, no barrier a column tile, no kind
+and duration dots; two CTAs an SM on 32-column stages; tiles of 256
+rows; every tile whole).
+``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
 the unchanged build is held to the plain version.
@@ -28,6 +37,7 @@ device and ``nvcc``.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -169,6 +179,104 @@ VARIANTS = {
             "for (long long t = t0; t < t1; ++t) {":
                 "for (long long t = t0; t < t0; ++t) {"},
     },
+    "next_fit_pack": {
+        # the layout kernel alone: no walk, no scatter launched
+        "layout_only": {
+            "  err = smem_mask ? cudaLaunchKernelEx(":
+                "  err = cudaSuccess;\n  if (false) err = smem_mask ? "
+                "cudaLaunchKernelEx(",
+            "  if (work > 0) {": "  if (false) {"},
+        # the layout and the walk's step 1 (every chunk's candidates walked
+        # to the next chunk): no composition, no row starts, no scatter
+        "walk_candidates": {
+            "  if (tid == 0) {\n    int k = 0, r = 0;":
+                "  if (false) {\n    int k = 0, r = 0;",
+            "  for (int c = tid; c < chunks; c += kWalkThreads) {":
+                "  for (int c = tid; c < 0; c += kWalkThreads) {",
+            "  if (work > 0) {": "  if (false) {"},
+        # the layout and the walk's steps 1 and 2: no row starts written,
+        # no scatter
+        "walk_compose": {
+            "  for (int c = tid; c < chunks; c += kWalkThreads) {":
+                "  for (int c = tid; c < 0; c += kWalkThreads) {",
+            "  if (work > 0) {": "  if (false) {"},
+        # the layout and the whole walk: no scatter launched
+        "layout_walk": {"  if (work > 0) {": "  if (false) {"},
+        # the walk and the scatter launched plainly, each after the kernel
+        # before it has ended (no programmatic dependent launch)
+        "no_pdl": {"  cfg.numAttrs = 1;": "  cfg.numAttrs = 0;"},
+    },
+    "recon_ce": {
+        # the compaction launch alone: the scoring kernel not launched
+        "compact_only": {
+            "  recon_tc_kernel<D><<<sms * per_sm, kTcThreads, "
+            "TcGeom<D>::SMEM, st>>>(a);":
+                "  if (false)\n    recon_tc_kernel<D><<<sms * per_sm, "
+                "kTcThreads, TcGeom<D>::SMEM, st>>>(a);"},
+        # no vocabulary tile: the rows' gather and LayerNorm, the ring's
+        # first stages, the kind and duration dots, the error
+        "ln_only": {"    for (int it = 0; it < nt; ++it) {":
+                    "    for (int it = 0; it < 0; ++it) {"},
+        # no LayerNorm (the raw rows stay in the A tile; the statistics
+        # are still taken in the compaction launch)
+        "no_ln": {"    // dec_ln in place from the statistics: 8 values a "
+                  "thread a step\n"
+                  "    for (int e = tid; e < kBM * (D / 8); e += "
+                  "kTcThreads) {":
+                  "    for (int e = tid; e < 0; e += kTcThreads) {"},
+        # the planes never loaded: the products on stale shared memory
+        "no_b_loads": {"    cp_async16(smem_u32(st + (p * G::NT + r) * "
+                       "G::LD + c * 8),":
+                       "    if (false) cp_async16(smem_u32(st + (p * G::NT "
+                       "+ r) * G::LD + c * 8),"},
+        # one plane (W_hi) instead of three
+        "one_plane": {"    for (int p = 0; p < 3; ++p) {":
+                      "    for (int p = 0; p < 1; ++p) {"},
+        # the loads and fragments, no tensor-core products
+        "no_mma": {
+            "          mma_bf16(acc[mi][2 * jj], af[mi], bf[0], bf[1]);\n"
+            "          mma_bf16(acc[mi][2 * jj + 1], af[mi], bf[2], bf[3]);":
+                "          acc[mi][2 * jj][0] += __uint_as_float("
+                "af[mi][0] ^ bf[0] ^ bf[1]);\n"
+                "          acc[mi][2 * jj + 1][0] += __uint_as_float("
+                "af[mi][1] ^ bf[2] ^ bf[3]);"},
+        # the products and the label's logit, no online log-sum-exp
+        "no_lse": {
+            "    if (h == 0)\n"
+            "      lse_add<NW>(m[0][i], s[0][i], z, tm);\n"
+            "    else\n"
+            "      lse_add<NW>(m[1][i], s[1][i], z, tm);":
+                "    s[0][i] += tm;"},
+        # no barrier between the column tiles (races on the ring: wrong
+        # results, what the barriers cost)
+        "no_tile_barrier": {
+            "      cp_async_wait<ST - 2>();\n      __syncthreads();\n":
+                "      cp_async_wait<ST - 2>();\n"},
+        # no kind and duration dots on CUDA cores
+        "no_kind_duration": {
+            "    for (int e = tid; e < rows * vk1; e += kTcThreads) {":
+                "    for (int e = tid; e < 0; e += kTcThreads) {"},
+        # two CTAs an SM: 32-column stages, two of them
+        "two_ctas": {
+            "  static constexpr int NT = D <= 128 ? 64 : 32;":
+                "  static constexpr int NT = 32;",
+            "  static constexpr int STAGES = D <= 128 ? 3 : 2;":
+                "  static constexpr int STAGES = 2;",
+            "__global__ void __launch_bounds__(kTcThreads, 1)\n"
+            "    recon_tc_kernel":
+                "__global__ void __launch_bounds__(kTcThreads, 2)\n"
+                "    recon_tc_kernel"},
+        # tiles of 256 rows (4 m16 tiles a warp, half the plane loads per
+        # row), with a 2-stage ring to fit
+        "rows_256": {
+            "constexpr int kBM = 128;": "constexpr int kBM = 256;",
+            "  static constexpr int STAGES = D <= 128 ? 3 : 2;":
+                "  static constexpr int STAGES = 2;"},
+        # every tile whole (S = 1)
+        "no_slices": {"  const int S = plan_slices(tiles, vt, gridDim.x, "
+                      "a.part_items);":
+                      "  const int S = 1;"},
+    },
     "gemm_bf16": {
         # the TMA loads and the ring only: no products, no epilogue
         "loads_only": {
@@ -228,40 +336,22 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
              "qgemm_ffn1": ("qgemm", "qgemm_launch"),
              "ln_quantize": ("quant", "ln_quantize_launch"),
              "radix_sort": ("trace_sort", "radix_sort_launch"),
+             "next_fit_pack": ("trace_pack", "next_fit_pack_launch"),
+             "recon_ce": ("recon_ce", "recon_ce_tc_launch"),
              "gemm_bf16": ("dense", "gemm_bf16_launch")}
 
-ARGTYPES = {
-    "segment_attention": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                          + [ctypes.c_float, ctypes.c_float,
-                             ctypes.c_void_p]),
-    "span_embed": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-                  + [ctypes.c_void_p],
-    "qgemm": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-              + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
-    "qgemm_ffn1": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p]),
-    "ln_quantize": [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p],
-    "radix_sort": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_longlong] + [ctypes.c_void_p] * 4),
-    "gemm_bf16": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                  + [ctypes.c_void_p]),
-}
 
-
-def build_variants(tmp: str) -> dict:
+def build_variants(tmp: str, built: dict, names) -> dict:
+    """Each variant of the kernels in ``names`` compiled (one ``nvcc`` per
+    variant, all started together) and loaded, with the argument types of
+    the wrapper's own launcher (``built``)."""
     from odigos_tpu_torch.kernels import build
 
     procs = {}
-    for kname, variants in VARIANTS.items():
+    for kname in names:
         source, launcher = LAUNCHERS[kname]
         src = (build.CSRC / build.SOURCES[source]).read_text()
-        for vname, edits in variants.items():
+        for vname, edits in VARIANTS.get(kname, {}).items():
             text = src
             for anchor, repl in edits.items():
                 if anchor not in text:
@@ -283,13 +373,21 @@ def build_variants(tmp: str) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{kname}/{vname} failed to build:\n{log}")
         fn = getattr(ctypes.CDLL(so), LAUNCHERS[kname][1])
-        fn.argtypes = ARGTYPES[kname]
+        fn.argtypes = built[kname].argtypes
         fn.restype = ctypes.c_int
         fns[(kname, vname)] = fn
     return fns
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", default=",".join(LAUNCHERS),
+                    help="comma-separated kernels to ablate (default: all)")
+    args = ap.parse_args()
+    names = [k for k in args.kernels.split(",") if k]
+    unknown = [k for k in names if k not in LAUNCHERS]
+    if unknown:
+        ap.error(f"unknown kernels {unknown} (known: {list(LAUNCHERS)})")
     sys.path.insert(0, ROOT)
     import torch
 
@@ -298,9 +396,13 @@ def main() -> int:
         return 1
     import chip_smoke
     from odigos_tpu_torch.kernels import (attention, build, dense, embed,
-                                          qgemm, quant, sort)
-    from odigos_tpu_torch.models import (QuantizedTraceScorer,
-                                         TraceTransformer, TransformerConfig)
+                                          featurize, pack, qgemm, quant,
+                                          recon, sort)
+    from odigos_tpu_torch.models import (AutoencoderConfig,
+                                         QuantizedTraceScorer,
+                                         SpanAutoencoder, TraceTransformer,
+                                         TransformerConfig)
+    from odigos_tpu_torch.serving.engine import BucketLadder
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -309,90 +411,132 @@ def main() -> int:
     print(card, flush=True)
     build.build()
     modules = {"segment_attention": attention, "span_embed": embed,
-               "qgemm": qgemm, "radix_sort": sort}
-    built = {k: m._kernel() for k, m in modules.items()}
-    built["gemm_bf16"] = dense._kernel("gemm_bf16_launch")
-    built["qgemm_ffn1"] = built["qgemm"]
-    modules["qgemm_ffn1"] = qgemm
-    modules["ln_quantize"] = quant
-    built["ln_quantize"] = quant._kernel()
+               "qgemm": qgemm, "qgemm_ffn1": qgemm, "ln_quantize": quant,
+               "radix_sort": sort, "next_fit_pack": pack, "recon_ce": recon,
+               "gemm_bf16": dense}
+
+    def launcher(kname: str):
+        m = modules[kname]
+        if hasattr(m, "_fns"):  # a library of several launchers
+            return m._kernel(LAUNCHERS[kname][1])
+        return m._kernel()
 
     def swap(kname: str, fn) -> None:
-        if kname == "gemm_bf16":
-            dense._fns["gemm_bf16_launch"] = fn
+        m = modules[kname]
+        if hasattr(m, "_fns"):
+            m._fns[LAUNCHERS[kname][1]] = fn
         else:
-            modules[kname]._fn = fn
+            m._fn = fn
 
-    with tempfile.TemporaryDirectory() as tmp:
-        fns = build_variants(tmp)
-        fns.update({(k, "unchanged"): fn for k, fn in built.items()})
-        dev = torch.device("cuda")
-        cfg = TransformerConfig()
+    built = {k: launcher(k) for k in names}
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    # (kernel, shape, call) on the smoke run's inputs
+    cases: list[tuple[str, dict, object]] = []
+    cfg = TransformerConfig()
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    with torch.inference_mode():
         enc = TraceTransformer(cfg, device=dev, seed=0).module.encoder
         tables = enc.tables()
         qblk = QuantizedTraceScorer(cfg, device=dev, seed=0)._blocks[0]
         pk = chip_smoke._packed_rows(max(chip_smoke.R_SHAPES))
-        N = chip_smoke.FUSED_MAIN_N
-        n, _, _, c = chip_smoke._staged(chip_smoke._fused_frame(N, "otel"),
-                                        dev)
-        trace_keys = [c["trace_id_hi"], c["trace_id_lo"],
-                      c["start_unix_nano"]]
-        scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-        H = cfg.n_heads
-        hd = cfg.d_model // H
-        with torch.inference_mode():
-            for R in chip_smoke.R_SHAPES:
-                def rows(a, dtype):
-                    return torch.from_numpy(a[:R]).to(dev, dtype).contiguous()
+        for R in chip_smoke.R_SHAPES:
+            def rows(a, dtype):
+                return torch.from_numpy(a[:R]).to(dev, dtype).contiguous()
 
-                cat = rows(pk.categorical, torch.int32)
-                cont = rows(pk.continuous, torch.float32)
-                seg = rows(pk.segments, torch.int32)
-                pos = rows(pk.positions, torch.int32)
-                x = embed.span_embed_plain(cat, cont, pos, seg, tables,
-                                           cfg.dtype)
-                blk = enc.blocks[0]
-                L = cat.shape[1]
-                x2 = x.view(R * L, -1)
-                q, k, v = dense.gemm_bf16(blk.ln1(x2), *blk.qkv(),
-                                          planes=3).view(3, R, L, H, hd)
-                h2 = blk.ln2(x2)
-                xq, a_s = quant.ln_quantize(x.view(R * L, -1), *qblk.ln1)
-                # FFN1's input: LN2 of the embedding (the block's x1 is a
-                # residual step away; the product's shapes are the same)
-                hq, h_s = quant.ln_quantize(x.view(R * L, -1), *qblk.ln2)
-                ff1 = qblk.ff1
-                qkv = qblk.qkv
-                calls = {
-                    "segment_attention": lambda: attention.segment_attention(
-                        q, k, v, seg),
-                    "span_embed": lambda: embed.span_embed(
-                        cat, cont, pos, seg, tables, cfg.dtype),
-                    "qgemm": lambda: qgemm.qgemm(
-                        xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3),
-                    "ln_quantize": lambda: quant.ln_quantize(
-                        x.view(R * L, -1), *qblk.ln1),
-                    "qgemm_ffn1": lambda: qgemm.qgemm(
-                        hq, ff1.w, h_s, ff1.s, ff1.b, cfg.dtype,
-                        "gelu_tanh_quant"),
-                    "gemm_bf16": lambda: dense.gemm_bf16(
-                        h2, blk.ff1.weight, blk.ff1.bias, "gelu_tanh"),
-                    "radix_sort": lambda: sort.radix_sort(trace_keys, n)}
-                for (kname, vname), fn in sorted(fns.items()):
-                    if kname == "radix_sort" and R != max(
-                            chip_smoke.R_SHAPES):
-                        continue  # one shape: the trace sort at N
-                    swap(kname, fn)
-                    try:
-                        ms = chip_smoke.device_ms(calls[kname],
-                                                  scratch.zero_)
-                    finally:
-                        swap(kname, built[kname])
-                    shape = ({"N": N, "n": n} if kname == "radix_sort"
-                             else {"R": R})
-                    print(json.dumps({"kernel": kname, "variant": vname,
-                                      **shape, "device_ms": ms,
-                                      "card": card}), flush=True)
+            cat = rows(pk.categorical, torch.int32)
+            cont = rows(pk.continuous, torch.float32)
+            seg = rows(pk.segments, torch.int32)
+            pos = rows(pk.positions, torch.int32)
+            x = embed.span_embed_plain(cat, cont, pos, seg, tables,
+                                       cfg.dtype)
+            blk = enc.blocks[0]
+            L = cat.shape[1]
+            x2 = x.view(R * L, -1)
+            q, k, v = dense.gemm_bf16(blk.ln1(x2), *blk.qkv(),
+                                      planes=3).view(3, R, L, H, hd)
+            h2 = blk.ln2(x2)
+            xq, a_s = quant.ln_quantize(x2, *qblk.ln1)
+            # FFN1's input: LN2 of the embedding (the block's x1 is a
+            # residual step away; the product's shapes are the same)
+            hq, h_s = quant.ln_quantize(x2, *qblk.ln2)
+            ff1, qkv = qblk.ff1, qblk.qkv
+            shape = {"R": R}
+            cases += [
+                ("segment_attention", shape,
+                 lambda q=q, k=k, v=v, seg=seg:
+                 attention.segment_attention(q, k, v, seg)),
+                ("span_embed", shape,
+                 lambda cat=cat, cont=cont, pos=pos, seg=seg:
+                 embed.span_embed(cat, cont, pos, seg, tables, cfg.dtype)),
+                ("qgemm", shape,
+                 lambda xq=xq, a_s=a_s: qgemm.qgemm(
+                     xq, qkv.w, a_s, qkv.s, qkv.b, cfg.dtype, planes=3)),
+                ("ln_quantize", shape,
+                 lambda x2=x2: quant.ln_quantize(x2, *qblk.ln1)),
+                ("qgemm_ffn1", shape,
+                 lambda hq=hq, h_s=h_s: qgemm.qgemm(
+                     hq, ff1.w, h_s, ff1.s, ff1.b, cfg.dtype,
+                     "gelu_tanh_quant")),
+                ("gemm_bf16", shape,
+                 lambda h2=h2: dense.gemm_bf16(h2, blk.ff1.weight,
+                                               blk.ff1.bias, "gelu_tanh"))]
+        # K6's trace sort and K7 on the fused route's staged frames
+        ladder = BucketLadder(256, 4)
+        for N in (chip_smoke.FUSED_MAIN_N, max(chip_smoke.FUSED_N)):
+            n, svc_t, nam_t, c = chip_smoke._staged(
+                chip_smoke._fused_frame(N, "otel"), dev)
+            keys = [c["trace_id_hi"], c["trace_id_lo"], c["start_unix_nano"]]
+            fcat, fcont = featurize.featurize_columns(
+                svc_t, nam_t, c["service"], c["name"], c["kind"],
+                c["status_code"], c["span_id"], c["parent_span_id"],
+                c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+            perm = sort.radix_sort(keys, n)
+            R = ladder.round_rows(2 * n // cfg.max_len + 2)
+            if N == chip_smoke.FUSED_MAIN_N:
+                cases.append(("radix_sort", {"N": N, "n": n},
+                              lambda keys=keys, n=n: sort.radix_sort(keys,
+                                                                     n)))
+            cases.append(("next_fit_pack", {"N": N, "n": n, "R": R},
+                          lambda perm=perm, c=c, fcat=fcat, fcont=fcont, n=n,
+                          R=R: pack.next_fit_pack(
+                              perm, c["trace_id_hi"], c["trace_id_lo"],
+                              fcat, fcont, n, cfg.max_len, R)))
+        # K11 on the default autoencoder's decoder output (its parameters
+        # made outside inference_mode: the planes are cached, as served)
+        acfg = AutoencoderConfig()
+        with torch.inference_mode(False):
+            ae = SpanAutoencoder(acfg, device=dev, seed=0)
+        m = ae.module
+        wts = (acfg.w_service, acfg.w_name, acfg.w_kind, acfg.w_duration)
+        for T in chip_smoke.AE_T + (4096,):
+            cat, cont, mask = chip_smoke._ae_rows(T, dev)
+            dec = ae._decode(cat, cont, mask, reference=False)
+            M = T * acfg.max_len
+            rargs = (dec, m.dec_ln.weight, m.dec_ln.bias, m.heads(),
+                     cat.reshape(M, -1), cont.reshape(M, -1),
+                     mask.reshape(M), wts)
+            cases.append(("recon_ce", {"T": T},
+                          lambda rargs=rargs: recon.recon_ce(
+                              *rargs, planes=m.head_planes())))
+    cases = [cs for cs in cases if cs[0] in names]
+
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        fns = build_variants(tmp, built, names)
+        fns.update({(k, "unchanged"): fn for k, fn in built.items()})
+        for kname, shape, call in cases:
+            for (kn, vname), fn in sorted(fns.items()):
+                if kn != kname:
+                    continue
+                swap(kname, fn)
+                try:
+                    ms = chip_smoke.device_ms(call, scratch.zero_)
+                finally:
+                    swap(kname, built[kname])
+                print(json.dumps({"kernel": kname, "variant": vname,
+                                  **shape, "device_ms": ms, "card": card}),
+                      flush=True)
     return 0
 
 

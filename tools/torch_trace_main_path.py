@@ -70,7 +70,8 @@ CATEGORIES = (
     ("K9 ln_quantize", ("ln_quantize_kernel",)),
     ("K10 qgemm", ("qgemm_s8_kernel", "qgemm_s8_quant_kernel",
                    "qgemm_mma_kernel")),
-    ("K11 recon_ce", ("recon_ce_kernel",)),
+    ("K11 recon_ce", ("recon_ce_kernel", "recon_tc_kernel",
+                      "recon_compact_kernel")),
     ("K12 ln_masked_pool", ("ln_masked_pool_kernel",)),
     ("K14 ln_bf16", ("ln_bf16_kernel",)),
     ("K15 gemm_bf16", ("gemm_tc_kernel", "gemm_f32_kernel")),
