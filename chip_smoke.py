@@ -212,6 +212,7 @@ INT8_FUSED_MAX = 0.05           # int8 fused vs host route, max and mean
 INT8_FUSED_MEAN = 5e-3          # (tests/test_fused.py)
 
 AE_T = (256, 2048)              # traces (rows of L = 64): K11/K12 shapes
+K14_SWEEP_D = (8, 96, 128, 256, 384, 768, 1024, 2048, 4096)  # K14's widths
 RECON_ATOL = 1e-4               # K11 vs plain on the errors: the heads'
                                 # f32 dots and the log-sum-exp summed in
                                 # another order
@@ -661,6 +662,133 @@ def _gemm_diff(got, ref, lim: float, what: str) -> tuple[float, int]:
     return top, int((diff > 0).sum().item())
 
 
+K14_PARENT_WIDTHS = (32, 64, 128, 256, 512, 1024)  # the warp-a-row design's
+
+
+def _k14_parent(x, ln, flush) -> dict:
+    """K14's parent design (a warp a row, two rows in flight, a capped
+    grid) on the same inputs in the same call: bit-equal, and its time."""
+    import torch
+
+    from odigos_tpu_torch.kernels import dense
+
+    if x.shape[-1] not in K14_PARENT_WIDTHS:
+        return {}
+    args = (x, ln.weight, ln.bias, ln.eps)
+    got = dense.ln_bf16_warp(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, dense.ln_bf16_plain(*args)),
+          "ln_bf16's parent design: not bit-equal to the plain version")
+    return {"parent_device_ms": device_ms(lambda: dense.ln_bf16_warp(*args),
+                                          flush)}
+
+
+class _LN:
+    """A LayerNorm's parameters for K14 at a width of the sweep."""
+
+    def __init__(self, d: int, dev, seed: int):
+        import torch
+
+        g = torch.Generator(device=dev).manual_seed(seed)
+        self.weight = torch.randn(d, generator=g, device=dev) * 0.2 + 1
+        self.bias = torch.randn(d, generator=g, device=dev) * 0.2
+        self.eps = 1e-6
+
+
+def _k14_sweep(card: str, flush) -> dict:
+    """K14 at every width the contract names (bf16 and f32, ~64 MB of
+    input each, bit-equal, the parent design beside it where it takes the
+    width), then with a device row count at the fused routes' shapes: the
+    transformer's R = 2048 rows of L = 64 (d 256) with next-fit's real rows
+    for 4096 traces, the autoencoder's R = round_rows(spans) rows (d 128)
+    with one real row a trace. The rows past the count keep a sentinel
+    written before the launch; the time with and without the count,
+    against the bound at the real rows."""
+    import torch
+
+    from odigos_tpu_torch.features import featurize, pack_sequences
+    from odigos_tpu_torch.kernels import dense
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import BucketLadder, EngineConfig
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in K14_SWEEP_D:
+            M = max(1, (64 << 20) // (d * 2))
+            g = torch.Generator(device=dev).manual_seed(d)
+            x = (torch.randn(M, d, generator=g, device=dev) * 3 + 1).to(dtype)
+            ln = _LN(d, dev, d)
+            args = (x, ln.weight, ln.bias, ln.eps)
+            got = dense.ln_bf16(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, dense.ln_bf16_plain(*args)),
+                  f"ln_bf16 d {d} {dtype}: not bit-equal to the plain "
+                  f"version")
+            nbytes = 2 * M * d * x.element_size() + 2 * d * 4
+            b_ms, b_by = bound(nbytes, 8 * M * d, F32_FLOPS)
+            key = f"d{d}_{str(dtype)[6:]}"
+            r = out[("ln_bf16", "sweep", key)] = {
+                "M": M, "d": d, "dtype": str(dtype), "bound": "bit-equal",
+                "max_abs_diff": 0.0, "differing": 0,
+                "device_ms": device_ms(lambda: dense.ln_bf16(*args), flush),
+                "bound_ms": b_ms, "bound_by": b_by,
+                **_k14_parent(x, ln, flush)}
+            r["ratio_to_bound"] = r["device_ms"] / b_ms
+            print(f"chip_smoke: ln_bf16 d {d} {dtype}: {r['device_ms']:.4f}"
+                  f" ms (bound {b_ms:.4f}"
+                  + (f"; parent design {r['parent_device_ms']:.4f}"
+                     if "parent_device_ms" in r else "") + ")", flush=True)
+            del x, got
+    ecfg = EngineConfig()
+    ladder = BucketLadder(ecfg.trace_bucket, ecfg.bucket_ladder)
+    batch = synthesize_traces(4096, seed=103)
+    pk = pack_sequences(batch, featurize(batch), max_len=64)
+    n_traces = len(set(zip(batch.columns["trace_id_hi"].tolist(),
+                           batch.columns["trace_id_lo"].tolist())))
+    fused_cases = (
+        ("transformer_fused", 2048, int(pk.n_rows), 256),
+        ("autoencoder_fused", ladder.round_rows(len(batch)), n_traces, 128))
+    for name, R, real, d in fused_cases:
+        L = 64
+        g = torch.Generator(device=dev).manual_seed(R)
+        x = (torch.randn(R * L, d, generator=g, device=dev) * 3 + 1).to(
+            torch.bfloat16)
+        ln = _LN(d, dev, R)
+        live = torch.tensor([real], dtype=torch.int32, device=dev)
+        args = (x, ln.weight, ln.bias, ln.eps)
+        got = dense.ln_bf16(*args, live=live, per=L,
+                            out=torch.full_like(x, 12345.0))
+        torch.cuda.synchronize()
+        n = real * L
+        check(torch.equal(got[:n], dense.ln_bf16_plain(*args)[:n]),
+              f"ln_bf16 {name}: the live rows are not bit-equal")
+        check(bool((got[n:] == 12345.0).all()),
+              f"ln_bf16 {name}: a row past the count was written")
+        b_real, by_real = bound(4 * n * d + 8 * d, 8 * n * d, F32_FLOPS)
+        b_all, _ = bound(4 * R * L * d + 8 * d, 8 * R * L * d, F32_FLOPS)
+        r = out[("ln_bf16", "live", name)] = {
+            "R": R, "rows_real": real, "L": L, "d": d,
+            "bound": "bit-equal on the live rows; sentinel past them",
+            "max_abs_diff": 0.0, "differing": 0,
+            "device_ms": device_ms(
+                lambda: dense.ln_bf16(*args, live=live, per=L), flush),
+            "device_ms_without_count": device_ms(
+                lambda: dense.ln_bf16(*args), flush),
+            "bound_ms": b_real, "bound_by": by_real,
+            "bound_ms_all_rows": b_all, **_k14_parent(x, ln, flush)}
+        r["ratio_to_bound"] = r["device_ms"] / b_real
+        print(f"chip_smoke: ln_bf16 {name} ({real} of {R} rows): "
+              f"{r['device_ms']:.4f} ms with the count, "
+              f"{r['device_ms_without_count']:.4f} without (bound at the "
+              f"real rows {b_real:.4f}, all rows {b_all:.4f})", flush=True)
+        del x, got
+    for r in out.values():
+        emit({"phase": "dense_kernels", "card": card, "name": "ln_bf16",
+              **r})
+    return out
+
+
 def phase_dense_kernels(card: str) -> dict:
     """K14 and K15 at each step of the float block, on the first block's
     own activations, at R = 256 and 2048 rows (d 256) and T = 2048 traces
@@ -700,14 +828,15 @@ def phase_dense_kernels(card: str) -> dict:
         nbytes = 2 * M * d * x.element_size() + 2 * d * 4
         flops = 8 * M * d
         b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-        results[("ln_bf16", step, key)] = {
+        r = results[("ln_bf16", step, key)] = {
             "name": "ln_bf16", "step": step, "shape": key, "M": M, "d": d,
             "max_abs_diff": 0.0, "differing": 0, "bound": "bit-equal",
             **timings(lambda: dense.ln_bf16(*args),
                       lambda: dense.ln_bf16_plain(*args), lib, flush),
             "library": "F.layer_norm (bf16 weights)",
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "flops": flops}
+            "flops": flops, **_k14_parent(x, ln, flush)}
+        r.update(_ratios(r))
         return got
 
     def k15(step, key, x, w, b, epilogue="none", residual=None, planes=1):
@@ -821,6 +950,9 @@ def phase_dense_kernels(card: str) -> dict:
         k15("dec_ff2", key, h, m.dec_ff2.weight, m.dec_ff2.bias)
     for r in results.values():
         emit({"phase": "dense_kernels", "card": card, **r})
+    del ae, m
+    with torch.inference_mode():
+        results.update(_k14_sweep(card, flush))
     return results
 
 
@@ -1480,6 +1612,116 @@ def _read_counters(counters=FUSED_COUNTERS) -> dict:
             for name, mod, *attr in counters}
 
 
+K14_KERNELS = ("ln_rows_kernel", "ln_wide_kernel")  # its device kernels
+K15_KERNELS = ("gemm_tc_kernel", "gemm_f32_kernel")
+# the fused probe's runs: (name, K14 takes the count, K15 takes it, the
+# outputs NaN-filled first); "no_count" is the dense chain before either
+# took one, "k15_no_count" K15 reading K14's unwritten padding rows
+DENSE_PROBE_RUNS = (("count", True, True, False),
+                    ("count_poisoned", True, True, True),
+                    ("k15_no_count", True, False, False),
+                    ("k15_no_count_poisoned", True, False, True),
+                    ("no_count", False, False, False))
+
+
+def _dense_fused_probe(be, batch, what: str) -> dict:
+    """K14 and K15 on a fused route, on one request, in the runs of
+    DENSE_PROBE_RUNS: each run swaps the model's K14/K15 calls for ones that
+    pass or drop the row count and, when poisoned, hand the kernel an
+    output buffer filled with NaN (rows it skips keep it). Every run's
+    scores must equal the first call's: no real score reads a padding row
+    past next-fit's or K13's count. Each run's three calls under
+    ``torch.profiler`` give K14's and K15's device ms a fused call (their
+    kernels' device events summed), beside K14's bound at the real rows."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from odigos_tpu_torch.models import autoencoder, layers
+    from odigos_tpu_torch.serving.fused import extract_columns
+
+    cols = extract_columns(batch)[0]
+
+    def call():
+        return be.harvest(be.dispatch_columns([cols]))
+
+    ref = call()
+    orig = (layers.ln_bf16, layers.gemm_bf16, autoencoder.gemm_bf16)
+    ln0, gemm0 = orig[0], orig[1]
+    shapes: list = []
+
+    def nan_like(shape, x):
+        return torch.full(shape, float("nan"), dtype=x.dtype,
+                          device=x.device)
+
+    def swap(ln_count: bool, gemm_count: bool, poison: bool):
+        def ln(x, w, b, eps, live=None, per=1):
+            shapes.append((x.numel() // x.shape[-1], x.shape[-1], per))
+            return ln0(x, w, b, eps, live if ln_count else None, per,
+                       out=nan_like(x.shape, x) if poison else None)
+
+        def gemm(x, w, b, epilogue="none", residual=None, planes=1,
+                 live=None, per=1):
+            M, N = x.shape[0], w.shape[0]
+            shape = (M, N) if planes == 1 else (planes, M, N // planes)
+            return gemm0(x, w, b, epilogue, residual, planes,
+                         live if gemm_count else None, per,
+                         out=nan_like(shape, x) if poison else None)
+
+        layers.ln_bf16, layers.gemm_bf16, autoencoder.gemm_bf16 = (
+            ln, gemm, gemm)
+
+    runs, calls = {}, 3
+    for name, ln_count, gemm_count, poison in DENSE_PROBE_RUNS:
+        shapes.clear()
+        swap(ln_count, gemm_count, poison)
+        try:
+            got = call()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+        finally:
+            layers.ln_bf16, layers.gemm_bf16, autoencoder.gemm_bf16 = orig
+        diff = float(np.abs(got - ref).max())
+        check(bool(np.isfinite(got).all()) and diff == 0.0,
+              f"{what}: scores moved ({diff}) in the {name} run")
+        dev_events = [e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA]
+        r = {"scores_max_abs_diff": diff}
+        for kname, names in (("k14", K14_KERNELS), ("k15", K15_KERNELS)):
+            us = [e.time_range.end - e.time_range.start for e in dev_events
+                  if any(k in e.name for k in names)]
+            r[f"{kname}_device_ms_per_call"] = (
+                sum(us) / 1e3 / calls if us else "not measured")
+            r[f"{kname}_launches_per_call"] = len(us) / calls
+        runs[name] = r
+    real = be.last_rows_real
+    launches = int(runs["count"]["k14_launches_per_call"])
+    d, per = shapes[0][1], shapes[0][2]
+    b_real, _ = bound(launches * (4 * real * per * d + 8 * d), 0, F32_FLOPS)
+    out = {"spans": len(batch), "R": be.last_shape[0], "rows_real": real,
+           "k14_launches_per_call": launches,
+           "k15_launches_per_call": runs["count"]["k15_launches_per_call"],
+           "runs": runs,
+           "k14_device_ms_per_call": runs["count"]["k14_device_ms_per_call"],
+           "k14_device_ms_per_call_without_count":
+               runs["no_count"]["k14_device_ms_per_call"],
+           "k15_device_ms_per_call": runs["count"]["k15_device_ms_per_call"],
+           "k15_device_ms_per_call_without_count":
+               runs["no_count"]["k15_device_ms_per_call"],
+           "k14_bound_ms_per_call_at_real_rows": b_real}
+    print(f"chip_smoke: {what} ({real} of {out['R']} rows real; K14 bound "
+          f"at the real rows {b_real:.4f} ms a call): K14 / K15 device ms a "
+          f"call " + "; ".join(
+              f"{k} {r['k14_device_ms_per_call']} / "
+              f"{r['k15_device_ms_per_call']}" for k, r in runs.items())
+          + "; scores unchanged in every run", flush=True)
+    return out
+
+
 def phase_fused_path(card: str) -> dict:
     import numpy as np
     import torch
@@ -1550,6 +1792,8 @@ def phase_fused_path(card: str) -> dict:
         check(calls_burst < BURST_REQUESTS,
               f"the burst of {BURST_REQUESTS} ran as {calls_burst} calls")
         fused_rows = list(be.fused_rows)
+        with torch.inference_mode():
+            dense_probe = _dense_fused_probe(be, batches[3], "fused path")
 
         # the same requests on the host route of the same engine
         host_diff = 0.0
@@ -1599,21 +1843,26 @@ def phase_fused_path(card: str) -> dict:
             real = int(pk.rows_used.item())
             enc = be.model.module.encoder
 
-            def fwd(rows):
+            def fwd(rows, live=None):
                 return lambda: enc(pk.categorical[:rows],
                                    pk.continuous[:rows],
                                    pk.positions[:rows], pk.segments[:rows],
-                                   final_ln=False)
+                                   final_ln=False, live=live)
 
             scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8,
                                      device="cuda")
             full_ms = device_ms(fwd(R), scratch_l2.zero_)
             real_ms = device_ms(fwd(real), scratch_l2.zero_)
+            # as served: R rows, K14 and K15 skipping the rows past the count
+            served_ms = device_ms(fwd(R, pk.rows_used), scratch_l2.zero_)
         be._release(staged.N, staged.host)
         padded = {"spans": len(big), "R": R, "rows_real": real,
                   "forward_device_ms_R": full_ms,
                   "forward_device_ms_rows_real": real_ms,
-                  "padded_rows_share": 1.0 - real_ms / full_ms}
+                  "forward_device_ms_R_with_count": served_ms,
+                  "padded_rows_share": 1.0 - real_ms / full_ms,
+                  "padded_rows_share_with_count":
+                      1.0 - real_ms / served_ms}
     finally:
         engine.shutdown()
 
@@ -1647,7 +1896,7 @@ def phase_fused_path(card: str) -> dict:
            "host_route_max_abs_diff": host_diff,
            "host_route_bound": PLAIN_PATH_BOUND,
            "cpu_f32_max_abs_diff": cpu_diff, "cpu_f32_bound": CPU_F32_BOUND,
-           "padded_rows": padded,
+           "padded_rows": padded, "dense_probe": dense_probe,
            "stage_ms_p50_by_route": stats["stage_ms_p50_by_route"],
            "engine": stats}
     emit(out)
@@ -1720,27 +1969,9 @@ def phase_int8_kernels(card: str, kern: dict) -> dict:
         L = cat.shape[1]
 
         def k9(step, inp, ln):
-            args = (inp, *ln) if ln else (inp,)
-            got = kquant.ln_quantize(*args)
-            ref = kquant.ln_quantize_plain(*args)
-            torch.cuda.synchronize()
-            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-                  f"ln_quantize {step} R={R}: codes or scales differ from "
-                  f"the plain version")
-            M, K = inp.shape
-            nbytes = (M * K * inp.element_size() + M * K + M * 4
-                      + (2 * K * 4 if ln else 0))
-            flops = M * K * (10 if ln else 3)
-            b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+            r, got = _k9_row(inp, ln, flush, f"{step} R={R}")
             results[("ln_quantize", step, R)] = {
-                "name": "ln_quantize", "step": step, "R": R, "M": M, "K": K,
-                "ln": bool(ln), "max_abs_diff": 0.0,
-                "bound": "exact (codes and scales)",
-                **timings(lambda: kquant.ln_quantize(*args),
-                          lambda: kquant.ln_quantize_plain(*args), None,
-                          flush),
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "flops": flops}
+                "name": "ln_quantize", "step": step, "R": R, **r}
             return got
 
         def k10(step, xq, a_s, dense, epilogue, residual, planes, x_in):
@@ -2034,6 +2265,21 @@ def phase_int8_path(card: str) -> dict:
     return out
 
 
+def _k11_bound(real: int, M: int, d: int, V: int, v_tc: int, route: str,
+               dec_bytes: int) -> tuple[float, str, int]:
+    """K11's bound at ``real`` of ``M`` positions: the real rows of
+    ``dec`` (``dec_bytes`` a value), the labels and mask, the errors out,
+    the f32 heads once; the tensor-core route's service and name heads
+    (``v_tc`` columns) in three bf16 passes and the rest in f32, the
+    CUDA-core route's every head in f32. Returns ``(ms, by, bytes)``."""
+    nb = (real * d * dec_bytes + M + M * 4 + real * 16 + V * d * 4 + V * 4
+          + 2 * d * 4)
+    if route == "tc":
+        b_ms, b_by = bound(nb, real * 2 * d * v_tc * 3, BF16_FLOPS)
+        return max(b_ms, real * 2 * d * (V - v_tc) / F32_FLOPS * 1e3), b_by, nb
+    return (*bound(nb, real * 2 * d * V, F32_FLOPS), nb)
+
+
 def _ae_rows(T: int, dev):
     """T traces of the otel mix, one per row of L = 64 (no padding row),
     on the card: ``(categorical, continuous, mask)``."""
@@ -2190,18 +2436,12 @@ def phase_ae_kernels(card: str) -> dict:
             lib_diff = (library() - got[idx]).abs().max().item()
             check(lib_diff <= RECON_ATOL, f"recon_ce library T={T}: "
                                           f"{lib_diff} > {RECON_ATOL}")
-            # bound of the tensor-core design: the service and name heads
-            # in three bf16 passes, the kind and duration heads in f32
             v_tc = cfg.service_vocab + cfg.name_vocab
             tc_flops = real * 2 * d * v_tc * 3
             f32_flops = real * 2 * d * (V - v_tc)
-            nb = (real * d * 2 + M + M * 4 + real * 16 + V * d * 4 + V * 4
-                  + 2 * d * 4)
-            b_ms, b_by = bound(nb, tc_flops, BF16_FLOPS)
-            b_ms = max(b_ms, f32_flops / F32_FLOPS * 1e3)
-            # the f32 kernel's bound: every head on CUDA cores
-            b32_ms, b32_by = bound(nb + real * d * 2, real * 2 * d * V,
-                                   F32_FLOPS)
+            b_ms, b_by, nb = _k11_bound(real, M, d, V, v_tc, "tc", 2)
+            b32_ms, b32_by, nb32 = _k11_bound(real, M, d, V, v_tc,
+                                              "cuda_core", 4)
             grid = torch.cuda.get_device_properties(dev).multi_processor_count
             r = results[("recon_ce", T)] = {
                 "name": "recon_ce", "T": T, "M": M, "real_positions": real,
@@ -2232,7 +2472,7 @@ def phase_ae_kernels(card: str) -> dict:
                           lambda: krecon.recon_ce_plain(*fargs), None,
                           flush),
                 "bound_ms": b32_ms, "bound_by": b32_by,
-                "bytes": nb + real * d * 2, "flops_f32": real * 2 * d * V}
+                "bytes": nb32, "flops_f32": real * 2 * d * V}
             print(f"chip_smoke: recon_ce T={T}: tc {r['device_ms']:.4f} ms "
                   f"(bound {b_ms:.4f}, {r['ratio_to_bound']:.1f}x; "
                   f"composition {r['library_device_ms']:.4f}; S "
@@ -2602,6 +2842,9 @@ def phase_ae_path(card: str) -> dict:
               f"most {K6_LAUNCHES_PER_FUSED_CALL})")
         fused_rows = list(be.fused_rows)
         stats = engine.stats()
+        with torch.inference_mode():
+            dense_probe = _dense_fused_probe(be, batches[3],
+                                           "ae fused path")
 
         # the fused route's K13, K12 and K11 (scatter mode) at its own R,
         # each against its plain version, on two requests' staged columns
@@ -2617,15 +2860,18 @@ def phase_ae_path(card: str) -> dict:
         with torch.inference_mode():
             real = int(tr.rows_used.item())
 
-            def fwd(rows):
+            def fwd(rows, live=None):
                 return lambda: be.model._errors(
                     tr.categorical[:rows], tr.continuous[:rows],
-                    tr.mask[:rows], reference=False)
+                    tr.mask[:rows], reference=False, live=live)
 
             scratch_l2 = torch.empty(128 << 20, dtype=torch.uint8,
                                      device="cuda")
             full_ms = device_ms(fwd(R), scratch_l2.zero_, reps=5, warm=1)
             real_ms = device_ms(fwd(real), scratch_l2.zero_, reps=5, warm=1)
+            # as served: R rows, K14 and K15 skipping the rows past the count
+            served_ms = device_ms(fwd(R, tr.rows_used), scratch_l2.zero_,
+                                  reps=5, warm=1)
     finally:
         engine.shutdown()
     fh = np.concatenate([np.abs(a - b) for a, b in
@@ -2643,13 +2889,16 @@ def phase_ae_path(card: str) -> dict:
         "launches_per_call": {k: v / calls for k, v in launches.items()},
         "device_launches_per_call": {
             k: v / calls for k, v in device_launches.items()},
-        "kernels_at_R": at_R,
+        "kernels_at_R": at_R, "dense_probe": dense_probe,
         "rows_per_call_R_vs_traces": fused_rows,
         "stage_ms_p50": stats["stage_ms_p50_by_route"]["fused"],
         "padded_rows": {"spans": len(big), "R": R, "traces": real,
                         "forward_device_ms_R": full_ms,
                         "forward_device_ms_traces": real_ms,
-                        "padded_rows_share": 1.0 - real_ms / full_ms}}
+                        "forward_device_ms_R_with_count": served_ms,
+                        "padded_rows_share": 1.0 - real_ms / full_ms,
+                        "padded_rows_share_with_count":
+                            1.0 - real_ms / served_ms}}
     out["fused_vs_host_max_abs_diff"] = float(fh.max())
     out["fused_vs_host_bound"] = PLAIN_PATH_BOUND
 
@@ -2685,6 +2934,507 @@ def phase_ae_path(card: str) -> dict:
     return out
 
 
+# the geometries past the default one (kernels/coverage.py's contract):
+# the CPU tests' (L 128 and 256, hd 128, int8 d_ff 2048, the autoencoder
+# at d 512, whose 2 heads are hd 256) plus L 1024 (K7's longest walk), hd
+# 256 and d_ff 4096, depth cut
+# to 2 layers (widths as named), and the autoencoder whose heads the three
+# planes cannot hold (weights of 1e-36)
+GEOMETRIES = (
+    ("L128", "transformer", False, dict(max_len=128, n_layers=2)),
+    ("L256", "transformer", False, dict(max_len=256, n_layers=2)),
+    ("L1024", "transformer", False, dict(max_len=1024, n_layers=2)),
+    ("hd128", "transformer", False, dict(d_model=256, n_heads=2,
+                                         n_layers=2)),
+    ("hd256", "transformer", False, dict(d_model=512, n_heads=2,
+                                         n_layers=2)),
+    ("ff4096", "transformer", False, dict(d_ff=4096, n_layers=2)),
+    ("int8_ff2048", "transformer", True, dict(d_ff=2048, n_layers=2)),
+    ("int8_ff4096", "transformer", True, dict(d_ff=4096, n_layers=2)),
+    ("ae_d512", "autoencoder", False, dict(d_model=512)),
+    ("ae_unsplittable", "autoencoder", False, dict()),
+)
+GEOMETRY_TRACES = (512, 2048, 2048)
+INT8_FUSED_MAX, INT8_FUSED_MEAN = 0.05, 5e-3  # tests/test_fused.py's
+
+
+def _geometry_launches(model: str, quantized: bool, cfg, tc: bool,
+                       fused: bool, calls: int) -> dict:
+    """Each kernel's launches for ``calls`` calls of one route at a
+    geometry: the counts phases 6, 8, 10 and 12 assert, with K15's QKV as
+    three launches where d_model is off a multiple of 64."""
+    n = cfg.n_layers
+    qkv = 1 if cfg.d_model % 64 == 0 else 3
+    want = dict.fromkeys(
+        ("segment_attention", "span_embed", "featurize_columns",
+         "radix_sort", "next_fit_pack", "span_head_scatter", "ln_bf16",
+         "gemm_bf16", "ln_quantize", "qgemm", "ln_masked_pool", "recon_ce",
+         "recon_ce_tc", "trace_rows_pack"), 0)
+    want.update(span_embed=calls, segment_attention=n * calls)
+    if fused:
+        want.update(featurize_columns=calls, radix_sort=2 * calls)
+    if model == "autoencoder":
+        want.update(ln_bf16=2 * n * calls,
+                    gemm_bf16=((3 + qkv) * n + 2) * calls,
+                    ln_masked_pool=calls, recon_ce=calls,
+                    recon_ce_tc=calls if tc else 0,
+                    trace_rows_pack=calls if fused else 0)
+    elif quantized:
+        want.update(ln_quantize=4 * n * calls, qgemm=4 * n * calls)
+    else:
+        want.update(ln_bf16=(2 * n + (0 if fused else 1)) * calls,
+                    gemm_bf16=(3 + qkv) * n * calls)
+    if fused and model == "transformer":
+        want.update(next_fit_pack=calls, span_head_scatter=calls)
+    return want
+
+
+GEOMETRY_PAD_ROWS = 2  # all-padding rows appended to a geometry's rows
+
+
+def _k1_row(q, k, v, seg, flush, what: str, want: str) -> dict:
+    """K1 at a geometry against its plain version over every slot, padding
+    queries included (Flax's uniform mean of V over the row's slots): one
+    bf16 step of the largest output (bf16), F32_ATTENTION_BOUND relative
+    (f32); the route named; SDPA under the same mask as the library."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import attention
+
+    route = attention.kernel_route(q, k, v, seg)
+    check(route == want, f"segment_attention {what}: route {route}, not "
+                         f"{want}")
+    got = attention.segment_attention(q, k, v, seg)
+    ref = attention.segment_attention_plain(q, k, v, seg)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()),
+          f"segment_attention {what}: non-finite output")
+    bf16 = q.dtype == torch.bfloat16
+    ref_max = ref.float().abs().max().item()
+    lim = (bf16_step(ref_max) if bf16
+           else F32_ATTENTION_BOUND * max(1.0, ref_max))
+    err = (got.float() - ref.float()).abs()
+    diff = err.max().item()
+    pad = seg == 0
+    pad_diff = err[pad].max().item() if bool(pad.any()) else 0.0
+    check(diff <= lim, f"segment_attention {what}: max |kernel - plain| "
+                       f"{diff} > {lim} (padding queries {pad_diff})")
+    R, L, H, hd = q.shape
+    segl = seg.long()
+    allowed = ((segl[:, :, None] == segl[:, None, :])
+               & (segl[:, :, None] > 0))[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+
+    # the work this data needs: the allowed (query, key) pairs, and a
+    # padding query's mean of V over the row's L slots
+    pairs = int(allowed.sum().item())
+    pad_q = int(pad.sum().item())
+    nbytes = 4 * R * L * H * hd * q.element_size() + R * L * 4
+    flops = 4 * pairs * H * hd + 2 * pad_q * L * H * hd
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if bf16 else F32_FLOPS)
+    r = {"kernel": "segment_attention", "route": route, "R": R, "L": L,
+         "H": H, "hd": hd, "dtype": str(q.dtype), "padding_queries": pad_q,
+         "max_abs_diff": diff, "padding_query_max_abs_diff": pad_diff,
+         "bound": lim,
+         **timings(lambda: attention.segment_attention(q, k, v, seg),
+                   lambda: attention.segment_attention_plain(q, k, v, seg),
+                   sdpa, flush),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+         "flops": flops}
+    r.update(_ratios(r))
+    return r
+
+
+def _k9_row(x, ln, flush, what: str) -> tuple:
+    """K9 at a geometry, bit-equal to its plain version (codes and
+    scales); returns ``(row, (codes, scales))``."""
+    import torch
+
+    from odigos_tpu_torch.kernels import quant as kquant
+
+    args = (x, *ln) if ln else (x,)
+    got = kquant.ln_quantize(*args)
+    ref = kquant.ln_quantize_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          f"ln_quantize {what}: codes or scales differ from the plain "
+          f"version")
+    M, K = x.shape
+    nbytes = (M * K * x.element_size() + M * K + M * 4
+              + (2 * K * 4 if ln else 0))
+    flops = M * K * (10 if ln else 3)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    r = {"kernel": "ln_quantize", "M": M, "K": K, "ln": bool(ln),
+         "max_abs_diff": 0.0, "bound": "exact (codes and scales)",
+         **timings(lambda: kquant.ln_quantize(*args),
+                   lambda: kquant.ln_quantize_plain(*args), None, flush),
+         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+         "flops": flops}
+    r.update(_ratios(r))
+    return r, got
+
+
+def _geometry_kernels(name: str, model_name: str, quantized: bool, cfg,
+                      model, batch, flush) -> dict:
+    """The kernels a geometry runs, each on the first block's own inputs
+    at that geometry (the rows of one request, plus GEOMETRY_PAD_ROWS rows
+    of padding) and held to its plain version: K1 on its route (bf16, and
+    f32 copies on the CUDA-core route), all slots; K15's FFN2 (K = d_ff);
+    K9 at LN1 (K = d) and at the GELU's output (K = d_ff) and K10's FFN2
+    for int8; K12 and K11 (the model's route, and the CUDA-core kernel on
+    bf16) for the autoencoder. Returns ``{kernel: {variant: row}}``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.features import (assemble_sequences, featurize,
+                                           pack_sequences)
+    from odigos_tpu_torch.kernels import attention, dense, embed
+    from odigos_tpu_torch.kernels import pool as kpool
+    from odigos_tpu_torch.kernels import qgemm as kq
+    from odigos_tpu_torch.kernels import quant as kquant
+    from odigos_tpu_torch.kernels import recon as krecon
+
+    dev = torch.device("cuda")
+    L, d, H = cfg.max_len, cfg.d_model, cfg.n_heads
+    hd = d // H
+    one_tile = L <= attention.ONE_TILE and hd <= attention.ONE_TILE
+    tc = one_tile and (attention.tc_stage_bytes(L, H, hd)
+                       <= attention.TC_SMEM_LIMIT)
+    rows: dict = {}
+
+    def put(kname, variant, r):
+        rows.setdefault(kname, {})[f"{name}_{variant}"] = {
+            "geometry": name, **r}
+
+    def pad(a):
+        z = np.zeros((GEOMETRY_PAD_ROWS,) + a.shape[1:], dtype=a.dtype)
+        return torch.from_numpy(np.concatenate([a, z])).to(dev)
+
+    if model_name == "autoencoder":
+        seqs = assemble_sequences(batch, featurize(batch), max_len=L)
+        cat, cont, mask = (pad(a) for a in (seqs.categorical,
+                                            seqs.continuous, seqs.mask))
+        seg = mask.to(torch.int32).contiguous()
+        R = seg.shape[0]
+        pos = torch.arange(L, dtype=torch.int32, device=dev).expand(
+            R, L).contiguous()
+        enc = model.module.encoder
+        tables = enc.tables()
+    else:
+        pk = pack_sequences(batch, featurize(batch), max_len=L)
+        cat, cont, seg, pos = (pad(a) for a in (
+            pk.categorical, pk.continuous, pk.segments, pk.positions))
+        cat, seg, pos = (t.to(torch.int32).contiguous()
+                         for t in (cat, seg, pos))
+        cont = cont.float().contiguous()
+        R = seg.shape[0]
+        tables = model._tables if quantized else model.module.encoder.tables()
+    with torch.inference_mode():
+        x = embed.span_embed(cat, cont, pos, seg, tables, cfg.dtype)
+        x2 = x.view(R * L, d)
+        if quantized:
+            blk = model._blocks[0]
+            r, (xq, a_s) = _k9_row(x2, blk.ln1, flush, f"{name} ln1")
+            put("ln_quantize", "ln1", r)
+            q, k, v = kq.qgemm(xq, blk.qkv.w, a_s, blk.qkv.s, blk.qkv.b,
+                               cfg.dtype, planes=3).view(3, R, L, H, hd)
+        else:
+            blk = model.module.encoder.blocks[0]
+            h = blk.ln1(x2)
+            if blk.fused_qkv:
+                q, k, v = dense.gemm_bf16(h, *blk.qkv(), planes=3).view(
+                    3, R, L, H, hd)
+            else:
+                q, k, v = (dense.gemm_bf16(h, lin.weight, lin.bias).view(
+                    R, L, H, hd) for lin in (blk.query, blk.key, blk.value))
+                q, k, v = (t.contiguous() for t in (q, k, v))
+        put("segment_attention", "bf16", _k1_row(
+            q, k, v, seg, flush, f"{name} bf16", "tc" if tc else "flash"))
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        put("segment_attention", "f32", _k1_row(
+            q32, k32, v32, seg, flush, f"{name} f32",
+            "simt" if one_tile else "tiled"))
+        a = attention.segment_attention(q, k, v, seg).view(R * L, d)
+        if quantized:
+            cq, cs = kquant.ln_quantize(a)
+            x1 = kq.qgemm(cq, blk.out.w, cs, blk.out.s, blk.out.b, cfg.dtype,
+                          "residual", x2)
+            hq, hs = kquant.ln_quantize(x1, *blk.ln2)
+            hf = kq.qgemm(hq, blk.ff1.w, hs, blk.ff1.s, blk.ff1.b, cfg.dtype,
+                          "gelu_tanh")
+            r, (tq, ts) = _k9_row(hf, None, flush, f"{name} gelu_out")
+            put("ln_quantize", "gelu_out", r)
+            args = (tq, blk.ff2.w, ts, blk.ff2.s, blk.ff2.b, cfg.dtype,
+                    "residual", x1)
+            got = kq.qgemm(*args)
+            ref = kq.qgemm_plain(*args)
+            torch.cuda.synchronize()
+            diff, note = _k10_diff(got, ref, f"qgemm {name} ffn2")
+            N, K = blk.ff2.w.shape
+            M = tq.shape[0]
+            nbytes = M * K + N * K + M * 4 + 2 * N * 4 + 2 * M * N * 2
+            b_ms, b_by = bound(nbytes, 2 * M * N * K, INT8_OPS)
+            wt = blk.ff2.w.t()
+            r = {"kernel": "qgemm", "step": "ffn2_residual", "M": M, "N": N,
+                 "K": K, "max_abs_diff": diff, "note": note,
+                 "bound": "exact, else one bf16 step",
+                 **timings(lambda: kq.qgemm(*args),
+                           lambda: kq.qgemm_plain(*args),
+                           lambda: torch._int_mm(tq, wt), flush),
+                 "library": "torch._int_mm: s32 out, no quantize, no "
+                            "epilogue",
+                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            r.update(_ratios(r))
+            put("qgemm", "ffn2_residual", r)
+        else:
+            x1 = dense.gemm_bf16(a, blk.out.weight, blk.out.bias,
+                                 "residual", residual=x2)
+            hf = dense.gemm_bf16(blk.ln2(x1), blk.ff1.weight, blk.ff1.bias,
+                                 "gelu_tanh")
+            args = (hf, blk.ff2.weight, blk.ff2.bias, "residual", x1)
+            got = dense.gemm_bf16(*args)
+            ref = dense.gemm_bf16_plain(*args)
+            torch.cuda.synchronize()
+            lim = gemm_bound(hf, blk.ff2.weight, ref, "residual")
+            diff, differing = _gemm_diff(got, ref, lim, f"gemm_bf16 {name} "
+                                                        f"ffn2")
+            N, K = blk.ff2.weight.shape
+            M = hf.shape[0]
+            check(differing <= GEMM_DIFFERING_SHARE * M * N,
+                  f"gemm_bf16 {name} ffn2: {differing} of {M * N} outputs "
+                  f"differ from the plain version")
+            nbytes = (M * K + N * K + N + 2 * M * N) * 2
+            b_ms, b_by = bound(nbytes, 2 * M * N * K, BF16_FLOPS)
+            w_, b_ = blk.ff2.weight, blk.ff2.bias
+            r = {"kernel": "gemm_bf16", "step": "ffn2_residual", "M": M,
+                 "N": N, "K": K, "max_abs_diff": diff, "bound": lim,
+                 "differing": differing,
+                 **timings(lambda: dense.gemm_bf16(*args),
+                           lambda: dense.gemm_bf16_plain(*args),
+                           lambda: F.linear(hf, w_, b_), flush),
+                 "library": "F.linear (no residual)",
+                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+            r.update(_ratios(r))
+            put("gemm_bf16", "ffn2_residual", r)
+        if model_name != "autoencoder":
+            return rows
+        # ---- K12 on the encoder's own pre-LN state
+        m = model.module
+        hidden = enc(cat, cont, pos, seg, final_ln=False)
+        ln = enc.final_ln
+        pargs = (hidden, ln.weight, ln.bias, mask, ln.eps)
+        got = kpool.ln_masked_pool(*pargs)
+        ref = kpool.ln_masked_pool_plain(*pargs)
+        torch.cuda.synchronize()
+        diff, note = _k10_diff(
+            got, ref, f"ln_masked_pool {name}",
+            "an f64 sum rounded to f32 then bf16 landed on the other side "
+            "of a rounding tie")
+        real = int(mask.sum().item())
+        M = R * L
+        nbytes = real * d * 2 + M + R * d * 2 + 2 * d * 4
+        b_ms, b_by = bound(nbytes, 12 * d * real, F32_FLOPS)
+        r = {"kernel": "ln_masked_pool", "T": R, "d": d,
+             "real_positions": real, "max_abs_diff": diff, "note": note,
+             "bound": "bit-equal, else one bf16 step",
+             **timings(lambda: kpool.ln_masked_pool(*pargs),
+                       lambda: kpool.ln_masked_pool_plain(*pargs), None,
+                       flush),
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        r.update(_ratios(r))
+        put("ln_masked_pool", "bf16", r)
+        # ---- K11 on the decoder's own output: the model's route, and the
+        # CUDA-core kernel on the same bf16 rows
+        dec = model._decode(cat, cont, mask, reference=False)
+        dl = m.dec_ln
+        heads = m.heads()
+        planes = m.head_planes()
+        flat = (cat.reshape(M, -1), cont.reshape(M, -1), mask.reshape(M))
+        weights = (cfg.w_service, cfg.w_name, cfg.w_kind, cfg.w_duration)
+        rargs = (dec, dl.weight, dl.bias, heads, *flat, weights)
+        served = model.recon_route
+        check(served == ("tc" if planes is not None else "cuda_core"),
+              f"recon_ce {name}: the model serves {served}")
+        V = sum(w.shape[0] for w, _ in heads)
+        v_tc = heads[0][0].shape[0] + heads[1][0].shape[0]
+        ref = krecon.recon_ce_plain(*rargs, eps=dl.eps)
+        for route in (("tc", "cuda_core") if planes is not None
+                      else ("cuda_core",)):
+            kw = dict(eps=dl.eps, route=route,
+                      planes=planes if route == "tc" else None)
+            tc0 = krecon.tc_launches
+            got = krecon.recon_ce(*rargs, **kw)
+            torch.cuda.synchronize()
+            check(krecon.tc_launches == tc0 + (route == "tc"),
+                  f"recon_ce {name} {route}: the tensor-core kernel's "
+                  f"launches")
+            check(bool(torch.isfinite(got).all())
+                  and bool((got[~flat[2]] == 0).all()),
+                  f"recon_ce {name} {route}: non-finite errors or padding "
+                  f"scored")
+            diff = (got - ref).abs().max().item()
+            check(diff <= RECON_ATOL, f"recon_ce {name} {route}: max "
+                                      f"|kernel - plain| {diff} > "
+                                      f"{RECON_ATOL}")
+            b_ms, b_by, nb = _k11_bound(real, M, d, V, v_tc, route, 2)
+            r = {"kernel": "recon_ce", "route": route, "M": M, "d": d,
+                 "real_positions": real, "max_abs_diff": diff,
+                 "bound": RECON_ATOL,
+                 **timings(lambda: krecon.recon_ce(*rargs, **kw),
+                           lambda: krecon.recon_ce_plain(*rargs,
+                                                         eps=dl.eps),
+                           None, flush),
+                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+            r.update(_ratios(r))
+            put("recon_ce", route, r)
+    return rows
+
+
+def phase_geometry(card: str) -> dict:
+    """Each geometry of GEOMETRIES built on the card, a few requests
+    scored on both routes (the host route's ``score``, the fused route's
+    ``dispatch_columns``), every kernel's launches read around each
+    route's run and held to what the geometry implies, K1's route named,
+    the kernel path held to the plain path on one request (phases 6, 10,
+    12's bounds), fused to host (phases 8, 10, 12's), and each route's
+    milliseconds a request."""
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.features import (assemble_sequences, featurize,
+                                           pack_sequences)
+    from odigos_tpu_torch.kernels import attention
+    from odigos_tpu_torch.models import AutoencoderConfig, TransformerConfig
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+    from odigos_tpu_torch.serving.fused import extract_columns
+
+    batches = [synthesize_traces(n, seed=300 + i)
+               for i, n in enumerate(GEOMETRY_TRACES)]
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    rows, kernel_rows = [], {}
+    for name, model_name, quantized, kw in GEOMETRIES:
+        cfg_cls = (AutoencoderConfig if model_name == "autoencoder"
+                   else TransformerConfig)
+        cfg = cfg_cls(**kw)
+        engine = ScoringEngine(EngineConfig(
+            model=model_name, device="cuda", quantized=quantized,
+            max_len=cfg.max_len, model_config=cfg))
+        be = engine.backend
+        model = be.model
+        if name == "ae_unsplittable":
+            with torch.no_grad():
+                model.module.service_head.weight.mul_(1e-36)
+        k11 = getattr(model, "recon_route", None)
+        tc = k11 == "tc"
+        check(model_name != "autoencoder"
+              or tc == (name != "ae_unsplittable"),
+              f"geometry {name}: K11 route {k11}")
+        hd = cfg.d_model // cfg.n_heads
+        probe = torch.zeros(1, cfg.max_len, cfg.n_heads, hd,
+                            dtype=cfg.dtype, device="cuda")
+        k1_route = attention.kernel_route(
+            probe, probe, probe, torch.zeros(1, cfg.max_len,
+                                             dtype=torch.int32,
+                                             device="cuda"))
+        out = {"geometry": name, "model": model_name,
+               "quantized": quantized, "config": repr(cfg),
+               "k1_route": k1_route,
+               "k11_route": k11}
+        replies = {}
+        for route in ("host", "fused"):
+            fused = route == "fused"
+            _zero_counters()
+            got, ms = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if fused:
+                    s = be.harvest(be.dispatch_columns(
+                        [extract_columns(b)[0]]))
+                else:
+                    s = be.score(b, featurize(b))
+                ms.append((time.perf_counter() - t) * 1e3)
+                _check_scores(s, len(b), f"geometry {name} {route}")
+                got.append(s)
+            launches = _read_counters(ALL_COUNTERS)
+            want = _geometry_launches(model_name, quantized, cfg, tc, fused,
+                                      len(batches))
+            check(launches == want,
+                  f"geometry {name} {route}: launches {launches} != {want}")
+            replies[route] = got
+            out[route] = {"launches": launches,
+                          "ms_per_request": ms[1:],
+                          "spans": [len(b) for b in batches]}
+        d = np.concatenate([np.abs(a - b) for a, b in
+                            zip(replies["fused"], replies["host"])])
+        if quantized:
+            check(float(d.max()) < INT8_FUSED_MAX
+                  and float(d.mean()) < INT8_FUSED_MEAN,
+                  f"geometry {name}: int8 fused vs host max {d.max()} "
+                  f"mean {d.mean()}")
+        else:
+            check(float(d.max()) <= PLAIN_PATH_BOUND,
+                  f"geometry {name}: fused vs host {d.max()} > "
+                  f"{PLAIN_PATH_BOUND}")
+        out["fused_vs_host_max_abs_diff"] = float(d.max())
+        # the kernel path against the plain path on the card, one request
+        b = batches[0]
+        with torch.inference_mode():
+            if model_name == "autoencoder":
+                seqs = assemble_sequences(b, featurize(b),
+                                          max_len=cfg.max_len)
+                args = (seqs.categorical, seqs.continuous, seqs.mask)
+                k = model.span_errors(*args).float().cpu().numpy()
+                p = model.span_errors(*args, reference=True).float().cpu(
+                    ).numpy()
+                m = seqs.mask
+                diff = float((np.abs(k[m] - p[m])
+                              / np.maximum(np.abs(p[m]), 1.0)).max())
+            else:
+                pk = pack_sequences(b, featurize(b), max_len=cfg.max_len)
+                args = (pk.categorical, pk.continuous, pk.segments,
+                        pk.positions)
+                k = model.score_packed(*args).cpu().numpy()
+                p = model.score_packed(*args, reference=True).cpu().numpy()
+                m = pk.segments > 0
+                diff = float(np.abs(k[m] - p[m]).max())
+        check(diff <= PLAIN_PATH_BOUND,
+              f"geometry {name}: kernel vs plain path {diff} > "
+              f"{PLAIN_PATH_BOUND}")
+        out["plain_path_max_abs_diff"] = diff
+        out["plain_path_bound"] = PLAIN_PATH_BOUND
+        # each kernel of the geometry against its plain version
+        krows = _geometry_kernels(name, model_name, quantized, cfg, model,
+                                  batches[0], scratch.zero_)
+        for kname, variants in krows.items():
+            kernel_rows.setdefault(kname, {}).update(variants)
+            for v, r in variants.items():
+                print(f"chip_smoke: geometry {v}: {kname}"
+                      + (f" ({r['route']})" if "route" in r else "")
+                      + f" {r['device_ms']:.4f} ms (bound "
+                      f"{r['bound_ms']:.4f}, plain {r['plain_device_ms']:.4f}"
+                      f"); max |kernel - plain| {r['max_abs_diff']:.3g}",
+                      flush=True)
+        out["kernels"] = krows
+        print(f"chip_smoke: geometry {name}: K1 {k1_route}"
+              + (f", K11 {k11}" if k11 else "")
+              + f"; kernel vs plain {diff:.3g}, fused vs host "
+              f"{out['fused_vs_host_max_abs_diff']:.3g}; ms a request "
+              f"host {out['host']['ms_per_request']}, fused "
+              f"{out['fused']['ms_per_request']}", flush=True)
+        emit({"phase": "geometry", "card": card, **out})
+        rows.append(out)
+        del engine, be, model
+        torch.cuda.empty_cache()
+    return {"geometries": rows, "kernel_rows": kernel_rows}
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -2716,6 +3466,7 @@ def main() -> int:
     int8_path = timed(phase_int8_path, card)
     ae_kern = timed(phase_ae_kernels, card)
     ae_path = timed(phase_ae_path, card)
+    geometry = timed(phase_geometry, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
@@ -2749,7 +3500,10 @@ def main() -> int:
                 "trace_rows_pack": "odigos_tpu/serving/fused.py:462",
                 "ln_bf16": "odigos_tpu/models/layers.py:71",
                 "gemm_bf16": "odigos_tpu/models/layers.py:78"}
-    designs = {"segment_attention": "mma.sync+cp.async persistent 2-stage",
+    designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
+                                    "persistent 2-stage; past them 64-key "
+                                    "tiles, online softmax (mma.sync bf16, "
+                                    "CUDA cores otherwise)",
                "span_embed": "warp-per-slot vec16, small tables in smem",
                "zscore_update": "3 launches: warp-aggregated f64 sums in "
                                 "per-CTA smem, 2 passes, Chan merge",
@@ -2774,8 +3528,9 @@ def main() -> int:
                "span_head_scatter": "warp per real span: f32 LN stats, "
                                     "bf16-rounded LN out, f32 head dot, "
                                     "sigmoid, write at perm[j]",
-               "ln_quantize": "warp per row, 16-byte loads in "
-                              "registers: exact f64 LN sums, bf16-rounded "
+               "ln_quantize": "warp per row (a CTA past K 1024), 16-byte "
+                              "loads in registers: exact f64 LN sums, "
+                              "bf16-rounded "
                               "LN out, absmax * f32(1/127), codes from "
                               "y * fl(1/a_s) by the 1.5*2^23 add, true "
                               "division only near a rounding boundary "
@@ -2804,16 +3559,21 @@ def main() -> int:
                            "accumulator, bias + online log-sum-exp + label "
                            "logit from the fragments, split tiles merged "
                            "by the last slice, kind/duration heads as f32 "
-                           "dots; f32: the CUDA-core kernel",
-               "ln_masked_pool": "warp per trace, padding skipped: exact "
+                           "dots; off d 32-256: 64-position tiles "
+                           "chunked along d; f32 and unsplittable heads: "
+                           "the CUDA-core kernel",
+               "ln_masked_pool": "warp per trace (strided lanes off d "
+                                 "32-256), padding skipped: exact "
                                  "f64 LN sums, bf16-rounded LN out, f64 "
                                  "pool sum, true division",
                "trace_rows_pack": "3 launches: K7's layout kernel marking "
                                   "trace starts; one-block popcount scan "
                                   "writing trace starts; slot-per-thread "
                                   "gather writing every output once",
-               "ln_bf16": "warp per row, two rows in flight, 16-byte "
-                          "loads in registers: exact f64 LN sums "
+               "ln_bf16": "16-byte vectors on d/8 lanes (several rows "
+                          "a warp at d <= 128, a CTA a row past 1024 "
+                          "bf16), persistent grid, next rows' loads "
+                          "first, device row count: exact f64 LN sums "
                           "(ln_exact.cuh), IEEE steps, rounded to the "
                           "working type",
                "gemm_bf16": "persistent, wgmma m64n128k16 bf16, TMA loads "
@@ -2985,6 +3745,10 @@ def main() -> int:
             "R": r["R"], "traces": r["traces"]}
            for key, r in ae_kern.items() if key[0] == "trace_rows_pack"
            and key != ("trace_rows_pack", "otel", FUSED_MAIN_N)}}))
+    # every kernel's rows at the geometries past the default, each held to
+    # its plain version there (phase_geometry)
+    for ln_ in lines:
+        ln_["geometries"] = geometry["kernel_rows"].get(ln_["name"], {})
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -33,6 +33,9 @@
   ``dense.gemm_bf16`` — K15, its bf16 tensor-core GEMM with the bias and
   the residual or GELU fused into the epilogue (``csrc/dense.cu``).
 
+``coverage.check`` states the model geometries the kernels take on the
+card (the models call it at construction there and raise outside it).
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
 ``zscore.update_launches`` and ``zscore.score_launches``; K13:
@@ -41,8 +44,8 @@ plain PyTorch version for CPU tensors; each module's ``launches`` (K3/K4:
 compiles the sources with nvcc at first use.
 """
 
-from . import (attention, build, dense, embed, featurize, head, pack, pool,
-               qgemm, quant, recon, sort, zscore)
+from . import (attention, build, coverage, dense, embed, featurize, head,
+               pack, pool, qgemm, quant, recon, sort, zscore)
 from .attention import segment_attention, segment_attention_plain
 from .dense import gemm_bf16, gemm_bf16_plain, ln_bf16, ln_bf16_plain
 from .embed import EmbedTables, span_embed, span_embed_plain
@@ -62,6 +65,7 @@ from .zscore import (zscore_score, zscore_score_plain, zscore_update,
 __all__ = [
     "attention",
     "build",
+    "coverage",
     "dense",
     "embed",
     "featurize",

@@ -7,12 +7,15 @@ segments branch): key j is allowed for query i iff
 ``segments[i] == segments[j] > 0``. Layout is JAX's DenseGeneral layout,
 ``(R, L, H, hd)`` in and out.
 
-A CUDA tensor launches one of two hand-written kernels
+A CUDA tensor launches one of four hand-written kernels
 (``csrc/segment_attention.cu``) or raises; :func:`kernel_route` says which.
-bf16 inputs with ``hd % 16 == 0`` and ``L % 4 == 0`` (the main path) take
-the tensor-core kernel (``"tc"``); f32 inputs, the parity path, and bf16
-shapes the tensor-core kernel does not take, take the CUDA-core kernel
-(``"simt"``).
+Up to ``L = 64`` slots and ``hd = 64``, bf16 inputs with ``hd % 16 == 0``
+and ``L % 4 == 0`` whose row fits shared memory (the default geometry)
+take the one-tile tensor-core kernel (``"tc"``), the rest the one-tile
+CUDA-core kernel (``"simt"``; f32, the parity path). Past that, up to
+``MAX_L`` slots and ``MAX_HD`` head dims, the tiled kernels stream 64-key
+tiles with an online softmax: bf16 with ``hd % 16 == 0`` on tensor cores
+(``"flash"``), everything else on CUDA cores (``"tiled"``).
 A CPU tensor takes :func:`segment_attention_plain`, the plain PyTorch
 version of the same arithmetic, which is also what both kernels are held
 to on the card. ``launches`` counts kernel launches.
@@ -29,10 +32,11 @@ import torch
 
 from . import build
 
-MAX_L = 64   # the kernels' tile: <= 64 slots and hd <= 64 per (row, head)
-MAX_HD = 64
+ONE_TILE = 64   # the one-tile kernels: <= 64 slots and hd <= 64
+MAX_L = 1024    # the tiled kernels (K7's walk takes no longer rows)
+MAX_HD = 256
 TC_SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
-_ROUTES = {"simt": 0, "tc": 1}
+_ROUTES = {"simt": 0, "tc": 1, "flash": 2, "tiled": 3}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,16 +101,22 @@ def tc_stage_bytes(L: int, H: int, hd: int) -> int:
 
 def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  segments: torch.Tensor) -> str:
-    """``"tc"`` where the tensor-core kernel takes the inputs (bf16,
-    ``hd % 16 == 0`` for whole 16-column tiles, ``L % 4 == 0`` and
-    16-byte aligned tensors for 16-byte copies, one row's stage fits shared
-    memory), else ``"simt"``, the CUDA-core kernel."""
+    """The kernel a CUDA launch takes (module docstring): ``"tc"`` where
+    the one-tile tensor-core kernel takes the inputs (bf16, ``hd % 16 ==
+    0`` for whole 16-column tiles, ``L % 4 == 0`` and 16-byte aligned
+    tensors for 16-byte copies, one row's stage in shared memory, ``L`` and
+    ``hd`` at most 64), else ``"simt"`` up to 64; past that ``"flash"``
+    (bf16, ``hd % 16 == 0``, aligned) or ``"tiled"``."""
     _, L, H, hd = q.shape
-    if (q.dtype == torch.bfloat16 and hd % 16 == 0 and L % 4 == 0
-            and tc_stage_bytes(L, H, hd) <= TC_SMEM_LIMIT
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v, segments))):
-        return "tc"
-    return "simt"
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    tc_shape = q.dtype == torch.bfloat16 and hd % 16 == 0 and aligned
+    if L <= ONE_TILE and hd <= ONE_TILE:
+        fits = tc_stage_bytes(L, H, hd) <= TC_SMEM_LIMIT
+        if (tc_shape and fits and L % 4 == 0
+                and segments.data_ptr() % 16 == 0):
+            return "tc"
+        return "flash" if tc_shape and not fits else "simt"
+    return "flash" if tc_shape else "tiled"
 
 
 def _kernel():
@@ -136,7 +146,7 @@ def segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"segments must be int32, got {segments.dtype}")
     R, L, H, hd = q.shape
     if L > MAX_L or hd > MAX_HD:
-        raise ValueError(f"kernel tile holds L <= {MAX_L} and hd <= "
+        raise ValueError(f"segment_attention takes L <= {MAX_L} and hd <= "
                          f"{MAX_HD}, got L={L} hd={hd}")
     if not all(t.is_contiguous() for t in (q, k, v, segments)):
         raise ValueError("segment_attention needs contiguous inputs")

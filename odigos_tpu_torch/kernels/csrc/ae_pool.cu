@@ -11,7 +11,9 @@
 // final LayerNorm and applies it at the real positions only.
 //
 // One warp per trace (row of L positions), d = 32 * PER features, lane k
-// holding features [k * PER, (k + 1) * PER). For each real position (the
+// holding features [k * PER, (k + 1) * PER) (d in 32, 64, 128, 256; any
+// other d % 8 == 0 up to 1024: lane k holds k, k + 32, ..., gamma and
+// beta in shared memory). For each real position (the
 // mask byte is warp-uniform; padding is skipped, which is exact: the LN of
 // a finite row is finite, and the reference multiplies it by 0):
 //   * the LayerNorm of ln_exact.cuh, shared with K9 and K11: exact f64
@@ -83,6 +85,64 @@ __global__ void __launch_bounds__(kThreads) ln_masked_pool_kernel(
   }
 }
 
+// Any other d % 8 == 0 up to 1024: lane k holds features k, k + 32, ...
+// (PER of them, those at or past d idle), gamma and beta in shared
+// memory; the same arithmetic (the f64 sums are exact, so the layout does
+// not change a bit).
+template <typename T, int PER>
+__global__ void __launch_bounds__(kThreads) ln_masked_pool_any_kernel(
+    const T* __restrict__ x, const uint8_t* __restrict__ mask,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    float eps, long long n_rows, int L, int d, T* __restrict__ out) {
+  __shared__ float s_g[32 * PER], s_b[32 * PER];
+  const int lane = threadIdx.x & 31;
+  for (int e = threadIdx.x; e < d; e += kThreads) {
+    s_g[e] = gamma[e];
+    s_b[e] = beta[e];
+  }
+  __syncthreads();
+  const long long warps = (long long)gridDim.x * kWarps;
+  for (long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       t < n_rows; t += warps) {
+    double acc[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) acc[j] = 0.0;
+    int count = 0;
+    for (int l = 0; l < L; ++l) {
+      if (!mask[t * L + l]) continue;  // warp-uniform
+      ++count;
+      const T* xr = x + (t * L + l) * d;
+      float v[PER];
+      double s = 0.0;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int f = j * 32 + lane;
+        v[j] = f < d ? load_f(xr + f) : 0.f;
+        s += (double)v[j];
+      }
+      const float mean = ln_mean(s, d);
+      double q = 0.0;
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        if (j * 32 + lane < d) q += ln_sq_dev(v[j], mean);
+      const float rstd = ln_rstd(q, d, eps);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int f = j * 32 + lane;
+        if (f < d)
+          acc[j] += (double)ln_out(v[j], mean, rstd, s_g[f], s_b[f], xr);
+      }
+    }
+    const float denom = (float)(count > 0 ? count : 1);
+    T* o = out + t * d;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int f = j * 32 + lane;
+      if (f < d) store(o + f, __fdiv_rn(round_to((float)acc[j], o), denom));
+    }
+  }
+}
+
 template <typename T>
 int launch(const T* x, const uint8_t* mask, const float* gamma,
            const float* beta, float eps, long long n_rows, int L, int d,
@@ -109,7 +169,16 @@ int launch(const T* x, const uint8_t* mask, const float* gamma,
           x, mask, gamma, beta, eps, n_rows, L, out);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      if (d % 8 != 0 || d > 1024) return (int)cudaErrorInvalidValue;
+      if (d <= 256)
+        ln_masked_pool_any_kernel<T, 8><<<g, kThreads, 0, st>>>(
+            x, mask, gamma, beta, eps, n_rows, L, d, out);
+      else if (d <= 512)
+        ln_masked_pool_any_kernel<T, 16><<<g, kThreads, 0, st>>>(
+            x, mask, gamma, beta, eps, n_rows, L, d, out);
+      else
+        ln_masked_pool_any_kernel<T, 32><<<g, kThreads, 0, st>>>(
+            x, mask, gamma, beta, eps, n_rows, L, d, out);
   }
   return (int)cudaGetLastError();
 }
@@ -118,8 +187,8 @@ int launch(const T* x, const uint8_t* mask, const float* gamma,
 
 // K12. x: (n_rows, L, d) bf16 (dtype 1) or f32 (dtype 0), the encoder's
 // hidden state before its final LayerNorm; mask: (n_rows, L) bytes (0 =
-// padding); gamma, beta: (d,) f32; out: (n_rows, d) in x's type. d is 32,
-// 64, 128 or 256.
+// padding); gamma, beta: (d,) f32; out: (n_rows, d) in x's type. d % 8
+// == 0 up to 1024 (32, 64, 128 and 256 on the register-resident kernel).
 extern "C" int ln_masked_pool_launch(const void* x, int dtype,
                                      const void* mask, const void* gamma,
                                      const void* beta, float eps,

@@ -5,13 +5,29 @@
 // dec_ff2 of odigos_tpu/models/autoencoder.py (:78-80): everything of the
 // block but the attention (K1).
 //
-// K14 ln_bf16: Flax's LayerNorm(dtype) over the last dimension, one warp
-// per row, d = 32 * PER values, lane k holding [k * PER, (k + 1) * PER)
-// loaded and stored 16 bytes at a time, two rows in flight per warp (both
-// loaded before either is reduced). The arithmetic is ln_exact.cuh's
-// (exact f64 row sums rounded once, IEEE steps, the result rounded to the
-// working type), so the plain version (torch's f64 sums) gives the same
-// bits. Bound: bytes (the row read once, written once).
+// K14 ln_bf16: Flax's LayerNorm(dtype) over the last dimension, any d %
+// 8 == 0 from 8 to 4096. Every load and store is a 16-byte vector: a row
+// lives on the d / 8 (bf16; f32: d / 4) lanes of a group rounded up to a
+// power of two, so a warp holds 32 / G rows at d <= 128 (bf16) and each
+// row's shuffle trees are log2 G deep; up to 128 vectors a row the group
+// is the warp (up to 4 vectors a lane), past that one CTA takes a row
+// (vectors spread over 256 threads, the sums through shared memory). The
+// grid is persistent (SMs x the CTAs an SM holds) and each warp issues its
+// next rows' loads before reducing the current ones. With a device row
+// count (live, per) the rows at or past live[0] * per are neither read nor
+// written: the fused routes' padding rows, with no host sync. The
+// arithmetic is ln_exact.cuh's (f64 row sums rounded once, IEEE steps,
+// the result rounded to the working type), so the plain version (torch's
+// f64 sums) gives the same bits where both f64 sums are exact: the
+// values' sum is exact when their binade spread + log2(d) + 8 (bf16; f32:
+// + 24) <= 53, i.e. a spread of 33 binades at d 4096 in bf16; the squared
+// deviations are f32 values, exact while their spread + log2(d) + 24 <=
+// 53 (17 binades at d 4096). Past that each sum may round in f64 (a
+// relative 2^-53 before the f32 rounding), and kernel and plain may differ
+// by one step of the output type (tests/test_torch_dense.py holds the
+// plain version there). Bound: bytes (the row read once, written once).
+// The parent design (a warp a row at d = 32 * PER, two rows in flight, a
+// capped grid) stays as ln_bf16_warp_launch, for the smoke run's timing.
 //
 // K15 gemm_bf16: out = epilogue(x . w^T + b), x (M, K) and w (N, K) both
 // K-major (the Linear layout), b (N,), all in the working type, f32
@@ -24,7 +40,12 @@
 // steps, tanhf) and the adds bf16x2 adds (correctly rounded, equal to the
 // plain version's f32 add then round). The output is written in `planes`
 // contiguous planes of N / planes columns, so the fused QKV product
-// (N = 3d) leaves q, k and v each contiguous for K1.
+// (N = 3d) leaves q, k and v each contiguous for K1. With a device row
+// count (the fused routes' real rows, as K14 takes it) the walk covers
+// only the row tiles that hold a real row: the padding tiles past them are
+// neither read nor written, so their time and their contents (whatever
+// the allocator left, which the GELU's rare-value path would otherwise
+// meet) do not reach the launch.
 //
 // bf16 design (the serving path): wgmma.mma_async m64n128k16 bf16 -> f32
 // with both operands in shared memory under the 128-byte swizzle, loaded
@@ -71,6 +92,293 @@
 namespace {
 
 // ------------------------------------------------------------------- K14
+// 16-byte vectors of T: EPV values each
+template <typename T>
+struct Vec {
+  static constexpr int EPV = 16 / (int)sizeof(T);
+};
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+// y already rounded to T's type: packing keeps its bits
+__device__ __forceinline__ uint4 pack(const float (&y)[4]) {
+  return make_uint4(__float_as_uint(y[0]), __float_as_uint(y[1]),
+                    __float_as_uint(y[2]), __float_as_uint(y[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&y)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (__float_as_uint(y[2 * i]) >> 16) |
+           (__float_as_uint(y[2 * i + 1]) & 0xffff0000u);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// f64 sum over the G lanes of an aligned group (xor offsets below G)
+template <int G>
+__device__ __forceinline__ double group_sum(double v) {
+#pragma unroll
+  for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// the rows K14 may touch: all of them, or live[0] * per (a device count,
+// read here so that the host never waits for it)
+__device__ __forceinline__ long long ln_row_limit(long long rows,
+                                                  const int* live, int per) {
+  if (live == nullptr) return rows;
+  const long long n = (long long)__ldg(live) * per;
+  return n < rows ? (n < 0 ? 0 : n) : rows;
+}
+
+constexpr int kLnThreads = 256;
+constexpr int kLnWarps = kLnThreads / 32;
+
+// A row of d values on G lanes of a warp (32 / G rows a warp at once),
+// lane sub holding the 16-byte vectors sub, sub + G, ... (NV of them; those
+// at or past d / EPV are idle). Persistent: the grid is as many CTAs as
+// the SMs hold, each warp walking its rows with the next rows' loads
+// issued before the current ones are reduced.
+template <typename T, int G, int NV>
+__global__ void __launch_bounds__(kLnThreads) ln_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float eps, long long rows, int d,
+    const int* __restrict__ live, int per, T* __restrict__ out) {
+  constexpr int EPV = Vec<T>::EPV;
+  constexpr int RW = 32 / G;  // rows a warp at once
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % G;
+  const int nvec = d / EPV;
+  const long long lim = ln_row_limit(rows, live, per);
+  float g[NV][EPV], b[NV][EPV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vi = j * G + sub;
+#pragma unroll
+    for (int e = 0; e < EPV; ++e) {
+      const bool in = vi < nvec;
+      g[j][e] = in ? __ldg(gamma + vi * EPV + e) : 0.f;
+      b[j][e] = in ? __ldg(beta + vi * EPV + e) : 0.f;
+    }
+  }
+  const long long stride = (long long)gridDim.x * kLnWarps * RW;
+  long long r = ((long long)blockIdx.x * kLnWarps + (threadIdx.x >> 5)) * RW +
+                lane / G;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  uint4 cur[NV], nxt[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if (r < lim && j * G + sub < nvec)
+      cur[j] = __ldg(xv + r * nvec + j * G + sub);
+  // warp-uniform walk: a group past the limit idles through the shuffles
+  for (long long r0 = r - lane / G; r0 < lim; r0 += stride, r += stride) {
+    const long long rn = r + stride;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (rn < lim && j * G + sub < nvec)
+        nxt[j] = __ldg(xv + rn * nvec + j * G + sub);
+    const bool mine = r < lim;
+    float v[NV][EPV];
+    double s = 0.0;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      unpack(cur[j], v[j]);
+      if (mine && j * G + sub < nvec) {
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) s += (double)v[j][e];
+      }
+    }
+    const float mean = __fdiv_rn((float)group_sum<G>(s), (float)d);
+    double q = 0.0;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (mine && j * G + sub < nvec) {
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) q += ln_sq_dev(v[j][e], mean);
+      }
+    const float var = __fdiv_rn((float)group_sum<G>(q), (float)d);
+    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (!mine || j * G + sub >= nvec) continue;
+      float y[EPV];
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        y[e] = ln_out(v[j][e], mean, rstd, g[j][e], b[j][e], x);
+      ov[r * nvec + j * G + sub] = pack(y);
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) cur[j] = nxt[j];
+  }
+}
+
+// A row wider than a warp's registers (more than 128 vectors): one CTA a
+// row, thread t holding the vectors t, t + 256, ... (NV of them), the
+// row's sums through shared memory; persistent, the next row's loads
+// issued before the current one is reduced.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kLnThreads) ln_wide_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float eps, long long rows, int d,
+    const int* __restrict__ live, int per, T* __restrict__ out) {
+  constexpr int EPV = Vec<T>::EPV;
+  __shared__ double s_part[2][kLnWarps];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int nvec = d / EPV;
+  const long long lim = ln_row_limit(rows, live, per);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  uint4 cur[NV], nxt[NV];
+  long long r = blockIdx.x;
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    if (r < lim && j * kLnThreads + tid < nvec)
+      cur[j] = __ldg(xv + r * nvec + j * kLnThreads + tid);
+  for (; r < lim; r += gridDim.x) {  // block-uniform
+    const long long rn = r + gridDim.x;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (rn < lim && j * kLnThreads + tid < nvec)
+        nxt[j] = __ldg(xv + rn * nvec + j * kLnThreads + tid);
+    float v[NV][EPV];
+    double s = 0.0;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      unpack(cur[j], v[j]);
+      if (j * kLnThreads + tid < nvec) {
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) s += (double)v[j][e];
+      }
+    }
+    s = warp_sum(s);
+    if (lane == 0) s_part[0][wid] = s;
+    __syncthreads();
+    s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kLnWarps; ++w) s += s_part[0][w];
+    const float mean = __fdiv_rn((float)s, (float)d);
+    double q = 0.0;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (j * kLnThreads + tid < nvec) {
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) q += ln_sq_dev(v[j][e], mean);
+      }
+    q = warp_sum(q);
+    if (lane == 0) s_part[1][wid] = q;
+    __syncthreads();
+    q = 0.0;
+#pragma unroll
+    for (int w = 0; w < kLnWarps; ++w) q += s_part[1][w];
+    const float var = __fdiv_rn((float)q, (float)d);
+    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int vi = j * kLnThreads + tid;
+      if (vi >= nvec) continue;
+      float y[EPV];
+#pragma unroll
+      for (int e = 0; e < EPV; ++e)
+        y[e] = ln_out(v[j][e], mean, rstd, __ldg(gamma + vi * EPV + e),
+                      __ldg(beta + vi * EPV + e), x);
+      ov[r * nvec + vi] = pack(y);
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) cur[j] = nxt[j];
+    __syncthreads();  // s_part is rewritten by the next row
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// the persistent grid of kernel k: SMs x the CTAs an SM holds, looked up
+// once a device (a static per instantiation)
+template <typename K>
+cudaError_t persistent_grid(K kernel, int (&cache)[kMaxDevices], int* grid) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && cache[dev] > 0) {
+    *grid = cache[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kLnThreads, 0);
+  if (e != cudaSuccess) return e;
+  *grid = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < kMaxDevices) cache[dev] = *grid;
+  return cudaSuccess;
+}
+
+template <typename K, typename T>
+cudaError_t ln_go(K kernel, int (&cache)[kMaxDevices], const T* x,
+                  const float* g, const float* b, float eps, long long rows,
+                  int d, const int* live, int per, T* out, long long units,
+                  cudaStream_t st) {
+  int grid = 0;
+  cudaError_t e = persistent_grid(kernel, cache, &grid);
+  if (e != cudaSuccess) return e;
+  if (units < grid) grid = (int)(units > 0 ? units : 1);
+  kernel<<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, d, live, per, out);
+  return cudaGetLastError();
+}
+
+#define LN_ROWS(G_, NV_)                                                    \
+  {                                                                         \
+    static int cache[kMaxDevices];                                          \
+    constexpr long long slots = kLnWarps * (32 / (G_));                     \
+    return ln_go(ln_rows_kernel<T, G_, NV_>, cache, x, g, b, eps, rows, d,  \
+                 live, per, out, (rows + slots - 1) / slots, st);           \
+  }
+
+// d % 8 == 0, 8 <= d <= 4096: the group of lanes a row and the vectors a
+// lane, or one CTA a row past 128 vectors
+template <typename T>
+cudaError_t ln_launch_t(const T* x, const float* g, const float* b, float eps,
+                        long long rows, int d, const int* live, int per,
+                        T* out, cudaStream_t st) {
+  const int nvec = d / Vec<T>::EPV;
+  if (nvec <= 1) LN_ROWS(1, 1)
+  if (nvec <= 2) LN_ROWS(2, 1)
+  if (nvec <= 4) LN_ROWS(4, 1)
+  if (nvec <= 8) LN_ROWS(8, 1)
+  if (nvec <= 16) LN_ROWS(16, 1)
+  if (nvec <= 32) LN_ROWS(32, 1)
+  if (nvec <= 64) LN_ROWS(32, 2)
+  if (nvec <= 128) LN_ROWS(32, 4)
+  static int c1[kMaxDevices], c2[kMaxDevices], c4[kMaxDevices];
+  if (nvec <= kLnThreads)
+    return ln_go(ln_wide_kernel<T, 1>, c1, x, g, b, eps, rows, d, live, per,
+                 out, rows, st);
+  if (nvec <= 2 * kLnThreads)
+    return ln_go(ln_wide_kernel<T, 2>, c2, x, g, b, eps, rows, d, live, per,
+                 out, rows, st);
+  if (nvec <= 4 * kLnThreads)
+    return ln_go(ln_wide_kernel<T, 4>, c4, x, g, b, eps, rows, d, live, per,
+                 out, rows, st);
+  return cudaErrorInvalidValue;
+}
+#undef LN_ROWS
+
+// The earlier design, kept to be timed beside the one above: one
+// warp a row, d = 32 * PER values, lane k holding [k * PER, (k + 1) * PER),
+// two rows in flight a warp, a grid of at most 4096 CTAs.
 // PER values of T from src to dst, in the widest aligned pieces
 template <typename T, int PER>
 __device__ __forceinline__ void copy_row(T* dst, const T* src) {
@@ -99,12 +407,10 @@ __device__ __forceinline__ void to_t(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(v);
 }
 
-constexpr int kLnThreads = 256;
-constexpr int kLnWarps = kLnThreads / 32;
 constexpr int kLnRows = 2;  // rows a warp has in flight: loads first
 
 template <typename T, int PER>
-__global__ void __launch_bounds__(kLnThreads) ln_bf16_kernel(
+__global__ void __launch_bounds__(kLnThreads) ln_warp_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, float eps, long long rows,
     T* __restrict__ out) {
@@ -140,40 +446,53 @@ __global__ void __launch_bounds__(kLnThreads) ln_bf16_kernel(
 }
 
 template <typename T>
-int ln_launch_t(const T* x, const float* g, const float* b, float eps,
-                long long rows, int d, T* out, cudaStream_t st) {
+int ln_warp_launch_t(const T* x, const float* g, const float* b, float eps,
+                     long long rows, int d, T* out, cudaStream_t st) {
   long long blocks = (rows + kLnWarps * kLnRows - 1) / (kLnWarps * kLnRows);
   if (blocks > 4096) blocks = 4096;  // grid-stride beyond
   const unsigned grid = (unsigned)blocks;
   switch (d) {
     case 32:
-      ln_bf16_kernel<T, 1>
-          <<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, out);
+      ln_warp_kernel<T, 1><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
+                                                        out);
       break;
     case 64:
-      ln_bf16_kernel<T, 2>
-          <<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, out);
+      ln_warp_kernel<T, 2><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
+                                                        out);
       break;
     case 128:
-      ln_bf16_kernel<T, 4>
-          <<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, out);
+      ln_warp_kernel<T, 4><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
+                                                        out);
       break;
     case 256:
-      ln_bf16_kernel<T, 8>
-          <<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, out);
+      ln_warp_kernel<T, 8><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
+                                                        out);
       break;
     case 512:
-      ln_bf16_kernel<T, 16>
-          <<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, out);
+      ln_warp_kernel<T, 16><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
+                                                         out);
       break;
     case 1024:
-      ln_bf16_kernel<T, 32>
-          <<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, out);
+      ln_warp_kernel<T, 32><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
+                                                         out);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------- K15 row count
+// The row tiles of `tile` rows that hold a row below live[0] * per, at
+// most `tiles`; all of them without a count. Read by every thread at the
+// kernel's start: the count was written by an earlier launch.
+__device__ __forceinline__ long long live_row_tiles(const int* live, int per,
+                                                    long long M, int tile,
+                                                    long long tiles) {
+  if (live == nullptr) return tiles;
+  const long long n = (long long)max(__ldg(live), 0) * per;
+  const long long t = ((n < M ? n : M) + tile - 1) / tile;
+  return t < tiles ? t : tiles;
 }
 
 // ------------------------------------------------------- K15 epilogue
@@ -366,7 +685,9 @@ __device__ __forceinline__ void epilogue_rows(
 // stage one step after its products were issued. The epilogue takes the
 // bias from shared memory (staged once a tile) and, in residual mode, the
 // residual tile from the staging buffer, loaded there by TMA while the
-// tile's products run.
+// tile's products run. With a row count (live, per), the walk stops at
+// the last row tile that holds a row below live[0] * per: the tiles past
+// it are neither read nor written.
 template <int MODE, bool WS>
 __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
     const __grid_constant__ CUtensorMap map_x,
@@ -374,7 +695,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
     const __grid_constant__ CUtensorMap map_out,
     const __grid_constant__ CUtensorMap map_res,
     const __nv_bfloat16* __restrict__ bias, long long M, int N, int K,
-    int plane_cols, int n_tiles, long long m_tiles) {
+    int plane_cols, int n_tiles, long long m_tiles,
+    const int* __restrict__ live, int per) {
   using C = TcCfg<MODE, WS>;
   constexpr int S = C::kStages;
   constexpr int kStageBytes = C::kStageBytes;
@@ -424,14 +746,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
   const long long first =
       (WS ? blockIdx.x / n_tiles : blockIdx.x) + wg * stride;
   const long long step = kConsumerWgs * stride;
-  const long long limit = WS ? m_tiles : m_tiles * n_tiles;
+  const long long live_tiles = live_row_tiles(live, per, M, BM, m_tiles);
+  const long long limit = WS ? live_tiles : live_tiles * n_tiles;
   const int ws_col = WS ? (int)(blockIdx.x % n_tiles) : 0;
 
   if (warp >= 4 * kConsumerWgs) {  // a producer warp: one lane loads
     if (lane == 0) {
-      // warpgroup 0 always has a tile (the grid has no more row groups
-      // than row tiles), so its consumers wait for the slice
-      if (WS && wg == 0) {
+      // warpgroup 0 has a tile whenever warpgroup 1 has one, so its
+      // producer loads the slice for both (none past the row count)
+      if (WS && wg == 0 && first < limit) {
         mbar_expect_tx(&w_bar, ktiles * kTileB);
         for (int kt = 0; kt < ktiles; ++kt)
           tma_load_2d(wslice + kt * kTileB, &map_w, kt * BK, ws_col * BN,
@@ -549,6 +872,8 @@ struct TcArgs {
   const __nv_bfloat16* b;
   long long M;
   int N, K, pc, sms;
+  const int* live;
+  int per;
 };
 
 template <int MODE, bool WS>
@@ -571,7 +896,7 @@ cudaError_t launch_tc_mode(const TcArgs& a, cudaStream_t st) {
   gemm_tc_kernel<MODE, WS><<<(unsigned)grid, kTcThreads, C::kSmem, st>>>(
       a.mx, a.mw, C::kHalf ? a.mo_half : a.mo, C::kHalf ? a.mr_half : a.mr,
       a.b, a.M, a.N, a.K,
-      a.pc, n_tiles, m_tiles);
+      a.pc, n_tiles, m_tiles, a.live, a.per);
   return cudaGetLastError();
 }
 
@@ -587,8 +912,10 @@ cudaError_t launch_tc_walk(int mode, const TcArgs& a, cudaStream_t st) {
 
 cudaError_t launch_tc(int mode, const void* x, const void* w, const void* b,
                       const void* res, void* out, long long M, int N, int K,
-                      int planes, cudaStream_t st) {
+                      int planes, const int* live, int per, cudaStream_t st) {
   TcArgs a;
+  a.live = live;
+  a.per = per;
   a.pc = N / planes;
   if (planes > 1 && a.pc % 64 != 0) return cudaErrorInvalidValue;
   int dev = 0;
@@ -631,10 +958,13 @@ __global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ res,
     float* __restrict__ out, long long M, int N, int K, int plane_cols,
-    int n_tiles) {
+    int n_tiles, const int* __restrict__ live, int per) {
   __shared__ float As[SBK][SB + 4];
   __shared__ float Bs[SBK][SB + 4];
   const long long m0 = (long long)(blockIdx.x / n_tiles) * SB;
+  // a tile past the row count is neither read nor written
+  if (m0 >= live_row_tiles(live, per, M, SB, (M + SB - 1) / SB) * SB)
+    return;
   const int n0 = (int)(blockIdx.x % n_tiles) * SB;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -691,7 +1021,7 @@ __global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
 
 cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
                        const void* res, void* out, long long M, int N, int K,
-                       int planes, cudaStream_t st) {
+                       int planes, const int* live, int per, cudaStream_t st) {
   const int n_tiles = (N + SB - 1) / SB;
   const long long tiles = (M + SB - 1) / SB * n_tiles;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -704,24 +1034,49 @@ cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
   const unsigned g = (unsigned)tiles;
   if (mode == 0)
     gemm_f32_kernel<0><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles);
+                                                  pc, n_tiles, live, per);
   else if (mode == 1)
     gemm_f32_kernel<1><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles);
+                                                  pc, n_tiles, live, per);
   else
     gemm_f32_kernel<2><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles);  // 2 and 3
+                                                  pc, n_tiles, live,
+                                                  per);  // 2 and 3
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // K14. x: (rows, d) bf16 (dtype 1) or f32 (dtype 0), 16-byte aligned;
-// gamma, beta: (d,) f32; out: (rows, d) in x's type. d is 32, 64, 128,
-// 256, 512 or 1024.
+// gamma, beta: (d,) f32; out: (rows, d) in x's type; d % 8 == 0, 8 <= d
+// <= 4096. live (nullable): a (1,) int32 count on the device; rows at or
+// past live[0] * per are neither read nor written.
 extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
                               const void* beta, float eps, long long rows,
-                              int d, void* out, void* stream) {
+                              int d, const void* live, int per, void* out,
+                              void* stream) {
+  if (rows < 0 || (dtype != 0 && dtype != 1) || d < 8 || d % 8 != 0 ||
+      d > 4096 || per < 1)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  const int* lv = static_cast<const int*>(live);
+  if (dtype == 1)
+    return (int)ln_launch_t(static_cast<const __nv_bfloat16*>(x), g, b, eps,
+                            rows, d, lv, per,
+                            static_cast<__nv_bfloat16*>(out), st);
+  return (int)ln_launch_t(static_cast<const float*>(x), g, b, eps, rows, d,
+                          lv, per, static_cast<float*>(out), st);
+}
+
+// K14's earlier design (a warp a row), timed beside it by the smoke run:
+// the same arguments without a count, d in 32, 64, 128, 256, 512 or 1024.
+extern "C" int ln_bf16_warp_launch(const void* x, int dtype,
+                                   const void* gamma, const void* beta,
+                                   float eps, long long rows, int d,
+                                   void* out, void* stream) {
   if (rows < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
@@ -729,10 +1084,10 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   if (dtype == 1)
-    return ln_launch_t(static_cast<const __nv_bfloat16*>(x), g, b, eps, rows,
-                       d, static_cast<__nv_bfloat16*>(out), st);
-  return ln_launch_t(static_cast<const float*>(x), g, b, eps, rows, d,
-                     static_cast<float*>(out), st);
+    return ln_warp_launch_t(static_cast<const __nv_bfloat16*>(x), g, b, eps,
+                            rows, d, static_cast<__nv_bfloat16*>(out), st);
+  return ln_warp_launch_t(static_cast<const float*>(x), g, b, eps, rows, d,
+                          static_cast<float*>(out), st);
 }
 
 // K15. mode 0 none, 1 residual, 2 gelu_tanh, 3 gelu_tanh by the formula
@@ -741,19 +1096,25 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
 // mode 1, else null; out: (planes, M, N / planes),
 // 16-byte aligned; all bf16 (dtype 1) or all f32 (dtype 0); N % 8 == 0
 // and (N / planes) % 8 == 0 (bf16 with planes > 1: % 64 == 0), planes ==
-// 1 for mode 1.
+// 1 for mode 1. live (nullable): a (1,) int32 count on the device; the
+// row tiles (128 rows, 64 on f32) that hold no row below live[0] * per
+// are neither read nor written.
 extern "C" int gemm_bf16_launch(const void* x, const void* w, const void* b,
                                 const void* res, void* out, int dtype,
                                 int mode, long long M, int N, int K,
-                                int planes, void* stream) {
+                                int planes, const void* live, int per,
+                                void* stream) {
   if (M < 0 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 || planes < 1 ||
       N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 3 ||
       (mode == 1) != (res != nullptr) || (mode == 1 && planes != 1) ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || per < 1)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lv = static_cast<const int*>(live);
   if (dtype == 0)
-    return (int)launch_f32(mode, x, w, b, res, out, M, N, K, planes, st);
-  return (int)launch_tc(mode, x, w, b, res, out, M, N, K, planes, st);
+    return (int)launch_f32(mode, x, w, b, res, out, M, N, K, planes, lv, per,
+                           st);
+  return (int)launch_tc(mode, x, w, b, res, out, M, N, K, planes, lv, per,
+                        st);
 }

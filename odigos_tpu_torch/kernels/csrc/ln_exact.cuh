@@ -91,4 +91,36 @@ __device__ __forceinline__ void warp_ln_row(const T* xr, const float* g,
     y[j] = ln_out(v[j], mean, rstd, g[j], b[j], xr);
 }
 
+// A row of d <= 32 * PER values of T at xr, lane k holding the values k,
+// k + 32, ... (those at or past d idle): any d, the same bits as
+// warp_ln_row (the sums are exact, so the layout does not matter). g and
+// b are the whole (d,) parameters; y[j] gets value k + 32 j, 0 past d.
+template <typename T, int PER>
+__device__ __forceinline__ void warp_ln_row_strided(const T* xr, int d,
+                                                    const float* g,
+                                                    const float* b,
+                                                    float eps,
+                                                    float (&y)[PER]) {
+  const int lane = threadIdx.x & 31;
+  float v[PER];
+  double s = 0.0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int f = j * 32 + lane;
+    v[j] = f < d ? load_f(xr + f) : 0.f;
+    s += (double)v[j];
+  }
+  const float mean = ln_mean(s, d);
+  double q = 0.0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j)
+    if (j * 32 + lane < d) q += ln_sq_dev(v[j], mean);
+  const float rstd = ln_rstd(q, d, eps);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int f = j * 32 + lane;
+    y[j] = f < d ? ln_out(v[j], mean, rstd, g[f], b[f], xr) : 0.f;
+  }
+}
+
 }  // namespace

@@ -22,6 +22,10 @@
 // whose product lies near a rounding boundary (the true division's bits).
 // Outputs: x_q (M, K) int8, a_s (M,) f32.
 //
+// Past K = 1024 a warp's registers would spill: one CTA takes a row
+// (ln_quantize_row_kernel), its sums and absmax through shared memory, the
+// same arithmetic and codes (d_ff up to 4096).
+//
 // Bound on the card: bytes. In K * (elt + 1) bytes per row (plus 4), out
 // at M = 131072 rows: 100.7 MB at K = 256 in bf16 (0.030 ms at 3.35 TB/s),
 // 402.7 MB at K = 1024 (0.120 ms); ~10 flops per element, far below any
@@ -154,6 +158,113 @@ __global__ void __launch_bounds__(kThreads) ln_quantize_kernel(
   }
 }
 
+// A row wider than a warp's registers hold (K > 1024 bf16 or f32 values,
+// up to 4096): one CTA a row, thread t holding the 16-byte vectors t, t +
+// 256, ... (NV of them), the sums and the absmax through shared memory;
+// the same arithmetic as above.
+template <typename T, int NV, bool LN>
+__global__ void __launch_bounds__(kThreads) ln_quantize_row_kernel(
+    const T* __restrict__ x, long long M, int K,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    float eps, int8_t* __restrict__ xq, float* __restrict__ as) {
+  constexpr int EPV = 16 / sizeof(T);
+  __shared__ double s_sum[2][kWarps];
+  __shared__ float s_max[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  for (long long row = blockIdx.x; row < M; row += gridDim.x) {
+    const T* xr = x + row * K;
+    float v[NV][EPV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k0 = (i * kThreads + tid) * EPV;
+      if (k0 < K) {
+        load_vec(xr + k0, v[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) v[i][j] = 0.f;
+      }
+    }
+    if constexpr (LN) {
+      double s = 0.0;
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) s += (double)v[i][j];  // 0 past K
+      s = warp_sum(s);
+      if (lane == 0) s_sum[0][wid] = s;
+      __syncthreads();
+      s = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += s_sum[0][w];
+      const float mean = __fdiv_rn((float)s, (float)K);
+      double q = 0.0;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if ((i * kThreads + tid) * EPV >= K) continue;
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) q += ln_sq_dev(v[i][j], mean);
+      }
+      q = warp_sum(q);
+      if (lane == 0) s_sum[1][wid] = q;
+      __syncthreads();
+      q = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) q += s_sum[1][w];
+      const float var = __fdiv_rn((float)q, (float)K);
+      const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int k0 = (i * kThreads + tid) * EPV;
+        if (k0 >= K) continue;
+        float gv[EPV], bv[EPV];
+#pragma unroll
+        for (int j = 0; j < EPV; j += 4) {
+          load_vec(gamma + k0 + j, gv + j);
+          load_vec(beta + k0 + j, bv + j);
+        }
+#pragma unroll
+        for (int j = 0; j < EPV; ++j)
+          v[i][j] = ln_out(v[i][j], mean, rstd, gv[j], bv[j], xr);
+      }
+    }
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if ((i * kThreads + tid) * EPV >= K) continue;
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) amax = fmaxf(amax, fabsf(v[i][j]));
+    }
+    amax = warp_max(amax);
+    if (lane == 0) s_max[wid] = amax;
+    __syncthreads();
+    amax = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, s_max[w]);
+    const float a = quant_scale(amax);
+    const float inv = __fdiv_rn(1.0f, a);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k0 = (i * kThreads + tid) * EPV;
+      if (k0 >= K) continue;
+      int c[EPV];
+      bool near = false;
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) c[j] = quant_code_bits(v[i][j], inv, near);
+      if (near) {
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) c[j] = quant_code_exact(v[i][j], a);
+      }
+      int8_t* dst = xq + row * K + k0;
+      if constexpr (EPV == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(pack4(c), pack4(c + 4));
+      else
+        *reinterpret_cast<uint32_t*>(dst) = pack4(c);
+    }
+    if (tid == 0) as[row] = a;
+    __syncthreads();  // the shared sums are rewritten by the next row
+  }
+}
+
 template <typename T, bool LN>
 cudaError_t launch_t(const T* x, long long M, int K, const float* g,
                      const float* b, float eps, int8_t* xq, float* as,
@@ -175,8 +286,21 @@ cudaError_t launch_t(const T* x, long long M, int K, const float* g,
   else if (need <= 8 && sizeof(T) == 4)
     ln_quantize_kernel<T, 8, LN><<<grid, kThreads, 0, st>>>(x, M, K, g, b,
                                                             eps, xq, as);
-  else
-    return cudaErrorInvalidValue;
+  else {  // past a warp's registers: a CTA a row
+    const int per = (K / EPV + kThreads - 1) / kThreads;
+    const dim3 rgrid((unsigned)(M < (1LL << 20) ? M : (1LL << 20)));
+    if (per <= 1)
+      ln_quantize_row_kernel<T, 1, LN><<<rgrid, kThreads, 0, st>>>(
+          x, M, K, g, b, eps, xq, as);
+    else if (per <= 2)
+      ln_quantize_row_kernel<T, 2, LN><<<rgrid, kThreads, 0, st>>>(
+          x, M, K, g, b, eps, xq, as);
+    else if (per <= 4)
+      ln_quantize_row_kernel<T, 4, LN><<<rgrid, kThreads, 0, st>>>(
+          x, M, K, g, b, eps, xq, as);
+    else
+      return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
@@ -196,13 +320,13 @@ cudaError_t launch_ln(const void* x, long long M, int K, const void* g,
 }  // namespace
 
 // K9. x: (M, K) bf16 (dtype 1) or f32 (dtype 0), rows 16-byte aligned,
-// K % 8 == 0 and K <= 1024; gamma, beta: (K,) f32, 16-byte aligned, for LN
+// K % 8 == 0 and K <= 4096; gamma, beta: (K,) f32, 16-byte aligned, for LN
 // mode (read as float4), both null for plain mode; xq: (M, K) int8; as: (M,) f32.
 extern "C" int ln_quantize_launch(const void* x, int dtype, long long M,
                                   int K, const void* gamma, const void* beta,
                                   float eps, void* xq, void* as,
                                   void* stream) {
-  if (M < 0 || K < 8 || K % 8 != 0 || K > 1024 ||
+  if (M < 0 || K < 8 || K % 8 != 0 || K > 4096 ||
       (dtype != 0 && dtype != 1) || ((gamma == nullptr) != (beta == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;

@@ -28,7 +28,7 @@
 // the otel mix (10.3 spans a trace in L = 64), on the fused route (one row
 // per possible trace) ~98%.
 //
-// Two kernels, by the working type:
+// Two kernels, by the working type (recon.kernel_route):
 //
 // bf16 (served): the heads on tensor cores. dec_ln's output is a bf16
 // value, so with each f32 weight split into three bf16 planes, W = W_hi +
@@ -70,19 +70,22 @@
 // registers, and each CTA reads the planes from L2 once an item (~2 MB a
 // tile: 128 flops a byte, about the L2's rate at the tensor-core peak).
 //
-// f32 (the parity path; y is not bf16-exact there): a kernel on CUDA
-// cores. One CTA of 256 threads per chunk of 256 consecutive positions. A
-// ballot compacts the chunk's real positions into shared memory; they are
-// scored in tiles of P = 64: each warp normalises positions into a (P,
-// d + 4) f32 tile in shared memory, then the CTA streams each head's
-// weight rows in chunks of 64 (a (64, d + 4) tile, rows padded by 4 floats
-// so the 16-byte reads of 8 rows hit distinct banks). Thread (tp, tv) =
-// (tid / 16, tid % 16) computes the 4 x 4 logits of positions tp * 4 + i
-// and vocabulary rows tv + 16 j with f32 FMAs, and keeps a running (max,
-// sum) per position; the 16 threads of a position group merge theirs with
-// shuffles at the end of each head. Bound: 2 d (512 + 2048 + 8 + 1) =
-// 657,664 f32 flops a position, 0.205 ms at 67 TFLOP/s at T = 2048; it is
-// bound by shared-memory bandwidth (8 16-byte reads per 64 FMAs).
+// CUDA cores (f32; and bf16 where head_planes cannot split the heads: y is
+// then bf16, the heads f32 FMAs all the same): one CTA of 256 threads per
+// chunk of 256 consecutive positions. A ballot compacts the chunk's real
+// positions into shared memory; they are scored in tiles of P = 16 TS:
+// each warp normalises positions (lane k holding values k, k + 32, ...)
+// into a (P, d + 4) f32 tile in shared memory, then the CTA streams each
+// head's weight rows in chunks of 16 TS (a (16 TS, d + 4) tile, rows
+// padded by 4 floats so the 16-byte reads of 8 rows hit distinct banks).
+// Thread (tp, tv) = (tid / 16, tid % 16) computes the TS x TS logits of
+// positions tp * TS + i and vocabulary rows tv + 16 j with f32 FMAs, and
+// keeps a running (max, sum) per position; the 16 threads of a position
+// group merge theirs with shuffles at the end of each head. TS = 4 up to
+// d 384, 2 to 768, 1 to 1024 (the two tiles within shared memory). Bound:
+// 2 d (512 + 2048 + 8 + 1) = 657,664 f32 flops a position at d 128, 0.205
+// ms at 67 TFLOP/s at T = 2048; it is bound by shared-memory bandwidth (8
+// 16-byte reads per 64 FMAs at TS = 4).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,8 +100,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;  // positions per CTA
-constexpr int kTile = 64;    // positions scored together
-constexpr int kVC = 64;      // vocabulary rows per weight tile
 
 // merge a running (max, sum) with another; -inf marks an empty one
 __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
@@ -131,24 +132,29 @@ struct Heads {
   int v[4];
 };
 
-template <int PER>
+// TS: the CTA scores (16 TS positions) x (16 TS vocabulary rows) tiles,
+// thread (tp, tv) the TS x TS logits of positions tp * TS + i and rows tv
+// + 16 j; PER: each lane's share of a position's LayerNorm (values lane +
+// 32 k, so any d % 4 == 0 up to 32 PER). T: the decoder's working type
+// (f32, or bf16 whose heads the three planes cannot hold).
+template <typename T, int PER, int TS>
 __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
-    const float* __restrict__ dec, long long M, const float* __restrict__ gamma,
-    const float* __restrict__ beta, float eps, Heads heads,
-    const int32_t* __restrict__ cat, int C, const float* __restrict__ cont,
-    int D, const uint8_t* __restrict__ mask, float w_s, float w_n, float w_k,
-    float w_d, float* __restrict__ err, const int32_t* __restrict__ span_map,
-    float* __restrict__ scores) {
-  constexpr int d = 32 * PER;
-  constexpr int ld = d + 4;
+    const T* __restrict__ dec, long long M, int d,
+    const float* __restrict__ gamma, const float* __restrict__ beta,
+    float eps, Heads heads, const int32_t* __restrict__ cat, int C,
+    const float* __restrict__ cont, int D, const uint8_t* __restrict__ mask,
+    float w_s, float w_n, float w_k, float w_d, float* __restrict__ err,
+    const int32_t* __restrict__ span_map, float* __restrict__ scores) {
+  constexpr int kTP = 16 * TS;  // positions a tile
+  constexpr int kVR = 16 * TS;  // vocabulary rows a weight tile
+  const int ld = d + 4;
   extern __shared__ float4 smem4[];
-  float* s_y = reinterpret_cast<float*>(smem4);  // (kTile, ld)
-  float* s_w = s_y + kTile * ld;                 // (kVC, ld)
+  float* s_y = reinterpret_cast<float*>(smem4);  // (kTP, ld)
+  float* s_w = s_y + kTP * ld;                   // (kVR, ld)
   __shared__ int s_pos[kChunk];
   __shared__ int s_wcount[kWarps];
-  __shared__ int s_lab[3][kTile];
-  __shared__ float s_c0[kTile], s_dur[kTile], s_zl[3][kTile],
-      s_lse[3][kTile];
+  __shared__ int s_lab[3][kTP];
+  __shared__ float s_c0[kTP], s_dur[kTP], s_zl[3][kTP], s_lse[3][kTP];
 
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const long long base = (long long)blockIdx.x * kChunk;
@@ -170,18 +176,15 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
   __syncthreads();
 
   const int tp = tid >> 4, tv = tid & 15;
-  for (int t0 = 0; t0 < total; t0 += kTile) {
-    const int np = min(kTile, total - t0);
+  for (int t0 = 0; t0 < total; t0 += kTP) {
+    const int np = min(kTP, total - t0);
     // ---- dec_ln of the tile's positions, one warp per position
-    for (int p = wid; p < kTile; p += kWarps) {
-      float* yr = s_y + p * ld + lane * PER;
+    for (int p = wid; p < kTP; p += kWarps) {
+      float* yr = s_y + p * ld;
+      float y[PER];
       if (p < np) {
         const long long q = base + s_pos[t0 + p];
-        float y[PER];
-        warp_ln_row<float, PER>(dec + q * d + lane * PER, gamma + lane * PER,
-                            beta + lane * PER, eps, y);
-#pragma unroll
-        for (int j = 0; j < PER; ++j) yr[j] = y[j];
+        warp_ln_row_strided<T, PER>(dec + q * d, d, gamma, beta, eps, y);
         if (lane < 3) {
           const int lab = cat[q * C + lane];
           s_lab[lane][p] = min(max(lab, 0), heads.v[lane] - 1);
@@ -189,26 +192,30 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
         if (lane == 3) s_c0[p] = cont[q * D];
       } else {
 #pragma unroll
-        for (int j = 0; j < PER; ++j) yr[j] = 0.f;
+        for (int j = 0; j < PER; ++j) y[j] = 0.f;
         if (lane < 3) s_lab[lane][p] = 0;
         if (lane == 3) s_c0[p] = 0.f;
       }
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        if (j * 32 + lane < d) yr[j * 32 + lane] = y[j];
     }
     // ---- the four heads over the tile
     for (int h = 0; h < 4; ++h) {
       const float* __restrict__ W = heads.w[h];
       const float* __restrict__ B = heads.b[h];
       const int V = heads.v[h];
-      float m[4], s[4];
+      float m[TS], s[TS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < TS; ++i) {
         m[i] = -INFINITY;
         s[i] = 0.f;
       }
-      for (int v0 = 0; v0 < V; v0 += kVC) {
+      for (int v0 = 0; v0 < V; v0 += kVR) {
         __syncthreads();  // s_y written / the previous weight tile read
-        for (int e = tid; e < kVC * (d / 4); e += kThreads) {
-          const int r = e / (d / 4), c4 = e % (d / 4);
+        const int d4 = d / 4;
+        for (int e = tid; e < kVR * d4; e += kThreads) {
+          const int r = e / d4, c4 = e % d4;
           float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
           if (v0 + r < V)
             val = __ldg(reinterpret_cast<const float4*>(
@@ -216,26 +223,26 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
           reinterpret_cast<float4*>(s_w + r * ld)[c4] = val;
         }
         __syncthreads();
-        float acc[4][4];
+        float acc[TS][TS];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < TS; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+          for (int j = 0; j < TS; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
         for (int k = 0; k < d; k += 4) {
-          float4 yv[4], wv[4];
+          float4 yv[TS], wv[TS];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            yv[i] = *reinterpret_cast<const float4*>(s_y + (tp * 4 + i) * ld
+          for (int i = 0; i < TS; ++i)
+            yv[i] = *reinterpret_cast<const float4*>(s_y + (tp * TS + i) * ld
                                                      + k);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < TS; ++j)
             wv[j] = *reinterpret_cast<const float4*>(s_w + (tv + 16 * j) * ld
                                                      + k);
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < TS; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < TS; ++j) {
               float a = acc[i][j];
               a = fmaf(yv[i].x, wv[j].x, a);
               a = fmaf(yv[i].y, wv[j].y, a);
@@ -245,13 +252,13 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
             }
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < TS; ++j) {
           const int v = v0 + tv + 16 * j;
           if (v >= V) continue;
           const float bias = B[v];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int p = tp * 4 + i;
+          for (int i = 0; i < TS; ++i) {
+            const int p = tp * TS + i;
             const float z = __fadd_rn(acc[i][j], bias);
             if (h == 3) {
               s_dur[p] = z;  // the duration head: one logit, no lse
@@ -269,14 +276,14 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
       }
       if (h < 3) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < TS; ++i) {
 #pragma unroll
           for (int o = 8; o; o >>= 1) {
             const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
             const float so = __shfl_xor_sync(0xffffffffu, s[i], o);
             lse_merge(m[i], s[i], mo, so);
           }
-          if (tv == 0) s_lse[h][tp * 4 + i] = m[i] + logf(s[i]);
+          if (tv == 0) s_lse[h][tp * TS + i] = m[i] + logf(s[i]);
         }
       }
     }
@@ -298,24 +305,43 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
   }
 }
 
-template <int PER>
-int launch_f32_t(const float* dec, long long M, const float* gamma,
+template <typename T, int PER, int TS>
+int launch_f32_t(const T* dec, long long M, int d, const float* gamma,
                  const float* beta, float eps, const Heads& heads,
                  const int32_t* cat, int C, const float* cont, int D,
                  const uint8_t* mask, const float* wts, float* err,
                  const int32_t* span_map, float* scores, cudaStream_t st) {
-  constexpr int ld = 32 * PER + 4;
-  const int smem = (kTile + kVC) * ld * (int)sizeof(float);
+  const int smem = 2 * 16 * TS * (d + 4) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      recon_ce_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      recon_ce_kernel<T, PER, TS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (M + kChunk - 1) / kChunk;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  recon_ce_kernel<PER><<<(unsigned)blocks, kThreads, smem, st>>>(
-      dec, M, gamma, beta, eps, heads, cat, C, cont, D, mask, wts[0], wts[1],
-      wts[2], wts[3], err, span_map, scores);
+  recon_ce_kernel<T, PER, TS><<<(unsigned)blocks, kThreads, smem, st>>>(
+      dec, M, d, gamma, beta, eps, heads, cat, C, cont, D, mask, wts[0],
+      wts[1], wts[2], wts[3], err, span_map, scores);
   return (int)cudaGetLastError();
+}
+
+// the tile by d: (64 x 64) up to d 384, (32 x 32) to 768, (16 x 16) to 1024
+template <typename T>
+int launch_f32_d(const T* dec, long long M, int d, const float* gamma,
+                 const float* beta, float eps, const Heads& heads,
+                 const int32_t* cat, int C, const float* cont, int D,
+                 const uint8_t* mask, const float* wts, float* err,
+                 const int32_t* span_map, float* scores, cudaStream_t st) {
+  if (d <= 384)
+    return launch_f32_t<T, 12, 4>(dec, M, d, gamma, beta, eps, heads, cat, C,
+                                  cont, D, mask, wts, err, span_map, scores,
+                                  st);
+  if (d <= 768)
+    return launch_f32_t<T, 24, 2>(dec, M, d, gamma, beta, eps, heads, cat, C,
+                                  cont, D, mask, wts, err, span_map, scores,
+                                  st);
+  return launch_f32_t<T, 32, 1>(dec, M, d, gamma, beta, eps, heads, cat, C,
+                                cont, D, mask, wts, err, span_map, scores,
+                                st);
 }
 
 // ---------------------------------------------------------------- bf16
@@ -893,25 +919,395 @@ int launch_tc_t(const TcArgs& a, long long M, const uint8_t* mask,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------- bf16, any width
+// d % 16 == 0 up to 1024 off the widths above: the A tile of 128 rows and
+// the ring of whole-d plane stages no longer fit shared memory at wide d.
+// Two launches again:
+//   prep   a thread per position lists the real ones (as compact); a warp
+//          a listed row takes its LayerNorm (lane k holding values k, k +
+//          32, ...) and, from the normalised bf16 values, the kind and
+//          duration logits as f32 warp dots: (mean, 1 / std, the kind CE,
+//          the duration logit) at the row's list slot;
+//   score  persistent CTAs of 8 warps over tiles of 64 listed positions:
+//          the rows gathered by cp.async into a (64, d rounded to 64) bf16
+//          A tile (zeros past d) and normalised in place; the planes
+//          streamed through a 4-stage ring of (3 planes, 32 columns, 64 of
+//          d) chunks, the (column tile, d chunk) steps in one sequence;
+//          mma.sync m16n8k16, warps 4 x 2 over (64 rows, 32 columns); at a
+//          column tile's last chunk the bias, label logit and online
+//          log-sum-exp from the fragments, as above.
+// The same three-plane products and f32 sums: the same bound.
+constexpr int kWBM = 64;    // listed positions a tile
+constexpr int kWNT = 32;    // columns a column tile
+constexpr int kWKC = 64;    // d a chunk
+constexpr int kWST = 4;     // ring stages
+constexpr int kWLD = kWKC + 8;  // a stage row: ldmatrix without conflicts
+constexpr int kWStage = 3 * kWNT * kWLD;  // bf16 a stage
+
+__host__ __device__ constexpr int wide_pad(int d) {
+  return (d + kWKC - 1) / kWKC * kWKC;
+}
+__host__ __device__ constexpr int wide_smem(int d) {
+  return (kWBM * (wide_pad(d) + 8) + kWST * kWStage) * 2;
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
+                                                 const void* src,
+                                                 bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+template <int PER>
+__global__ void __launch_bounds__(kThreads) recon_prep_kernel(
+    const uint8_t* __restrict__ mask, long long M, int d,
+    const __nv_bfloat16* __restrict__ dec, const float* __restrict__ gamma,
+    const float* __restrict__ beta, float eps, const float* __restrict__ wk,
+    const float* __restrict__ bk, int v_k, const float* __restrict__ wd,
+    const float* __restrict__ bd, const int32_t* __restrict__ cat, int C,
+    float* __restrict__ err, int32_t* __restrict__ list,
+    float4* __restrict__ rec, int32_t* __restrict__ count) {
+  __shared__ int s_wcount[kWarps];
+  __shared__ int s_base, s_pos[kThreads];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const long long base = (long long)blockIdx.x * kThreads;
+  const long long q = base + tid;
+  const bool real = q < M && mask[q];
+  if (q < M && !real) err[q] = 0.f;
+  const unsigned bal = __ballot_sync(0xffffffffu, real);
+  if (lane == 0) s_wcount[wid] = __popc(bal);
+  __syncthreads();
+  int off = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    off += w < wid ? s_wcount[w] : 0;
+    total += s_wcount[w];
+  }
+  if (tid == 0) s_base = total ? atomicAdd(count, total) : 0;
+  if (real) s_pos[off + __popc(bal & ((1u << lane) - 1u))] = tid;
+  __syncthreads();
+  if (tid < total) list[s_base + tid] = (int)(base + s_pos[tid]);
+  for (int k = wid; k < total; k += kWarps) {
+    const long long p = base + s_pos[k];
+    const __nv_bfloat16* xr = dec + p * d;
+    float v[PER];
+    double s = 0.0;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int f = j * 32 + lane;
+      v[j] = f < d ? load_f(xr + f) : 0.f;
+      s += (double)v[j];
+    }
+    const float mean = ln_mean(s, d);
+    double sq = 0.0;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (j * 32 + lane < d) sq += ln_sq_dev(v[j], mean);
+    const float rstd = ln_rstd(sq, d, eps);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int f = j * 32 + lane;
+      v[j] = f < d ? ln_out(v[j], mean, rstd, __ldg(gamma + f),
+                            __ldg(beta + f), xr)
+                   : 0.f;
+    }
+    // the kind logits and the duration logit: f32 warp dots
+    const int lab = min(max((int)cat[p * C + 2], 0), v_k - 1);
+    float km = -INFINITY, ks = 0.f, zl = 0.f, dur = 0.f;
+    for (int h = 0; h <= v_k; ++h) {
+      const float* w = h < v_k ? wk + (long long)h * d : wd;
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int f = j * 32 + lane;
+        if (f < d) a = fmaf(v[j], __ldg(w + f), a);
+      }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      const float z = __fadd_rn(a, h < v_k ? __ldg(bk + h) : __ldg(bd));
+      if (h == v_k) {
+        dur = z;
+      } else {
+        if (h == lab) zl = z;
+        lse_merge(km, ks, z, 1.f);
+      }
+    }
+    if (lane == 0)
+      rec[s_base + k] = make_float4(mean, rstd, __fsub_rn(km + logf(ks), zl),
+                                    dur);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    recon_tc_wide_kernel(const TcArgs a, int d, const float4* rec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dp = wide_pad(d), lda = dp + 8;
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sB = sA + kWBM * lda;
+  __shared__ int s_lab[2][kWBM], s_q[kWBM];
+  __shared__ float4 s_rec[kWBM];
+  __shared__ float s_c0[kWBM], s_zl[2][kWBM];
+  __shared__ float s_pm[2][2][kWBM], s_ps[2][2][kWBM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int count = *a.count;
+  const int tiles = (count + kWBM - 1) / kWBM;
+  const int nk = dp / kWKC, nct = a.v_tc / kWNT, steps = nct * nk;
+  const int rows_i[2] = {wm * 16 + gid, wm * 16 + gid + 8};
+  const int cw = wn * (kWNT / 2) + tig * 2;  // this thread's column pair
+
+  auto load_step = [&](int step, int slot) {
+    const int ct = step / nk, kc = step - (step / nk) * nk;
+    __nv_bfloat16* st = sB + slot * kWStage;
+    for (int e = tid; e < 3 * kWNT * (kWKC / 8); e += kTcThreads) {
+      const int p = e / (kWNT * (kWKC / 8));
+      const int r = (e / (kWKC / 8)) % kWNT, c = e % (kWKC / 8);
+      const int k0 = kc * kWKC + c * 8;
+      const bool in = k0 < d;
+      cp_async16_zfill(
+          smem_u32(st + (p * kWNT + r) * kWLD + c * 8),
+          a.planes + ((long long)p * a.v_tc + ct * kWNT + r) * d +
+              (in ? k0 : 0),
+          in);
+    }
+  };
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int rows = min(kWBM, count - tile * kWBM);
+    __syncthreads();  // the previous tile's shared data are consumed
+    if (tid < kWBM) {
+      int q = -1;
+      float4 r4 = make_float4(0.f, 1.f, 0.f, 0.f);  // past the last: finite
+      if (tid < rows) {
+        q = a.list[(long long)tile * kWBM + tid];
+        r4 = rec[(long long)tile * kWBM + tid];
+        const int32_t* c = a.cat + (long long)q * a.C;
+        s_lab[0][tid] = min(max((int)c[0], 0), a.v_s - 1);
+        s_lab[1][tid] = a.vs_pad + min(max((int)c[1], 0), a.v_n - 1);
+        s_c0[tid] = a.cont[(long long)q * a.Dc];
+      } else {
+        s_lab[0][tid] = s_lab[1][tid] = -1;
+      }
+      s_q[tid] = q;
+      s_rec[tid] = r4;
+      s_zl[0][tid] = 0.f;
+      s_zl[1][tid] = 0.f;
+    }
+    __syncthreads();
+    for (int e = tid; e < kWBM * (dp / 8); e += kTcThreads) {
+      const int r = e / (dp / 8), c = e % (dp / 8);
+      const bool in = r < rows && c * 8 < d;
+      cp_async16_zfill(smem_u32(sA + r * lda + c * 8),
+                       a.dec + (long long)(in ? s_q[r] : 0) * d +
+                           (in ? c * 8 : 0),
+                       in);
+    }
+    cp_async_commit();
+#pragma unroll
+    for (int s = 0; s < kWST - 1; ++s) {
+      if (s < steps) load_step(s, s);
+      cp_async_commit();
+    }
+    cp_async_wait<kWST - 1>();  // the rows (the oldest group) landed
+    __syncthreads();
+    for (int e = tid; e < kWBM * (d / 8); e += kTcThreads) {
+      const int r = e / (d / 8), c = e % (d / 8);
+      uint4* p = reinterpret_cast<uint4*>(sA + r * lda + c * 8);
+      const uint4 u = *p;
+      const float4 st = s_rec[r];
+      uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int f = c * 8 + 2 * h;
+        const float2 x = bf16x2_to_float2(w[h]);
+        const float y0 = ln_out(x.x, st.x, st.y, __ldg(a.gamma + f),
+                                __ldg(a.beta + f), sA);
+        const float y1 = ln_out(x.y, st.x, st.y, __ldg(a.gamma + f + 1),
+                                __ldg(a.beta + f + 1), sA);
+        w[h] = (__float_as_uint(y0) >> 16) |
+               (__float_as_uint(y1) & 0xFFFF0000u);
+      }
+      *p = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    __syncthreads();
+    int lab[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lab[0][i] = s_lab[0][rows_i[i]];
+      lab[1][i] = s_lab[1][rows_i[i]];
+    }
+    float m[2][2], s[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m[h][i] = -INFINITY;
+        s[h][i] = 0.f;
+      }
+    float acc[2][4];
+    for (int it = 0; it < steps; ++it) {
+      cp_async_wait<kWST - 2>();
+      __syncthreads();
+      if (it + kWST - 1 < steps) load_step(it + kWST - 1, (it + kWST - 1) % kWST);
+      cp_async_commit();
+      const int ct = it / nk, kc = it - (it / nk) * nk;
+      if (kc == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      }
+      const __nv_bfloat16* sb = sB + (it % kWST) * kWStage;
+#pragma unroll
+      for (int kk = 0; kk < kWKC / 16; ++kk) {
+        uint32_t af[4];
+        ldsm_x4(smem_u32(sA + (wm * 16 + (lane & 15)) * lda + kc * kWKC +
+                         kk * 16 + (lane >> 4) * 8),
+                af);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          uint32_t bf[4];
+          ldsm_x4(smem_u32(sb + (p * kWNT + wn * (kWNT / 2) + (lane & 7) +
+                                 ((lane >> 4) << 3)) *
+                                    kWLD +
+                           kk * 16 + ((lane >> 3) & 1) * 8),
+                  bf);
+          mma_bf16(acc[0], af, bf[0], bf[1]);
+          mma_bf16(acc[1], af, bf[2], bf[3]);
+        }
+      }
+      if (kc == nk - 1) {  // the column tile's logits
+        const int col0 = ct * kWNT + cw;
+        const int h = ct * kWNT < a.vs_pad ? 0 : 1;
+        float2 bias[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          bias[j] = make_float2(__ldg(a.pbias + col0 + 8 * j),
+                                __ldg(a.pbias + col0 + 8 * j + 1));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float z[2][2];
+          float tm = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            z[j][0] = __fadd_rn(acc[j][i * 2], bias[j].x);
+            z[j][1] = __fadd_rn(acc[j][i * 2 + 1], bias[j].y);
+            tm = fmaxf(tm, fmaxf(z[j][0], z[j][1]));
+          }
+          const int dl = lab[h][i] - col0;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (dl == 8 * j + e) s_zl[h][rows_i[i]] = z[j][e];
+          if (h == 0)
+            lse_add<2>(m[0][i], s[0][i], z, tm);
+          else
+            lse_add<2>(m[1][i], s[1][i], z, tm);
+        }
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[h][i], o);
+          const float so = __shfl_xor_sync(0xffffffffu, s[h][i], o);
+          lse_merge(m[h][i], s[h][i], mo, so);
+        }
+        if (tig == 0) {
+          s_pm[wn][h][rows_i[i]] = m[h][i];
+          s_ps[wn][h][rows_i[i]] = s[h][i];
+        }
+      }
+    __syncthreads();
+    if (tid < rows) {
+      float fm[2], fs[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        fm[h] = s_pm[0][h][tid];
+        fs[h] = s_ps[0][h][tid];
+        lse_merge(fm[h], fs[h], s_pm[1][h][tid], s_ps[1][h][tid]);
+      }
+      const float4 r4 = s_rec[tid];
+      const float e = weighted_error(fm[0] + logf(fs[0]), s_zl[0][tid],
+                                     fm[1] + logf(fs[1]), s_zl[1][tid], r4.z,
+                                     0.f, r4.w, s_c0[tid], a.w_s, a.w_n,
+                                     a.w_k, a.w_d);
+      const long long q = s_q[tid];
+      a.err[q] = e;
+      if (a.span_map != nullptr) {
+        const int idx = a.span_map[q];
+        if (idx >= 0) a.scores[idx] = 1.f - expf(-e);
+      }
+    }
+  }
+}
+
+int launch_tc_wide(const TcArgs& a, long long M, int d, const uint8_t* mask,
+                   int32_t* list, float4* rec, int32_t* count, int sms,
+                   int* launches, cudaStream_t st) {
+  const long long blocks = (M + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned g = (unsigned)blocks;
+  int32_t* cnt = count;
+  if (d <= 256)
+    recon_prep_kernel<8><<<g, kThreads, 0, st>>>(
+        mask, M, d, a.dec, a.gamma, a.beta, a.eps, a.wk, a.bk, a.v_k, a.wd,
+        a.bd, a.cat, a.C, a.err, list, rec, cnt);
+  else if (d <= 512)
+    recon_prep_kernel<16><<<g, kThreads, 0, st>>>(
+        mask, M, d, a.dec, a.gamma, a.beta, a.eps, a.wk, a.bk, a.v_k, a.wd,
+        a.bd, a.cat, a.C, a.err, list, rec, cnt);
+  else
+    recon_prep_kernel<32><<<g, kThreads, 0, st>>>(
+        mask, M, d, a.dec, a.gamma, a.beta, a.eps, a.wk, a.bk, a.v_k, a.wd,
+        a.bd, a.cat, a.C, a.err, list, rec, cnt);
+  ++*launches;
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int smem = wide_smem(d);
+  e = cudaFuncSetAttribute(recon_tc_wide_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, recon_tc_wide_kernel, kTcThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  recon_tc_wide_kernel<<<sms * per_sm, kTcThreads, smem, st>>>(a, d, rec);
+  ++*launches;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K11, f32 (CUDA cores). dec: (M, d) f32, the decoder's output before
-// dec_ln; gamma, beta: (d,) f32; w0..w3: the service, name, kind and
-// duration heads' (V_h, d) f32 weights, b0..b3 their (V_h,) biases (V_3 =
-// 1); cat: (M, C) int32 (labels in columns 0-2), cont: (M, D) f32 (target
-// in column 0); mask: (M,) bytes; the four loss weights; err: (M,) f32 out.
+// K11 on CUDA cores (f32 FMAs). dec: (M, d) f32 (dtype 0) or bf16 (dtype
+// 1: heads the three planes cannot hold), the decoder's output before
+// dec_ln, 16-byte aligned, d % 4 == 0 up to 1024; gamma, beta: (d,) f32;
+// w0..w3: the service, name, kind and duration heads' (V_h, d) f32
+// weights (16-byte aligned), b0..b3 their (V_h,) biases (V_3 = 1); cat:
+// (M, C) int32 (labels in columns 0-2), cont: (M, D) f32 (target in
+// column 0); mask: (M,) bytes; the four loss weights; err: (M,) f32 out.
 // span_map (nullable): (M,) int32 original span index, -1 at padding;
-// scores: zero-filled f32, written at span_map[q] for each real q. d is
-// 32, 64, 128 or 256.
+// scores: zero-filled f32, written at span_map[q] for each real q.
 extern "C" int recon_ce_f32_launch(
-    const void* dec, long long M, int d, const void* gamma, const void* beta,
-    float eps, const void* w0, const void* w1, const void* w2,
-    const void* w3, const void* b0, const void* b1, const void* b2,
-    const void* b3, int v0, int v1, int v2, int v3, const void* cat, int C,
-    const void* cont, int D, const void* mask, float w_s, float w_n,
-    float w_k, float w_d, void* err, const void* span_map, void* scores,
-    void* stream) {
+    const void* dec, int dtype, long long M, int d, const void* gamma,
+    const void* beta, float eps, const void* w0, const void* w1,
+    const void* w2, const void* w3, const void* b0, const void* b1,
+    const void* b2, const void* b3, int v0, int v1, int v2, int v3,
+    const void* cat, int C, const void* cont, int D, const void* mask,
+    float w_s, float w_n, float w_k, float w_d, void* err,
+    const void* span_map, void* scores, void* stream) {
   if (M < 0 || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 || C < 3 || D < 1 ||
+      d < 4 || d % 4 != 0 || d > 1024 || (dtype != 0 && dtype != 1) ||
       (span_map != nullptr && scores == nullptr))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
@@ -926,7 +1322,6 @@ extern "C" int recon_ce_f32_launch(
   }
   const float wts[4] = {w_s, w_n, w_k, w_d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* x = static_cast<const float*>(dec);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
   const int32_t* c = static_cast<const int32_t*>(cat);
@@ -935,22 +1330,11 @@ extern "C" int recon_ce_f32_launch(
   float* e = static_cast<float*>(err);
   const int32_t* sm = static_cast<const int32_t*>(span_map);
   float* sc = static_cast<float*>(scores);
-  switch (d) {
-    case 32:
-      return launch_f32_t<1>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
-                             sm, sc, st);
-    case 64:
-      return launch_f32_t<2>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
-                             sm, sc, st);
-    case 128:
-      return launch_f32_t<4>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
-                             sm, sc, st);
-    case 256:
-      return launch_f32_t<8>(x, M, g, b, eps, heads, c, C, ct, D, m, wts, e,
-                             sm, sc, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_f32_d(static_cast<const __nv_bfloat16*>(dec), M, d, g, b,
+                        eps, heads, c, C, ct, D, m, wts, e, sm, sc, st);
+  return launch_f32_d(static_cast<const float*>(dec), M, d, g, b, eps, heads,
+                      c, C, ct, D, m, wts, e, sm, sc, st);
 }
 
 // K11, bf16 (tensor cores). dec: (M, d) bf16; gamma, beta as above;
@@ -959,8 +1343,11 @@ extern "C" int recon_ce_f32_launch(
 // rows [0, vs_pad), name rows [vs_pad, v_tc)); pbias: (v_tc,) f32, -inf at
 // the padding; v_s, v_n: the real widths; wk, bk: the kind head (v_k <=
 // 16); wd, bd: the duration head; cat, cont, mask, the loss weights, err,
-// span_map and scores as above. Scratch: list (M,) int32; stats (M, 2)
-// f32 (each listed position's LayerNorm mean and 1 / std); part:
+// span_map and scores as above. d: 32, 64, 128 or 256 (the 128-position
+// kernel), else d % 16 == 0 up to 1024 (the 64-position kernel chunked
+// along d). Scratch: list (M,) int32; stats (M, 2) f32 (each listed
+// position's LayerNorm mean and 1 / std; (M, 4) 16-byte aligned off the
+// four widths: also the kind CE and the duration logit); part:
 // part_floats f32, room for part_floats / (6 * 128) split items'
 // partials; count (1,) and tile_done (that room / 2 + 1) int32, zeroed.
 // sms: the card's multiprocessors (the persistent grid is as many CTAs as
@@ -1030,6 +1417,8 @@ extern "C" int recon_ce_tc_launch(
     case 256:
       return launch_tc_t<256>(a, M, m, l, sts, n, sms, launches, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      if (d % 16 != 0 || d > 1024) return (int)cudaErrorInvalidValue;
+      return launch_tc_wide(a, M, d, m, l, static_cast<float4*>(stats), n,
+                            sms, launches, st);
   }
 }

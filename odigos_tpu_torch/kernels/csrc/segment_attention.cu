@@ -53,6 +53,29 @@
 //   per (row, head), tiles staged as f32 in shared memory, scores and P.V
 //   on CUDA cores with a 4x4 register block per thread, softmax one warp
 //   per row. f32 stays here because no tensor-core route is exact in f32.
+//
+// Two tiled kernels take what the one-tile kernels above cannot: L up to
+// 1024 (K7's walk), hd up to 256, or a row whose stage does not fit shared
+// memory. Both give each CTA 64 queries of one (row, head) and stream the
+// keys in 64-key tiles with an online softmax: a running max and sum in
+// f32 per query, the output rescaled by exp(m_old - m_new) when the max
+// rises and divided by the sum once at the end. This is also the form
+// ring attention needs (the log-sum-exp of a K/V block). The finite fill
+// survives the tiling: a padding query's scores are all finfo.min, so its
+// running max is that value and every slot below L weighs exp(0) = 1 (the
+// uniform average); a live query that meets only masked keys first counts
+// them, and its first allowed key rescales them by exp(finfo.min - s) = 0
+// exactly. Skipping a key tile whose live segments all miss the CTA's live
+// queries is exact only for live queries, so a CTA holding a padding
+// query takes every tile. Keys past L weigh exactly 0 (-inf; their V rows
+// are zero-filled).
+// * `flash::segment_attention_flash_kernel<ND>` (bf16, hd % 16 == 0): 4
+//   warps of 16 queries; K and V tiles in a two-stage cp.async ring; S and
+//   P.V on mma.sync as above (P split into bf16 hi + lo); ND 16-column
+//   blocks of the output in registers (hd <= 64, 128, 256).
+// * `tiled::segment_attention_tiled_kernel<T, DB>` (f32, and bf16 with hd
+//   % 16 != 0): 256 threads, the tiles staged as f32 in shared memory,
+//   scores and P.V on CUDA cores, a warp a query row for the softmax.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -516,6 +539,344 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace tc
 
 // =====================================================================
+// The tiled tensor-core kernel (bf16, L up to 1024, hd up to 256)
+// =====================================================================
+
+namespace flash {
+
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldsm_x4;
+using tc::ldsm_x4_trans;
+using tc::mma_bf16;
+using tc::pack_bf16;
+using tc::scale_q;
+using tc::smem_u32;
+using tc::split_pair;
+
+constexpr int kWarps = 4;  // 16 queries a warp, 64 a CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 64;    // queries a CTA
+constexpr int kBK = 64;    // keys a tile
+constexpr int kMaxL = 1024;
+constexpr int kMaxTiles = kMaxL / kBK;
+constexpr int kDynLimit = tc::kSmemLimit - 1024;  // dynamic shared memory
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
+                                                 const void* src,
+                                                 bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// shared memory: Q (kBQ slots), then two stages of K and V (kBK slots
+// each), every slot hd bf16 + 8 of padding (ldmatrix without bank
+// conflicts), then the row's segment ids
+__host__ __device__ constexpr int slot_ld(int hd) { return hd + 8; }
+__host__ __device__ constexpr int smem_bytes(int hd, int L) {
+  return 5 * kBQ * slot_ld(hd) * 2 + ((L + 3) & ~3) * 4;
+}
+
+// a 64-slot block of one head's q, k or v into shared memory (zeros past L)
+__device__ __forceinline__ void copy_block(uint32_t dst,
+                                           const __nv_bfloat16* src, int r,
+                                           int l0, int L, int H, int h,
+                                           int hd) {
+  const int cps = hd / 8;  // 16-byte chunks a slot
+  for (int e = threadIdx.x; e < kBQ * cps; e += kThreads) {
+    const int l = e / cps, c = e - l * cps;
+    const bool in = l0 + l < L;
+    const size_t g = ((size_t)(r * L + (in ? l0 + l : 0)) * H + h) * hd + c * 8;
+    cp_async16_zfill(dst + (l * slot_ld(hd) + c * 8) * 2, src + g, in);
+  }
+}
+
+// One CTA: 64 queries of (row r, head h), 4 warps of 16. The key tiles
+// the CTA needs stream through a two-stage cp.async ring; each warp keeps
+// an online softmax (running max and sum in f32, the output rescaled when
+// the max rises) and P.V on tensor cores with P split into bf16 hi + lo.
+// A key tile whose live segments all miss the live queries' range weighs
+// exactly 0 for a live query and is skipped, unless a query of the CTA is
+// padding: Flax gives a padding query the uniform average of V over the
+// row's L slots (every score the finite finfo.min), which needs every tile.
+// ND: 16-column blocks of hd the registers hold (hd <= 16 * ND).
+template <int ND>
+__global__ void __launch_bounds__(kThreads, 1)
+segment_attention_flash_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const int32_t* __restrict__ seg,
+                               __nv_bfloat16* __restrict__ out, int L, int H,
+                               int hd, float inv_scale, float big_neg) {
+  extern __shared__ __align__(128) char fl_smem[];
+  const int ld = slot_ld(hd);
+  const int blk_bytes = kBQ * ld * 2;
+  const uint32_t qs = smem_u32(fl_smem);
+  const uint32_t kvs = qs + blk_bytes;  // stage s: K at + 2 s, V at + 2 s + 1
+  int32_t* segs = reinterpret_cast<int32_t*>(fl_smem + 5 * blk_bytes);
+  __shared__ int s_tiles[kMaxTiles];
+  __shared__ int s_ntiles;
+
+  const int nqb = (L + kBQ - 1) / kBQ;
+  const int r = blockIdx.x / (H * nqb);
+  const int rem = blockIdx.x - r * H * nqb;
+  const int h = rem / nqb;
+  const int q0 = (rem - h * nqb) * kBQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  copy_block(qs, q, r, q0, L, H, h, hd);
+  cp_async_commit();
+  for (int l = tid; l < L; l += kThreads) segs[l] = seg[(size_t)r * L + l];
+  __syncthreads();
+
+  // the tiles this CTA needs (every thread computes the same list)
+  if (warp == 0) {
+    const unsigned all = 0xffffffffu;
+    int qmin = INT_MAX, qmax = 0;
+    bool pad = false;
+    for (int l = q0 + lane; l < min(q0 + kBQ, L); l += 32) {
+      const int s = segs[l];
+      if (s > 0) {
+        qmin = min(qmin, s);
+        qmax = max(qmax, s);
+      } else {
+        pad = true;
+      }
+    }
+    qmin = __reduce_min_sync(all, qmin);
+    qmax = __reduce_max_sync(all, qmax);
+    pad = __any_sync(all, pad);
+    int n = 0;
+    const int nt = (L + kBK - 1) / kBK;
+    for (int t = 0; t < nt; ++t) {
+      int tmin = INT_MAX, tmax = 0;
+      for (int l = t * kBK + lane; l < min(t * kBK + kBK, L); l += 32) {
+        const int s = segs[l];
+        if (s > 0) {
+          tmin = min(tmin, s);
+          tmax = max(tmax, s);
+        }
+      }
+      tmin = __reduce_min_sync(all, tmin);
+      tmax = __reduce_max_sync(all, tmax);
+      if (pad || (tmin <= qmax && tmax >= qmin)) {
+        if (lane == 0) s_tiles[n] = t;
+        ++n;
+      }
+    }
+    if (lane == 0) s_ntiles = n;
+  }
+  __syncthreads();
+  const int ntiles = s_ntiles;
+  if (ntiles > 0) {
+    copy_block(kvs, k, r, s_tiles[0] * kBK, L, H, h, hd);
+    copy_block(kvs + blk_bytes, v, r, s_tiles[0] * kBK, L, H, h, hd);
+  }
+  cp_async_commit();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nd16 = hd >> 4;
+  const int ld2 = ld * 2;
+  const uint32_t qw = qs + warp * 16 * ld2;  // this warp's 16 queries
+  const int sq0 = q0 + warp * 16 + gid < L ? segs[q0 + warp * 16 + gid] : 0;
+  const int sq1 =
+      q0 + warp * 16 + gid + 8 < L ? segs[q0 + warp * 16 + gid + 8] : 0;
+
+  float o[2 * ND][4];
+#pragma unroll
+  for (int j = 0; j < 2 * ND; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i & 1;
+    if (i + 1 < ntiles) {
+      const uint32_t nx = kvs + (st ^ 1) * 2 * blk_bytes;
+      copy_block(nx, k, r, s_tiles[i + 1] * kBK, L, H, h, hd);
+      copy_block(nx + blk_bytes, v, r, s_tiles[i + 1] * kBK, L, H, h, hd);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kt0 = s_tiles[i] * kBK;
+    const uint32_t ks = kvs + st * 2 * blk_bytes;
+    const uint32_t vs = ks + blk_bytes;
+
+    // ---- S = Q.K^T: 16 queries x 64 keys, f32
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < ND; ++t) {
+      if (t < nd16) {
+        uint32_t a[4];
+        ldsm_x4(qw + (lane & 15) * ld2 + (t * 16 + (lane >> 4) * 8) * 2, a);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = scale_q(a[e], inv_scale);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t b[4];
+          const int key = np * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
+          const int col = t * 16 + ((lane >> 3) & 1) * 8;
+          ldsm_x4(ks + key * ld2 + col * 2, b);
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // ---- mask (finite fill inside L, no weight past L), online softmax
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt0 + j * 8 + tig * 2 + (e & 1);
+        const int sq = (e >> 1) ? sq1 : sq0;
+        float x = -INFINITY;
+        if (key < L) x = (sq > 0 && segs[key] == sq) ? s[j][e] : big_neg;
+        s[j][e] = x;
+        if (e >> 1) tm1 = fmaxf(tm1, x);
+        else tm0 = fmaxf(tm0, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
+      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+    }
+    // a tile holds a key below L, so the new maxima are finite
+    const float n0 = fmaxf(m0, tm0), n1 = fmaxf(m1, tm1);
+    const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);  // 0 at the start
+    m0 = n0;
+    m1 = n1;
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - ((e >> 1) ? n1 : n0));  // 0 past L
+        s[j][e] = p;
+        if (e >> 1) r1 += p;
+        else r0 += p;
+      }
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+#pragma unroll
+    for (int j = 0; j < 2 * ND; ++j) {
+      o[j][0] *= a0;
+      o[j][1] *= a0;
+      o[j][2] *= a1;
+      o[j][3] *= a1;
+    }
+
+    // ---- O += P.V, P = P_hi + P_lo (both bf16), f32 accumulators
+#pragma unroll
+    for (int kp = 0; kp < 4; ++kp) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kp][0], s[2 * kp][1], ph[0], pl[0]);
+      split_pair(s[2 * kp][2], s[2 * kp][3], ph[1], pl[1]);
+      split_pair(s[2 * kp + 1][0], s[2 * kp + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * kp + 1][2], s[2 * kp + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int np = 0; np < ND; ++np) {
+        if (np < nd16) {
+          uint32_t b[4];
+          const int key = kp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          const int col = np * 16 + ((lane >> 4) & 1) * 8;
+          ldsm_x4_trans(vs + key * ld2 + col * 2, b);
+          mma_bf16(o[2 * np], ph, b[0], b[1]);
+          mma_bf16(o[2 * np], pl, b[0], b[1]);
+          mma_bf16(o[2 * np + 1], ph, b[2], b[3]);
+          mma_bf16(o[2 * np + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled by the next tile's copies
+  }
+
+  // ---- divide once, round once, stage in this warp's Q rows, 16-byte
+  // stores of whole (slot, head) spans
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  __nv_bfloat16* qrows =
+      reinterpret_cast<__nv_bfloat16*>(fl_smem) + warp * 16 * ld;
+#pragma unroll
+  for (int j = 0; j < 2 * ND; ++j) {
+    if (j < 2 * nd16) {
+      const int col = j * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(qrows + gid * ld + col) =
+          pack_bf16(o[j][0] * i0, o[j][1] * i0);
+      *reinterpret_cast<uint32_t*>(qrows + (gid + 8) * ld + col) =
+          pack_bf16(o[j][2] * i1, o[j][3] * i1);
+    }
+  }
+  __syncwarp();
+  const int c8 = hd >> 3;
+  const int lq = q0 + warp * 16;
+  const int rows = max(0, min(16, L - lq));
+  for (int e = lane; e < rows * c8; e += 32) {
+    const int l = e / c8, c = e - (e / c8) * c8;
+    const uint4 val = *reinterpret_cast<const uint4*>(qrows + l * ld + c * 8);
+    *reinterpret_cast<uint4*>(out + ((size_t)(r * L + lq + l) * H + h) * hd +
+                              c * 8) = val;
+  }
+}
+
+DeviceOnce g_attr[3];
+
+template <int ND>
+cudaError_t launch_nd(DeviceOnce& once, const void* q, const void* k,
+                      const void* v, const void* seg, void* out, int R,
+                      int L, int H, int hd, float inv_scale, float big_neg,
+                      cudaStream_t stream) {
+  const int smem = smem_bytes(hd, L);
+  // the most a block may use, less room for the kernel's static arrays
+  cudaError_t err = max_smem_once(once, segment_attention_flash_kernel<ND>,
+                                  kDynLimit);
+  if (err != cudaSuccess) return err;
+  const long long grid = (long long)R * H * ((L + kBQ - 1) / kBQ);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  segment_attention_flash_kernel<ND><<<(unsigned)grid, kThreads, smem,
+                                       stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(seg),
+      static_cast<__nv_bfloat16*>(out), L, H, hd, inv_scale, big_neg);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* seg, void* out, int R, int L, int H, int hd,
+                   float inv_scale, float big_neg, cudaStream_t stream) {
+  if (hd % 16 != 0 || hd > 256 || L > kMaxL || smem_bytes(hd, L) > kDynLimit)
+    return cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch_nd<4>(g_attr[0], q, k, v, seg, out, R, L, H, hd, inv_scale,
+                        big_neg, stream);
+  if (hd <= 128)
+    return launch_nd<8>(g_attr[1], q, k, v, seg, out, R, L, H, hd, inv_scale,
+                        big_neg, stream);
+  return launch_nd<16>(g_attr[2], q, k, v, seg, out, R, L, H, hd, inv_scale,
+                       big_neg, stream);
+}
+
+}  // namespace flash
+
+// =====================================================================
 // The CUDA-core kernel (f32, and bf16 shapes the tensor-core one skips)
 // =====================================================================
 
@@ -676,34 +1037,312 @@ cudaError_t launch(DeviceOnce& once, const void* q, const void* k,
 
 }  // namespace simt
 
+// =====================================================================
+// The tiled CUDA-core kernel (f32, and bf16 with hd % 16 != 0, at L or
+// hd past the one-tile kernel's 64)
+// =====================================================================
+
+namespace tiled {
+
+constexpr int kThreads = 256;
+constexpr int kB = 64;  // queries a CTA, keys a tile
+constexpr int kMaxL = 1024;
+constexpr int kMaxTiles = kMaxL / kB;
+constexpr int kSld = kB + 1;
+
+using simt::from_f32;
+using simt::to_f32;
+
+// shared floats: Q, K and V tiles (kB x (hd + 1)), the score tile, the
+// row's segment ids, then each query's running max, sum and rescale
+__host__ __device__ constexpr size_t smem_bytes(int hd, int L) {
+  return ((size_t)3 * kB * (hd + 1) + kB * kSld + 3 * kB) * 4 +
+         (size_t)L * 4;
+}
+
+// One CTA: 64 queries of (row r, head h). Key tiles of 64 stream through
+// shared memory; each query keeps a running max and sum (the online
+// softmax), and thread (ty, tx) keeps the output of queries ty + 16 a at
+// dims tx + 16 c in registers, rescaled when a query's max rises. Tiles
+// are skipped as in the tensor-core kernels (exact for live queries; none
+// when a query of the CTA is padding). DB: 16-dim blocks a thread holds.
+template <typename T, int DB>
+__global__ void __launch_bounds__(kThreads)
+segment_attention_tiled_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const int32_t* __restrict__ seg,
+                               T* __restrict__ out, int L, int H, int hd,
+                               float scale_div, float big_neg) {
+  extern __shared__ float tl_smem[];
+  const int ld = hd + 1;
+  float* qs = tl_smem;
+  float* ks = qs + kB * ld;
+  float* vs = ks + kB * ld;
+  float* sc = vs + kB * ld;
+  float* run_m = sc + kB * kSld;
+  float* run_l = run_m + kB;
+  float* run_a = run_l + kB;
+  int* segs = reinterpret_cast<int*>(run_a + kB);
+  __shared__ int s_tiles[kMaxTiles];
+  __shared__ int s_ntiles;
+
+  const int nqb = (L + kB - 1) / kB;
+  const int r = blockIdx.x / (H * nqb);
+  const int rem = blockIdx.x - r * H * nqb;
+  const int h = rem / nqb;
+  const int q0 = (rem - h * nqb) * kB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int l = tid; l < L; l += kThreads) segs[l] = seg[(size_t)r * L + l];
+  // q scaled and rounded to T, as Flax divides in the working type; rows
+  // past L are zero
+  for (int e = tid; e < kB * hd; e += kThreads) {
+    const int l = e / hd, dd = e - l * hd;
+    float x = 0.f;
+    if (q0 + l < L)
+      x = to_f32(from_f32<T>(
+          to_f32(q[((size_t)(r * L + q0 + l) * H + h) * hd + dd]) /
+          scale_div));
+    qs[l * ld + dd] = x;
+  }
+  if (tid < kB) {
+    run_m[tid] = -INFINITY;
+    run_l[tid] = 0.f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned all = 0xffffffffu;
+    int qmin = INT_MAX, qmax = 0;
+    bool pad = false;
+    for (int l = q0 + lane; l < min(q0 + kB, L); l += 32) {
+      const int s = segs[l];
+      if (s > 0) {
+        qmin = min(qmin, s);
+        qmax = max(qmax, s);
+      } else {
+        pad = true;
+      }
+    }
+    qmin = __reduce_min_sync(all, qmin);
+    qmax = __reduce_max_sync(all, qmax);
+    pad = __any_sync(all, pad);
+    int n = 0;
+    for (int t = 0; t < (L + kB - 1) / kB; ++t) {
+      int tmin = INT_MAX, tmax = 0;
+      for (int l = t * kB + lane; l < min(t * kB + kB, L); l += 32) {
+        const int s = segs[l];
+        if (s > 0) {
+          tmin = min(tmin, s);
+          tmax = max(tmax, s);
+        }
+      }
+      tmin = __reduce_min_sync(all, tmin);
+      tmax = __reduce_max_sync(all, tmax);
+      if (pad || (tmin <= qmax && tmax >= qmin)) {
+        if (lane == 0) s_tiles[n] = t;
+        ++n;
+      }
+    }
+    if (lane == 0) s_ntiles = n;
+  }
+  __syncthreads();
+
+  const int tx = tid & 15, ty = tid >> 4;
+  float o[4][DB];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < DB; ++c) o[a][c] = 0.f;
+
+  for (int i = 0; i < s_ntiles; ++i) {
+    const int kt0 = s_tiles[i] * kB;
+    __syncthreads();  // the previous tile's K, V and scores are consumed
+    for (int e = tid; e < kB * hd; e += kThreads) {
+      const int l = e / hd, dd = e - l * hd;
+      float kx = 0.f, vx = 0.f;
+      if (kt0 + l < L) {
+        const size_t g = ((size_t)(r * L + kt0 + l) * H + h) * hd + dd;
+        kx = to_f32(k[g]);
+        vx = to_f32(v[g]);
+      }
+      ks[l * ld + dd] = kx;
+      vs[l * ld + dd] = vx;
+    }
+    __syncthreads();
+    // ---- scores of queries ty + 16 a and keys tx + 16 b, masked
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int dd = 0; dd < hd; ++dd) {
+      float qa[4], kb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * ld + dd];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) kb[b] = ks[(tx + 16 * b) * ld + dd];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(qa[a], kb[b], acc[a][b]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int iq = q0 + ty + 16 * a;
+      const int sq = iq < L ? segs[iq] : 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = kt0 + tx + 16 * b;
+        sc[(ty + 16 * a) * kSld + tx + 16 * b] =
+            j >= L ? -INFINITY
+                   : ((sq > 0 && segs[j] == sq) ? acc[a][b] : big_neg);
+      }
+    }
+    __syncthreads();
+    // ---- the online softmax, a warp a query row
+    for (int row = warp; row < kB; row += kThreads / 32) {
+      const float x0 = sc[row * kSld + lane];
+      const float x1 = sc[row * kSld + lane + 32];
+      float tm = fmaxf(x0, x1);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
+      const float mo = run_m[row];
+      const float mn = fmaxf(mo, tm);  // finite: the tile has a key < L
+      const float p0 = expf(x0 - mn), p1 = expf(x1 - mn);
+      float s = p0 + p1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      sc[row * kSld + lane] = p0;
+      sc[row * kSld + lane + 32] = p1;
+      __syncwarp();
+      if (lane == 0) {
+        const float al = expf(mo - mn);  // 0 at the first tile
+        run_a[row] = al;
+        run_l[row] = run_l[row] * al + s;
+        run_m[row] = mn;
+      }
+    }
+    __syncthreads();
+    // ---- O = O * alpha + P.V
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float al = run_a[ty + 16 * a];
+#pragma unroll
+      for (int c = 0; c < DB; ++c) o[a][c] *= al;
+    }
+    for (int j = 0; j < kB; ++j) {
+      float pa[4], vb[DB];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pa[a] = sc[(ty + 16 * a) * kSld + j];
+#pragma unroll
+      for (int c = 0; c < DB; ++c) {
+        const int dd = tx + 16 * c;
+        vb[c] = dd < hd ? vs[j * ld + dd] : 0.f;
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < DB; ++c) o[a][c] = fmaf(pa[a], vb[c], o[a][c]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int iq = q0 + ty + 16 * a;
+    if (iq >= L) continue;
+    const float inv = 1.f / run_l[ty + 16 * a];
+#pragma unroll
+    for (int c = 0; c < DB; ++c) {
+      const int dd = tx + 16 * c;
+      if (dd < hd)
+        out[((size_t)(r * L + iq) * H + h) * hd + dd] =
+            from_f32<T>(o[a][c] * inv);
+    }
+  }
+}
+
+template <typename T, int DB>
+cudaError_t launch_db(DeviceOnce& once, const void* q, const void* k,
+                      const void* v, const void* seg, void* out, int R,
+                      int L, int H, int hd, float scale_div, float big_neg,
+                      cudaStream_t stream) {
+  cudaError_t err = max_smem_once(once, segment_attention_tiled_kernel<T, DB>,
+                                  flash::kDynLimit);
+  if (err != cudaSuccess) return err;
+  const long long grid = (long long)R * H * ((L + kB - 1) / kB);
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  segment_attention_tiled_kernel<T, DB>
+      <<<(unsigned)grid, kThreads, smem_bytes(hd, L), stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int32_t*>(seg),
+          static_cast<T*>(out), L, H, hd, scale_div, big_neg);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(DeviceOnce (&once)[2], const void* q, const void* k,
+                   const void* v, const void* seg, void* out, int R, int L,
+                   int H, int hd, float scale_div, float big_neg,
+                   cudaStream_t stream) {
+  if (hd > 256 || L > kMaxL || smem_bytes(hd, L) > (size_t)flash::kDynLimit)
+    return cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch_db<T, 4>(once[0], q, k, v, seg, out, R, L, H, hd,
+                           scale_div, big_neg, stream);
+  return launch_db<T, 16>(once[1], q, k, v, seg, out, R, L, H, hd, scale_div,
+                          big_neg, stream);
+}
+
+DeviceOnce g_tiled_f32[2], g_tiled_bf16[2];
+
+}  // namespace tiled
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. route: 0 = the CUDA-core kernel,
-// 1 = the tensor-core kernel (bfloat16 only). Shapes are checked by the
-// Python wrapper (L <= 64, hd <= 64, R * H > 0, contiguous (R, L, H, hd);
-// route 1 also hd % 16 == 0, L % 4 == 0 and 16-byte aligned tensors).
+// dtype: 0 = float32, 1 = bfloat16. route: 0 = the one-tile CUDA-core
+// kernel (L <= 64, hd <= 64), 1 = the one-tile tensor-core kernel (bf16,
+// hd % 16 == 0, L % 4 == 0, 16-byte aligned, L <= 64, hd <= 64, a row's
+// stage within shared memory), 2 = the tiled tensor-core kernel (bf16, hd
+// % 16 == 0, 16-byte aligned, L <= 1024, hd <= 256), 3 = the tiled
+// CUDA-core kernel (L <= 1024, hd <= 256). Shapes are checked by the
+// Python wrapper (R * H > 0, contiguous (R, L, H, hd)).
 extern "C" int segment_attention_launch(const void* q, const void* k,
                                         const void* v, const void* seg,
                                         void* out, int R, int L, int H,
                                         int hd, int dtype, int route,
                                         float scale_div, float big_neg,
                                         void* stream) {
-  if (L > kMaxL || hd > kMaxHd || R <= 0 || H <= 0 || L <= 0 || hd <= 0)
+  if (R <= 0 || H <= 0 || L <= 0 || hd <= 0 || L > tiled::kMaxL ||
+      hd > 256 || (dtype != 0 && dtype != 1) || route < 0 || route > 3)
+    return (int)cudaErrorInvalidValue;
+  if (route < 2 && (L > kMaxL || hd > kMaxHd))
+    return (int)cudaErrorInvalidValue;
+  if ((route == 1 || route == 2) && dtype != 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 1) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return (int)tc::launch(q, k, v, seg, out, R, L, H, hd, 1.f / scale_div,
-                           big_neg, s);
+  switch (route) {
+    case 1:
+      return (int)tc::launch(q, k, v, seg, out, R, L, H, hd, 1.f / scale_div,
+                             big_neg, s);
+    case 2:
+      return (int)flash::launch(q, k, v, seg, out, R, L, H, hd,
+                                1.f / scale_div, big_neg, s);
+    case 3:
+      if (dtype == 0)
+        return (int)tiled::launch<float>(tiled::g_tiled_f32, q, k, v, seg, out, R,
+                                         L, H, hd, scale_div, big_neg, s);
+      return (int)tiled::launch<__nv_bfloat16>(tiled::g_tiled_bf16, q, k, v, seg,
+                                               out, R, L, H, hd, scale_div,
+                                               big_neg, s);
+    default:
+      if (dtype == 0)
+        return (int)simt::launch<float>(simt::g_attr_f32, q, k, v, seg, out,
+                                        R, L, H, hd, scale_div, big_neg, s);
+      return (int)simt::launch<__nv_bfloat16>(simt::g_attr_bf16, q, k, v,
+                                              seg, out, R, L, H, hd,
+                                              scale_div, big_neg, s);
   }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)simt::launch<float>(simt::g_attr_f32, q, k, v, seg, out, R,
-                                    L, H, hd, scale_div, big_neg, s);
-  if (dtype == 1)
-    return (int)simt::launch<__nv_bfloat16>(simt::g_attr_bf16, q, k, v, seg,
-                                            out, R, L, H, hd, scale_div,
-                                            big_neg, s);
-  return (int)cudaErrorInvalidValue;
 }
-

@@ -42,8 +42,9 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // ------------------------------------------------------------ GELU table
 // The GELU's input is a bf16 value, so round(gelu(y)) is a function of 16
 // bits. Each CTA tabulates it with gelu_tanh itself for 2^-61 <= |y| < 8
-// (biased exponents 66..129: 64 x 128 mantissas) and y = +-0 (every padded
-// row: LN of a zero row is beta, zero at init), 8,193 slots of a positive
+// (biased exponents 66..129: 64 x 128 mantissas) and y = +-0 (a zero bias
+// on a zero product; K15 skips the fused routes' padding row tiles, whose
+// leftover contents would be rare values), 8,193 slots of a positive
 // and a negative entry, 16,386 in all (32 KB of shared memory), indexed by
 // y's bits. The range reaches that far down because a narrower one (2^-10,
 // 6.5 KB) left tiny values in most warps' 4,096 outputs a tile. The

@@ -11,14 +11,19 @@ and ``odigos_tpu/models/autoencoder.py`` (:78-80) adds ``dec_ff1`` → gelu →
 ``dec_ff2`` with no residual. Everything but the attention goes through
 two kernels here:
 
-* **K14** ``ln_bf16(x, weight, bias, eps)``: Flax's ``LayerNorm(dtype)``
-  over the last dimension, output in ``x``'s type, with f32 ``weight`` and
-  ``bias``. The statistics are :func:`quant.layer_norm_plain`'s (row sums
+* **K14** ``ln_bf16(x, weight, bias, eps, live, per)``: Flax's
+  ``LayerNorm(dtype)`` over the last dimension, output in ``x``'s type,
+  with f32 ``weight`` and ``bias``. With ``live``, a ``(1,)`` int32 count
+  on ``x``'s device, the rows at or past ``live[0] * per`` are neither read
+  nor written on the card (the fused routes' padding rows: every op after
+  K14 is row-local, so no real score reads them), and the plain version
+  writes NaN there, so that a CPU test shows the same. The statistics are
+  :func:`quant.layer_norm_plain`'s (row sums
   taken exactly in f64 and rounded once to f32, two-pass variance, a
   correctly rounded ``1 / sqrt``, every step a separate IEEE op), so the
   kernel (``csrc/ln_exact.cuh``, shared with K9, K11 and K12) gives the
   plain version's bits in any summation order.
-* **K15** ``gemm_bf16(x, w, b, epilogue, residual, planes)``:
+* **K15** ``gemm_bf16(x, w, b, epilogue, residual, planes, live, per)``:
   ``epilogue(x @ w.T + b)`` with ``x (M, K)``, ``w (N, K)`` (the Linear
   layout) and ``b (N,)`` all in the working type, the product summed in
   f32 and every later step rounded where Flax rounds (``Dense(dtype)``'s
@@ -40,11 +45,22 @@ two kernels here:
   ``planes > 1`` splits the N columns into ``planes`` blocks returned as
   ``(planes, M, N / planes)``: the fused QKV product over ``[W_q; W_k;
   W_v]`` leaves q, k and v each contiguous for K1 in one launch.
+  ``live``/``per`` is K14's row count: on the card the row tiles (128
+  rows; 64 on the f32 route) that hold no row below ``live[0] * per`` are
+  neither read nor written, and the rest of the last one holds whatever
+  the product of its inputs gives; the plain version writes NaN in every
+  row at or past the count.
+
+Both wrappers take an ``out`` buffer of their output's shape, type and
+device (contiguous, 16-byte aligned), else allocate one: rows the kernel
+skips keep what it held.
 
 A CUDA tensor launches ``csrc/dense.cu`` or raises, never handing the work
-to the plain version: K14 takes f32 or bf16 rows of ``d`` in
-``LN_WIDTHS``, 16-byte aligned; K15 takes bf16 (``wgmma`` tensor cores,
-TMA loads and stores) or f32 (CUDA cores, for the f32 model), with
+to the plain version: K14 takes f32 or bf16 rows of ``d % 8 == 0`` from 8
+to ``MAX_LN_D``, 16-byte aligned (16-byte vectors a lane, several rows a
+warp at narrow d, a CTA a row past 1024 bf16 values; a persistent grid);
+K15 takes bf16 (``wgmma`` tensor cores, TMA loads and stores) or f32
+(CUDA cores, for the f32 model), with
 ``K % 16 == 0``, ``N % 8 == 0``, ``N / planes`` a multiple of 64 when
 ``planes > 1`` (each 64-column box of the output lies in one plane),
 contiguous operands and 16-byte aligned ``x``, ``w``, ``residual`` and
@@ -71,7 +87,7 @@ from .qgemm import gelu_tanh_plain
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
-LN_WIDTHS = (32, 64, 128, 256, 512, 1024)
+MAX_LN_D = 4096
 EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2,
              "gelu_tanh_formula": 3}
 GELU_EPILOGUES = ("gelu_tanh", "gelu_tanh_formula")
@@ -89,10 +105,13 @@ _fns: dict = {}
 
 # ------------------------------------------------------------------ plain
 def ln_bf16_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                  eps: float = LN_EPS) -> torch.Tensor:
-    """K14's plain version: the exact LayerNorm, rounded to ``x``'s type."""
-    _check_ln(x, weight, bias)
-    return layer_norm_plain(x, weight, bias, eps)
+                  eps: float = LN_EPS, live: Optional[torch.Tensor] = None,
+                  per: int = 1) -> torch.Tensor:
+    """K14's plain version: the exact LayerNorm, rounded to ``x``'s type;
+    NaN in the rows at or past ``live[0] * per`` (read on the device, no
+    sync)."""
+    _check_ln(x, weight, bias, live, per)
+    return _nan_past(layer_norm_plain(x, weight, bias, eps), live, per)
 
 
 def _split(y: torch.Tensor, planes: int) -> torch.Tensor:
@@ -102,13 +121,28 @@ def _split(y: torch.Tensor, planes: int) -> torch.Tensor:
     return y.view(M, planes, N // planes).transpose(0, 1).contiguous()
 
 
+def _nan_past(y: torch.Tensor, live: Optional[torch.Tensor],
+              per: int) -> torch.Tensor:
+    """``y`` with NaN in its rows (over the last dimension) at or past
+    ``live[0] * per``, the count read on the device (no sync)."""
+    if live is None:
+        return y
+    d = y.shape[-1]
+    rows = torch.arange(y.numel() // max(d, 1), device=y.device)
+    keep = (rows < live.to(torch.int64) * per).view(*y.shape[:-1], 1)
+    return torch.where(keep, y, torch.full((), float("nan"), dtype=y.dtype,
+                                           device=y.device))
+
+
 def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     epilogue: str = "none",
                     residual: Optional[torch.Tensor] = None,
-                    planes: int = 1) -> torch.Tensor:
+                    planes: int = 1, live: Optional[torch.Tensor] = None,
+                    per: int = 1) -> torch.Tensor:
     """K15's plain version: the product in f32 rounded to the working type,
-    the bias added and rounded, then the epilogue (module docstring)."""
-    _check_gemm(x, w, b, epilogue, residual, planes)
+    the bias added and rounded, then the epilogue (module docstring); NaN
+    in the rows at or past ``live[0] * per``."""
+    _check_gemm(x, w, b, epilogue, residual, planes, live, per)
     dt = x.dtype
     y = (x.float() @ w.float().t()).to(dt)
     y = (y.float() + b.float()).to(dt)
@@ -116,7 +150,7 @@ def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         y = (residual.float() + y.float()).to(dt)
     elif epilogue in GELU_EPILOGUES:
         y = gelu_tanh_plain(y.float()).to(dt)
-    return _split(y, planes)
+    return _split(_nan_past(y, live, per), planes)
 
 
 def gelu_bf16_lookup_plain(y: torch.Tensor) -> torch.Tensor:
@@ -149,15 +183,25 @@ def _same_device(*ts) -> None:
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def _check_ln(x, weight, bias) -> None:
+def _check_count(live, per: int) -> None:
+    if live is not None and (live.shape != (1,) or live.dtype != torch.int32):
+        raise ValueError(f"live must be a (1,) int32 count, got "
+                         f"{tuple(live.shape)} {live.dtype}")
+    if per < 1:
+        raise ValueError(f"per must be >= 1, got {per}")
+
+
+def _check_ln(x, weight, bias, live=None, per: int = 1) -> None:
     d = x.shape[-1]
     for name, t in (("weight", weight), ("bias", bias)):
         if t.shape != (d,):
             raise ValueError(f"{name} must be ({d},), got {tuple(t.shape)}")
-    _same_device(x, weight, bias)
+    _check_count(live, per)
+    _same_device(x, weight, bias, live)
 
 
-def _check_gemm(x, w, b, epilogue, residual, planes) -> None:
+def _check_gemm(x, w, b, epilogue, residual, planes, live=None,
+                per: int = 1) -> None:
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, "
                          f"not {epilogue!r}")
@@ -178,7 +222,8 @@ def _check_gemm(x, w, b, epilogue, residual, planes) -> None:
         if t is not None and t.dtype != x.dtype:
             raise TypeError(f"{name} must be {x.dtype} like x, not "
                             f"{t.dtype}")
-    _same_device(x, w, b, residual)
+    _check_count(live, per)
+    _same_device(x, w, b, residual, live)
 
 
 def _card(dev: torch.device, what: str) -> None:
@@ -194,46 +239,78 @@ def _kernel(name: str):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_float,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        elif name == "ln_bf16_warp_launch":
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_float,
+                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p]
         else:
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                            + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
 # ---------------------------------------------------------------- kernels
-def ln_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-            eps: float = LN_EPS) -> torch.Tensor:
-    """K14: the LayerNorm over ``x``'s last dimension, in ``x``'s type and
-    shape; see the module docstring. Nothing is synchronised."""
-    global ln_launches
-    dev = x.device
-    if dev.type == "cpu":
-        return ln_bf16_plain(x, weight, bias, eps)
-    _check_ln(x, weight, bias)
-    _card(dev, "ln_bf16")
+def _out(out: Optional[torch.Tensor], shape, x: torch.Tensor,
+         what: str) -> torch.Tensor:
+    """The caller's output buffer, checked, or a new one."""
+    if out is None:
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != x.dtype
+            or out.device != x.device or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"{what}: out must be a contiguous, 16-byte "
+                         f"aligned {x.dtype} buffer of shape {tuple(shape)} "
+                         f"on {x.device}")
+    return out
+
+
+def _ln_args(x, weight, bias) -> tuple[int, int]:
+    """Check a card launch's inputs; ``(rows, d)``."""
+    _card(x.device, "ln_bf16")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
     if weight.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("LayerNorm parameters must be float32")
     d = x.shape[-1]
-    if d not in LN_WIDTHS:
-        raise ValueError(f"ln_bf16 takes d in {LN_WIDTHS}, not {d}")
+    if d % 8 or not 8 <= d <= MAX_LN_D:
+        raise ValueError(f"ln_bf16 takes d % 8 == 0 from 8 to {MAX_LN_D}, "
+                         f"not {d}")
     if not all(t.is_contiguous() for t in (x, weight, bias)):
         raise ValueError("ln_bf16 needs contiguous inputs")
     if x.data_ptr() % 16:
         raise ValueError("ln_bf16 needs x 16-byte aligned")
-    out = torch.empty_like(x)
-    rows = x.numel() // d
+    return x.numel() // d, d
+
+
+def ln_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            eps: float = LN_EPS, live: Optional[torch.Tensor] = None,
+            per: int = 1, out: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """K14: the LayerNorm over ``x``'s last dimension, in ``x``'s type and
+    shape, into ``out`` if given; with ``live``, the rows at or past
+    ``live[0] * per`` are left unwritten (see the module docstring).
+    Nothing is synchronised."""
+    global ln_launches
+    dev = x.device
+    if dev.type == "cpu":
+        y = ln_bf16_plain(x, weight, bias, eps, live, per)
+        return y if out is None else _out(out, x.shape, x, "ln_bf16").copy_(y)
+    _check_ln(x, weight, bias, live, per)
+    rows, d = _ln_args(x, weight, bias)
+    out = _out(out, x.shape, x, "ln_bf16")
     if rows == 0:
         return out
     with torch.cuda.device(dev):
         rc = _kernel("ln_bf16_launch")(
             x.data_ptr(), _DTYPE_CODES[x.dtype], weight.data_ptr(),
-            bias.data_ptr(), eps, rows, d, out.data_ptr(),
+            bias.data_ptr(), eps, rows, d,
+            None if live is None else live.data_ptr(), per, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ln_bf16 launch failed: CUDA error {rc}")
@@ -242,17 +319,41 @@ def ln_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def ln_bf16_warp(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 eps: float = LN_EPS) -> torch.Tensor:
+    """K14's parent design (a warp a row, d in 32 ... 1024 powers of two),
+    on the card only, for the smoke run to time beside :func:`ln_bf16`;
+    nothing serves it and it counts no launch."""
+    _check_ln(x, weight, bias)
+    rows, d = _ln_args(x, weight, bias)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernel("ln_bf16_warp_launch")(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], weight.data_ptr(),
+            bias.data_ptr(), eps, rows, d, out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ln_bf16_warp launch failed: CUDA error {rc}")
+    return out
+
+
 def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               epilogue: str = "none",
               residual: Optional[torch.Tensor] = None,
-              planes: int = 1) -> torch.Tensor:
-    """K15: ``(M, N)`` (or ``(planes, M, N / planes)``) in ``x``'s type;
-    see the module docstring. Nothing is synchronised."""
+              planes: int = 1, live: Optional[torch.Tensor] = None,
+              per: int = 1, out: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """K15: ``(M, N)`` (or ``(planes, M, N / planes)``) in ``x``'s type,
+    into ``out`` if given; with ``live``, the row tiles past ``live[0] *
+    per`` are left unwritten (see the module docstring). Nothing is
+    synchronised."""
     global gemm_launches
     dev = x.device
     if dev.type == "cpu":
-        return gemm_bf16_plain(x, w, b, epilogue, residual, planes)
-    _check_gemm(x, w, b, epilogue, residual, planes)
+        y = gemm_bf16_plain(x, w, b, epilogue, residual, planes, live, per)
+        return y if out is None else _out(out, y.shape, x,
+                                          "gemm_bf16").copy_(y)
+    _check_gemm(x, w, b, epilogue, residual, planes, live, per)
     _card(dev, "gemm_bf16")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
@@ -271,7 +372,7 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if b.data_ptr() % 4:
         raise ValueError("gemm_bf16 needs b 4-byte aligned")
     shape = (M, N) if planes == 1 else (planes, M, N // planes)
-    out = torch.empty(shape, dtype=x.dtype, device=dev)
+    out = _out(out, shape, x, "gemm_bf16")
     if M == 0:
         return out
     with torch.cuda.device(dev):
@@ -279,7 +380,8 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if residual is None else residual.data_ptr(),
             out.data_ptr(), _DTYPE_CODES[x.dtype], EPILOGUES[epilogue], M,
-            N, K, planes, torch.cuda.current_stream(dev).cuda_stream)
+            N, K, planes, None if live is None else live.data_ptr(), per,
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gemm_bf16 launch failed: CUDA error {rc}")
     with _count_lock:

@@ -17,7 +17,7 @@ bf16 in f32 and rounds once), so the kernel and its plain version agree to
 the bit in any summation order.
 
 A CUDA tensor launches ``csrc/ae_pool.cu`` (one warp per trace, padding
-skipped; ``d`` in 32, 64, 128, 256) or raises; a CPU tensor takes
+skipped; ``d % 8 == 0`` up to ``MAX_D``) or raises; a CPU tensor takes
 :func:`ln_masked_pool_plain`. ``launches`` counts the calls that launched.
 """
 
@@ -32,7 +32,7 @@ from . import build
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
-WIDTHS = (32, 64, 128, 256)
+MAX_D = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -97,8 +97,9 @@ def ln_masked_pool(x: torch.Tensor, ln_weight: torch.Tensor,
     if ln_weight.dtype != torch.float32 or ln_bias.dtype != torch.float32:
         raise TypeError("LayerNorm parameters must be float32")
     T, L, d = x.shape
-    if d not in WIDTHS:
-        raise ValueError(f"ln_masked_pool takes d in {WIDTHS}, not {d}")
+    if d % 8 or not 0 < d <= MAX_D:
+        raise ValueError(f"ln_masked_pool takes d % 8 == 0 up to {MAX_D}, "
+                         f"not {d}")
     if not all(t.is_contiguous() for t in (x, ln_weight, ln_bias, mask)):
         raise ValueError("ln_masked_pool needs contiguous inputs")
     out = torch.empty((T, d), dtype=x.dtype, device=dev)

@@ -26,8 +26,9 @@ flips between the kernel and its plain version:
   product lies near a rounding boundary: the same codes,
   ``csrc/quant_exact.cuh``).
 
-A CUDA tensor launches ``csrc/quant.cu`` (one warp per row, 16-byte loads;
-``K % 8 == 0``, ``K <= 1024``, 16-byte aligned rows) or raises; a CPU tensor
+A CUDA tensor launches ``csrc/quant.cu`` (one warp per row up to K =
+1024, one CTA per row past it, 16-byte loads; ``K % 8 == 0``, ``K <=
+MAX_K``, 16-byte aligned rows) or raises; a CPU tensor
 takes :func:`ln_quantize_plain`. ``launches`` counts the calls that
 launched.
 """
@@ -44,7 +45,7 @@ import torch
 from . import build
 
 LN_EPS = 1e-6
-MAX_K = 1024
+MAX_K = 4096
 INV_127 = float(np.float32(1.0) / np.float32(127.0))  # f32(1/127)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

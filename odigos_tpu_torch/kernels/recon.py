@@ -29,18 +29,23 @@ online log-sum-exp and never writes the logits), so ``err`` agrees to
 summation-order noise.
 
 A CUDA tensor launches ``csrc/recon_ce.cu`` or raises; a CPU tensor takes
-:func:`recon_ce_plain`. The kernel goes by the working type
-(:func:`kernel_route`): bf16, the served type, runs the service and name
-heads on tensor cores (two launches: compact the real positions, then a
-persistent scoring kernel), which needs each head weight split into three
-bf16 planes, ``W = W_hi + W_mid + W_lo`` exactly (:func:`head_planes`;
-dec_ln's output is a bf16 value there, so each plane's products are exact
-in f32); the caller passes them in ``planes`` (the autoencoder caches them
-per weight tree), else they are made for the call. f32 (the parity path)
-runs the CUDA-core kernel. Neither falls back to the other. ``d`` is 32,
-64, 128 or 256, the kind head at most ``MAX_KIND`` wide on the bf16 route.
-``launches`` counts the calls that launched, ``tc_launches`` those on the
-tensor-core kernel, ``device_launches`` the kernels.
+:func:`recon_ce_plain`. :func:`kernel_route` names the kernel: bf16, the
+served type, runs the service and name heads on tensor cores (``"tc"``,
+two launches: compact the real positions, then a persistent scoring
+kernel), which needs each head weight split into three bf16 planes, ``W =
+W_hi + W_mid + W_lo`` exactly (:func:`head_planes`; dec_ln's output is a
+bf16 value there, so each plane's products are exact in f32); the caller
+passes them in ``planes`` (the autoencoder caches them per weight tree),
+else they are made for the call. f32 (the parity path), and bf16 whose
+heads the split cannot hold (:func:`split_planes` is None: the caller
+says so with ``route="cuda_core"``, decided when the weights are loaded),
+run the CUDA-core kernel. Neither falls back to the other on a launch.
+``d % 16 == 0`` up to ``MAX_D`` (the tensor-core kernel's 128-position
+tiles at ``TC_WIDTHS``, 64-position tiles chunked along d elsewhere;
+the CUDA-core kernel takes ``d % 4 == 0``), the kind head at most
+``MAX_KIND`` wide on the tensor-core route. ``launches`` counts the calls
+that launched, ``tc_launches`` those on the tensor-core kernel,
+``device_launches`` the kernels.
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ from . import build
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
-WIDTHS = (32, 64, 128, 256)
+TC_WIDTHS = (32, 64, 128, 256)  # the 128-position tensor-core kernel
+MAX_D = 1024
+ROUTES = ("tc", "cuda_core")
 # the bf16 kernel's geometry (csrc/recon_ce.cu): columns each tensor-core
 # head pads to, the kind head's width, positions a tile, the slices a tile
 # may split into, and room for split tiles' partials per SM
@@ -120,14 +127,14 @@ def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
     return err, scores
 
 
-def head_planes(heads: Heads) -> HeadPlanes:
+def split_planes(heads: Heads) -> Optional[HeadPlanes]:
     """The service and name heads (``heads[0]``, ``heads[1]``) split into
     three bf16 planes: ``W_hi = bf16(W)``, ``W_mid = bf16(W - W_hi)``,
     ``W_lo = W - W_hi - W_mid`` (8 + 8 + 8 significant bits), each head's
     rows padded with zeros to a multiple of ``PLANE_PAD`` (bias -inf
-    there). Raises if the planes do not sum to ``W`` bit for bit: a value
-    outside the split's range (beyond bf16's largest, below ~2^-110, or
-    not finite)."""
+    there); None if the planes do not sum to ``W`` bit for bit (a value
+    outside the split's range: beyond bf16's largest, below ~2^-110, or
+    not finite). Compares on the host: made once per weight tree."""
     ws, bs, pads = [], [], []
     with torch.no_grad():
         for w, b in heads[:2]:
@@ -147,19 +154,29 @@ def head_planes(heads: Heads) -> HeadPlanes:
         mid = r.to(torch.bfloat16)
         lo = (r - mid.float()).to(torch.bfloat16)
         if not torch.equal((hi.float() + mid.float()) + lo.float(), W):
-            raise ValueError("head weights outside the three-plane split's "
-                             "range (not finite, beyond bf16's largest or "
-                             "below ~2^-110): the tensor-core kernel would "
-                             "not compute f32 logits")
+            return None
         return HeadPlanes(torch.stack([hi, mid, lo]).contiguous(),
                           torch.cat(bs), pads[0], heads[0][0].shape[0],
                           heads[1][0].shape[0])
 
 
-def kernel_route(dtype: torch.dtype) -> str:
-    """The kernel a CUDA tensor of this working type takes: ``"tc"`` (bf16,
-    tensor cores) or ``"cuda_core"`` (f32)."""
-    return "tc" if dtype == torch.bfloat16 else "cuda_core"
+def head_planes(heads: Heads) -> HeadPlanes:
+    """:func:`split_planes`, raising where the split cannot hold the
+    heads."""
+    planes = split_planes(heads)
+    if planes is None:
+        raise ValueError("head weights outside the three-plane split's "
+                         "range (not finite, beyond bf16's largest or "
+                         "below ~2^-110): the tensor-core kernel would "
+                         "not compute f32 logits")
+    return planes
+
+
+def kernel_route(dtype: torch.dtype, splittable: bool = True) -> str:
+    """The kernel a CUDA tensor of this working type takes: ``"tc"`` (bf16
+    whose heads :func:`split_planes` holds, tensor cores) or
+    ``"cuda_core"`` (f32, or bf16 heads the split cannot hold)."""
+    return "tc" if dtype == torch.bfloat16 and splittable else "cuda_core"
 
 
 def tc_slices(count: int, d: int, v_tc: int, grid: int,
@@ -196,8 +213,9 @@ def _kernel(name: str):
     if fn is None:
         fn = getattr(build.load("recon_ce"), name)
         if name == "recon_ce_f32_launch":
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_float]
                            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_int, ctypes.c_void_p]
@@ -264,11 +282,13 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
              continuous: torch.Tensor, mask: torch.Tensor,
              loss_weights: Sequence[float],
              span_map: Optional[torch.Tensor] = None, n_out: int = 0,
-             eps: float = LN_EPS, planes: Optional[HeadPlanes] = None):
+             eps: float = LN_EPS, planes: Optional[HeadPlanes] = None,
+             route: Optional[str] = None):
     """``(M,)`` f32 errors, and with ``span_map`` also the ``(n_out,)``
-    squashed scores by span; see the module docstring. ``planes``: the
-    bf16 kernel's :func:`head_planes` of ``heads`` (made here when None).
-    Nothing is synchronised."""
+    squashed scores by span; see the module docstring. ``route``: the
+    kernel (:func:`kernel_route`), by default the working type's;
+    ``planes``: the tensor-core kernel's :func:`head_planes` of ``heads``
+    (made here when None). Nothing is synchronised."""
     global launches, tc_launches, device_launches
     n_out = int(n_out)
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
@@ -286,13 +306,18 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
     if any(t.dtype != torch.float32 for t in params):
         raise TypeError("LayerNorm and head parameters must be float32")
     M, d = dec.shape
-    if d not in WIDTHS:
-        raise ValueError(f"recon_ce takes d in {WIDTHS}, not {d}")
+    route = kernel_route(dec.dtype) if route is None else route
+    if route not in ROUTES or (route == "tc" and dec.dtype != torch.bfloat16):
+        raise ValueError(f"recon_ce route {route!r}: 'tc' (bf16) or "
+                         f"'cuda_core'")
+    tc = route == "tc"
+    if d > MAX_D or d % (16 if tc else 4) or d == 0:
+        raise ValueError(f"recon_ce takes d % {16 if tc else 4} == 0 up to "
+                         f"{MAX_D} on the {route} route, not {d}")
     ins = (dec, categorical, continuous, mask, *params) + (
         (span_map,) if span_map is not None else ())
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("recon_ce needs contiguous inputs")
-    tc = kernel_route(dec.dtype) == "tc"
     if tc:
         if heads[2][0].shape[0] > MAX_KIND:
             raise ValueError(f"the bf16 kernel takes a kind head of at most "
@@ -316,8 +341,9 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                 or {planes.w.device, planes.b.device} != {dev}):
             raise ValueError("planes are not head_planes(heads) on the "
                              "inputs' device")
-    elif any(w.data_ptr() % 16 for w, _ in heads):
-        raise ValueError("recon_ce needs 16-byte aligned head weights")
+    elif dec.data_ptr() % 16 or any(w.data_ptr() % 16 for w, _ in heads):
+        raise ValueError("recon_ce needs a 16-byte aligned dec and head "
+                         "weights")
     err = torch.empty(M, dtype=torch.float32, device=dev)
     scores = None
     if span_map is not None:
@@ -334,7 +360,10 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                 sms = _sm_count(dev)
                 part_items = PART_ITEMS_PER_SM * sms
                 lst = torch.empty(M, dtype=torch.int32, device=dev)
-                stats = torch.empty(2 * M, dtype=torch.float32, device=dev)
+                # (mean, 1 / std) a listed position; off TC_WIDTHS also
+                # the kind CE and the duration logit
+                stats = torch.empty((2 if d in TC_WIDTHS else 4) * M,
+                                    dtype=torch.float32, device=dev)
                 # the count and each split tile's finished slices, zeroed
                 zeros = torch.zeros(2 + part_items // 2, dtype=torch.int32,
                                     device=dev)
@@ -354,7 +383,8 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                     zeros.data_ptr() + 4, sms, ctypes.byref(count), stream)
             else:
                 rc = _kernel("recon_ce_f32_launch")(
-                    dec.data_ptr(), M, d, ln_weight.data_ptr(),
+                    dec.data_ptr(), int(dec.dtype == torch.bfloat16), M, d,
+                    ln_weight.data_ptr(),
                     ln_bias.data_ptr(), eps, w0.data_ptr(), w1.data_ptr(),
                     w2.data_ptr(), w3.data_ptr(), b0.data_ptr(),
                     b1.data_ptr(), b2.data_ptr(), b3.data_ptr(), w0.shape[0],

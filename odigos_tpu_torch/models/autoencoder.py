@@ -54,8 +54,9 @@ from torch import nn
 from ..kernels.dense import gemm_bf16, gemm_bf16_plain
 from ..kernels.embed import KIND_VOCAB
 from ..kernels.pool import ln_masked_pool, ln_masked_pool_plain
-from ..kernels.recon import (HeadPlanes, head_planes, recon_ce,
-                             recon_ce_plain)
+from ..kernels.recon import (HeadPlanes, kernel_route, recon_ce,
+                             recon_ce_plain, split_planes)
+from ..kernels import coverage
 from ..utils.device import resolve_device
 from .layers import Encoder, LayerNorm, init_parameters
 from .transformer import _as_tensor, load_module_state
@@ -112,13 +113,14 @@ class _AutoencoderModule(nn.Module):
             self.service_head, self.name_head, self.kind_head,
             self.duration_head)]
 
-    def head_planes(self) -> HeadPlanes:
+    def head_planes(self) -> Optional[HeadPlanes]:
         """K11's three bf16 planes of the service and name heads
-        (``kernels.recon.head_planes``), cached as the blocks' QKV weight
-        is: under the four tensors' addresses, types and version counters,
-        so a ``load_state_dict``, an in-place copy or a move rebuilds them;
-        parameters made under ``inference_mode`` count no versions and are
-        split anew on every call."""
+        (``kernels.recon.split_planes``; None where the split cannot hold
+        them, and K11 then runs its CUDA-core kernel), cached as the
+        blocks' QKV weight is: under the four tensors' addresses, types and
+        version counters, so a ``load_state_dict``, an in-place copy or a
+        move rebuilds them; parameters made under ``inference_mode`` count
+        no versions and are split anew on every call."""
         parts = [t for h in (self.service_head, self.name_head)
                  for t in (h.weight, h.bias)]
         key = None if any(t.is_inference() for t in parts) else tuple(
@@ -127,7 +129,7 @@ class _AutoencoderModule(nn.Module):
             # plain tensors even under inference_mode: usable outside it
             with torch.inference_mode(False), torch.no_grad():
                 held = tuple(t.detach() for t in parts)
-                planes = head_planes([held[:2], held[2:]])
+                planes = split_planes([held[:2], held[2:]])
             self._planes = (key, held, planes)
         return self._planes[2]
 
@@ -149,6 +151,8 @@ class SpanAutoencoder:
             raise ValueError(f"working dtype must be float32 or bfloat16, "
                              f"not {self.cfg.dtype}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":  # no plain route on the card
+            coverage.check(self.cfg)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         module = _AutoencoderModule(self.cfg)
@@ -176,7 +180,8 @@ class SpanAutoencoder:
                 _as_tensor(mask, torch.bool, dev))
 
     def _decoder_input(self, cat: torch.Tensor, cont: torch.Tensor,
-                       mask: torch.Tensor, reference: bool) -> torch.Tensor:
+                       mask: torch.Tensor, reference: bool,
+                       live: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder, K12 pool, bottleneck, latent projection plus
         ``dec_pos_embed``: the ``(T·L, d)`` rows ``dec_ff1`` reads."""
         m = self.module
@@ -185,7 +190,7 @@ class SpanAutoencoder:
         pos = torch.arange(L, dtype=torch.int32, device=mask.device).expand(
             T, L).contiguous()
         h = m.encoder(cat, cont, pos, seg, reference=reference,
-                      final_ln=False)
+                      final_ln=False, live=live)
         pool = ln_masked_pool_plain if reference else ln_masked_pool
         ln = m.encoder.final_ln
         pooled = pool(h, ln.weight, ln.bias, mask, ln.eps)
@@ -194,20 +199,25 @@ class SpanAutoencoder:
         return (m.latent_proj(z)[:, None, :] + pos_e).reshape(T * L, -1)
 
     def _decode(self, cat: torch.Tensor, cont: torch.Tensor,
-                mask: torch.Tensor, reference: bool) -> torch.Tensor:
+                mask: torch.Tensor, reference: bool,
+                live: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The decoder up to ``dec_ln``, K15 twice (the GELU in
-        ``dec_ff1``'s epilogue): the ``(T·L, d)`` rows K11 reads."""
+        ``dec_ff1``'s epilogue): the ``(T·L, d)`` rows K11 reads (with
+        ``live``, K11 reads no row of a trace past the count, and K15
+        skips their row tiles)."""
         m = self.module
         gemm = gemm_bf16_plain if reference else gemm_bf16
-        dec = gemm(self._decoder_input(cat, cont, mask, reference),
-                   m.dec_ff1.weight, m.dec_ff1.bias, "gelu_tanh")
-        return gemm(dec, m.dec_ff2.weight, m.dec_ff2.bias)
+        L = mask.shape[1]
+        dec = gemm(self._decoder_input(cat, cont, mask, reference, live),
+                   m.dec_ff1.weight, m.dec_ff1.bias, "gelu_tanh", live=live,
+                   per=L)
+        return gemm(dec, m.dec_ff2.weight, m.dec_ff2.bias, live=live, per=L)
 
     def _errors(self, cat, cont, mask, reference: bool, span_map=None,
-                n_out: int = 0):
+                n_out: int = 0, live: Optional[torch.Tensor] = None):
         c = self.cfg
         T, L = mask.shape
-        dec = self._decode(cat, cont, mask, reference)
+        dec = self._decode(cat, cont, mask, reference, live)
         ln = self.module.dec_ln
         args = (dec, ln.weight, ln.bias, self.module.heads(),
                 cat.reshape(T * L, -1), cont.reshape(T * L, -1),
@@ -216,10 +226,24 @@ class SpanAutoencoder:
         if reference:
             return recon_ce_plain(*args, span_map=span_map, n_out=n_out,
                                   eps=ln.eps)
+        if not dec.is_cuda:
+            return recon_ce(*args, span_map=span_map, n_out=n_out,
+                            eps=ln.eps)
         planes = (self.module.head_planes()
-                  if dec.is_cuda and dec.dtype == torch.bfloat16 else None)
+                  if dec.dtype == torch.bfloat16 else None)
         return recon_ce(*args, span_map=span_map, n_out=n_out, eps=ln.eps,
-                        planes=planes)
+                        planes=planes,
+                        route=kernel_route(dec.dtype, planes is not None))
+
+    @property
+    def recon_route(self) -> str:
+        """K11's kernel on the card for the loaded weights
+        (``kernels.recon.kernel_route``): ``"tc"`` for bf16 heads the three
+        planes hold, ``"cuda_core"`` for f32 or heads they cannot (the
+        split is made when the weights change, never on a launch)."""
+        planes = (self.module.head_planes()
+                  if self.cfg.dtype == torch.bfloat16 else None)
+        return kernel_route(self.cfg.dtype, planes is not None)
 
     @torch.inference_mode()
     def span_errors(self, categorical: Any, continuous: Any, mask: Any,
@@ -245,15 +269,20 @@ class SpanAutoencoder:
     @torch.inference_mode()
     def score_spans_scatter(self, categorical: Any, continuous: Any,
                             mask: Any, span_map: torch.Tensor, n_out: int,
-                            reference: bool = False) -> torch.Tensor:
+                            reference: bool = False,
+                            live: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
         """The fused route's forward: every real slot's squashed score
         ``1 - exp(-err)`` written at ``span_map`` (K13's original span
         index, -1 at padding) of an ``(n_out,)`` f32 output, 0 elsewhere
-        (spans truncated from their trace stay 0)."""
+        (spans truncated from their trace stay 0). ``live``: K13's ``(1,)``
+        count of filled rows on the device; the encoder's LayerNorms skip
+        the rows past it (K12 and K11 read only real positions)."""
         cat, cont, m = self._inputs(categorical, continuous, mask)
         smap = _as_tensor(span_map, torch.int32, self.device)
         _, scores = self._errors(cat, cont, m, reference,
-                                 span_map=smap.reshape(-1), n_out=n_out)
+                                 span_map=smap.reshape(-1), n_out=n_out,
+                                 live=live)
         return scores
 
     @torch.inference_mode()

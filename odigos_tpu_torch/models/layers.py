@@ -49,10 +49,14 @@ class LayerNorm(nn.LayerNorm):
         super().__init__(d, eps=LN_EPS)
         self.out_dtype = out_dtype
 
-    def forward(self, x: torch.Tensor,
-                reference: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, reference: bool = False,
+                live: torch.Tensor | None = None,
+                per: int = 1) -> torch.Tensor:
+        """``live``/``per``: K14's device row count (rows at or past
+        ``live[0] * per`` are padding, left unwritten)."""
         ln = ln_bf16_plain if reference else ln_bf16
-        return ln(x.to(self.out_dtype), self.weight, self.bias, self.eps)
+        return ln(x.to(self.out_dtype), self.weight, self.bias, self.eps,
+                  live, per)
 
 
 class SpanEmbedder(nn.Module):
@@ -96,6 +100,9 @@ class EncoderBlock(nn.Module):
         self.ff1 = nn.Linear(d_model, d_ff)
         self.ff2 = nn.Linear(d_ff, d_model)
         self._qkv: tuple = ((), (), None, None)  # key, held, weight, bias
+        # K15 writes q, k, v as planes of 64-column boxes: a d_model off a
+        # multiple of 64 takes three launches instead
+        self.fused_qkv = d_model % 64 == 0
 
     def dense_layers(self) -> list[nn.Linear]:
         return [self.query, self.key, self.value, self.out, self.ff1,
@@ -123,20 +130,32 @@ class EncoderBlock(nn.Module):
         return self._qkv[2], self._qkv[3]
 
     def forward(self, x: torch.Tensor, segments: torch.Tensor,
-                reference: bool = False) -> torch.Tensor:
+                reference: bool = False,
+                live: torch.Tensor | None = None) -> torch.Tensor:
+        """``live``: the count of real packed rows, on the device (the
+        fused routes'); the LayerNorms and the products leave the rows
+        past it unwritten (the products: their row tiles past it)."""
         R, L, d = x.shape
         H = self.n_heads
-        gemm = gemm_bf16_plain if reference else gemm_bf16
+        dense = gemm_bf16_plain if reference else gemm_bf16
+
+        def gemm(*args, **kw):
+            return dense(*args, live=live, per=L, **kw)
+
         x = x.reshape(R * L, d)
-        h = self.ln1(x, reference)
+        h = self.ln1(x, reference, live, L)
         # q, k, v as three contiguous (R, L, H, hd) planes: JAX's
         # DenseGeneral layout, K1's input
-        q, k, v = gemm(h, *self.qkv(), planes=3).view(3, R, L, H, d // H)
+        if self.fused_qkv:
+            q, k, v = gemm(h, *self.qkv(), planes=3).view(3, R, L, H, d // H)
+        else:
+            q, k, v = (gemm(h, lin.weight, lin.bias).view(R, L, H, d // H)
+                       for lin in (self.query, self.key, self.value))
         attend = segment_attention_plain if reference else segment_attention
         a = attend(q, k, v, segments).view(R * L, d)
         x = gemm(a, self.out.weight, self.out.bias, "residual", residual=x)
-        h = gemm(self.ln2(x, reference), self.ff1.weight, self.ff1.bias,
-                 "gelu_tanh")
+        h = gemm(self.ln2(x, reference, live, L), self.ff1.weight,
+                 self.ff1.bias, "gelu_tanh")
         x = gemm(h, self.ff2.weight, self.ff2.bias, "residual", residual=x)
         return x.view(R, L, d)
 
@@ -170,18 +189,24 @@ class Encoder(nn.Module):
 
     def forward(self, categorical: torch.Tensor, continuous: torch.Tensor,
                 positions: torch.Tensor, segments: torch.Tensor,
-                reference: bool = False,
-                final_ln: bool = True) -> torch.Tensor:
+                reference: bool = False, final_ln: bool = True,
+                live: torch.Tensor | None = None) -> torch.Tensor:
         """``reference=True`` runs the plain versions of both kernels
         (the smoke run holds the kernel path against it on the card).
         ``final_ln=False`` returns the hidden state before ``final_ln``,
-        for the span head kernel, which applies it at real spans only."""
+        for the span head kernel, which applies it at real spans only.
+        ``live``: a ``(1,)`` int32 count of the real rows on the device;
+        the blocks' LayerNorms (K14) and products (K15) skip the rows past
+        it, which hold garbage (NaN from the plain versions) that no real
+        slot reads."""
         embed = span_embed_plain if reference else span_embed
         x = embed(categorical, continuous, positions, segments,
                   self.tables(), self.dtype)
         for blk in self.blocks:
-            x = blk(x, segments, reference=reference)
-        return self.final_ln(x, reference) if final_ln else x
+            x = blk(x, segments, reference=reference, live=live)
+        if not final_ln:
+            return x
+        return self.final_ln(x, reference, live, x.shape[1])
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

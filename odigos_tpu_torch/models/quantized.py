@@ -56,6 +56,7 @@ from ..kernels.embed import EmbedTables, span_embed, span_embed_plain
 from ..kernels.head import span_head_scatter, span_head_scatter_plain
 from ..kernels.qgemm import qgemm, qgemm_plain
 from ..kernels.quant import ln_quantize, ln_quantize_plain
+from ..kernels import coverage
 from ..utils.device import resolve_device
 from .layers import LN_EPS, init_parameters
 from .transformer import (TransformerConfig, _as_tensor,
@@ -135,6 +136,8 @@ class QuantizedTraceScorer:
             raise ValueError(f"working dtype must be float32 or bfloat16, "
                              f"not {self.cfg.dtype}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":  # no plain route on the card
+            coverage.check(self.cfg)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         module = _TraceTransformerModule(self.cfg)
@@ -259,11 +262,15 @@ class QuantizedTraceScorer:
                              segments: Any, positions: Any,
                              perm: torch.Tensor, row_eff: torch.Tensor,
                              span_col: torch.Tensor, n: int,
-                             reference: bool = False) -> torch.Tensor:
+                             reference: bool = False,
+                             live: torch.Tensor | None = None
+                             ) -> torch.Tensor:
         """The fused route's forward, as
         ``TraceTransformer.score_packed_scatter``: the int8 encoder over
         the ``(R, L)`` rows, then K8 writes span ``perm[j]``'s probability
-        for ``j < n``; ``(N,)`` f32, 0 elsewhere."""
+        for ``j < n``; ``(N,)`` f32, 0 elsewhere. ``live`` (next-fit's row
+        count) is taken for the float model's signature: K9 reads every
+        row."""
         dev = self.device
         cat, cont, seg, pos = self._inputs(categorical, continuous,
                                            segments, positions)

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..kernels.head import span_head_scatter, span_head_scatter_plain
+from ..kernels import coverage
 from ..utils.device import resolve_device
 from .layers import Encoder, init_parameters
 
@@ -110,6 +111,8 @@ class TraceTransformer:
             raise ValueError(f"working dtype must be float32 or bfloat16, "
                              f"not {self.cfg.dtype}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":  # no plain route on the card
+            coverage.check(self.cfg)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         module = _TraceTransformerModule(self.cfg)
@@ -151,14 +154,18 @@ class TraceTransformer:
                              segments: Any, positions: Any,
                              perm: torch.Tensor, row_eff: torch.Tensor,
                              span_col: torch.Tensor, n: int,
-                             reference: bool = False) -> torch.Tensor:
+                             reference: bool = False,
+                             live: torch.Tensor | None = None
+                             ) -> torch.Tensor:
         """Packed-rows scoring straight to span order, the fused route's
         forward: the encoder over the ``(R, L)`` rows, then the span head
         kernel (K8, final LayerNorm + head + sigmoid at each real span
         only) writes span ``perm[j]``'s probability from slot
         ``(row_eff[j], span_col[j])`` for ``j < n``; ``(N,)`` f32, 0
         elsewhere. ``reference=True`` runs the plain versions of every
-        kernel."""
+        kernel. ``live``: next-fit's ``(1,)`` count of filled rows on the
+        device; the blocks' LayerNorms skip the rows past it (K8 reads
+        none of them)."""
         dev = self.device
         cat = _as_tensor(categorical, torch.int32, dev)
         cont = _as_tensor(continuous, torch.float32, dev)
@@ -166,7 +173,7 @@ class TraceTransformer:
         pos = _as_tensor(positions, torch.int32, dev)
         m = self.module
         h = m.encoder(cat, cont, pos, seg, reference=reference,
-                      final_ln=False)
+                      final_ln=False, live=live)
         head = span_head_scatter_plain if reference else span_head_scatter
         ln = m.encoder.final_ln
         return head(h, ln.weight, ln.bias, m.span_head.weight,

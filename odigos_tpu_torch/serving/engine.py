@@ -627,6 +627,11 @@ class ScoringEngine:
         ladder = getattr(self.backend, "ladder", None)
         if ladder is not None:
             out["bucket_ladder"] = ladder.stats()
+        # the autoencoder's K11 kernel for the loaded weights
+        route = getattr(getattr(self.backend, "model", None), "recon_route",
+                        None)
+        if route is not None:
+            out["recon_route"] = route
         return out
 
     # -------------------------------------------------------------- worker

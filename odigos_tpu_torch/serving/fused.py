@@ -310,7 +310,7 @@ class FusedSequenceBackend(SequenceBackend):
                                  self.max_len, R)
         scores = self.model.score_packed_scatter(
             pk.categorical, pk.continuous, pk.segments, pk.positions, perm,
-            pk.row_eff, pk.span_col, n_real)
+            pk.row_eff, pk.span_col, n_real, live=pk.rows_used)
         return scores, pk.rows_used
 
     def harvest(self, handle: Any) -> np.ndarray:
@@ -494,5 +494,5 @@ class AutoencoderBackend(FusedSequenceBackend):
                                    self.max_len, R)
         scores = self.model.score_spans_scatter(
             tr.categorical, tr.continuous, tr.mask, tr.span_map,
-            perm.shape[0])
+            perm.shape[0], live=tr.rows_used)
         return scores, tr.rows_used

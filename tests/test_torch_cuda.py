@@ -157,10 +157,13 @@ def test_segment_attention_simt_takes_bf16_shapes_tc_cannot(dev, L, H, hd):
 
 
 def test_segment_attention_refuses_oversized_tiles(dev):
-    q = torch.zeros(2, 65, 4, 64, device=dev, dtype=torch.bfloat16)
-    seg = torch.zeros(2, 65, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="L <= 64"):
+    q = torch.zeros(2, 1025, 1, 16, device=dev, dtype=torch.bfloat16)
+    seg = torch.zeros(2, 1025, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="L <= 1024"):
         segment_attention(q, q, q, seg)
+    wide = torch.zeros(1, 4, 1, 272, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        segment_attention(wide, wide, wide, seg[:1, :4].contiguous())
     with pytest.raises(TypeError):
         segment_attention(q[:, :64].contiguous().half(),
                           q[:, :64].contiguous().half(),
@@ -547,7 +550,9 @@ def test_featurize_kernel_matches_plain(dev, kind, n_traces):
                                              ("adversarial", 400, 64),
                                              ("adversarial", 400, 16),
                                              ("multi", 200, 64),
-                                             ("otel", 12800, 64)])
+                                             ("otel", 12800, 64),
+                                             ("adversarial", 400, 1024),
+                                             ("otel", 4000, 1024)])
 @pytest.mark.parametrize("extra_rows", [0, 40])
 def test_next_fit_pack_kernel_matches_plain(dev, kind, n_traces, L,
                                             extra_rows):
@@ -923,7 +928,7 @@ def test_int8_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="K % 8"):
         kquant.ln_quantize(x)
     with pytest.raises(ValueError, match="K % 8"):
-        kquant.ln_quantize(torch.randn(8, 2048, device=dev))
+        kquant.ln_quantize(torch.randn(8, 4104, device=dev))
     with pytest.raises(TypeError):
         kquant.ln_quantize(torch.randn(8, 64, device=dev).half())
 
@@ -1104,7 +1109,8 @@ def test_recon_ce_bf16_planes_from_the_model_cache(dev):
                                              ("adversarial", 400, 16),
                                              ("multi", 200, 64),
                                              ("otel", 12800, 64),
-                                             ("huge", 4000, 64)])
+                                             ("huge", 4000, 64),
+                                             ("adversarial", 400, 1024)])
 @pytest.mark.parametrize("rows", ["bucket", "traces", "fewer"])
 def test_trace_rows_pack_kernel_matches_plain(dev, kind, n_traces, L, rows):
     """One trace per row: real frames, a trace of 200 spans (truncated at
@@ -1347,10 +1353,14 @@ def test_dense_kernels_refuse_what_they_do_not_take(dev):
         kdense.gemm_bf16(x.half(), w.half(), b.half())
     with pytest.raises(TypeError):
         kdense.gemm_bf16(x, w.float(), b)
-    with pytest.raises(ValueError, match="d in"):
-        kdense.ln_bf16(torch.randn(8, 48, device=dev), torch.ones(48,
+    with pytest.raises(ValueError, match="d % 8"):
+        kdense.ln_bf16(torch.randn(8, 44, device=dev), torch.ones(44,
                                                                    device=dev),
-                       torch.zeros(48, device=dev))
+                       torch.zeros(44, device=dev))
+    with pytest.raises(ValueError, match="d % 8"):
+        kdense.ln_bf16(torch.randn(8, 4104, device=dev),
+                       torch.ones(4104, device=dev),
+                       torch.zeros(4104, device=dev))
     with pytest.raises(TypeError):
         kdense.ln_bf16(torch.randn(8, 64, device=dev).half(),
                        torch.ones(64, device=dev), torch.zeros(64, device=dev))
@@ -1387,3 +1397,225 @@ def test_forward_launches_the_dense_chain(dev, dtype):
     n = ae.cfg.n_layers
     assert (kdense.ln_launches - ln0, kdense.gemm_launches - gemm0) == \
         (2 * n, 4 * n + 2)
+
+
+# ----------------------------------------------------------------------
+# The geometries past the default one (the coverage contract,
+# kernels/coverage.py): each kernel at the new widths against its plain
+# version, with the bounds above.
+
+@pytest.mark.parametrize("L,H,hd,dtype,route", [
+    (128, 2, 128, "bfloat16", "flash"),   # L 128, hd 128 (d 256, 2 heads)
+    (256, 4, 64, "bfloat16", "flash"),
+    (1024, 1, 64, "bfloat16", "flash"),   # K7's longest rows
+    (128, 2, 256, "bfloat16", "flash"),   # hd 256
+    (64, 16, 64, "bfloat16", "flash"),    # a row past one stage (d 1024)
+    (72, 3, 48, "bfloat16", "flash"),     # L off 16-key tiles
+    (128, 2, 128, "float32", "tiled"),
+    (100, 3, 40, "bfloat16", "tiled"),    # hd % 16 != 0
+    (1024, 1, 256, "float32", "tiled"),
+])
+def test_segment_attention_tiled_kernels_match_plain(dev, L, H, hd, dtype,
+                                                     route):
+    """The tiled kernels (64-key tiles, online softmax) on packed rows at
+    L: padding rows, padding slots in live rows, single-slot segments and
+    segments across tile edges."""
+    pk = _packed(400 if L <= 256 else 2000, L, pad=2)
+    R = pk.n_rows
+    q, k, v = _qkv(dev, R, L, H, hd, getattr(torch, dtype), seed=L + hd)
+    seg_np = pk.segments.copy()
+    seg_np[0, 5] = 999                  # a single-slot segment mid-row
+    seg = torch.from_numpy(seg_np).to(dev)
+    assert attention.kernel_route(q, k, v, seg) == route
+    got = _attend_and_check(q, k, v, seg,
+                            atol=F32_ATOL if dtype == "float32" else None)
+    uniform = v[R - 1].float().mean(0)  # an all-padding row: the mean of V
+    tol = F32_ATOL if dtype == "float32" else _step(uniform)
+    assert (got[R - 1].float() - uniform).abs().max().item() <= 2 * tol
+
+
+@pytest.mark.parametrize("M,K", [(4096, 2048), (4096, 4096), (333, 1032)])
+@pytest.mark.parametrize("ln", [True, False], ids=["ln", "plain"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ln_quantize_wide_rows_match_plain(dev, M, K, ln, dtype):
+    """K9 past K = 1024 (a CTA a row): codes and scales bit-equal."""
+    _quantize_and_check(_rows(dev, M, K, dtype), ln)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [96, 512, 1024])
+def test_ln_masked_pool_any_width_matches_plain(dev, dtype, d):
+    x, mask = _masked_rows(dev, 700, 64, d, dtype, 0.2, seed=d)
+    g = torch.Generator(device=dev).manual_seed(d)
+    w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    b = 0.1 * torch.randn(d, generator=g, device=dev)
+    before = kpool.launches
+    got = kpool.ln_masked_pool(x, w, b, mask)
+    ref = kpool.ln_masked_pool_plain(x, w, b, mask)
+    torch.cuda.synchronize()
+    assert kpool.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def _recon_args(dev, M, d, dtype, vocabs=(512, 2048, 8, 1), density=0.3,
+                heads=None):
+    x, mask = _masked_rows(dev, M, 1, d, dtype, density, seed=M + d)
+    x, mask = x.view(M, d), mask.view(M)
+    g = torch.Generator(device=dev).manual_seed(M)
+    cat = torch.stack([torch.randint(0, V, (M,), generator=g, device=dev)
+                       for V in vocabs[:3]], 1).to(torch.int32)
+    cont = torch.rand(M, 3, generator=g, device=dev) * 10
+    w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    b = 0.1 * torch.randn(d, generator=g, device=dev)
+    heads = _heads(dev, d, vocabs, seed=d) if heads is None else heads
+    return (x, w, b, heads, cat, cont, mask, (1.0, 1.0, 0.5, 1.0))
+
+
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "tc"),
+                                         ("float32", "cuda_core"),
+                                         ("bfloat16", "cuda_core")])
+@pytest.mark.parametrize("d", [96, 384, 512, 1024])
+@pytest.mark.parametrize("M", [4096, 60000])
+def test_recon_ce_any_width_matches_plain(dev, dtype, route, d, M):
+    """K11 off the four tensor-core widths: the 64-position tensor-core
+    kernel chunked along d (bf16), the CUDA-core kernel (f32, and bf16
+    by route), within RECON_ATOL of the plain version."""
+    args = _recon_args(dev, M, d, dtype)
+    smap = torch.randperm(M, device=dev).to(torch.int32)
+    before = krecon.launches, krecon.tc_launches
+    got_e, got_s = krecon.recon_ce(*args, span_map=smap, n_out=M,
+                                   route=route)
+    ref_e, ref_s = krecon.recon_ce_plain(*args, span_map=smap, n_out=M)
+    torch.cuda.synchronize()
+    assert (krecon.launches - before[0], krecon.tc_launches - before[1]) \
+        == (1, int(route == "tc"))
+    assert torch.isfinite(got_e).all()
+    assert (got_e - ref_e).abs().max().item() <= RECON_ATOL
+    assert (got_s - ref_s).abs().max().item() <= RECON_ATOL
+    assert (got_e[~args[6]] == 0).all()
+
+
+def test_autoencoder_serves_unsplittable_heads_on_the_cuda_core_kernel(dev):
+    """Heads of 1e-36 (below the three planes' range): the model picks the
+    CUDA-core kernel when the weights load, names it, and scores within
+    RECON_ATOL of the plain path."""
+    model = SpanAutoencoder(AutoencoderConfig(), device=dev, seed=3)
+    assert model.recon_route == "tc"
+    with torch.no_grad():
+        model.module.name_head.weight.mul_(1e-36)
+    assert model.recon_route == "cuda_core"
+    from odigos_tpu_torch.features import assemble_sequences
+
+    seqs = assemble_sequences(synthesize_traces(60, seed=4), max_len=64)
+    before = krecon.launches, krecon.tc_launches
+    got = model.span_errors(seqs.categorical, seqs.continuous, seqs.mask)
+    ref = model.span_errors(seqs.categorical, seqs.continuous, seqs.mask,
+                            reference=True)
+    torch.cuda.synchronize()
+    assert (krecon.launches - before[0], krecon.tc_launches - before[1]) \
+        == (1, 0)
+    assert ((got - ref).abs() / ref.abs().clamp(min=1)).max().item() \
+        <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,d", [(4096, 8), (4096, 96), (16384, 128),
+                                 (3000, 384), (3000, 768), (1000, 2048),
+                                 (777, 4096), (5, 1032)])
+def test_ln_bf16_any_width_is_bit_equal_to_plain(dev, M, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(M + d)
+    x = (torch.randn(M, d, generator=g, device=dev) * 3 + 1).to(
+        getattr(torch, dtype))
+    w = torch.randn(d, generator=g, device=dev) * 0.2 + 1
+    b = torch.randn(d, generator=g, device=dev) * 0.2
+    before = kdense.ln_launches
+    got = kdense.ln_bf16(x, w, b)
+    ref = kdense.ln_bf16_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kdense.ln_launches == before + 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d,per,live", [(128, 64, 7), (256, 64, 0),
+                                        (4096, 1, 100), (96, 3, 10 ** 6)])
+def test_ln_bf16_with_a_row_count_writes_no_row_past_it(dev, dtype, d,
+                                                         per, live):
+    """Rows at or past live * per keep what the buffer held (a sentinel
+    written before the launch); the rows before it equal the plain
+    version's, which writes NaN past the count."""
+    M = 300 * per if per > 1 else 600
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(M, d, generator=g, device=dev).to(getattr(torch, dtype))
+    w = torch.randn(d, generator=g, device=dev) * 0.2 + 1
+    b = torch.randn(d, generator=g, device=dev) * 0.2
+    cnt = torch.tensor([live], dtype=torch.int32, device=dev)
+    got = kdense.ln_bf16(x, w, b, live=cnt, per=per,
+                         out=torch.full_like(x, 12345.0))
+    ref = kdense.ln_bf16_plain(x, w, b, live=cnt, per=per)
+    torch.cuda.synchronize()
+    n = min(M, live * per)
+    assert torch.equal(got[:n], ref[:n])
+    assert (got[n:] == 12345.0).all()
+    assert torch.isnan(ref[n:]).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,N,K,epilogue,planes,per,live", [
+    (64 * 300, 768, 256, "none", 3, 64, 7),        # QKV, 7 of 300 rows
+    (64 * 300, 1024, 256, "gelu_tanh", 1, 64, 0),  # FFN1, no real row
+    (64 * 300, 256, 1024, "residual", 1, 64, 299),  # FFN2, a streamed K
+    (64 * 300, 128, 512, "none", 1, 64, 10 ** 6),  # dec_ff2, all real
+    (1000, 512, 128, "gelu_tanh", 1, 1, 130)])     # a count off a tile
+def test_gemm_bf16_with_a_row_count_skips_the_tiles_past_it(
+        dev, dtype, M, N, K, epilogue, planes, per, live):
+    """Rows below live * per equal the launch without a count, bit for bit;
+    the row tiles wholly past it (128 rows; 64 on f32) keep what the buffer
+    held (a sentinel written before the launch, NaN here: the GELU's rare
+    value); the plain version writes NaN in every row past the count."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dt)
+    w = (torch.randn(N, K, generator=g, device=dev) / K ** 0.5).to(dt)
+    b = (torch.randn(N, generator=g, device=dev) * 0.1).to(dt)
+    res = (torch.randn(M, N, generator=g, device=dev).to(dt)
+           if epilogue == "residual" else None)
+    cnt = torch.tensor([live], dtype=torch.int32, device=dev)
+    shape = (M, N) if planes == 1 else (planes, M, N // planes)
+    full = kdense.gemm_bf16(x, w, b, epilogue, res, planes)
+    got = kdense.gemm_bf16(x, w, b, epilogue, res, planes, live=cnt, per=per,
+                           out=torch.full(shape, float("nan"), dtype=dt,
+                                          device=dev))
+    ref = kdense.gemm_bf16_plain(x, w, b, epilogue, res, planes, live=cnt,
+                                 per=per)
+    torch.cuda.synchronize()
+    n = min(M, live * per)
+    tile = 128 if dtype == "bfloat16" else 64
+    past = min(M, -(-n // tile) * tile)
+    rows = (lambda t: t) if planes == 1 else (lambda t: t.transpose(0, 1))
+    assert torch.equal(rows(got)[:n], rows(full)[:n])
+    assert torch.isnan(rows(got)[past:].float()).all()
+    assert torch.isnan(rows(ref)[n:].float()).all()
+    assert not torch.isnan(rows(ref)[:n].float()).any()
+
+
+@pytest.mark.parametrize("d", [512, 4096])
+def test_ln_bf16_outside_the_exact_sum_condition_stays_close(dev, d):
+    """Rows whose values span more binades than the f64 sums hold exactly
+    (spread + log2(d) + 24 > 53 for the squared deviations): kernel and
+    plain may round the statistics apart: a mean or 1 / std one f32 step
+    apart moves each output by a few steps of the row's largest output
+    (bound 8 steps)."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    mag = torch.pow(2.0, torch.randint(-40, 40, (64, d), generator=g,
+                                       device=dev).float())
+    x = (torch.randn(64, d, generator=g, device=dev) * mag).to(torch.float32)
+    w = torch.ones(d, device=dev)
+    b = torch.zeros(d, device=dev)
+    got = kdense.ln_bf16(x, w, b)
+    ref = kdense.ln_bf16_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    top = ref.abs().amax(1, keepdim=True)
+    assert ((got - ref).abs() <= 8 * torch.finfo(torch.float32).eps
+            * top).all()

@@ -24,7 +24,12 @@ and 4096 traces (the last about a fused call's real positions): the
 compaction alone, no column tile, no LayerNorm, no plane loads, one
 plane, no products, no log-sum-exp, no barrier a column tile, no kind
 and duration dots; two CTAs an SM on 32-column stages; tiles of 256
-rows; every tile whole).
+rows; every tile whole; K14 ``ln_bf16`` at LN1 (R = 256, 2048), at d
+128 (T = 2048) and with the fused transformer's row count: the bytes
+alone, no prefetch, a warp a row, streaming (evict-first) stores or
+loads, the parent's 4096-CTA grid; and its
+parent design ``ln_bf16_warp`` beside it: the bytes alone, one row in
+flight).
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -277,6 +282,49 @@ VARIANTS = {
                       "a.part_items);":
                       "  const int S = 1;"},
     },
+    "ln_bf16": {
+        # every row read and written, no statistics (the bytes alone)
+        "loads_only": {
+            "        y[e] = ln_out(v[j][e], mean, rstd, g[j][e], b[j][e], x);":
+                "        y[e] = v[j][e];"},
+        # the next rows' loads issued after the current ones are reduced
+        "no_prefetch": {
+            "      if (rn < lim && j * G + sub < nvec)\n"
+            "        nxt[j] = __ldg(xv + rn * nvec + j * G + sub);":
+                "      if (false)\n"
+                "        nxt[j] = __ldg(xv + rn * nvec + j * G + sub);",
+            "    for (int j = 0; j < NV; ++j) cur[j] = nxt[j];\n  }\n}\n\n"
+            "// A row wider":
+                "    for (int j = 0; j < NV; ++j)\n"
+                "      if (rn < lim && j * G + sub < nvec)\n"
+                "        cur[j] = __ldg(xv + rn * nvec + j * G + sub);\n"
+                "  }\n}\n\n// A row wider"},
+        # a warp a row at every width (lanes past the row's vectors idle)
+        "warp_a_row": {
+            "  if (nvec <= 1) LN_ROWS(1, 1)\n  if (nvec <= 2) LN_ROWS(2, 1)\n"
+            "  if (nvec <= 4) LN_ROWS(4, 1)\n  if (nvec <= 8) LN_ROWS(8, 1)\n"
+            "  if (nvec <= 16) LN_ROWS(16, 1)\n": ""},
+        # stores that stream past L2 (evict-first), and loads likewise
+        "streaming_stores": {
+            "      ov[r * nvec + j * G + sub] = pack(y);":
+                "      __stcs(ov + r * nvec + j * G + sub, pack(y));"},
+        "streaming_loads": {
+            "        nxt[j] = __ldg(xv + rn * nvec + j * G + sub);":
+                "        nxt[j] = __ldcs(xv + rn * nvec + j * G + sub);"},
+        # the parent's grid: at most 4096 CTAs, not sized to the card
+        "grid_4096": {
+            "  if (units < grid) grid = (int)(units > 0 ? units : 1);":
+                "  grid = (int)(units < 4096 ? (units > 0 ? units : 1) "
+                ": 4096);"}},
+    "ln_bf16_warp": {
+        # the parent design's bytes alone: rows copied, no statistics
+        "loads_only": {
+            "      warp_ln_row<T, PER>(v[i], g, b, eps, y);":
+                "#pragma unroll\n      for (int j = 0; j < PER; ++j) "
+                "y[j] = load_f(v[i] + j);"},
+        # the parent design with one row in flight a warp
+        "one_row": {
+            "constexpr int kLnRows = 2;": "constexpr int kLnRows = 1;"}},
     "gemm_bf16": {
         # the TMA loads and the ring only: no products, no epilogue
         "loads_only": {
@@ -338,7 +386,9 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
              "radix_sort": ("trace_sort", "radix_sort_launch"),
              "next_fit_pack": ("trace_pack", "next_fit_pack_launch"),
              "recon_ce": ("recon_ce", "recon_ce_tc_launch"),
-             "gemm_bf16": ("dense", "gemm_bf16_launch")}
+             "gemm_bf16": ("dense", "gemm_bf16_launch"),
+             "ln_bf16": ("dense", "ln_bf16_launch"),
+             "ln_bf16_warp": ("dense", "ln_bf16_warp_launch")}
 
 
 def build_variants(tmp: str, built: dict, names) -> dict:
@@ -413,7 +463,7 @@ def main() -> int:
     modules = {"segment_attention": attention, "span_embed": embed,
                "qgemm": qgemm, "qgemm_ffn1": qgemm, "ln_quantize": quant,
                "radix_sort": sort, "next_fit_pack": pack, "recon_ce": recon,
-               "gemm_bf16": dense}
+               "gemm_bf16": dense, "ln_bf16": dense, "ln_bf16_warp": dense}
 
     def launcher(kname: str):
         m = modules[kname]
@@ -481,7 +531,13 @@ def main() -> int:
                      "gelu_tanh_quant")),
                 ("gemm_bf16", shape,
                  lambda h2=h2: dense.gemm_bf16(h2, blk.ff1.weight,
-                                               blk.ff1.bias, "gelu_tanh"))]
+                                               blk.ff1.bias, "gelu_tanh")),
+                ("ln_bf16", shape,
+                 lambda x2=x2: dense.ln_bf16(x2, blk.ln1.weight,
+                                             blk.ln1.bias)),
+                ("ln_bf16_warp", shape,
+                 lambda x2=x2: dense.ln_bf16_warp(x2, blk.ln1.weight,
+                                                  blk.ln1.bias))]
         # K6's trace sort and K7 on the fused route's staged frames
         ladder = BucketLadder(256, 4)
         for N in (chip_smoke.FUSED_MAIN_N, max(chip_smoke.FUSED_N)):
@@ -520,6 +576,30 @@ def main() -> int:
             cases.append(("recon_ce", {"T": T},
                           lambda rargs=rargs: recon.recon_ce(
                               *rargs, planes=m.head_planes())))
+        # K14 at the autoencoder's d 128 (T = 2048), and at the fused
+        # transformer's R = 2048 rows with next-fit's real rows as the count
+        ln = m.encoder.blocks[0].ln1
+        g = torch.Generator(device=dev).manual_seed(0)
+        x128 = (torch.randn(2048 * 64, 128, generator=g, device=dev) * 3
+                + 1).to(torch.bfloat16)
+        for kn, fn in (("ln_bf16", dense.ln_bf16),
+                       ("ln_bf16_warp", dense.ln_bf16_warp)):
+            cases.append((kn, {"T": 2048, "d": 128},
+                          lambda fn=fn: fn(x128, ln.weight, ln.bias)))
+        from odigos_tpu_torch.features import featurize, pack_sequences
+        from odigos_tpu_torch.pdata import synthesize_traces
+
+        b4096 = synthesize_traces(4096, seed=103)
+        real = torch.tensor([pack_sequences(b4096, featurize(b4096),
+                                            max_len=64).n_rows],
+                            dtype=torch.int32, device=dev)
+        blk = enc.blocks[0]
+        x256 = (torch.randn(2048 * 64, 256, generator=g, device=dev) * 3
+                + 1).to(torch.bfloat16)
+        cases.append(("ln_bf16", {"R": 2048, "live": int(real.item())},
+                      lambda: dense.ln_bf16(x256, blk.ln1.weight,
+                                            blk.ln1.bias, live=real,
+                                            per=64)))
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():

@@ -67,13 +67,15 @@ CATEGORIES = (
     ("K7/K13 pack layout", ("pack_layout_kernel",)),
     ("K13 trace_rows_pack", ("rows_scan_kernel", "rows_scatter_kernel")),
     ("K8 span_head_scatter", ("span_head_kernel",)),
-    ("K9 ln_quantize", ("ln_quantize_kernel",)),
+    ("K9 ln_quantize", ("ln_quantize_kernel", "ln_quantize_row_kernel")),
     ("K10 qgemm", ("qgemm_s8_kernel", "qgemm_s8_quant_kernel",
                    "qgemm_mma_kernel")),
     ("K11 recon_ce", ("recon_ce_kernel", "recon_tc_kernel",
-                      "recon_compact_kernel")),
-    ("K12 ln_masked_pool", ("ln_masked_pool_kernel",)),
-    ("K14 ln_bf16", ("ln_bf16_kernel",)),
+                      "recon_compact_kernel", "recon_prep_kernel",
+                      "recon_tc_wide_kernel")),
+    ("K12 ln_masked_pool", ("ln_masked_pool_kernel",
+                            "ln_masked_pool_any_kernel")),
+    ("K14 ln_bf16", ("ln_rows_kernel", "ln_wide_kernel", "ln_warp_kernel")),
     ("K15 gemm_bf16", ("gemm_tc_kernel", "gemm_f32_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
