@@ -65,17 +65,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    LayerNorm, K15 four times a layer), one reply
    recomputed with the plain versions on the card, and one small request
    against an f32 CPU run of the same weights;
-7. fused kernels — K5 ``featurize_columns``, K6 ``radix_sort``, K7
-   ``next_fit_pack`` and K8 ``span_head_scatter`` held against their plain
-   versions on the card at span buckets N = 4096, 65536 and 131072, on the
-   otel-demo mix and on an adversarial frame (a trace of 200 spans, ids at
-   or above 2**63, tied starts, duplicate span ids, orphans), each at the
-   shapes the fused route gives it (K8 on the encoder's own output); the
-   same times and bound as phase 3, K6's digit passes and device
-   launches (one a sort), and the library call where one computes the
-   same function (K6's one-frame join sort: ``torch.sort(stable=True)`` on
-   the sign-flipped span ids), with K6's time over its bound and over
-   ``torch.sort``'s; K7 also on a frame of traces longer than L (eight
+7. fused kernels — K5 ``featurize_columns``, K6 ``radix_sort`` (the
+   trace sort), K7 ``next_fit_pack`` and K8 ``span_head_scatter`` held
+   against their plain versions on the card at span buckets N = 4096,
+   65536 and 131072, on the otel-demo mix and on an adversarial frame (a
+   trace of 200 spans, ids at or above 2**63, tied starts, duplicate span
+   ids, orphans), each at the shapes the fused route gives it (K8 on the
+   encoder's own output); K5 also on a join-stress group of the same size
+   (four frames, every span of a frame declaring one span id, the ids
+   repeated across frames, span id 0 declared, parents resolving nowhere
+   but every eighth), with its device launches (two: the hash join's
+   insert and probe); the same times and bound as phase 3, K6's digit
+   passes and device launches (one a sort), with K6's time over its
+   bound (no one PyTorch call sorts three keys); K7 also on a frame of
+   traces longer than L (eight
    otel traces under one id), every output exact, its three launches
    (layout, walk, scatter) timed one by one from ``torch.profiler``'s
    device events;
@@ -83,9 +86,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    buckets warmed, through the engine's ``submit(batch, columns=...)``:
    the sequential requests of phase 6, then a coalesced burst; every reply
    checked, the kernels' launch counters read around the run (each of K1,
-   K2, K5-K8, K14 and K15 must have launched, K5, K7, K8 once and K6
-   twice per fused call, K6 in at most 4 device launches a call, K14
-   twice and K15 four times a layer), the same
+   K2, K5-K8, K14 and K15 must have launched, K5, K6, K7 and K8 once
+   per fused call, K5 in two device launches and K6 in at most two a
+   call, K14 twice and K15 four times a layer), the same
    requests scored on the host route of the same engine, one request
    against an f32 CPU run of the fused route, a legacy-JSON frame sent
    down the host route with its reason counted, and the share of the
@@ -135,8 +138,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and burst on the host route, then an engine's fused route
    (``submit(batch, columns=...)``) on the same traffic; launches per
    call (K2 1, K1 2, K12 1, K11 1 on its tensor-core kernel, K14 4, K15
-   10; on the fused route also K5 1, K6 2 in at most 4 device launches,
-   K13 1, K11's 2 device launches), K15's ``dec_ff1`` and
+   10; on the fused route also K5 1 in 2 device launches, K6 1 in at
+   most 2, K13 1 in 2, K11's 2 device launches), K15's ``dec_ff1`` and
    ``dec_ff2`` at the fused
    route's own R x L rows (past 2^31 outputs) against their plain
    versions, every score in [0, 1], the kernel path vs the plain path on
@@ -144,7 +147,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (within 3e-2), fused vs host (max 2e-2, on the default weights and on
    a scaled-loss engine whose scores do not saturate), and the padded
    rows' share of the fused forward;
-13. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+13. geometry — each geometry of the coverage contract past the default
+   (``GEOMETRIES``, 2 layers) served on both routes, launches held to the
+   geometry's, kernel vs plain path and fused vs host, then each kernel
+   on the first block's own inputs there held to its plain version and
+   timed; at the longest rows (L = 1024) also K13 on one request staged
+   as the fused route stages it, every output exact;
+14. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
    ``{"kernels": [...]}`` line (K1 to K15), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -197,7 +206,8 @@ HEAD_BF16_ATOL = 2e-3           # K8 in bf16: the LN output may round to a
                                 # neighbouring bf16 value before the dot
 SPANS_PER_TRACE = 10.3          # synthesize_traces' mean (otel-demo mix)
 K6_LAUNCHES_PER_SORT = 1        # one cooperative launch a sort
-K6_LAUNCHES_PER_FUSED_CALL = 4  # two sorts a call, with room for a memset
+K6_LAUNCHES_PER_FUSED_CALL = 2  # one sort a call, with room for a memset
+K5_LAUNCHES_PER_CALL = 2        # the hash join's insert, then its probe
 LONG_TRACE_MERGE = 8            # phase 7's long traces: 8 otel traces as one
 K7_KERNELS = ("pack_layout_kernel", "pack_walk_kernel",
               "pack_scatter_kernel")  # K7's three launches
@@ -212,7 +222,7 @@ INT8_FUSED_MAX = 0.05           # int8 fused vs host route, max and mean
 INT8_FUSED_MEAN = 5e-3          # (tests/test_fused.py)
 
 AE_T = (256, 2048)              # traces (rows of L = 64): K11/K12 shapes
-K14_SWEEP_D = (8, 96, 128, 256, 384, 768, 1024, 2048, 4096)  # K14's widths
+K14_SWEEP_D = (8, 96, 128, 256, 384, 768, 1016, 1024)  # K14's widths
 RECON_ATOL = 1e-4               # K11 vs plain on the errors: the heads'
                                 # f32 dots and the log-sum-exp summed in
                                 # another order
@@ -662,27 +672,6 @@ def _gemm_diff(got, ref, lim: float, what: str) -> tuple[float, int]:
     return top, int((diff > 0).sum().item())
 
 
-K14_PARENT_WIDTHS = (32, 64, 128, 256, 512, 1024)  # the warp-a-row design's
-
-
-def _k14_parent(x, ln, flush) -> dict:
-    """K14's parent design (a warp a row, two rows in flight, a capped
-    grid) on the same inputs in the same call: bit-equal, and its time."""
-    import torch
-
-    from odigos_tpu_torch.kernels import dense
-
-    if x.shape[-1] not in K14_PARENT_WIDTHS:
-        return {}
-    args = (x, ln.weight, ln.bias, ln.eps)
-    got = dense.ln_bf16_warp(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(got, dense.ln_bf16_plain(*args)),
-          "ln_bf16's parent design: not bit-equal to the plain version")
-    return {"parent_device_ms": device_ms(lambda: dense.ln_bf16_warp(*args),
-                                          flush)}
-
-
 class _LN:
     """A LayerNorm's parameters for K14 at a width of the sweep."""
 
@@ -697,8 +686,7 @@ class _LN:
 
 def _k14_sweep(card: str, flush) -> dict:
     """K14 at every width the contract names (bf16 and f32, ~64 MB of
-    input each, bit-equal, the parent design beside it where it takes the
-    width), then with a device row count at the fused routes' shapes: the
+    input each, bit-equal), then with a device row count at the fused routes' shapes: the
     transformer's R = 2048 rows of L = 64 (d 256) with next-fit's real rows
     for 4096 traces, the autoencoder's R = round_rows(spans) rows (d 128)
     with one real row a trace. The rows past the count keep a sentinel
@@ -732,13 +720,10 @@ def _k14_sweep(card: str, flush) -> dict:
                 "M": M, "d": d, "dtype": str(dtype), "bound": "bit-equal",
                 "max_abs_diff": 0.0, "differing": 0,
                 "device_ms": device_ms(lambda: dense.ln_bf16(*args), flush),
-                "bound_ms": b_ms, "bound_by": b_by,
-                **_k14_parent(x, ln, flush)}
+                "bound_ms": b_ms, "bound_by": b_by}
             r["ratio_to_bound"] = r["device_ms"] / b_ms
             print(f"chip_smoke: ln_bf16 d {d} {dtype}: {r['device_ms']:.4f}"
-                  f" ms (bound {b_ms:.4f}"
-                  + (f"; parent design {r['parent_device_ms']:.4f}"
-                     if "parent_device_ms" in r else "") + ")", flush=True)
+                  f" ms (bound {b_ms:.4f})", flush=True)
             del x, got
     ecfg = EngineConfig()
     ladder = BucketLadder(ecfg.trace_bucket, ecfg.bucket_ladder)
@@ -776,7 +761,7 @@ def _k14_sweep(card: str, flush) -> dict:
             "device_ms_without_count": device_ms(
                 lambda: dense.ln_bf16(*args), flush),
             "bound_ms": b_real, "bound_by": by_real,
-            "bound_ms_all_rows": b_all, **_k14_parent(x, ln, flush)}
+            "bound_ms_all_rows": b_all}
         r["ratio_to_bound"] = r["device_ms"] / b_real
         print(f"chip_smoke: ln_bf16 {name} ({real} of {R} rows): "
               f"{r['device_ms']:.4f} ms with the count, "
@@ -835,7 +820,7 @@ def phase_dense_kernels(card: str) -> dict:
                       lambda: dense.ln_bf16_plain(*args), lib, flush),
             "library": "F.layer_norm (bf16 weights)",
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-            "flops": flops, **_k14_parent(x, ln, flush)}
+            "flops": flops}
         r.update(_ratios(r))
         return got
 
@@ -1369,9 +1354,26 @@ def kernel_split_ms(fn, flush, names, reps: int = 20) -> dict:
             for k, v in times.items()}
 
 
+def _stress_frames(N: int):
+    """K5's stress group filling span bucket ``N`` (just under it): four
+    frames of ``join_stress_frames`` (one span id a frame, repeated across
+    frames, span id 0 declared, parents resolving nowhere but every
+    eighth)."""
+    from odigos_tpu_torch.pdata import join_stress_frames
+    from odigos_tpu_torch.serving.fused import _span_bucket
+
+    frames = join_stress_frames(int(N / SPANS_PER_TRACE * 0.95), frames=4,
+                                seed=74)
+    n = sum(len(b) for b in frames)
+    check(_span_bucket(n) == N, f"stress frames of {n} spans miss bucket "
+                                f"{N}")
+    return frames
+
+
 def _staged(batch, dev):
     """The frame's columns staged as the fused route stages them (a CPU
-    backend's staging, then moved to the card), with its span count."""
+    backend's staging, then moved to the card), with its span count; a
+    list of batches is staged as one coalesced group of frames."""
     import torch
 
     from odigos_tpu_torch.models import TransformerConfig
@@ -1382,11 +1384,16 @@ def _staged(batch, dev):
         model="transformer", device="cpu",
         model_config=TransformerConfig(d_model=32, n_heads=2, n_layers=1,
                                        d_ff=64, dtype=torch.float32))).backend
-    cols, reason = extract_columns(batch)
-    check(reason is None, f"fused frame refused: {reason}")
-    st = be._prep_columns([cols], _span_bucket(len(batch)))
+    batches = batch if isinstance(batch, list) else [batch]
+    cols = []
+    for b in batches:
+        c, reason = extract_columns(b)
+        check(reason is None, f"fused frame refused: {reason}")
+        cols.append(c)
+    n = sum(len(b) for b in batches)
+    st = be._prep_columns(cols, _span_bucket(n))
     moved = {k: v.to(dev).contiguous() for k, v in st.cols.items()}
-    return (len(batch), st.service_table.to(dev).contiguous(),
+    return (n, st.service_table.to(dev).contiguous(),
             st.name_table.to(dev).contiguous(), moved)
 
 
@@ -1413,19 +1420,20 @@ def phase_fused_kernels(card: str) -> dict:
         scratch_l2.zero_()
 
     results: dict = {}
-    for kind in ("otel", "adversarial", "long"):
+    for kind in ("otel", "adversarial", "long", "stress"):
         for N in FUSED_N:
-            n, svc_t, nam_t, c = _staged(_fused_frame(N, kind), dev)
+            n, svc_t, nam_t, c = _staged(
+                _stress_frames(N) if kind == "stress"
+                else _fused_frame(N, kind), dev)
             tb = svc_t.numel()
             fargs = (svc_t, nam_t, c["service"], c["name"], c["kind"],
                      c["status_code"], c["span_id"], c["parent_span_id"],
                      c["start_unix_nano"], c["end_unix_nano"], c["frame"])
             trace_keys = [c["trace_id_hi"], c["trace_id_lo"],
                           c["start_unix_nano"]]
-            join_keys = [c["frame"], c["span_id"]]
             R = ladder.round_rows(2 * n // L + 2)
             with torch.inference_mode():
-                # ---- K5 (with its K6 sort of the declarations)
+                # ---- K5 (its hash join included)
                 cat, cont = kfeat.featurize_columns(*fargs, n)
                 if kind != "long":  # the long frame is K7's alone
                     cat_p, cont_p = kfeat.featurize_columns_plain(*fargs, n)
@@ -1439,63 +1447,60 @@ def phase_fused_kernels(card: str) -> dict:
                     k5_diff = (cont - cont_p).abs().max().item()
                     nb = n * (4 + 4 + 1 + 1 + 4 * 8 + 4) + 2 * tb * 4 + N * 32
                     b_ms, b_by = bound(nb, 12 * n, F32_FLOPS)
-                    results[("featurize_columns", kind, N)] = {
+                    d0 = kfeat.device_launches
+                    kfeat.featurize_columns(*fargs, n)
+                    r = results[("featurize_columns", kind, N)] = {
                         "name": "featurize_columns", "mix": kind, "N": N,
                         "n": n, "max_abs_diff": k5_diff,
                         "bound": f"cat exact; cont rtol {FEAT_CONT_RTOL}",
+                        "device_launches_per_call":
+                            kfeat.device_launches - d0,
+                        "table_slots": kfeat.table_slots(N),
                         **timings(lambda: kfeat.featurize_columns(*fargs, n),
                                   lambda: kfeat.featurize_columns_plain(
                                       *fargs, n), None, flush),
                         "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
-                    # ---- K6: the join's one-frame sort, and the trace sort
+                    r.update(_ratios(r))
+                    print(f"chip_smoke: featurize_columns {kind} N={N}: "
+                          f"{r['device_ms']:.4f} ms (bound {b_ms:.5f}; "
+                          f"host {r['host_us_per_call']:.1f} us a call; "
+                          f"{r['device_launches_per_call']} kernels)",
+                          flush=True)
+                if kind == "stress":  # K5's frame alone
+                    continue
+                if kind != "long":
+                    # ---- K6: the trace sort
                     passes = torch.zeros(1, dtype=torch.int32, device=dev)
-                    for what, keys, key_bytes in (("join", join_keys, 12),
-                                                  ("trace", trace_keys, 24)):
-                        got = ksort.radix_sort(keys, n, passes=passes)
-                        ref = ksort.radix_sort_plain(keys, n)
-                        torch.cuda.synchronize()
-                        check(torch.equal(got, ref),
-                              f"radix_sort {what} N={N} {kind}: differs")
-                        library = None
-                        lib_ok = None
-                        if what == "join":
-                            flipped = c["span_id"][:n] ^ (-(2 ** 63))
-
-                            def library():
-                                return torch.sort(flipped, stable=True).indices
-
-                            lib_ok = torch.equal(library().to(torch.int32),
-                                                 got[:n])
-                            check(lib_ok, f"torch.sort N={N} {kind}: not the "
-                                          f"kernel's permutation")
-                        nb = n * key_bytes + N * 4
-                        b_ms, b_by = bound(nb, 0, F32_FLOPS)
-                        d0 = ksort.device_launches
-                        ksort.radix_sort(keys, n)
-                        per_sort = ksort.device_launches - d0
-                        check(per_sort <= K6_LAUNCHES_PER_SORT,
-                              f"radix_sort {what} N={N}: {per_sort} device "
-                              f"launches a sort")
-                        r = results[("radix_sort", what, kind, N)] = {
-                            "name": "radix_sort", "sort": what, "mix": kind,
-                            "N": N, "n": n, "max_abs_diff": 0.0,
-                            "bound": "exact", "passes": int(passes.item()),
-                            "device_launches_per_call": per_sort,
-                            "grid_tiles_per_block": ksort.plan(
-                                n, N, ksort.max_grid(dev)),
-                            **timings(lambda: ksort.radix_sort(keys, n),
-                                      lambda: ksort.radix_sort_plain(keys, n),
-                                      library, flush),
-                            "library_equal": lib_ok,
-                            "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
-                        r.update(_ratios(r))
-                        print(f"chip_smoke: radix_sort {what} {kind} N={N}: "
-                              f"{r['device_ms']:.4f} ms (bound {b_ms:.5f}, "
-                              f"{r['ratio_to_bound']:.0f}x; "
-                              + (f"torch.sort {r['library_device_ms']:.4f}, "
-                                 f"{r['ratio_to_library']:.2f}x; "
-                                 if library else "")
-                              + f"{r['passes']} live passes)", flush=True)
+                    got = ksort.radix_sort(trace_keys, n, passes=passes)
+                    ref = ksort.radix_sort_plain(trace_keys, n)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, ref),
+                          f"radix_sort trace N={N} {kind}: differs")
+                    nb = n * 24 + N * 4
+                    b_ms, b_by = bound(nb, 0, F32_FLOPS)
+                    d0 = ksort.device_launches
+                    ksort.radix_sort(trace_keys, n)
+                    per_sort = ksort.device_launches - d0
+                    check(per_sort <= K6_LAUNCHES_PER_SORT,
+                          f"radix_sort trace N={N}: {per_sort} device "
+                          f"launches a sort")
+                    r = results[("radix_sort", "trace", kind, N)] = {
+                        "name": "radix_sort", "sort": "trace", "mix": kind,
+                        "N": N, "n": n, "max_abs_diff": 0.0,
+                        "bound": "exact", "passes": int(passes.item()),
+                        "device_launches_per_call": per_sort,
+                        "grid_tiles_per_block": ksort.plan(
+                            n, N, ksort.max_grid(dev)),
+                        **timings(lambda: ksort.radix_sort(trace_keys, n),
+                                  lambda: ksort.radix_sort_plain(trace_keys,
+                                                                 n),
+                                  None, flush),
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+                    r.update(_ratios(r))
+                    print(f"chip_smoke: radix_sort trace {kind} N={N}: "
+                          f"{r['device_ms']:.4f} ms (bound {b_ms:.5f}, "
+                          f"{r['ratio_to_bound']:.0f}x; {r['passes']} live "
+                          f"passes)", flush=True)
                 perm = ksort.radix_sort(trace_keys, n)
                 if kind == "long":
                     check(torch.equal(perm, ksort.radix_sort_plain(
@@ -1599,6 +1604,7 @@ def _zero_counters() -> None:
     for name, mod, *attr in ALL_COUNTERS:
         setattr(getattr(kernels, mod), attr[0] if attr else "launches", 0)
     kernels.sort.device_launches = 0
+    kernels.featurize.device_launches = 0
     kernels.pack.device_launches = 0
     kernels.pack.rows_device_launches = 0
     kernels.recon.device_launches = 0
@@ -1771,7 +1777,9 @@ def phase_fused_path(card: str) -> dict:
         burst_s = time.perf_counter() - t_burst
         launches = _read_counters()
         device_launches = {"radix_sort": kernels.sort.device_launches,
-                           "next_fit_pack": kernels.pack.device_launches}
+                           "next_fit_pack": kernels.pack.device_launches,
+                           "featurize_columns":
+                               kernels.featurize.device_launches}
         calls = engine.fused_calls - stats0["fused_calls"]
         calls_burst = calls - calls_seq
         n_layers = be.model.cfg.n_layers
@@ -1779,7 +1787,7 @@ def phase_fused_path(card: str) -> dict:
               f"fused path launched no time: {launches}")
         # K8 keeps the final LayerNorm: K14 twice a layer
         want = {"segment_attention": n_layers * calls, "span_embed": calls,
-                "featurize_columns": calls, "radix_sort": 2 * calls,
+                "featurize_columns": calls, "radix_sort": calls,
                 "next_fit_pack": calls, "span_head_scatter": calls,
                 "ln_bf16": 2 * n_layers * calls,
                 "gemm_bf16": 4 * n_layers * calls}
@@ -1789,6 +1797,10 @@ def phase_fused_path(card: str) -> dict:
         check(k6_per_call <= K6_LAUNCHES_PER_FUSED_CALL,
               f"K6 made {k6_per_call} device launches a fused call (at "
               f"most {K6_LAUNCHES_PER_FUSED_CALL})")
+        check(device_launches["featurize_columns"]
+              == K5_LAUNCHES_PER_CALL * calls,
+              f"K5 made {device_launches['featurize_columns']} device "
+              f"launches for {calls} fused calls (2 each)")
         check(calls_burst < BURST_REQUESTS,
               f"the burst of {BURST_REQUESTS} ran as {calls_burst} calls")
         fused_rows = list(be.fused_rows)
@@ -2177,7 +2189,7 @@ def phase_int8_path(card: str) -> dict:
                 "segment_attention": n_layers * calls, "span_embed": calls,
                 "ln_bf16": 0, "gemm_bf16": 0}
         if cols:
-            want.update(featurize_columns=calls, radix_sort=2 * calls,
+            want.update(featurize_columns=calls, radix_sort=calls,
                         next_fit_pack=calls, span_head_scatter=calls)
         got = {k: launches[k] for k in want}
         check(calls > 0 and got == want,
@@ -2821,6 +2833,7 @@ def phase_ae_path(card: str) -> dict:
         device_launches = {
             "trace_rows_pack": kernels.pack.rows_device_launches,
             "radix_sort": kernels.sort.device_launches,
+            "featurize_columns": kernels.featurize.device_launches,
             "recon_ce": kernels.recon.device_launches}
         calls = engine.fused_calls - stats0["fused_calls"]
         want = {"span_embed": calls, "segment_attention": n_layers * calls,
@@ -2828,7 +2841,7 @@ def phase_ae_path(card: str) -> dict:
                 "recon_ce_tc": calls,
                 "ln_bf16": 2 * n_layers * calls,
                 "gemm_bf16": (4 * n_layers + 2) * calls,
-                "featurize_columns": calls, "radix_sort": 2 * calls,
+                "featurize_columns": calls, "radix_sort": calls,
                 "trace_rows_pack": calls, "next_fit_pack": 0,
                 "span_head_scatter": 0}
         check(calls > 0 and launches == want,
@@ -2840,6 +2853,12 @@ def phase_ae_path(card: str) -> dict:
         check(k6_per_call <= K6_LAUNCHES_PER_FUSED_CALL,
               f"ae: K6 made {k6_per_call} device launches a fused call (at "
               f"most {K6_LAUNCHES_PER_FUSED_CALL})")
+        check(device_launches["featurize_columns"]
+              == K5_LAUNCHES_PER_CALL * calls
+              and device_launches["trace_rows_pack"] == 2 * calls,
+              f"ae fused: K5 / K13 made {device_launches['featurize_columns']}"
+              f" / {device_launches['trace_rows_pack']} device launches for "
+              f"{calls} calls (2 / 2 each)")
         fused_rows = list(be.fused_rows)
         stats = engine.stats()
         with torch.inference_mode():
@@ -2972,7 +2991,7 @@ def _geometry_launches(model: str, quantized: bool, cfg, tc: bool,
          "recon_ce_tc", "trace_rows_pack"), 0)
     want.update(span_embed=calls, segment_attention=n * calls)
     if fused:
-        want.update(featurize_columns=calls, radix_sort=2 * calls)
+        want.update(featurize_columns=calls, radix_sort=calls)
     if model == "autoencoder":
         want.update(ln_bf16=2 * n * calls,
                     gemm_bf16=((3 + qkv) * n + 2) * calls,
@@ -3295,6 +3314,45 @@ def _geometry_kernels(name: str, model_name: str, quantized: bool, cfg,
     return rows
 
 
+def _k13_geometry_row(batch, L: int, flush) -> dict:
+    """K13 at a geometry's max_len on one request staged as the fused
+    route stages it (R = the ladder's rung over its span count): every
+    output exact against its plain version, timed beside its bound."""
+    import torch
+
+    from odigos_tpu_torch.kernels import featurize as kfeat
+    from odigos_tpu_torch.kernels import pack as kpack
+    from odigos_tpu_torch.kernels import sort as ksort
+    from odigos_tpu_torch.serving.engine import BucketLadder
+
+    n, svc_t, nam_t, c = _staged(batch, torch.device("cuda"))
+    with torch.inference_mode():
+        cat, cont = kfeat.featurize_columns(
+            svc_t, nam_t, c["service"], c["name"], c["kind"],
+            c["status_code"], c["span_id"], c["parent_span_id"],
+            c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+        perm = ksort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                                 c["start_unix_nano"]], n)
+        R = BucketLadder(256, 4).round_rows(n)
+        args = (perm, c["trace_id_hi"], c["trace_id_lo"], cat, cont, n, L, R)
+        got = kpack.trace_rows_pack(*args)
+        ref = kpack.trace_rows_pack_plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            check(torch.equal(a, b), f"trace_rows_pack at L={L}: differs")
+        C, D = cat.shape[1], cont.shape[1]
+        nb = n * (4 + 16 + 4 * C + 4 * D) + R * L * (4 * C + 4 * D + 5) + 4
+        b_ms, b_by = bound(nb, 0, F32_FLOPS)
+        out = {"L": L, "n": n, "R": R, "traces": int(got.rows_used.item()),
+               "max_abs_diff": 0.0, "bound": "exact",
+               **timings(lambda: kpack.trace_rows_pack(*args),
+                         lambda: kpack.trace_rows_pack_plain(*args), None,
+                         flush),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nb}
+        del got, ref
+    return out
+
+
 def phase_geometry(card: str) -> dict:
     """Each geometry of GEOMETRIES built on the card, a few requests
     scored on both routes (the host route's ``score``, the fused route's
@@ -3412,6 +3470,11 @@ def phase_geometry(card: str) -> dict:
         # each kernel of the geometry against its plain version
         krows = _geometry_kernels(name, model_name, quantized, cfg, model,
                                   batches[0], scratch.zero_)
+        if cfg.max_len == max(g[3].get("max_len", 0) for g in GEOMETRIES):
+            # K13 (the autoencoder's packer) at the longest rows
+            krows["trace_rows_pack"] = {f"{name}_rows": {
+                "geometry": name, **_k13_geometry_row(
+                    batches[0], cfg.max_len, scratch.zero_)}}
         for kname, variants in krows.items():
             kernel_rows.setdefault(kname, {}).update(variants)
             for v, r in variants.items():
@@ -3508,9 +3571,15 @@ def main() -> int:
                "zscore_update": "3 launches: warp-aggregated f64 sums in "
                                 "per-CTA smem, 2 passes, Chan merge",
                "zscore_score": "thread per span gather, squash, cold count",
-               "featurize_columns": "K6 sorts (frame, span); thread per "
-                                    "span: gathers, lower-bound join, "
-                                    "exact u64 duration, f64 log1p",
+               "featurize_columns": "hash join: memset table (P >= 2N u64 "
+                                    "slots), insert launch (a warp's "
+                                    "lanes of one key insert once; "
+                                    "linear probe, CAS claim, atomicMin "
+                                    "of the lower row, owner key read "
+                                    "from the columns), probe + "
+                                    "assemble launch by PDL (own "
+                                    "columns, exact u64 duration, f64 "
+                                    "log1p before griddepcontrol.wait)",
                "radix_sort": "one cooperative launch a sort: stable LSD, "
                              "8-bit digits, the live ones listed on the "
                              "card; per live digit hist, offsets and "
@@ -3566,10 +3635,15 @@ def main() -> int:
                                  "32-256), padding skipped: exact "
                                  "f64 LN sums, bf16-rounded LN out, f64 "
                                  "pool sum, true division",
-               "trace_rows_pack": "3 launches: K7's layout kernel marking "
-                                  "trace starts; one-block popcount scan "
-                                  "writing trace starts; slot-per-thread "
-                                  "gather writing every output once",
+               "trace_rows_pack": "2 launches: layout (trace-start "
+                                  "ballots, a count a block); scatter by "
+                                  "PDL: each block's prefix of the "
+                                  "counts, a thread a span (row and "
+                                  "column from the mask, features "
+                                  "gathered), the rest of each real row "
+                                  "zeroed a warp a row, then the rows "
+                                  "past the trace count as a zero fill; "
+                                  "16-byte stores",
                "ln_bf16": "16-byte vectors on d/8 lanes (several rows "
                           "a warp at d <= 128, a CTA a row past 1024 "
                           "bf16), persistent grid, next rows' loads "
@@ -3629,42 +3703,47 @@ def main() -> int:
                                for k in timing_keys}
                for mix in ("otel", "single") for n in ZS_N
                if (mix, n) != ("otel", ZS_MAIN_N)}}))
+    mixes = {"featurize_columns": ("otel", "adversarial", "stress"),
+             "next_fit_pack": ("otel", "adversarial", "long"),
+             "span_head_scatter": ("otel", "adversarial")}
     for kname in ("featurize_columns", "next_fit_pack",
                   "span_head_scatter"):
         k7 = kname == "next_fit_pack"
+        k5 = kname == "featurize_columns"
         keys = timing_keys + (("bound_ms", "bound_by", "R", "rows_real",
                                "launch_device_ms", "ratio_to_bound")
-                              if k7 else ())
+                              if k7 else ("bound_ms", "bound_by",
+                                          "ratio_to_bound",
+                                          "device_launches_per_call")
+                              if k5 else ())
         head = fused_kern[(kname, "otel", FUSED_MAIN_N)]
         lines.append(line(kname, head, {
             "shape_N": FUSED_MAIN_N, "mix": "otel",
             "launches_per_fused_call":
                 fused_path["launches_per_call"][kname],
             "fused_path_launches": fused_path["launches"][kname],
-            **({"R": head["R"], "launch_device_ms": head["launch_device_ms"],
-                "device_launches_per_call": head[
-                    "device_launches_per_call"]} if k7 else {}),
+            **({"R": head["R"], "launch_device_ms": head["launch_device_ms"]}
+               if k7 else {}),
+            **({"device_launches_per_call": head[
+                "device_launches_per_call"]} if k5 or k7 else {}),
             **{f"{mix}_N{n}": {k: fused_kern[(kname, mix, n)][k]
                                for k in keys}
-               for mix in ("otel", "adversarial", "long") for n in FUSED_N
-               if (mix, n) != ("otel", FUSED_MAIN_N)
-               and (k7 or mix != "long")}}))
-    k6 = fused_kern[("radix_sort", "join", "otel", FUSED_MAIN_N)]
+               for mix in mixes[kname] for n in FUSED_N
+               if (mix, n) != ("otel", FUSED_MAIN_N)}}))
+    k6 = fused_kern[("radix_sort", "trace", "otel", FUSED_MAIN_N)]
     lines.append(line("radix_sort", k6, {
-        "shape_N": FUSED_MAIN_N, "mix": "otel", "sort": "join (one frame)",
+        "shape_N": FUSED_MAIN_N, "mix": "otel",
+        "sort": "trace (trace_id_hi, trace_id_lo, start)",
         "passes": k6["passes"], "ratio_to_bound": k6["ratio_to_bound"],
-        "ratio_to_library": k6["ratio_to_library"],
         "device_launches_per_call": k6["device_launches_per_call"],
         "launches_per_fused_call": fused_path["launches_per_call"][
             "radix_sort"],
-        **{f"{what}_{mix}_N{n}": {
-            **{k: fused_kern[("radix_sort", what, mix, n)][k]
-               for k in timing_keys + ("ratio_to_bound",
-                                       "ratio_to_library")},
-            "passes": fused_kern[("radix_sort", what, mix, n)]["passes"]}
-           for what in ("join", "trace") for mix in ("otel", "adversarial")
-           for n in FUSED_N
-           if (what, mix, n) != ("join", "otel", FUSED_MAIN_N)}}))
+        **{f"trace_{mix}_N{n}": {
+            **{k: fused_kern[("radix_sort", "trace", mix, n)][k]
+               for k in timing_keys + ("ratio_to_bound",)},
+            "passes": fused_kern[("radix_sort", "trace", mix, n)]["passes"]}
+           for mix in ("otel", "adversarial") for n in FUSED_N
+           if (mix, n) != ("otel", FUSED_MAIN_N)}}))
     int8_steps = {"ln_quantize": ("ln1", "ctx", "ln2", "gelu_out"),
                   "qgemm": ("qkv", "out_residual", "ffn1_gelu",
                             "ffn2_residual", "ffn1_gelu_quant")}

@@ -6,11 +6,12 @@
 // block but the attention (K1).
 //
 // K14 ln_bf16: Flax's LayerNorm(dtype) over the last dimension, any d %
-// 8 == 0 from 8 to 4096. Every load and store is a 16-byte vector: a row
-// lives on the d / 8 (bf16; f32: d / 4) lanes of a group rounded up to a
-// power of two, so a warp holds 32 / G rows at d <= 128 (bf16) and each
-// row's shuffle trees are log2 G deep; up to 128 vectors a row the group
-// is the warp (up to 4 vectors a lane), past that one CTA takes a row
+// 8 == 0 from 8 to 1024 (the models' d_model, kernels/coverage.py). Every
+// load and store is a 16-byte vector: a row lives on the d / 8 (bf16; f32:
+// d / 4) lanes of a group rounded up to a power of two, so a warp holds 32
+// / G rows at d <= 128 (bf16) and each row's shuffle trees are log2 G
+// deep; up to 128 vectors a row (every bf16 width) the group is the warp
+// (up to 4 vectors a lane), past that (f32 past d 512) one CTA takes a row
 // (vectors spread over 256 threads, the sums through shared memory). The
 // grid is persistent (SMs x the CTAs an SM holds) and each warp issues its
 // next rows' loads before reducing the current ones. With a device row
@@ -20,14 +21,12 @@
 // the result rounded to the working type), so the plain version (torch's
 // f64 sums) gives the same bits where both f64 sums are exact: the
 // values' sum is exact when their binade spread + log2(d) + 8 (bf16; f32:
-// + 24) <= 53, i.e. a spread of 33 binades at d 4096 in bf16; the squared
+// + 24) <= 53, i.e. a spread of 35 binades at d 1024 in bf16; the squared
 // deviations are f32 values, exact while their spread + log2(d) + 24 <=
-// 53 (17 binades at d 4096). Past that each sum may round in f64 (a
+// 53 (19 binades at d 1024). Past that each sum may round in f64 (a
 // relative 2^-53 before the f32 rounding), and kernel and plain may differ
 // by one step of the output type (tests/test_torch_dense.py holds the
 // plain version there). Bound: bytes (the row read once, written once).
-// The parent design (a warp a row at d = 32 * PER, two rows in flight, a
-// capped grid) stays as ln_bf16_warp_launch, for the smoke run's timing.
 //
 // K15 gemm_bf16: out = epilogue(x . w^T + b), x (M, K) and w (N, K) both
 // K-major (the Linear layout), b (N,), all in the working type, f32
@@ -225,8 +224,9 @@ __global__ void __launch_bounds__(kLnThreads) ln_rows_kernel(
   }
 }
 
-// A row wider than a warp's registers (more than 128 vectors): one CTA a
-// row, thread t holding the vectors t, t + 256, ... (NV of them), the
+// A row wider than a warp's registers (more than 128 vectors: f32 past d
+// 512): one CTA a row, thread t holding the vectors t, t + 256, ... (NV of
+// them), the
 // row's sums through shared memory; persistent, the next row's loads
 // issued before the current one is reduced.
 template <typename T, int NV>
@@ -347,8 +347,8 @@ cudaError_t ln_go(K kernel, int (&cache)[kMaxDevices], const T* x,
                  live, per, out, (rows + slots - 1) / slots, st);           \
   }
 
-// d % 8 == 0, 8 <= d <= 4096: the group of lanes a row and the vectors a
-// lane, or one CTA a row past 128 vectors
+// d % 8 == 0, 8 <= d <= 1024: the group of lanes a row and the vectors a
+// lane, or (f32 past d 512) one CTA a row
 template <typename T>
 cudaError_t ln_launch_t(const T* x, const float* g, const float* b, float eps,
                         long long rows, int d, const int* live, int per,
@@ -362,125 +362,16 @@ cudaError_t ln_launch_t(const T* x, const float* g, const float* b, float eps,
   if (nvec <= 32) LN_ROWS(32, 1)
   if (nvec <= 64) LN_ROWS(32, 2)
   if (nvec <= 128) LN_ROWS(32, 4)
-  static int c1[kMaxDevices], c2[kMaxDevices], c4[kMaxDevices];
-  if (nvec <= kLnThreads)
-    return ln_go(ln_wide_kernel<T, 1>, c1, x, g, b, eps, rows, d, live, per,
-                 out, rows, st);
-  if (nvec <= 2 * kLnThreads)
-    return ln_go(ln_wide_kernel<T, 2>, c2, x, g, b, eps, rows, d, live, per,
-                 out, rows, st);
-  if (nvec <= 4 * kLnThreads)
-    return ln_go(ln_wide_kernel<T, 4>, c4, x, g, b, eps, rows, d, live, per,
-                 out, rows, st);
+  // past 128 vectors only f32 reaches here (d <= 1024: 256 vectors)
+  if constexpr (Vec<T>::EPV == 4) {
+    static int c1[kMaxDevices];
+    if (nvec <= kLnThreads)
+      return ln_go(ln_wide_kernel<T, 1>, c1, x, g, b, eps, rows, d, live,
+                   per, out, rows, st);
+  }
   return cudaErrorInvalidValue;
 }
 #undef LN_ROWS
-
-// The earlier design, kept to be timed beside the one above: one
-// warp a row, d = 32 * PER values, lane k holding [k * PER, (k + 1) * PER),
-// two rows in flight a warp, a grid of at most 4096 CTAs.
-// PER values of T from src to dst, in the widest aligned pieces
-template <typename T, int PER>
-__device__ __forceinline__ void copy_row(T* dst, const T* src) {
-  constexpr int bytes = PER * (int)sizeof(T);
-  if constexpr (bytes % 16 == 0) {
-#pragma unroll
-    for (int i = 0; i < bytes / 16; ++i)
-      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-  } else if constexpr (bytes % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < bytes / 8; ++i)
-      reinterpret_cast<uint2*>(dst)[i] = reinterpret_cast<const uint2*>(src)[i];
-  } else if constexpr (bytes % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < bytes / 4; ++i)
-      reinterpret_cast<uint32_t*>(dst)[i] =
-          reinterpret_cast<const uint32_t*>(src)[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) dst[i] = src[i];
-  }
-}
-
-__device__ __forceinline__ void to_t(float v, float* p) { *p = v; }
-__device__ __forceinline__ void to_t(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16_rn(v);
-}
-
-constexpr int kLnRows = 2;  // rows a warp has in flight: loads first
-
-template <typename T, int PER>
-__global__ void __launch_bounds__(kLnThreads) ln_warp_kernel(
-    const T* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, float eps, long long rows,
-    T* __restrict__ out) {
-  constexpr int d = 32 * PER;
-  const int lane = threadIdx.x & 31;
-  const int k0 = lane * PER;
-  float g[PER], b[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    g[j] = gamma[k0 + j];
-    b[j] = beta[k0 + j];
-  }
-  const long long warps = (long long)gridDim.x * kLnWarps;
-  for (long long r0 = (long long)blockIdx.x * kLnWarps + (threadIdx.x >> 5);
-       r0 < rows; r0 += kLnRows * warps) {
-    __align__(16) T v[kLnRows][PER];
-#pragma unroll
-    for (int i = 0; i < kLnRows; ++i)
-      if (r0 + i * warps < rows)  // warp-uniform
-        copy_row<T, PER>(v[i], x + (r0 + i * warps) * d + k0);
-#pragma unroll
-    for (int i = 0; i < kLnRows; ++i) {
-      const long long r = r0 + i * warps;
-      if (r >= rows) break;
-      float y[PER];
-      warp_ln_row<T, PER>(v[i], g, b, eps, y);
-      __align__(16) T o[PER];
-#pragma unroll
-      for (int j = 0; j < PER; ++j) to_t(y[j], o + j);
-      copy_row<T, PER>(out + r * d + k0, o);
-    }
-  }
-}
-
-template <typename T>
-int ln_warp_launch_t(const T* x, const float* g, const float* b, float eps,
-                     long long rows, int d, T* out, cudaStream_t st) {
-  long long blocks = (rows + kLnWarps * kLnRows - 1) / (kLnWarps * kLnRows);
-  if (blocks > 4096) blocks = 4096;  // grid-stride beyond
-  const unsigned grid = (unsigned)blocks;
-  switch (d) {
-    case 32:
-      ln_warp_kernel<T, 1><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
-                                                        out);
-      break;
-    case 64:
-      ln_warp_kernel<T, 2><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
-                                                        out);
-      break;
-    case 128:
-      ln_warp_kernel<T, 4><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
-                                                        out);
-      break;
-    case 256:
-      ln_warp_kernel<T, 8><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
-                                                        out);
-      break;
-    case 512:
-      ln_warp_kernel<T, 16><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
-                                                         out);
-      break;
-    case 1024:
-      ln_warp_kernel<T, 32><<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows,
-                                                         out);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------- K15 row count
 // The row tiles of `tile` rows that hold a row below live[0] * per, at
@@ -1049,14 +940,14 @@ cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
 
 // K14. x: (rows, d) bf16 (dtype 1) or f32 (dtype 0), 16-byte aligned;
 // gamma, beta: (d,) f32; out: (rows, d) in x's type; d % 8 == 0, 8 <= d
-// <= 4096. live (nullable): a (1,) int32 count on the device; rows at or
+// <= 1024. live (nullable): a (1,) int32 count on the device; rows at or
 // past live[0] * per are neither read nor written.
 extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
                               const void* beta, float eps, long long rows,
                               int d, const void* live, int per, void* out,
                               void* stream) {
   if (rows < 0 || (dtype != 0 && dtype != 1) || d < 8 || d % 8 != 0 ||
-      d > 4096 || per < 1)
+      d > 1024 || per < 1)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1069,25 +960,6 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
                             static_cast<__nv_bfloat16*>(out), st);
   return (int)ln_launch_t(static_cast<const float*>(x), g, b, eps, rows, d,
                           lv, per, static_cast<float*>(out), st);
-}
-
-// K14's earlier design (a warp a row), timed beside it by the smoke run:
-// the same arguments without a count, d in 32, 64, 128, 256, 512 or 1024.
-extern "C" int ln_bf16_warp_launch(const void* x, int dtype,
-                                   const void* gamma, const void* beta,
-                                   float eps, long long rows, int d,
-                                   void* out, void* stream) {
-  if (rows < 0 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  if (dtype == 1)
-    return ln_warp_launch_t(static_cast<const __nv_bfloat16*>(x), g, b, eps,
-                            rows, d, static_cast<__nv_bfloat16*>(out), st);
-  return ln_warp_launch_t(static_cast<const float*>(x), g, b, eps, rows, d,
-                          static_cast<float*>(out), st);
 }
 
 // K15. mode 0 none, 1 residual, 2 gelu_tanh, 3 gelu_tanh by the formula

@@ -365,88 +365,217 @@ __global__ void __launch_bounds__(kThreads) pack_scatter_kernel(
 
 // ---- K13: one trace per row
 
-// One block: the trace ordinal of every trace start (a set bit of the
-// new-trace bitmask), by a block scan of each thread's popcounts over its
-// run of mask words; writes ts[o] = the sorted index where trace o starts,
-// for o <= R, the sentinel ts[total] = n when total <= R, and the number
-// of traces.
-__global__ void __launch_bounds__(kWalkThreads) rows_scan_kernel(
-    const unsigned* __restrict__ mask, long long n, int R,
-    int32_t* __restrict__ ts, int32_t* __restrict__ rows_used) {
-  __shared__ int s_warp[kWalkThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const long long words = (n + 31) >> 5;
-  const long long per = (words + kWalkThreads - 1) / kWalkThreads;
-  const long long w0 = tid * per;
-  const long long w1 = w0 + per < words ? w0 + per : words;
-  int c = 0;
-  for (long long w = w0; w < w1; ++w) c += __popc(mask[w]);
-  int x = c;  // inclusive scan within the warp
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+constexpr int kRowsWarps = kThreads / 32;  // mask words a layout block
+
+// One thread per sorted index j, whole blocks: the new-trace flag (j's
+// trace id against j - 1's; the warp shares its ids by shuffles) by a
+// ballot into the trace-start bitmask, a word a warp, and the block's
+// count of trace starts. No search and no scan: a trace's ordinal is its
+// block's prefix of counts plus its rank in the block, which the scatter
+// takes.
+__global__ void __launch_bounds__(kThreads) rows_layout_kernel(
+    const int32_t* __restrict__ perm,
+    const unsigned long long* __restrict__ thi,
+    const unsigned long long* __restrict__ tlo, long long n,
+    unsigned* __restrict__ mask, int32_t* __restrict__ block_count) {
+  __shared__ int s_cnt[kRowsWarps];
+  launch_dependents();
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  unsigned long long h = 0, l = 0;
+  if (j < n) {
+    const int r = perm[j];
+    h = thi[r];
+    l = tlo[r];
   }
-  if (lane == 31) s_warp[wid] = x;
+  unsigned long long ph = __shfl_up_sync(0xffffffffu, h, 1);
+  unsigned long long pl = __shfl_up_sync(0xffffffffu, l, 1);
+  if (lane == 0 && j > 0 && j < n) {
+    const int r = perm[j - 1];
+    ph = thi[r];
+    pl = tlo[r];
+  }
+  const bool fresh = j < n && (j == 0 || ph != h || pl != l);
+  const unsigned b = __ballot_sync(0xffffffffu, fresh);
+  if (lane == 0) {
+    mask[j >> 5] = b;
+    s_cnt[wid] = __popc(b);
+  }
   __syncthreads();
-  if (wid == 0) {
-    int v = s_warp[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += y;
-    }
-    s_warp[lane] = v;
-  }
-  __syncthreads();
-  int o = x - c + (wid > 0 ? s_warp[wid - 1] : 0);
-  for (long long w = w0; w < w1; ++w) {
-    unsigned m = mask[w];
-    while (m) {
-      const int b = __ffs(m) - 1;
-      m &= m - 1u;
-      if (o <= R) ts[o] = (int32_t)((w << 5) + b);
-      ++o;
-    }
-  }
-  if (tid == 0) {
-    const int total = s_warp[kWalkThreads / 32 - 1];
-    *rows_used = total;
-    if (total <= R) ts[total] = (int32_t)n;
+  if (threadIdx.x == 0) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < kRowsWarps; ++w) c += s_cnt[w];
+    block_count[blockIdx.x] = c;
   }
 }
 
-// One thread per output slot (r, c): the span at sorted index ts[r] + c if
-// trace r holds it (c < its length; spans at c >= L are dropped), else
-// padding. Every output element is written once, zeros included.
+// Fills [e0, e1) of a flat array of T, 16-byte aligned at element 0,
+// with `value`: scalar stores up to the first 16-byte boundary and past
+// the last, 16-byte vector stores between; the worker t of `workers`
+// takes every workers-th store.
+template <typename T>
+__device__ __forceinline__ void fill_range(T* __restrict__ base, long long e0,
+                                           long long e1, long long t,
+                                           long long workers, T value) {
+  constexpr int V = 16 / (int)sizeof(T);
+  if (e0 >= e1) return;
+  const long long a0 = min(e1, (e0 + V - 1) / V * V);
+  const long long a1 = max(a0, e1 / V * V);
+  for (long long e = e0 + t; e < a0; e += workers) base[e] = value;
+  union {
+    uint4 u;
+    T v[V];
+  } vec;
+#pragma unroll
+  for (int k = 0; k < V; ++k) vec.v[k] = value;
+  uint4* vb = reinterpret_cast<uint4*>(base);
+  for (long long q = a0 / V + t; q < a1 / V; q += workers) vb[q] = vec.u;
+  for (long long e = a1 + t; e < e1; e += workers) base[e] = value;
+}
+
+// A span's k features, src to dst: kFeatChunk loads in flight before
+// their stores (in-order issue would otherwise wait out each load).
+constexpr int kFeatChunk = 8;
+
+template <typename T>
+__device__ __forceinline__ void copy_features(T* __restrict__ dst,
+                                              const T* __restrict__ src,
+                                              int k) {
+  for (int k0 = 0; k0 < k; k0 += kFeatChunk) {
+    T v[kFeatChunk];
+#pragma unroll
+    for (int e = 0; e < kFeatChunk; ++e)
+      if (k0 + e < k) v[e] = __ldg(src + k0 + e);
+#pragma unroll
+    for (int e = 0; e < kFeatChunk; ++e)
+      if (k0 + e < k) dst[k0 + e] = v[e];
+  }
+}
+
+// The rows, by programmatic dependent launch behind the layout. Every
+// block first sums the layout's block counts: before its own (the prefix)
+// and all (the trace count). A block b below the layout's grid then takes
+// the sorted spans of the layout's block b, a thread a span: its trace's
+// ordinal (the row) and its column from the mask, its slot gathered
+// through perm and stored; each trace start also finds its trace's length
+// and its warp fills the rest of that row with zeros, 16-byte stores. Then
+// every block takes its share of the rows past the trace count, a pure
+// zero fill (-1 in span_map) with 16-byte stores and no reads. Traces at
+// ordinal >= R and spans at column >= L are dropped; every output element
+// is written once.
 __global__ void __launch_bounds__(kThreads) rows_scatter_kernel(
     const int32_t* __restrict__ perm, const int32_t* __restrict__ cat,
     const float* __restrict__ cont, int C, int D,
-    const int32_t* __restrict__ ts, const int32_t* __restrict__ rows_used,
-    int L, int R, int32_t* __restrict__ catp, float* __restrict__ contp,
-    uint8_t* __restrict__ maskp, int32_t* __restrict__ span_map) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= (long long)R * L) return;
-  const int ru = *rows_used;
-  const int rows = ru < R ? ru : R;
-  const int r = (int)(t / L), c = (int)(t % L);
-  long long j = -1;
-  if (r < rows) {
-    const long long p0 = ts[r];
-    if (p0 + c < ts[r + 1]) j = p0 + c;
+    const unsigned* __restrict__ mask,
+    const int32_t* __restrict__ block_count, int nb, long long n, int L,
+    int R, int32_t* __restrict__ rows_used, int32_t* __restrict__ catp,
+    float* __restrict__ contp, uint8_t* __restrict__ maskp,
+    int32_t* __restrict__ span_map) {
+  __shared__ long long s_sum[2][kRowsWarps];
+  __shared__ int s_word[kRowsWarps];
+  wait_prior_grid();  // the layout's mask and counts
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  long long pre = 0, tot = 0;
+  for (int k = tid; k < nb; k += kThreads) {
+    const int c = block_count[k];
+    tot += c;
+    if (k < (int)blockIdx.x) pre += c;
   }
-  int32_t* cp = catp + t * C;
-  float* xp = contp + t * D;
-  if (j >= 0) {
-    const long long idx = perm[j];
-    for (int k = 0; k < C; ++k) cp[k] = cat[idx * C + k];
-    for (int k = 0; k < D; ++k) xp[k] = cont[idx * D + k];
-    maskp[t] = 1;
-    span_map[t] = (int32_t)idx;
-  } else {
-    for (int k = 0; k < C; ++k) cp[k] = 0;
-    for (int k = 0; k < D; ++k) xp[k] = 0.f;
-    maskp[t] = 0;
-    span_map[t] = -1;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    pre += __shfl_xor_sync(0xffffffffu, pre, o);
+    tot += __shfl_xor_sync(0xffffffffu, tot, o);
   }
+  if (lane == 0) {
+    s_sum[0][wid] = pre;
+    s_sum[1][wid] = tot;
+  }
+  const long long words = (n + 31) >> 5;
+  const long long wd = (long long)blockIdx.x * kRowsWarps + wid;
+  const unsigned mw = (int)blockIdx.x < nb && wd < words ? mask[wd] : 0u;
+  if (lane == 0) s_word[wid] = __popc(mw);
+  __syncthreads();
+  pre = tot = 0;
+#pragma unroll
+  for (int w = 0; w < kRowsWarps; ++w) {
+    pre += s_sum[0][w];
+    tot += s_sum[1][w];
+  }
+  const long long rows = tot < R ? tot : R;
+  if (blockIdx.x == 0 && tid == 0) *rows_used = (int32_t)tot;
+  const long long LC = (long long)L * C, LD = (long long)L * D;
+  // the real slots, a thread a sorted span j of layout block b: its
+  // trace's ordinal is the starts at or before j, less one (the block's
+  // prefix, its earlier words, its own word's bits up to j); its column
+  // is j less the last start at or before j (looked for back at most L
+  // spans: a slot at column >= L is dropped)
+  const long long j = (long long)blockIdx.x * kThreads + tid;
+  const bool in_block = (int)blockIdx.x < nb && j < n;
+  const unsigned upto = lane == 31 ? ~0u : (2u << lane) - 1u;
+  long long r = pre + __popc(mw & upto) - 1, c = L;
+  for (int w = 0; w < wid; ++w) r += s_word[w];
+  if (in_block) {
+    if (mw & upto) {
+      c = lane - (31 - __clz(mw & upto));
+    } else {
+      for (long long w = wd - 1; w >= 0 && (j - (w << 5) - 31) < L; --w) {
+        const unsigned x = mask[w];
+        if (x) {
+          c = j - ((w << 5) + 31 - __clz(x));
+          break;
+        }
+      }
+    }
+  }
+  const bool slot = in_block && r < R && c < L;
+  if (slot) {
+    const long long idx = __ldg(perm + j), e = r * L + c;
+    copy_features(catp + e * C, cat + idx * C, C);
+    copy_features(contp + e * D, cont + idx * D, D);
+    maskp[e] = 1;
+    span_map[e] = (int32_t)idx;
+  }
+  // each trace start's row past its spans: the start finds its length
+  // (the next start within L spans), then its warp fills the rest of the
+  // row with zeros (-1 in span_map), 16-byte stores, a row at a time
+  int len = 0;
+  if (slot && c == 0) {
+    const long long lim = j + L < n ? j + L : n;
+    long long next = lim;
+    const unsigned after = mw & ~upto;
+    if (after) {
+      next = min(lim, (wd << 5) + __ffs(after) - 1);
+    } else {
+      for (long long w = wd + 1; (w << 5) < lim; ++w) {
+        const unsigned x = mask[w];
+        if (x) {
+          next = min(lim, (w << 5) + __ffs(x) - 1);
+          break;
+        }
+      }
+    }
+    len = (int)(next - j);
+  }
+  for (unsigned st = __ballot_sync(0xffffffffu, len > 0); st;
+       st &= st - 1u) {
+    const int from = __ffs(st) - 1;
+    const long long rr = __shfl_sync(0xffffffffu, r, from);
+    const int ln = __shfl_sync(0xffffffffu, len, from);
+    fill_range(catp, rr * LC + (long long)ln * C, (rr + 1) * LC, lane, 32,
+               0);
+    fill_range(contp, rr * LD + (long long)ln * D, (rr + 1) * LD, lane, 32,
+               0.f);
+    fill_range(maskp, rr * L + ln, (rr + 1) * L, lane, 32, (uint8_t)0);
+    fill_range(span_map, rr * L + ln, (rr + 1) * L, lane, 32, -1);
+  }
+  // the rows past the trace count: zeros (span_map -1), no reads; thread
+  // j of the grid's takes every grid-th store
+  const long long all = (long long)gridDim.x * kThreads;
+  fill_range(catp, rows * LC, (long long)R * LC, j, all, 0);
+  fill_range(contp, rows * LD, (long long)R * LD, j, all, 0.f);
+  fill_range(maskp, rows * L, (long long)R * L, j, all, (uint8_t)0);
+  fill_range(span_map, rows * L, (long long)R * L, j, all, -1);
 }
 
 // the walk's dynamic shared memory, allowed past 48 KB
@@ -550,63 +679,80 @@ extern "C" int next_fit_pack_launch(
 // shared _sorted_trace_layout, :429-459): row = the trace's ordinal in
 // K6's (trace_id_hi, trace_id_lo, start) order, column = the span's
 // position in its trace, spans at column >= L dropped (the host's
-// assemble_sequences truncation), traces at row >= R dropped. Three
-// launches:
-//   layout   K7's layout kernel with L = INT_MAX: a position in the trace
-//            is then a multiple of L only at 0, so its bitmask marks the
-//            first span of each trace;
-//   scan     one block: each thread's popcount over its run of mask words,
-//            a block scan, then each trace start written at its ordinal
-//            (ts, R + 1 entries, the sentinel n after the last trace) and
-//            the trace count (rows_used, read by the host at harvest);
-//   scatter  one thread per output slot, as K7's.
+// assemble_sequences truncation), traces at row >= R dropped. Two
+// launches, the second by programmatic dependent launch:
+//   layout   a thread a sorted span: the trace-start bitmask by ballots
+//            and each block's count of trace starts;
+//   scatter  each block sums the counts (its prefix, and the trace count,
+//            written to rows_used by block 0), writes the slots of its
+//            layout block's spans (a thread a span: row and column from
+//            the mask, the features gathered through perm), the rest of
+//            each of their rows as zeros (a warp a row, 16-byte stores),
+//            then its share of the zero rows past the trace count.
 // Outputs: catp (R, L, C) int32, contp (R, L, D) f32, maskp (R, L) bytes
 // and span_map (R, L) int32 (the span's original row, -1 at padding: K11
-// writes each real position's score there), every element written once.
-// Bound on the card: bytes, R * L * (4 C + 4 D + 5) out (R = 2048, L = 64:
-// 17.3 MB, 5.2 us at 3.35 TB/s) plus ~28 B a span in; the layout's
-// search for each trace's start (dependent L2 reads) and the one-block
-// scan set the time at these sizes.
+// writes each real position's score there), every element written once,
+// each output 16-byte aligned. Scratch: mask (8 * blocks) u32 and
+// block_count (blocks) int32, blocks = ceil(n / 256).
+// Bound on the card: bytes, R * L * (4 C + 4 D + 5) out (R = 43008, L =
+// 64: 102 MB, 30.6 us at 3.35 TB/s) plus ~28 B a span in; past the trace
+// count (90% of the rows at the engine's R) the scatter is a store stream.
 extern "C" int trace_rows_pack_launch(
     const void* perm, const void* thi, const void* tlo, const void* cat,
     const void* cont, int C, int D, long long n, long long N, int L, int R,
-    void* mask, void* pic, void* ts, void* rows_used, void* catp,
-    void* contp, void* maskp, void* span_map, int* launches, void* stream) {
+    void* mask, void* block_count, void* rows_used, void* catp, void* contp,
+    void* maskp, void* span_map, int* launches, void* stream) {
   *launches = 0;
   if (n < 0 || N < n || L < 1 || R < 0 || C < 0 || D < 0 ||
       N > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  unsigned* m = static_cast<unsigned*>(mask);
-  if (n > 0) {
-    const long long words = (n + 31) >> 5;
-    const long long blocks = (words * 32 + kThreads - 1) / kThreads;
-    pack_layout_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+  const long long nb = (n + kThreads - 1) / kThreads;
+  if (nb > 0) {
+    rows_layout_kernel<<<(unsigned)nb, kThreads, 0, st>>>(
         static_cast<const int32_t*>(perm),
         static_cast<const unsigned long long*>(thi),
-        static_cast<const unsigned long long*>(tlo), n, 0x7fffffff, m,
-        static_cast<int32_t*>(pic));
+        static_cast<const unsigned long long*>(tlo), n,
+        static_cast<unsigned*>(mask), static_cast<int32_t*>(block_count));
     ++*launches;
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  rows_scan_kernel<<<1, kWalkThreads, 0, st>>>(
-      m, n, R, static_cast<int32_t*>(ts), static_cast<int32_t*>(rows_used));
+  // enough blocks for the zero fill to stream: ~4 vectors a thread, at
+  // most 8 blocks an SM; at least the layout's blocks (their rows)
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return (int)err;
+  }
+  const long long vecs = (long long)R * L * (4LL * C + 4LL * D + 5) / 16;
+  long long grid = (vecs + 4LL * kThreads - 1) / (4LL * kThreads);
+  if (grid > 8LL * sms) grid = 8LL * sms;
+  if (grid < nb) grid = nb;
+  if (grid < 1) grid = 1;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, rows_scatter_kernel, static_cast<const int32_t*>(perm),
+      static_cast<const int32_t*>(cat), static_cast<const float*>(cont), C, D,
+      static_cast<const unsigned*>(mask),
+      static_cast<const int32_t*>(block_count), (int)nb, n, L, R,
+      static_cast<int32_t*>(rows_used), static_cast<int32_t*>(catp),
+      static_cast<float*>(contp), static_cast<uint8_t*>(maskp),
+      static_cast<int32_t*>(span_map));
   ++*launches;
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long slots = (long long)R * L;
-  if (slots > 0) {
-    const long long blocks = (slots + kThreads - 1) / kThreads;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    rows_scatter_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const int32_t*>(perm), static_cast<const int32_t*>(cat),
-        static_cast<const float*>(cont), C, D,
-        static_cast<const int32_t*>(ts),
-        static_cast<const int32_t*>(rows_used), L, R,
-        static_cast<int32_t*>(catp), static_cast<float*>(contp),
-        static_cast<uint8_t*>(maskp), static_cast<int32_t*>(span_map));
-    ++*launches;
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
+  if (err != cudaSuccess || (err = cudaGetLastError()) != cudaSuccess)
+    return (int)err;
   return (int)cudaSuccess;
 }

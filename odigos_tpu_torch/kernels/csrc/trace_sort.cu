@@ -1,12 +1,13 @@
 // K6: a stable LSD radix sort of multi-word unsigned keys for Hopper
 // (sm_90a), returning the int32 permutation that sorts them.
 //
-// Replaces the two sorts of the JAX package's fused route, which XLA runs
+// Replaces the trace sort of the JAX package's fused route, which XLA runs
 // as jnp.lexsort: the trace-major, time-minor layout sort of
 // odigos_tpu/serving/fused.py _sorted_trace_layout (:429-459; keys
-// trace_id_hi, trace_id_lo, start_unix_nano) and the sort under the
-// per-frame parent self-join of odigos_tpu/features/featurizer.py
-// featurize_join_jax (:405-440; keys frame, span_id). The reference splits
+// trace_id_hi, trace_id_lo, start_unix_nano). (The reference's other
+// lexsort, under the parent self-join of odigos_tpu/features/featurizer.py
+// featurize_join_jax, has no sort in the port: K5 joins by a hash table.)
+// The reference splits
 // each u64 into u32 halves because it serves without x64; this kernel
 // keeps whole u64 words (PyTorch int64 tensors read as unsigned).
 //

@@ -57,8 +57,9 @@ skips keep what it held.
 
 A CUDA tensor launches ``csrc/dense.cu`` or raises, never handing the work
 to the plain version: K14 takes f32 or bf16 rows of ``d % 8 == 0`` from 8
-to ``MAX_LN_D``, 16-byte aligned (16-byte vectors a lane, several rows a
-warp at narrow d, a CTA a row past 1024 bf16 values; a persistent grid);
+to ``MAX_LN_D`` (1024: K14 normalises ``d_model`` rows), 16-byte aligned
+(16-byte vectors a lane, several rows a warp at narrow d, a CTA a row past
+512 f32 values; a persistent grid);
 K15 takes bf16 (``wgmma`` tensor cores, TMA loads and stores) or f32
 (CUDA cores, for the f32 model), with
 ``K % 16 == 0``, ``N % 8 == 0``, ``N / planes`` a multiple of 64 when
@@ -87,7 +88,7 @@ from .qgemm import gelu_tanh_plain
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
-MAX_LN_D = 4096
+MAX_LN_D = 1024  # the models' widest d_model (coverage.MAX_D_MODEL)
 EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2,
              "gelu_tanh_formula": 3}
 GELU_EPILOGUES = ("gelu_tanh", "gelu_tanh_formula")
@@ -240,11 +241,6 @@ def _kernel(name: str):
                            ctypes.c_void_p, ctypes.c_float,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        elif name == "ln_bf16_warp_launch":
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_float,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_void_p]
         else:
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                            + [ctypes.c_longlong] + [ctypes.c_int] * 3
@@ -316,24 +312,6 @@ def ln_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise RuntimeError(f"ln_bf16 launch failed: CUDA error {rc}")
     with _count_lock:
         ln_launches += 1
-    return out
-
-
-def ln_bf16_warp(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                 eps: float = LN_EPS) -> torch.Tensor:
-    """K14's parent design (a warp a row, d in 32 ... 1024 powers of two),
-    on the card only, for the smoke run to time beside :func:`ln_bf16`;
-    nothing serves it and it counts no launch."""
-    _check_ln(x, weight, bias)
-    rows, d = _ln_args(x, weight, bias)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _kernel("ln_bf16_warp_launch")(
-            x.data_ptr(), _DTYPE_CODES[x.dtype], weight.data_ptr(),
-            bias.data_ptr(), eps, rows, d, out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ln_bf16_warp launch failed: CUDA error {rc}")
     return out
 
 

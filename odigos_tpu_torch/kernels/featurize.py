@@ -8,11 +8,15 @@ padded group of ``N`` rows whose first ``n`` are real; see
 the contract, which is also the plain version (its three phases are
 ``featurize_{hash,join,assemble}_torch``).
 
-A CUDA tensor takes two steps, both hand-written: K6 (``kernels/sort.py``)
-sorts the rows by ``(frame, span_id)``, then one launch of
-``csrc/featurize.cu`` gathers, joins by binary search and assembles; a
-failure raises. A CPU tensor takes the plain version. ``launches`` counts
-the calls that launched K5 (the sort counts in ``sort.launches``).
+A CUDA tensor takes ``csrc/featurize.cu``: the parent join by a hash
+table on the card (``table_slots(N)`` u64 slots from the caching
+allocator, cleared by a memset), one launch inserting every declaration
+(the lowest row of each ``(frame, span_id)`` key wins) and one, by
+programmatic dependent launch, probing each span's ``(frame, parent_id)``
+and assembling its row; a failure raises. No sort runs: K6 sorts only the
+traces of a fused call. A CPU tensor takes the plain version.
+``launches`` counts the calls that launched K5, ``device_launches`` its
+kernels (two a call with real rows; the memset is not counted).
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ import threading
 import torch
 
 from ..features.featurizer import featurize_columns_torch
-from . import build, sort
+from . import build
 
 launches = 0
+device_launches = 0
 _count_lock = threading.Lock()
 _fn = None
 
@@ -41,11 +46,19 @@ def _kernel():
     if _fn is None:
         fn = build.load("featurize").featurize_launch
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 10
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_void_p] * 2
+                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def table_slots(N: int) -> int:
+    """The join table's slots for a bucket of ``N`` rows: the power of two
+    at or above 4N (so the table is at most a quarter full), at least one
+    probe group (4)."""
+    return max(4, 1 << (4 * N - 1).bit_length()) if N else 4
 
 
 def _check(cols: dict, n: int) -> None:
@@ -77,7 +90,7 @@ def featurize_columns(service_table: torch.Tensor, name_table: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(categorical (N, 5) int32, continuous (N, 3) f32)`` of the group,
     zero past ``n``. Nothing is synchronised."""
-    global launches
+    global launches, device_launches
     cols = dict(service_table=service_table, name_table=name_table,
                 service=service, name=name, kind=kind,
                 status_code=status_code, span_id=span_id,
@@ -99,7 +112,9 @@ def featurize_columns(service_table: torch.Tensor, name_table: torch.Tensor,
     cont = torch.empty((N, 3), dtype=torch.float32, device=dev)
     if N == 0:
         return cat, cont
-    decl = sort.radix_sort([frame_id, span_id], n)
+    P = table_slots(N)
+    table = torch.empty(P, dtype=torch.int64, device=dev)
+    count = ctypes.c_int(0)
     fn = _kernel()
     with torch.cuda.device(dev):
         rc = fn(service_table.data_ptr(), name_table.data_ptr(),
@@ -107,11 +122,13 @@ def featurize_columns(service_table: torch.Tensor, name_table: torch.Tensor,
                 service.data_ptr(), name.data_ptr(), kind.data_ptr(),
                 status_code.data_ptr(), span_id.data_ptr(),
                 parent_id.data_ptr(), start.data_ptr(), end.data_ptr(),
-                frame_id.data_ptr(), decl.data_ptr(), n, N, cat.data_ptr(),
-                cont.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                frame_id.data_ptr(), table.data_ptr(), P, n, N,
+                cat.data_ptr(), cont.data_ptr(), ctypes.byref(count),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"featurize_columns launch failed: CUDA error "
                            f"{rc}")
     with _count_lock:
         launches += 1
+        device_launches += count.value
     return cat, cont

@@ -34,10 +34,15 @@ host's ``assemble_sequences`` and the reference's scatter with
 ·)`` tensors the model reads, the ``(R, L)`` mask, each slot's original
 span index (``span_map``, -1 at padding; K11 writes the span's score
 there) and ``rows_used``, the real trace count (one int32 on the device,
-no sync). The kernel is three launches in ``csrc/trace_pack.cu`` (K7's
-layout kernel marking trace starts, a one-block scan, a slot scatter);
-the plain version is :func:`trace_rows_pack_plain`. ``rows_launches``
-counts its calls that launched, ``rows_device_launches`` its kernels.
+no sync). The kernel is two launches in ``csrc/trace_pack.cu``: a layout
+marking trace starts and counting them a block, and a scatter (by
+programmatic dependent launch) in which each block takes its prefix of
+those counts, writes the slots of its layout block's spans (a thread a
+span, its row and column from the mask), the rest of those rows as zeros
+(a warp a row, 16-byte stores) and its share of the zero rows past the
+trace count; the plain version is :func:`trace_rows_pack_plain`.
+``rows_launches`` counts its calls that launched, ``rows_device_launches``
+its kernels.
 """
 
 from __future__ import annotations
@@ -56,6 +61,9 @@ from . import build
 # kWalkSlots), and the longest max_len it takes
 WALK_SLOTS = 8192
 MAX_WALK_LEN = 1024
+# K13's layout block (csrc/trace_pack.cu kThreads): sorted spans a block,
+# one trace-start count and 8 mask words each
+ROWS_BLOCK = 256
 
 launches = 0
 device_launches = 0
@@ -288,7 +296,7 @@ def _rows_kernel():
         fn = build.load("trace_pack").trace_rows_pack_launch
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 8
+                       + [ctypes.c_void_p] * 7
                        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _rows_fn = fn
@@ -324,8 +332,9 @@ def trace_rows_pack(perm: torch.Tensor, trace_id_hi: torch.Tensor,
         torch.empty((R, L), dtype=torch.bool, device=dev),
         torch.empty((R, L), dtype=torch.int32, device=dev),
         torch.empty(1, dtype=torch.int32, device=dev))
-    words = -(-N // 32)
-    scratch = torch.empty(words + N + R + 1, dtype=torch.int32, device=dev)
+    blocks = -(-n // ROWS_BLOCK)
+    scratch = torch.empty(max(1, blocks * (ROWS_BLOCK // 32 + 1)),
+                          dtype=torch.int32, device=dev)
     base = scratch.data_ptr()
     count = ctypes.c_int(0)
     fn = _rows_kernel()
@@ -333,7 +342,7 @@ def trace_rows_pack(perm: torch.Tensor, trace_id_hi: torch.Tensor,
         rc = fn(perm.data_ptr(), trace_id_hi.data_ptr(),
                 trace_id_lo.data_ptr(), categorical.data_ptr(),
                 continuous.data_ptr(), C, D, n, N, L, R, base,
-                base + 4 * words, base + 4 * (words + N),
+                base + 4 * blocks * (ROWS_BLOCK // 32),
                 out.rows_used.data_ptr(), out.categorical.data_ptr(),
                 out.continuous.data_ptr(), out.mask.data_ptr(),
                 out.span_map.data_ptr(), ctypes.byref(count),

@@ -4,11 +4,12 @@
 ``n`` rows of ``keys`` — a sequence of ``(N,)`` tensors, MOST significant
 first as in a sort by tuple, int64 words read as unsigned 64-bit and int32
 words as unsigned 32-bit — stably (tied rows keep their order); rows
-``n..N-1`` keep the identity. The fused route sorts twice with it: the
-parent join's declarations by ``(frame, span_id)`` and the trace layout by
-``(trace_id_hi, trace_id_lo, start_unix_nano)``, the two ``jnp.lexsort``
-calls of ``odigos_tpu/features/featurizer.py`` ``featurize_join_jax`` and
-``odigos_tpu/serving/fused.py`` ``_sorted_trace_layout``.
+``n..N-1`` keep the identity. The fused route sorts once a call with it:
+the trace layout by ``(trace_id_hi, trace_id_lo, start_unix_nano)``, the
+``jnp.lexsort`` of ``odigos_tpu/serving/fused.py``
+``_sorted_trace_layout``. (The plain join of
+``features.featurizer.featurize_join_torch`` sorts with
+:func:`radix_sort_plain`; on the card K5 joins by a hash table, no sort.)
 
 u64 columns travel as zero-copy ``np.int64`` views (``torch.uint64`` has
 partial op support); the kernel reads them as ``unsigned long long``, and

@@ -8,7 +8,8 @@ from .attrstore import (
     columnar_enabled,
     set_columnar_attrs,
 )
-from .gen import TraceShape, adversarial_traces, synthesize_traces
+from .gen import (TraceShape, adversarial_traces, join_stress_frames,
+                  synthesize_traces)
 from .spans import (
     SpanBatch,
     SpanBatchBuilder,
@@ -32,4 +33,5 @@ __all__ = [
     "TraceShape",
     "synthesize_traces",
     "adversarial_traces",
+    "join_stress_frames",
 ]

@@ -194,3 +194,35 @@ def adversarial_traces(n_traces: int, seed: int = 0,
     end[::13] = cols["start_unix_nano"][::13] - np.uint64(5)
     cols["end_unix_nano"] = end
     return replace(b, columns=cols)
+
+
+JOIN_STRESS_IDS = (0, (1 << 63) | 5)  # the span ids the stress frames share
+
+
+def join_stress_frames(n_traces: int, frames: int = 4,
+                       seed: int = 0) -> list[SpanBatch]:
+    """``frames`` requests of ``synthesize_traces`` (``n_traces`` among
+    them) bent toward the corners of K5's parent join (the port's own; the
+    JAX package has no such generator): every span of frame k declares
+    the one span id ``JOIN_STRESS_IDS[k % 2]`` (so one key has every row of
+    its frame, the same ids repeat across frames, and span id 0 is
+    declared), and the parents resolve nowhere but every eighth, which
+    names its own frame's id (the frame's first row is its parent; where
+    that id is 0 the span is a root whose parent service is still the
+    first row's). Every fifth parent names the other frames' id, declared
+    in the group but not in its own frame."""
+    out = []
+    for k in range(frames):
+        b = synthesize_traces(max(1, n_traces // frames), seed=seed + k)
+        cols = dict(b.columns)
+        own = np.uint64(JOIN_STRESS_IDS[k % 2])
+        other = np.uint64(JOIN_STRESS_IDS[(k + 1) % 2])
+        n = len(b)
+        cols["span_id"] = np.full(n, own, np.uint64)
+        par = np.full(n, np.uint64(ORPHAN_PARENT), np.uint64) ^ np.arange(
+            n, dtype=np.uint64)
+        par[::5] = other
+        par[::8] = own
+        cols["parent_span_id"] = par
+        out.append(replace(b, columns=cols))
+    return out

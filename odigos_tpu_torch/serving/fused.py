@@ -6,9 +6,10 @@ public names. A caller hands the engine a decoded frame's raw column views
 :func:`extract_columns`), and :class:`FusedSequenceBackend` scores a
 coalesced group of them with one non-blocking dispatch: the group's
 columns are staged side by side into one pinned host buffer and copied to
-the card in one copy, then hand-written kernels featurize (K6 sorts the
-join's declarations, K5 gathers, joins and assembles), sort the spans by
-trace and start (K6), pack them next-fit into ``(R, L)`` rows (K7), run the
+the card in one copy, then hand-written kernels featurize (K5 gathers,
+joins each span to its parent by a hash table on the card and
+assembles), sort the spans by trace and start (K6), pack them next-fit
+into ``(R, L)`` rows (K7), run the
 transformer (K2, K1 and the dense chain) and apply the final LayerNorm,
 span head and sigmoid at each real span, writing its score at its original
 index (K8). The autoencoder's chain is the same up to the sort; then K13
@@ -286,7 +287,7 @@ class FusedSequenceBackend(SequenceBackend):
 
     def fused_forward(self, staged: _Staged, n_real: int, R: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The device half of a fused call on staged columns: K6 + K5
+        """The device half of a fused call on staged columns: K5
         (featurize), K6 (trace order), then :meth:`pack_forward`. Returns
         ``((N,) scores in span order, (1,) rows filled)``."""
         c = staged.cols

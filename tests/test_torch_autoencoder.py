@@ -745,6 +745,194 @@ def test_trace_rows_pack_drops_rows_past_R_and_counts_every_trace():
                            cat[starts[r]:starts[r] + length])
 
 
+def _k13_fill_range(written, e0, e1, itemsize):
+    """``trace_pack.cu`` fill_range's stores over ``[e0, e1)`` of a flat
+    array 16-byte aligned at element 0: scalars up to the first 16-byte
+    boundary, whole aligned vectors, scalars past the last boundary. Each
+    element's store is counted in ``written``."""
+    V = 16 // itemsize
+    if e0 >= e1:
+        return
+    a0 = min(e1, -(-e0 // V) * V)
+    a1 = max(a0, e1 // V * V)
+    assert e0 <= a0 <= a1 <= e1 and a0 - e0 < V and e1 - a1 < V
+    if a0 < a1:  # vectors: aligned
+        assert a0 % V == 0 and a1 % V == 0
+    written[e0:a0] += 1
+    written[a0:a1] += 1  # (a1 - a0) / V vectors
+    written[a1:e1] += 1
+
+
+def k13_model(perm, hi, lo, cat, cont, n, L, R, block=kpack.ROWS_BLOCK):
+    """K13's two launches on the host. Layout: each sorted span's new-trace
+    flag, the trace-start bitmask by words of 32 and each block's count of
+    starts. Scatter, a thread a sorted span j of block b: its trace's
+    ordinal (b's prefix of the counts + the starts in b's earlier words +
+    its own word's starts up to j, less one) and its column (j less the
+    last start at or before j, looked for at most L spans back), its slot
+    written; each trace start finds the next start within L spans (its
+    trace's length) and its warp fills the rest of the row through
+    fill_range; the rows past the trace count are a zero fill. Returns the
+    four outputs and the trace count, and checks that every element is
+    stored exactly once."""
+    C, D = cat.shape[1], cont.shape[1]
+    catp = np.full(R * L * C, -7, np.int32)
+    contp = np.full(R * L * D, np.nan, np.float32)
+    maskp = np.full(R * L, 7, np.uint8)
+    smap = np.full(R * L, -7, np.int32)
+    written = [np.zeros(a.size, np.int64) for a in (catp, contp, maskp,
+                                                    smap)]
+    p = perm[:n]
+    h, lw = hi[p], lo[p]
+    fresh = np.ones(n, bool)
+    fresh[1:] = (h[1:] != h[:-1]) | (lw[1:] != lw[:-1])
+    nb = -(-n // block)
+    bits = np.zeros(nb * block, bool)
+    bits[:n] = fresh
+    words = [int(sum(1 << k for k in np.flatnonzero(bits[w * 32:w * 32 + 32])))
+             for w in range(nb * block // 32)]
+    per = block // 32
+    counts = [sum(bin(words[b * per + k]).count("1") for k in range(per))
+              for b in range(nb)]
+    tot = sum(counts)
+    rows = min(tot, R)
+    arrays = ((catp, C, 4, 0), (contp, D, 4, 0), (maskp, 1, 1, 0),
+              (smap, 1, 4, -1))
+
+    def high(x):  # the highest set bit
+        return x.bit_length() - 1
+
+    def low(x):  # the lowest set bit
+        return (x & -x).bit_length() - 1
+
+    for b in range(nb):
+        pre = sum(counts[:b])
+        for k in range(per):
+            wd = b * per + k
+            mw = words[wd]
+            before = pre + sum(bin(words[b * per + q]).count("1")
+                               for q in range(k))
+            starts = []  # (row, length) of the word's trace starts
+            for lane in range(32):
+                j = wd * 32 + lane
+                if j >= n:
+                    break
+                upto = mw & ((2 << lane) - 1)
+                r = before + bin(upto).count("1") - 1
+                c = L
+                if upto:
+                    c = lane - high(upto)
+                else:
+                    w = wd - 1
+                    while w >= 0 and j - (w * 32 + 31) < L:
+                        if words[w]:
+                            c = j - (w * 32 + high(words[w]))
+                            break
+                        w -= 1
+                if not (r < R and c < L):
+                    continue
+                idx = int(p[j])
+                e = r * L + c
+                for arr, cnt, val, width in ((catp, written[0], cat[idx], C),
+                                             (contp, written[1], cont[idx], D),
+                                             (maskp, written[2], 1, 1),
+                                             (smap, written[3], idx, 1)):
+                    arr[e * width:(e + 1) * width] = val
+                    cnt[e * width:(e + 1) * width] += 1
+                if c == 0:
+                    lim = min(j + L, n)
+                    nxt = lim
+                    after = mw & ~((2 << lane) - 1)
+                    if after:
+                        nxt = min(lim, wd * 32 + low(after))
+                    else:
+                        w = wd + 1
+                        while w * 32 < lim:
+                            if words[w]:
+                                nxt = min(lim, w * 32 + low(words[w]))
+                                break
+                            w += 1
+                    starts.append((r, nxt - j))
+            for r, length in starts:  # the warp fills each row's rest
+                for (arr, width, size, zero), cnt in zip(arrays, written):
+                    e0, e1 = (r * L + length) * width, (r + 1) * L * width
+                    _k13_fill_range(cnt, e0, e1, size)
+                    arr[e0:e1] = zero
+    for (arr, width, size, zero), cnt in zip(arrays, written):
+        e0, e1 = rows * L * width, R * L * width
+        _k13_fill_range(cnt, e0, e1, size)
+        arr[e0:e1] = zero
+    for cnt in written:
+        assert (cnt == 1).all()
+    return (catp.reshape(R, L, C), contp.reshape(R, L, D),
+            maskp.reshape(R, L).astype(bool), smap.reshape(R, L), tot)
+
+
+def _k13_frame(kind: str, n_traces: int, seed: int):
+    """A frame's trace ids, starts and features: the otel mix, the
+    adversarial frame (a 200-span trace, tied starts, high-bit ids) or
+    traces longer than L (six otel traces under one id)."""
+    from odigos_tpu_torch.pdata import adversarial_traces
+
+    b = (adversarial_traces if kind == "adversarial" else psynth)(
+        n_traces, seed=seed)
+    cols = b.columns
+    hi, lo = cols["trace_id_hi"], cols["trace_id_lo"]
+    if kind == "long":
+        _, tr = np.unique(np.stack([hi, lo], 1), axis=0, return_inverse=True)
+        hi = (tr.reshape(-1) // 6 + 1).astype(np.uint64)
+        lo = np.zeros_like(lo)
+    n = len(hi)
+    rng = np.random.default_rng(seed)
+    cat = rng.integers(-5, 600, (n, 5)).astype(np.int32)
+    cont = rng.normal(size=(n, 3)).astype(np.float32)
+    return hi, lo, cols["start_unix_nano"], cat, cont
+
+
+@pytest.mark.parametrize("rows", ["bucket", "traces", "fewer"])
+@pytest.mark.parametrize("L,kind,n_traces", [
+    (8, "otel", 300), (8, "long", 300), (64, "otel", 300),
+    (64, "adversarial", 300), (64, "long", 300), (1024, "otel", 30),
+    (1024, "adversarial", 40), (1024, "long", 40)])
+def test_k13_model_matches_trace_rows_pack_plain(L, kind, n_traces, rows):
+    """K13's layout counts, per-block prefixes and span-wise scatter, on
+    the host, give ``trace_rows_pack_plain``'s outputs exactly (traces longer
+    than L truncated, traces past R dropped, padding rows and columns
+    zero, -1 in the span map), with every element stored once; and the
+    trace count."""
+    hi, lo, start, cat, cont = _k13_frame(kind, n_traces, seed=L + n_traces)
+    n = len(hi)
+    N = n + 9
+    order = np.lexsort((start, lo, hi))
+    perm = np.concatenate([order, np.arange(n, N)]).astype(np.int32)
+
+    def pad(a):
+        return np.concatenate([a, np.zeros((N - n,) + a.shape[1:], a.dtype)])
+
+    hi64, lo64 = (pad(a).view(np.int64) for a in (hi, lo))
+    traces = len(np.unique(np.stack([hi, lo], 1), axis=0))
+    R = {"bucket": BucketLadder(64, 4).round_rows(n), "traces": traces,
+         "fewer": max(1, traces // 3)}[rows]
+    got = k13_model(perm, hi64, lo64, pad(cat), pad(cont), n, L, R)
+    want = kpack.trace_rows_pack_plain(
+        *(torch.from_numpy(a) for a in (perm, hi64, lo64, pad(cat),
+                                        pad(cont))), n, L, R)
+    for mine, ref in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(mine, ref.numpy())
+    assert got[4] == int(want.rows_used[0]) == traces
+    if kind in ("adversarial", "long"):  # some trace is longer than L
+        assert want.mask[:, -1].any() or L == 1024
+
+
+def test_k13_model_empty_group_is_all_padding():
+    z = np.zeros(16, np.int64)
+    catp, contp, maskp, smap, tot = k13_model(
+        np.arange(16, dtype=np.int32), z, z, np.ones((16, 5), np.int32),
+        np.ones((16, 3), np.float32), 0, 8, 5)
+    assert tot == 0 and not catp.any() and not contp.any()
+    assert not maskp.any() and (smap == -1).all()
+
+
 def test_wrappers_take_the_plain_version_on_the_cpu():
     _, _, pm = _pair(SMALL, f32=False, seed=10)
     seqs = _seqs(10, SMALL["max_len"], pad=16)

@@ -8,6 +8,8 @@
   cannot tell: ``tests/conftest.py`` imports jax).
 * Entry points default to CUDA and raise without it; ``chip_smoke.py``
   exits non-zero and prints no result where there is no card.
+* ``tools/torch_kernel_ablation.py``'s text edits find their anchors in
+  the kernels' current sources.
 """
 
 import ast
@@ -138,3 +140,30 @@ def test_kernel_build_is_keyed_by_source():
     assert "compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
+
+
+def _ablation_tool():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_ablation", ROOT / "tools" / "torch_kernel_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("kernel", sorted(_ablation_tool().VARIANTS))
+def test_ablation_variants_find_their_anchors(kernel):
+    """Every text edit of ``tools/torch_kernel_ablation.py`` finds its
+    anchor in the kernel's current source (a missing anchor fails the
+    tool's run on the card), and its launcher is the one the source
+    exports."""
+    from odigos_tpu_torch.kernels import build
+
+    tool = _ablation_tool()
+    source, launcher = tool.LAUNCHERS[kernel]
+    text = (build.CSRC / build.SOURCES[source]).read_text()
+    assert f'extern "C" int {launcher}(' in text
+    for variant, edits in tool.VARIANTS[kernel].items():
+        for anchor in edits:
+            assert anchor in text, (variant, anchor[:60])

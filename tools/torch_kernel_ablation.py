@@ -18,7 +18,14 @@ LN1 on the block's input; K15
 LN2 output; K6 ``radix_sort`` as the trace sort of the smoke run's otel
 frame at N = 65536; K7 ``next_fit_pack`` on that frame and at N = 131072,
 its launches and its walk's steps cut off in turn, and its launches
-without programmatic dependent launch; K11 ``recon_ce``'s
+without programmatic dependent launch; K5 ``featurize_columns`` on the
+otel, adversarial and join-stress frames at N = 4096, 65536 and 131072:
+the table's clear alone, the clear and the insert launch, no probe,
+every lane inserting, no programmatic dependent launch, no f64 log1p;
+K13 ``trace_rows_pack`` at R = 4096, 43008 (an engine call of 4096
+traces) and 63488: the layout launch alone, the zero fill alone, the
+real rows alone, scalar stores, no programmatic dependent launch;
+K11 ``recon_ce``'s
 bf16 kernel on the default autoencoder's decoder output at T = 256, 2048
 and 4096 traces (the last about a fused call's real positions): the
 compaction alone, no column tile, no LayerNorm, no plane loads, one
@@ -27,9 +34,7 @@ and duration dots; two CTAs an SM on 32-column stages; tiles of 256
 rows; every tile whole; K14 ``ln_bf16`` at LN1 (R = 256, 2048), at d
 128 (T = 2048) and with the fused transformer's row count: the bytes
 alone, no prefetch, a warp a row, streaming (evict-first) stores or
-loads, the parent's 4096-CTA grid; and its
-parent design ``ln_bf16_warp`` beside it: the bytes alone, one row in
-flight).
+loads, the parent's 4096-CTA grid).
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -211,6 +216,57 @@ VARIANTS = {
         # before it has ended (no programmatic dependent launch)
         "no_pdl": {"  cfg.numAttrs = 1;": "  cfg.numAttrs = 0;"},
     },
+    "featurize_columns": {
+        # the table's clear (a memset) alone: no insert, no probe
+        "clear_only": {
+            "    featurize_insert_kernel<<<":
+                "    if (false) featurize_insert_kernel<<<",
+            "  err = cudaLaunchKernelEx(\n      &cfg, featurize_probe_kernel,":
+                "  err = cudaSuccess;\n  if (false) err = cudaLaunchKernelEx("
+                "\n      &cfg, featurize_probe_kernel,"},
+        # the clear and the insert launch: no probe + assemble launch
+        "insert_only": {
+            "  err = cudaLaunchKernelEx(\n      &cfg, featurize_probe_kernel,":
+                "  err = cudaSuccess;\n  if (false) err = cudaLaunchKernelEx("
+                "\n      &cfg, featurize_probe_kernel,"},
+        # no probe: every parent not found (the inserts, the gathers, the
+        # duration and the stores as they are)
+        "no_probe": {"  for (bool more = true; more;) {":
+                     "  for (bool more = false; more;) {"},
+        # every lane inserts, not one a key a warp
+        "no_warp_dedup": {
+            "  if (!real || (__ffs(same) - 1) != lane) return;":
+                "  if (!real) return;"},
+        # the probe launched after the insert has ended (no programmatic
+        # dependent launch)
+        "no_pdl": {"  cfg.numAttrs = 1;": "  cfg.numAttrs = 0;"},
+        # no f64 log1p: the duration in microseconds rounded to f32
+        "no_log1p": {"  const float ld = __double2float_rn(log1p(us));":
+                     "  const float ld = __double2float_rn(us);"},
+    },
+    "trace_rows_pack": {
+        # the layout launch alone: no scatter
+        "layout_only": {
+            "  err = cudaLaunchKernelEx(\n      &cfg, rows_scatter_kernel,":
+                "  err = cudaSuccess;\n  if (false) err = cudaLaunchKernelEx("
+                "\n      &cfg, rows_scatter_kernel,"},
+        # the scatter writes no real row: the counts' sums and the zero fill
+        "fill_only": {"  const bool slot = in_block && r < R && c < L;":
+                      "  const bool slot = false;"},
+        # the scatter writes the real rows only: no zero fill
+        "no_fill": {
+            "  const long long all = (long long)gridDim.x * kThreads;":
+                "  return;\n  const long long all = (long long)gridDim.x * "
+                "kThreads;"},
+        # every store a scalar one (no 16-byte vectors)
+        "scalar_stores": {
+            "  const long long a0 = min(e1, (e0 + V - 1) / V * V);\n"
+            "  const long long a1 = max(a0, e1 / V * V);":
+                "  const long long a0 = e1;\n  const long long a1 = e1;"},
+        # the scatter launched after the layout has ended (no programmatic
+        # dependent launch; K7's launches likewise)
+        "no_pdl": {"  cfg.numAttrs = 1;": "  cfg.numAttrs = 0;"},
+    },
     "recon_ce": {
         # the compaction launch alone: the scoring kernel not launched
         "compact_only": {
@@ -316,15 +372,6 @@ VARIANTS = {
             "  if (units < grid) grid = (int)(units > 0 ? units : 1);":
                 "  grid = (int)(units < 4096 ? (units > 0 ? units : 1) "
                 ": 4096);"}},
-    "ln_bf16_warp": {
-        # the parent design's bytes alone: rows copied, no statistics
-        "loads_only": {
-            "      warp_ln_row<T, PER>(v[i], g, b, eps, y);":
-                "#pragma unroll\n      for (int j = 0; j < PER; ++j) "
-                "y[j] = load_f(v[i] + j);"},
-        # the parent design with one row in flight a warp
-        "one_row": {
-            "constexpr int kLnRows = 2;": "constexpr int kLnRows = 1;"}},
     "gemm_bf16": {
         # the TMA loads and the ring only: no products, no epilogue
         "loads_only": {
@@ -385,10 +432,11 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
              "ln_quantize": ("quant", "ln_quantize_launch"),
              "radix_sort": ("trace_sort", "radix_sort_launch"),
              "next_fit_pack": ("trace_pack", "next_fit_pack_launch"),
+             "featurize_columns": ("featurize", "featurize_launch"),
+             "trace_rows_pack": ("trace_pack", "trace_rows_pack_launch"),
              "recon_ce": ("recon_ce", "recon_ce_tc_launch"),
              "gemm_bf16": ("dense", "gemm_bf16_launch"),
-             "ln_bf16": ("dense", "ln_bf16_launch"),
-             "ln_bf16_warp": ("dense", "ln_bf16_warp_launch")}
+             "ln_bf16": ("dense", "ln_bf16_launch")}
 
 
 def build_variants(tmp: str, built: dict, names) -> dict:
@@ -463,17 +511,24 @@ def main() -> int:
     modules = {"segment_attention": attention, "span_embed": embed,
                "qgemm": qgemm, "qgemm_ffn1": qgemm, "ln_quantize": quant,
                "radix_sort": sort, "next_fit_pack": pack, "recon_ce": recon,
-               "gemm_bf16": dense, "ln_bf16": dense, "ln_bf16_warp": dense}
+               "gemm_bf16": dense, "ln_bf16": dense,
+               "featurize_columns": featurize, "trace_rows_pack": pack}
+    # a wrapper's launcher kept under its own names (getter, cache)
+    own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn")}
 
     def launcher(kname: str):
         m = modules[kname]
+        if kname in own:
+            return getattr(m, own[kname][0])()
         if hasattr(m, "_fns"):  # a library of several launchers
             return m._kernel(LAUNCHERS[kname][1])
         return m._kernel()
 
     def swap(kname: str, fn) -> None:
         m = modules[kname]
-        if hasattr(m, "_fns"):
+        if kname in own:
+            setattr(m, own[kname][1], fn)
+        elif hasattr(m, "_fns"):
             m._fns[LAUNCHERS[kname][1]] = fn
         else:
             m._fn = fn
@@ -534,10 +589,7 @@ def main() -> int:
                                                blk.ff1.bias, "gelu_tanh")),
                 ("ln_bf16", shape,
                  lambda x2=x2: dense.ln_bf16(x2, blk.ln1.weight,
-                                             blk.ln1.bias)),
-                ("ln_bf16_warp", shape,
-                 lambda x2=x2: dense.ln_bf16_warp(x2, blk.ln1.weight,
-                                                  blk.ln1.bias))]
+                                             blk.ln1.bias))]
         # K6's trace sort and K7 on the fused route's staged frames
         ladder = BucketLadder(256, 4)
         for N in (chip_smoke.FUSED_MAIN_N, max(chip_smoke.FUSED_N)):
@@ -559,6 +611,43 @@ def main() -> int:
                           R=R: pack.next_fit_pack(
                               perm, c["trace_id_hi"], c["trace_id_lo"],
                               fcat, fcont, n, cfg.max_len, R)))
+        # K5 on the smoke's otel, adversarial and stress frames (its hash
+        # join included); K13 at the autoencoder's fused R (one row a
+        # possible trace: R = 4096, an engine call of 4096 traces, the
+        # 65536-span bucket)
+        from odigos_tpu_torch.pdata import synthesize_traces
+
+        for kind in ("otel", "adversarial", "stress"):
+            for N in chip_smoke.FUSED_N:
+                n, svc_t, nam_t, c = chip_smoke._staged(
+                    chip_smoke._stress_frames(N) if kind == "stress"
+                    else chip_smoke._fused_frame(N, kind), dev)
+                fargs = (svc_t, nam_t, c["service"], c["name"], c["kind"],
+                         c["status_code"], c["span_id"], c["parent_span_id"],
+                         c["start_unix_nano"], c["end_unix_nano"],
+                         c["frame"])
+                cases.append(("featurize_columns",
+                              {"N": N, "n": n, "mix": kind},
+                              lambda fargs=fargs, n=n:
+                              featurize.featurize_columns(*fargs, n)))
+        for key, batch in (
+                ("otel_N4096", chip_smoke._fused_frame(4096, "otel")),
+                ("engine_call_4096_traces",
+                 synthesize_traces(4096, seed=301)),
+                ("otel_N65536", chip_smoke._fused_frame(65536, "otel"))):
+            n, svc_t, nam_t, c = chip_smoke._staged(batch, dev)
+            fcat, fcont = featurize.featurize_columns(
+                svc_t, nam_t, c["service"], c["name"], c["kind"],
+                c["status_code"], c["span_id"], c["parent_span_id"],
+                c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+            perm = sort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                                    c["start_unix_nano"]], n)
+            R = ladder.round_rows(n)
+            cases.append(("trace_rows_pack", {"frame": key, "n": n, "R": R},
+                          lambda perm=perm, c=c, fcat=fcat, fcont=fcont, n=n,
+                          R=R: pack.trace_rows_pack(
+                              perm, c["trace_id_hi"], c["trace_id_lo"],
+                              fcat, fcont, n, 64, R)))
         # K11 on the default autoencoder's decoder output (its parameters
         # made outside inference_mode: the planes are cached, as served)
         acfg = AutoencoderConfig()
@@ -582,15 +671,13 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(0)
         x128 = (torch.randn(2048 * 64, 128, generator=g, device=dev) * 3
                 + 1).to(torch.bfloat16)
-        for kn, fn in (("ln_bf16", dense.ln_bf16),
-                       ("ln_bf16_warp", dense.ln_bf16_warp)):
-            cases.append((kn, {"T": 2048, "d": 128},
-                          lambda fn=fn: fn(x128, ln.weight, ln.bias)))
-        from odigos_tpu_torch.features import featurize, pack_sequences
-        from odigos_tpu_torch.pdata import synthesize_traces
+        cases.append(("ln_bf16", {"T": 2048, "d": 128},
+                      lambda: dense.ln_bf16(x128, ln.weight, ln.bias)))
+        from odigos_tpu_torch.features import featurize as host_featurize
+        from odigos_tpu_torch.features import pack_sequences
 
         b4096 = synthesize_traces(4096, seed=103)
-        real = torch.tensor([pack_sequences(b4096, featurize(b4096),
+        real = torch.tensor([pack_sequences(b4096, host_featurize(b4096),
                                             max_len=64).n_rows],
                             dtype=torch.int32, device=dev)
         blk = enc.blocks[0]

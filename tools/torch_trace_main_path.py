@@ -28,12 +28,13 @@ prints one JSON line with:
 * the window's host wall time and the spans scored;
 * the card's busy time — the union of every kernel and copy interval the
   profiler saw — and the idle share of the window;
-* device time by category (K1 to K15, GEMMs, LayerNorm, GELU, copies,
-  other; K7's layout kernel also runs inside K13),
+* device time by category (K1 to K15, GEMMs, LayerNorm, GELU, copies
+  (the memset clearing K5's join table among them), other),
   each category's share of the busy time, and the top kernels by device
   time;
-* each hand-written kernel by name (K1-K15: K3, K7 and K13 are
-  several kernels each), with its launches and device ms per engine call;
+* each hand-written kernel by name (K1-K15: K3, K5, K7, K11 and K13
+  are several kernels each), with its launches and device ms per engine
+  call;
 * the engine's stage medians (pack stage, device stage).
 
 With ``--no-profile`` the same requests run without the profiler and the
@@ -61,11 +62,12 @@ CATEGORIES = (
     ("K2 span_embed", ("span_embed",)),
     ("K3 zscore_update", ("zscore_pass", "zscore_merge")),
     ("K4 zscore_score", ("zscore_score",)),
-    ("K5 featurize_columns", ("featurize_kernel",)),
+    ("K5 featurize_columns", ("featurize_insert_kernel",
+                              "featurize_probe_kernel")),
     ("K6 radix_sort", ("radix_sort_kernel",)),
-    ("K7 next_fit_pack", ("pack_walk_kernel", "pack_scatter_kernel")),
-    ("K7/K13 pack layout", ("pack_layout_kernel",)),
-    ("K13 trace_rows_pack", ("rows_scan_kernel", "rows_scatter_kernel")),
+    ("K7 next_fit_pack", ("pack_layout_kernel", "pack_walk_kernel",
+                          "pack_scatter_kernel")),
+    ("K13 trace_rows_pack", ("rows_layout_kernel", "rows_scatter_kernel")),
     ("K8 span_head_scatter", ("span_head_kernel",)),
     ("K9 ln_quantize", ("ln_quantize_kernel", "ln_quantize_row_kernel")),
     ("K10 qgemm", ("qgemm_s8_kernel", "qgemm_s8_quant_kernel",
@@ -75,7 +77,7 @@ CATEGORIES = (
                       "recon_tc_wide_kernel")),
     ("K12 ln_masked_pool", ("ln_masked_pool_kernel",
                             "ln_masked_pool_any_kernel")),
-    ("K14 ln_bf16", ("ln_rows_kernel", "ln_wide_kernel", "ln_warp_kernel")),
+    ("K14 ln_bf16", ("ln_rows_kernel", "ln_wide_kernel")),
     ("K15 gemm_bf16", ("gemm_tc_kernel", "gemm_f32_kernel")),
     ("GEMM", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "sm90_")),
     ("LayerNorm", ("layer_norm", "LayerNorm")),
