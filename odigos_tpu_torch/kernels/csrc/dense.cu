@@ -91,57 +91,8 @@
 namespace {
 
 // ------------------------------------------------------------------- K14
-// 16-byte vectors of T: EPV values each
-template <typename T>
-struct Vec {
-  static constexpr int EPV = 16 / (int)sizeof(T);
-};
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
-  v[0] = __uint_as_float(u.x);
-  v[1] = __uint_as_float(u.y);
-  v[2] = __uint_as_float(u.z);
-  v[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-// y already rounded to T's type: packing keeps its bits
-__device__ __forceinline__ uint4 pack(const float (&y)[4]) {
-  return make_uint4(__float_as_uint(y[0]), __float_as_uint(y[1]),
-                    __float_as_uint(y[2]), __float_as_uint(y[3]));
-}
-__device__ __forceinline__ uint4 pack(const float (&y)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w[i] = (__float_as_uint(y[2 * i]) >> 16) |
-           (__float_as_uint(y[2 * i + 1]) & 0xffff0000u);
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// f64 sum over the G lanes of an aligned group (xor offsets below G)
-template <int G>
-__device__ __forceinline__ double group_sum(double v) {
-#pragma unroll
-  for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// the rows K14 may touch: all of them, or live[0] * per (a device count,
-// read here so that the host never waits for it)
-__device__ __forceinline__ long long ln_row_limit(long long rows,
-                                                  const int* live, int per) {
-  if (live == nullptr) return rows;
-  const long long n = (long long)__ldg(live) * per;
-  return n < rows ? (n < 0 ? 0 : n) : rows;
-}
-
+// (16-byte vectors, group sums, the row count and the persistent grid are
+// ln_exact.cuh's, shared with K8 and K12)
 constexpr int kLnThreads = 256;
 constexpr int kLnWarps = kLnThreads / 32;
 
@@ -161,6 +112,7 @@ __global__ void __launch_bounds__(kLnThreads) ln_rows_kernel(
   const int sub = lane % G;
   const int nvec = d / EPV;
   const long long lim = ln_row_limit(rows, live, per);
+  const float inv_d = inv_pow2(d);
   float g[NV][EPV], b[NV][EPV];
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
@@ -190,26 +142,10 @@ __global__ void __launch_bounds__(kLnThreads) ln_rows_kernel(
       if (rn < lim && j * G + sub < nvec)
         nxt[j] = __ldg(xv + rn * nvec + j * G + sub);
     const bool mine = r < lim;
-    float v[NV][EPV];
-    double s = 0.0;
+    float v[NV][EPV], mean, rstd;
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      unpack(cur[j], v[j]);
-      if (mine && j * G + sub < nvec) {
-#pragma unroll
-        for (int e = 0; e < EPV; ++e) s += (double)v[j][e];
-      }
-    }
-    const float mean = __fdiv_rn((float)group_sum<G>(s), (float)d);
-    double q = 0.0;
-#pragma unroll
-    for (int j = 0; j < NV; ++j)
-      if (mine && j * G + sub < nvec) {
-#pragma unroll
-        for (int e = 0; e < EPV; ++e) q += ln_sq_dev(v[j][e], mean);
-      }
-    const float var = __fdiv_rn((float)group_sum<G>(q), (float)d);
-    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    for (int j = 0; j < NV; ++j) unpack(cur[j], v[j]);
+    group_ln_stats<G>(v, sub, nvec, d, inv_d, eps, &mean, &rstd);
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       if (!mine || j * G + sub >= nvec) continue;
@@ -302,37 +238,13 @@ __global__ void __launch_bounds__(kLnThreads) ln_wide_kernel(
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// the persistent grid of kernel k: SMs x the CTAs an SM holds, looked up
-// once a device (a static per instantiation)
-template <typename K>
-cudaError_t persistent_grid(K kernel, int (&cache)[kMaxDevices], int* grid) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && cache[dev] > 0) {
-    *grid = cache[dev];
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kLnThreads, 0);
-  if (e != cudaSuccess) return e;
-  *grid = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev < kMaxDevices) cache[dev] = *grid;
-  return cudaSuccess;
-}
-
 template <typename K, typename T>
 cudaError_t ln_go(K kernel, int (&cache)[kMaxDevices], const T* x,
                   const float* g, const float* b, float eps, long long rows,
                   int d, const int* live, int per, T* out, long long units,
                   cudaStream_t st) {
   int grid = 0;
-  cudaError_t e = persistent_grid(kernel, cache, &grid);
+  cudaError_t e = persistent_grid(kernel, kLnThreads, cache, &grid);
   if (e != cudaSuccess) return e;
   if (units < grid) grid = (int)(units > 0 ? units : 1);
   kernel<<<grid, kLnThreads, 0, st>>>(x, g, b, eps, rows, d, live, per, out);

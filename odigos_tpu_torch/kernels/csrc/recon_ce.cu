@@ -502,7 +502,7 @@ __device__ __forceinline__ void lse_add(float& m, float& s,
 }
 
 // Lists the real positions, and takes each one's LayerNorm statistics
-// (mean, 1 / std, the arithmetic of ln_exact.cuh's warp_ln_row: exact f64
+// (mean, 1 / std, the arithmetic of ln_exact.cuh: exact f64
 // sums, IEEE steps) at its list slot: once a position, eight lanes a row,
 // in a launch with every SM's warps in flight.
 template <int D>

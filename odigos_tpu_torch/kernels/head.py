@@ -3,19 +3,25 @@
 ``span_head_scatter(h, ln_weight, ln_bias, head_weight, head_bias, perm,
 row_eff, span_col, n)`` takes the encoder's ``(R, L, d)`` output BEFORE
 its final LayerNorm and, for each sorted index ``j < n`` whose row is
-below ``R``, evaluates the final LayerNorm (f32 statistics, eps 1e-6,
-output rounded to ``h``'s dtype as Flax's ``LayerNorm(dtype=bf16)`` does),
-the f32 ``d -> 1`` span head and the sigmoid at ``h[row_eff[j],
-span_col[j]]``, and writes the probability to ``out[perm[j]]``; every other
-entry of the ``(N,)`` f32 output is 0. That is
-``_TraceTransformerModule.span_head`` of ``odigos_tpu/models/transformer.py``
-fused with the inverse scatter of ``odigos_tpu/serving/fused.py``
-``_build_forward_packed._forward``.
+below ``R``, evaluates the final LayerNorm (K14's exact arithmetic: f64
+row sums rounded once, IEEE steps, eps 1e-6, output rounded to ``h``'s
+dtype as Flax's ``LayerNorm(dtype=bf16)`` does), the f32 ``d -> 1`` span
+head and the sigmoid at ``h[row_eff[j], span_col[j]]``, and writes the
+probability to ``out[perm[j]]``; every other entry of the ``(N,)`` f32
+output is 0. That is ``_TraceTransformerModule.span_head`` of
+``odigos_tpu/models/transformer.py`` fused with the inverse scatter of
+``odigos_tpu/serving/fused.py`` ``_build_forward_packed._forward``.
 
-A CUDA tensor launches ``csrc/span_head.cu`` (one warp per span; padding
-costs nothing) or raises; a CPU tensor takes :func:`span_head_scatter_plain`
-(the port's ``LayerNorm``, K14's exact arithmetic → ``span_head`` →
-sigmoid → ``index_put``).
+A CUDA tensor launches ``csrc/span_head.cu`` or raises; a CPU tensor takes
+:func:`span_head_scatter_plain` (the port's ``LayerNorm``, K14's exact
+arithmetic → ``span_head`` → sigmoid → ``index_put``). The kernel: a span
+on ``d / 8`` lanes (bf16; ``d / 4``, f32) as 16-byte vectors read once,
+several spans a warp at ``d <= 128`` bf16, the LayerNorm's and head's
+parameters held by each lane for the whole launch, a persistent grid
+whose warps load the next spans' indices and vectors before reducing the
+current ones; padding costs nothing. Its LayerNorm output has the plain
+version's bits, so the two differ only by the f32 head dot's summation
+order. It takes ``d % 8 == 0`` up to ``MAX_D`` and 16-byte aligned ``h``.
 ``launches`` counts the calls that launched.
 """
 
@@ -31,6 +37,7 @@ from . import build
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
+MAX_D = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -122,6 +129,11 @@ def span_head_scatter(h: torch.Tensor, ln_weight: torch.Tensor,
                                            span_col)):
         raise ValueError("span_head_scatter needs contiguous inputs")
     R, L, d = h.shape
+    if d % 8 or not 0 < d <= MAX_D:
+        raise ValueError(f"span_head_scatter takes d % 8 == 0 up to {MAX_D}, "
+                         f"not {d}")
+    if h.data_ptr() % 16:
+        raise ValueError("span_head_scatter needs h 16-byte aligned")
     N = perm.shape[0]
     out = torch.empty(N, dtype=torch.float32, device=dev)
     if N == 0:

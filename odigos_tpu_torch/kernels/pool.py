@@ -1,14 +1,18 @@
 """K12: the autoencoder's final LayerNorm + masked mean-pool.
 
-``ln_masked_pool(x, ln_weight, ln_bias, mask)`` takes the encoder's
-``(T, L, d)`` hidden state BEFORE its final LayerNorm and a ``(T, L)`` bool
-mask, and returns the ``(T, d)`` pooled trace vectors in ``x``'s type: the
-LayerNorm at each real position (f32 statistics, eps 1e-6, output rounded
-to the working type), summed over the real positions, the sum rounded to
-the working type and divided by ``max(mask.sum(-1), 1)`` in that type.
-That is ``final_ln`` of ``odigos_tpu/models/layers.py`` ``Encoder`` and the
-pool of ``odigos_tpu/models/autoencoder.py`` ``_AutoencoderModule``
-(:69-70).
+``ln_masked_pool(x, ln_weight, ln_bias, mask, eps, live=None)`` takes the
+encoder's ``(T, L, d)`` hidden state BEFORE its final LayerNorm and a
+``(T, L)`` bool mask, and returns the ``(T, d)`` pooled trace vectors in
+``x``'s type: the LayerNorm at each real position (f32 statistics, eps
+1e-6, output rounded to the working type), summed over the real
+positions, the sum rounded to the working type and divided by
+``max(mask.sum(-1), 1)`` in that type. That is ``final_ln`` of
+``odigos_tpu/models/layers.py`` ``Encoder`` and the pool of
+``odigos_tpu/models/autoencoder.py`` ``_AutoencoderModule`` (:69-70).
+``live`` (a ``(1,)`` int32 row count on the device: the fused route's
+trace count from K13) makes every row at or past ``live[0]`` a row of
+padding: it is written as zeros, and neither its mask nor its ``x`` is
+read (on the card the count is read there, with no host sync).
 
 Roundings: the LayerNorm is :func:`quant.layer_norm_plain`'s (row sums
 taken exactly in f64 and rounded once to f32), and the pool's sum is taken
@@ -16,15 +20,22 @@ in f64 and rounded to f32, then to the working type (``jnp.sum`` accumulates
 bf16 in f32 and rounds once), so the kernel and its plain version agree to
 the bit in any summation order.
 
-A CUDA tensor launches ``csrc/ae_pool.cu`` (one warp per trace, padding
-skipped; ``d % 8 == 0`` up to ``MAX_D``) or raises; a CPU tensor takes
-:func:`ln_masked_pool_plain`. ``launches`` counts the calls that launched.
+A CUDA tensor launches ``csrc/ae_pool.cu`` or raises; a CPU tensor takes
+:func:`ln_masked_pool_plain`. The kernel: a warp a trace on a persistent
+grid lists the trace's real positions from its mask row by ballots, then
+normalises them on K14's layout (16-byte vectors on ``d / 8`` lanes, bf16;
+``d / 4``, f32; several positions a warp at ``d <= 128`` bf16), the next
+positions' loads issued before the current ones are reduced; the rows past
+``live`` are zero-filled. It takes ``d % 8 == 0`` up to ``MAX_D`` and ``L``
+up to ``MAX_L``, 16-byte aligned ``x``. ``launches`` counts the calls that
+launched.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import torch
 
@@ -33,6 +44,7 @@ from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
 MAX_D = 1024
+MAX_L = 1024  # the kernel's list of a trace's real positions
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -42,12 +54,17 @@ _fn = None
 
 def ln_masked_pool_plain(x: torch.Tensor, ln_weight: torch.Tensor,
                          ln_bias: torch.Tensor, mask: torch.Tensor,
-                         eps: float = LN_EPS) -> torch.Tensor:
+                         eps: float = LN_EPS,
+                         live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: the LayerNorm at every position, then the
-    masked f64 sum, rounded, divided."""
+    masked f64 sum, rounded, divided; the rows at or past ``live[0]`` are
+    taken as padding (their values, whatever they hold, are not summed)."""
+    if live is not None:
+        rows = torch.arange(mask.shape[0], device=mask.device)
+        mask = mask & (rows < live.to(mask.device).long())[:, None]
     y = layer_norm_plain(x, ln_weight, ln_bias, eps)
-    m = mask.to(torch.float64)[..., None]
-    s = (y.double() * m).sum(-2).float().to(x.dtype)
+    y = torch.where(mask[..., None], y.double(), 0.0)
+    s = y.sum(-2).float().to(x.dtype)
     denom = mask.sum(-1, keepdim=True).clamp(min=1).float()
     return (s.float() / denom).to(x.dtype)
 
@@ -59,13 +76,13 @@ def _kernel():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _check(x, ln_weight, ln_bias, mask) -> None:
+def _check(x, ln_weight, ln_bias, mask, live) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (T, L, d), got {tuple(x.shape)}")
     T, L, d = x.shape
@@ -75,21 +92,26 @@ def _check(x, ln_weight, ln_bias, mask) -> None:
     if mask.shape != (T, L) or mask.dtype != torch.bool:
         raise ValueError(f"mask must be ({T}, {L}) bool, got "
                          f"{tuple(mask.shape)} {mask.dtype}")
-    devs = {t.device for t in (x, ln_weight, ln_bias, mask)}
+    if live is not None and (live.shape != (1,) or live.dtype != torch.int32):
+        raise ValueError(f"live must be (1,) int32, got {tuple(live.shape)} "
+                         f"{live.dtype}")
+    tensors = (x, ln_weight, ln_bias, mask) + (() if live is None else (live,))
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
 
 
 def ln_masked_pool(x: torch.Tensor, ln_weight: torch.Tensor,
                    ln_bias: torch.Tensor, mask: torch.Tensor,
-                   eps: float = LN_EPS) -> torch.Tensor:
+                   eps: float = LN_EPS,
+                   live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(T, d)`` pooled trace vectors; see the module docstring. Nothing
     is synchronised."""
     global launches
-    _check(x, ln_weight, ln_bias, mask)
+    _check(x, ln_weight, ln_bias, mask, live)
     dev = x.device
     if dev.type == "cpu":
-        return ln_masked_pool_plain(x, ln_weight, ln_bias, mask, eps)
+        return ln_masked_pool_plain(x, ln_weight, ln_bias, mask, eps, live)
     if dev.type != "cuda":
         raise ValueError(f"ln_masked_pool runs on cuda or cpu, not {dev}")
     if x.dtype not in _DTYPE_CODES:
@@ -100,8 +122,12 @@ def ln_masked_pool(x: torch.Tensor, ln_weight: torch.Tensor,
     if d % 8 or not 0 < d <= MAX_D:
         raise ValueError(f"ln_masked_pool takes d % 8 == 0 up to {MAX_D}, "
                          f"not {d}")
+    if L > MAX_L:
+        raise ValueError(f"ln_masked_pool takes L up to {MAX_L}, not {L}")
     if not all(t.is_contiguous() for t in (x, ln_weight, ln_bias, mask)):
         raise ValueError("ln_masked_pool needs contiguous inputs")
+    if x.data_ptr() % 16:
+        raise ValueError("ln_masked_pool needs x 16-byte aligned")
     out = torch.empty((T, d), dtype=x.dtype, device=dev)
     if T == 0:
         return out
@@ -109,7 +135,8 @@ def ln_masked_pool(x: torch.Tensor, ln_weight: torch.Tensor,
     with torch.cuda.device(dev):
         rc = fn(x.data_ptr(), _DTYPE_CODES[x.dtype], mask.data_ptr(),
                 ln_weight.data_ptr(), ln_bias.data_ptr(), eps, T, L, d,
-                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                None if live is None else live.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ln_masked_pool launch failed: CUDA error {rc}")
     with _count_lock:

@@ -183,7 +183,9 @@ class SpanAutoencoder:
                        mask: torch.Tensor, reference: bool,
                        live: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Encoder, K12 pool, bottleneck, latent projection plus
-        ``dec_pos_embed``: the ``(T·L, d)`` rows ``dec_ff1`` reads."""
+        ``dec_pos_embed``: the ``(T·L, d)`` rows ``dec_ff1`` reads. With
+        ``live`` (K13's trace count) K12 reads no row past it and writes
+        zeros there, so the bottleneck reads defined rows."""
         m = self.module
         T, L = mask.shape
         seg = mask.to(torch.int32).contiguous()
@@ -193,7 +195,7 @@ class SpanAutoencoder:
                       final_ln=False, live=live)
         pool = ln_masked_pool_plain if reference else ln_masked_pool
         ln = m.encoder.final_ln
-        pooled = pool(h, ln.weight, ln.bias, mask, ln.eps)
+        pooled = pool(h, ln.weight, ln.bias, mask, ln.eps, live=live)
         z = m.bottleneck(pooled)
         pos_e = m.dec_pos_embed.weight[:L].to(self.cfg.dtype)
         return (m.latent_proj(z)[:, None, :] + pos_e).reshape(T * L, -1)

@@ -372,6 +372,117 @@ def test_ln_masked_pool_plain_matches_the_reference_pool(f32):
     assert (got[3] == 0).all()
 
 
+@pytest.mark.parametrize("live", [0, 5, 12, 20])
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_ln_masked_pool_plain_with_a_row_count(f32, live):
+    """K12's plain version given K13's row count, on rows laid out as K13
+    and the host route lay them out (the traces' rows, then rows of
+    padding): equal to the plain version without the count, zero at every
+    row past it, whatever those rows hold (the encoder's plain path writes
+    NaN there)."""
+    seqs = _seqs(21, 16, n=12, pad=lambda t: 20)
+    T, L = seqs.mask.shape
+    assert T == 20 and not seqs.mask[12:].any()
+    rng = np.random.default_rng(21)
+    tdt = torch.float32 if f32 else torch.bfloat16
+    x = torch.from_numpy(rng.normal(0, 2, (T, L, 64)).astype(
+        np.float32)).to(tdt)
+    w = torch.from_numpy(rng.normal(1, 0.1, 64).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, 64).astype(np.float32))
+    mask = torch.from_numpy(seqs.mask)
+    count = torch.tensor([live], dtype=torch.int32)
+    free = kpool.ln_masked_pool_plain(x, w, b, mask)
+    if live >= 12:  # every trace below the count: the same rows
+        assert torch.equal(kpool.ln_masked_pool_plain(x, w, b, mask,
+                                                      live=count), free)
+    x[live:] = float("nan")
+    got = kpool.ln_masked_pool_plain(x, w, b, mask, live=count)
+    assert torch.equal(got[:live], free[:live])
+    assert (got[live:] == 0).all() and not got.isnan().any()
+    assert torch.equal(kpool.ln_masked_pool(x, w, b, mask, live=count), got)
+
+
+def k12_listing_model(row: np.ndarray, p0: int, words: bool) -> list:
+    """K12's list of a trace's real positions among mask bytes p0 .. p0 +
+    127 (list_real_positions): lane k reads bytes p0 + 4k .. p0 + 4k + 3
+    (one word when ``words``, else byte by byte up to L), four ballots
+    give each lane its count of real bytes in the lower lanes, and the
+    lane writes its real positions from there on."""
+    L = row.size
+    lane_bytes = []
+    for k in range(32):
+        p = p0 + 4 * k
+        if words:
+            lane_bytes.append([row[p + e] if p < L else 0 for e in range(4)])
+        else:
+            lane_bytes.append([row[p + e] if p + e < L else 0
+                               for e in range(4)])
+    bal = [[bool(lane_bytes[k][e]) for k in range(32)] for e in range(4)]
+    out = [None] * sum(sum(bl) for bl in bal)
+    for k in range(32):
+        at = sum(sum(bal[e][:k]) for e in range(4))
+        for e in range(4):
+            if lane_bytes[k][e]:
+                out[at] = p0 + 4 * k + e
+                at += 1
+    return out
+
+
+def k12_walk_model(n: int, G: int, S: int) -> list:
+    """The list slots K12's warp copies through its ring and reduces, in
+    order: steps of 32 / G positions (group g takes slot s * P + g), the
+    copies of step s + S - 1 issued before step s is reduced; a group
+    past n copies nothing and idles. Checks that a slot is reduced only
+    after its copy and from the ring stage it was copied into."""
+    P = 32 // G
+    steps = -(-n // P)
+    stage: dict = {}
+    done = []
+
+    def issue(s):
+        for g in range(P):
+            if s * P + g < n:
+                stage[s * P + g] = s % S
+
+    for s in range(S - 1):
+        issue(s)
+    for s in range(steps):
+        issue(s + S - 1)
+        for g in range(P):
+            i = s * P + g
+            if i < n:
+                assert stage.pop(i) == s % S
+                done.append(i)
+    assert not stage
+    return done
+
+
+@pytest.mark.parametrize("L", [1, 3, 8, 64, 130, 1024])
+@pytest.mark.parametrize("kind", ["prefix", "holes", "empty", "full"])
+def test_k12_model_lists_every_real_position_once(L, kind):
+    """The host model of K12's mask listing (128 positions a pass) and its
+    walk through the ring: every real position of a row listed once, in
+    order, with the word reads (L % 4 == 0) and the byte reads, and
+    reduced once at every group width and ring depth the launcher
+    picks."""
+    rng = np.random.default_rng(L)
+    row = {"prefix": np.arange(L) < rng.integers(0, L + 1),
+           "holes": rng.random(L) < 0.3,
+           "empty": np.zeros(L, bool),
+           "full": np.ones(L, bool)}[kind].astype(np.uint8)
+    want = list(np.flatnonzero(row))
+    for words in ([True, False] if L % 4 == 0 else [False]):
+        got = []
+        for p0 in range(0, L, 128):
+            part = k12_listing_model(row, p0, words)
+            for G, S in ((1, 4), (2, 4), (4, 4), (8, 4), (16, 4), (32, 4),
+                         (32, 2), (32, 1)):
+                assert k12_walk_model(len(part), G, S) == list(
+                    range(len(part)))
+            got += part
+        assert got == want
+
+
 def _jax_errors(v, cfg, dec, cat, cont, mask):
     """``SpanAutoencoder._errors`` from ``dec_ln`` on: the reference's own
     modules and ``_ce`` on the given decoder output."""

@@ -34,7 +34,14 @@ and duration dots; two CTAs an SM on 32-column stages; tiles of 256
 rows; every tile whole; K14 ``ln_bf16`` at LN1 (R = 256, 2048), at d
 128 (T = 2048) and with the fused transformer's row count: the bytes
 alone, no prefetch, a warp a row, streaming (evict-first) stores or
-loads, the parent's 4096-CTA grid).
+loads, the parent's 4096-CTA grid; K12 ``ln_masked_pool`` on the default
+autoencoder's pre-LN state at T = 256 and 2048 and at an engine call's
+shape (4096 traces packed by K13, with its count): the bytes alone, a
+ring of 1, 2 or 8 stages (not 4), a position a warp, without the count,
+the mask listing alone; K8 ``span_head_scatter`` on the default
+transformer's encoder output at N = 4096, 65536 and 131072: the bytes
+alone, no prefetch, a span a warp, two vectors a lane at d 256, f32
+statistics in place of the exact LayerNorm).
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -372,6 +379,84 @@ VARIANTS = {
             "  if (units < grid) grid = (int)(units > 0 ? units : 1);":
                 "  grid = (int)(units < 4096 ? (units > 0 ? units : 1) "
                 ": 4096);"}},
+    "ln_masked_pool": {
+        # the mask listing and the real positions' loads, summed raw: no
+        # statistics, no LayerNorm (the bytes alone)
+        "loads_only": {
+            "        group_ln_stats<G>(v, sub, nvec, d, inv_d, eps, &mean, "
+            "&rstd);":
+                "        mean = 0.f, rstd = 1.f;",
+            "            acc[j][e] += (double)ln_out(v[j][e], mean, rstd, gg, "
+            "bb, x);":
+                "            acc[j][e] += (double)v[j][e];"},
+        # no ring: each step's vectors copied, then waited for (one stage)
+        "ring_1": {", 1, 4)\n": ", 1, 1)\n"},
+        # two and eight ring stages (not four) at one vector a lane
+        "ring_2": {", 1, 4)\n": ", 1, 2)\n"},
+        "ring_8": {", 1, 4)\n": ", 1, 8)\n"},
+        # a position a warp at every width (the parent's layout: lanes
+        # past the row's vectors idle)
+        "position_a_warp": {
+            "  if (nvec <= 1) POOL(1, 1, 4)\n  if (nvec <= 2) POOL(2, 1, 4)\n"
+            "  if (nvec <= 4) POOL(4, 1, 4)\n  if (nvec <= 8) POOL(8, 1, 4)\n"
+            "  if (nvec <= 16) POOL(16, 1, 4)\n": ""},
+        # without the device row count: every row's mask listed and
+        # pooled (the padding rows' empty masks give the zeros)
+        "no_live": {
+            "  const long long lim = ln_row_limit(rows, live, 1);":
+                "  const long long lim = ln_row_limit(rows, nullptr, 1);"},
+        # the mask listing and the output stores only: no position read
+        "list_only": {"      const int steps = (n + P - 1) / P;":
+                      "      const int steps = 0;"},
+    },
+    "span_head_scatter": {
+        # the indices and vectors loaded, the raw dot: no statistics, no
+        # LayerNorm (the bytes alone)
+        "loads_only": {
+            "    group_ln_stats<G>(v, sub, nvec, d, inv_d, eps, &mean, "
+            "&rstd);":
+                "    mean = 0.f, rstd = 1.f;",
+            "        z = fmaf(ln_out(v[k][e], mean, rstd, gg, bb, h), ww, z);":
+                "        z = fmaf(v[k][e], ww, z);"},
+        # the next step's indices and vectors loaded after the current
+        # one is reduced
+        "no_prefetch": {
+            "    load_vec(nxt, row_n, prm_n);    // the next step's vectors,\n"
+            "    load_idx(j + 2 * stride);       // the one after's indices, "
+            "first\n": "",
+            "    row_c = row_n;\n    prm_c = prm_n;\n#pragma unroll\n"
+            "    for (int k = 0; k < NV; ++k) cur[k] = nxt[k];":
+                "    load_idx(j + stride);\n    load_vec(cur, row_c, prm_c);"},
+        # a span a warp at every width (the parent's layout)
+        "span_a_warp": {
+            "  if (nvec <= 1) HEAD(1, 1)\n  if (nvec <= 2) HEAD(2, 1)\n"
+            "  if (nvec <= 4) HEAD(4, 1)\n  if (nvec <= 8) HEAD(8, 1)\n"
+            "  if (nvec <= 16) HEAD(16, 1)\n": ""},
+        # two spans a warp at d 256 (16 lanes of two vectors each)
+        "two_vectors_a_lane": {"  if (nvec <= 32) HEAD(32, 1)":
+                               "  if (nvec <= 32) HEAD(16, 2)"},
+        # f32 statistics (sums in f32, rsqrtf) in place of the exact
+        # LayerNorm
+        "f32_stats": {
+            "    group_ln_stats<G>(v, sub, nvec, d, inv_d, eps, &mean, "
+            "&rstd);":
+                "    {\n"
+                "      float s = 0.f, q = 0.f;\n"
+                "      for (int k = 0; k < NV; ++k)\n"
+                "        if (k * G + sub < nvec)\n"
+                "          for (int e = 0; e < EPV; ++e) s += v[k][e];\n"
+                "      for (int o = G / 2; o; o >>= 1)\n"
+                "        s += __shfl_xor_sync(0xffffffffu, s, o);\n"
+                "      mean = s / (float)d;\n"
+                "      for (int k = 0; k < NV; ++k)\n"
+                "        if (k * G + sub < nvec)\n"
+                "          for (int e = 0; e < EPV; ++e) {\n"
+                "            const float t = v[k][e] - mean;\n"
+                "            q = fmaf(t, t, q);\n          }\n"
+                "      for (int o = G / 2; o; o >>= 1)\n"
+                "        q += __shfl_xor_sync(0xffffffffu, q, o);\n"
+                "      rstd = rsqrtf(q / (float)d + eps);\n    }"},
+    },
     "gemm_bf16": {
         # the TMA loads and the ring only: no products, no epilogue
         "loads_only": {
@@ -436,7 +521,9 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
              "trace_rows_pack": ("trace_pack", "trace_rows_pack_launch"),
              "recon_ce": ("recon_ce", "recon_ce_tc_launch"),
              "gemm_bf16": ("dense", "gemm_bf16_launch"),
-             "ln_bf16": ("dense", "ln_bf16_launch")}
+             "ln_bf16": ("dense", "ln_bf16_launch"),
+             "ln_masked_pool": ("ae_pool", "ln_masked_pool_launch"),
+             "span_head_scatter": ("span_head", "span_head_launch")}
 
 
 def build_variants(tmp: str, built: dict, names) -> dict:
@@ -494,8 +581,8 @@ def main() -> int:
         return 1
     import chip_smoke
     from odigos_tpu_torch.kernels import (attention, build, dense, embed,
-                                          featurize, pack, qgemm, quant,
-                                          recon, sort)
+                                          featurize, head, pack, pool,
+                                          qgemm, quant, recon, sort)
     from odigos_tpu_torch.models import (AutoencoderConfig,
                                          QuantizedTraceScorer,
                                          SpanAutoencoder, TraceTransformer,
@@ -512,7 +599,8 @@ def main() -> int:
                "qgemm": qgemm, "qgemm_ffn1": qgemm, "ln_quantize": quant,
                "radix_sort": sort, "next_fit_pack": pack, "recon_ce": recon,
                "gemm_bf16": dense, "ln_bf16": dense,
-               "featurize_columns": featurize, "trace_rows_pack": pack}
+               "featurize_columns": featurize, "trace_rows_pack": pack,
+               "ln_masked_pool": pool, "span_head_scatter": head}
     # a wrapper's launcher kept under its own names (getter, cache)
     own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn")}
 
@@ -665,6 +753,65 @@ def main() -> int:
             cases.append(("recon_ce", {"T": T},
                           lambda rargs=rargs: recon.recon_ce(
                               *rargs, planes=m.head_planes())))
+        # K12 on the encoder's pre-LN state at T = 256 and 2048, and at an
+        # engine call's shape (4096 traces packed by K13 into round_rows(n)
+        # rows, with K13's count)
+        enc_ae = m.encoder
+        fl = enc_ae.final_ln
+        Lae = acfg.max_len
+        for T in chip_smoke.AE_T:
+            cat, cont, mask = chip_smoke._ae_rows(T, dev)
+            pos = torch.arange(Lae, dtype=torch.int32, device=dev).expand(
+                T, Lae).contiguous()
+            h = enc_ae(cat, cont, pos, mask.to(torch.int32), final_ln=False)
+            cases.append(("ln_masked_pool", {"T": T},
+                          lambda h=h, mask=mask: pool.ln_masked_pool(
+                              h, fl.weight, fl.bias, mask, fl.eps)))
+        n, svc_t, nam_t, c = chip_smoke._staged(
+            synthesize_traces(4096, seed=301), dev)
+        fcat, fcont = featurize.featurize_columns(
+            svc_t, nam_t, c["service"], c["name"], c["kind"],
+            c["status_code"], c["span_id"], c["parent_span_id"],
+            c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+        perm = sort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                                c["start_unix_nano"]], n)
+        R = ladder.round_rows(n)
+        tr = pack.trace_rows_pack(perm, c["trace_id_hi"], c["trace_id_lo"],
+                                  fcat, fcont, n, Lae, R)
+        pos = torch.arange(Lae, dtype=torch.int32, device=dev).expand(
+            R, Lae).contiguous()
+        h_eng = enc_ae(tr.categorical, tr.continuous, pos,
+                       tr.mask.to(torch.int32), final_ln=False,
+                       live=tr.rows_used)
+        cases.append(("ln_masked_pool", {"R": R, "live": True},
+                      lambda: pool.ln_masked_pool(h_eng, fl.weight, fl.bias,
+                                                  tr.mask, fl.eps,
+                                                  live=tr.rows_used)))
+        # K8 on the default transformer's encoder output over next-fit's
+        # rows at the span buckets (chip_smoke phase 7's inputs)
+        tmodel = TraceTransformer(cfg, device=dev, seed=0)
+        tenc = tmodel.module.encoder
+        for N in chip_smoke.FUSED_N:
+            n, svc_t, nam_t, c = chip_smoke._staged(
+                chip_smoke._fused_frame(N, "otel"), dev)
+            fcat, fcont = featurize.featurize_columns(
+                svc_t, nam_t, c["service"], c["name"], c["kind"],
+                c["status_code"], c["span_id"], c["parent_span_id"],
+                c["start_unix_nano"], c["end_unix_nano"], c["frame"], n)
+            perm = sort.radix_sort([c["trace_id_hi"], c["trace_id_lo"],
+                                    c["start_unix_nano"]], n)
+            R = ladder.round_rows(2 * n // cfg.max_len + 2)
+            pk = pack.next_fit_pack(perm, c["trace_id_hi"], c["trace_id_lo"],
+                                    fcat, fcont, n, cfg.max_len, R)
+            h = tenc(pk.categorical, pk.continuous, pk.positions,
+                     pk.segments, final_ln=False)
+            hargs = (h, tenc.final_ln.weight, tenc.final_ln.bias,
+                     tmodel.module.span_head.weight,
+                     tmodel.module.span_head.bias, perm, pk.row_eff,
+                     pk.span_col, n)
+            cases.append(("span_head_scatter", {"N": N, "n": n, "R": R},
+                          lambda hargs=hargs: head.span_head_scatter(
+                              *hargs)))
         # K14 at the autoencoder's d 128 (T = 2048), and at the fused
         # transformer's R = 2048 rows with next-fit's real rows as the count
         ln = m.encoder.blocks[0].ln1
