@@ -42,19 +42,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed beside), with the same times and bound as phase 3,
    ``F.layer_norm`` / ``F.linear`` as the library call, and each step's
    time over its bound and over the library call's;
-4. zscore kernels — K3 ``zscore_update`` and K4 ``zscore_score`` held
-   against their plain versions on the card at N = 4096, 65536 and 131072
-   spans, G = 8192 groups, with the otel-demo mix of synthetic traffic and
-   with every span in one group (the worst contention); the same times and
-   bound as phase 3;
+4. zscore kernels — K3 and K4, one kernel with its parts switchable:
+   ``zscore_score_update`` (K4 then K3 in one launch, in place on the
+   engine's staged (n, 2) ids: what an engine call launches), and
+   ``zscore_update`` and ``zscore_score`` (its update alone, its score
+   alone) held against their plain versions on the card at N = 4096,
+   65536 and 131072 spans, G = 8192 groups, with the otel-demo mix of
+   synthetic traffic and with every span in one group (the worst
+   contention), the scratch back to 0 after each, the cases bit-equal to
+   the plain version counted; the one launch also at G = 20000 (the
+   global route), and once each at 300,000 spans (G 8192) and 1,200,000
+   (G 20000), where a thread takes more spans than it holds in
+   registers; score only (``update=False``, the engine without
+   online_update, into a buffer whose cold word the caller zeroed); the
+   same times and bound as phase 3 (the one launch's bound: 12 bytes a
+   span in, 4 out, the state of the groups present gathered and written,
+   the count; the out-of-place update reads and writes the whole
+   state);
 5. zscore path — the port's sidecar serving the default model, zscore, on
    the card at full size (G 8192, min_count 32, coalescing cap 65536
    spans, every span bucket warmed): WARMUP with 400 normal traces, SCORE
    requests of 64 to 8192 traces and one batch with a 50x duration spike
    in one span; the spike must score >= 0.6, every score lie in [0, 1],
-   each engine call launch K3 and K4 once, the engine run at depth 1, and
-   a replay of the same stream through the port on the CPU (the plain
-   versions) agree with the card's scores;
+   each engine call run K3 and K4 once in ONE device launch and stage 12
+   bytes a real span host → device, and 4 for the cold count's zero
+   (recorded a call), the engine run at
+   depth 1, and a replay of the same stream through the port on the CPU
+   (the plain versions) agree with the card's scores;
 6. transformer path — the port's sidecar serving the flagship transformer
    at its default full-width bf16 config on the card: PING, WARMUP and
    SCORE
@@ -199,6 +213,7 @@ ZS_M2_RTOL = 1e-4               # land one f32 step apart (the reference's
 ZS_M2_ATOL = 1e-4               # streaming bound: 1e-4, 1e-3 / 1e-3)
 ZS_Z_RTOL = 1e-6                # K4 vs plain: the same IEEE-rounded ops
 ZS_CPU_BOUND = 1e-5             # zscore path, card vs CPU replay, scores
+ZS_GLOBAL_G = 20000             # the sums past shared memory: global route
 SPIKE_FACTOR, SPIKE_MIN = 50, 0.6
 
 FUSED_N = (4096, 65536, 131072)  # K5-K8 shapes: span buckets
@@ -967,7 +982,31 @@ def _zs_mixes(n_max: int):
     return {"otel": otel, "single": single}
 
 
+def _zs_state_check(got, ref, what: str) -> bool:
+    """The stated bounds on a state against the plain version's; returns
+    whether it is bit-equal."""
+    import torch
+
+    check(torch.equal(got[0], ref[0]), f"{what}: count differs")
+    d_mean = (got[1] - ref[1]).abs().max().item()
+    m2_excess = ((got[2] - ref[2]).abs() - ZS_M2_RTOL
+                 * ref[2].abs()).max().item()
+    check(d_mean <= ZS_MEAN_ATOL and m2_excess <= ZS_M2_ATOL,
+          f"{what}: |mean diff| {d_mean}, m2 beyond rtol by {m2_excess}")
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def _zs_scores_check(z, z_p, what: str) -> float:
+    """z or scores within ZS_Z_RTOL of the plain version's (relative to
+    max(1, |plain|)); returns the largest such difference."""
+    d = ((z - z_p).abs() / z_p.abs().clamp(min=1)).max().item() \
+        if z.numel() else 0.0
+    check(d <= ZS_Z_RTOL, f"{what}: rel diff {d}")
+    return d
+
+
 def phase_zscore_kernels(card: str) -> dict:
+    import numpy as np
     import torch
 
     from odigos_tpu_torch.kernels import zscore
@@ -979,82 +1018,176 @@ def phase_zscore_kernels(card: str) -> dict:
         scratch_l2.zero_()
 
     mixes = _zs_mixes(max(ZS_N))
-    # a non-empty state: a plain update of 20000 otel-demo spans
     cat0, x0 = (torch.from_numpy(a[:20000]).to(dev) for a in mixes["otel"])
-    zero = [torch.zeros(ZS_G, device=dev) for _ in range(3)]
-    state = zscore.zscore_update_plain(*zero, cat0, x0, torch.ones_like(x0),
-                                       ZS_G)
     check(zscore.update_route(ZS_G) == "shared",
           "zscore G=8192 not on the shared-memory route")
-    sums = zscore.new_scratch(ZS_G, dev)
+    check(zscore.update_route(ZS_GLOBAL_G) == "global",
+          f"zscore G={ZS_GLOBAL_G} not on the global route")
     results: dict = {}
-    for mix, (cat_np, x_np) in mixes.items():
-        for N in ZS_N:
-            cat = torch.from_numpy(cat_np[:N]).to(dev)
-            x = torch.from_numpy(x_np[:N]).to(dev)
-            w = torch.ones_like(x)
-            C = cat.shape[1]
+    bit_equal = {"cases": 0, "state": 0, "scores": 0}
+    for G in (ZS_G, ZS_GLOBAL_G):
+        # a non-empty state: a plain update of 20000 otel-demo spans
+        zero = [torch.zeros(G, device=dev) for _ in range(3)]
+        state = zscore.zscore_update_plain(*zero, cat0, x0,
+                                           torch.ones_like(x0), G)
+        sums = zscore.new_scratch(G, dev)
+        for mix, (cat_np, x_np) in mixes.items():
+            for N in ZS_N:
+                cat = torch.from_numpy(cat_np[:N]).to(dev)
+                ids = cat[:, :2].contiguous()  # what the engine stages
+                x = torch.from_numpy(x_np[:N]).to(dev)
+                w = torch.ones_like(x)
+                C = cat.shape[1]
+                tag = f"N={N} {mix} G={G}"
+                own = [t.clone() for t in state]
+                # the scores and the cold count into a buffer whose cold
+                # word the caller zeroed, as the engine's staging does
+                out34 = torch.zeros(N + 1, device=dev)
 
-            def k3():
-                return zscore.zscore_update(*state, cat, x, w, ZS_G,
-                                            scratch=sums)
+                def k34(own=own, ids=ids, x=x, G=G, sums=sums, out=out34):
+                    return zscore.zscore_score_update(
+                        *own, ids, x, G, ZS_MIN_COUNT, scratch=sums,
+                        inplace=True, out=out)
 
-            def k3_plain():
-                return zscore.zscore_update_plain(*state, cat, x, w, ZS_G)
+                def k34_plain(ids=ids, x=x, G=G):
+                    return zscore.zscore_score_update_plain(
+                        *state, ids, x, G, ZS_MIN_COUNT)
 
-            def k4():
-                return zscore.zscore_score(*state, cat, x, ZS_G,
-                                           ZS_MIN_COUNT, squash=True)
+                r, (st_p, sc_p, cold_p) = k34(), k34_plain()
+                torch.cuda.synchronize()
+                check(not sums.any(), f"zscore_score_update {tag}: "
+                                      f"scratch not back to 0")
+                same_state = _zs_state_check(r.state, st_p,
+                                             f"zscore_score_update {tag}")
+                d34 = _zs_scores_check(r.scores, sc_p,
+                                       f"zscore_score_update {tag} scores")
+                check(int(r.cold) == int(cold_p),
+                      f"zscore_score_update {tag}: cold {int(r.cold)} vs "
+                      f"{int(cold_p)}")
+                bit_equal["cases"] += 1
+                bit_equal["state"] += same_state
+                bit_equal["scores"] += bool(torch.equal(r.scores, sc_p))
+                groups = int(torch.unique(zscore.group_ids(cat, G)).numel())
+                # one launch in place: ids and durations in (12 B a span),
+                # scores out (4 B), the state of the groups present
+                # gathered (12 B a group) and of the groups touched (all
+                # of them: weights of 1) written, the cold count
+                b34 = N * (12 + 4) + groups * (12 + 12) + 4
+                f34 = 18 * N + 10 * groups
+                # score only, as the engine without online_update calls
+                # it: into a buffer whose cold word the caller zeroed (the
+                # engine's host-to-device copy does)
+                out = torch.zeros(N + 1, device=dev)
 
-            def k4_plain():
-                z = zscore.zscore_score_plain(*state, cat, x, ZS_G,
-                                              ZS_MIN_COUNT)
-                return z, zscore.squash_plain(z), (z == 0).sum()
+                def k4s(ids=ids, x=x, G=G, out=out):
+                    return zscore.zscore_score_update(
+                        *state, ids, x, G, ZS_MIN_COUNT, update=False,
+                        out=out)
 
-            got, ref = k3(), k3_plain()
-            (z, sc, cold), (z_p, sc_p, cold_p) = k4(), k4_plain()
-            torch.cuda.synchronize()
-            check(not sums.any(), f"zscore_update N={N} {mix}: scratch "
-                                  f"not back to 0")
-            check(torch.equal(got[0], ref[0]),
-                  f"zscore_update N={N} {mix}: count differs")
-            d_mean = (got[1] - ref[1]).abs().max().item()
-            m2_excess = ((got[2] - ref[2]).abs() - ZS_M2_RTOL
-                         * ref[2].abs()).max().item()
-            check(d_mean <= ZS_MEAN_ATOL and m2_excess <= ZS_M2_ATOL,
-                  f"zscore_update N={N} {mix}: |mean diff| {d_mean}, m2 "
-                  f"beyond rtol by {m2_excess}")
-            k3_diff = max((a - b).abs().max().item()
-                          for a, b in zip(got, ref))
-            dz = ((z - z_p).abs() / z_p.abs().clamp(min=1)).max().item()
-            ds = (sc - sc_p).abs().max().item()
-            check(dz <= ZS_Z_RTOL and ds <= ZS_Z_RTOL
-                  and int(cold) == int(cold_p),
-                  f"zscore_score N={N} {mix}: z rel diff {dz}, score diff "
-                  f"{ds}, cold {int(cold)} vs {int(cold_p)}")
-            groups = int(torch.unique(zscore.group_ids(cat, ZS_G)).numel())
-            # bytes the functions need: ids (2 columns), durations and
-            # weights once; K3 reads and writes the whole state (it is
-            # out of place), K4 gathers the state of the groups present
-            # and writes z and the score
-            k3_bytes = N * (8 + 4 + 4) + 2 * 3 * ZS_G * 4
-            k3_flops = 8 * N + 10 * ZS_G
-            k4_bytes = N * (8 + 4) + groups * 12 + N * 8 + 4
-            k4_flops = 10 * N
-            for name, fn, plain, nb, fl, diff in (
-                    ("zscore_update", k3, k3_plain, k3_bytes, k3_flops,
-                     k3_diff),
-                    ("zscore_score", k4, k4_plain, k4_bytes, k4_flops,
-                     max(dz, ds))):
-                b_ms, b_by = bound(nb, fl, F32_FLOPS)
-                results[(name, mix, N)] = {
-                    "name": name, "mix": mix, "N": N, "G": ZS_G, "C": C,
-                    "groups_present": groups, "max_abs_diff": diff,
-                    **timings(fn, plain, None, flush),
-                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
-                    "flops": fl}
+                def k4s_plain(ids=ids, x=x, G=G):
+                    z = zscore.zscore_score_plain(*state, ids, x, G,
+                                                  ZS_MIN_COUNT)
+                    return zscore.squash_plain(z), (z == 0).sum()
+
+                only, (sc_o, cold_o) = k4s(), k4s_plain()
+                torch.cuda.synchronize()
+                d4s = _zs_scores_check(only.scores, sc_o,
+                                       f"score only {tag} scores")
+                check(int(only.cold) == int(cold_o),
+                      f"score only {tag}: cold {int(only.cold)} vs "
+                      f"{int(cold_o)}")
+                b4s = N * (12 + 4) + groups * 12 + 4
+                cases = [("zscore_score_update", k34, k34_plain, b34, f34,
+                          max(d34, max((a - b).abs().max().item()
+                                       for a, b in zip(r.state, st_p)))),
+                         ("zscore_score_only", k4s, k4s_plain, b4s,
+                          10 * N, d4s)]
+                if G == ZS_G:
+                    def k3(cat=cat, x=x, w=w):
+                        return zscore.zscore_update(*state, cat, x, w, ZS_G,
+                                                    scratch=sums)
+
+                    def k3_plain(cat=cat, x=x, w=w):
+                        return zscore.zscore_update_plain(*state, cat, x, w,
+                                                          ZS_G)
+
+                    def k4(cat=cat, x=x):
+                        return zscore.zscore_score(*state, cat, x, ZS_G,
+                                                   ZS_MIN_COUNT, squash=True)
+
+                    def k4_plain(cat=cat, x=x):
+                        z = zscore.zscore_score_plain(*state, cat, x, ZS_G,
+                                                      ZS_MIN_COUNT)
+                        return z, zscore.squash_plain(z), (z == 0).sum()
+
+                    got, ref = k3(), k3_plain()
+                    (z, sc, cold), (z_p, sc_p4, cold_p4) = k4(), k4_plain()
+                    torch.cuda.synchronize()
+                    check(not sums.any(), f"zscore_update {tag}: scratch "
+                                          f"not back to 0")
+                    _zs_state_check(got, ref, f"zscore_update {tag}")
+                    k3_diff = max((a - b).abs().max().item()
+                                  for a, b in zip(got, ref))
+                    dz = max(_zs_scores_check(z, z_p, f"zscore_score {tag}"),
+                             _zs_scores_check(sc, sc_p4,
+                                              f"zscore_score {tag} scores"))
+                    check(int(cold) == int(cold_p4),
+                          f"zscore_score {tag}: cold {int(cold)} vs "
+                          f"{int(cold_p4)}")
+                    # ids (2 columns), durations and weights once; the
+                    # update reads and writes the whole state (out of
+                    # place), the score gathers the groups present and
+                    # writes z, the score and the count
+                    k3_bytes = N * (8 + 4 + 4) + 2 * 3 * ZS_G * 4
+                    k3_flops = 8 * N + 10 * ZS_G
+                    k4_bytes = N * (8 + 4) + groups * 12 + N * 8 + 4
+                    k4_flops = 10 * N
+                    cases += [("zscore_update", k3, k3_plain, k3_bytes,
+                               k3_flops, k3_diff),
+                              ("zscore_score", k4, k4_plain, k4_bytes,
+                               k4_flops, dz)]
+                for name, fn, plain, nb, fl, diff in cases:
+                    b_ms, b_by = bound(nb, fl, F32_FLOPS)
+                    results[(name, mix, N, G)] = {
+                        "name": name, "mix": mix, "N": N, "G": G,
+                        "C": C if name in ("zscore_update",
+                                           "zscore_score") else 2,
+                        "groups_present": groups, "max_abs_diff": diff,
+                        **timings(fn, plain, None, flush),
+                        "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                        "flops": fl}
+    # past kHeld spans a thread (each of the others reloaded in every
+    # pass): 300,000 spans on the shared route's CTA an SM, 1,200,000 on
+    # the global route's at most 2048 threads an SM
+    cat_np, x_np = mixes["otel"]
+    past = []
+    for N, G in ((300_000, ZS_G), (1_200_000, ZS_GLOBAL_G)):
+        ids = torch.from_numpy(np.resize(cat_np[:, :2], (N, 2))).to(dev)
+        x = torch.from_numpy(np.resize(x_np, N)).to(dev)
+        zero = [torch.zeros(G, device=dev) for _ in range(3)]
+        state = zscore.zscore_update_plain(*zero, cat0, x0,
+                                           torch.ones_like(x0), G)
+        st_p, sc_p, cold_p = zscore.zscore_score_update_plain(
+            *state, ids, x, G, ZS_MIN_COUNT)
+        sums = zscore.new_scratch(G, dev)
+        r = zscore.zscore_score_update(*state, ids, x, G, ZS_MIN_COUNT,
+                                       scratch=sums, inplace=True)
+        torch.cuda.synchronize()
+        tag = f"N={N} otel G={G}"
+        check(not sums.any(), f"zscore_score_update {tag}: scratch not "
+                              f"back to 0")
+        same = _zs_state_check(r.state, st_p, f"zscore_score_update {tag}")
+        d = _zs_scores_check(r.scores, sc_p, f"zscore_score_update {tag} "
+                                             f"scores")
+        check(int(r.cold) == int(cold_p),
+              f"zscore_score_update {tag}: cold {int(r.cold)} vs "
+              f"{int(cold_p)}")
+        past.append({"N": N, "G": G, "state_bit_equal": same,
+                     "scores_max_diff": d})
     for r in results.values():
         emit({"phase": "zscore_kernels", "card": card, **r})
+    emit({"phase": "zscore_kernels", "card": card,
+          "bit_equal_to_plain": bit_equal, "past_held_spans": past})
     return results
 
 
@@ -1108,7 +1241,9 @@ def phase_zscore_path(card: str) -> dict:
             client.warmup(warm)
             zscore.update_launches = 0
             zscore.score_launches = 0
+            zscore.device_launches = 0
             calls0 = engine.device_calls
+            staged0 = det.staged_bytes
             requests, replies = [], []
             t_seq = time.perf_counter()
             for b in batches:
@@ -1126,7 +1261,9 @@ def phase_zscore_path(card: str) -> dict:
             replies.append(s)
             launches = {"zscore_update": zscore.update_launches,
                         "zscore_score": zscore.score_launches}
+            device_launches = zscore.device_launches
             calls = engine.device_calls - calls0
+            staged = det.staged_bytes - staged0
         finally:
             client.close()
         stats = engine.stats()
@@ -1137,6 +1274,13 @@ def phase_zscore_path(card: str) -> dict:
     check(calls == len(batches) + 1 and all(
         v == calls for v in launches.values()),
         f"zscore launches {launches} for {calls} engine calls")
+    check(device_launches == calls,
+          f"zscore: {device_launches} device launches for {calls} engine "
+          f"calls (one a call)")
+    spans = sum(len(b) for b in batches) + len(spiked)
+    check(staged == 12 * spans + 4 * calls,
+          f"zscore staged {staged} B host → device for {spans} spans in "
+          f"{calls} calls (12 a span, the cold count's 0 a call)")
     check(stats["pipeline_depth"] == 1,
           f"zscore engine at depth {stats['pipeline_depth']}")
     # the same stream through the port on the CPU: the plain versions
@@ -1158,6 +1302,9 @@ def phase_zscore_path(card: str) -> dict:
            "spike": {"factor": SPIKE_FACTOR, "score": spike_score,
                      "min": SPIKE_MIN},
            "device_calls": calls, "launches": launches,
+           "device_launches_per_call": device_launches / calls,
+           "h2d_bytes_per_call": staged / calls,
+           "h2d_bytes_per_span": staged / spans,
            "cpu_replay_max_abs_diff": cpu_diff,
            "cpu_replay_bound": ZS_CPU_BOUND, "engine": stats}
     emit(out)
@@ -3637,9 +3784,24 @@ def main() -> int:
                                     "tiles, online softmax (mma.sync bf16, "
                                     "CUDA cores otherwise)",
                "span_embed": "warp-per-slot vec16, small tables in smem",
-               "zscore_update": "3 launches: warp-aggregated f64 sums in "
-                                "per-CTA smem, 2 passes, Chan merge",
-               "zscore_score": "thread per span gather, squash, cold count",
+               "zscore_update": "with K4, ONE cooperative launch an engine "
+                                "call: a span a thread read and hashed "
+                                "once, its group's state gathered first; "
+                                "pass A (warp-aggregated f64 sums into "
+                                "per-CTA smem, only the touched groups "
+                                "zeroed and flushed: a G-bit map), one "
+                                "grid barrier, b_mean of the touched "
+                                "groups into smem, pass B; the last CTA "
+                                "(a ticket) merges the touched groups in "
+                                "place",
+               "zscore_score": "in the same launch as K3, on the state "
+                               "before the batch: gather first, z after "
+                               "pass A, stored after the CTA's ticket; "
+                               "squash; cold count (register, warp "
+                               "shuffle, smem, then added into the "
+                               "caller's word, zeroed by the engine's "
+                               "one host-to-device copy: no fill, no "
+                               "ticket)",
                "featurize_columns": "hash join: memset table (P >= 2N u64 "
                                     "slots), insert launch (a warp's "
                                     "lanes of one key insert once; "
@@ -3778,12 +3940,26 @@ def main() -> int:
             "fused_path_launches": fused_path["launches"][kname],
             f"R{small['R']}": {k: small[k] for k in timing_keys}}))
     for kname in ("zscore_update", "zscore_score"):
-        lines.append(line(kname, zs_kern[(kname, "otel", ZS_MAIN_N)], {
+        lines.append(line(kname, zs_kern[(kname, "otel", ZS_MAIN_N, ZS_G)], {
             "shape_N": ZS_MAIN_N, "G": ZS_G, "mix": "otel",
-            **{f"{mix}_N{n}": {k: zs_kern[(kname, mix, n)][k]
-                               for k in timing_keys}
+            "device_launches_per_engine_call": zs_path[
+                "device_launches_per_call"],
+            **{f"{mix}_N{n}": {k: zs_kern[(kname, mix, n, ZS_G)][k]
+                               for k in timing_keys + ("bound_by",)}
                for mix in ("otel", "single") for n in ZS_N
-               if (mix, n) != ("otel", ZS_MAIN_N)}}))
+               if (mix, n) != ("otel", ZS_MAIN_N)},
+            # score only (the engine without online_update)
+            **({f"score_only_{mix}_N{n}_G{g}": {
+                k: zs_kern[("zscore_score_only", mix, n, g)][k]
+                for k in timing_keys + ("bound_by",)}
+                for g in (ZS_G, ZS_GLOBAL_G) for mix in ("otel", "single")
+                for n in ZS_N} if kname == "zscore_score" else {}),
+            # the engine's one launch (K4 then K3), on both routes
+            **{f"score_update_{mix}_N{n}_G{g}": {
+                k: zs_kern[("zscore_score_update", mix, n, g)][k]
+                for k in timing_keys + ("bound_by",)}
+               for g in (ZS_G, ZS_GLOBAL_G) for mix in ("otel", "single")
+               for n in ZS_N}}))
     mixes = {"featurize_columns": ("otel", "adversarial", "stress"),
              "next_fit_pack": ("otel", "adversarial", "long"),
              "span_head_scatter": ("otel", "adversarial")}

@@ -1,4 +1,4 @@
-"""K3 and K4: the streaming z-score detector's update and score.
+"""K3 and K4: the streaming z-score detector's score and update, one launch.
 
 ``zscore_update`` is ``_update_masked_kernel`` of
 ``odigos_tpu/models/zscore.py`` (``_update_kernel`` is its form with weights
@@ -17,25 +17,35 @@ per-group sums are taken in f64 and rounded once to f32, in the kernel and
 in the plain version alike, so the atomics' order does not show in the
 result and the two agree almost always to the bit. ``count`` is exact.
 
-A CUDA tensor launches the hand-written kernels (``csrc/zscore.cu``) or
-raises: K3 is three launches (the two sum passes and the merge), K4 one.
-:func:`update_route` says whether K3's per-CTA sums live in shared memory
-(``"shared"``, where ``2 * G`` doubles fit) or go straight to device memory
-(``"global"``). A CPU tensor takes the plain PyTorch versions
-(:func:`zscore_update_plain`, :func:`zscore_score_plain`).
-``update_launches`` and ``score_launches`` count calls that launched.
+A CUDA tensor launches the hand-written kernel (``csrc/zscore.cu``) or
+raises. It is ONE kernel with its parts switchable:
+:func:`zscore_score_update` scores a batch on the state before it and
+folds the batch into the state in the same launch (what the engine calls),
+:func:`zscore_update` is its update alone and :func:`zscore_score` its
+score alone. The update's launch is cooperative: its phases (score and
+pass A, pass B, merge) meet at grid barriers. :func:`update_route` says
+whether each CTA's per-group sums live in shared memory (``"shared"``) or
+go straight to device memory (``"global"``). A CPU tensor takes the plain
+PyTorch versions (:func:`zscore_update_plain`, :func:`zscore_score_plain`;
+:func:`zscore_score_update_plain` is the one then the other).
+``score_launches`` and ``update_launches`` count launches that scored and
+launches that updated (one launch of :func:`zscore_score_update` adds one
+to each); ``device_launches`` counts kernel launches.
 
-K3 takes a ``(3, G)`` f64 scratch that is all 0 on entry and that its last
-launch sets back to 0 (:func:`new_scratch`; one is made per call where none
-is given). A caller that keeps one, as ``ZScoreDetector`` does, calls on
-one stream at a time.
+An update takes a scratch (:func:`new_scratch`: ``3 * G`` f64 sums, then a
+bit map of touched groups and the merge's ticket) that is all 0 on entry
+and that the launch sets back to 0; one is made per call where none is
+given. A caller that keeps one, as ``ZScoreDetector`` does, calls on one
+stream at a time. The cold count is added into a word that is 0 on entry:
+:func:`zscore_score_update` takes it in ``out`` from its caller (the
+detector's one host-to-device copy writes that 0), or zeroes it itself.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,12 +55,14 @@ KNUTH_SVC = 2654435761
 KNUTH_NAME = 40503
 _U32 = 0xFFFFFFFF
 SMEM_LIMIT = 232448     # shared memory a block may use on Hopper (227 KB)
-WARP_STAGING = 32 * 64 * 8   # bytes of per-warp staging (kWarps x kWarpBuf)
+CTA_HEAD = 16 + 16 * 64 * 8  # bytes: the cold counter, 16 warps' staging
 _ROUTES = {"shared": 0, "global": 1}
 VAR_FLOOR = 1e-8
+LAUNCHER = "zscore_step_launch"
 
-update_launches = 0
 score_launches = 0
+update_launches = 0
+device_launches = 0
 _count_lock = threading.Lock()
 _fns: dict[str, object] = {}
 
@@ -119,37 +131,74 @@ def squash_plain(z: torch.Tensor) -> torch.Tensor:
     return 1.0 - torch.exp(-z / 4.0)
 
 
+def zscore_score_update_plain(count: torch.Tensor, mean: torch.Tensor,
+                              m2: torch.Tensor, categorical: torch.Tensor,
+                              x: torch.Tensor, n_groups: int, min_count: int,
+                              weights: Optional[torch.Tensor] = None,
+                              n_valid: Optional[int] = None):
+    """The plain version of the one launch: :func:`zscore_score_plain` on
+    the state before the batch (squashed, its cold spans counted among the
+    first ``n_valid``), then :func:`zscore_update_plain` (weights of 1 where
+    none are given). Returns ``(new_state, scores, cold)``."""
+    z = zscore_score_plain(count, mean, m2, categorical, x, n_groups,
+                           min_count)
+    n_valid = len(z) if n_valid is None else n_valid
+    cold = (z[:n_valid] == 0).sum().to(torch.int32).reshape(1)
+    w = torch.ones_like(x, dtype=torch.float32) if weights is None \
+        else weights
+    state = zscore_update_plain(count, mean, m2, categorical, x, w,
+                                n_groups)
+    return state, squash_plain(z), cold
+
+
 # ---------------------------------------------------------------- wrappers
 
+def _words(n_groups: int) -> int:
+    return (n_groups + 31) // 32
+
+
 def update_route(n_groups: int) -> str:
-    """``"shared"`` where pass A's per-CTA sums (``2 * G`` doubles, with
-    the warps' staging) fit a block's shared memory, else ``"global"``."""
-    return ("shared" if WARP_STAGING + 2 * n_groups * 8 <= SMEM_LIMIT
-            else "global")
+    """``"shared"`` where a CTA's per-group sums (``2 * G`` doubles), its
+    bit map of touched groups and the warps' staging fit a block's shared
+    memory, else ``"global"``."""
+    smem = CTA_HEAD + (4 * _words(n_groups) + 7) // 8 * 8 + 16 * n_groups
+    return "shared" if smem <= SMEM_LIMIT else "global"
+
+
+def scratch_len(n_groups: int) -> int:
+    """f64 elements of the kernel's scratch: ``3 * G`` sums, then the bit
+    map of ``ceil(G / 32)`` uint32 words (rounded up to an even count) and
+    two words for the merge's ticket."""
+    return 3 * n_groups + (_words(n_groups) + 1) // 2 + 1
 
 
 def new_scratch(n_groups: int, device: torch.device) -> torch.Tensor:
-    """A zeroed ``(3, G)`` f64 scratch for :func:`zscore_update`."""
-    return torch.zeros((3, n_groups), dtype=torch.float64, device=device)
+    """A zeroed scratch for the kernel (:func:`scratch_len`)."""
+    return torch.zeros(scratch_len(n_groups), dtype=torch.float64,
+                       device=device)
 
 
-def _kernel(name: str):
+class ScoreUpdate(NamedTuple):
+    """What :func:`zscore_score_update` returns. ``cold`` and ``scores``
+    are views of ``out``, ``(n + 1,)`` f32: the cold count's int32 bits,
+    then the squashed scores, so one copy brings both to the host."""
+
+    state: Optional[tuple]  # (count, mean, m2) after the batch, or None
+    scores: torch.Tensor    # (n,) f32
+    cold: torch.Tensor      # (1,) int32
+    out: torch.Tensor       # (n + 1,) f32
+
+
+def _kernel(name: str = LAUNCHER):
     fn = _fns.get(name)
     if fn is None:
-        lib = build.load("zscore")
-        if name == "update":
-            fn = lib.zscore_update_launch
-            fn.argtypes = ([ctypes.c_void_p] * 3
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 7
-                           + [ctypes.c_int, ctypes.c_void_p])
-        else:
-            fn = lib.zscore_score_launch
-            fn.argtypes = ([ctypes.c_void_p] * 2
-                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                           + [ctypes.c_void_p] * 3
-                           + [ctypes.c_float] + [ctypes.c_void_p] * 3
-                           + [ctypes.c_longlong, ctypes.c_void_p])
+        fn = getattr(build.load("zscore"), name)
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2
+                       + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int, ctypes.c_float]
+                       + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -174,57 +223,149 @@ def _check(state: tuple, categorical: torch.Tensor, x: torch.Tensor,
     devices = {t.device for t in inputs}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
+    dev = categorical.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the zscore kernel runs on cuda or cpu, not {dev}")
 
 
-def _check_cuda(state: tuple, categorical: torch.Tensor,
-                floats: list[torch.Tensor]) -> None:
+def _n_valid(N: int, n_valid: Optional[int]) -> int:
+    n_valid = N if n_valid is None else int(n_valid)
+    if not 0 <= n_valid <= N:
+        raise ValueError(f"n_valid must be in [0, {N}], got {n_valid}")
+    return n_valid
+
+
+def _launch(state: tuple, categorical: torch.Tensor, x: torch.Tensor,
+            n_groups: int, min_count: int, weights: Optional[torch.Tensor],
+            out_state: Optional[tuple], z: Optional[torch.Tensor],
+            s: Optional[torch.Tensor], cold: Optional[torch.Tensor],
+            n_valid: int, scratch: Optional[torch.Tensor]) -> None:
+    """One launch of the kernel on the current stream; counts it."""
+    global score_launches, update_launches, device_launches
+    dev = categorical.device
     if categorical.dtype != torch.int32:
         raise TypeError(f"categorical must be int32, got {categorical.dtype}")
-    for t in [*state, *floats]:
+    floats = [*state, x] + ([weights] if weights is not None else [])
+    for t in floats:
         if t.dtype != torch.float32:
             raise TypeError(f"state, x and weights must be float32, got "
                             f"{t.dtype}")
-    if not all(t.is_contiguous() for t in [*state, categorical, *floats]):
-        raise ValueError("the zscore kernels need contiguous inputs")
+    if not all(t.is_contiguous() for t in [*floats, categorical]):
+        raise ValueError("the zscore kernel needs contiguous inputs")
+    update = out_state is not None
+    if update and (
+            scratch.shape != (scratch_len(n_groups),)
+            or scratch.dtype != torch.float64 or scratch.device != dev
+            or not scratch.is_contiguous()):
+        raise ValueError(f"scratch must be a contiguous "
+                         f"({scratch_len(n_groups)},) float64 tensor on "
+                         f"{dev} (new_scratch)")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    outs = out_state if update else (None, None, None)
+    with torch.cuda.device(dev):
+        rc = _kernel()(categorical.data_ptr(), categorical.shape[1],
+                       x.data_ptr(), ptr(weights), categorical.shape[0],
+                       n_valid, n_groups, float(min_count),
+                       *(t.data_ptr() for t in state), *map(ptr, outs),
+                       ptr(z), ptr(s), ptr(cold), ptr(scratch),
+                       _ROUTES[update_route(n_groups)],
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"zscore launch failed: CUDA error {rc}")
+    scored = z is not None or s is not None or cold is not None
+    with _count_lock:
+        device_launches += 1
+        score_launches += scored
+        update_launches += update
+
+
+def _scratch(scratch: Optional[torch.Tensor], n_groups: int,
+             dev: torch.device) -> torch.Tensor:
+    return new_scratch(n_groups, dev) if scratch is None else scratch
+
+
+def zscore_score_update(count: torch.Tensor, mean: torch.Tensor,
+                        m2: torch.Tensor, categorical: torch.Tensor,
+                        x: torch.Tensor, n_groups: int, min_count: int, *,
+                        weights: Optional[torch.Tensor] = None,
+                        update: bool = True, n_valid: Optional[int] = None,
+                        scratch: Optional[torch.Tensor] = None,
+                        inplace: bool = False,
+                        out: Optional[torch.Tensor] = None) -> ScoreUpdate:
+    """Score a batch on the state before it — squashed ``1 - exp(-z / 4)``
+    scores and the number of cold spans (``z == 0``) among the first
+    ``n_valid`` (all by default) — and, with ``update``, fold the batch
+    into the state (weights of 1 where none are given), in one launch.
+    ``inplace`` writes the new state into ``count``, ``mean`` and ``m2``
+    (the returned state is those tensors); otherwise they are left as they
+    were. ``out``, ``(N + 1,)`` f32 on the card, receives the cold count
+    (added to its first element's int32 bits, which must be 0) and the
+    scores; where it is None one is made and its first element zeroed.
+    Nothing is synchronised: the results are on the inputs' device."""
+    state = (count, mean, m2)
+    _check(state, categorical, x, n_groups, weights)
+    N = categorical.shape[0]
+    n_valid = _n_valid(N, n_valid)
+    dev = categorical.device
+    if out is not None and (out.shape != (N + 1,)
+                            or out.dtype != torch.float32
+                            or out.device != dev
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({N + 1},) float32 "
+                         f"tensor on {dev}")
+    if dev.type == "cpu":
+        if update:
+            new, scores, cold = zscore_score_update_plain(
+                count, mean, m2, categorical, x, n_groups, min_count,
+                weights, n_valid)
+            if inplace:
+                for t, v in zip(state, new):
+                    t.copy_(v)
+                new = state
+        else:
+            new = None
+            _, scores, cold = zscore_score(count, mean, m2, categorical, x,
+                                           n_groups, min_count, squash=True,
+                                           n_valid=n_valid)
+        res = torch.cat([cold.view(torch.float32), scores])
+        if out is not None:
+            res = out.copy_(res)
+        return ScoreUpdate(new, res[1:], res[:1].view(torch.int32), res)
+    if out is None:
+        out = torch.empty(N + 1, dtype=torch.float32, device=dev)
+        out[:1].zero_()
+    new = None
+    if update:
+        new = state if inplace else tuple(torch.empty_like(t)
+                                          for t in state)
+    cold = out[:1].view(torch.int32)
+    _launch(state, categorical, x, n_groups, min_count, weights, new, None,
+            out[1:], cold, n_valid,
+            _scratch(scratch, n_groups, dev) if update else None)
+    return ScoreUpdate(new, out[1:], cold, out)
 
 
 def zscore_update(count: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor,
                   categorical: torch.Tensor, x: torch.Tensor,
-                  weights: torch.Tensor, n_groups: int,
+                  weights: Optional[torch.Tensor], n_groups: int,
                   scratch: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The new ``(count, mean, m2)`` after merging the weighted batch; the
-    inputs are left as they were. See the module docstring."""
-    global update_launches
+    """The new ``(count, mean, m2)`` after merging the weighted batch
+    (weights of 1 where ``weights`` is None); the inputs are left as they
+    were. The kernel's update alone. See the module docstring."""
     state = (count, mean, m2)
     _check(state, categorical, x, n_groups, weights)
     dev = categorical.device
     if dev.type == "cpu":
-        return zscore_update_plain(count, mean, m2, categorical, x, weights,
+        w = torch.ones_like(x) if weights is None else weights
+        return zscore_update_plain(count, mean, m2, categorical, x, w,
                                    n_groups)
-    if dev.type != "cuda":
-        raise ValueError(f"zscore_update runs on cuda or cpu, not {dev}")
-    _check_cuda(state, categorical, [x, weights])
-    if scratch is None:
-        scratch = new_scratch(n_groups, dev)
-    elif (scratch.shape != (3, n_groups) or scratch.dtype != torch.float64
-          or scratch.device != dev or not scratch.is_contiguous()):
-        raise ValueError(f"scratch must be a contiguous (3, {n_groups}) "
-                         f"float64 tensor on {dev}")
     out = tuple(torch.empty_like(t) for t in state)
-    fn = _kernel("update")
-    with torch.cuda.device(dev):
-        rc = fn(categorical.data_ptr(), x.data_ptr(), weights.data_ptr(),
-                categorical.shape[0], categorical.shape[1], n_groups,
-                count.data_ptr(), mean.data_ptr(), m2.data_ptr(),
-                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                scratch.data_ptr(), _ROUTES[update_route(n_groups)],
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        scratch.zero_()  # a refused later pass must not leave sums behind
-        raise RuntimeError(f"zscore_update launch failed: CUDA error {rc}")
-    with _count_lock:
-        update_launches += 1
+    _launch(state, categorical, x, n_groups, 0, weights, out, None, None,
+            None, categorical.shape[0], _scratch(scratch, n_groups, dev))
     return out
 
 
@@ -235,14 +376,12 @@ def zscore_score(count: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor,
     """``z`` (N,) f32; with ``squash``, ``(z, scores, cold)`` where
     ``scores = 1 - exp(-z / 4)`` and ``cold`` is a one-element int32 tensor
     counting ``z == 0`` among the first ``n_valid`` spans (all by default).
-    Nothing is synchronised: the results are on the inputs' device."""
-    global score_launches
+    The kernel's score alone. Nothing is synchronised: the results are on
+    the inputs' device."""
     state = (count, mean, m2)
     _check(state, categorical, x, n_groups)
     N = categorical.shape[0]
-    n_valid = N if n_valid is None else int(n_valid)
-    if not 0 <= n_valid <= N:
-        raise ValueError(f"n_valid must be in [0, {N}], got {n_valid}")
+    n_valid = _n_valid(N, n_valid)
     dev = categorical.device
     if dev.type == "cpu":
         z = zscore_score_plain(count, mean, m2, categorical, x, n_groups,
@@ -251,24 +390,9 @@ def zscore_score(count: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor,
             return z
         cold = (z[:n_valid] == 0).sum().to(torch.int32).reshape(1)
         return z, squash_plain(z), cold
-    if dev.type != "cuda":
-        raise ValueError(f"zscore_score runs on cuda or cpu, not {dev}")
-    _check_cuda(state, categorical, [x])
     z = torch.empty(N, dtype=torch.float32, device=dev)
     s = torch.empty_like(z) if squash else None
     cold = torch.zeros(1, dtype=torch.int32, device=dev) if squash else None
-    if N == 0:
-        return (z, s, cold) if squash else z
-    fn = _kernel("score")
-    with torch.cuda.device(dev):
-        rc = fn(categorical.data_ptr(), x.data_ptr(), N,
-                categorical.shape[1], n_groups, count.data_ptr(),
-                mean.data_ptr(), m2.data_ptr(), float(min_count),
-                z.data_ptr(), s.data_ptr() if squash else None,
-                cold.data_ptr() if squash else None, n_valid,
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"zscore_score launch failed: CUDA error {rc}")
-    with _count_lock:
-        score_launches += 1
+    _launch(state, categorical, x, n_groups, min_count, None, None, z, s,
+            cold, n_valid, None)
     return (z, s, cold) if squash else z

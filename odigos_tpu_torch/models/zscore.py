@@ -7,17 +7,23 @@ detector's device — count, mean and M2 (G defaults to 8192: 96 KiB) — and
 the group id is the reference's Knuth mix of (service id, name id) mod G.
 
 * ``update_fn`` / ``update``: the weighted Welford merge of a batch into the
-  state (kernel K3, ``kernels/zscore.py``: per-group sums, then Chan's
-  parallel merge);
-* ``score_fn`` / ``score``: gather and normalise (kernel K4), 0 for groups
-  with fewer than ``min_count`` spans.
+  state (K3, ``kernels/zscore.py``: per-group sums, then Chan's parallel
+  merge);
+* ``score_fn`` / ``score``: gather and normalise (K4), 0 for groups with
+  fewer than ``min_count`` spans;
+* ``score_staged``: the engine's call — a staged batch scored on the state
+  before it (squashed, cold spans counted) and, asked to, folded into the
+  state in place: K4 and K3 in one launch on the card.
 
-The stateful ``update`` / ``score`` pad the span axis to geometric buckets
-(``span_bucket``, 2x, 4x, ...) with zero-weight rows, as the reference does.
-The card has no recompile to bound, but the buckets bound the set of pinned
-host staging buffers the detector keeps (one per bucket), and ``warm``
-allocates them ahead of serving. A zero-weight row adds nothing to any sum,
-so padding — and ``warm`` — leave the state as it was, bit for bit.
+``stage`` copies what the kernel reads of a batch's ``n`` real spans —
+the (service, name) ids and the log-duration, 12 bytes a span — to the
+device in one copy, with the zero the kernel adds the cold count into
+(4 bytes a batch, in place of a fill launch); the kernel takes them with
+implicit weights of 1, so nothing is padded. Batch sizes still round up to geometric buckets
+(``span_bucket``, 2x, 4x, ...): each bucket has one set of pinned host
+buffers (the staged inputs, and the scores and cold count copied back),
+and ``warm`` makes them ahead of serving and runs the kernel once at each
+with all-zero weights, which leaves the state as it was, bit for bit.
 
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent; pass
 ``"cpu"`` for the kernels' plain versions.
@@ -61,24 +67,31 @@ def state_from_numpy(state: Any, device: str | torch.device = "cuda"
 
 @dataclass
 class _Staging:
-    """Pinned host buffers of one span bucket, and the event that marks the
-    end of the last copy out of them (they are refilled only after it)."""
+    """Pinned host buffers of one span bucket ``b``: ``inputs``,
+    ``(3 b + 1,)`` int32 — a batch's ``(n, 2)`` ids, its ``n``
+    log-durations' f32 bits and a 0 for the cold count, packed so one copy
+    moves them — and ``out``, ``(b + 1,)`` f32 — the cold count's int32
+    bits and the scores copied back; ``event`` marks the end of the last
+    copy out of ``inputs`` (it is refilled only after it)."""
 
-    cat: torch.Tensor
-    x: torch.Tensor
-    w: torch.Tensor
+    inputs: torch.Tensor
+    out: torch.Tensor
     event: Optional[torch.cuda.Event] = None
 
 
 @dataclass
 class Staged:
-    """One batch on the detector's device: ``(b, C)`` ids, ``(b,)``
-    log-durations and weights (1 on the ``n`` real rows, 0 on padding)."""
+    """One batch on the detector's device: the ``(n, 2)`` int32 (service,
+    name) ids and ``(n,)`` f32 log-durations of its ``n`` real spans, the
+    span bucket whose buffers staged it, and on the card ``out``, ``(n +
+    1,)`` f32 right after them: a zero word for the cold count, then room
+    for the scores (used by one ``score_staged``)."""
 
     cat: torch.Tensor
     x: torch.Tensor
-    w: torch.Tensor
     n: int
+    bucket: int
+    out: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -97,11 +110,13 @@ class ZScoreDetector:
     span_bucket: int = 4096
     device: Any = "cuda"
     _staging: dict = field(default_factory=dict, init=False, repr=False)
+    # bytes ``stage`` has copied host → device (none on the CPU)
+    staged_bytes: int = field(default=0, init=False)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        # K3's (3, G) f64 sums, zero between calls (the kernel's last
-        # launch zeroes them); the CPU path allocates its own
+        # the kernel's sums, bit map and counters, zero between calls (its
+        # launch leaves them so); the CPU path needs none
         self._scratch = (kz.new_scratch(self.n_groups, self.device)
                          if self.device.type == "cuda" else None)
         self.state = self.init()
@@ -118,14 +133,15 @@ class ZScoreDetector:
     # -- functional kernels (used directly by the serving engine / tests)
     def update_fn(self, state: ZScoreState, categorical: Any,
                   log_dur: Any) -> ZScoreState:
-        x = self._tensor(log_dur, torch.float32)
-        return self.update_masked_fn(state, categorical, x,
-                                     torch.ones_like(x))
+        return ZScoreState(*kz.zscore_update(
+            *state, self._tensor(categorical, torch.int32),
+            self._tensor(log_dur, torch.float32), None, self.n_groups,
+            scratch=self._scratch))
 
     def update_masked_fn(self, state: ZScoreState, categorical: Any,
                          log_dur: Any, weights: Any) -> ZScoreState:
-        """The weighted merge behind span bucketing: rows of weight 0 add
-        nothing, so the merged state equals the unpadded one."""
+        """The weighted merge: rows of weight 0 add nothing, so the merged
+        state equals the one of the weighted rows alone."""
         return ZScoreState(*kz.zscore_update(
             *state, self._tensor(categorical, torch.int32),
             self._tensor(log_dur, torch.float32),
@@ -139,63 +155,94 @@ class ZScoreDetector:
                                self.n_groups, self.min_count)
 
     def _bucket_rows(self, n: int) -> int:
-        """Geometric span bucket ≥ n: O(log max_batch) distinct shapes."""
+        """Geometric span bucket ≥ n: O(log max_batch) buffer sets."""
         b = self.span_bucket
         while b < n:
             b <<= 1
         return b
 
-    # -- staging: features → padded tensors on the device
-    def _buffers(self, b: int, cat_width: int) -> _Staging:
-        buf = self._staging.get((b, cat_width))
+    # -- staging: features → the kernel's inputs on the device
+    def _buffers(self, b: int) -> _Staging:
+        buf = self._staging.get(b)
         if buf is None:
             pin = self.device.type == "cuda"
             buf = _Staging(
-                torch.empty((b, cat_width), dtype=torch.int32,
-                            pin_memory=pin),
-                torch.empty(b, dtype=torch.float32, pin_memory=pin),
-                torch.empty(b, dtype=torch.float32, pin_memory=pin),
+                torch.empty(3 * b + 1, dtype=torch.int32, pin_memory=pin),
+                torch.empty(b + 1, dtype=torch.float32, pin_memory=pin),
                 torch.cuda.Event() if pin else None)
-            self._staging[(b, cat_width)] = buf
+            self._staging[b] = buf
         return buf
 
     def stage(self, features: SpanFeatures) -> Staged:
-        """Copy a batch to the device, padded to its span bucket with
-        zero-weight rows (id 0, duration 0). On the card the copy goes
-        through the bucket's pinned buffers and is not waited for."""
+        """Copy the (service, name) ids and log-durations of a batch's real
+        spans to the device, with a 0 for the cold count: 12 bytes a span
+        and 4 a batch, one copy. On the card the copy goes through the span
+        bucket's pinned buffer and is not waited for."""
         cat = features.categorical
-        n, C = cat.shape
-        if not self.span_bucket:
-            x = self._tensor(np.ascontiguousarray(features.continuous[:, 0]),
-                             torch.float32)
-            return Staged(self._tensor(np.ascontiguousarray(cat),
-                                       torch.int32), x, torch.ones_like(x), n)
-        b = self._bucket_rows(n)
-        buf = self._buffers(b, C)
-        if buf.event is not None:
-            buf.event.synchronize()  # the last copy out of them is done
-        hc, hx, hw = buf.cat.numpy(), buf.x.numpy(), buf.w.numpy()
-        hc[:n] = cat
-        hc[n:] = 0
-        hx[:n] = features.continuous[:, 0]
-        hx[n:] = 0.0
-        hw[:n] = 1.0
-        hw[n:] = 0.0
-        if buf.event is None:  # CPU: the tensors leave with the caller
-            return Staged(buf.cat.clone(), buf.x.clone(), buf.w.clone(), n)
-        dev = [t.to(self.device, non_blocking=True)
-               for t in (buf.cat, buf.x, buf.w)]
-        buf.event.record()
-        return Staged(*dev, n)
+        n = len(cat)
+        buf = None
+        if self.span_bucket:
+            b = self._bucket_rows(n)
+            buf = self._buffers(b)
+            if buf.event is not None:
+                buf.event.synchronize()  # the last copy out of it is done
+            host = buf.inputs
+        else:
+            b = n
+            host = torch.empty(3 * n + 1, dtype=torch.int32)
+        h = host.numpy()
+        h[:2 * n].reshape(n, 2)[:] = cat[:, :2]
+        h[2 * n:3 * n].view(np.float32)[:] = features.continuous[:, 0]
+        h[3 * n] = 0  # the cold count's word
+        out = None
+        if self.device.type == "cpu":  # the tensors leave with the caller
+            dev = host[:3 * n].clone()
+        else:
+            # the ids, durations and zero, then room for the scores
+            dev = torch.empty(4 * n + 1, dtype=torch.int32,
+                              device=self.device)
+            dev[:3 * n + 1].copy_(host[:3 * n + 1],
+                                  non_blocking=buf is not None)
+            if buf is not None:
+                buf.event.record()
+            self.staged_bytes += 12 * n + 4
+            out = dev[3 * n:].view(torch.float32)
+        return Staged(dev[:2 * n].view(n, 2),
+                      dev[2 * n:3 * n].view(torch.float32), n, b, out)
+
+    def score_staged(self, st: Staged, update: bool = True,
+                     weights: Optional[torch.Tensor] = None
+                     ) -> tuple[np.ndarray, int]:
+        """The squashed scores ``1 - exp(-z / 4)`` of a staged batch on the
+        state before it, and its number of cold spans (``z == 0``); with
+        ``update``, the batch folded into the state in place (weights of 1
+        where none are given). One launch on the card, then one copy of the
+        count and the scores into the bucket's pinned buffer and one
+        wait."""
+        r = kz.zscore_score_update(*self.state, st.cat, st.x, self.n_groups,
+                                   self.min_count, weights=weights,
+                                   update=update, scratch=self._scratch,
+                                   inplace=True, out=st.out)
+        st.out = None  # its cold word is spent: a second call makes one
+        n = st.n
+        buf = self._staging.get(st.bucket) if self.span_bucket else None
+        if buf is None or buf.event is None:  # the CPU, or no buckets
+            out = r.out.cpu()
+        else:
+            out = buf.out[:n + 1]
+            out.copy_(r.out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        return out[1:].numpy().copy(), int(out[:1].view(torch.int32)[0])
 
     def warm(self, max_spans: int, cat_width: int) -> None:
         """Make every span bucket's staging buffers up to ``max_spans`` —
         and one bucket past it, since the engine's coalescer can end a
-        group one request over its cap — and run both kernels once at each
-        bucket with all-zero weights, so the first request pays no kernel
-        load or allocation. The state is not touched: the zero-weight
-        update's result is discarded (and equals the state, bit for
-        bit)."""
+        group one request over its cap — and run the engine's launch
+        (``score_staged``) once at each bucket with all-zero weights, so
+        the first request pays no kernel load or allocation. The state is
+        not touched: a zero-weight update merges nothing."""
         if not self.span_bucket:
             return
         b = self.span_bucket
@@ -204,11 +251,7 @@ class ZScoreDetector:
             st = self.stage(SpanFeatures(
                 np.zeros((b, cat_width), np.int32),
                 np.zeros((b, 3), np.float32)))
-            self.update_masked_fn(self.state, st.cat, st.x,
-                                  torch.zeros_like(st.w))
-            self.score_fn(self.state, st.cat, st.x)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self.score_staged(st, weights=torch.zeros_like(st.x))
             if past:
                 return
             past = b >= max_spans
@@ -217,8 +260,7 @@ class ZScoreDetector:
     # -- stateful convenience over SpanFeatures
     def update_staged(self, st: Staged) -> None:
         if st.n:
-            self.state = self.update_masked_fn(self.state, st.cat, st.x,
-                                               st.w)
+            self.state = self.update_fn(self.state, st.cat, st.x)
 
     def update(self, features: SpanFeatures) -> None:
         if len(features):
@@ -229,4 +271,4 @@ class ZScoreDetector:
         if n == 0:
             return np.zeros(0, np.float32)
         st = self.stage(features)
-        return self.score_fn(self.state, st.cat, st.x)[:n].cpu().numpy()
+        return self.score_fn(self.state, st.cat, st.x).cpu().numpy()

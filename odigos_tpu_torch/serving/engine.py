@@ -80,7 +80,6 @@ import torch
 
 from ..features.featurizer import (
     FeaturizerConfig, SpanFeatures, featurize, pack_sequences)
-from ..kernels.zscore import zscore_score
 from ..models.autoencoder import AutoencoderConfig
 from ..models.quantized import QuantizedTraceScorer
 from ..models.transformer import TraceTransformer, TransformerConfig
@@ -345,10 +344,11 @@ class MockBackend:
 
 class ZScoreBackend:
     """The streaming z-score detector (``models/zscore.py``) as a serial
-    backend: each call stages its features once, scores them against the
-    state with K4 — which also squashes ``1 - exp(-z/4)`` and counts cold
-    spans, on the device — then, with ``online_update``, folds them into
-    the state with K3 on the same stream, and waits once for the scores.
+    backend: each call stages the ids and log-durations of its real spans
+    once, then one launch scores them against the state — squashed
+    ``1 - exp(-z/4)``, cold spans counted on the device — and, with
+    ``online_update``, folds them into the state (K4 and K3 together);
+    the scores and the cold count come back in one copy, with one wait.
     No ``dispatch``: score-then-update stays ordered call by call, so the
     engine runs it at depth 1."""
 
@@ -366,20 +366,14 @@ class ZScoreBackend:
 
     @torch.inference_mode()
     def score(self, batch: Any, features: SpanFeatures) -> np.ndarray:
-        n = len(features)
-        if n == 0:
+        if len(features) == 0:
             return np.zeros(0, np.float32)
-        det = self.det
-        st = det.stage(features)
-        self.last_shape = [int(st.cat.shape[0])]
-        _, scores, cold = zscore_score(
-            *det.state, st.cat, st.x, det.n_groups, det.min_count,
-            squash=True, n_valid=n)
-        if self.cfg.online_update:
-            det.update_staged(st)
-        out = scores[:n].cpu().numpy()  # waits for the score and the fold
-        self.cold_spans += int(cold.item())
-        return out
+        st = self.det.stage(features)
+        self.last_shape = [st.bucket]
+        scores, cold = self.det.score_staged(st,
+                                             update=self.cfg.online_update)
+        self.cold_spans += cold
+        return scores
 
     def warm(self) -> None:
         """``warm_ladder``: every span bucket the coalescer can emit gets

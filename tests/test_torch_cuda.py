@@ -30,6 +30,8 @@ squashed score are IEEE-rounded the same way, within ``ZS_Z_RTOL``.
 """
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -293,7 +295,8 @@ def _mix(kind: str, n: int, otel_mix, seed: int = 0):
     rng = np.random.default_rng(seed)
     if kind == "otel":
         cat, x = otel_mix
-        assert len(x) >= n
+        if len(x) < n:  # past the fixture's 140k spans: the traffic again
+            return np.resize(cat, (n, 2)), np.resize(x, n)
         return cat[:n], x[:n]
     x = rng.normal(9.0, 1.5, n).astype(np.float32)
     if kind == "uniform":
@@ -368,17 +371,20 @@ def test_zscore_detector_warm_is_bit_safe_on_the_card(dev, otel_mix):
     torch.cuda.synchronize()
     for a, b in zip(before, det.state):
         assert torch.equal(a, b)
-    assert sorted(b for b, _ in det._staging) == [
+    assert sorted(det._staging) == [
         4096, 8192, 16384, 32768, 65536, 131072]
 
 
 def test_zscore_200_updates_do_not_drift_from_the_plain_stream(dev,
                                                                otel_mix):
+    """200 calls of K3 alone, and of the one launch in place (scoring each
+    batch on the state before it), against the plain stream."""
     rng = np.random.default_rng(11)
     cat_np, x_np = otel_mix
     G = 8192
     k = [torch.zeros(G, device=dev) for _ in range(3)]
     p = [t.clone() for t in k]
+    one = [t.clone() for t in k]
     scratch = zscore.new_scratch(G, dev)
     for i in range(200):
         n = int(rng.integers(1, 6000))
@@ -387,9 +393,110 @@ def test_zscore_200_updates_do_not_drift_from_the_plain_stream(dev,
         x = torch.from_numpy(x_np[lo:lo + n]).to(dev)
         w = torch.ones_like(x)
         k = zscore.zscore_update(*k, cat, x, w, G, scratch=scratch)
+        r = zscore.zscore_score_update(*one, cat, x, G, 32, scratch=scratch,
+                                       inplace=True)
+        s_ref = zscore.squash_plain(zscore.zscore_score_plain(
+            *p, cat, x, G, 32))
+        assert ((r.scores - s_ref).abs() <= ZS_Z_RTOL).all()
         p = zscore.zscore_update_plain(*p, cat, x, w, G)
     torch.cuda.synchronize()
     _assert_zs_state(k, p)
+    _assert_zs_state(one, p)
+    assert not scratch.any()
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("mix", ["otel", "single"])
+@pytest.mark.parametrize("G", [8192, ZS_GLOBAL_G])
+@pytest.mark.parametrize("N", [1, 31, 4096, 65536, 131072, 200_000])
+def test_zscore_one_launch_matches_plain(dev, otel_mix, N, G, mix, inplace):
+    """K4 then K3 in one launch (``zscore_score_update``) against the plain
+    version (``zscore_score_plain`` on the old state, then
+    ``zscore_update_plain``), on both routes, 200,000 spans being more
+    than the grid has threads; the state written in place (the output
+    aliasing the input) or out of place; cold counted among the first
+    n_valid < N spans; one device launch."""
+    _one_launch_case(dev, otel_mix, N, G, mix, inplace)
+
+
+def _zs_held() -> int:
+    """kHeld of ``csrc/zscore.cu``: the spans a thread keeps in registers."""
+    src = (Path(zscore.__file__).parent / "csrc" / "zscore.cu").read_text()
+    return int(re.search(r"constexpr int kHeld = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("mix", ["otel", "single"])
+@pytest.mark.parametrize("N,G", [(300_000, 8192), (600_000, 8192),
+                                 (1_200_000, ZS_GLOBAL_G)])
+def test_zscore_one_launch_past_the_held_spans_matches_plain(
+        dev, otel_mix, N, G, mix, inplace):
+    """The one launch where a thread takes more spans than the kHeld it
+    keeps in registers (each of the others reloaded in every pass, its
+    group's state gathered in the score), on both routes. A shared-route
+    CTA's 2 x G sums leave room for one CTA an SM, a global-route one
+    holds at most 2048 threads an SM: these N give every thread more
+    than kHeld spans."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads_an_sm = 512 if zscore.update_route(G) == "shared" else 2048
+    assert N > _zs_held() * sms * threads_an_sm
+    _one_launch_case(dev, otel_mix, N, G, mix, inplace)
+
+
+def _one_launch_case(dev, otel_mix, N: int, G: int, mix: str,
+                     inplace: bool) -> None:
+    state = _zs_state(dev, G, otel_mix)
+    cat_np, x_np = _mix(mix, N, otel_mix)
+    cat = torch.from_numpy(np.ascontiguousarray(cat_np)).to(dev)
+    x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev)
+    n_valid = N - N // 3
+    ref_state, ref_s, ref_cold = zscore.zscore_score_update_plain(
+        *state, cat, x, G, 32, n_valid=n_valid)
+    scratch = zscore.new_scratch(G, dev)
+    counts = (zscore.device_launches, zscore.score_launches,
+              zscore.update_launches)
+    mine = [t.clone() for t in state] if inplace else state
+    r = zscore.zscore_score_update(*mine, cat, x, G, 32, n_valid=n_valid,
+                                   scratch=scratch, inplace=inplace)
+    torch.cuda.synchronize()
+    assert (zscore.device_launches, zscore.score_launches,
+            zscore.update_launches) == tuple(c + 1 for c in counts)
+    if inplace:
+        assert all(a is b for a, b in zip(r.state, mine))
+    _assert_zs_state(r.state, ref_state)
+    assert not scratch.any()
+    assert ((r.scores - ref_s).abs() <= ZS_Z_RTOL).all()
+    assert int(r.cold) == int(ref_cold)
+
+
+@pytest.mark.parametrize("G", [8192, ZS_GLOBAL_G])
+def test_zscore_one_launch_score_only_and_zero_weights(dev, otel_mix, G):
+    """Score only (``update=False``, the engine without online_update)
+    leaves the state untouched; all-zero weights in place leave it bit
+    for bit while the scores are still the plain version's."""
+    state = _zs_state(dev, G, otel_mix)
+    before = [t.clone() for t in state]
+    cat, x = (torch.from_numpy(a[:65536]).to(dev) for a in otel_mix)
+    _, ref_s, ref_cold = zscore.zscore_score_update_plain(*state, cat, x,
+                                                          G, 32)
+    scratch = zscore.new_scratch(G, dev)
+    only = zscore.zscore_score_update(*state, cat, x, G, 32, update=False)
+    # the engine's way: the caller's buffer, its cold word 0 on entry
+    out = torch.full((len(x) + 1,), float("nan"), device=dev)
+    out[:1].view(torch.int32).zero_()
+    mine = zscore.zscore_score_update(*state, cat, x, G, 32, update=False,
+                                      out=out)
+    zero = zscore.zscore_score_update(*state, cat, x, G, 32,
+                                      weights=torch.zeros_like(x),
+                                      scratch=scratch, inplace=True)
+    torch.cuda.synchronize()
+    assert only.state is None and mine.out is out
+    for r in (only, mine, zero):
+        assert ((r.scores - ref_s).abs() <= ZS_Z_RTOL).all()
+        assert int(r.cold) == int(ref_cold)
+    for a, b in zip(state, before):
+        assert torch.equal(a, b)
+    assert not scratch.any()
 
 
 def test_zscore_kernels_refuse_what_they_do_not_take(dev):
@@ -407,9 +514,10 @@ def test_zscore_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_gpu_zscore_engine_scores_like_the_cpu_engine(dev):
-    """The card's zscore engine (staging, K4 then K3 per call, one wait)
-    against the CPU engine (plain versions) over the same warm-up and
-    stream; one K3 and one K4 call per engine call."""
+    """The card's zscore engine (12 bytes a real span staged, K4 and K3 in
+    ONE launch a call, one copy back, one wait) against the CPU engine
+    (plain versions) over the same warm-up and stream; one K3 and one K4
+    a call, one device launch a call."""
     gpu = ScoringEngine(EngineConfig(model="zscore", device="cuda",
                                      warm_ladder=True))
     cpu = ScoringEngine(EngineConfig(model="zscore", device="cpu"))
@@ -420,6 +528,7 @@ def test_gpu_zscore_engine_scores_like_the_cpu_engine(dev):
                for i in range(6)]
     gpu.start()
     u0, s0 = zscore.update_launches, zscore.score_launches
+    d0 = zscore.device_launches
     try:
         for b in batches:
             got = gpu.score_sync(b, timeout_s=120)
@@ -432,6 +541,8 @@ def test_gpu_zscore_engine_scores_like_the_cpu_engine(dev):
     assert stats["pipeline_depth"] == 1 and stats["errors"] == 0
     assert zscore.update_launches - u0 == stats["device_calls"] == 6
     assert zscore.score_launches - s0 == 6
+    assert zscore.device_launches - d0 == 6  # one launch an engine call
+    assert gpu.backend.cold_spans == cpu.backend.cold_spans
     _assert_zs_state(gpu.backend.det.state, [
         t.to(dev) for t in cpu.backend.det.state])
 

@@ -13,7 +13,15 @@ at an engine call's own shape: 4096 traces packed by K13 into R =
 ``round_rows(n)`` rows, with K13's trace count where the wrapper takes
 one), K8 ``span_head_scatter`` (the default transformer's encoder output
 over next-fit's rows at the span buckets N = 4096, 65536 and 131072) and
-K14 ``ln_bf16`` (LN1 at R = 2048, the autoencoder's d 128 at T = 2048)
+K14 ``ln_bf16`` (LN1 at R = 2048, the autoencoder's d 128 at T = 2048),
+and the zscore detector's K3 ``zscore_update`` and K4 ``zscore_score``
+(``squash=True``) on ``chip_smoke``'s otel-demo and single-group mixes at
+N = 4096, 65536 and 131072 spans, G = 8192, each alone and as an engine
+call launches them (``zscore_score_update``: the one-launch function in
+place on the two id columns where the checkout has it, else K4, its cold
+counter's fill and K3 in turn; ``zscore_score_only``: an engine call
+without the online update, the one launch's score alone into a buffer
+whose cold word the caller zeroed, else K4 and its fill)
 with ``chip_smoke.device_ms`` (CUDA-event medians, L2 flushed, the host's
 enqueue kept out) on the smoke run's own inputs. It uses only what the
 checkout it sits in already had before this script (``chip_smoke``'s
@@ -34,7 +42,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("segment_attention", "ln_quantize", "ln_bf16", "recon_ce",
-           "ln_masked_pool", "span_head_scatter")
+           "ln_masked_pool", "span_head_scatter", "zscore_update",
+           "zscore_score", "zscore_score_update", "zscore_score_only")
+ZSCORE = ("zscore_update", "zscore_score", "zscore_score_update",
+          "zscore_score_only")
 
 
 def main() -> int:
@@ -79,6 +90,10 @@ def main() -> int:
         print(json.dumps({"label": args.label, "kernel": kernel, **shape,
                           "device_ms": ms, "card": card}), flush=True)
 
+    with torch.inference_mode():
+        _zscore_times(names, emit, dev)
+    if not names - set(ZSCORE):
+        return 0
     cfg = TransformerConfig()
     H, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
     with torch.inference_mode():
@@ -214,6 +229,68 @@ def main() -> int:
                 emit("span_head_scatter", {"N": N, "n": n, "R": R},
                      lambda hargs=hargs: head.span_head_scatter(*hargs))
     return 0
+
+
+def _zscore_times(names: set, emit, dev) -> None:
+    """K3 and K4 on phase 4's inputs: from a state fitted on 20,000 otel
+    spans, each alone on the ``(N, C)`` featurized ids, and an engine
+    call's launches on the staged batch."""
+    if not names & set(ZSCORE):
+        return
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch.kernels import zscore
+
+    G, mc = chip_smoke.ZS_G, chip_smoke.ZS_MIN_COUNT
+    one_launch = hasattr(zscore, "zscore_score_update")
+    mixes = chip_smoke._zs_mixes(max(chip_smoke.ZS_N))
+    cat0, x0 = (torch.from_numpy(a[:20000]).to(dev) for a in mixes["otel"])
+    zero = [torch.zeros(G, device=dev) for _ in range(3)]
+    state = zscore.zscore_update_plain(*zero, cat0, x0, torch.ones_like(x0),
+                                       G)
+    sums = zscore.new_scratch(G, dev)
+    for mix, (cat_np, x_np) in mixes.items():
+        for N in chip_smoke.ZS_N:
+            cat = torch.from_numpy(cat_np[:N]).to(dev)
+            x = torch.from_numpy(x_np[:N]).to(dev)
+            w = torch.ones_like(x)
+            shape = {"N": N, "mix": mix, "G": G}
+            emit("zscore_update", shape,
+                 lambda cat=cat, x=x, w=w: zscore.zscore_update(
+                     *state, cat, x, w, G, scratch=sums))
+            emit("zscore_score", shape,
+                 lambda cat=cat, x=x: zscore.zscore_score(
+                     *state, cat, x, G, mc, squash=True))
+            if one_launch:
+                # the engine's own call: the staged (n, 2) ids, the state
+                # updated in place (a copy, so the others keep theirs)
+                # and the caller's buffer for the scores, its cold word
+                # zeroed (the engine's host-to-device copy does that)
+                ids = cat[:, :2].contiguous()
+                own = [t.clone() for t in state]
+                out = torch.zeros(N + 1, device=dev)
+                emit("zscore_score_update", {**shape, "launches": 1},
+                     lambda ids=ids, x=x, own=own, out=out:
+                     zscore.zscore_score_update(*own, ids, x, G, mc,
+                                                scratch=sums, inplace=True,
+                                                out=out))
+                emit("zscore_score_only", {**shape, "launches": 1},
+                     lambda ids=ids, x=x, out=out: zscore.zscore_score_update(
+                         *state, ids, x, G, mc, update=False, out=out))
+            else:
+                emit("zscore_score_only", {**shape, "launches": "K4 + fill"},
+                     lambda cat=cat, x=x: zscore.zscore_score(
+                         *state, cat, x, G, mc, squash=True, n_valid=N))
+                # the engine's sequence: K4 with its cold counter's fill,
+                # then K3 with the staged weights
+                emit("zscore_score_update", {**shape, "launches": "K4 + "
+                                             "fill + K3"},
+                     lambda cat=cat, x=x, w=w: (
+                         zscore.zscore_score(*state, cat, x, G, mc,
+                                             squash=True, n_valid=N),
+                         zscore.zscore_update(*state, cat, x, w, G,
+                                              scratch=sums)))
 
 
 if __name__ == "__main__":

@@ -41,7 +41,11 @@ ring of 1, 2 or 8 stages (not 4), a position a warp, without the count,
 the mask listing alone; K8 ``span_head_scatter`` on the default
 transformer's encoder output at N = 4096, 65536 and 131072: the bytes
 alone, no prefetch, a span a warp, two vectors a lane at d 256, f32
-statistics in place of the exact LayerNorm).
+statistics in place of the exact LayerNorm; K3 + K4's one launch
+``zscore_score_update`` as an engine call makes it, on phase 4's otel and
+single-group mixes at N = 4096, 65536 and 131072: the barriers alone (no
+span work), no pass B, 2 or 4 spans a thread in place of one, CTAs of
+1024 threads in place of 512).
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -505,6 +509,24 @@ VARIANTS = {
             "wgmma.wait_group.sync.aligned 1;":
                 "wgmma.wait_group.sync.aligned 0;"},
     },
+    "zscore_score_update": {
+        # no span work: the launch, the bit maps' zeroing, the barriers
+        # and the merge's scan of the bit map
+        "barriers_only": {"  const int per = a.per;":
+                          "  const int per = 0;"},
+        # no pass B (its flush adds zeros)
+        "no_pass_b": {"  for_each(pass_b, false);": "  (void)pass_b;"},
+        # several spans a thread (a half or a quarter of the CTAs; held in
+        # registers from the first pass to the last)
+        "spans_2": {"constexpr int kSpansPerThread = 1;":
+                    "constexpr int kSpansPerThread = 2;"},
+        "spans_4": {"constexpr int kSpansPerThread = 1;":
+                    "constexpr int kSpansPerThread = 4;"},
+        # CTAs of 1024 threads (one an SM, as 512 are: the sums' shared
+        # memory)
+        "threads_1024": {"constexpr int kThreads = 512;":
+                         "constexpr int kThreads = 1024;"},
+    },
 }
 
 
@@ -523,7 +545,41 @@ LAUNCHERS = {"segment_attention": ("segment_attention",
              "gemm_bf16": ("dense", "gemm_bf16_launch"),
              "ln_bf16": ("dense", "ln_bf16_launch"),
              "ln_masked_pool": ("ae_pool", "ln_masked_pool_launch"),
-             "span_head_scatter": ("span_head", "span_head_launch")}
+             "span_head_scatter": ("span_head", "span_head_launch"),
+             "zscore_score_update": ("zscore", "zscore_step_launch")}
+
+
+def _zscore_cases(dev) -> list:
+    """K3 + K4's one launch as an engine call makes it (the staged (N, 2)
+    ids, the state updated in place, the caller's buffer for the scores)
+    on phase 4's otel-demo and single-group mixes at N = 4096, 65536 and
+    131072, G = 8192, from a state fitted on 20,000 otel spans."""
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch.kernels import zscore
+
+    G = chip_smoke.ZS_G
+    mixes = chip_smoke._zs_mixes(max(chip_smoke.ZS_N))
+    cat0, x0 = (torch.from_numpy(a[:20000]).to(dev) for a in mixes["otel"])
+    zero = [torch.zeros(G, device=dev) for _ in range(3)]
+    state = zscore.zscore_update_plain(*zero, cat0, x0, torch.ones_like(x0),
+                                       G)
+    sums = zscore.new_scratch(G, dev)
+    cases = []
+    for mix, (cat_np, x_np) in mixes.items():
+        for N in chip_smoke.ZS_N:
+            ids = torch.from_numpy(cat_np[:N, :2].copy()).to(dev)
+            x = torch.from_numpy(x_np[:N]).to(dev)
+            own = [t.clone() for t in state]
+            out = torch.zeros(N + 1, device=dev)  # the cold word zeroed
+            cases.append(("zscore_score_update", {"N": N, "mix": mix,
+                                                  "G": G},
+                          lambda ids=ids, x=x, own=own, out=out:
+                          zscore.zscore_score_update(
+                              *own, ids, x, G, chip_smoke.ZS_MIN_COUNT,
+                              scratch=sums, inplace=True, out=out)))
+    return cases
 
 
 def build_variants(tmp: str, built: dict, names) -> dict:
@@ -582,7 +638,7 @@ def main() -> int:
     import chip_smoke
     from odigos_tpu_torch.kernels import (attention, build, dense, embed,
                                           featurize, head, pack, pool,
-                                          qgemm, quant, recon, sort)
+                                          qgemm, quant, recon, sort, zscore)
     from odigos_tpu_torch.models import (AutoencoderConfig,
                                          QuantizedTraceScorer,
                                          SpanAutoencoder, TraceTransformer,
@@ -600,7 +656,8 @@ def main() -> int:
                "radix_sort": sort, "next_fit_pack": pack, "recon_ce": recon,
                "gemm_bf16": dense, "ln_bf16": dense,
                "featurize_columns": featurize, "trace_rows_pack": pack,
-               "ln_masked_pool": pool, "span_head_scatter": head}
+               "ln_masked_pool": pool, "span_head_scatter": head,
+               "zscore_score_update": zscore}
     # a wrapper's launcher kept under its own names (getter, cache)
     own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn")}
 
@@ -834,6 +891,8 @@ def main() -> int:
                       lambda: dense.ln_bf16(x256, blk.ln1.weight,
                                             blk.ln1.bias, live=real,
                                             per=64)))
+    if "zscore_score_update" in names:
+        cases += _zscore_cases(dev)
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():

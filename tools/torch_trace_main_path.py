@@ -32,9 +32,12 @@ prints one JSON line with:
   (the memset clearing K5's join table among them), other),
   each category's share of the busy time, and the top kernels by device
   time;
-* each hand-written kernel by name (K1-K15: K3, K5, K7, K11 and K13
-  are several kernels each), with its launches and device ms per engine
-  call;
+* each hand-written kernel by name (K1-K15: K5, K7, K11 and K13 are
+  several kernels each; K3 and K4 one kernel since their redesign, three
+  and one before it), with its launches and device ms per engine call;
+* the copies a call: host→device and device→host bytes (from the
+  trace's memcpy records), their count and their device ms, and the
+  memsets (fills) a call;
 * the engine's stage medians (pack stage, device stage).
 
 With ``--no-profile`` the same requests run without the profiler and the
@@ -55,11 +58,13 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 CATEGORIES = (
     ("K1 segment_attention", ("segment_attention",)),
     ("K2 span_embed", ("span_embed",)),
+    ("K3+K4 zscore_score_update", ("zscore_step",)),
     ("K3 zscore_update", ("zscore_pass", "zscore_merge")),
     ("K4 zscore_score", ("zscore_score",)),
     ("K5 featurize_columns", ("featurize_insert_kernel",
@@ -189,6 +194,7 @@ def measure(args, quantized: bool, card: str) -> dict:
         rec[0] += ms
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    copies = copies_per_call(prof, args.requests)
     return {
         **out, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
@@ -205,7 +211,39 @@ def measure(args, quantized: bool, card: str) -> dict:
                             "launches": v[1] / args.requests}
             for n, v in sorted(by_name.items())
             if category(n).startswith("K")},
+        "copies_per_call": copies,
         "engine": stats}
+
+
+def copies_per_call(prof, requests: int) -> dict:
+    """Host→device and device→host copies and the memsets a call: bytes,
+    count and device ms, read from the trace's device memcpy and memset
+    records (Kineto writes each one's bytes into its ``args``); "not
+    measured" where no record has them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out: dict = {}
+    for e in events:
+        cat = e.get("cat")
+        if cat not in ("gpu_memcpy", "gpu_memset") or e.get("ph") != "X":
+            continue
+        name = str(e.get("name", ""))
+        kind = ("memset" if cat == "gpu_memset" else "HtoD" if "HtoD" in name
+                else "DtoH" if "DtoH" in name else "DtoD" if "DtoD" in name
+                else "other")
+        rec = out.setdefault(kind, {"bytes": 0, "count": 0, "ms": 0.0})
+        nbytes = (e.get("args") or {}).get("bytes")
+        if nbytes is None:
+            rec["bytes"] = "not measured"
+        elif rec["bytes"] != "not measured":
+            rec["bytes"] += int(nbytes)
+        rec["count"] += 1
+        rec["ms"] += float(e.get("dur", 0.0)) / 1e3
+    return {k: {f: (v / requests if isinstance(v, (int, float)) else v)
+                for f, v in rec.items()} for k, rec in out.items()}
 
 
 def main() -> int:
