@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — every CUDA source compiled from the checkout (attention,
    span embedding, zscore, trace sort, featurize, trace pack, span head,
    int8 quantize, int8 GEMM, autoencoder pool, reconstruction error,
-   dense chain), one ``nvcc`` per source, all started together;
+   dense chain, and the trainer's attention, LayerNorm, GELU and span
+   embedding backward passes), one ``nvcc`` per source, all started
+   together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -170,8 +172,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the first block's own inputs there held to its plain version and
    timed; at the longest rows (L = 1024) also K13 on one request staged
    as the fused route stages it, every output exact;
-14. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
-   ``{"kernels": [...]}`` line (K1 to K15), then the last line
+14. train kernels — the trainer's backward kernels on the inputs of one
+   real training step at its default shapes (the full-width f32
+   transformer, 63 faulty traces padded to 64 rows of L = 32: padding
+   slots and an all-padding row): K16 ``segment_attention_bwd`` (also at
+   L 128, hd 128 on packed rows, the tiled route), K17 ``ln_bwd``, K18
+   ``span_embed_bwd`` and K19 ``gelu_tanh_bwd``, each held to its plain
+   version (K16 within ``K16_RTOL``, the others ``BWD_EXACT_RTOL`` of the
+   plain output's largest magnitude), K1's log-sum-exp held to the plain
+   ``logsumexp`` on live queries (``LSE_ATOL``) and its output unchanged by
+   the buffer, with the times and bound of phase 3 and the library call
+   (the backward of f32 SDPA under the same mask, of ``F.layer_norm``,
+   ``index_add_`` per table, the backward of ``F.gelu(approximate=
+   "tanh")``);
+15. train path — ``Trainer(TrainConfig(steps=200, traces_per_step=64,
+   max_len=32, seed=0), device="cuda")``: step 0's gradients on the
+   kernels held to the same step through the plain versions on the card,
+   the first ``TRAJ_STEPS`` steps' losses on the kernels held to the same
+   steps through the plain versions (``TRAJ_RTOL``: a kernel fault shows
+   there, where the 200-step AUC also moves with the recipe's chaos),
+   then the 200 steps with every launch counted (K1, K2, K14-K19 at their
+   counts a step) and no plain version called, the loss halved, ROC-AUC
+   >= 0.95 through ``transformer_scorer`` and ``quantized_transformer_
+   scorer`` (1000 held-out traces, seed 999), then ``export`` and an engine
+   with ``checkpoint_path`` scoring a faulty batch on the host and the
+   fused route (within ``FUSED_F32_ATOL`` of each other), each flagging
+   injected-fault spans at 0.5 (flagged precision over twice the base
+   rate); the step's time split into data, forward, backward and
+   optimizer, and traces/s;
+16. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+   ``{"kernels": [...]}`` line (K1 to K19), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -181,6 +211,7 @@ JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1760,12 +1791,18 @@ ALL_COUNTERS = INT8_COUNTERS + (("ln_masked_pool", "pool"),
                                 ("recon_ce", "recon"),
                                 ("recon_ce_tc", "recon", "tc_launches"),
                                 ("trace_rows_pack", "pack", "rows_launches"))
+# the trainer's backward kernels (phase train_path; no serving path runs
+# them)
+BWD_COUNTERS = (("segment_attention_bwd", "attention", "bwd_launches"),
+                ("span_embed_bwd", "embed", "bwd_launches"),
+                ("ln_bwd", "dense", "ln_bwd_launches"),
+                ("gelu_tanh_bwd", "dense", "gelu_bwd_launches"))
 
 
 def _zero_counters() -> None:
     from odigos_tpu_torch import kernels
 
-    for name, mod, *attr in ALL_COUNTERS:
+    for name, mod, *attr in ALL_COUNTERS + BWD_COUNTERS:
         setattr(getattr(kernels, mod), attr[0] if attr else "launches", 0)
     kernels.sort.device_launches = 0
     kernels.featurize.device_launches = 0
@@ -3714,6 +3751,535 @@ def phase_geometry(card: str) -> dict:
     return {"geometries": rows, "kernel_rows": kernel_rows}
 
 
+# ---------------------------------------------------------------- training
+TRAIN_TRACES = 64               # the reference trainer's traces a step
+TRAIN_LEN = 32                  # ... and its max_len
+TRAIN_STEPS = 200               # the north-star fixture's steps
+# K16 vs its plain version, relative to the plain output's largest
+# magnitude: sums of up to L x hd f32 products in another order, then
+# P (dP - Delta), which cancels. K17, K18 and K19 sum the same f32 terms in
+# f64 and round once, every other step the same IEEE op: 1e-6.
+K16_RTOL = 1e-4
+BWD_EXACT_RTOL = 1e-6
+LSE_ATOL = 1e-5                 # K1's log-sum-exp on live queries
+# step 0's gradients, kernels vs the plain versions on the card: each
+# parameter within 1e-4 of its largest gradient, plus 1e-6 of the largest
+# gradient of all (the key biases' true gradient is 0: rounding noise)
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_GRAD_FLOOR = 1e-6
+# the first TRAJ_STEPS steps (the warmup), the kernels' run against the
+# plain versions' run on the card: each step's loss within TRAJ_RTOL of the
+# plain run's. Step 0's gradients agree to ~1e-7 of their largest, and Adam
+# keeps such gaps small while the rate ramps up; a faulty kernel moves a
+# loss by far more. This tells a kernel fault from the recipe's chaos: the
+# 200-step AUC also moves with any change of summation order (ROADMAP
+# queue C item 3)
+TRAJ_STEPS = 20
+TRAJ_RTOL = 1e-3
+AUC_BAR = 0.95                  # BASELINE's north star
+FLAG_THRESHOLD = 0.5            # tests/test_northstar_auc.py's
+FUSED_F32_ATOL = 1e-5           # f32 fused vs host route (K8's head dot)
+TRAIN_COUNTERS = (("segment_attention", "attention"),
+                  ("span_embed", "embed")) + DENSE_COUNTERS + BWD_COUNTERS
+BWD_PLAINS = (("attention", "segment_attention_bwd_plain"),
+              ("dense", "ln_bwd_plain"), ("dense", "gelu_tanh_bwd_plain"),
+              ("embed", "span_embed_bwd_plain"),
+              ("attention", "segment_attention_plain"),
+              ("dense", "ln_bf16_plain"), ("dense", "gemm_bf16_plain"),
+              ("embed", "span_embed_plain"))
+
+
+def _rel_check(got, ref, rtol: float, what: str) -> tuple[float, float]:
+    """max |got - ref| against rtol x max |ref|; both returned."""
+    import torch
+
+    lim = rtol * ref.abs().max().item()
+    diff = (got - ref).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(diff <= lim, f"{what}: max |kernel - plain| {diff} > {lim}")
+    return diff, lim
+
+
+class _PlainCalls:
+    """Counts the calls of the plain versions (BWD_PLAINS) while on: the
+    training path on the card must make none."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self._saved: list = []
+
+    def __enter__(self):
+        from odigos_tpu_torch import kernels
+
+        for mod, name in BWD_PLAINS:
+            m = getattr(kernels, mod)
+            real = getattr(m, name)
+            self._saved.append((m, name, real))
+
+            def counted(*a, _real=real, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(*a, **k)
+
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, real in self._saved:
+            setattr(m, name, real)
+
+
+def _capture_backward_inputs(model, data):
+    """One training step's forward and backward on the card, recording the
+    first inputs each backward kernel (K16-K19) is handed, and K1's."""
+    from odigos_tpu_torch import kernels
+
+    seen: dict = {}
+    wrapped = (("attention", "segment_attention"),
+               ("attention", "segment_attention_bwd"),
+               ("dense", "ln_bwd"), ("dense", "gelu_tanh_bwd"),
+               ("embed", "span_embed_bwd"))
+    saved = []
+    for mod, name in wrapped:
+        m = getattr(kernels, mod)
+        real = getattr(m, name)
+        saved.append((m, name, real))
+
+        def rec(*a, _real=real, _name=name, **k):
+            if _name not in seen:
+                seen[_name] = ([t.clone() if hasattr(t, "clone") else t
+                                for t in a], dict(k))
+            return _real(*a, **k)
+
+        setattr(m, name, rec)
+    try:
+        model.module.train()
+        model.module.zero_grad(set_to_none=True)
+        model.loss_fn(data.categorical, data.continuous, data.mask,
+                      data.span_labels, data.trace_labels).backward()
+    finally:
+        model.module.eval()
+        for m, name, real in saved:
+            setattr(m, name, real)
+    return seen
+
+
+def _k16_row(q, k, v, seg, o, lse, do, flush, what: str) -> dict:
+    """K16 on (q, k, v, seg, O, LSE, dO) held to its plain version, timed
+    beside it and beside the backward of f32 SDPA under the same mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import attention
+
+    R, L, H, hd = q.shape
+    got = attention.segment_attention_bwd(q, k, v, seg, o, lse, do)
+    ref = attention.segment_attention_bwd_plain(q, k, v, seg, o, lse, do)
+    torch.cuda.synchronize()
+    diffs = [_rel_check(a, b, K16_RTOL, f"segment_attention_bwd {what} {n}")
+             for a, b, n in zip(got, ref, ("dq", "dk", "dv"))]
+    segl = seg.long()
+    allowed = ((segl[:, :, None] == segl[:, None, :])
+               & (segl[:, :, None] > 0))[:, None]
+    qt, kt, vt = (t.transpose(1, 2).detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    pairs = int(allowed.sum().item())
+    n_live = int((seg > 0).sum().item())
+    # what the function needs: q, k, v, O and the LSE at the live slots
+    # only (a padding query's dS is 0, and no live query reads a padding
+    # key), dO at every slot (a padding query adds dO / L to each dV), the
+    # segments; dq, dk, dv written in full
+    nbytes = (4 * n_live * H * hd * 4 + n_live * H * 4
+              + R * L * H * hd * 4 + R * L * 4 + 3 * R * L * H * hd * 4)
+    flops = 10 * pairs * H * hd  # S, dP, dV, dQ, dK over the allowed pairs
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "segment_attention_bwd", "shape": [R, L, H, hd],
+           "max_abs_diff": max(d for d, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           "per_output": {n: {"max_abs_diff": d, "bound": lim}
+                          for n, (d, lim) in zip(("dq", "dk", "dv"), diffs)},
+           **timings(lambda: attention.segment_attention_bwd(
+               q, k, v, seg, o, lse, do),
+               lambda: attention.segment_attention_bwd_plain(
+                   q, k, v, seg, o, lse, do), library, flush),
+           "library": "autograd.grad of f32 scaled_dot_product_attention "
+                      "under the same boolean mask",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops, "allowed_pairs": pairs, "live_slots": n_live}
+    row.update(_ratios(row))
+    return row
+
+
+def phase_train_kernels(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.features import pack_sequences
+    from odigos_tpu_torch.kernels import attention, dense, embed
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.training import labeled_sequences
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    cfg = TransformerConfig(max_len=TRAIN_LEN, dtype=torch.float32)
+    model = TraceTransformer(cfg, device=dev, seed=0)
+    # a real step on faulty traffic, with padding slots and one
+    # all-padding row (63 traces padded to the step's 64 rows)
+    data = labeled_sequences(TRAIN_TRACES - 1, max_len=TRAIN_LEN, seed=0,
+                             pad_traces_to=TRAIN_TRACES)
+    check(not data.mask[-1].any() and (~data.mask[:-1]).any(),
+          "train_kernels: the step lacks padding slots or a padding row")
+    seen = _capture_backward_inputs(model, data)
+    check(set(seen) == {"segment_attention", "segment_attention_bwd",
+                        "ln_bwd", "gelu_tanh_bwd", "span_embed_bwd"},
+          f"train_kernels: backward kernels not reached: {sorted(seen)}")
+    results: dict = {}
+
+    # ---- K1's log-sum-exp, on the step's own q, k, v
+    (q, k, v, seg, lse_buf), _ = seen["segment_attention"]
+    R, L, H, hd = q.shape
+    lse_k = torch.empty(R, H, L, device=dev)
+    lse_p = torch.empty(R, H, L, device=dev)
+    o_k = attention.segment_attention(q, k, v, seg, lse_k)
+    attention.segment_attention_plain(q, k, v, seg, lse_p)
+    o_nolse = attention.segment_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    check(torch.equal(o_k, o_nolse),
+          "segment_attention: the output changes with the LSE buffer")
+    live = (seg > 0)[:, None, :].expand(R, H, L)
+    lse_diff = (lse_k - lse_p)[live].abs().max().item()
+    check(lse_diff <= LSE_ATOL, f"segment_attention LSE: max |kernel - "
+                                f"plain| on live queries {lse_diff} > "
+                                f"{LSE_ATOL}")
+    results["lse"] = {"route": attention.kernel_route(q, k, v, seg),
+                      "max_abs_diff": lse_diff, "bound": LSE_ATOL}
+
+    # ---- K16 at the step's shapes (simt route forward), then the tiled
+    # route's shapes: L 128, hd 128 on rows of real packed traffic
+    args, _ = seen["segment_attention_bwd"]
+    results["segment_attention_bwd"] = _k16_row(*args[:7], flush, "step")
+    pk = pack_sequences(synthesize_traces(600, seed=21), max_len=128,
+                        pad_rows_to=lambda r: r + 2)
+    seg2 = torch.from_numpy(pk.segments).to(dev).contiguous()
+    R2, L2 = seg2.shape
+    g = torch.Generator().manual_seed(17)
+    q2, k2, v2, do2 = (torch.randn(R2, L2, 2, 128, generator=g).to(dev)
+                       for _ in range(4))
+    do2 = (do2 * (seg2 > 0)[..., None, None]).contiguous()
+    lse2 = torch.empty(R2, 2, L2, device=dev)
+    check(attention.kernel_route(q2, k2, v2, seg2) == "tiled",
+          "segment_attention L128 hd128 f32: not on the tiled route")
+    o2 = attention.segment_attention(q2, k2, v2, seg2, lse2)
+    lse2_p = torch.empty_like(lse2)
+    attention.segment_attention_plain(q2, k2, v2, seg2, lse2_p)
+    live2 = (seg2 > 0)[:, None, :].expand(R2, 2, L2)
+    lse2_diff = (lse2 - lse2_p)[live2].abs().max().item()
+    check(lse2_diff <= LSE_ATOL, f"tiled LSE {lse2_diff} > {LSE_ATOL}")
+    results["lse_tiled"] = {"route": "tiled", "max_abs_diff": lse2_diff,
+                            "bound": LSE_ATOL}
+    results["segment_attention_bwd_L128_hd128"] = _k16_row(
+        q2, k2, v2, seg2, o2, lse2, do2, flush, "L128 hd128")
+
+    # ---- K17 on the step's first LayerNorm gradient (the final LN's)
+    x, w, dy = seen["ln_bwd"][0][:3]
+    got = dense.ln_bwd(x, w, dy)
+    ref = dense.ln_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"ln_bwd {n}")
+             for a, b, n in zip(got, ref, ("dx", "dgamma", "dbeta"))]
+    rows_, d = x.numel() // x.shape[-1], x.shape[-1]
+    xr = x.detach().clone().requires_grad_()
+    wr = w.detach().clone().requires_grad_()
+    br = torch.zeros_like(wr).requires_grad_()
+    yl = F.layer_norm(xr, (d,), wr, br, 1e-6)
+
+    def ln_library():
+        return torch.autograd.grad(yl, (xr, wr, br), dy, retain_graph=True)
+
+    nbytes = 3 * rows_ * d * 4 + 3 * d * 4
+    flops = 16 * rows_ * d
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "ln_bwd", "shape": [rows_, d],
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           **timings(lambda: dense.ln_bwd(x, w, dy),
+                     lambda: dense.ln_bwd_plain(x, w, dy), ln_library,
+                     flush),
+           "library": "autograd.grad of F.layer_norm",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    results["ln_bwd"] = row
+
+    # ---- K19 on FFN1's gradient and pre-activation of the last block
+    dyg, pre = seen["gelu_tanh_bwd"][0][:2]
+    got = dense.gelu_tanh_bwd(dyg, pre)
+    ref = dense.gelu_tanh_bwd_plain(dyg, pre)
+    torch.cuda.synchronize()
+    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"gelu_tanh_bwd {n}")
+             for a, b, n in zip(got, ref, ("dpre", "db"))]
+    M, N = pre.shape
+    pr = pre.detach().clone().requires_grad_()
+    yg = F.gelu(pr, approximate="tanh")
+
+    def gelu_library():
+        return torch.autograd.grad(yg, pr, dyg, retain_graph=True)
+
+    nbytes = 3 * M * N * 4 + N * 4
+    flops = 24 * M * N
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "gelu_tanh_bwd", "shape": [M, N],
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           **timings(lambda: dense.gelu_tanh_bwd(dyg, pre),
+                     lambda: dense.gelu_tanh_bwd_plain(dyg, pre),
+                     gelu_library, flush),
+           "library": "autograd.grad of F.gelu(approximate='tanh') (no "
+                      "bias sum)",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    results["gelu_tanh_bwd"] = row
+
+    # ---- K18 on the embedding's gradient of the step
+    dye, cat, pos, segs, tables = seen["span_embed_bwd"][0][:5]
+    got = embed.span_embed_bwd(dye, cat, pos, segs, tables)
+    ref = embed.span_embed_bwd_plain(dye, cat, pos, segs, tables)
+    torch.cuda.synchronize()
+    names = ("service", "name", "kind", "status", "pos")
+    diffs = [_rel_check(getattr(got, n), getattr(ref, n), BWD_EXACT_RTOL,
+                        f"span_embed_bwd {n}") for n in names]
+    Rm, Lm, C = cat.shape
+    d = dye.shape[-1]
+    live_slots = (segs > 0).reshape(-1)
+    flat = dye.reshape(-1, d)
+    c2 = cat.reshape(-1, C).long()
+    specs = [(tables.service, c2[:, 0].clamp(0, tables.service.shape[0] - 1)),
+             (tables.service, c2[:, 4].clamp(0, tables.service.shape[0] - 1)),
+             (tables.name, c2[:, 1].clamp(0, tables.name.shape[0] - 1)),
+             (tables.kind, c2[:, 2].clamp(0, embed.KIND_VOCAB - 1)),
+             (tables.status, c2[:, 3].clamp(0, embed.STATUS_VOCAB - 1)),
+             (tables.pos, pos.reshape(-1).long().clamp(
+                 0, tables.pos.shape[0] - 1))]
+    specs = [(t, ids[live_slots]) for t, ids in specs]
+    dy_live = flat[live_slots].contiguous()
+
+    def embed_library():
+        return [torch.zeros_like(t).index_add_(0, ids, dy_live)
+                for t, ids in specs]
+
+    n_live = int(live_slots.sum().item())
+    out_rows = sum(t.shape[0] for t in (tables.service, tables.name,
+                                        tables.kind, tables.status,
+                                        tables.pos))
+    # what the function needs: the segments at every slot, then dy and the
+    # C + 1 ids (columns and position) at the live slots only, and the
+    # tables' gradients written
+    nbytes = (Rm * Lm * 4 + n_live * d * 4 + n_live * (C + 1) * 4
+              + out_rows * d * 4)
+    flops = 6 * n_live * d  # one add a gathered value
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "span_embed_bwd", "shape": [Rm, Lm, d],
+           "live_slots": n_live,
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           **timings(lambda: embed.span_embed_bwd(dye, cat, pos, segs,
+                                                  tables),
+                     lambda: embed.span_embed_bwd_plain(dye, cat, pos, segs,
+                                                        tables),
+                     embed_library, flush),
+           "library": "index_add_ per table (6 calls: service twice, name, "
+                      "kind, status, pos)",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    results["span_embed_bwd"] = row
+    out = {"phase": "train_kernels", "card": card,
+           "config": "TransformerConfig(max_len=32, dtype=float32): d256 h4 "
+                     "l4 ff1024, a step of 63 faulty traces padded to 64",
+           **{k: v for k, v in results.items()}}
+    emit(out)
+    return out
+
+
+def _flag_batch():
+    from odigos_tpu_torch.pdata import inject_faults, synthesize_traces
+
+    clean = synthesize_traces(400, seed=4242)
+    return inject_faults(clean, fault_fraction=0.15, seed=4243)
+
+
+def phase_train_path(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+    from odigos_tpu_torch.serving.engine import FUSED_FRAMES_METRIC
+    from odigos_tpu_torch.serving.fused import extract_columns
+    from odigos_tpu_torch.training import (TrainConfig, Trainer,
+                                           evaluate_detector,
+                                           labeled_sequences, load_bundle)
+    from odigos_tpu_torch.training.evaluate import (
+        quantized_transformer_scorer, transformer_scorer)
+
+    cfg = TrainConfig(steps=TRAIN_STEPS, traces_per_step=TRAIN_TRACES,
+                      max_len=TRAIN_LEN, seed=0)
+    trainer = Trainer(cfg, device="cuda")
+    model = trainer.model
+    # step 0's gradients on the kernels against the plain versions
+    data0 = labeled_sequences(TRAIN_TRACES, max_len=TRAIN_LEN, seed=0,
+                              pad_traces_to=TRAIN_TRACES)
+    args = (data0.categorical, data0.continuous, data0.mask,
+            data0.span_labels, data0.trace_labels)
+    module = model.module
+    module.train()
+    grads = []
+    for reference in (False, True):
+        module.zero_grad(set_to_none=True)
+        model.loss_fn(*args, reference=reference).backward()
+        grads.append({n: p.grad.clone() for n, p in module.named_parameters()})
+    module.zero_grad(set_to_none=True)
+    module.eval()
+    top = max(g.abs().max().item() for g in grads[1].values())
+    grad_worst = 0.0
+    for n, ref in grads[1].items():
+        lim = TRAIN_GRAD_RTOL * ref.abs().max().item() + TRAIN_GRAD_FLOOR * top
+        diff = (grads[0][n] - ref).abs().max().item()
+        check(diff <= lim, f"step 0 gradient {n}: max |kernels - plain| "
+                           f"{diff} > {lim}")
+        grad_worst = max(grad_worst, diff / lim)
+
+    # the first steps, kernels vs plain versions, on the 200-step schedule
+    short = Trainer(dataclasses.replace(cfg, steps=TRAJ_STEPS,
+                                        schedule_steps=TRAIN_STEPS),
+                    device="cuda")
+    traj = short.train().losses
+    traj_plain = short.train(reference=True).losses
+    del short
+    traj_gaps = [abs(a - b) / abs(b) for a, b in zip(traj, traj_plain)]
+    check(len(traj_gaps) == TRAJ_STEPS and all(np.isfinite(traj_gaps)),
+          f"first steps: {traj} vs plain {traj_plain}")
+    worst = int(np.argmax(traj_gaps))
+    check(traj_gaps[worst] <= TRAJ_RTOL,
+          f"step {worst}: loss {traj[worst]} on the kernels vs "
+          f"{traj_plain[worst]} on the plain versions: relative gap "
+          f"{traj_gaps[worst]} > {TRAJ_RTOL}")
+
+    # the training path: counts zeroed just before, read just after
+    _zero_counters()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        res = trainer.train()
+        train_s = time.perf_counter() - t0
+    launches = _read_counters(TRAIN_COUNTERS)
+    check(plain.calls == {}, f"training called plain versions: "
+                             f"{plain.calls}")
+    check(all(v > 0 for v in launches.values()),
+          f"training path launched no time: {launches}")
+    nl = model.cfg.n_layers
+    want = {"span_embed": 1, "span_embed_bwd": 1, "segment_attention": nl,
+            "segment_attention_bwd": nl, "ln_bf16": 2 * nl + 1,
+            "ln_bwd": 2 * nl + 1, "gemm_bf16": 4 * nl, "gelu_tanh_bwd": nl}
+    want = {k: v * TRAIN_STEPS for k, v in want.items()}
+    check(launches == want, f"training launches {launches} != {want}")
+    losses = res.losses
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    check(losses[-1] < losses[0] / 2,
+          f"loss did not halve: {losses[0]} -> {losses[-1]}")
+
+    # the north star on held-out faults, f32 and int8 scorers
+    ev = evaluate_detector(transformer_scorer(model, res.variables,
+                                              max_len=TRAIN_LEN),
+                           n_traces=1000, seed=999)
+    check(ev["auc"] >= AUC_BAR, f"AUC {ev['auc']} < {AUC_BAR}")
+    qev = evaluate_detector(quantized_transformer_scorer(
+        model, res.variables, max_len=TRAIN_LEN), n_traces=1000, seed=999)
+    check(qev["auc"] >= AUC_BAR, f"int8 AUC {qev['auc']} < {AUC_BAR}")
+
+    # export, serve the bundle on both routes, flag injected faults
+    faulty, labels, reports = _flag_batch()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trainer.export(os.path.join(tmp, "bundle"), res.variables)
+        bundle = load_bundle(path)
+        check(bundle.model_config == model.cfg, "bundle geometry differs")
+        engine = ScoringEngine(EngineConfig(model="transformer",
+                                            checkpoint_path=path,
+                                            device="cuda")).start()
+        try:
+            check(engine.backend.max_len == TRAIN_LEN,
+                  "engine did not take the bundle's max_len")
+            scores = []
+            for cols in (None, extract_columns(faulty)[0]):  # one call each
+                req = engine.submit(faulty, columns=cols)
+                check(req is not None, "engine refused a request")
+                check(req.done.wait(120), "engine request timed out")
+                scores.append(req.scores)
+            s_host, s_fused = scores
+            stats = engine.stats()
+            check(stats[FUSED_FRAMES_METRIC] >= 1,
+                  "the columns request did not take the fused route")
+        finally:
+            engine.shutdown()
+    for what, s in (("host", s_host), ("fused", s_fused)):
+        _check_scores(s, len(faulty), f"bundle engine {what} route")
+    route_diff = float(np.abs(s_host - s_fused).max())
+    check(route_diff <= FUSED_F32_ATOL,
+          f"bundle engine: fused vs host route {route_diff} > "
+          f"{FUSED_F32_ATOL}")
+    flags = {}
+    for what, s in (("host", s_host), ("fused", s_fused)):
+        flagged = s >= FLAG_THRESHOLD
+        check(flagged.any() and not flagged.all(),
+              f"{what} route flags {int(flagged.sum())} of {len(s)} spans")
+        precision = float(labels[flagged].mean())
+        check(precision > 2 * labels.mean(),
+              f"{what} route: flagged precision {precision} <= 2 x base "
+              f"rate {labels.mean()}")
+        flags[what] = {"flagged": int(flagged.sum()), "spans": len(s),
+                       "precision": precision,
+                       "recall": float(flagged[labels].mean()),
+                       "base_rate": float(labels.mean())}
+    parts = {k: float(np.median(v[1:])) * 1e3
+             for k, v in res.step_seconds.items()}
+    step_ms = sum(parts.values())
+    out = {"phase": "train_path", "card": card,
+           "config": "TrainConfig(steps=200, traces_per_step=64, max_len=32, "
+                     "seed=0): TransformerConfig d256 h4 l4 ff1024 f32",
+           "step0_grad_worst_ratio_to_bound": grad_worst,
+           "first_steps_vs_plain": {
+               "steps": TRAJ_STEPS, "bound_rel": TRAJ_RTOL,
+               "worst_rel_gap": traj_gaps[worst], "worst_step": worst,
+               "rel_gap_every_5": traj_gaps[::5],
+               "repeat_bit_equal": losses[:TRAJ_STEPS] == traj},
+           "losses_first_last": [losses[0], losses[-1]],
+           "loss_every_20": losses[::20],
+           "auc": ev["auc"], "auc_by_kind": ev["auc_by_kind"],
+           "auc_int8": qev["auc"], "auc_bar": AUC_BAR,
+           "train_seconds": train_s,
+           "step_ms_median_split": parts, "step_ms": step_ms,
+           "traces_per_s": TRAIN_TRACES / step_ms * 1e3,
+           "launches": launches,
+           "launches_per_step": {k: v // TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "plain_calls": plain.calls,
+           "bundle_engine": {"host_vs_fused_max_abs_diff": route_diff,
+                             "bound": FUSED_F32_ATOL, "flags": flags,
+                             "injected_faults": len(reports),
+                             "fused_frames": stats[FUSED_FRAMES_METRIC]}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -3746,6 +4312,8 @@ def main() -> int:
     ae_kern = timed(phase_ae_kernels, card)
     ae_path = timed(phase_ae_path, card)
     geometry = timed(phase_geometry, card)
+    train_kern = timed(phase_train_kernels, card)
+    train_path = timed(phase_train_path, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
@@ -3763,7 +4331,11 @@ def main() -> int:
                "ln_masked_pool": src + "ae_pool.cu",
                "trace_rows_pack": src + "trace_pack.cu",
                "ln_bf16": src + "dense.cu",
-               "gemm_bf16": src + "dense.cu"}
+               "gemm_bf16": src + "dense.cu",
+               "segment_attention_bwd": src + "segment_attention_bwd.cu",
+               "ln_bwd": src + "ln_bwd.cu",
+               "span_embed_bwd": src + "span_embed_bwd.cu",
+               "gelu_tanh_bwd": src + "gelu_bwd.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -3778,7 +4350,12 @@ def main() -> int:
                 "ln_masked_pool": "odigos_tpu/models/autoencoder.py:67",
                 "trace_rows_pack": "odigos_tpu/serving/fused.py:462",
                 "ln_bf16": "odigos_tpu/models/layers.py:71",
-                "gemm_bf16": "odigos_tpu/models/layers.py:78"}
+                "gemm_bf16": "odigos_tpu/models/layers.py:78",
+                # the backward passes: XLA's autodiff in the jitted step
+                "segment_attention_bwd": "odigos_tpu/training/trainer.py:171",
+                "ln_bwd": "odigos_tpu/training/trainer.py:171",
+                "span_embed_bwd": "odigos_tpu/training/trainer.py:171",
+                "gelu_tanh_bwd": "odigos_tpu/training/trainer.py:171"}
     designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
                                     "persistent 2-stage; past them 64-key "
                                     "tiles, online softmax (mma.sync bf16, "
@@ -3901,7 +4478,29 @@ def main() -> int:
                             "wgmma group in flight; bias staged in smem, "
                             "residual by TMA into the staging buffer, GELU "
                             "from a 32 KB table of the formula's bf16 "
-                            "results; TMA store, QKV in planes"}
+                            "results; TMA store, QKV in planes",
+               "segment_attention_bwd": "f32, 3 launches, no atomics: "
+                                        "Delta (a warp a query, f64 sum), "
+                                        "dQ (a CTA a query tile, key tiles "
+                                        "streamed), dK/dV (a CTA a key "
+                                        "tile, query tiles streamed); S and "
+                                        "dP recomputed on CUDA cores from "
+                                        "K1's LSE, P = 1/L at padding "
+                                        "queries, 32/64-slot tiles",
+               "ln_bwd": "f32, a warp a row (8 rows a warp), statistics "
+                         "recomputed with ln_exact.cuh (K14's bits), f64 "
+                         "row sums; per-warp f64 column partials, then a "
+                         "fixed-order column pass (no atomics)",
+               "span_embed_bwd": "f32 sort-and-segment: a CTA a table "
+                                 "builds its row starts (smem histogram, "
+                                 "scan) and a stable entry order "
+                                 "(match_any ranks); then a CTA a table "
+                                 "row sums its slots' dy rows in f64 over "
+                                 "8 warps, combined in a fixed order",
+               "gelu_tanh_bwd": "f32, 16-byte vectors, a CTA 16 rows x "
+                                "1024 columns: dPre = dY * gelu'(pre) in "
+                                "IEEE steps, f64 column partials; a "
+                                "fixed-order column pass gives db1"}
     # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
     # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
@@ -3932,12 +4531,16 @@ def main() -> int:
             "host_us_per_call": r["host_us_per_call"], "card": card,
             **extra}
 
+    launches.update({k: train_path["launches"][k]
+                     for k in ("segment_attention_bwd", "ln_bwd",
+                               "span_embed_bwd", "gelu_tanh_bwd")})
     lines = []
     for kname in ("segment_attention", "span_embed"):
         small = kern[(kname, min(R_SHAPES))]
         lines.append(line(kname, kern[(kname, R)], {
             "shape_R": R,
             "fused_path_launches": fused_path["launches"][kname],
+            "train_path_launches": train_path["launches"][kname],
             f"R{small['R']}": {k: small[k] for k in timing_keys}}))
     for kname in ("zscore_update", "zscore_score"):
         lines.append(line(kname, zs_kern[(kname, "otel", ZS_MAIN_N, ZS_G)], {
@@ -4086,6 +4689,24 @@ def main() -> int:
             "R": r["R"], "traces": r["traces"]}
            for key, r in ae_kern.items() if key[0] == "trace_rows_pack"
            and key != ("trace_rows_pack", "otel", FUSED_MAIN_N)}}))
+    # K16-K19 on a training step's own inputs (phase_train_kernels); their
+    # launches are the training path's (200 steps)
+    for kname in ("segment_attention_bwd", "ln_bwd", "span_embed_bwd",
+                  "gelu_tanh_bwd"):
+        r = train_kern[kname]
+        extra = {"shape": r["shape"], "library": r["library"],
+                 "ratio_to_bound": r["ratio_to_bound"],
+                 "ratio_to_library": r["ratio_to_library"],
+                 "launches_per_step": train_path["launches_per_step"][kname],
+                 "dtype": "float32"}
+        if kname == "segment_attention_bwd":
+            t = train_kern["segment_attention_bwd_L128_hd128"]
+            extra["L128_hd128"] = {k: t[k] for k in timing_keys + (
+                "bound_ms", "bound_by", "shape", "ratio_to_bound")}
+        lines.append(line(kname, r, extra))
+    for ln_ in lines:
+        if ln_["name"] in ("ln_bf16", "gemm_bf16"):
+            ln_["train_path_launches"] = train_path["launches"][ln_["name"]]
     # every kernel's rows at the geometries past the default, each held to
     # its plain version there (phase_geometry)
     for ln_ in lines:

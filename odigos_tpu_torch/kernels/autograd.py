@@ -1,0 +1,223 @@
+"""The trainer's gradients: one ``torch.autograd.Function`` a kernel.
+
+The JAX package trains the transformer by XLA's autodiff of its jitted
+forward (``odigos_tpu/training/trainer.py:171``). Here each device
+computation of the encoder's forward is a hand-written kernel, so each
+gets a Function whose forward is that kernel and whose backward is a
+hand-written kernel too:
+
+* :func:`layer_norm` — forward K14 ``ln_bf16``, backward K17 ``ln_bwd``;
+* :func:`dense` — forward K15 ``gemm_bf16`` (the f32 route; FFN1 also
+  writes its pre-activation), backward ``dX = dY . W`` and ``dW = dY^T .
+  X`` as ``torch.mm`` (TF32 off, as the JAX package leaves these products
+  to XLA outside any kernel), the bias gradient as a column sum, except
+  FFN1's: there K19 ``gelu_tanh_bwd`` gives ``dPre`` and the bias
+  gradient in one pass. Several weights (q, k and v) are one launch over
+  their concatenation, their gradients split back into the parts;
+* :func:`attention` — forward K1 ``segment_attention`` with its
+  log-sum-exp, backward K16 ``segment_attention_bwd``, on the fused QKV
+  product's three planes;
+* :func:`span_embed` — forward K2, backward K18 ``span_embed_bwd`` for the
+  gathered tables; the continuous projection's ``(d, 3)`` weight and its
+  bias get two small ``torch.mm``.
+
+``reference=True`` runs every forward and backward through the plain
+versions (a check on the card: the smoke run holds a step's gradients on
+the kernels against it); a CPU tensor takes the plain versions anyway, in
+any float type (f64 for the gradient checks). On the card the backward
+kernels take f32 only (the trainer's working type): these Functions raise
+for another type there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from . import attention as _attn
+from . import dense as _dense
+from . import embed as _embed
+
+
+def _trainable(x: torch.Tensor, what: str) -> None:
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        raise TypeError(f"{what}: the backward kernels take float32 on the "
+                        f"card (the trainer's type), not {x.dtype}")
+
+
+# ------------------------------------------------------------- LayerNorm
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, reference):
+        ln = _dense.ln_bf16_plain if reference else _dense.ln_bf16
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        ctx.reference = reference
+        return ln(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        bwd = _dense.ln_bwd_plain if ctx.reference else _dense.ln_bwd
+        dx, dw, db = bwd(x, weight, dy.contiguous(), ctx.eps)
+        return dx, dw, db, None, None
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float, reference: bool = False) -> torch.Tensor:
+    """K14's LayerNorm over ``x``'s last dimension, with K17 behind it."""
+    _trainable(x, "layer_norm")
+    return _LayerNorm.apply(x.contiguous(), weight, bias, eps, reference)
+
+
+# ----------------------------------------------------------------- Dense
+class _Dense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, epilogue, planes, reference, *params):
+        n = len(params) // 2
+        ws, bs = params[:n], params[n:]
+        w = ws[0] if n == 1 else torch.cat(ws)
+        b = bs[0] if n == 1 else torch.cat(bs)
+        gemm = _dense.gemm_bf16_plain if reference else _dense.gemm_bf16
+        pre = torch.empty((x.shape[0], w.shape[0]), dtype=x.dtype,
+                          device=x.device) \
+            if epilogue == "gelu_tanh" else None
+        y = gemm(x, w, b, epilogue, residual, planes, pre=pre)
+        ctx.save_for_backward(x, w, pre)
+        ctx.sizes = [t.shape[0] for t in ws]
+        ctx.epilogue = epilogue
+        ctx.planes = planes
+        ctx.reference = reference
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, pre = ctx.saved_tensors
+        planes = ctx.planes
+        N = w.shape[0]
+        if ctx.epilogue == "gelu_tanh":
+            bwd = (_dense.gelu_tanh_bwd_plain if ctx.reference
+                   else _dense.gelu_tanh_bwd)
+            dy, db = bwd(dy.contiguous(), pre)
+        elif planes == 1:
+            db = dy.sum(0)
+        if planes == 1:
+            dy = dy.contiguous()
+            dx = torch.mm(dy, w)
+            dw = torch.mm(dy.t(), x)
+        else:  # (planes, M, N / planes): a product a plane
+            pc = N // planes
+            dx = torch.mm(dy[0], w[:pc])
+            dw = torch.empty_like(w)
+            db = torch.empty(N, dtype=dy.dtype, device=dy.device)
+            for p in range(planes):
+                if p:
+                    dx.addmm_(dy[p], w[p * pc:(p + 1) * pc])
+                torch.mm(dy[p].t(), x, out=dw[p * pc:(p + 1) * pc])
+                torch.sum(dy[p], 0, out=db[p * pc:(p + 1) * pc])
+        dres = dy if ctx.epilogue == "residual" else None
+        return (dx, dres, None, None, None,
+                *torch.split(dw, ctx.sizes), *torch.split(db, ctx.sizes))
+
+
+def dense(x: torch.Tensor, weights: Sequence[torch.Tensor],
+          biases: Sequence[torch.Tensor], epilogue: str = "none",
+          residual: Optional[torch.Tensor] = None, planes: int = 1,
+          reference: bool = False) -> torch.Tensor:
+    """K15's ``epilogue(x . W^T + b)`` over ``W = [weights]`` stacked (one
+    launch; ``planes`` as K15 splits its output), with the backward
+    products, the bias sums and (FFN1) K19 behind it."""
+    _trainable(x, "dense")
+    return _Dense.apply(x.contiguous(), residual, epilogue, planes,
+                        reference, *weights, *biases)
+
+
+# -------------------------------------------------------------- attention
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, segments, reference):
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        R, L, H, _ = q.shape
+        lse = torch.empty((R, H, L), dtype=_attn._acc(q.dtype),
+                          device=q.device)
+        attend = (_attn.segment_attention_plain if reference
+                  else _attn.segment_attention)
+        o = attend(q, k, v, segments, lse)
+        ctx.save_for_backward(qkv, segments, o, lse)
+        ctx.reference = reference
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, segments, o, lse = ctx.saved_tensors
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        do = do.contiguous()
+        if ctx.reference:
+            g = torch.stack(_attn.segment_attention_bwd_plain(
+                q, k, v, segments, o, lse, do))
+        else:
+            g = torch.empty_like(qkv)
+            _attn.segment_attention_bwd(q, k, v, segments, o, lse, do,
+                                        out=g)
+        return g, None, None
+
+
+def attention(qkv: torch.Tensor, segments: torch.Tensor,
+              reference: bool = False) -> torch.Tensor:
+    """K1 over ``qkv`` = q, k, v as the planes of one ``(3, R, L, H, hd)``
+    tensor (the fused QKV product's output), with K16 behind it writing
+    the three gradients into one such tensor."""
+    _trainable(qkv, "attention")
+    return _Attention.apply(qkv.contiguous(), segments, reference)
+
+
+# ------------------------------------------------------- span embedding
+class _SpanEmbed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, categorical, continuous, positions, segments,
+                reference, dtype, service, name, kind, status, attr, cont_w,
+                cont_b, pos):
+        tables = _embed.EmbedTables(service, name, kind, status, attr,
+                                    cont_w, cont_b, pos)
+        embed = _embed.span_embed_plain if reference else _embed.span_embed
+        ctx.save_for_backward(categorical, continuous, positions, segments,
+                              service, name, kind, status, attr, cont_w,
+                              cont_b, pos)
+        ctx.reference = reference
+        return embed(categorical, continuous, positions, segments, tables,
+                     dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (categorical, continuous, positions, segments,
+         *tensors) = ctx.saved_tensors
+        tables = _embed.EmbedTables(*tensors)
+        bwd = (_embed.span_embed_bwd_plain if ctx.reference
+               else _embed.span_embed_bwd)
+        dy = dy.contiguous()
+        g = bwd(dy, categorical, positions, segments, tables)
+        # the continuous projection at the live slots: (d, 3) and (d,)
+        d = dy.shape[-1]
+        live = (segments > 0).reshape(-1).to(dy.dtype)
+        cont = continuous.reshape(-1, 3).to(dy.dtype) * live[:, None]
+        flat = dy.reshape(-1, d)
+        d_cont_w = torch.mm(flat.t(), cont)
+        d_cont_b = torch.mv(flat.t(), live)
+        return (None, None, None, None, None, None, g.service, g.name,
+                g.kind, g.status, g.attr, d_cont_w, d_cont_b, g.pos)
+
+
+def span_embed(categorical: torch.Tensor, continuous: torch.Tensor,
+               positions: torch.Tensor, segments: torch.Tensor,
+               tables: _embed.EmbedTables, dtype: torch.dtype,
+               reference: bool = False) -> torch.Tensor:
+    """K2's embedded slots in ``dtype``, with K18 behind it."""
+    _trainable(tables.service, "span_embed")
+    if categorical.device.type == "cuda" and dtype != torch.float32:
+        raise TypeError(f"span_embed: the backward kernels take float32 on "
+                        f"the card, not {dtype}")
+    t = tables
+    return _SpanEmbed.apply(categorical, continuous, positions, segments,
+                            reference, dtype, t.service, t.name, t.kind,
+                            t.status, t.attr, t.cont_w, t.cont_b, t.pos)

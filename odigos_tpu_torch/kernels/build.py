@@ -47,6 +47,10 @@ SOURCES = {
     "ae_pool": "ae_pool.cu",
     "recon_ce": "recon_ce.cu",
     "dense": "dense.cu",
+    "segment_attention_bwd": "segment_attention_bwd.cu",
+    "ln_bwd": "ln_bwd.cu",
+    "gelu_bwd": "gelu_bwd.cu",
+    "span_embed_bwd": "span_embed_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -67,7 +67,10 @@
 // offsets are 64-bit: the autoencoder's fused route reaches M = 8.1 M
 // rows, M x 512 outputs past 2^32 elements.
 // f32 (the f32 model on the card): a plain CUDA-core tiled kernel, 64 x 64
-// tiles, 4 x 4 outputs a thread, f32 FMA accumulation.
+// tiles, 4 x 4 outputs a thread, f32 FMA accumulation. With the GELU
+// epilogue it can also write the pre-activation acc + b (`pre`, the
+// trainer's FFN1: K19's input in the backward pass); without it (serving)
+// nothing changes.
 //
 // Bound on the card: bytes at these widths. At M = 131072 tokens, d 256:
 // QKV (N 768, K 256) reads 67 MB and writes 201 MB (0.080 ms at 3.35 TB/s)
@@ -761,7 +764,8 @@ __global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const float* __restrict__ res,
     float* __restrict__ out, long long M, int N, int K, int plane_cols,
-    int n_tiles, const int* __restrict__ live, int per) {
+    int n_tiles, const int* __restrict__ live, int per,
+    float* __restrict__ pre) {
   __shared__ float As[SBK][SB + 4];
   __shared__ float Bs[SBK][SB + 4];
   const long long m0 = (long long)(blockIdx.x / n_tiles) * SB;
@@ -813,7 +817,10 @@ __global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
       const int n = n0 + tx * 4 + j;
       if (n >= N) continue;
       float y = __fadd_rn(acc[i][j], bias[n]);
-      if constexpr (MODE == 2) y = gelu_tanh(y);
+      if constexpr (MODE == 2) {
+        if (pre != nullptr) pre[m * N + n] = y;  // planes == 1 here
+        y = gelu_tanh(y);
+      }
       if constexpr (MODE == 1) y = __fadd_rn(res[m * N + n], y);
       const int plane = n / plane_cols;
       out[(long long)plane * M * plane_cols + m * plane_cols +
@@ -824,7 +831,8 @@ __global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
 
 cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
                        const void* res, void* out, long long M, int N, int K,
-                       int planes, const int* live, int per, cudaStream_t st) {
+                       int planes, const int* live, int per, void* pre_out,
+                       cudaStream_t st) {
   const int n_tiles = (N + SB - 1) / SB;
   const long long tiles = (M + SB - 1) / SB * n_tiles;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -835,16 +843,19 @@ cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
   auto* oo = static_cast<float*>(out);
   const int pc = N / planes;
   const unsigned g = (unsigned)tiles;
+  auto* pre = static_cast<float*>(pre_out);
   if (mode == 0)
     gemm_f32_kernel<0><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles, live, per);
+                                                  pc, n_tiles, live, per,
+                                                  nullptr);
   else if (mode == 1)
     gemm_f32_kernel<1><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles, live, per);
+                                                  pc, n_tiles, live, per,
+                                                  nullptr);
   else
     gemm_f32_kernel<2><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles, live,
-                                                  per);  // 2 and 3
+                                                  pc, n_tiles, live, per,
+                                                  pre);  // 2 and 3
   return cudaGetLastError();
 }
 
@@ -882,23 +893,26 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
 // and (N / planes) % 8 == 0 (bf16 with planes > 1: % 64 == 0), planes ==
 // 1 for mode 1. live (nullable): a (1,) int32 count on the device; the
 // row tiles (128 rows, 64 on f32) that hold no row below live[0] * per
-// are neither read nor written.
+// are neither read nor written. pre (nullable; f32, modes 2 and 3, planes
+// 1): an (M, N) buffer that takes acc + b before the GELU.
 extern "C" int gemm_bf16_launch(const void* x, const void* w, const void* b,
                                 const void* res, void* out, int dtype,
                                 int mode, long long M, int N, int K,
                                 int planes, const void* live, int per,
-                                void* stream) {
+                                void* pre, void* stream) {
   if (M < 0 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 || planes < 1 ||
       N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 3 ||
       (mode == 1) != (res != nullptr) || (mode == 1 && planes != 1) ||
       (dtype != 0 && dtype != 1) || per < 1)
+    return (int)cudaErrorInvalidValue;
+  if (pre != nullptr && (dtype != 0 || mode < 2 || planes != 1))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lv = static_cast<const int*>(live);
   if (dtype == 0)
     return (int)launch_f32(mode, x, w, b, res, out, M, N, K, planes, lv, per,
-                           st);
+                           pre, st);
   return (int)launch_tc(mode, x, w, b, res, out, M, N, K, planes, lv, per,
                         st);
 }

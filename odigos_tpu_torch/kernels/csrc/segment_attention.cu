@@ -908,7 +908,8 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
                          const int32_t* __restrict__ seg,
                          T* __restrict__ out, int L, int H, int hd,
-                         float scale_div, float big_neg) {
+                         float scale_div, float big_neg,
+                         float* __restrict__ lse) {
   extern __shared__ float simt_smem[];
   float* qs = simt_smem;               // [kMaxL][kLd]
   float* ks = qs + kMaxL * kLd;        // [kMaxL][kLd]
@@ -985,6 +986,9 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane < L) sc[i * kSld + lane] = e0 / s;
     if (lane + 32 < L) sc[i * kSld + lane + 32] = e1 / s;
+    // the row's log-sum-exp for the backward pass (K16), when asked for
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)r * H + h) * L + i] = m + logf(s);
   }
   __syncthreads();
 
@@ -1023,7 +1027,7 @@ DeviceOnce g_attr_f32, g_attr_bf16;
 template <typename T>
 cudaError_t launch(DeviceOnce& once, const void* q, const void* k,
                    const void* v, const void* seg, void* out, int R, int L,
-                   int H, int hd, float scale_div, float big_neg,
+                   int H, int hd, float scale_div, float big_neg, void* lse,
                    cudaStream_t stream) {
   cudaError_t err = max_smem_once(once, segment_attention_kernel<T>,
                                   (int)kSmemBytes);
@@ -1031,7 +1035,8 @@ cudaError_t launch(DeviceOnce& once, const void* q, const void* k,
   segment_attention_kernel<T><<<R * H, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(seg),
-      static_cast<T*>(out), L, H, hd, scale_div, big_neg);
+      static_cast<T*>(out), L, H, hd, scale_div, big_neg,
+      static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
@@ -1073,7 +1078,8 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
                                const T* __restrict__ v,
                                const int32_t* __restrict__ seg,
                                T* __restrict__ out, int L, int H, int hd,
-                               float scale_div, float big_neg) {
+                               float scale_div, float big_neg,
+                               float* __restrict__ lse) {
   extern __shared__ float tl_smem[];
   const int ld = hd + 1;
   float* qs = tl_smem;
@@ -1249,6 +1255,9 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
     }
   }
   __syncthreads();
+  // each query's log-sum-exp for the backward pass (K16), when asked for
+  if (lse != nullptr && tid < kB && q0 + tid < L)
+    lse[((size_t)r * H + h) * L + q0 + tid] = run_m[tid] + logf(run_l[tid]);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int iq = q0 + ty + 16 * a;
@@ -1268,7 +1277,7 @@ template <typename T, int DB>
 cudaError_t launch_db(DeviceOnce& once, const void* q, const void* k,
                       const void* v, const void* seg, void* out, int R,
                       int L, int H, int hd, float scale_div, float big_neg,
-                      cudaStream_t stream) {
+                      void* lse, cudaStream_t stream) {
   cudaError_t err = max_smem_once(once, segment_attention_tiled_kernel<T, DB>,
                                   flash::kDynLimit);
   if (err != cudaSuccess) return err;
@@ -1278,22 +1287,23 @@ cudaError_t launch_db(DeviceOnce& once, const void* q, const void* k,
       <<<(unsigned)grid, kThreads, smem_bytes(hd, L), stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int32_t*>(seg),
-          static_cast<T*>(out), L, H, hd, scale_div, big_neg);
+          static_cast<T*>(out), L, H, hd, scale_div, big_neg,
+          static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(DeviceOnce (&once)[2], const void* q, const void* k,
                    const void* v, const void* seg, void* out, int R, int L,
-                   int H, int hd, float scale_div, float big_neg,
+                   int H, int hd, float scale_div, float big_neg, void* lse,
                    cudaStream_t stream) {
   if (hd > 256 || L > kMaxL || smem_bytes(hd, L) > (size_t)flash::kDynLimit)
     return cudaErrorInvalidValue;
   if (hd <= 64)
     return launch_db<T, 4>(once[0], q, k, v, seg, out, R, L, H, hd,
-                           scale_div, big_neg, stream);
+                           scale_div, big_neg, lse, stream);
   return launch_db<T, 16>(once[1], q, k, v, seg, out, R, L, H, hd, scale_div,
-                          big_neg, stream);
+                          big_neg, lse, stream);
 }
 
 DeviceOnce g_tiled_f32[2], g_tiled_bf16[2];
@@ -1308,19 +1318,21 @@ DeviceOnce g_tiled_f32[2], g_tiled_bf16[2];
 // stage within shared memory), 2 = the tiled tensor-core kernel (bf16, hd
 // % 16 == 0, 16-byte aligned, L <= 1024, hd <= 256), 3 = the tiled
 // CUDA-core kernel (L <= 1024, hd <= 256). Shapes are checked by the
-// Python wrapper (R * H > 0, contiguous (R, L, H, hd)).
+// Python wrapper (R * H > 0, contiguous (R, L, H, hd)). lse (nullable, the
+// CUDA-core routes 0 and 3 only): an (R, H, L) f32 buffer that takes each
+// query's log-sum-exp of its masked scores, for the backward pass (K16).
 extern "C" int segment_attention_launch(const void* q, const void* k,
                                         const void* v, const void* seg,
                                         void* out, int R, int L, int H,
                                         int hd, int dtype, int route,
                                         float scale_div, float big_neg,
-                                        void* stream) {
+                                        void* lse, void* stream) {
   if (R <= 0 || H <= 0 || L <= 0 || hd <= 0 || L > tiled::kMaxL ||
       hd > 256 || (dtype != 0 && dtype != 1) || route < 0 || route > 3)
     return (int)cudaErrorInvalidValue;
   if (route < 2 && (L > kMaxL || hd > kMaxHd))
     return (int)cudaErrorInvalidValue;
-  if ((route == 1 || route == 2) && dtype != 1)
+  if ((route == 1 || route == 2) && (dtype != 1 || lse != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
@@ -1333,16 +1345,17 @@ extern "C" int segment_attention_launch(const void* q, const void* k,
     case 3:
       if (dtype == 0)
         return (int)tiled::launch<float>(tiled::g_tiled_f32, q, k, v, seg, out, R,
-                                         L, H, hd, scale_div, big_neg, s);
+                                         L, H, hd, scale_div, big_neg, lse, s);
       return (int)tiled::launch<__nv_bfloat16>(tiled::g_tiled_bf16, q, k, v, seg,
                                                out, R, L, H, hd, scale_div,
-                                               big_neg, s);
+                                               big_neg, lse, s);
     default:
       if (dtype == 0)
         return (int)simt::launch<float>(simt::g_attr_f32, q, k, v, seg, out,
-                                        R, L, H, hd, scale_div, big_neg, s);
+                                        R, L, H, hd, scale_div, big_neg, lse,
+                                        s);
       return (int)simt::launch<__nv_bfloat16>(simt::g_attr_bf16, q, k, v,
                                               seg, out, R, L, H, hd,
-                                              scale_div, big_neg, s);
+                                              scale_div, big_neg, lse, s);
   }
 }

@@ -73,6 +73,28 @@ kernel's bf16 x bf16 products are exact in its f32 accumulators: the two
 differ in summation order only, so the rounded product may land one bf16
 step apart and each rounding after it may add one more step (the bound
 ``chip_smoke.gemm_bound`` holds the kernel to).
+
+The trainer's backward pass (f32) adds two kernels here:
+
+* **K15's ``pre=``**: with a GELU epilogue on the f32 route, an ``(M, N)``
+  f32 buffer that takes FFN1's pre-activation ``acc + b`` (K19's input);
+  serving passes none and its launches are unchanged.
+* **K17** ``ln_bwd(x, weight, dy, eps)`` (``csrc/ln_bwd.cu``): the
+  LayerNorm's ``(dx, dweight, dbias)``, the statistics recomputed with
+  K14's exact arithmetic (``ln_exact.cuh``: K14 stores none), ``dx =
+  ((g - mean(g)) - xh * mean(g * xh)) * rstd`` with ``g = dy * weight``
+  and ``xh = (x - mean) * rstd``, the row means and the column sums over
+  the rows taken in f64 and rounded once (per-block partials and a second
+  pass, no atomics);
+* **K19** ``gelu_tanh_bwd(dy, pre)`` (``csrc/gelu_bwd.cu``): ``dPre = dy *
+  gelu'(pre)`` for ``jax.nn.gelu``'s tanh form in f32 IEEE steps, and
+  FFN1's bias gradient (the column sums of ``dPre``, f64, rounded once)
+  in the same pass.
+
+Both take f32 on the card (the trainer's type) and raise otherwise; a CPU
+tensor takes :func:`ln_bwd_plain` / :func:`gelu_tanh_bwd_plain`.
+``ln_bwd_launches`` and ``gelu_bwd_launches`` count the calls that
+launched.
 """
 
 from __future__ import annotations
@@ -81,10 +103,11 @@ import ctypes
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import build
-from .qgemm import gelu_tanh_plain
+from .qgemm import GELU_C, GELU_K, gelu_tanh_plain
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
@@ -98,8 +121,12 @@ GELU_TABLE_LO = 66 << 7
 GELU_TABLE_SPAN = 64 << 7
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+GELU_K3 = float(np.float32(3) * np.float32(GELU_K))  # the kernel's 3 K
+
 ln_launches = 0
 gemm_launches = 0
+ln_bwd_launches = 0
+gelu_bwd_launches = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
 
@@ -139,18 +166,23 @@ def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     epilogue: str = "none",
                     residual: Optional[torch.Tensor] = None,
                     planes: int = 1, live: Optional[torch.Tensor] = None,
-                    per: int = 1) -> torch.Tensor:
+                    per: int = 1,
+                    pre: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K15's plain version: the product in f32 rounded to the working type,
     the bias added and rounded, then the epilogue (module docstring); NaN
-    in the rows at or past ``live[0] * per``."""
-    _check_gemm(x, w, b, epilogue, residual, planes, live, per)
+    in the rows at or past ``live[0] * per``. ``pre`` takes the GELU's
+    input (f64 inputs compute in f64: the gradient checks)."""
+    _check_gemm(x, w, b, epilogue, residual, planes, live, per, pre)
     dt = x.dtype
-    y = (x.float() @ w.float().t()).to(dt)
-    y = (y.float() + b.float()).to(dt)
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    y = (x.to(acc) @ w.to(acc).t()).to(dt)
+    y = (y.to(acc) + b.to(acc)).to(dt)
     if epilogue == "residual":
-        y = (residual.float() + y.float()).to(dt)
+        y = (residual.to(acc) + y.to(acc)).to(dt)
     elif epilogue in GELU_EPILOGUES:
-        y = gelu_tanh_plain(y.float()).to(dt)
+        if pre is not None:
+            pre.copy_(y)
+        y = gelu_tanh_plain(y.to(acc)).to(dt)
     return _split(_nan_past(y, live, per), planes)
 
 
@@ -202,7 +234,7 @@ def _check_ln(x, weight, bias, live=None, per: int = 1) -> None:
 
 
 def _check_gemm(x, w, b, epilogue, residual, planes, live=None,
-                per: int = 1) -> None:
+                per: int = 1, pre=None) -> None:
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}, "
                          f"not {epilogue!r}")
@@ -224,7 +256,13 @@ def _check_gemm(x, w, b, epilogue, residual, planes, live=None,
             raise TypeError(f"{name} must be {x.dtype} like x, not "
                             f"{t.dtype}")
     _check_count(live, per)
-    _same_device(x, w, b, residual, live)
+    _same_device(x, w, b, residual, live, pre)
+    if pre is not None and (epilogue not in GELU_EPILOGUES or planes != 1
+                            or tuple(pre.shape) != (M, N)
+                            or pre.dtype != x.dtype
+                            or not pre.is_contiguous()):
+        raise ValueError(f"pre takes a GELU epilogue's input: a contiguous "
+                         f"({M}, {N}) {x.dtype} buffer, planes 1")
 
 
 def _card(dev: torch.device, what: str) -> None:
@@ -241,11 +279,11 @@ def _kernel(name: str):
                            ctypes.c_void_p, ctypes.c_float,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        else:
+        elif name == "gemm_bf16_launch":
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                            + [ctypes.c_longlong] + [ctypes.c_int] * 3
                            + [ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_void_p])
+                              ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -319,22 +357,26 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               epilogue: str = "none",
               residual: Optional[torch.Tensor] = None,
               planes: int = 1, live: Optional[torch.Tensor] = None,
-              per: int = 1, out: Optional[torch.Tensor] = None
-              ) -> torch.Tensor:
+              per: int = 1, out: Optional[torch.Tensor] = None,
+              pre: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K15: ``(M, N)`` (or ``(planes, M, N / planes)``) in ``x``'s type,
     into ``out`` if given; with ``live``, the row tiles past ``live[0] *
-    per`` are left unwritten (see the module docstring). Nothing is
-    synchronised."""
+    per`` are left unwritten (see the module docstring). ``pre`` (the f32
+    route's GELU epilogues): an ``(M, N)`` buffer that takes the GELU's
+    input. Nothing is synchronised."""
     global gemm_launches
     dev = x.device
     if dev.type == "cpu":
-        y = gemm_bf16_plain(x, w, b, epilogue, residual, planes, live, per)
+        y = gemm_bf16_plain(x, w, b, epilogue, residual, planes, live, per,
+                            pre)
         return y if out is None else _out(out, y.shape, x,
                                           "gemm_bf16").copy_(y)
-    _check_gemm(x, w, b, epilogue, residual, planes, live, per)
+    _check_gemm(x, w, b, epilogue, residual, planes, live, per, pre)
     _card(dev, "gemm_bf16")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, not {x.dtype}")
+    if pre is not None and x.dtype != torch.float32:
+        raise TypeError("pre= is the f32 route's (the trainer's FFN1)")
     M, K = x.shape
     N = w.shape[0]
     if K % 16 or N % 8 or (planes > 1 and (N // planes) % 64):
@@ -359,9 +401,182 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             None if residual is None else residual.data_ptr(),
             out.data_ptr(), _DTYPE_CODES[x.dtype], EPILOGUES[epilogue], M,
             N, K, planes, None if live is None else live.data_ptr(), per,
+            None if pre is None else pre.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gemm_bf16 launch failed: CUDA error {rc}")
     with _count_lock:
         gemm_launches += 1
     return out
+
+
+# ------------------------------------------------------- backward (K17/K19)
+def ln_bwd_plain(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                 eps: float = LN_EPS
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K17's plain version: ``(dx, dweight, dbias)`` of the LayerNorm over
+    ``x``'s last dimension, the statistics as K14's plain version
+    (``quant.layer_norm_plain``) computes them, the row means and the
+    column sums taken in f64 and rounded once, every other step a
+    separate IEEE op (f64 inputs compute in f64)."""
+    _check_ln_bwd(x, weight, dy)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).to(acc)
+    e = dy.reshape(-1, d).to(acc)
+    k = torch.full((), d, dtype=acc, device=x.device)
+
+    def row_mean(t: torch.Tensor) -> torch.Tensor:
+        return t.to(torch.float64).sum(-1, keepdim=True).to(acc) / k
+
+    mean = row_mean(xf)
+    dev = xf - mean
+    var = row_mean(dev * dev)
+    rstd = torch.ones_like(var) / torch.sqrt(var + eps)
+    xh = dev * rstd
+    g = e * weight.to(acc)
+    c1 = row_mean(g)
+    c2 = row_mean(g * xh)
+    dx = ((g - c1) - xh * c2) * rstd
+    dw = (e * xh).to(torch.float64).sum(0).to(acc)
+    db = e.to(torch.float64).sum(0).to(acc)
+    return dx.to(x.dtype).view(x.shape), dw, db
+
+
+def _check_ln_bwd(x, weight, dy) -> None:
+    d = x.shape[-1]
+    if weight.shape != (d,):
+        raise ValueError(f"weight must be ({d},), got {tuple(weight.shape)}")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must be {tuple(x.shape)}, got "
+                         f"{tuple(dy.shape)}")
+    _same_device(x, weight, dy)
+
+
+def _partials(source: str, name: str, rows: int) -> int:
+    """The f64 partial rows a K17 / K19 launch over ``rows`` rows needs
+    (the source's own count)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load(source), name)
+        fn.argtypes = [ctypes.c_longlong]
+        fn.restype = ctypes.c_longlong
+        _fns[name] = fn
+    return int(fn(rows))
+
+
+def ln_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+           eps: float = LN_EPS
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K17: ``(dx, dweight, dbias)``, f32 (module docstring). Nothing is
+    synchronised."""
+    global ln_bwd_launches
+    _check_ln_bwd(x, weight, dy)
+    dev = x.device
+    if dev.type == "cpu":
+        return ln_bwd_plain(x, weight, dy, eps)
+    _card(dev, "ln_bwd")
+    if any(t.dtype != torch.float32 for t in (x, weight, dy)):
+        raise TypeError("ln_bwd takes float32 (the trainer's type)")
+    d = x.shape[-1]
+    if not 1 <= d <= MAX_LN_D:
+        raise ValueError(f"ln_bwd takes d from 1 to {MAX_LN_D}, not {d}")
+    if not all(t.is_contiguous() for t in (x, weight, dy)):
+        raise ValueError("ln_bwd needs contiguous inputs")
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dw = torch.empty(d, dtype=torch.float32, device=dev)
+    db = torch.empty(d, dtype=torch.float32, device=dev)
+    if rows == 0:
+        return dx, dw.zero_(), db.zero_()
+    part = torch.empty(_partials("ln_bwd", "ln_bwd_partials", rows) * 2 * d,
+                       dtype=torch.float64, device=dev)
+    fn = _fns.get("ln_bwd_launch")
+    if fn is None:
+        fn = build.load("ln_bwd").ln_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float,
+                                                ctypes.c_longlong,
+                                                ctypes.c_int]
+                       + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+        _fns["ln_bwd_launch"] = fn
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), weight.data_ptr(), dy.data_ptr(), eps, rows, d,
+                dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ln_bwd launch failed: CUDA error {rc}")
+    with _count_lock:
+        ln_bwd_launches += 1
+    return dx, dw, db
+
+
+def gelu_tanh_grad_plain(x: torch.Tensor) -> torch.Tensor:
+    """``gelu'(x)`` of ``jax.nn.gelu``'s tanh form, in ``x``'s type, one
+    IEEE step per op (K19's ``gelu_tanh_grad``)."""
+    x2 = x * x
+    x3 = x2 * x
+    t = torch.tanh((x + x3 * GELU_K) * GELU_C)
+    cdf = (t + 1.0) * 0.5
+    pdf = (x * 0.5) * (1.0 - t * t)
+    dinner = (x2 * GELU_K3 + 1.0) * GELU_C
+    return cdf + pdf * dinner
+
+
+def gelu_tanh_bwd_plain(dy: torch.Tensor, pre: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K19's plain version: ``(dPre, db)``, ``dPre = dy * gelu'(pre)`` and
+    its column sums (f64, rounded once)."""
+    _check_gelu_bwd(dy, pre)
+    dpre = dy * gelu_tanh_grad_plain(pre)
+    return dpre, dpre.to(torch.float64).sum(0).to(dy.dtype)
+
+
+def _check_gelu_bwd(dy, pre) -> None:
+    if dy.dim() != 2 or pre.shape != dy.shape:
+        raise ValueError(f"dy and pre must be one (M, N) shape, got "
+                         f"{tuple(dy.shape)} and {tuple(pre.shape)}")
+    if dy.dtype != pre.dtype:
+        raise TypeError("dy and pre must have one dtype")
+    _same_device(dy, pre)
+
+
+def gelu_tanh_bwd(dy: torch.Tensor, pre: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K19: ``(dPre, db)`` (module docstring). Nothing is synchronised."""
+    global gelu_bwd_launches
+    _check_gelu_bwd(dy, pre)
+    dev = dy.device
+    if dev.type == "cpu":
+        return gelu_tanh_bwd_plain(dy, pre)
+    _card(dev, "gelu_tanh_bwd")
+    if dy.dtype != torch.float32:
+        raise TypeError("gelu_tanh_bwd takes float32 (the trainer's type)")
+    M, N = dy.shape
+    if N % 4 or not (dy.is_contiguous() and pre.is_contiguous()) or any(
+            t.data_ptr() % 16 for t in (dy, pre)):
+        raise ValueError("gelu_tanh_bwd takes N % 4 == 0 and contiguous, "
+                         "16-byte aligned dy and pre")
+    dpre = torch.empty_like(dy)
+    db = torch.empty(N, dtype=torch.float32, device=dev)
+    if M == 0:
+        return dpre, db.zero_()
+    part = torch.empty(_partials("gelu_bwd", "gelu_bwd_partials", M) * N,
+                       dtype=torch.float64, device=dev)
+    fn = _fns.get("gelu_tanh_bwd_launch")
+    if fn is None:
+        fn = build.load("gelu_bwd").gelu_tanh_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                ctypes.c_int]
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        _fns["gelu_tanh_bwd_launch"] = fn
+    with torch.cuda.device(dev):
+        rc = fn(dy.data_ptr(), pre.data_ptr(), M, N, dpre.data_ptr(),
+                db.data_ptr(), part.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gelu_tanh_bwd launch failed: CUDA error {rc}")
+    with _count_lock:
+        gelu_bwd_launches += 1
+    return dpre, db

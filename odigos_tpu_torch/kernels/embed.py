@@ -17,6 +17,20 @@ raises: with 16-byte aligned tables at ``d`` a multiple of 256 (the main
 path, :func:`vector_path`) its sliced 16-byte path, else its scalar path.
 A CPU tensor takes :func:`span_embed_plain`, the plain PyTorch version of
 the same sum in the same order. ``launches`` counts kernel launches.
+
+**K18** ``span_embed_bwd(dy, categorical, positions, segments, tables)``
+is the backward pass of the table gathers (``csrc/span_embed_bwd.cu``),
+f32: each table's gradient row is the sum of ``dy`` over the live slots
+(segment > 0) that gathered it, the ids clamped as the forward clamps
+them: the service table from columns 0 and 4, name, kind, status, the
+attribute table from every attribute slot, and the positional table. A
+sort-and-segment route (a stable counting sort of each table's entries,
+then a CTA a table row summing its run in f64 in a fixed order, rounded
+once): no atomics on the sums, so a step is reproducible. It returns an
+:class:`EmbedGrads`; the continuous projection's gradient is the caller's
+(two small matrix products). A CPU tensor takes
+:func:`span_embed_bwd_plain` (``index_add_`` in f64, rounded once);
+``bwd_launches`` counts the calls that launched.
 """
 
 from __future__ import annotations
@@ -37,8 +51,11 @@ STATUS_VOCAB = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fn = None
+MAX_BWD_ROWS = 49152  # a table's rows K18 takes (its shared histogram)
 
 
 @dataclass(frozen=True)
@@ -201,3 +218,137 @@ def span_embed(categorical: torch.Tensor, continuous: torch.Tensor,
     with _count_lock:
         launches += 1
     return out
+
+
+# ------------------------------------------------------------ backward (K18)
+@dataclass(frozen=True)
+class EmbedGrads:
+    """K18's output: each gathered table's gradient (``attr`` None without
+    attribute slots)."""
+
+    service: torch.Tensor
+    name: torch.Tensor
+    kind: torch.Tensor
+    status: torch.Tensor
+    attr: Optional[torch.Tensor]
+    pos: torch.Tensor
+
+
+def _bwd_tables(categorical: torch.Tensor, tables: EmbedTables) -> list:
+    """``(name, table, clamp rows, first column, column step, columns,
+    positions?)`` of each gathered table, in :class:`EmbedGrads`' order."""
+    C = categorical.shape[-1]
+    t = tables
+    out = [("service", t.service, t.service.shape[0], 0, 4, 2, 0),
+           ("name", t.name, t.name.shape[0], 1, 1, 1, 0),
+           ("kind", t.kind, KIND_VOCAB, 2, 1, 1, 0),
+           ("status", t.status, STATUS_VOCAB, 3, 1, 1, 0)]
+    if t.attr is not None:
+        out.append(("attr", t.attr, t.attr.shape[0], N_BASE_FIELDS, 1,
+                    C - N_BASE_FIELDS, 0))
+    out.append(("pos", t.pos, t.pos.shape[0], 0, 1, 1, 1))
+    return out
+
+
+def span_embed_bwd_plain(dy: torch.Tensor, categorical: torch.Tensor,
+                         positions: torch.Tensor, segments: torch.Tensor,
+                         tables: EmbedTables) -> EmbedGrads:
+    """K18's plain version: ``index_add_`` of the live slots' ``dy`` rows
+    in f64, column by column, rounded once to ``dy``'s type."""
+    _check(categorical, torch.zeros(categorical.shape[:2] + (3,),
+                                    device=categorical.device),
+           positions, segments, tables)
+    R, L, C = categorical.shape
+    d = tables.service.shape[1]
+    if dy.shape != (R, L, d):
+        raise ValueError(f"dy must be {(R, L, d)}, got {tuple(dy.shape)}")
+    live = (segments > 0).reshape(-1, 1)
+    g = torch.where(live, dy.reshape(-1, d).to(torch.float64),
+                    torch.zeros((), dtype=torch.float64, device=dy.device))
+    cat = categorical.reshape(-1, C).long()
+    grads = {}
+    for name, tab, clamp, first, step, ncols, use_pos in _bwd_tables(
+            categorical, tables):
+        acc = torch.zeros(tab.shape, dtype=torch.float64, device=dy.device)
+        for j in range(ncols):
+            raw = positions.reshape(-1).long() if use_pos \
+                else cat[:, first + j * step]
+            acc.index_add_(0, raw.clamp(0, clamp - 1), g)
+        grads[name] = acc.to(dy.dtype)
+    grads.setdefault("attr", None)
+    return EmbedGrads(**grads)
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("span_embed_bwd").span_embed_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def span_embed_bwd(dy: torch.Tensor, categorical: torch.Tensor,
+                   positions: torch.Tensor, segments: torch.Tensor,
+                   tables: EmbedTables) -> EmbedGrads:
+    """K18: the gathered tables' gradients, f32 (module docstring).
+    Nothing is synchronised."""
+    global bwd_launches
+    dev = dy.device
+    if dev.type == "cpu":
+        return span_embed_bwd_plain(dy, categorical, positions, segments,
+                                    tables)
+    if dev.type != "cuda":
+        raise ValueError(f"span_embed_bwd runs on cuda or cpu, not {dev}")
+    R, L, C = categorical.shape
+    d = tables.service.shape[1]
+    if dy.shape != (R, L, d) or dy.dtype != torch.float32:
+        raise ValueError(f"dy must be an ({R}, {L}, {d}) float32 tensor, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    if d > 1024:
+        raise ValueError(f"span_embed_bwd takes d up to 1024, not {d}")
+    for name, t in (("categorical", categorical), ("positions", positions),
+                    ("segments", segments)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or \
+                t.device != dev:
+            raise TypeError(f"{name} must be contiguous int32 on {dev}")
+    if not dy.is_contiguous():
+        raise ValueError("span_embed_bwd needs a contiguous dy")
+    specs = _bwd_tables(categorical, tables)
+    N = R * L
+    grads, starts, orders, meta = {}, [], [], []
+    for name, tab, clamp, first, step, ncols, use_pos in specs:
+        rows = tab.shape[0]
+        if rows > MAX_BWD_ROWS:
+            raise ValueError(f"span_embed_bwd takes tables of up to "
+                             f"{MAX_BWD_ROWS} rows; {name} has {rows}")
+        grads[name] = torch.empty((rows, d), dtype=torch.float32,
+                                  device=dev)
+        starts.append(torch.empty(rows + 1, dtype=torch.int32, device=dev))
+        orders.append(torch.empty(max(N * ncols, 1), dtype=torch.int32,
+                                  device=dev))
+        meta += [rows, clamp, first, step, ncols, use_pos]
+    grads.setdefault("attr", None)
+    if N == 0:
+        for g in grads.values():
+            if g is not None:
+                g.zero_()
+        return EmbedGrads(**grads)
+    n = len(specs)
+    ptrs = [grads[name].data_ptr() for name, *_ in specs]
+    fn = _bwd_kernel()
+    with torch.cuda.device(dev):
+        rc = fn(dy.data_ptr(), categorical.data_ptr(), positions.data_ptr(),
+                segments.data_ptr(), N, C, d, n,
+                (ctypes.c_longlong * n)(*ptrs),
+                (ctypes.c_longlong * n)(*(t.data_ptr() for t in starts)),
+                (ctypes.c_longlong * n)(*(t.data_ptr() for t in orders)),
+                (ctypes.c_int * (6 * n))(*meta),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"span_embed_bwd launch failed: CUDA error {rc}")
+    with _count_lock:
+        bwd_launches += 1
+    return EmbedGrads(**grads)

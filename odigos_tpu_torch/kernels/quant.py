@@ -59,15 +59,17 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
                      ) -> torch.Tensor:
     """The LayerNorm of LN mode, rounded to ``x``'s type: f32 statistics
     (the row sums taken in f64 and rounded once), two-pass variance, each
-    step a separate IEEE-rounded op."""
-    xf = x.float()
-    k = torch.full((), x.shape[-1], dtype=torch.float32, device=x.device)
-    mean = xf.double().sum(-1, keepdim=True).float() / k
+    step a separate IEEE-rounded op (f64 inputs compute in f64: the
+    gradient checks)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc)
+    k = torch.full((), x.shape[-1], dtype=acc, device=x.device)
+    mean = xf.double().sum(-1, keepdim=True).to(acc) / k
     dev = xf - mean
-    var = (dev * dev).double().sum(-1, keepdim=True).float() / k
+    var = (dev * dev).double().sum(-1, keepdim=True).to(acc) / k
     rstd = torch.ones_like(var) / torch.sqrt(var + eps)
-    y = (dev * rstd) * weight.float()
-    return (y + bias.float()).to(x.dtype)
+    y = (dev * rstd) * weight.to(acc)
+    return (y + bias.to(acc)).to(x.dtype)
 
 
 def ln_quantize_plain(x: torch.Tensor,

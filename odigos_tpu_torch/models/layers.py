@@ -24,6 +24,15 @@ q, k and v as one K15 launch over the concatenated ``[W_q; W_k; W_v]``
 Flax's: the product rounded to the working type, then the bias added in
 it. The final LayerNorm is fused with the span head in ``kernels.head``
 when the transformer scores through ``score_packed_scatter``.
+
+A module in training mode (``.train()``) with gradients enabled runs the
+block's one chain as the trainer's forward: the same kernels through the
+``torch.autograd.Function``s of ``kernels.autograd`` (K14/K17, K15 with
+the backward products and K19 for FFN1, K1/K16, K2/K18), which build the
+graph the backward pass walks. There the fused QKV launch's gradient goes
+back to ``query``, ``key`` and ``value`` (its ``dW`` and ``db`` split into
+the three parts). Serving's modules are in eval mode and run under
+``inference_mode``: their launches are unchanged.
 """
 
 from __future__ import annotations
@@ -33,12 +42,18 @@ import math
 import torch
 from torch import nn
 
+from ..kernels import autograd
 from ..kernels.attention import segment_attention, segment_attention_plain
 from ..kernels.dense import gemm_bf16, gemm_bf16_plain, ln_bf16, ln_bf16_plain
 from ..kernels.embed import (EmbedTables, KIND_VOCAB, STATUS_VOCAB,
                              span_embed, span_embed_plain)
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (torch's is 1e-5)
+
+
+def _trains(module: nn.Module) -> bool:
+    """The trainer's forward: training mode with gradients enabled."""
+    return module.training and torch.is_grad_enabled()
 
 
 class LayerNorm(nn.LayerNorm):
@@ -54,6 +69,9 @@ class LayerNorm(nn.LayerNorm):
                 per: int = 1) -> torch.Tensor:
         """``live``/``per``: K14's device row count (rows at or past
         ``live[0] * per`` are padding, left unwritten)."""
+        if _trains(self):
+            return autograd.layer_norm(x.to(self.out_dtype), self.weight,
+                                       self.bias, self.eps, reference)
         ln = ln_bf16_plain if reference else ln_bf16
         return ln(x.to(self.out_dtype), self.weight, self.bias, self.eps,
                   live, per)
@@ -134,29 +152,50 @@ class EncoderBlock(nn.Module):
                 live: torch.Tensor | None = None) -> torch.Tensor:
         """``live``: the count of real packed rows, on the device (the
         fused routes'); the LayerNorms and the products leave the rows
-        past it unwritten (the products: their row tiles past it)."""
+        past it unwritten (the products: their row tiles past it). The
+        trainer's forward (training mode, gradients enabled) runs the same
+        chain through ``kernels.autograd``'s Functions, which take no row
+        count; serving's calls the kernels directly, the fused QKV product
+        on the cached ``[W_q; W_k; W_v]``."""
         R, L, d = x.shape
         H = self.n_heads
-        dense = gemm_bf16_plain if reference else gemm_bf16
+        hd = d // H
+        if _trains(self):
+            def dense(t, lins, *args, **kw):
+                return autograd.dense(t, [m.weight for m in lins],
+                                      [m.bias for m in lins], *args,
+                                      reference=reference, **kw)
 
-        def gemm(*args, **kw):
-            return dense(*args, live=live, per=L, **kw)
+            def attend(qkv):
+                if not torch.is_tensor(qkv):
+                    qkv = torch.stack(qkv)
+                return autograd.attention(qkv, segments, reference)
+        else:
+            gemm = gemm_bf16_plain if reference else gemm_bf16
+            kernel = (segment_attention_plain if reference
+                      else segment_attention)
+
+            def dense(t, lins, *args, **kw):
+                w, b = self.qkv() if len(lins) == 3 else (lins[0].weight,
+                                                          lins[0].bias)
+                return gemm(t, w, b, *args, live=live, per=L, **kw)
+
+            def attend(qkv):
+                return kernel(*qkv, segments)
 
         x = x.reshape(R * L, d)
         h = self.ln1(x, reference, live, L)
         # q, k, v as three contiguous (R, L, H, hd) planes: JAX's
         # DenseGeneral layout, K1's input
+        parts = (self.query, self.key, self.value)
         if self.fused_qkv:
-            q, k, v = gemm(h, *self.qkv(), planes=3).view(3, R, L, H, d // H)
+            qkv = dense(h, parts, planes=3).view(3, R, L, H, hd)
         else:
-            q, k, v = (gemm(h, lin.weight, lin.bias).view(R, L, H, d // H)
-                       for lin in (self.query, self.key, self.value))
-        attend = segment_attention_plain if reference else segment_attention
-        a = attend(q, k, v, segments).view(R * L, d)
-        x = gemm(a, self.out.weight, self.out.bias, "residual", residual=x)
-        h = gemm(self.ln2(x, reference, live, L), self.ff1.weight,
-                 self.ff1.bias, "gelu_tanh")
-        x = gemm(h, self.ff2.weight, self.ff2.bias, "residual", residual=x)
+            qkv = [dense(h, (p,)).view(R, L, H, hd) for p in parts]
+        a = attend(qkv).view(R * L, d)
+        x = dense(a, (self.out,), "residual", residual=x)
+        h = dense(self.ln2(x, reference, live, L), (self.ff1,), "gelu_tanh")
+        x = dense(h, (self.ff2,), "residual", residual=x)
         return x.view(R, L, d)
 
 
@@ -199,9 +238,14 @@ class Encoder(nn.Module):
         the blocks' LayerNorms (K14) and products (K15) skip the rows past
         it, which hold garbage (NaN from the plain versions) that no real
         slot reads."""
-        embed = span_embed_plain if reference else span_embed
-        x = embed(categorical, continuous, positions, segments,
-                  self.tables(), self.dtype)
+        if _trains(self):
+            x = autograd.span_embed(categorical, continuous, positions,
+                                    segments, self.tables(), self.dtype,
+                                    reference)
+        else:
+            embed = span_embed_plain if reference else span_embed
+            x = embed(categorical, continuous, positions, segments,
+                      self.tables(), self.dtype)
         for blk in self.blocks:
             x = blk(x, segments, reference=reference, live=live)
         if not final_ln:
@@ -209,18 +253,25 @@ class Encoder(nn.Module):
         return self.final_ln(x, reference, live, x.shape[1])
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]: JAX's
+# variance_scaling divides by it, so the truncated draws keep the variance
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Random init from an explicit generator, after Flax's defaults:
     embeddings N(0, 1/d), Dense kernels truncated-normal with variance
-    1/fan_in (lecun_normal), biases 0, LayerNorm scale 1 / bias 0. The
-    draws differ from JAX's (another generator); tests that compare the
-    two packages carry the weights across with ``flax_to_torch``."""
+    1/fan_in after the truncation (lecun_normal: a normal of standard
+    deviation ``1 / sqrt(fan_in) / TRUNC_NORMAL_STD`` cut at two of them),
+    biases 0, LayerNorm scale 1 / bias 0. The draws differ from JAX's
+    (another generator); tests that compare the two packages carry the
+    weights across with ``flax_to_torch``."""
     for m in module.modules():
         if isinstance(m, nn.Embedding):
             nn.init.normal_(m.weight, std=1.0 / math.sqrt(m.weight.shape[1]),
                             generator=generator)
         elif isinstance(m, nn.Linear):
-            std = 1.0 / math.sqrt(m.in_features)
+            std = 1.0 / math.sqrt(m.in_features) / TRUNC_NORMAL_STD
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                   generator=generator)
             nn.init.zeros_(m.bias)

@@ -14,6 +14,12 @@ Defaults match ``odigos_tpu.models.transformer.TransformerConfig``: d_model
 dtype bfloat16 over f32 parameters. The heads run in f32, as in the JAX
 model.
 
+``logits`` and ``loss_fn`` are the trainer's (``training/trainer.py``):
+with the module in training mode and gradients enabled, the encoder runs
+through ``kernels.autograd``'s Functions and the loss is the reference's
+``loss_fn`` (masked span BCE plus trace BCE weighted by trace validity);
+the heads and the trace pool stay f32 PyTorch ops, as in scoring.
+
 Float32 matmuls run in full f32: constructing a model sets
 ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False (TF32 keeps ~3 decimal digits,
@@ -181,12 +187,10 @@ class TraceTransformer:
                     _as_tensor(row_eff, torch.int32, dev),
                     _as_tensor(span_col, torch.int32, dev), n, ln.eps)
 
-    @torch.inference_mode()
-    def score_spans(self, categorical: Any, continuous: Any, mask: Any
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One trace per row: ``(T, L)`` span and ``(T,)`` trace
-        probabilities; positions are 0..L-1 and attention spans the real
-        slots of each row (segment id 1, padding 0)."""
+    # ----------------------------------------------------------- training
+    def _rows(self, categorical: Any, continuous: Any, mask: Any):
+        """One trace a row: the device tensors, segment id 1 at the real
+        slots (0 at padding) and positions 0..L-1."""
         dev = self.device
         cat = _as_tensor(categorical, torch.int32, dev)
         cont = _as_tensor(continuous, torch.float32, dev)
@@ -195,7 +199,53 @@ class TraceTransformer:
         seg = m.to(torch.int32).contiguous()
         pos = torch.arange(L, dtype=torch.int32, device=dev).expand(
             T, L).contiguous()
+        return cat, cont, m, seg, pos
+
+    def logits(self, categorical: Any, continuous: Any, mask: Any,
+               reference: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(T, L)`` span and ``(T,)`` trace logits, one trace a row, with
+        a graph behind them when the module is in training mode and
+        gradients are enabled (the trainer's forward; ``reference=True``:
+        the plain versions of every kernel, forward and backward)."""
+        cat, cont, m, seg, pos = self._rows(categorical, continuous, mask)
+        h = self.module.encoder(cat, cont, pos, seg, reference=reference)
+        return self.module.span_logits(h), self.module.trace_logits(h, m)
+
+    def loss_fn(self, categorical: Any, continuous: Any, mask: Any,
+                span_labels: Any, trace_labels: Any,
+                reference: bool = False) -> torch.Tensor:
+        """The reference's ``loss_fn``: masked span BCE plus trace BCE
+        (equal weight), the trace term weighted by trace validity so that
+        all-padding rows do not train the trace head."""
+        span_logit, trace_logit = self.logits(categorical, continuous, mask,
+                                              reference)
+        dev = self.device
+        m = _as_tensor(mask, torch.float32, dev)
+        span_bce = sigmoid_bce(span_logit,
+                               _as_tensor(span_labels, torch.float32, dev))
+        span_loss = (span_bce * m).sum() / m.sum().clamp(min=1.0)
+        valid = (m.sum(-1) > 0).to(torch.float32)
+        trace_bce = sigmoid_bce(trace_logit,
+                                _as_tensor(trace_labels, torch.float32, dev))
+        trace_loss = (trace_bce * valid).sum() / valid.sum().clamp(min=1.0)
+        return span_loss + trace_loss
+
+    @torch.inference_mode()
+    def score_spans(self, categorical: Any, continuous: Any, mask: Any
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One trace per row: ``(T, L)`` span and ``(T,)`` trace
+        probabilities; positions are 0..L-1 and attention spans the real
+        slots of each row (segment id 1, padding 0)."""
+        cat, cont, m, seg, pos = self._rows(categorical, continuous, mask)
         h = self.module.encoder(cat, cont, pos, seg)
         span = torch.sigmoid(self.module.span_logits(h))
         trace = torch.sigmoid(self.module.trace_logits(h, m))
         return span, trace
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid binary cross-entropy (the reference's
+    ``optax_sigmoid_bce``)."""
+    labels = labels.to(torch.float32)
+    return (logits.clamp(min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))

@@ -8,8 +8,8 @@ from .attrstore import (
     columnar_enabled,
     set_columnar_attrs,
 )
-from .gen import (TraceShape, adversarial_traces, join_stress_frames,
-                  synthesize_traces)
+from .gen import (FAULT_KINDS, FaultReport, TraceShape, adversarial_traces,
+                  inject_faults, join_stress_frames, synthesize_traces)
 from .spans import (
     SpanBatch,
     SpanBatchBuilder,
@@ -30,7 +30,10 @@ __all__ = [
     "SpanKind",
     "StatusCode",
     "concat_batches",
+    "FAULT_KINDS",
+    "FaultReport",
     "TraceShape",
+    "inject_faults",
     "synthesize_traces",
     "adversarial_traces",
     "join_stress_frames",

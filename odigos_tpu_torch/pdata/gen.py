@@ -1,9 +1,10 @@
 """Synthetic trace generation.
 
-The port's own copy of the synthesizer half of ``odigos_tpu/pdata/gen.py``
-(fault injection is not carried yet). ``synthesize_traces`` must stay
-bit-identical to the reference for the same ``(n_traces, seed)``: the
-parity tests feed both packages from it.
+The port's own copy of ``odigos_tpu/pdata/gen.py``: the synthesizer and the
+fault injection (``inject_faults``, its labels and ``FaultReport``s).
+``synthesize_traces`` and ``inject_faults`` must stay bit-identical to the
+reference for the same seeds: the parity tests feed both packages from
+them, and the trainer's labelled stream is built on them.
 
 Plays the role the reference's test fixtures play (multi-runtime HTTP services
 under tests/common/services/ plus the traffic-generator Job,
@@ -226,3 +227,139 @@ def join_stress_frames(n_traces: int, frames: int = 4,
         cols["parent_span_id"] = par
         out.append(replace(b, columns=cols))
     return out
+
+
+# ------------------------------------------------------------ fault injection
+
+
+FAULT_KINDS = ("latency_spike", "error_storm", "slow_dependency",
+               "missing_subtree")
+
+
+@dataclass(frozen=True)
+class FaultReport:
+    """Ground truth for one injected fault."""
+
+    trace_id_lo: int
+    kind: str
+    service: str
+
+
+def inject_faults(
+    batch: SpanBatch,
+    *,
+    fault_fraction: float = 0.1,
+    kinds: tuple[str, ...] = FAULT_KINDS,
+    seed: int = 0,
+) -> tuple[SpanBatch, np.ndarray, list[FaultReport]]:
+    """Perturb a fraction of traces with realistic faults; returns
+    (batch, span_labels, reports) where span_labels marks culprit spans.
+
+    This is the simple-trace-db + chaos-experiment analog (SURVEY.md §4
+    items 4/6): deterministic anomalies with span-level ground truth for
+    ROC-AUC measurement (BASELINE north star: AUC >= 0.95).
+
+    Fault kinds:
+    * latency_spike    — one span's duration stretched 8-30x; ancestors
+                         absorb the delay (end times propagate up)
+    * error_storm      — a span and all its descendants flip to ERROR
+    * slow_dependency  — every span of one service in the trace slows 5-15x
+    * missing_subtree  — a subtree vanishes (its caller CLIENT span remains,
+                         labeled, with its duration collapsed)
+    """
+    rng = np.random.default_rng(seed)
+    cols = {k: v.copy() for k, v in batch.columns.items()}
+    n = len(batch)
+    labels = np.zeros(n, dtype=bool)
+    keep = np.ones(n, dtype=bool)
+    reports: list[FaultReport] = []
+
+    trace_lo = cols["trace_id_lo"]
+    uniq_traces = np.unique(trace_lo)
+    n_faulty = int(round(len(uniq_traces) * fault_fraction))
+    if n_faulty == 0:
+        return batch, labels, reports
+    faulty = rng.choice(uniq_traces, size=n_faulty, replace=False)
+
+    span_id = cols["span_id"]
+    parent_id = cols["parent_span_id"]
+    start = cols["start_unix_nano"]
+    end = cols["end_unix_nano"]
+    svc_col = cols["service"]
+
+    for t in faulty:
+        rows = np.flatnonzero(trace_lo == t)
+        kind = kinds[int(rng.integers(len(kinds)))]
+        # children map within this trace
+        children: dict[int, list[int]] = {}
+        for r in rows:
+            children.setdefault(int(parent_id[r]), []).append(int(r))
+        by_id = {int(span_id[r]): int(r) for r in rows}
+
+        def subtree(root_row: int) -> list[int]:
+            out, stack = [], [root_row]
+            while stack:
+                r = stack.pop()
+                out.append(r)
+                stack.extend(children.get(int(span_id[r]), ()))
+            return out
+
+        def ancestors(row: int) -> list[int]:
+            out = []
+            r = row
+            while int(parent_id[r]) in by_id:
+                r = by_id[int(parent_id[r])]
+                out.append(r)
+            return out
+
+        victim = int(rows[rng.integers(len(rows))])
+        svc = batch.string_at(int(svc_col[victim]))
+
+        if kind == "latency_spike":
+            dur = int(end[victim] - start[victim])
+            extra = int(dur * rng.uniform(8.0, 30.0))
+            end[victim] += extra
+            labels[victim] = True
+            for a in ancestors(victim):  # parents absorb the delay
+                end[a] = max(int(end[a]), int(end[victim])) + 1_000
+        elif kind == "error_storm":
+            for r in subtree(victim):
+                cols["status_code"][r] = int(StatusCode.ERROR)
+                labels[r] = True
+        elif kind == "slow_dependency":
+            svc_rows = rows[svc_col[rows] == svc_col[victim]]
+            factor = rng.uniform(5.0, 15.0)
+            for r in svc_rows:
+                dur = int(end[r] - start[r])
+                end[r] = start[r] + int(dur * factor)
+                labels[r] = True
+            # every slowed span's ancestor chain absorbs the delay — the
+            # service may appear in several branches of the trace, and each
+            # branch's parents must keep containing their children
+            for r in svc_rows:
+                for a in ancestors(int(r)):
+                    end[a] = max(int(end[a]), int(end[r]) + 1_000)
+        elif kind == "missing_subtree":
+            victims = [r for r in rows
+                       if int(parent_id[r]) in by_id
+                       and children.get(int(span_id[r]))]
+            if not victims:
+                continue  # single-span traces can't lose a subtree
+            victim = int(victims[int(rng.integers(len(victims)))])
+            svc = batch.string_at(int(svc_col[victim]))  # the removed svc
+            gone = subtree(victim)
+            keep[gone] = False
+            caller = by_id[int(parent_id[victim])]
+            end[caller] = start[caller] + 1_000  # collapsed call
+            labels[caller] = True
+        else:
+            raise ValueError(f"unknown fault kind {kind!r}; "
+                             f"valid: {FAULT_KINDS}")
+        reports.append(FaultReport(int(t), kind, svc))
+
+    out = SpanBatch(strings=batch.strings, resources=batch.resources,
+                    span_attrs=batch.span_attrs, columns=cols)
+    if not keep.all():
+        out = out.filter(keep)
+        labels = labels[keep]
+    return out, labels, reports

@@ -58,6 +58,15 @@ stream (the default stream unless the caller set another).
 products (``models/quantized.py``, kernels K9 and K10) on both routes; the
 entry points are the engine and, in the reference, the processor config.
 
+``EngineConfig.checkpoint_path`` serves a trained model: a serving bundle
+(``training/checkpoint.py``, written by ``Trainer.export``) whose geometry
+and weights win, as in the reference. The engine refuses a bundle of
+another model or a ``model_config`` that disagrees with the bundle's;
+``quantized=True`` quantizes the bundle's f32 weights once at load; the
+model serves in the bundle's own working type (f32 from the trainer).
+Without a bundle the sequence models' weights are random, drawn from
+``seed``.
+
 Not ported yet (later slices, listed in ROADMAP.md): the remote model,
 failover, device meshes, adaptive deadline-sized
 coalescing, the flow ledger, meters (the cold-span count
@@ -112,7 +121,10 @@ class EngineConfig:
     # AutoencoderConfig, by model); None = its defaults
     model_config: Optional[Union[TransformerConfig,
                                  AutoencoderConfig]] = None
-    seed: int = 0                # random weights: no checkpoints yet
+    # a serving bundle (training/checkpoint.py): its geometry and weights
+    # win over model_config and seed; sequence models only
+    checkpoint_path: Optional[str] = None
+    seed: int = 0                # random weights when there is no bundle
     # depth 2 = double buffering: one call packing on the host while one
     # runs on the card (pipelined backends only; the others clamp to 1)
     pipeline_depth: int = 2
@@ -225,7 +237,28 @@ class SequenceBackend:
     def __init__(self, cfg: EngineConfig):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        model_config = cfg.model_config or self.config_cls(
+        variables = None
+        model_config = cfg.model_config
+        if cfg.checkpoint_path:
+            # the bundle carries the geometry, so a config needs only the
+            # path; an explicit geometry that disagrees would mis-index
+            from ..training.checkpoint import load_bundle
+
+            bundle = load_bundle(cfg.checkpoint_path)
+            if bundle.model != cfg.model:
+                raise ValueError(
+                    f"checkpoint {cfg.checkpoint_path} holds a "
+                    f"{bundle.model!r} model but the engine is configured "
+                    f"for {cfg.model!r}")
+            if model_config is not None and \
+                    model_config != bundle.model_config:
+                raise ValueError(
+                    f"model_config disagrees with checkpoint "
+                    f"{cfg.checkpoint_path}: {model_config} vs "
+                    f"{bundle.model_config}")
+            model_config = bundle.model_config
+            variables = bundle.variables
+        model_config = model_config or self.config_cls(
             attr_slots=cfg.featurizer.attr_slots)
         if not isinstance(model_config, self.config_cls):
             raise ValueError(f"model {cfg.model!r} takes a "
@@ -237,6 +270,9 @@ class SequenceBackend:
                 f"attr_slots {cfg.featurizer.attr_slots}")
         self.model = self._model_cls()(model_config, device=self.device,
                                        seed=cfg.seed)
+        if variables is not None:
+            # the int8 scorer quantizes the bundle's f32 weights here
+            self.model.load_state_dict(variables)
         # the positional table bounds the row length
         self.max_len = min(cfg.max_len, model_config.max_len)
         self.ladder = BucketLadder(cfg.trace_bucket, cfg.bucket_ladder)

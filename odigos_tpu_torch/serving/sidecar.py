@@ -23,11 +23,14 @@ socket (``--no-warm-ladder`` turns that off).
 
 Run standalone:  python -m odigos_tpu_torch.serving.sidecar \\
                      --socket /tmp/score.sock [--model zscore] [--device cuda]
+                     [--model transformer --checkpoint <bundle>]
 
 ``--model`` is ``zscore`` (the default, as in the JAX package: WARMUP
-fits the detector), ``transformer``, ``autoencoder`` or ``mock``. The
-sequence models' weights are random, drawn from ``EngineConfig.seed``:
-checkpoint bundles are not ported yet.
+fits the detector), ``transformer``, ``autoencoder`` or ``mock``.
+``--checkpoint`` serves a trained serving bundle (``Trainer.export``; a
+JAX package bundle converts with ``tools/torch_import_bundle.py``): its
+geometry and weights win. Without one the sequence models' weights are
+random, drawn from ``EngineConfig.seed``.
 """
 
 from __future__ import annotations
@@ -324,6 +327,9 @@ def build_parser():
     ap.add_argument("--model", default="zscore",
                     choices=["zscore", "transformer", "autoencoder",
                              "mock"])
+    ap.add_argument("--checkpoint", default=None,
+                    help="serving bundle (Trainer.export) for the "
+                         "transformer/autoencoder; its geometry wins")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
     ap.add_argument("--max-len", type=int, default=64)
@@ -344,15 +350,23 @@ def build_parser():
     return ap
 
 
-def main(argv: Optional[list[str]] = None) -> None:
-    from .engine import EngineConfig, ScoringEngine
+def engine_config(args) -> "EngineConfig":
+    """The engine configuration ``main`` serves for parsed arguments."""
+    from .engine import EngineConfig
 
-    args = build_parser().parse_args(argv)
-    engine = ScoringEngine(EngineConfig(
+    return EngineConfig(
         model=args.model, device=args.device,
+        checkpoint_path=args.checkpoint,
         max_len=args.max_len, trace_bucket=args.trace_bucket,
         pipeline_depth=args.pipeline_depth,
-        bucket_ladder=args.bucket_ladder, warm_ladder=args.warm_ladder))
+        bucket_ladder=args.bucket_ladder, warm_ladder=args.warm_ladder)
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    from .engine import ScoringEngine
+
+    args = build_parser().parse_args(argv)
+    engine = ScoringEngine(engine_config(args))
     server = SidecarServer(engine, args.socket,
                            score_timeout_s=args.timeout_ms / 1000.0)
     print(f"sidecar: model={args.model} device={engine.backend.device_label} "

@@ -1803,3 +1803,200 @@ def test_ln_bf16_outside_the_exact_sum_condition_stays_close(dev, d):
     top = ref.abs().amax(1, keepdim=True)
     assert ((got - ref).abs() <= 8 * torch.finfo(torch.float32).eps
             * top).all()
+
+
+# ------------------------------------------------ training: K16-K19 (f32)
+# Bounds, each relative to the largest magnitude of the plain version's
+# output (the kernels and their plain versions compute in f32 in other
+# summation orders): K16 1e-4 (sums of up to L hd products in another
+# order, then P (dP - Delta), which cancels); K17, K18 and K19 1e-6 (their
+# sums are f64 sums of the same f32 terms, rounded once, and every other
+# step the same IEEE op); K1's log-sum-exp 1e-5 absolute on live queries.
+BWD_ATTN_RTOL = 1e-4
+BWD_EXACT_RTOL = 1e-6
+LSE_ATOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4   # a step's gradients, kernels vs plain, on the card
+
+
+def _close(got, ref, rtol, what):
+    lim = rtol * ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert err <= lim, (what, err, lim)
+    assert torch.isfinite(got).all(), what
+
+
+def _attn_inputs(dev, R, L, H, hd, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(R, L, H, hd, generator=g).to(dev)
+                   for _ in range(4))
+    seg = torch.zeros(R, L, dtype=torch.int32)
+    for r in range(R - 1):  # the last row all padding
+        n = 1 + (r * 7 + L // 2) % L
+        seg[r, :n] = torch.arange(n) // max(1, n // 3) + 1
+    do = do * (seg > 0)[..., None, None].to(dev)  # the loss masks padding
+    return q, k, v, seg.to(dev), do
+
+
+@pytest.mark.parametrize("R,L,H,hd", [(64, 32, 4, 64), (8, 128, 2, 128),
+                                      (4, 96, 2, 256), (16, 64, 4, 32),
+                                      (2, 1024, 2, 64), (3, 200, 1, 40)])
+def test_k16_attention_bwd_matches_plain(dev, R, L, H, hd):
+    q, k, v, seg, do = _attn_inputs(dev, R, L, H, hd)
+    lse = torch.empty(R, H, L, device=dev)
+    lse_p = torch.empty(R, H, L, device=dev)
+    o = segment_attention(q, k, v, seg, lse=lse)
+    o_p = segment_attention_plain(q, k, v, seg, lse_p)
+    torch.testing.assert_close(o, o_p, atol=F32_ATOL, rtol=F32_ATOL)
+    live = (seg > 0)[:, None, :].expand(R, H, L)
+    assert (lse - lse_p)[live].abs().max().item() <= LSE_ATOL
+    before = attention.bwd_launches
+    got = attention.segment_attention_bwd(q, k, v, seg, o, lse, do)
+    assert attention.bwd_launches == before + 1
+    ref = attention.segment_attention_bwd_plain(q, k, v, seg, o, lse, do)
+    for a, b, what in zip(got, ref, ("dq", "dk", "dv")):
+        _close(a, b, BWD_ATTN_RTOL, what)
+
+
+def test_serving_launches_unchanged_by_the_training_outputs(dev):
+    """K1 with and without its log-sum-exp, and K15's GELU with and
+    without its pre-activation, write the same bits; bf16 takes neither."""
+    from odigos_tpu_torch.kernels import dense
+
+    q, k, v, seg, _ = _attn_inputs(dev, 16, 32, 4, 64)
+    lse = torch.empty(16, 4, 32, device=dev)
+    assert torch.equal(segment_attention(q, k, v, seg),
+                       segment_attention(q, k, v, seg, lse=lse))
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(512, 256, generator=g).to(dev)
+    w = (torch.randn(1024, 256, generator=g) / 16).to(dev)
+    b = torch.randn(1024, generator=g).to(dev)
+    pre = torch.empty(512, 1024, device=dev)
+    y = dense.gemm_bf16(x, w, b, "gelu_tanh")
+    assert torch.equal(y, dense.gemm_bf16(x, w, b, "gelu_tanh", pre=pre))
+    ref_pre = torch.empty_like(pre)
+    dense.gemm_bf16_plain(x, w, b, "gelu_tanh", pre=ref_pre)
+    _close(pre, ref_pre, 1e-5, "pre")
+    with pytest.raises(TypeError):
+        dense.gemm_bf16(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                        "gelu_tanh", pre=pre.bfloat16())
+    with pytest.raises(ValueError):
+        segment_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), seg,
+                          lse=lse)
+
+
+@pytest.mark.parametrize("rows,d", [(2048, 256), (1000, 96), (64, 1024)])
+def test_k17_ln_bwd_matches_plain(dev, rows, d):
+    from odigos_tpu_torch.kernels import dense
+
+    g = torch.Generator().manual_seed(rows + d)
+    x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dev)
+    x[-1] = 0.0  # a padding row
+    w = torch.randn(d, generator=g).to(dev)
+    dy = torch.randn(rows, d, generator=g).to(dev)
+    dy[-1] = 0.0
+    before = dense.ln_bwd_launches
+    got = dense.ln_bwd(x, w, dy)
+    assert dense.ln_bwd_launches == before + 1
+    ref = dense.ln_bwd_plain(x, w, dy)
+    for a, r, what in zip(got, ref, ("dx", "dgamma", "dbeta")):
+        _close(a, r, BWD_EXACT_RTOL, what)
+    assert (got[0][-1] == 0).all()
+
+
+@pytest.mark.parametrize("M,N", [(2048, 1024), (300, 64), (4096, 4096)])
+def test_k19_gelu_bwd_matches_plain(dev, M, N):
+    from odigos_tpu_torch.kernels import dense
+
+    g = torch.Generator().manual_seed(M + N)
+    pre = (torch.randn(M, N, generator=g) * 3).to(dev)
+    dy = torch.randn(M, N, generator=g).to(dev)
+    before = dense.gelu_bwd_launches
+    got = dense.gelu_tanh_bwd(dy, pre)
+    assert dense.gelu_bwd_launches == before + 1
+    ref = dense.gelu_tanh_bwd_plain(dy, pre)
+    _close(got[0], ref[0], BWD_EXACT_RTOL, "dpre")
+    _close(got[1], ref[1], BWD_EXACT_RTOL, "db")
+
+
+@pytest.mark.parametrize("attr_slots", [0, 2])
+def test_k18_span_embed_bwd_matches_plain(dev, attr_slots):
+    model = TraceTransformer(TransformerConfig(
+        attr_slots=attr_slots, max_len=32, dtype=torch.float32), device=dev)
+    pk = _packed(200, 32, attr_slots=attr_slots, pad=2)
+    cat = torch.from_numpy(pk.categorical).to(dev)
+    pos = torch.from_numpy(pk.positions).to(dev)
+    seg = torch.from_numpy(pk.segments).to(dev)
+    tables = model.module.encoder.tables()
+    g = torch.Generator().manual_seed(5)
+    dy = torch.randn(*seg.shape, tables.service.shape[1], generator=g).to(dev)
+    before = embed.bwd_launches
+    got = embed.span_embed_bwd(dy, cat, pos, seg, tables)
+    assert embed.bwd_launches == before + 1
+    ref = embed.span_embed_bwd_plain(dy, cat, pos, seg, tables)
+    for name in ("service", "name", "kind", "status", "attr", "pos"):
+        a, r = getattr(got, name), getattr(ref, name)
+        if r is None:
+            assert a is None
+            continue
+        _close(a, r, BWD_EXACT_RTOL, name)
+
+
+def test_training_step_on_the_card_runs_no_plain_backward(dev, monkeypatch):
+    """One step of the trainer's path: every kernel launches its expected
+    count, no plain version of a backward kernel is called, and the
+    gradients equal the same step through the plain versions on the
+    card within TRAIN_GRAD_RTOL of each parameter's largest gradient."""
+    from odigos_tpu_torch.kernels import dense
+    from odigos_tpu_torch.training import labeled_sequences
+
+    n_layers = 2
+    model = TraceTransformer(TransformerConfig(
+        n_layers=n_layers, max_len=32, dtype=torch.float32), device=dev)
+    d = labeled_sequences(64, max_len=32, seed=0, pad_traces_to=64)
+    args = (d.categorical, d.continuous, d.mask, d.span_labels,
+            d.trace_labels)
+    model.module.train()
+    calls = []
+    for mod, name in ((attention, "segment_attention_bwd_plain"),
+                      (dense, "ln_bwd_plain"),
+                      (dense, "gelu_tanh_bwd_plain"),
+                      (embed, "span_embed_bwd_plain")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    counters = ((attention, "launches"), (attention, "bwd_launches"),
+                (embed, "launches"), (embed, "bwd_launches"),
+                (dense, "ln_launches"), (dense, "gemm_launches"),
+                (dense, "ln_bwd_launches"), (dense, "gelu_bwd_launches"))
+    before = [getattr(m, c) for m, c in counters]
+    model.module.zero_grad(set_to_none=True)
+    model.loss_fn(*args).backward()
+    torch.cuda.synchronize()
+    after = [getattr(m, c) for m, c in counters]
+    L_ = n_layers
+    assert [a - b for a, b in zip(after, before)] == [
+        L_, L_, 1, 1, 2 * L_ + 1, 4 * L_, 2 * L_ + 1, L_]
+    assert calls == []
+    grads = {n: p.grad.clone() for n, p in model.module.named_parameters()}
+    monkeypatch.undo()
+    model.module.zero_grad(set_to_none=True)
+    model.loss_fn(*args, reference=True).backward()
+    top = max(p.grad.abs().max().item() for p in model.module.parameters())
+    for n, p in model.module.named_parameters():
+        lim = TRAIN_GRAD_RTOL * p.grad.abs().max().item() + 1e-6 * top
+        assert (grads[n] - p.grad).abs().max().item() <= lim, n
+    model.module.eval()
+
+
+def test_trainer_refuses_what_the_card_cannot_train(dev):
+    from odigos_tpu_torch.training import TrainConfig, Trainer
+
+    with pytest.raises(ValueError, match="autoencoder training"):
+        Trainer(TrainConfig(model="autoencoder"), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        Trainer(TrainConfig(model_kwargs={"dtype": torch.bfloat16}),
+                device=dev)
+    with pytest.raises(ValueError, match="d_model"):
+        Trainer(TrainConfig(model_kwargs={"d_model": 2048}), device=dev)
+    with pytest.raises(ValueError, match="K18"):
+        Trainer(TrainConfig(model_kwargs={"name_vocab": 60000}), device=dev)

@@ -1,11 +1,14 @@
 """Guards on the port's boundary and entry points.
 
-* The port (``odigos_tpu_torch/``), ``chip_smoke.py`` and the port's
-  tools (``tools/torch_*.py``) import nothing of
-  ``jax``, ``flax``, ``optax``, ``orbax`` or ``odigos_tpu``: an AST scan of
-  every file, and a fresh interpreter that imports every module of the
-  port and then finds none of those in ``sys.modules`` (this test process
-  cannot tell: ``tests/conftest.py`` imports jax).
+* The port (``odigos_tpu_torch/``, its trainer ``training/`` included),
+  ``chip_smoke.py`` and the port's tools (``tools/torch_*.py``) import
+  nothing of ``jax``, ``flax``, ``optax``, ``orbax`` or ``odigos_tpu``: an
+  AST scan of every file, and a fresh interpreter that imports every
+  module of the port and then finds none of those in ``sys.modules`` (this
+  test process cannot tell: ``tests/conftest.py`` imports jax). The one
+  exception is ``tools/torch_import_bundle.py``, which reads the JAX
+  package's Orbax bundles and so must import it: it stays outside the
+  port, and no file of the port names it.
 * Entry points default to CUDA and raise without it; ``chip_smoke.py``
   exits non-zero and prints no result where there is no card.
 * ``tools/torch_kernel_ablation.py``'s text edits find their anchors in
@@ -29,9 +32,12 @@ PORT = ROOT / "odigos_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "odigos_tpu")
 
 
+IMPORT_TOOL = ROOT / "tools" / "torch_import_bundle.py"
+
+
 def _port_files() -> list[Path]:
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
-        (ROOT / "tools").glob("torch_*.py"))
+        p for p in (ROOT / "tools").glob("torch_*.py") if p != IMPORT_TOOL)
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -62,12 +68,16 @@ def test_port_has_the_slice_modules():
                 "models/quantized.py", "models/autoencoder.py",
                 "models/convert.py", "models/zscore.py",
                 "serving/engine.py", "serving/fused.py",
-                "serving/sidecar.py", "utils/framing.py", "wire/codec.py"):
+                "serving/sidecar.py", "utils/framing.py", "wire/codec.py",
+                "kernels/autograd.py", "training/__init__.py",
+                "training/data.py", "training/trainer.py",
+                "training/checkpoint.py", "training/evaluate.py"):
         assert mod in rel, mod
     for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu",
                 "trace_sort.cu", "featurize.cu", "trace_pack.cu",
                 "span_head.cu", "quant.cu", "qgemm.cu", "ae_pool.cu",
-                "recon_ce.cu", "ln_exact.cuh"):
+                "recon_ce.cu", "ln_exact.cuh", "segment_attention_bwd.cu",
+                "ln_bwd.cu", "gelu_bwd.cu", "span_embed_bwd.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -76,6 +86,33 @@ def test_port_has_the_slice_modules():
 def test_no_forbidden_import(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path} imports {sorted(bad)}"
+
+
+def test_the_bundle_import_tool_stays_outside_the_port():
+    """The tool reads Orbax through the JAX package: it imports both, and
+    no file of the port (nor ``chip_smoke.py``) imports it."""
+    assert {"jax", "odigos_tpu"} <= _imported_roots(IMPORT_TOOL)
+    assert not IMPORT_TOOL.is_relative_to(PORT)
+    for path in _port_files():
+        assert not {"tools", "torch_import_bundle"} & _imported_roots(path)
+
+
+def test_training_imports_no_jax_in_a_fresh_interpreter():
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import odigos_tpu_torch.training as t\n"
+        "import odigos_tpu_torch.training.trainer, "
+        "odigos_tpu_torch.training.checkpoint, "
+        "odigos_tpu_torch.training.evaluate, "
+        "odigos_tpu_torch.kernels.autograd\n"
+        "import json\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        f"      if m.split('.')[0] in {FORBIDDEN!r})))\n")
+    out = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_importing_the_port_loads_no_jax():
@@ -129,6 +166,9 @@ def test_entry_points_default_to_cuda():
         "device"].default == "cuda"
     assert EngineConfig().device == "cuda"
     assert build_parser().parse_args(["--socket", "x"]).device == "cuda"
+    from odigos_tpu_torch.training import Trainer
+
+    assert inspect.signature(Trainer).parameters["device"].default == "cuda"
 
 
 def test_kernel_build_is_keyed_by_source():
