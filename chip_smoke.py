@@ -10,9 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — every CUDA source compiled from the checkout (attention,
    span embedding, zscore, trace sort, featurize, trace pack, span head,
    int8 quantize, int8 GEMM, autoencoder pool, reconstruction error,
-   dense chain, and the trainer's attention, LayerNorm, GELU and span
-   embedding backward passes), one ``nvcc`` per source, all started
-   together;
+   dense chain, and the trainer's attention, LayerNorm, GELU, span
+   embedding, reconstruction-error and pool backward passes), one
+   ``nvcc`` per source, all started together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -200,8 +200,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    injected-fault spans at 0.5 (flagged precision over twice the base
    rate); the step's time split into data, forward, backward and
    optimizer, and traces/s;
-16. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
-   ``{"kernels": [...]}`` line (K1 to K19), then the last line
+16. ae train kernels — the autoencoder trainer's kernels on the inputs
+   of one real step at its default shapes (the full-width f32
+   autoencoder, 63 clean traces padded to 64 rows of L = 32, the
+   reference's seed-0 weights): K11's f32 log-sum-exps held to the plain
+   ``logsumexp`` at real positions (``LSE_ATOL``) and its errors unchanged
+   by the buffer, K20 ``recon_ce_bwd`` (``RECON_BWD_RTOL`` of the plain
+   output's largest magnitude; two calls bit-equal) and K21
+   ``ln_masked_pool_bwd`` (``BWD_EXACT_RTOL``), with the times and bound of
+   phase 3 and the library call (the backward of four f32 ``F.linear`` +
+   three ``F.cross_entropy`` + the squared error; of ``F.layer_norm`` +
+   the masked mean);
+17. ae train path — ``Trainer(TrainConfig(model="autoencoder", steps=200,
+   traces_per_step=64, max_len=32, seed=0), device="cuda")``: step 0's
+   loss equal to the reference's 77.4211 within 1e-4 relative, step 0's
+   gradients and the first ``TRAJ_STEPS`` losses on the kernels held to
+   the plain versions' on the card (phase 15's bounds), then the 200 steps
+   with every launch counted (K1, K2, K11, K12, K14-K21 at their counts a
+   step) and no plain version called, the mean of the last 20 losses at
+   most 1/4 of step 0's, then ``export`` and an engine with
+   ``checkpoint_path`` scoring 1000 held-out traces with injected faults
+   (seeds 999 / 1000) on the host and the fused route (within
+   ``FUSED_F32_ATOL`` of each other and of the trained model's squashed
+   span errors), the span-level ROC-AUC of the served scores >= 0.70; the
+   step's time split and traces/s;
+18. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+   ``{"kernels": [...]}`` line (K1 to K21), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -1797,12 +1821,15 @@ BWD_COUNTERS = (("segment_attention_bwd", "attention", "bwd_launches"),
                 ("span_embed_bwd", "embed", "bwd_launches"),
                 ("ln_bwd", "dense", "ln_bwd_launches"),
                 ("gelu_tanh_bwd", "dense", "gelu_bwd_launches"))
+# the autoencoder's own backward kernels (phase ae_train_path)
+AE_BWD_COUNTERS = (("recon_ce_bwd", "recon", "bwd_launches"),
+                   ("ln_masked_pool_bwd", "pool", "bwd_launches"))
 
 
 def _zero_counters() -> None:
     from odigos_tpu_torch import kernels
 
-    for name, mod, *attr in ALL_COUNTERS + BWD_COUNTERS:
+    for name, mod, *attr in ALL_COUNTERS + BWD_COUNTERS + AE_BWD_COUNTERS:
         setattr(getattr(kernels, mod), attr[0] if attr else "launches", 0)
     kernels.sort.device_launches = 0
     kernels.featurize.device_launches = 0
@@ -3801,17 +3828,18 @@ def _rel_check(got, ref, rtol: float, what: str) -> tuple[float, float]:
 
 
 class _PlainCalls:
-    """Counts the calls of the plain versions (BWD_PLAINS) while on: the
-    training path on the card must make none."""
+    """Counts the calls of the plain versions (``plains``, BWD_PLAINS by
+    default) while on: the training path on the card must make none."""
 
-    def __init__(self):
+    def __init__(self, plains=BWD_PLAINS):
         self.calls: dict = {}
         self._saved: list = []
+        self._plains = plains
 
     def __enter__(self):
         from odigos_tpu_torch import kernels
 
-        for mod, name in BWD_PLAINS:
+        for mod, name in self._plains:
             m = getattr(kernels, mod)
             real = getattr(m, name)
             self._saved.append((m, name, real))
@@ -4279,6 +4307,432 @@ def phase_train_path(card: str) -> dict:
     emit(out)
     return out
 
+# ------------------------------------------------- autoencoder training
+# the reference trainer's step-0 loss on TrainConfig(model="autoencoder",
+# traces_per_step=64, max_len=32, seed=0): the JAX package on a CPU; the
+# weights (jax_init) and the data (the clean stream) are the reference's,
+# so the forward end to end must give it
+AE_STEP0_LOSS = 77.4211
+AE_STEP0_RTOL = 1e-4
+# K20 vs its plain version, relative to the plain output's largest
+# magnitude: the logits are f32 sums of d products in another order (the
+# softmax inherits their rounding), dy sums 2569 products and dW / db the
+# real positions' terms, each in another order: K16's bound. K21 sums the
+# same f32 terms in f64 and rounds once (K17's arithmetic): BWD_EXACT_RTOL
+RECON_BWD_RTOL = 1e-4
+AE_LOSS_FALL = 4                # mean of the last 20 losses <= step 0's / 4
+                                # (the reference's CPU run: 1/18)
+AE_AUC_BAR = 0.70               # the reference sets none; its CPU runs reach
+                                # 0.76-0.78 from seeds 0-2
+K20_KERNELS = ("list_kernel", "recon_bwd_rows_kernel",
+               "recon_bwd_cols_kernel",
+               "FillFunctor<float>")  # dy zero-filled by the wrapper
+K21_KERNELS = ("pool_bwd_rows_kernel", "pool_bwd_cols_kernel")
+AE_TRAIN_COUNTERS = ((("segment_attention", "attention"),
+                      ("span_embed", "embed"), ("ln_masked_pool", "pool"),
+                      ("recon_ce", "recon")) + DENSE_COUNTERS + BWD_COUNTERS
+                     + AE_BWD_COUNTERS)
+AE_BWD_PLAINS = BWD_PLAINS + (("pool", "ln_masked_pool_bwd_plain"),
+                              ("recon", "recon_ce_bwd_plain"),
+                              ("pool", "ln_masked_pool_plain"),
+                              ("recon", "recon_ce_plain"))
+
+
+def _ae_train_step_data(n: int = TRAIN_TRACES):
+    """A step of the autoencoder's clean stream (``fault_fraction`` 0):
+    ``n`` traces padded to the step's 64 rows."""
+    from odigos_tpu_torch.training import labeled_sequences
+
+    return labeled_sequences(n, fault_fraction=0.0, max_len=TRAIN_LEN,
+                             seed=0, pad_traces_to=TRAIN_TRACES)
+
+
+def _capture_ae_inputs(model, data):
+    """One autoencoder training step's forward and backward on the card,
+    recording the first inputs K11, K20 and K21 are handed."""
+    from odigos_tpu_torch import kernels
+
+    seen: dict = {}
+    saved = []
+    for mod, name in (("recon", "recon_ce"), ("recon", "recon_ce_bwd"),
+                      ("pool", "ln_masked_pool_bwd")):
+        m = getattr(kernels, mod)
+        real = getattr(m, name)
+        saved.append((m, name, real))
+
+        def rec(*a, _real=real, _name=name, **k):
+            if _name not in seen:
+                seen[_name] = ([t.clone() if hasattr(t, "clone") else t
+                                for t in a], dict(k))
+            return _real(*a, **k)
+
+        setattr(m, name, rec)
+    try:
+        model.module.train()
+        model.module.zero_grad(set_to_none=True)
+        model.loss_fn(data.categorical, data.continuous,
+                      data.mask).backward()
+    finally:
+        model.module.eval()
+        for m, name, real in saved:
+            setattr(m, name, real)
+    return seen
+
+
+def phase_ae_train_kernels(card: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import pool, recon
+    from odigos_tpu_torch.kernels.quant import layer_norm_plain
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    cfg = AutoencoderConfig(max_len=TRAIN_LEN, dtype=torch.float32)
+    model = SpanAutoencoder(cfg, device=dev)
+    model.load_state_dict(autoencoder_state(cfg, 0))
+    # a real step of clean traffic, with padding slots and one all-padding
+    # row (63 traces padded to the step's 64 rows)
+    data = _ae_train_step_data(TRAIN_TRACES - 1)
+    check(not data.mask[-1].any() and (~data.mask[:-1]).any(),
+          "ae_train_kernels: the step lacks padding slots or a padding row")
+    seen = _capture_ae_inputs(model, data)
+    check(set(seen) == {"recon_ce", "recon_ce_bwd", "ln_masked_pool_bwd"},
+          f"ae_train_kernels: kernels not reached: {sorted(seen)}")
+    results: dict = {}
+
+    # ---- K11's log-sum-exps, on the step's own decoder output
+    (dec, lw, lb, heads, cat, cont, mask, wts), kw = seen["recon_ce"]
+    eps = kw["eps"]
+    M, d = dec.shape
+    lse_k = torch.empty(M, 3, device=dev)
+    lse_p = torch.empty(M, 3, device=dev)
+    err_k = recon.recon_ce(dec, lw, lb, heads, cat, cont, mask, wts,
+                           eps=eps, route="cuda_core", lse=lse_k)
+    err_n = recon.recon_ce(dec, lw, lb, heads, cat, cont, mask, wts,
+                           eps=eps, route="cuda_core")
+    err_p = recon.recon_ce_plain(dec, lw, lb, heads, cat, cont, mask, wts,
+                                 eps=eps, lse=lse_p)
+    torch.cuda.synchronize()
+    check(torch.equal(err_k, err_n),
+          "recon_ce: the errors change with the LSE buffer")
+    lse_diff = (lse_k - lse_p)[mask].abs().max().item()
+    check(lse_diff <= LSE_ATOL, f"recon_ce LSE: max |kernel - plain| at "
+                                f"real positions {lse_diff} > {LSE_ATOL}")
+    err_diff = (err_k - err_p).abs().max().item()
+    check(err_diff <= RECON_ATOL, f"recon_ce f32 errors {err_diff} > "
+                                  f"{RECON_ATOL}")
+    results["lse"] = {"route": "cuda_core", "max_abs_diff": lse_diff,
+                      "bound": LSE_ATOL, "err_max_abs_diff": err_diff,
+                      "err_bound": RECON_ATOL,
+                      "zero_at_padding": bool((lse_k[~mask] == 0).all())}
+
+    # ---- K20 on the step's own backward inputs
+    args, _ = seen["recon_ce_bwd"]
+    (dec, lw, lb, heads, lse, cat, cont, mask, derr, wts, eps) = args
+    got = recon.recon_ce_bwd(*args)
+    ref = recon.recon_ce_bwd_plain(*args)
+    torch.cuda.synchronize()
+    check(bool((got.dy[~mask] == 0).all()), "recon_ce_bwd: dy at padding")
+    diffs = [_rel_check(got.dy, ref.dy, RECON_BWD_RTOL, "recon_ce_bwd dy")]
+    for h, ((gw, gb), (rw, rb)) in enumerate(zip(got.heads, ref.heads)):
+        diffs += [_rel_check(gw, rw, RECON_BWD_RTOL, f"recon_ce_bwd dW{h}"),
+                  _rel_check(gb, rb, RECON_BWD_RTOL, f"recon_ce_bwd db{h}")]
+    again = recon.recon_ce_bwd(*args)
+    check(torch.equal(again.dy, got.dy) and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(again.heads, got.heads)),
+        "recon_ce_bwd: two calls differ (it must be deterministic)")
+    real = torch.nonzero(mask).flatten()
+    P = real.numel()
+    V = sum(w.shape[0] for w, _ in heads)
+    y = layer_norm_plain(dec[real], lw, lb, eps).detach().requires_grad_()
+    lib_params = [t.detach().clone().requires_grad_()
+                  for pair in heads for t in pair]
+    zs = [F.linear(y, lib_params[2 * h], lib_params[2 * h + 1])
+          for h in range(4)]
+    labels = cat[real].long()
+    e = sum(float(wts[h]) * F.cross_entropy(zs[h], labels[:, h],
+                                            reduction="none")
+            for h in range(3))
+    e = e + float(wts[3]) * (zs[3][:, 0] - cont[real, 0]) ** 2
+    lib_loss = (e * derr[real]).sum()
+
+    def recon_library():
+        return torch.autograd.grad(lib_loss, [y] + lib_params,
+                                   retain_graph=True)
+
+    # what the function needs: the real positions' decoder rows, LSE,
+    # labels, target, derr; the mask; the heads read once; dy written at
+    # every position, dW and db written
+    nbytes = (P * d * 4 + P * 3 * 4 + P * 5 * 4 + M + (V * d + V) * 4
+              + M * d * 4 + (V * d + V) * 4)
+    flops = 3 * 2 * P * V * d  # the logits, dy and dW
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    # the outputs' magnitudes differ by ~6e3 (dW3 against dy): the line
+    # carries the largest difference beside its own output's bound
+    worst = max(diffs, key=lambda dl_: dl_[0] / dl_[1] if dl_[1] else 0.0)
+    row = {"name": "recon_ce_bwd", "shape": [M, d], "vocab_rows": V,
+           "real_positions": P,
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": max(diffs)[1],
+           "worst_diff_to_bound": worst[0] / worst[1] if worst[1] else 0.0,
+           "per_output": {n: {"max_abs_diff": df, "bound": lim}
+                          for n, (df, lim) in zip(
+                              ["dy"] + [f"{k}{h}" for h in range(4)
+                                        for k in ("dW", "db")], diffs)},
+           **timings(lambda: recon.recon_ce_bwd(*args),
+                     lambda: recon.recon_ce_bwd_plain(*args),
+                     recon_library, flush),
+           "library": "autograd.grad of 4 f32 F.linear + 3 F.cross_entropy "
+                      "+ the squared error at the real positions (from "
+                      "dec_ln's output: no LayerNorm)",
+           "launch_device_ms": kernel_split_ms(
+               lambda: recon.recon_ce_bwd(*args), flush, K20_KERNELS),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    results["recon_ce_bwd"] = row
+
+    # ---- K21 on the step's pool gradient
+    x, w, pmask, dpool, peps = seen["ln_masked_pool_bwd"][0]
+    got = pool.ln_masked_pool_bwd(x, w, pmask, dpool, peps)
+    ref = pool.ln_masked_pool_bwd_plain(x, w, pmask, dpool, peps)
+    torch.cuda.synchronize()
+    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"ln_masked_pool_bwd {n}")
+             for a, b, n in zip(got, ref, ("dx", "dgamma", "dbeta"))]
+    check(bool((got[0][~pmask] == 0).all()),
+          "ln_masked_pool_bwd: dx at padding")
+    T, L, d = x.shape
+    xr = x.detach().clone().requires_grad_()
+    wr = w.detach().clone().requires_grad_()
+    br = torch.zeros_like(wr).requires_grad_()
+    yl = F.layer_norm(xr, (d,), wr, br, peps)
+    cnt = pmask.sum(-1, keepdim=True).clamp(min=1).float()
+    pooled = (yl * pmask[..., None]).sum(1) / cnt
+
+    def pool_library():
+        return torch.autograd.grad(pooled, (xr, wr, br), dpool,
+                                   retain_graph=True)
+
+    P = int(pmask.sum().item())
+    nbytes = P * d * 4 + T * L + T * d * 4 + T * L * d * 4 + 2 * d * 4
+    flops = 20 * P * d
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "ln_masked_pool_bwd", "shape": [T, L, d],
+           "real_positions": P,
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           **timings(lambda: pool.ln_masked_pool_bwd(x, w, pmask, dpool,
+                                                     peps),
+                     lambda: pool.ln_masked_pool_bwd_plain(x, w, pmask,
+                                                           dpool, peps),
+                     pool_library, flush),
+           "library": "autograd.grad of F.layer_norm + the masked mean",
+           "launch_device_ms": kernel_split_ms(
+               lambda: pool.ln_masked_pool_bwd(x, w, pmask, dpool, peps),
+               flush, K21_KERNELS),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    results["ln_masked_pool_bwd"] = row
+    out = {"phase": "ae_train_kernels", "card": card,
+           "config": "AutoencoderConfig(max_len=32, dtype=float32): d128 "
+                     "lat64 h2 l2 ff512, the reference's seed-0 weights, a "
+                     "step of 63 clean traces padded to 64",
+           **results}
+    emit(out)
+    return out
+
+
+def _served_span_errors(model, batch, L: int):
+    """The trained model's span errors in span order (0 for spans cut from
+    a trace longer than L): what the served scores squash."""
+    import numpy as np
+
+    from odigos_tpu_torch.features import assemble_sequences, featurize
+
+    seqs = assemble_sequences(batch, featurize(batch), max_len=L)
+    err = model.span_errors(seqs.categorical, seqs.continuous,
+                            seqs.mask).cpu().numpy()
+    out = np.zeros(len(batch), np.float64)
+    real = seqs.span_index >= 0
+    out[seqs.span_index[real]] = err[real]
+    return out
+
+
+def phase_ae_train_path(card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.pdata import inject_faults, synthesize_traces
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+    from odigos_tpu_torch.serving.engine import FUSED_FRAMES_METRIC
+    from odigos_tpu_torch.serving.fused import extract_columns
+    from odigos_tpu_torch.training import (TrainConfig, Trainer, load_bundle,
+                                           roc_auc)
+
+    cfg = TrainConfig(model="autoencoder", steps=TRAIN_STEPS,
+                      traces_per_step=TRAIN_TRACES, max_len=TRAIN_LEN,
+                      seed=0)
+    trainer = Trainer(cfg, device="cuda")
+    model = trainer.model
+    # step 0: the reference's loss, and the gradients on the kernels
+    # against the plain versions
+    data0 = _ae_train_step_data()
+    args = (data0.categorical, data0.continuous, data0.mask)
+    module = model.module
+    module.train()
+    grads, loss0 = [], []
+    for reference in (False, True):
+        module.zero_grad(set_to_none=True)
+        loss = model.loss_fn(*args, reference=reference)
+        loss.backward()
+        loss0.append(loss.item())
+        grads.append({n: p.grad.clone() for n, p in module.named_parameters()})
+    module.zero_grad(set_to_none=True)
+    module.eval()
+    step0_rel = abs(loss0[0] - AE_STEP0_LOSS) / AE_STEP0_LOSS
+    check(step0_rel <= AE_STEP0_RTOL,
+          f"step 0 loss {loss0[0]} vs the reference's {AE_STEP0_LOSS}: "
+          f"relative {step0_rel} > {AE_STEP0_RTOL}")
+    top = max(g.abs().max().item() for g in grads[1].values())
+    grad_worst = 0.0
+    for n, ref in grads[1].items():
+        lim = TRAIN_GRAD_RTOL * ref.abs().max().item() + TRAIN_GRAD_FLOOR * top
+        diff = (grads[0][n] - ref).abs().max().item()
+        check(diff <= lim, f"step 0 gradient {n}: max |kernels - plain| "
+                           f"{diff} > {lim}")
+        grad_worst = max(grad_worst, diff / lim)
+
+    # the first steps, kernels vs plain versions, on the 200-step schedule
+    short = Trainer(dataclasses.replace(cfg, steps=TRAJ_STEPS,
+                                        schedule_steps=TRAIN_STEPS),
+                    device="cuda")
+    traj = short.train().losses
+    traj_plain = short.train(reference=True).losses
+    del short
+    traj_gaps = [abs(a - b) / abs(b) for a, b in zip(traj, traj_plain)]
+    check(len(traj_gaps) == TRAJ_STEPS and all(np.isfinite(traj_gaps)),
+          f"first steps: {traj} vs plain {traj_plain}")
+    worst = int(np.argmax(traj_gaps))
+    check(traj_gaps[worst] <= TRAJ_RTOL,
+          f"step {worst}: loss {traj[worst]} on the kernels vs "
+          f"{traj_plain[worst]} on the plain versions: relative gap "
+          f"{traj_gaps[worst]} > {TRAJ_RTOL}")
+
+    # the training path: counts zeroed just before, read just after
+    _zero_counters()
+    with _PlainCalls(AE_BWD_PLAINS) as plain:
+        t0 = time.perf_counter()
+        res = trainer.train()
+        train_s = time.perf_counter() - t0
+    launches = _read_counters(AE_TRAIN_COUNTERS)
+    check(plain.calls == {}, f"training called plain versions: "
+                             f"{plain.calls}")
+    check(all(v > 0 for v in launches.values()),
+          f"training path launched no time: {launches}")
+    nl = model.cfg.n_layers
+    want = {"span_embed": 1, "span_embed_bwd": 1, "segment_attention": nl,
+            "segment_attention_bwd": nl, "ln_bf16": 2 * nl,
+            "ln_bwd": 2 * nl + 1, "gemm_bf16": 4 * nl + 2,
+            "gelu_tanh_bwd": nl + 1, "ln_masked_pool": 1,
+            "ln_masked_pool_bwd": 1, "recon_ce": 1, "recon_ce_bwd": 1}
+    want = {k: v * TRAIN_STEPS for k, v in want.items()}
+    check(launches == want, f"training launches {launches} != {want}")
+    losses = res.losses
+    check(all(np.isfinite(losses)), "non-finite training loss")
+    tail = float(np.mean(losses[-20:]))
+    check(tail <= losses[0] / AE_LOSS_FALL,
+          f"loss did not fall to 1/{AE_LOSS_FALL}: {losses[0]} -> mean of "
+          f"the last 20 {tail}")
+
+    # export, serve the bundle on both routes, score held-out faults
+    clean = synthesize_traces(1000, seed=999)
+    faulty, labels, reports = inject_faults(clean, fault_fraction=0.3,
+                                            seed=1000)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trainer.export(os.path.join(tmp, "bundle"), res.variables)
+        bundle = load_bundle(path)
+        check(bundle.model == "autoencoder"
+              and bundle.model_config == model.cfg, "bundle geometry differs")
+        engine = ScoringEngine(EngineConfig(model="autoencoder",
+                                            checkpoint_path=path,
+                                            device="cuda")).start()
+        try:
+            check(engine.backend.max_len == TRAIN_LEN,
+                  "engine did not take the bundle's max_len")
+            scores = []
+            for cols in (None, extract_columns(faulty)[0]):  # one call each
+                req = engine.submit(faulty, columns=cols)
+                check(req is not None, "engine refused a request")
+                check(req.done.wait(120), "engine request timed out")
+                scores.append(req.scores)
+            s_host, s_fused = scores
+            stats = engine.stats()
+            check(stats[FUSED_FRAMES_METRIC] >= 1,
+                  "the columns request did not take the fused route")
+        finally:
+            engine.shutdown()
+    for what, s in (("host", s_host), ("fused", s_fused)):
+        _check_scores(s, len(faulty), f"ae bundle engine {what} route")
+    route_diff = float(np.abs(s_host - s_fused).max())
+    check(route_diff <= FUSED_F32_ATOL,
+          f"ae bundle engine: fused vs host route {route_diff} > "
+          f"{FUSED_F32_ATOL}")
+    model.load_state_dict(res.variables)
+    errors = _served_span_errors(model, faulty, TRAIN_LEN)
+    squash_diff = float(np.abs(1.0 - np.exp(-errors) - s_host).max())
+    check(squash_diff <= FUSED_F32_ATOL,
+          f"served scores vs the trained model's squashed errors "
+          f"{squash_diff} > {FUSED_F32_ATOL}")
+    aucs = {"host": roc_auc(labels, s_host), "fused": roc_auc(labels,
+                                                               s_fused),
+            "errors": roc_auc(labels, errors)}
+    check(min(aucs["host"], aucs["fused"]) >= AE_AUC_BAR,
+          f"served span AUC {aucs} < {AE_AUC_BAR}")
+    parts = {k: float(np.median(v[1:])) * 1e3
+             for k, v in res.step_seconds.items()}
+    step_ms = sum(parts.values())
+    out = {"phase": "ae_train_path", "card": card,
+           "config": "TrainConfig(model='autoencoder', steps=200, "
+                     "traces_per_step=64, max_len=32, seed=0): "
+                     "AutoencoderConfig d128 lat64 h2 l2 ff512 f32",
+           "step0_loss": loss0[0], "step0_loss_plain": loss0[1],
+           "step0_loss_reference": AE_STEP0_LOSS,
+           "step0_loss_rel_gap": step0_rel,
+           "step0_grad_worst_ratio_to_bound": grad_worst,
+           "first_steps_vs_plain": {
+               "steps": TRAJ_STEPS, "bound_rel": TRAJ_RTOL,
+               "worst_rel_gap": traj_gaps[worst], "worst_step": worst,
+               "rel_gap_every_5": traj_gaps[::5],
+               "repeat_bit_equal": losses[:TRAJ_STEPS] == traj},
+           "losses_first_last": [losses[0], losses[-1]],
+           "loss_last20_mean": tail, "loss_every_20": losses[::20],
+           "auc": aucs, "auc_bar": AE_AUC_BAR,
+           "saturated_scores": int((s_host >= 1.0).sum()),
+           "spans": len(faulty), "base_rate": float(labels.mean()),
+           "injected_faults": len(reports),
+           "train_seconds": train_s,
+           "step_ms_median_split": parts, "step_ms": step_ms,
+           "traces_per_s": TRAIN_TRACES / step_ms * 1e3,
+           "launches": launches,
+           "launches_per_step": {k: v // TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "plain_calls": plain.calls,
+           "bundle_engine": {"host_vs_fused_max_abs_diff": route_diff,
+                             "bound": FUSED_F32_ATOL,
+                             "host_vs_squashed_errors": squash_diff,
+                             "fused_frames": stats[FUSED_FRAMES_METRIC]}}
+    emit(out)
+    return out
+
 
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4314,6 +4768,8 @@ def main() -> int:
     geometry = timed(phase_geometry, card)
     train_kern = timed(phase_train_kernels, card)
     train_path = timed(phase_train_path, card)
+    ae_train_kern = timed(phase_ae_train_kernels, card)
+    ae_train_path = timed(phase_ae_train_path, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
@@ -4335,7 +4791,9 @@ def main() -> int:
                "segment_attention_bwd": src + "segment_attention_bwd.cu",
                "ln_bwd": src + "ln_bwd.cu",
                "span_embed_bwd": src + "span_embed_bwd.cu",
-               "gelu_tanh_bwd": src + "gelu_bwd.cu"}
+               "gelu_tanh_bwd": src + "gelu_bwd.cu",
+               "recon_ce_bwd": src + "recon_ce_bwd.cu",
+               "ln_masked_pool_bwd": src + "ae_pool_bwd.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -4355,7 +4813,9 @@ def main() -> int:
                 "segment_attention_bwd": "odigos_tpu/training/trainer.py:171",
                 "ln_bwd": "odigos_tpu/training/trainer.py:171",
                 "span_embed_bwd": "odigos_tpu/training/trainer.py:171",
-                "gelu_tanh_bwd": "odigos_tpu/training/trainer.py:171"}
+                "gelu_tanh_bwd": "odigos_tpu/training/trainer.py:171",
+                "recon_ce_bwd": "odigos_tpu/training/trainer.py:171",
+                "ln_masked_pool_bwd": "odigos_tpu/training/trainer.py:171"}
     designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
                                     "persistent 2-stage; past them 64-key "
                                     "tiles, online softmax (mma.sync bf16, "
@@ -4500,7 +4960,26 @@ def main() -> int:
                "gelu_tanh_bwd": "f32, 16-byte vectors, a CTA 16 rows x "
                                 "1024 columns: dPre = dY * gelu'(pre) in "
                                 "IEEE steps, f64 column partials; a "
-                                "fixed-order column pass gives db1"}
+                                "fixed-order column pass gives db1",
+               "recon_ce_bwd": "f32, 3 launches, no atomics: one CTA lists "
+                               "the real positions in order; a CTA per "
+                               "(tile of listed positions, <= 128 rows of "
+                               "one head) recomputes dec_ln (ln_exact.cuh) "
+                               "and the logits on CUDA cores from smem "
+                               "tiles, dlogit from K11's LSE (kept, 6 MB), "
+                               "dy partial in registers (a weight vector "
+                               "feeds 4 positions); a CTA per (32 head rows, "
+                               "64 columns) sums dW, db over the positions "
+                               "in order, 64 at a time with the next in "
+                               "flight; more CTAs sum dy's partials",
+               "ln_masked_pool_bwd": "f32, a warp a trace: real positions "
+                                     "counted by ballots, g = dpool / count; "
+                                     "padding rows zeroed, real rows 4 at a "
+                                     "time, their loads issued together, "
+                                     "K17's arithmetic with K12's "
+                                     "statistics (ln_exact.cuh); per-warp "
+                                     "f64 column partials, a fixed-order "
+                                     "column pass"}
     # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
     # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
@@ -4704,9 +5183,25 @@ def main() -> int:
             extra["L128_hd128"] = {k: t[k] for k in timing_keys + (
                 "bound_ms", "bound_by", "shape", "ratio_to_bound")}
         lines.append(line(kname, r, extra))
+    # K20 and K21 on an autoencoder training step's own inputs
+    # (phase_ae_train_kernels); their launches are its training path's
+    launches.update({k: ae_train_path["launches"][k]
+                     for k in ("recon_ce_bwd", "ln_masked_pool_bwd")})
+    for kname in ("recon_ce_bwd", "ln_masked_pool_bwd"):
+        r = ae_train_kern[kname]
+        lines.append(line(kname, r, {
+            "shape": r["shape"], "real_positions": r["real_positions"],
+            "library": r["library"], "ratio_to_bound": r["ratio_to_bound"],
+            "ratio_to_library": r["ratio_to_library"],
+            "launches_per_step": ae_train_path["launches_per_step"][kname],
+            "dtype": "float32"}))
+    ae_train = ae_train_path["launches"]
     for ln_ in lines:
         if ln_["name"] in ("ln_bf16", "gemm_bf16"):
             ln_["train_path_launches"] = train_path["launches"][ln_["name"]]
+        if ln_["name"] in ae_train and ln_["name"] not in (
+                "recon_ce_bwd", "ln_masked_pool_bwd"):
+            ln_["ae_train_path_launches"] = ae_train[ln_["name"]]
     # every kernel's rows at the geometries past the default, each held to
     # its plain version there (phase_geometry)
     for ln_ in lines:

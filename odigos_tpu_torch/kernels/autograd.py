@@ -19,7 +19,14 @@ hand-written kernel too:
   product's three planes;
 * :func:`span_embed` — forward K2, backward K18 ``span_embed_bwd`` for the
   gathered tables; the continuous projection's ``(d, 3)`` weight and its
-  bias get two small ``torch.mm``.
+  bias get two small ``torch.mm``;
+* :func:`ln_masked_pool` — the autoencoder's final LayerNorm + masked
+  mean-pool: forward K12, backward K21 ``ln_masked_pool_bwd``;
+* :func:`recon_ce` — the autoencoder's ``dec_ln``, four heads and
+  reconstruction error: forward K11 (its f32 CUDA-core kernel, writing its
+  log-sum-exps), backward K20 ``recon_ce_bwd`` (the gradient at
+  ``dec_ln``'s output and the heads'), then K17 ``ln_bwd`` through
+  ``dec_ln``.
 
 ``reference=True`` runs every forward and backward through the plain
 versions (a check on the card: the smoke run holds a step's gradients on
@@ -38,6 +45,8 @@ import torch
 from . import attention as _attn
 from . import dense as _dense
 from . import embed as _embed
+from . import pool as _pool
+from . import recon as _recon
 
 
 def _trainable(x: torch.Tensor, what: str) -> None:
@@ -221,3 +230,85 @@ def span_embed(categorical: torch.Tensor, continuous: torch.Tensor,
     return _SpanEmbed.apply(categorical, continuous, positions, segments,
                             reference, dtype, t.service, t.name, t.kind,
                             t.status, t.attr, t.cont_w, t.cont_b, t.pos)
+
+
+# ------------------------------------------------ final LN + masked pool
+class _LnMaskedPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, mask, eps, reference):
+        pool = (_pool.ln_masked_pool_plain if reference
+                else _pool.ln_masked_pool)
+        ctx.save_for_backward(x, weight, mask)
+        ctx.eps = eps
+        ctx.reference = reference
+        return pool(x, weight, bias, mask, eps)
+
+    @staticmethod
+    def backward(ctx, dpool):
+        x, weight, mask = ctx.saved_tensors
+        bwd = (_pool.ln_masked_pool_bwd_plain if ctx.reference
+               else _pool.ln_masked_pool_bwd)
+        dx, dw, db = bwd(x, weight, mask, dpool.contiguous(), ctx.eps)
+        return dx, dw, db, None, None, None
+
+
+def ln_masked_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   mask: torch.Tensor, eps: float,
+                   reference: bool = False) -> torch.Tensor:
+    """K12's ``(T, d)`` pooled vectors of ``x`` ``(T, L, d)`` (the encoder
+    before its final LayerNorm), with K21 behind it."""
+    _trainable(x, "ln_masked_pool")
+    return _LnMaskedPool.apply(x.contiguous(), weight, bias, mask, eps,
+                               reference)
+
+
+# ------------------------------------------ dec_ln + heads + the error
+class _ReconCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dec, ln_w, ln_b, categorical, continuous, mask,
+                loss_weights, eps, reference, *head_params):
+        heads = list(zip(head_params[0::2], head_params[1::2]))
+        lse = torch.empty((dec.shape[0], 3), dtype=_recon._acc(dec.dtype),
+                          device=dec.device)
+        if reference:
+            err = _recon.recon_ce_plain(dec, ln_w, ln_b, heads, categorical,
+                                        continuous, mask, loss_weights,
+                                        eps=eps, lse=lse)
+        else:
+            err = _recon.recon_ce(dec, ln_w, ln_b, heads, categorical,
+                                  continuous, mask, loss_weights, eps=eps,
+                                  route="cuda_core", lse=lse)
+        ctx.save_for_backward(dec, ln_w, ln_b, categorical, continuous, mask,
+                              lse, *head_params)
+        ctx.loss_weights = loss_weights
+        ctx.eps = eps
+        ctx.reference = reference
+        return err
+
+    @staticmethod
+    def backward(ctx, derr):
+        (dec, ln_w, ln_b, categorical, continuous, mask, lse,
+         *head_params) = ctx.saved_tensors
+        heads = list(zip(head_params[0::2], head_params[1::2]))
+        ref = ctx.reference
+        bwd = _recon.recon_ce_bwd_plain if ref else _recon.recon_ce_bwd
+        g = bwd(dec, ln_w, ln_b, heads, lse, categorical, continuous, mask,
+                derr.contiguous(), ctx.loss_weights, ctx.eps)
+        ln_bwd = _dense.ln_bwd_plain if ref else _dense.ln_bwd
+        ddec, dlnw, dlnb = ln_bwd(dec, ln_w, g.dy, ctx.eps)
+        return (ddec, dlnw, dlnb, None, None, None, None, None, None,
+                *(t for pair in g.heads for t in pair))
+
+
+def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
+             ln_bias: torch.Tensor,
+             heads: Sequence[tuple[torch.Tensor, torch.Tensor]],
+             categorical: torch.Tensor, continuous: torch.Tensor,
+             mask: torch.Tensor, loss_weights: Sequence[float], eps: float,
+             reference: bool = False) -> torch.Tensor:
+    """K11's ``(M,)`` errors of the ``(M, d)`` decoder output ``dec``
+    (before ``dec_ln``), with K20 and K17 behind them."""
+    _trainable(dec, "recon_ce")
+    return _ReconCE.apply(dec.contiguous(), ln_weight, ln_bias, categorical,
+                          continuous, mask, tuple(loss_weights), eps,
+                          reference, *(t for pair in heads for t in pair))

@@ -51,6 +51,8 @@ SOURCES = {
     "ln_bwd": "ln_bwd.cu",
     "gelu_bwd": "gelu_bwd.cu",
     "span_embed_bwd": "span_embed_bwd.cu",
+    "recon_ce_bwd": "recon_ce_bwd.cu",
+    "ae_pool_bwd": "ae_pool_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

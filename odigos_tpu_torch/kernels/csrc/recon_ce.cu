@@ -23,6 +23,9 @@
 //      (duration - continuous[..., 0])^2;
 //   4. err accumulated in the reference's order (:116-120) with separate
 //      IEEE steps.
+// The f32 kernel (the trainer's forward) can also write each real
+// position's three log-sum-exps (lse, (M, 3)), which K20 (recon_ce_bwd.cu)
+// turns into the softmax without a second sweep of the vocabularies.
 // Masked positions write 0 (the reference multiplies finite values by 0
 // there) and are not scored: on the host route ~84% of a row is padding on
 // the otel mix (10.3 spans a trace in L = 64), on the fused route (one row
@@ -144,7 +147,8 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
     float eps, Heads heads, const int32_t* __restrict__ cat, int C,
     const float* __restrict__ cont, int D, const uint8_t* __restrict__ mask,
     float w_s, float w_n, float w_k, float w_d, float* __restrict__ err,
-    const int32_t* __restrict__ span_map, float* __restrict__ scores) {
+    const int32_t* __restrict__ span_map, float* __restrict__ scores,
+    float* __restrict__ lse) {
   constexpr int kTP = 16 * TS;  // positions a tile
   constexpr int kVR = 16 * TS;  // vocabulary rows a weight tile
   const int ld = d + 4;
@@ -162,7 +166,11 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
   // ---- compact the chunk's real positions
   const long long pos = base + tid;
   const bool real = pos < M && mask[pos];
-  if (pos < M && !real) err[pos] = 0.f;
+  if (pos < M && !real) {
+    err[pos] = 0.f;
+    if (lse != nullptr)
+      for (int h = 0; h < 3; ++h) lse[pos * 3 + h] = 0.f;
+  }
   const unsigned bal = __ballot_sync(0xffffffffu, real);
   if (lane == 0) s_wcount[wid] = __popc(bal);
   __syncthreads();
@@ -296,6 +304,8 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
           s_lse[2][tid], s_zl[2][tid], s_dur[tid], s_c0[tid], w_s, w_n, w_k,
           w_d);
       err[q] = e;
+      if (lse != nullptr)
+        for (int h = 0; h < 3; ++h) lse[q * 3 + h] = s_lse[h][tid];
       if (span_map != nullptr) {
         const int idx = span_map[q];
         if (idx >= 0) scores[idx] = 1.f - expf(-e);
@@ -310,7 +320,8 @@ int launch_f32_t(const T* dec, long long M, int d, const float* gamma,
                  const float* beta, float eps, const Heads& heads,
                  const int32_t* cat, int C, const float* cont, int D,
                  const uint8_t* mask, const float* wts, float* err,
-                 const int32_t* span_map, float* scores, cudaStream_t st) {
+                 const int32_t* span_map, float* scores, float* lse,
+                 cudaStream_t st) {
   const int smem = 2 * 16 * TS * (d + 4) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       recon_ce_kernel<T, PER, TS>,
@@ -320,7 +331,7 @@ int launch_f32_t(const T* dec, long long M, int d, const float* gamma,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   recon_ce_kernel<T, PER, TS><<<(unsigned)blocks, kThreads, smem, st>>>(
       dec, M, d, gamma, beta, eps, heads, cat, C, cont, D, mask, wts[0],
-      wts[1], wts[2], wts[3], err, span_map, scores);
+      wts[1], wts[2], wts[3], err, span_map, scores, lse);
   return (int)cudaGetLastError();
 }
 
@@ -330,18 +341,19 @@ int launch_f32_d(const T* dec, long long M, int d, const float* gamma,
                  const float* beta, float eps, const Heads& heads,
                  const int32_t* cat, int C, const float* cont, int D,
                  const uint8_t* mask, const float* wts, float* err,
-                 const int32_t* span_map, float* scores, cudaStream_t st) {
+                 const int32_t* span_map, float* scores, float* lse,
+                 cudaStream_t st) {
   if (d <= 384)
     return launch_f32_t<T, 12, 4>(dec, M, d, gamma, beta, eps, heads, cat, C,
                                   cont, D, mask, wts, err, span_map, scores,
-                                  st);
+                                  lse, st);
   if (d <= 768)
     return launch_f32_t<T, 24, 2>(dec, M, d, gamma, beta, eps, heads, cat, C,
                                   cont, D, mask, wts, err, span_map, scores,
-                                  st);
+                                  lse, st);
   return launch_f32_t<T, 32, 1>(dec, M, d, gamma, beta, eps, heads, cat, C,
                                 cont, D, mask, wts, err, span_map, scores,
-                                st);
+                                lse, st);
 }
 
 // ---------------------------------------------------------------- bf16
@@ -1298,6 +1310,8 @@ int launch_tc_wide(const TcArgs& a, long long M, int d, const uint8_t* mask,
 // column 0); mask: (M,) bytes; the four loss weights; err: (M,) f32 out.
 // span_map (nullable): (M,) int32 original span index, -1 at padding;
 // scores: zero-filled f32, written at span_map[q] for each real q.
+// lse (nullable): (M, 3) f32 out, each real position's log-sum-exps of the
+// service, name and kind logits (0 at padding), for K20's backward.
 extern "C" int recon_ce_f32_launch(
     const void* dec, int dtype, long long M, int d, const void* gamma,
     const void* beta, float eps, const void* w0, const void* w1,
@@ -1305,7 +1319,7 @@ extern "C" int recon_ce_f32_launch(
     const void* b2, const void* b3, int v0, int v1, int v2, int v3,
     const void* cat, int C, const void* cont, int D, const void* mask,
     float w_s, float w_n, float w_k, float w_d, void* err,
-    const void* span_map, void* scores, void* stream) {
+    const void* span_map, void* scores, void* lse, void* stream) {
   if (M < 0 || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 || C < 3 || D < 1 ||
       d < 4 || d % 4 != 0 || d > 1024 || (dtype != 0 && dtype != 1) ||
       (span_map != nullptr && scores == nullptr))
@@ -1330,11 +1344,12 @@ extern "C" int recon_ce_f32_launch(
   float* e = static_cast<float*>(err);
   const int32_t* sm = static_cast<const int32_t*>(span_map);
   float* sc = static_cast<float*>(scores);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 1)
     return launch_f32_d(static_cast<const __nv_bfloat16*>(dec), M, d, g, b,
-                        eps, heads, c, C, ct, D, m, wts, e, sm, sc, st);
+                        eps, heads, c, C, ct, D, m, wts, e, sm, sc, ls, st);
   return launch_f32_d(static_cast<const float*>(dec), M, d, g, b, eps, heads,
-                      c, C, ct, D, m, wts, e, sm, sc, st);
+                      c, C, ct, D, m, wts, e, sm, sc, ls, st);
 }
 
 // K11, bf16 (tensor cores). dec: (M, d) bf16; gamma, beta as above;

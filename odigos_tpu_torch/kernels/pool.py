@@ -9,6 +9,11 @@ positions, the sum rounded to the working type and divided by
 ``max(mask.sum(-1), 1)`` in that type. That is ``final_ln`` of
 ``odigos_tpu/models/layers.py`` ``Encoder`` and the pool of
 ``odigos_tpu/models/autoencoder.py`` ``_AutoencoderModule`` (:69-70).
+``ln_masked_pool_bwd(x, ln_weight, mask, dpool, eps)`` (K21,
+``csrc/ae_pool_bwd.cu``) is its backward pass for the trainer, f32:
+``(dx, dweight, dbias)`` from the pooled vectors' gradient, ``g =
+dpool / max(count, 1)`` taken through the LayerNorm at each real position
+(K17's arithmetic, K12's statistics recomputed), ``dx`` 0 at padding.
 ``live`` (a ``(1,)`` int32 row count on the device: the fused route's
 trace count from K13) makes every row at or past ``live[0]`` a row of
 padding: it is written as zeros, and neither its mask nor its ``x`` is
@@ -28,7 +33,7 @@ normalises them on K14's layout (16-byte vectors on ``d / 8`` lanes, bf16;
 positions' loads issued before the current ones are reduced; the rows past
 ``live`` are zero-filled. It takes ``d % 8 == 0`` up to ``MAX_D`` and ``L``
 up to ``MAX_L``, 16-byte aligned ``x``. ``launches`` counts the calls that
-launched.
+launched, ``bwd_launches`` K21's.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from typing import Optional
 import torch
 
 from . import build
+from .dense import ln_bwd_plain
 from .quant import layer_norm_plain
 
 LN_EPS = 1e-6
@@ -48,8 +54,10 @@ MAX_L = 1024  # the kernel's list of a trace's real positions
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 _count_lock = threading.Lock()
 _fn = None
+_bwd_fns: dict = {}  # K21's launchers
 
 
 def ln_masked_pool_plain(x: torch.Tensor, ln_weight: torch.Tensor,
@@ -62,11 +70,12 @@ def ln_masked_pool_plain(x: torch.Tensor, ln_weight: torch.Tensor,
     if live is not None:
         rows = torch.arange(mask.shape[0], device=mask.device)
         mask = mask & (rows < live.to(mask.device).long())[:, None]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     y = layer_norm_plain(x, ln_weight, ln_bias, eps)
     y = torch.where(mask[..., None], y.double(), 0.0)
-    s = y.sum(-2).float().to(x.dtype)
-    denom = mask.sum(-1, keepdim=True).clamp(min=1).float()
-    return (s.float() / denom).to(x.dtype)
+    s = y.sum(-2).to(acc).to(x.dtype)
+    denom = mask.sum(-1, keepdim=True).clamp(min=1).to(acc)
+    return (s.to(acc) / denom).to(x.dtype)
 
 
 def _kernel():
@@ -142,3 +151,97 @@ def ln_masked_pool(x: torch.Tensor, ln_weight: torch.Tensor,
     with _count_lock:
         launches += 1
     return out
+
+
+# ------------------------------------------------------- K21: the backward
+def ln_masked_pool_bwd_plain(x: torch.Tensor, ln_weight: torch.Tensor,
+                             mask: torch.Tensor, dpool: torch.Tensor,
+                             eps: float = LN_EPS
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K21's plain version: ``g = dpool / max(count, 1)`` spread over each
+    trace's real positions (0 at padding), then K17's plain version
+    (``dense.ln_bwd_plain``) through the LayerNorm: ``(dx, dweight,
+    dbias)`` (f64 for f64 inputs)."""
+    _check_bwd(x, ln_weight, mask, dpool)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    denom = mask.sum(-1, keepdim=True).clamp(min=1).to(acc)
+    g = dpool.to(acc) / denom
+    dy = torch.where(mask[..., None], g[:, None, :], 0.0).to(x.dtype)
+    return ln_bwd_plain(x, ln_weight, dy, eps)
+
+
+def _check_bwd(x, ln_weight, mask, dpool) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (T, L, d), got {tuple(x.shape)}")
+    T, L, d = x.shape
+    if ln_weight.shape != (d,):
+        raise ValueError(f"ln_weight must be ({d},), got "
+                         f"{tuple(ln_weight.shape)}")
+    if mask.shape != (T, L) or mask.dtype != torch.bool:
+        raise ValueError(f"mask must be ({T}, {L}) bool, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    if dpool.shape != (T, d):
+        raise ValueError(f"dpool must be ({T}, {d}), got "
+                         f"{tuple(dpool.shape)}")
+    devs = {t.device for t in (x, ln_weight, mask, dpool)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+
+
+def _bwd_kernel(name: str):
+    fn = _bwd_fns.get(name)
+    if fn is None:
+        fn = getattr(build.load("ae_pool_bwd"), name)
+        if name == "ln_masked_pool_bwd_partials":
+            fn.argtypes = [ctypes.c_longlong]
+            fn.restype = ctypes.c_longlong
+        else:
+            fn.argtypes = ([ctypes.c_void_p] * 4
+                           + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_int] + [ctypes.c_void_p] * 5)
+            fn.restype = ctypes.c_int
+        _bwd_fns[name] = fn
+    return fn
+
+
+def ln_masked_pool_bwd(x: torch.Tensor, ln_weight: torch.Tensor,
+                       mask: torch.Tensor, dpool: torch.Tensor,
+                       eps: float = LN_EPS
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K21: ``(dx, dweight, dbias)`` of :func:`ln_masked_pool` (module
+    docstring), f32. Nothing is synchronised."""
+    global bwd_launches
+    _check_bwd(x, ln_weight, mask, dpool)
+    dev = x.device
+    if dev.type == "cpu":
+        return ln_masked_pool_bwd_plain(x, ln_weight, mask, dpool, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"ln_masked_pool_bwd runs on cuda or cpu, not {dev}")
+    if any(t.dtype != torch.float32 for t in (x, ln_weight, dpool)):
+        raise TypeError("ln_masked_pool_bwd takes float32 (the trainer's "
+                        "type)")
+    T, L, d = x.shape
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"ln_masked_pool_bwd takes d up to {MAX_D}, not {d}")
+    if not all(t.is_contiguous() for t in (x, ln_weight, mask, dpool)):
+        raise ValueError("ln_masked_pool_bwd needs contiguous inputs")
+    dx = torch.empty_like(x)
+    dw = torch.zeros(d, dtype=torch.float32, device=dev)
+    db = torch.zeros(d, dtype=torch.float32, device=dev)
+    if T == 0 or L == 0:
+        return dx, dw, db
+    part = torch.empty(int(_bwd_kernel("ln_masked_pool_bwd_partials")(T))
+                       * 2 * d, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _bwd_kernel("ln_masked_pool_bwd_launch")(
+            x.data_ptr(), ln_weight.data_ptr(), mask.data_ptr(),
+            dpool.data_ptr(), eps, T, L, d, dx.data_ptr(), dw.data_ptr(),
+            db.data_ptr(), part.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ln_masked_pool_bwd launch failed: CUDA error "
+                           f"{rc}")
+    with _count_lock:
+        bwd_launches += 1
+    return dx, dw, db

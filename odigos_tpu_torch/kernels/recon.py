@@ -28,6 +28,15 @@ and the log-sum-exp are summed in another order (the kernel keeps an
 online log-sum-exp and never writes the logits), so ``err`` agrees to
 summation-order noise.
 
+With ``lse`` (an ``(M, 3)`` f32 buffer; the trainer's forward) it also
+writes each real position's log-sum-exps of the service, name and kind
+logits (0 at padding): the f32 CUDA-core kernel only, as K1's f32 routes
+write theirs for K16. :func:`recon_ce_bwd` (K20, ``csrc/recon_ce_bwd.cu``)
+is the backward pass: from those log-sum-exps and the gradient of each
+position's error, the gradient at ``dec_ln``'s output (``dy``, 0 at
+padding; K17 takes it through ``dec_ln``) and the four heads' weight and
+bias gradients, the LayerNorm recomputed with K11's bits.
+
 A CUDA tensor launches ``csrc/recon_ce.cu`` or raises; a CPU tensor takes
 :func:`recon_ce_plain`. :func:`kernel_route` names the kernel: bf16, the
 served type, runs the service and name heads on tensor cores (``"tc"``,
@@ -45,7 +54,8 @@ tiles at ``TC_WIDTHS``, 64-position tiles chunked along d elsewhere;
 the CUDA-core kernel takes ``d % 4 == 0``), the kind head at most
 ``MAX_KIND`` wide on the tensor-core route. ``launches`` counts the calls
 that launched, ``tc_launches`` those on the tensor-core kernel,
-``device_launches`` the kernels.
+``device_launches`` the kernels; ``bwd_launches`` counts K20's calls
+(three kernels each: the real positions listed, the rows, the columns).
 """
 
 from __future__ import annotations
@@ -76,11 +86,17 @@ PART_ITEMS_PER_SM = 8
 launches = 0
 tc_launches = 0
 device_launches = 0
+bwd_launches = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
 _sms: dict = {}  # device index -> multiprocessors
 
 Heads = Sequence[tuple[torch.Tensor, torch.Tensor]]
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic: f64 for f64 inputs, else f32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 class HeadPlanes(NamedTuple):
@@ -97,15 +113,22 @@ def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
                    categorical: torch.Tensor, continuous: torch.Tensor,
                    mask: torch.Tensor, loss_weights: Sequence[float],
                    span_map: Optional[torch.Tensor] = None, n_out: int = 0,
-                   eps: float = LN_EPS):
+                   eps: float = LN_EPS, lse: Optional[torch.Tensor] = None):
     """The plain version, on the real positions only: the LayerNorm, four
-    ``F.linear`` heads in f32, three ``F.cross_entropy`` and the squared
-    error, summed in the reference's order."""
+    ``F.linear`` heads in f32 (f64 for f64 inputs: the gradient checks),
+    three ``F.cross_entropy`` and the squared error, summed in the
+    reference's order; ``lse`` gets ``torch.logsumexp`` of the three
+    heads' logits at the real positions, 0 elsewhere."""
     M = dec.shape[0]
-    err = torch.zeros(M, dtype=torch.float32, device=dec.device)
+    acc = _acc(dec.dtype)
+    err = torch.zeros(M, dtype=acc, device=dec.device)
     real = torch.nonzero(mask).flatten()
-    y = layer_norm_plain(dec[real], ln_weight, ln_bias, eps).float()
-    logits = [F.linear(y, w.float(), b.float()) for w, b in heads]
+    y = layer_norm_plain(dec[real], ln_weight, ln_bias, eps).to(acc)
+    logits = [F.linear(y, w.to(acc), b.to(acc)) for w, b in heads]
+    if lse is not None:
+        lse.zero_()
+        lse[real] = torch.stack([torch.logsumexp(z, -1) for z in logits[:3]],
+                                -1).to(lse.dtype)
     w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
     labels = categorical[real].long()
 
@@ -116,11 +139,11 @@ def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
     e = w_s * ce(0)
     e = e + w_n * ce(1)
     e = e + w_k * ce(2)
-    e = e + w_d * (logits[3][:, 0] - continuous[real, 0].float()) ** 2
+    e = e + w_d * (logits[3][:, 0] - continuous[real, 0].to(acc)) ** 2
     err[real] = e
     if span_map is None:
         return err
-    scores = torch.zeros(n_out, dtype=torch.float32, device=dec.device)
+    scores = torch.zeros(n_out, dtype=acc, device=dec.device)
     idx = span_map[real].long()
     keep = idx >= 0
     scores[idx[keep]] = 1.0 - torch.exp(-e[keep])
@@ -219,7 +242,7 @@ def _kernel(name: str):
                            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4)
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
         else:
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
@@ -283,21 +306,28 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
              loss_weights: Sequence[float],
              span_map: Optional[torch.Tensor] = None, n_out: int = 0,
              eps: float = LN_EPS, planes: Optional[HeadPlanes] = None,
-             route: Optional[str] = None):
+             route: Optional[str] = None,
+             lse: Optional[torch.Tensor] = None):
     """``(M,)`` f32 errors, and with ``span_map`` also the ``(n_out,)``
     squashed scores by span; see the module docstring. ``route``: the
     kernel (:func:`kernel_route`), by default the working type's;
     ``planes``: the tensor-core kernel's :func:`head_planes` of ``heads``
-    (made here when None). Nothing is synchronised."""
+    (made here when None); ``lse``: an ``(M, 3)`` buffer for the
+    log-sum-exps (the CUDA-core kernel only). Nothing is synchronised."""
     global launches, tc_launches, device_launches
     n_out = int(n_out)
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
            loss_weights, span_map, n_out)
+    M = dec.shape[0]
+    if lse is not None and (lse.shape != (M, 3) or lse.device != dec.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({M}, 3) tensor on the "
+                         f"inputs' device")
     dev = dec.device
     if dev.type == "cpu":
         return recon_ce_plain(dec, ln_weight, ln_bias, heads, categorical,
                               continuous, mask, loss_weights, span_map,
-                              n_out, eps)
+                              n_out, eps, lse)
     if dev.type != "cuda":
         raise ValueError(f"recon_ce runs on cuda or cpu, not {dev}")
     if dec.dtype not in (torch.float32, torch.bfloat16):
@@ -305,12 +335,15 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
     params = (ln_weight, ln_bias, *(t for pair in heads for t in pair))
     if any(t.dtype != torch.float32 for t in params):
         raise TypeError("LayerNorm and head parameters must be float32")
-    M, d = dec.shape
+    d = dec.shape[1]
     route = kernel_route(dec.dtype) if route is None else route
     if route not in ROUTES or (route == "tc" and dec.dtype != torch.bfloat16):
         raise ValueError(f"recon_ce route {route!r}: 'tc' (bf16) or "
                          f"'cuda_core'")
     tc = route == "tc"
+    if lse is not None and (tc or lse.dtype != torch.float32):
+        raise ValueError("recon_ce writes an f32 lse on the 'cuda_core' "
+                         "route only")
     if d > MAX_D or d % (16 if tc else 4) or d == 0:
         raise ValueError(f"recon_ce takes d % {16 if tc else 4} == 0 up to "
                          f"{MAX_D} on the {route} route, not {d}")
@@ -392,7 +425,8 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                     categorical.data_ptr(), categorical.shape[1],
                     continuous.data_ptr(), continuous.shape[1],
                     mask.data_ptr(), w_s, w_n, w_k, w_d, err.data_ptr(),
-                    smap, out, stream)
+                    smap, out, None if lse is None else lse.data_ptr(),
+                    stream)
         if rc != 0:
             raise RuntimeError(f"recon_ce launch failed: CUDA error {rc}")
         with _count_lock:
@@ -400,3 +434,147 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
             tc_launches += int(tc)
             device_launches += count.value
     return err if span_map is None else (err, scores)
+
+
+# ------------------------------------------------------- K20: the backward
+class HeadGrads(NamedTuple):
+    """``recon_ce_bwd``'s result: the gradient at ``dec_ln``'s output and
+    the four heads' ``(dW, db)`` in K11's order."""
+    dy: torch.Tensor                               # (M, d), 0 at padding
+    heads: list[tuple[torch.Tensor, torch.Tensor]]  # (V_h, d), (V_h,)
+
+
+def recon_ce_bwd_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
+                       ln_bias: torch.Tensor, heads: Heads, lse: torch.Tensor,
+                       categorical: torch.Tensor, continuous: torch.Tensor,
+                       mask: torch.Tensor, derr: torch.Tensor,
+                       loss_weights: Sequence[float],
+                       eps: float = LN_EPS) -> HeadGrads:
+    """K20's plain version, on the real positions: ``y = dec_ln(dec)``,
+    each head's logits by ``F.linear``, ``dlogit_h = (w_h derr) (softmax_h
+    - onehot(label_h))`` with the softmax from ``lse`` (the forward's), the
+    duration's ``(w_d derr) 2 (pred - cont[:, 0])``; ``dy = sum_h dlogit_h
+    W_h``, ``dW_h = dlogit_h^T y``, ``db_h = sum dlogit_h`` (f64 for f64
+    inputs)."""
+    _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
+           loss_weights, None, 0)
+    M, d = dec.shape
+    acc = _acc(dec.dtype)
+    real = torch.nonzero(mask).flatten()
+    y = layer_norm_plain(dec[real], ln_weight, ln_bias, eps).to(acc)
+    g = derr[real].to(acc)
+    labels = categorical[real].long()
+    dy_real = torch.zeros((real.numel(), d), dtype=acc, device=dec.device)
+    grads = []
+    for h, ((w, b), wt) in enumerate(zip(heads, loss_weights)):
+        w, b = w.to(acc), b.to(acc)
+        z = F.linear(y, w, b)
+        coef = float(wt) * g
+        if h < 3:
+            p = torch.exp(z - lse[real, h, None].to(acc))
+            lab = labels[:, h].clamp(0, w.shape[0] - 1)
+            rows = torch.arange(real.numel(), device=dec.device)
+            p[rows, lab] -= 1.0
+            dl = p * coef[:, None]
+        else:
+            cont = continuous[real, 0].to(acc)
+            dl = (coef * (2.0 * (z[:, 0] - cont)))[:, None]
+        dy_real = dy_real + dl @ w
+        grads.append((dl.t() @ y, dl.sum(0)))
+    dy = torch.zeros((M, d), dtype=acc, device=dec.device)
+    dy[real] = dy_real
+    return HeadGrads(dy, grads)
+
+
+def _bwd_kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load("recon_ce_bwd"), name)
+        if name == "recon_ce_bwd_slices":
+            fn.argtypes = [ctypes.c_int] * 4
+        else:
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                           + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p]
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 9)
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
+                 ln_bias: torch.Tensor, heads: Heads, lse: torch.Tensor,
+                 categorical: torch.Tensor, continuous: torch.Tensor,
+                 mask: torch.Tensor, derr: torch.Tensor,
+                 loss_weights: Sequence[float],
+                 eps: float = LN_EPS) -> HeadGrads:
+    """K20: the gradients of ``recon_ce``'s errors (module docstring), f32.
+    ``lse``: the ``(M, 3)`` log-sum-exps K11 wrote in the forward; ``derr``:
+    ``(M,)`` the gradient of each position's error. Nothing is
+    synchronised."""
+    global bwd_launches
+    _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
+           loss_weights, None, 0)
+    M, d = dec.shape
+    if lse.shape != (M, 3) or derr.shape != (M,):
+        raise ValueError(f"lse must be ({M}, 3) and derr ({M},), got "
+                         f"{tuple(lse.shape)} {tuple(derr.shape)}")
+    if {lse.device, derr.device} != {dec.device}:
+        raise ValueError("lse and derr must be on the inputs' device")
+    dev = dec.device
+    if dev.type == "cpu":
+        return recon_ce_bwd_plain(dec, ln_weight, ln_bias, heads, lse,
+                                  categorical, continuous, mask, derr,
+                                  loss_weights, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"recon_ce_bwd runs on cuda or cpu, not {dev}")
+    params = (ln_weight, ln_bias, *(t for pair in heads for t in pair))
+    if any(t.dtype != torch.float32 for t in (dec, lse, derr) + params):
+        raise TypeError("recon_ce_bwd takes float32 (the trainer's type)")
+    if d > MAX_D or d % 4 or d == 0:
+        raise ValueError(f"recon_ce_bwd takes d % 4 == 0 up to {MAX_D}, "
+                         f"not {d}")
+    if M >= 2 ** 31:
+        raise ValueError(f"recon_ce_bwd takes M < 2^31, not {M}")
+    ins = (dec, categorical, continuous, mask, lse, derr, *params)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("recon_ce_bwd needs contiguous inputs")
+    if dec.data_ptr() % 16 or any(w.data_ptr() % 16 for w, _ in heads):
+        raise ValueError("recon_ce_bwd needs a 16-byte aligned dec and head "
+                         "weights")
+    vs = [w.shape[0] for w, _ in heads]
+    V = sum(vs)
+    dy = torch.zeros((M, d), dtype=torch.float32, device=dev)
+    dw = torch.empty((V, d), dtype=torch.float32, device=dev)
+    db = torch.empty(V, dtype=torch.float32, device=dev)
+    if M > 0:
+        S = int(_bwd_kernel("recon_ce_bwd_slices")(*vs))
+        lst = torch.empty(M + 1, dtype=torch.int32, device=dev)  # + count
+        dl = torch.empty((M, V), dtype=torch.float32, device=dev)
+        ybuf = torch.empty((M, d), dtype=torch.float32, device=dev)
+        part = torch.empty((S, M, d), dtype=torch.float32, device=dev)
+        (w0, b0), (w1, b1), (w2, b2), (w3, b3) = heads
+        with torch.cuda.device(dev):
+            rc = _bwd_kernel("recon_ce_bwd_launch")(
+                dec.data_ptr(), M, d, ln_weight.data_ptr(),
+                ln_bias.data_ptr(), eps, w0.data_ptr(), w1.data_ptr(),
+                w2.data_ptr(), w3.data_ptr(), b0.data_ptr(), b1.data_ptr(),
+                b2.data_ptr(), b3.data_ptr(), *vs, lse.data_ptr(),
+                categorical.data_ptr(), categorical.shape[1],
+                continuous.data_ptr(), continuous.shape[1], mask.data_ptr(),
+                derr.data_ptr(), *(float(w) for w in loss_weights),
+                lst.data_ptr(), lst.data_ptr() + 4 * M, dl.data_ptr(),
+                ybuf.data_ptr(), part.data_ptr(), dy.data_ptr(),
+                dw.data_ptr(), db.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"recon_ce_bwd launch failed: CUDA error {rc}")
+        with _count_lock:
+            bwd_launches += 1
+    else:
+        dw.zero_()
+        db.zero_()
+    return HeadGrads(dy, list(zip(torch.split(dw, vs), torch.split(db, vs))))

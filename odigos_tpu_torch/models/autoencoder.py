@@ -29,9 +29,19 @@ The device computations go through the port's kernels:
   ``dec_ff2`` over every position (K15, the GELU in ``dec_ff1``'s
   epilogue).
 
+A module in training mode (``.train()``) with gradients enabled runs the
+trainer's forward (``loss_fn``): the same kernels through the
+``torch.autograd.Function``s of ``kernels.autograd``, the encoder's as
+``models/layers.py`` runs them, then K12 with K21 behind it, ``dec_ff1`` +
+GELU and ``dec_ff2`` on K15 (K19 and the backward products behind them),
+and K11's f32 kernel with its log-sum-exps, K20 and K17 behind it.
+Serving's calls are in eval mode under ``inference_mode``: their launches
+are unchanged.
+
 ``bottleneck`` and ``latent_proj``, one small product per trace, are left
-to ``F.linear`` as the JAX package left them to XLA. The decoder's dense
-layers hold their weights in the working type, as Flax's
+to ``F.linear`` as the JAX package left them to XLA (so are the broadcast
+add of ``dec_pos_embed`` and the loss's sum, with their gradients). The
+decoder's dense layers hold their weights in the working type, as Flax's
 ``Dense(dtype=bf16)`` casts them. The rounding points of the reference
 are kept: the pool is divided in the working type, ``dec_pos_embed`` is
 cast to it and added to the latent projection in it, each Dense rounds its
@@ -51,6 +61,7 @@ from typing import Any, Mapping, Optional
 import torch
 from torch import nn
 
+from ..kernels import autograd
 from ..kernels.dense import gemm_bf16, gemm_bf16_plain
 from ..kernels.embed import KIND_VOCAB
 from ..kernels.pool import ln_masked_pool, ln_masked_pool_plain
@@ -58,7 +69,7 @@ from ..kernels.recon import (HeadPlanes, kernel_route, recon_ce,
                              recon_ce_plain, split_planes)
 from ..kernels import coverage
 from ..utils.device import resolve_device
-from .layers import Encoder, LayerNorm, init_parameters
+from .layers import Encoder, LayerNorm, _trains, init_parameters
 from .transformer import _as_tensor, load_module_state
 
 
@@ -193,9 +204,13 @@ class SpanAutoencoder:
             T, L).contiguous()
         h = m.encoder(cat, cont, pos, seg, reference=reference,
                       final_ln=False, live=live)
-        pool = ln_masked_pool_plain if reference else ln_masked_pool
         ln = m.encoder.final_ln
-        pooled = pool(h, ln.weight, ln.bias, mask, ln.eps, live=live)
+        if _trains(m):
+            pooled = autograd.ln_masked_pool(h, ln.weight, ln.bias, mask,
+                                             ln.eps, reference)
+        else:
+            pool = ln_masked_pool_plain if reference else ln_masked_pool
+            pooled = pool(h, ln.weight, ln.bias, mask, ln.eps, live=live)
         z = m.bottleneck(pooled)
         pos_e = m.dec_pos_embed.weight[:L].to(self.cfg.dtype)
         return (m.latent_proj(z)[:, None, :] + pos_e).reshape(T * L, -1)
@@ -208,11 +223,16 @@ class SpanAutoencoder:
         ``live``, K11 reads no row of a trace past the count, and K15
         skips their row tiles)."""
         m = self.module
+        x = self._decoder_input(cat, cont, mask, reference, live)
+        if _trains(m):
+            x = autograd.dense(x, [m.dec_ff1.weight], [m.dec_ff1.bias],
+                               "gelu_tanh", reference=reference)
+            return autograd.dense(x, [m.dec_ff2.weight], [m.dec_ff2.bias],
+                                  reference=reference)
         gemm = gemm_bf16_plain if reference else gemm_bf16
         L = mask.shape[1]
-        dec = gemm(self._decoder_input(cat, cont, mask, reference, live),
-                   m.dec_ff1.weight, m.dec_ff1.bias, "gelu_tanh", live=live,
-                   per=L)
+        dec = gemm(x, m.dec_ff1.weight, m.dec_ff1.bias, "gelu_tanh",
+                   live=live, per=L)
         return gemm(dec, m.dec_ff2.weight, m.dec_ff2.bias, live=live, per=L)
 
     def _errors(self, cat, cont, mask, reference: bool, span_map=None,
@@ -225,6 +245,8 @@ class SpanAutoencoder:
                 cat.reshape(T * L, -1), cont.reshape(T * L, -1),
                 mask.reshape(T * L),
                 (c.w_service, c.w_name, c.w_kind, c.w_duration))
+        if _trains(self.module):
+            return autograd.recon_ce(*args, ln.eps, reference)
         if reference:
             return recon_ce_plain(*args, span_map=span_map, n_out=n_out,
                                   eps=ln.eps)
@@ -287,10 +309,21 @@ class SpanAutoencoder:
                                  live=live)
         return scores
 
-    @torch.inference_mode()
-    def loss_fn(self, categorical: Any, continuous: Any, mask: Any
-                ) -> torch.Tensor:
-        """Mean masked reconstruction error (forward only)."""
+    def loss_fn(self, categorical: Any, continuous: Any, mask: Any,
+                reference: bool = False) -> torch.Tensor:
+        """The reference's ``loss_fn``: the mean masked reconstruction
+        error (``odigos_tpu/models/autoencoder.py:129-136``; no labels: the
+        model is unsupervised). With the module in training mode and
+        gradients enabled (the trainer's forward) it has a graph behind it,
+        else it runs under ``inference_mode``. ``reference=True``: the
+        plain versions of every kernel, forward and backward."""
+        if _trains(self.module):
+            return self._loss(categorical, continuous, mask, reference)
+        with torch.inference_mode():
+            return self._loss(categorical, continuous, mask, reference)
+
+    def _loss(self, categorical, continuous, mask, reference: bool
+              ) -> torch.Tensor:
         cat, cont, m = self._inputs(categorical, continuous, mask)
-        err = self._errors(cat, cont, m, reference=False)
+        err = self._errors(cat, cont, m, reference)
         return err.sum() / m.sum().clamp(min=1).float()

@@ -1,8 +1,8 @@
 """The reference's initial weights for a seed, without JAX.
 
 ``odigos_tpu``'s trainer starts from ``TraceTransformer.init(
-jax.random.PRNGKey(seed))``: Flax's default initializers drawn from JAX's
-threefry generator, one key a parameter. Training from another draw of the
+jax.random.PRNGKey(seed))`` (or ``SpanAutoencoder``'s): Flax's default
+initializers drawn from JAX's threefry generator, one key a parameter. Training from another draw of the
 same distributions is another experiment: the reference's north-star
 fixture (200 steps, seed 0) reaches ROC-AUC 0.98 from its own seed-0
 weights, while seeds 1 and 2 of the same recipe reach 0.66 and 0.35 (the
@@ -154,11 +154,11 @@ def _embed(key: Key, rows: int, d: int) -> np.ndarray:
     return normal(key, (rows, d)) * np.sqrt(np.float32(1.0 / d))
 
 
-def transformer_params(cfg: Any, seed: int) -> dict[str, np.ndarray]:
-    """The Flax variables ``odigos_tpu``'s ``TraceTransformer(cfg).init(
-    jax.random.PRNGKey(seed))`` draws, as a ``/``-flattened dict of f32
-    arrays (``convert.flax_to_torch`` takes it)."""
-    root = prng_key(seed)
+def _encoder_params(cfg: Any, root: Key) -> tuple[dict[str, np.ndarray],
+                                                   Any, Any]:
+    """The ``encoder`` subtree both models share (``odigos_tpu/models/
+    layers.py`` ``Encoder``, its ``final_ln`` included), and the ``dense``
+    and ``layer_norm`` helpers that draw more parameters into it."""
     d, H, ff = cfg.d_model, cfg.n_heads, cfg.d_ff
     hd = d // H
     out: dict[str, np.ndarray] = {}
@@ -199,6 +199,15 @@ def transformer_params(cfg: Any, seed: int) -> dict[str, np.ndarray]:
         dense(blk + ("Dense_0",), (d, ff), d, (ff,))
         dense(blk + ("Dense_1",), (ff, d), ff, (d,))
     layer_norm(("encoder", "final_ln"))
+    return out, dense, layer_norm
+
+
+def transformer_params(cfg: Any, seed: int) -> dict[str, np.ndarray]:
+    """The Flax variables ``odigos_tpu``'s ``TraceTransformer(cfg).init(
+    jax.random.PRNGKey(seed))`` draws, as a ``/``-flattened dict of f32
+    arrays (``convert.flax_to_torch`` takes it)."""
+    d = cfg.d_model
+    out, dense, _ = _encoder_params(cfg, prng_key(seed))
     dense(("span_head",), (d, 1), d, (1,))
     dense(("trace_head",), (d, 1), d, (1,))
     return out
@@ -209,3 +218,33 @@ def transformer_state(cfg: Any, seed: int) -> dict[str, torch.Tensor]:
     from .convert import flax_to_torch
 
     return flax_to_torch(transformer_params(cfg, seed), cfg)
+
+
+def autoencoder_params(cfg: Any, seed: int) -> dict[str, np.ndarray]:
+    """The Flax variables ``odigos_tpu``'s ``SpanAutoencoder(cfg).init(
+    jax.random.PRNGKey(seed))`` draws (``odigos_tpu/models/
+    autoencoder.py:103-110``): the encoder, then the bottleneck, the
+    decoder and the four heads, as a ``/``-flattened dict of f32 arrays
+    (``convert.flax_autoencoder_to_torch`` takes it)."""
+    root = prng_key(seed)
+    d, lat, ff = cfg.d_model, cfg.d_latent, cfg.d_ff
+    out, dense, layer_norm = _encoder_params(cfg, root)
+    dense(("bottleneck",), (d, lat), d, (lat,))
+    out["dec_pos_embed/embedding"] = _embed(
+        param_key(root, ("dec_pos_embed",), 1), cfg.max_len, d)
+    dense(("latent_proj",), (lat, d), lat, (d,))
+    dense(("dec_ff1",), (d, ff), d, (ff,))
+    dense(("dec_ff2",), (ff, d), ff, (d,))
+    layer_norm(("dec_ln",))
+    for head, width in (("service_head", cfg.service_vocab),
+                        ("name_head", cfg.name_vocab), ("kind_head", 8),
+                        ("duration_head", 1)):
+        dense((head,), (d, width), d, (width,))
+    return out
+
+
+def autoencoder_state(cfg: Any, seed: int) -> dict[str, torch.Tensor]:
+    """:func:`autoencoder_params` as the port's state dict."""
+    from .convert import flax_autoencoder_to_torch
+
+    return flax_autoencoder_to_torch(autoencoder_params(cfg, seed), cfg)

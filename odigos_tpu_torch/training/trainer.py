@@ -1,12 +1,15 @@
 """The training loop: AdamW under a warmup-cosine schedule, with step
 checkpoints and resume.
 
-The port of ``odigos_tpu/training/trainer.py``. One step: the labelled
-stream's next batch (``training/data.py``, regenerated from the seed, so a
-resumed run sees the same remaining stream), the transformer's
-``loss_fn`` forward through the kernels' autograd Functions
-(``kernels/autograd.py``: K1/K16, K2/K18, K14/K17, K15 and K19 for FFN1),
-the backward pass, and one ``torch.optim.AdamW`` update (betas 0.9 /
+The port of ``odigos_tpu/training/trainer.py``, for both of its models.
+One step: the labelled stream's next batch (``training/data.py``,
+regenerated from the seed, so a resumed run sees the same remaining
+stream; the autoencoder trains on clean traffic, ``fault_fraction`` 0, as
+the reference's), the model's ``loss_fn`` forward through the kernels'
+autograd Functions (``kernels/autograd.py``: K1/K16, K2/K18, K14/K17, K15
+and K19 for FFN1; the autoencoder also K12/K21, K15 + K19 for
+``dec_ff1``, K15 for ``dec_ff2`` and K11/K20 + K17 for its heads), the
+backward pass, and one ``torch.optim.AdamW`` update (betas 0.9 /
 0.999, eps 1e-8, weight decay 1e-4 on every parameter: optax's ``adamw``
 with no mask) at the learning rate of ``optax.warmup_cosine_decay_schedule
 (0, lr, warmup, max(schedule_steps or steps, 1))``, reproduced by
@@ -14,8 +17,9 @@ with no mask) at the learning rate of ``optax.warmup_cosine_decay_schedule
 from 0). It trains in f32, as the reference does (bf16 activations lost
 most of the AUC there), at the model's full width. It starts from the
 weights the reference's seed gives (``models/jax_init.py``: JAX's draws,
-reproduced without JAX), since the recipe's outcome depends on them: the
-reference reaches AUC 0.98 from seed 0 and 0.66 / 0.35 from seeds 1 / 2.
+reproduced without JAX), since the transformer recipe's outcome depends
+on them: the reference reaches AUC 0.98 from seed 0 and 0.66 / 0.35 from
+seeds 1 / 2.
 
 Checkpoints: every ``checkpoint_every`` steps (and at the end) a directory
 ``<checkpoint_dir>/<step>/`` holding the model, optimizer and scheduler
@@ -24,13 +28,12 @@ newest one. ``export`` writes a serving bundle (``training/checkpoint.py``)
 that ``EngineConfig(checkpoint_path=...)`` loads.
 
 ``Trainer(config, device="cuda")`` raises without a card unless asked for
-``"cpu"``; on the card the geometry must be one ``kernels/coverage.check``
-takes (and embedding tables of at most ``embed.MAX_BWD_ROWS`` rows, K18's),
-the working type f32 and the model the transformer: the
-autoencoder's decoder (K11, K12) has no backward kernels yet and bf16 none
-either, so both raise there, naming what is missing. On the CPU every
-kernel is its plain version and the autoencoder is refused as well (it has
-no loss here yet).
+``"cpu"``; on the card either model's geometry must be one
+``kernels/coverage.check`` takes (it holds K20's ``d`` too), with
+embedding tables of at most ``embed.MAX_BWD_ROWS`` rows (K18's), and the
+working type f32 (the backward kernels K16-K21 are f32; bf16 training is a
+later slice): each raises there by name (:func:`card_checks`). On the CPU
+every kernel is its plain version, in any geometry.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ STATE_FILE = "state.pt"
 
 @dataclass
 class TrainConfig:
-    model: str = "transformer"  # transformer (autoencoder: a later slice)
+    model: str = "transformer"  # transformer | autoencoder
     steps: int = 300
     traces_per_step: int = 64
     fault_fraction: float = 0.3
@@ -95,35 +98,44 @@ def lr_schedule(step: int, peak: float, warmup: int, decay_steps: int
     return peak * 0.5 * (1.0 + math.cos(math.pi * t / (decay_steps - warmup)))
 
 
-def _build_model(cfg: TrainConfig, device: torch.device):
+def card_checks(mcfg: Any) -> None:
+    """Raise, naming the limit, where the card's training kernels cannot
+    take a model config (a ``TransformerConfig`` or an
+    ``AutoencoderConfig``): the geometry ``kernels/coverage.check`` serves
+    (``d_model`` % 16 up to 1024, which K20 takes too), embedding tables
+    within K18's histogram, and f32."""
     from ..kernels import coverage
     from ..kernels.embed import MAX_BWD_ROWS
+
+    coverage.check(mcfg)
+    rows = max(mcfg.service_vocab, mcfg.name_vocab, mcfg.max_len,
+               mcfg.attr_vocab if mcfg.attr_slots else 0)
+    if rows > MAX_BWD_ROWS:
+        raise ValueError(f"training on the card takes embedding tables "
+                         f"of up to {MAX_BWD_ROWS} rows (K18's "
+                         f"histogram), not {rows}")
+    if mcfg.dtype != torch.float32:
+        raise ValueError(f"training on the card takes float32 (the "
+                         f"backward kernels K16-K21 are f32); {mcfg.dtype} "
+                         f"training is a later slice")
+
+
+def _build_model(cfg: TrainConfig, device: torch.device):
+    from ..models.autoencoder import AutoencoderConfig, SpanAutoencoder
     from ..models.transformer import TraceTransformer, TransformerConfig
 
-    if cfg.model == "autoencoder":
-        raise ValueError("autoencoder training is not ported yet: its "
-                         "decoder's backward kernels (K11 recon_ce, K12 "
-                         "ln_masked_pool and the decoder chain) are a later "
-                         "slice")
-    if cfg.model != "transformer":
+    classes = {"transformer": (TransformerConfig, TraceTransformer),
+               "autoencoder": (AutoencoderConfig, SpanAutoencoder)}
+    if cfg.model not in classes:
         raise ValueError(f"unknown model {cfg.model!r}")
+    config_cls, model_cls = classes[cfg.model]
     kwargs = dict(cfg.model_kwargs)
     kwargs.setdefault("max_len", cfg.max_len)
     kwargs.setdefault("dtype", torch.float32)  # as the reference trains
-    mcfg = TransformerConfig(**kwargs)
+    mcfg = config_cls(**kwargs)
     if device.type == "cuda":
-        coverage.check(mcfg)
-        rows = max(mcfg.service_vocab, mcfg.name_vocab, mcfg.max_len,
-                   mcfg.attr_vocab if mcfg.attr_slots else 0)
-        if rows > MAX_BWD_ROWS:
-            raise ValueError(f"training on the card takes embedding tables "
-                             f"of up to {MAX_BWD_ROWS} rows (K18's "
-                             f"histogram), not {rows}")
-        if mcfg.dtype != torch.float32:
-            raise ValueError(f"training on the card takes float32 (the "
-                             f"backward kernels K16-K19 are f32); {mcfg.dtype} "
-                             f"training is a later slice")
-    return TraceTransformer(mcfg, device=device, seed=cfg.seed)
+        card_checks(mcfg)
+    return model_cls(mcfg, device=device, seed=cfg.seed)
 
 
 def _sync(device: torch.device) -> float:
@@ -138,16 +150,24 @@ class Trainer:
                  initial_state: Optional[Mapping[str, Any]] = None):
         """``initial_state``: the model's starting weights (a state dict),
         else the reference's for the config's seed (``jax_init``)."""
-        from ..models.jax_init import transformer_state
+        from ..models.jax_init import autoencoder_state, transformer_state
 
         self.config = config or TrainConfig()
         self.device = resolve_device(device)
         self.model = _build_model(self.config, self.device)
+        reference_state = (transformer_state if self.supervised
+                           else autoencoder_state)
         self.model.load_state_dict(
             initial_state if initial_state is not None
-            else transformer_state(self.model.cfg, self.config.seed))
+            else reference_state(self.model.cfg, self.config.seed))
         self._initial = {k: v.detach().clone()
                          for k, v in self.model.state_dict().items()}
+
+    @property
+    def supervised(self) -> bool:
+        """The transformer trains on labels; the autoencoder on clean
+        traffic without them."""
+        return self.config.model == "transformer"
 
     # ------------------------------------------------------- optimizer
     def _optimizer(self):
@@ -238,7 +258,8 @@ class Trainer:
             "data": [], "forward": [], "backward": [], "optimizer": []}
         losses: list[float] = []
         stream = training_stream(
-            cfg.traces_per_step, fault_fraction=cfg.fault_fraction,
+            cfg.traces_per_step, fault_fraction=cfg.fault_fraction
+            if self.supervised else 0.0,
             max_len=cfg.max_len, seed=cfg.seed, start_step=start_step)
         try:
             t0 = _sync(dev)
@@ -247,9 +268,10 @@ class Trainer:
                     break
                 t1 = _sync(dev)
                 opt.zero_grad(set_to_none=True)
+                labels = ((data.span_labels, data.trace_labels)
+                          if self.supervised else ())
                 loss = model.loss_fn(data.categorical, data.continuous,
-                                     data.mask, data.span_labels,
-                                     data.trace_labels, reference=reference)
+                                     data.mask, *labels, reference=reference)
                 t2 = _sync(dev)
                 loss.backward()
                 t3 = _sync(dev)

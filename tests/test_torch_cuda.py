@@ -1991,12 +1991,147 @@ def test_training_step_on_the_card_runs_no_plain_backward(dev, monkeypatch):
 def test_trainer_refuses_what_the_card_cannot_train(dev):
     from odigos_tpu_torch.training import TrainConfig, Trainer
 
-    with pytest.raises(ValueError, match="autoencoder training"):
-        Trainer(TrainConfig(model="autoencoder"), device=dev)
-    with pytest.raises(ValueError, match="float32"):
-        Trainer(TrainConfig(model_kwargs={"dtype": torch.bfloat16}),
-                device=dev)
-    with pytest.raises(ValueError, match="d_model"):
-        Trainer(TrainConfig(model_kwargs={"d_model": 2048}), device=dev)
-    with pytest.raises(ValueError, match="K18"):
-        Trainer(TrainConfig(model_kwargs={"name_vocab": 60000}), device=dev)
+    for model in ("transformer", "autoencoder"):
+        with pytest.raises(ValueError, match="float32"):
+            Trainer(TrainConfig(model=model,
+                                model_kwargs={"dtype": torch.bfloat16}),
+                    device=dev)
+        with pytest.raises(ValueError, match="d_model"):
+            Trainer(TrainConfig(model=model, model_kwargs={"d_model": 2048}),
+                    device=dev)
+        with pytest.raises(ValueError, match="K18"):
+            Trainer(TrainConfig(model=model,
+                                model_kwargs={"name_vocab": 60000}),
+                    device=dev)
+
+
+# ---------------------------------------------- the autoencoder's trainer
+# K20 against its plain version, relative to the plain output's largest
+# magnitude: the logits are f32 sums of d products in another order (the
+# softmax inherits their rounding), dy sums up to 2569 products and dW /
+# db up to the real positions' count, each in another order: 1e-4, K16's
+# bound. K21 sums the same f32 terms in f64 and rounds once (K17's
+# arithmetic): BWD_EXACT_RTOL. K11's log-sum-exps: LSE_ATOL.
+RECON_BWD_RTOL = 1e-4
+
+
+def _k20_inputs(dev, M, d, density, vocabs=(512, 2048, 8, 1)):
+    x, w, b, heads, cat, cont, mask, wts = _recon_args(
+        dev, M, d, "float32", vocabs, density)
+    lse = torch.empty(M, 3, device=dev)
+    krecon.recon_ce(x, w, b, heads, cat, cont, mask, wts,
+                    route="cuda_core", lse=lse)
+    g = torch.Generator(device=dev).manual_seed(d)
+    derr = torch.rand(M, generator=g, device=dev) + 0.5
+    return x, w, b, heads, lse, cat, cont, mask, derr, wts
+
+
+@pytest.mark.parametrize("M,d,density", [(2048, 128, 0.3), (2048, 512, 0.3),
+                                         (700, 1024, 0.6), (64, 96, 0.0)])
+def test_k20_recon_ce_bwd_matches_plain(dev, M, d, density):
+    args = _k20_inputs(dev, M, d, density)
+    before = krecon.bwd_launches
+    got = krecon.recon_ce_bwd(*args)
+    assert krecon.bwd_launches == before + 1
+    ref = krecon.recon_ce_bwd_plain(*args)
+    mask = args[7]
+    assert (got.dy[~mask] == 0).all()
+    _close(got.dy, ref.dy, RECON_BWD_RTOL, "dy")
+    for h, ((dw, db), (rw, rb)) in enumerate(zip(got.heads, ref.heads)):
+        if density == 0.0:
+            assert (dw == 0).all() and (db == 0).all()
+            continue
+        _close(dw, rw, RECON_BWD_RTOL, f"dW{h}")
+        _close(db, rb, RECON_BWD_RTOL, f"db{h}")
+    # deterministic: no atomics in any sum
+    again = krecon.recon_ce_bwd(*args)
+    assert torch.equal(again.dy, got.dy)
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(again.heads,
+                                                       got.heads))
+
+
+@pytest.mark.parametrize("d", [128, 512])
+def test_k11_lse_matches_logsumexp_and_leaves_the_errors(dev, d):
+    x, w, b, heads, cat, cont, mask, wts = _recon_args(dev, 4096, d,
+                                                       "float32")
+    lse = torch.full((4096, 3), float("nan"), device=dev)
+    err = krecon.recon_ce(x, w, b, heads, cat, cont, mask, wts,
+                          route="cuda_core", lse=lse)
+    assert torch.equal(err, krecon.recon_ce(x, w, b, heads, cat, cont, mask,
+                                            wts, route="cuda_core"))
+    lse_p = torch.empty_like(lse)
+    krecon.recon_ce_plain(x, w, b, heads, cat, cont, mask, wts, lse=lse_p)
+    assert (lse - lse_p)[mask].abs().max().item() <= LSE_ATOL
+    assert (lse[~mask] == 0).all()
+    with pytest.raises(ValueError, match="lse"):
+        krecon.recon_ce(x.bfloat16(), w, b, heads, cat, cont, mask, wts,
+                        route="tc", lse=lse)
+
+
+@pytest.mark.parametrize("T,L,d", [(64, 32, 128), (16, 64, 512),
+                                   (5, 1024, 96)])
+def test_k21_ln_masked_pool_bwd_matches_plain(dev, T, L, d):
+    x, mask = _masked_rows(dev, T, L, d, "float32", 0.3, seed=T + d)
+    g = torch.Generator(device=dev).manual_seed(d)
+    w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    dpool = torch.randn(T, d, generator=g, device=dev)
+    before = kpool.bwd_launches
+    got = kpool.ln_masked_pool_bwd(x, w, mask, dpool)
+    assert kpool.bwd_launches == before + 1
+    ref = kpool.ln_masked_pool_bwd_plain(x, w, mask, dpool)
+    for a, r, what in zip(got, ref, ("dx", "dgamma", "dbeta")):
+        _close(a, r, BWD_EXACT_RTOL, what)
+    assert (got[0][~mask] == 0).all()
+
+
+def test_autoencoder_training_step_on_the_card(dev, monkeypatch):
+    """One step of the autoencoder's trainer at its full default width:
+    every kernel launches its count, no plain version of a backward kernel
+    is called, and the gradients equal the same step through the plain
+    versions on the card within TRAIN_GRAD_RTOL of each parameter's
+    largest gradient (+ 1e-6 of the largest of all)."""
+    from odigos_tpu_torch.kernels import dense
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.training import labeled_sequences
+
+    cfg = AutoencoderConfig(max_len=32, dtype=torch.float32)
+    model = SpanAutoencoder(cfg, device=dev)
+    model.load_state_dict(autoencoder_state(cfg, 0))
+    d = labeled_sequences(63, fault_fraction=0.0, max_len=32, seed=0,
+                          pad_traces_to=64)
+    args = (d.categorical, d.continuous, d.mask)
+    model.module.train()
+    calls = []
+    for mod, name in ((attention, "segment_attention_bwd_plain"),
+                      (dense, "ln_bwd_plain"),
+                      (dense, "gelu_tanh_bwd_plain"),
+                      (embed, "span_embed_bwd_plain"),
+                      (kpool, "ln_masked_pool_bwd_plain"),
+                      (krecon, "recon_ce_bwd_plain")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    counters = ((attention, "launches"), (attention, "bwd_launches"),
+                (embed, "launches"), (embed, "bwd_launches"),
+                (dense, "ln_launches"), (dense, "gemm_launches"),
+                (dense, "ln_bwd_launches"), (dense, "gelu_bwd_launches"),
+                (kpool, "launches"), (kpool, "bwd_launches"),
+                (krecon, "launches"), (krecon, "bwd_launches"))
+    before = [getattr(m, c) for m, c in counters]
+    model.module.zero_grad(set_to_none=True)
+    model.loss_fn(*args).backward()
+    torch.cuda.synchronize()
+    after = [getattr(m, c) for m, c in counters]
+    nl = cfg.n_layers
+    assert [a - b for a, b in zip(after, before)] == [
+        nl, nl, 1, 1, 2 * nl, 4 * nl + 2, 2 * nl + 1, nl + 1, 1, 1, 1, 1]
+    assert calls == []
+    grads = {n: p.grad.clone() for n, p in model.module.named_parameters()}
+    monkeypatch.undo()
+    model.module.zero_grad(set_to_none=True)
+    model.loss_fn(*args, reference=True).backward()
+    top = max(p.grad.abs().max().item() for p in model.module.parameters())
+    for n, p in model.module.named_parameters():
+        lim = TRAIN_GRAD_RTOL * p.grad.abs().max().item() + 1e-6 * top
+        assert (grads[n] - p.grad).abs().max().item() <= lim, n
+    model.module.eval()

@@ -77,7 +77,8 @@ def test_port_has_the_slice_modules():
                 "trace_sort.cu", "featurize.cu", "trace_pack.cu",
                 "span_head.cu", "quant.cu", "qgemm.cu", "ae_pool.cu",
                 "recon_ce.cu", "ln_exact.cuh", "segment_attention_bwd.cu",
-                "ln_bwd.cu", "gelu_bwd.cu", "span_embed_bwd.cu"):
+                "ln_bwd.cu", "gelu_bwd.cu", "span_embed_bwd.cu",
+                "recon_ce_bwd.cu", "ae_pool_bwd.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 

@@ -527,14 +527,28 @@ def test_trained_transformer_beats_chance_quickly():
 
 
 def test_autoencoder_and_card_only_refusals():
-    with pytest.raises(ValueError, match="autoencoder training"):
-        Trainer(TrainConfig(model="autoencoder"), device="cpu")
+    from odigos_tpu_torch.models import AutoencoderConfig
+    from odigos_tpu_torch.training.trainer import _build_model
+
     with pytest.raises(ValueError, match="unknown model"):
         Trainer(TrainConfig(model="zscore"), device="cpu")
+    # the card-only refusals, for both models, before any card is touched
+    for model in ("transformer", "autoencoder"):
+        for kw, what in ((dict(dtype=torch.bfloat16), "float32"),
+                         (dict(name_vocab=1 << 20), "embedding tables"),
+                         (dict(d_model=40, n_heads=2), "d_model")):
+            with pytest.raises(ValueError, match=what):
+                _build_model(TrainConfig(model=model, model_kwargs=kw),
+                             torch.device("cuda"))
+    # the autoencoder trains on the CPU (tests/test_torch_ae_training.py)
+    tr = Trainer(TrainConfig(model="autoencoder", model_kwargs=TINY,
+                             max_len=16), device="cpu")
+    assert isinstance(tr.model.cfg, AutoencoderConfig)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this pins the no-card path")
-    with pytest.raises(RuntimeError, match="is_available"):
-        Trainer(TrainConfig())
+    for model in ("transformer", "autoencoder"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            Trainer(TrainConfig(model=model))
 
 
 class TestRocAuc:
@@ -689,7 +703,7 @@ def test_imported_autoencoder_bundle_loads_into_the_span_autoencoder(
         tmp_path):
     """An autoencoder bundle of the JAX package, imported by the tool,
     loads into the port's ``SpanAutoencoder`` and scores within F32_TOL of
-    the JAX engine (the port does not train the autoencoder yet)."""
+    the JAX engine."""
     from odigos_tpu.features import featurize as j_featurize
 
     kw = dict(d_model=32, d_ff=64, d_latent=16, n_layers=1, n_heads=2)

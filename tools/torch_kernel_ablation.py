@@ -45,7 +45,11 @@ statistics in place of the exact LayerNorm; K3 + K4's one launch
 ``zscore_score_update`` as an engine call makes it, on phase 4's otel and
 single-group mixes at N = 4096, 65536 and 131072: the barriers alone (no
 span work), no pass B, 2 or 4 spans a thread in place of one, CTAs of
-1024 threads in place of 512).
+1024 threads in place of 512); the trainer's K20 ``recon_ce_bwd`` and
+K21 ``ln_masked_pool_bwd`` on one autoencoder training step's own inputs
+(chip_smoke phase 16's): K20 with vocabulary slices of 256 rows (not
+128) and its column pass 32 positions at a time (not 64), K21 one real
+row at a time (not 4).
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -527,11 +531,24 @@ VARIANTS = {
         "threads_1024": {"constexpr int kThreads = 512;":
                          "constexpr int kThreads = 1024;"},
     },
+    # the trainer's backward kernels: the design choices measured
+    "recon_ce_bwd": {
+        "slice_256": {"constexpr int kSlice = 128;":
+                      "constexpr int kSlice = 256;"},
+        "chunk_32": {"constexpr int kBChunk = 64;":
+                     "constexpr int kBChunk = 32;"}},
+    "ln_masked_pool_bwd": {
+        "one_row_at_a_time": {
+            "constexpr int kGroup = PER <= 4 ? 4 : PER <= 8 ? 2 : 1;":
+            "constexpr int kGroup = 1;"}},
 }
 
 
 # kernel -> (source under build.SOURCES, its C launcher)
-LAUNCHERS = {"segment_attention": ("segment_attention",
+LAUNCHERS = {"recon_ce_bwd": ("recon_ce_bwd", "recon_ce_bwd_launch"),
+             "ln_masked_pool_bwd": ("ae_pool_bwd",
+                                    "ln_masked_pool_bwd_launch"),
+             "segment_attention": ("segment_attention",
                                    "segment_attention_launch"),
              "span_embed": ("span_embed", "span_embed_launch"),
              "qgemm": ("qgemm", "qgemm_launch"),
@@ -580,6 +597,31 @@ def _zscore_cases(dev) -> list:
                               *own, ids, x, G, chip_smoke.ZS_MIN_COUNT,
                               scratch=sums, inplace=True, out=out)))
     return cases
+
+
+def _training_cases(dev) -> list:
+    """K20 and K21 on the inputs one training step of the default f32
+    autoencoder hands them (the reference's seed-0 weights, 63 clean traces
+    padded to 64 rows: chip_smoke phase 16's)."""
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch.kernels import pool, recon
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+
+    cfg = AutoencoderConfig(max_len=chip_smoke.TRAIN_LEN,
+                            dtype=torch.float32)
+    model = SpanAutoencoder(cfg, device=dev)
+    model.load_state_dict(autoencoder_state(cfg, 0))
+    seen = chip_smoke._capture_ae_inputs(
+        model, chip_smoke._ae_train_step_data(chip_smoke.TRAIN_TRACES - 1))
+    args = seen["recon_ce_bwd"][0]
+    pargs = seen["ln_masked_pool_bwd"][0]
+    shape = {"M": args[0].shape[0], "real": int(args[7].sum().item())}
+    return [("recon_ce_bwd", shape, lambda: recon.recon_ce_bwd(*args)),
+            ("ln_masked_pool_bwd", shape,
+             lambda: pool.ln_masked_pool_bwd(*pargs))]
 
 
 def build_variants(tmp: str, built: dict, names) -> dict:
@@ -658,11 +700,17 @@ def main() -> int:
                "featurize_columns": featurize, "trace_rows_pack": pack,
                "ln_masked_pool": pool, "span_head_scatter": head,
                "zscore_score_update": zscore}
+    modules.update(recon_ce_bwd=recon, ln_masked_pool_bwd=pool)
     # a wrapper's launcher kept under its own names (getter, cache)
     own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn")}
+    # the backward kernels' launchers: (getter, cache dict)
+    bwd = {"recon_ce_bwd": (recon._bwd_kernel, recon._fns),
+           "ln_masked_pool_bwd": (pool._bwd_kernel, pool._bwd_fns)}
 
     def launcher(kname: str):
         m = modules[kname]
+        if kname in bwd:
+            return bwd[kname][0](LAUNCHERS[kname][1])
         if kname in own:
             return getattr(m, own[kname][0])()
         if hasattr(m, "_fns"):  # a library of several launchers
@@ -671,7 +719,9 @@ def main() -> int:
 
     def swap(kname: str, fn) -> None:
         m = modules[kname]
-        if kname in own:
+        if kname in bwd:
+            bwd[kname][1][LAUNCHERS[kname][1]] = fn
+        elif kname in own:
             setattr(m, own[kname][1], fn)
         elif hasattr(m, "_fns"):
             m._fns[LAUNCHERS[kname][1]] = fn
@@ -893,6 +943,8 @@ def main() -> int:
                                             per=64)))
     if "zscore_score_update" in names:
         cases += _zscore_cases(dev)
+    if {"recon_ce_bwd", "ln_masked_pool_bwd"} & set(names):
+        cases += _training_cases(dev)
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
