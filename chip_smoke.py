@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — every CUDA source compiled from the checkout (attention,
    span embedding, zscore, trace sort, featurize, trace pack, span head,
    int8 quantize, int8 GEMM, autoencoder pool, reconstruction error,
-   dense chain, and the trainer's attention, LayerNorm, GELU, span
-   embedding, reconstruction-error and pool backward passes), one
-   ``nvcc`` per source, all started together;
+   dense chain, the trainer's attention, LayerNorm, GELU, span
+   embedding, reconstruction-error and pool backward passes, and ring
+   attention's block step), one ``nvcc`` per source, all started
+   together;
 3. kernels — each kernel held against its plain PyTorch version on the
    card, in bf16, at the main path's shapes (R = 256 and 2048 packed rows
    of L = 64 slots, H = 4 heads of hd = 64, d = 256), with segments and
@@ -224,8 +225,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``FUSED_F32_ATOL`` of each other and of the trained model's squashed
    span errors), the span-level ROC-AUC of the served scores >= 0.70; the
    step's time split and traces/s;
-18. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
-   ``{"kernels": [...]}`` line (K1 to K21), then the last line
+18. ring kernels — K22 ``ring_block_attention`` (one ring step: a q-block
+   against a kv-block merged into f32 accumulators in place) at the
+   transformer's heads (B 2, H 4, D 64, f32, ~20% of keys masked): at L
+   8192 as one block (trace 1's first half all masked) held to its plain
+   version and to ``reference_attention`` on the card (``RING_RTOL`` of
+   the largest magnitude; a second call bit-equal), and at L 32768 as 8
+   blocks of 4096 merged in the reference's order by ``ring_body`` with
+   the in-process rotation (one block of trace 1 all masked: first in one
+   rank's order, last in another's), each rank's output held to the
+   plain body's; the times and bound of phase 3 (4 B H Lq Lk D f32 flops
+   on CUDA cores), f32 ``scaled_dot_product_attention`` under the same
+   mask as the library call;
+19. parallel path — an NCCL process group of world 1: ``ring_attention``
+   on ``{"seq": 1}`` at L 8192 against ``reference_attention``, then three
+   data-parallel train steps (``make_sharded_train_step``) and scoring
+   (``make_sharded_score_fn``) on ``{"data": 1}`` at the trainer's full
+   width (f32, 64 traces of L 32), then ``dryrun_multichip(1, "cuda")``,
+   with every launch counted (K1, K2, K14-K19 at their counts a step and a
+   scoring call, K22 twice) and no plain version called;
+20. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+   ``{"kernels": [...]}`` line (K1 to K22), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -1836,6 +1856,7 @@ def _zero_counters() -> None:
     kernels.pack.device_launches = 0
     kernels.pack.rows_device_launches = 0
     kernels.recon.device_launches = 0
+    kernels.ring.launches = 0
 
 
 def _read_counters(counters=FUSED_COUNTERS) -> dict:
@@ -4734,6 +4755,302 @@ def phase_ae_train_path(card: str) -> dict:
     return out
 
 
+
+RING_B, RING_H, RING_D = 2, 4, 64  # the transformer's heads: 4 x 64
+RING_ONE_L = 8192               # one block
+RING_BLOCKS = 8                 # L 32768 as 8 blocks of 4096
+RING_BLOCK_L = 4096
+RING_KEEP = 0.8                 # ~20% of keys masked
+# K22 vs its plain version, relative to the plain output's largest
+# magnitude: f32 sums of up to Lk x D products in another order (64-key
+# tiles merged online vs the block's max first); the reference's tests
+# hold 1e-5
+RING_RTOL = 1e-5
+RING_DP_STEPS = 3               # data-parallel train steps in parallel_path
+RING_COUNTERS = (("ring_block_attention", "ring"),)
+
+
+def _ring_inputs(L: int, seed: int, dead: slice):
+    """(q, k, v, mask) at (RING_B, L, RING_H, RING_D) f32 on the card, ~20%
+    of keys masked and, in trace 1, the keys of ``dead`` all masked."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (RING_B, L, RING_H, RING_D)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               for _ in range(3))
+    mask = torch.rand((RING_B, L), generator=g, device="cuda") < RING_KEEP
+    mask[1, dead] = False
+    return q, k, v, mask
+
+
+def _ring_bound(Lq: int, Lk: int, q_bytes: int = 4) -> tuple:
+    """(bound_ms, bound_by, bytes, flops) of one K22 call: q, k, v and the
+    mask read once, o, m and s read and written once; 4 B H Lq Lk D f32
+    flops (the two products) on CUDA cores."""
+    B, H, D = RING_B, RING_H, RING_D
+    nbytes = (B * Lq * H * D * q_bytes + 2 * B * Lk * H * D * 4 + B * Lk
+              + 2 * B * Lq * H * D * 4 + 2 * 2 * B * H * Lq * 4)
+    flops = 4 * B * H * Lq * Lk * D
+    ms, by = bound(nbytes, flops, F32_FLOPS)
+    return ms, by, nbytes, flops
+
+
+def _ring_state(Lq: int):
+    import torch
+
+    from odigos_tpu_torch.kernels.ring import NEG_INF
+
+    return (torch.zeros((RING_B, Lq, RING_H, RING_D), device="cuda"),
+            torch.full((RING_B, RING_H, Lq), NEG_INF, device="cuda"),
+            torch.zeros((RING_B, RING_H, Lq), device="cuda"))
+
+
+def _sdpa(q, k, v, mask):
+    """The library yardstick: f32 SDPA under a (B, 1, 1, Lk) boolean mask
+    (an all-masked query row would give NaN where the reference gives 0)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask[:, None, None, :]).transpose(1, 2)
+
+
+def phase_ring_kernels(card: str) -> dict:
+    import torch
+
+    from odigos_tpu_torch.kernels import ring as kring
+    from odigos_tpu_torch.parallel import (LocalRotation, reference_attention,
+                                           ring_body)
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    results: dict = {}
+    # ---- one block at L 8192: trace 1's first 4096 keys all masked (64
+    # fully masked tiles before its first allowed key)
+    L = RING_ONE_L
+    q, k, v, mask = _ring_inputs(L, 0, slice(0, L // 2))
+    got, ref = _ring_state(L), _ring_state(L)
+    kring.ring_block_attention(q, k, v, mask, *got, finalize=True)
+    kring.ring_block_attention_plain(q, k, v, mask, *ref, finalize=True)
+    oracle = reference_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    diffs = [_rel_check(a, b, RING_RTOL, f"ring_block_attention L{L} {n}")
+             for a, b, n in zip(got, ref, ("o", "m", "s"))]
+    oracle_diff, _ = _rel_check(got[0], oracle, RING_RTOL,
+                                f"ring_block_attention L{L} vs "
+                                f"reference_attention")
+    lib_diff = (_sdpa(q, k, v, mask) - ref[0]).abs().max().item()
+    again = _ring_state(L)
+    kring.ring_block_attention(q, k, v, mask, *again, finalize=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "ring_block_attention: a second call is not bit-equal")
+    st_k, st_p = _ring_state(L), _ring_state(L)
+    b_ms, b_by, nbytes, flops = _ring_bound(L, L)
+    row = {"name": "ring_block_attention",
+           "shape": [RING_B, L, RING_H, RING_D], "Lk": L,
+           "max_abs_diff": diffs[0][0], "bound": diffs[0][1],
+           "per_output": {n: {"max_abs_diff": d, "bound": lim}
+                          for n, (d, lim) in zip(("o", "m", "s"), diffs)},
+           "vs_reference_attention": oracle_diff,
+           "library_vs_plain_max_abs_diff": lib_diff,
+           **timings(lambda: kring.ring_block_attention(
+               q, k, v, mask, *st_k, finalize=True),
+               lambda: kring.ring_block_attention_plain(
+                   q, k, v, mask, *st_p, finalize=True),
+               lambda: _sdpa(q, k, v, mask), flush),
+           "library": "f32 scaled_dot_product_attention, (B, 1, 1, Lk) "
+                      "boolean mask (yardstick: NaN on all-masked rows)",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops, "dtype": "float32"}
+    row.update(_ratios(row))
+    results["one_block"] = row
+    del got, ref, oracle, again, st_k, st_p, q, k, v, mask
+
+    # ---- L 32768 as 8 blocks of 4096, merged in the reference's order
+    # (rank j meets blocks j, j - 1, ...); block 3 of trace 1 all masked:
+    # first in rank 3's order, last in rank 4's
+    n, Lb = RING_BLOCKS, RING_BLOCK_L
+    q, k, v, mask = _ring_inputs(n * Lb, 1, slice(3 * Lb, 4 * Lb))
+    qs = [q[:, j * Lb:(j + 1) * Lb].contiguous() for j in range(n)]
+    blocks = [(k[:, j * Lb:(j + 1) * Lb].contiguous(),
+               v[:, j * Lb:(j + 1) * Lb].contiguous(),
+               mask[:, j * Lb:(j + 1) * Lb].to(torch.uint8).contiguous())
+              for j in range(n)]
+
+    def ring(reference: bool):
+        return [ring_body(qs[j], *blocks[j], n, LocalRotation(blocks, j),
+                          reference=reference) for j in range(n)]
+
+    launched = kring.launches
+    outs_k = ring(False)
+    torch.cuda.synchronize()
+    check(kring.launches - launched == n * n,
+          f"the 8-block ring launched K22 {kring.launches - launched} "
+          f"times, not {n * n}")
+    outs_p = ring(True)
+    torch.cuda.synchronize()
+    block_diffs = [_rel_check(a, b, RING_RTOL,
+                              f"ring of {n} blocks, rank {j}")
+                   for j, (a, b) in enumerate(zip(outs_k, outs_p))]
+    check(all(bool(torch.isfinite(o).all()) for o in outs_k),
+          "ring of 8 blocks: non-finite output")
+    def library_whole():
+        # a query block at a time: the whole-L problem in one call could
+        # take the math fallback, whose logits would not fit
+        return torch.cat([_sdpa(qs[j], k, v, mask) for j in range(n)], 1)
+
+    lib_diff8 = (library_whole() - torch.cat(outs_p, 1)).abs().max().item()
+    del outs_k, outs_p
+    # one step of the ring (a q block against a kv block) and the whole
+    # ring (every rank's body: n * n launches)
+    st_k, st_p = _ring_state(Lb), _ring_state(Lb)
+    step_b = _ring_bound(Lb, Lb)
+    ring_flops = 4 * RING_B * RING_H * (n * Lb) ** 2 * RING_D
+    ring_bytes = n * _ring_bound(Lb, Lb)[2]
+    ring_b = bound(ring_bytes, ring_flops, F32_FLOPS)
+    step = {"shape": [RING_B, Lb, RING_H, RING_D], "Lk": Lb,
+            **timings(lambda: kring.ring_block_attention(
+                qs[0], *blocks[1], *st_k),
+                lambda: kring.ring_block_attention_plain(
+                    qs[0], *blocks[1], *st_p),
+                lambda: _sdpa(qs[0], blocks[1][0], blocks[1][1],
+                              blocks[1][2].bool()), flush),
+            "bound_ms": step_b[0], "bound_by": step_b[1],
+            "max_abs_diff": max(d for d, _ in block_diffs),
+            "bound": min(lim for _, lim in block_diffs)}
+    step.update(_ratios(step))
+    whole = {"L": n * Lb, "blocks": n, "launches": n * n,
+             "kernel_ms": time_ms(lambda: ring(False), flush, reps=3, warm=1),
+             "plain_ms": time_ms(lambda: ring(True), flush, reps=3, warm=1),
+             "library_ms": time_ms(library_whole, flush, reps=3, warm=1),
+             "library_vs_plain_max_abs_diff": lib_diff8,
+             "bound_ms": ring_b[0], "bound_by": ring_b[1],
+             "per_rank_max_abs_diff": [d for d, _ in block_diffs]}
+    whole["ratio_to_bound"] = whole["kernel_ms"] / whole["bound_ms"]
+    whole["ratio_to_library"] = whole["kernel_ms"] / whole["library_ms"]
+    results["blocks8_step"] = step
+    results["blocks8"] = whole
+    emit({"phase": "ring_kernels", "card": card, **results})
+    return results
+
+
+def _dp_step_launches(nl: int) -> dict:
+    """A training step's launches at ``nl`` layers (phase train_path's)."""
+    return {"span_embed": 1, "span_embed_bwd": 1, "segment_attention": nl,
+            "segment_attention_bwd": nl, "ln_bf16": 2 * nl + 1,
+            "ln_bwd": 2 * nl + 1, "gemm_bf16": 4 * nl, "gelu_tanh_bwd": nl}
+
+
+def _score_launches(nl: int) -> dict:
+    """``score_spans``'s launches at ``nl`` layers."""
+    return {"span_embed": 1, "segment_attention": nl, "ln_bf16": 2 * nl + 1,
+            "gemm_bf16": 4 * nl}
+
+
+def phase_parallel_path(card: str) -> dict:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+    from odigos_tpu_torch.models.jax_init import transformer_state
+    from odigos_tpu_torch.parallel import (make_mesh, make_sharded_score_fn,
+                                           make_sharded_train_step,
+                                           mesh_key, reference_attention,
+                                           ring_attention)
+    from odigos_tpu_torch.parallel.dryrun import dryrun_multichip
+    from odigos_tpu_torch.training import labeled_sequences
+
+    # the inputs first, outside the counted window
+    L = RING_ONE_L
+    q, k, v, mask = _ring_inputs(L, 2, slice(0, 0))
+    oracle = reference_attention(q, k, v, mask)
+    cfg = TransformerConfig(max_len=TRAIN_LEN, dtype=torch.float32)
+    model = TraceTransformer(cfg, device="cuda")
+    model.load_state_dict(transformer_state(cfg, 0))
+    data = labeled_sequences(TRAIN_TRACES, max_len=TRAIN_LEN, seed=0,
+                             pad_traces_to=TRAIN_TRACES)
+    args = (data.categorical, data.continuous, data.mask, data.span_labels,
+            data.trace_labels)
+    model.module.train()
+    with torch.no_grad():
+        loss0 = float(model.loss_fn(*args))
+    model.module.eval()
+    opt = torch.optim.AdamW(model.module.parameters(), lr=3e-3,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+    # the parallel path: counts zeroed just before, read just after
+    _zero_counters()
+    with _PlainCalls(BWD_PLAINS + (("ring", "ring_block_attention_plain"),)
+                     ) as plain:
+        t0 = time.perf_counter()
+        seq_mesh = make_mesh({"seq": 1}, axes=("seq",))
+        backend = dist.get_backend()
+        out = ring_attention(q, k, v, mask, seq_mesh)
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        data_mesh = make_mesh({"data": 1}, axes=("data",))
+        step = make_sharded_train_step(model, opt, data_mesh)
+        losses, step_s = [], []
+        for _ in range(RING_DP_STEPS):  # the first also starts NCCL's
+            t1 = time.perf_counter()    # communicator and loads kernels
+            losses.append(float(step(*args)))
+            step_s.append(time.perf_counter() - t1)
+        score = make_sharded_score_fn(model, data_mesh)
+        span_p, trace_p = score(*args[:3])
+        torch.cuda.synchronize()
+        dry = dryrun_multichip(1, "cuda")
+    launches = _read_counters(TRAIN_COUNTERS + RING_COUNTERS)
+    dist.destroy_process_group()
+    check(backend == "nccl", f"the card's process group runs {backend}")
+    check(plain.calls == {}, f"the parallel path called plain versions: "
+                             f"{plain.calls}")
+    check(all(v > 0 for v in launches.values()),
+          f"the parallel path launched no time: {launches}")
+    ring_diff, ring_lim = _rel_check(out, oracle, RING_RTOL,
+                                     f"ring_attention on {{seq: 1}} L{L}")
+    check(all(np.isfinite(losses)), f"non-finite dp losses {losses}")
+    check(abs(losses[0] - loss0) <= 1e-6 * abs(loss0),
+          f"the dp step's loss {losses[0]} is not loss_fn's {loss0}")
+    check(tuple(span_p.shape) == tuple(data.mask.shape)
+          and tuple(trace_p.shape) == (TRAIN_TRACES,),
+          f"dp scores {tuple(span_p.shape)} / {tuple(trace_p.shape)}")
+    check(bool(torch.isfinite(span_p).all() and torch.isfinite(trace_p).all()),
+          "non-finite dp scores")
+    check(dry["ring_max_abs_err"] <= 1e-5 and np.isfinite(dry["loss"]),
+          f"dryrun_multichip(1, 'cuda'): {dry}")
+    # the scores after the steps, against a single-device call of the
+    # same weights (a world of 1: the same kernels, bit-equal)
+    with torch.no_grad():
+        span_s, trace_s = model.score_spans(*args[:3])
+    check(torch.equal(span_s, span_p) and torch.equal(trace_s, trace_p),
+          "dp scores differ from the single-device scores")
+    # the dp steps, the scoring, then the dry run's step and scoring (2
+    # layers); K22 once on {seq: 1} and once in the dry run
+    want = {name: RING_DP_STEPS * _dp_step_launches(cfg.n_layers).get(name, 0)
+            + _score_launches(cfg.n_layers).get(name, 0)
+            + _dp_step_launches(2).get(name, 0)
+            + _score_launches(2).get(name, 0) for name in launches}
+    want["ring_block_attention"] = 2
+    check(launches == want, f"parallel path launches {launches} != {want}")
+    out_p = {"backend": backend, "mesh_keys": [mesh_key(seq_mesh),
+                                               mesh_key(data_mesh)],
+             "ring": {"L": L, "max_abs_diff": ring_diff, "bound": ring_lim,
+                      "seconds": ring_s},
+             "dp_losses": losses, "loss_fn_step0": loss0,
+             "dp_step_seconds": step_s, "dryrun": dry,
+             "launches": launches,
+             "launches_per_dp_step": _dp_step_launches(cfg.n_layers)}
+    emit({"phase": "parallel_path", "card": card, **out_p})
+    return out_p
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -4770,6 +5087,8 @@ def main() -> int:
     train_path = timed(phase_train_path, card)
     ae_train_kern = timed(phase_ae_train_kernels, card)
     ae_train_path = timed(phase_ae_train_path, card)
+    ring_kern = timed(phase_ring_kernels, card)
+    parallel = timed(phase_parallel_path, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
@@ -4793,7 +5112,8 @@ def main() -> int:
                "span_embed_bwd": src + "span_embed_bwd.cu",
                "gelu_tanh_bwd": src + "gelu_bwd.cu",
                "recon_ce_bwd": src + "recon_ce_bwd.cu",
-               "ln_masked_pool_bwd": src + "ae_pool_bwd.cu"}
+               "ln_masked_pool_bwd": src + "ae_pool_bwd.cu",
+               "ring_block_attention": src + "ring_attention.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -4815,7 +5135,9 @@ def main() -> int:
                 "span_embed_bwd": "odigos_tpu/training/trainer.py:171",
                 "gelu_tanh_bwd": "odigos_tpu/training/trainer.py:171",
                 "recon_ce_bwd": "odigos_tpu/training/trainer.py:171",
-                "ln_masked_pool_bwd": "odigos_tpu/training/trainer.py:171"}
+                "ln_masked_pool_bwd": "odigos_tpu/training/trainer.py:171",
+                "ring_block_attention":
+                    "odigos_tpu/parallel/ring_attention.py:41"}
     designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
                                     "persistent 2-stage; past them 64-key "
                                     "tiles, online softmax (mma.sync bf16, "
@@ -4979,7 +5301,17 @@ def main() -> int:
                                      "K17's arithmetic with K12's "
                                      "statistics (ln_exact.cuh); per-warp "
                                      "f64 column partials, a fixed-order "
-                                     "column pass"}
+                                     "column pass",
+               "ring_block_attention": "f32 CUDA cores, in place: a CTA of "
+                                       "256 threads a (b, h, 64-query "
+                                       "tile), q staged once as f32, 64-key "
+                                       "K/V tiles through smem with their "
+                                       "mask bytes, a 4x4 score block and "
+                                       "4 queries' accumulators a thread in "
+                                       "registers, online softmax from the "
+                                       "incoming (o, m, s) a warp a row, "
+                                       "masked weights zeroed, the division "
+                                       "on the ring's last step"}
     # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
     # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
@@ -5202,6 +5534,23 @@ def main() -> int:
         if ln_["name"] in ae_train and ln_["name"] not in (
                 "recon_ce_bwd", "ln_masked_pool_bwd"):
             ln_["ae_train_path_launches"] = ae_train[ln_["name"]]
+    # K22 at L 8192 as one block (its numbers), and as one step and the
+    # whole ring of 8 blocks of 4096 (L 32768); launches: the parallel
+    # path's (phase_parallel_path)
+    launches["ring_block_attention"] = parallel["launches"][
+        "ring_block_attention"]
+    r = ring_kern["one_block"]
+    lines.append(line("ring_block_attention", r, {
+        "shape": r["shape"], "Lk": r["Lk"], "library": r["library"],
+        "ratio_to_bound": r["ratio_to_bound"],
+        "ratio_to_library": r["ratio_to_library"],
+        "vs_reference_attention": r["vs_reference_attention"],
+        "launches_per_ring_step": 1, "dtype": "float32",
+        "blocks8_step": {k: ring_kern["blocks8_step"][k] for k in
+                         timing_keys + ("bound_ms", "bound_by", "shape",
+                                        "ratio_to_bound",
+                                        "ratio_to_library")},
+        "blocks8": ring_kern["blocks8"]}))
     # every kernel's rows at the geometries past the default, each held to
     # its plain version there (phase_geometry)
     for ln_ in lines:

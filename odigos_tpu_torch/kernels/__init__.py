@@ -31,7 +31,11 @@
   row (``csrc/trace_pack.cu``, beside K7);
 * ``dense.ln_bf16`` — K14, the float encoder block's exact LayerNorm, and
   ``dense.gemm_bf16`` — K15, its bf16 tensor-core GEMM with the bias and
-  the residual or GELU fused into the epilogue (``csrc/dense.cu``).
+  the residual or GELU fused into the epilogue (``csrc/dense.cu``);
+* ``ring.ring_block_attention`` — K22, one q-block x kv-block step of ring
+  attention merged into f32 accumulators in place
+  (``csrc/ring_attention.cu``; its tile loops are K1's tiled kernel's,
+  shared through ``csrc/attention_tiles.cuh``).
 
 ``coverage.check`` states the model geometries the kernels take on the
 card (the models call it at construction there and raise outside it).
@@ -45,7 +49,7 @@ compiles the sources with nvcc at first use.
 """
 
 from . import (attention, build, coverage, dense, embed, featurize, head,
-               pack, pool, qgemm, quant, recon, sort, zscore)
+               pack, pool, qgemm, quant, recon, ring, sort, zscore)
 from .attention import segment_attention, segment_attention_plain
 from .dense import gemm_bf16, gemm_bf16_plain, ln_bf16, ln_bf16_plain
 from .embed import EmbedTables, span_embed, span_embed_plain
@@ -58,6 +62,7 @@ from .pool import ln_masked_pool, ln_masked_pool_plain
 from .qgemm import qgemm_plain
 from .quant import ln_quantize, ln_quantize_plain
 from .recon import recon_ce, recon_ce_plain
+from .ring import ring_block_attention, ring_block_attention_plain
 from .sort import radix_sort, radix_sort_plain
 from .zscore import (zscore_score, zscore_score_plain, zscore_update,
                      zscore_update_plain)
@@ -75,6 +80,7 @@ __all__ = [
     "qgemm",
     "quant",
     "recon",
+    "ring",
     "sort",
     "zscore",
     "segment_attention",
@@ -103,6 +109,8 @@ __all__ = [
     "ln_quantize_plain",
     "recon_ce",
     "recon_ce_plain",
+    "ring_block_attention",
+    "ring_block_attention_plain",
     "radix_sort",
     "radix_sort_plain",
     "zscore_score",

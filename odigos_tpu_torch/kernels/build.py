@@ -53,6 +53,7 @@ SOURCES = {
     "span_embed_bwd": "span_embed_bwd.cu",
     "recon_ce_bwd": "recon_ce_bwd.cu",
     "ae_pool_bwd": "ae_pool_bwd.cu",
+    "ring_attention": "ring_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

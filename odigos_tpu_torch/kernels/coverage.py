@@ -19,6 +19,13 @@ The float and int8 transformers and the autoencoder call it when their
 device is a card and raise the ``ValueError`` it raises, naming the limit;
 they never pick a plain version instead. On the CPU the plain versions
 serve every geometry.
+
+Ring attention (K22, ``ring.ring_block_attention``) takes any head dim
+``D`` from 1 to ``RING_MAX_HEAD_DIM`` (256: a 64-query tile and 64-key K
+and V tiles of D + 1 floats stay within a block's 227 KB of shared
+memory), any sequence lengths, q in f32 or bf16: the reference's test and
+dry-run head dims (8, 16, its all-masked test's 4) and the transformer's
+64 among them. :func:`check_ring` raises past it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ MAX_D_MODEL = 1024
 MAX_D_FF = 4096
 MAX_LEN = MAX_WALK_LEN
 MAX_HEAD_DIM = 256
+RING_MAX_HEAD_DIM = 256
 
 
 def check(cfg: Any) -> None:
@@ -55,3 +63,10 @@ def check(cfg: Any) -> None:
     if d // h > MAX_HEAD_DIM:
         raise ValueError(f"{what} takes a head dim d_model / n_heads up to "
                          f"{MAX_HEAD_DIM}, not {d // h}")
+
+
+def check_ring(head_dim: int) -> None:
+    """Raise ``ValueError`` where K22 cannot take a head dim on the card."""
+    if not 1 <= head_dim <= RING_MAX_HEAD_DIM:
+        raise ValueError(f"ring attention on the card takes a head dim from "
+                         f"1 to {RING_MAX_HEAD_DIM}, not {head_dim}")

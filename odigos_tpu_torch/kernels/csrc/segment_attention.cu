@@ -83,53 +83,20 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <atomic>
+#include "attention_tiles.cuh"  // DeviceOnce, max_smem_once, the f32 tiles
 
 namespace {
 
 constexpr int kMaxL = 64;
 constexpr int kMaxHd = 64;
-constexpr int kMaxDevices = 64;
 
-// ---- once-per-device attributes (cudaFuncSetAttribute, SM count)
-
-struct DeviceOnce {
-  std::atomic<int> state[kMaxDevices];  // 0 unset, else value + 1
-};
-
-template <typename Fn>
-cudaError_t once_per_device(DeviceOnce& once, int* value, Fn&& compute) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices) {
-    const int s = once.state[dev].load(std::memory_order_acquire);
-    if (s != 0) {
-      *value = s - 1;
-      return cudaSuccess;
-    }
-  }
-  err = compute(dev, value);
-  if (err == cudaSuccess && dev < kMaxDevices)
-    once.state[dev].store(*value + 1, std::memory_order_release);
-  return err;
-}
+// ---- the SM count, once per device
 
 DeviceOnce g_sm_count;
 
 cudaError_t sm_count(int* n) {
   return once_per_device(g_sm_count, n, [](int dev, int* v) {
     return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
-  });
-}
-
-template <typename K>
-cudaError_t max_smem_once(DeviceOnce& once, K kernel, int bytes) {
-  int unused = 0;
-  return once_per_device(once, &unused, [&](int, int* v) {
-    *v = bytes;
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   });
 }
 
@@ -1049,20 +1016,18 @@ cudaError_t launch(DeviceOnce& once, const void* q, const void* k,
 
 namespace tiled {
 
-constexpr int kThreads = 256;
-constexpr int kB = 64;  // queries a CTA, keys a tile
+using tiles::kB;  // queries a CTA, keys a tile
+using tiles::kSld;
+using tiles::kThreads;
 constexpr int kMaxL = 1024;
 constexpr int kMaxTiles = kMaxL / kB;
-constexpr int kSld = kB + 1;
 
 using simt::from_f32;
 using simt::to_f32;
 
-// shared floats: Q, K and V tiles (kB x (hd + 1)), the score tile, the
-// row's segment ids, then each query's running max, sum and rescale
+// the shared tiles (attention_tiles.cuh), then the row's segment ids
 __host__ __device__ constexpr size_t smem_bytes(int hd, int L) {
-  return ((size_t)3 * kB * (hd + 1) + kB * kSld + 3 * kB) * 4 +
-         (size_t)L * 4;
+  return tiles::smem_floats(hd) * 4 + (size_t)L * 4;
 }
 
 // One CTA: 64 queries of (row r, head h). Key tiles of 64 stream through
@@ -1071,6 +1036,7 @@ __host__ __device__ constexpr size_t smem_bytes(int hd, int L) {
 // dims tx + 16 c in registers, rescaled when a query's max rises. Tiles
 // are skipped as in the tensor-core kernels (exact for live queries; none
 // when a query of the CTA is padding). DB: 16-dim blocks a thread holds.
+// The tile loops are attention_tiles.cuh's, shared with K22.
 template <typename T, int DB>
 __global__ void __launch_bounds__(kThreads)
 segment_attention_tiled_kernel(const T* __restrict__ q,
@@ -1082,14 +1048,8 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
                                float* __restrict__ lse) {
   extern __shared__ float tl_smem[];
   const int ld = hd + 1;
-  float* qs = tl_smem;
-  float* ks = qs + kB * ld;
-  float* vs = ks + kB * ld;
-  float* sc = vs + kB * ld;
-  float* run_m = sc + kB * kSld;
-  float* run_l = run_m + kB;
-  float* run_a = run_l + kB;
-  int* segs = reinterpret_cast<int*>(run_a + kB);
+  const tiles::Smem t = tiles::carve(tl_smem, ld);
+  int* segs = t.tail;
   __shared__ int s_tiles[kMaxTiles];
   __shared__ int s_ntiles;
 
@@ -1110,11 +1070,11 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
       x = to_f32(from_f32<T>(
           to_f32(q[((size_t)(r * L + q0 + l) * H + h) * hd + dd]) /
           scale_div));
-    qs[l * ld + dd] = x;
+    t.qs[l * ld + dd] = x;
   }
   if (tid < kB) {
-    run_m[tid] = -INFINITY;
-    run_l[tid] = 0.f;
+    t.run_m[tid] = -INFINITY;
+    t.run_l[tid] = 0.f;
   }
   __syncthreads();
   if (warp == 0) {
@@ -1134,9 +1094,9 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
     qmax = __reduce_max_sync(all, qmax);
     pad = __any_sync(all, pad);
     int n = 0;
-    for (int t = 0; t < (L + kB - 1) / kB; ++t) {
+    for (int tt = 0; tt < (L + kB - 1) / kB; ++tt) {
       int tmin = INT_MAX, tmax = 0;
-      for (int l = t * kB + lane; l < min(t * kB + kB, L); l += 32) {
+      for (int l = tt * kB + lane; l < min(tt * kB + kB, L); l += 32) {
         const int s = segs[l];
         if (s > 0) {
           tmin = min(tmin, s);
@@ -1146,7 +1106,7 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
       tmin = __reduce_min_sync(all, tmin);
       tmax = __reduce_max_sync(all, tmax);
       if (pad || (tmin <= qmax && tmax >= qmin)) {
-        if (lane == 0) s_tiles[n] = t;
+        if (lane == 0) s_tiles[n] = tt;
         ++n;
       }
     }
@@ -1164,35 +1124,12 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
   for (int i = 0; i < s_ntiles; ++i) {
     const int kt0 = s_tiles[i] * kB;
     __syncthreads();  // the previous tile's K, V and scores are consumed
-    for (int e = tid; e < kB * hd; e += kThreads) {
-      const int l = e / hd, dd = e - l * hd;
-      float kx = 0.f, vx = 0.f;
-      if (kt0 + l < L) {
-        const size_t g = ((size_t)(r * L + kt0 + l) * H + h) * hd + dd;
-        kx = to_f32(k[g]);
-        vx = to_f32(v[g]);
-      }
-      ks[l * ld + dd] = kx;
-      vs[l * ld + dd] = vx;
-    }
+    tiles::stage_kv(t, k, v, r * L + kt0, L - kt0, H, h, hd, ld,
+                    tid);
     __syncthreads();
     // ---- scores of queries ty + 16 a and keys tx + 16 b, masked
     float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-    for (int dd = 0; dd < hd; ++dd) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * ld + dd];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) kb[b] = ks[(tx + 16 * b) * ld + dd];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(qa[a], kb[b], acc[a][b]);
-    }
+    tiles::score_block(t, ld, hd, ty, tx, acc);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int iq = q0 + ty + 16 * a;
@@ -1200,69 +1137,29 @@ segment_attention_tiled_kernel(const T* __restrict__ q,
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         const int j = kt0 + tx + 16 * b;
-        sc[(ty + 16 * a) * kSld + tx + 16 * b] =
+        t.sc[(ty + 16 * a) * kSld + tx + 16 * b] =
             j >= L ? -INFINITY
                    : ((sq > 0 && segs[j] == sq) ? acc[a][b] : big_neg);
       }
     }
     __syncthreads();
-    // ---- the online softmax, a warp a query row
-    for (int row = warp; row < kB; row += kThreads / 32) {
-      const float x0 = sc[row * kSld + lane];
-      const float x1 = sc[row * kSld + lane + 32];
-      float tm = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
-      const float mo = run_m[row];
-      const float mn = fmaxf(mo, tm);  // finite: the tile has a key < L
-      const float p0 = expf(x0 - mn), p1 = expf(x1 - mn);
-      float s = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      sc[row * kSld + lane] = p0;
-      sc[row * kSld + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float al = expf(mo - mn);  // 0 at the first tile
-        run_a[row] = al;
-        run_l[row] = run_l[row] * al + s;
-        run_m[row] = mn;
-      }
-    }
+    // ---- the online softmax, a warp a query row (the max is finite: the
+    // tile has a key < L; the rescale is 0 at the first tile)
+    tiles::softmax_rows(t, warp, lane, true, true);
     __syncthreads();
-    // ---- O = O * alpha + P.V
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float al = run_a[ty + 16 * a];
-#pragma unroll
-      for (int c = 0; c < DB; ++c) o[a][c] *= al;
-    }
-    for (int j = 0; j < kB; ++j) {
-      float pa[4], vb[DB];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = sc[(ty + 16 * a) * kSld + j];
-#pragma unroll
-      for (int c = 0; c < DB; ++c) {
-        const int dd = tx + 16 * c;
-        vb[c] = dd < hd ? vs[j * ld + dd] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < DB; ++c) o[a][c] = fmaf(pa[a], vb[c], o[a][c]);
-    }
+    // ---- O = O * alpha + P.V (keys past L weigh exactly 0)
+    tiles::pv_accumulate<DB>(t, ld, hd, kB, ty, tx, o);
   }
   __syncthreads();
   // each query's log-sum-exp for the backward pass (K16), when asked for
   if (lse != nullptr && tid < kB && q0 + tid < L)
-    lse[((size_t)r * H + h) * L + q0 + tid] = run_m[tid] + logf(run_l[tid]);
+    lse[((size_t)r * H + h) * L + q0 + tid] =
+        t.run_m[tid] + logf(t.run_l[tid]);
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int iq = q0 + ty + 16 * a;
     if (iq >= L) continue;
-    const float inv = 1.f / run_l[ty + 16 * a];
+    const float inv = 1.f / t.run_l[ty + 16 * a];
 #pragma unroll
     for (int c = 0; c < DB; ++c) {
       const int dd = tx + 16 * c;

@@ -211,24 +211,38 @@ class TraceTransformer:
         h = self.module.encoder(cat, cont, pos, seg, reference=reference)
         return self.module.span_logits(h), self.module.trace_logits(h, m)
 
-    def loss_fn(self, categorical: Any, continuous: Any, mask: Any,
-                span_labels: Any, trace_labels: Any,
-                reference: bool = False) -> torch.Tensor:
-        """The reference's ``loss_fn``: masked span BCE plus trace BCE
-        (equal weight), the trace term weighted by trace validity so that
-        all-padding rows do not train the trace head."""
+    def loss_terms(self, categorical: Any, continuous: Any, mask: Any,
+                   span_labels: Any, trace_labels: Any,
+                   reference: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+        """The sums and counts :meth:`loss_fn` divides: ``(span BCE summed
+        over real spans, real spans, trace BCE summed over valid traces,
+        valid traces)``. The data-parallel step all-reduces the counts to
+        take the loss over the global batch."""
         span_logit, trace_logit = self.logits(categorical, continuous, mask,
                                               reference)
         dev = self.device
         m = _as_tensor(mask, torch.float32, dev)
         span_bce = sigmoid_bce(span_logit,
                                _as_tensor(span_labels, torch.float32, dev))
-        span_loss = (span_bce * m).sum() / m.sum().clamp(min=1.0)
         valid = (m.sum(-1) > 0).to(torch.float32)
         trace_bce = sigmoid_bce(trace_logit,
                                 _as_tensor(trace_labels, torch.float32, dev))
-        trace_loss = (trace_bce * valid).sum() / valid.sum().clamp(min=1.0)
-        return span_loss + trace_loss
+        return ((span_bce * m).sum(), m.sum(), (trace_bce * valid).sum(),
+                valid.sum())
+
+    def loss_fn(self, categorical: Any, continuous: Any, mask: Any,
+                span_labels: Any, trace_labels: Any,
+                reference: bool = False) -> torch.Tensor:
+        """The reference's ``loss_fn``: masked span BCE plus trace BCE
+        (equal weight), the trace term weighted by trace validity so that
+        all-padding rows do not train the trace head."""
+        span_sum, span_n, trace_sum, trace_n = self.loss_terms(
+            categorical, continuous, mask, span_labels, trace_labels,
+            reference)
+        return (span_sum / span_n.clamp(min=1.0)
+                + trace_sum / trace_n.clamp(min=1.0))
 
     @torch.inference_mode()
     def score_spans(self, categorical: Any, continuous: Any, mask: Any

@@ -2135,3 +2135,135 @@ def test_autoencoder_training_step_on_the_card(dev, monkeypatch):
         lim = TRAIN_GRAD_RTOL * p.grad.abs().max().item() + 1e-6 * top
         assert (grads[n] - p.grad).abs().max().item() <= lim, n
     model.module.eval()
+
+
+# ------------------------------------------------ K22 ring_block_attention
+from odigos_tpu_torch.kernels import ring as kring  # noqa: E402
+
+RING_RTOL = 1e-5  # of the plain version's largest magnitude: f32 sums in
+                  # another order (64-key tiles vs the block's max first)
+
+
+def _ring_block_inputs(B, Lq, Lk, H, D, q_dtype, dev, seed=0, masked=()):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Lq, H, D), generator=g).to(q_dtype)
+    k = torch.randn((B, Lk, H, D), generator=g) * 2
+    v = torch.randn((B, Lk, H, D), generator=g)
+    mask = torch.rand((B, Lk), generator=g) > 0.2
+    for b in masked:
+        mask[b] = False
+    return [t.to(dev) for t in (q, k, v, mask)]
+
+
+def _ring_state(B, Lq, H, D, dev):
+    return (torch.zeros((B, Lq, H, D), device=dev),
+            torch.full((B, H, Lq), kring.NEG_INF, device=dev),
+            torch.zeros((B, H, Lq), device=dev))
+
+
+def _rel(got, ref):
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(),
+                                                1e-30)
+
+
+@pytest.mark.parametrize("D", [8, 16, 64, 128, 256])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq,Lk", [(100, 37), (64, 200), (130, 130)])
+def test_k22_ring_block_matches_plain(dev, D, q_dtype, Lq, Lk):
+    B, H = 2, 3
+    blocks = [_ring_block_inputs(B, Lq, Lk, H, D, q_dtype, dev, seed=s,
+                                 masked=(1,) if s == 1 else ())
+              for s in range(3)]
+    got, ref = _ring_state(B, Lq, H, D, dev), _ring_state(B, Lq, H, D, dev)
+    launched = kring.launches
+    for i, (q, k, v, mask) in enumerate(blocks):
+        q = blocks[0][0]
+        kring.ring_block_attention(q, k, v, mask, *got, finalize=i == 2)
+        kring.ring_block_attention_plain(q, k, v, mask, *ref,
+                                         finalize=i == 2)
+    torch.cuda.synchronize()
+    assert kring.launches == launched + 3
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= RING_RTOL
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_k22_fully_masked_block_first_or_last(dev, where):
+    B, L, H, D = 2, 256, 4, 64
+    n = 4
+    blocks = [_ring_block_inputs(B, L, L, H, D, torch.float32, dev, seed=s)
+              for s in range(n)]
+    dead = 0 if where == "first" else n - 1
+    blocks[dead][3] = torch.zeros_like(blocks[dead][3])
+    # and a trace whose every key is masked: its output is 0, not NaN
+    for blk in blocks:
+        blk[3][1] = False
+    q = blocks[0][0]
+    got, ref = _ring_state(B, L, H, D, dev), _ring_state(B, L, H, D, dev)
+    for i, (_, k, v, mask) in enumerate(blocks):
+        kring.ring_block_attention(q, k, v, mask, *got, finalize=i == n - 1)
+        kring.ring_block_attention_plain(q, k, v, mask, *ref,
+                                         finalize=i == n - 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[0]).all() and (got[0][1] == 0).all()
+    assert _rel(got[0], ref[0]) <= RING_RTOL
+
+
+def test_k22_second_call_is_bit_equal(dev):
+    q, k, v, mask = _ring_block_inputs(2, 300, 500, 4, 64, torch.float32,
+                                       dev)
+    outs = []
+    for _ in range(2):
+        st = _ring_state(2, 300, 4, 64, dev)
+        kring.ring_block_attention(q, k, v, mask, *st, finalize=True)
+        outs.append(st)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_k22_refusals(dev):
+    q, k, v, mask = _ring_block_inputs(1, 8, 8, 2, 8, torch.float32, dev)
+    st = _ring_state(1, 8, 2, 8, dev)
+    with pytest.raises(TypeError):
+        kring.ring_block_attention(q, k.bfloat16(), v, mask, *st)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = q.transpose(2, 3).contiguous().transpose(2, 3)
+        kring.ring_block_attention(qt, k, v, mask, *st)
+    big = _ring_block_inputs(1, 8, 8, 1, 264, torch.float32, dev)
+    with pytest.raises(ValueError, match="head dim"):
+        kring.ring_block_attention(*big, *_ring_state(1, 8, 1, 264, dev))
+
+
+def test_ring_attention_on_a_world_of_one(dev):
+    """``ring_attention`` on an NCCL ``{"seq": 1}`` mesh launches K22 once,
+    and the in-process ring of 4 blocks matches ``reference_attention``."""
+    import torch.distributed as dist
+
+    from odigos_tpu_torch.parallel import (LocalRotation, make_mesh,
+                                           reference_attention,
+                                           ring_attention, ring_body)
+
+    q, k, v, mask = _ring_block_inputs(2, 512, 512, 4, 64, torch.float32,
+                                       dev)
+    ref = reference_attention(q, k, v, mask)
+    mesh = make_mesh({"seq": 1}, axes=("seq",))
+    try:
+        launched = kring.launches
+        out = ring_attention(q, k, v, mask, mesh)
+        torch.cuda.synchronize()
+        assert kring.launches == launched + 1
+        assert _rel(out, ref) <= RING_RTOL
+    finally:
+        dist.destroy_process_group()
+    n, Lb = 4, 128
+    blocks = [(k[:, i * Lb:(i + 1) * Lb].contiguous(),
+               v[:, i * Lb:(i + 1) * Lb].contiguous(),
+               mask[:, i * Lb:(i + 1) * Lb].to(torch.uint8).contiguous())
+              for i in range(n)]
+    out = torch.cat([ring_body(q[:, j * Lb:(j + 1) * Lb], *blocks[j], n,
+                               LocalRotation(blocks, j))
+                     for j in range(n)], dim=1)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= RING_RTOL

@@ -71,14 +71,19 @@ def test_port_has_the_slice_modules():
                 "serving/sidecar.py", "utils/framing.py", "wire/codec.py",
                 "kernels/autograd.py", "training/__init__.py",
                 "training/data.py", "training/trainer.py",
-                "training/checkpoint.py", "training/evaluate.py"):
+                "training/checkpoint.py", "training/evaluate.py",
+                "kernels/ring.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/launch.py",
+                "parallel/ring_attention.py", "parallel/sharding.py",
+                "parallel/dryrun.py"):
         assert mod in rel, mod
     for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu",
                 "trace_sort.cu", "featurize.cu", "trace_pack.cu",
                 "span_head.cu", "quant.cu", "qgemm.cu", "ae_pool.cu",
                 "recon_ce.cu", "ln_exact.cuh", "segment_attention_bwd.cu",
                 "ln_bwd.cu", "gelu_bwd.cu", "span_embed_bwd.cu",
-                "recon_ce_bwd.cu", "ae_pool_bwd.cu"):
+                "recon_ce_bwd.cu", "ae_pool_bwd.cu", "ring_attention.cu",
+                "attention_tiles.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
