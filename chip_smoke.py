@@ -177,8 +177,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    real training step at its default shapes (the full-width f32
    transformer, 63 faulty traces padded to 64 rows of L = 32: padding
    slots and an all-padding row): K16 ``segment_attention_bwd`` (also at
-   L 128, hd 128 on packed rows, the tiled route), K17 ``ln_bwd``, K18
-   ``span_embed_bwd`` and K19 ``gelu_tanh_bwd``, each held to its plain
+   L 128, hd 128 on packed rows, the tiled route), K17 ``ln_bwd`` (one
+   launch a call, two calls bit-equal), K18 ``span_embed_bwd`` and K19
+   ``gelu_tanh_bwd``, each held to its plain
    version (K16 within ``K16_RTOL``, the others ``BWD_EXACT_RTOL`` of the
    plain output's largest magnitude), K1's log-sum-exp held to the plain
    ``logsumexp`` on live queries (``LSE_ATOL``) and its output unchanged by
@@ -207,11 +208,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference's seed-0 weights): K11's f32 log-sum-exps held to the plain
    ``logsumexp`` at real positions (``LSE_ATOL``) and its errors unchanged
    by the buffer, K20 ``recon_ce_bwd`` (``RECON_BWD_RTOL`` of the plain
-   output's largest magnitude; two calls bit-equal) and K21
-   ``ln_masked_pool_bwd`` (``BWD_EXACT_RTOL``), with the times and bound of
-   phase 3 and the library call (the backward of four f32 ``F.linear`` +
-   three ``F.cross_entropy`` + the squared error; of ``F.layer_norm`` +
-   the masked mean);
+   output's largest magnitude; two calls bit-equal), K21
+   ``ln_masked_pool_bwd`` and K17 ``ln_bwd`` at the autoencoder's (2048,
+   128) rows (``BWD_EXACT_RTOL``; K17 one launch a call, two calls
+   bit-equal, as in phase 14), with the times and bound of phase 3 and the
+   library call (the backward of four f32 ``F.linear`` + three
+   ``F.cross_entropy`` + the squared error; of ``F.layer_norm`` + the
+   masked mean; of ``F.layer_norm``);
 17. ae train path — ``Trainer(TrainConfig(model="autoencoder", steps=200,
    traces_per_step=64, max_len=32, seed=0), device="cuda")``: step 0's
    loss equal to the reference's 77.4211 within 1e-4 relative, step 0's
@@ -234,9 +237,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocks of 4096 merged in the reference's order by ``ring_body`` with
    the in-process rotation (one block of trace 1 all masked: first in one
    rank's order, last in another's), each rank's output held to the
-   plain body's; the times and bound of phase 3 (4 B H Lq Lk D f32 flops
-   on CUDA cores), f32 ``scaled_dot_product_attention`` under the same
-   mask as the library call;
+   plain body's; the times and bound of phase 3 (the 4 B H Lq Lk D flops
+   as three split-operand TF32 products on the tensor cores, with the f32
+   CUDA-core figure beside it), f32 ``scaled_dot_product_attention`` under
+   the same mask as the library call;
 19. parallel path — an NCCL process group of world 1: ``ring_attention``
    on ``{"seq": 1}`` at L 8192 against ``reference_attention``, then three
    data-parallel train steps (``make_sharded_train_step``) and scoring
@@ -269,6 +273,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12            # dense tensor-core peak
 F32_FLOPS = 67e12              # outside the tensor cores
+TF32_FLOPS = 495e12            # dense tensor-core peak, TF32
 
 SPIN_CYCLES = 5_000_000        # ~2.7 ms at 1.83 GHz: longer than any enqueue
 R_SHAPES = (256, 2048)          # smallest and largest ladder rung
@@ -3964,6 +3969,51 @@ def _k16_row(q, k, v, seg, o, lse, do, flush, what: str) -> dict:
     return row
 
 
+def _k17_row(x, w, dy, flush) -> dict:
+    """K17 on a training step's own LayerNorm gradient: held to its plain
+    version, one launch a call and a second call bit-equal, timed beside
+    the plain version and ``autograd.grad`` of ``F.layer_norm``."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import dense
+
+    launched = dense.ln_bwd_launches
+    got = dense.ln_bwd(x, w, dy)
+    again = dense.ln_bwd(x, w, dy)
+    ref = dense.ln_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    check(dense.ln_bwd_launches - launched == 2,
+          "ln_bwd: not one launch a call")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "ln_bwd: a second call is not bit-equal")
+    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"ln_bwd {n}")
+             for a, b, n in zip(got, ref, ("dx", "dgamma", "dbeta"))]
+    rows_, d = x.numel() // x.shape[-1], x.shape[-1]
+    xr = x.detach().clone().requires_grad_()
+    wr = w.detach().clone().requires_grad_()
+    br = torch.zeros_like(wr).requires_grad_()
+    yl = F.layer_norm(xr, (d,), wr, br, 1e-6)
+
+    def ln_library():
+        return torch.autograd.grad(yl, (xr, wr, br), dy, retain_graph=True)
+
+    nbytes = 3 * rows_ * d * 4 + 3 * d * 4
+    flops = 16 * rows_ * d
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "ln_bwd", "shape": [rows_, d],
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           **timings(lambda: dense.ln_bwd(x, w, dy),
+                     lambda: dense.ln_bwd_plain(x, w, dy), ln_library,
+                     flush),
+           "library": "autograd.grad of F.layer_norm",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    return row
+
+
 def phase_train_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -4040,35 +4090,7 @@ def phase_train_kernels(card: str) -> dict:
         q2, k2, v2, seg2, o2, lse2, do2, flush, "L128 hd128")
 
     # ---- K17 on the step's first LayerNorm gradient (the final LN's)
-    x, w, dy = seen["ln_bwd"][0][:3]
-    got = dense.ln_bwd(x, w, dy)
-    ref = dense.ln_bwd_plain(x, w, dy)
-    torch.cuda.synchronize()
-    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"ln_bwd {n}")
-             for a, b, n in zip(got, ref, ("dx", "dgamma", "dbeta"))]
-    rows_, d = x.numel() // x.shape[-1], x.shape[-1]
-    xr = x.detach().clone().requires_grad_()
-    wr = w.detach().clone().requires_grad_()
-    br = torch.zeros_like(wr).requires_grad_()
-    yl = F.layer_norm(xr, (d,), wr, br, 1e-6)
-
-    def ln_library():
-        return torch.autograd.grad(yl, (xr, wr, br), dy, retain_graph=True)
-
-    nbytes = 3 * rows_ * d * 4 + 3 * d * 4
-    flops = 16 * rows_ * d
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-    row = {"name": "ln_bwd", "shape": [rows_, d],
-           "max_abs_diff": max(df for df, _ in diffs),
-           "bound": min(lim for _, lim in diffs),
-           **timings(lambda: dense.ln_bwd(x, w, dy),
-                     lambda: dense.ln_bwd_plain(x, w, dy), ln_library,
-                     flush),
-           "library": "autograd.grad of F.layer_norm",
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops}
-    row.update(_ratios(row))
-    results["ln_bwd"] = row
+    results["ln_bwd"] = _k17_row(*seen["ln_bwd"][0][:3], flush)
 
     # ---- K19 on FFN1's gradient and pre-activation of the last block
     dyg, pre = seen["gelu_tanh_bwd"][0][:2]
@@ -4370,13 +4392,13 @@ def _ae_train_step_data(n: int = TRAIN_TRACES):
 
 def _capture_ae_inputs(model, data):
     """One autoencoder training step's forward and backward on the card,
-    recording the first inputs K11, K20 and K21 are handed."""
+    recording the first inputs K11, K20, K21 and K17 are handed."""
     from odigos_tpu_torch import kernels
 
     seen: dict = {}
     saved = []
     for mod, name in (("recon", "recon_ce"), ("recon", "recon_ce_bwd"),
-                      ("pool", "ln_masked_pool_bwd")):
+                      ("pool", "ln_masked_pool_bwd"), ("dense", "ln_bwd")):
         m = getattr(kernels, mod)
         real = getattr(m, name)
         saved.append((m, name, real))
@@ -4424,7 +4446,8 @@ def phase_ae_train_kernels(card: str) -> dict:
     check(not data.mask[-1].any() and (~data.mask[:-1]).any(),
           "ae_train_kernels: the step lacks padding slots or a padding row")
     seen = _capture_ae_inputs(model, data)
-    check(set(seen) == {"recon_ce", "recon_ce_bwd", "ln_masked_pool_bwd"},
+    check(set(seen) == {"recon_ce", "recon_ce_bwd", "ln_masked_pool_bwd",
+                        "ln_bwd"},
           f"ae_train_kernels: kernels not reached: {sorted(seen)}")
     results: dict = {}
 
@@ -4563,6 +4586,9 @@ def phase_ae_train_kernels(card: str) -> dict:
            "flops": flops}
     row.update(_ratios(row))
     results["ln_masked_pool_bwd"] = row
+
+    # ---- K17 on the step's first LayerNorm gradient (the encoder's last)
+    results["ln_bwd"] = _k17_row(*seen["ln_bwd"][0][:3], flush)
     out = {"phase": "ae_train_kernels", "card": card,
            "config": "AutoencoderConfig(max_len=32, dtype=float32): d128 "
                      "lat64 h2 l2 ff512, the reference's seed-0 weights, a "
@@ -4785,15 +4811,19 @@ def _ring_inputs(L: int, seed: int, dead: slice):
 
 
 def _ring_bound(Lq: int, Lk: int, q_bytes: int = 4) -> tuple:
-    """(bound_ms, bound_by, bytes, flops) of one K22 call: q, k, v and the
-    mask read once, o, m and s read and written once; 4 B H Lq Lk D f32
-    flops (the two products) on CUDA cores."""
+    """(bound_ms, bound_by, bytes, flops, bound_ms_f32_cuda_cores) of one
+    K22 call: q, k, v and the mask read once, o, m and s read and written
+    once; the two products' 4 B H Lq Lk D flops taken as split-operand
+    TF32 products on the tensor cores (three a pair of f32 operands; a bf16
+    q, exact in TF32, drops one of the score's), and beside it the same
+    flops once at the f32 CUDA-core peak."""
     B, H, D = RING_B, RING_H, RING_D
     nbytes = (B * Lq * H * D * q_bytes + 2 * B * Lk * H * D * 4 + B * Lk
               + 2 * B * Lq * H * D * 4 + 2 * 2 * B * H * Lq * 4)
     flops = 4 * B * H * Lq * Lk * D
-    ms, by = bound(nbytes, flops, F32_FLOPS)
-    return ms, by, nbytes, flops
+    tc_flops = (3 if q_bytes == 4 else 2.5) * flops
+    ms, by = bound(nbytes, tc_flops, TF32_FLOPS)
+    return ms, by, nbytes, tc_flops, bound(nbytes, flops, F32_FLOPS)[0]
 
 
 def _ring_state(Lq: int):
@@ -4851,7 +4881,7 @@ def phase_ring_kernels(card: str) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "ring_block_attention: a second call is not bit-equal")
     st_k, st_p = _ring_state(L), _ring_state(L)
-    b_ms, b_by, nbytes, flops = _ring_bound(L, L)
+    b_ms, b_by, nbytes, flops, b_cc = _ring_bound(L, L)
     row = {"name": "ring_block_attention",
            "shape": [RING_B, L, RING_H, RING_D], "Lk": L,
            "max_abs_diff": diffs[0][0], "bound": diffs[0][1],
@@ -4867,7 +4897,8 @@ def phase_ring_kernels(card: str) -> dict:
            "library": "f32 scaled_dot_product_attention, (B, 1, 1, Lk) "
                       "boolean mask (yardstick: NaN on all-masked rows)",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops, "dtype": "float32"}
+           "flops": flops, "bound_ms_f32_cuda_cores": b_cc,
+           "dtype": "float32"}
     row.update(_ratios(row))
     results["one_block"] = row
     del got, ref, oracle, again, st_k, st_p, q, k, v, mask
@@ -4913,7 +4944,7 @@ def phase_ring_kernels(card: str) -> dict:
     step_b = _ring_bound(Lb, Lb)
     ring_flops = 4 * RING_B * RING_H * (n * Lb) ** 2 * RING_D
     ring_bytes = n * _ring_bound(Lb, Lb)[2]
-    ring_b = bound(ring_bytes, ring_flops, F32_FLOPS)
+    ring_b = bound(ring_bytes, 3 * ring_flops, TF32_FLOPS)
     step = {"shape": [RING_B, Lb, RING_H, RING_D], "Lk": Lb,
             **timings(lambda: kring.ring_block_attention(
                 qs[0], *blocks[1], *st_k),
@@ -4922,6 +4953,7 @@ def phase_ring_kernels(card: str) -> dict:
                 lambda: _sdpa(qs[0], blocks[1][0], blocks[1][1],
                               blocks[1][2].bool()), flush),
             "bound_ms": step_b[0], "bound_by": step_b[1],
+            "bound_ms_f32_cuda_cores": step_b[4],
             "max_abs_diff": max(d for d, _ in block_diffs),
             "bound": min(lim for _, lim in block_diffs)}
     step.update(_ratios(step))
@@ -4931,6 +4963,8 @@ def phase_ring_kernels(card: str) -> dict:
              "library_ms": time_ms(library_whole, flush, reps=3, warm=1),
              "library_vs_plain_max_abs_diff": lib_diff8,
              "bound_ms": ring_b[0], "bound_by": ring_b[1],
+             "bound_ms_f32_cuda_cores": bound(ring_bytes, ring_flops,
+                                              F32_FLOPS)[0],
              "per_rank_max_abs_diff": [d for d, _ in block_diffs]}
     whole["ratio_to_bound"] = whole["kernel_ms"] / whole["bound_ms"]
     whole["ratio_to_library"] = whole["kernel_ms"] / whole["library_ms"]
@@ -5269,10 +5303,13 @@ def main() -> int:
                                         "dP recomputed on CUDA cores from "
                                         "K1's LSE, P = 1/L at padding "
                                         "queries, 32/64-slot tiles",
-               "ln_bwd": "f32, a warp a row (8 rows a warp), statistics "
-                         "recomputed with ln_exact.cuh (K14's bits), f64 "
-                         "row sums; per-warp f64 column partials, then a "
-                         "fixed-order column pass (no atomics)",
+               "ln_bwd": "f32, one launch: a warp a row, rows grid-strided "
+                         "over >= one CTA an SM with the next row's "
+                         "16-byte loads first, statistics recomputed with "
+                         "ln_exact.cuh (K14's bits), f64 row sums; each "
+                         "CTA's f64 column partial (warps in order), added "
+                         "by the last CTA of each group of 16 and the last "
+                         "group (ticket counters, no float atomics)",
                "span_embed_bwd": "f32 sort-and-segment: a CTA a table "
                                  "builds its row starts (smem histogram, "
                                  "scan) and a stable entry order "
@@ -5302,16 +5339,20 @@ def main() -> int:
                                      "statistics (ln_exact.cuh); per-warp "
                                      "f64 column partials, a fixed-order "
                                      "column pass",
-               "ring_block_attention": "f32 CUDA cores, in place: a CTA of "
-                                       "256 threads a (b, h, 64-query "
-                                       "tile), q staged once as f32, 64-key "
-                                       "K/V tiles through smem with their "
-                                       "mask bytes, a 4x4 score block and "
-                                       "4 queries' accumulators a thread in "
-                                       "registers, online softmax from the "
-                                       "incoming (o, m, s) a warp a row, "
-                                       "masked weights zeroed, the division "
-                                       "on the ring's last step"}
+               "ring_block_attention": "split-operand TF32 on the tensor "
+                                       "cores (mma.sync m16n8k8, three "
+                                       "products a pair of f32 operands), "
+                                       "in place: a CTA of 4 warps a (b, h, "
+                                       "128-query tile) at D <= 64, 32 "
+                                       "queries a warp; K/V tiles split "
+                                       "once into (hi, lo) pairs in smem, "
+                                       "the next tile loaded into registers "
+                                       "meanwhile; the score fragments "
+                                       "through the online softmax in "
+                                       "registers and, keys permuted, as "
+                                       "P.V's A fragments; masked weights "
+                                       "zeroed, the division on the ring's "
+                                       "last step"}
     # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
     # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
@@ -5514,6 +5555,11 @@ def main() -> int:
             t = train_kern["segment_attention_bwd_L128_hd128"]
             extra["L128_hd128"] = {k: t[k] for k in timing_keys + (
                 "bound_ms", "bound_by", "shape", "ratio_to_bound")}
+        if kname == "ln_bwd":
+            t = ae_train_kern["ln_bwd"]
+            extra["autoencoder_step"] = {k: t[k] for k in timing_keys + (
+                "bound_ms", "bound_by", "shape", "ratio_to_bound",
+                "ratio_to_library")}
         lines.append(line(kname, r, extra))
     # K20 and K21 on an autoencoder training step's own inputs
     # (phase_ae_train_kernels); their launches are its training path's
@@ -5546,8 +5592,10 @@ def main() -> int:
         "ratio_to_library": r["ratio_to_library"],
         "vs_reference_attention": r["vs_reference_attention"],
         "launches_per_ring_step": 1, "dtype": "float32",
+        "bound_ms_f32_cuda_cores": r["bound_ms_f32_cuda_cores"],
         "blocks8_step": {k: ring_kern["blocks8_step"][k] for k in
                          timing_keys + ("bound_ms", "bound_by", "shape",
+                                        "bound_ms_f32_cuda_cores",
                                         "ratio_to_bound",
                                         "ratio_to_library")},
         "blocks8": ring_kern["blocks8"]}))

@@ -21,11 +21,11 @@ they never pick a plain version instead. On the CPU the plain versions
 serve every geometry.
 
 Ring attention (K22, ``ring.ring_block_attention``) takes any head dim
-``D`` from 1 to ``RING_MAX_HEAD_DIM`` (256: a 64-query tile and 64-key K
-and V tiles of D + 1 floats stay within a block's 227 KB of shared
-memory), any sequence lengths, q in f32 or bf16: the reference's test and
-dry-run head dims (8, 16, its all-masked test's 4) and the transformer's
-64 among them. :func:`check_ring` raises past it.
+``D`` from 1 to ``RING_MAX_HEAD_DIM`` (256: at D 256 a 128-query tile of
+f32 and 16-key K and V tiles of (hi, lo) pairs take 199 KB of a block's
+227 KB of shared memory), any sequence lengths, q in f32 or bf16: the
+reference's test and dry-run head dims (8, 16, its all-masked test's 4)
+and the transformer's 64 among them. :func:`check_ring` raises past it.
 """
 
 from __future__ import annotations

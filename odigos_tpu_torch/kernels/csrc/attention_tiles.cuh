@@ -1,15 +1,15 @@
-// The f32 CUDA-core attention tiles shared by K1's tiled kernel
-// (segment_attention.cu `segment_attention_tiled_kernel`) and K22
-// (ring_attention.cu `ring_block_attention_kernel`) — for sm_90a.
+// The f32 CUDA-core attention tiles of K1's tiled kernel
+// (segment_attention.cu `segment_attention_tiled_kernel`), and the
+// once-per-device helpers and to_f32 that K22 (ring_attention.cu, on the
+// tensor cores) also uses — for sm_90a.
 //
-// Both kernels give a CTA of 256 threads 64 queries of one (row, head)
-// and stream the keys through shared memory in 64-key tiles with an
-// online softmax. What they share is here:
+// The kernel gives a CTA of 256 threads 64 queries of one (row, head) and
+// streams the keys through shared memory in 64-key tiles with an online
+// softmax. Its tiles are here:
 //   * the shared-memory layout: Q, K and V tiles of kB x (D + 1) f32 (a
 //     row padded by one float, so the 16 key rows a warp reads sit in 16
 //     banks), the score tile, each query's running max, sum and rescale,
-//     then a tail the kernel owns (K1 the row's segment ids, K22 the key
-//     tile's mask);
+//     then a tail the kernel owns (the row's segment ids);
 //   * the staging of a K and V tile as f32, zero past the last key;
 //   * the 4 x 4 register block of q.k products a thread: queries ty + 16 a
 //     and keys tx + 16 j (tx = tid & 15, ty = tid >> 4);
@@ -18,8 +18,8 @@
 //     sum rescaled by exp(m_old - m_new) and that rescale kept for P.V;
 //   * O = O * rescale + P.V, thread (ty, tx) holding queries ty + 16 a at
 //     dims tx + 16 c (c < DB) in registers.
-// Each kernel keeps what differs: how q is read and scaled, the mask and
-// its fill, the incoming state, and the final division and store.
+// The kernel keeps the rest: how q is read and scaled, the mask and its
+// fill, the final division and store.
 //
 // Also the once-per-device attribute helper (DeviceOnce, max_smem_once)
 // both sources use. Everything sits in an anonymous namespace: each
@@ -113,14 +113,13 @@ __device__ __forceinline__ Smem carve(float* base, int ld) {
 }
 
 // K and V rows pos0 .. pos0 + n - 1 of head h, in the (positions, H, D)
-// layout, as f32 into the tiles; rows from n on are zero. Pos is the
-// position's type: int where the caller bounds the positions below 2^31
-// (K1's R L), whose 32-bit sums K1 runs measurably faster than size_t's;
-// size_t for K22, whose B Lk the launcher does not bound.
-template <typename T, typename Pos>
+// layout, as f32 into the tiles; rows from n on are zero. The positions
+// are ints: the caller bounds them below 2^31 (K1's R L), and K1 runs
+// their 32-bit sums measurably faster than size_t's.
+template <typename T>
 __device__ __forceinline__ void stage_kv(const Smem& t,
                                          const T* __restrict__ k,
-                                         const T* __restrict__ v, Pos pos0,
+                                         const T* __restrict__ v, int pos0,
                                          int n, int H, int h, int D, int ld,
                                          int tid) {
   for (int e = tid; e < kB * D; e += kThreads) {

@@ -84,8 +84,10 @@ The trainer's backward pass (f32) adds two kernels here:
   K14's exact arithmetic (``ln_exact.cuh``: K14 stores none), ``dx =
   ((g - mean(g)) - xh * mean(g * xh)) * rstd`` with ``g = dy * weight``
   and ``xh = (x - mean) * rstd``, the row means and the column sums over
-  the rows taken in f64 and rounded once (per-block partials and a second
-  pass, no atomics);
+  the rows taken in f64 and rounded once, in one launch (per-CTA f64
+  partials added by ticketed last CTAs, no float atomics) on an f64
+  scratch cached per device and stream (its counters left zero by each
+  call);
 * **K19** ``gelu_tanh_bwd(dy, pre)`` (``csrc/gelu_bwd.cu``): ``dPre = dy *
   gelu'(pre)`` for ``jax.nn.gelu``'s tanh form in f32 IEEE steps, and
   FFN1's bias gradient (the column sums of ``dPre``, f64, rounded once)
@@ -129,6 +131,9 @@ ln_bwd_launches = 0
 gelu_bwd_launches = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
+# K17's f64 scratch per (device, stream): its counters must start at zero,
+# and each launch leaves them so
+_ln_bwd_scratch: dict = {}
 
 
 # ------------------------------------------------------------------ plain
@@ -465,6 +470,33 @@ def _partials(source: str, name: str, rows: int) -> int:
     return int(fn(rows))
 
 
+def _ln_bwd_kernel():
+    fn = _fns.get("ln_bwd_launch")
+    if fn is None:
+        fn = build.load("ln_bwd").ln_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float,
+                                                ctypes.c_longlong,
+                                                ctypes.c_int]
+                       + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+        _fns["ln_bwd_launch"] = fn
+    return fn
+
+
+def _ln_bwd_part(dev: torch.device, stream, n: int) -> torch.Tensor:
+    """K17's cached f64 scratch of at least ``n`` values on ``dev`` for
+    ``stream``: zeroed when made or grown, then left to the kernel, which
+    leaves its counters at zero."""
+    if n <= 0:
+        raise RuntimeError("ln_bwd: the card's SM count could not be read")
+    key = (dev.index, stream.cuda_stream)
+    part = _ln_bwd_scratch.get(key)
+    if part is None or part.numel() < n:
+        part = torch.zeros(n, dtype=torch.float64, device=dev)
+        _ln_bwd_scratch[key] = part
+    return part
+
+
 def ln_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
            eps: float = LN_EPS
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -489,21 +521,15 @@ def ln_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
     db = torch.empty(d, dtype=torch.float32, device=dev)
     if rows == 0:
         return dx, dw.zero_(), db.zero_()
-    part = torch.empty(_partials("ln_bwd", "ln_bwd_partials", rows) * 2 * d,
-                       dtype=torch.float64, device=dev)
-    fn = _fns.get("ln_bwd_launch")
-    if fn is None:
-        fn = build.load("ln_bwd").ln_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float,
-                                                ctypes.c_longlong,
-                                                ctypes.c_int]
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        _fns["ln_bwd_launch"] = fn
+    fn = _ln_bwd_kernel()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        part = _ln_bwd_part(dev, stream,
+                            _partials("ln_bwd", "ln_bwd_partials", rows) * 2
+                            * d)
         rc = fn(x.data_ptr(), weight.data_ptr(), dy.data_ptr(), eps, rows, d,
                 dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ln_bwd launch failed: CUDA error {rc}")
     with _count_lock:

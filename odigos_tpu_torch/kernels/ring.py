@@ -16,12 +16,14 @@ no allowed key gives 0, never NaN. ``scale`` defaults to ``1 / D ** 0.5``,
 multiplied into the logits after the product as the reference does (K1
 divides q first; this is not K1's contract).
 
-A CUDA tensor launches the hand-written kernel (``csrc/ring_attention.cu``,
-f32 on CUDA cores, an online softmax over 64-key tiles from the incoming
-state) or raises; head dims 1 to ``coverage.RING_MAX_HEAD_DIM`` (256). A
-CPU tensor takes :func:`ring_block_attention_plain`, the reference's
-arithmetic in PyTorch ops (the block's max first, then the merge), which
-is also what the kernel is held to on the card. ``launches`` counts the
+A CUDA tensor launches the hand-written kernel (``csrc/ring_attention.cu``:
+both products on the tensor cores as split-operand TF32, three products a
+pair of f32 operands, within the reference's 1e-5; an online softmax over
+key tiles from the incoming state) or raises; head dims 1 to
+``coverage.RING_MAX_HEAD_DIM`` (256). A CPU tensor takes
+:func:`ring_block_attention_plain`, the reference's arithmetic in PyTorch
+ops (the block's max first, then the merge), which is also what the
+kernel is held to on the card. ``launches`` counts the
 calls that launched.
 """
 

@@ -1903,6 +1903,36 @@ def test_k17_ln_bwd_matches_plain(dev, rows, d):
     assert (got[0][-1] == 0).all()
 
 
+@pytest.mark.parametrize("d", [1, 33, 128, 256, 1000, 1024])
+@pytest.mark.parametrize("rows", [1, 63, 2048, 50000])
+def test_k17_widths_rows_padding_and_a_second_call(dev, d, rows):
+    """K17's one launch at every width bucket (vector and scalar rows),
+    from one row to a grid past its cap, with zero padding rows: within
+    the plain bound, one launch a call, and a second call bit-equal (the
+    cached scratch's counters are left at zero)."""
+    from odigos_tpu_torch.kernels import dense
+
+    g = torch.Generator().manual_seed(rows * 7 + d)
+    x = torch.randn(rows, d, generator=g) * 3 + 1
+    w = torch.randn(d, generator=g)
+    dy = torch.randn(rows, d, generator=g)
+    pad = min(3, rows - 1)
+    if pad:
+        x[-pad:] = 0.0
+        dy[-pad:] = 0.0
+    x, w, dy = x.to(dev), w.to(dev), dy.to(dev)
+    before = dense.ln_bwd_launches
+    got = dense.ln_bwd(x, w, dy)
+    again = dense.ln_bwd(x, w, dy)
+    assert dense.ln_bwd_launches == before + 2
+    ref = dense.ln_bwd_plain(x, w, dy)
+    for a, b, r, what in zip(got, again, ref, ("dx", "dgamma", "dbeta")):
+        _close(a, r, BWD_EXACT_RTOL, what)
+        assert torch.equal(a, b), what
+    if pad:
+        assert (got[0][-pad:] == 0).all()
+
+
 @pytest.mark.parametrize("M,N", [(2048, 1024), (300, 64), (4096, 4096)])
 def test_k19_gelu_bwd_matches_plain(dev, M, N):
     from odigos_tpu_torch.kernels import dense
@@ -2186,6 +2216,39 @@ def test_k22_ring_block_matches_plain(dev, D, q_dtype, Lq, Lk):
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()
         assert _rel(g, r) <= RING_RTOL
+
+
+@pytest.mark.parametrize("D", [4, 8, 60, 64, 128, 256])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("finalize", [False, True])
+def test_k22_head_dims_masked_block_and_second_call(dev, D, q_dtype,
+                                                    finalize):
+    """Three blocks of Lk 200 (not a multiple of a key tile), the first all
+    masked, trace 1 masked in the last, merged with and without the final
+    division: within the plain bound, and a second run bit-equal."""
+    B, Lq, Lk, H = 2, 130, 200, 3
+    blocks = [_ring_block_inputs(B, Lq, Lk, H, D, q_dtype, dev, seed=s,
+                                 masked=(1,) if s == 2 else ())
+              for s in range(3)]
+    blocks[0][3] = torch.zeros_like(blocks[0][3])
+    q = blocks[0][0]
+    runs = []
+    for _ in range(2):
+        st = _ring_state(B, Lq, H, D, dev)
+        for i, (_, k, v, mask) in enumerate(blocks):
+            kring.ring_block_attention(q, k, v, mask, *st,
+                                       finalize=finalize and i == 2)
+        runs.append(st)
+    ref = _ring_state(B, Lq, H, D, dev)
+    for i, (_, k, v, mask) in enumerate(blocks):
+        kring.ring_block_attention_plain(q, k, v, mask, *ref,
+                                         finalize=finalize and i == 2)
+    torch.cuda.synchronize()
+    for g, r in zip(runs[0], ref):
+        assert torch.isfinite(g).all()
+        assert _rel(g, r) <= RING_RTOL
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("where", ["first", "last"])

@@ -49,7 +49,12 @@ span work), no pass B, 2 or 4 spans a thread in place of one, CTAs of
 K21 ``ln_masked_pool_bwd`` on one autoencoder training step's own inputs
 (chip_smoke phase 16's): K20 with vocabulary slices of 256 rows (not
 128) and its column pass 32 positions at a time (not 64), K21 one real
-row at a time (not 4).
+row at a time (not 4); K17 ``ln_bwd`` on the first LayerNorm gradient
+of a transformer and an autoencoder training step: no prefetch, one or
+four rows a warp, the launch alone, the rows without the column sums;
+K22 ``ring_block_attention`` at L 8192 and 4096 (B 2, H 4, D 64): 16
+queries a warp, 32-key tiles, P.V 32 dims at a time, ``expf``, the
+staging loop not unrolled.
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -541,11 +546,52 @@ VARIANTS = {
         "one_row_at_a_time": {
             "constexpr int kGroup = PER <= 4 ? 4 : PER <= 8 ? 2 : 1;":
             "constexpr int kGroup = 1;"}},
+    # K17's one launch: the next row's loads not issued first; a row or
+    # four rows a warp before the grid's cap (not two)
+    "ln_bwd": {
+        "no_prefetch": {"ln_bwd_kernel<PER, VEC, (PER <= 4)>":
+                        "ln_bwd_kernel<PER, VEC, false>"},
+        "one_row_a_warp": {"constexpr int kRowsPerWarp = 2;":
+                           "constexpr int kRowsPerWarp = 1;"},
+        "four_rows_a_warp": {"constexpr int kRowsPerWarp = 2;":
+                             "constexpr int kRowsPerWarp = 4;"},
+        # the launch alone (every thread returns at once), and the rows
+        # and the CTAs' partials without the column sums' tickets
+        "launch_only": {
+            "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+            "  float g[NV];":
+            "  if (rows > 0) return;\n"
+            "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+            "  float g[NV];"},
+        "rows_only": {
+            "  for (int c = tid; c < 2 * d; c += kThreads) mine[c] = red[c];\n":
+            "  for (int c = tid; c < 2 * d; c += kThreads) mine[c] = red[c];\n"
+            "  if (rows > 0) return;\n"}},
+    # K22's split-TF32 kernel: 16 queries a warp at D <= 64 (not 32); key
+    # tiles of 32 at D <= 64 (not 64); P.V over 32 output dims at a time
+    # (not 64); the weights by expf of the scaled logit (not one FFMA into
+    # exp2f)
+    "ring_block_attention": {
+        "one_m_tile": {"constexpr int kMTiles64 = 2;":
+                       "constexpr int kMTiles64 = 1;"},
+        "key_tile_32": {"constexpr int kKeyTile64 = 64;":
+                        "constexpr int kKeyTile64 = 32;"},
+        "pv_steps_4": {"constexpr int kPVSteps = 8;":
+                       "constexpr int kPVSteps = 4;"},
+        "staging_not_unrolled": {
+            "      for (int e = tid; e < KT * q4; e += kThreads) {":
+            "#pragma unroll 1\n"
+            "      for (int e = tid; e < KT * q4; e += kThreads) {"},
+        "expf": {"exp2f(fmaf(sc[mt][j][2 * hf + c], sl, -mb))":
+                 "expf(sc[mt][j][2 * hf + c] * scale - mn)"}},
 }
 
 
 # kernel -> (source under build.SOURCES, its C launcher)
 LAUNCHERS = {"recon_ce_bwd": ("recon_ce_bwd", "recon_ce_bwd_launch"),
+             "ln_bwd": ("ln_bwd", "ln_bwd_launch"),
+             "ring_block_attention": ("ring_attention",
+                                      "ring_block_attention_launch"),
              "ln_masked_pool_bwd": ("ae_pool_bwd",
                                     "ln_masked_pool_bwd_launch"),
              "segment_attention": ("segment_attention",
@@ -624,6 +670,56 @@ def _training_cases(dev) -> list:
              lambda: pool.ln_masked_pool_bwd(*pargs))]
 
 
+def _k17_k22_cases(dev, names) -> list:
+    """K17 on the first LayerNorm gradient of one training step of the
+    transformer (2048, 256) and of the autoencoder (2048, 128), the smoke
+    run's steps, with the wrapper's scratch grown for any variant's grid;
+    K22 at the smoke run's one block (2, 8192, 4, 64) and one ring step
+    (4096 x 4096)."""
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch.kernels import dense
+    from odigos_tpu_torch.kernels import ring as kring
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.training import labeled_sequences
+
+    cases = []
+    if "ln_bwd" in names:
+        tcfg = TransformerConfig(max_len=chip_smoke.TRAIN_LEN,
+                                 dtype=torch.float32)
+        tseen = chip_smoke._capture_backward_inputs(
+            TraceTransformer(tcfg, device=dev, seed=0),
+            labeled_sequences(chip_smoke.TRAIN_TRACES - 1,
+                              max_len=chip_smoke.TRAIN_LEN, seed=0,
+                              pad_traces_to=chip_smoke.TRAIN_TRACES))
+        acfg = AutoencoderConfig(max_len=chip_smoke.TRAIN_LEN,
+                                 dtype=torch.float32)
+        amodel = SpanAutoencoder(acfg, device=dev)
+        amodel.load_state_dict(autoencoder_state(acfg, 0))
+        aseen = chip_smoke._capture_ae_inputs(
+            amodel,
+            chip_smoke._ae_train_step_data(chip_smoke.TRAIN_TRACES - 1))
+        for model, seen in (("transformer", tseen), ("autoencoder", aseen)):
+            x, w, dy = seen["ln_bwd"][0][:3]
+            d = x.shape[-1]
+            rows = x.numel() // d
+            dense._ln_bwd_part(dev, torch.cuda.current_stream(dev),
+                               (rows + 64) * 2 * d)
+            cases.append(("ln_bwd", {"model": model, "rows": rows, "d": d},
+                          lambda x=x, w=w, dy=dy: dense.ln_bwd(x, w, dy)))
+    if "ring_block_attention" in names:
+        for L in (chip_smoke.RING_ONE_L, chip_smoke.RING_BLOCK_L):
+            q, k, v, mask = chip_smoke._ring_inputs(L, 0, slice(0, L // 2))
+            st = chip_smoke._ring_state(L)
+            cases.append(("ring_block_attention", {"L": L},
+                          lambda q=q, k=k, v=v, mask=mask, st=st:
+                          kring.ring_block_attention(q, k, v, mask, *st)))
+    return cases
+
+
 def build_variants(tmp: str, built: dict, names) -> dict:
     """Each variant of the kernels in ``names`` compiled (one ``nvcc`` per
     variant, all started together) and loaded, with the argument types of
@@ -700,12 +796,16 @@ def main() -> int:
                "featurize_columns": featurize, "trace_rows_pack": pack,
                "ln_masked_pool": pool, "span_head_scatter": head,
                "zscore_score_update": zscore}
-    modules.update(recon_ce_bwd=recon, ln_masked_pool_bwd=pool)
+    from odigos_tpu_torch.kernels import ring as kring
+
+    modules.update(recon_ce_bwd=recon, ln_masked_pool_bwd=pool, ln_bwd=dense,
+                   ring_block_attention=kring)
     # a wrapper's launcher kept under its own names (getter, cache)
     own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn")}
     # the backward kernels' launchers: (getter, cache dict)
     bwd = {"recon_ce_bwd": (recon._bwd_kernel, recon._fns),
-           "ln_masked_pool_bwd": (pool._bwd_kernel, pool._bwd_fns)}
+           "ln_masked_pool_bwd": (pool._bwd_kernel, pool._bwd_fns),
+           "ln_bwd": (lambda _name: dense._ln_bwd_kernel(), dense._fns)}
 
     def launcher(kname: str):
         m = modules[kname]
@@ -945,6 +1045,7 @@ def main() -> int:
         cases += _zscore_cases(dev)
     if {"recon_ce_bwd", "ln_masked_pool_bwd"} & set(names):
         cases += _training_cases(dev)
+    cases += _k17_k22_cases(dev, names)
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
