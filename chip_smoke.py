@@ -176,10 +176,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. train kernels — the trainer's backward kernels on the inputs of one
    real training step at its default shapes (the full-width f32
    transformer, 63 faulty traces padded to 64 rows of L = 32: padding
-   slots and an all-padding row): K16 ``segment_attention_bwd`` (also at
-   L 128, hd 128 on packed rows, the tiled route), K17 ``ln_bwd`` (one
-   launch a call, two calls bit-equal), K18 ``span_embed_bwd`` and K19
-   ``gelu_tanh_bwd``, each held to its plain
+   slots and an all-padding row): K16 ``segment_attention_bwd`` (its
+   one-CTA route; also at L 128, hd 128 on packed rows, the tiled route),
+   K17 ``ln_bwd``, K18 ``span_embed_bwd`` (also bit-equal to its plain
+   version) and K19 ``gelu_tanh_bwd`` (K16-K18 one launch a call, two
+   calls bit-equal), each held to its plain
    version (K16 within ``K16_RTOL``, the others ``BWD_EXACT_RTOL`` of the
    plain output's largest magnitude), K1's log-sum-exp held to the plain
    ``logsumexp`` on live queries (``LSE_ATOL``) and its output unchanged by
@@ -207,8 +208,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    autoencoder, 63 clean traces padded to 64 rows of L = 32, the
    reference's seed-0 weights): K11's f32 log-sum-exps held to the plain
    ``logsumexp`` at real positions (``LSE_ATOL``) and its errors unchanged
-   by the buffer, K20 ``recon_ce_bwd`` (``RECON_BWD_RTOL`` of the plain
-   output's largest magnitude; two calls bit-equal), K21
+   by the buffer, K16 ``segment_attention_bwd`` at the autoencoder's 2
+   heads (as in phase 14), K20 ``recon_ce_bwd`` (``RECON_BWD_RTOL`` of the
+   plain output's largest magnitude; two calls bit-equal), K21
    ``ln_masked_pool_bwd`` and K17 ``ln_bwd`` at the autoencoder's (2048,
    128) rows (``BWD_EXACT_RTOL``; K17 one launch a call, two calls
    bit-equal, as in phase 14), with the times and bound of phase 3 and the
@@ -3926,9 +3928,16 @@ def _k16_row(q, k, v, seg, o, lse, do, flush, what: str) -> dict:
     from odigos_tpu_torch.kernels import attention
 
     R, L, H, hd = q.shape
+    launched = attention.bwd_launches
     got = attention.segment_attention_bwd(q, k, v, seg, o, lse, do)
+    again = attention.segment_attention_bwd(q, k, v, seg, o, lse, do)
     ref = attention.segment_attention_bwd_plain(q, k, v, seg, o, lse, do)
     torch.cuda.synchronize()
+    per_call = (attention.bwd_launches - launched) / 2
+    check(per_call == 1, f"segment_attention_bwd {what}: {per_call} "
+                         f"launches a call, not one")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"segment_attention_bwd {what}: a second call is not bit-equal")
     diffs = [_rel_check(a, b, K16_RTOL, f"segment_attention_bwd {what} {n}")
              for a, b, n in zip(got, ref, ("dq", "dk", "dv"))]
     segl = seg.long()
@@ -3964,7 +3973,9 @@ def _k16_row(q, k, v, seg, o, lse, do, flush, what: str) -> dict:
            "library": "autograd.grad of f32 scaled_dot_product_attention "
                       "under the same boolean mask",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops, "allowed_pairs": pairs, "live_slots": n_live}
+           "flops": flops, "allowed_pairs": pairs, "live_slots": n_live,
+           "route": attention.bwd_route(L, hd, q, k, v, o, do),
+           "launches_per_call": per_call}
     row.update(_ratios(row))
     return row
 
@@ -4124,10 +4135,19 @@ def phase_train_kernels(card: str) -> dict:
 
     # ---- K18 on the embedding's gradient of the step
     dye, cat, pos, segs, tables = seen["span_embed_bwd"][0][:5]
+    launched = embed.bwd_launches
     got = embed.span_embed_bwd(dye, cat, pos, segs, tables)
+    again = embed.span_embed_bwd(dye, cat, pos, segs, tables)
     ref = embed.span_embed_bwd_plain(dye, cat, pos, segs, tables)
     torch.cuda.synchronize()
     names = ("service", "name", "kind", "status", "pos")
+    k18_calls = (embed.bwd_launches - launched) / 2
+    check(k18_calls == 1, f"span_embed_bwd: {k18_calls} launches a call")
+    check(all(torch.equal(getattr(got, n), getattr(again, n))
+              for n in names), "span_embed_bwd: a second call differs")
+    # the f64 sums of f32 terms are exact at these widths: plain's bits
+    check(all(torch.equal(getattr(got, n), getattr(ref, n)) for n in names),
+          "span_embed_bwd: not bit-equal to its plain version")
     diffs = [_rel_check(getattr(got, n), getattr(ref, n), BWD_EXACT_RTOL,
                         f"span_embed_bwd {n}") for n in names]
     Rm, Lm, C = cat.shape
@@ -4172,7 +4192,8 @@ def phase_train_kernels(card: str) -> dict:
            "library": "index_add_ per table (6 calls: service twice, name, "
                       "kind, status, pos)",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops}
+           "flops": flops, "launches_per_call": k18_calls,
+           "bit_equal_plain": True}
     row.update(_ratios(row))
     results["span_embed_bwd"] = row
     out = {"phase": "train_kernels", "card": card,
@@ -4392,13 +4413,14 @@ def _ae_train_step_data(n: int = TRAIN_TRACES):
 
 def _capture_ae_inputs(model, data):
     """One autoencoder training step's forward and backward on the card,
-    recording the first inputs K11, K20, K21 and K17 are handed."""
+    recording the first inputs K11, K20, K21, K17 and K16 are handed."""
     from odigos_tpu_torch import kernels
 
     seen: dict = {}
     saved = []
     for mod, name in (("recon", "recon_ce"), ("recon", "recon_ce_bwd"),
-                      ("pool", "ln_masked_pool_bwd"), ("dense", "ln_bwd")):
+                      ("pool", "ln_masked_pool_bwd"), ("dense", "ln_bwd"),
+                      ("attention", "segment_attention_bwd")):
         m = getattr(kernels, mod)
         real = getattr(m, name)
         saved.append((m, name, real))
@@ -4447,9 +4469,13 @@ def phase_ae_train_kernels(card: str) -> dict:
           "ae_train_kernels: the step lacks padding slots or a padding row")
     seen = _capture_ae_inputs(model, data)
     check(set(seen) == {"recon_ce", "recon_ce_bwd", "ln_masked_pool_bwd",
-                        "ln_bwd"},
+                        "ln_bwd", "segment_attention_bwd"},
           f"ae_train_kernels: kernels not reached: {sorted(seen)}")
     results: dict = {}
+
+    # ---- K16 at the autoencoder's 2 heads, on the step's own inputs
+    results["segment_attention_bwd"] = _k16_row(
+        *seen["segment_attention_bwd"][0][:7], flush, "autoencoder step")
 
     # ---- K11's log-sum-exps, on the step's own decoder output
     (dec, lw, lb, heads, cat, cont, mask, wts), kw = seen["recon_ce"]
@@ -5295,14 +5321,18 @@ def main() -> int:
                             "residual by TMA into the staging buffer, GELU "
                             "from a 32 KB table of the formula's bf16 "
                             "results; TMA store, QKV in planes",
-               "segment_attention_bwd": "f32, 3 launches, no atomics: "
-                                        "Delta (a warp a query, f64 sum), "
-                                        "dQ (a CTA a query tile, key tiles "
-                                        "streamed), dK/dV (a CTA a key "
-                                        "tile, query tiles streamed); S and "
-                                        "dP recomputed on CUDA cores from "
-                                        "K1's LSE, P = 1/L at padding "
-                                        "queries, 32/64-slot tiles",
+               "segment_attention_bwd": "f32, one launch, no atomics, "
+                                        "the parent's bits: L <= 64, hd "
+                                        "<= 128 a CTA a (row, head) (live "
+                                        "slots listed by ballots, staged "
+                                        "once as 16-byte vectors, Delta a "
+                                        "warp a live query, S and dP once "
+                                        "a same-segment pair, P and dS in "
+                                        "smem, dQ/dK/dV over the live "
+                                        "list); past that dQ and dK/dV "
+                                        "CTAs in one grid, Delta in-CTA, "
+                                        "dead tile pairs skipped, 16-byte "
+                                        "smem reads on CUDA cores",
                "ln_bwd": "f32, one launch: a warp a row, rows grid-strided "
                          "over >= one CTA an SM with the next row's "
                          "16-byte loads first, statistics recomputed with "
@@ -5310,12 +5340,14 @@ def main() -> int:
                          "CTA's f64 column partial (warps in order), added "
                          "by the last CTA of each group of 16 and the last "
                          "group (ticket counters, no float atomics)",
-               "span_embed_bwd": "f32 sort-and-segment: a CTA a table "
-                                 "builds its row starts (smem histogram, "
-                                 "scan) and a stable entry order "
-                                 "(match_any ranks); then a CTA a table "
-                                 "row sums its slots' dy rows in f64 over "
-                                 "8 warps, combined in a fixed order",
+               "span_embed_bwd": "f32, one launch: a CTA of 32 warps "
+                                 "32 rows of a table; a stable order of "
+                                 "its entries by all warps (per-warp "
+                                 "counts of contiguous chunks, a scan "
+                                 "over (row, warp)); the list cut into a "
+                                 "run a warp, f64 sums, rows cut across "
+                                 "runs added in run order from smem, "
+                                 "rounded once; empty rows zero vectors",
                "gelu_tanh_bwd": "f32, 16-byte vectors, a CTA 16 rows x "
                                 "1024 columns: dPre = dY * gelu'(pre) in "
                                 "IEEE steps, f64 column partials; a "
@@ -5552,9 +5584,17 @@ def main() -> int:
                  "launches_per_step": train_path["launches_per_step"][kname],
                  "dtype": "float32"}
         if kname == "segment_attention_bwd":
+            keys = timing_keys + ("bound_ms", "bound_by", "shape",
+                                  "ratio_to_bound", "ratio_to_library",
+                                  "route", "launches_per_call")
             t = train_kern["segment_attention_bwd_L128_hd128"]
-            extra["L128_hd128"] = {k: t[k] for k in timing_keys + (
-                "bound_ms", "bound_by", "shape", "ratio_to_bound")}
+            extra["L128_hd128"] = {k: t[k] for k in keys}
+            t = ae_train_kern["segment_attention_bwd"]
+            extra["autoencoder_step"] = {k: t[k] for k in keys}
+            extra["route"] = r["route"]
+            extra["launches_per_call"] = r["launches_per_call"]
+        if kname == "span_embed_bwd":
+            extra["launches_per_call"] = r["launches_per_call"]
         if kname == "ln_bwd":
             t = ae_train_kern["ln_bwd"]
             extra["autoencoder_step"] = {k: t[k] for k in timing_keys + (

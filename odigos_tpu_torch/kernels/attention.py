@@ -37,11 +37,18 @@ recomputes, for each (row, head) over the allowed pairs,
 allowed key: the forward gives it the uniform average of the row's L
 values (the finite fill), so its ``P`` is ``1 / L`` over the row and its
 ``dS`` is 0 (the fill's scores do not depend on q or k); the masked pairs
-of a live query have ``P = 0`` and ``dS = 0``. Three launches: ``Delta``
-(a warp a query, f64 sums of the f32 products), ``dQ`` (a CTA a query
-tile, the key tiles streamed) and ``dK``/``dV`` (a CTA a key tile, the
-query tiles streamed): no atomics, so a step is reproducible. Tiles are
-64 slots (32 at ``L <= 32`` and past ``hd = 128``). A CPU tensor takes
+of a live query have ``P = 0`` and ``dS = 0``. One launch a call, no
+atomics (a step is reproducible), each output one f32 chain in a fixed
+order (S and dP over d, dQ over keys, dK and dV over queries, Delta's f64
+sum), leaving out only exactly-zero terms, so both routes give the same
+bits. Up to ``BWD_ONE_CTA_MAX_L`` slots and ``BWD_ONE_CTA_MAX_HD`` head
+dims (``hd % 4 == 0``, 16-byte aligned tensors: both trainers' shapes) a
+CTA takes a (row, head): the live slots listed once, S and dP computed
+once for each allowed pair, P and dS kept in shared memory (``"one_cta"``);
+past that, dQ CTAs (a query tile) and dK/dV CTAs (a key tile) share one
+grid, each computing Delta for the query tiles it reads and walking only
+the tile pairs that hold an allowed pair (``"tiled"``);
+:func:`bwd_route` says which. A CPU tensor takes
 :func:`segment_attention_bwd_plain`; ``bwd_launches`` counts the calls
 that launched.
 """
@@ -61,6 +68,8 @@ from . import build
 ONE_TILE = 64   # the one-tile kernels: <= 64 slots and hd <= 64
 MAX_L = 1024    # the tiled kernels (K7's walk takes no longer rows)
 MAX_HD = 256
+BWD_ONE_CTA_MAX_L = 64    # K16's one-CTA route: a (row, head) in one CTA
+BWD_ONE_CTA_MAX_HD = 128  # (its shared tiles fit 227 KB up to L 64, hd 128)
 TC_SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 _ROUTES = {"simt": 0, "tc": 1, "flash": 2, "tiled": 3}
 
@@ -285,11 +294,22 @@ def _bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = build.load("segment_attention_bwd").segment_attention_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
+
+
+def bwd_route(L: int, hd: int, *tensors: torch.Tensor) -> str:
+    """K16's route for ``L`` slots of ``hd`` dims (module docstring):
+    ``"one_cta"`` where a (row, head) fits one CTA and every tensor given
+    is 16-byte aligned, else ``"tiled"``."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    if (L <= BWD_ONE_CTA_MAX_L and hd <= BWD_ONE_CTA_MAX_HD and hd % 4 == 0
+            and aligned):
+        return "one_cta"
+    return "tiled"
 
 
 def segment_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -336,14 +356,12 @@ def segment_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if R == 0 or L == 0 or H == 0 or hd == 0:
         out.zero_()
         return out[0], out[1], out[2]
-    delta = torch.empty((R, H, L), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 segments.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                do.data_ptr(), delta.data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr(), out[2].data_ptr(), R, L, H, hd,
-                _scale_div(hd, q.dtype),
+                do.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr(), R, L, H, hd, _scale_div(hd, q.dtype),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_attention_bwd launch failed: CUDA "

@@ -19,280 +19,586 @@
 // 1 / L over every key below L and its dS is 0 (the filled scores depend on
 // neither q nor k). Its dO is 0 on the trainer's path (the loss masks its
 // slot), so it adds exactly 0 to dV there, and nothing reads its LSE.
-// The masked pairs of a live query have P = 0 and dS = 0; keys and
-// queries past L (the last tile's tail) are zero in shared memory.
 //
-// Three launches, no atomics (a step is reproducible):
-// * delta_kernel: a warp a (row, slot, head), Delta as an f64 sum of the
-//   f32 products dO * O (the plain version takes the same sum);
-// * dq_kernel: a CTA a (row, head, query tile); q_s and dO of the tile
-//   resident, the key tiles streamed; S and dP on CUDA cores with a block of
-//   TA x TA (query, key) pairs a thread, dS staged in shared memory, then
-//   dQ += dS . K with TA x DB (query, dim) outputs a thread in registers;
-// * dkdv_kernel: a CTA a (row, head, key tile); K and V of the tile
-//   resident, the query tiles streamed; P and dS staged, then dV += P^T dO
-//   and dK += dS^T q_s with TA x DB (key, dim) outputs of each a thread.
-// Tiles are B = 64 slots (B = 32 where L <= 32, so the default L = 32 wastes
-// no half tile, and past hd = 128, so that four tiles of hd + 1 floats fit
-// shared memory); DB 16-dim blocks a thread cover hd (4, 8 or 16).
+// Every output is one f32 chain in a fixed order, the same on both routes:
+// S and dP fmaf over d ascending from 0; dQ over keys ascending, then the
+// division; dK and dV over queries ascending; Delta the f32 products dO * O
+// summed in f64, lane-strided over a warp (lane k holds d = k, k + 32, ...)
+// then a butterfly, rounded once. Only terms that are exactly zero are left
+// out: the masked pairs (P = dS = 0), and padding queries whose dO row is
+// all zero (1/L * 0). An accumulator that starts at +0 never becomes -0
+// (a zero sum rounds to +0), so fmaf(0, x, acc) == acc and leaving such a
+// term out keeps the bits. No atomics: a step is reproducible.
+//
+// One launch a call, on one of two routes:
+// * one_cta_kernel (L <= kOneMaxL, hd <= kOneMaxHd, hd % 4 == 0, 16-byte
+//   aligned tensors; both trainers' L 32, hd 64): a CTA a (row, head). Warp
+//   0 reads the row's segments and lists its live slots by ballots; q_s, k,
+//   v and O at the live slots and dO at every slot are staged once as
+//   16-byte vectors; Delta a warp a live query; S and dP once, a thread a
+//   pair of the live list's same-segment pairs, P and dS kept in shared
+//   memory; then dQ, dK and dV, a thread 4 dims of a live slot, each over
+//   the live list's same-segment entries. Padding rows are written as zero
+//   vectors, or, where some padding query's dO is not zero, dV walks every
+//   query of the row. The limit keeps the five staged (L, hd + 4) tiles, P
+//   and dS of the largest shape in one CTA's shared memory (204 KB of 227 at
+//   L 64, hd 128; 52 KB at the trainers' shape, four CTAs an SM).
+// * tiled_kernel (past that, L <= 1024, hd <= 256): dQ CTAs, a (row, head,
+//   query tile) each, and dK/dV CTAs, a (row, head, key tile) each, in one
+//   grid. A CTA computes Delta for the query tiles it reads (a warp a live
+//   query), walks only the tile pairs whose live segment ranges overlap
+//   (and, for dV, the query tiles holding a padding query with a nonzero
+//   dO), and recomputes S and dP there on CUDA cores: a thread TA x TA
+//   (query, key) pairs, reading its rows as 16-byte vectors from tiles of
+//   pitch hd + 4 (an odd count of vectors: conflict-free); dQ, dK and dV
+//   with TA x 4G (slot, dim) outputs a thread in registers, dims 4 tx + 64 g.
+//   Tiles are B = 64 slots at hd <= 64 past L 32, else 32 (two CTAs an SM
+//   at hd 128).
 //
 // Bound on the card: bytes at the trainer's shapes (R 64, L 32, H 4, hd
 // 64). The function needs q, k, v, O and the LSE at the live slots only (a
 // padding query's dS is 0 and no live query reads a padding key), dO at
 // every slot (a padding query adds dO / L to each dV), and writes dq, dk,
 // dv in full: 10.9 MB with a step's 611 live slots of 2048 (3.3 us at
-// 3.35 TB/s; the kernels read all eight arrays, 16.8 MB), while the work is
-// 10 hd flops an allowed (query, key) pair (S and dP, dV, dQ, dK): at most
-// 0.17 GFLOP over all L x L pairs of every (row, head), 2.5 us at 67
-// TFLOP/s in f32 on CUDA cores (a tensor-core route would not be exact in
-// f32, the plain version's arithmetic). The kernels recompute S and dP in
-// both the dQ and the dK/dV pass and walk every pair of a tile; the measured
-// times are in PERF.md.
+// 3.35 TB/s), while the work is 10 hd flops an allowed (query, key) pair
+// (S and dP, dV, dQ, dK): at most 0.17 GFLOP over all L x L pairs of every
+// (row, head), 2.5 us at 67 TFLOP/s in f32 on CUDA cores. The one-CTA route
+// reads what the function needs and computes each allowed pair once; the
+// measured times are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"  // DeviceOnce, max_smem_once
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxL = 1024;
 constexpr int kMaxHd = 256;
 constexpr int kDynLimit = 232448;  // dynamic shared memory a block may use
+constexpr unsigned kFull = 0xffffffffu;
 
-// ---------------------------------------------------------------- Delta
-// One warp a (r, i, h): Delta[r, h, i] = sum over d of dO * O, the f32
-// products summed in f64 and rounded once.
-__global__ void __launch_bounds__(kThreads)
-delta_kernel(const float* __restrict__ dO, const float* __restrict__ O,
-             float* __restrict__ delta, long long n, int L, int H, int hd) {
-  const long long t =
-      (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (t >= n) return;
-  const int lane = threadIdx.x & 31;
-  const float* a = dO + t * hd;
-  const float* b = O + t * hd;
+// The pitch of a staged row in floats: hd rounded up to 4, then an odd
+// count of 16-byte vectors, so the 8 rows a quarter-warp reads as vectors
+// start in 8 distinct groups of 4 banks.
+__host__ __device__ inline int row_pitch(int hd) {
+  const int hp = (hd + 3) & ~3;
+  return (hp % 8 == 4) ? hp : hp + 4;
+}
+
+// Delta of one query, a warp: sum over d of dO * O, the f32 products added
+// in f64 lane-strided then by a butterfly, rounded once. `dos` is the
+// query's staged dO row, `orow` its O row (shared or global).
+__device__ __forceinline__ float delta_warp(const float* dos,
+                                            const float* orow, int hd,
+                                            int lane) {
   double s = 0.0;
-  for (int d = lane; d < hd; d += 32) s += (double)__fmul_rn(a[d], b[d]);
-  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) {
-    const int h = (int)(t % H);
-    const long long ri = t / H;
-    const int i = (int)(ri % L);
-    const long long r = ri / L;
-    delta[(r * H + h) * L + i] = (float)s;
-  }
+  for (int d = lane; d < hd; d += 32) s += (double)__fmul_rn(dos[d], orow[d]);
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  return (float)s;
 }
 
-// shared floats of one CTA: four tiles of B x (hd + 1), `pt` B x (B + 1)
-// tiles, the tile's LSE and Delta, then the row's L segment ids
-__host__ __device__ constexpr size_t smem_bytes(int B, int hd, int L,
-                                                int pt) {
-  return ((size_t)4 * B * (hd + 1) + (size_t)pt * B * (B + 1) + 2 * B) * 4 +
-         (size_t)L * 4;
+__device__ __forceinline__ float4 fma4(float a, float4 b, float4 c) {
+  c.x = fmaf(a, b.x, c.x);
+  c.y = fmaf(a, b.y, c.y);
+  c.z = fmaf(a, b.z, c.z);
+  c.w = fmaf(a, b.w, c.w);
+  return c;
 }
 
-// Stage rows [t0, t0 + B) of (r, h) of a (R, L, H, hd) tensor as f32 tiles
-// of stride hd + 1; rows past L are zero. scale: divide by it (q_s).
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int r, int h, int t0, int B, int L,
-                                      int H, int hd, float scale) {
-  const int ld = hd + 1;
-  for (int e = threadIdx.x; e < B * hd; e += kThreads) {
-    const int l = e / hd, d = e - l * hd;
-    float x = 0.f;
-    if (t0 + l < L) {
-      x = src[((size_t)(r * L + t0 + l) * H + h) * hd + d];
-      if (scale != 0.f) x = x / scale;  // the forward's true division
+// s + a . b over 4 dims, in order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ float4 div4(float4 x, float s) {
+  x.x = x.x / s;  // the forward's true division
+  x.y = x.y / s;
+  x.z = x.z / s;
+  x.w = x.w / s;
+  return x;
+}
+
+// ============================================================ one CTA
+constexpr int kOneThreads = 256;
+constexpr int kOneMaxL = 64;
+constexpr int kOneMaxHd = 128;
+
+// shared bytes: q_s, k, v, O, dO as (L, pitch) tiles; P and dS (L, L + 1);
+// the live queries' LSE and Delta; ints: segments, live list, slot ->
+// live index, live segments
+__host__ __device__ constexpr size_t one_smem_bytes(int L, int ld) {
+  return ((size_t)5 * L * ld + (size_t)2 * L * (L + 1) + 2 * (size_t)L) * 4 +
+         (size_t)4 * L * 4;
+}
+
+__global__ void __launch_bounds__(kOneThreads)
+one_cta_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int32_t* __restrict__ seg,
+               const float* __restrict__ o, const float* __restrict__ lse,
+               const float* __restrict__ dO, float* __restrict__ dq,
+               float* __restrict__ dk, float* __restrict__ dv, int L, int H,
+               int hd, float scale_div, float inv_L) {
+  extern __shared__ float4 one_smem[];
+  const int ld = row_pitch(hd);
+  const int h4 = hd >> 2;
+  const int PL = L + 1;  // P and dS row pitch
+  float* qs = reinterpret_cast<float*>(one_smem);
+  float* ks = qs + L * ld;
+  float* vs = ks + L * ld;
+  float* os = vs + L * ld;
+  float* dos = os + L * ld;
+  float* ps = dos + L * ld;
+  float* dss = ps + L * PL;
+  float* lse_s = dss + L * PL;
+  float* dl_s = lse_s + L;
+  int* segs = reinterpret_cast<int*>(dl_s + L);
+  int* live = segs + L;   // live index -> slot, slots ascending
+  int* cidx = live + L;   // slot -> live index, -1 at padding
+  int* segc = cidx + L;   // live index -> segment
+  __shared__ int n_live, pad_dO;
+
+  const int r = blockIdx.x / H;
+  const int h = blockIdx.x - r * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row0 = (size_t)r * L;
+
+  auto gvec = [&](const float* base, int l) {
+    return reinterpret_cast<const float4*>(base) +
+           ((row0 + l) * H + h) * (size_t)h4;
+  };
+  // ---- dO at every slot (16-byte vectors) by warps 1.., while warp 0
+  // reads the row's segments and lists its live slots (ballots in order)
+  if (warp > 0) {
+#pragma unroll 4
+    for (int e = tid - 32; e < L * h4; e += kOneThreads - 32) {
+      const int l = e / h4, c4 = e - l * h4;
+      reinterpret_cast<float4*>(dos + l * ld)[c4] = gvec(dO, l)[c4];
     }
-    dst[l * ld + d] = x;
+  } else {
+    int nl = 0;
+    for (int base = 0; base < L; base += 32) {
+      const int l = base + lane;
+      const int s = l < L ? seg[row0 + l] : 0;
+      const unsigned m = __ballot_sync(kFull, s > 0);
+      if (l < L) {
+        segs[l] = s;
+        const int c = nl + __popc(m & ((1u << lane) - 1u));
+        cidx[l] = s > 0 ? c : -1;
+        if (s > 0) {
+          live[c] = l;
+          segc[c] = s;
+        }
+      }
+      nl += __popc(m);
+    }
+    if (lane == 0) {
+      n_live = nl;
+      pad_dO = 0;
+    }
+  }
+  __syncthreads();
+  const int nl = n_live;
+
+  // ---- stage q_s, k, v, O at the live slots (16-byte vectors), and the
+  // live queries' LSE
+  for (int e = tid; e < nl * h4; e += kOneThreads) {
+    const int c = e / h4, c4 = e - c * h4;
+    const int l = live[c];
+    const float4 xq = gvec(q, l)[c4];
+    const float4 xk = gvec(k, l)[c4];
+    const float4 xv = gvec(v, l)[c4];
+    const float4 xo = gvec(o, l)[c4];
+    reinterpret_cast<float4*>(qs + l * ld)[c4] = div4(xq, scale_div);
+    reinterpret_cast<float4*>(ks + l * ld)[c4] = xk;
+    reinterpret_cast<float4*>(vs + l * ld)[c4] = xv;
+    reinterpret_cast<float4*>(os + l * ld)[c4] = xo;
+  }
+  for (int c = tid; c < nl; c += kOneThreads)
+    lse_s[c] = lse[((size_t)r * H + h) * L + live[c]];
+  __syncthreads();
+
+  // ---- Delta a warp a live query; padding queries with a nonzero dO
+  for (int c = warp; c < nl; c += kOneThreads / 32) {
+    const int l = live[c];
+    const float dl = delta_warp(dos + l * ld, os + l * ld, hd, lane);
+    if (lane == 0) dl_s[c] = dl;
+  }
+  for (int l = warp; l < L; l += kOneThreads / 32) {
+    if (segs[l] > 0) continue;  // warp-uniform
+    bool nz = false;
+    for (int d = lane; d < hd; d += 32) nz |= dos[l * ld + d] != 0.f;
+    if (__any_sync(kFull, nz) && lane == 0) pad_dO = 1;
+  }
+
+  // ---- S and dP once for each same-segment pair of the live list (zero
+  // for the other pairs), then, past the barrier that also ends Delta, P
+  // and dS in their place
+  for (int t = tid; t < nl * nl; t += kOneThreads) {
+    const int a = t / nl, b = t - a * nl;
+    float p = 0.f, ds = 0.f;
+    if (segc[a] == segc[b]) {
+      const float4* qa = reinterpret_cast<const float4*>(qs + live[a] * ld);
+      const float4* da = reinterpret_cast<const float4*>(dos + live[a] * ld);
+      const float4* kb = reinterpret_cast<const float4*>(ks + live[b] * ld);
+      const float4* vb = reinterpret_cast<const float4*>(vs + live[b] * ld);
+      float s = 0.f, dp = 0.f;
+#pragma unroll 4
+      for (int d4 = 0; d4 < h4; ++d4) {
+        s = dot4(qa[d4], kb[d4], s);
+        dp = dot4(da[d4], vb[d4], dp);
+      }
+      p = s;
+      ds = dp;
+    }
+    ps[a * PL + b] = p;
+    dss[a * PL + b] = ds;
+  }
+  __syncthreads();
+  for (int t = tid; t < nl * nl; t += kOneThreads) {
+    const int a = t / nl, b = t - a * nl;
+    if (segc[a] != segc[b]) continue;
+    const float p = expf(ps[a * PL + b] - lse_s[a]);
+    ps[a * PL + b] = p;
+    dss[a * PL + b] = p * (dss[a * PL + b] - dl_s[a]);
+  }
+  __syncthreads();
+
+  // ---- dQ, dK, dV at the live slots, a thread 4 dims of a slot
+  const bool walk_all = pad_dO != 0;
+  for (int e = tid; e < nl * h4; e += kOneThreads) {
+    const int c = e / h4, c4 = e - c * h4;
+    const int sx = segc[c];
+    float4 aq = make_float4(0.f, 0.f, 0.f, 0.f), ak = aq, av = aq;
+    for (int b = 0; b < nl; ++b) {
+      if (segc[b] != sx) continue;
+      const int lb = live[b];
+      aq = fma4(dss[c * PL + b], reinterpret_cast<const float4*>(
+                                     ks + lb * ld)[c4], aq);
+      ak = fma4(dss[b * PL + c], reinterpret_cast<const float4*>(
+                                     qs + lb * ld)[c4], ak);
+      if (!walk_all)
+        av = fma4(ps[b * PL + c], reinterpret_cast<const float4*>(
+                                      dos + lb * ld)[c4], av);
+    }
+    const int l = live[c];
+    const size_t g = ((row0 + l) * H + h) * (size_t)h4 + c4;
+    reinterpret_cast<float4*>(dq)[g] = div4(aq, scale_div);
+    reinterpret_cast<float4*>(dk)[g] = ak;
+    if (!walk_all) reinterpret_cast<float4*>(dv)[g] = av;
+  }
+  // padding slots: dQ and dK are 0; dV too unless a padding dO is not
+  for (int e = tid; e < L * h4; e += kOneThreads) {
+    const int l = e / h4, c4 = e - l * h4;
+    if (segs[l] > 0) continue;
+    const size_t g = ((row0 + l) * H + h) * (size_t)h4 + c4;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(dq)[g] = z;
+    reinterpret_cast<float4*>(dk)[g] = z;
+    if (!walk_all) reinterpret_cast<float4*>(dv)[g] = z;
+  }
+  if (!walk_all) return;
+  // dV of every slot over every query in order: P of a same-segment live
+  // query, 1 / L of a padding query
+  for (int e = tid; e < L * h4; e += kOneThreads) {
+    const int x = e / h4, c4 = e - x * h4;
+    const int sx = segs[x], cx = cidx[x];
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < L; ++i) {
+      const int si = segs[i];
+      float p;
+      if (si <= 0)
+        p = inv_L;
+      else if (si == sx)
+        p = ps[cidx[i] * PL + cx];
+      else
+        continue;
+      av = fma4(p, reinterpret_cast<const float4*>(dos + i * ld)[c4], av);
+    }
+    reinterpret_cast<float4*>(dv)[((row0 + x) * H + h) * (size_t)h4 + c4] =
+        av;
   }
 }
 
-// The scores S and dP of queries (ty + 16 a) and keys (tx + 16 b) of two
-// tiles, from q_s and dO (query tiles) and K and V (key tiles).
+// ============================================================== tiled
+constexpr int kTileThreads = 256;
+constexpr int kMaxTiles = 32;  // a row's tiles of the least size, 32
+static_assert(kMaxTiles * 32 == kMaxL, "a row's tiles");
+
+// shared bytes of one CTA: four (B, pitch) tiles, P and dS (B, B + 1), the
+// tile's LSE and Delta, the row's segments, each tile's live segment range
+// and padding-dO flag
+__host__ __device__ constexpr size_t tile_smem_bytes(int B, int ld, int L) {
+  return ((size_t)4 * B * ld + (size_t)2 * B * (B + 1) + 2 * (size_t)B) * 4 +
+         (size_t)L * 4 + (size_t)3 * kMaxTiles * 4;
+}
+
+// Rows [t0, t0 + B) of (r, h) of an (R, L, H, hd) tensor as f32 rows of
+// pitch ld: zero past L and past hd. scale: divide by it (q_s), or 0.
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ src,
+                                           int r, int h, int t0, int B, int L,
+                                           int H, int hd, int ld, float scale,
+                                           bool vec) {
+  if (vec) {  // hd % 4 == 0, 16-byte aligned
+    const int ld4 = ld >> 2, h4 = hd >> 2;
+    for (int e = threadIdx.x; e < B * ld4; e += kTileThreads) {
+      const int l = e / ld4, c4 = e - l * ld4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t0 + l < L && c4 < h4) {
+        x = reinterpret_cast<const float4*>(src)
+            [((size_t)(r * L + t0 + l) * H + h) * h4 + c4];
+        if (scale != 0.f) x = div4(x, scale);
+      }
+      reinterpret_cast<float4*>(dst)[e] = x;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < B * ld; e += kTileThreads) {
+    const int l = e / ld, d = e - l * ld;
+    float x = 0.f;
+    if (t0 + l < L && d < hd) {
+      x = src[((size_t)(r * L + t0 + l) * H + h) * hd + d];
+      if (scale != 0.f) x = x / scale;
+    }
+    dst[e] = x;
+  }
+}
+
+// S and dP of queries (ty + 16 a) and keys (tx + 16 b) of two staged tiles
 template <int TA>
-__device__ __forceinline__ void scores(const float* qs, const float* dos,
-                                       const float* ks, const float* vs,
-                                       int hd, int tx, int ty,
-                                       float (&s)[TA][TA],
-                                       float (&dp)[TA][TA]) {
-  const int ld = hd + 1;
+__device__ __forceinline__ void tile_scores(const float* qs, const float* dos,
+                                            const float* ks, const float* vs,
+                                            int ld, int hp4, int tx, int ty,
+                                            float (&s)[TA][TA],
+                                            float (&dp)[TA][TA]) {
 #pragma unroll
   for (int a = 0; a < TA; ++a)
 #pragma unroll
     for (int b = 0; b < TA; ++b) s[a][b] = dp[a][b] = 0.f;
-  for (int d = 0; d < hd; ++d) {
-    float qa[TA], da[TA], kb[TA], vb[TA];
+  for (int d4 = 0; d4 < hp4; ++d4) {
+    float4 qa[TA], da[TA];
 #pragma unroll
     for (int a = 0; a < TA; ++a) {
-      qa[a] = qs[(ty + 16 * a) * ld + d];
-      da[a] = dos[(ty + 16 * a) * ld + d];
+      qa[a] = reinterpret_cast<const float4*>(qs + (ty + 16 * a) * ld)[d4];
+      da[a] = reinterpret_cast<const float4*>(dos + (ty + 16 * a) * ld)[d4];
     }
 #pragma unroll
     for (int b = 0; b < TA; ++b) {
-      kb[b] = ks[(tx + 16 * b) * ld + d];
-      vb[b] = vs[(tx + 16 * b) * ld + d];
-    }
+      const float4 kb =
+          reinterpret_cast<const float4*>(ks + (tx + 16 * b) * ld)[d4];
+      const float4 vb =
+          reinterpret_cast<const float4*>(vs + (tx + 16 * b) * ld)[d4];
 #pragma unroll
-    for (int a = 0; a < TA; ++a)
-#pragma unroll
-      for (int b = 0; b < TA; ++b) {
-        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-        dp[a][b] = fmaf(da[a], vb[b], dp[a][b]);
+      for (int a = 0; a < TA; ++a) {
+        s[a][b] = dot4(qa[a], kb, s[a][b]);
+        dp[a][b] = dot4(da[a], vb, dp[a][b]);
       }
-  }
-}
-
-// ------------------------------------------------------------------- dQ
-template <int B, int DB>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const int32_t* __restrict__ seg,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          const float* __restrict__ dO, float* __restrict__ dq, int L, int H,
-          int hd, float scale_div) {
-  constexpr int TA = B / 16;
-  constexpr int SLD = B + 1;
-  extern __shared__ float dq_smem[];
-  const int ld = hd + 1;
-  float* qs = dq_smem;
-  float* dos = qs + B * ld;
-  float* ks = dos + B * ld;
-  float* vs = ks + B * ld;
-  float* dss = vs + B * ld;
-  float* lse_s = dss + B * SLD;
-  float* dl_s = lse_s + B;
-  int* segs = reinterpret_cast<int*>(dl_s + B);
-
-  const int nqb = (L + B - 1) / B;
-  const int r = blockIdx.x / (H * nqb);
-  const int rem = blockIdx.x - r * H * nqb;
-  const int h = rem / nqb;
-  const int q0 = (rem - h * nqb) * B;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-
-  for (int l = tid; l < L; l += kThreads) segs[l] = seg[(size_t)r * L + l];
-  stage(qs, q, r, h, q0, B, L, H, hd, scale_div);
-  stage(dos, dO, r, h, q0, B, L, H, hd, 0.f);
-  for (int l = tid; l < B; l += kThreads) {
-    const bool in = q0 + l < L;
-    lse_s[l] = in ? lse[((size_t)r * H + h) * L + q0 + l] : 0.f;
-    dl_s[l] = in ? delta[((size_t)r * H + h) * L + q0 + l] : 0.f;
-  }
-
-  float acc[TA][DB];
-#pragma unroll
-  for (int a = 0; a < TA; ++a)
-#pragma unroll
-    for (int c = 0; c < DB; ++c) acc[a][c] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += B) {
-    __syncthreads();  // the previous key tile and dS are consumed
-    stage(ks, k, r, h, k0, B, L, H, hd, 0.f);
-    stage(vs, v, r, h, k0, B, L, H, hd, 0.f);
-    __syncthreads();
-    float s[TA][TA], dp[TA][TA];
-    scores<TA>(qs, dos, ks, vs, hd, tx, ty, s, dp);
-#pragma unroll
-    for (int a = 0; a < TA; ++a) {
-      const int li = ty + 16 * a;
-      const int i = q0 + li;
-      const int si = i < L ? segs[i] : 0;
-#pragma unroll
-      for (int b = 0; b < TA; ++b) {
-        const int j = k0 + tx + 16 * b;
-        float ds = 0.f;
-        if (si > 0 && j < L && segs[j] == si) {
-          const float p = expf(s[a][b] - lse_s[li]);
-          ds = p * (dp[a][b] - dl_s[li]);
-        }
-        dss[li * SLD + tx + 16 * b] = ds;
-      }
-    }
-    __syncthreads();
-    // dQ += dS . K for queries ty + 16 a, dims tx + 16 c
-    for (int j = 0; j < B; ++j) {
-      float da[TA], kc[DB];
-#pragma unroll
-      for (int a = 0; a < TA; ++a) da[a] = dss[(ty + 16 * a) * SLD + j];
-#pragma unroll
-      for (int c = 0; c < DB; ++c) {
-        const int d = tx + 16 * c;
-        kc[c] = d < hd ? ks[j * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < TA; ++a)
-#pragma unroll
-        for (int c = 0; c < DB; ++c) acc[a][c] = fmaf(da[a], kc[c], acc[a][c]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < TA; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= L) continue;
-#pragma unroll
-    for (int c = 0; c < DB; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd)
-        dq[((size_t)(r * L + i) * H + h) * hd + d] = acc[a][c] / scale_div;
     }
   }
 }
 
-// --------------------------------------------------------------- dK, dV
-template <int B, int DB>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const int32_t* __restrict__ seg,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            const float* __restrict__ dO, float* __restrict__ dk,
-            float* __restrict__ dv, int L, int H, int hd, float scale_div,
-            float inv_L) {
+// the 4 dims 4 tx + 64 g of a staged row (zero past the padded width)
+__device__ __forceinline__ float4 dims4(const float* row, int g, int tx,
+                                        int hp) {
+  const int d = 64 * g + 4 * tx;
+  return d < hp ? *reinterpret_cast<const float4*>(row + d)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// store the 4 dims 4 tx + 64 g of slot row `grow` (global element offset
+// of the row), those below hd
+__device__ __forceinline__ void store4(float* dst, size_t grow, int g, int tx,
+                                       int hd, float4 x, bool vec) {
+  const int d = 64 * g + 4 * tx;
+  if (vec) {
+    if (d < hd) *reinterpret_cast<float4*>(dst + grow + d) = x;
+    return;
+  }
+  const float w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (d + c < hd) dst[grow + d + c] = w[c];
+}
+
+template <int B, int G>
+__global__ void __launch_bounds__(kTileThreads, 2)
+tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int32_t* __restrict__ seg,
+             const float* __restrict__ o, const float* __restrict__ lse,
+             const float* __restrict__ dO, float* __restrict__ dq,
+             float* __restrict__ dk, float* __restrict__ dv, int L, int H,
+             int hd, float scale_div, float inv_L, int n_kv, bool vec) {
   constexpr int TA = B / 16;
   constexpr int SLD = B + 1;
-  extern __shared__ float kv_smem[];
-  const int ld = hd + 1;
-  float* ks = kv_smem;
-  float* vs = ks + B * ld;
-  float* qs = vs + B * ld;
-  float* dos = qs + B * ld;
-  float* ps = dos + B * ld;
+  extern __shared__ float4 tile_smem[];
+  const int ld = row_pitch(hd);
+  const int hp = (hd + 3) & ~3;
+  const int hp4 = hp >> 2;
+  const int nt = (L + B - 1) / B;
+  float* t0s = reinterpret_cast<float*>(tile_smem);
+  float* t1s = t0s + B * ld;
+  float* t2s = t1s + B * ld;
+  float* t3s = t2s + B * ld;
+  float* ps = t3s + B * ld;
   float* dss = ps + B * SLD;
   float* lse_s = dss + B * SLD;
   float* dl_s = lse_s + B;
   int* segs = reinterpret_cast<int*>(dl_s + B);
+  int* tlo = segs + L;        // each tile's least live segment
+  int* thi = tlo + kMaxTiles;  // ... and greatest (thi < tlo: none)
+  int* tpad = thi + kMaxTiles;  // a padding query with a nonzero dO
 
-  const int nkb = (L + B - 1) / B;
-  const int r = blockIdx.x / (H * nkb);
-  const int rem = blockIdx.x - r * H * nkb;
-  const int h = rem / nkb;
-  const int k0 = (rem - h * nkb) * B;
+  const bool kv_role = (int)blockIdx.x < n_kv;
+  const int idx = kv_role ? blockIdx.x : blockIdx.x - n_kv;
+  const int r = idx / (H * nt);
+  const int rem = idx - r * H * nt;
+  const int h = rem / nt;
+  const int own = (rem - h * nt) * B;  // this CTA's query or key tile
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t row0 = (size_t)r * L;
 
-  for (int l = tid; l < L; l += kThreads) segs[l] = seg[(size_t)r * L + l];
-  stage(ks, k, r, h, k0, B, L, H, hd, 0.f);
-  stage(vs, v, r, h, k0, B, L, H, hd, 0.f);
+  for (int l = tid; l < L; l += kTileThreads) segs[l] = seg[row0 + l];
+  for (int t = tid; t < nt; t += kTileThreads) tpad[t] = 0;
+  __syncthreads();
+  for (int t = warp; t < nt; t += kTileThreads / 32) {
+    int lo = 0x7fffffff, hi = 0;
+    for (int l = t * B + lane; l < min(L, t * B + B); l += 32) {
+      const int s = segs[l];
+      if (s > 0) {
+        lo = min(lo, s);
+        hi = max(hi, s);
+      }
+    }
+    for (int x = 16; x; x >>= 1) {
+      lo = min(lo, __shfl_xor_sync(kFull, lo, x));
+      hi = max(hi, __shfl_xor_sync(kFull, hi, x));
+    }
+    if (lane == 0) {
+      tlo[t] = lo;
+      thi[t] = hi;
+    }
+  }
+  if (kv_role) {  // padding queries whose dO is not all zero, a warp each
+    for (int l = warp; l < L; l += kTileThreads / 32) {
+      if (segs[l] > 0) continue;  // warp-uniform
+      const float* row = dO + ((row0 + l) * H + h) * hd;
+      bool nz = false;
+      for (int d = lane; d < hd; d += 32) nz |= row[d] != 0.f;
+      if (__any_sync(kFull, nz) && lane == 0)
+        tpad[l / B] = 1;  // the same value from every writer
+    }
+  }
+  __syncthreads();
+  const int my_t = own / B;
+  auto overlap = [&](int a, int b) {
+    return tlo[a] <= thi[a] && tlo[b] <= thi[b] && tlo[a] <= thi[b] &&
+           tlo[b] <= thi[a];
+  };
 
-  float gk[TA][DB], gv[TA][DB];
+  // LSE and Delta of the live queries of query tile q0 (staged dO in t1s)
+  auto tile_delta = [&](int q0) {
+    for (int l = warp; l < B; l += kTileThreads / 32) {
+      const int i = q0 + l;
+      if (i >= L || segs[i] <= 0) continue;
+      const float dl = delta_warp(t1s + l * ld, o + ((row0 + i) * H + h) * hd,
+                                  hd, lane);
+      if (lane == 0) {
+        dl_s[l] = dl;
+        lse_s[l] = lse[((size_t)r * H + h) * L + i];
+      }
+    }
+  };
+
+  float4 acc0[TA][G], acc1[TA][G];
 #pragma unroll
   for (int a = 0; a < TA; ++a)
 #pragma unroll
-    for (int c = 0; c < DB; ++c) gk[a][c] = gv[a][c] = 0.f;
+    for (int g = 0; g < G; ++g)
+      acc0[a][g] = acc1[a][g] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int q0 = 0; q0 < L; q0 += B) {
-    __syncthreads();  // the previous query tile, P and dS are consumed
-    stage(qs, q, r, h, q0, B, L, H, hd, scale_div);
-    stage(dos, dO, r, h, q0, B, L, H, hd, 0.f);
-    for (int l = tid; l < B; l += kThreads) {
-      const bool in = q0 + l < L;
-      lse_s[l] = in ? lse[((size_t)r * H + h) * L + q0 + l] : 0.f;
-      dl_s[l] = in ? delta[((size_t)r * H + h) * L + q0 + l] : 0.f;
+  if (!kv_role) {
+    // ---------------------------------------------------------- dQ
+    // t0s q_s, t1s dO of the own query tile; t2s k, t3s v streamed
+    const int q0 = own;
+    if (tlo[my_t] <= thi[my_t]) {
+      stage_tile(t0s, q, r, h, q0, B, L, H, hd, ld, scale_div, vec);
+      stage_tile(t1s, dO, r, h, q0, B, L, H, hd, ld, 0.f, vec);
+      __syncthreads();
+      tile_delta(q0);
+      for (int kt = 0; kt < nt; ++kt) {
+        if (!overlap(my_t, kt)) continue;
+        const int k0 = kt * B;
+        __syncthreads();  // the previous key tile and dS are consumed
+        stage_tile(t2s, k, r, h, k0, B, L, H, hd, ld, 0.f, vec);
+        stage_tile(t3s, v, r, h, k0, B, L, H, hd, ld, 0.f, vec);
+        __syncthreads();
+        float s[TA][TA], dp[TA][TA];
+        tile_scores<TA>(t0s, t1s, t2s, t3s, ld, hp4, tx, ty, s, dp);
+#pragma unroll
+        for (int a = 0; a < TA; ++a) {
+          const int li = ty + 16 * a;
+          const int i = q0 + li;
+          const int si = i < L ? segs[i] : 0;
+#pragma unroll
+          for (int b = 0; b < TA; ++b) {
+            const int j = k0 + tx + 16 * b;
+            float ds = 0.f;
+            if (si > 0 && j < L && segs[j] == si) {
+              const float p = expf(s[a][b] - lse_s[li]);
+              ds = p * (dp[a][b] - dl_s[li]);
+            }
+            dss[li * SLD + tx + 16 * b] = ds;
+          }
+        }
+        __syncthreads();
+        for (int j = 0; j < B; ++j) {
+          float da[TA];
+#pragma unroll
+          for (int a = 0; a < TA; ++a) da[a] = dss[(ty + 16 * a) * SLD + j];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float4 kc = dims4(t2s + j * ld, g, tx, hp);
+#pragma unroll
+            for (int a = 0; a < TA; ++a)
+              acc0[a][g] = fma4(da[a], kc, acc0[a][g]);
+          }
+        }
+      }
     }
+#pragma unroll
+    for (int a = 0; a < TA; ++a) {
+      const int i = q0 + ty + 16 * a;
+      if (i >= L) continue;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        store4(dq, ((row0 + i) * H + h) * hd, g, tx, hd,
+               div4(acc0[a][g], scale_div), vec);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ dK, dV
+  // t2s k, t3s v of the own key tile; t0s q_s, t1s dO streamed
+  const int k0 = own;
+  stage_tile(t2s, k, r, h, k0, B, L, H, hd, ld, 0.f, vec);
+  stage_tile(t3s, v, r, h, k0, B, L, H, hd, ld, 0.f, vec);
+  for (int qt = 0; qt < nt; ++qt) {
+    if (!overlap(qt, my_t) && !tpad[qt]) continue;
+    const int q0 = qt * B;
+    __syncthreads();  // the previous query tile, P and dS are consumed
+    stage_tile(t0s, q, r, h, q0, B, L, H, hd, ld, scale_div, vec);
+    stage_tile(t1s, dO, r, h, q0, B, L, H, hd, ld, 0.f, vec);
     __syncthreads();
-    // queries ty + 16 a of the tile, keys tx + 16 b of this CTA's tile
+    tile_delta(q0);
+    __syncthreads();
     float s[TA][TA], dp[TA][TA];
-    scores<TA>(qs, dos, ks, vs, hd, tx, ty, s, dp);
+    tile_scores<TA>(t0s, t1s, t2s, t3s, ld, hp4, tx, ty, s, dp);
 #pragma unroll
     for (int a = 0; a < TA; ++a) {
       const int li = ty + 16 * a;
@@ -303,7 +609,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float p = 0.f, ds = 0.f;
         if (i < L && j < L) {
           const int si = segs[i];
-          if (si == 0) {
+          if (si <= 0) {
             p = inv_L;  // the finite fill's uniform weights; dS = 0
           } else if (segs[j] == si) {
             p = expf(s[a][b] - lse_s[li]);
@@ -315,27 +621,23 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    // dV += P^T dO and dK += dS^T q_s for keys ty + 16 a, dims tx + 16 c
     for (int i = 0; i < B; ++i) {
-      float pa[TA], da[TA], oc[DB], qc[DB];
+      float pa[TA], da[TA];
 #pragma unroll
       for (int a = 0; a < TA; ++a) {
         pa[a] = ps[i * SLD + ty + 16 * a];
         da[a] = dss[i * SLD + ty + 16 * a];
       }
 #pragma unroll
-      for (int c = 0; c < DB; ++c) {
-        const int d = tx + 16 * c;
-        oc[c] = d < hd ? dos[i * ld + d] : 0.f;
-        qc[c] = d < hd ? qs[i * ld + d] : 0.f;
-      }
+      for (int g = 0; g < G; ++g) {
+        const float4 oc = dims4(t1s + i * ld, g, tx, hp);
+        const float4 qc = dims4(t0s + i * ld, g, tx, hp);
 #pragma unroll
-      for (int a = 0; a < TA; ++a)
-#pragma unroll
-        for (int c = 0; c < DB; ++c) {
-          gv[a][c] = fmaf(pa[a], oc[c], gv[a][c]);
-          gk[a][c] = fmaf(da[a], qc[c], gk[a][c]);
+        for (int a = 0; a < TA; ++a) {
+          acc1[a][g] = fma4(pa[a], oc, acc1[a][g]);  // dV
+          acc0[a][g] = fma4(da[a], qc, acc0[a][g]);  // dK
         }
+      }
     }
   }
 #pragma unroll
@@ -343,91 +645,97 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int j = k0 + ty + 16 * a;
     if (j >= L) continue;
 #pragma unroll
-    for (int c = 0; c < DB; ++c) {
-      const int d = tx + 16 * c;
-      if (d < hd) {
-        const size_t g = ((size_t)(r * L + j) * H + h) * hd + d;
-        dk[g] = gk[a][c];
-        dv[g] = gv[a][c];
-      }
+    for (int g = 0; g < G; ++g) {
+      const size_t grow = ((row0 + j) * H + h) * hd;
+      store4(dk, grow, g, tx, hd, acc0[a][g], vec);
+      store4(dv, grow, g, tx, hd, acc1[a][g], vec);
     }
   }
 }
 
-template <int B, int DB>
-cudaError_t launch_tiles(const float* q, const float* k, const float* v,
-                         const int32_t* seg, const float* lse,
-                         const float* delta, const float* dO, float* dq,
-                         float* dk, float* dv, int R, int L, int H, int hd,
-                         float scale_div, cudaStream_t st) {
-  const size_t dq_bytes = smem_bytes(B, hd, L, 1);
-  const size_t kv_bytes = smem_bytes(B, hd, L, 2);
-  if (kv_bytes > (size_t)kDynLimit) return cudaErrorInvalidValue;
-  // the attribute is cheap to set; set it every launch (no device cache)
-  cudaError_t e = cudaFuncSetAttribute(
-      dq_kernel<B, DB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dq_bytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dkdv_kernel<B, DB>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kv_bytes);
+DeviceOnce g_one_once;
+
+template <int B, int G>
+cudaError_t launch_tiled(const float* q, const float* k, const float* v,
+                         const int32_t* seg, const float* o, const float* lse,
+                         const float* dO, float* dq, float* dk, float* dv,
+                         int R, int L, int H, int hd, float scale_div,
+                         bool vec, cudaStream_t st) {
+  static DeviceOnce once;
+  const int ld = row_pitch(hd);
+  const size_t bytes = tile_smem_bytes(B, ld, L);
+  if (bytes > (size_t)kDynLimit) return cudaErrorInvalidValue;
+  // the largest this instance takes (hd 64 G, L 1024), set once a device
+  cudaError_t e = max_smem_once(
+      once, tiled_kernel<B, G>,
+      (int)tile_smem_bytes(B, row_pitch(64 * G), kMaxL));
   if (e != cudaSuccess) return e;
-  const long long grid = (long long)R * H * ((L + B - 1) / B);
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dq_kernel<B, DB><<<(unsigned)grid, kThreads, dq_bytes, st>>>(
-      q, k, v, seg, lse, delta, dO, dq, L, H, hd, scale_div);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dkdv_kernel<B, DB><<<(unsigned)grid, kThreads, kv_bytes, st>>>(
-      q, k, v, seg, lse, delta, dO, dk, dv, L, H, hd, scale_div,
-      1.0f / (float)L);
+  const long long n_kv = (long long)R * H * ((L + B - 1) / B);
+  if (2 * n_kv > 0x7fffffffLL) return cudaErrorInvalidValue;
+  tiled_kernel<B, G><<<(unsigned)(2 * n_kv), kTileThreads, bytes, st>>>(
+      q, k, v, seg, o, lse, dO, dq, dk, dv, L, H, hd, scale_div,
+      1.0f / (float)L, (int)n_kv, vec);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
+// 0: the one-CTA route takes (L, hd) with 16-byte aligned tensors, else 1
+extern "C" int segment_attention_bwd_route(int L, int hd, int aligned) {
+  return (L <= kOneMaxL && hd <= kOneMaxHd && hd % 4 == 0 && aligned) ? 0
+                                                                         : 1;
+}
+
 // q, k, v, o, dO, dq, dk, dv: contiguous (R, L, H, hd) f32; seg: (R, L)
-// int32; lse: (R, H, L) f32 from K1's f32 routes; delta: an (R, H, L) f32
-// scratch. L <= 1024, hd <= 256. Checked by the Python wrapper too.
+// int32; lse: (R, H, L) f32 from K1's f32 routes. L <= 1024, hd <= 256.
+// Checked by the Python wrapper too. One launch.
 extern "C" int segment_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* seg,
-    const void* o, const void* lse, const void* dO, void* delta, void* dq,
-    void* dk, void* dv, int R, int L, int H, int hd, float scale_div,
-    void* stream) {
+    const void* o, const void* lse, const void* dO, void* dq, void* dk,
+    void* dv, int R, int L, int H, int hd, float scale_div, void* stream) {
   if (R <= 0 || L <= 0 || H <= 0 || hd <= 0 || L > kMaxL || hd > kMaxHd)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = (long long)R * L * H;
-  const long long blocks = (n + kThreads / 32 - 1) / (kThreads / 32);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const float*>(q);
   const auto* kk = static_cast<const float*>(k);
   const auto* vv = static_cast<const float*>(v);
   const auto* ss = static_cast<const int32_t*>(seg);
+  const auto* oo = static_cast<const float*>(o);
   const auto* ll = static_cast<const float*>(lse);
   const auto* gg = static_cast<const float*>(dO);
-  auto* dl = static_cast<float*>(delta);
-  delta_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-      gg, static_cast<const float*>(o), dl, n, L, H, hd);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   auto* a = static_cast<float*>(dq);
   auto* b = static_cast<float*>(dk);
   auto* c = static_cast<float*>(dv);
+  const bool vec = hd % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(o) && aligned16(dO) &&
+                   aligned16(dq) && aligned16(dk) && aligned16(dv);
+  if (segment_attention_bwd_route(L, hd, vec) == 0) {
+    const long long grid = (long long)R * H;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    cudaError_t e = max_smem_once(
+        g_one_once, one_cta_kernel,
+        (int)one_smem_bytes(kOneMaxL, row_pitch(kOneMaxHd)));
+    if (e != cudaSuccess) return (int)e;
+    one_cta_kernel<<<(unsigned)grid, kOneThreads,
+                     one_smem_bytes(L, row_pitch(hd)), st>>>(
+        qq, kk, vv, ss, oo, ll, gg, a, b, c, L, H, hd, scale_div,
+        1.0f / (float)L);
+    return (int)cudaGetLastError();
+  }
   if (hd <= 64) {
     if (L <= 32)
-      return (int)launch_tiles<32, 4>(qq, kk, vv, ss, ll, dl, gg, a, b, c, R,
-                                      L, H, hd, scale_div, st);
-    return (int)launch_tiles<64, 4>(qq, kk, vv, ss, ll, dl, gg, a, b, c, R, L,
-                                    H, hd, scale_div, st);
+      return (int)launch_tiled<32, 1>(qq, kk, vv, ss, oo, ll, gg, a, b, c, R,
+                                      L, H, hd, scale_div, vec, st);
+    return (int)launch_tiled<64, 1>(qq, kk, vv, ss, oo, ll, gg, a, b, c, R,
+                                    L, H, hd, scale_div, vec, st);
   }
-  if (hd <= 128) {
-    if (L <= 32)
-      return (int)launch_tiles<32, 8>(qq, kk, vv, ss, ll, dl, gg, a, b, c, R,
-                                      L, H, hd, scale_div, st);
-    return (int)launch_tiles<64, 8>(qq, kk, vv, ss, ll, dl, gg, a, b, c, R, L,
-                                    H, hd, scale_div, st);
-  }
-  return (int)launch_tiles<32, 16>(qq, kk, vv, ss, ll, dl, gg, a, b, c, R, L,
-                                   H, hd, scale_div, st);
+  if (hd <= 128)
+    return (int)launch_tiled<32, 2>(qq, kk, vv, ss, oo, ll, gg, a, b, c, R, L,
+                                    H, hd, scale_div, vec, st);
+  return (int)launch_tiled<32, 4>(qq, kk, vv, ss, oo, ll, gg, a, b, c, R, L,
+                                  H, hd, scale_div, vec, st);
 }

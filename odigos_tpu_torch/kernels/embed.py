@@ -23,12 +23,16 @@ is the backward pass of the table gathers (``csrc/span_embed_bwd.cu``),
 f32: each table's gradient row is the sum of ``dy`` over the live slots
 (segment > 0) that gathered it, the ids clamped as the forward clamps
 them: the service table from columns 0 and 4, name, kind, status, the
-attribute table from every attribute slot, and the positional table. A
-sort-and-segment route (a stable counting sort of each table's entries,
-then a CTA a table row summing its run in f64 in a fixed order, rounded
-once): no atomics on the sums, so a step is reproducible. It returns an
-:class:`EmbedGrads`; the continuous projection's gradient is the caller's
-(two small matrix products). A CPU tensor takes
+attribute table from every attribute slot, and the positional table. One
+launch: a CTA of 32 warps takes 32 rows of a table, sorts the table's
+entries of those rows stably by all its warps (per-warp counts of
+contiguous entry chunks, a scan over (row, warp)), then sums them in f64
+in a fixed order, a hot row cut across warps and its parts added in
+order, each row rounded once; rows no slot gathered are written as zeros.
+No atomics on the sums, so a step is reproducible. It returns an
+:class:`EmbedGrads` whose tables are views of one buffer; the continuous
+projection's gradient is the caller's (two small matrix products). The
+entry lists' scratch is cached per device and stream. A CPU tensor takes
 :func:`span_embed_bwd_plain` (``index_add_`` in f64, rounded once);
 ``bwd_launches`` counts the calls that launched.
 """
@@ -54,8 +58,15 @@ launches = 0
 bwd_launches = 0
 _count_lock = threading.Lock()
 _fn = None
-_bwd_fn = None
-MAX_BWD_ROWS = 49152  # a table's rows K18 takes (its shared histogram)
+_bwd_fns: dict = {}
+# a table's rows K18 takes: each of a table's CTAs (32 rows) reads all its
+# ids, so the ids are read rows / 32 times
+MAX_BWD_ROWS = 49152
+# (N, C, d, meta) -> (the meta as a ctypes array, gradient elements, int32
+# scratch elements)
+_bwd_plans: dict = {}
+# (device index, stream) -> the int32 entry-list scratch
+_bwd_scratch: dict = {}
 
 
 @dataclass(frozen=True)
@@ -279,15 +290,53 @@ def span_embed_bwd_plain(dy: torch.Tensor, categorical: torch.Tensor,
     return EmbedGrads(**grads)
 
 
-def _bwd_kernel():
-    global _bwd_fn
-    if _bwd_fn is None:
-        fn = build.load("span_embed_bwd").span_embed_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        _bwd_fn = fn
-    return _bwd_fn
+def _bwd_kernel(name: str = "span_embed_bwd_launch"):
+    fn = _bwd_fns.get(name)
+    if fn is None:
+        lib = build.load("span_embed_bwd")
+        fn = getattr(lib, name)
+        if name == "span_embed_bwd_launch":
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+            fn.restype = ctypes.c_int
+        else:
+            fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p,
+                           ctypes.POINTER(ctypes.c_longlong)]
+            fn.restype = ctypes.c_longlong
+        _bwd_fns[name] = fn
+    return fn
+
+
+def _bwd_plan(N: int, C: int, d: int, meta: tuple):
+    """K18's launch plan for these shapes and tables (cached): the meta as
+    a ctypes array, the gradients' f32 elements, the scratch's int32
+    elements."""
+    key = (N, C, d, meta)
+    plan = _bwd_plans.get(key)
+    if plan is None:
+        arr = (ctypes.c_int * len(meta))(*meta)
+        order = ctypes.c_longlong(0)
+        elems = _bwd_kernel("span_embed_bwd_sizes")(
+            N, d, len(meta) // 6, ctypes.cast(arr, ctypes.c_void_p),
+            ctypes.byref(order))
+        if elems < 0:
+            raise ValueError(f"span_embed_bwd refuses these tables: {meta}")
+        plan = (arr, elems, order.value)
+        _bwd_plans[key] = plan
+    return plan
+
+
+def _bwd_order(dev: torch.device, stream, n: int) -> torch.Tensor:
+    """K18's cached int32 entry-list scratch of at least ``n`` elements on
+    ``dev`` for ``stream`` (every element the kernel reads it writes
+    first)."""
+    key = (dev.index, stream.cuda_stream)
+    buf = _bwd_scratch.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+        _bwd_scratch[key] = buf
+    return buf
 
 
 def span_embed_bwd(dy: torch.Tensor, categorical: torch.Tensor,
@@ -317,36 +366,36 @@ def span_embed_bwd(dy: torch.Tensor, categorical: torch.Tensor,
     if not dy.is_contiguous():
         raise ValueError("span_embed_bwd needs a contiguous dy")
     specs = _bwd_tables(categorical, tables)
-    N = R * L
-    grads, starts, orders, meta = {}, [], [], []
-    for name, tab, clamp, first, step, ncols, use_pos in specs:
-        rows = tab.shape[0]
-        if rows > MAX_BWD_ROWS:
+    for name, tab, *_ in specs:
+        if tab.shape[0] > MAX_BWD_ROWS:
             raise ValueError(f"span_embed_bwd takes tables of up to "
-                             f"{MAX_BWD_ROWS} rows; {name} has {rows}")
-        grads[name] = torch.empty((rows, d), dtype=torch.float32,
-                                  device=dev)
-        starts.append(torch.empty(rows + 1, dtype=torch.int32, device=dev))
-        orders.append(torch.empty(max(N * ncols, 1), dtype=torch.int32,
-                                  device=dev))
-        meta += [rows, clamp, first, step, ncols, use_pos]
-    grads.setdefault("attr", None)
+                             f"{MAX_BWD_ROWS} rows; {name} has "
+                             f"{tab.shape[0]}")
+    N = R * L
+    rows = [tab.shape[0] for _, tab, *_ in specs]
     if N == 0:
-        for g in grads.values():
-            if g is not None:
-                g.zero_()
+        grads = {name: torch.zeros((n, d), dtype=torch.float32, device=dev)
+                 for (name, *_), n in zip(specs, rows)}
+        grads.setdefault("attr", None)
         return EmbedGrads(**grads)
-    n = len(specs)
-    ptrs = [grads[name].data_ptr() for name, *_ in specs]
+    meta = tuple(x for (_, tab, clamp, first, step, ncols, use_pos)
+                 in specs for x in (tab.shape[0], clamp, first, step, ncols,
+                                    use_pos))
+    arr, elems, order_n = _bwd_plan(N, C, d, meta)
+    flat = torch.empty(elems, dtype=torch.float32, device=dev)
+    grads, at = {}, 0
+    for (name, *_), n in zip(specs, rows):
+        grads[name] = flat[at:at + n * d].view(n, d)
+        at += n * d
+    grads.setdefault("attr", None)
     fn = _bwd_kernel()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        order = _bwd_order(dev, stream, order_n)
         rc = fn(dy.data_ptr(), categorical.data_ptr(), positions.data_ptr(),
-                segments.data_ptr(), N, C, d, n,
-                (ctypes.c_longlong * n)(*ptrs),
-                (ctypes.c_longlong * n)(*(t.data_ptr() for t in starts)),
-                (ctypes.c_longlong * n)(*(t.data_ptr() for t in orders)),
-                (ctypes.c_int * (6 * n))(*meta),
-                torch.cuda.current_stream(dev).cuda_stream)
+                segments.data_ptr(), N, C, d, len(specs),
+                ctypes.cast(arr, ctypes.c_void_p), flat.data_ptr(),
+                order.data_ptr(), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"span_embed_bwd launch failed: CUDA error {rc}")
     with _count_lock:

@@ -1857,6 +1857,48 @@ def test_k16_attention_bwd_matches_plain(dev, R, L, H, hd):
         _close(a, b, BWD_ATTN_RTOL, what)
 
 
+@pytest.mark.parametrize("hd", [4, 64, 100, 128, 256])
+@pytest.mark.parametrize("L", [1, 32, 33, 64, 128, 1024])
+@pytest.mark.parametrize("padding_do", [False, True])
+def test_k16_routes_lengths_widths_and_padding_do(dev, L, hd, padding_do):
+    """K16 on both routes (one CTA a (row, head) up to L 64, hd 128; the
+    tiled grid past that) with an all-padding row and padding queries'
+    dO zero (the trainers') or not: within the plain bound, one launch a
+    call, and a second call bit-equal."""
+    R = max(2, min(6, 4096 // L))
+    q, k, v, seg, do = _attn_inputs(dev, R, L, 2, hd, seed=L + hd)
+    if padding_do:
+        g = torch.Generator().manual_seed(L * hd)
+        do = torch.randn(R, L, 2, hd, generator=g).to(dev)
+    lse = torch.empty(R, 2, L, device=dev)
+    o = segment_attention(q, k, v, seg, lse=lse)
+    before = attention.bwd_launches
+    got = attention.segment_attention_bwd(q, k, v, seg, o, lse, do)
+    again = attention.segment_attention_bwd(q, k, v, seg, o, lse, do)
+    assert attention.bwd_launches == before + 2
+    ref = attention.segment_attention_bwd_plain(q, k, v, seg, o, lse, do)
+    want = "one_cta" if (L <= attention.BWD_ONE_CTA_MAX_L
+                         and hd <= attention.BWD_ONE_CTA_MAX_HD
+                         and hd % 4 == 0) else "tiled"
+    assert attention.bwd_route(L, hd, q, k, v, o, do) == want
+    for a, b, r, what in zip(got, again, ref, ("dq", "dk", "dv")):
+        if L == 1 and what != "dv":
+            # a live query's only key is itself: P = 1 and dS = dP - Delta
+            # is the rounding of dO . v, so dq and dk are rounding noise;
+            # hold them to the size of the terms that cancel
+            top = (do.abs().max() * v.abs().max() * hd
+                   * torch.maximum(q.abs().max(), k.abs().max())
+                   / math.sqrt(hd)).item()
+            assert (a - r).abs().max().item() <= BWD_ATTN_RTOL * top, what
+        else:
+            _close(a, r, BWD_ATTN_RTOL, what)
+        assert torch.equal(a, b), what
+    pad = seg == 0
+    assert (got[0][pad] == 0).all() and (got[1][pad] == 0).all()
+    if not padding_do:
+        assert (got[2][pad] == 0).all()
+
+
 def test_serving_launches_unchanged_by_the_training_outputs(dev):
     """K1 with and without its log-sum-exp, and K15's GELU with and
     without its pre-activation, write the same bits; bf16 takes neither."""
@@ -1969,6 +2011,43 @@ def test_k18_span_embed_bwd_matches_plain(dev, attr_slots):
             assert a is None
             continue
         _close(a, r, BWD_EXACT_RTOL, name)
+
+
+@pytest.mark.parametrize("d", [256, 42])
+@pytest.mark.parametrize("R,L", [(64, 32), (512, 64)])
+def test_k18_attr_table_hot_row_and_clamped_ids(dev, d, R, L):
+    """K18 with the attr table, one status row holding every live slot
+    (a hot row cut across many warps) and ids past every clamp, at d 256
+    (16-byte vectors) and 42 (scalar columns), at the trainer's 2048 slots
+    and at 32768: every table bit-equal to the plain version, one launch a
+    call, a second call bit-equal."""
+    g = torch.Generator().manual_seed(d + R)
+
+    def tab(n):
+        return torch.randn(n, d, generator=g).to(dev)
+
+    tables = EmbedTables(service=tab(512), name=tab(2048), kind=tab(8),
+                         status=tab(4), attr=tab(30),
+                         cont_w=torch.zeros(d, 3, device=dev),
+                         cont_b=torch.zeros(d, device=dev), pos=tab(L))
+    C = embed.N_BASE_FIELDS + 3
+    cat = torch.randint(-5, 5000, (R, L, C), generator=g, dtype=torch.int32)
+    cat[..., 3] = 1  # the hot row
+    seg = (torch.rand(R, L, generator=g) < 0.4).to(torch.int32) * \
+        torch.randint(1, 4, (R, L), generator=g, dtype=torch.int32)
+    seg[-1] = 0
+    pos = (torch.arange(L, dtype=torch.int32) + 7).expand(R, L).contiguous()
+    dy = torch.randn(R, L, d, generator=g)
+    cat, seg, pos, dy = (t.to(dev) for t in (cat, seg, pos, dy))
+    before = embed.bwd_launches
+    got = embed.span_embed_bwd(dy, cat, pos, seg, tables)
+    again = embed.span_embed_bwd(dy, cat, pos, seg, tables)
+    assert embed.bwd_launches == before + 2
+    ref = embed.span_embed_bwd_plain(dy, cat, pos, seg, tables)
+    for name in ("service", "name", "kind", "status", "attr", "pos"):
+        a, b, r = (getattr(x, name) for x in (got, again, ref))
+        assert torch.equal(a, r), name
+        assert torch.equal(a, b), name
 
 
 def test_training_step_on_the_card_runs_no_plain_backward(dev, monkeypatch):

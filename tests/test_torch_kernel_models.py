@@ -1,4 +1,4 @@
-"""Host models of K22's and K17's kernels, on the CPU.
+"""Host models of K22's, K17's, K16's and K18's kernels, on the CPU.
 
 The CUDA kernels run only on the card; what their designs claim about
 numbers and indices is checked here, in numpy, against the plain versions
@@ -20,7 +20,17 @@ numbers and indices is checked here, in numpy, against the plain versions
   from the source), the scratch's layout, and the column sums taken in
   the kernel's order (rows grid-strided over warps, warps in order within
   a CTA, CTAs in order within a group of 16, groups in order) bit-equal
-  to ``ln_bwd_plain``'s; the wrapper's cached scratch.
+  to ``ln_bwd_plain``'s; the wrapper's cached scratch;
+* K16 ``segment_attention_bwd`` (``csrc/segment_attention_bwd.cu``): each
+  output's f32 chain in the one-CTA route's order (the live list's
+  same-segment entries, padding queries only where some padding dO is
+  nonzero) bit-equal to the parent's chain over every slot, and both
+  within 1e-4 of ``segment_attention_bwd_plain``; the route's limit read
+  from the source's constants; the tiled route's tile skip;
+* K18 ``span_embed_bwd`` (``csrc/span_embed_bwd.cu``): the stable order
+  built by all of a CTA's warps equal to the one-warp order, and the
+  kernel's sums (runs a warp, cut rows' parts in run order) bit-equal to
+  ``span_embed_bwd_plain``, with the attr table and clamped ids.
 """
 
 import re
@@ -30,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from odigos_tpu_torch.kernels import dense
+from odigos_tpu_torch.kernels import attention, dense, embed
 from odigos_tpu_torch.kernels import ring as kring
 
 CSRC = Path(kring.__file__).parent / "csrc"
@@ -414,3 +424,328 @@ def test_k17_scratch_is_cached_zeroed_and_grown():
     finally:
         dense._ln_bwd_scratch.clear()
         dense._ln_bwd_scratch.update(saved)
+
+
+# ------------------------------------------------------------------- K16
+# f32 fmaf on the host: the f64 product of two f32 values is exact, so one
+# f64 add and the cast give the f32 chain both orders below share
+def _fma(a, b, c):
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _pitch(hd: int) -> int:
+    """``row_pitch`` of ``csrc/segment_attention_bwd.cu``."""
+    hp = (hd + 3) & ~3
+    return hp if hp % 8 == 4 else hp + 4
+
+
+def _k16_inputs(R, L, H, hd, seed, padding_do):
+    """Rows of several segments (contiguous, then one interleaved row), an
+    all-padding last row; dO zero at padding slots, or not; O and the LSE
+    from the plain forward."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((R, L, H, hd)).astype(np.float32)
+                   for _ in range(4))
+    seg = np.zeros((R, L), np.int32)
+    for r in range(R - 1):
+        n = 1 + (r * 7 + L // 2) % L
+        seg[r, :n] = np.arange(n) // max(1, n // 3) + 1
+    seg[0, : L - 3] = np.arange(L - 3) % 3 + 1  # interleaved segments
+    if not padding_do:
+        do = do * (seg > 0)[..., None, None]
+    lse = torch.empty(R, H, L)
+    o = attention.segment_attention_plain(
+        *(torch.from_numpy(t) for t in (q, k, v, seg)), lse)
+    return q, k, v, seg, o.numpy(), lse.numpy(), do.astype(np.float32)
+
+
+def _k16_model(q, k, v, seg, o, lse, do, kernel_order: bool):
+    """(dq, dk, dv) as one f32 chain each: the parent's order over every
+    slot (``kernel_order`` False), or the redesign's, which leaves out the
+    masked pairs and, where no padding query's dO is nonzero, the padding
+    queries (one-CTA route: the live list's same-segment entries)."""
+    R, L, H, hd = q.shape
+    sd = np.float32(attention._scale_div(hd, torch.float32))
+    Q, K, V, O, DO = (t.transpose(0, 2, 1, 3) for t in (q / sd, k, v, o, do))
+    S = np.zeros((R, H, L, L), np.float32)
+    DP = np.zeros_like(S)
+    for d in range(hd):
+        S = _fma(Q[..., :, None, d], K[..., None, :, d], S)
+        DP = _fma(DO[..., :, None, d], V[..., None, :, d], DP)
+    live = seg > 0
+    allowed = ((seg[:, :, None] == seg[:, None, :])
+               & live[:, :, None])[:, None]
+    with np.errstate(over="ignore"):  # masked pairs, dropped below
+        e = np.exp((S - lse[..., None]).astype(np.float32))
+    P = np.where(allowed, e, np.float32(0)).astype(np.float32)
+    P = np.where(live[:, None, :, None], P,
+                 np.float32(1) / np.float32(L)).astype(np.float32)
+    prod = (DO * O).astype(np.float32)  # __fmul_rn
+    lanes = np.zeros((R, H, L, 32))
+    for d in range(hd):  # lane d % 32 adds d, d + 32, ... in order
+        lanes[..., d % 32] += prod[..., d].astype(np.float64)
+    for x in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., np.arange(32) ^ x]
+    delta = lanes[..., 0].astype(np.float32)
+    DS = np.where(allowed, P * (DP - delta[..., None]),
+                  np.float32(0)).astype(np.float32)
+    pad_nz = ((~live)[:, None, :] & (DO != 0).any(-1)).any(-1)  # (R, H)
+    dq = np.zeros((R, H, L, hd), np.float32)
+    dk = np.zeros_like(dq)
+    dv = np.zeros_like(dq)
+    for j in range(L):  # dq over keys ascending
+        t = _fma(DS[..., :, j, None], K[..., j, None, :], dq)
+        dq = np.where(allowed[..., :, j, None], t, dq) if kernel_order else t
+    for i in range(L):  # dk, dv over queries ascending
+        tk = _fma(DS[..., i, :, None], Q[..., i, None, :], dk)
+        tv = _fma(P[..., i, :, None], DO[..., i, None, :], dv)
+        if kernel_order:
+            tk = np.where(allowed[..., i, :, None], tk, dk)
+            keep = allowed[..., i, :, None] | (
+                ~live[:, None, i, None, None] & pad_nz[..., None, None])
+            tv = np.where(keep, tv, dv)
+        dk, dv = tk, tv
+    dq = (dq / sd).astype(np.float32)
+    return tuple(t.transpose(0, 2, 1, 3) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("L,H,hd", [(32, 4, 64), (32, 2, 64), (33, 2, 12),
+                                    (64, 1, 8)])
+@pytest.mark.parametrize("padding_do", [False, True])
+def test_k16_kernel_order_is_bit_equal_to_the_parent_order(L, H, hd,
+                                                           padding_do):
+    """K16's redesign leaves out only exactly-zero terms (masked pairs,
+    padding queries whose dO is zero): every output bit-equal to the
+    parent's chain over every slot, on rows of several segments, an
+    interleaved row, an all-padding row, padding dO zero and nonzero; both
+    within the card's 1e-4 of ``segment_attention_bwd_plain``."""
+    ins = _k16_inputs(5, L, H, hd, seed=L * hd + padding_do,
+                      padding_do=padding_do)
+    parent = _k16_model(*ins, kernel_order=False)
+    new = _k16_model(*ins, kernel_order=True)
+    ref = attention.segment_attention_bwd_plain(
+        *(torch.from_numpy(np.ascontiguousarray(t)) for t in ins))
+    for a, b, r, what in zip(parent, new, ref, ("dq", "dk", "dv")):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), what
+        lim = 1e-4 * r.abs().max().item()
+        assert np.abs(b - r.numpy()).max() <= lim, what
+    if not padding_do:  # the trainers' path: padding rows exactly zero
+        pad = ins[3] == 0
+        for t in new:
+            assert (t[pad] == 0).all()
+
+
+def test_k16_one_cta_limit_and_routes_read_from_the_source():
+    """The one-CTA route's limit (the source's constants, the wrapper's):
+    its staged tiles, P and dS fit a CTA's shared memory at the limit, the
+    trainers' (L 32, hd 64) take it at four CTAs an SM; past the limit, at
+    hd % 4 != 0 or off 16 bytes the tiled route; pitches are an odd count
+    of 16-byte vectors (conflict-free) at every hd."""
+    src = "segment_attention_bwd.cu"
+    one_l, one_hd = _const(src, "kOneMaxL"), _const(src, "kOneMaxHd")
+    assert (one_l, one_hd) == (attention.BWD_ONE_CTA_MAX_L,
+                               attention.BWD_ONE_CTA_MAX_HD)
+    dyn = _const(src, "kDynLimit")
+
+    def one_smem(L, hd):
+        ld = _pitch(hd)
+        return (5 * L * ld + 2 * L * (L + 1) + 2 * L) * 4 + 4 * L * 4
+
+    assert one_smem(one_l, one_hd) <= dyn
+    assert 4 * (one_smem(32, 64) + 1024) <= 233472  # 228 KB an SM
+    t = torch.empty(64)
+    for L, hd, want in [(32, 64, "one_cta"), (1, 4, "one_cta"),
+                        (64, 128, "one_cta"), (65, 64, "tiled"),
+                        (32, 132, "tiled"), (32, 66, "tiled"),
+                        (128, 128, "tiled")]:
+        assert attention.bwd_route(L, hd, t) == want, (L, hd)
+    assert attention.bwd_route(32, 64, t[1:]) == "tiled"
+    for hd in range(1, attention.MAX_HD + 1):
+        ld = _pitch(hd)
+        assert ld >= hd and ld % 4 == 0 and (ld // 4) % 2 == 1
+
+
+def test_k16_tiled_plan_fits_and_skips_only_dead_tile_pairs():
+    """The tiled route: every instance's shared memory at L 1024 fits; a
+    tile pair its segment ranges call dead holds no allowed pair."""
+    src = "segment_attention_bwd.cu"
+    dyn, max_tiles = _const(src, "kDynLimit"), _const(src, "kMaxTiles")
+    for B, G in ((32, 1), (64, 1), (32, 2), (32, 4)):
+        ld = _pitch(64 * G)
+        smem = ((4 * B * ld + 2 * B * (B + 1) + 2 * B) * 4 + 1024 * 4
+                + 3 * max_tiles * 4)
+        assert smem <= dyn, (B, G)
+        assert 1024 // B <= max_tiles
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        L, B = int(rng.integers(33, 300)), int(rng.choice([32, 64]))
+        seg = np.sort(rng.integers(0, 12, L)).astype(np.int32)
+        rng.shuffle(seg[: L // 3])  # some rows are not sorted
+        nt = -(-L // B)
+        rng_lo, rng_hi = [], []
+        for t in range(nt):
+            s = seg[t * B:(t + 1) * B]
+            s = s[s > 0]
+            rng_lo.append(s.min() if s.size else 1 << 30)
+            rng_hi.append(s.max() if s.size else 0)
+        for a in range(nt):
+            for b in range(nt):
+                qa, kb = seg[a * B:(a + 1) * B], seg[b * B:(b + 1) * B]
+                live_pair = bool(((qa[:, None] == kb[None, :])
+                                  & (qa[:, None] > 0)).any())
+                overlap = (rng_lo[a] <= rng_hi[a] and rng_lo[b] <= rng_hi[b]
+                           and rng_lo[a] <= rng_hi[b]
+                           and rng_lo[b] <= rng_hi[a])
+                assert overlap or not live_pair
+
+
+# ------------------------------------------------------------------- K18
+def _k18_tables(d, attr, seed):
+    rng = np.random.default_rng(seed)
+
+    def tab(n):
+        return torch.from_numpy(rng.standard_normal((n, d)).astype(
+            np.float32))
+
+    return embed.EmbedTables(
+        service=tab(100), name=tab(70), kind=tab(8), status=tab(4),
+        attr=tab(10) if attr else None, cont_w=tab(d).T[:, :3].contiguous()
+        if False else torch.zeros(d, 3), cont_b=torch.zeros(d),
+        pos=tab(32))
+
+
+def _k18_inputs(R, L, d, attr_slots, seed):
+    """Ids past every clamp and below zero, a status column nearly all one
+    row (the hot row), padding slots and an all-padding row."""
+    rng = np.random.default_rng(seed)
+    C = embed.N_BASE_FIELDS + attr_slots
+    cat = rng.integers(-3, 120, (R, L, C)).astype(np.int32)
+    cat[..., 3] = np.where(rng.random((R, L)) < 0.9, 1, cat[..., 3])
+    pos = np.broadcast_to(np.arange(L, dtype=np.int32) + 2, (R, L)).copy()
+    seg = (rng.random((R, L)) < 0.4).astype(np.int32) * rng.integers(
+        1, 4, (R, L)).astype(np.int32)
+    seg[-1] = 0
+    dy = rng.standard_normal((R, L, d)).astype(np.float32)
+    return dy, cat, pos, seg
+
+
+def _k18_entry_ids(cat, pos, seg, spec):
+    """Each entry's row id (-1 at a padding slot) and slot, in entry order:
+    column by column, slots ascending."""
+    _, tab, clamp, first, step, ncols, use_pos = spec
+    N = seg.size
+    live = seg.reshape(-1) > 0
+    cols = [pos.reshape(-1)] if use_pos else [
+        cat.reshape(N, -1)[:, first + j * step] for j in range(ncols)]
+    ids = np.concatenate([np.clip(c, 0, clamp - 1) for c in cols])
+    ids = np.where(np.tile(live, len(cols)), ids, -1)
+    return ids, np.tile(np.arange(N), len(cols))
+
+
+def _k18_cta_list(ids, slots, r0, nrows, warps):
+    """The kernel's sort for the CTA of rows [r0, r0 + nrows): per-warp
+    counts of contiguous entry chunks, an exclusive scan over (row, warp),
+    the fill; and the count of entries below r0."""
+    E = ids.size
+    chunk = -(-E // warps)
+    counts = np.zeros((nrows, warps), np.int64)
+    in_blk = (ids >= r0) & (ids < r0 + nrows)
+    for w in range(warps):
+        sel = ids[w * chunk:(w + 1) * chunk]
+        sel = sel[(sel >= r0) & (sel < r0 + nrows)] - r0
+        np.add.at(counts[:, w], sel, 1)
+    place = (np.cumsum(counts.reshape(-1)) - counts.reshape(-1)).reshape(
+        nrows, warps)
+    out = np.full(int(in_blk.sum()), -1, np.int64)
+    for w in range(warps):
+        for e in range(w * chunk, min(E, (w + 1) * chunk)):
+            if in_blk[e]:
+                row = ids[e] - r0
+                out[place[row, w]] = slots[e]
+                place[row, w] += 1
+    below = int(((ids >= 0) & (ids < r0)).sum())
+    rstart = np.concatenate([[0], np.cumsum(counts.sum(1))])
+    return out, below, rstart
+
+
+def _k18_model(dy, cat, pos, seg, tables):
+    """Each table's gradient as the kernel sums it: the CTA's list cut
+    into a run a warp, f64 sums in list order, whole rows rounded once,
+    cut rows' parts added in run order by the run holding the row's first
+    entry."""
+    warps = _const("span_embed_bwd.cu", "kThreads") // 32
+    rows_cta = _const("span_embed_bwd.cu", "kRows")
+    d = dy.shape[-1]
+    flat = dy.reshape(-1, d).astype(np.float64)
+    out = {}
+    for spec in embed._bwd_tables(torch.from_numpy(cat), tables):
+        name, tab = spec[0], spec[1]
+        ids, slots = _k18_entry_ids(cat, pos, seg, spec)
+        g = np.zeros((tab.shape[0], d), np.float32)
+        for r0 in range(0, tab.shape[0], rows_cta):
+            nrows = min(rows_cta, tab.shape[0] - r0)
+            lst, _, rstart = _k18_cta_list(ids, slots, r0, nrows, warps)
+            M = lst.size
+            parts = {}
+            for w in range(warps):
+                lo, hi = M * w // warps, M * (w + 1) // warps
+                e = lo
+                while e < hi:
+                    row = int(np.searchsorted(rstart, e, side="right") - 1)
+                    end = min(rstart[row + 1], hi)
+                    acc = np.zeros(d)
+                    for x in range(e, end):
+                        acc = acc + flat[lst[x]]
+                    if e == rstart[row] and end == rstart[row + 1]:
+                        g[r0 + row] = acc.astype(np.float32)
+                    else:
+                        parts.setdefault(row, []).append(acc)  # run order
+                    e = end
+            for row, ps in parts.items():
+                acc = ps[0]
+                for p in ps[1:]:
+                    acc = acc + p
+                g[r0 + row] = acc.astype(np.float32)
+        out[name] = g
+    return out
+
+
+@pytest.mark.parametrize("attr_slots", [0, 3])
+def test_k18_all_warps_order_is_the_one_warp_order(attr_slots):
+    """Each CTA's list, built by all its warps, is the one-warp stable
+    order (entries by row, entry order within a row) of its rows, placed
+    after the entries of the rows below it."""
+    warps = _const("span_embed_bwd.cu", "kThreads") // 32
+    rows_cta = _const("span_embed_bwd.cu", "kRows")
+    assert rows_cta * warps == _const("span_embed_bwd.cu", "kThreads")
+    dy, cat, pos, seg = _k18_inputs(64, 32, 8, attr_slots, seed=attr_slots)
+    tables = _k18_tables(8, attr_slots > 0, seed=1)
+    for spec in embed._bwd_tables(torch.from_numpy(cat), tables):
+        ids, slots = _k18_entry_ids(cat, pos, seg, spec)
+        keep = ids >= 0
+        one_warp = slots[keep][np.argsort(ids[keep], kind="stable")]
+        rows = spec[1].shape[0]
+        for r0 in range(0, rows, rows_cta):
+            lst, below, _ = _k18_cta_list(ids, slots, r0,
+                                          min(rows_cta, rows - r0), warps)
+            assert np.array_equal(lst, one_warp[below:below + lst.size]), \
+                (spec[0], r0)
+
+
+@pytest.mark.parametrize("attr_slots", [0, 3])
+@pytest.mark.parametrize("d", [8, 24, 42])
+def test_k18_kernel_sums_are_bit_equal_to_plain(attr_slots, d):
+    """The kernel's runs, cut rows and parts (a hot status row summed by
+    many warps), with the attr table and ids past every clamp: every table
+    bit-equal to ``span_embed_bwd_plain``."""
+    dy, cat, pos, seg = _k18_inputs(64, 32, d, attr_slots, seed=d)
+    tables = _k18_tables(d, attr_slots > 0, seed=2)
+    got = _k18_model(dy, cat, pos, seg, tables)
+    ref = embed.span_embed_bwd_plain(
+        *(torch.from_numpy(t) for t in (dy, cat, pos, seg)), tables)
+    names = ["service", "name", "kind", "status", "pos"] + (
+        ["attr"] if attr_slots else [])
+    assert sorted(got) == sorted(names)
+    for name in names:
+        assert torch.equal(torch.from_numpy(got[name]), getattr(ref, name)), \
+            name

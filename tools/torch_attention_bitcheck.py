@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""K1's CUDA-core routes, K22 and K17, built from another copy of their
-sources, against the repo's own build: bit for bit where the arithmetic is
-meant to be the same, within the plain bound where it is not, and timed.
+"""K1's CUDA-core routes, K22, K17, K16 and K18, built from another copy
+of their sources, against the repo's own build: bit for bit where the
+arithmetic is meant to be the same, within the plain bound where it is
+not, and timed.
 
-    python3 tools/torch_attention_bitcheck.py --old DIR
+    python3 tools/torch_attention_bitcheck.py --old DIR [--only a,b]
 
-``DIR`` holds ``segment_attention.cu``, ``ring_attention.cu`` and
-``ln_bwd.cu`` as they stood before a change (with the headers they
-include), for example ``git archive <commit>
-odigos_tpu_torch/kernels/csrc`` unpacked. The tool builds both copies
-with the repo's ``nvcc`` flags, runs each on the same inputs from a seed
-on the card, and compares:
+``DIR`` holds ``segment_attention.cu``, ``ring_attention.cu``,
+``ln_bwd.cu``, ``segment_attention_bwd.cu`` and ``span_embed_bwd.cu`` as
+they stood before a change (with the headers they include), for example
+``git archive <commit> odigos_tpu_torch/kernels/csrc`` unpacked;
+``--only`` names the sources to check (default: all five). The tool
+builds both copies with the repo's ``nvcc`` flags (each launcher bound by
+the symbols its library exports), runs each on the same inputs from a
+seed on the card, and compares:
 
 * K1 ``segment_attention`` route 3 (the tiled CUDA-core kernel; hd 8 to
   256, L up to 1024, padding slots) and route 0 (the one-tile kernel), f32
@@ -27,14 +30,28 @@ on the card, and compares:
 * K17 ``ln_bwd``: (dx, dgamma, dbeta) bit for bit on the card tests'
   sweep (d 1 to 1024, rows 1 to 50000, random rows with a zero padding
   row) and on every LayerNorm gradient of one training step of the
-  transformer and of the autoencoder (the smoke run's steps).
+  transformer and of the autoencoder (the smoke run's steps);
+* K16 ``segment_attention_bwd``: (dq, dk, dv) bit for bit on every
+  attention gradient of one training step of each trainer (4 layers of
+  (64, 32, 4, 64), 2 of (64, 32, 2, 64)), on more one-CTA-route shapes
+  (L 1 to 64, hd 4 to 128, an all-padding row, padding dO zero and not),
+  and on tiled-route shapes (L 40 to 1024, hd 30 to 256, the smoke's
+  packed L 128 rows), each also within ``K16_RTOL`` of the plain version
+  and a second call bit-equal;
+* K18 ``span_embed_bwd``: every table bit for bit on each trainer's step
+  and on random slots with the attr table, a hot row holding every live
+  slot and ids past every clamp (d 256, 128, 42), and bit-equal to the
+  plain version.
 
 Then it times the two builds (``chip_smoke.device_ms``: L2 flushed, the
 host's enqueue kept out; in the order old, new, new, old) on K22 at the
 smoke run's one block (2, 8192, 4, 64), one ring step (4096 x 4096), the
 8-block ring at L 32768 (64 launches, every rank's blocks in the
 reference's order) and at D 256, K1's tiled f32 kernel at R 256, L 1024,
-and K17 at the trainers' shapes. Prints the card's name and power limit,
+K17 at the trainers' shapes, K16 at both trainers' steps and at the
+tiled route's (50, 128, 2, 128), and K18 at both trainers' steps (each
+beside its library call: the backward of f32 SDPA under the same mask,
+``index_add_`` per table). Prints the card's name and power limit,
 the registers and spills ptxas reports for each build, one line a case,
 and a last line ``BITCHECK OK`` or ``BITCHECK FAILED n``; exits 1 on a
 failure.
@@ -53,7 +70,8 @@ from pathlib import Path
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-SOURCES = ("segment_attention", "ring_attention", "ln_bwd")
+SOURCES = ("segment_attention", "ring_attention", "ln_bwd",
+           "segment_attention_bwd", "span_embed_bwd")
 RING_RTOL = 1e-5  # the reference's ring bound, of the plain output's max
 K17_ROWS = (1, 63, 2048, 50000)
 K17_D = (1, 33, 128, 256, 1000, 1024)
@@ -81,6 +99,29 @@ def _bind(lib: ctypes.CDLL, name: str):
         f = lib.segment_attention_launch
         f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                       + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+    elif name == "segment_attention_bwd":
+        f = lib.segment_attention_bwd_launch
+        new = hasattr(lib, "segment_attention_bwd_route")  # one launch
+        f.argtypes = ([ctypes.c_void_p] * (10 if new else 11)
+                      + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                              ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        return f, new
+    elif name == "span_embed_bwd":
+        f = lib.span_embed_bwd_launch
+        new = hasattr(lib, "span_embed_bwd_sizes")
+        f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                      + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p] * (4 if new else 5))
+        f.restype = ctypes.c_int
+        sizes = None
+        if new:
+            sizes = lib.span_embed_bwd_sizes
+            sizes.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p,
+                              ctypes.POINTER(ctypes.c_longlong)]
+            sizes.restype = ctypes.c_longlong
+        return f, sizes
     elif name == "ring_attention":
         f = lib.ring_block_attention_launch
         f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -100,17 +141,17 @@ def _bind(lib: ctypes.CDLL, name: str):
     return f
 
 
-def _builds(old_dir: Path, out: Path):
+def _builds(old_dir: Path, out: Path, names):
     from odigos_tpu_torch.kernels import build
 
     procs = {}
-    for name in SOURCES:
+    for name in names:
         so = out / f"old_{name}.so"
         procs[name] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
              str(old_dir / f"{name}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), so)
-    build.build(list(SOURCES))
+    build.build(list(names))
     old, new = {}, {}
     for name, (p, so) in procs.items():
         log, _ = p.communicate()
@@ -174,10 +215,312 @@ def _trainer_ln_inputs(dev) -> list:
     return seen
 
 
+def _trainer_bwd_inputs(dev) -> dict:
+    """Every argument tuple K16 and K18 are handed in one training step of
+    the transformer and of the autoencoder (the smoke run's steps)."""
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch import kernels
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.training import labeled_sequences
+
+    tcfg = TransformerConfig(max_len=chip_smoke.TRAIN_LEN,
+                             dtype=torch.float32)
+    tmodel = TraceTransformer(tcfg, device=dev, seed=0)
+    tdata = labeled_sequences(chip_smoke.TRAIN_TRACES - 1,
+                              max_len=chip_smoke.TRAIN_LEN, seed=0,
+                              pad_traces_to=chip_smoke.TRAIN_TRACES)
+    acfg = AutoencoderConfig(max_len=chip_smoke.TRAIN_LEN,
+                             dtype=torch.float32)
+    amodel = SpanAutoencoder(acfg, device=dev)
+    amodel.load_state_dict(autoencoder_state(acfg, 0))
+    adata = chip_smoke._ae_train_step_data(chip_smoke.TRAIN_TRACES - 1)
+    seen: dict = {}
+    saved = []
+    for mod, name in (("attention", "segment_attention_bwd"),
+                      ("embed", "span_embed_bwd")):
+        m = getattr(kernels, mod)
+        real = getattr(m, name)
+        saved.append((m, name, real))
+
+        def rec(*a, _real=real, _name=name, **k):
+            seen.setdefault(_name, []).append(
+                (seen["model"], [t.clone() if hasattr(t, "clone") else t
+                                 for t in a]))
+            return _real(*a, **k)
+
+        setattr(m, name, rec)
+    try:
+        for tag, model, loss in (
+                ("transformer", tmodel, lambda: tmodel.loss_fn(
+                    tdata.categorical, tdata.continuous, tdata.mask,
+                    tdata.span_labels, tdata.trace_labels)),
+                ("autoencoder", amodel, lambda: amodel.loss_fn(
+                    adata.categorical, adata.continuous, adata.mask))):
+            seen["model"] = tag
+            model.module.train()
+            loss().backward()
+            model.module.eval()
+    finally:
+        for m, name, real in saved:
+            setattr(m, name, real)
+    seen.pop("model")
+    return seen
+
+
+def _k16_k18_checks(old, new, only, dev, rng, randn, segments, same_bits,
+                    stream, flush, timed) -> tuple[int, int]:
+    """K16 and K18, old build against new: (failures, cases)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from odigos_tpu_torch.kernels import attention, embed
+
+    import numpy as np
+
+    fails = cases = 0
+    inputs = _trainer_bwd_inputs(dev)
+
+    def k16_call(lib, args, out):
+        fn, one_launch = lib
+        q, k, v, seg, o, lse, do = args[:7]
+        R, L, H, hd = q.shape
+        sd = attention._scale_div(hd, torch.float32)
+        head = [t.data_ptr() for t in (q, k, v, seg, o, lse, do)]
+        if not one_launch:
+            head.append(torch.empty((R, H, L), device=dev).data_ptr())
+        ptrs = head + [t.data_ptr() for t in out]
+
+        def run():
+            rc = fn(*ptrs, R, L, H, hd, sd, stream())
+            if rc != 0:
+                raise RuntimeError(f"K16 launch failed: {rc}")
+        return run
+
+    def k16_case(tag, args):
+        nonlocal fails, cases
+        q = args[0]
+        got = []
+        for lib in (old["segment_attention_bwd"],
+                    new["segment_attention_bwd"],
+                    new["segment_attention_bwd"]):
+            out = torch.empty((3,) + tuple(q.shape), device=dev)
+            k16_call(lib, args, out)()
+            torch.cuda.synchronize()
+            got.append(out)
+        ref = attention.segment_attention_bwd_plain(*args[:7])
+        bit_old = same_bits(got[0], got[1])
+        again = same_bits(got[1], got[2])
+        rel = max((a - b).abs().max().item() / (b.abs().max().item() or 1.0)
+                  for a, b in zip(got[1], ref))
+        R, L, H, hd = q.shape
+        route = attention.bwd_route(L, hd, *args[:7])
+        # bit-equal to the parent where both run the same chains (always,
+        # by design); within the bound everywhere
+        ok = (bit_old and again and rel <= chip_smoke.K16_RTOL
+              and bool(torch.isfinite(got[1]).all()))
+        cases, fails = cases + 1, fails + (not ok)
+        print("K16", tag, tuple(q.shape), route,
+              "bit-equal to old" if bit_old else "DIFFERS from old",
+              "second call bit-equal" if again else "SECOND CALL DIFFERS",
+              "vs plain", rel, "ok" if ok else "FAILED", flush=True)
+
+    def k16_random(R, L, H, hd, padding_do):
+        q, k, v, do = (randn(R, L, H, hd) for _ in range(4))
+        seg = segments(R, L)
+        seg[-1] = 0  # an all-padding row
+        if not padding_do:
+            do = do * (seg > 0)[..., None, None]
+        lse = torch.empty((R, H, L), device=dev)
+        o = attention.segment_attention(q, k, v, seg, lse)
+        return (q, k, v, seg, o, lse, do.contiguous())
+
+    def k18_call(lib, args):
+        fn, sizes = lib
+        dy, cat, pos, seg, tables = args[:5]
+        specs = embed._bwd_tables(cat, tables)
+        R, L, C = cat.shape
+        N, d = R * L, dy.shape[-1]
+        meta = [x for (_, tab, clamp, first, step, ncols, use_pos) in specs
+                for x in (tab.shape[0], clamp, first, step, ncols, use_pos)]
+        marr = (ctypes.c_int * len(meta))(*meta)
+        rows = [tab.shape[0] for _, tab, *_ in specs]
+        if sizes is not None:
+            on = ctypes.c_longlong(0)
+            elems = sizes(N, d, len(specs), ctypes.cast(marr,
+                                                        ctypes.c_void_p),
+                          ctypes.byref(on))
+            flat = torch.empty(elems, device=dev)
+            order = torch.empty(max(on.value, 1), dtype=torch.int32,
+                                device=dev)
+            outs = list(torch.split(flat, [n * d for n in rows]))
+            call = (dy.data_ptr(), cat.data_ptr(), pos.data_ptr(),
+                    seg.data_ptr(), N, C, d, len(specs),
+                    ctypes.cast(marr, ctypes.c_void_p), flat.data_ptr(),
+                    order.data_ptr())
+        else:
+            outs = [torch.empty(n * d, device=dev) for n in rows]
+            starts = [torch.empty(n + 1, dtype=torch.int32, device=dev)
+                      for n in rows]
+            orders = [torch.empty(max(N * sp[5], 1), dtype=torch.int32,
+                                  device=dev) for sp in specs]
+            n = len(specs)
+            keep = [(ctypes.c_longlong * n)(*(t.data_ptr() for t in ts))
+                    for ts in (outs, starts, orders)]
+            call = (dy.data_ptr(), cat.data_ptr(), pos.data_ptr(),
+                    seg.data_ptr(), N, C, d, n, *keep, marr)
+
+        def run():
+            rc = fn(*call, stream())
+            if rc != 0:
+                raise RuntimeError(f"K18 launch failed: {rc}")
+        return run, outs, (starts, orders) if sizes is None else order
+
+    def k18_case(tag, args):
+        nonlocal fails, cases
+        got = []
+        for lib in (old["span_embed_bwd"], new["span_embed_bwd"],
+                    new["span_embed_bwd"]):
+            run, outs, _keep = k18_call(lib, args)
+            run()
+            torch.cuda.synchronize()
+            got.append(torch.cat(outs))
+        ref = embed.span_embed_bwd_plain(*args[:5])
+        ref = torch.cat([getattr(ref, n).reshape(-1) for n in
+                         ("service", "name", "kind", "status", "attr", "pos")
+                         if getattr(ref, n) is not None])
+        ok = (same_bits(got[0], got[1]) and same_bits(got[1], got[2])
+              and same_bits(got[1], ref))
+        cases, fails = cases + 1, fails + (not ok)
+        print("K18", tag, tuple(args[0].shape), "bit-equal to old, a "
+              "second call and plain" if ok else "DIFFERS: FAILED",
+              flush=True)
+
+    def k18_random(R, L, d, attr_slots, hot):
+        tables = embed.EmbedTables(
+            service=randn(512, d), name=randn(2048, d), kind=randn(8, d),
+            status=randn(4, d), attr=randn(30, d) if attr_slots else None,
+            cont_w=torch.zeros(d, 3, device=dev),
+            cont_b=torch.zeros(d, device=dev), pos=randn(L, d))
+        C = embed.N_BASE_FIELDS + attr_slots
+        cat = torch.from_numpy(rng.integers(-3, 3000, (R, L, C)).astype(
+            np.int32)).to(dev)
+        seg = segments(R, L)
+        if hot:  # one status row holds every live slot
+            cat[..., 3] = 2
+        pos = torch.from_numpy(np.tile(np.arange(L, dtype=np.int32) + 3,
+                                       (R, 1))).to(dev)
+        return (randn(R, L, d), cat.contiguous(), pos, seg, tables)
+
+    if "segment_attention_bwd" in only:
+        for i, (model, args) in enumerate(inputs["segment_attention_bwd"]):
+            k16_case(f"{model} step input {i}", args)
+        for R, L, H, hd in [(64, 32, 4, 64), (64, 32, 2, 64), (16, 64, 4, 32),
+                            (7, 33, 3, 16), (3, 1, 2, 4), (5, 64, 2, 128),
+                            (9, 20, 2, 100), (50, 128, 2, 128),
+                            (8, 128, 2, 128), (4, 96, 2, 256),
+                            (2, 1024, 2, 64), (3, 200, 1, 40),
+                            (16, 64, 4, 30)]:
+            for padding_do in (False, True):
+                k16_case(f"random padding dO {padding_do}",
+                         k16_random(R, L, H, hd, padding_do))
+    if "span_embed_bwd" in only:
+        for i, (model, args) in enumerate(inputs["span_embed_bwd"]):
+            k18_case(f"{model} step input {i}", args)
+        for R, L, d, attr_slots, hot in [(64, 32, 256, 3, False),
+                                         (64, 32, 256, 0, True),
+                                         (300, 64, 128, 2, False),
+                                         (64, 32, 42, 1, True)]:
+            k18_case(f"random attr {attr_slots} hot {hot} d {d}",
+                     k18_random(R, L, d, attr_slots, hot))
+
+    def library_ms(tag, fn):
+        print(tag, "library device ms:",
+              chip_smoke.device_ms(fn, flush), flush=True)
+
+    if "segment_attention_bwd" in only:
+        pk_args = None
+        for model, args in inputs["segment_attention_bwd"]:
+            if pk_args is None or model != pk_args[0]:
+                pk_args = (model, args)
+                outs = [torch.empty((3,) + tuple(args[0].shape), device=dev)
+                        for _ in range(2)]
+                timed(f"K16 {model} step {tuple(args[0].shape)}",
+                      k16_call(old["segment_attention_bwd"], args, outs[0]),
+                      k16_call(new["segment_attention_bwd"], args, outs[1]))
+        from odigos_tpu_torch.features import pack_sequences
+        from odigos_tpu_torch.pdata import synthesize_traces
+
+        pk = pack_sequences(synthesize_traces(600, seed=21), max_len=128,
+                            pad_rows_to=lambda r: r + 2)
+        seg2 = torch.from_numpy(pk.segments).to(dev).contiguous()
+        R2, L2 = seg2.shape
+        g = torch.Generator().manual_seed(17)
+        q2, k2, v2, do2 = (torch.randn(R2, L2, 2, 128, generator=g).to(dev)
+                           for _ in range(4))
+        do2 = (do2 * (seg2 > 0)[..., None, None]).contiguous()
+        lse2 = torch.empty(R2, 2, L2, device=dev)
+        o2 = attention.segment_attention(q2, k2, v2, seg2, lse2)
+        targs = (q2, k2, v2, seg2, o2, lse2, do2)
+        k16_case("smoke tiled rows", targs)
+        outs = [torch.empty((3, R2, L2, 2, 128), device=dev)
+                for _ in range(2)]
+        timed(f"K16 tiled {(R2, L2, 2, 128)}",
+              k16_call(old["segment_attention_bwd"], targs, outs[0]),
+              k16_call(new["segment_attention_bwd"], targs, outs[1]))
+        for tag, (q, k, v, seg, o, lse, do) in (
+                ("transformer step", inputs["segment_attention_bwd"][0][1]
+                 [:7]), ("tiled", targs)):
+            segl = seg.long()
+            allowed = ((segl[:, :, None] == segl[:, None, :])
+                       & (segl[:, :, None] > 0))[:, None]
+            qt, kt, vt = (t.transpose(1, 2).detach().clone()
+                          .requires_grad_() for t in (q, k, v))
+            ot = F.scaled_dot_product_attention(qt, kt, vt,
+                                                attn_mask=allowed)
+            dot = do.transpose(1, 2)
+            library_ms(f"K16 {tag} (f32 SDPA backward)",
+                       lambda ot=ot, qt=qt, kt=kt, vt=vt, dot=dot:
+                       torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                           retain_graph=True))
+    if "span_embed_bwd" in only:
+        for model, args in inputs["span_embed_bwd"]:
+            runs = [k18_call(lib, args) for lib in (old["span_embed_bwd"],
+                                                    new["span_embed_bwd"])]
+            timed(f"K18 {model} step {tuple(args[0].shape)}",
+                  runs[0][0], runs[1][0])
+        dy, cat, pos, seg, tables = inputs["span_embed_bwd"][0][1][:5]
+        d = dy.shape[-1]
+        live = (seg > 0).reshape(-1)
+        c2 = cat.reshape(-1, cat.shape[-1]).long()
+        specs = [(tables.service, c2[:, 0], tables.service.shape[0]),
+                 (tables.service, c2[:, 4], tables.service.shape[0]),
+                 (tables.name, c2[:, 1], tables.name.shape[0]),
+                 (tables.kind, c2[:, 2], embed.KIND_VOCAB),
+                 (tables.status, c2[:, 3], embed.STATUS_VOCAB),
+                 (tables.pos, pos.reshape(-1).long(), tables.pos.shape[0])]
+        specs = [(t, ids.clamp(0, n - 1)[live]) for t, ids, n in specs]
+        dy_live = dy.reshape(-1, d)[live].contiguous()
+        library_ms("K18 transformer step (index_add_ x 6)",
+                   lambda: [torch.zeros_like(t).index_add_(0, ids, dy_live)
+                            for t, ids in specs])
+    return fails, cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, type=Path)
+    ap.add_argument("--only", default=",".join(SOURCES),
+                    help="comma-separated sources to check (default: all)")
     args = ap.parse_args()
+    only = [n for n in args.only.split(",") if n]
+    unknown = [n for n in only if n not in SOURCES]
+    if unknown:
+        ap.error(f"unknown sources {unknown} (known: {list(SOURCES)})")
 
     import numpy as np
     import torch
@@ -193,7 +536,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     with tempfile.TemporaryDirectory(prefix="bitcheck_") as tmp:
-        old, new = _builds(args.old.resolve(), Path(tmp))
+        old, new = _builds(args.old.resolve(), Path(tmp), only)
         dev = torch.device("cuda")
         rng = np.random.default_rng(0)
         scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -262,7 +605,8 @@ def main() -> int:
                     (3, (2, 130, 2, 100)), (3, (1, 1024, 2, 256)),
                     (3, (64, 256, 4, 64)), (0, (4, 64, 4, 64)),
                     (0, (3, 40, 2, 24))]
-        for route, shape in k1_cases:
+        for route, shape in (k1_cases if "segment_attention" in only
+                             else []):
             for dt in (torch.float32, torch.bfloat16):
                 q, k, v = (randn(*shape, dtype=dt) for _ in range(3))
                 seg = segments(*shape[:2])
@@ -287,10 +631,11 @@ def main() -> int:
                     torch.full((B, H, Lq), NEG_INF, device=dev),
                     torch.zeros((B, H, Lq), device=dev))
 
-        for B, Lq, Lk, H, D in [(2, 70, 130, 3, 4), (2, 70, 130, 3, 8),
-                                (2, 64, 100, 2, 16), (2, 100, 64, 4, 64),
-                                (2, 33, 257, 2, 100), (2, 70, 130, 3, 128),
-                                (1, 65, 129, 2, 256), (2, 4096, 4096, 4, 64)]:
+        for B, Lq, Lk, H, D in [] if "ring_attention" not in only else [
+                (2, 70, 130, 3, 4), (2, 70, 130, 3, 8), (2, 64, 100, 2, 16),
+                (2, 100, 64, 4, 64), (2, 33, 257, 2, 100),
+                (2, 70, 130, 3, 128), (1, 65, 129, 2, 256),
+                (2, 4096, 4096, 4, 64)]:
             for qdt in (torch.float32, torch.bfloat16):
                 q = randn(B, Lq, H, D, dtype=qdt)
                 blocks = []
@@ -352,7 +697,7 @@ def main() -> int:
             cases, fails = cases + 1, fails + (not ok)
             print("K17", tag, (rows, d), "bit-equal" if ok else "DIFFERS")
 
-        for d in K17_D:
+        for d in K17_D if "ln_bwd" in only else ():
             for rows in K17_ROWS:
                 x = randn(rows, d) * 3 + 1
                 dy = randn(rows, d)
@@ -360,7 +705,8 @@ def main() -> int:
                     x[-1] = 0.0  # a padding row
                     dy[-1] = 0.0
                 k17_case("sweep", x, randn(d), dy)
-        for i, (x, w, dy) in enumerate(_trainer_ln_inputs(dev)):
+        for i, (x, w, dy) in enumerate(_trainer_ln_inputs(dev)
+                                       if "ln_bwd" in only else []):
             d = x.shape[-1]
             k17_case(f"trainer input {i}", x.reshape(-1, d).contiguous(),
                      w.contiguous(), dy.reshape(-1, d).contiguous())
@@ -414,17 +760,26 @@ def main() -> int:
                              k17_part(lib["ln_bwd"], rows, d))
                     for lib in (old, new)]
 
-        timed("K22 one block (2, 8192, 4, 64)", *k22_pair(2, 8192, 8192, 4,
-                                                         64))
-        timed("K22 ring step (2, 4096, 4, 64) x 4096",
-              *k22_pair(2, 4096, 4096, 4, 64))
-        timed("K22 8-block ring L 32768 (64 launches)", *k22_ring(8, 4096),
-              reps=3)
-        timed("K22 D 256 (2, 4096, 2, 256)", *k22_pair(2, 4096, 4096, 2,
-                                                       256))
-        timed("K1 tiled f32 (256, 1024, 4, 64)", *k1_pair(256, 1024, 4, 64))
-        timed("K17 (2048, 256)", *k17_pair(2048, 256))
-        timed("K17 (2048, 128)", *k17_pair(2048, 128))
+        if "ring_attention" in only:
+            timed("K22 one block (2, 8192, 4, 64)",
+                  *k22_pair(2, 8192, 8192, 4, 64))
+            timed("K22 ring step (2, 4096, 4, 64) x 4096",
+                  *k22_pair(2, 4096, 4096, 4, 64))
+            timed("K22 8-block ring L 32768 (64 launches)",
+                  *k22_ring(8, 4096), reps=3)
+            timed("K22 D 256 (2, 4096, 2, 256)",
+                  *k22_pair(2, 4096, 4096, 2, 256))
+        if "segment_attention" in only:
+            timed("K1 tiled f32 (256, 1024, 4, 64)",
+                  *k1_pair(256, 1024, 4, 64))
+        if "ln_bwd" in only:
+            timed("K17 (2048, 256)", *k17_pair(2048, 256))
+            timed("K17 (2048, 128)", *k17_pair(2048, 128))
+        if "segment_attention_bwd" in only or "span_embed_bwd" in only:
+            n, c = _k16_k18_checks(old, new, only, dev, rng, randn,
+                                   segments, same_bits, stream, flush,
+                                   timed)
+            fails, cases = fails + n, cases + c
     print("BITCHECK", "OK" if fails == 0 else f"FAILED {fails}", "cases",
           cases)
     return 1 if fails else 0

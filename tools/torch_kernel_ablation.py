@@ -54,7 +54,16 @@ of a transformer and an autoencoder training step: no prefetch, one or
 four rows a warp, the launch alone, the rows without the column sums;
 K22 ``ring_block_attention`` at L 8192 and 4096 (B 2, H 4, D 64): 16
 queries a warp, 32-key tiles, P.V 32 dims at a time, ``expf``, the
-staging loop not unrolled.
+staging loop not unrolled; K16 ``segment_attention_bwd`` on a
+transformer and an autoencoder training step's first attention gradient
+(the one-CTA route) and on the smoke run's packed L 128 rows (the tiled
+route): the launch alone, cut off after the staging and after S/dP/P/dS,
+q/k/v/O staged at every slot (no dependent load), no zero stores at the
+padding rows, the tiled route's tile ranges alone, every tile pair
+walked, 64-slot tiles at hd 128; K18 ``span_embed_bwd`` on a transformer step's
+embedding gradient: the launch alone, the sort alone, CTAs of 16 warps,
+one CTA a small table (not four 64-column slabs), no zero rows, ids a
+batch at a time, 2 rows in flight.
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -584,11 +593,79 @@ VARIANTS = {
             "      for (int e = tid; e < KT * q4; e += kThreads) {"},
         "expf": {"exp2f(fmaf(sc[mt][j][2 * hf + c], sl, -mb))":
                  "expf(sc[mt][j][2 * hf + c] * scale - mn)"}},
+    # K16's one launch, cut off after each of its parts in turn (one-CTA
+    # route: the launch, the live list and staging, S/dP/P/dS; tiled: the
+    # tile ranges), and the tiled route's choices: every tile pair walked
+    # (no skip), 64-slot tiles at hd 128 (not 32)
+    "segment_attention_bwd": {
+        "launch_only": {
+            "  const int r = blockIdx.x / H;\n  const int h = blockIdx.x - r * H;":
+            "  if (L > 0) return;\n"
+            "  const int r = blockIdx.x / H;\n  const int h = blockIdx.x - r * H;"},
+        "staged_only": {"  // ---- Delta a warp a live query;":
+                        "  if (L > 0) return;\n"
+                        "  // ---- Delta a warp a live query;"},
+        "scores_only": {"  // ---- dQ, dK, dV at the live slots":
+                        "  if (L > 0) return;\n"
+                        "  // ---- dQ, dK, dV at the live slots"},
+        # q, k, v, O staged at every slot beside dO, not after the live
+        # list (no dependent load); the padding rows' zero stores left out
+        "stage_all_rows": {
+            "      reinterpret_cast<float4*>(dos + l * ld)[c4] = gvec(dO, l)[c4];\n"
+            "    }\n  } else {":
+            "      reinterpret_cast<float4*>(dos + l * ld)[c4] = gvec(dO, l)[c4];\n"
+            "      reinterpret_cast<float4*>(qs + l * ld)[c4] =\n"
+            "          div4(gvec(q, l)[c4], scale_div);\n"
+            "      reinterpret_cast<float4*>(ks + l * ld)[c4] = gvec(k, l)[c4];\n"
+            "      reinterpret_cast<float4*>(vs + l * ld)[c4] = gvec(v, l)[c4];\n"
+            "      reinterpret_cast<float4*>(os + l * ld)[c4] = gvec(o, l)[c4];\n"
+            "    }\n  } else {",
+            "  for (int e = tid; e < nl * h4; e += kOneThreads) {\n"
+            "    const int c = e / h4, c4 = e - c * h4;\n"
+            "    const int l = live[c];\n    const float4 xq":
+            "  for (int e = tid; e < 0 * h4; e += kOneThreads) {\n"
+            "    const int c = e / h4, c4 = e - c * h4;\n"
+            "    const int l = live[c];\n    const float4 xq"},
+        "no_padding_stores": {"    if (segs[l] > 0) continue;\n"
+                              "    const size_t g = ((row0 + l) * H + h)":
+                              "    if (L > 0) continue;\n"
+                              "    const size_t g = ((row0 + l) * H + h)"},
+        "tiled_ranges_only": {"  const int my_t = own / B;":
+                              "  if (L > 0) return;\n"
+                              "  const int my_t = own / B;"},
+        "tiled_no_skip": {"    return tlo[a] <= thi[a] && tlo[b] <= thi[b]":
+                          "    return true;\n"
+                          "    return tlo[a] <= thi[a] && tlo[b] <= thi[b]"},
+        "tiled_64_at_hd128": {"    return (int)launch_tiled<32, 2>(":
+                              "    return (int)launch_tiled<64, 2>("}},
+    # K18's one launch: the launch alone, the sort alone (both passes and
+    # the scan), CTAs of 16 warps (not 32), the small tables in one CTA
+    # (256-column slabs, not 64), ids read a batch at a time (not 4), 2
+    # rows in flight (not 4)
+    "span_embed_bwd": {
+        "narrow_256": {"constexpr int kNarrow = 64;":
+                       "constexpr int kNarrow = 256;"},
+        "no_zero_rows": {"    if (rstart[row] != rstart[row + 1]) continue;":
+                         "    if (N > 0) continue;"},
+        "group_1": {"constexpr int kGroup = 4;": "constexpr int kGroup = 1;"},
+        "unroll_2": {"#pragma unroll 4\n        for (int x = 0; x < n; ++x)":
+                     "#pragma unroll 2\n        for (int x = 0; x < n; ++x)"},
+        "launch_only": {"  int t = 0;\n  while (t + 1 < tabs.n":
+                        "  if (N > 0) return;\n"
+                        "  int t = 0;\n  while (t + 1 < tabs.n"},
+        "sort_only": {"  float* out = grads + tb.grad_off":
+                      "  if (N > 0) return;\n"
+                      "  float* out = grads + tb.grad_off"},
+        "threads_512": {"constexpr int kThreads = 1024;":
+                        "constexpr int kThreads = 512;"}},
 }
 
 
 # kernel -> (source under build.SOURCES, its C launcher)
-LAUNCHERS = {"recon_ce_bwd": ("recon_ce_bwd", "recon_ce_bwd_launch"),
+LAUNCHERS = {"segment_attention_bwd": ("segment_attention_bwd",
+                                       "segment_attention_bwd_launch"),
+             "span_embed_bwd": ("span_embed_bwd", "span_embed_bwd_launch"),
+             "recon_ce_bwd": ("recon_ce_bwd", "recon_ce_bwd_launch"),
              "ln_bwd": ("ln_bwd", "ln_bwd_launch"),
              "ring_block_attention": ("ring_attention",
                                       "ring_block_attention_launch"),
@@ -720,6 +797,64 @@ def _k17_k22_cases(dev, names) -> list:
     return cases
 
 
+def _k16_k18_cases(dev, names) -> list:
+    """K16 on the first attention gradient of one transformer training
+    step (64, 32, 4, 64) and of one autoencoder step (64, 32, 2, 64), and
+    on the smoke run's tiled rows (50, 128, 2, 128); K18 on one
+    transformer step's embedding gradient."""
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch.features import pack_sequences
+    from odigos_tpu_torch.kernels import attention, embed
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.training import labeled_sequences
+
+    if not {"segment_attention_bwd", "span_embed_bwd"} & set(names):
+        return []
+    tcfg = TransformerConfig(max_len=chip_smoke.TRAIN_LEN,
+                             dtype=torch.float32)
+    tseen = chip_smoke._capture_backward_inputs(
+        TraceTransformer(tcfg, device=dev, seed=0),
+        labeled_sequences(chip_smoke.TRAIN_TRACES - 1,
+                          max_len=chip_smoke.TRAIN_LEN, seed=0,
+                          pad_traces_to=chip_smoke.TRAIN_TRACES))
+    acfg = AutoencoderConfig(max_len=chip_smoke.TRAIN_LEN,
+                             dtype=torch.float32)
+    amodel = SpanAutoencoder(acfg, device=dev)
+    amodel.load_state_dict(autoencoder_state(acfg, 0))
+    aseen = chip_smoke._capture_ae_inputs(
+        amodel, chip_smoke._ae_train_step_data(chip_smoke.TRAIN_TRACES - 1))
+    pk = pack_sequences(synthesize_traces(600, seed=21), max_len=128,
+                        pad_rows_to=lambda r: r + 2)
+    seg = torch.from_numpy(pk.segments).to(dev).contiguous()
+    R, L = seg.shape
+    g = torch.Generator().manual_seed(17)
+    q, k, v, do = (torch.randn(R, L, 2, 128, generator=g).to(dev)
+                   for _ in range(4))
+    do = (do * (seg > 0)[..., None, None]).contiguous()
+    lse = torch.empty(R, 2, L, device=dev)
+    o = attention.segment_attention(q, k, v, seg, lse)
+    cases = []
+    for tag, args in (("transformer", tseen["segment_attention_bwd"][0]),
+                      ("autoencoder", aseen["segment_attention_bwd"][0]),
+                      ("tiled", (q, k, v, seg, o, lse, do))):
+        a = args[:7]
+        cases.append(("segment_attention_bwd",
+                      {"case": tag, "shape": list(a[0].shape),
+                       "route": attention.bwd_route(a[0].shape[1],
+                                                    a[0].shape[3], *a)},
+                      lambda a=a: attention.segment_attention_bwd(*a)))
+    ea = tseen["span_embed_bwd"][0][:5]
+    cases.append(("span_embed_bwd", {"case": "transformer",
+                                     "shape": list(ea[0].shape)},
+                  lambda: embed.span_embed_bwd(*ea)))
+    return cases
+
+
 def build_variants(tmp: str, built: dict, names) -> dict:
     """Each variant of the kernels in ``names`` compiled (one ``nvcc`` per
     variant, all started together) and loaded, with the argument types of
@@ -801,11 +936,14 @@ def main() -> int:
     modules.update(recon_ce_bwd=recon, ln_masked_pool_bwd=pool, ln_bwd=dense,
                    ring_block_attention=kring)
     # a wrapper's launcher kept under its own names (getter, cache)
-    own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn")}
+    own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn"),
+           "segment_attention_bwd": ("_bwd_kernel", "_bwd_fn")}
+    modules.update(segment_attention_bwd=attention, span_embed_bwd=embed)
     # the backward kernels' launchers: (getter, cache dict)
     bwd = {"recon_ce_bwd": (recon._bwd_kernel, recon._fns),
            "ln_masked_pool_bwd": (pool._bwd_kernel, pool._bwd_fns),
-           "ln_bwd": (lambda _name: dense._ln_bwd_kernel(), dense._fns)}
+           "ln_bwd": (lambda _name: dense._ln_bwd_kernel(), dense._fns),
+           "span_embed_bwd": (embed._bwd_kernel, embed._bwd_fns)}
 
     def launcher(kname: str):
         m = modules[kname]
@@ -1046,6 +1184,7 @@ def main() -> int:
     if {"recon_ce_bwd", "ln_masked_pool_bwd"} & set(names):
         cases += _training_cases(dev)
     cases += _k17_k22_cases(dev, names)
+    cases += _k16_k18_cases(dev, names)
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
