@@ -31,7 +31,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    3.35 TB/s, operations over the peak of their type); and B2, one
    block's LN/GEMM/GELU chain around K1: K14/K15, their plain versions
    and the torch chain the block ran before them (``F.layer_norm`` on an
-   f32 copy, ``F.linear``, ``F.gelu``), timed beside its bound;
+   f32 copy, ``F.linear``, ``F.gelu``), timed beside its bound; and a
+   record, not a gate (``nan_spread``): one packed row holding several
+   traces, one live span's service id past the model's table (its
+   embedding NaN, as the reference's ``nn.Embed`` gives), scored on the
+   bf16 tensor-core route and the f32 CUDA-core route, kernels and plain
+   versions: whether K1's kernels leave NaN on the same spans as the plain
+   version, whose ``P.V`` product carries ``0 x NaN`` to every query of
+   the row (the tensor-core kernel skips key tiles outside a query block's
+   segments);
 3b. dense kernels — K14 ``ln_bf16`` and K15 ``gemm_bf16`` at each step of
    the float block (LN1, the fused QKV product split for K1, the
    out-projection + residual, LN2, FFN1 + GELU, FFN2 + residual) on the
@@ -187,7 +195,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the buffer, with the times and bound of phase 3 and the library call
    (the backward of f32 SDPA under the same mask, of ``F.layer_norm``,
    ``index_add_`` per table, the backward of ``F.gelu(approximate=
-   "tanh")``);
+   "tanh")``); K2 (f32, bf16; the sliced path at d 256 and the scalar
+   path at d 128) and K18 on the step's ids with some moved past their
+   tables and below zero: K2's NaN slots those of its plain version and
+   the rest bit-equal, K18 bit-equal; then the trainers' f32 forward
+   routes (``tools/torch_f32_forward_times.py``: every distinct call of
+   K1, K2, K11, K12, K14 and K15 in one step of each trainer, each timed
+   beside its bound, its launches a step and one PyTorch call);
 15. train path — ``Trainer(TrainConfig(steps=200, traces_per_step=64,
    max_len=32, seed=0), device="cuda")``: step 0's gradients on the
    kernels held to the same step through the plain versions on the card,
@@ -746,7 +760,53 @@ def phase_kernels(card: str) -> dict:
                     "bytes": 2 * nbytes - R * L * 4, "flops": flops}
     for r in results.values():
         emit({"phase": "kernels", "card": card, **r})
+    spread = _nan_spread(pk, dev)
+    emit({"phase": "kernels", "card": card, "nan_spread": spread})
     return results
+
+
+def _nan_spread(pk, dev) -> dict:
+    """Where an embedding NaN ends up: a packed row of several traces with
+    one live span's service id past the table, scored by the default
+    transformer on the card in bf16 (K1's tensor-core route) and in f32
+    (its CUDA-core route), kernels and plain versions. A record, not a
+    gate: the spans whose scores are not finite on each path."""
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.kernels import attention
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+
+    segs = pk.segments
+    row = int(np.argmax(segs.max(1) >= 3))
+    cat = pk.categorical[row:row + 4].copy()
+    seg = segs[row:row + 4]
+    cat[0, np.argmax(seg[0] == 2), 0] = 10 ** 6  # trace 2 of the row
+    args = (cat, pk.continuous[row:row + 4], seg, pk.positions[row:row + 4])
+    out = {"row_traces": int(seg[0].max()), "bad_trace": 2}
+    for dt in (torch.bfloat16, torch.float32):
+        model = TraceTransformer(TransformerConfig(dtype=dt), device=dev,
+                                 seed=0)
+        q = torch.zeros(1, 64, 4, 64, dtype=dt, device=dev)
+        route = attention.kernel_route(q, q, q, torch.from_numpy(
+            seg[:1]).to(dev))
+        live = seg > 0
+        sets = {}
+        for tag, ref in (("kernel", False), ("plain", True)):
+            p = model.score_packed(*args, reference=ref).float().cpu(
+            ).numpy()
+            bad = live & ~np.isfinite(p)
+            sets[tag] = sorted({int(t) for t in seg[bad]})
+            sets[tag + "_spans"] = int(bad.sum())
+        same = sets["kernel_spans"] == sets["plain_spans"]
+        out[str(dt)[6:]] = {"route": route, **sets,
+                            "kernel_as_plain": same}
+        print(f"chip_smoke: nan_spread {str(dt)[6:]} ({route}): NaN traces "
+              f"of row 0, kernels {sets['kernel']} ({sets['kernel_spans']} "
+              f"spans of 4 rows), plain {sets['plain']} "
+              f"({sets['plain_spans']}): "
+              f"{'the same' if same else 'DIFFERENT'}", flush=True)
+    return out
 
 
 def gemm_bound(x, w, ref, epilogue: str) -> float:
@@ -4025,6 +4085,100 @@ def _k17_row(x, w, dy, flush) -> dict:
     return row
 
 
+def _embed_past_tables(dy, cat, pos, segs, tables, dev) -> dict:
+    """K2 and K18 held to their plain versions on ids outside their
+    tables (``jnp.take``'s fill mode, as the reference's ``nn.Embed``):
+    the step's ids with a share of the live slots' service, name, kind
+    and status ids moved past their tables and below zero, on the step's
+    tables (d 256: K2's sliced path) and on tables of d 128 (its scalar
+    path). K2 (f32 and bf16): the NaN slots those of the plain version,
+    the rest bit-equal; K18: every table bit-equal."""
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.kernels import embed
+
+    rng = np.random.default_rng(21)
+    R, L, C = cat.shape
+    live = (segs > 0).cpu().numpy()
+    bad = cat.cpu().numpy().copy()
+    rows = (tables.service.shape[0], tables.name.shape[0], embed.KIND_VOCAB,
+            embed.STATUS_VOCAB, tables.service.shape[0])
+    for c, n in enumerate(rows):
+        hit = live & (rng.random((R, L)) < 0.03)
+        bad[..., c] = np.where(hit, rng.integers(n, n + 50, (R, L)),
+                               bad[..., c])
+        wrap = live & (rng.random((R, L)) < 0.03)
+        bad[..., c] = np.where(wrap, rng.integers(-n, 0, (R, L)),
+                               bad[..., c])
+    bad = torch.from_numpy(bad).to(dev).contiguous()
+    cont = torch.from_numpy(rng.standard_normal((R, L, 3)).astype(
+        np.float32)).to(dev)
+    g = torch.Generator().manual_seed(128)
+    def tab(t, shape=None):
+        if t is None:
+            return None
+        shape = shape or (t.shape[0], 128)
+        return torch.randn(*shape, generator=g).to(dev)
+
+    t = tables
+    narrow = embed.EmbedTables(
+        tab(t.service), tab(t.name), tab(t.kind), tab(t.status), tab(t.attr),
+        tab(t.cont_w, (128, 3)), tab(t.cont_b, (128,)), tab(t.pos))
+    out = {}
+    for tag, tabs in (("d256", tables), ("d128", narrow)):
+        for dt in (torch.float32, torch.bfloat16):
+            got = embed.span_embed(bad, cont, pos, segs, tabs, dt)
+            ref = embed.span_embed_plain(bad, cont, pos, segs, tabs, dt)
+            torch.cuda.synchronize()
+            nan = torch.isnan(ref.float())
+            check(torch.equal(torch.isnan(got.float()), nan),
+                  f"span_embed {tag} {dt}: NaN slots differ from plain on "
+                  f"ids past their tables")
+            check(torch.equal(got[~nan], ref[~nan]),
+                  f"span_embed {tag} {dt}: not bit-equal to plain off the "
+                  f"NaN slots")
+            out[f"span_embed_{tag}_{str(dt)[6:]}"] = {
+                "path": "sliced" if embed.vector_path(
+                    tabs.service.shape[1], tabs) else "scalar",
+                "nan_slots": int(nan.any(-1).sum().item()),
+                "live_slots": int(live.sum()), "bit_equal_elsewhere": True}
+        dyt = dy if tag == "d256" else torch.randn(
+            R, L, 128, generator=g).to(dev)
+        got = embed.span_embed_bwd(dyt, bad, pos, segs, tabs)
+        ref = embed.span_embed_bwd_plain(dyt, bad, pos, segs, tabs)
+        torch.cuda.synchronize()
+        names = [n for n in ("service", "name", "kind", "status", "attr",
+                             "pos") if getattr(ref, n) is not None]
+        check(all(torch.equal(getattr(got, n), getattr(ref, n))
+                  for n in names),
+              f"span_embed_bwd {tag}: not bit-equal to plain on ids past "
+              f"their tables")
+        out[f"span_embed_bwd_{tag}"] = {"bit_equal": True}
+    print(f"chip_smoke: ids past their tables: K2 NaN slots as plain, the "
+          f"rest and K18 bit-equal ({out})", flush=True)
+    return out
+
+
+def _f32_forward_rows(dev, flush) -> list:
+    """The trainers' f32 forward routes at both trainers' shapes, each
+    beside its bound, launches a step and library call
+    (``tools/torch_f32_forward_times.py``)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_f32_forward_times.py")
+    spec = importlib.util.spec_from_file_location("torch_f32_forward_times",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    rows = tool.rows(dev, flush)
+    for r in rows:
+        check(r["device_ms"] > 0 and r["bound_ms"] > 0,
+              f"f32 forward row {r['name']}: no time or bound")
+    return rows
+
+
 def phase_train_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
@@ -4196,6 +4350,9 @@ def phase_train_kernels(card: str) -> dict:
            "bit_equal_plain": True}
     row.update(_ratios(row))
     results["span_embed_bwd"] = row
+    results["embed_ids_past_tables"] = _embed_past_tables(
+        dye, cat, pos, segs, tables, dev)
+    results["f32_forward_rows"] = _f32_forward_rows(dev, flush)
     out = {"phase": "train_kernels", "card": card,
            "config": "TransformerConfig(max_len=32, dtype=float32): d256 h4 "
                      "l4 ff1024, a step of 63 faulty traces padded to 64",
@@ -5201,7 +5358,11 @@ def main() -> int:
     designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
                                     "persistent 2-stage; past them 64-key "
                                     "tiles, online softmax (mma.sync bf16, "
-                                    "CUDA cores otherwise)",
+                                    "CUDA cores otherwise); f32 (the "
+                                    "trainers' forward, with its LSE): a "
+                                    "CTA a (row, head), 16-byte staging, "
+                                    "register blocks on 16-byte smem reads, "
+                                    "each sum in one fixed order",
                "span_embed": "warp-per-slot vec16, small tables in smem",
                "zscore_update": "with K4, ONE cooperative launch an engine "
                                 "call: a span a thread read and hashed "
@@ -5320,7 +5481,11 @@ def main() -> int:
                             "wgmma group in flight; bias staged in smem, "
                             "residual by TMA into the staging buffer, GELU "
                             "from a 32 KB table of the formula's bf16 "
-                            "results; TMA store, QKV in planes",
+                            "results; TMA store, QKV in planes. f32 "
+                            "(gemm_f32.cu, the trainers' forward): CUDA "
+                            "cores, 8x8/8x4/4x4 register blocks by shape, "
+                            "16-byte smem reads from a 4-stage cp.async "
+                            "ring, each output one fmaf chain over k",
                "segment_attention_bwd": "f32, one launch, no atomics, "
                                         "the parent's bits: L <= 64, hd "
                                         "<= 128 a CTA a (row, head) (live "
@@ -5640,9 +5805,16 @@ def main() -> int:
                                         "ratio_to_library")},
         "blocks8": ring_kern["blocks8"]}))
     # every kernel's rows at the geometries past the default, each held to
-    # its plain version there (phase_geometry)
+    # its plain version there (phase_geometry); the trainers' f32 forward
+    # routes at both trainers' shapes (phase_train_kernels)
+    f32_rows = train_kern["f32_forward_rows"]
     for ln_ in lines:
         ln_["geometries"] = geometry["kernel_rows"].get(ln_["name"], {})
+        mine = [r for r in f32_rows if r["name"] == ln_["name"]]
+        if mine:
+            ln_["train_f32_forward"] = mine
+        if ln_["name"] == "gemm_bf16":
+            ln_["f32_source"] = src + "gemm_f32.cu"
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

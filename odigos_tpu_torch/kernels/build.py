@@ -47,6 +47,7 @@ SOURCES = {
     "ae_pool": "ae_pool.cu",
     "recon_ce": "recon_ce.cu",
     "dense": "dense.cu",
+    "gemm_f32": "gemm_f32.cu",
     "segment_attention_bwd": "segment_attention_bwd.cu",
     "ln_bwd": "ln_bwd.cu",
     "gelu_bwd": "gelu_bwd.cu",

@@ -66,11 +66,8 @@
 // stores them with the TMA (rows past M and columns past N clipped). All
 // offsets are 64-bit: the autoencoder's fused route reaches M = 8.1 M
 // rows, M x 512 outputs past 2^32 elements.
-// f32 (the f32 model on the card): a plain CUDA-core tiled kernel, 64 x 64
-// tiles, 4 x 4 outputs a thread, f32 FMA accumulation. With the GELU
-// epilogue it can also write the pre-activation acc + b (`pre`, the
-// trainer's FFN1: K19's input in the backward pass); without it (serving)
-// nothing changes.
+// The f32 route (the f32 model on the card, the trainers' forward) is
+// gemm_f32.cu's, on the CUDA cores.
 //
 // Bound on the card: bytes at these widths. At M = 131072 tokens, d 256:
 // QKV (N 768, K 256) reads 67 MB and writes 201 MB (0.080 ms at 3.35 TB/s)
@@ -287,19 +284,6 @@ cudaError_t ln_launch_t(const T* x, const float* g, const float* b, float eps,
   return cudaErrorInvalidValue;
 }
 #undef LN_ROWS
-
-// ------------------------------------------------------- K15 row count
-// The row tiles of `tile` rows that hold a row below live[0] * per, at
-// most `tiles`; all of them without a count. Read by every thread at the
-// kernel's start: the count was written by an earlier launch.
-__device__ __forceinline__ long long live_row_tiles(const int* live, int per,
-                                                    long long M, int tile,
-                                                    long long tiles) {
-  if (live == nullptr) return tiles;
-  const long long n = (long long)max(__ldg(live), 0) * per;
-  const long long t = ((n < M ? n : M) + tile - 1) / tile;
-  return t < tiles ? t : tiles;
-}
 
 // ------------------------------------------------------- K15 epilogue
 // (the GELU table, of the formula's own bf16 results, is tc_common.cuh's)
@@ -754,111 +738,6 @@ cudaError_t launch_tc(int mode, const void* x, const void* w, const void* b,
   return launch_tc_walk<false>(mode, a, st);
 }
 
-// ---------------------------------------------- K15 f32: CUDA-core route
-constexpr int SB = 64;   // tile rows and columns
-constexpr int SBK = 16;  // K step
-constexpr int kF32Threads = 256;
-
-template <int MODE>
-__global__ void __launch_bounds__(kF32Threads) gemm_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, const float* __restrict__ res,
-    float* __restrict__ out, long long M, int N, int K, int plane_cols,
-    int n_tiles, const int* __restrict__ live, int per,
-    float* __restrict__ pre) {
-  __shared__ float As[SBK][SB + 4];
-  __shared__ float Bs[SBK][SB + 4];
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * SB;
-  // a tile past the row count is neither read nor written
-  if (m0 >= live_row_tiles(live, per, M, SB, (M + SB - 1) / SB) * SB)
-    return;
-  const int n0 = (int)(blockIdx.x % n_tiles) * SB;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += SBK) {
-#pragma unroll
-    for (int i = 0; i < SB * SBK / kF32Threads; ++i) {
-      const int idx = threadIdx.x + i * kF32Threads;
-      const int r = idx >> 4;
-      const int kk = idx & 15;
-      const int k = k0 + kk;
-      const long long m = m0 + r;
-      const int n = n0 + r;
-      As[kk][r] = (m < M && k < K) ? x[m * K + k] : 0.f;
-      Bs[kk][r] = (n < N && k < K) ? w[(long long)n * K + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[kk][ty * 4 + i];
-        b[i] = Bs[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= N) continue;
-      float y = __fadd_rn(acc[i][j], bias[n]);
-      if constexpr (MODE == 2) {
-        if (pre != nullptr) pre[m * N + n] = y;  // planes == 1 here
-        y = gelu_tanh(y);
-      }
-      if constexpr (MODE == 1) y = __fadd_rn(res[m * N + n], y);
-      const int plane = n / plane_cols;
-      out[(long long)plane * M * plane_cols + m * plane_cols +
-          (n - plane * plane_cols)] = y;
-    }
-  }
-}
-
-cudaError_t launch_f32(int mode, const void* x, const void* w, const void* b,
-                       const void* res, void* out, long long M, int N, int K,
-                       int planes, const int* live, int per, void* pre_out,
-                       cudaStream_t st) {
-  const int n_tiles = (N + SB - 1) / SB;
-  const long long tiles = (M + SB - 1) / SB * n_tiles;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto* xx = static_cast<const float*>(x);
-  const auto* ww = static_cast<const float*>(w);
-  const auto* bb = static_cast<const float*>(b);
-  const auto* rr = static_cast<const float*>(res);
-  auto* oo = static_cast<float*>(out);
-  const int pc = N / planes;
-  const unsigned g = (unsigned)tiles;
-  auto* pre = static_cast<float*>(pre_out);
-  if (mode == 0)
-    gemm_f32_kernel<0><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles, live, per,
-                                                  nullptr);
-  else if (mode == 1)
-    gemm_f32_kernel<1><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles, live, per,
-                                                  nullptr);
-  else
-    gemm_f32_kernel<2><<<g, kF32Threads, 0, st>>>(xx, ww, bb, rr, oo, M, N, K,
-                                                  pc, n_tiles, live, per,
-                                                  pre);  // 2 and 3
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // K14. x: (rows, d) bf16 (dtype 1) or f32 (dtype 0), 16-byte aligned;
@@ -885,34 +764,25 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
                           lv, per, static_cast<float*>(out), st);
 }
 
-// K15. mode 0 none, 1 residual, 2 gelu_tanh, 3 gelu_tanh by the formula
-// per output (the same results as 2). x: (M, K), w: (N, K), both 16-byte
-// aligned with K % 16 == 0; b: (N,), 4-byte aligned; res: (M, N) for
-// mode 1, else null; out: (planes, M, N / planes),
-// 16-byte aligned; all bf16 (dtype 1) or all f32 (dtype 0); N % 8 == 0
-// and (N / planes) % 8 == 0 (bf16 with planes > 1: % 64 == 0), planes ==
-// 1 for mode 1. live (nullable): a (1,) int32 count on the device; the
-// row tiles (128 rows, 64 on f32) that hold no row below live[0] * per
-// are neither read nor written. pre (nullable; f32, modes 2 and 3, planes
-// 1): an (M, N) buffer that takes acc + b before the GELU.
+// K15, bf16. mode 0 none, 1 residual, 2 gelu_tanh, 3 gelu_tanh by the
+// formula per output (the same results as 2). x: (M, K), w: (N, K), both
+// 16-byte aligned with K % 16 == 0; b: (N,), 4-byte aligned; res: (M, N)
+// for mode 1, else null; out: (planes, M, N / planes), 16-byte aligned;
+// N % 8 == 0 and (N / planes) % 8 == 0 (with planes > 1: % 64 == 0),
+// planes == 1 for mode 1. live (nullable): a (1,) int32 count on the
+// device; the row tiles (128 rows) that hold no row below live[0] * per
+// are neither read nor written.
 extern "C" int gemm_bf16_launch(const void* x, const void* w, const void* b,
-                                const void* res, void* out, int dtype,
-                                int mode, long long M, int N, int K,
-                                int planes, const void* live, int per,
-                                void* pre, void* stream) {
+                                const void* res, void* out, int mode,
+                                long long M, int N, int K, int planes,
+                                const void* live, int per, void* stream) {
   if (M < 0 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 || planes < 1 ||
       N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 3 ||
       (mode == 1) != (res != nullptr) || (mode == 1 && planes != 1) ||
-      (dtype != 0 && dtype != 1) || per < 1)
-    return (int)cudaErrorInvalidValue;
-  if (pre != nullptr && (dtype != 0 || mode < 2 || planes != 1))
+      per < 1)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lv = static_cast<const int*>(live);
-  if (dtype == 0)
-    return (int)launch_f32(mode, x, w, b, res, out, M, N, K, planes, lv, per,
-                           pre, st);
-  return (int)launch_tc(mode, x, w, b, res, out, M, N, K, planes, lv, per,
-                        st);
+  return (int)launch_tc(mode, x, w, b, res, out, M, N, K, planes,
+                        static_cast<const int*>(live), per,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -48,11 +48,16 @@
 //   with no swizzled operand layouts for the odd hd the wrapper admits.
 //   Slots past L in the 16-key tiles are zero in shared memory and weigh
 //   exactly 0.
-// * `segment_attention_kernel<T>` (f32, the parity path, and the bf16
-//   shapes the tensor-core kernel does not take): one CTA of 256 threads
-//   per (row, head), tiles staged as f32 in shared memory, scores and P.V
-//   on CUDA cores with a 4x4 register block per thread, softmax one warp
-//   per row. f32 stays here because no tensor-core route is exact in f32.
+// * `segment_attention_kernel<T, NB, VEC>` (f32: the trainers' forward,
+//   which also writes each query's log-sum-exp, and the f32 model; and the
+//   bf16 shapes the tensor-core kernel does not take): one CTA of 256
+//   threads per (row, head), the tiles staged as f32 with 16-byte loads,
+//   scores and P.V on CUDA cores in NB x NB and NB x 4 register blocks fed
+//   by 16-byte shared-memory reads, the softmax one warp per row; each
+//   score, weight and output one sum in a fixed order (a score over d, an
+//   output over every key, ascending; the softmax's shuffle trees), so the
+//   output and the log-sum-exp do not depend on the blocking. f32 stays on
+//   CUDA cores because no tensor-core route is exact in f32.
 //
 // Two tiled kernels take what the one-tile kernels above cannot: L up to
 // 1024 (K7's walk), hd up to 256, or a row whose stage does not fit shared
@@ -850,14 +855,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 namespace simt {
 
 constexpr int kThreads = 256;
-constexpr int kLd = kMaxHd + 1;   // padded row stride of the Q/K/V tiles
-constexpr int kSld = kMaxL + 1;   // padded row stride of the score tile
-constexpr size_t kSmemBytes =
-    (3 * kMaxL * kLd + kMaxL * kSld) * sizeof(float) + kMaxL * sizeof(int);
+// the most dynamic shared memory an instance takes (L = 64, hd = 64): three
+// 64 x 68 tiles and the segments
+constexpr int kMaxSmemBytes = 3 * 64 * 68 * 4 + kMaxL * 4;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// The row pitch of a staged tile of n columns: n rounded to whole 16-byte
+// vectors, then to an odd count of them, so that the 8 lanes of a quarter
+// warp, on 8 consecutive rows, read 8 different bank groups
+__host__ __device__ constexpr int tile_pitch(int n) {
+  return 4 * (((n + 3) / 4) | 1);
 }
 
 template <typename T>
@@ -869,7 +877,59 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// q scaled and rounded to T, then held as f32: Flax divides in the
+// working type
 template <typename T>
+__device__ __forceinline__ float scaled_q(T x, float scale_div) {
+  return to_f32(from_f32<T>(to_f32(x) / scale_div));
+}
+
+// 16 bytes of T (4 f32 or 8 bf16 values) into dst as f32, q scaled
+__device__ __forceinline__ void put16(float* dst, uint4 raw, float sd,
+                                      bool q, float) {
+  float4 x = *reinterpret_cast<const float4*>(&raw);
+  if (q) x = make_float4(x.x / sd, x.y / sd, x.z / sd, x.w / sd);
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+__device__ __forceinline__ void put16(float* dst, uint4 raw, float sd,
+                                      bool q, __nv_bfloat16) {
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = q ? scaled_q(h[i], sd) : __bfloat162float(h[i]);
+  *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// One CTA of 256 threads a (row, head), each sum in one fixed order (so the
+// output and the log-sum-exp keep their bits whatever the blocking), the
+// work shaped for the CUDA cores:
+// * the row's q, k, v slots (each head's hd values contiguous) are staged
+//   as f32 tiles with 16-byte loads (VEC: hd a whole number of vectors,
+//   16-byte aligned tensors; else one value a thread), every load of a
+//   thread issued before its stores, no division a value; rows at a pitch
+//   of an odd count of 16-byte vectors (tile_pitch);
+// * S = Q.K^T: thread (ty, tx) holds NB x NB scores (rows ty + 16 a, keys
+//   tx + 16 b; NB = 2 up to L 32, 4 up to 64) and reads q and k as 16-byte
+//   vectors, 4 dims of a row each: 2 NB reads for 4 NB^2 FMAs, each score
+//   one fmaf chain over d ascending from +0 (pad dims: q +0, k -0, a
+//   product of -0 that leaves every sum as it is);
+// * the scores, masked with the finite fill, overwrite the Q tile; the
+//   softmax takes a warp a query row (two rows of a warp at once);
+// * O = P.V: thread (ty, tx) holds NB rows x 4 dims (4 tx .. 4 tx + 3),
+//   reads 4 weights of a row and the 4 keys' V vectors as 16-byte vectors,
+//   each output one fmaf chain over every key j < L ascending (masked keys'
+//   exact zeros included: a NaN or inf in V spreads as through the plain
+//   version's product; pad keys: weight +0, V -0), and stores 16-byte
+//   vectors (f32 VEC).
+template <typename T, int NB, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v,
@@ -877,134 +937,249 @@ segment_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          T* __restrict__ out, int L, int H, int hd,
                          float scale_div, float big_neg,
                          float* __restrict__ lse) {
-  extern __shared__ float simt_smem[];
-  float* qs = simt_smem;               // [kMaxL][kLd]
-  float* ks = qs + kMaxL * kLd;        // [kMaxL][kLd]
-  float* vs = ks + kMaxL * kLd;        // [kMaxL][kLd]
-  float* sc = vs + kMaxL * kLd;        // [kMaxL][kSld] scores, then P
-  int* segs = reinterpret_cast<int*>(sc + kMaxL * kSld);
+  constexpr int RT = 16 * NB;  // rows a thread grid covers
+  extern __shared__ __align__(16) float simt_smem[];
+  const int PQ = tile_pitch(hd);
+  const int SP = tile_pitch(L);
+  const int L4 = round4(L);
+  const int D4 = round4(hd);
+  float* qs = simt_smem;                    // [RT][PQ], then scores [RT][SP]
+  float* ks = qs + RT * max(PQ, SP);        // [RT][PQ]
+  float* vs = ks + RT * PQ;                 // [L4][PQ]
+  int* segs = reinterpret_cast<int*>(vs + L4 * PQ);
+  float* sc = qs;
 
   const int r = blockIdx.x / H;
   const int h = blockIdx.x - r * H;
   const int tid = threadIdx.x;
+  const size_t slot0 = (size_t)r * L * H + h;  // slot l at (slot0 + l H) hd
 
-  // ---- stage the (row, head) tiles; q is scaled and rounded to T first,
-  // exactly as Flax divides in the working type
-  for (int e = tid; e < L * hd; e += kThreads) {
-    const int l = e / hd;
-    const int d = e - l * hd;
-    const size_t g = ((size_t)(r * L + l) * H + h) * hd + d;
-    qs[l * kLd + d] = to_f32(from_f32<T>(to_f32(q[g]) / scale_div));
-    ks[l * kLd + d] = to_f32(k[g]);
-    vs[l * kLd + d] = to_f32(v[g]);
+  // ---- stage the (row, head) tiles as f32
+  const int my_seg = tid < L ? __ldg(seg + (size_t)r * L + tid) : 0;
+  if (VEC) {
+    constexpr int EPV = 16 / sizeof(T);  // values a 16-byte vector
+    // a thread's vectors of each tensor, at most (L 64 x hd 64)
+    constexpr int kVec = kMaxL * kMaxHd / EPV / kThreads;
+    const int hv = hd / EPV;
+    uint4 rq[kVec], rk[kVec], rv[kVec];
+    int at[kVec];
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) {  // every load first
+      const int e = tid + t * kThreads;
+      at[t] = -1;
+      if (e < L * hv) {
+        const int l = e / hv;
+        const int c = (e - l * hv) * EPV;
+        const size_t g = (slot0 + (size_t)l * H) * hd + c;
+        at[t] = l * PQ + c;
+        rq[t] = __ldg(reinterpret_cast<const uint4*>(q + g));
+        rk[t] = __ldg(reinterpret_cast<const uint4*>(k + g));
+        rv[t] = __ldg(reinterpret_cast<const uint4*>(v + g));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) {
+      if (at[t] < 0) continue;
+      put16(qs + at[t], rq[t], scale_div, true, T());
+      put16(ks + at[t], rk[t], scale_div, false, T());
+      put16(vs + at[t], rv[t], scale_div, false, T());
+    }
+  } else {
+    for (int e = tid; e < L * hd; e += kThreads) {
+      const int l = e / hd;
+      const int d = e - l * hd;
+      const size_t g = (slot0 + (size_t)l * H) * hd + d;
+      qs[l * PQ + d] = scaled_q(q[g], scale_div);
+      ks[l * PQ + d] = to_f32(k[g]);
+      vs[l * PQ + d] = to_f32(v[g]);
+    }
   }
-  for (int l = tid; l < L; l += kThreads) segs[l] = seg[(size_t)r * L + l];
+  // pads: dims past hd (q +0, k and v -0) and keys past L (v -0)
+  for (int e = tid; e < L * (D4 - hd); e += kThreads) {
+    const int l = e / (D4 - hd);
+    const int d = hd + e - l * (D4 - hd);
+    qs[l * PQ + d] = 0.f;
+    ks[l * PQ + d] = -0.f;
+    vs[l * PQ + d] = -0.f;
+  }
+  for (int e = tid; e < (L4 - L) * D4; e += kThreads)
+    vs[(L + e / D4) * PQ + e % D4] = -0.f;
+  if (tid < L) segs[tid] = my_seg;
   __syncthreads();
 
-  // ---- scores: thread (ty, tx) owns rows ty+16a and columns tx+16b
+  // ---- scores: thread (ty, tx) owns rows ty + 16 a and keys tx + 16 b
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  float acc[4][4];
+  float acc[NB][NB];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < NB; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  for (int d = 0; d < hd; ++d) {
-    float qa[4], kb[4];
+    for (int b = 0; b < NB; ++b) acc[a][b] = 0.f;
+  for (int d = 0; d < D4; d += 4) {
+    float4 qa[NB], kb[NB];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * kLd + d];
+    for (int a = 0; a < NB; ++a)
+      qa[a] = *reinterpret_cast<const float4*>(qs + (ty + 16 * a) * PQ + d);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) kb[b] = ks[(tx + 16 * b) * kLd + d];
+    for (int b = 0; b < NB; ++b)
+      kb[b] = *reinterpret_cast<const float4*>(ks + (tx + 16 * b) * PQ + d);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < NB; ++a)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(qa[a], kb[b], acc[a][b]);
+      for (int b = 0; b < NB; ++b) {
+        acc[a][b] = fmaf(qa[a].x, kb[b].x, acc[a][b]);
+        acc[a][b] = fmaf(qa[a].y, kb[b].y, acc[a][b]);
+        acc[a][b] = fmaf(qa[a].z, kb[b].z, acc[a][b]);
+        acc[a][b] = fmaf(qa[a].w, kb[b].w, acc[a][b]);
+      }
   }
+  __syncthreads();  // the Q tile is read: the scores take its place
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < NB; ++a) {
     const int i = ty + 16 * a;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
+    for (int b = 0; b < NB; ++b) {
       const int j = tx + 16 * b;
-      if (i < L && j < L) {
-        const bool ok = segs[i] == segs[j] && segs[i] > 0;
-        sc[i * kSld + j] = ok ? acc[a][b] : big_neg;
+      if (i < L && j < L4) {
+        const bool ok = j < L && segs[i] == segs[j] && segs[i] > 0;
+        sc[i * SP + j] = j >= L ? 0.f : ok ? acc[a][b] : big_neg;
       }
     }
   }
   __syncthreads();
 
-  // ---- softmax over keys, one warp per query row
+  // ---- softmax over keys, one warp per query row (the same shuffle trees),
+  // two rows of a warp at once: rows i and i + 8
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  for (int i = warp; i < L; i += kThreads / 32) {
-    // lanes past L read as big_neg: never above a real entry's score
-    const float x0 = lane < L ? sc[i * kSld + lane] : big_neg;
-    const float x1 = lane + 32 < L ? sc[i * kSld + lane + 32] : big_neg;
-    float m = fmaxf(x0, x1);
+  constexpr int kWarps = kThreads / 32;
+  for (int i0 = warp; i0 < L; i0 += 2 * kWarps) {
+    float x0[2], x1[2], m[2], e0[2], e1[2], s[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * kWarps;
+      // lanes past L, and a row past L, read as big_neg: never above a
+      // real entry's score
+      x0[u] = i < L && lane < L ? sc[i * SP + lane] : big_neg;
+      x1[u] = i < L && lane + 32 < L ? sc[i * SP + lane + 32] : big_neg;
+      m[u] = fmaxf(x0[u], x1[u]);
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e0 = lane < L ? expf(x0 - m) : 0.f;
-    const float e1 = lane + 32 < L ? expf(x1 - m) : 0.f;
-    float s = e0 + e1;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], o));
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      e0[u] = lane < L ? expf(x0[u] - m[u]) : 0.f;
+      e1[u] = lane + 32 < L ? expf(x1[u] - m[u]) : 0.f;
+      s[u] = e0[u] + e1[u];
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane < L) sc[i * kSld + lane] = e0 / s;
-    if (lane + 32 < L) sc[i * kSld + lane + 32] = e1 / s;
-    // the row's log-sum-exp for the backward pass (K16), when asked for
-    if (lse != nullptr && lane == 0)
-      lse[((size_t)r * H + h) * L + i] = m + logf(s);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * kWarps;
+      if (i >= L) continue;
+      if (lane < L) sc[i * SP + lane] = e0[u] / s[u];
+      if (lane + 32 < L) sc[i * SP + lane + 32] = e1[u] / s[u];
+      // the row's log-sum-exp for the backward pass (K16), when asked for
+      if (lse != nullptr && lane == 0)
+        lse[((size_t)r * H + h) * L + i] = m[u] + logf(s[u]);
+    }
   }
   __syncthreads();
 
-  // ---- out = P.V: thread (ty, tx) owns rows ty+16a and dims tx+16b
-  float o[4][4];
+  // ---- out = P.V: thread (ty, tx) owns rows ty + 16 a, dims 4 tx .. + 3
+  if (4 * tx >= D4) return;
+  float o[NB][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int a = 0; a < NB; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) o[a][b] = 0.f;
-  for (int j = 0; j < L; ++j) {
-    float pa[4], vb[4];
+    for (int c = 0; c < 4; ++c) o[a][c] = 0.f;
+  for (int j = 0; j < L4; j += 4) {
+    float4 p[NB], vv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) pa[a] = sc[(ty + 16 * a) * kSld + j];
+    for (int a = 0; a < NB; ++a)
+      p[a] = *reinterpret_cast<const float4*>(sc + (ty + 16 * a) * SP + j);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) vb[b] = vs[j * kLd + tx + 16 * b];
+    for (int t = 0; t < 4; ++t)
+      vv[t] = *reinterpret_cast<const float4*>(vs + (j + t) * PQ + 4 * tx);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) o[a][b] = fmaf(pa[a], vb[b], o[a][b]);
+      for (int a = 0; a < NB; ++a) {
+        const float pj = t == 0 ? p[a].x : t == 1 ? p[a].y
+                                         : t == 2 ? p[a].z : p[a].w;
+        o[a][0] = fmaf(pj, vv[t].x, o[a][0]);
+        o[a][1] = fmaf(pj, vv[t].y, o[a][1]);
+        o[a][2] = fmaf(pj, vv[t].z, o[a][2]);
+        o[a][3] = fmaf(pj, vv[t].w, o[a][3]);
+      }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < NB; ++a) {
     const int i = ty + 16 * a;
     if (i >= L) continue;
+    T* dst = out + (slot0 + (size_t)i * H) * hd + 4 * tx;
+    if (VEC && sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(o[a][0], o[a][1], o[a][2], o[a][3]);
+    } else {
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int d = tx + 16 * b;
-      if (d < hd) out[((size_t)(r * L + i) * H + h) * hd + d] =
-          from_f32<T>(o[a][b]);
+      for (int c = 0; c < 4; ++c)
+        if (4 * tx + c < hd) dst[c] = from_f32<T>(o[a][c]);
     }
   }
 }
 
-DeviceOnce g_attr_f32, g_attr_bf16;
+// (T, NB, VEC) -> the instance's once-per-device shared-memory attribute
+DeviceOnce g_attr[2][2][2];
 
-template <typename T>
-cudaError_t launch(DeviceOnce& once, const void* q, const void* k,
-                   const void* v, const void* seg, void* out, int R, int L,
-                   int H, int hd, float scale_div, float big_neg, void* lse,
-                   cudaStream_t stream) {
-  cudaError_t err = max_smem_once(once, segment_attention_kernel<T>,
-                                  (int)kSmemBytes);
+template <typename T, int NB, bool VEC>
+cudaError_t launch_t(const void* q, const void* k, const void* v,
+                     const void* seg, void* out, int R, int L, int H, int hd,
+                     float scale_div, float big_neg, void* lse,
+                     cudaStream_t stream) {
+  auto kernel = segment_attention_kernel<T, NB, VEC>;
+  cudaError_t err = max_smem_once(
+      g_attr[sizeof(T) == 2][NB == 4][VEC], kernel, kMaxSmemBytes);
   if (err != cudaSuccess) return err;
-  segment_attention_kernel<T><<<R * H, kThreads, kSmemBytes, stream>>>(
+  const int RT = 16 * NB;
+  const int PQ = tile_pitch(hd);
+  const int SP = tile_pitch(L);
+  const int bytes =
+      (RT * (PQ > SP ? PQ : SP) + RT * PQ + round4(L) * PQ) * 4 + L * 4;
+  kernel<<<R * H, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(seg),
       static_cast<T*>(out), L, H, hd, scale_div, big_neg,
       static_cast<float*>(lse));
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* seg, void* out, int R, int L, int H, int hd,
+                   float scale_div, float big_neg, void* lse,
+                   cudaStream_t stream) {
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const bool vec = aligned && (hd * (int)sizeof(T)) % 16 == 0;
+  if (L <= 32)
+    return vec ? launch_t<T, 2, true>(q, k, v, seg, out, R, L, H, hd,
+                                      scale_div, big_neg, lse, stream)
+               : launch_t<T, 2, false>(q, k, v, seg, out, R, L, H, hd,
+                                       scale_div, big_neg, lse, stream);
+  return vec ? launch_t<T, 4, true>(q, k, v, seg, out, R, L, H, hd,
+                                    scale_div, big_neg, lse, stream)
+             : launch_t<T, 4, false>(q, k, v, seg, out, R, L, H, hd,
+                                     scale_div, big_neg, lse, stream);
 }
 
 }  // namespace simt
@@ -1248,11 +1423,9 @@ extern "C" int segment_attention_launch(const void* q, const void* k,
                                                big_neg, lse, s);
     default:
       if (dtype == 0)
-        return (int)simt::launch<float>(simt::g_attr_f32, q, k, v, seg, out,
-                                        R, L, H, hd, scale_div, big_neg, lse,
-                                        s);
-      return (int)simt::launch<__nv_bfloat16>(simt::g_attr_bf16, q, k, v,
-                                              seg, out, R, L, H, hd,
+        return (int)simt::launch<float>(q, k, v, seg, out, R, L, H, hd,
+                                        scale_div, big_neg, lse, s);
+      return (int)simt::launch<__nv_bfloat16>(q, k, v, seg, out, R, L, H, hd,
                                               scale_div, big_neg, lse, s);
   }
 }

@@ -10,11 +10,15 @@
 //       + sum_s attr[c5+s] + cont @ Wc^T + bc + pos[positions]
 //   out = segments > 0 ? x : 0
 //
-// (c4 is the parent service: it shares the service table.) Ids are clamped
-// into their table; the featurizer emits them in range by construction.
-// The sum runs term by term in the plain version's order with no fused
-// multiply-add (__fadd_rn/__fmul_rn), so kernel and plain version agree to
-// the bit in f32.
+// (c4 is the parent service: it shares the service table.) Each table is
+// read as Flax's nn.Embed reads it, jnp.take in fill mode (flax 0.12.3):
+// an id in [0, rows) takes its row, one in [-rows, 0) row id + rows, and
+// any other id a NaN row, so the live slot's whole sum is NaN; a one-row
+// table is broadcast to every id. The positions are the packer's own (0 <=
+// p < max_len) and are held into the positional table. The sum runs term
+// by term in the plain version's order with no fused multiply-add
+// (__fadd_rn/__fmul_rn), so kernel and plain version agree to the bit in
+// f32 wherever every id is in range, and put NaN in the same slots.
 //
 // Bound on the card: bytes. Each slot writes d outputs and reads a few ids
 // and 3 floats, and its live slots gather a few table rows that stay in the
@@ -48,6 +52,8 @@
 
 #include <atomic>
 
+#include "embed_take.cuh"  // take_row
+
 namespace {
 
 constexpr int kWarps = 16;
@@ -67,14 +73,30 @@ constexpr int kMetaWords = 12;    // a slot's words in shared memory (10 used)
 constexpr int kMetaBytes = 2 * kBatchMax * kMetaWords * 4;  // two buffers
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ int clamp_id(int i, int n) {
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+// A position's row: the packer's positions lie in [0, max_len)
+__device__ __forceinline__ int pos_row(int p, int n) {
+  return p < 0 ? 0 : (p >= n ? n - 1 : p);
+}
+
+// A row to read for an id: its own, or row 0 where it takes none (the sum
+// is replaced by NaN then)
+__device__ __forceinline__ size_t read_row(int i, int n) {
+  const int r = take_row(i, n);
+  return (size_t)(r < 0 ? 0 : r);
 }
 
 // kCols consecutive f32 columns of one table row or of the output
 struct Cols {
   float v[kCols];
 };
+
+// the output of a slot with an id that takes no row
+__device__ __forceinline__ Cols nan_cols() {
+  Cols c;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) c.v[i] = __int_as_float(0x7fffffff);
+  return c;
+}
 
 __device__ __forceinline__ Cols ld_global(const float* p) {
   Cols c;
@@ -267,9 +289,9 @@ span_embed_kernel(const int32_t* __restrict__ cat,
     // the slot's three L2 rows (service, name, parent service), when live
     auto gather = [&](const int* mk, Cols (&g)[3]) {
       if (mk[9] > 0) {
-        g[0] = ld_global(svc + (size_t)clamp_id(mk[0], n_svc) * d + col);
-        g[1] = ld_global(name + (size_t)clamp_id(mk[1], n_name) * d + col);
-        g[2] = ld_global(svc + (size_t)clamp_id(mk[4], n_svc) * d + col);
+        g[0] = ld_global(svc + read_row(mk[0], n_svc) * d + col);
+        g[1] = ld_global(name + read_row(mk[1], n_name) * d + col);
+        g[2] = ld_global(svc + read_row(mk[4], n_svc) * d + col);
       }
     };
 
@@ -300,19 +322,23 @@ span_embed_kernel(const int32_t* __restrict__ cat,
         T* o = out + (size_t)n * d + col;
         if (w_c.y > 0) {
           const Cols(&gc)[3] = g[k & 1];
-          const int i_kind = clamp_id(w_a.z, kKindVocab);
-          const int i_status = clamp_id(w_a.w, kStatusVocab);
-          const int i_pos = clamp_id(w_c.x, n_pos);
+          const int i_kind = take_row(w_a.z, kKindVocab);
+          const int i_status = take_row(w_a.w, kStatusVocab);
+          const int i_pos = pos_row(w_c.x, n_pos);
+          // negative where an id takes no row: the slot is NaN
+          int miss = take_row(w_a.x, n_svc) | take_row(w_a.y, n_name) |
+                     i_kind | i_status | take_row(w_b.x, n_svc);
           // the sum in the plain version's order
           Cols acc = gc[0];
           add(acc, gc[1]);
-          add(acc, ld_shared(s_kind + i_kind * d + col));
-          add(acc, ld_shared(s_status + i_status * d + col));
+          add(acc, ld_shared(s_kind + max(i_kind, 0) * d + col));
+          add(acc, ld_shared(s_status + max(i_status, 0) * d + col));
           add(acc, gc[2]);
-          for (int a = kBaseFields; a < C; ++a)
-            add(acc, ld_global(attr +
-                               (size_t)clamp_id(__ldg(cat + (size_t)n * C + a),
-                                                n_attr) * d + col));
+          for (int a = kBaseFields; a < C; ++a) {
+            const int id = __ldg(cat + (size_t)n * C + a);
+            miss |= take_row(id, n_attr);
+            add(acc, ld_global(attr + read_row(id, n_attr) * d + col));
+          }
           const float x0 = __int_as_float(w_b.y);
           const float x1 = __int_as_float(w_b.z);
           const float x2 = __int_as_float(w_b.w);
@@ -324,7 +350,7 @@ span_embed_kernel(const int32_t* __restrict__ cat,
           add(acc, proj);
           add(acc, stage_pos ? ld_shared(pos_t + (size_t)i_pos * d + col)
                              : ld_global(pos_t + (size_t)i_pos * d + col));
-          store(o, acc);
+          store(o, miss < 0 ? nan_cols() : acc);
         } else {
           store(o, Cols{});
         }
@@ -344,17 +370,22 @@ span_embed_kernel(const int32_t* __restrict__ cat,
       for (int col = lane; col < d; col += 32) o[col] = from_f32<T>(0.f);
       continue;
     }
-    const size_t i_svc = (size_t)clamp_id(__shfl_sync(all, meta, 0), n_svc);
-    const size_t i_name =
-        (size_t)clamp_id(__shfl_sync(all, meta, 1), n_name);
-    const int i_kind = clamp_id(__shfl_sync(all, meta, 2), kKindVocab);
-    const int i_status = clamp_id(__shfl_sync(all, meta, 3), kStatusVocab);
-    const size_t i_parent =
-        (size_t)clamp_id(__shfl_sync(all, meta, 4), n_svc);
+    const int r_svc = take_row(__shfl_sync(all, meta, 0), n_svc);
+    const int r_name = take_row(__shfl_sync(all, meta, 1), n_name);
+    const int r_kind = take_row(__shfl_sync(all, meta, 2), kKindVocab);
+    const int r_status = take_row(__shfl_sync(all, meta, 3), kStatusVocab);
+    const int r_parent = take_row(__shfl_sync(all, meta, 4), n_svc);
+    // negative where an id takes no row: the slot is NaN
+    int miss = r_svc | r_name | r_kind | r_status | r_parent;
+    const size_t i_svc = (size_t)max(r_svc, 0);
+    const size_t i_name = (size_t)max(r_name, 0);
+    const int i_kind = max(r_kind, 0);
+    const int i_status = max(r_status, 0);
+    const size_t i_parent = (size_t)max(r_parent, 0);
     const float x0 = __int_as_float(__shfl_sync(all, meta, 5));
     const float x1 = __int_as_float(__shfl_sync(all, meta, 6));
     const float x2 = __int_as_float(__shfl_sync(all, meta, 7));
-    const size_t i_pos = (size_t)clamp_id(__shfl_sync(all, meta, 8), n_pos);
+    const size_t i_pos = (size_t)pos_row(__shfl_sync(all, meta, 8), n_pos);
     for (int base = 0; base < d; base += 32) {
       const int col = base + lane;
       const bool on = col < d;
@@ -370,14 +401,14 @@ span_embed_kernel(const int32_t* __restrict__ cat,
                            ? __shfl_sync(all, meta,
                                          a - kBaseFields + kMetaAttrLane)
                            : __ldg(cat + (size_t)n * C + a);
-        if (on)
-          acc = __fadd_rn(acc, attr[(size_t)clamp_id(id, n_attr) * d + col]);
+        miss |= take_row(id, n_attr);
+        if (on) acc = __fadd_rn(acc, attr[read_row(id, n_attr) * d + col]);
       }
       if (!on) continue;
       acc = __fadd_rn(acc, cont_proj(x0, x1, x2, s_cw[col], s_cw[d + col],
                                      s_cw[2 * d + col], s_cb[col]));
       acc = __fadd_rn(acc, pos_t[i_pos * d + col]);
-      o[col] = from_f32<T>(acc);
+      o[col] = from_f32<T>(miss < 0 ? __int_as_float(0x7fffffff) : acc);
     }
   }
 }

@@ -8,9 +8,12 @@
 // kernel here; the trainer's step on the card needs a hand-written one.
 //
 // The forward sums, at each slot n with segment > 0, one row of each table
-// (the ids clamped into it, as K2 clamps them); so each table's gradient
-// row t is the sum of the upstream gradient dy[n] over the live slots that
-// gathered row t:
+// as K2 reads it (jnp.take's fill mode, as Flax's nn.Embed: an id in [0,
+// rows) takes its row, one in [-rows, 0) row id + rows, any other id none,
+// and jax.grad drops its gradient; a one-row table takes every id; the
+// positions are held into their table); so each table's gradient row t is
+// the sum of the upstream gradient dy[n] over the live slots that gathered
+// row t:
 //   service  columns 0 and 4 (the parent service shares the table),
 //   name     column 1,  kind  column 2 (8 rows),  status  column 3 (4 rows),
 //   attr     columns 5 .. C - 1, where the model has attribute slots,
@@ -60,6 +63,8 @@
 
 #include <atomic>
 
+#include "embed_take.cuh"  // take_row
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -83,7 +88,7 @@ struct Table {
   long long grad_off;   // the table's first gradient element
   long long order_off;  // its entry lists' first element (one a slab)
   int rows;             // the gradient's rows (the table's)
-  int clamp_rows;       // ids clamp into [0, clamp_rows) (K2's clamp)
+  int id_rows;          // the rows an id addresses (kind 8, status 4)
   int col_first;        // the table's categorical columns: col_first +
   int col_step;         //   j * col_step for j < ncols
   int ncols;
@@ -100,8 +105,9 @@ struct Tables {
 };
 
 // The row ids of entries base + 32 g + lane (column e / N, slot e % N;
-// the plan keeps every entry index below 2^31), -1 past hi or at a
-// padding slot; every load issued before any is used
+// the plan keeps every entry index below 2^31), -1 past hi, at a padding
+// slot or for an id that takes no row; every load issued before any is
+// used
 __device__ __forceinline__ void group_ids(const Table& tb, int base, int hi,
                                           int N, const int* __restrict__ cat,
                                           int C, const int* __restrict__ pos,
@@ -127,8 +133,11 @@ __device__ __forceinline__ void group_ids(const Table& tb, int base, int hi,
   }
 #pragma unroll
   for (int g = 0; g < kGroup; ++g) {
-    const int x = id[g] < 0 ? 0 : id[g];
-    id[g] = sg[g] <= 0 ? -1 : (x < tb.clamp_rows ? x : tb.clamp_rows - 1);
+    const int x = id[g];
+    const int r = tb.use_pos ? (x < 0 ? 0 : (x < tb.id_rows ? x
+                                                             : tb.id_rows - 1))
+                             : take_row(x, tb.id_rows);
+    id[g] = sg[g] <= 0 ? -1 : r;
   }
 }
 
@@ -391,7 +400,7 @@ cudaError_t launch(const Tables& tabs, const float* dy, const int* cat,
   return cudaGetLastError();
 }
 
-// The launch plan from the host's meta (six ints a table: rows, clamp_rows,
+// The launch plan from the host's meta (six ints a table: rows, id_rows,
 // col_first, col_step, ncols, use_pos); false where the meta is refused.
 bool plan(long long N, int d, int n_tables, const int* meta, Tables* tabs,
           long long* grad_elems, long long* order_ints) {
@@ -404,13 +413,13 @@ bool plan(long long N, int d, int n_tables, const int* meta, Tables* tabs,
   for (int i = 0; i < n_tables; ++i) {
     Table& tb = tabs->t[i];
     tb.rows = meta[6 * i];
-    tb.clamp_rows = meta[6 * i + 1];
+    tb.id_rows = meta[6 * i + 1];
     tb.col_first = meta[6 * i + 2];
     tb.col_step = meta[6 * i + 3];
     tb.ncols = meta[6 * i + 4];
     tb.use_pos = meta[6 * i + 5];
-    if (tb.rows <= 0 || tb.rows > kMaxRows || tb.clamp_rows <= 0 ||
-        tb.clamp_rows > tb.rows || (!tb.use_pos && tb.ncols <= 0))
+    if (tb.rows <= 0 || tb.rows > kMaxRows || tb.id_rows <= 0 ||
+        tb.id_rows > tb.rows || (!tb.use_pos && tb.ncols <= 0))
       return false;
     tb.grad_off = goff;
     tb.order_off = ooff;

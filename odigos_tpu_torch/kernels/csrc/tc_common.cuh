@@ -39,6 +39,20 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return __fmul_rn(x, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
+// ------------------------------------------------------------ row count
+// The row tiles of `tile` rows that hold a row below live[0] * per, at
+// most `tiles`; all of them without a count (K15's and K10's fused-route
+// padding rows). Read by every thread at the kernel's start: the count was
+// written by an earlier launch.
+__device__ __forceinline__ long long live_row_tiles(const int* live, int per,
+                                                    long long M, int tile,
+                                                    long long tiles) {
+  if (live == nullptr) return tiles;
+  const long long n = (long long)max(__ldg(live), 0) * per;
+  const long long t = ((n < M ? n : M) + tile - 1) / tile;
+  return t < tiles ? t : tiles;
+}
+
 // ------------------------------------------------------------ GELU table
 // The GELU's input is a bf16 value, so round(gelu(y)) is a function of 16
 // bits. Each CTA tabulates it with gelu_tanh itself for 2^-61 <= |y| < 8

@@ -46,10 +46,10 @@ two kernels here:
   ``(planes, M, N / planes)``: the fused QKV product over ``[W_q; W_k;
   W_v]`` leaves q, k and v each contiguous for K1 in one launch.
   ``live``/``per`` is K14's row count: on the card the row tiles (128
-  rows; 64 on the f32 route) that hold no row below ``live[0] * per`` are
-  neither read nor written, and the rest of the last one holds whatever
-  the product of its inputs gives; the plain version writes NaN in every
-  row at or past the count.
+  rows; on the f32 route 64 or 32 by shape, :func:`f32_tile`) that
+  hold no row below ``live[0] * per`` are neither read nor written, and
+  the rest of the last one holds whatever the product of its inputs gives;
+  the plain version writes NaN in every row at or past the count.
 
 Both wrappers take an ``out`` buffer of their output's shape, type and
 device (contiguous, 16-byte aligned), else allocate one: rows the kernel
@@ -61,7 +61,11 @@ to ``MAX_LN_D`` (1024: K14 normalises ``d_model`` rows), 16-byte aligned
 (16-byte vectors a lane, several rows a warp at narrow d, a CTA a row past
 512 f32 values; a persistent grid);
 K15 takes bf16 (``wgmma`` tensor cores, TMA loads and stores) or f32
-(CUDA cores, for the f32 model), with
+(``csrc/gemm_f32.cu``: CUDA cores, for the f32 model and the trainers'
+forward; each output one ``fmaf`` chain over k ascending, so its bits do
+not depend on the tile, in register blocks of up to 8 x 8 fed by 16-byte
+shared-memory reads from a four-stage ``cp.async`` ring, the tile chosen by
+shape to cover the SMs), with
 ``K % 16 == 0``, ``N % 8 == 0``, ``N / planes`` a multiple of 64 when
 ``planes > 1`` (each 64-column box of the output lies in one plane),
 contiguous operands and 16-byte aligned ``x``, ``w``, ``residual`` and
@@ -77,8 +81,9 @@ step apart and each rounding after it may add one more step (the bound
 The trainer's backward pass (f32) adds two kernels here:
 
 * **K15's ``pre=``**: with a GELU epilogue on the f32 route, an ``(M, N)``
-  f32 buffer that takes FFN1's pre-activation ``acc + b`` (K19's input);
-  serving passes none and its launches are unchanged.
+  f32 buffer (16-byte aligned on the card) that takes FFN1's
+  pre-activation ``acc + b`` (K19's input); serving passes none and its
+  launches are unchanged.
 * **K17** ``ln_bwd(x, weight, dy, eps)`` (``csrc/ln_bwd.cu``): the
   LayerNorm's ``(dx, dweight, dbias)``, the statistics recomputed with
   K14's exact arithmetic (``ln_exact.cuh``: K14 stores none), ``dx =
@@ -117,6 +122,9 @@ MAX_LN_D = 1024  # the models' widest d_model (coverage.MAX_D_MODEL)
 EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2,
              "gelu_tanh_formula": 3}
 GELU_EPILOGUES = ("gelu_tanh", "gelu_tanh_formula")
+# the f32 route's tiles (csrc/gemm_f32.cu kTiles): 8 x 8, 8 x 4 and 4 x 4
+# outputs a thread of 128
+F32_TILES = ((64, 128), (64, 64), (32, 64))
 # the GELU table's bf16 range: |y|'s bits from 2^-61 (biased exponent
 # 66) for 64 exponents of 128 mantissas (to |y| < 8), each sign
 GELU_TABLE_LO = 66 << 7
@@ -278,20 +286,38 @@ def _card(dev: torch.device, what: str) -> None:
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(build.load("dense"), name)
+        lib = "gemm_f32" if name.startswith("gemm_f32") else "dense"
+        fn = getattr(build.load(lib), name)
         if name == "ln_bf16_launch":
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_float,
                            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         elif name == "gemm_bf16_launch":
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p])
+        elif name == "gemm_f32_launch":
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
                            + [ctypes.c_longlong] + [ctypes.c_int] * 3
                            + [ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_void_p])
+        elif name == "gemm_f32_tile":
+            fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def f32_tile(M: int, N: int) -> tuple[int, int]:
+    """The (rows, columns) of the tile K15's f32 route takes at ``(M, N)``
+    on the current card, one of ``F32_TILES``: a row count skips whole
+    tiles of its height."""
+    t = _kernel("gemm_f32_tile")(M, N)
+    if t < 0:
+        raise RuntimeError("gemm_f32_tile: no CUDA device")
+    return F32_TILES[t]
 
 
 # ---------------------------------------------------------------- kernels
@@ -396,18 +422,23 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          "aligned")
     if b.data_ptr() % 4:
         raise ValueError("gemm_bf16 needs b 4-byte aligned")
+    if pre is not None and pre.data_ptr() % 16:
+        raise ValueError("gemm_bf16 needs pre 16-byte aligned")
     shape = (M, N) if planes == 1 else (planes, M, N // planes)
     out = _out(out, shape, x, "gemm_bf16")
     if M == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = _kernel("gemm_bf16_launch")(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(),
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[x.dtype], EPILOGUES[epilogue], M,
-            N, K, planes, None if live is None else live.data_ptr(), per,
-            None if pre is None else pre.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), EPILOGUES[epilogue], M, N, K, planes,
+            None if live is None else live.data_ptr(), per)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if x.dtype == torch.float32:
+            rc = _kernel("gemm_f32_launch")(
+                *ptrs, None if pre is None else pre.data_ptr(), stream)
+        else:
+            rc = _kernel("gemm_bf16_launch")(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"gemm_bf16 launch failed: CUDA error {rc}")
     with _count_lock:

@@ -9,8 +9,12 @@ padding mask of ``Encoder.__call__`` in ``odigos_tpu/models/layers.py``:
 
 with column layout ``CAT_FIELDS`` (c4, the parent service, shares the
 service table). Tables are f32; the sum runs in f32 and is rounded once to
-``dtype``. Ids are clamped into their tables (the featurizer emits them in
-range by construction).
+``dtype``. Each table is read as Flax's ``nn.Embed`` reads it, ``jnp.take``
+in fill mode (:func:`take_rows`): an id in ``[0, rows)`` takes its row, one
+in ``[-rows, 0)`` row ``id + rows``, and any other id a NaN row, so the
+live slot's whole embedding is NaN; a one-row table is broadcast to every
+id. The positions are the packer's own (``0 <= p < max_len``) and are held
+into the positional table.
 
 A CUDA tensor launches the hand-written kernel (``csrc/span_embed.cu``) or
 raises: with 16-byte aligned tables at ``d`` a multiple of 256 (the main
@@ -21,9 +25,11 @@ the same sum in the same order. ``launches`` counts kernel launches.
 **K18** ``span_embed_bwd(dy, categorical, positions, segments, tables)``
 is the backward pass of the table gathers (``csrc/span_embed_bwd.cu``),
 f32: each table's gradient row is the sum of ``dy`` over the live slots
-(segment > 0) that gathered it, the ids clamped as the forward clamps
-them: the service table from columns 0 and 4, name, kind, status, the
-attribute table from every attribute slot, and the positional table. One
+(segment > 0) that gathered it, each id taking its row as the forward
+takes it (the gradient of an id that takes none is dropped, as
+``jax.grad`` of ``nn.Embed`` drops it): the service table from columns 0
+and 4, name, kind, status, the attribute table from every attribute slot,
+and the positional table. One
 launch: a CTA of 32 warps takes 32 rows of a table, sorts the table's
 entries of those rows stably by all its warps (per-warp counts of
 contiguous entry chunks, a scan over (row, warp)), then sums them in f64
@@ -90,6 +96,27 @@ class EmbedTables:
                 if t is not None]
 
 
+def take_rows(ids: torch.Tensor, rows: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.take``'s fill mode on a table of ``rows`` rows, as Flax's
+    ``nn.Embed`` gathers: ``(row, takes)``, ``row`` the row each id reads
+    (0 where it takes none) and ``takes`` False where the id lies outside
+    ``[-rows, rows)`` (its term is NaN, its gradient dropped). A one-row
+    table is broadcast: every id takes it."""
+    i = ids.long()
+    if rows == 1:
+        return torch.zeros_like(i), torch.ones_like(i, dtype=torch.bool)
+    i = torch.where(i < 0, i + rows, i)
+    takes = (i >= 0) & (i < rows)
+    return torch.where(takes, i, 0), takes
+
+
+def _pos_rows(positions: torch.Tensor, rows: int) -> torch.Tensor:
+    """The positional table's rows: the packer's positions, held into
+    it."""
+    return positions.long().clamp(0, rows - 1)
+
+
 def span_embed_plain(categorical: torch.Tensor, continuous: torch.Tensor,
                      positions: torch.Tensor, segments: torch.Tensor,
                      tables: EmbedTables,
@@ -99,24 +126,27 @@ def span_embed_plain(categorical: torch.Tensor, continuous: torch.Tensor,
     order; in bf16 Flax also rounds every gathered term and every partial
     sum to bf16, which this version (like the kernel) does not."""
     t = tables
+    nan = torch.full((), float("nan"), dtype=t.service.dtype,
+                     device=t.service.device)
 
-    def ids(col: torch.Tensor, rows: int) -> torch.Tensor:
-        return col.long().clamp(0, rows - 1)
+    def take(tab: torch.Tensor, col: torch.Tensor, rows: int):
+        i, takes = take_rows(col, rows)
+        return torch.where(takes[..., None], tab[i], nan)
 
     cat = categorical
     n_svc = t.service.shape[0]
-    x = t.service[ids(cat[..., 0], n_svc)] + t.name[
-        ids(cat[..., 1], t.name.shape[0])]
-    x = x + t.kind[ids(cat[..., 2], KIND_VOCAB)]
-    x = x + t.status[ids(cat[..., 3], STATUS_VOCAB)]
-    x = x + t.service[ids(cat[..., 4], n_svc)]
+    x = take(t.service, cat[..., 0], n_svc) + take(
+        t.name, cat[..., 1], t.name.shape[0])
+    x = x + take(t.kind, cat[..., 2], KIND_VOCAB)
+    x = x + take(t.status, cat[..., 3], STATUS_VOCAB)
+    x = x + take(t.service, cat[..., 4], n_svc)
     for a in range(N_BASE_FIELDS, cat.shape[-1]):
-        x = x + t.attr[ids(cat[..., a], t.attr.shape[0])]
+        x = x + take(t.attr, cat[..., a], t.attr.shape[0])
     c = continuous.float()
     proj = (c[..., 0:1] * t.cont_w[:, 0] + c[..., 1:2] * t.cont_w[:, 1]
             + c[..., 2:3] * t.cont_w[:, 2] + t.cont_b)
     x = x + proj
-    x = x + t.pos[ids(positions, t.pos.shape[0])]
+    x = x + t.pos[_pos_rows(positions, t.pos.shape[0])]
     x = torch.where((segments > 0)[..., None], x, torch.zeros((), device=x.device))
     return x.to(dtype)
 
@@ -246,8 +276,9 @@ class EmbedGrads:
 
 
 def _bwd_tables(categorical: torch.Tensor, tables: EmbedTables) -> list:
-    """``(name, table, clamp rows, first column, column step, columns,
-    positions?)`` of each gathered table, in :class:`EmbedGrads`' order."""
+    """``(name, table, rows an id addresses, first column, column step,
+    columns, positions?)`` of each gathered table, in :class:`EmbedGrads`'
+    order."""
     C = categorical.shape[-1]
     t = tables
     out = [("service", t.service, t.service.shape[0], 0, 4, 2, 0),
@@ -265,7 +296,8 @@ def span_embed_bwd_plain(dy: torch.Tensor, categorical: torch.Tensor,
                          positions: torch.Tensor, segments: torch.Tensor,
                          tables: EmbedTables) -> EmbedGrads:
     """K18's plain version: ``index_add_`` of the live slots' ``dy`` rows
-    in f64, column by column, rounded once to ``dy``'s type."""
+    in f64, column by column, each id at the row :func:`take_rows` gives it
+    (none where it takes none), rounded once to ``dy``'s type."""
     _check(categorical, torch.zeros(categorical.shape[:2] + (3,),
                                     device=categorical.device),
            positions, segments, tables)
@@ -278,13 +310,16 @@ def span_embed_bwd_plain(dy: torch.Tensor, categorical: torch.Tensor,
                     torch.zeros((), dtype=torch.float64, device=dy.device))
     cat = categorical.reshape(-1, C).long()
     grads = {}
-    for name, tab, clamp, first, step, ncols, use_pos in _bwd_tables(
+    for name, tab, id_rows, first, step, ncols, use_pos in _bwd_tables(
             categorical, tables):
         acc = torch.zeros(tab.shape, dtype=torch.float64, device=dy.device)
         for j in range(ncols):
-            raw = positions.reshape(-1).long() if use_pos \
-                else cat[:, first + j * step]
-            acc.index_add_(0, raw.clamp(0, clamp - 1), g)
+            if use_pos:
+                acc.index_add_(0, _pos_rows(positions.reshape(-1), id_rows),
+                               g)
+                continue
+            i, takes = take_rows(cat[:, first + j * step], id_rows)
+            acc.index_add_(0, i[takes], g[takes])
         grads[name] = acc.to(dy.dtype)
     grads.setdefault("attr", None)
     return EmbedGrads(**grads)
@@ -378,9 +413,9 @@ def span_embed_bwd(dy: torch.Tensor, categorical: torch.Tensor,
                  for (name, *_), n in zip(specs, rows)}
         grads.setdefault("attr", None)
         return EmbedGrads(**grads)
-    meta = tuple(x for (_, tab, clamp, first, step, ncols, use_pos)
-                 in specs for x in (tab.shape[0], clamp, first, step, ncols,
-                                    use_pos))
+    meta = tuple(x for (_, tab, id_rows, first, step, ncols, use_pos)
+                 in specs for x in (tab.shape[0], id_rows, first, step,
+                                    ncols, use_pos))
     arr, elems, order_n = _bwd_plan(N, C, d, meta)
     flat = torch.empty(elems, dtype=torch.float32, device=dev)
     grads, at = {}, 0

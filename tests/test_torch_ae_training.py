@@ -312,7 +312,9 @@ def test_checkpoint_resume_is_bit_equal(tmp_path):
 
 
 # ------------------------------------------------ export, then serve
-VOCAB = dict(service_vocab=64, name_vocab=64)
+# the training stream's own vocabularies (the featurizer's defaults): an id
+# past a model's table is NaN, as in the reference's nn.Embed
+VOCAB = dict(service_vocab=512, name_vocab=2048)
 
 
 def test_exported_bundle_serves_its_span_errors_on_both_routes(tmp_path):

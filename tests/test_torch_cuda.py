@@ -198,7 +198,9 @@ def test_span_embed_kernel_matches_plain(dev, attr_slots, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_span_embed_scalar_path_odd_width_with_attr_slots(dev, dtype):
     """Hand-built tables at d = 100 (not a multiple of 8: the scalar path)
-    with 3 attr slots, and out-of-range ids (clamped in both versions)."""
+    with 3 attr slots, and ids out of their tables: one past the service
+    table (its slot NaN in both versions, as Flax's nn.Embed gives), one
+    below zero in the attr table (wrapped to its row id + rows)."""
     d, attr_slots = 100, 3
     pk = _packed(300, 64, attr_slots=attr_slots, pad=2)
     rng = np.random.default_rng(5)
@@ -211,8 +213,10 @@ def test_span_embed_scalar_path_odd_width_with_attr_slots(dev, dtype):
                          status=tab(4), attr=tab(32), cont_w=tab(d, 3),
                          cont_b=tab(1)[0].contiguous(), pos=tab(64))
     cat = pk.categorical.copy()
-    cat[0, 0, 0] = 1000                # past the service table
-    cat[0, 1, 5] = -3                  # below the attr table
+    for c, rows in enumerate((64, 128, 8, 4, 64, 32, 32, 32)):
+        cat[..., c] %= rows            # the featurizer's ids in the tables
+    cat[0, 0, 0] = 1000                # past the service table: NaN
+    cat[0, 1, 5] = -3                  # below the attr table: row 29
     args = [torch.from_numpy(a).to(dev) for a in (
         cat, pk.continuous, pk.positions, pk.segments)]
     assert not embed.vector_path(d, tables)
@@ -223,8 +227,12 @@ def test_span_embed_scalar_path_odd_width_with_attr_slots(dev, dtype):
     torch.cuda.synchronize()
     assert embed.launches == before + 1
     assert (got[args[3] == 0] == 0).all()
-    atol = F32_ATOL if dtype == "float32" else _step(ref)
-    assert (got.float() - ref.float()).abs().max().item() <= atol
+    nan = torch.isnan(ref.float())
+    assert bool(nan[0, 0].all()) == bool(args[3][0, 0] > 0)
+    assert int(nan.any(-1).sum()) == int(args[3][0, 0] > 0)
+    assert torch.equal(torch.isnan(got.float()), nan)
+    atol = F32_ATOL if dtype == "float32" else _step(ref[~nan])
+    assert (got.float() - ref.float())[~nan].abs().max().item() <= atol
 
 
 def test_span_embed_refuses_non_f32_tables(dev):
@@ -1754,9 +1762,10 @@ def test_ln_bf16_with_a_row_count_writes_no_row_past_it(dev, dtype, d,
 def test_gemm_bf16_with_a_row_count_skips_the_tiles_past_it(
         dev, dtype, M, N, K, epilogue, planes, per, live):
     """Rows below live * per equal the launch without a count, bit for bit;
-    the row tiles wholly past it (128 rows; 64 on f32) keep what the buffer
-    held (a sentinel written before the launch, NaN here: the GELU's rare
-    value); the plain version writes NaN in every row past the count."""
+    the row tiles wholly past it (128 rows; on f32 the tile the shape takes,
+    64 or 32 rows) keep what the buffer held (a sentinel written before the
+    launch, NaN here: the GELU's rare value); the plain version writes NaN
+    in every row past the count."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(M + N + K)
     x = (torch.randn(M, K, generator=g, device=dev) * 0.5).to(dt)
@@ -1774,7 +1783,7 @@ def test_gemm_bf16_with_a_row_count_skips_the_tiles_past_it(
                                  per=per)
     torch.cuda.synchronize()
     n = min(M, live * per)
-    tile = 128 if dtype == "bfloat16" else 64
+    tile = 128 if dtype == "bfloat16" else kdense.f32_tile(M, N)[0]
     past = min(M, -(-n // tile) * tile)
     rows = (lambda t: t) if planes == 1 else (lambda t: t.transpose(0, 1))
     assert torch.equal(rows(got)[:n], rows(full)[:n])
@@ -2017,10 +2026,11 @@ def test_k18_span_embed_bwd_matches_plain(dev, attr_slots):
 @pytest.mark.parametrize("R,L", [(64, 32), (512, 64)])
 def test_k18_attr_table_hot_row_and_clamped_ids(dev, d, R, L):
     """K18 with the attr table, one status row holding every live slot
-    (a hot row cut across many warps) and ids past every clamp, at d 256
-    (16-byte vectors) and 42 (scalar columns), at the trainer's 2048 slots
-    and at 32768: every table bit-equal to the plain version, one launch a
-    call, a second call bit-equal."""
+    (a hot row cut across many warps) and ids past every table (their
+    gradients dropped) and below zero (wrapped), at d 256 (16-byte
+    vectors) and 42 (scalar columns), at the trainer's 2048 slots and at
+    32768: every table bit-equal to the plain version, one launch a call,
+    a second call bit-equal."""
     g = torch.Generator().manual_seed(d + R)
 
     def tab(n):
@@ -2409,3 +2419,146 @@ def test_ring_attention_on_a_world_of_one(dev):
                      for j in range(n)], dim=1)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= RING_RTOL
+
+
+# --------------------------- K15's and K1's f32 routes, ids past a table
+@pytest.mark.parametrize("N,K,epilogue", [(128, 128, "residual"),
+                                          (256, 1024, "residual"),
+                                          (384, 128, "none"),
+                                          (768, 256, "none"),
+                                          (1024, 256, "gelu_tanh")])
+def test_k15_f32_tiles_give_the_same_bits(dev, N, K, epilogue):
+    """K15's f32 route keeps each output's one fmaf chain over k whatever
+    its tile: the first 64 rows alone (a small grid: the smallest tile)
+    and inside 2048 and 8192 rows (larger tiles) give the same bits, with
+    the pre-activation; within f32 summation noise of the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    x = torch.randn(8192, K, generator=g, device=dev)
+    w = torch.randn(N, K, generator=g, device=dev) / K ** 0.5
+    b = torch.randn(N, generator=g, device=dev) * 0.1
+    res = torch.randn(8192, N, generator=g, device=dev)
+    gelu = epilogue == "gelu_tanh"
+    got, tiles = [], set()
+    for M in (64, 2048, 8192):
+        pre = torch.empty(M, N, device=dev) if gelu else None
+        y = kdense.gemm_bf16(x[:M], w, b, epilogue,
+                             res[:M] if epilogue == "residual" else None,
+                             pre=pre)
+        got.append((y[:64], None if pre is None else pre[:64]))
+        tiles.add(kdense.f32_tile(M, N))
+    torch.cuda.synchronize()
+    assert len(tiles) >= 2
+    for y, pre in got[1:]:
+        assert torch.equal(y, got[0][0])
+        assert pre is None or torch.equal(pre, got[0][1])
+    ref = kdense.gemm_bf16_plain(x[:64], w, b, epilogue,
+                                 res[:64] if epilogue == "residual"
+                                 else None)
+    assert (got[0][0] - ref).abs().max().item() <= \
+        F32_ATOL * ref.abs().max().item()
+
+
+def test_k15_f32_refuses_a_misaligned_pre(dev):
+    x = torch.randn(64, 32, device=dev)
+    w = torch.randn(64, 32, device=dev)
+    b = torch.zeros(64, device=dev)
+    pre = torch.empty(64 * 64 + 1, device=dev)[1:].view(64, 64)
+    with pytest.raises(ValueError, match="pre"):
+        kdense.gemm_bf16(x, w, b, "gelu_tanh", pre=pre)
+
+
+@pytest.mark.parametrize("R,L,H,hd", [(64, 32, 4, 64), (64, 32, 2, 64),
+                                      (32, 64, 4, 64), (8, 33, 3, 60)])
+def test_k1_f32_staging_paths_give_the_same_bits(dev, R, L, H, hd):
+    """K1's CUDA-core route stages 16-byte vectors from aligned tensors
+    and one value a thread from misaligned ones: the same output and
+    log-sum-exp bits either way; within f32 summation noise of the plain
+    version, its log-sum-exp within 1e-5 on live queries."""
+    g = torch.Generator(device=dev).manual_seed(R * L + hd)
+    n = R * L * H * hd
+    raw = [torch.randn(n + 1, generator=g, device=dev) for _ in range(3)]
+    qm, km, vm = (t[1:].view(R, L, H, hd) for t in raw)  # 4 bytes off 16
+    q, k, v = (t.clone() for t in (qm, km, vm))          # aligned copies
+    batch = synthesize_traces(4 * R, seed=R)
+    pk = pack_sequences(batch, featurize(batch), max_len=L,
+                        pad_rows_to=lambda r: max(r, R))
+    seg = torch.from_numpy(pk.segments[:R]).to(dev).contiguous()
+    assert attention.kernel_route(q, k, v, seg) == "simt"
+    lse_a, lse_m = (torch.empty(R, H, L, device=dev) for _ in range(2))
+    out_a = segment_attention(q, k, v, seg, lse_a)
+    out_m = segment_attention(qm, km, vm, seg, lse_m)
+    lse_p = torch.empty(R, H, L, device=dev)
+    ref = segment_attention_plain(q, k, v, seg, lse_p)
+    torch.cuda.synchronize()
+    assert torch.equal(out_a, out_m) and torch.equal(lse_a, lse_m)
+    assert (out_a - ref).abs().max().item() <= F32_ATOL * max(
+        1.0, ref.abs().max().item())
+    live = (seg > 0)[:, None, :].expand(R, H, L)
+    assert (lse_a - lse_p)[live].abs().max().item() <= 1e-5
+
+
+def test_k1_f32_score_blocks_give_the_same_bits(dev):
+    """Rows of L 32 (2 x 2 score blocks a thread) and the same rows padded
+    to L 40 with padding slots (4 x 4): the live queries' outputs and
+    log-sum-exps bit-equal (the padding keys weigh exactly 0)."""
+    R, H, hd = 16, 4, 64
+    g = torch.Generator(device=dev).manual_seed(40)
+    q, k, v = (torch.randn(R, 40, H, hd, generator=g, device=dev)
+               for _ in range(3))
+    batch = synthesize_traces(60, seed=40)
+    pk = pack_sequences(batch, featurize(batch), max_len=32,
+                        pad_rows_to=lambda r: max(r, R))
+    seg32 = torch.from_numpy(pk.segments[:R]).to(dev).contiguous()
+    seg40 = torch.zeros(R, 40, dtype=torch.int32, device=dev)
+    seg40[:, :32] = seg32
+    outs = []
+    for L, seg in ((32, seg32), (40, seg40)):
+        lse = torch.empty(R, H, L, device=dev)
+        o = segment_attention(*(t[:, :L].contiguous() for t in (q, k, v)),
+                              seg, lse)
+        outs.append((o[:, :32], lse[..., :32]))
+    torch.cuda.synchronize()
+    live = seg32 > 0
+    assert torch.equal(outs[0][0][live], outs[1][0][live])
+    lv = live[:, None, :].expand(R, H, 32)
+    assert torch.equal(outs[0][1][lv], outs[1][1][lv])
+
+
+@pytest.mark.parametrize("d", [256, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_span_embed_ids_past_their_tables_as_plain(dev, d, dtype):
+    """K2 (the sliced path at d 256, the scalar one at d 128) and K18 on
+    ids past every table and below zero, as ``nn.Embed``'s fill mode
+    takes them: K2's NaN slots those of the plain version and the rest
+    bit-equal; K18's tables bit-equal (gradients of ids past a table
+    dropped, negative ids wrapped)."""
+    g = torch.Generator().manual_seed(d)
+    R, L, C = 64, 32, embed.N_BASE_FIELDS + 2
+
+    def tab(rows, cols=d):
+        return torch.randn(rows, cols, generator=g).to(dev)
+
+    tables = EmbedTables(service=tab(512), name=tab(2048), kind=tab(8),
+                         status=tab(4), attr=tab(30), cont_w=tab(d, 3),
+                         cont_b=tab(1)[0].contiguous(), pos=tab(L))
+    cat = torch.stack([torch.randint(-n - 5, n + 40, (R, L), generator=g)
+                       for n in (512, 2048, 8, 4, 512, 30, 30)],
+                      -1).to(torch.int32)
+    seg = torch.randint(0, 4, (R, L), generator=g, dtype=torch.int32)
+    pos = torch.arange(L, dtype=torch.int32).expand(R, L).contiguous()
+    cont = torch.randn(R, L, 3, generator=g)
+    dy = torch.randn(R, L, d, generator=g)
+    cat, seg, pos, cont, dy = (t.to(dev) for t in (cat, seg, pos, cont, dy))
+    dt = getattr(torch, dtype)
+    got = span_embed(cat, cont, pos, seg, tables, dt)
+    ref = span_embed_plain(cat, cont, pos, seg, tables, dt)
+    gb = embed.span_embed_bwd(dy, cat, pos, seg, tables)
+    rb = embed.span_embed_bwd_plain(dy, cat, pos, seg, tables)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref.float())
+    assert nan.any() and (~nan.any(-1) & (seg > 0)).any()
+    assert torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(got[~nan], ref[~nan])
+    for name in ("service", "name", "kind", "status", "attr", "pos"):
+        assert torch.equal(getattr(gb, name), getattr(rb, name)), name

@@ -30,7 +30,8 @@ numbers and indices is checked here, in numpy, against the plain versions
 * K18 ``span_embed_bwd`` (``csrc/span_embed_bwd.cu``): the stable order
   built by all of a CTA's warps equal to the one-warp order, and the
   kernel's sums (runs a warp, cut rows' parts in run order) bit-equal to
-  ``span_embed_bwd_plain``, with the attr table and clamped ids.
+  ``span_embed_bwd_plain``, with the attr table and ids past every table
+  and below zero (taken as ``jnp.take``'s fill mode takes them).
 """
 
 import re
@@ -615,8 +616,9 @@ def _k18_tables(d, attr, seed):
 
 
 def _k18_inputs(R, L, d, attr_slots, seed):
-    """Ids past every clamp and below zero, a status column nearly all one
-    row (the hot row), padding slots and an all-padding row."""
+    """Ids past every table and below zero (some wrapped, some dropped),
+    a status column nearly all one row (the hot row), padding slots and an
+    all-padding row."""
     rng = np.random.default_rng(seed)
     C = embed.N_BASE_FIELDS + attr_slots
     cat = rng.integers(-3, 120, (R, L, C)).astype(np.int32)
@@ -630,14 +632,21 @@ def _k18_inputs(R, L, d, attr_slots, seed):
 
 
 def _k18_entry_ids(cat, pos, seg, spec):
-    """Each entry's row id (-1 at a padding slot) and slot, in entry order:
-    column by column, slots ascending."""
-    _, tab, clamp, first, step, ncols, use_pos = spec
+    """Each entry's row id (-1 at a padding slot and where the id takes no
+    row: ``jnp.take``'s fill mode, a negative id wrapped, a position held
+    into its table) and slot, in entry order: column by column, slots
+    ascending."""
+    _, tab, id_rows, first, step, ncols, use_pos = spec
     N = seg.size
     live = seg.reshape(-1) > 0
     cols = [pos.reshape(-1)] if use_pos else [
         cat.reshape(N, -1)[:, first + j * step] for j in range(ncols)]
-    ids = np.concatenate([np.clip(c, 0, clamp - 1) for c in cols])
+    if use_pos:
+        ids = np.clip(cols[0], 0, id_rows - 1)
+    else:
+        ids = np.concatenate(cols).astype(np.int64)
+        ids = np.where(ids < 0, ids + id_rows, ids)
+        ids = np.where((ids >= 0) & (ids < id_rows), ids, -1)
     ids = np.where(np.tile(live, len(cols)), ids, -1)
     return ids, np.tile(np.arange(N), len(cols))
 
@@ -736,8 +745,8 @@ def test_k18_all_warps_order_is_the_one_warp_order(attr_slots):
 @pytest.mark.parametrize("d", [8, 24, 42])
 def test_k18_kernel_sums_are_bit_equal_to_plain(attr_slots, d):
     """The kernel's runs, cut rows and parts (a hot status row summed by
-    many warps), with the attr table and ids past every clamp: every table
-    bit-equal to ``span_embed_bwd_plain``."""
+    many warps), with the attr table and ids past every table and below
+    zero: every table bit-equal to ``span_embed_bwd_plain``."""
     dy, cat, pos, seg = _k18_inputs(64, 32, d, attr_slots, seed=d)
     tables = _k18_tables(d, attr_slots > 0, seed=2)
     got = _k18_model(dy, cat, pos, seg, tables)
@@ -749,3 +758,311 @@ def test_k18_kernel_sums_are_bit_equal_to_plain(attr_slots, d):
     for name in names:
         assert torch.equal(torch.from_numpy(got[name]), getattr(ref, name)), \
             name
+
+
+# --------------------------------------------------------------- K15 f32
+def _k15_tiles():
+    """``kTiles`` of ``csrc/gemm_f32.cu`` as (bm, bn), and each
+    ``launch_tile`` instance's (bm, bn, tm, tn), in tile order."""
+    text = (CSRC / "gemm_f32.cu").read_text()
+    table = re.search(r"kTiles\[3\] = \{(.*?)\};", text, re.S).group(1)
+    tiles = [tuple(int(v) for v in t) for t in
+             re.findall(r"\{(\d+), (\d+)\}", table)]
+    inst = [tuple(int(v) for v in t) for t in re.findall(
+        r"launch_tile<MODE, (\d+), (\d+), (\d+), (\d+)>", text)]
+    return tiles, inst
+
+
+def _k15_plan(M: int, N: int, sms: int = 132) -> int:
+    """``plan_tile``: the largest tile whose grid gives each SM about two
+    CTAs (15 / 8 of the SM count), else the smallest."""
+    for t, (bm, bn) in enumerate(_k15_tiles()[0][:2]):
+        if 8 * (-(-M // bm) * -(-N // bn)) >= 15 * sms:
+            return t
+    return 2
+
+
+def _slab_at(row, chunk):
+    """``slab_at``: a 16-byte chunk's float offset in a slab of 128-byte
+    rows, chunk ^ ((row >> 2) & 7)."""
+    return row * 32 + ((chunk ^ ((row >> 2) & 7)) << 2)
+
+
+def _k15_thread_cols(tid, bn, tn):
+    ntx = bn // tn
+    tx = tid % ntx
+    return [g * 4 * ntx + 4 * tx + q for g in range(tn // 4)
+            for q in range(4)]
+
+
+def test_k15_f32_tiles_and_plan_read_from_the_source():
+    """Each tile has its instance (128 threads, 4 or 8 outputs a thread
+    each way, a quarter warp on 8 column groups), the shared memory of its
+    ring lets two CTAs share an SM, the plan is the model's, and at the
+    trainers' products every grid covers most of the 132 SMs."""
+    tiles, inst = _k15_tiles()
+    assert tiles == [i[:2] for i in inst[:3]]
+    assert dense.F32_TILES == tuple(tiles)
+    assert _const("gemm_f32.cu", "kThreads") == 128
+    bk, stages = _const("gemm_f32.cu", "kBK"), _const("gemm_f32.cu",
+                                                      "kStages")
+    assert (bk, stages) == (32, 4)
+    for bm, bn, tm, tn in inst[:3]:
+        assert (bm // tm) * (bn // tn) == 128 and tm in (4, 8) \
+            and tn in (4, 8)
+        assert bn // tn >= 8 and 32 % (bn // tn) == 0
+        assert stages * (bm + bn) * bk * 4 <= 232448 // 2
+        assert ((bm + bn) * (bk // 4)) % 128 == 0
+    # the tiles measured fastest at the trainers' products (PERF.md §6)
+    for N, want in ((1024, 0), (768, 1), (512, 1), (384, 2), (256, 2),
+                    (128, 2)):
+        assert _k15_plan(2048, N) == want, N
+        bm, bn = tiles[want]
+        assert -(-2048 // bm) * -(-N // bn) >= 128
+    assert _k15_plan(131072, 256) == 0
+
+
+@pytest.mark.parametrize("tile", [0, 1, 2])
+def test_k15_f32_smem_map_reads_and_banks(tile):
+    """The copies' chunk placement is one-to-one within each operand's
+    slab; every thread's reads land on the chunk its rows and k need; the
+    8 lanes of each quarter warp read 8 different bank groups of w's slab
+    and one address of x's."""
+    bm, bn, tm, tn = _k15_tiles()[1][tile]
+    ntx = bn // tn
+    for rows in (bm, bn):
+        offs = {_slab_at(r, c) for r in range(rows) for c in range(8)}
+        assert offs == set(range(0, rows * 32, 4))
+    where_a = {_slab_at(r, c): (r, c) for r in range(bm) for c in range(8)}
+    where_b = {_slab_at(r, c): (r, c) for r in range(bn) for c in range(8)}
+    for tid in range(128):
+        ty = tid // ntx
+        for c in range(8):
+            for i in range(tm):
+                assert where_a[_slab_at(ty * tm + i, c)] == (ty * tm + i, c)
+            for n in _k15_thread_cols(tid, bn, tn):
+                assert where_b[_slab_at(n, c)] == (n, c)
+    for w in range(4):
+        for quarter in range(4):
+            lanes = [32 * w + 8 * quarter + x for x in range(8)]
+            for c in range(8):
+                for j in range(tn):
+                    groups = {(_slab_at(_k15_thread_cols(t, bn, tn)[j], c)
+                               % 32) // 4 for t in lanes}
+                    assert len(groups) == 8
+                for i in range(tm):
+                    assert len({_slab_at((t // ntx) * tm + i, c)
+                                for t in lanes}) == 1
+
+
+def _k15_walk(K: int, new: bool) -> list:
+    """The k order of each output's chain: the redesign's slabs of 32 in
+    16-byte chunks, chunks past K not summed; the first f32 kernel's slabs
+    of 16."""
+    if not new:
+        return [k0 + kk for k0 in range(0, K, 16) for kk in range(16)]
+    out = []
+    for s in range(-(-K // 32)):
+        nch = min(8, (K - 32 * s) // 4)
+        out += [32 * s + 4 * c + q for c in range(nch) for q in range(4)]
+    return out
+
+
+def _k15_model(x, w, b, epi, res, planes, live, per, bm, new: bool,
+               rows):
+    """The kernel's outputs at ``rows`` (planes, rows, N / planes), NaN
+    where a tile past the row count leaves the buffer as it was."""
+    M, K = x.shape
+    N = w.shape[0]
+    acc = np.zeros((len(rows), N), np.float32)
+    for k in _k15_walk(K, new):
+        acc = _fma(x[rows, k][:, None], w[:, k][None, :], acc)
+    y = (acc + b).astype(np.float32)
+    pre = y.copy()
+    if epi == "gelu_tanh":
+        y = dense.gelu_tanh_plain(torch.from_numpy(y)).numpy()
+    if epi == "residual":
+        y = (res[rows] + y).astype(np.float32)
+    n_live = M if live is None else min(M, live * per)
+    written = np.asarray(rows) < -(-n_live // bm) * bm
+    y = np.where(written[:, None], y, np.float32(np.nan))
+    pre = np.where(written[:, None], pre, np.float32(np.nan))
+    return y.reshape(len(rows), planes, N // planes).transpose(1, 0, 2), pre
+
+
+@pytest.mark.parametrize("M,N,K,epi,planes,live,per", [
+    (2048, 768, 256, "none", 3, None, 1),         # transformer QKV
+    (2048, 256, 256, "residual", 1, None, 1),     # out + residual
+    (2048, 1024, 256, "gelu_tanh", 1, None, 1),   # FFN1 + GELU + pre
+    (2048, 256, 1024, "residual", 1, None, 1),    # FFN2 + residual
+    (2048, 384, 128, "none", 3, None, 1),         # autoencoder QKV
+    (2048, 128, 128, "residual", 1, None, 1),
+    (2048, 512, 128, "gelu_tanh", 1, None, 1),    # FFN1, dec_ff1
+    (2048, 128, 512, "none", 1, None, 1),         # FFN2 (+ res), dec_ff2
+    (70, 40, 48, "gelu_tanh", 1, None, 1),        # ragged M, N; K % 32
+    (131, 264, 1040, "residual", 1, None, 1),
+    (1000, 256, 256, "residual", 1, 70, 7),       # a count mid-tile
+    (2048, 128, 512, "none", 1, 45, 1)])
+def test_k15_f32_walk_is_bit_equal_to_the_parent_order(M, N, K, epi,
+                                                       planes, live, per):
+    """Each output is one fmaf chain over k ascending in both walks (the
+    redesign's chunks of 4 in slabs of 32, the first kernel's slabs of 16),
+    so the
+    redesign's outputs and ``pre`` equal the parent's bit for bit below
+    the row count, at the tile the plan picks (rows at the first and last
+    row tiles and around the count); the rows of tiles past the count are
+    left as they were; both within 1e-5 of ``gemm_bf16_plain``'s largest
+    output."""
+    assert _k15_walk(K, True) == list(range(K)) == _k15_walk(K, False)
+    rng = np.random.default_rng(M + N + K)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((N, K)) / np.sqrt(K)).astype(np.float32)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    res = rng.standard_normal((M, N)).astype(np.float32) \
+        if epi == "residual" else None
+    bm = _k15_tiles()[0][_k15_plan(M, N)][0]
+    n_live = M if live is None else live * per
+    rows = sorted({*range(min(M, 40)), *range(max(0, M - 40), M),
+                   *range(max(0, n_live - 40), min(M, n_live + 40))})
+    new, new_pre = _k15_model(x, w, b, epi, res, planes, live, per, bm,
+                              True, rows)
+    old, old_pre = _k15_model(x, w, b, epi, res, planes, live, per, 64,
+                              False, rows)
+    lv = None if live is None else torch.tensor([live], dtype=torch.int32)
+    pre = torch.empty(M, N) if epi == "gelu_tanh" else None
+    ref = dense.gemm_bf16_plain(
+        *(torch.from_numpy(t) for t in (x, w, b)), epi,
+        None if res is None else torch.from_numpy(res), planes, lv, per,
+        pre).numpy()
+    ref = ref if planes > 1 else ref[None]
+    below = np.asarray(rows) < min(M, n_live)
+    for a, o in ((new, old), (new_pre[None], old_pre[None])):
+        assert np.array_equal(a[:, below].view(np.uint32),
+                              o[:, below].view(np.uint32))
+    past = np.asarray(rows) >= -(-min(M, n_live) // bm) * bm
+    assert np.isnan(new[:, past]).all()
+    lim = 1e-5 * np.abs(ref[:, np.asarray(rows)[below]]).max()
+    assert np.abs(new[:, below] - ref[:, np.asarray(rows)[below]]).max() \
+        <= lim
+    if pre is not None:
+        assert np.abs(new_pre[below] - pre.numpy()[rows][below]).max() \
+            <= 1e-5 * np.abs(pre.numpy()).max()
+
+
+# ---------------------------------------------------------------- K1 f32
+def _k1_pitch(n: int) -> int:
+    """``tile_pitch`` of ``csrc/segment_attention.cu``'s CUDA-core kernel:
+    whole 16-byte vectors, an odd count of them."""
+    return 4 * (((n + 3) // 4) | 1)
+
+
+def _k1_simt_model(q, k, v, seg, new: bool):
+    """K1's CUDA-core route, output and log-sum-exp: each score one fmaf
+    chain over d, each output one over the keys, as the first CUDA-core
+    kernel sums them (``new`` False) or as the redesign does: d in chunks
+    of 4 up to
+    hd rounded to 4 (q padded with +0, k with -0) and the keys in chunks
+    of 4 up to L rounded to 4 (weights padded with +0, V with -0)."""
+    R, L, H, hd = q.shape
+    sd = np.float32(attention._scale_div(hd, torch.float32))
+    Q, K_, V = (t.transpose(0, 2, 1, 3) for t in ((q / sd).astype(
+        np.float32), k, v))
+    D, Lk = (-(-hd // 4) * 4, -(-L // 4) * 4) if new else (hd, L)
+    Qp = np.zeros((R, H, L, D), np.float32)
+    Kp = np.full((R, H, L, D), np.float32(-0.0))
+    Vp = np.full((R, H, Lk, hd), np.float32(-0.0))
+    Qp[..., :hd], Kp[..., :hd], Vp[..., :L, :] = Q, K_, V
+    S = np.zeros((R, H, L, L), np.float32)
+    for d in range(D):
+        S = _fma(Qp[..., :, None, d], Kp[..., None, :, d], S)
+    big_neg = np.float32(np.finfo(np.float32).min)
+    ok = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] > 0))
+    S = np.where(ok[:, None], S, big_neg)
+    m = S.max(-1, keepdims=True)
+    e = np.exp(S - m).astype(np.float32)
+    lanes = np.zeros(S.shape[:-1] + (32,), np.float32)  # e0 + e1 a lane
+    lanes[..., :min(L, 32)] = e[..., :32]
+    if L > 32:
+        lanes[..., :L - 32] = lanes[..., :L - 32] + e[..., 32:]
+    for x in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[..., np.arange(32) ^ x]).astype(np.float32)
+    s = lanes[..., :1]
+    P = (e / s).astype(np.float32)
+    Pp = np.zeros((R, H, L, Lk), np.float32)
+    Pp[..., :L] = P
+    O = np.zeros((R, H, L, hd), np.float32)
+    for j in range(Lk):
+        O = _fma(Pp[..., :, j, None], Vp[..., j, None, :], O)
+    lse = (m[..., 0] + np.log(s[..., 0])).astype(np.float32)
+    return O.transpose(0, 2, 1, 3), lse
+
+
+@pytest.mark.parametrize("R,L,H,hd", [(6, 32, 4, 64), (6, 32, 2, 64),
+                                      (3, 64, 4, 64), (4, 33, 2, 30),
+                                      (3, 17, 3, 60), (2, 1, 1, 4),
+                                      (3, 40, 2, 24), (2, 31, 2, 7)])
+def test_k1_f32_walk_is_bit_equal_to_the_parent_order(R, L, H, hd):
+    """The redesign's score chains (d in 16-byte chunks, pad dims q +0 x k
+    -0) and output chains (keys in chunks of 4, pad keys weight +0 x V -0)
+    add only -0 terms, which leave every f32 sum as it is, +0 and -0
+    included: outputs and log-sum-exps bit-equal to the first kernel's
+    order on rows
+    of several segments with padding slots, an all-padding row, and values
+    whose products underflow to signed zeros; within the card's bound of
+    ``segment_attention_plain``."""
+    rng = np.random.default_rng(R * L * hd)
+    q, k, v = (rng.standard_normal((R, L, H, hd)).astype(np.float32)
+               for _ in range(3))
+    tiny = rng.random((R, L, H, hd)) < 0.3  # products that underflow
+    q = np.where(tiny, np.float32(1e-30), q)
+    k = np.where(tiny, np.float32(-1e-30), k)
+    v = np.where(rng.random((R, L, H, hd)) < 0.2,
+                 np.float32(-1e-40), v).astype(np.float32)
+    # row 0: every score of head 0 exactly -0, and outputs of the last
+    # head -0 where every product underflows
+    q[0, :, 0], k[0, :, 0] = np.float32(1e-30), np.float32(-1e-30)
+    v[0, :, -1] = np.float32(-1e-45)
+    seg = np.zeros((R, L), np.int32)
+    for r in range(R - 1):
+        n = max(1, L - r * 3)
+        seg[r, :n] = np.arange(n) // max(1, n // 3) + 1
+    old = _k1_simt_model(q, k, v, seg, new=False)
+    new = _k1_simt_model(q, k, v, seg, new=True)
+    o = new[0][0, :, -1]
+    assert H == 1 or (np.signbit(o) & (o == 0)).any()  # exactly -0
+    for a, b in zip(old, new):
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    lse = torch.empty(R, H, L)
+    ref = attention.segment_attention_plain(
+        *(torch.from_numpy(t) for t in (q, k, v, seg)), lse).numpy()
+    assert np.abs(new[0] - ref).max() <= 1e-5 * max(1.0, np.abs(ref).max())
+    live = (seg > 0)[:, None, :]
+    assert np.abs(new[1] - lse.numpy())[np.broadcast_to(
+        live, lse.shape)].max() <= 1e-5
+
+
+def test_k1_f32_layout_fits_and_reads_free_of_bank_conflicts():
+    """The shared tiles of every shape the route takes (L and hd to 64)
+    fit the instance's attribute; the 8 lanes of a quarter warp read q
+    from one row and k from 8 consecutive rows at an odd count of 16-byte
+    vectors apart (8 bank groups), V as 8 consecutive vectors of one
+    row."""
+    text = (CSRC / "segment_attention.cu").read_text()
+    assert "constexpr int kMaxSmemBytes = 3 * 64 * 68 * 4 + kMaxL * 4;" \
+        in text
+    limit = 3 * 64 * 68 * 4 + 64 * 4
+    for L in range(1, 65):
+        for hd in range(1, 65):
+            rt = 32 if L <= 32 else 64
+            pq, sp = _k1_pitch(hd), _k1_pitch(L)
+            nbytes = (rt * max(pq, sp) + rt * pq + (-(-L // 4) * 4) * pq) \
+                * 4 + L * 4
+            assert nbytes <= limit, (L, hd)
+            assert pq >= hd and sp >= -(-L // 4) * 4
+            for d in range(0, hd, 4):
+                for b in range(rt // 16):
+                    assert len({((tx + 16 * b) * pq + d) % 32 // 4
+                                for tx in range(8)}) == 8
+            for j in range(-(-L // 4) * 4):
+                assert len({(j * pq + 4 * tx) % 32 // 4
+                            for tx in range(8)}) == 8

@@ -341,11 +341,15 @@ def test_span_embed_bwd_is_autograd_of_the_plain_forward(attr_slots):
     got = torch.autograd.grad(y2, params, dy)
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, atol=F64_ATOL, rtol=0)
+    # ids past a table make their live slots NaN (nn.Embed's fill mode):
+    # finite differences run on the slots that stay finite
+    finite = torch.isfinite(y.detach()).all(-1)
+    assert (~finite).any() and finite.any()
     assert torch.autograd.gradcheck(
         lambda *t: autograd.span_embed(
             cat, cont, pos, seg, embed.EmbedTables(
                 *(t[:4] + ((t[4],) if attr_slots else (None,))
-                  + t[-3:])), torch.float64),
+                  + t[-3:])), torch.float64)[finite],
         tuple(params), eps=1e-6, atol=1e-6)
 
 

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""K1's CUDA-core routes, K22, K17, K16 and K18, built from another copy
-of their sources, against the repo's own build: bit for bit where the
-arithmetic is meant to be the same, within the plain bound where it is
-not, and timed.
+"""K1's CUDA-core routes, K15's f32 route, K22, K17, K16 and K18, built
+from another copy of their sources, against the repo's own build: bit for
+bit where the arithmetic is meant to be the same, within the plain bound
+where it is not, and timed.
 
     python3 tools/torch_attention_bitcheck.py --old DIR [--only a,b]
 
-``DIR`` holds ``segment_attention.cu``, ``ring_attention.cu``,
-``ln_bwd.cu``, ``segment_attention_bwd.cu`` and ``span_embed_bwd.cu`` as
-they stood before a change (with the headers they include), for example
-``git archive <commit> odigos_tpu_torch/kernels/csrc`` unpacked;
-``--only`` names the sources to check (default: all five). The tool
-builds both copies with the repo's ``nvcc`` flags (each launcher bound by
-the symbols its library exports), runs each on the same inputs from a
-seed on the card, and compares:
+``DIR`` holds ``segment_attention.cu``, ``dense.cu`` (or
+``gemm_f32.cu``), ``ring_attention.cu``, ``ln_bwd.cu``,
+``segment_attention_bwd.cu`` and ``span_embed_bwd.cu`` as they stood
+before a change (with the headers they include), for example ``git
+archive <commit> odigos_tpu_torch/kernels/csrc`` unpacked; ``--only``
+names the sources to check (default: all six; ``gemm_f32`` is K15's f32
+route, ``DIR/gemm_f32.cu`` where the old copy has it, else the f32 route
+of ``DIR/dense.cu``'s ``gemm_bf16_launch``). The tool builds both copies
+with the repo's ``nvcc`` flags (each launcher bound by the symbols its
+library exports), runs each on the same inputs from a seed on the card,
+and compares:
 
 * K1 ``segment_attention`` route 3 (the tiled CUDA-core kernel; hd 8 to
-  256, L up to 1024, padding slots) and route 0 (the one-tile kernel), f32
-  and bf16, with each query's log-sum-exp: bit for bit;
+  256, L up to 1024, padding slots) and route 0 (the one-tile kernel; L 1
+  to 64, hd 4 to 64, with 16-byte vectors and without, misaligned
+  tensors, and every attention input of one training step of each
+  trainer), f32 and bf16, with each query's log-sum-exp: bit for bit;
+* K15 ``gemm_bf16``'s f32 route: every product of one training step of
+  each trainer (QKV in planes, out + residual, FFN1 + GELU with its
+  pre-activation, FFN2 + residual, ``dec_ff1``, ``dec_ff2``) and ragged
+  shapes (M and N off the tiles, K off the slabs, every epilogue, a row
+  count mid-tile): the outputs and ``pre`` bit for bit below the row
+  count, and the rows of the tiles past it left as they were;
 * K22 ``ring_block_attention``: three blocks merged into the same (o, m,
   s), the first fully masked, a trace masked in the last, the last
   finalized; D 4 to 256, Lq != Lk, lengths that are not multiples of 64,
@@ -40,11 +51,14 @@ seed on the card, and compares:
   and a second call bit-equal;
 * K18 ``span_embed_bwd``: every table bit for bit on each trainer's step
   and on random slots with the attr table, a hot row holding every live
-  slot and ids past every clamp (d 256, 128, 42), and bit-equal to the
-  plain version.
+  slot and ids past every table and below zero (d 256, 128, 42; there
+  against the old build only where every id is in range: an older build
+  clamped the others), and bit-equal to the plain version.
 
 Then it times the two builds (``chip_smoke.device_ms``: L2 flushed, the
-host's enqueue kept out; in the order old, new, new, old) on K22 at the
+host's enqueue kept out; in the order old, new, new, old) on K1's route 0
+at both trainers' steps and at R 256 (L 64, 4 heads of 64), K15's f32
+route at each distinct product of both trainers' steps, on K22 at the
 smoke run's one block (2, 8192, 4, 64), one ring step (4096 x 4096), the
 8-block ring at L 32768 (64 launches, every rank's blocks in the
 reference's order) and at D 256, K1's tiled f32 kernel at R 256, L 1024,
@@ -70,7 +84,7 @@ from pathlib import Path
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-SOURCES = ("segment_attention", "ring_attention", "ln_bwd",
+SOURCES = ("segment_attention", "gemm_f32", "ring_attention", "ln_bwd",
            "segment_attention_bwd", "span_embed_bwd")
 RING_RTOL = 1e-5  # the reference's ring bound, of the plain output's max
 K17_ROWS = (1, 63, 2048, 50000)
@@ -95,6 +109,18 @@ def _ptxas(log: str) -> list[str]:
 
 
 def _bind(lib: ctypes.CDLL, name: str):
+    if name == "gemm_f32":
+        # (launcher, True) for gemm_f32.cu's own; (launcher, False) for
+        # dense.cu's gemm_bf16_launch with its dtype and pre arguments
+        own = hasattr(lib, "gemm_f32_launch")
+        f = lib.gemm_f32_launch if own else lib.gemm_bf16_launch
+        f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * (1 if own
+                                                                 else 2)
+                      + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        return f, own
     if name == "segment_attention":
         f = lib.segment_attention_launch
         f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -147,9 +173,12 @@ def _builds(old_dir: Path, out: Path, names):
     procs = {}
     for name in names:
         so = out / f"old_{name}.so"
+        src = old_dir / f"{name}.cu"
+        if name == "gemm_f32" and not src.exists():
+            src = old_dir / "dense.cu"  # the f32 route's first home
         procs[name] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
-             str(old_dir / f"{name}.cu")], stdout=subprocess.PIPE,
+             str(src)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), so)
     build.build(list(names))
     old, new = {}, {}
@@ -345,8 +374,9 @@ def _k16_k18_checks(old, new, only, dev, rng, randn, segments, same_bits,
         specs = embed._bwd_tables(cat, tables)
         R, L, C = cat.shape
         N, d = R * L, dy.shape[-1]
-        meta = [x for (_, tab, clamp, first, step, ncols, use_pos) in specs
-                for x in (tab.shape[0], clamp, first, step, ncols, use_pos)]
+        meta = [x for (_, tab, id_rows, first, step, ncols, use_pos) in specs
+                for x in (tab.shape[0], id_rows, first, step, ncols,
+                          use_pos)]
         marr = (ctypes.c_int * len(meta))(*meta)
         rows = [tab.shape[0] for _, tab, *_ in specs]
         if sizes is not None:
@@ -393,11 +423,20 @@ def _k16_k18_checks(old, new, only, dev, rng, randn, segments, same_bits,
         ref = torch.cat([getattr(ref, n).reshape(-1) for n in
                          ("service", "name", "kind", "status", "attr", "pos")
                          if getattr(ref, n) is not None])
-        ok = (same_bits(got[0], got[1]) and same_bits(got[1], got[2])
-              and same_bits(got[1], ref))
+        # an id outside its table: an older build clamped it where this
+        # one drops or wraps it as nn.Embed's fill mode
+        cat = args[1].reshape(-1, args[1].shape[-1])
+        in_range = all(bool(((cat[:, first + j * step] >= 0)
+                             & (cat[:, first + j * step] < id_rows)).all())
+                       for _, _, id_rows, first, step, ncols, use_pos
+                       in embed._bwd_tables(args[1], args[4])
+                       if not use_pos for j in range(ncols))
+        ok = ((not in_range or same_bits(got[0], got[1]))
+              and same_bits(got[1], got[2]) and same_bits(got[1], ref))
         cases, fails = cases + 1, fails + (not ok)
-        print("K18", tag, tuple(args[0].shape), "bit-equal to old, a "
-              "second call and plain" if ok else "DIFFERS: FAILED",
+        print("K18", tag, tuple(args[0].shape),
+              ("bit-equal to old, " if in_range else "ids past a table, ")
+              + "a second call and plain" if ok else "DIFFERS: FAILED",
               flush=True)
 
     def k18_random(R, L, d, attr_slots, hot):
@@ -511,6 +550,124 @@ def _k16_k18_checks(old, new, only, dev, rng, randn, segments, same_bits,
     return fails, cases
 
 
+def _k15_checks(old, new, dev, randn, same_bits, stream,
+                timed) -> tuple[int, int]:
+    """K15's f32 route, old build against new: (failures, cases)."""
+    import torch
+
+    from odigos_tpu_torch.kernels import dense
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_f32_forward_times as f32t
+
+    tile_rows = None
+    if new["gemm_f32"][1]:
+        def tile_rows(M, N):
+            return dense.f32_tile(M, N)[0]
+
+    def call(lib, x, w, b, res, out, epi, planes, live, per, pre):
+        fn, own = lib
+        M, K = x.shape
+        N = w.shape[0]
+        mode = dense.EPILOGUES[epi]
+        head = (x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                None if res is None else res.data_ptr(), out.data_ptr())
+        tail = (M, N, K, planes, None if live is None else live.data_ptr(),
+                per, None if pre is None else pre.data_ptr())
+        args = head + ((mode,) if own else (0, mode)) + tail
+
+        def run():
+            rc = fn(*args, stream())
+            if rc != 0:
+                raise RuntimeError(f"K15 f32 launch failed: {rc}")
+        return run
+
+    def outputs(x, w, planes, with_pre):
+        M, N = x.shape[0], w.shape[0]
+        shape = (M, N) if planes == 1 else (planes, M, N // planes)
+        out = torch.full(shape, float("nan"), device=dev)
+        pre = torch.full((M, N), float("nan"), device=dev) \
+            if with_pre else None
+        return out, pre
+
+    fails = cases = 0
+
+    def case(tag, x, w, b, res, epi, planes, pre_on, live=None, per=1):
+        nonlocal fails, cases
+        got = []
+        for lib in (old["gemm_f32"], new["gemm_f32"], new["gemm_f32"]):
+            out, pre = outputs(x, w, planes, pre_on)
+            call(lib, x, w, b, res, out, epi, planes, live, per, pre)()
+            torch.cuda.synchronize()
+            got.append((out, pre))
+        M, N = x.shape[0], w.shape[0]
+        rows = M if live is None else min(M, int(live.item()) * per)
+
+        def real(t, p=planes):
+            return t[:rows] if p == 1 else t[:, :rows]
+
+        ok = all(same_bits(real(a[0]), real(b_[0]))
+                 and (a[1] is None or same_bits(real(a[1], 1),
+                                                real(b_[1], 1)))
+                 for a, b_ in ((got[0], got[1]), (got[1], got[2])))
+        untouched = True
+        if live is not None and tile_rows is not None:
+            bm = tile_rows(M, N)
+            past = -(-rows // bm) * bm
+            out, pre = got[1]
+            tail = out[past:] if planes == 1 else out[:, past:]
+            untouched = bool(torch.isnan(tail).all()) and (
+                pre is None or bool(torch.isnan(pre[past:]).all()))
+        finite = bool(torch.isfinite(real(got[1][0])).all())
+        ok = ok and untouched and finite
+        cases, fails = cases + 1, fails + (not ok)
+        print("K15 f32", tag, (M, N, x.shape[1]), epi, "planes", planes,
+              "pre" if pre_on else "", "rows", rows,
+              "bit-equal to old, a second call bit-equal" if ok
+              else "DIFFERS: FAILED",
+              "" if untouched else "ROWS PAST THE COUNT WRITTEN", flush=True)
+
+    steps = f32t._steps(dev)
+    seen = {}
+    for tag, calls in steps.items():
+        for name, a, k in calls:
+            if name != "gemm_bf16":
+                continue
+            x, w, b, epi, res, planes = a[:6]
+            key = (tag, tuple(x.shape), tuple(w.shape), epi, planes)
+            case(f"{tag} step", x, w, b, res, epi, planes,
+                 k.get("pre") is not None)
+            seen.setdefault(key, (x, w, b, res, epi, planes,
+                                  k.get("pre") is not None))
+    for M, N, K, epi, planes, pre_on, live, per in [
+            (70, 40, 48, "none", 1, False, None, 1),
+            (70, 40, 48, "gelu_tanh", 1, True, None, 1),
+            (1, 8, 16, "none", 1, False, None, 1),
+            (333, 128, 512, "residual", 1, False, None, 1),
+            (100, 520, 128, "gelu_tanh_formula", 1, False, None, 1),
+            (131, 264, 1040, "residual", 1, False, None, 1),
+            (5000, 192, 16, "none", 3, False, None, 1),
+            (2048, 768, 256, "none", 3, False, None, 1),
+            (4096, 256, 256, "residual", 1, False, 1000, 1),
+            (2048, 1024, 256, "gelu_tanh", 1, True, 100, 7),
+            (2048, 128, 128, "none", 1, False, 45, 1)]:
+        x, w = randn(M, K), randn(N, K) / K ** 0.5
+        b = randn(N)
+        res = randn(M, N) if epi == "residual" else None
+        lv = None if live is None else torch.tensor(
+            [live], dtype=torch.int32, device=dev)
+        case("random", x, w, b, res, epi, planes, pre_on, lv, per)
+    for (tag, *_), (x, w, b, res, epi, planes, pre_on) in seen.items():
+        outs = [outputs(x, w, planes, pre_on) for _ in range(2)]
+        timed(f"K15 f32 {tag} {(x.shape[0], w.shape[0], x.shape[1])} "
+              f"{epi} planes {planes}",
+              call(old["gemm_f32"], x, w, b, res, outs[0][0], epi, planes,
+                   None, 1, outs[0][1]),
+              call(new["gemm_f32"], x, w, b, res, outs[1][0], epi, planes,
+                   None, 1, outs[1][1]))
+    return fails, cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, type=Path)
@@ -604,7 +761,11 @@ def main() -> int:
                     (3, (2, 200, 4, 64)), (3, (2, 1024, 4, 64)),
                     (3, (2, 130, 2, 100)), (3, (1, 1024, 2, 256)),
                     (3, (64, 256, 4, 64)), (0, (4, 64, 4, 64)),
-                    (0, (3, 40, 2, 24))]
+                    (0, (3, 40, 2, 24)), (0, (64, 32, 4, 64)),
+                    (0, (64, 32, 2, 64)), (0, (256, 64, 4, 64)),
+                    (0, (2, 1, 1, 4)), (0, (3, 33, 2, 30)),
+                    (0, (5, 17, 3, 60)), (0, (2, 64, 1, 8)),
+                    (0, (7, 48, 2, 40)), (0, (4, 31, 2, 64))]
         for route, shape in (k1_cases if "segment_attention" in only
                              else []):
             for dt in (torch.float32, torch.bfloat16):
@@ -625,6 +786,42 @@ def main() -> int:
                 cases, fails = cases + 1, fails + (not ok)
                 print("K1 route", route, shape, dt,
                       "bit-equal" if ok else "DIFFERS")
+
+        def k1_old_new(tag, q, k, v, seg, route=0):
+            nonlocal cases, fails
+            R, L, H, _ = q.shape
+            got = []
+            for fn in (old["segment_attention"], new["segment_attention"],
+                       new["segment_attention"]):
+                out = torch.empty_like(q)
+                lse = torch.empty((R, H, L), device=dev)
+                rc = k1_call(fn, q, k, v, seg, out, lse, route)()
+                torch.cuda.synchronize()
+                if rc != 0:
+                    raise RuntimeError(f"K1 launch failed: {rc}")
+                got.append((out, lse))
+            ok = all(same_bits(a, b) for a, b in zip(*got[:2])) and all(
+                same_bits(a, b) for a, b in zip(*got[1:]))
+            cases, fails = cases + 1, fails + (not ok)
+            print("K1 route", route, tag, tuple(q.shape), q.dtype,
+                  "bit-equal to old, a second call bit-equal" if ok
+                  else "DIFFERS", flush=True)
+
+        k1_steps = []
+        if "segment_attention" in only:
+            # 16-byte misaligned tensors (the one-value staging)
+            for dt in (torch.float32, torch.bfloat16):
+                R, L, H, hd = 6, 32, 2, 64
+                n = R * L * H * hd
+                q, k, v = (randn(n + 1, dtype=dt)[1:].view(R, L, H, hd)
+                           for _ in range(3))
+                k1_old_new("misaligned", q, k, v, segments(R, L))
+            for i, (model, args) in enumerate(
+                    _trainer_bwd_inputs(dev)["segment_attention_bwd"]):
+                q, k, v, seg = args[:4]
+                k1_old_new(f"{model} step input {i}", q, k, v, seg)
+                if i == 0 or model != k1_steps[-1][0]:
+                    k1_steps.append((model, (q, k, v, seg)))
 
         def fresh_state(B, Lq, H, D):
             return (torch.zeros((B, Lq, H, D), device=dev),
@@ -747,12 +944,12 @@ def main() -> int:
 
             return ring(old), ring(new)
 
-        def k1_pair(R, L, H, hd):
+        def k1_pair(R, L, H, hd, route=3):
             q, k, v = (randn(R, L, H, hd) for _ in range(3))
             seg, out = segments(R, L), torch.empty_like(q)
             lse = torch.empty((R, H, L), device=dev)
             return [k1_call(lib["segment_attention"], q, k, v, seg, out, lse,
-                            3) for lib in (old, new)]
+                            route) for lib in (old, new)]
 
         def k17_pair(rows, d):
             x, w, dy = randn(rows, d) * 3 + 1, randn(d), randn(rows, d)
@@ -770,8 +967,22 @@ def main() -> int:
             timed("K22 D 256 (2, 4096, 2, 256)",
                   *k22_pair(2, 4096, 4096, 2, 256))
         if "segment_attention" in only:
+            for model, (q, k, v, seg) in k1_steps:
+                R, L, H, _ = q.shape
+                lse = torch.empty((R, H, L), device=dev)
+                outs = [torch.empty_like(q) for _ in range(2)]
+                timed(f"K1 route 0 f32 {model} step {tuple(q.shape)}",
+                      *[k1_call(lib["segment_attention"], q, k, v, seg, o,
+                                lse, 0) for lib, o in zip((old, new),
+                                                          outs)])
+            timed("K1 route 0 f32 (256, 64, 4, 64)",
+                  *k1_pair(256, 64, 4, 64, route=0))
             timed("K1 tiled f32 (256, 1024, 4, 64)",
                   *k1_pair(256, 1024, 4, 64))
+        if "gemm_f32" in only:
+            n, c = _k15_checks(old, new, dev, randn, same_bits, stream,
+                               timed)
+            fails, cases = fails + n, cases + c
         if "ln_bwd" in only:
             timed("K17 (2048, 256)", *k17_pair(2048, 256))
             timed("K17 (2048, 128)", *k17_pair(2048, 128))

@@ -63,7 +63,13 @@ padding rows, the tiled route's tile ranges alone, every tile pair
 walked, 64-slot tiles at hd 128; K18 ``span_embed_bwd`` on a transformer step's
 embedding gradient: the launch alone, the sort alone, CTAs of 16 warps,
 one CTA a small table (not four 64-column slabs), no zero rows, ids a
-batch at a time, 2 rows in flight.
+batch at a time, 2 rows in flight; K1's f32 CUDA-core route with its
+log-sum-exp (``segment_attention_f32``, the trainers' forward) on both
+trainers' steps and at R 256: the launch alone, cut off after the
+staging, after the scores and after the softmax; K15's f32 route
+(``gemm_f32``) on each product of both trainers' steps: each of its three
+tiles forced, the copies alone, no epilogue, no barrier a slab, the
+chunks of a slab unrolled whole.
 ``--kernels`` picks some of them. Times are
 ``chip_smoke.device_ms``: CUDA-event medians with the L2 flushed and the
 host's enqueue kept out. Variants compute wrong results on purpose; only
@@ -125,6 +131,59 @@ VARIANTS = {
                 "  for (int it",
             "      if (rn < R)\n        copy_row(":
                 "      if (false)\n        copy_row("},
+    },
+    # K1's f32 CUDA-core kernel with its log-sum-exp (the trainers'
+    # forward), cut off after each of its phases
+    "segment_attention_f32": {
+        # the launch and one read of the segments
+        "launch_only": {
+            "  const size_t slot0 = (size_t)r * L * H + h;  // slot l at "
+            "(slot0 + l H) hd\n":
+                "  const size_t slot0 = (size_t)r * L * H + h;\n"
+                "  if (seg[0] != INT_MIN) return;\n"},
+        # the (row, head) tiles staged, nothing computed
+        "staging_only": {
+            "  __syncthreads();\n\n  // ---- scores: thread (ty, tx) owns "
+            "rows ty + 16 a and keys tx + 16 b\n":
+                "  __syncthreads();\n  if (segs[0] != INT_MIN) return;\n"
+                "  // ---- scores\n"},
+        # staged, scored and masked: no softmax, no P.V
+        "through_scores": {
+            "  __syncthreads();\n\n  // ---- softmax over keys, one warp "
+            "per query row (the same shuffle trees),\n":
+                "  __syncthreads();\n  if (segs[0] != INT_MIN) return;\n"
+                "  // ---- softmax\n  //\n"},
+        # everything but P.V and the output stores
+        "through_softmax": {
+            "  __syncthreads();\n\n  // ---- out = P.V: thread (ty, tx) "
+            "owns rows ty + 16 a, dims 4 tx .. + 3\n":
+                "  __syncthreads();\n  if (segs[0] != INT_MIN) return;\n"
+                "  // ---- out = P.V\n"},
+    },
+    # K15's f32 route on the trainers' products, each tile forced
+    "gemm_f32": {
+        "tile_64x128": {"  *tile = plan_tile(M, N, sms);":
+                        "  *tile = 0;\n  (void)plan_tile;"},
+        "tile_64x64": {"  *tile = plan_tile(M, N, sms);":
+                       "  *tile = 1;\n  (void)plan_tile;"},
+        "tile_32x64": {"  *tile = plan_tile(M, N, sms);":
+                       "  *tile = 2;\n  (void)plan_tile;"},
+        # the cp.async copies and the ring only: no FMAs, no epilogue
+        "loads_only": {"      if (half && c >= kChunks / 2) break;":
+                       "      if (K > 0) break;",
+                       "  // ---- the epilogue, 4 columns at a time":
+                       "  if (K > 0) return;\n  // ---- the epilogue"},
+        # no barrier a slab (wrong sums: what the barrier costs)
+        "no_barrier": {"    __syncthreads();  // ... for every thread, and "
+                       "slab s - 1 is consumed\n": "\n"},
+        # the chunks of a slab unrolled whole (registers)
+        "unroll_8": {"#pragma unroll 2\n    for (int c = 0; c < kChunks; "
+                     "++c) {": "#pragma unroll\n    for (int c = 0; c < "
+                               "kChunks; ++c) {"},
+        # the products, no epilogue
+        "no_epilogue": {"  // ---- the epilogue, 4 columns at a time":
+                        "  if (acc[0][0] != 12345.f) return;\n"
+                        "  // ---- the epilogue"},
     },
     "span_embed": {
         # no service/name/parent-service row gathers from L2
@@ -673,6 +732,9 @@ LAUNCHERS = {"segment_attention_bwd": ("segment_attention_bwd",
                                     "ln_masked_pool_bwd_launch"),
              "segment_attention": ("segment_attention",
                                    "segment_attention_launch"),
+             "segment_attention_f32": ("segment_attention",
+                                       "segment_attention_launch"),
+             "gemm_f32": ("gemm_f32", "gemm_f32_launch"),
              "span_embed": ("span_embed", "span_embed_launch"),
              "qgemm": ("qgemm", "qgemm_launch"),
              "qgemm_ffn1": ("qgemm", "qgemm_launch"),
@@ -813,7 +875,8 @@ def _k16_k18_cases(dev, names) -> list:
     from odigos_tpu_torch.pdata import synthesize_traces
     from odigos_tpu_torch.training import labeled_sequences
 
-    if not {"segment_attention_bwd", "span_embed_bwd"} & set(names):
+    if not {"segment_attention_bwd", "span_embed_bwd",
+            "segment_attention_f32"} & set(names):
         return []
     tcfg = TransformerConfig(max_len=chip_smoke.TRAIN_LEN,
                              dtype=torch.float32)
@@ -852,6 +915,48 @@ def _k16_k18_cases(dev, names) -> list:
     cases.append(("span_embed_bwd", {"case": "transformer",
                                      "shape": list(ea[0].shape)},
                   lambda: embed.span_embed_bwd(*ea)))
+    # K1's f32 forward with its log-sum-exp on the same steps' q, k, v,
+    # and at R 256 (L 64, 4 heads of 64) on packed rows, random q, k, v
+    pk = chip_smoke._packed_rows(256)
+    seg = torch.from_numpy(pk.segments[:256]).to(dev).contiguous()
+    q, k, v = (torch.randn(*seg.shape, 4, 64, generator=g).to(dev)
+               for _ in range(3))
+    for tag, a in (("transformer", tseen["segment_attention_bwd"][0][:4]),
+                   ("autoencoder", aseen["segment_attention_bwd"][0][:4]),
+                   ("R256", (q, k, v, seg))):
+        R, L, H, hd = a[0].shape
+        lse = torch.empty((R, H, L), device=dev)
+        cases.append(("segment_attention_f32",
+                      {"case": tag, "shape": [R, L, H, hd],
+                       "route": attention.kernel_route(*a)},
+                      lambda a=a, lse=lse: attention.segment_attention(
+                          *a, lse)))
+    return cases
+
+
+def _k15_f32_cases(dev, names) -> list:
+    """K15's f32 route on each distinct product of one training step of
+    the transformer and of the autoencoder (their own inputs)."""
+    if "gemm_f32" not in names:
+        return []
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_f32_forward_times as f32t
+    from odigos_tpu_torch.kernels import dense
+
+    cases, seen = [], set()
+    for tag, calls in f32t._steps(dev).items():
+        for name, a, k in calls:
+            if name != "gemm_bf16":
+                continue
+            x, w, b, epi, res, planes = a[:6]
+            key = (tag, x.shape[0], w.shape[0], x.shape[1], epi)
+            if key in seen:
+                continue
+            seen.add(key)
+            cases.append(("gemm_f32", {"case": tag, "M": key[1],
+                                       "N": key[2], "K": key[3],
+                                       "epilogue": epi, "planes": planes},
+                          lambda a=a, k=k: dense.gemm_bf16(*a, **k)))
     return cases
 
 
@@ -924,10 +1029,11 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     build.build()
-    modules = {"segment_attention": attention, "span_embed": embed,
+    modules = {"segment_attention": attention,
+               "segment_attention_f32": attention, "span_embed": embed,
                "qgemm": qgemm, "qgemm_ffn1": qgemm, "ln_quantize": quant,
                "radix_sort": sort, "next_fit_pack": pack, "recon_ce": recon,
-               "gemm_bf16": dense, "ln_bf16": dense,
+               "gemm_bf16": dense, "ln_bf16": dense, "gemm_f32": dense,
                "featurize_columns": featurize, "trace_rows_pack": pack,
                "ln_masked_pool": pool, "span_head_scatter": head,
                "zscore_score_update": zscore}
@@ -1185,6 +1291,7 @@ def main() -> int:
         cases += _training_cases(dev)
     cases += _k17_k22_cases(dev, names)
     cases += _k16_k18_cases(dev, names)
+    cases += _k15_f32_cases(dev, names)
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
