@@ -1923,6 +1923,7 @@ def _zero_counters() -> None:
     kernels.pack.device_launches = 0
     kernels.pack.rows_device_launches = 0
     kernels.recon.device_launches = 0
+    kernels.dense.gelu_bwd_device_launches = 0
     kernels.ring.launches = 0
 
 
@@ -2748,6 +2749,10 @@ def phase_ae_kernels(card: str) -> dict:
             check(bool(torch.isfinite(got32).all()) and diff32 <= RECON_ATOL,
                   f"recon_ce f32 T={T}: max |kernel - plain| {diff32} > "
                   f"{RECON_ATOL}")
+            if T == min(AE_T):  # fault C5 on both kernels
+                results[("recon_ce_labels_past_heads", T)] = {
+                    "tc": _c5_k11(rargs, "tc", f"T={T}", planes=planes),
+                    "cuda_core": _c5_k11(fargs, "cuda_core", f"T={T}")}
             # the library yardstick on the real rows' LN output
             idx = torch.nonzero(flat[2]).flatten()
             y = layer_norm_plain(dec[idx], dl.weight, dl.bias).float()
@@ -4258,34 +4263,8 @@ def phase_train_kernels(card: str) -> dict:
     results["ln_bwd"] = _k17_row(*seen["ln_bwd"][0][:3], flush)
 
     # ---- K19 on FFN1's gradient and pre-activation of the last block
-    dyg, pre = seen["gelu_tanh_bwd"][0][:2]
-    got = dense.gelu_tanh_bwd(dyg, pre)
-    ref = dense.gelu_tanh_bwd_plain(dyg, pre)
-    torch.cuda.synchronize()
-    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"gelu_tanh_bwd {n}")
-             for a, b, n in zip(got, ref, ("dpre", "db"))]
-    M, N = pre.shape
-    pr = pre.detach().clone().requires_grad_()
-    yg = F.gelu(pr, approximate="tanh")
-
-    def gelu_library():
-        return torch.autograd.grad(yg, pr, dyg, retain_graph=True)
-
-    nbytes = 3 * M * N * 4 + N * 4
-    flops = 24 * M * N
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-    row = {"name": "gelu_tanh_bwd", "shape": [M, N],
-           "max_abs_diff": max(df for df, _ in diffs),
-           "bound": min(lim for _, lim in diffs),
-           **timings(lambda: dense.gelu_tanh_bwd(dyg, pre),
-                     lambda: dense.gelu_tanh_bwd_plain(dyg, pre),
-                     gelu_library, flush),
-           "library": "autograd.grad of F.gelu(approximate='tanh') (no "
-                      "bias sum)",
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-           "flops": flops}
-    row.update(_ratios(row))
-    results["gelu_tanh_bwd"] = row
+    results["gelu_tanh_bwd"] = _k19_row(*seen["gelu_tanh_bwd"][0][:2],
+                                        flush)
 
     # ---- K18 on the embedding's gradient of the step
     dye, cat, pos, segs, tables = seen["span_embed_bwd"][0][:5]
@@ -4570,14 +4549,16 @@ def _ae_train_step_data(n: int = TRAIN_TRACES):
 
 def _capture_ae_inputs(model, data):
     """One autoencoder training step's forward and backward on the card,
-    recording the first inputs K11, K20, K21, K17 and K16 are handed."""
+    recording the first inputs K11, K20, K21, K17, K16 and K19 are
+    handed."""
     from odigos_tpu_torch import kernels
 
     seen: dict = {}
     saved = []
     for mod, name in (("recon", "recon_ce"), ("recon", "recon_ce_bwd"),
                       ("pool", "ln_masked_pool_bwd"), ("dense", "ln_bwd"),
-                      ("attention", "segment_attention_bwd")):
+                      ("attention", "segment_attention_bwd"),
+                      ("dense", "gelu_tanh_bwd")):
         m = getattr(kernels, mod)
         real = getattr(m, name)
         saved.append((m, name, real))
@@ -4599,6 +4580,121 @@ def _capture_ae_inputs(model, data):
         for m, name, real in saved:
             setattr(m, name, real)
     return seen
+
+
+def _k19_row(dyg, pre, flush) -> dict:
+    """K19 on one training step's FFN1 gradient and pre-activation: held
+    to its plain version, the kernels its launcher reports a call (one)
+    and a second call bit-equal, timed beside F.gelu's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import dense
+
+    n0 = dense.gelu_bwd_launches
+    d0 = dense.gelu_bwd_device_launches
+    got = dense.gelu_tanh_bwd(dyg, pre)
+    again = dense.gelu_tanh_bwd(dyg, pre)
+    ref = dense.gelu_tanh_bwd_plain(dyg, pre)
+    torch.cuda.synchronize()
+    calls = dense.gelu_bwd_launches - n0
+    per_call = (dense.gelu_bwd_device_launches - d0) / max(calls, 1)
+    check(calls == 2 and per_call == 1,
+          f"gelu_tanh_bwd: {per_call} kernels a call over {calls} calls, "
+          f"not one")
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "gelu_tanh_bwd: two calls differ (it must be deterministic)")
+    diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"gelu_tanh_bwd {n}")
+             for a, b, n in zip(got, ref, ("dpre", "db"))]
+    M, N = pre.shape
+    pr = pre.detach().clone().requires_grad_()
+    yg = F.gelu(pr, approximate="tanh")
+
+    def gelu_library():
+        return torch.autograd.grad(yg, pr, dyg, retain_graph=True)
+
+    nbytes = 3 * M * N * 4 + N * 4
+    flops = 24 * M * N
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"name": "gelu_tanh_bwd", "shape": [M, N],
+           "max_abs_diff": max(df for df, _ in diffs),
+           "bound": min(lim for _, lim in diffs),
+           "launches_per_call": per_call,
+           **timings(lambda: dense.gelu_tanh_bwd(dyg, pre),
+                     lambda: dense.gelu_tanh_bwd_plain(dyg, pre),
+                     gelu_library, flush),
+           "library": "autograd.grad of F.gelu(approximate='tanh') (no "
+                      "bias sum)",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    row.update(_ratios(row))
+    return row
+
+
+def _c5_labels(cat, mask, vocabs):
+    """(bad, clean, past): ``cat`` with the labels -1, -V, V and V + 7 at
+    real positions of each categorical head; the same with every label
+    wrapped as jnp.take_along_axis's fill mode wraps it and those past a
+    head set to 0; and the (M, 3) flags of labels past a head."""
+    import torch
+
+    bad = cat.clone()
+    real = torch.nonzero(mask).flatten()
+    for h, V in enumerate(vocabs):
+        pick = real[h::7][:48]
+        bad[pick, h] = torch.tensor([-1, -V, V, V + 7], dtype=cat.dtype,
+                                    device=cat.device).repeat(12)[
+                                        :pick.numel()]
+    vs = torch.tensor(vocabs, dtype=cat.dtype, device=cat.device)
+    wrapped = torch.where(bad[:, :3] < 0, bad[:, :3] + vs, bad[:, :3])
+    past = (wrapped < 0) | (wrapped >= vs)
+    clean = bad.clone()
+    clean[:, :3] = torch.where(past, torch.zeros_like(wrapped), wrapped)
+    return bad.contiguous(), clean.contiguous(), past
+
+
+def _c5_k11(rargs, route, tag, **kw) -> dict:
+    """Fault C5 on K11's ``route``: labels -1, -V, V and V + 7 at real
+    positions of each head. The NaN errors (and squashed scores) are the
+    plain version's, at the real positions whose label lies past its head;
+    every other position (and every log-sum-exp) is bit-equal to a run on
+    the same labels wrapped and in range."""
+    import torch
+
+    from odigos_tpu_torch.kernels import recon as krecon
+
+    dec, lw, lb, heads, cat, cont, mask, wts = rargs
+    M = dec.shape[0]
+    bad, clean, past = _c5_labels(cat, mask, [h[0].shape[0]
+                                              for h in heads[:3]])
+    smap = torch.arange(M, dtype=torch.int32, device=dec.device)
+    lse = route == "cuda_core"
+    outs = []
+    for labels in (bad, clean):
+        buf = torch.empty(M, 3, device=dec.device) if lse else None
+        e, sc = krecon.recon_ce(dec, lw, lb, heads, labels, cont, mask, wts,
+                                span_map=smap, n_out=M, route=route,
+                                lse=buf, **kw)
+        outs.append((e, sc, buf))
+    ref = krecon.recon_ce_plain(dec, lw, lb, heads, bad, cont, mask, wts)
+    torch.cuda.synchronize()
+    (e, sc, l1), (ec, scc, l2) = outs
+    nan_pos = mask & past.any(1)
+    same_nans = (torch.equal(e.isnan(), nan_pos)
+                 and torch.equal(ref.isnan(), nan_pos)
+                 and torch.equal(sc.isnan(), nan_pos))
+    rest = (torch.equal(e[~nan_pos], ec[~nan_pos])
+            and torch.equal(sc[~nan_pos], scc[~nan_pos]))
+    lse_ok = not lse or (torch.equal(l1, l2) and bool(
+        torch.isfinite(l1).all()))
+    check(bool(nan_pos.any()) and same_nans and rest and lse_ok,
+          f"recon_ce {tag} ({route}): labels past a head (fault C5): NaN "
+          f"positions as plain {same_nans}, the rest bit-equal {rest}, "
+          f"log-sum-exps {lse_ok}")
+    return {"route": route, "nan_positions": int(nan_pos.sum()),
+            "nan_positions_as_plain": same_nans,
+            "rest_bit_equal_to_wrapped_labels": rest,
+            "lse_unchanged": lse_ok}
 
 
 def phase_ae_train_kernels(card: str) -> dict:
@@ -4626,7 +4722,7 @@ def phase_ae_train_kernels(card: str) -> dict:
           "ae_train_kernels: the step lacks padding slots or a padding row")
     seen = _capture_ae_inputs(model, data)
     check(set(seen) == {"recon_ce", "recon_ce_bwd", "ln_masked_pool_bwd",
-                        "ln_bwd", "segment_attention_bwd"},
+                        "ln_bwd", "segment_attention_bwd", "gelu_tanh_bwd"},
           f"ae_train_kernels: kernels not reached: {sorted(seen)}")
     results: dict = {}
 
@@ -4659,6 +4755,13 @@ def phase_ae_train_kernels(card: str) -> dict:
                       "bound": LSE_ATOL, "err_max_abs_diff": err_diff,
                       "err_bound": RECON_ATOL,
                       "zero_at_padding": bool((lse_k[~mask] == 0).all())}
+    # ---- fault C5: labels past their heads, K11's f32 route
+    results["labels_past_heads"] = _c5_k11(
+        (dec, lw, lb, heads, cat, cont, mask, wts), "cuda_core",
+        "autoencoder step", eps=eps)
+    # ---- K19 at the autoencoder's dec_ff1 (2048, 512)
+    results["gelu_tanh_bwd"] = _k19_row(*seen["gelu_tanh_bwd"][0][:2],
+                                        flush)
 
     # ---- K20 on the step's own backward inputs
     args, _ = seen["recon_ce_bwd"]
@@ -4726,6 +4829,30 @@ def phase_ae_train_kernels(card: str) -> dict:
            "flops": flops}
     row.update(_ratios(row))
     results["recon_ce_bwd"] = row
+
+    # ---- fault C5 in K20: a gradient only where the name label lies past
+    # its head (and no other): the name head's dW and db are zero, the
+    # other heads' within RECON_BWD_RTOL of plain
+    bad, _, past = _c5_labels(cat, mask, [w.shape[0] for w, _ in heads[:3]])
+    only = mask & past[:, 1] & ~past[:, 0] & ~past[:, 2]
+    d1 = torch.where(only, derr, torch.zeros_like(derr))
+    c5_args = (dec, lw, lb, heads, lse, bad, cont, mask, d1, wts, eps)
+    got = recon.recon_ce_bwd(*c5_args)
+    ref = recon.recon_ce_bwd_plain(*c5_args)
+    torch.cuda.synchronize()
+    zero = all(bool((t == 0).all()) for t in (got.heads[1][0],
+                                               got.heads[1][1],
+                                               ref.heads[1][0],
+                                               ref.heads[1][1]))
+    check(bool(only.any()) and zero,
+          "recon_ce_bwd: a name label past its head left a name gradient "
+          "(fault C5)")
+    for h in (0, 2, 3):
+        _rel_check(got.heads[h][0], ref.heads[h][0], RECON_BWD_RTOL,
+                   f"recon_ce_bwd C5 dW{h}")
+    _rel_check(got.dy, ref.dy, RECON_BWD_RTOL, "recon_ce_bwd C5 dy")
+    results["recon_ce_bwd_labels_past_heads"] = {
+        "positions": int(only.sum()), "name_head_gradient_zero": zero}
 
     # ---- K21 on the step's pool gradient
     x, w, pmask, dpool, peps = seen["ln_masked_pool_bwd"][0]
@@ -5447,7 +5574,19 @@ def main() -> int:
                            "by the last slice, kind/duration heads as f32 "
                            "dots; off d 32-256: 64-position tiles "
                            "chunked along d; f32 and unsplittable heads: "
-                           "the CUDA-core kernel",
+                           "the CUDA-core kernel: real positions "
+                           "listed with their LN statistics (ln_exact.cuh), "
+                           "then persistent CTAs over (32 listed positions "
+                           "(64 from M 16384), service or name head, a "
+                           "group of its residue classes mod 16) items of "
+                           "~256 rows: cp.async chunks of 128 (64) rows, 4 x "
+                           "4 (8 x 2) logits a thread (the parent's fmaf "
+                           "chains), each class walked in order from shared "
+                           "logits, the merge tree's subtrees by shuffles; "
+                           "the tile's first item takes the kind and "
+                           "duration logits, its last (a ticket) the tree's "
+                           "top and the error: the parent's bits; labels as "
+                           "take_along_axis's fill mode (C5)",
                "ln_masked_pool": "warp per trace on a persistent grid: "
                                  "real positions listed from the mask "
                                  "words by ballots, then 16-byte vectors "
@@ -5513,10 +5652,19 @@ def main() -> int:
                                  "run a warp, f64 sums, rows cut across "
                                  "runs added in run order from smem, "
                                  "rounded once; empty rows zero vectors",
-               "gelu_tanh_bwd": "f32, 16-byte vectors, a CTA 16 rows x "
-                                "1024 columns: dPre = dY * gelu'(pre) in "
-                                "IEEE steps, f64 column partials; a "
-                                "fixed-order column pass gives db1",
+               "gelu_tanh_bwd": "f32, one launch: (16 rows, 128 "
+                                "columns) units grid-strided (block-major) "
+                                "over producer CTAs of 128 threads (up to 8 "
+                                "an SM), 8 16-byte loads a thread before any "
+                                "arithmetic, dPre = dY * gelu'(pre) in IEEE "
+                                "steps, each block's f64 column fold from "
+                                "smem and a release flag, each unit claimed "
+                                "by an atomic OR as its loads fly; a folder "
+                                "CTA a column group adds the blocks' "
+                                "partials in order as their flags come up "
+                                "(acquire, no float atomics), claiming and "
+                                "producing a block not yet up (it waits only "
+                                "on running CTAs): the parent's bits",
                "recon_ce_bwd": "f32, 3 launches, no atomics: one CTA lists "
                                "the real positions in order; a CTA per "
                                "(tile of listed positions, <= 128 rows of "
@@ -5760,11 +5908,15 @@ def main() -> int:
             extra["launches_per_call"] = r["launches_per_call"]
         if kname == "span_embed_bwd":
             extra["launches_per_call"] = r["launches_per_call"]
-        if kname == "ln_bwd":
-            t = ae_train_kern["ln_bwd"]
+        if kname in ("ln_bwd", "gelu_tanh_bwd"):
+            t = ae_train_kern[kname]
             extra["autoencoder_step"] = {k: t[k] for k in timing_keys + (
                 "bound_ms", "bound_by", "shape", "ratio_to_bound",
                 "ratio_to_library")}
+            extra["ae_launches_per_step"] = ae_train_path[
+                "launches_per_step"][kname]
+        if kname == "gelu_tanh_bwd":
+            extra["launches_per_call"] = r["launches_per_call"]
         lines.append(line(kname, r, extra))
     # K20 and K21 on an autoencoder training step's own inputs
     # (phase_ae_train_kernels); their launches are its training path's

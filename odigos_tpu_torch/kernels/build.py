@@ -16,6 +16,9 @@ raises; there is no fallback.
 
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` builds on demand and returns the loaded library.
+``stream_scratch`` keeps the scratch of the kernels that count or sum
+across CTAs (K11's f32 route, K17, K19) per kernel, device and stream;
+``sm_count`` is the card's multiprocessors, which their launchers take.
 """
 
 from __future__ import annotations
@@ -65,6 +68,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 # what the last build of each kernel printed (-Xptxas=-v: registers,
 # shared memory, spills), for the smoke run's log
 build_logs: dict[str, str] = {}
+# (kernel, device index, stream handle) -> (zeroed, data) tensors
+_scratch: dict = {}
+_sms: dict[int, int] = {}  # device index -> multiprocessors
 
 
 def nvcc_path() -> str:
@@ -135,3 +141,43 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
         return lib
+
+
+def stream_scratch(kernel: str, dev, stream, zeroed: int, zeroed_dtype,
+                   data: int = 0, data_dtype=None):
+    """``kernel``'s scratch on ``dev`` for ``stream`` (``torch`` tensors,
+    cached per kernel, device and stream: calls on one stream run in
+    order): at least ``zeroed`` values of ``zeroed_dtype``, zeroed when
+    made or grown, which every launch leaves at zero (counters, tickets,
+    flags); and, with a ``data_dtype``, at least ``data`` values of it,
+    which every launch writes before it reads them (else None). The two
+    grow apart. Negative sizes (a size function's refusal) raise."""
+    import torch
+
+    if zeroed < 0 or data < 0:
+        raise RuntimeError(f"{kernel}: no scratch size ({zeroed}, {data})")
+    key = (kernel, dev.index, stream.cuda_stream)
+    z, buf = _scratch.get(key, (None, None))
+    if z is None or z.numel() < zeroed:
+        z = torch.zeros(max(zeroed, 1), dtype=zeroed_dtype, device=dev)
+    if data_dtype is not None and (buf is None or buf.numel() < data):
+        buf = torch.empty(max(data, 1), dtype=data_dtype, device=dev)
+    _scratch[key] = (z, buf)
+    return z, buf
+
+
+def drop_scratch(kernel: str, dev, stream) -> None:
+    """Forget ``kernel``'s scratch for ``stream`` after a failed launch: a
+    launch that failed part way may leave its zeroed values unzeroed."""
+    _scratch.pop((kernel, dev.index, stream.cuda_stream), None)
+
+
+def sm_count(dev) -> int:
+    """The multiprocessors of the card ``dev`` (a CUDA ``torch.device``),
+    looked up once."""
+    import torch
+
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]

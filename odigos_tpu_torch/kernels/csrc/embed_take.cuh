@@ -1,6 +1,9 @@
 // How K2 (span_embed.cu) and K18 (span_embed_bwd.cu) read an id: as Flax's
 // nn.Embed gathers a table, jnp.take in fill mode (flax 0.12.3). The plain
-// versions' rule is kernels/embed.py take_rows.
+// versions' rule is kernels/embed.py take_rows. And how K11 (recon_ce.cu)
+// and K20 (recon_ce_bwd.cu) read a label: as the reference's _ce takes the
+// label's log-probability, jnp.take_along_axis in fill mode; the plain
+// versions' rule is kernels/recon.py take_labels.
 
 #pragma once
 
@@ -13,6 +16,14 @@ __device__ __forceinline__ int take_row(int i, int n) {
   if (n == 1) return 0;
   const int r = i < 0 ? i + n : i;
   return r >= 0 && r < n ? r : -1;
+}
+
+// The row a label takes in a head of v rows: a label in [0, v) its own, one
+// in [-v, 0) row label + v, any other none (-1: the position's error is
+// NaN and that head's gradient there is zero); no broadcast
+__device__ __forceinline__ int take_label(int lab, int v) {
+  const int r = lab < 0 ? lab + v : lab;
+  return r >= 0 && r < v ? r : -1;
 }
 
 }  // namespace

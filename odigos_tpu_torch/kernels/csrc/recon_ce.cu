@@ -19,8 +19,11 @@
 //      rescaled sum) over the service, name and kind vocabularies: the (M,
 //      2569) logits never reach device memory (the plain version at T =
 //      8192 traces would hold 4.3 GB of them);
-//   3. ce = lse - logit[label] (labels clamped into the vocabulary), mse =
-//      (duration - continuous[..., 0])^2;
+//   3. ce = lse - logit[label], mse = (duration - continuous[..., 0])^2;
+//      a label is read as _ce's jnp.take_along_axis in fill mode reads it
+//      (embed_take.cuh take_label): one in [-V, 0) wraps, any other past
+//      the head gives a NaN ce, so a NaN error (and squashed score) at
+//      that real position; the log-sum-exps stay finite;
 //   4. err accumulated in the reference's order (:116-120) with separate
 //      IEEE steps.
 // The f32 kernel (the trainer's forward) can also write each real
@@ -73,22 +76,52 @@
 // registers, and each CTA reads the planes from L2 once an item (~2 MB a
 // tile: 128 flops a byte, about the L2's rate at the tensor-core peak).
 //
-// CUDA cores (f32; and bf16 where head_planes cannot split the heads: y is
-// then bf16, the heads f32 FMAs all the same): one CTA of 256 threads per
-// chunk of 256 consecutive positions. A ballot compacts the chunk's real
-// positions into shared memory; they are scored in tiles of P = 16 TS:
-// each warp normalises positions (lane k holding values k, k + 32, ...)
-// into a (P, d + 4) f32 tile in shared memory, then the CTA streams each
-// head's weight rows in chunks of 16 TS (a (16 TS, d + 4) tile, rows
-// padded by 4 floats so the 16-byte reads of 8 rows hit distinct banks).
-// Thread (tp, tv) = (tid / 16, tid % 16) computes the TS x TS logits of
-// positions tp * TS + i and vocabulary rows tv + 16 j with f32 FMAs, and
-// keeps a running (max, sum) per position; the 16 threads of a position
-// group merge theirs with shuffles at the end of each head. TS = 4 up to
-// d 384, 2 to 768, 1 to 1024 (the two tiles within shared memory). Bound:
-// 2 d (512 + 2048 + 8 + 1) = 657,664 f32 flops a position at d 128, 0.205
-// ms at 67 TFLOP/s at T = 2048; it is bound by shared-memory bandwidth (8
-// 16-byte reads per 64 FMAs at TS = 4).
+// CUDA cores (f32, the trainer's forward with its log-sum-exps; and bf16
+// where head_planes cannot split the heads: y is then bf16, the heads f32
+// FMAs all the same). Its numbers are those of the design it replaced (a
+// CTA of 256 threads a chunk of 256 consecutive positions; at the
+// trainer's step 8 CTAs on 132 SMs), bit for bit: each logit the same
+// fmaf chain over k ascending from 0 plus the bias; each head's 16
+// residue classes mod 16 of the vocabulary walked row by row in ascending
+// order with the same running (max, sum) update (lse_step); the classes
+// merged by the same xor 8, 4, 2, 1 tree (lse_merge is commutative, so a
+// subtree's value is the same whichever lanes hold it); the same error.
+// Two launches:
+//   list   a thread a position: masked ones get err = 0 (and lse = 0), real
+//          ones are listed (block ballots, an atomic a block) with their
+//          dec_ln statistics (ln_exact.cuh's mean and 1 / std, eight lanes
+//          a row, blocks of 64 positions so the grid spans the SMs);
+//   score  persistent CTAs of 256 threads over work items (a tile of P
+//          listed positions, the service or the name head, a group of CG
+//          of its classes: those = g mod 16 / CG, the leaves of one subtree
+//          of the merge tree), until the device-side count runs out.
+//          CG is chosen so an item holds ~256 weight rows (service 8
+//          classes of 32 rows, name 2 of 128: 10 items a tile, 200 at the
+//          trainer's 619 real positions). An item: its positions' dec_ln
+//          from the statistics into a (P, d + pad) f32 tile; its classes'
+//          rows streamed in chunks of NR rows (the rows of a class in
+//          order) by cp.async; the logits of a chunk by a register tile a
+//          thread (4 positions x 4 rows; 16-byte shared reads of 8
+//          distinct positions and 4 distinct rows a warp: conflict-free)
+//          into shared memory; each (position, class) walked by one thread
+//          over the chunk's logits in order, the walk of chunk k - 1
+//          issued before chunk k's products; the item's subtree merged by
+//          shuffles; its (max, sum) and, where it walked the label's row,
+//          the label's logit left in the scratch. The tile's first item
+//          also takes the kind and duration logits (a thread a dot). The
+//          last item of a tile to finish (a ticket a tile, no float
+//          atomics) merges the items by the tree's top, walks the kind
+//          head's classes a lane each, and writes the error, the
+//          log-sum-exps and the squashed score.
+// P = 32 positions and 128-row chunks at d <= 128 (64 x 64, 8 x 2 logits
+// a thread, from kLargeM positions: each weight row is read by twice the
+// positions), both single-buffered (two CTAs an SM); 32 x 32 double-
+// buffered to d 256, 16 x 32 to 512, 8 x 32 single-buffered to 1024
+// (shared memory).
+// Bound: 2 d (512 + 2048 + 8 + 1) = 657,664 f32 flops a real position at d
+// 128: 0.0061 ms at the trainer's 619 positions and 0.205 ms at T = 2048
+// (20,848) at 67 TFLOP/s. Each logit also costs its walk step (an exp and
+// a few selects, ~15% of its 128 FMAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,13 +129,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "embed_take.cuh"
 #include "ln_exact.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 256;  // positions per CTA
 
 // merge a running (max, sum) with another; -inf marks an empty one
 __device__ __forceinline__ void lse_merge(float& m, float& s, float mo,
@@ -127,6 +160,34 @@ __device__ __forceinline__ float weighted_error(
   return __fadd_rn(e, __fmul_rn(w_d, __fmul_rn(dd, dd)));
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
+                                                 const void* src,
+                                                 bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
 // ---------------------------------------------------------------- f32
 
 struct Heads {
@@ -135,41 +196,139 @@ struct Heads {
   int v[4];
 };
 
-// TS: the CTA scores (16 TS positions) x (16 TS vocabulary rows) tiles,
-// thread (tp, tv) the TS x TS logits of positions tp * TS + i and rows tv
-// + 16 j; PER: each lane's share of a position's LayerNorm (values lane +
-// 32 k, so any d % 4 == 0 up to 32 PER). T: the decoder's working type
-// (f32, or bf16 whose heads the three planes cannot hold).
-template <typename T, int PER, int TS>
-__global__ void __launch_bounds__(kThreads) recon_ce_kernel(
-    const T* __restrict__ dec, long long M, int d,
-    const float* __restrict__ gamma, const float* __restrict__ beta,
-    float eps, Heads heads, const int32_t* __restrict__ cat, int C,
-    const float* __restrict__ cont, int D, const uint8_t* __restrict__ mask,
-    float w_s, float w_n, float w_k, float w_d, float* __restrict__ err,
-    const int32_t* __restrict__ span_map, float* __restrict__ scores,
-    float* __restrict__ lse) {
-  constexpr int kTP = 16 * TS;  // positions a tile
-  constexpr int kVR = 16 * TS;  // vocabulary rows a weight tile
-  const int ld = d + 4;
-  extern __shared__ float4 smem4[];
-  float* s_y = reinterpret_cast<float*>(smem4);  // (kTP, ld)
-  float* s_w = s_y + kTP * ld;                   // (kVR, ld)
-  __shared__ int s_pos[kChunk];
+constexpr int kItemRows = 256;  // an item's weight rows, about
+constexpr int kMinTile = 8;     // the smallest tile of listed positions
+constexpr int kListPos = 64;    // positions a block of the list kernel
+constexpr long long kLargeM = 16384;  // positions from which d <= 128
+                                      // takes 64-position tiles
+
+// One step of a class's walk over its next logit z: the running (max,
+// sum) update of the design before this one (where z > m the sum is
+// rescaled, s * e + 1 by one FMA, else e is added), with its one exp
+// taken on the argument either branch gives, so a warp does not diverge
+__device__ __forceinline__ void lse_step(float& m, float& s, float z) {
+  const bool up = z > m;
+  const float e = expf(up ? m - z : z - m);
+  s = up ? s * e + 1.f : s + e;
+  m = up ? z : m;
+}
+
+// The residue classes mod 16 an item of a head of v rows walks: CG of them
+// (a power of two; CG ceil(v / 16) <= kItemRows where one class allows),
+// those congruent to the item's group g mod 16 / CG, the leaves of one
+// subtree of the xor 8, 4, 2, 1 merge tree (tests/test_torch_kernel_
+// models.py replays the rule and the walk).
+__host__ __device__ inline int class_group(int v) {
+  const int rows = (v + 15) / 16;
+  int cg = 16;
+  while (cg > 1 && cg * rows > kItemRows) cg >>= 1;
+  return cg;
+}
+
+// a tile's items: the service head's groups, then the name head's
+__host__ __device__ inline int items_per_tile(int v0, int v1) {
+  return 16 / class_group(v0) + 16 / class_group(v1);
+}
+
+// a shared row of d floats: 16-byte reads of 8 rows hit distinct banks
+// (the pitch in 16-byte words is odd)
+__host__ __device__ inline int f32_pitch(int d) {
+  return (d / 4) % 2 == 0 ? d + 4 : d + 8;
+}
+
+__host__ __device__ inline long long align16(long long b) {
+  return (b + 15) & ~15LL;
+}
+
+// The f32 route's scratch: its counters (int32, zero when made, left at
+// zero by every call: the count, the CTAs' exit ticket, a ticket a tile)
+// and its data (written before they are read: the list, the LayerNorm
+// statistics, the (max, sum) partials, the label logits), each cached per
+// device and stream.
+struct F32Scratch {
+  int32_t* count;      // real positions listed
+  int32_t* done;       // score CTAs finished
+  int32_t* tile_done;  // (M / kMinTile + 1,) a tile's items finished
+  int32_t* list;       // (M,) the real positions
+  float2* stats;       // (M,) their dec_ln mean and 1 / std
+  float2* part;        // (M, items a tile): (max, sum) of an item's subtree
+  float* zl;           // (M, 2): the service and name label logits
+  float* zk;           // (M, kind rows + 1): the kind and duration logits
+};
+
+__host__ __device__ inline long long f32_counters(long long M) {
+  return 2 + M / kMinTile + 1;
+}
+
+__host__ __device__ inline long long f32_data_bytes(long long M, int ni,
+                                                    int nk) {
+  return align16(4 * M) + align16(8 * M) + align16(8 * M * ni) +
+         align16(8 * M) + align16(4 * M * nk);
+}
+
+F32Scratch carve_f32(void* counters, void* data, long long M, int ni) {
+  F32Scratch s;
+  s.count = static_cast<int32_t*>(counters);
+  s.done = s.count + 1;
+  s.tile_done = s.count + 2;
+  char* p = static_cast<char*>(data);
+  s.list = reinterpret_cast<int32_t*>(p);
+  p += align16(4 * M);
+  s.stats = reinterpret_cast<float2*>(p);
+  p += align16(8 * M);
+  s.part = reinterpret_cast<float2*>(p);
+  p += align16(8 * M * ni);
+  s.zl = reinterpret_cast<float*>(p);
+  p += align16(8 * M);
+  s.zk = reinterpret_cast<float*>(p);
+  return s;
+}
+
+struct F32Args {
+  const void* dec;
+  long long M;
+  int d;
+  const float* gamma;
+  const float* beta;
+  float eps;
+  Heads heads;
+  const int32_t* cat;
+  int C;
+  const float* cont;
+  int D;
+  float w_s, w_n, w_k, w_d;
+  float* err;
+  const int32_t* span_map;
+  float* scores;
+  float* lse;
+  F32Scratch sc;
+};
+
+// Lists the real positions (block ballots, one atomic a block: the order
+// is free, each position's result is its own), writes 0 at the others, and
+// takes each listed position's dec_ln statistics (ln_exact.cuh's mean and
+// 1 / std: exact f64 sums, so any lane layout gives warp_ln_row_strided's
+// bits) at its list slot, once a position. A block of 256 threads takes
+// kListPos positions, so a block's real rows (eight lanes each) are one
+// pass of its 32 lane groups and the grid spans the SMs at the trainer's
+// 2048 positions.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) recon_ce_list_kernel(
+    const uint8_t* __restrict__ mask, long long M, const T* __restrict__ dec,
+    int d, float eps, float* __restrict__ err, float* __restrict__ lse,
+    int32_t* __restrict__ list, float2* __restrict__ stats,
+    int32_t* __restrict__ count) {
   __shared__ int s_wcount[kWarps];
-  __shared__ int s_lab[3][kTP];
-  __shared__ float s_c0[kTP], s_dur[kTP], s_zl[3][kTP], s_lse[3][kTP];
-
+  __shared__ int s_base, s_pos[kThreads];
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const long long base = (long long)blockIdx.x * kChunk;
-
-  // ---- compact the chunk's real positions
-  const long long pos = base + tid;
-  const bool real = pos < M && mask[pos];
-  if (pos < M && !real) {
-    err[pos] = 0.f;
+  const long long base = (long long)blockIdx.x * kListPos;
+  const long long q = base + tid;
+  const bool in = tid < kListPos && q < M;
+  const bool real = in && mask[q];
+  if (in && !real) {
+    err[q] = 0.f;
     if (lse != nullptr)
-      for (int h = 0; h < 3; ++h) lse[pos * 3 + h] = 0.f;
+      for (int h = 0; h < 3; ++h) lse[q * 3 + h] = 0.f;
   }
   const unsigned bal = __ballot_sync(0xffffffffu, real);
   if (lane == 0) s_wcount[wid] = __popc(bal);
@@ -180,180 +339,398 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(
     off += w < wid ? s_wcount[w] : 0;
     total += s_wcount[w];
   }
+  if (tid == 0) s_base = total ? atomicAdd(count, total) : 0;
   if (real) s_pos[off + __popc(bal & ((1u << lane) - 1u))] = tid;
   __syncthreads();
-
-  const int tp = tid >> 4, tv = tid & 15;
-  for (int t0 = 0; t0 < total; t0 += kTP) {
-    const int np = min(kTP, total - t0);
-    // ---- dec_ln of the tile's positions, one warp per position
-    for (int p = wid; p < kTP; p += kWarps) {
-      float* yr = s_y + p * ld;
-      float y[PER];
-      if (p < np) {
-        const long long q = base + s_pos[t0 + p];
-        warp_ln_row_strided<T, PER>(dec + q * d, d, gamma, beta, eps, y);
-        if (lane < 3) {
-          const int lab = cat[q * C + lane];
-          s_lab[lane][p] = min(max(lab, 0), heads.v[lane] - 1);
-        }
-        if (lane == 3) s_c0[p] = cont[q * D];
-      } else {
-#pragma unroll
-        for (int j = 0; j < PER; ++j) y[j] = 0.f;
-        if (lane < 3) s_lab[lane][p] = 0;
-        if (lane == 3) s_c0[p] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < PER; ++j)
-        if (j * 32 + lane < d) yr[j * 32 + lane] = y[j];
-    }
-    // ---- the four heads over the tile
-    for (int h = 0; h < 4; ++h) {
-      const float* __restrict__ W = heads.w[h];
-      const float* __restrict__ B = heads.b[h];
-      const int V = heads.v[h];
-      float m[TS], s[TS];
-#pragma unroll
-      for (int i = 0; i < TS; ++i) {
-        m[i] = -INFINITY;
-        s[i] = 0.f;
-      }
-      for (int v0 = 0; v0 < V; v0 += kVR) {
-        __syncthreads();  // s_y written / the previous weight tile read
-        const int d4 = d / 4;
-        for (int e = tid; e < kVR * d4; e += kThreads) {
-          const int r = e / d4, c4 = e % d4;
-          float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (v0 + r < V)
-            val = __ldg(reinterpret_cast<const float4*>(
-                W + (long long)(v0 + r) * d) + c4);
-          reinterpret_cast<float4*>(s_w + r * ld)[c4] = val;
-        }
-        __syncthreads();
-        float acc[TS][TS];
-#pragma unroll
-        for (int i = 0; i < TS; ++i)
-#pragma unroll
-          for (int j = 0; j < TS; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < d; k += 4) {
-          float4 yv[TS], wv[TS];
-#pragma unroll
-          for (int i = 0; i < TS; ++i)
-            yv[i] = *reinterpret_cast<const float4*>(s_y + (tp * TS + i) * ld
-                                                     + k);
-#pragma unroll
-          for (int j = 0; j < TS; ++j)
-            wv[j] = *reinterpret_cast<const float4*>(s_w + (tv + 16 * j) * ld
-                                                     + k);
-#pragma unroll
-          for (int i = 0; i < TS; ++i)
-#pragma unroll
-            for (int j = 0; j < TS; ++j) {
-              float a = acc[i][j];
-              a = fmaf(yv[i].x, wv[j].x, a);
-              a = fmaf(yv[i].y, wv[j].y, a);
-              a = fmaf(yv[i].z, wv[j].z, a);
-              a = fmaf(yv[i].w, wv[j].w, a);
-              acc[i][j] = a;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < TS; ++j) {
-          const int v = v0 + tv + 16 * j;
-          if (v >= V) continue;
-          const float bias = B[v];
-#pragma unroll
-          for (int i = 0; i < TS; ++i) {
-            const int p = tp * TS + i;
-            const float z = __fadd_rn(acc[i][j], bias);
-            if (h == 3) {
-              s_dur[p] = z;  // the duration head: one logit, no lse
-            } else {
-              if (v == s_lab[h][p]) s_zl[h][p] = z;
-              if (z > m[i]) {
-                s[i] = s[i] * expf(m[i] - z) + 1.f;
-                m[i] = z;
-              } else {
-                s[i] += expf(z - m[i]);
-              }
-            }
-          }
-        }
-      }
-      if (h < 3) {
-#pragma unroll
-        for (int i = 0; i < TS; ++i) {
-#pragma unroll
-          for (int o = 8; o; o >>= 1) {
-            const float mo = __shfl_xor_sync(0xffffffffu, m[i], o);
-            const float so = __shfl_xor_sync(0xffffffffu, s[i], o);
-            lse_merge(m[i], s[i], mo, so);
-          }
-          if (tv == 0) s_lse[h][tp * TS + i] = m[i] + logf(s[i]);
-        }
-      }
-    }
-    __syncthreads();
-    // ---- the weighted error, in the reference's order
-    if (tid < np) {
-      const long long q = base + s_pos[t0 + tid];
-      const float e = weighted_error(
-          s_lse[0][tid], s_zl[0][tid], s_lse[1][tid], s_zl[1][tid],
-          s_lse[2][tid], s_zl[2][tid], s_dur[tid], s_c0[tid], w_s, w_n, w_k,
-          w_d);
-      err[q] = e;
-      if (lse != nullptr)
-        for (int h = 0; h < 3; ++h) lse[q * 3 + h] = s_lse[h][tid];
-      if (span_map != nullptr) {
-        const int idx = span_map[q];
-        if (idx >= 0) scores[idx] = 1.f - expf(-e);
-      }
-    }
-    __syncthreads();  // the next tile overwrites the shared tiles
+  if (tid < total) list[s_base + tid] = (int)(base + s_pos[tid]);
+  // eight lanes a row, four rows a warp at once: each lane sums its values
+  // (sub, sub + 8, ...) exactly in f64, the group's sums by three shuffles
+  // (ln_mean's and ln_rstd's steps on the row's sums)
+  const int sub = lane & 7;
+  for (int k = wid * 4 + (lane >> 3); k - (lane >> 3) < total;
+       k += kThreads / 8) {  // warp-uniform
+    const bool mine = k < total;
+    const T* xr = dec + (base + s_pos[mine ? k : 0]) * d;
+    double sum = 0.0;
+    if (mine)
+      for (int f = sub; f < d; f += 8) sum += (double)load_f(xr + f);
+    const float mean = __fdiv_rn((float)group_sum<8>(sum), (float)d);
+    double sq = 0.0;
+    if (mine)
+      for (int f = sub; f < d; f += 8) sq += ln_sq_dev(load_f(xr + f), mean);
+    const float var = __fdiv_rn((float)group_sum<8>(sq), (float)d);
+    const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    if (mine && sub == 0) stats[s_base + k] = make_float2(mean, rstd);
   }
 }
 
-template <typename T, int PER, int TS>
-int launch_f32_t(const T* dec, long long M, int d, const float* gamma,
-                 const float* beta, float eps, const Heads& heads,
-                 const int32_t* cat, int C, const float* cont, int D,
-                 const uint8_t* mask, const float* wts, float* err,
-                 const int32_t* span_map, float* scores, float* lse,
-                 cudaStream_t st) {
-  const int smem = 2 * 16 * TS * (d + 4) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      recon_ce_kernel<T, PER, TS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long blocks = (M + kChunk - 1) / kChunk;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  recon_ce_kernel<T, PER, TS><<<(unsigned)blocks, kThreads, smem, st>>>(
-      dec, M, d, gamma, beta, eps, heads, cat, C, cont, D, mask, wts[0],
-      wts[1], wts[2], wts[3], err, span_map, scores, lse);
-  return (int)cudaGetLastError();
+// A head logit's dot on CUDA cores: the f32 FMA chain over k ascending
+// from 0, four values a step, of the design before this one
+__device__ __forceinline__ float row_dot(const float* y, const float* w,
+                                         int d) {
+  float a = 0.f;
+  for (int k = 0; k < d; k += 4) {
+    const float4 yv = *reinterpret_cast<const float4*>(y + k);
+    const float4 wv = __ldg(reinterpret_cast<const float4*>(w + k));
+    a = fmaf(yv.x, wv.x, a);
+    a = fmaf(yv.y, wv.y, a);
+    a = fmaf(yv.z, wv.z, a);
+    a = fmaf(yv.w, wv.w, a);
+  }
+  return a;
 }
 
-// the tile by d: (64 x 64) up to d 384, (32 x 32) to 768, (16 x 16) to 1024
+// The scoring kernel: persistent CTAs over items (a tile of P listed
+// positions, the service or name head, a group of its classes) until the
+// device-side count runs out. TSP, TSR: the GEMM thread's positions tp +
+// 8 i (i < TSP) and chunk rows tr + 32 j (j < TSR), so P = 8 TSP and a
+// chunk NR = 32 TSR rows; DB: the chunks double-buffered.
+template <typename T, int TSP, int TSR, bool DB>
+__global__ void __launch_bounds__(kThreads) recon_ce_kernel(const F32Args a) {
+  constexpr int P = 8 * TSP;
+  constexpr int NR = 32 * TSR;
+  constexpr int LDL = NR + 1;
+  constexpr int NB = DB ? 2 : 1;
+  constexpr int kPairs = (16 * P + kThreads - 1) / kThreads;
+  const int d = a.d, ld = f32_pitch(d);
+  extern __shared__ float4 smem4[];
+  float* s_y = reinterpret_cast<float*>(smem4);  // (P, ld): dec_ln's rows
+  float* s_w = s_y + P * ld;                     // NB x (NR, ld): a chunk
+  float* s_l = s_w + NB * NR * ld;               // (P, LDL): its logits
+  __shared__ int s_q[P], s_lab[P];
+  __shared__ float2 s_st[P];
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const T* dec = static_cast<const T*>(a.dec);
+  const int count = *a.sc.count;
+  const int tiles = (count + P - 1) / P;
+  const int n0 = 16 / class_group(a.heads.v[0]);
+  const int ni = n0 + 16 / class_group(a.heads.v[1]);
+  const long long items = (long long)tiles * ni;
+  const int tp = lane & 7, tr = (wid << 2) | (lane >> 3);
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int tile = (int)(item / ni), it = (int)(item % ni);
+    const int h = it < n0 ? 0 : 1;
+    const int g = it < n0 ? it : it - n0;
+    const int V = a.heads.v[h];
+    const int cg = class_group(V), step = 16 / cg;
+    const int rj = NR / cg;  // a class's rows a chunk
+    const int nchunks = ((V + 15) / 16 + rj - 1) / rj;
+    const float* __restrict__ W = a.heads.w[h];
+    const float* __restrict__ B = a.heads.b[h];
+    const int p0 = tile * P, np = min(P, count - p0);
+
+    __syncthreads();  // the previous item's shared data are consumed
+    if (tid < P) {
+      int q = -1, lab = -1;
+      float2 st = make_float2(0.f, 0.f);
+      if (tid < np) {
+        q = a.sc.list[p0 + tid];
+        lab = take_label(a.cat[(long long)q * a.C + h], V);
+        st = a.sc.stats[p0 + tid];
+      }
+      s_q[tid] = q;
+      s_lab[tid] = lab;
+      s_st[tid] = st;
+    }
+    // chunk k: its row r = ci rj + jj is the head's row g + step ci + 16
+    // (k rj + jj), the jj-th of class g + step ci (zeros past V)
+    auto load_chunk = [&](int k, float* dst) {
+      const int d4 = d / 4;
+      for (int e = tid; e < NR * d4; e += kThreads) {
+        const int r = e / d4, c4 = e - r * d4;
+        const int ci = r / rj, jj = r - ci * rj;
+        const int v = g + step * ci + 16 * (k * rj + jj);
+        const bool in = v < V;
+        cp_async16_zfill(smem_u32(dst + r * ld + 4 * c4),
+                         W + (long long)(in ? v : 0) * d + 4 * c4, in);
+      }
+      cp_async_commit();
+    };
+    load_chunk(0, s_w);
+    __syncthreads();  // s_q, s_st
+    // dec_ln of the tile's positions from their statistics (ln_exact.cuh's
+    // steps: warp_ln_row_strided's bits), every thread on a row's values
+    // in turn; zeros past np
+    for (int e = tid; e < P * d; e += kThreads) {
+      const int p = e / d, f = e - p * d;
+      float y = 0.f;
+      if (p < np) {
+        const T* xr = dec + (long long)s_q[p] * d;
+        y = ln_out(load_f(xr + f), s_st[p].x, s_st[p].y, __ldg(a.gamma + f),
+                   __ldg(a.beta + f), xr);
+      }
+      s_y[p * ld + f] = y;
+    }
+
+    // the walks: pair pr = p cg + ci (a position's classes on neighbouring
+    // lanes), this thread's pairs tid + u kThreads (P cg <= 16 P)
+    float m[kPairs], s[kPairs], zlab[kPairs];
+    bool has[kPairs];
+#pragma unroll
+    for (int u = 0; u < kPairs; ++u) {
+      m[u] = -INFINITY;
+      s[u] = 0.f;
+      zlab[u] = 0.f;
+      has[u] = false;
+    }
+    // class g + step ci of position p over chunk k's logits, ascending
+    auto walk = [&](int k) {
+#pragma unroll
+      for (int u = 0; u < kPairs; ++u) {
+        const int pr = tid + u * kThreads;
+        const int p = pr / cg, ci = pr - p * cg;
+        if (p >= np) continue;
+        const int c = g + step * ci;
+        const int lab = s_lab[p];
+        const float* lr = s_l + p * LDL + ci * rj;
+        for (int jj = 0; jj < rj; ++jj) {
+          const int v = c + 16 * (k * rj + jj);
+          if (v >= V) break;
+          const float z = lr[jj];
+          if (v == lab) {
+            zlab[u] = z;
+            has[u] = true;
+          }
+          lse_step(m[u], s[u], z);
+        }
+      }
+    };
+
+    for (int k = 0; k < nchunks; ++k) {
+      const float* w = s_w + (DB ? (k & 1) * NR * ld : 0);
+      cp_async_wait<0>();
+      __syncthreads();  // chunk k landed; dec_ln's rows and k - 1's logits
+      if (DB && k + 1 < nchunks)
+        load_chunk(k + 1, s_w + ((k + 1) & 1) * NR * ld);
+      if (k > 0) walk(k - 1);  // its warps' latency under the others' FMAs
+      // this thread's rows of the chunk and their bias, loaded under the
+      // products
+      int vr[TSR];
+      float bias[TSR];
+#pragma unroll
+      for (int j = 0; j < TSR; ++j) {
+        const int r = tr + 32 * j;
+        const int ci = r / rj, jj = r - ci * rj;
+        vr[j] = g + step * ci + 16 * (k * rj + jj);
+        bias[j] = vr[j] < V ? __ldg(B + vr[j]) : 0.f;
+      }
+      float acc[TSP][TSR];
+#pragma unroll
+      for (int i = 0; i < TSP; ++i)
+#pragma unroll
+        for (int j = 0; j < TSR; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < d; kk += 4) {
+        float4 yv[TSP], wv[TSR];
+#pragma unroll
+        for (int i = 0; i < TSP; ++i)
+          yv[i] = *reinterpret_cast<const float4*>(s_y + (tp + 8 * i) * ld +
+                                                   kk);
+#pragma unroll
+        for (int j = 0; j < TSR; ++j)
+          wv[j] = *reinterpret_cast<const float4*>(w + (tr + 32 * j) * ld +
+                                                   kk);
+#pragma unroll
+        for (int i = 0; i < TSP; ++i)
+#pragma unroll
+          for (int j = 0; j < TSR; ++j) {
+            float x = acc[i][j];
+            x = fmaf(yv[i].x, wv[j].x, x);
+            x = fmaf(yv[i].y, wv[j].y, x);
+            x = fmaf(yv[i].z, wv[j].z, x);
+            x = fmaf(yv[i].w, wv[j].w, x);
+            acc[i][j] = x;
+          }
+      }
+      __syncthreads();  // k - 1's walk is done with the logits (and one
+                        // buffer's chunk with W)
+      if (!DB && k + 1 < nchunks) load_chunk(k + 1, s_w);
+#pragma unroll
+      for (int j = 0; j < TSR; ++j) {
+        if (vr[j] >= V) continue;
+#pragma unroll
+        for (int i = 0; i < TSP; ++i)
+          s_l[(tp + 8 * i) * LDL + tr + 32 * j] =
+              __fadd_rn(acc[i][j], bias[j]);
+      }
+    }
+    __syncthreads();
+    walk(nchunks - 1);
+
+    // the item's subtree of the merge tree (xor cg / 2, ..., 1 over a
+    // position's classes: xor 8, ..., step over the class), then its
+    // (max, sum) and the label's logit where the item walked its row
+#pragma unroll
+    for (int u = 0; u < kPairs; ++u) {
+      for (int o = cg >> 1; o; o >>= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[u], o);
+        const float so = __shfl_xor_sync(0xffffffffu, s[u], o);
+        lse_merge(m[u], s[u], mo, so);
+      }
+      const int pr = tid + u * kThreads;
+      const int p = pr / cg, ci = pr - p * cg;
+      if (p < np) {
+        const long long slot = p0 + p;
+        if (ci == 0) a.sc.part[slot * ni + it] = make_float2(m[u], s[u]);
+        if (has[u]) a.sc.zl[slot * 2 + h] = zlab[u];
+      }
+    }
+
+    // the tile's kind logits and duration logit, by its first item (a
+    // thread a dot: the parent's chains) while the others run
+    const int nk = a.heads.v[2] + 1;
+    if (it == 0) {
+      for (int e = tid; e < P * nk; e += kThreads) {
+        const int p = e % P, r = e / P;
+        if (p >= np) continue;
+        const float* wr = r + 1 < nk ? a.heads.w[2] + (long long)r * d
+                                     : a.heads.w[3];
+        const float b = r + 1 < nk ? __ldg(a.heads.b[2] + r)
+                                   : __ldg(a.heads.b[3]);
+        a.sc.zk[(p0 + p) * (long long)nk + r] =
+            __fadd_rn(row_dot(s_y + p * ld, wr, d), b);
+      }
+    }
+
+    // the tile's last item to finish takes the merge (a ticket a tile)
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) s_last = atomicAdd(a.sc.tile_done + tile, 1) == ni - 1;
+    __syncthreads();
+    if (!s_last) continue;
+    __threadfence();
+    if (tid == 0) a.sc.tile_done[tile] = 0;
+    // 16 lanes a position (lane tv, a class or an item): the top of each
+    // tree, the kind head's classes walked over the first item's logits,
+    // the error
+    const int tv = tid & 15;
+    for (int pp = tid >> 4; pp < P; pp += kThreads / 16) {  // warp-uniform
+      const bool live = pp < np;
+      const long long q = live ? s_q[pp] : 0;
+      const long long slot = p0 + pp;
+      float lse3[3], zl3[3];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int nh = 16 / class_group(a.heads.v[hh]);
+        float mm = -INFINITY, ss = 0.f;
+        if (live && tv < nh) {
+          const float2 ms = __ldcg(a.sc.part + slot * ni +
+                                   (hh == 0 ? 0 : n0) + tv);
+          mm = ms.x;
+          ss = ms.y;
+        }
+        for (int o = nh >> 1; o; o >>= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, mm, o);
+          const float so = __shfl_xor_sync(0xffffffffu, ss, o);
+          lse_merge(mm, ss, mo, so);
+        }
+        lse3[hh] = mm + logf(ss);
+        const int lab =
+            live ? take_label(a.cat[q * a.C + hh], a.heads.v[hh]) : -1;
+        zl3[hh] = lab < 0 ? NAN : __ldcg(a.sc.zl + slot * 2 + hh);
+      }
+      {
+        const int Vk = nk - 1;
+        const int lab = live ? take_label(a.cat[q * a.C + 2], Vk) : -1;
+        const float* zr = a.sc.zk + slot * nk;
+        float mm = -INFINITY, ss = 0.f, zk = 0.f;
+        for (int v = tv; live && v < Vk; v += 16) {
+          const float z = __ldcg(zr + v);
+          if (v == lab) zk = z;
+          lse_step(mm, ss, z);
+        }
+#pragma unroll
+        for (int o = 8; o; o >>= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, mm, o);
+          const float so = __shfl_xor_sync(0xffffffffu, ss, o);
+          lse_merge(mm, ss, mo, so);
+        }
+        lse3[2] = mm + logf(ss);
+        const float zs = __shfl_sync(0xffffffffu, zk, (lane & 16) | (lab & 15));
+        zl3[2] = lab < 0 ? NAN : zs;
+      }
+      if (live && tv == 0) {
+        const float dur = __ldcg(a.sc.zk + slot * nk + nk - 1);
+        const float e = weighted_error(lse3[0], zl3[0], lse3[1], zl3[1],
+                                       lse3[2], zl3[2], dur, a.cont[q * a.D],
+                                       a.w_s, a.w_n, a.w_k, a.w_d);
+        a.err[q] = e;
+        if (a.lse != nullptr)
+          for (int hh = 0; hh < 3; ++hh) a.lse[q * 3 + hh] = lse3[hh];
+        if (a.span_map != nullptr) {
+          const int idx = a.span_map[q];
+          if (idx >= 0) a.scores[idx] = 1.f - expf(-e);
+        }
+      }
+    }
+  }
+  // the last CTA to finish leaves the count and its own ticket at zero:
+  // every CTA read the count before it took a ticket
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(a.sc.done, 1) == (int)gridDim.x - 1) {
+      *a.sc.count = 0;
+      *a.sc.done = 0;
+    }
+  }
+}
+
+template <int TSP, int TSR, bool DB>
+int f32_smem(int d) {
+  const int P = 8 * TSP, NR = 32 * TSR;
+  return ((P + (DB ? 2 : 1) * NR) * f32_pitch(d) + P * (NR + 1)) *
+         (int)sizeof(float);
+}
+
+template <typename T, int TSP, int TSR, bool DB>
+int launch_f32_t(const F32Args& a, const uint8_t* mask, int sms,
+                 int* launches, cudaStream_t st) {
+  // the scoring kernel's attribute and grid first: once the list kernel
+  // has counted into the scratch, only the scoring kernel zeroes it
+  auto kern = recon_ce_kernel<T, TSP, TSR, DB>;
+  const int smem = f32_smem<TSP, TSR, DB>(a.d);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;  // the persistent CTAs: as many as the SMs hold
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long blocks = (a.M + kListPos - 1) / kListPos;
+  recon_ce_list_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+      mask, a.M, static_cast<const T*>(a.dec), a.d, a.eps, a.err, a.lse,
+      a.sc.list, a.sc.stats, a.sc.count);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ++*launches;
+  kern<<<sms * per_sm, kThreads, smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launches;
+  return (int)e;
+}
+
+// the tile by d: 32 positions x 128-row chunks to d 128 (64 x 64 from
+// kLargeM positions: each weight row read by twice the positions, half
+// the items), both single-buffered (two CTAs an SM); 32 x 32 double-
+// buffered to d 256, 16 x 32 to 512, 8 x 32 single-buffered to 1024
+// (shared memory)
 template <typename T>
-int launch_f32_d(const T* dec, long long M, int d, const float* gamma,
-                 const float* beta, float eps, const Heads& heads,
-                 const int32_t* cat, int C, const float* cont, int D,
-                 const uint8_t* mask, const float* wts, float* err,
-                 const int32_t* span_map, float* scores, float* lse,
-                 cudaStream_t st) {
-  if (d <= 384)
-    return launch_f32_t<T, 12, 4>(dec, M, d, gamma, beta, eps, heads, cat, C,
-                                  cont, D, mask, wts, err, span_map, scores,
-                                  lse, st);
-  if (d <= 768)
-    return launch_f32_t<T, 24, 2>(dec, M, d, gamma, beta, eps, heads, cat, C,
-                                  cont, D, mask, wts, err, span_map, scores,
-                                  lse, st);
-  return launch_f32_t<T, 32, 1>(dec, M, d, gamma, beta, eps, heads, cat, C,
-                                cont, D, mask, wts, err, span_map, scores,
-                                lse, st);
+int launch_f32_d(const F32Args& a, const uint8_t* mask, int sms,
+                 int* launches, cudaStream_t st) {
+  if (a.d <= 128 && a.M >= kLargeM)
+    return launch_f32_t<T, 8, 2, false>(a, mask, sms, launches, st);
+  if (a.d <= 128)
+    return launch_f32_t<T, 4, 4, false>(a, mask, sms, launches, st);
+  if (a.d <= 256)
+    return launch_f32_t<T, 4, 1, true>(a, mask, sms, launches, st);
+  if (a.d <= 512)
+    return launch_f32_t<T, 2, 1, true>(a, mask, sms, launches, st);
+  return launch_f32_t<T, 1, 1, false>(a, mask, sms, launches, st);
 }
 
 // ---------------------------------------------------------------- bf16
@@ -412,25 +789,6 @@ struct TcArgs {
   int part_items;
   int32_t* tile_done;  // per split tile, zeroed: slices finished
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
@@ -714,17 +1072,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         q = list[tid];
         st = a.stats[(long long)tile * kBM + tid];
         const int32_t* c = a.cat + (long long)q * a.C;
-        s_lab[0][tid] = min(max((int)c[0], 0), a.v_s - 1);
-        s_lab[1][tid] = a.vs_pad + min(max((int)c[1], 0), a.v_n - 1);
-        s_lab[2][tid] = min(max((int)c[2], 0), a.v_k - 1);
+        const int l0 = take_label(c[0], a.v_s), l1 = take_label(c[1], a.v_n);
+        s_lab[0][tid] = l0;
+        s_lab[1][tid] = l1 < 0 ? -1 : a.vs_pad + l1;
+        s_lab[2][tid] = take_label(c[2], a.v_k);
         s_c0[tid] = a.cont[(long long)q * a.Dc];
+        // a label no row holds keeps NaN: its error is NaN
+        s_zl[0][tid] = l0 < 0 ? NAN : 0.f;
+        s_zl[1][tid] = l1 < 0 ? NAN : 0.f;
       } else {
         s_lab[0][tid] = s_lab[1][tid] = s_lab[2][tid] = -1;
+        s_zl[0][tid] = 0.f;
+        s_zl[1][tid] = 0.f;
       }
       s_q[tid] = q;
       s_st[tid] = st;
-      s_zl[0][tid] = 0.f;
-      s_zl[1][tid] = 0.f;
     }
     __syncthreads();
     // their decoder rows gathered into the A tile (zeros past the last)
@@ -894,7 +1256,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int j = 0; j < a.v_k; ++j) ks += expf(s_kz[tid][j] - km);
       const float e = weighted_error(
           fm[0] + logf(fs[0]), fz[0], fm[1] + logf(fs[1]), fz[1],
-          km + logf(ks), s_kz[tid][s_lab[2][tid]], s_kz[tid][a.v_k],
+          km + logf(ks),
+          s_lab[2][tid] < 0 ? NAN : s_kz[tid][s_lab[2][tid]], s_kz[tid][a.v_k],
           s_c0[tid], a.w_s, a.w_n, a.w_k, a.w_d);
       const long long q = s_q[tid];
       a.err[q] = e;
@@ -963,15 +1326,6 @@ __host__ __device__ constexpr int wide_smem(int d) {
   return (kWBM * (wide_pad(d) + 8) + kWST * kWStage) * 2;
 }
 
-__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
-                                                 const void* src,
-                                                 bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
 template <int PER>
 __global__ void __launch_bounds__(kThreads) recon_prep_kernel(
     const uint8_t* __restrict__ mask, long long M, int d,
@@ -1026,8 +1380,8 @@ __global__ void __launch_bounds__(kThreads) recon_prep_kernel(
                    : 0.f;
     }
     // the kind logits and the duration logit: f32 warp dots
-    const int lab = min(max((int)cat[p * C + 2], 0), v_k - 1);
-    float km = -INFINITY, ks = 0.f, zl = 0.f, dur = 0.f;
+    const int lab = take_label(cat[p * C + 2], v_k);
+    float km = -INFINITY, ks = 0.f, zl = lab < 0 ? NAN : 0.f, dur = 0.f;
     for (int h = 0; h <= v_k; ++h) {
       const float* w = h < v_k ? wk + (long long)h * d : wd;
       float a = 0.f;
@@ -1098,16 +1452,19 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         q = a.list[(long long)tile * kWBM + tid];
         r4 = rec[(long long)tile * kWBM + tid];
         const int32_t* c = a.cat + (long long)q * a.C;
-        s_lab[0][tid] = min(max((int)c[0], 0), a.v_s - 1);
-        s_lab[1][tid] = a.vs_pad + min(max((int)c[1], 0), a.v_n - 1);
+        const int l0 = take_label(c[0], a.v_s), l1 = take_label(c[1], a.v_n);
+        s_lab[0][tid] = l0;
+        s_lab[1][tid] = l1 < 0 ? -1 : a.vs_pad + l1;
         s_c0[tid] = a.cont[(long long)q * a.Dc];
+        s_zl[0][tid] = l0 < 0 ? NAN : 0.f;
+        s_zl[1][tid] = l1 < 0 ? NAN : 0.f;
       } else {
         s_lab[0][tid] = s_lab[1][tid] = -1;
+        s_zl[0][tid] = 0.f;
+        s_zl[1][tid] = 0.f;
       }
       s_q[tid] = q;
       s_rec[tid] = r4;
-      s_zl[0][tid] = 0.f;
-      s_zl[1][tid] = 0.f;
     }
     __syncthreads();
     for (int e = tid; e < kWBM * (dp / 8); e += kTcThreads) {
@@ -1301,17 +1658,36 @@ int launch_tc_wide(const TcArgs& a, long long M, int d, const uint8_t* mask,
 
 }  // namespace
 
+// The bytes of K11's f32 data scratch for M positions, service, name and
+// kind heads of v0, v1 and v2 rows; -1 off their range.
+extern "C" long long recon_ce_f32_scratch(long long M, int v0, int v1,
+                                          int v2) {
+  if (M < 0 || v0 < 1 || v1 < 1 || v2 < 1) return -1;
+  return f32_data_bytes(M, items_per_tile(v0, v1), v2 + 1);
+}
+
+// The int32 counters of K11's f32 route for M positions.
+extern "C" long long recon_ce_f32_counters(long long M) {
+  return M < 0 ? -1 : f32_counters(M);
+}
+
 // K11 on CUDA cores (f32 FMAs). dec: (M, d) f32 (dtype 0) or bf16 (dtype
 // 1: heads the three planes cannot hold), the decoder's output before
-// dec_ln, 16-byte aligned, d % 4 == 0 up to 1024; gamma, beta: (d,) f32;
-// w0..w3: the service, name, kind and duration heads' (V_h, d) f32
-// weights (16-byte aligned), b0..b3 their (V_h,) biases (V_3 = 1); cat:
-// (M, C) int32 (labels in columns 0-2), cont: (M, D) f32 (target in
+// dec_ln, 16-byte aligned, d % 4 == 0 up to 1024, M < 2^31; gamma, beta:
+// (d,) f32; w0..w3: the service, name, kind and duration heads' (V_h, d)
+// f32 weights (16-byte aligned), b0..b3 their (V_h,) biases (V_3 = 1);
+// cat: (M, C) int32 (labels in columns 0-2), cont: (M, D) f32 (target in
 // column 0); mask: (M,) bytes; the four loss weights; err: (M,) f32 out.
 // span_map (nullable): (M,) int32 original span index, -1 at padding;
 // scores: zero-filled f32, written at span_map[q] for each real q.
 // lse (nullable): (M, 3) f32 out, each real position's log-sum-exps of the
 // service, name and kind logits (0 at padding), for K20's backward.
+// counters: recon_ce_f32_counters(M) int32, zero before their first call
+// and left so by each (one set a stream: calls on one stream run in
+// order); scratch: recon_ce_f32_scratch(M, v0, v1, v2) bytes, 16-byte
+// aligned.
+// sms: the card's multiprocessors. *launches gets the kernels launched
+// (2).
 extern "C" int recon_ce_f32_launch(
     const void* dec, int dtype, long long M, int d, const void* gamma,
     const void* beta, float eps, const void* w0, const void* w1,
@@ -1319,37 +1695,49 @@ extern "C" int recon_ce_f32_launch(
     const void* b2, const void* b3, int v0, int v1, int v2, int v3,
     const void* cat, int C, const void* cont, int D, const void* mask,
     float w_s, float w_n, float w_k, float w_d, void* err,
-    const void* span_map, void* scores, void* lse, void* stream) {
-  if (M < 0 || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 || C < 3 || D < 1 ||
-      d < 4 || d % 4 != 0 || d > 1024 || (dtype != 0 && dtype != 1) ||
+    const void* span_map, void* scores, void* lse, void* counters,
+    void* scratch, int sms, int* launches, void* stream) {
+  *launches = 0;
+  if (M < 0 || M > 0x7fffffffLL || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 ||
+      C < 3 || D < 1 || d < 4 || d % 4 != 0 || d > 1024 ||
+      (dtype != 0 && dtype != 1) || counters == nullptr ||
+      scratch == nullptr || sms < 1 ||
       (span_map != nullptr && scores == nullptr))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
-  Heads heads;
+  F32Args a;
   const void* ws[4] = {w0, w1, w2, w3};
   const void* bs[4] = {b0, b1, b2, b3};
   const int vs[4] = {v0, v1, v2, v3};
   for (int h = 0; h < 4; ++h) {
-    heads.w[h] = static_cast<const float*>(ws[h]);
-    heads.b[h] = static_cast<const float*>(bs[h]);
-    heads.v[h] = vs[h];
+    a.heads.w[h] = static_cast<const float*>(ws[h]);
+    a.heads.b[h] = static_cast<const float*>(bs[h]);
+    a.heads.v[h] = vs[h];
   }
-  const float wts[4] = {w_s, w_n, w_k, w_d};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  const int32_t* c = static_cast<const int32_t*>(cat);
-  const float* ct = static_cast<const float*>(cont);
+  a.dec = dec;
+  a.M = M;
+  a.d = d;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.eps = eps;
+  a.cat = static_cast<const int32_t*>(cat);
+  a.C = C;
+  a.cont = static_cast<const float*>(cont);
+  a.D = D;
+  a.w_s = w_s;
+  a.w_n = w_n;
+  a.w_k = w_k;
+  a.w_d = w_d;
+  a.err = static_cast<float*>(err);
+  a.span_map = static_cast<const int32_t*>(span_map);
+  a.scores = static_cast<float*>(scores);
+  a.lse = static_cast<float*>(lse);
+  a.sc = carve_f32(counters, scratch, M, items_per_tile(v0, v1));
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* e = static_cast<float*>(err);
-  const int32_t* sm = static_cast<const int32_t*>(span_map);
-  float* sc = static_cast<float*>(scores);
-  float* ls = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_f32_d(static_cast<const __nv_bfloat16*>(dec), M, d, g, b,
-                        eps, heads, c, C, ct, D, m, wts, e, sm, sc, ls, st);
-  return launch_f32_d(static_cast<const float*>(dec), M, d, g, b, eps, heads,
-                      c, C, ct, D, m, wts, e, sm, sc, ls, st);
+    return launch_f32_d<__nv_bfloat16>(a, m, sms, launches, st);
+  return launch_f32_d<float>(a, m, sms, launches, st);
 }
 
 // K11, bf16 (tensor cores). dec: (M, d) bf16; gamma, beta as above;

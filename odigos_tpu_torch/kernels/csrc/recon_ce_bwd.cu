@@ -14,7 +14,9 @@
 //   y_p      = dec_ln(dec_p), recomputed with ln_exact.cuh (K11 writes
 //              neither y nor the logits; the same bits as the forward);
 //   z_h      = y_p W_h^T + b_h for the four heads (f32 FMAs);
-//   dlogit_h = (w_h derr_p) (exp(z_h - lse_h) - onehot(label_h)), h < 3;
+//   dlogit_h = (w_h derr_p) (exp(z_h - lse_h) - onehot(label_h)), h < 3,
+//              zero where the label takes no row of the head (embed_take.cuh
+//              take_label: the reference's fill-mode gather drops it);
 //   ddur     = (w_d derr_p) (2 (z_3 - cont_p[0]));
 //   dy_p     = sum_h dlogit_h W_h   (the gradient at dec_ln's output);
 // and over the real positions dW_h = dlogit_h^T y, db_h = sum dlogit_h.
@@ -54,6 +56,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "embed_take.cuh"
 #include "ln_exact.cuh"
 
 namespace {
@@ -161,7 +164,12 @@ __global__ void __launch_bounds__(kThreads) recon_bwd_rows_kernel(
       if (lane == 0) {
         s_coef[p] = __fmul_rn(wh, derr[q]);
         if (h < 3) {
-          s_lab[p] = min(max(cat[q * C + h], 0), V - 1);
+          // a label no row of the head holds (take_label -1): the head's
+          // dlogit is zero at this position, as jax.grad gives through the
+          // fill-mode gather
+          const int lab = take_label(cat[q * C + h], V);
+          s_lab[p] = lab;
+          if (lab < 0) s_coef[p] = 0.f;
           s_lse[p] = lse[q * 3 + h];
           s_c0[p] = 0.f;
         } else {

@@ -96,12 +96,18 @@ The trainer's backward pass (f32) adds two kernels here:
 * **K19** ``gelu_tanh_bwd(dy, pre)`` (``csrc/gelu_bwd.cu``): ``dPre = dy *
   gelu'(pre)`` for ``jax.nn.gelu``'s tanh form in f32 IEEE steps, and
   FFN1's bias gradient (the column sums of ``dPre``, f64, rounded once)
-  in the same pass.
+  in the same launch: blocks of 16 rows folded in order, then the blocks
+  in order by a folder CTA a 128-column group as the blocks' flags come up
+  (each unit claimed by an atomic OR, and a folder whose next block is
+  not up claims and produces it, so a folder waits only on a running CTA
+  whatever else holds the card).
 
 Both take f32 on the card (the trainer's type) and raise otherwise; a CPU
 tensor takes :func:`ln_bwd_plain` / :func:`gelu_tanh_bwd_plain`.
 ``ln_bwd_launches`` and ``gelu_bwd_launches`` count the calls that
-launched.
+launched, ``gelu_bwd_device_launches`` the kernels K19's launcher reports
+it launched. Their scratch is ``build.stream_scratch``'s, dropped after a
+failed launch.
 """
 
 from __future__ import annotations
@@ -137,11 +143,12 @@ ln_launches = 0
 gemm_launches = 0
 ln_bwd_launches = 0
 gelu_bwd_launches = 0
+gelu_bwd_device_launches = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
 # K17's f64 scratch per (device, stream): its counters must start at zero,
-# and each launch leaves them so
-_ln_bwd_scratch: dict = {}
+# and each launch leaves them so; K19's flags (int32, likewise) and
+# partials (f64, written before they are read) per (device, stream)
 
 
 # ------------------------------------------------------------------ plain
@@ -489,16 +496,17 @@ def _check_ln_bwd(x, weight, dy) -> None:
     _same_device(x, weight, dy)
 
 
-def _partials(source: str, name: str, rows: int) -> int:
-    """The f64 partial rows a K17 / K19 launch over ``rows`` rows needs
-    (the source's own count)."""
+def _partials(source: str, name: str, *shape: int) -> int:
+    """The scratch a K17 launch over ``rows`` rows (its partial rows) or a
+    K19 launch over ``(M, N)`` (its partials, its flags) needs: the
+    source's own count."""
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(build.load(source), name)
-        fn.argtypes = [ctypes.c_longlong]
+        fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * (len(shape) - 1)
         fn.restype = ctypes.c_longlong
         _fns[name] = fn
-    return int(fn(rows))
+    return int(fn(*shape))
 
 
 def _ln_bwd_kernel():
@@ -516,16 +524,11 @@ def _ln_bwd_kernel():
 
 def _ln_bwd_part(dev: torch.device, stream, n: int) -> torch.Tensor:
     """K17's cached f64 scratch of at least ``n`` values on ``dev`` for
-    ``stream``: zeroed when made or grown, then left to the kernel, which
-    leaves its counters at zero."""
+    ``stream`` (``build.stream_scratch``: zeroed when made or grown, then
+    left to the kernel, which leaves its counters at zero)."""
     if n <= 0:
         raise RuntimeError("ln_bwd: the card's SM count could not be read")
-    key = (dev.index, stream.cuda_stream)
-    part = _ln_bwd_scratch.get(key)
-    if part is None or part.numel() < n:
-        part = torch.zeros(n, dtype=torch.float64, device=dev)
-        _ln_bwd_scratch[key] = part
-    return part
+    return build.stream_scratch("ln_bwd", dev, stream, n, torch.float64)[0]
 
 
 def ln_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
@@ -561,6 +564,8 @@ def ln_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
         rc = fn(x.data_ptr(), weight.data_ptr(), dy.data_ptr(), eps, rows, d,
                 dx.data_ptr(), dw.data_ptr(), db.data_ptr(), part.data_ptr(),
                 stream.cuda_stream)
+        if rc != 0:
+            build.drop_scratch("ln_bwd", dev, stream)
     if rc != 0:
         raise RuntimeError(f"ln_bwd launch failed: CUDA error {rc}")
     with _count_lock:
@@ -601,7 +606,7 @@ def _check_gelu_bwd(dy, pre) -> None:
 def gelu_tanh_bwd(dy: torch.Tensor, pre: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """K19: ``(dPre, db)`` (module docstring). Nothing is synchronised."""
-    global gelu_bwd_launches
+    global gelu_bwd_launches, gelu_bwd_device_launches
     _check_gelu_bwd(dy, pre)
     dev = dy.device
     if dev.type == "cpu":
@@ -618,22 +623,32 @@ def gelu_tanh_bwd(dy: torch.Tensor, pre: torch.Tensor
     db = torch.empty(N, dtype=torch.float32, device=dev)
     if M == 0:
         return dpre, db.zero_()
-    part = torch.empty(_partials("gelu_bwd", "gelu_bwd_partials", M) * N,
-                       dtype=torch.float64, device=dev)
     fn = _fns.get("gelu_tanh_bwd_launch")
     if fn is None:
         fn = build.load("gelu_bwd").gelu_tanh_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong,
                                                 ctypes.c_int]
-                       + [ctypes.c_void_p] * 4)
+                       + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns["gelu_tanh_bwd_launch"] = fn
+    launched = ctypes.c_int(0)  # the kernels launched (the launcher's own)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        flags, part = build.stream_scratch(
+            "gelu_bwd", dev, stream,
+            _partials("gelu_bwd", "gelu_bwd_flags", M, N), torch.int32,
+            _partials("gelu_bwd", "gelu_bwd_scratch", M, N), torch.float64)
         rc = fn(dy.data_ptr(), pre.data_ptr(), M, N, dpre.data_ptr(),
-                db.data_ptr(), part.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                db.data_ptr(), flags.data_ptr(), part.data_ptr(),
+                build.sm_count(dev), ctypes.byref(launched),
+                stream.cuda_stream)
+        if rc != 0:
+            build.drop_scratch("gelu_bwd", dev, stream)
     if rc != 0:
         raise RuntimeError(f"gelu_tanh_bwd launch failed: CUDA error {rc}")
     with _count_lock:
         gelu_bwd_launches += 1
+        gelu_bwd_device_launches += launched.value
     return dpre, db

@@ -13,8 +13,11 @@ reconstruction error of ``odigos_tpu/models/autoencoder.py``
 
 summed in that order, 0 at masked positions. ``heads`` is the four
 ``(weight (V, d), bias (V,))`` f32 pairs in the order service, name, kind,
-duration (V = 1). Labels are clamped into their vocabularies (the
-featurizer emits them in range).
+duration (V = 1). A label is read as the reference's ``_ce`` reads it,
+``jnp.take_along_axis`` in fill mode (:func:`take_labels`): one in ``[-V,
+0)`` wraps to ``V + label``, any other past its head makes the real
+position's error NaN (its log-sum-exps stay finite), and the backward
+gives that head zero gradient there, as ``jax.grad`` does.
 
 With ``span_map`` (``(M,)`` int32, each position's original span index,
 -1 at padding: K13's map) and ``n_out``, it also returns the ``(n_out,)``
@@ -48,11 +51,16 @@ passes them in ``planes`` (the autoencoder caches them per weight tree),
 else they are made for the call. f32 (the parity path), and bf16 whose
 heads the split cannot hold (:func:`split_planes` is None: the caller
 says so with ``route="cuda_core"``, decided when the weights are loaded),
-run the CUDA-core kernel. Neither falls back to the other on a launch.
-``d % 16 == 0`` up to ``MAX_D`` (the tensor-core kernel's 128-position
-tiles at ``TC_WIDTHS``, 64-position tiles chunked along d elsewhere;
-the CUDA-core kernel takes ``d % 4 == 0``), the kind head at most
-``MAX_KIND`` wide on the tensor-core route. ``launches`` counts the calls
+run the CUDA-core kernel (two launches: list the real positions, then
+persistent CTAs over (tile of real positions, head, group of the head's
+residue classes mod 16) items, the tile's last item merging them; its
+counters and data are ``build.stream_scratch``'s, dropped after a failed
+launch).
+Neither falls back to the other on a launch. ``d % 16 == 0`` up to
+``MAX_D`` (the tensor-core kernel's 128-position tiles at ``TC_WIDTHS``,
+64-position tiles chunked along d elsewhere; the CUDA-core kernel takes
+``d % 4 == 0``), ``M < 2^31``, the kind head at most ``MAX_KIND`` wide on
+the tensor-core route. ``launches`` counts the calls
 that launched, ``tc_launches`` those on the tensor-core kernel,
 ``device_launches`` the kernels; ``bwd_launches`` counts K20's calls
 (three kernels each: the real positions listed, the rows, the columns).
@@ -83,13 +91,13 @@ TILE = 128
 MAX_SLICES = 16
 PART_ITEMS_PER_SM = 8
 
+
 launches = 0
 tc_launches = 0
 device_launches = 0
 bwd_launches = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
-_sms: dict = {}  # device index -> multiprocessors
 
 Heads = Sequence[tuple[torch.Tensor, torch.Tensor]]
 
@@ -106,6 +114,19 @@ class HeadPlanes(NamedTuple):
     vs_pad: int      # service rows, padded: name rows start here
     v_s: int         # the real widths
     v_n: int
+
+
+def take_labels(labels: torch.Tensor, rows: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.take_along_axis``'s fill mode on a head of ``rows`` logits:
+    ``(row, takes)``, ``row`` the logit each label reads (0 where it reads
+    none) and ``takes`` False where the label lies outside ``[-rows,
+    rows)`` (its cross-entropy is NaN, its gradient dropped). The kernels'
+    rule is ``csrc/embed_take.cuh`` ``take_label``."""
+    i = labels.long()
+    i = torch.where(i < 0, i + rows, i)
+    takes = (i >= 0) & (i < rows)
+    return torch.where(takes, i, 0), takes
 
 
 def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
@@ -133,8 +154,9 @@ def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
     labels = categorical[real].long()
 
     def ce(h: int) -> torch.Tensor:
-        lab = labels[:, h].clamp(0, logits[h].shape[1] - 1)
-        return F.cross_entropy(logits[h], lab, reduction="none")
+        lab, takes = take_labels(labels[:, h], logits[h].shape[1])
+        e = F.cross_entropy(logits[h], lab, reduction="none")
+        return torch.where(takes, e, torch.full_like(e, float("nan")))
 
     e = w_s * ce(0)
     e = e + w_n * ce(1)
@@ -222,19 +244,19 @@ def tc_slices(count: int, d: int, v_tc: int, grid: int,
     return best
 
 
-def _sm_count(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sms[idx]
-
-
 def _kernel(name: str):
-    """The launcher ``name`` (``recon_ce_f32_launch`` or
+    """The function ``name`` (``recon_ce_f32_launch``, its
+    ``recon_ce_f32_scratch`` and ``recon_ce_f32_counters``, or
     ``recon_ce_tc_launch``) of the built library."""
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(build.load("recon_ce"), name)
+        if name in ("recon_ce_f32_scratch", "recon_ce_f32_counters"):
+            fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * (
+                3 if name == "recon_ce_f32_scratch" else 0)
+            fn.restype = ctypes.c_longlong
+            _fns[name] = fn
+            return fn
         if name == "recon_ce_f32_launch":
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -242,7 +264,9 @@ def _kernel(name: str):
                            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                              ctypes.c_void_p])
         else:
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
@@ -351,12 +375,12 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
         (span_map,) if span_map is not None else ())
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("recon_ce needs contiguous inputs")
+    if M >= 2 ** 31:
+        raise ValueError(f"recon_ce takes M < 2^31 on the card, not {M}")
     if tc:
         if heads[2][0].shape[0] > MAX_KIND:
             raise ValueError(f"the bf16 kernel takes a kind head of at most "
                              f"{MAX_KIND} outputs")
-        if M >= 2 ** 31:
-            raise ValueError(f"the bf16 kernel takes M < 2^31, not {M}")
         if dec.data_ptr() % 16 or any(w.data_ptr() % 16
                                       for w, _ in heads[2:]):
             raise ValueError("recon_ce needs a 16-byte aligned dec and kind "
@@ -386,11 +410,12 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
         w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
         smap = None if span_map is None else span_map.data_ptr()
         out = None if scores is None else scores.data_ptr()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        count = ctypes.c_int(1)  # the f32 kernel's; the bf16 launcher's own
+        cur = torch.cuda.current_stream(dev)
+        stream = cur.cuda_stream
+        count = ctypes.c_int(0)  # the kernels launched (the launcher's own)
         with torch.cuda.device(dev):
             if tc:
-                sms = _sm_count(dev)
+                sms = build.sm_count(dev)
                 part_items = PART_ITEMS_PER_SM * sms
                 lst = torch.empty(M, dtype=torch.int32, device=dev)
                 # (mean, 1 / std) a listed position; off TC_WIDTHS also
@@ -415,6 +440,13 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                     part.numel(),
                     zeros.data_ptr() + 4, sms, ctypes.byref(count), stream)
             else:
+                # int32 counters, left at zero by every call, and bytes
+                cnt, scratch = build.stream_scratch(
+                    "recon_ce_f32", dev, cur,
+                    _kernel("recon_ce_f32_counters")(M), torch.int32,
+                    _kernel("recon_ce_f32_scratch")(M, w0.shape[0],
+                                                    w1.shape[0], w2.shape[0]),
+                    torch.uint8)
                 rc = _kernel("recon_ce_f32_launch")(
                     dec.data_ptr(), int(dec.dtype == torch.bfloat16), M, d,
                     ln_weight.data_ptr(),
@@ -426,7 +458,10 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
                     continuous.data_ptr(), continuous.shape[1],
                     mask.data_ptr(), w_s, w_n, w_k, w_d, err.data_ptr(),
                     smap, out, None if lse is None else lse.data_ptr(),
-                    stream)
+                    cnt.data_ptr(), scratch.data_ptr(), build.sm_count(dev),
+                    ctypes.byref(count), stream)
+                if rc != 0:  # the list kernel may have left its count
+                    build.drop_scratch("recon_ce_f32", dev, cur)
         if rc != 0:
             raise RuntimeError(f"recon_ce launch failed: CUDA error {rc}")
         with _count_lock:
@@ -452,7 +487,8 @@ def recon_ce_bwd_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
                        eps: float = LN_EPS) -> HeadGrads:
     """K20's plain version, on the real positions: ``y = dec_ln(dec)``,
     each head's logits by ``F.linear``, ``dlogit_h = (w_h derr) (softmax_h
-    - onehot(label_h))`` with the softmax from ``lse`` (the forward's), the
+    - onehot(label_h))`` with the softmax from ``lse`` (the forward's), 0
+    where the label takes no row of the head (:func:`take_labels`), the
     duration's ``(w_d derr) 2 (pred - cont[:, 0])``; ``dy = sum_h dlogit_h
     W_h``, ``dW_h = dlogit_h^T y``, ``db_h = sum dlogit_h`` (f64 for f64
     inputs)."""
@@ -472,10 +508,11 @@ def recon_ce_bwd_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
         coef = float(wt) * g
         if h < 3:
             p = torch.exp(z - lse[real, h, None].to(acc))
-            lab = labels[:, h].clamp(0, w.shape[0] - 1)
+            lab, takes = take_labels(labels[:, h], w.shape[0])
             rows = torch.arange(real.numel(), device=dec.device)
-            p[rows, lab] -= 1.0
-            dl = p * coef[:, None]
+            p[rows[takes], lab[takes]] -= 1.0
+            # a label past the head: zero dlogit there (jax.grad's)
+            dl = p * torch.where(takes, coef, torch.zeros_like(coef))[:, None]
         else:
             cont = continuous[real, 0].to(acc)
             dl = (coef * (2.0 * (z[:, 0] - cont)))[:, None]

@@ -1235,7 +1235,7 @@ def test_recon_ce_kernel_matches_plain(dev, dtype, d, vocabs, M, density):
                        for V in vocabs[:3]] + [torch.zeros(
                            M, dtype=torch.int64, device=dev)] * 2,
                       1).to(torch.int32)
-    cat[::7, 1] = vocabs[1] + 5  # out of its vocabulary: clamped
+    cat[::7, 1] = vocabs[1] + 5  # past its head: a NaN error (fault C5)
     cont = torch.rand(M, 3, generator=g, device=dev) * 10
     w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
     b = 0.1 * torch.randn(d, generator=g, device=dev)
@@ -1252,11 +1252,18 @@ def test_recon_ce_kernel_matches_plain(dev, dtype, d, vocabs, M, density):
     tc = 2 if dtype == "bfloat16" else 0
     assert (krecon.launches, krecon.tc_launches) == (before[0] + 2,
                                                      before[1] + tc)
-    assert torch.isfinite(got).all()
-    assert torch.equal(got, got_e)
-    assert (got - ref_e).abs().max().item() <= RECON_ATOL
+    # the NaN errors (and scores) are the plain version's: the real
+    # positions whose name label lies past the head; the rest finite
+    past = torch.zeros_like(mask)
+    past[::7] = True
+    past &= mask
+    assert torch.equal(got.isnan(), past) and torch.equal(ref_e.isnan(), past)
+    assert torch.equal(got_s.isnan(), ref_s.isnan())
+    assert torch.equal(got.nan_to_num(), got_e.nan_to_num())
+    assert ((got - ref_e)[~past].abs() <= RECON_ATOL).all()
     assert (got[~mask] == 0).all()
-    assert (got_s - ref_s).abs().max().item() <= RECON_ATOL
+    fin = ~ref_s.isnan()
+    assert ((got_s - ref_s)[fin].abs() <= RECON_ATOL).all()
     assert (got_s[M:] == 0).all()
 
 
@@ -1984,7 +1991,8 @@ def test_k17_widths_rows_padding_and_a_second_call(dev, d, rows):
         assert (got[0][-pad:] == 0).all()
 
 
-@pytest.mark.parametrize("M,N", [(2048, 1024), (300, 64), (4096, 4096)])
+@pytest.mark.parametrize("M,N", [(2048, 1024), (300, 64), (4096, 4096),
+                                 (2048, 512), (70, 44), (1, 4)])
 def test_k19_gelu_bwd_matches_plain(dev, M, N):
     from odigos_tpu_torch.kernels import dense
 
@@ -1997,6 +2005,62 @@ def test_k19_gelu_bwd_matches_plain(dev, M, N):
     ref = dense.gelu_tanh_bwd_plain(dy, pre)
     _close(got[0], ref[0], BWD_EXACT_RTOL, "dpre")
     _close(got[1], ref[1], BWD_EXACT_RTOL, "db")
+
+
+def _scratch_of(kernel, dev):
+    """The scratch ``kernel``'s wrapper cached for the current stream."""
+    from odigos_tpu_torch.kernels import build
+
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev)
+    return build._scratch[(kernel, idx, stream.cuda_stream)]
+
+
+@pytest.mark.parametrize("M,N", [(2048, 1024), (2048, 512), (33, 260)])
+def test_k19_one_launch_leaves_its_scratch_zeroed(dev, M, N):
+    """K19's one launch: the launcher reports one kernel a call, the
+    profiler sees that kernel and no other (no fill), its cached flags are
+    zero after every call, and a second call on the same scratch gives the
+    same bits."""
+    from odigos_tpu_torch.kernels import dense
+
+    g = torch.Generator().manual_seed(M * N)
+    pre = (torch.randn(M, N, generator=g) * 3).to(dev)
+    dy = torch.randn(M, N, generator=g).to(dev)
+    d0 = dense.gelu_bwd_device_launches
+    a = dense.gelu_tanh_bwd(dy, pre)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        b = dense.gelu_tanh_bwd(dy, pre)
+        torch.cuda.synchronize()
+    assert dense.gelu_bwd_device_launches - d0 == 2
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("gelu_bwd_kernel" in n for n in names), names
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    flags, _ = _scratch_of("gelu_bwd", dev)
+    assert (flags == 0).all()
+
+
+@pytest.mark.parametrize("d", [128, 256, 512, 1000])
+def test_k11_f32_leaves_its_scratch_zeroed_and_repeats(dev, d):
+    """K11's f32 route: two launches a call (the list, the persistent
+    scoring kernel), the cached scratch's count and tickets zero after
+    every call, and a second call bit-equal (errors, log-sum-exps)."""
+    M = 3000
+    args = _recon_args(dev, M, d, "float32")
+    outs = []
+    for _ in range(2):
+        lse = torch.empty(M, 3, device=dev)
+        d0 = krecon.device_launches
+        outs.append((krecon.recon_ce(*args, route="cuda_core", lse=lse), lse))
+        torch.cuda.synchronize()
+        assert krecon.device_launches - d0 == 2
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    counters, _ = _scratch_of("recon_ce_f32", dev)
+    assert (counters == 0).all()  # the count, the CTAs' and tiles' tickets
 
 
 @pytest.mark.parametrize("attr_slots", [0, 2])
@@ -2185,6 +2249,119 @@ def test_k11_lse_matches_logsumexp_and_leaves_the_errors(dev, d):
     with pytest.raises(ValueError, match="lse"):
         krecon.recon_ce(x.bfloat16(), w, b, heads, cat, cont, mask, wts,
                         route="tc", lse=lse)
+
+
+def _labels_past_heads(cat, mask, vocabs):
+    """(bad, wrapped, past): ``cat`` with the labels -1, -V, V and V + 7
+    at real positions of each categorical head and V + 3 at padding ones;
+    the same labels wrapped as ``jnp.take_along_axis``'s fill mode wraps
+    them (past ones left); and the (M, 3) flags of labels past a head."""
+    bad = cat.clone()
+    real = torch.nonzero(mask).flatten()
+    pad = torch.nonzero(~mask).flatten()
+    for h, V in enumerate(vocabs):
+        pick = real[h::7][:48]
+        bad[pick, h] = torch.tensor([-1, -V, V, V + 7], dtype=torch.int32,
+                                    device=cat.device).repeat(12)[
+                                        :pick.numel()]
+        bad[pad[h::5][:8], h] = V + 3
+    vs = torch.tensor(vocabs, dtype=torch.int32, device=cat.device)
+    wrapped = bad.clone()
+    wrapped[:, :3] = torch.where(bad[:, :3] < 0, bad[:, :3] + vs, bad[:, :3])
+    past = (wrapped[:, :3] < 0) | (wrapped[:, :3] >= vs)
+    return bad, wrapped, past
+
+
+@pytest.mark.parametrize("dtype,route,d", [("bfloat16", "tc", 128),
+                                           ("bfloat16", "tc", 96),
+                                           ("float32", "cuda_core", 128),
+                                           ("bfloat16", "cuda_core", 128),
+                                           ("float32", "cuda_core", 1000)])
+def test_k11_labels_past_their_heads_as_plain(dev, dtype, route, d):
+    """Fault C5 on the card: both K11 kernels read a label as the
+    reference's _ce does (jnp.take_along_axis, fill mode). A label in [-V,
+    0) gives the bits of its wrapped label; one past its head makes that
+    real position's error and score NaN, as the plain version does, and
+    leaves every other position (and every log-sum-exp) bit-equal to a run
+    on in-range labels; padding stays 0."""
+    M = 5000
+    x, w, b, heads, cat, cont, mask, wts = _recon_args(dev, M, d, dtype)
+    vocabs = [h[0].shape[0] for h in heads[:3]]
+    bad, wrapped, past = _labels_past_heads(cat, mask, vocabs)
+    clean = torch.where(past, torch.zeros_like(wrapped[:, :3]),
+                        wrapped[:, :3]).contiguous()
+    smap = torch.randperm(M, device=dev).to(torch.int32)
+    f32 = route == "cuda_core"
+    outs = []
+    for labels in (bad, clean):
+        lse = torch.empty(M, 3, device=dev) if f32 else None
+        e, sc = krecon.recon_ce(x, w, b, heads, labels, cont, mask, wts,
+                                span_map=smap, n_out=M, route=route, lse=lse)
+        outs.append((e, sc, lse))
+    ref_e, ref_s = krecon.recon_ce_plain(x, w, b, heads, bad, cont, mask,
+                                         wts, span_map=smap, n_out=M)
+    torch.cuda.synchronize()
+    (got_e, got_s, got_l), (cln_e, cln_s, cln_l) = outs
+    nan_pos = mask & past.any(1)
+    assert nan_pos.any() and (mask & ~past.any(1)).any()
+    assert torch.equal(got_e.isnan(), nan_pos)
+    assert torch.equal(ref_e.isnan(), nan_pos)
+    assert torch.equal(got_e[~nan_pos], cln_e[~nan_pos])
+    assert (got_e[~mask] == 0).all()
+    assert (got_e - ref_e)[~nan_pos].abs().max().item() <= RECON_ATOL
+    nan_idx = torch.zeros(M, dtype=torch.bool, device=dev)
+    nan_idx[smap[nan_pos].long()] = True
+    assert torch.equal(got_s.isnan(), nan_idx)
+    assert torch.equal(got_s[~nan_idx], cln_s[~nan_idx])
+    if f32:
+        assert torch.isfinite(got_l).all() and torch.equal(got_l, cln_l)
+
+
+@pytest.mark.parametrize("d", [128, 512])
+def test_k20_labels_past_their_heads_as_plain(dev, d):
+    """Fault C5 in K20: a wrapped label gives the bits of its wrapped
+    value; where a head's label lies past it that head gets zero dlogit
+    (its dW and db are exactly 0 when only such positions carry a
+    gradient) and the other heads keep theirs, within RECON_BWD_RTOL of
+    the plain version."""
+    x, w, b, heads, lse, cat, cont, mask, derr, wts = _k20_inputs(
+        dev, 2048, d, 0.3)
+    vocabs = [h[0].shape[0] for h in heads[:3]]
+    bad, wrapped, past = _labels_past_heads(cat, mask, vocabs)
+    # the wrapped labels only: bit-equal to their in-range values
+    only_wrap = torch.where(past, cat, bad[:, :3]).contiguous()
+    pre = torch.where(past, cat, wrapped[:, :3]).contiguous()
+    a = krecon.recon_ce_bwd(x, w, b, heads, lse, only_wrap, cont, mask,
+                            derr, wts)
+    r = krecon.recon_ce_bwd(x, w, b, heads, lse, pre, cont, mask, derr, wts)
+    assert torch.equal(a.dy, r.dy)
+    assert all(torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+               for p, q in zip(a.heads, r.heads))
+    # every label: as plain
+    got = krecon.recon_ce_bwd(x, w, b, heads, lse, bad, cont, mask, derr,
+                              wts)
+    ref = krecon.recon_ce_bwd_plain(x, w, b, heads, lse, bad, cont, mask,
+                                    derr, wts)
+    assert (got.dy[~mask] == 0).all() and torch.isfinite(got.dy).all()
+    _close(got.dy, ref.dy, RECON_BWD_RTOL, "dy")
+    for h, ((dw, db), (rw, rb)) in enumerate(zip(got.heads, ref.heads)):
+        _close(dw, rw, RECON_BWD_RTOL, f"dW{h}")
+        _close(db, rb, RECON_BWD_RTOL, f"db{h}")
+    # a gradient only where the name label lies past its head (and no
+    # other): the name head's rows are zero, the others are not
+    only = mask & past[:, 1] & ~past[:, 0] & ~past[:, 2]
+    assert only.any()
+    d1 = torch.where(only, derr, torch.zeros_like(derr))
+    got = krecon.recon_ce_bwd(x, w, b, heads, lse, bad, cont, mask, d1, wts)
+    ref = krecon.recon_ce_bwd_plain(x, w, b, heads, lse, bad, cont, mask, d1,
+                                    wts)
+    torch.cuda.synchronize()
+    assert (got.heads[1][0] == 0).all() and (got.heads[1][1] == 0).all()
+    assert (ref.heads[1][0] == 0).all() and (ref.heads[1][1] == 0).all()
+    for h in (0, 2, 3):
+        assert got.heads[h][0].abs().max().item() > 0
+        _close(got.heads[h][0], ref.heads[h][0], RECON_BWD_RTOL, f"dW{h}")
+        _close(got.heads[h][1], ref.heads[h][1], RECON_BWD_RTOL, f"db{h}")
 
 
 @pytest.mark.parametrize("T,L,d", [(64, 32, 128), (16, 64, 512),

@@ -41,16 +41,24 @@ import numpy as np
 import pytest
 import torch
 
-from odigos_tpu_torch.kernels import attention, dense, embed
+from odigos_tpu_torch.kernels import attention, build, dense, embed, recon
 from odigos_tpu_torch.kernels import ring as kring
 
 CSRC = Path(kring.__file__).parent / "csrc"
+
+
+class _Stream:
+    """A stand-in for a CUDA stream: the scratch caches key on the handle."""
+
+    def __init__(self, handle):
+        self.cuda_stream = handle
 RING_RTOL = 1e-5  # the reference's ring bound (tests/test_parallel.py)
 
 
 def _const(source: str, name: str) -> int:
     text = (CSRC / source).read_text()
-    found = re.search(rf"constexpr (?:int|bool) {name} = (\w+);", text)
+    found = re.search(rf"constexpr (?:int|bool|long long) {name} = (\w+);",
+                      text)
     assert found, (source, name)
     val = found.group(1)
     return int(val == "true") if val in ("true", "false") else int(val)
@@ -404,13 +412,9 @@ def test_k17_scratch_is_cached_zeroed_and_grown():
     """The wrapper's scratch: zeros when made, the same buffer while it is
     large enough (the kernel leaves its counters at zero), a new zeroed
     one when a call needs more, one per (device, stream)."""
-    class _Stream:
-        def __init__(self, handle):
-            self.cuda_stream = handle
-
     dev = torch.device("cpu")
-    saved = dict(dense._ln_bwd_scratch)
-    dense._ln_bwd_scratch.clear()
+    saved = dict(build._scratch)
+    build._scratch.clear()
     try:
         a = dense._ln_bwd_part(dev, _Stream(1), 64)
         assert a.dtype == torch.float64 and (a == 0).all()
@@ -423,8 +427,8 @@ def test_k17_scratch_is_cached_zeroed_and_grown():
         with pytest.raises(RuntimeError, match="SM count"):
             dense._ln_bwd_part(dev, _Stream(1), -2)
     finally:
-        dense._ln_bwd_scratch.clear()
-        dense._ln_bwd_scratch.update(saved)
+        build._scratch.clear()
+        build._scratch.update(saved)
 
 
 # ------------------------------------------------------------------- K16
@@ -1066,3 +1070,493 @@ def test_k1_f32_layout_fits_and_reads_free_of_bank_conflicts():
             for j in range(-(-L // 4) * 4):
                 assert len({(j * pq + 4 * tx) % 32 // 4
                             for tx in range(8)}) == 8
+
+
+# ------------------------------------------------------------------- K11
+def _f32(x):
+    return np.float32(x)
+
+
+def _lse_step(m, s, z):
+    """``lse_step`` of csrc/recon_ce.cu on arrays (f32): where z > m the
+    sum is rescaled by one FMA, else a term is added."""
+    up = z > m
+    with np.errstate(invalid="ignore"):  # -inf - -inf where unused
+        e_up = np.exp(np.where(up, m - z, 0).astype(np.float32))
+        e_dn = np.exp(np.where(up, 0, z - m).astype(np.float32))
+    s_up = _fma(s, e_up, np.ones_like(s))
+    s_dn = (s + e_dn).astype(np.float32)
+    return np.where(up, z, m).astype(np.float32), np.where(up, s_up, s_dn)
+
+
+def _lse_merge(m, s, mo, so):
+    """``lse_merge`` of csrc/recon_ce.cu on arrays (f32)."""
+    mn = np.maximum(m, mo)
+    with np.errstate(invalid="ignore"):
+        a = np.where(m == -np.inf, _f32(0),
+                     (s * np.exp((m - mn).astype(np.float32))
+                      ).astype(np.float32))
+        b = np.where(mo == -np.inf, _f32(0),
+                     (so * np.exp((mo - mn).astype(np.float32))
+                      ).astype(np.float32))
+    return mn.astype(np.float32), (a + b).astype(np.float32)
+
+
+def _butterfly(m, s, offsets):
+    """The xor butterfly over a group's lanes (axis 0): every lane merges
+    its value with its partner's at each offset; lane 0's result."""
+    m, s = m.copy(), s.copy()
+    for o in offsets:
+        part = np.arange(m.shape[0]) ^ o
+        m, s = _lse_merge(m, s, m[part], s[part])
+    return m[0], s[0]
+
+
+def _k11_parent_lse(z):
+    """The parent design's log-sum-exp of one head's logits z (P, V): lane
+    tv walks the rows tv + 16 j ascending from (-inf, 0), the 16 lanes
+    merge by xor 8, 4, 2, 1, lane 0 adds log(s)."""
+    P, V = z.shape
+    m = np.full((16, P), -np.inf, np.float32)
+    s = np.zeros((16, P), np.float32)
+    for tv in range(16):
+        for v in range(tv, V, 16):
+            m[tv], s[tv] = _lse_step(m[tv], s[tv], z[:, v])
+    mm, ss = _butterfly(m, s, (8, 4, 2, 1))
+    return (mm + np.log(ss).astype(np.float32)).astype(np.float32)
+
+
+def _class_group(v: int) -> int:
+    """``class_group`` of csrc/recon_ce.cu: the residue classes mod 16 an
+    item walks in a head of ``v`` rows, a power of two up to 16, as many as
+    keep the item within kItemRows rows where one class allows."""
+    rows = -(-v // 16)
+    cg = 16
+    while cg > 1 and cg * rows > _const("recon_ce.cu", "kItemRows"):
+        cg //= 2
+    return cg
+
+
+def _k11_f32_plan(d: int, M: int = 2048) -> tuple[int, int, bool]:
+    """(positions a tile, rows a chunk, double-buffered) of the f32 kernel
+    at width d and M positions, from its launch_f32_d."""
+    text = (CSRC / "recon_ce.cu").read_text()
+    body = text[text.index("int launch_f32_d("):]
+    large = _const("recon_ce.cu", "kLargeM")
+    cases = re.findall(r"(?:if \(a\.d <= (\d+)( && a\.M >= kLargeM)?\)\s+)?"
+                       r"return launch_f32_t<T, (\d+), (\d+), "
+                       r"(true|false)>", body)[:5]
+    assert len(cases) == 5, cases
+    for lim, big, tsp, tsr, db in cases:
+        if (not lim or d <= int(lim)) and (not big or M >= large):
+            return 8 * int(tsp), 32 * int(tsr), db == "true"
+    raise AssertionError(d)
+
+
+def _k11_new_lse(z, P, NR, cg=None):
+    """The new design's log-sum-exp of one head (z (npos, V)): tiles of P
+    listed positions; an item a group g of cg classes (those = g mod 16 /
+    cg; the kernel's class_group unless given), its chunks of rj = NR
+    / cg rows a class walked in order per (position, class), the item's
+    subtree merged by xor cg / 2 .. 1 over its classes; the tile's last
+    item merges the items by xor step / 2 .. 1."""
+    npos, V = z.shape
+    cg = _class_group(V) if cg is None else cg
+    step, rj = 16 // cg, NR // cg
+    nchunks = -(-(-(-V // 16)) // rj)
+    out = np.zeros(npos, np.float32)
+    for p0 in range(0, npos, P):
+        zt = z[p0:p0 + P]
+        n = zt.shape[0]
+        items_m = np.full((step, n), -np.inf, np.float32)
+        items_s = np.zeros((step, n), np.float32)
+        for g in range(step):
+            m = np.full((cg, n), -np.inf, np.float32)
+            s = np.zeros((cg, n), np.float32)
+            for k in range(nchunks):
+                for ci in range(cg):
+                    c = g + step * ci
+                    for jj in range(rj):
+                        v = c + 16 * (k * rj + jj)
+                        if v >= V:
+                            break
+                        m[ci], s[ci] = _lse_step(m[ci], s[ci], zt[:, v])
+            offs = [cg >> i for i in range(1, cg.bit_length())]
+            items_m[g], items_s[g] = _butterfly(m, s, offs)
+        offs = [step >> i for i in range(1, step.bit_length())]
+        mm, ss = _butterfly(items_m, items_s, offs)
+        out[p0:p0 + n] = mm + np.log(ss).astype(np.float32)
+    return out
+
+
+def test_k11_f32_plan_read_from_the_source():
+    """The class groups (csrc/recon_ce.cu class_group, kItemRows) are
+    powers of two within kItemRows rows; at the autoencoder's heads a tile
+    has 10 items of 256 rows, so the trainer's 619 real positions make 200
+    items for the H100's 132 SMs (2 CTAs an SM at d 128; 64-position tiles
+    from kLargeM positions, the served T 2048); each width's shared tiles
+    fit 227 KB."""
+    rows = _const("recon_ce.cu", "kItemRows")
+    assert rows == 256
+    assert _const("recon_ce.cu", "kMinTile") == 8
+    for V in (1, 3, 8, 16, 17, 64, 100, 300, 512, 513, 2048, 4096, 60000):
+        cg = _class_group(V)
+        assert cg in (1, 2, 4, 8, 16)
+        assert cg == 1 or cg * -(-V // 16) <= rows
+        assert cg == 16 or 2 * cg * -(-V // 16) > rows
+    assert (_class_group(512), _class_group(2048)) == (8, 2)
+    ni = 16 // 8 + 16 // 2
+    assert _k11_f32_plan(128) == (32, 128, False)
+    assert -(-619 // 32) * ni == 200 >= 132
+    assert _k11_f32_plan(128, 131072) == (64, 64, False)  # served T 2048
+    assert _k11_f32_plan(256, 131072) == _k11_f32_plan(256)
+    for d, M in [(d, M) for d in (4, 128, 129 * 4, 256, 384, 512, 768, 1000,
+                                  1024) for M in (2048, 131072)]:
+        P, NR, double = _k11_f32_plan(d, M)
+        assert P >= 8 and P % 8 == 0 and NR % 32 == 0
+        pitch = d + 4 if (d // 4) % 2 == 0 else d + 8
+        assert (pitch // 4) % 2 == 1  # 8 rows' 16-byte reads: 8 bank groups
+        smem = ((P + (2 if double else 1) * NR) * pitch + P * (NR + 1)) * 4
+        assert smem <= 227 * 1024, (d, smem)
+        if d <= 128:
+            assert 2 * smem <= 227 * 1024  # two CTAs an SM
+        for V in (8, 512, 2048):
+            assert NR % _class_group(V) == 0
+
+
+@pytest.mark.parametrize("d,count", [(128, 0), (128, 1), (128, 619),
+                                     (256, 619), (1000, 619), (128, 2048),
+                                     (1000, 1)])
+def test_k11_f32_class_split_walk_is_bit_equal_to_the_parent(d, count):
+    """Each head's log-sum-exp through the new plan (tiles, items of class
+    groups, chunks, subtree merges, the tree's top) against the parent's
+    per-lane walks and butterfly, on logits spread over ~20 binades with
+    ties, repeats and a row of -inf: the same f32 bits (lse_merge is
+    commutative, each class's walk is unchanged, so the tree is the same
+    tree)."""
+    rng = np.random.default_rng(count + d)
+    P, NR, _ = _k11_f32_plan(d, 65536 if count == 2048 else 2048)
+    for V in (512, 2048, 8, 100):
+        z = (rng.standard_normal((count, V))
+             * np.exp2(rng.integers(-10, 10, (count, 1)))).astype(np.float32)
+        if count > 1:
+            z[0, ::3] = z[0, 1]  # ties
+            z[1 % count, :] = np.float32(-np.inf)
+            z[1 % count, V // 2] = 3.0
+        ref = _k11_parent_lse(z)
+        # the kind head: the tile's last item walks it as the parent; any
+        # class group gives the parent's tree (the plan's, and all 16)
+        for cg in ((None, 16, 1) if V > 16 else ()):
+            new = _k11_new_lse(z, P, NR, cg)
+            assert new.shape == (count,)
+            np.testing.assert_array_equal(new.view(np.uint32),
+                                          ref.view(np.uint32))
+
+
+def test_k11_f32_logit_chain_is_the_parents():
+    """A logit is one fmaf chain over k ascending from 0 plus the bias in
+    both designs: the GEMM thread's 16-byte steps (x, y, z, w) and the
+    parent's give the same bits, at widths off the 16-byte vectors' pairs
+    and on products that underflow."""
+    rng = np.random.default_rng(5)
+    for d in (4, 12, 128, 1000):
+        y = (rng.standard_normal((6, d)) * np.exp2(
+            rng.integers(-60, 4, (6, d)))).astype(np.float32)
+        w = rng.standard_normal((5, d)).astype(np.float32)
+        b = rng.standard_normal(5).astype(np.float32)
+        chains = []
+        for step in (4, 1):  # the new kernel's k4 steps; one value a step
+            acc = np.zeros((6, 5), np.float32)
+            for k0 in range(0, d, step):
+                for k in range(k0, k0 + step):
+                    acc = _fma(y[:, None, k], w[None, :, k], acc)
+            chains.append((acc + b).astype(np.float32))
+        np.testing.assert_array_equal(chains[0].view(np.uint32),
+                                      chains[1].view(np.uint32))
+
+
+def test_k11_f32_scratch_is_cached_zeroed_and_grown():
+    """The counters zero when made or grown and kept while large enough
+    (the kernel leaves them at zero), apart from the data, which grows on
+    its own; one pair a (device, stream), apart from K17's on the same
+    stream; a failed launch's pair dropped."""
+    dev = torch.device("cpu")
+    saved = dict(build._scratch)
+    build._scratch.clear()
+
+    def get(stream, counters, nbytes):
+        return build.stream_scratch("recon_ce_f32", dev, _Stream(stream),
+                                    counters, torch.int32, nbytes,
+                                    torch.uint8)
+    try:
+        c, d = get(1, 10, 64)
+        assert c.dtype == torch.int32 and (c == 0).all() and c.numel() == 10
+        assert d.dtype == torch.uint8 and d.numel() == 64
+        d.fill_(7)  # the partials a launch leaves
+        c2, d2 = get(1, 8, 256)
+        assert c2 is c and d2 is not d and d2.numel() == 256
+        c3, d3 = get(1, 40, 32)
+        assert c3 is not c and (c3 == 0).all() and d3 is d2
+        assert get(2, 1, 16)[0] is not c3
+        assert dense._ln_bwd_part(dev, _Stream(1), 40) is not c3
+        c3[0] = 5  # a count a failed launch left
+        build.drop_scratch("recon_ce_f32", dev, _Stream(1))
+        c4, d4 = get(1, 40, 32)
+        assert c4 is not c3 and (c4 == 0).all() and d4 is not d3
+        with pytest.raises(RuntimeError, match="scratch"):
+            get(1, 4, -1)
+    finally:
+        build._scratch.clear()
+        build._scratch.update(saved)
+
+
+def _k19_parent_db(dpre):
+    """The parent's db: a thread's f64 left fold over its block of 16
+    rows from 0.0 (the partial), then a thread a column's left fold over
+    the partials in block order from 0.0, rounded once."""
+    M, N = dpre.shape
+    parts = []
+    for m0 in range(0, M, 16):
+        acc = np.zeros(N)
+        for t in range(m0, min(m0 + 16, M)):
+            acc = acc + dpre[t].astype(np.float64)
+        parts.append(acc)
+    s = np.zeros(N)
+    for p in parts:
+        s = s + p
+    return s
+
+
+def _k19_new_db(dpre):
+    """The new kernel's db: each (block, 128-column group) unit's fold, a
+    thread a column over the block's rows from shared memory, in order
+    from 0.0; the group's folder adds the partials in block order as they
+    come up (here in ready prefixes of random lengths), kFoldBatch loads
+    a batch, the adds guarded past the prefix."""
+    M, N = dpre.shape
+    rows, cols, batch = (_const("gelu_bwd.cu", n)
+                         for n in ("kRows", "kCols", "kFoldBatch"))
+    blocks = -(-M // rows)
+    part = np.zeros((blocks, N))
+    for grp in range(-(-N // cols)):
+        c = slice(grp * cols, min((grp + 1) * cols, N))
+        for b in range(blocks):
+            acc = np.zeros(c.stop - c.start)
+            for r in range(min(rows, M - b * rows)):
+                acc = acc + dpre[b * rows + r, c].astype(np.float64)
+            part[b, c] = acc
+    s = np.zeros(N)
+    rng = np.random.default_rng(blocks)
+    b0 = 0
+    while b0 < blocks:
+        n = int(rng.integers(1, 40))  # the prefix whose flags are up
+        for p0 in range(b0, min(b0 + n, blocks), batch):
+            v = part[p0:min(p0 + batch, b0 + n, blocks)]
+            for p in range(v.shape[0]):
+                s = s + v[p]
+        b0 += n
+    return s
+
+
+@pytest.mark.parametrize("M,N", [(2048, 1024), (2048, 512), (70, 44),
+                                 (17, 260)])
+def test_k19_fold_order_is_bit_equal_to_the_parent(M, N):
+    """db through the new kernel's units and ticketed folds against the
+    parent's two launches, on dPre spread over ~50 binades (so the f64
+    sums round: the bits rest on the order, not on exact sums): the same
+    f64 sums, so the same f32 db; a pairwise order gives other f64 sums
+    there."""
+    rng = np.random.default_rng(M + N)
+    dy = (rng.standard_normal((M, N)) * np.exp2(
+        rng.integers(-40, 12, (M, N)))).astype(np.float32)
+    pre = (rng.standard_normal((M, N)) * 3).astype(np.float32)
+    dpre, db = dense.gelu_tanh_bwd_plain(torch.from_numpy(dy),
+                                         torch.from_numpy(pre))
+    dpre = dpre.numpy()
+    ref = _k19_parent_db(dpre)
+    got = _k19_new_db(dpre)
+    np.testing.assert_array_equal(got.view(np.uint64), ref.view(np.uint64))
+    np.testing.assert_array_equal(got.astype(np.float32).view(np.uint32),
+                                  db.numpy().view(np.uint32))
+    if M >= 2048:
+        pairwise = dpre.astype(np.float64)
+        while pairwise.shape[0] > 1:
+            if pairwise.shape[0] % 2:
+                pairwise = np.vstack([pairwise, np.zeros((1, N))])
+            pairwise = pairwise[0::2] + pairwise[1::2]
+        assert not np.array_equal(pairwise[0].view(np.uint64),
+                                  ref.view(np.uint64))
+
+
+@pytest.mark.parametrize("M,N", [(2048, 1024), (2048, 512), (70, 44),
+                                 (1, 4), (100000, 4096)])
+def test_k19_grid_plan_and_scratch(M, N):
+    """One launch: (16-row block, 128-column group) units on CTAs of 128
+    threads (a warp a row of 128 columns, 4 rows a thread), a folder a
+    column group, then producers as many as units up to 8 an SM: at both
+    trainers' shapes every one of the H100's 132 SMs gets a producer. The
+    flags: one a (group, block)."""
+    threads, rows, cols, cap = (
+        _const("gelu_bwd.cu", n) for n in ("kThreads", "kRows", "kCols",
+                                           "kCtasPerSm"))
+    assert cols == threads == 4 * 32 and rows % (threads // 32) == 0
+    text = (CSRC / "gelu_bwd.cu").read_text()
+    assert "kRowsPerThread = kRows / (kThreads / 32)" in text
+    assert "(unsigned)(groups + (units < cap ? units : cap))" in text
+    assert "return (M + kRows - 1) / kRows * (long long)((N + kCols - 1) " \
+        "/ kCols);" in text
+    groups = -(-N // cols)
+    units = -(-M // rows) * groups
+    grid = groups + min(units, 132 * cap)
+    if M >= 2048:
+        assert grid - groups >= 132
+
+
+def _k19_run(producers, groups, blocks, slots, order, helping):
+    """Whether one K19 launch ends on a card with room for ``slots`` of
+    its CTAs (the rest held by other work), CTAs ``[0, groups)`` folding,
+    dispatched in ``order``; producer ``p`` owns units ``p, p +
+    producers, ...`` (block-major). With ``helping`` (the kernel's design)
+    an owner claims each unit as it comes to it and a folder whose next
+    block is unclaimed claims and produces it; without it (the design
+    before) a folder only waits."""
+    units = blocks * groups
+    claimed, done = set(), set()
+    resident, pending = [], list(order)
+    todo = {p: list(range(p, units, producers)) for p in range(producers)}
+    next_b = {g: 0 for g in range(groups)}
+    while pending or resident:
+        if pending and len(resident) < slots:
+            resident.append(pending.pop(0))
+            continue
+        moved = False
+        for cta in list(resident):
+            if cta >= groups:            # an owner: its next unit, or out
+                mine = todo[cta - groups]
+                if mine:
+                    u = mine.pop(0)
+                    if u not in claimed:
+                        claimed.add(u)
+                        done.add(u)
+                else:
+                    resident.remove(cta)
+                moved = True
+                continue
+            u = next_b[cta] * groups + cta
+            if next_b[cta] == blocks:
+                resident.remove(cta)     # its folds done
+                moved = True
+            elif u in done:
+                next_b[cta] += 1
+                moved = True
+            elif helping and u not in claimed:
+                claimed.add(u)           # the folder produces it
+                done.add(u)
+                moved = True
+        if not moved:
+            return False  # every resident CTA waits: the launch hangs
+    return True
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3, 5, 40])
+def test_k19_folders_wait_only_on_running_producers(slots):
+    """Helping folders end in any room and any dispatch order; folders
+    that only wait, dispatched first (the order a card dispatches in),
+    hang once they fill the room."""
+    producers, groups, blocks = 12, 3, 9
+    rng = np.random.default_rng(slots)
+    for _ in range(20):
+        order = list(rng.permutation(producers + groups))
+        assert _k19_run(producers, groups, blocks, slots, order, True)
+    assert _k19_run(producers, groups, blocks, slots,
+                    list(range(producers + groups)), False) == (
+        slots > groups)
+    assert "if (tried <= b0) {" in (CSRC / "gelu_bwd.cu").read_text()
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_k19_unit_flag_ends_zero_whoever_produces(seed):
+    """One unit's flag under the kernel's atomic ORs, its owner and its
+    folder interleaved at random (the folder trying a claim or not):
+    exactly one of them produces it, the folder folds it once it is done,
+    and the flag ends at zero, so the next call finds it free."""
+    claim, done_bit, owner_bit, folded = (
+        _const("gelu_bwd.cu", n) for n in ("kClaim", "kDone", "kOwner",
+                                           "kFolded"))
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        flag, produced = 0, []
+
+        def atomic_or(bits):
+            nonlocal flag
+            old, flag = flag, flag | bits
+            return old
+
+        def owner():
+            nonlocal flag
+            old = atomic_or(owner_bit | claim)
+            if not old & claim:
+                yield
+                produced.append("owner")
+                atomic_or(done_bit)
+            elif old & folded:
+                flag = 0
+
+        def folder(steal):
+            nonlocal flag
+            if steal:
+                while flag & done_bit == 0:
+                    if not atomic_or(claim) & claim:
+                        yield
+                        produced.append("folder")
+                        atomic_or(done_bit)
+                        break
+                    yield  # a running owner has it: wait
+                    break
+            while flag & done_bit == 0:
+                yield
+            if atomic_or(folded) & owner_bit:
+                flag = 0
+
+        actors = [owner(), folder(bool(rng.integers(2)))]
+        while actors:
+            a = actors[int(rng.integers(len(actors)))]
+            try:
+                next(a)
+            except StopIteration:
+                actors.remove(a)
+        assert len(produced) == 1 and flag == 0
+
+
+def test_k19_scratch_is_cached_zeroed_and_grown():
+    """The flags zero when made or grown and kept while large enough (the
+    kernel leaves them at zero), apart from the partials,
+    which grow on their own (a launch writes them before it reads them);
+    one pair a (device, stream), apart from K17's; a failed launch's pair
+    dropped."""
+    dev = torch.device("cpu")
+    saved = dict(build._scratch)
+    build._scratch.clear()
+
+    def get(stream, flags, parts):
+        return build.stream_scratch("gelu_bwd", dev, _Stream(stream), flags,
+                                    torch.int32, parts, torch.float64)
+    try:
+        c, p = get(1, 8, 64)
+        assert c.dtype == torch.int32 and (c == 0).all() and c.numel() == 8
+        assert p.dtype == torch.float64 and p.numel() == 64
+        p.fill_(7.0)
+        c2, p2 = get(1, 4, 128)
+        assert c2 is c and p2 is not p and p2.numel() == 128
+        c3, p3 = get(1, 16, 32)
+        assert c3 is not c and (c3 == 0).all() and p3 is p2
+        assert get(2, 1, 1)[0] is not c3
+        assert dense._ln_bwd_part(dev, _Stream(1), 16) is not c3
+        c3[-1] = 3  # a flag a failed launch left
+        build.drop_scratch("gelu_bwd", dev, _Stream(1))
+        assert (get(1, 16, 32)[0] == 0).all()
+        with pytest.raises(RuntimeError, match="scratch"):
+            get(1, -1, 4)
+    finally:
+        build._scratch.clear()
+        build._scratch.update(saved)

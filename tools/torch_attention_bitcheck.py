@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
-"""K1's CUDA-core routes, K15's f32 route, K22, K17, K16 and K18, built
-from another copy of their sources, against the repo's own build: bit for
-bit where the arithmetic is meant to be the same, within the plain bound
-where it is not, and timed.
+"""K1's CUDA-core routes, K15's f32 route, K22, K17, K16, K18, K11's f32
+route and K19, built from another copy of their sources, against the
+repo's own build: bit for bit where the arithmetic is meant to be the
+same, within the plain bound where it is not, and timed.
 
     python3 tools/torch_attention_bitcheck.py --old DIR [--only a,b]
 
 ``DIR`` holds ``segment_attention.cu``, ``dense.cu`` (or
 ``gemm_f32.cu``), ``ring_attention.cu``, ``ln_bwd.cu``,
-``segment_attention_bwd.cu`` and ``span_embed_bwd.cu`` as they stood
-before a change (with the headers they include), for example ``git
-archive <commit> odigos_tpu_torch/kernels/csrc`` unpacked; ``--only``
-names the sources to check (default: all six; ``gemm_f32`` is K15's f32
+``segment_attention_bwd.cu``, ``span_embed_bwd.cu``, ``recon_ce.cu`` and
+``gelu_bwd.cu`` as they stood before a change (with the headers they
+include), for example ``git archive <commit> odigos_tpu_torch/kernels/csrc``
+unpacked; ``--only`` names the sources to check (default: all eight;
+``gemm_f32`` is K15's f32
 route, ``DIR/gemm_f32.cu`` where the old copy has it, else the f32 route
 of ``DIR/dense.cu``'s ``gemm_bf16_launch``). The tool builds both copies
 with the repo's ``nvcc`` flags (each launcher bound by the symbols its
@@ -53,7 +54,25 @@ and compares:
   and on random slots with the attr table, a hot row holding every live
   slot and ids past every table and below zero (d 256, 128, 42; there
   against the old build only where every id is in range: an older build
-  clamped the others), and bit-equal to the plain version.
+  clamped the others), and bit-equal to the plain version;
+* K11 ``recon_ce``'s tensor-core route (``--only recon_ce``; bf16, every
+  label in range): the errors and the squashed scores bit for bit on the
+  128-position design (d 32 to 256) and the design chunked along d (d 16,
+  48, 512, 1024), random cases and the served parity shapes (T 256 and
+  2048 traces of L 64), a second call the same, within ``RECON_ATOL`` of
+  the plain version;
+* K11 ``recon_ce``'s f32 CUDA-core route (``--only recon_ce``): the errors,
+  the log-sum-exps and the squashed scores at ``span_map`` bit for bit on
+  the autoencoder trainer's step and on random cases (d 4 to 1024, f32
+  and bf16 decoder rows, vocabularies off 16 and the kind head to 16,
+  M 1 to 70000), a second call and a call without ``span_map`` and
+  ``lse`` the same; labels -1, -V, V and V + 7 (against the old build
+  only where every label is in range: an older build clamped them) with
+  the plain version's NaN positions;
+* K19 ``gelu_tanh_bwd`` (``--only gelu_bwd``): dPre and db bit for bit on
+  every FFN1 gradient of both trainers' steps ((2048, 1024) and (2048,
+  512)), ragged and large shapes and a case of zeros and large |pre|, a
+  second call on the same scratch the same.
 
 Then it times the two builds (``chip_smoke.device_ms``: L2 flushed, the
 host's enqueue kept out; in the order old, new, new, old) on K1's route 0
@@ -65,7 +84,13 @@ reference's order) and at D 256, K1's tiled f32 kernel at R 256, L 1024,
 K17 at the trainers' shapes, K16 at both trainers' steps and at the
 tiled route's (50, 128, 2, 128), and K18 at both trainers' steps (each
 beside its library call: the backward of f32 SDPA under the same mask,
-``index_add_`` per table). Prints the card's name and power limit,
+``index_add_`` per table), K11's f32 route at the autoencoder trainer's
+step (with its log-sum-exps) and at the served parity shapes (T 256 and
+2048 traces of L 64) beside the library sum (``F.layer_norm``, 4
+``F.linear``, 3 ``F.cross_entropy`` and the squared error), K11's
+tensor-core route at the served T 256 and 2048, and K19 at
+both trainers' steps beside ``F.gelu``'s tanh backward. Prints the card's
+name and power limit,
 the registers and spills ptxas reports for each build, one line a case,
 and a last line ``BITCHECK OK`` or ``BITCHECK FAILED n``; exits 1 on a
 failure.
@@ -85,7 +110,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 SOURCES = ("segment_attention", "gemm_f32", "ring_attention", "ln_bwd",
-           "segment_attention_bwd", "span_embed_bwd")
+           "segment_attention_bwd", "span_embed_bwd", "recon_ce",
+           "gelu_bwd")
 RING_RTOL = 1e-5  # the reference's ring bound, of the plain output's max
 K17_ROWS = (1, 63, 2048, 50000)
 K17_D = (1, 33, 128, 256, 1000, 1024)
@@ -148,6 +174,73 @@ def _bind(lib: ctypes.CDLL, name: str):
                               ctypes.POINTER(ctypes.c_longlong)]
             sizes.restype = ctypes.c_longlong
         return f, sizes
+    elif name == "recon_ce":
+        # (f32 launcher, its scratch sizes or None, tensor-core launcher):
+        # a build with recon_ce_f32_counters takes the f32 route's
+        # counters, its data scratch, the card's SM count and a launch
+        # count before the stream; the tensor-core launcher is the same
+        # in both
+        tc = lib.recon_ce_tc_launch
+        tc.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                        ctypes.c_void_p, ctypes.c_void_p]
+                       + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p]
+                       + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7
+                       + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        tc.restype = ctypes.c_int
+        f = lib.recon_ce_f32_launch
+        new = hasattr(lib, "recon_ce_f32_counters")
+        f.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_float] + [ctypes.c_void_p] * 8
+                      + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_int, ctypes.c_void_p]
+                      + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4
+                      + ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)] if new else [])
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        size = None
+        if new:
+            data = lib.recon_ce_f32_scratch
+            data.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+            data.restype = ctypes.c_longlong
+            cnt = lib.recon_ce_f32_counters
+            cnt.argtypes = [ctypes.c_longlong]
+            cnt.restype = ctypes.c_longlong
+            size = (cnt, data)
+        return f, size, tc
+    elif name == "gelu_bwd":
+        # (launcher, flags(M, N) or None, partials(M, N)): a build with
+        # gelu_bwd_flags takes its flags before its partials, then the
+        # card's SM count and a launch count before the stream
+        f = lib.gelu_tanh_bwd_launch
+        one = hasattr(lib, "gelu_bwd_flags")
+        f.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                               ctypes.c_int]
+                      + ([ctypes.c_void_p] * 4
+                         + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                            ctypes.c_void_p] if one
+                         else [ctypes.c_void_p] * 4))
+        f.restype = ctypes.c_int
+        if one:
+            size = lib.gelu_bwd_scratch
+            size.argtypes = [ctypes.c_longlong, ctypes.c_int]
+            size.restype = ctypes.c_longlong
+            cnt = lib.gelu_bwd_flags
+            cnt.argtypes = [ctypes.c_longlong, ctypes.c_int]
+            cnt.restype = ctypes.c_longlong
+            return f, cnt, size
+        parts = lib.gelu_bwd_partials
+        parts.argtypes = [ctypes.c_longlong]
+        parts.restype = ctypes.c_longlong
+        return f, None, lambda M, N: parts(M) * N
     elif name == "ring_attention":
         f = lib.ring_block_attention_launch
         f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -244,9 +337,13 @@ def _trainer_ln_inputs(dev) -> list:
     return seen
 
 
-def _trainer_bwd_inputs(dev) -> dict:
-    """Every argument tuple K16 and K18 are handed in one training step of
-    the transformer and of the autoencoder (the smoke run's steps)."""
+def _trainer_bwd_inputs(dev, hooks=(("attention", "segment_attention_bwd"),
+                                     ("embed", "span_embed_bwd")),
+                        kwargs: bool = False) -> dict:
+    """Every argument tuple the kernels of ``hooks`` ((module, wrapper)
+    pairs; by default K16 and K18) are handed in one training step of the
+    transformer and of the autoencoder (the smoke run's steps): a list a
+    wrapper of (model, args), or with ``kwargs`` (model, args, kwargs)."""
     import torch
 
     import chip_smoke
@@ -269,16 +366,16 @@ def _trainer_bwd_inputs(dev) -> dict:
     adata = chip_smoke._ae_train_step_data(chip_smoke.TRAIN_TRACES - 1)
     seen: dict = {}
     saved = []
-    for mod, name in (("attention", "segment_attention_bwd"),
-                      ("embed", "span_embed_bwd")):
+    for mod, name in hooks:
         m = getattr(kernels, mod)
         real = getattr(m, name)
         saved.append((m, name, real))
 
         def rec(*a, _real=real, _name=name, **k):
-            seen.setdefault(_name, []).append(
-                (seen["model"], [t.clone() if hasattr(t, "clone") else t
-                                 for t in a]))
+            entry = (seen["model"], [t.clone() if hasattr(t, "clone") else t
+                                     for t in a])
+            seen.setdefault(_name, []).append(entry + ((dict(k),) if kwargs
+                                                       else ()))
             return _real(*a, **k)
 
         setattr(m, name, rec)
@@ -547,6 +644,372 @@ def _k16_k18_checks(old, new, only, dev, rng, randn, segments, same_bits,
         library_ms("K18 transformer step (index_add_ x 6)",
                    lambda: [torch.zeros_like(t).index_add_(0, ids, dy_live)
                             for t, ids in specs])
+    return fails, cases
+
+
+def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
+                    flush, timed) -> tuple[int, int]:
+    """K11's f32 route and K19, old build against new: (failures,
+    cases)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from odigos_tpu_torch.features import assemble_sequences
+    from odigos_tpu_torch.kernels import recon
+    from odigos_tpu_torch.pdata import synthesize_traces
+
+    import numpy as np
+
+    fails = cases = 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    calls = _trainer_bwd_inputs(dev, (("recon", "recon_ce"),
+                                      ("dense", "gelu_tanh_bwd")),
+                                kwargs=True)
+
+    def k11_call(lib, args, out):
+        """A launch of ``lib``'s f32 route on recon_ce's ``args`` (dec,
+        ln weight and bias, heads, cat, cont, mask, loss weights, eps,
+        span_map) into ``out`` (err, scores or None, lse or None); the
+        new build's scratch made once, as the wrapper keeps it."""
+        fn, size, _ = lib
+        dec, lw, lb, heads, cat, cont, mask, wts, eps, smap = args
+        err, scores, lse = out
+        M, d = dec.shape
+        vs = [w.shape[0] for w, _ in heads]
+        ptrs = ([dec.data_ptr(), int(dec.dtype == torch.bfloat16), M, d,
+                 lw.data_ptr(), lb.data_ptr(), eps]
+                + [w.data_ptr() for w, _ in heads]
+                + [b.data_ptr() for _, b in heads] + vs
+                + [cat.data_ptr(), cat.shape[1], cont.data_ptr(),
+                   cont.shape[1], mask.data_ptr()]
+                + [float(w) for w in wts]
+                + [err.data_ptr(), None if smap is None else smap.data_ptr(),
+                   None if scores is None else scores.data_ptr(),
+                   None if lse is None else lse.data_ptr()])
+        if size is not None:
+            n, nb = size[0](M), size[1](M, *vs[:3])
+            if n < 0 or nb < 0:
+                raise RuntimeError("recon_ce_f32 scratch sizes failed")
+            scratch = (torch.zeros(max(n, 1), dtype=torch.int32, device=dev),
+                       torch.empty(max(nb, 16), dtype=torch.uint8,
+                                   device=dev))
+            launched = ctypes.c_int(0)
+            ptrs += [scratch[0].data_ptr(), scratch[1].data_ptr(), sms,
+                     ctypes.byref(launched)]
+
+        def run():
+            if scores is not None:
+                scores.zero_()
+            rc = fn(*ptrs, stream())
+            if rc != 0:
+                raise RuntimeError(f"K11 f32 launch failed: {rc}")
+        return run
+
+    def k11_outs(args, with_map, with_lse):
+        M = args[0].shape[0]
+        return (torch.empty(M, device=dev),
+                torch.zeros(M + 3, device=dev) if with_map else None,
+                torch.empty(M, 3, device=dev) if with_lse else None)
+
+    def k11_tc_call(lib, args, out):
+        """A launch of ``lib``'s tensor-core route (bf16 ``dec``: the
+        128-position design at ``recon.TC_WIDTHS``, the design chunked
+        along d elsewhere) on ``args`` into ``out`` (err, scores or None),
+        its scratch made as the wrapper makes it (the zeroed count and
+        tiles' slices zeroed again before each launch, as the wrapper's
+        fresh ``torch.zeros``)."""
+        tc = lib[2]
+        dec, lw, lb, heads, cat, cont, mask, wts, eps, smap = args
+        err, scores, _ = out
+        M, d = dec.shape
+        planes = recon.head_planes(heads)
+        v_tc = planes.w.shape[1]
+        items = recon.PART_ITEMS_PER_SM * sms
+        lst = torch.empty(M, dtype=torch.int32, device=dev)
+        stats = torch.empty((2 if d in recon.TC_WIDTHS else 4) * M,
+                            dtype=torch.float32, device=dev)
+        zeros = torch.zeros(2 + items // 2, dtype=torch.int32, device=dev)
+        part = torch.empty(items * 6 * recon.TILE, dtype=torch.float32,
+                           device=dev)
+        (w2, b2), (w3, b3) = heads[2], heads[3]
+        launched = ctypes.c_int(0)
+
+        def run():
+            zeros.zero_()
+            if scores is not None:
+                scores.zero_()
+            rc = tc(dec.data_ptr(), M, d, lw.data_ptr(), lb.data_ptr(), eps,
+                    planes.w.data_ptr(), planes.b.data_ptr(), planes.vs_pad,
+                    v_tc, planes.v_s, planes.v_n, w2.data_ptr(),
+                    b2.data_ptr(), w2.shape[0], w3.data_ptr(), b3.data_ptr(),
+                    cat.data_ptr(), cat.shape[1], cont.data_ptr(),
+                    cont.shape[1], mask.data_ptr(),
+                    *(float(w) for w in wts), err.data_ptr(),
+                    None if smap is None else smap.data_ptr(),
+                    None if scores is None else scores.data_ptr(),
+                    lst.data_ptr(), stats.data_ptr(), zeros.data_ptr(),
+                    part.data_ptr(), part.numel(), zeros.data_ptr() + 4, sms,
+                    ctypes.byref(launched), stream())
+            if rc != 0:
+                raise RuntimeError(f"K11 tc launch failed: {rc}")
+        return run
+
+    def k11_tc_case(tag, args):
+        """Old and new (twice) on the tensor-core route with span_map,
+        every label in range: err and scores bit for bit, and the new
+        build within RECON_ATOL of the plain version."""
+        nonlocal cases, fails
+        got = []
+        for lib in (old["recon_ce"], new["recon_ce"], new["recon_ce"]):
+            out = k11_outs(args, True, False)
+            k11_tc_call(lib, args, out)()
+            torch.cuda.synchronize()
+            got.append(out[:2])
+        ref_e = recon.recon_ce_plain(*args[:8], eps=args[8])
+        new_e = got[1][0]
+        real = args[6].bool()
+        near = bool(torch.isfinite(new_e).all()) and (
+            (new_e[real] - ref_e[real]).abs().max().item()
+            <= chip_smoke.RECON_ATOL if real.any() else True)
+        same = all(same_bits(a, b) for a, b in zip(got[0], got[1]))
+        again = all(same_bits(a, b) for a, b in zip(got[1], got[2]))
+        ok = near and same and again
+        cases, fails = cases + 1, fails + (not ok)
+        design = ("128-position" if args[0].shape[1] in recon.TC_WIDTHS
+                  else "chunked along d")
+        print("K11 tc", design, tag, tuple(args[0].shape),
+              "bit-equal to old (err, scores), a second call, near plain"
+              if ok else f"DIFFERS: FAILED (near {near} old {same} "
+              f"again {again})", flush=True)
+
+    def k11_case(tag, args, in_range=True):
+        """Old and new (twice) with span_map and lse, then new without
+        either: bit for bit where every label is in range (an older build
+        clamped the others); the new build against the plain version
+        always (its NaN positions, and within RECON_ATOL elsewhere)."""
+        nonlocal cases, fails
+        got = []
+        for lib, full in ((old["recon_ce"], True), (new["recon_ce"], True),
+                          (new["recon_ce"], True), (new["recon_ce"], False)):
+            out = k11_outs(args, full, full)
+            k11_call(lib, args if full else args[:-1] + (None,), out)()
+            torch.cuda.synchronize()
+            got.append(out)
+        ref_e, ref_s = recon.recon_ce_plain(*args[:8], span_map=args[9],
+                                            n_out=args[0].shape[0] + 3,
+                                            eps=args[8])
+        new_e, new_s, new_l = got[1]
+        nan_same = torch.equal(new_e.isnan(), ref_e.isnan()) and \
+            torch.equal(new_s.isnan(), ref_s.isnan())
+        fin = ~ref_e.isnan()
+        near = (new_e[fin] - ref_e[fin]).abs().max().item() \
+            <= chip_smoke.RECON_ATOL if fin.any() else True
+        again = all(same_bits(a, b) for a, b in zip(got[1], got[2]))
+        alone = same_bits(got[3][0], new_e)
+        old_ok = not in_range or all(same_bits(a, b)
+                                     for a, b in zip(got[0], got[1]))
+        ok = nan_same and near and again and alone and old_ok and bool(
+            torch.isfinite(new_l).all())
+        cases, fails = cases + 1, fails + (not ok)
+        print("K11 f32", tag, tuple(args[0].shape), args[0].dtype,
+              ("bit-equal to old (err, lse, scores), " if in_range
+               else "labels past a head, ")
+              + "a second call, without span_map and lse, plain's NaNs"
+              if ok else f"DIFFERS: FAILED (nan {nan_same} near {near} "
+              f"again {again} alone {alone} old {old_ok})", flush=True)
+
+    def k11_random(M, d, vocabs, density, dt, bad=False):
+        dec = randn(M, d) * 2 + 0.5
+        mask = torch.from_numpy(rng.random(M) < density).to(dev)
+        cat = torch.from_numpy(np.stack(
+            [rng.integers(0, V, M) for V in vocabs[:3]]
+            + [np.zeros(M, np.int64)] * 2, 1).astype(np.int32)).to(dev)
+        if bad:
+            for h in range(3):
+                V = vocabs[h]
+                cat[h::11, h] = torch.tensor(
+                    [-1, -V, V, V + 7], dtype=torch.int32,
+                    device=dev).repeat(M)[:cat[h::11].shape[0]]
+        cont = torch.from_numpy((rng.random((M, 3)) * 4).astype(
+            np.float32)).to(dev)
+        heads = [(randn(V, d) / d ** 0.5, randn(V) / 4) for V in vocabs]
+        smap = torch.from_numpy(rng.permutation(M + 3)[:M].astype(
+            np.int32)).to(dev)
+        smap[::5] = -1
+        return (dec.to(dt).contiguous(), 1 + randn(d) / 4, randn(d) / 4,
+                heads, cat, cont, mask, (1.0, 0.7, 0.5, 0.3), 1e-6, smap)
+
+    def served(T):
+        """The served parity shape: T traces of L 64 from the synthetic
+        mix (~10.3 spans a trace), the default autoencoder's heads."""
+        seqs = assemble_sequences(synthesize_traces(T, seed=T), max_len=64)
+        M = T * 64
+        cat = torch.from_numpy(seqs.categorical.reshape(M, -1)).to(dev)
+        cat[:, 0] %= 512
+        cat[:, 1] %= 2048
+        cat[:, 2] %= 8
+        heads = [(randn(V, 128) / 128 ** 0.5, randn(V) / 4)
+                 for V in (512, 2048, 8, 1)]
+        return (randn(M, 128), 1 + randn(128) / 4, randn(128) / 4, heads,
+                cat.contiguous(),
+                torch.from_numpy(seqs.continuous.reshape(M, -1)).to(dev),
+                torch.from_numpy(seqs.mask.reshape(M)).to(dev),
+                (1.0, 1.0, 0.5, 1.0), 1e-6, None)
+
+    step_k11 = []
+    if "recon_ce" in only:
+        for model, args, kw in calls.get("recon_ce", []):
+            a = tuple(args[:8]) + (kw.get("eps", recon.LN_EPS),)
+            smap = torch.arange(args[0].shape[0], dtype=torch.int32,
+                                device=dev)
+            step_k11.append(a + (smap,))
+            k11_case(f"{model} step input", step_k11[-1])
+        for M, d, vocabs, density in [
+                (1, 128, (512, 2048, 8, 1), 1.0),
+                (2048, 128, (512, 2048, 8, 1), 0.3),
+                (4096, 32, (64, 64, 8, 1), 0.16),
+                (3000, 4, (7, 33, 3, 1), 0.5),
+                (2000, 12, (100, 300, 8, 1), 0.6),
+                (1500, 100, (513, 17, 16, 1), 0.4),
+                (1024, 256, (100, 300, 8, 1), 0.9),
+                (900, 388, (512, 2048, 8, 1), 0.3),
+                (700, 768, (64, 64, 8, 1), 0.5),
+                (600, 1000, (512, 200, 8, 1), 0.5),
+                (500, 1024, (512, 2048, 8, 1), 0.4),
+                (20000, 128, (512, 2048, 8, 1), 0.9),
+                (70000, 128, (512, 2048, 8, 1), 0.16)]:
+            for dt in (torch.float32, torch.bfloat16):
+                k11_case(f"random density {density}",
+                         k11_random(M, d, vocabs, density, dt), True)
+        for dt in (torch.float32, torch.bfloat16):
+            k11_case("labels -1, -V, V, V + 7",
+                     k11_random(3000, 128, (512, 2048, 8, 1), 0.5, dt,
+                                bad=True), False)
+        for M, d, vocabs, density in [
+                (1, 128, (512, 2048, 8, 1), 1.0),
+                (4096, 32, (64, 64, 8, 1), 0.16),
+                (3000, 64, (100, 300, 8, 1), 0.5),
+                (20000, 128, (512, 2048, 8, 1), 0.16),
+                (1024, 256, (513, 17, 16, 1), 0.9),
+                (3000, 16, (7, 33, 3, 1), 0.5),
+                (2000, 48, (100, 300, 8, 1), 0.6),
+                (900, 512, (512, 2048, 8, 1), 0.3),
+                (500, 1024, (512, 200, 8, 1), 0.4)]:
+            k11_tc_case(f"random density {density}",
+                        k11_random(M, d, vocabs, density, torch.bfloat16))
+        for T in (256, 2048):
+            a = served(T)
+            k11_tc_case(f"served T {T}",
+                        (a[0].to(torch.bfloat16),) + a[1:9] + (
+                            torch.arange(a[0].shape[0], dtype=torch.int32,
+                                         device=dev),))
+    if "gelu_bwd" in only:
+        def k19_call(lib, dy, pre, out):
+            fn, tickets, size = lib
+            M, N = dy.shape
+            scratch = [torch.zeros(max(size(M, N), 1), dtype=torch.float64,
+                                   device=dev)]
+            tail = []
+            if tickets is not None:
+                scratch.insert(0, torch.zeros(max(tickets(M, N), 1),
+                                              dtype=torch.int32, device=dev))
+                launched = ctypes.c_int(0)
+                tail = [sms, ctypes.byref(launched)]
+
+            def run():
+                rc = fn(dy.data_ptr(), pre.data_ptr(), M, N,
+                        out[0].data_ptr(), out[1].data_ptr(),
+                        *(t.data_ptr() for t in scratch), *tail, stream())
+                if rc != 0 or (tail and launched.value != 1):
+                    raise RuntimeError(f"K19 launch failed: {rc}")
+            return run
+
+        def k19_case(tag, dy, pre):
+            nonlocal cases, fails
+            got = []
+            for lib in (old["gelu_bwd"], new["gelu_bwd"], new["gelu_bwd"]):
+                out = (torch.empty_like(dy),
+                       torch.empty(dy.shape[1], device=dev))
+                run = k19_call(lib, dy, pre, out)
+                run()
+                if lib is new["gelu_bwd"]:
+                    run()  # the scratch as a second call finds it
+                torch.cuda.synchronize()
+                got.append(out)
+            ok = all(same_bits(a, b) for a, b in zip(*got[:2])) and all(
+                same_bits(a, b) for a, b in zip(*got[1:]))
+            cases, fails = cases + 1, fails + (not ok)
+            print("K19", tag, tuple(dy.shape),
+                  "bit-equal to old (dPre, db), a second call bit-equal"
+                  if ok else "DIFFERS: FAILED", flush=True)
+
+        steps_k19 = {}
+        for model, args, _ in calls.get("gelu_tanh_bwd", []):
+            k19_case(f"{model} step input", args[0], args[1])
+            steps_k19.setdefault(model, (args[0], args[1]))
+        for M, N in [(1, 4), (70, 44), (2048, 1024), (2048, 512),
+                     (4097, 1028), (33, 4096), (16, 8), (17, 16),
+                     (50000, 64), (2048, 2048)]:
+            k19_case("random", randn(M, N) / 8, randn(M, N) * 2)
+        dy, pre = randn(300, 256), randn(300, 256) * 30
+        pre[::3] = 0.0
+        dy[::5] = 0.0
+        k19_case("zeros, large |pre|", dy, pre)
+
+    def library_ms(tag, fn):
+        print(tag, "library device ms:",
+              chip_smoke.device_ms(fn, flush), flush=True)
+
+    if "recon_ce" in only:
+        for tag, args in ([("autoencoder step (lse)", step_k11[0])]
+                          if step_k11 else []) + [
+                ("served T 256", served(256)),
+                ("served T 2048", served(2048))]:
+            outs = [k11_outs(args, False, tag.endswith("(lse)"))
+                    for _ in range(2)]
+            a = args[:-1] + (None,)
+            timed(f"K11 f32 {tag} {tuple(args[0].shape)} real "
+                  f"{int(args[6].sum())}",
+                  k11_call(old["recon_ce"], a, outs[0]),
+                  k11_call(new["recon_ce"], a, outs[1]))
+            dec, lw, lb, heads, cat, cont, mask, wts, eps, _ = args
+            real = torch.nonzero(mask).flatten()
+            labels = cat[real].long()
+
+            def lib_sum(dec=dec, lw=lw, lb=lb, heads=heads, real=real,
+                        labels=labels, cont=cont, wts=wts):
+                y = F.layer_norm(dec[real], (dec.shape[1],), lw, lb, 1e-6)
+                zs = [F.linear(y, w, b) for w, b in heads]
+                e = sum(float(wts[h]) * F.cross_entropy(
+                    zs[h], labels[:, h], reduction="none")
+                    for h in range(3))
+                return e + float(wts[3]) * (zs[3][:, 0]
+                                            - cont[real, 0]) ** 2
+            library_ms(f"K11 f32 {tag} (F.layer_norm + 4 F.linear + 3 "
+                       f"F.cross_entropy + MSE)", lib_sum)
+    if "recon_ce" in only:
+        for T in (256, 2048):
+            a = served(T)
+            args = (a[0].to(torch.bfloat16),) + a[1:]
+            outs = [k11_outs(args, False, False) for _ in range(2)]
+            timed(f"K11 tc served T {T} {tuple(args[0].shape)} real "
+                  f"{int(args[6].sum())}",
+                  k11_tc_call(old["recon_ce"], args, outs[0]),
+                  k11_tc_call(new["recon_ce"], args, outs[1]))
+    if "gelu_bwd" in only:
+        for model, (dy, pre) in steps_k19.items():
+            outs = [(torch.empty_like(dy), torch.empty(dy.shape[1],
+                                                        device=dev))
+                    for _ in range(2)]
+            timed(f"K19 {model} step {tuple(dy.shape)}",
+                  k19_call(old["gelu_bwd"], dy, pre, outs[0]),
+                  k19_call(new["gelu_bwd"], dy, pre, outs[1]))
+            pt = pre.detach().clone().requires_grad_()
+            yt = F.gelu(pt, approximate="tanh")
+            library_ms(f"K19 {model} step (F.gelu tanh backward)",
+                       lambda yt=yt, pt=pt, dy=dy: torch.autograd.grad(
+                           yt, pt, dy, retain_graph=True))
     return fails, cases
 
 
@@ -986,6 +1449,10 @@ def main() -> int:
         if "ln_bwd" in only:
             timed("K17 (2048, 256)", *k17_pair(2048, 256))
             timed("K17 (2048, 128)", *k17_pair(2048, 128))
+        if "recon_ce" in only or "gelu_bwd" in only:
+            n, c = _k11_k19_checks(old, new, only, dev, rng, randn,
+                                   same_bits, stream, flush, timed)
+            fails, cases = fails + n, cases + c
         if "segment_attention_bwd" in only or "span_embed_bwd" in only:
             n, c = _k16_k18_checks(old, new, only, dev, rng, randn,
                                    segments, same_bits, stream, flush,

@@ -118,6 +118,67 @@ NO_QUANT_EPILOGUE = {
 
 # kernel -> variant -> {anchor text in the source: replacement}
 VARIANTS = {
+    # K11's f32 route: the list and the exit ticket alone (no
+    # item), no class walk, no LayerNorm (the rows as they are), no merge
+    # (its ticket reset), no products
+    "recon_ce_f32": {
+        "list_only": {"const long long items = (long long)tiles * ni;":
+                      "const long long items = 0;"},
+        "no_walk": {"      if (k > 0) walk(k - 1);": "",
+                    "    walk(nchunks - 1);\n": "\n"},
+        "no_ln": {
+            "        y = ln_out(load_f(xr + f), s_st[p].x, s_st[p].y, "
+            "__ldg(a.gamma + f),\n                   __ldg(a.beta + f), xr);":
+            "        y = load_f(xr + f);"},
+        "no_merge": {"    if (tid == 0) a.sc.tile_done[tile] = 0;\n":
+                     "    if (tid == 0) a.sc.tile_done[tile] = 0;\n"
+                     "    continue;\n"},
+        "no_products": {"      for (int kk = 0; kk < d; kk += 4) {":
+                        "      for (int kk = 0; kk < (d & 0); kk += 4) {"},
+        # at d <= 128 below kLargeM: 4 x 4 logits a thread over 128-row
+        # chunks double-buffered (one CTA an SM), 4 x 2 over 64-row chunks
+        # double- or single-buffered, 2 x 4 (16-position tiles)
+        "tile_4x4_double": {"launch_f32_t<T, 4, 4, false>":
+                            "launch_f32_t<T, 4, 4, true>"},
+        "tile_4x2_double": {"launch_f32_t<T, 4, 4, false>":
+                            "launch_f32_t<T, 4, 2, true>"},
+        "tile_4x2_single": {"launch_f32_t<T, 4, 4, false>":
+                            "launch_f32_t<T, 4, 2, false>"},
+        "tile_2x4_single": {"launch_f32_t<T, 4, 4, false>":
+                            "launch_f32_t<T, 2, 4, false>"},
+        # 64-position tiles at every M, or never
+        "large_tiles_always": {"constexpr long long kLargeM = 16384;":
+                               "constexpr long long kLargeM = 0;"},
+        "large_tiles_never": {"constexpr long long kLargeM = 16384;":
+                              "constexpr long long kLargeM = 1LL << 40;"}},
+    # K19's one launch: the producers alone (no fold, each flag zeroed by
+    # its owner: the folders leave at once), the stream alone (no block
+    # fold either), 4 producer CTAs an SM (not 8), 16 partials a fold step
+    # (not 32), the registers a thread left to the compiler or held to 64
+    # (8 CTAs an SM), folders that never produce (they only wait)
+    "gelu_tanh_bwd": {
+        "production_only": {
+            "  for (long long b0 = 0; b0 < blocks;) {":
+            "  for (long long b0 = blocks; b0 < blocks;) {",
+            "    atomicOr(flag, kDone);  // after the fence: a release":
+            "    *flag = 0;"},
+        "stream_only": {
+            "  for (long long b0 = 0; b0 < blocks;) {":
+            "  for (long long b0 = blocks; b0 < blocks;) {",
+            "    atomicOr(flag, kDone);  // after the fence: a release":
+            "    *flag = 0;",
+            "  if (n < N) {\n    const float* col":
+            "  if (n < 0) {\n    const float* col"},
+        "ctas_4_an_sm": {"constexpr int kCtasPerSm = 8;":
+                         "constexpr int kCtasPerSm = 4;"},
+        "fold_batch_16": {"constexpr int kFoldBatch = 32;":
+                          "constexpr int kFoldBatch = 16;"},
+        "min_ctas_free": {"__launch_bounds__(kThreads, kMinCtasPerSm)":
+                          "__launch_bounds__(kThreads)"},
+        "min_ctas_8": {"constexpr int kMinCtasPerSm = 6;":
+                       "constexpr int kMinCtasPerSm = 8;"},
+        "folders_never_produce": {"      if (tried <= b0) {":
+                                  "      if (false) {"}},
     "segment_attention": {
         # the row copies and waits only: no attention math, no output
         "loads_only": {
@@ -723,6 +784,8 @@ VARIANTS = {
 # kernel -> (source under build.SOURCES, its C launcher)
 LAUNCHERS = {"segment_attention_bwd": ("segment_attention_bwd",
                                        "segment_attention_bwd_launch"),
+             "recon_ce_f32": ("recon_ce", "recon_ce_f32_launch"),
+             "gelu_tanh_bwd": ("gelu_bwd", "gelu_tanh_bwd_launch"),
              "span_embed_bwd": ("span_embed_bwd", "span_embed_bwd_launch"),
              "recon_ce_bwd": ("recon_ce_bwd", "recon_ce_bwd_launch"),
              "ln_bwd": ("ln_bwd", "ln_bwd_launch"),
@@ -934,6 +997,79 @@ def _k16_k18_cases(dev, names) -> list:
     return cases
 
 
+def _k11_f32_k19_cases(dev, names) -> list:
+    """K11's f32 route with its log-sum-exps on one autoencoder training
+    step's decoder output (M 2048, 619 real positions) and at the served
+    parity shapes (T 256 and 2048 traces of L 64 from the synthetic mix,
+    d 128, the default heads); K19 on the first FFN1 gradient of one
+    transformer step (2048, 1024) and one autoencoder step (2048, 512)."""
+    import torch
+
+    import chip_smoke
+    from odigos_tpu_torch.features import assemble_sequences
+    from odigos_tpu_torch.kernels import dense, recon
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.training import labeled_sequences
+
+    if not {"recon_ce_f32", "gelu_tanh_bwd"} & set(names):
+        return []
+    acfg = AutoencoderConfig(max_len=chip_smoke.TRAIN_LEN,
+                             dtype=torch.float32)
+    amodel = SpanAutoencoder(acfg, device=dev)
+    amodel.load_state_dict(autoencoder_state(acfg, 0))
+    aseen = chip_smoke._capture_ae_inputs(
+        amodel, chip_smoke._ae_train_step_data(chip_smoke.TRAIN_TRACES - 1))
+    cases = []
+    if "recon_ce_f32" in names:
+        args, kw = aseen["recon_ce"]
+        lse = torch.empty(args[0].shape[0], 3, device=dev)
+        cases.append(("recon_ce_f32", {"case": "autoencoder step",
+                                       "M": args[0].shape[0],
+                                       "real": int(args[6].sum())},
+                      lambda: recon.recon_ce(*args[:8], eps=kw["eps"],
+                                             route="cuda_core", lse=lse)))
+        g = torch.Generator(device=dev).manual_seed(3)
+        heads = [(torch.randn(V, 128, generator=g, device=dev) / 128 ** 0.5,
+                  torch.randn(V, generator=g, device=dev) / 4)
+                 for V in (512, 2048, 8, 1)]
+        ln = (1 + torch.randn(128, generator=g, device=dev) / 4,
+              torch.randn(128, generator=g, device=dev) / 4)
+        for T in (256, 2048):
+            seqs = assemble_sequences(synthesize_traces(T, seed=T),
+                                      max_len=64)
+            M = T * 64
+            cat = torch.from_numpy(seqs.categorical.reshape(M, -1)).to(dev)
+            cont = torch.from_numpy(seqs.continuous.reshape(M, -1)).to(dev)
+            mask = torch.from_numpy(seqs.mask.reshape(M)).to(dev)
+            dec = torch.randn(M, 128, generator=g, device=dev)
+            cases.append(("recon_ce_f32", {"case": f"served T {T}", "M": M,
+                                           "real": int(mask.sum())},
+                          lambda dec=dec, cat=cat, cont=cont, mask=mask:
+                          recon.recon_ce(dec, *ln, heads, cat, cont, mask,
+                                         (1.0, 1.0, 0.5, 1.0),
+                                         route="cuda_core")))
+    if "gelu_tanh_bwd" in names:
+        tcfg = TransformerConfig(max_len=chip_smoke.TRAIN_LEN,
+                                 dtype=torch.float32)
+        tseen = chip_smoke._capture_backward_inputs(
+            TraceTransformer(tcfg, device=dev, seed=0),
+            labeled_sequences(chip_smoke.TRAIN_TRACES - 1,
+                              max_len=chip_smoke.TRAIN_LEN, seed=0,
+                              pad_traces_to=chip_smoke.TRAIN_TRACES))
+        for model, a in (("transformer", tseen["gelu_tanh_bwd"][0]),
+                         ("autoencoder", aseen["gelu_tanh_bwd"][0])):
+            dy, pre = a[:2]
+            cases.append(("gelu_tanh_bwd", {"case": f"{model} step",
+                                            "M": dy.shape[0],
+                                            "N": dy.shape[1]},
+                          lambda dy=dy, pre=pre:
+                          dense.gelu_tanh_bwd(dy, pre)))
+    return cases
+
+
 def _k15_f32_cases(dev, names) -> list:
     """K15's f32 route on each distinct product of one training step of
     the transformer and of the autoencoder (their own inputs)."""
@@ -958,6 +1094,19 @@ def _k15_f32_cases(dev, names) -> list:
                                        "epilogue": epi, "planes": planes},
                           lambda a=a, k=k: dense.gemm_bf16(*a, **k)))
     return cases
+
+
+def _gelu_bwd_launcher(name: str):
+    """K19's launcher as the wrapper binds it (a first call on the card
+    binds it)."""
+    import torch
+
+    from odigos_tpu_torch.kernels import dense
+
+    if name not in dense._fns:
+        z = torch.zeros(16, 4, device="cuda")
+        dense.gelu_tanh_bwd(z, z)
+    return dense._fns[name]
 
 
 def build_variants(tmp: str, built: dict, names) -> dict:
@@ -1040,7 +1189,8 @@ def main() -> int:
     from odigos_tpu_torch.kernels import ring as kring
 
     modules.update(recon_ce_bwd=recon, ln_masked_pool_bwd=pool, ln_bwd=dense,
-                   ring_block_attention=kring)
+                   ring_block_attention=kring, recon_ce_f32=recon,
+                   gelu_tanh_bwd=dense)
     # a wrapper's launcher kept under its own names (getter, cache)
     own = {"trace_rows_pack": ("_rows_kernel", "_rows_fn"),
            "segment_attention_bwd": ("_bwd_kernel", "_bwd_fn")}
@@ -1049,7 +1199,8 @@ def main() -> int:
     bwd = {"recon_ce_bwd": (recon._bwd_kernel, recon._fns),
            "ln_masked_pool_bwd": (pool._bwd_kernel, pool._bwd_fns),
            "ln_bwd": (lambda _name: dense._ln_bwd_kernel(), dense._fns),
-           "span_embed_bwd": (embed._bwd_kernel, embed._bwd_fns)}
+           "span_embed_bwd": (embed._bwd_kernel, embed._bwd_fns),
+           "gelu_tanh_bwd": (_gelu_bwd_launcher, dense._fns)}
 
     def launcher(kname: str):
         m = modules[kname]
@@ -1292,6 +1443,7 @@ def main() -> int:
     cases += _k17_k22_cases(dev, names)
     cases += _k16_k18_cases(dev, names)
     cases += _k15_f32_cases(dev, names)
+    cases += _k11_f32_k19_cases(dev, names)
     cases = [cs for cs in cases if cs[0] in names]
 
     with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():

@@ -77,9 +77,9 @@ CATEGORIES = (
     ("K9 ln_quantize", ("ln_quantize_kernel", "ln_quantize_row_kernel")),
     ("K10 qgemm", ("qgemm_s8_kernel", "qgemm_s8_quant_kernel",
                    "qgemm_mma_kernel")),
-    ("K11 recon_ce", ("recon_ce_kernel", "recon_tc_kernel",
-                      "recon_compact_kernel", "recon_prep_kernel",
-                      "recon_tc_wide_kernel")),
+    ("K11 recon_ce", ("recon_ce_kernel", "recon_ce_list_kernel",
+                      "recon_tc_kernel", "recon_compact_kernel",
+                      "recon_prep_kernel", "recon_tc_wide_kernel")),
     ("K12 ln_masked_pool", ("ln_masked_pool_kernel",
                             "ln_masked_pool_any_kernel")),
     ("K14 ln_bf16", ("ln_rows_kernel", "ln_wide_kernel")),
