@@ -4524,10 +4524,8 @@ AE_LOSS_FALL = 4                # mean of the last 20 losses <= step 0's / 4
                                 # (the reference's CPU run: 1/18)
 AE_AUC_BAR = 0.70               # the reference sets none; its CPU runs reach
                                 # 0.76-0.78 from seeds 0-2
-K20_KERNELS = ("list_kernel", "recon_bwd_rows_kernel",
-               "recon_bwd_cols_kernel",
-               "FillFunctor<float>")  # dy zero-filled by the wrapper
-K21_KERNELS = ("pool_bwd_rows_kernel", "pool_bwd_cols_kernel")
+K20_KERNELS = ("recon_bwd_prep_kernel", "recon_bwd_main_kernel")
+K21_KERNELS = ("pool_bwd_kernel",)
 AE_TRAIN_COUNTERS = ((("segment_attention", "attention"),
                       ("span_embed", "embed"), ("ln_masked_pool", "pool"),
                       ("recon_ce", "recon")) + DENSE_COUNTERS + BWD_COUNTERS
@@ -4766,9 +4764,15 @@ def phase_ae_train_kernels(card: str) -> dict:
     # ---- K20 on the step's own backward inputs
     args, _ = seen["recon_ce_bwd"]
     (dec, lw, lb, heads, lse, cat, cont, mask, derr, wts, eps) = args
+    n0, d0 = recon.bwd_launches, recon.bwd_device_launches
     got = recon.recon_ce_bwd(*args)
     ref = recon.recon_ce_bwd_plain(*args)
     torch.cuda.synchronize()
+    k20_calls = recon.bwd_launches - n0
+    k20_per_call = (recon.bwd_device_launches - d0) / max(k20_calls, 1)
+    check(k20_calls == 1 and k20_per_call == 2,
+          f"recon_ce_bwd: {k20_per_call} kernels a call over {k20_calls} "
+          f"calls, not two")
     check(bool((got.dy[~mask] == 0).all()), "recon_ce_bwd: dy at padding")
     diffs = [_rel_check(got.dy, ref.dy, RECON_BWD_RTOL, "recon_ce_bwd dy")]
     for h, ((gw, gb), (rw, rb)) in enumerate(zip(got.heads, ref.heads)):
@@ -4825,6 +4829,7 @@ def phase_ae_train_kernels(card: str) -> dict:
                       "dec_ln's output: no LayerNorm)",
            "launch_device_ms": kernel_split_ms(
                lambda: recon.recon_ce_bwd(*args), flush, K20_KERNELS),
+           "launches_per_call": k20_per_call,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops}
     row.update(_ratios(row))
@@ -4856,9 +4861,15 @@ def phase_ae_train_kernels(card: str) -> dict:
 
     # ---- K21 on the step's pool gradient
     x, w, pmask, dpool, peps = seen["ln_masked_pool_bwd"][0]
+    n0, d0 = pool.bwd_launches, pool.bwd_device_launches
     got = pool.ln_masked_pool_bwd(x, w, pmask, dpool, peps)
     ref = pool.ln_masked_pool_bwd_plain(x, w, pmask, dpool, peps)
     torch.cuda.synchronize()
+    k21_calls = pool.bwd_launches - n0
+    k21_per_call = (pool.bwd_device_launches - d0) / max(k21_calls, 1)
+    check(k21_calls == 1 and k21_per_call == 1,
+          f"ln_masked_pool_bwd: {k21_per_call} kernels a call over "
+          f"{k21_calls} calls, not one")
     diffs = [_rel_check(a, b, BWD_EXACT_RTOL, f"ln_masked_pool_bwd {n}")
              for a, b, n in zip(got, ref, ("dx", "dgamma", "dbeta"))]
     check(bool((got[0][~pmask] == 0).all()),
@@ -4892,6 +4903,7 @@ def phase_ae_train_kernels(card: str) -> dict:
            "launch_device_ms": kernel_split_ms(
                lambda: pool.ln_masked_pool_bwd(x, w, pmask, dpool, peps),
                flush, K21_KERNELS),
+           "launches_per_call": k21_per_call,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops}
     row.update(_ratios(row))
@@ -5665,25 +5677,32 @@ def main() -> int:
                                 "(acquire, no float atomics), claiming and "
                                 "producing a block not yet up (it waits only "
                                 "on running CTAs): the parent's bits",
-               "recon_ce_bwd": "f32, 3 launches, no atomics: one CTA lists "
-                               "the real positions in order; a CTA per "
-                               "(tile of listed positions, <= 128 rows of "
-                               "one head) recomputes dec_ln (ln_exact.cuh) "
-                               "and the logits on CUDA cores from smem "
-                               "tiles, dlogit from K11's LSE (kept, 6 MB), "
-                               "dy partial in registers (a weight vector "
-                               "feeds 4 positions); a CTA per (32 head rows, "
-                               "64 columns) sums dW, db over the positions "
-                               "in order, 64 at a time with the next in "
-                               "flight; more CTAs sum dy's partials",
-               "ln_masked_pool_bwd": "f32, a warp a trace: real positions "
-                                     "counted by ballots, g = dpool / count; "
-                                     "padding rows zeroed, real rows 4 at a "
-                                     "time, their loads issued together, "
-                                     "K17's arithmetic with K12's "
-                                     "statistics (ln_exact.cuh); per-warp "
-                                     "f64 column partials, a fixed-order "
-                                     "column pass",
+               "recon_ce_bwd": "f32, 2 launches (PDL), no float atomics, "
+                               "the parent's bits: a prep CTA a run of "
+                               "positions lists its real ones (the count "
+                               "before it by __syncthreads_count), "
+                               "normalises each once (ln_exact.cuh) with "
+                               "its head data, zeroes dy's padding rows; "
+                               "persistent CTAs draw tickets: (64 listed "
+                               "positions, 128-row slice) items first "
+                               "(y staged once, weight tiles through a "
+                               "2-stage cp.async ring, 4x4 logits and 4x8 "
+                               "dy a thread, dlogit kept), each tile's last "
+                               "item folding dy's slices in order; then "
+                               "(32 rows, 128 columns) dW items, each "
+                               "waiting only on slice items of lower "
+                               "tickets, 64 positions a ring stage, db "
+                               "chains on one lane a warp",
+               "ln_masked_pool_bwd": "f32, one launch: a CTA of 8 warps a "
+                                     "trace (count by __syncthreads_count, "
+                                     "g = dpool / count), windows of real "
+                                     "rows dealt to warps with their loads "
+                                     "issued first, K17's arithmetic with "
+                                     "K12's statistics (ln_exact.cuh), the "
+                                     "rows' terms through smem into each "
+                                     "column's f64 sum in position order; "
+                                     "the traces' partials added in trace "
+                                     "order by the last CTA after a ticket",
                "ring_block_attention": "split-operand TF32 on the tensor "
                                        "cores (mma.sync m16n8k8, three "
                                        "products a pair of f32 operands), "
@@ -5929,6 +5948,7 @@ def main() -> int:
             "library": r["library"], "ratio_to_bound": r["ratio_to_bound"],
             "ratio_to_library": r["ratio_to_library"],
             "launches_per_step": ae_train_path["launches_per_step"][kname],
+            "launches_per_call": r["launches_per_call"],
             "dtype": "float32"}))
     ae_train = ae_train_path["launches"]
     for ln_ in lines:

@@ -17,7 +17,8 @@ raises; there is no fallback.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
 them; ``load(name)`` builds on demand and returns the loaded library.
 ``stream_scratch`` keeps the scratch of the kernels that count or sum
-across CTAs (K11's f32 route, K17, K19) per kernel, device and stream;
+across CTAs (K11's f32 route, K17, K19, K20, K21) per kernel, device and
+stream;
 ``sm_count`` is the card's multiprocessors, which their launchers take.
 """
 

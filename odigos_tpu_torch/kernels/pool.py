@@ -13,7 +13,12 @@ positions, the sum rounded to the working type and divided by
 ``csrc/ae_pool_bwd.cu``) is its backward pass for the trainer, f32:
 ``(dx, dweight, dbias)`` from the pooled vectors' gradient, ``g =
 dpool / max(count, 1)`` taken through the LayerNorm at each real position
-(K17's arithmetic, K12's statistics recomputed), ``dx`` 0 at padding.
+(K17's arithmetic, K12's statistics recomputed), ``dx`` 0 at padding. On
+the card it is one launch (a CTA of 8 warps a trace, the trace's real
+rows spread over its warps; the traces' f64 column sums added in trace
+order by the last CTA after a ticket), its counter and partials cached
+per (device, stream) by ``build.stream_scratch`` and dropped after a
+failed launch.
 ``live`` (a ``(1,)`` int32 row count on the device: the fused route's
 trace count from K13) makes every row at or past ``live[0]`` a row of
 padding: it is written as zeros, and neither its mask nor its ``x`` is
@@ -33,7 +38,8 @@ normalises them on K14's layout (16-byte vectors on ``d / 8`` lanes, bf16;
 positions' loads issued before the current ones are reduced; the rows past
 ``live`` are zero-filled. It takes ``d % 8 == 0`` up to ``MAX_D`` and ``L``
 up to ``MAX_L``, 16-byte aligned ``x``. ``launches`` counts the calls that
-launched, ``bwd_launches`` K21's.
+launched, ``bwd_launches`` K21's calls and ``bwd_device_launches`` the
+kernels its launcher reports (one a call).
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 bwd_launches = 0
+bwd_device_launches = 0
 _count_lock = threading.Lock()
 _fn = None
 _bwd_fns: dict = {}  # K21's launchers
@@ -193,13 +200,18 @@ def _bwd_kernel(name: str):
     fn = _bwd_fns.get(name)
     if fn is None:
         fn = getattr(build.load("ae_pool_bwd"), name)
-        if name == "ln_masked_pool_bwd_partials":
+        if name == "ln_masked_pool_bwd_counters":
             fn.argtypes = [ctypes.c_longlong]
+            fn.restype = ctypes.c_longlong
+        elif name == "ln_masked_pool_bwd_scratch":
+            fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
             fn.restype = ctypes.c_longlong
         else:
             fn.argtypes = ([ctypes.c_void_p] * 4
                            + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_int] + [ctypes.c_void_p] * 5)
+                              ctypes.c_int] + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                              ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _bwd_fns[name] = fn
     return fn
@@ -211,7 +223,7 @@ def ln_masked_pool_bwd(x: torch.Tensor, ln_weight: torch.Tensor,
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K21: ``(dx, dweight, dbias)`` of :func:`ln_masked_pool` (module
     docstring), f32. Nothing is synchronised."""
-    global bwd_launches
+    global bwd_launches, bwd_device_launches
     _check_bwd(x, ln_weight, mask, dpool)
     dev = x.device
     if dev.type == "cpu":
@@ -227,21 +239,30 @@ def ln_masked_pool_bwd(x: torch.Tensor, ln_weight: torch.Tensor,
     if not all(t.is_contiguous() for t in (x, ln_weight, mask, dpool)):
         raise ValueError("ln_masked_pool_bwd needs contiguous inputs")
     dx = torch.empty_like(x)
-    dw = torch.zeros(d, dtype=torch.float32, device=dev)
-    db = torch.zeros(d, dtype=torch.float32, device=dev)
     if T == 0 or L == 0:
-        return dx, dw, db
-    part = torch.empty(int(_bwd_kernel("ln_masked_pool_bwd_partials")(T))
-                       * 2 * d, dtype=torch.float64, device=dev)
+        return (dx, torch.zeros(d, dtype=torch.float32, device=dev),
+                torch.zeros(d, dtype=torch.float32, device=dev))
+    # the kernel writes both whole
+    dw = torch.empty(d, dtype=torch.float32, device=dev)
+    db = torch.empty(d, dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)  # the kernels launched (the launcher's own)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        cnt, part = build.stream_scratch(
+            "ae_pool_bwd", dev, stream,
+            _bwd_kernel("ln_masked_pool_bwd_counters")(T), torch.int32,
+            _bwd_kernel("ln_masked_pool_bwd_scratch")(T, d), torch.float64)
         rc = _bwd_kernel("ln_masked_pool_bwd_launch")(
             x.data_ptr(), ln_weight.data_ptr(), mask.data_ptr(),
             dpool.data_ptr(), eps, T, L, d, dx.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), part.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            db.data_ptr(), cnt.data_ptr(), part.data_ptr(),
+            build.sm_count(dev), ctypes.byref(launched), stream.cuda_stream)
+        if rc != 0:
+            build.drop_scratch("ae_pool_bwd", dev, stream)
     if rc != 0:
         raise RuntimeError(f"ln_masked_pool_bwd launch failed: CUDA error "
                            f"{rc}")
     with _count_lock:
         bwd_launches += 1
+        bwd_device_launches += launched.value
     return dx, dw, db

@@ -62,8 +62,12 @@ Neither falls back to the other on a launch. ``d % 16 == 0`` up to
 ``d % 4 == 0``), ``M < 2^31``, the kind head at most ``MAX_KIND`` wide on
 the tensor-core route. ``launches`` counts the calls
 that launched, ``tc_launches`` those on the tensor-core kernel,
-``device_launches`` the kernels; ``bwd_launches`` counts K20's calls
-(three kernels each: the real positions listed, the rows, the columns).
+``device_launches`` the kernels; ``bwd_launches`` counts K20's calls and
+``bwd_device_launches`` the kernels its launcher reports (two a call: the
+real positions listed with their ``dec_ln`` output, then persistent CTAs
+over (tile of listed positions, vocabulary slice) and dW items, paired by
+programmatic dependent launch; its counters and data are
+``build.stream_scratch``'s, dropped after a failed launch).
 """
 
 from __future__ import annotations
@@ -96,6 +100,7 @@ launches = 0
 tc_launches = 0
 device_launches = 0
 bwd_launches = 0
+bwd_device_launches = 0
 _count_lock = threading.Lock()
 _fns: dict = {}
 
@@ -529,6 +534,12 @@ def _bwd_kernel(name: str):
         fn = getattr(build.load("recon_ce_bwd"), name)
         if name == "recon_ce_bwd_slices":
             fn.argtypes = [ctypes.c_int] * 4
+        elif name == "recon_ce_bwd_counters":
+            fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
+            fn.restype = ctypes.c_longlong
+        elif name == "recon_ce_bwd_scratch":
+            fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+            fn.restype = ctypes.c_longlong
         else:
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
@@ -536,8 +547,11 @@ def _bwd_kernel(name: str):
                            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_void_p]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 9)
-        fn.restype = ctypes.c_int
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                              ctypes.c_void_p])
+        if name in ("recon_ce_bwd_slices", "recon_ce_bwd_launch"):
+            fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
@@ -552,7 +566,7 @@ def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
     ``lse``: the ``(M, 3)`` log-sum-exps K11 wrote in the forward; ``derr``:
     ``(M,)`` the gradient of each position's error. Nothing is
     synchronised."""
-    global bwd_launches
+    global bwd_launches, bwd_device_launches
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
            loss_weights, None, 0)
     M, d = dec.shape
@@ -584,34 +598,39 @@ def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
                          "weights")
     vs = [w.shape[0] for w, _ in heads]
     V = sum(vs)
-    dy = torch.zeros((M, d), dtype=torch.float32, device=dev)
+    if M == 0:
+        return HeadGrads(
+            torch.zeros((0, d), dtype=torch.float32, device=dev),
+            [(torch.zeros((v, d), dtype=torch.float32, device=dev),
+              torch.zeros(v, dtype=torch.float32, device=dev)) for v in vs])
+    # the kernels write all three whole (dy's padding rows as zeros)
+    dy = torch.empty((M, d), dtype=torch.float32, device=dev)
     dw = torch.empty((V, d), dtype=torch.float32, device=dev)
     db = torch.empty(V, dtype=torch.float32, device=dev)
-    if M > 0:
-        S = int(_bwd_kernel("recon_ce_bwd_slices")(*vs))
-        lst = torch.empty(M + 1, dtype=torch.int32, device=dev)  # + count
-        dl = torch.empty((M, V), dtype=torch.float32, device=dev)
-        ybuf = torch.empty((M, d), dtype=torch.float32, device=dev)
-        part = torch.empty((S, M, d), dtype=torch.float32, device=dev)
-        (w0, b0), (w1, b1), (w2, b2), (w3, b3) = heads
-        with torch.cuda.device(dev):
-            rc = _bwd_kernel("recon_ce_bwd_launch")(
-                dec.data_ptr(), M, d, ln_weight.data_ptr(),
-                ln_bias.data_ptr(), eps, w0.data_ptr(), w1.data_ptr(),
-                w2.data_ptr(), w3.data_ptr(), b0.data_ptr(), b1.data_ptr(),
-                b2.data_ptr(), b3.data_ptr(), *vs, lse.data_ptr(),
-                categorical.data_ptr(), categorical.shape[1],
-                continuous.data_ptr(), continuous.shape[1], mask.data_ptr(),
-                derr.data_ptr(), *(float(w) for w in loss_weights),
-                lst.data_ptr(), lst.data_ptr() + 4 * M, dl.data_ptr(),
-                ybuf.data_ptr(), part.data_ptr(), dy.data_ptr(),
-                dw.data_ptr(), db.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"recon_ce_bwd launch failed: CUDA error {rc}")
-        with _count_lock:
-            bwd_launches += 1
-    else:
-        dw.zero_()
-        db.zero_()
+    (w0, b0), (w1, b1), (w2, b2), (w3, b3) = heads
+    launched = ctypes.c_int(0)  # the kernels launched (the launcher's own)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        # int32 counters, left at zero by every call, and bytes
+        cnt, scratch = build.stream_scratch(
+            "recon_ce_bwd", dev, stream,
+            _bwd_kernel("recon_ce_bwd_counters")(M, *vs), torch.int32,
+            _bwd_kernel("recon_ce_bwd_scratch")(M, d, *vs), torch.uint8)
+        rc = _bwd_kernel("recon_ce_bwd_launch")(
+            dec.data_ptr(), M, d, ln_weight.data_ptr(), ln_bias.data_ptr(),
+            eps, w0.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+            b0.data_ptr(), b1.data_ptr(), b2.data_ptr(), b3.data_ptr(), *vs,
+            lse.data_ptr(), categorical.data_ptr(), categorical.shape[1],
+            continuous.data_ptr(), continuous.shape[1], mask.data_ptr(),
+            derr.data_ptr(), *(float(w) for w in loss_weights),
+            cnt.data_ptr(), scratch.data_ptr(), dy.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), build.sm_count(dev),
+            ctypes.byref(launched), stream.cuda_stream)
+        if rc != 0:  # a kernel may have left its counters
+            build.drop_scratch("recon_ce_bwd", dev, stream)
+    if rc != 0:
+        raise RuntimeError(f"recon_ce_bwd launch failed: CUDA error {rc}")
+    with _count_lock:
+        bwd_launches += 1
+        bwd_device_launches += launched.value
     return HeadGrads(dy, list(zip(torch.split(dw, vs), torch.split(db, vs))))

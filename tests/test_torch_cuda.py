@@ -2380,6 +2380,60 @@ def test_k21_ln_masked_pool_bwd_matches_plain(dev, T, L, d):
     assert (got[0][~mask] == 0).all()
 
 
+@pytest.mark.parametrize("T,L,d", [(64, 32, 128), (300, 17, 33),
+                                   (5, 1024, 1024)])
+def test_k21_one_launch_leaves_its_scratch_zeroed(dev, T, L, d):
+    """K21's one launch: the launcher reports one kernel a call, the
+    profiler sees that kernel and no other (no fill of dW or db), its
+    cached ticket is zero after every call, and a second call on the same
+    scratch gives the same bits."""
+    x, mask = _masked_rows(dev, T, L, d, "float32", 0.3, seed=T + d)
+    g = torch.Generator(device=dev).manual_seed(d)
+    w = 1 + 0.2 * torch.randn(d, generator=g, device=dev)
+    dpool = torch.randn(T, d, generator=g, device=dev)
+    d0 = kpool.bwd_device_launches
+    a = kpool.ln_masked_pool_bwd(x, w, mask, dpool)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        b = kpool.ln_masked_pool_bwd(x, w, mask, dpool)
+        torch.cuda.synchronize()
+    assert kpool.bwd_device_launches - d0 == 2
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("pool_bwd_kernel" in n for n in names), names
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    cnt, _ = _scratch_of("ae_pool_bwd", dev)
+    assert (cnt == 0).all()
+
+
+@pytest.mark.parametrize("M,d,density", [(2048, 128, 0.3), (700, 1024, 0.6),
+                                         (64, 96, 0.0)])
+def test_k20_two_launches_leave_their_scratch_zeroed(dev, M, d, density):
+    """K20's two launches: the launcher reports two kernels a call, the
+    profiler sees the prep and main kernels and no other (no fill of dy),
+    its cached counters are zero after every call, and a second call on the
+    same scratch gives the same bits."""
+    args = _k20_inputs(dev, M, d, density)
+    d0 = krecon.bwd_device_launches
+    a = krecon.recon_ce_bwd(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        b = krecon.recon_ce_bwd(*args)
+        torch.cuda.synchronize()
+    assert krecon.bwd_device_launches - d0 == 4
+    names = sorted(e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert len(names) == 2 and "recon_bwd_main_kernel" in names[0] \
+        and "recon_bwd_prep_kernel" in names[1], names
+    assert torch.equal(a.dy, b.dy) and all(
+        torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+        for p, q in zip(a.heads, b.heads))
+    cnt, _ = _scratch_of("recon_ce_bwd", dev)
+    assert (cnt == 0).all()
+
+
 def test_autoencoder_training_step_on_the_card(dev, monkeypatch):
     """One step of the autoencoder's trainer at its full default width:
     every kernel launches its count, no plain version of a backward kernel

@@ -1560,3 +1560,487 @@ def test_k19_scratch_is_cached_zeroed_and_grown():
     finally:
         build._scratch.clear()
         build._scratch.update(saved)
+
+
+# ------------------------------------------------------------------- K21
+def _k21_xh_terms(x, w, mask, dpool):
+    """K21's per-row f32 values as the kernel forms them: g = dpool /
+    max(count, 1), and at each position the terms g * xh (xh from K12's
+    statistics: exact f64 row sums rounded once, IEEE steps)."""
+    T, L, d = x.shape
+    count = mask.sum(-1).astype(np.int64)
+    denom = np.maximum(count, 1).astype(np.float32)
+    g = (dpool / denom[:, None]).astype(np.float32)
+    mean = (x.astype(np.float64).sum(-1).astype(np.float32)
+            / np.float32(d)).astype(np.float32)
+    dev = (x - mean[..., None]).astype(np.float32)
+    sq = (dev * dev).astype(np.float32)
+    var = (sq.astype(np.float64).sum(-1).astype(np.float32)
+           / np.float32(d)).astype(np.float32)
+    rstd = (np.float32(1.0) / np.sqrt((var + np.float32(dense.LN_EPS))
+                                      .astype(np.float32))).astype(np.float32)
+    xh = (dev * rstd[..., None]).astype(np.float32)
+    return g, count, (g[:, None, :] * xh).astype(np.float32)
+
+
+def _k21_parent_sums(mask, g, terms):
+    """The parent's order: a warp a trace adds its real positions' f64
+    terms in position order from 0.0 (and g once a real position), the
+    warps' partials (zeros past T, 4 a CTA) added in warp order from 0.0
+    by a thread a column, rounded once."""
+    T, L, d = terms.shape
+    parts = []
+    for t in range(-(-T // 4) * 4):
+        cg, cb = np.zeros(d), np.zeros(d)
+        if t < T:
+            for p in range(L):
+                if mask[t, p]:
+                    cg = cg + terms[t, p].astype(np.float64)
+                    cb = cb + g[t].astype(np.float64)
+        parts.append((cg, cb))
+    sg, sb = np.zeros(d), np.zeros(d)
+    for cg, cb in parts:
+        sg, sb = sg + cg, sb + cb
+    return sg, sb
+
+
+def _k21_new_sums(mask, g, count, terms):
+    """The kernel's order, its constants read from the source: a CTA a
+    trace takes its positions a window of W at a time, the window's real
+    rows dealt to warps k mod 8 and their terms put in shared memory at row
+    k; a thread a column adds rows 0.. of each window in order into its
+    f64 sum from 0.0; the trace's sum of g is count x g; the last CTA adds
+    the traces' partials in trace order from 0.0."""
+    T, L, d = terms.shape
+    threads = _const("ae_pool_bwd.cu", "kThreads")
+    cells = _const("ae_pool_bwd.cu", "kTermCells")
+    per = next(p for p in (1, 2, 4, 8, 16, 32) if d <= 32 * p)
+    W = 32 if per <= 8 else cells // (32 * per)
+    warps = threads // 32
+    assert W * d <= cells and W % warps == 0
+    sg, sb = np.zeros(d), np.zeros(d)
+    for t in range(T):
+        acc = np.zeros(d)
+        for l0 in range(0, L, W):
+            real = [l for l in range(l0, min(l0 + W, L)) if mask[t, l]]
+            rows = {}  # shared-memory row k <- the warp k mod 8's row
+            for k, l in enumerate(real):
+                assert k // warps < W // warps
+                rows[k] = terms[t, l]
+            for k in range(len(real)):
+                acc = acc + rows[k].astype(np.float64)
+        cb = (g[t].astype(np.float64) * float(count[t]) if count[t]
+              else np.zeros(d))
+        sg, sb = sg + acc, sb + cb
+    return sg, sb
+
+
+@pytest.mark.parametrize("d", [1, 33, 128, 1024])
+@pytest.mark.parametrize("T,L", [(1, 1), (64, 32), (300, 17)])
+def test_k21_column_sums_in_kernel_order_match_the_parent(T, L, d):
+    """dgamma and dbeta in the one-launch kernel's order (windows of real
+    rows through shared memory, count x g, the traces in order) against
+    the parent's (a warp a trace, warps' partials in order), on dpool
+    spread over ~50 binades (so the f64 sums round: the bits rest on the
+    order) with empty traces: the same f64 sums, so the same bits."""
+    rng = np.random.default_rng(T * d + L)
+    x = (rng.standard_normal((T, L, d)) * 3 + 1).astype(np.float32)
+    dpool = (rng.standard_normal((T, d)) * np.exp2(
+        rng.integers(-40, 12, (T, d)))).astype(np.float32)
+    mask = rng.random((T, L)) < 0.4
+    if T > 1:
+        mask[::3] = False  # traces with no real position
+    g, count, terms = _k21_xh_terms(x, None, mask, dpool)
+    ref = _k21_parent_sums(mask, g, terms)
+    got = _k21_new_sums(mask, g, count, terms)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.view(np.uint64), b.view(np.uint64))
+
+
+def test_k21_column_sums_on_the_trainers_pool_gradient(monkeypatch):
+    """The same on the autoencoder trainer's own pool gradient: one CPU
+    step of TrainConfig(model="autoencoder") at its full width (d 128, 64
+    traces of L 32, the reference's seed-0 weights, the clean stream),
+    K21's inputs captured: both orders give the same bits, and they lie
+    within 1e-6 of the plain version's dgamma and dbeta (torch's f64 sums,
+    another order) relative to its largest magnitude."""
+    from odigos_tpu_torch.kernels import pool
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.training import labeled_sequences
+
+    seen = []
+    real = pool.ln_masked_pool_bwd
+
+    def rec(*a, **k):
+        seen.append([t.detach().clone() if hasattr(t, "clone") else t
+                     for t in a])
+        return real(*a, **k)
+
+    monkeypatch.setattr(pool, "ln_masked_pool_bwd", rec)
+    cfg = AutoencoderConfig(max_len=32, dtype=torch.float32)
+    model = SpanAutoencoder(cfg, device="cpu")
+    model.load_state_dict(autoencoder_state(cfg, 0))
+    data = labeled_sequences(63, fault_fraction=0.0, max_len=32, seed=0,
+                             pad_traces_to=64)
+    model.module.train()
+    model.loss_fn(data.categorical, data.continuous, data.mask).backward()
+    assert len(seen) == 1
+    x, w, mask, dpool = (seen[0][i] for i in range(4))
+    assert x.shape == (64, 32, 128) and int(mask.sum()) > 0
+    x, mask, dpool = x.numpy(), mask.numpy(), dpool.numpy()
+    g, count, terms = _k21_xh_terms(x, None, mask, dpool)
+    ref = _k21_parent_sums(mask, g, terms)
+    got = _k21_new_sums(mask, g, count, terms)
+    _, dw, db = pool.ln_masked_pool_bwd_plain(*(seen[0][i] for i in
+                                                range(4)))
+    for a, b, plain in zip(got, ref, (dw, db)):
+        np.testing.assert_array_equal(a.view(np.uint64), b.view(np.uint64))
+        plain = plain.numpy().astype(np.float64)
+        assert np.abs(a.astype(np.float32) - plain).max() <= 1e-6 * np.abs(
+            plain).max()
+
+
+def test_k21_grid_plan_read_from_the_source():
+    """One launch: a CTA of 8 warps a trace, min(T, 4 x SMs) CTAs (at the
+    trainer's 64 traces, 64 CTAs with ~10 real rows each, one or two a
+    warp); each window's terms fit the shared array at every d; the
+    counter is one ticket; the wrapper no longer zero-fills dW and db."""
+    threads = _const("ae_pool_bwd.cu", "kThreads")
+    cap = _const("ae_pool_bwd.cu", "kCtasPerSm")
+    cells = _const("ae_pool_bwd.cu", "kTermCells")
+    assert threads == 256 and _const("ae_pool_bwd.cu", "kMaxD") == 1024
+    for d in range(1, 1025):
+        per = next(p for p in (1, 2, 4, 8, 16, 32) if d <= 32 * p)
+        W = 32 if per <= 8 else cells // (32 * per)
+        assert 8 <= W <= 32 and W * d <= cells and W % (threads // 32) == 0
+    text = (CSRC / "ae_pool_bwd.cu").read_text()
+    assert "const unsigned ctas = (unsigned)(T < cap ? T : cap);" in text
+    assert "return PER <= 8 ? 32 : kTermCells / (32 * PER);" in text
+    for T in (1, 64, 300, 100000):
+        assert min(T, 132 * cap) == (T if T <= 528 else 528)
+    src = Path(dense.__file__).with_name("pool.py").read_text()
+    assert "dw = torch.zeros(d" not in src
+
+
+def test_k21_scratch_is_cached_zeroed_and_grown():
+    """The counter zero when made or grown and kept while large enough
+    (the kernel leaves it at zero), apart from the f64 partials, which
+    grow on their own; one pair a (device, stream), apart from K17's; a
+    failed launch's pair dropped."""
+    dev = torch.device("cpu")
+    saved = dict(build._scratch)
+    build._scratch.clear()
+
+    def get(stream, counters, parts):
+        return build.stream_scratch("ae_pool_bwd", dev, _Stream(stream),
+                                    counters, torch.int32, parts,
+                                    torch.float64)
+    try:
+        c, p = get(1, 1, 64 * 2 * 128)
+        assert c.dtype == torch.int32 and (c == 0).all() and c.numel() == 1
+        assert p.dtype == torch.float64 and p.numel() == 64 * 2 * 128
+        p.fill_(7.0)  # the partials a launch leaves
+        c2, p2 = get(1, 1, 300 * 2 * 128)
+        assert c2 is c and p2 is not p and p2.numel() == 300 * 2 * 128
+        c3, p3 = get(1, 2, 16)
+        assert c3 is not c and (c3 == 0).all() and p3 is p2
+        assert get(2, 1, 16)[0] is not c3
+        assert dense._ln_bwd_part(dev, _Stream(1), 16) is not c3
+        c3[0] = 5  # a ticket a failed launch left
+        build.drop_scratch("ae_pool_bwd", dev, _Stream(1))
+        assert (get(1, 2, 16)[0] == 0).all()
+    finally:
+        build._scratch.clear()
+        build._scratch.update(saved)
+
+
+# ------------------------------------------------------------------- K20
+K20_PARENT_SLICE = 128  # the parent's vocabulary slice: dy's fold order
+K20_PARENT_CHUNK = 64   # the parent's dW chunk (the chain does not see it)
+K20_VOCABS = (512, 2048, 8, 1)  # the default autoencoder's heads
+
+
+def _k20_ts(d: int) -> int:
+    """The tile by d, as the source picks it: positions a tile (threads /
+    16) TS, weight rows a ring stage 16 TS."""
+    text = (CSRC / "recon_ce_bwd.cu").read_text()
+    assert "return d <= 128 ? 4 : d <= 256 ? 2 : 1;" in text
+    assert "return kThreads / 16 * ts;" in text
+    return 4 if d <= 128 else 2 if d <= 256 else 1
+
+
+def _k20_tile_positions(d: int) -> int:
+    return _const("recon_ce_bwd.cu", "kThreads") // 16 * _k20_ts(d)
+
+
+def _k20_slices(vs, kslice):
+    """(head, first row, end row) of each vocabulary slice, in the order
+    the slice items and dy's fold take them."""
+    return [(h, v0, min(V, v0 + kslice)) for h, V in enumerate(vs)
+            for v0 in range(0, V, kslice)]
+
+
+def _k20_inputs(n, d, vs, seed):
+    """n listed positions' y (spread over binades, so the chains round),
+    the heads, log-sum-exps, labels (some wrapped, some past their head:
+    coefficient 0) and targets, in f32."""
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((n, d)) * np.exp2(
+        rng.integers(-8, 4, (n, d)))).astype(np.float32)
+    heads = [((rng.standard_normal((V, d)) / np.sqrt(d)).astype(np.float32),
+              (rng.standard_normal(V) / 4).astype(np.float32)) for V in vs]
+    lse = (rng.standard_normal((n, 3)) + 4).astype(np.float32)
+    lab = np.stack([rng.integers(-V, V + 3, n) for V in vs[:3]], 1)
+    coef = (rng.random((n, 4)) + 0.5).astype(np.float32)
+    for h in range(3):
+        lab[:, h] = np.where(lab[:, h] < 0, lab[:, h] + vs[h], lab[:, h])
+        past = lab[:, h] >= vs[h]
+        coef[past, h] = 0.0
+        lab[past, h] = -1
+    c0 = (rng.random(n) * 4).astype(np.float32)
+    return y, heads, lse, lab, coef, c0
+
+
+def _k20_dlogit(y, heads, lse, lab, coef, c0):
+    """Each head's dlogit (n, V_h): the logit one fmaf chain over k
+    ascending from 0 plus the bias, then the parent's IEEE steps."""
+    n, d = y.shape
+    out = []
+    for h, (W, b) in enumerate(heads):
+        acc = np.zeros((n, W.shape[0]), np.float32)
+        for k in range(d):
+            acc = _fma(y[:, None, k], W[None, :, k], acc)
+        z = (acc + b).astype(np.float32)
+        if h < 3:
+            pr = np.exp((z - lse[:, h, None]).astype(np.float32)).astype(
+                np.float32)
+            rows = np.arange(n)[lab[:, h] >= 0]
+            pr[rows, lab[rows, h]] = (pr[rows, lab[rows, h]]
+                                      - np.float32(1.0)).astype(np.float32)
+            g = (pr * coef[:, h, None]).astype(np.float32)
+        else:
+            g = (coef[:, 3, None] * (np.float32(2.0) * (
+                z - c0[:, None]).astype(np.float32))).astype(np.float32)
+        out.append(g)
+    return out
+
+
+def _k20_grads(y, heads, dl, kslice, kvr, chunk):
+    """dy, dW, db in a design's walk: dy a slice of ``kslice`` rows at a
+    time, its rows in stages of ``kvr`` (those past the slice zero), one
+    fmaf chain from 0 over the slice's rows, the slices added with one
+    f32 add each from 0 in order; dW[v] and db[v] one chain over the
+    positions in order, ``chunk`` at a time."""
+    n, d = y.shape
+    vs = [W.shape[0] for W, _ in heads]
+    dy = np.zeros((n, d), np.float32)
+    for h, v0, v1 in _k20_slices(vs, kslice):
+        W = heads[h][0]
+        acc = np.zeros((n, d), np.float32)
+        for r0 in range(v0, v1, kvr):
+            for v in range(r0, r0 + kvr):
+                if v < v1:
+                    acc = _fma(dl[h][:, v, None], W[None, v, :], acc)
+                else:  # a zero row past the slice
+                    acc = _fma(np.float32(0.0), np.float32(0.0), acc)
+        dy = (dy + acc).astype(np.float32)
+    dws, dbs = [], []
+    for h, (W, _) in enumerate(heads):
+        dw = np.zeros((W.shape[0], d), np.float32)
+        db = np.zeros(W.shape[0], np.float32)
+        for i0 in range(0, n, chunk):
+            for i in range(i0, min(i0 + chunk, n)):
+                dw = _fma(dl[h][i, :, None], y[None, i, :], dw)
+                db = (db + dl[h][i]).astype(np.float32)
+        dws.append(dw)
+        dbs.append(db)
+    return dy, dws, dbs
+
+
+@pytest.mark.parametrize("n,d", [(0, 128), (1, 1024), (619, 128),
+                                 (2048, 4)])
+def test_k20_chains_in_kernel_order_match_the_parent(n, d):
+    """The logit chain, dlogit, dy's slice chains and fold, and the dW and
+    db chains in the new kernel's walk (its slice, ring stage and dW chunk
+    read from the source) against the parent's (128-row slices, 64-row
+    tiles at d <= 128, 64-position chunks), in f32 with fmaf emulated, on
+    real-position counts 0, 1, 619 and 2048 at d 4, 128 and 1024, labels
+    wrapped and past their heads: bit for bit."""
+    vs = (40, 150, 8, 1)  # 5 slices, a head off 128 and under it
+    y, heads, lse, lab, coef, c0 = _k20_inputs(n, d, vs, n + d)
+    dl = _k20_dlogit(y, heads, lse, lab, coef, c0)
+    ts = _k20_ts(d)
+    ref = _k20_grads(y, heads, dl, K20_PARENT_SLICE, 16 * ts,
+                     K20_PARENT_CHUNK)
+    got = _k20_grads(y, heads, dl, _const("recon_ce_bwd.cu", "kSlice"),
+                     16 * ts, _const("recon_ce_bwd.cu", "kBChunk"))
+    np.testing.assert_array_equal(got[0].view(np.uint32),
+                                  ref[0].view(np.uint32))
+    for a, b in zip(got[1] + got[2], ref[1] + ref[2]):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    if n:  # and near the plain products (f64)
+        dy64 = sum(dl[h].astype(np.float64) @ heads[h][0] for h in range(4))
+        assert np.abs(got[0] - dy64).max() <= 1e-4 * np.abs(dy64).max()
+
+
+def _k20_tickets(n, d, vs):
+    """The main launch's ticket order, as the source walks it: every
+    (slice, tile) item, slice-major, then every dW item ("dw", row block,
+    column tile). Returns the order, each dW row block's slices and the
+    tiles a slice."""
+    kslice = _const("recon_ce_bwd.cu", "kSlice")
+    brows = _const("recon_ce_bwd.cu", "kBRows")
+    bcols = _const("recon_ce_bwd.cu", "kBCols")
+    slices = _k20_slices(vs, kslice)
+    offs = np.concatenate([[0], np.cumsum(vs)])
+    vtot = int(offs[-1])
+    ntiles = -(-n // _k20_tile_positions(d))
+    nvt, ndt = -(-vtot // brows), -(-d // bcols)
+    order = [("slice", s, t) for s in range(len(slices))
+             for t in range(ntiles)]
+    order += [("dw", j, k) for j in range(nvt) for k in range(ndt)]
+    deps = {j: [s for s, (h, v0, v1) in enumerate(slices)
+                if offs[h] + v0 < min((j + 1) * brows, vtot)
+                and offs[h] + v1 > j * brows] for j in range(nvt)}
+    return order, deps, ntiles
+
+
+@pytest.mark.parametrize("n", [0, 1, 619, 2048])
+@pytest.mark.parametrize("d", [4, 128, 1024])
+def test_k20_plan_items_only_for_listed_positions(n, d):
+    """Work items exist only for listed positions: a (tile, slice) item
+    for each tile of (threads / 16) TS listed positions the count needs
+    (none at 0), slice-major, then a dW item for each (32 rows, 64
+    columns) block of dW, each after every slice item of the slices its
+    rows lie in; every slice lies in one head from a multiple of 128 of
+    its rows, and the slices cover each head's rows once; the counters
+    hold the lead, a count a slice and a ticket a tile at every d."""
+    kslice = _const("recon_ce_bwd.cu", "kSlice")
+    brows = _const("recon_ce_bwd.cu", "kBRows")
+    bcols = _const("recon_ce_bwd.cu", "kBCols")
+    lead = _const("recon_ce_bwd.cu", "kLead")
+    assert (kslice, _const("recon_ce_bwd.cu", "kThreads")) == (128, 256)
+    slices = _k20_slices(K20_VOCABS, kslice)
+    S = len(slices)
+    assert S == 22
+    for h, V in enumerate(K20_VOCABS):
+        mine = [(v0, v1) for hh, v0, v1 in slices if hh == h]
+        assert all(v0 % kslice == 0 and v1 <= V for v0, v1 in mine)
+        assert sum(v1 - v0 for v0, v1 in mine) == V
+    order, deps, ntiles = _k20_tickets(n, d, K20_VOCABS)
+    tp = _k20_tile_positions(d)
+    assert sorted(o for o in order if o[0] == "slice") == sorted(
+        ("slice", s, t) for s in range(S) for t in range(ntiles))
+    nvt, ndt = -(-sum(K20_VOCABS) // brows), -(-d // bcols)
+    assert sorted(o for o in order if o[0] == "dw") == sorted(
+        ("dw", j, k) for j in range(nvt) for k in range(ndt))
+    at = {o: i for i, o in enumerate(order)}
+    for o in order:
+        if o[0] == "dw":
+            assert deps[o[1]] and all(at[("slice", s, t)] < at[o]
+                                      for s in deps[o[1]]
+                                      for t in range(ntiles))
+    listed = sorted(p for t in range(ntiles)
+                    for p in range(t * tp, min(n, (t + 1) * tp)))
+    assert listed == list(range(n))
+    if n == 619 and d == 128:
+        assert ntiles * S == 220  # the parent's grid: 32 x 22 = 704 CTAs
+    M = 2048
+    smallest = _k20_tile_positions(1024)
+    assert lead + S + -(-M // smallest) >= lead + S + -(-M // tp)
+    text = (CSRC / "recon_ce_bwd.cu").read_text()
+    assert "(M + tile_positions(1) - 1) / tile_positions(1);" in text
+    assert "if (item < slice_items)" in text
+
+
+def _k20_run(slots, order, deps, cta_order, ntiles):
+    """Whether one K20 main launch ends on a card with room for ``slots``
+    of its CTAs, dispatched in ``cta_order``: each CTA draws tickets from
+    one counter while it runs; a slice item is done once drawn (it never
+    waits), a dW item waits until every tile of its slices is done."""
+    ticket, done = 0, set()
+    resident, pending = {}, list(cta_order)  # cta -> its item or None
+    while pending or resident:
+        if pending and len(resident) < slots:
+            resident[pending.pop(0)] = None
+            continue
+        moved = False
+        for cta in list(resident):
+            item = resident[cta]
+            if item is None:
+                if ticket >= len(order):
+                    del resident[cta]  # out
+                else:
+                    resident[cta] = order[ticket]
+                    ticket += 1
+                moved = True
+            elif item[0] == "slice":
+                done.add(item[1:])
+                resident[cta] = None
+                moved = True
+            elif all((s, t) in done for s in deps[item[1]]
+                     for t in range(ntiles)):
+                resident[cta] = None
+                moved = True
+        if not moved:
+            return False  # every resident CTA waits: the launch hangs
+    return True
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3, 5, 40])
+def test_k20_dw_items_wait_only_on_running_slice_items(slots):
+    """The ticket order puts every dW item after the slice items, and
+    slice items never wait, so the launch ends in any room and any
+    dispatch order; dW items drawn before the slice items (an order the
+    kernel does not use) hang once they fill the room."""
+    vs, d, n = (40, 150, 8, 1), 128, 70
+    order, deps, ntiles = _k20_tickets(n, d, vs)
+    grid = 16
+    rng = np.random.default_rng(slots)
+    for _ in range(20):
+        assert _k20_run(slots, order, deps, list(rng.permutation(grid)),
+                        ntiles)
+    dw_first = ([o for o in order if o[0] == "dw"]
+                + [o for o in order if o[0] == "slice"])
+    ndw = len(dw_first) - ntiles * 5
+    assert _k20_run(slots, dw_first, deps, list(range(grid)),
+                    ntiles) == (min(slots, grid) > ndw)
+    text = (CSRC / "recon_ce_bwd.cu").read_text()
+    assert "while (load_acquire(w.cnt + kLead + base + s) < w.ntiles)" in text
+
+
+def test_k20_scratch_is_cached_zeroed_and_grown():
+    """The counters zero when made or grown and kept while large enough
+    (the kernels leave them at zero), apart from the data, which grows on
+    its own; one pair a (device, stream), apart from K11's on the same
+    stream; a failed launch's pair dropped."""
+    dev = torch.device("cpu")
+    saved = dict(build._scratch)
+    build._scratch.clear()
+
+    def get(stream, counters, nbytes):
+        return build.stream_scratch("recon_ce_bwd", dev, _Stream(stream),
+                                    counters, torch.int32, nbytes,
+                                    torch.uint8)
+    try:
+        c, d = get(1, 4 + 22 + 128, 1 << 10)
+        assert c.dtype == torch.int32 and (c == 0).all()
+        assert d.dtype == torch.uint8 and d.numel() == 1 << 10
+        d.fill_(7)  # the list, y, dlogit and partials a launch leaves
+        c2, d2 = get(1, 10, 1 << 12)
+        assert c2 is c and d2 is not d and d2.numel() == 1 << 12
+        c3, d3 = get(1, 4 + 22 + 4096, 64)
+        assert c3 is not c and (c3 == 0).all() and d3 is d2
+        assert get(2, 1, 16)[0] is not c3
+        k11 = build.stream_scratch("recon_ce_f32", dev, _Stream(1), 8,
+                                   torch.int32, 8, torch.uint8)[0]
+        assert k11 is not c3
+        c3[0] = 3  # a ticket a failed launch left
+        build.drop_scratch("recon_ce_bwd", dev, _Stream(1))
+        assert (get(1, 4 + 22 + 4096, 64)[0] == 0).all()
+        with pytest.raises(RuntimeError, match="scratch"):
+            get(1, 4, -1)
+    finally:
+        build._scratch.clear()
+        build._scratch.update(saved)

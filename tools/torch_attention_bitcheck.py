@@ -111,7 +111,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 SOURCES = ("segment_attention", "gemm_f32", "ring_attention", "ln_bwd",
            "segment_attention_bwd", "span_embed_bwd", "recon_ce",
-           "gelu_bwd")
+           "gelu_bwd", "ae_pool_bwd", "recon_ce_bwd")
 RING_RTOL = 1e-5  # the reference's ring bound, of the plain output's max
 K17_ROWS = (1, 63, 2048, 50000)
 K17_D = (1, 33, 128, 256, 1000, 1024)
@@ -241,6 +241,62 @@ def _bind(lib: ctypes.CDLL, name: str):
         parts.argtypes = [ctypes.c_longlong]
         parts.restype = ctypes.c_longlong
         return f, None, lambda M, N: parts(M) * N
+    elif name == "ae_pool_bwd":
+        # (launcher, scratch(T, d) or None, partials(T)): a build with
+        # ln_masked_pool_bwd_scratch takes its counters before its f64
+        # scratch, then the card's SM count and a launch count
+        f = lib.ln_masked_pool_bwd_launch
+        one = hasattr(lib, "ln_masked_pool_bwd_scratch")
+        f.argtypes = ([ctypes.c_void_p] * 4
+                      + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_int] + [ctypes.c_void_p] * 3
+                      + ([ctypes.c_void_p] * 2
+                         + [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+                         if one else [ctypes.c_void_p])
+                      + [ctypes.c_void_p])
+        f.restype = ctypes.c_int
+        if one:
+            size = lib.ln_masked_pool_bwd_scratch
+            size.argtypes = [ctypes.c_longlong, ctypes.c_int]
+            size.restype = ctypes.c_longlong
+            cnt = lib.ln_masked_pool_bwd_counters
+            cnt.argtypes = [ctypes.c_longlong]
+            cnt.restype = ctypes.c_longlong
+            return f, (cnt, size)
+        parts = lib.ln_masked_pool_bwd_partials
+        parts.argtypes = [ctypes.c_longlong]
+        parts.restype = ctypes.c_longlong
+        return f, parts
+    elif name == "recon_ce_bwd":
+        # (launcher, (counters, scratch) or None, slices): a build with
+        # recon_ce_bwd_scratch takes its counters and byte scratch, dy,
+        # dW and db, the card's SM count and a launch count; the parent
+        # takes its list, count, dl, y and dy partials, and a zeroed dy
+        f = lib.recon_ce_bwd_launch
+        one = hasattr(lib, "recon_ce_bwd_scratch")
+        f.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                      + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p] + [ctypes.c_float] * 4
+                      + ([ctypes.c_void_p] * 5
+                         + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                            ctypes.c_void_p] if one
+                         else [ctypes.c_void_p] * 9))
+        f.restype = ctypes.c_int
+        sl = lib.recon_ce_bwd_slices
+        sl.argtypes = [ctypes.c_int] * 4
+        sl.restype = ctypes.c_int
+        if one:
+            cnt = lib.recon_ce_bwd_counters
+            cnt.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
+            cnt.restype = ctypes.c_longlong
+            data = lib.recon_ce_bwd_scratch
+            data.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
+            data.restype = ctypes.c_longlong
+            return f, (cnt, data), sl
+        return f, None, sl
     elif name == "ring_attention":
         f = lib.ring_block_attention_launch
         f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -697,8 +753,10 @@ def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
             launched = ctypes.c_int(0)
             ptrs += [scratch[0].data_ptr(), scratch[1].data_ptr(), sms,
                      ctypes.byref(launched)]
+        else:
+            scratch = None
 
-        def run():
+        def run(_keep=scratch):  # the scratch lives as long as the launch
             if scores is not None:
                 scores.zero_()
             rc = fn(*ptrs, stream())
@@ -1010,6 +1068,289 @@ def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
             library_ms(f"K19 {model} step (F.gelu tanh backward)",
                        lambda yt=yt, pt=pt, dy=dy: torch.autograd.grad(
                            yt, pt, dy, retain_graph=True))
+    return fails, cases
+
+
+def _k20_k21_checks(old, new, only, dev, rng, randn, same_bits, stream,
+                    flush, timed) -> tuple[int, int]:
+    """K21 and K20, old build against new: (failures, cases)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from odigos_tpu_torch.kernels import recon
+    from odigos_tpu_torch.kernels.quant import layer_norm_plain
+
+    import numpy as np
+
+    fails = cases = 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    calls = _trainer_bwd_inputs(dev, (("recon", "recon_ce_bwd"),
+                                      ("pool", "ln_masked_pool_bwd")),
+                                kwargs=True)
+
+    # ------------------------------------------------------------- K21
+    def k21_call(lib, args, out):
+        """A launch of ``lib``'s K21 on (x, w, mask, dpool, eps) into
+        ``out`` (dx, dgamma, dbeta), its scratch made once as the wrapper
+        keeps it; the parent's partials as its wrapper made them."""
+        fn, size = lib
+        x, w, mask, dpool, eps = args
+        T, L, d = x.shape
+        head = [x.data_ptr(), w.data_ptr(), mask.data_ptr(),
+                dpool.data_ptr(), eps, T, L, d] + [t.data_ptr()
+                                                   for t in out]
+        launched = None
+        if isinstance(size, tuple):
+            cnt = torch.zeros(max(size[0](T), 1), dtype=torch.int32,
+                              device=dev)
+            part = (cnt, torch.empty(max(size[1](T, d), 1),
+                                     dtype=torch.float64, device=dev))
+            launched = ctypes.c_int(0)
+            tail = [cnt.data_ptr(), part[1].data_ptr(), sms,
+                    ctypes.byref(launched)]
+        else:
+            part = torch.empty(size(T) * 2 * d, dtype=torch.float64,
+                               device=dev)
+            tail = [part.data_ptr()]
+
+        def run(_keep=part):  # the scratch lives as long as the launch
+            if launched is None:
+                out[1].zero_()  # the parent's wrapper zero-fills both
+                out[2].zero_()
+            rc = fn(*head, *tail, stream())
+            if rc != 0 or (launched is not None and launched.value != 1):
+                raise RuntimeError(f"K21 launch failed: {rc}")
+        return run
+
+    def k21_outs(x):
+        d = x.shape[-1]
+        return (torch.empty_like(x), torch.empty(d, device=dev),
+                torch.empty(d, device=dev))
+
+    def k21_case(tag, args):
+        nonlocal cases, fails
+        got = []
+        for lib in (old["ae_pool_bwd"], new["ae_pool_bwd"]):
+            out = k21_outs(args[0])
+            run = k21_call(lib, args, out)
+            run()
+            if lib is new["ae_pool_bwd"]:
+                torch.cuda.synchronize()
+                first = [t.clone() for t in out]
+                run()  # a second call on the same scratch
+            torch.cuda.synchronize()
+            got.append(out)
+        same = all(same_bits(a, b) for a, b in zip(*got))
+        again = all(same_bits(a, b) for a, b in zip(first, got[1]))
+        ok = same and again
+        cases, fails = cases + 1, fails + (not ok)
+        print("K21", tag, tuple(args[0].shape), "real",
+              int(args[2].sum()),
+              "bit-equal to old (dx, dgamma, dbeta), a second call "
+              "bit-equal" if ok else
+              f"DIFFERS: FAILED (old {same} again {again})", flush=True)
+
+    def k21_random(T, L, d, density, empty_every=0):
+        x = randn(T, L, d) * 2 + 0.5
+        mask = torch.from_numpy(rng.random((T, L)) < density).to(dev)
+        if empty_every:
+            mask[::empty_every] = False  # traces with no real position
+        return (x, 1 + randn(d) / 4, mask, randn(T, d), 1e-6)
+
+    k21_step = []
+    if "ae_pool_bwd" in only:
+        for model, args, kw in calls.get("ln_masked_pool_bwd", []):
+            a = tuple(args[:4]) + (args[4] if len(args) > 4
+                                   else kw.get("eps", 1e-6),)
+            k21_step.append(a)
+            k21_case(f"{model} step input", a)
+        for d in (1, 4, 33, 96, 128, 256, 512, 1000, 1024):
+            for T, L, density, empty in ((1, 1, 1.0, 0), (64, 32, 0.3, 7),
+                                         (300, 17, 0.5, 3),
+                                         (5, 1024, 0.3, 0),
+                                         (16, 64, 0.9, 5)):
+                if d >= 512 and L == 1024 and T > 2:
+                    T = 2
+                k21_case(f"random density {density}",
+                         k21_random(T, L, d, density, empty))
+        k21_case("all padding", k21_random(40, 32, 128, 0.0))
+
+    # ------------------------------------------------------------- K20
+    def k20_call(lib, args, out):
+        """A launch of ``lib``'s K20 on recon_ce_bwd's ``args`` into
+        ``out`` (dy, dW, db): the new build's scratch made once, as the
+        wrapper keeps it; the parent's as its wrapper made it, dy
+        zero-filled before each launch (its wrapper's torch.zeros)."""
+        fn, size, slices = lib
+        dec, lw, lb, heads, lse, cat, cont, mask, derr, wts, eps = args
+        dy, dw, db = out
+        M, d = dec.shape
+        vs = [w.shape[0] for w, _ in heads]
+        head = ([dec.data_ptr(), M, d, lw.data_ptr(), lb.data_ptr(), eps]
+                + [w.data_ptr() for w, _ in heads]
+                + [b.data_ptr() for _, b in heads] + vs
+                + [lse.data_ptr(), cat.data_ptr(), cat.shape[1],
+                   cont.data_ptr(), cont.shape[1], mask.data_ptr(),
+                   derr.data_ptr()] + [float(w) for w in wts])
+        launched = None
+        if size is not None:
+            cnt = torch.zeros(max(size[0](M, *vs), 1), dtype=torch.int32,
+                              device=dev)
+            data = torch.empty(max(size[1](M, d, *vs), 16),
+                               dtype=torch.uint8, device=dev)
+            launched = ctypes.c_int(0)
+            keep = (cnt, data)
+            tail = [cnt.data_ptr(), data.data_ptr(), dy.data_ptr(),
+                    dw.data_ptr(), db.data_ptr(), sms,
+                    ctypes.byref(launched)]
+        else:
+            S = slices(*vs)
+            lst = torch.empty(M + 1, dtype=torch.int32, device=dev)
+            dl = torch.empty((M, sum(vs)), device=dev)
+            ybuf = torch.empty((M, d), device=dev)
+            part = torch.empty((S, M, d), device=dev)
+            keep = (lst, dl, ybuf, part)
+            tail = [lst.data_ptr(), lst.data_ptr() + 4 * M, dl.data_ptr(),
+                    ybuf.data_ptr(), part.data_ptr(), dy.data_ptr(),
+                    dw.data_ptr(), db.data_ptr()]
+
+        def run(_keep=keep):  # the scratch lives as long as the launch
+            if launched is None:
+                dy.zero_()
+            rc = fn(*head, *tail, stream())
+            if rc != 0 or (launched is not None and launched.value != 2):
+                raise RuntimeError(f"K20 launch failed: {rc}")
+        return run
+
+    def k20_outs(args):
+        M, d = args[0].shape
+        V = sum(w.shape[0] for w, _ in args[3])
+        return (torch.empty((M, d), device=dev),
+                torch.empty((V, d), device=dev), torch.empty(V, device=dev))
+
+    def k20_case(tag, args):
+        nonlocal cases, fails
+        got = []
+        for lib in (old["recon_ce_bwd"], new["recon_ce_bwd"]):
+            out = k20_outs(args)
+            if lib is new["recon_ce_bwd"]:
+                for t in out:
+                    t.fill_(float("nan"))  # every value must be written
+            run = k20_call(lib, args, out)
+            run()
+            if lib is new["recon_ce_bwd"]:
+                torch.cuda.synchronize()
+                first = [t.clone() for t in out]
+                run()  # a second call on the same scratch
+            torch.cuda.synchronize()
+            got.append(out)
+        same = all(same_bits(a, b) for a, b in zip(*got))
+        again = all(same_bits(a, b) for a, b in zip(first, got[1]))
+        ok = same and again
+        cases, fails = cases + 1, fails + (not ok)
+        print("K20", tag, tuple(args[0].shape), "vocab",
+              [w.shape[0] for w, _ in args[3]], "real", int(args[7].sum()),
+              "bit-equal to old (dy, dW, db), a second call bit-equal"
+              if ok else f"DIFFERS: FAILED (old {same} again {again})",
+              flush=True)
+
+    def k20_random(M, d, vocabs, density, bad=False):
+        dec = randn(M, d) * 2 + 0.5
+        mask = torch.from_numpy(rng.random(M) < density).to(dev)
+        cat = torch.from_numpy(np.stack(
+            [rng.integers(0, V, M) for V in vocabs[:3]]
+            + [np.zeros(M, np.int64)] * 2, 1).astype(np.int32)).to(dev)
+        cont = torch.from_numpy((rng.random((M, 3)) * 4).astype(
+            np.float32)).to(dev)
+        heads = [(randn(V, d) / d ** 0.5, randn(V) / 4) for V in vocabs]
+        lw, lb, wts = 1 + randn(d) / 4, randn(d) / 4, (1.0, 0.7, 0.5, 0.3)
+        lse = torch.empty(M, 3, device=dev)
+        recon.recon_ce(dec, lw, lb, heads, cat, cont, mask, wts,
+                       route="cuda_core", lse=lse)
+        if bad:  # labels the reference wraps or drops (fault C5)
+            for h in range(3):
+                V = vocabs[h]
+                cat[h::11, h] = torch.tensor(
+                    [-1, -V, V, V + 7], dtype=torch.int32,
+                    device=dev).repeat(M)[:cat[h::11].shape[0]]
+        derr = torch.from_numpy((rng.random(M) + 0.5).astype(
+            np.float32)).to(dev)
+        return (dec, lw, lb, heads, lse, cat, cont, mask, derr, wts, 1e-6)
+
+    k20_step = []
+    if "recon_ce_bwd" in only:
+        for model, args, kw in calls.get("recon_ce_bwd", []):
+            a = tuple(args[:10]) + (args[10] if len(args) > 10
+                                    else kw.get("eps", 1e-6),)
+            k20_step.append(a)
+            k20_case(f"{model} step input", a)
+        for M, d, vocabs, density in [
+                (2048, 128, (512, 2048, 8, 1), 0.3),   # the card tests'
+                (2048, 512, (512, 2048, 8, 1), 0.3),
+                (700, 1024, (512, 2048, 8, 1), 0.6),
+                (64, 96, (512, 2048, 8, 1), 0.0),
+                (1, 128, (512, 2048, 8, 1), 1.0),      # 1 real position
+                (2048, 128, (512, 2048, 8, 1), 1.0),   # 2048
+                (3000, 4, (7, 33, 3, 1), 0.5),
+                (2000, 12, (100, 300, 8, 1), 0.6),
+                (1500, 100, (513, 17, 16, 1), 0.4),
+                (1024, 256, (100, 300, 8, 1), 0.9),
+                (900, 388, (512, 2048, 8, 1), 0.3),
+                (600, 1000, (512, 200, 8, 1), 0.5),
+                (20000, 128, (512, 2048, 8, 1), 0.16)]:
+            k20_case(f"random density {density}",
+                     k20_random(M, d, vocabs, density))
+        for d in (128, 512):
+            k20_case("labels -1, -V, V, V + 7",
+                     k20_random(2048, d, (512, 2048, 8, 1), 0.3, bad=True))
+
+    def library_ms(tag, fn):
+        print(tag, "library device ms:",
+              chip_smoke.device_ms(fn, flush), flush=True)
+
+    if k21_step:
+        x, w, mask, dpool, eps = k21_step[0]
+        outs = [k21_outs(x) for _ in range(2)]
+        timed(f"K21 autoencoder step {tuple(x.shape)} real "
+              f"{int(mask.sum())}",
+              k21_call(old["ae_pool_bwd"], k21_step[0], outs[0]),
+              k21_call(new["ae_pool_bwd"], k21_step[0], outs[1]))
+        T, L, d = x.shape
+        xr = x.detach().clone().requires_grad_()
+        wr = w.detach().clone().requires_grad_()
+        br = torch.zeros_like(wr).requires_grad_()
+        pooled = (F.layer_norm(xr, (d,), wr, br, eps) * mask[..., None]
+                  ).sum(1) / mask.sum(-1, keepdim=True).clamp(min=1).float()
+        library_ms("K21 autoencoder step (autograd.grad of F.layer_norm + "
+                   "the masked mean)",
+                   lambda: torch.autograd.grad(pooled, (xr, wr, br), dpool,
+                                               retain_graph=True))
+    if k20_step:
+        a = k20_step[0]
+        outs = [k20_outs(a) for _ in range(2)]
+        timed(f"K20 autoencoder step {tuple(a[0].shape)} real "
+              f"{int(a[7].sum())}",
+              k20_call(old["recon_ce_bwd"], a, outs[0]),
+              k20_call(new["recon_ce_bwd"], a, outs[1]))
+        dec, lw, lb, heads, lse, cat, cont, mask, derr, wts, eps = a
+        real = torch.nonzero(mask).flatten()
+        y = layer_norm_plain(dec[real], lw, lb, eps).detach() \
+            .requires_grad_()
+        params = [t.detach().clone().requires_grad_()
+                  for pair in heads for t in pair]
+        zs = [F.linear(y, params[2 * h], params[2 * h + 1])
+              for h in range(4)]
+        labels = cat[real].long()
+        e = sum(float(wts[h]) * F.cross_entropy(zs[h], labels[:, h],
+                                                reduction="none")
+                for h in range(3))
+        e = e + float(wts[3]) * (zs[3][:, 0] - cont[real, 0]) ** 2
+        loss = (e * derr[real]).sum()
+        library_ms("K20 autoencoder step (autograd.grad of 4 F.linear + 3 "
+                   "F.cross_entropy + MSE from dec_ln's output)",
+                   lambda: torch.autograd.grad(loss, [y] + params,
+                                               retain_graph=True))
     return fails, cases
 
 
@@ -1451,6 +1792,10 @@ def main() -> int:
             timed("K17 (2048, 128)", *k17_pair(2048, 128))
         if "recon_ce" in only or "gelu_bwd" in only:
             n, c = _k11_k19_checks(old, new, only, dev, rng, randn,
+                                   same_bits, stream, flush, timed)
+            fails, cases = fails + n, cases + c
+        if "ae_pool_bwd" in only or "recon_ce_bwd" in only:
+            n, c = _k20_k21_checks(old, new, only, dev, rng, randn,
                                    same_bits, stream, flush, timed)
             fails, cases = fails + n, cases + c
         if "segment_attention_bwd" in only or "span_embed_bwd" in only:

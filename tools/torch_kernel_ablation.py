@@ -47,9 +47,12 @@ single-group mixes at N = 4096, 65536 and 131072: the barriers alone (no
 span work), no pass B, 2 or 4 spans a thread in place of one, CTAs of
 1024 threads in place of 512); the trainer's K20 ``recon_ce_bwd`` and
 K21 ``ln_masked_pool_bwd`` on one autoencoder training step's own inputs
-(chip_smoke phase 16's): K20 with vocabulary slices of 256 rows (not
-128) and its column pass 32 positions at a time (not 64), K21 one real
-row at a time (not 4); K17 ``ln_bwd`` on the first LayerNorm gradient
+(chip_smoke phase 16's): K20's prep launch alone, its slice items alone
+(and without the logits' products, without dy's, without both), its dW
+items alone (and without db's chains), the whole without dy's products,
+the tiles' folds or dlogit's stores, without programmatic dependent
+launch, and on CTAs of 128 threads two an SM; K21's launch alone, without
+the last CTA's column sums, and on CTAs of 4 warps a trace (not 8); K17 ``ln_bwd`` on the first LayerNorm gradient
 of a transformer and an autoencoder training step: no prefetch, one or
 four rows a warp, the launch alone, the rows without the column sums;
 K22 ``ring_block_attention`` at L 8192 and 4096 (B 2, H 4, D 64): 16
@@ -117,6 +120,16 @@ NO_QUANT_EPILOGUE = {
     "    block_codes(hb, xs,": "    if (false) block_codes(hb, xs,"}
 
 # kernel -> variant -> {anchor text in the source: replacement}
+# K20's parts, for its variants below: the dW items alone (no slice items,
+# no waits), the slice items alone
+DW_ONLY = {
+    "      slice_item<TS, NC4>(w, (int)(item % w.ntiles), "
+    "(int)(item / w.ntiles),\n                          smem, s_coef, s_lab, "
+    "s_lse, s_c0, s_bias, &s_flag);": "      (void)0;",
+    "        while (load_acquire(w.cnt + kLead + base + s) < w.ntiles)":
+    "        while (false)"}
+NO_DW = {"      dw_item(w, (int)(item - slice_items), smem);": "      (void)0;"}
+
 VARIANTS = {
     # K11's f32 route: the list and the exit ticket alone (no
     # item), no class walk, no LayerNorm (the rows as they are), no merge
@@ -667,14 +680,70 @@ VARIANTS = {
     },
     # the trainer's backward kernels: the design choices measured
     "recon_ce_bwd": {
-        "slice_256": {"constexpr int kSlice = 128;":
-                      "constexpr int kSlice = 256;"},
-        "chunk_32": {"constexpr int kBChunk = 64;":
-                     "constexpr int kBChunk = 32;"}},
+        # the prep launch alone (the main launch returns at once)
+        "prep_only": {
+            "  wait_prior_grid();  // the prep grid's list, y and count\n":
+            "  wait_prior_grid();  // the prep grid's list, y and count\n"
+            "  if (d > 0) return;\n"},
+        # the slice items alone; the dW items alone (no waits); the dW
+        # items without db's chains
+        "no_dw": NO_DW,
+        "dw_only": DW_ONLY,
+        "dw_no_db": DW_ONLY | {
+            "      if (dbl) {\n#pragma unroll\n        for (int r = 0; r < 4; "
+            "++r) dbs[r] = __fadd_rn(dbs[r], gs[r]);\n      }\n": ""},
+        # the slice items alone without the logits' products, without dy's,
+        # without both (the loads, dlogit, the partials, tickets, folds)
+        "slices_no_logits": NO_DW | {
+            "    for (int k = 0; k < d; k += 4) {":
+            "    for (int k = 0; k < 0 * d; k += 4) {"},
+        "slices_no_dy": NO_DW | {
+            "#pragma unroll 2\n    for (int r = 0; r < kVR; ++r) {":
+            "#pragma unroll 2\n    for (int r = 0; r < 0 * kVR; ++r) {"},
+        "slices_overhead": NO_DW | {
+            "    for (int k = 0; k < d; k += 4) {":
+            "    for (int k = 0; k < 0 * d; k += 4) {",
+            "#pragma unroll 2\n    for (int r = 0; r < kVR; ++r) {":
+            "#pragma unroll 2\n    for (int r = 0; r < 0 * kVR; ++r) {"},
+        # the whole launch without dy's products, without the tiles' folds,
+        # without dlogit's stores to the scratch
+        "no_dy": {"#pragma unroll 2\n    for (int r = 0; r < kVR; ++r) {":
+                  "#pragma unroll 2\n    for (int r = 0; r < 0 * kVR; ++r) {"},
+        "no_fold": {"    for (int e = tid; e < np * d4; e += kThreads) {":
+                    "    for (int e = tid; e < 0 * np * d4; e += kThreads) {"},
+        "no_dl_store": {
+            "    for (int e = tid; e < np * nr; e += kThreads) {":
+            "    for (int e = tid; e < 0 * np * nr; e += kThreads) {"},
+        # the main launch without programmatic dependent launch
+        "no_pdl": {"  cfg.numAttrs = 1;": "  cfg.numAttrs = 0;"},
+        # CTAs of 128 threads, two an SM, 16-row dW items (not 256, one,
+        # 32)
+        "threads_128": {
+            "constexpr int kThreads = 256;": "constexpr int kThreads = 128;",
+            "constexpr int kCtasPerSm = 1;": "constexpr int kCtasPerSm = 2;",
+            "constexpr int kBRows = 32;": "constexpr int kBRows = 16;"},
+        # dW items of 32 rows x 128 columns on 8 warps, or x 32 on 2 (not
+        # x 64 on 4)
+        "dw_cols_128": {"constexpr int kBCols = 64; ":
+                        "constexpr int kBCols = 128; "},
+        "dw_cols_32": {"constexpr int kBCols = 64; ":
+                       "constexpr int kBCols = 32; "}},
     "ln_masked_pool_bwd": {
-        "one_row_at_a_time": {
-            "constexpr int kGroup = PER <= 4 ? 4 : PER <= 8 ? 2 : 1;":
-            "constexpr int kGroup = 1;"}},
+        # the launch alone; the traces without the last CTA's column sums
+        "launch_only": {
+            "  for (long long t = blockIdx.x; t < T; t += gridDim.x) {  // "
+            "CTA-uniform":
+            "  if (T > 0) return;\n"
+            "  for (long long t = blockIdx.x; t < T; t += gridDim.x) {  // "
+            "CTA-uniform"},
+        "no_column_sums": {
+            "  for (int c = tid; c < 2 * d; c += kThreads) {\n"
+            "    double a = 0.0;":
+            "  for (int c = tid; c < 0 * d; c += kThreads) {\n"
+            "    double a = 0.0;"},
+        # CTAs of 4 warps a trace (not 8)
+        "threads_128": {"constexpr int kThreads = 256;":
+                        "constexpr int kThreads = 128;"}},
     # K17's one launch: the next row's loads not issued first; a row or
     # four rows a warp before the grid's cap (not two)
     "ln_bwd": {
