@@ -264,7 +264,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    width (f32, 64 traces of L 32), then ``dryrun_multichip(1, "cuda")``,
    with every launch counted (K1, K2, K14-K19 at their counts a step and a
    scoring call, K22 twice) and no plain version called;
-20. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+20. engine contract — the served transformer (``TransformerConfig()``,
+   bf16, full width) behind the engine's contract: (a) an engine armed
+   with a breaker (``EC_FAILOVER``) scores requests of 2048 traces on
+   both routes, its breaker closed, K1, K2, K14, K15 and K8 launched, the
+   scores bit-equal to an engine without a breaker; (b)
+   ``inject_device_fault()``: the breaker opens after ``trip_errors``
+   failed groups, the zscore fallback on the CPU scores within
+   ``ZS_CPU_BOUND`` of a zscore engine replaying its stream on the CPU,
+   ``fallback_scored_spans`` counts them, and neither the primary's
+   kernels nor the scored-spans meter moved for them; (c)
+   ``clear_device_fault()``: probes riding traffic close the breaker and
+   the card scores (a)'s requests to the same bits; (d) the same fault
+   without a breaker: every request comes back unscored, each failed
+   group an engine error; (e) deadlines: single requests with
+   ``deadline_ns`` bit-equal to undeadlined ones, then bursts of 8
+   concurrent requests at +5 ms, +50 ms and without one (latency p50 /
+   p99, the estimators, every cap a ladder rung times spans a row or the
+   fixed cap, scores within ``PLAIN_PATH_BOUND`` of the undeadlined
+   burst's); (f) ``model="remote"`` on a port sidecar serving the card:
+   scores bit-equal to the sidecar's engine scoring the same batches,
+   round trip against direct call, a dead socket counted under
+   ``odigos_sidecar_client_errors_total`` and passed through; the times
+   from injection to the first fallback group and from clearing to
+   closing;
+21. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
    ``{"kernels": [...]}`` line (K1 to K22), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -5407,6 +5431,354 @@ def phase_parallel_path(card: str) -> dict:
     return out_p
 
 
+# --------------------------------------------- phase 20: the engine contract
+EC_FAILOVER = {"trip_errors": 2, "probe_interval_s": 0.2,
+               "recovery_successes": 2}
+EC_REQUESTS = 3                 # requests a step of (a) and (d)
+EC_DEADLINES_MS = (5.0, 50.0)   # deadlines of (e), from submit
+EC_REMOTE_REPS = 5              # round trips timed a way in (f)
+EC_MAX_RECOVERY_REQUESTS = 2000
+
+
+def _pcts(vals: list) -> dict:
+    import numpy as np
+
+    return {"p50": float(np.percentile(vals, 50)),
+            "p99": float(np.percentile(vals, 99))}
+
+
+def _counted(engine, b, columns: bool = False):
+    """One request through ``engine``, waited on: its scores (None when
+    the call failed) and the spans the breaker's fallback scored for it."""
+    from odigos_tpu_torch.serving.fused import extract_columns
+
+    sup = engine.failover
+    spans0 = sup.fallback_spans if sup is not None else 0
+    req = engine.submit(b, columns=extract_columns(b)[0] if columns
+                        else None)
+    check(req is not None and req.done.wait(300),
+          f"engine request of {len(b)} spans timed out")
+    fb = (sup.fallback_spans - spans0) if sup is not None else 0
+    return req.scores, fb
+
+
+def _cap_rows(ladder, spr: float, cap: int, max_spans: int) -> bool:
+    """Whether ``cap`` is a rung's (or a multiple of the top rung's) rows
+    times ``spr``, or the fixed cap: what ``_adaptive_cap`` may give."""
+    if cap == max_spans:
+        return True
+    top = ladder.buckets[-1]
+    rows = list(ladder.buckets) + [top * k for k in
+                                   range(1, int(max_spans / spr / top) + 2)]
+    return any(max(1, int(r * spr)) == cap for r in rows)
+
+
+def phase_engine_contract(card: str) -> dict:
+    """The engine contract on the card: failover with the device-fault
+    hook, deadline-sized coalescing and the remote model, at the served
+    transformer's full width (bf16)."""
+    import numpy as np
+
+    from odigos_tpu_torch.features import featurize
+    from odigos_tpu_torch.pdata import synthesize_traces
+    from odigos_tpu_torch.serving import (EngineConfig, ScoringEngine,
+                                          SidecarServer)
+    from odigos_tpu_torch.serving.engine import (ERRORS_METRIC,
+                                                 PASSTHROUGH_METRIC,
+                                                 SCORED_METRIC)
+    from odigos_tpu_torch.serving.sidecar import REMOTE_ERRORS_METRIC
+    from odigos_tpu_torch.utils.telemetry import meter
+
+    # distinct seeds: a burst's requests coalesce and must not share ids
+    batches = [synthesize_traces(BURST_TRACES, seed=700 + i)
+               for i in range(BURST_REQUESTS)]
+    warm = synthesize_traces(400, seed=7)
+    cfg = dict(model="transformer", device="cuda", warm_ladder=True)
+    t0 = time.monotonic()
+    eng = ScoringEngine(EngineConfig(failover=EC_FAILOVER, **cfg))
+    plain = ScoringEngine(EngineConfig(**cfg))
+    plain.backend.model.load_state_dict(eng.backend.model.state_dict())
+    check(eng.failover.fallback.device.type == "cpu",
+          "the failover fallback is not on the CPU")
+    replay = ScoringEngine(EngineConfig(model="zscore", device="cpu"))
+    eng.warmup(warm)  # the primary, and the fallback's zscore state
+    replay.warmup(warm)
+    plain.warmup(warm)
+    eng.start()
+    plain.start()
+    start_s = time.monotonic() - t0
+    sup = eng.failover
+    out = {"phase": "engine_contract", "card": card,
+           "config": "TransformerConfig() bf16, d256 h4 l4 ff1024 L64; "
+                     f"failover={EC_FAILOVER}, zscore fallback on the CPU",
+           "request_traces": BURST_TRACES, "engines_start_s": start_s}
+    try:
+        # (a) armed and healthy: both routes, launches, bits as no breaker
+        _zero_counters()
+        healthy = {}
+        for route in ("host", "fused"):
+            fused = route == "fused"
+            got = [_counted(eng, b, fused) for b in batches[:EC_REQUESTS]]
+            want = [_counted(plain, b, fused)[0]
+                    for b in batches[:EC_REQUESTS]]
+            for (s, fb), w, b in zip(got, want, batches):
+                _check_scores(s, len(b), f"(a) armed {route} request")
+                check(fb == 0, "(a) a healthy request took the fallback")
+                check(np.array_equal(s, w),
+                      f"(a) armed {route} scores differ from the "
+                      f"breakerless engine's")
+            healthy[route] = [s for s, _ in got]
+        launches_a = _read_counters(MAIN_COUNTERS + (
+            ("span_head_scatter", "head"),))
+        check(all(v > 0 for v in launches_a.values()),
+              f"(a) a kernel of the path launched no time: {launches_a}")
+        st = sup.status()
+        check(st["state"] == "closed" and st["trips"] == 0,
+              f"(a) breaker {st['state']} with {st['trips']} trips")
+
+        # (b) the device fault: trip, the CPU fallback, its stream
+        _zero_counters()
+        scored0 = meter.counter(SCORED_METRIC)
+        fb_spans0 = sup.fallback_spans
+        eng.inject_device_fault()
+        t_inj = time.perf_counter()
+        failed, probes_failed, i = 0, 0, 0
+        fallback, t_first = [], None
+        fb_s = 0.0
+        while len(fallback) < EC_REQUESTS:
+            b = batches[i % len(batches)]
+            i += 1
+            closed = not sup.active
+            t = time.perf_counter()
+            s, fb = _counted(eng, b)
+            if fb:
+                check(fb == len(b) and s is not None,
+                      "(b) a fallback group scored part of a request")
+                fb_s += time.perf_counter() - t
+                t_first = t_first or time.perf_counter() - t_inj
+                fallback.append((b, s))
+            else:
+                check(s is None, "(b) the faulted primary returned scores")
+                if closed:
+                    failed += 1
+                else:  # a probe on the still-faulted primary
+                    probes_failed += 1
+            check(failed <= EC_FAILOVER["trip_errors"] and i < 100,
+                  f"(b) {failed} failed groups and the breaker is "
+                  f"{sup.state}")
+        check(sup.trips == 1 and failed == EC_FAILOVER["trip_errors"],
+              f"(b) {sup.trips} trips after {failed} failed groups")
+        zs_diff = 0.0
+        for b, s in fallback:
+            ref = replay.backend.score(b, featurize(b))
+            zs_diff = max(zs_diff, float(np.abs(ref - s).max()))
+        check(zs_diff <= ZS_CPU_BOUND,
+              f"(b) fallback vs zscore CPU replay {zs_diff} > "
+              f"{ZS_CPU_BOUND}")
+        fb_spans = sum(len(b) for b, _ in fallback)
+        check(sup.fallback_spans - fb_spans0 == fb_spans,
+              f"(b) fallback_scored_spans moved "
+              f"{sup.fallback_spans - fb_spans0} for {fb_spans} spans")
+        # no fallback span is reported as scored by the primary: the
+        # primary's kernels ran no time, and the scored meter moved by the
+        # fallback's spans alone
+        launches_b = _read_counters(MAIN_COUNTERS)
+        check(not any(launches_b.values()),
+              f"(b) the primary launched under the fault: {launches_b}")
+        check(meter.counter(SCORED_METRIC) - scored0 == fb_spans,
+              "(b) scored spans other than the fallback's were metered")
+        out["fault"] = {"failed_groups_to_trip": failed,
+                        "failed_probes": probes_failed, "requests": i,
+                        "ms_to_first_fallback_group": t_first * 1e3,
+                        "fallback_groups": len(fallback),
+                        "fallback_spans": fb_spans,
+                        "fallback_spans_per_s": fb_spans / fb_s,
+                        "cpu_replay_max_abs_diff": zs_diff,
+                        "cpu_replay_bound": ZS_CPU_BOUND}
+
+        # (c) recovery: probes ride traffic, then the same bits on the card
+        _zero_counters()
+        eng.clear_device_fault()
+        t_clr = time.perf_counter()
+        k = 0
+        rec_diff = 0.0
+        while sup.active:
+            check(k < EC_MAX_RECOVERY_REQUESTS, "(c) the breaker never "
+                                                "closed")
+            b = batches[k % len(batches)]
+            k += 1
+            s, fb = _counted(eng, b)
+            _check_scores(s, len(b), "(c) request while recovering")
+            if fb:  # keep the replay on the fallback's stream
+                ref = replay.backend.score(b, featurize(b))
+                rec_diff = max(rec_diff, float(np.abs(ref - s).max()))
+        close_ms = (time.perf_counter() - t_clr) * 1e3
+        check(rec_diff <= ZS_CPU_BOUND,
+              f"(c) fallback vs replay {rec_diff} > {ZS_CPU_BOUND}")
+        st = sup.status()
+        check(st["state"] == "closed" and st["recoveries"] == 1,
+              f"(c) breaker {st['state']}, {st['recoveries']} recoveries")
+        for b, want in zip(batches, healthy["host"]):
+            s, fb = _counted(eng, b)
+            check(fb == 0 and np.array_equal(s, want),
+                  "(c) the recovered card's scores differ from (a)'s")
+        launches_c = _read_counters(MAIN_COUNTERS)
+        check(all(v > 0 for v in launches_c.values()),
+              f"(c) the recovered primary launched no time: {launches_c}")
+        out["recovery"] = {"requests_to_close": k,
+                           "ms_clear_to_closed": close_ms,
+                           "probe_interval_s":
+                               EC_FAILOVER["probe_interval_s"],
+                           "cpu_replay_max_abs_diff": rec_diff,
+                           "transitions": [t["event"] for t in
+                                           st["transitions"]]}
+        out["failover"] = st
+
+        # (d) no breaker: the same fault passes every request through
+        e0 = plain.stats()["errors"]
+        m0 = meter.counter(ERRORS_METRIC)
+        p0 = meter.counter(PASSTHROUGH_METRIC)
+        plain.inject_device_fault()
+        unscored = [plain.score_sync(b, timeout_s=300)
+                    for b in batches[:EC_REQUESTS]]
+        plain.clear_device_fault()
+        check(all(s is None for s in unscored),
+              "(d) a faulted request without a breaker came back scored")
+        st = plain.stats()
+        check(st["errors"] - e0 == EC_REQUESTS
+              and meter.counter(ERRORS_METRIC) - m0 == EC_REQUESTS,
+              f"(d) {st['errors'] - e0} errors for {EC_REQUESTS} failed "
+              f"groups")
+        # as in the reference, pass-through meters passed deadlines; a
+        # failed call is an engine error
+        check(meter.counter(PASSTHROUGH_METRIC) == p0
+              and "failover" not in st,
+              "(d) the pass-through meter moved on failed calls")
+        s, _ = _counted(plain, batches[0])
+        check(np.array_equal(s, healthy["host"][0]),
+              "(d) the cleared engine's scores differ from (a)'s")
+        out["no_breaker"] = {"requests": EC_REQUESTS,
+                             "errors": st["errors"] - e0,
+                             "unscored_requests": len(unscored)}
+
+        # (e) deadlines: single requests bit for bit, then bursts of 8
+        for b, want in zip(batches, healthy["host"]):
+            for dl_ms in EC_DEADLINES_MS:
+                req = plain.submit(b, deadline_ns=time.monotonic_ns()
+                                   + int(dl_ms * 1e6))
+                check(req is not None and req.done.wait(300),
+                      "(e) deadline request timed out")
+                check(np.array_equal(req.scores, want),
+                      "(e) a deadline request scores unlike an "
+                      "undeadlined one")
+        ladder = plain.backend.ladder
+        caps: list = []
+        orig_cap = plain._adaptive_cap
+
+        def recording_cap(deadline_ns):
+            cap = orig_cap(deadline_ns)
+            caps.append((plain._ewma_spans_per_row, cap))
+            return cap
+
+        plain._adaptive_cap = recording_cap
+        bursts = {}
+        undeadlined = None
+        for dl_ms in (None,) + EC_DEADLINES_MS:
+            done_at: dict = {}
+            caps.clear()
+            calls0 = plain.device_calls
+            t_sub = time.perf_counter()
+            reqs = []
+            for j, b in enumerate(batches):
+                dl = None if dl_ms is None else \
+                    time.monotonic_ns() + int(dl_ms * 1e6)
+                reqs.append(plain.submit(
+                    b, deadline_ns=dl,
+                    on_done=lambda r, j=j: done_at.__setitem__(
+                        j, time.perf_counter())))
+            for r, b in zip(reqs, batches):
+                check(r is not None and r.done.wait(300),
+                      "(e) burst request timed out")
+                _check_scores(r.scores, len(b), "(e) burst request")
+            lat = [(done_at[j] - t_sub) * 1e3 for j in range(len(reqs))]
+            ad = plain.stats()["adaptive"]
+            row = {"latency_ms": _pcts(lat),
+                   "device_calls": plain.device_calls - calls0,
+                   "ms_per_span": ad["ms_per_span"],
+                   "spans_per_row": ad["spans_per_row"],
+                   # the burst's own caps (none without a deadline)
+                   "last_cap_spans": caps[-1][1] if caps else None,
+                   "caps": [c for _, c in caps]}
+            if dl_ms is None:
+                undeadlined = [r.scores for r in reqs]
+            else:
+                for spr, cap in caps:
+                    check(_cap_rows(ladder, spr, cap,
+                                    plain.cfg.max_batch_spans),
+                          f"(e) cap {cap} is no rung times {spr} spans a "
+                          f"row")
+                diffs = [float(np.abs(r.scores - u).max())
+                         for r, u in zip(reqs, undeadlined)]
+                check(max(diffs) <= PLAIN_PATH_BOUND,
+                      f"(e) burst scores moved {max(diffs)} with a "
+                      f"deadline")
+                # coalesced otherwise, rows pack otherwise: count the
+                # requests whose bits still agree
+                row["bit_equal_requests"] = sum(d == 0.0 for d in diffs)
+                row["max_abs_diff_vs_undeadlined"] = max(diffs)
+            bursts["none" if dl_ms is None else f"+{dl_ms:g}ms"] = row
+        plain._adaptive_cap = orig_cap
+        out["deadlines"] = bursts
+    finally:
+        eng.shutdown()
+        plain.shutdown()
+
+    # (f) the remote model on a port sidecar serving the card
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = os.path.join(tmp, "score.sock")
+        side = ScoringEngine(EngineConfig(**cfg))
+        side.backend.model.load_state_dict(plain.backend.model.state_dict())
+        server = SidecarServer(side, sock, score_timeout_s=120.0).start()
+        remote = ScoringEngine(EngineConfig(
+            model="remote", socket_path=sock,
+            remote_timeout_s=120.0)).start()
+        try:
+            check(remote.stats()["pipeline_depth"] == 1,
+                  "(f) the remote engine is pipelined")
+            remote.warmup(warm)
+            rt, direct = [], []
+            for rep in range(EC_REMOTE_REPS):
+                for b in batches[:EC_REQUESTS]:
+                    t = time.perf_counter()
+                    got = remote.score_sync(b, timeout_s=300)
+                    rt.append((time.perf_counter() - t) * 1e3)
+                    t = time.perf_counter()
+                    want = side.score_sync(b, timeout_s=300)
+                    direct.append((time.perf_counter() - t) * 1e3)
+                    check(got is not None and want is not None,
+                          "(f) a remote or direct request failed")
+                    check(np.array_equal(got, want),
+                          "(f) remote scores differ from the sidecar "
+                          "engine's")
+            c0 = meter.counter(REMOTE_ERRORS_METRIC)
+            e0 = remote.stats()["errors"]
+            server.shutdown()  # the sidecar dies
+            remote.backend.client.connect_timeout_s = 0.5
+            dead = remote.score_sync(batches[0], timeout_s=300)
+            check(dead is None, "(f) a dead socket returned scores")
+            check(meter.counter(REMOTE_ERRORS_METRIC) - c0 == 1
+                  and remote.stats()["errors"] - e0 == 1,
+                  "(f) the dead socket was not counted")
+        finally:
+            remote.shutdown()
+            server.shutdown()
+    out["remote"] = {"round_trip_ms": _pcts(rt), "direct_ms": _pcts(direct),
+                     "requests": len(rt),
+                     "dead_socket_errors": 1}
+    emit(out)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -5445,6 +5817,7 @@ def main() -> int:
     ae_train_path = timed(phase_ae_train_path, card)
     ring_kern = timed(phase_ring_kernels, card)
     parallel = timed(phase_parallel_path, card)
+    timed(phase_engine_contract, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"

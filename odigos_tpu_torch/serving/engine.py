@@ -1,17 +1,24 @@
 """Batched async scoring engine — the port's scoring stage on the GPU.
 
-A trimmed port of ``odigos_tpu/serving/engine.py`` with four models: the
+A trimmed port of ``odigos_tpu/serving/engine.py`` with five models: the
 streaming z-score detector (``zscore``, the default, as in the JAX
 package), the packed trace transformer (``transformer``), the span
-autoencoder (``autoencoder``, one trace per row) and the deterministic test
-model (``mock``), chosen from ``_BACKENDS``. The engine contract is kept:
+autoencoder (``autoencoder``, one trace per row), the deterministic test
+model (``mock``) and a sidecar in another process (``remote``,
+``serving/sidecar.py`` ``RemoteBackend`` on ``socket_path``), chosen from
+``_BACKENDS``. The engine contract is kept:
 
 * callers ``submit()`` batches into a **bounded** queue (``submit`` returns
   None when it is full or the engine is shutting down) and wait on a
-  per-request event; ``score_sync`` returns None when its deadline passes,
-  so the caller forwards the spans unscored;
+  per-request event, or pass ``on_done``, called once per request after
+  its scores are set; ``score_sync`` returns None when its deadline
+  passes, so the caller forwards the spans unscored;
 * the worker's pack stage drains the queue and **coalesces** pending
-  requests into one device call;
+  requests into one device call, up to ``max_batch_spans``; a request
+  with ``deadline_ns`` (monotonic) caps its call so that the harvest is
+  expected inside that deadline: the headroom over an EWMA of the
+  observed cost a span, snapped down onto the bucket ladder's rows
+  (``_adaptive_cap``; past the deadline, drain mode: the full cap);
 * a backend with ``dispatch`` (the transformer, the autoencoder) is
   **pipelined**: the pack stage packs on the host (the transformer: next-fit
   packed rows; the autoencoder: one trace per row, ``assemble_sequences``)
@@ -47,6 +54,20 @@ model (``mock``), chosen from ``_BACKENDS``. The engine contract is kept:
   the columns-carrying requests featurized in the pack stage.
   ``stats()`` counts fused frames and columns-carrying frames that took
   the host route under the reference's metric names.
+* **failover** (``EngineConfig.failover``, off by default;
+  ``serving/failover.py``): a circuit breaker over the dispatch/harvest
+  results swaps scoring per group to a fallback backend built on the CPU
+  (zscore or mock) after ``trip_errors`` failures, and half-open probes
+  the primary back. The primary stays on its device and raises as it
+  would without a breaker; ``inject_device_fault`` makes every primary
+  dispatch raise :class:`DeviceFaultInjected` (the chaos hook). A group
+  harvests against the backend that dispatched it. One departure: the
+  engine's ``warmup`` also warms the fallback's state (the reference's
+  zscore fallback starts cold), so its first scores are not cold ones;
+* **meters**: the reference's counters, gauges and histograms under its
+  names and labels (``utils/telemetry.py``'s ``meter``); ``stats()``
+  carries ``"adaptive"`` (the estimators and the last cap) and, with a
+  breaker, ``"failover"``;
 * ``shutdown()`` drains queued and in-flight work losslessly.
 
 ``torch.inference_mode()`` and the current CUDA stream are per thread, so
@@ -67,11 +88,11 @@ model serves in the bundle's own working type (f32 from the trainer).
 Without a bundle the sequence models' weights are random, drawn from
 ``seed``.
 
-Not ported yet (later slices, listed in ROADMAP.md): the remote model,
-failover, device meshes, adaptive deadline-sized
-coalescing, the flow ledger, meters (the cold-span count
-and the fused counters are kept in ``stats()`` under the reference's
-metric names until then), the self-tracer and latency attribution.
+Not ported yet (later slices, listed in ROADMAP.md): device meshes and
+their adaptive priors, the flow ledger and its ``ModelFailover`` health
+rollup, the pack buffer pool (``on_features_consumed``), the self-tracer
+and latency attribution (``stage_ns``, the score span's attributes and
+the first-call compile estimate).
 """
 
 from __future__ import annotations
@@ -82,7 +103,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Any, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -95,19 +116,34 @@ from ..models.transformer import TraceTransformer, TransformerConfig
 from ..models.zscore import ZScoreDetector
 from ..pdata.spans import SpanBatch, concat_batches
 from ..utils.device import resolve_device
+from ..utils.telemetry import labeled_key, meter
+from .failover import FailoverConfig, FailoverSupervisor
 
 log = logging.getLogger(__name__)
 
+PASSTHROUGH_METRIC = "odigos_anomaly_passthrough_total"
+QUEUE_FULL_METRIC = "odigos_anomaly_queue_full_total"
+SCORED_METRIC = "odigos_anomaly_scored_spans_total"
 COLD_METRIC = "odigos_anomaly_cold_spans_total"
+ERRORS_METRIC = "odigos_anomaly_engine_errors_total"
+LATENCY_METRIC = "odigos_anomaly_score_latency_ms"
+DEVICE_BUSY_GAUGE = "odigos_anomaly_device_busy_frac"
+STAGE_PACK_METRIC = "odigos_anomaly_stage_pack_ms"
+STAGE_DEVICE_METRIC = "odigos_anomaly_stage_device_ms"
+STAGE_HARVEST_METRIC = "odigos_anomaly_stage_harvest_ms"
+ADAPTIVE_CAP_GAUGE = "odigos_engine_adaptive_cap_spans"
 FUSED_FRAMES_METRIC = "odigos_fastpath_fused_frames_total"
 FUSED_FALLBACK_METRIC = "odigos_fastpath_fused_fallback_total"
-# models of the reference that later slices port
-UNPORTED_MODELS = ("remote",)
+
+# EWMA smoothing of the per-span call-cost estimate; 0.2 follows load
+# shifts within ~5 calls without letting one outlier call resize the next
+# batch
+_ADAPT_ALPHA = 0.2
 
 
 @dataclass(frozen=True)
 class EngineConfig:
-    model: str = "zscore"        # zscore | transformer | autoencoder | mock
+    model: str = "zscore"  # zscore | transformer | autoencoder | mock | remote
     max_queue: int = 64          # pending requests bound
     max_batch_spans: int = 65536  # coalescing cap per device call
     max_len: int = 64            # spans per packed row
@@ -124,12 +160,21 @@ class EngineConfig:
     # a serving bundle (training/checkpoint.py): its geometry and weights
     # win over model_config and seed; sequence models only
     checkpoint_path: Optional[str] = None
+    socket_path: Optional[str] = None  # model "remote": sidecar unix socket
+    remote_timeout_s: float = 10.0  # model "remote": per-call socket deadline
     seed: int = 0                # random weights when there is no bundle
     # depth 2 = double buffering: one call packing on the host while one
     # runs on the card (pipelined backends only; the others clamp to 1)
     pipeline_depth: int = 2
     bucket_ladder: int = 4       # geometric row buckets above trace_bucket
     warm_ladder: bool = False    # run every ladder rung at start()
+    # failover supervisor (serving/failover.py): a circuit breaker over
+    # the dispatch/harvest results that swaps scoring to a CPU fallback on
+    # a persistent device fault and half-open probes the primary back.
+    # True (defaults) or a {window_s, trip_errors, probe_interval_s,
+    # recovery_successes, fallback_model} mapping, normalized hashable
+    # below; None/False/{"enabled": False} = no breaker
+    failover: Any = None
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
 
     def __post_init__(self) -> None:
@@ -138,14 +183,32 @@ class EngineConfig:
             raise ValueError(
                 f"quantized serving is only implemented for the "
                 f"transformer model, not {self.model!r}")
-        if self.model in UNPORTED_MODELS:
-            raise ValueError(
-                f"model {self.model!r} is not ported yet (ported: "
-                f"{sorted(_BACKENDS)}; {', '.join(UNPORTED_MODELS)}: a "
-                f"later slice)")
         if self.model not in _BACKENDS:
             raise ValueError(f"unknown scoring model {self.model!r} "
                              f"(known: {sorted(_BACKENDS)})")
+        f = self.failover
+        if f is False or f is None:
+            f = None
+        elif f is True:
+            f = ()  # all-defaults breaker
+        else:
+            items = dict(f.items() if isinstance(f, dict) else tuple(f))
+            # {"enabled": False} is an explicit opt-out, not a tuning knob
+            if not items.pop("enabled", True):
+                f = None
+            else:
+                f = tuple(sorted((str(k), v) for k, v in items.items()))
+        object.__setattr__(self, "failover", f)
+
+    def failover_spec(self) -> Optional[dict[str, Any]]:
+        """Normalized failover mapping (None = breaker disabled)."""
+        return dict(self.failover) if self.failover is not None else None
+
+
+class DeviceFaultInjected(RuntimeError):
+    """Raised by the chaos device-fault hook (``inject_device_fault``):
+    the deterministic stand-in for a dead or wedged card on the primary
+    scoring route."""
 
 
 class BucketLadder:
@@ -155,9 +218,9 @@ class BucketLadder:
     bucket that holds it (base, 2·base, 4·base, ...); counts beyond the top
     bucket round up to a multiple of it. ``observe`` tracks which shapes
     have already run this process (LRU-bounded), feeding the hit rate;
-    ``mark_warm`` pre-seeds it from ``warm()``. (The reference's mesh
-    ``align`` and the adaptive coalescer's ``floor_rows`` come with those
-    features.)
+    ``mark_warm`` pre-seeds it from ``warm()``; ``floor_rows`` snaps the
+    adaptive coalescer's row budget down onto the ladder. (The reference's
+    mesh ``align`` comes with device meshes.)
     """
 
     def __init__(self, base: int, n_buckets: int = 4):
@@ -192,6 +255,21 @@ class BucketLadder:
             if len(self._compiled) > self._max_tracked:
                 self._compiled.popitem(last=False)
         return hit
+
+    def floor_rows(self, rows: float) -> int:
+        """Largest padded row count ≤ ``rows`` that ``round_rows`` could
+        emit (the smallest bucket when nothing fits): the adaptive
+        coalescer sizes deadline-bounded calls DOWN onto shapes the
+        ladder serves, never up onto a new one. Beyond the top bucket
+        that is a multiple of it, mirroring ``round_rows``."""
+        top = self.buckets[-1]
+        if rows >= top:
+            return (int(rows) // top) * top
+        best = self.buckets[0]
+        for b in self.buckets:
+            if b <= rows:
+                best = b
+        return best
 
     def stats(self) -> dict[str, Any]:
         total = self.hits + self.misses
@@ -409,6 +487,8 @@ class ZScoreBackend:
         scores, cold = self.det.score_staged(st,
                                              update=self.cfg.online_update)
         self.cold_spans += cold
+        if cold:
+            meter.add(COLD_METRIC, cold)
         return scores
 
     def warm(self) -> None:
@@ -438,11 +518,18 @@ def _autoencoder_backend(cfg: EngineConfig):
     return AutoencoderBackend(cfg)
 
 
+def _remote_backend(cfg: EngineConfig):
+    from .sidecar import RemoteBackend
+
+    return RemoteBackend(cfg)
+
+
 _BACKENDS = {
     "mock": MockBackend,
     "zscore": ZScoreBackend,
     "transformer": _fused_backend,
     "autoencoder": _autoencoder_backend,
+    "remote": _remote_backend,
 }
 
 
@@ -480,6 +567,31 @@ class ScoreRequest:
     columns: Any = None
     done: threading.Event = field(default_factory=threading.Event)
     scores: Optional[np.ndarray] = None
+    # admission deadline (monotonic ns): the pack stage sizes the
+    # coalesced call so that its harvest lands inside it (adaptive
+    # batching); None = coalescing up to max_batch_spans
+    deadline_ns: Optional[int] = None
+    # completion callback: invoked exactly once, on the thread that
+    # completes the request (retire, a failed dispatch or harvest, the
+    # shutdown drain), after ``scores`` is set and ``done`` fires.
+    # Exceptions are counted as engine errors, never raised into the
+    # worker.
+    on_done: Optional[Callable[["ScoreRequest"], None]] = None
+
+    def signal_done(self) -> None:
+        """Fire the done event, then the completion callback (at most
+        once: re-signalling a request already done is a no-op, so the
+        failure paths may call it unconditionally)."""
+        if self.done.is_set():
+            return
+        self.done.set()
+        cb = self.on_done
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:  # noqa: BLE001 — must not kill the worker
+                meter.add(ERRORS_METRIC)
+                log.exception("on_done callback failed")
 
 
 @dataclass
@@ -490,6 +602,16 @@ class _InflightGroup:
     handle: Any       # a _Handle (pipelined) or the call's scores (serial)
     t_pack0: int      # monotonic ns: pack stage start
     t_dispatch: int   # monotonic ns: device call enqueued
+    n_spans: int
+    # the backend that dispatched the call: under failover the worker
+    # selects one per group, and a group dispatched on the primary before
+    # a trip still harvests against the primary; ``probe`` echoes the
+    # supervisor's select() flag
+    backend: Any
+    probe: bool = False
+    # the call's (rows, L), snapshotted at dispatch (the backend's
+    # last_shape describes the next call by the time this one retires)
+    shape: Optional[list[int]] = None
     fused: bool = False
 
 
@@ -503,11 +625,38 @@ class ScoringEngine:
     def __init__(self, config: Optional[EngineConfig] = None):
         self.cfg = config or EngineConfig()
         self.backend = _BACKENDS[self.cfg.model](self.cfg)
+        # failover: the supervisor picks the backend per group; the
+        # fallback is a CPU route, so it serves when the card does not
+        self.failover: Optional[FailoverSupervisor] = None
+        # the chaos hook: a message makes every PRIMARY dispatch raise
+        self._device_fault: Optional[str] = None
+        if self.cfg.failover is not None:
+            if self.cfg.model == "remote":
+                # the sidecar featurizes server-side (needs_features is
+                # False), so submit never builds the features a local
+                # fallback would score — and the sidecar carries its own
+                # deadline discipline anyway
+                raise ValueError(
+                    "failover does not compose with the remote sidecar "
+                    "backend")
+            fo_cfg = FailoverConfig.from_spec(self.cfg.failover_spec())
+            fb_cfg = EngineConfig(
+                model=fo_cfg.fallback_model,
+                max_batch_spans=self.cfg.max_batch_spans,
+                max_len=self.cfg.max_len,
+                trace_bucket=self.cfg.trace_bucket,
+                online_update=self.cfg.online_update,
+                featurizer=self.cfg.featurizer,
+                seed=self.cfg.seed, device="cpu")
+            self.failover = FailoverSupervisor(
+                self.cfg.model, self.backend,
+                _BACKENDS[fo_cfg.fallback_model](fb_cfg), fo_cfg)
         # only a backend with a non-blocking dispatch can overlap; the
-        # others (zscore's ordered online update, mock) run serially
-        self._pipelined = callable(getattr(self.backend, "dispatch", None))
+        # others (zscore's ordered online update, mock, the remote
+        # sidecar with its own deadline) run serially. A fallback group
+        # takes the serial branch inside the primary's window.
         self._depth = max(1, self.cfg.pipeline_depth) \
-            if self._pipelined else 1
+            if _pipelined(self.backend) else 1
         self._queue: queue.Queue[ScoreRequest] = queue.Queue(
             self.cfg.max_queue)
         self._thread: Optional[threading.Thread] = None
@@ -530,14 +679,42 @@ class ScoringEngine:
         self.fused_fallback = dict.fromkeys(FALLBACK_REASONS, 0)
         self.fused_mixed_frames = 0
         self._stage_log: deque[dict[str, Any]] = deque(maxlen=512)
+        # device occupancy: the union of [dispatch, harvest end]
+        # intervals over the wall since the first dispatch
+        self._busy_ns = 0
+        self._busy_until = 0
+        self._t_run0: Optional[int] = None
+        # deadline-sized coalescing: the per-span cost is a ratio of
+        # averages (EWMA of call ms over EWMA of call spans), since a call
+        # carries a fixed cost and one small call must not read as a
+        # catastrophic per-span cost; None until the first call retires
+        # (no estimate, no adaptive cap)
+        self._ewma_call_ms: Optional[float] = None
+        self._ewma_call_spans: Optional[float] = None
+        self._ewma_spans_per_row: Optional[float] = None
+        self._ewma_harvest_ms = 0.0
+        self._last_adaptive_cap: Optional[int] = None
+        self._adaptive_gauge_key = labeled_key(ADAPTIVE_CAP_GAUGE,
+                                               model=self.cfg.model)
+
+    def _backends(self) -> tuple:
+        """The primary and, with a breaker, the fallback."""
+        if self.failover is None:
+            return (self.backend,)
+        return (self.backend, self.failover.fallback)
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> "ScoringEngine":
         if self._thread is None or not self._thread.is_alive():
-            warm = getattr(self.backend, "warm", None)
-            if self.cfg.warm_ladder and warm is not None:
+            if self.cfg.warm_ladder:
+                # blocking: the caller opted in; the fallback warms too,
+                # or its first groups pay their first-call costs in the
+                # middle of the fault the breaker exists for
                 with self._backend_lock:
-                    warm()  # blocking: the caller opted in
+                    for backend in self._backends():
+                        warm = getattr(backend, "warm", None)
+                        if warm is not None:
+                            warm()
             # per-run stop event: a worker that outlived a timed-out join
             # keeps ITS event set instead of being resurrected
             stop = threading.Event()
@@ -561,36 +738,48 @@ class ScoringEngine:
             except queue.Empty:
                 break
             req.scores = None
-            req.done.set()
+            req.signal_done()
 
     # ------------------------------------------------------------- scoring
     def submit(self, batch: SpanBatch,
                features: Optional[SpanFeatures] = None,
+               deadline_ns: Optional[int] = None,
+               on_done: Optional[Callable[[ScoreRequest], None]] = None,
                columns: Any = None) -> Optional[ScoreRequest]:
         """Enqueue for scoring; None when the queue is full or the engine
-        is shutting down (admission control, never a stall). A request
+        is shutting down (admission control, never a stall; ``on_done``
+        is then not called). ``deadline_ns`` (monotonic) sizes the
+        coalesced call so that its harvest is expected inside it;
+        ``on_done`` is called once when the request resolves. A request
         with ``columns`` (``fused.extract_columns(batch)[0]``) is not
         featurized here: its group scores on the fused route, or the pack
-        stage featurizes it."""
+        stage featurizes it; the remote model featurizes in the sidecar."""
         if self._stop.is_set():
-            with self._count_lock:
-                self.rejected += 1
+            self._reject()
             return None
-        if features is None and columns is None:
+        if features is None and columns is None \
+                and getattr(self.backend, "needs_features", True):
             features = featurize(batch, self.cfg.featurizer)
-        req = ScoreRequest(batch=batch, features=features, columns=columns)
+        req = ScoreRequest(batch=batch, features=features, columns=columns,
+                           deadline_ns=deadline_ns, on_done=on_done)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
-            with self._count_lock:
-                self.rejected += 1
+            self._reject()
             return None
         return req
+
+    def _reject(self) -> None:
+        with self._count_lock:
+            self.rejected += 1
+        meter.add(QUEUE_FULL_METRIC)
 
     def score_sync(self, batch: SpanBatch,
                    features: Optional[SpanFeatures] = None,
                    timeout_s: float = 0.005) -> Optional[np.ndarray]:
-        """Submit and wait up to the latency budget; None => pass through."""
+        """Submit and wait up to the latency budget; None => pass through
+        (a passed deadline counts as pass-through; a failed call counts
+        as an engine error, as in the reference)."""
         req = self.submit(batch, features)
         if req is None:
             return None
@@ -598,20 +787,24 @@ class ScoringEngine:
             return req.scores
         with self._count_lock:
             self.passthrough_spans += len(batch)
+        meter.add(PASSTHROUGH_METRIC, len(batch))
         return None
 
     def warmup(self, batch: SpanBatch) -> None:
         """Feed presumed-normal traffic to a streaming backend (its own
         ``warmup``), then score the batch synchronously so first-call costs
         are paid before real traffic — as the reference does, so a zscore
-        engine with ``online_update`` folds the batch in twice. Runs under
-        the backend lock: a worker scoring concurrent traffic must not
-        interleave with the fit."""
+        engine with ``online_update`` folds the batch in twice. With a
+        breaker the fallback is warmed the same way (the module
+        docstring's departure). Runs under the backend lock: a worker
+        scoring concurrent traffic must not interleave with the fit."""
+        feats = featurize(batch, self.cfg.featurizer)
         with self._backend_lock:
-            w = getattr(self.backend, "warmup", None)
-            if w is not None:
-                w(batch)
-            self.backend.score(batch, featurize(batch, self.cfg.featurizer))
+            for backend in self._backends():
+                w = getattr(backend, "warmup", None)
+                if w is not None:
+                    w(batch)
+                backend.score(batch, feats)
 
     def count_fused_fallback(self, reason: str) -> None:
         """Count a frame its caller sent down the host route, by reason
@@ -622,6 +815,24 @@ class ScoringEngine:
                              f"(known: {list(self.fused_fallback)})")
         with self._count_lock:
             self.fused_fallback[reason] += 1
+
+    # --------------------------------------------------------- chaos hooks
+    def inject_device_fault(
+            self, message: str = "injected device fault") -> None:
+        """Every later PRIMARY-backend dispatch raises
+        :class:`DeviceFaultInjected` until cleared: the deterministic
+        device loss that the breaker and the sustained-failure tests
+        drive. The fallback route is untouched."""
+        self._device_fault = str(message)
+
+    def clear_device_fault(self) -> None:
+        """Lift the injected device fault (idempotent)."""
+        self._device_fault = None
+
+    def failover_status(self) -> Optional[dict[str, Any]]:
+        """The breaker's state snapshot (None = no breaker configured)."""
+        return self.failover.status() if self.failover is not None \
+            else None
 
     def stats(self) -> dict[str, Any]:
         log_ = list(self._stage_log)
@@ -653,6 +864,13 @@ class ScoringEngine:
             FUSED_FRAMES_METRIC: self.fused_frames,
             FUSED_FALLBACK_METRIC: dict(self.fused_fallback),
             "fused_mixed_group_frames": self.fused_mixed_frames,
+            "adaptive": {
+                "ms_per_span": self._ms_per_span(),
+                "spans_per_row": self._ewma_spans_per_row,
+                "harvest_ms": round(self._ewma_harvest_ms, 4),
+                "last_cap_spans": self._last_adaptive_cap,
+                "mesh": None,  # device meshes: a later slice
+            },
         }
         ladder = getattr(self.backend, "ladder", None)
         if ladder is not None:
@@ -662,6 +880,8 @@ class ScoringEngine:
                         None)
         if route is not None:
             out["recon_route"] = route
+        if self.failover is not None:
+            out["failover"] = self.failover.status()
         return out
 
     # -------------------------------------------------------------- worker
@@ -687,12 +907,18 @@ class ScoringEngine:
                 if inflight:
                     self._retire(inflight.popleft())
             except Exception:
-                self.errors += 1
+                self._count_error()
                 log.exception("scoring engine worker error")
+
+    def _count_error(self) -> None:
+        self.errors += 1
+        meter.add(ERRORS_METRIC)
 
     def _collect(self, block: bool) -> Optional[list[ScoreRequest]]:
         """One request (blocking briefly only when the pipeline is idle)
-        plus whatever else is already waiting, up to max_batch_spans."""
+        plus whatever else is already waiting, up to max_batch_spans — or,
+        when the first request carries a deadline, up to the adaptive cap
+        that lands its harvest inside it."""
         try:
             first = self._queue.get(timeout=0.05) if block \
                 else self._queue.get_nowait()
@@ -700,7 +926,12 @@ class ScoringEngine:
             return None
         reqs = [first]
         total = len(first.batch)
-        while total < self.cfg.max_batch_spans:
+        cap = self.cfg.max_batch_spans
+        if first.deadline_ns is not None:
+            cap = min(cap, self._adaptive_cap(first.deadline_ns))
+            self._last_adaptive_cap = cap
+            meter.set_gauge(self._adaptive_gauge_key, cap)
+        while total < cap:
             try:
                 nxt = self._queue.get_nowait()
             except queue.Empty:
@@ -709,85 +940,223 @@ class ScoringEngine:
             total += len(nxt.batch)
         return reqs
 
+    def _adaptive_cap(self, deadline_ns: int) -> int:
+        """Span budget for one coalesced call such that its harvest is
+        expected inside ``deadline_ns``: the remaining headroom over the
+        observed cost a span, snapped DOWN onto the bucket ladder's row
+        shapes (never up onto a new one). With no estimate yet the fixed
+        cap applies."""
+        per_span = self._ms_per_span()
+        if per_span is None or per_span <= 0:
+            return self.cfg.max_batch_spans
+        headroom_ms = ((deadline_ns - time.monotonic_ns()) / 1e6
+                       - self._ewma_harvest_ms)
+        if headroom_ms <= 0:
+            # already late: queue wait ate the deadline, so per-request
+            # latency is lost either way — DRAIN mode (maximal coalescing)
+            # clears the backlog at peak efficiency; shipping minimal calls
+            # here would shrink batches exactly when load demands growth
+            return self.cfg.max_batch_spans
+        afford = int(headroom_ms / per_span)
+        ladder = getattr(self.backend, "ladder", None)
+        spans_per_row = self._ewma_spans_per_row
+        if ladder is not None and spans_per_row and spans_per_row > 0:
+            rows = afford / spans_per_row
+            afford = int(ladder.floor_rows(rows) * spans_per_row)
+        return max(1, min(afford, self.cfg.max_batch_spans))
+
+    def _ms_per_span(self) -> Optional[float]:
+        """Volume-weighted call cost a span (see __init__)."""
+        if not self._ewma_call_ms or not self._ewma_call_spans:
+            return None
+        return self._ewma_call_ms / self._ewma_call_spans
+
     def _dispatch_group(self, reqs: list[ScoreRequest]
                         ) -> Optional[_InflightGroup]:
         t0 = time.monotonic_ns()
-        backend = self.backend
+        if self._t_run0 is None:
+            self._t_run0 = t0
+        # the breaker picks the backend PER GROUP: the primary while
+        # closed, the CPU fallback while tripped, one probe group per
+        # interval while recovering
+        if self.failover is not None:
+            backend, probe = self.failover.select()
+        else:
+            backend, probe = self.backend, False
+        n_spans = sum(len(r.batch) for r in reqs)
         carrying = sum(r.columns is not None for r in reqs)
-        fused = bool(getattr(backend, "supports_fused", False)) \
-            and carrying == len(reqs)
+        fused = False
         try:
+            if self._device_fault is not None and backend is self.backend:
+                # only the PRIMARY faults: the fallback must keep scoring
+                # or there is nothing to fail over to
+                raise DeviceFaultInjected(self._device_fault)
+            # fused per group AND per selected backend: a trip to the CPU
+            # fallback (no fused kernels) scores the same requests on the
+            # host route below
+            fused = bool(getattr(backend, "supports_fused", False)) \
+                and carrying == len(reqs)
             if fused:
                 with self._backend_lock:
                     handle = backend.dispatch_columns(
                         [r.columns for r in reqs])
+                    shape = backend.last_shape
                 with self._count_lock:
                     self.fused_calls += 1
                     self.fused_frames += len(reqs)
-                return _InflightGroup(reqs=reqs, handle=handle, t_pack0=t0,
-                                      t_dispatch=time.monotonic_ns(),
-                                      fused=True)
-            if carrying:
+            else:
+                handle, shape = self._dispatch_host(backend, reqs, carrying)
+        except Exception as e:
+            self._count_error()
+            log.exception("scoring dispatch failed")
+            if self.failover is not None:
+                self.failover.observe(backend, ok=False, n_spans=n_spans,
+                                      error=f"{type(e).__name__}: {e}",
+                                      probe=probe)
+            for r in reqs:
+                r.scores = None
+                r.signal_done()
+            return None
+        return _InflightGroup(reqs=reqs, handle=handle, t_pack0=t0,
+                              t_dispatch=time.monotonic_ns(),
+                              n_spans=n_spans, backend=backend, probe=probe,
+                              shape=shape, fused=fused)
+
+    def _dispatch_host(self, backend: Any, reqs: list[ScoreRequest],
+                       carrying: int) -> tuple[Any, Optional[list[int]]]:
+        """The host route of one group on ``backend``: the deferred
+        featurize, the coalesced batch and features, and the call
+        (dispatched, or scored at once by a serial backend). Returns the
+        handle and the call's (rows, L) for a row-shaped backend."""
+        if carrying:
+            if getattr(backend, "needs_features", True):
                 # columns-carrying requests on the host route: the host
                 # featurize the submit skipped
                 for r in reqs:
                     if r.features is None:
                         r.features = featurize(r.batch, self.cfg.featurizer)
+            # a group on the failover fallback is no fused fallback
+            if backend is self.backend:
                 with self._count_lock:
                     if getattr(backend, "supports_fused", False):
                         self.fused_mixed_frames += carrying
                     else:
                         self.fused_fallback["backend"] += carrying
-            if len(reqs) == 1:
-                merged: Any = reqs[0].batch
-                feats = reqs[0].features
-            else:
-                if getattr(backend, "coalesce_columns", None) is not None:
-                    merged = _ColumnBatch([r.batch for r in reqs])
-                else:  # the backend reads more than columns (mock: attrs)
-                    merged = concat_batches([r.batch for r in reqs])
+        if len(reqs) == 1:
+            merged: Any = reqs[0].batch
+            feats = reqs[0].features
+        else:
+            feats = None
+            if all(r.features is not None for r in reqs):
                 feats = SpanFeatures(
                     np.concatenate([r.features.categorical for r in reqs]),
                     np.concatenate([r.features.continuous for r in reqs]))
-            with self._backend_lock:
-                if self._pipelined:
-                    handle = backend.dispatch(merged, feats)
-                else:
-                    # depth 1: the whole call, here and in order; the
-                    # handle is the scores
-                    handle = backend.score(merged, feats)
-        except Exception:
-            self.errors += 1
-            log.exception("scoring dispatch failed")
-            for r in reqs:
-                r.scores = None
-                r.done.set()
-            return None
-        return _InflightGroup(reqs=reqs, handle=handle, t_pack0=t0,
-                              t_dispatch=time.monotonic_ns())
+            if feats is not None and \
+                    getattr(backend, "coalesce_columns", None) is not None:
+                merged = _ColumnBatch([r.batch for r in reqs])
+            else:  # the backend reads more than columns (mock: attrs;
+                # remote: the whole batch goes over the socket)
+                merged = concat_batches([r.batch for r in reqs])
+        with self._backend_lock:
+            if _pipelined(backend):
+                handle = backend.dispatch(merged, feats)
+            else:
+                # depth 1: the whole call, here and in order; the handle
+                # is the scores
+                handle = backend.score(merged, feats)
+            # rows of a laddered call (zscore's last_shape is a span
+            # bucket, not rows), read under the lock: a concurrent
+            # warmup() would overwrite it
+            shape = backend.last_shape \
+                if getattr(backend, "ladder", None) is not None else None
+        return handle, shape
 
     def _retire(self, grp: _InflightGroup) -> None:
-        """Harvest the oldest call, split scores per request, wake them."""
+        """Harvest the oldest call against the backend that dispatched
+        it, feed the breaker, the estimators and the meters, split the
+        scores per request and wake them."""
+        t_h0 = time.monotonic_ns()
+        backend = grp.backend
+        harvest = getattr(backend, "harvest", None)
         try:
-            if self._pipelined:
+            if harvest is not None:
                 with self._backend_lock:
-                    scores = self.backend.harvest(grp.handle)
+                    scores = harvest(grp.handle)
             else:
                 scores = grp.handle
-        except Exception:
-            self.errors += 1
+        except Exception as e:
+            self._count_error()
             log.exception("scoring harvest failed")
-            scores = None
-        # count the call before waking anyone: a woken caller may read it
+            self.device_calls += 1
+            if self.failover is not None:
+                self.failover.observe(backend, ok=False,
+                                      n_spans=grp.n_spans,
+                                      error=f"{type(e).__name__}: {e}",
+                                      probe=grp.probe)
+            for r in grp.reqs:
+                r.scores = None
+                r.signal_done()
+            return
+        if self.failover is not None:
+            self.failover.observe(backend, ok=True, n_spans=grp.n_spans,
+                                  probe=grp.probe)
+        # account the call before waking anyone: a woken caller may read
+        # the counters
         t_end = time.monotonic_ns()
+        pack_ms = (grp.t_dispatch - grp.t_pack0) / 1e6
+        device_ms = (t_end - grp.t_dispatch) / 1e6
+        harvest_ms = (t_end - t_h0) / 1e6
+        self._update_estimators(grp, pack_ms + device_ms, harvest_ms)
+        # the union of [dispatch, harvest end] intervals bounds the device
+        # busy time from above (copies included); under depth > 1 they
+        # overlap, so clip to the high-water mark
+        self._busy_ns += t_end - max(grp.t_dispatch, self._busy_until)
+        self._busy_until = t_end
+        busy_frac = min(self._busy_ns / max(t_end - self._t_run0, 1), 1.0)
         self.device_calls += 1
-        self._stage_log.append({
-            "pack_ms": (grp.t_dispatch - grp.t_pack0) / 1e6,
-            "device_ms": (t_end - grp.t_dispatch) / 1e6,
-            "fused": grp.fused})
-        off = 0
-        for r in grp.reqs:
-            n_r = len(r.batch)
-            r.scores = None if scores is None else scores[off:off + n_r]
-            off += n_r
-            r.done.set()
+        self._stage_log.append({"pack_ms": pack_ms, "device_ms": device_ms,
+                                "fused": grp.fused})
+        meter.add(SCORED_METRIC, grp.n_spans)
+        meter.record(LATENCY_METRIC, (t_end - grp.t_pack0) / 1e6)
+        meter.record(STAGE_PACK_METRIC, pack_ms)
+        meter.record(STAGE_DEVICE_METRIC, device_ms)
+        meter.record(STAGE_HARVEST_METRIC, harvest_ms)
+        meter.set_gauge(DEVICE_BUSY_GAUGE, round(busy_frac, 4))
+        try:
+            off = 0
+            for r in grp.reqs:
+                n_r = len(r.batch)
+                r.scores = scores[off:off + n_r]
+                off += n_r
+                r.signal_done()
+        finally:
+            # no request may hang on a half-failed split: the rest fire
+            # with scores None (a no-op for those already signalled)
+            for r in grp.reqs:
+                r.signal_done()
+
+    def _update_estimators(self, grp: _InflightGroup, call_ms: float,
+                           harvest_ms: float) -> None:
+        """The adaptive coalescer's EWMAs: the call's cost (pack +
+        device, the wall the next group's deadline must absorb) and span
+        volume as separate averages, spans a packed row (span budgets to
+        ladder rows) and the harvest allowance."""
+        a = _ADAPT_ALPHA
+        if grp.n_spans > 0:
+            self._ewma_call_ms = call_ms if self._ewma_call_ms is None \
+                else (1 - a) * self._ewma_call_ms + a * call_ms
+            self._ewma_call_spans = float(grp.n_spans) \
+                if self._ewma_call_spans is None \
+                else (1 - a) * self._ewma_call_spans + a * grp.n_spans
+            if grp.shape and grp.shape[0] > 0:
+                spr = grp.n_spans / grp.shape[0]
+                self._ewma_spans_per_row = spr \
+                    if self._ewma_spans_per_row is None \
+                    else (1 - a) * self._ewma_spans_per_row + a * spr
+        self._ewma_harvest_ms = (1 - a) * self._ewma_harvest_ms \
+            + a * harvest_ms
+
+
+def _pipelined(backend: Any) -> bool:
+    """Whether a backend dispatches without blocking (dispatch/harvest)."""
+    return callable(getattr(backend, "dispatch", None))

@@ -16,7 +16,14 @@ Wire protocol (little-endian), framed like wire/codec.py:
     reply   := u32 req_id | u8 status (0 ok / 1 error) | body
                SCORE body = raw float32[n] scores; error body = utf-8 message
 
-A server-side scoring timeout answers ST_ERROR. The first calls on the
+A server-side scoring timeout answers ST_ERROR.
+
+Client side: ``RemoteBackend`` plugs into the port's ``ScoringEngine`` as
+the ``"remote"`` model (``EngineConfig(model="remote", socket_path=...)``),
+so the engine's queue admission, coalescing and ``score_sync`` deadline
+still apply; the round trip runs on the engine's worker thread at depth 1,
+and a failed or short reply fails the group (an engine error, the spans
+pass through). It talks to this server or to the JAX package's. The first calls on the
 card pay the kernel build, CUDA context and module load, so ``main`` warms
 every bucket-ladder rung (zscore: every span bucket) before it binds the
 socket (``--no-warm-ladder`` turns that off).
@@ -46,6 +53,7 @@ import numpy as np
 from ..pdata.spans import SpanBatch
 from ..utils.framing import (
     ConnRegistry, connect_unix_retry, recv_frame, send_frame, shutdown_close)
+from ..utils.telemetry import meter
 from ..wire.codec import decode_batch, encode_batch
 
 MAGIC = b"OTS1"
@@ -58,6 +66,8 @@ OP_PING = 2
 
 ST_OK = 0
 ST_ERROR = 1
+
+REMOTE_ERRORS_METRIC = "odigos_sidecar_client_errors_total"
 
 
 # ----------------------------------------------------------------- framing
@@ -313,6 +323,51 @@ class SidecarClient:
 
     def warmup(self, batch: SpanBatch, timeout_s: float = 120.0) -> None:
         self.request(OP_WARMUP, encode_batch(batch), timeout_s)
+
+
+class RemoteBackend:
+    """ScoringEngine backend that scores through a sidecar process.
+
+    Registered as model ``"remote"``: the engine keeps its local queue
+    admission, coalescing and deadline; only the scoring call crosses the
+    process boundary, and the sidecar's own engine owns the card. Errors
+    are counted here and raised: the engine fails the group and the spans
+    pass through.
+    """
+
+    # the sidecar featurizes server-side; the client engine must not
+    # featurize too (twice the host cost against the latency budget)
+    needs_features = False
+    # no dispatch: the socket round trip carries its own deadline
+    # (remote_timeout_s), and overlapping calls here would reorder the
+    # sidecar's cross-connection coalescing — the client engine runs this
+    # backend at depth 1 and the SERVER engine, which owns the card,
+    # pipelines
+    device_label = "remote"
+
+    def __init__(self, cfg):
+        if not cfg.socket_path:
+            raise ValueError("model 'remote' requires socket_path")
+        self.cfg = cfg
+        self.client = SidecarClient(cfg.socket_path)
+
+    def score(self, batch: SpanBatch, features: Any) -> np.ndarray:
+        try:
+            # the deadline bounds how long a stalled (not dead) sidecar
+            # can pin the engine's worker thread
+            scores = self.client.score(
+                batch, timeout_s=self.cfg.remote_timeout_s)
+        except (ConnectionError, TimeoutError, RuntimeError):
+            meter.add(REMOTE_ERRORS_METRIC)
+            raise
+        if len(scores) != len(batch):
+            raise RuntimeError(
+                f"sidecar returned {len(scores)} scores for "
+                f"{len(batch)} spans")
+        return scores
+
+    def warmup(self, batch: SpanBatch) -> None:
+        self.client.warmup(batch)
 
 
 # -------------------------------------------------------------- standalone

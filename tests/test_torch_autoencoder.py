@@ -1171,8 +1171,9 @@ def test_started_engine_scores_through_submit_columns_and_warm_ladder():
 def test_quantized_remote_and_mismatched_configs_are_refused():
     with pytest.raises(ValueError, match="transformer"):
         EngineConfig(model="autoencoder", quantized=True, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        EngineConfig(model="remote", device="cpu")
+    # the remote model without a socket: the reference's refusal
+    with pytest.raises(ValueError, match="socket_path"):
+        ScoringEngine(EngineConfig(model="remote", device="cpu"))
     from odigos_tpu_torch.models import TransformerConfig
     with pytest.raises(ValueError, match="AutoencoderConfig"):
         ScoringEngine(EngineConfig(model="autoencoder", device="cpu",

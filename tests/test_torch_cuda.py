@@ -2793,3 +2793,87 @@ def test_span_embed_ids_past_their_tables_as_plain(dev, d, dtype):
     assert torch.equal(got[~nan], ref[~nan])
     for name in ("service", "name", "kind", "status", "attr", "pos"):
         assert torch.equal(getattr(gb, name), getattr(rb, name)), name
+
+
+# --------------------------------------------- the engine's failover on card
+
+def _score_all(eng, batches):
+    out = []
+    for b in batches:
+        s = eng.score_sync(b, timeout_s=120)
+        out.append(s)
+    return out
+
+
+def test_gpu_engine_fails_over_to_the_cpu_zscore_and_recovers(dev):
+    """The transformer on the card (2 layers, bf16) behind an armed
+    breaker: healthy it scores bit-equal to an engine without one and
+    launches K1, K2, K14 and K15; under ``inject_device_fault`` the breaker
+    opens within ``trip_errors`` failed groups and the CPU zscore fallback
+    scores like a zscore engine on the CPU fed the same stream; cleared,
+    probes close it and the card scores the same bits again."""
+    fo = {"trip_errors": 2, "probe_interval_s": 0.2,
+          "recovery_successes": 2, "window_s": 60.0}
+    cfg = dict(model="transformer", model_config=TransformerConfig(
+        n_layers=2), trace_bucket=16, warm_ladder=True)
+    eng = ScoringEngine(EngineConfig(device="cuda", failover=fo, **cfg))
+    plain = ScoringEngine(EngineConfig(device="cuda", **cfg))
+    plain.backend.model.load_state_dict(eng.backend.model.state_dict())
+    replay = ScoringEngine(EngineConfig(model="zscore", device="cpu"))
+    warm = synthesize_traces(200, seed=7)
+    eng.warmup(warm)
+    replay.warmup(warm)
+    batches = [synthesize_traces(40 + 9 * i, seed=60 + i) for i in range(3)]
+    sup = eng.failover
+    eng.start()
+    plain.start()
+    try:
+        counts0 = (attention.launches, embed.launches, kdense.ln_launches,
+                   kdense.gemm_launches)
+        before = _score_all(eng, batches)
+        counts1 = (attention.launches, embed.launches, kdense.ln_launches,
+                   kdense.gemm_launches)
+        assert all(b > a for a, b in zip(counts0, counts1)), counts1
+        for got, want in zip(before, _score_all(plain, batches)):
+            assert got is not None
+            np.testing.assert_array_equal(got, want)
+        assert sup.state == "closed" and sup.trips == 0
+
+        eng.inject_device_fault()
+        failed = 0
+        while not sup.active:
+            assert eng.score_sync(synthesize_traces(10, seed=90 + failed),
+                                  timeout_s=120) is None
+            failed += 1
+            assert failed <= fo["trip_errors"]
+        fallback = []
+        for i in range(4):
+            b = synthesize_traces(12, seed=100 + i)
+            spans0 = sup.fallback_spans
+            s = eng.score_sync(b, timeout_s=120)
+            if sup.fallback_spans - spans0 == len(b):
+                fallback.append((b, s))
+        assert fallback and sup.fallback_spans == sum(
+            len(b) for b, _ in fallback)
+        for b, s in fallback:
+            want = replay.backend.score(b, featurize(b))
+            np.testing.assert_allclose(s, want, rtol=0, atol=1e-5)
+
+        eng.clear_device_fault()
+        k = 0
+        while sup.active:
+            assert k < 3000, "the breaker never closed"
+            b = synthesize_traces(8, seed=200 + k)
+            spans0 = sup.fallback_spans
+            s = eng.score_sync(b, timeout_s=120)
+            if sup.fallback_spans - spans0 == len(b):
+                np.testing.assert_allclose(
+                    s, replay.backend.score(b, featurize(b)), rtol=0,
+                    atol=1e-5)
+            k += 1
+        assert sup.recoveries == 1
+        for got, want in zip(_score_all(eng, batches), before):
+            np.testing.assert_array_equal(got, want)
+    finally:
+        eng.shutdown()
+        plain.shutdown()

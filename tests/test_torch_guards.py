@@ -68,7 +68,8 @@ def test_port_has_the_slice_modules():
                 "models/quantized.py", "models/autoencoder.py",
                 "models/convert.py", "models/zscore.py",
                 "serving/engine.py", "serving/fused.py",
-                "serving/sidecar.py", "utils/framing.py", "wire/codec.py",
+                "serving/sidecar.py", "serving/failover.py",
+                "utils/framing.py", "utils/telemetry.py", "wire/codec.py",
                 "kernels/autograd.py", "training/__init__.py",
                 "training/data.py", "training/trainer.py",
                 "training/checkpoint.py", "training/evaluate.py",

@@ -20,6 +20,14 @@ threshold, ``|score - 0.6| > TAG_MARGIN``.
 The receivers are drained before the warm-up so that their two batches are
 scored (cold) before it in both runs — the order is otherwise a race
 between the receiver thread and the warm-up.
+
+The port's own ``EngineConfig(model="remote", socket_path=...)``
+(``serving/sidecar.py`` ``RemoteBackend``) scores through a port sidecar
+serving a small transformer on the CPU exactly as the sidecar's engine
+scores the same batches itself; a short reply raises and fails its group,
+a dead socket is counted under ``odigos_sidecar_client_errors_total`` and
+passes through, and a remote engine without ``socket_path`` is refused as
+the reference refuses it.
 """
 
 import os
@@ -33,8 +41,14 @@ from odigos_tpu.components.processors.tpuanomaly import (
     FLAG_ATTR, SCORE_ATTR, TpuAnomalyProcessor)
 from odigos_tpu.pdata import synthesize_traces as jsynth
 from odigos_tpu.pipeline import Collector
+from odigos_tpu.serving.engine import EngineConfig as JaxEngineConfig
+from odigos_tpu.serving.engine import ScoringEngine as JaxEngine
 from odigos_tpu.serving.sidecar import SidecarClient as JaxClient
+from odigos_tpu_torch.models import TransformerConfig
 from odigos_tpu_torch.pdata import synthesize_traces as psynth
+from odigos_tpu_torch.serving.fused import extract_columns
+from odigos_tpu_torch.serving.sidecar import REMOTE_ERRORS_METRIC
+from odigos_tpu_torch.utils.telemetry import meter
 from odigos_tpu_torch.serving import (EngineConfig, ScoringEngine,
                                       SidecarClient, SidecarServer)
 from tests.test_anomaly_e2e import e2e_config, spike_batch
@@ -168,3 +182,98 @@ def _features(batch):
     from odigos_tpu_torch.features import featurize
 
     return featurize(batch)
+
+
+SMALL = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, max_len=16)
+ERRORS_METRIC = "odigos_anomaly_engine_errors_total"
+
+
+@pytest.fixture
+def transformer_sidecar():
+    """A port sidecar serving a small f32 transformer on the CPU."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "score.sock")
+        engine = ScoringEngine(EngineConfig(
+            model="transformer", device="cpu", max_len=16, trace_bucket=8,
+            model_config=TransformerConfig(**SMALL, dtype=torch.float32)))
+        server = SidecarServer(engine, path, score_timeout_s=60.0).start()
+        try:
+            yield path, engine, server
+        finally:
+            server.shutdown()
+
+
+def test_port_remote_engine_scores_as_the_sidecar_engine(
+        transformer_sidecar):
+    path, side, _ = transformer_sidecar
+    remote = ScoringEngine(EngineConfig(model="remote", socket_path=path,
+                                        remote_timeout_s=60.0)).start()
+    try:
+        st = remote.stats()
+        assert st["device"] == "remote" and st["pipeline_depth"] == 1
+        remote.warmup(psynth(20, seed=1))  # WARMUP over the wire
+        for n, seed in ((3, 1), (12, 2), (40, 3)):
+            b = psynth(n, seed=seed)
+            req = remote.submit(b)
+            assert req.features is None  # the sidecar featurizes
+            assert req.done.wait(60)
+            want = side.score_sync(b, timeout_s=60)
+            assert req.scores is not None and want is not None
+            np.testing.assert_array_equal(req.scores, want)
+        # a columns-carrying request takes the host route over the wire
+        b = psynth(6, seed=4)
+        req = remote.submit(b, columns=extract_columns(b)[0])
+        assert req.done.wait(60)
+        np.testing.assert_array_equal(req.scores,
+                                      side.score_sync(b, timeout_s=60))
+        assert remote.stats()["errors"] == 0
+    finally:
+        remote.shutdown()
+
+
+def test_a_short_reply_raises_and_fails_its_group(transformer_sidecar,
+                                                  monkeypatch):
+    path, _, _ = transformer_sidecar
+    remote = ScoringEngine(EngineConfig(model="remote", socket_path=path))
+    b = psynth(4, seed=5)
+    real = remote.backend.client.score
+    monkeypatch.setattr(remote.backend.client, "score",
+                        lambda batch, timeout_s: real(batch, timeout_s)[:-1])
+    with pytest.raises(RuntimeError, match="sidecar returned"):
+        remote.backend.score(b, None)
+    e0 = meter.counter(ERRORS_METRIC)
+    remote.start()
+    try:
+        assert remote.score_sync(b, timeout_s=60) is None
+    finally:
+        remote.shutdown()
+    assert remote.stats()["errors"] == 1
+    assert meter.counter(ERRORS_METRIC) == e0 + 1
+
+
+def test_a_dead_socket_is_counted_and_passes_through(transformer_sidecar):
+    path, _, server = transformer_sidecar
+    remote = ScoringEngine(EngineConfig(model="remote", socket_path=path,
+                                        remote_timeout_s=10.0))
+    remote.backend.client.connect_timeout_s = 0.2
+    remote.start()
+    try:
+        assert remote.score_sync(psynth(3, seed=6), timeout_s=60) \
+            is not None
+        server.shutdown()  # the sidecar dies
+        c0 = meter.counter(REMOTE_ERRORS_METRIC)
+        e0 = remote.stats()["errors"]
+        for seed in (7, 8):
+            assert remote.score_sync(psynth(3, seed=seed),
+                                     timeout_s=60) is None
+        assert meter.counter(REMOTE_ERRORS_METRIC) == c0 + 2
+        assert remote.stats()["errors"] == e0 + 2
+    finally:
+        remote.shutdown()
+
+
+def test_remote_without_a_socket_is_refused_like_the_reference():
+    for eng_cls, cfg_cls in ((JaxEngine, JaxEngineConfig),
+                             (ScoringEngine, EngineConfig)):
+        with pytest.raises(ValueError, match="requires socket_path"):
+            eng_cls(cfg_cls(model="remote"))

@@ -209,13 +209,14 @@ def test_concurrent_submitters_all_get_their_scores():
 
 
 def test_unported_models_and_missing_card_raise(sock_path):
-    # zscore (the default, as in the JAX package), mock and the
-    # autoencoder are ported now; the remote model is a later slice
+    # zscore (the default, as in the JAX package), mock, the autoencoder
+    # and the remote model are ported; remote without a socket is refused
+    # as in the reference
     assert EngineConfig(model="zscore").model == EngineConfig().model
     EngineConfig(model="mock")
     EngineConfig(model="autoencoder")
-    with pytest.raises(ValueError, match="not ported"):
-        EngineConfig(model="remote")
+    with pytest.raises(ValueError, match="socket_path"):
+        ScoringEngine(EngineConfig(model="remote"))
     with pytest.raises(ValueError, match="unknown scoring model"):
         EngineConfig(model="nope")
     assert EngineConfig().device == "cuda"
