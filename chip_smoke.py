@@ -263,7 +263,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``make_sharded_score_fn``) on ``{"data": 1}`` at the trainer's full
    width (f32, 64 traces of L 32), then ``dryrun_multichip(1, "cuda")``,
    with every launch counted (K1, K2, K14-K19 at their counts a step and a
-   scoring call, K22 twice) and no plain version called;
+   scoring call, K22 twice) and no plain version called; the dry run
+   also starts the mesh-owning engine (its mesh one device in a world of
+   1) and serves through it;
 20. engine contract — the served transformer (``TransformerConfig()``,
    bf16, full width) behind the engine's contract: (a) an engine armed
    with a breaker (``EC_FAILOVER``) scores requests of 2048 traces on
@@ -288,8 +290,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``odigos_sidecar_client_errors_total`` and passed through; the times
    from injection to the first fallback group and from clearing to
    closing;
-21. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
-   ``{"kernels": [...]}`` line (K1 to K22), then the last line
+21. model axis — the transformer on the in-process model axis
+   (``LocalModelAxis``: every shard on the card, the partials added in
+   rank order): the served ``TransformerConfig()`` (bf16, full width) at
+   tp 2 and 4 and the f32 model at tp 2, ``score_packed`` on packed rows
+   at R 256 and 2048, held to the unsharded kernel path on the same
+   weights (``PLAIN_PATH_BOUND``, the share of bit-equal outputs; f32
+   within ``MA_F32_ATOL``), every launch counted at its count a call (K1
+   and K15's four products a shard, K15 by epilogue, K14, K2, K23 twice a
+   layer) with no plain version called; K23 bit-equal to its plain
+   version at every row count of both R, bf16 and f32, with and without
+   a residual, beside torch's eager chain; K15's ``"partial"`` against
+   its plain version on both routes at the tp-2 shard's out-projection
+   and FFN2 (K15's bound in bf16, ``MA_F32_PARTIAL_RTOL`` in f32), timed
+   beside K15 ``"residual"`` at the same shape; three tp-2 training steps
+   (f32, the trainer's width) against tp 1: step 0's gradients within
+   ``TRAIN_GRAD_RTOL`` and the losses within ``TRAJ_RTOL``;
+22. a ``{"phase_seconds": ...}`` line (each phase's wall time), a
+   ``{"kernels": [...]}`` line (K1 to K23), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 It needs the repository around it and a CUDA device: without either it
@@ -5411,12 +5429,23 @@ def phase_parallel_path(card: str) -> dict:
         span_s, trace_s = model.score_spans(*args[:3])
     check(torch.equal(span_s, span_p) and torch.equal(trace_s, trace_p),
           "dp scores differ from the single-device scores")
-    # the dp steps, the scoring, then the dry run's step and scoring (2
-    # layers); K22 once on {seq: 1} and once in the dry run
+    # the dp steps, the scoring, then the dry run's step and its engine's
+    # calls (2 layers, its mesh one device in a world of 1): the warm
+    # ladder's host rung and its fused calls (a span bucket each, up to
+    # the coalescing cap's; K8 keeps the final LayerNorm), then the
+    # request; K22 once on {seq: 1} and once in the dry run
+    from odigos_tpu_torch.serving import EngineConfig
+    from odigos_tpu_torch.serving.fused import _span_bucket
+
+    top = _span_bucket(EngineConfig().max_batch_spans)
+    fused_warm = sum(1 for k in range(32) if (512 << k) <= top)
+    fused_call = {"span_embed": 1, "segment_attention": 2, "ln_bf16": 4,
+                  "gemm_bf16": 8}
     want = {name: RING_DP_STEPS * _dp_step_launches(cfg.n_layers).get(name, 0)
             + _score_launches(cfg.n_layers).get(name, 0)
             + _dp_step_launches(2).get(name, 0)
-            + _score_launches(2).get(name, 0) for name in launches}
+            + 2 * _score_launches(2).get(name, 0)
+            + fused_warm * fused_call.get(name, 0) for name in launches}
     want["ring_block_attention"] = 2
     check(launches == want, f"parallel path launches {launches} != {want}")
     out_p = {"backend": backend, "mesh_keys": [mesh_key(seq_mesh),
@@ -5779,6 +5808,290 @@ def phase_engine_contract(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 21: the model axis
+MA_TP = (2, 4)                  # the served model's in-process model axes
+MA_F32_TP = 2
+MA_F32_ATOL = 1e-5              # f32 tp 2 vs the unsharded kernel path
+MA_TRAIN_STEPS = 3
+MA_F32_PARTIAL_RTOL = 1e-5      # K15 f32 "partial" vs plain: f32 sums in
+                                # another order, of the largest |output|
+TP_COUNTERS = (("segment_attention", "attention"), ("span_embed", "embed"),
+               ("ln_bf16", "dense", "ln_launches"),
+               ("gemm_bf16", "dense", "gemm_launches"),
+               ("tp_epilogue", "dense", "tp_epilogue_launches"))
+MA_PLAINS = (("dense", "gemm_bf16_plain"), ("dense", "ln_bf16_plain"),
+             ("dense", "tp_epilogue_plain"),
+             ("attention", "segment_attention_plain"),
+             ("embed", "span_embed_plain"))
+
+
+def _tp_launches(nl: int, tp: int) -> dict:
+    """``score_packed``'s launches on ``tp`` in-process shards of ``nl``
+    layers: K1 and the four K15 products a shard, K23 twice a layer."""
+    return {"span_embed": 1, "segment_attention": nl * tp,
+            "ln_bf16": 2 * nl + 1, "gemm_bf16": 4 * nl * tp,
+            "tp_epilogue": 2 * nl}
+
+
+def _tp_modes(nl: int, tp: int) -> dict:
+    """K15's launches by epilogue in the same call (the QKV product is one
+    ``"none"`` launch in planes)."""
+    return {"none": nl * tp, "residual": 0, "gelu_tanh": nl * tp,
+            "gelu_tanh_formula": 0, "partial": 2 * nl * tp}
+
+
+def _zero_tp() -> None:
+    from odigos_tpu_torch import kernels
+
+    _zero_counters()
+    kernels.dense.tp_epilogue_launches = 0
+    for k in kernels.dense.gemm_mode_launches:
+        kernels.dense.gemm_mode_launches[k] = 0
+
+
+def phase_model_axis(card: str) -> dict:
+    """The transformer on the in-process model axis (``LocalModelAxis``):
+    the served model at tp 2 and 4 against the unsharded kernel path, the
+    f32 model at tp 2, K23 and K15's ``"partial"`` against their plain
+    versions, three tp-2 training steps against tp 1."""
+    import numpy as np
+    import torch
+
+    from odigos_tpu_torch.kernels import dense
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+    from odigos_tpu_torch.models.jax_init import transformer_state
+    from odigos_tpu_torch.parallel import LocalModelAxis, unshard_state
+    from odigos_tpu_torch.training import labeled_sequences
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    out: dict = {"card": card}
+    rows = {R: _packed_rows(R) for R in R_SHAPES}
+    dev_args = {R: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in (pk.categorical, pk.continuous,
+                                   pk.segments, pk.positions))
+                for R, pk in rows.items()}
+
+    # (a, b) the served model (bf16) at tp 2 and 4, the f32 model at tp 2,
+    # each against the unsharded kernel path on the same weights
+    served: dict = {}
+    totals: dict = {}
+    cases = [(TransformerConfig(), tp) for tp in MA_TP] + [
+        (TransformerConfig(dtype=torch.float32), MA_F32_TP)]
+    wholes: dict = {}
+    for cfg, tp in cases:
+        key = str(cfg.dtype)[6:]
+        if key not in wholes:
+            wholes[key] = TraceTransformer(cfg, device="cuda", seed=0)
+        whole = wholes[key]
+        m = TraceTransformer(cfg, device="cuda", seed=0,
+                             model_axis=LocalModelAxis(tp))
+        nl = cfg.n_layers
+        for R in R_SHAPES:
+            a = dev_args[R]
+            ref = whole.score_packed(*a)
+            _zero_tp()
+            with _PlainCalls(MA_PLAINS) as plain:
+                p = m.score_packed(*a)
+                torch.cuda.synchronize()
+            launches = _read_counters(TP_COUNTERS)
+            modes = dict(dense.gemm_mode_launches)
+            check(plain.calls == {}, f"tp {tp} {key} R{R} called plain "
+                                     f"versions: {plain.calls}")
+            check(launches == _tp_launches(nl, tp),
+                  f"tp {tp} {key} R{R} launches {launches} != "
+                  f"{_tp_launches(nl, tp)}")
+            check(modes == _tp_modes(nl, tp),
+                  f"tp {tp} {key} R{R} K15 modes {modes}")
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            live = a[2] > 0
+            check(bool(torch.isfinite(p[live]).all()),
+                  f"tp {tp} {key} R{R}: non-finite scores")
+            diff = (p - ref).abs()[live]
+            lim = PLAIN_PATH_BOUND if key == "bfloat16" else MA_F32_ATOL
+            check(diff.max().item() <= lim,
+                  f"tp {tp} {key} R{R}: max |tp - unsharded| "
+                  f"{diff.max().item()} > {lim}")
+            served[f"{key}_tp{tp}_R{R}"] = {
+                "max_abs_diff": diff.max().item(), "bound": lim,
+                "bit_equal_share": (diff == 0).float().mean().item(),
+                "launches_per_call": launches, "k15_modes": modes,
+                "device_ms": device_ms(lambda: m.score_packed(*a), flush,
+                                       reps=10),
+                "unsharded_device_ms": device_ms(
+                    lambda: whole.score_packed(*a), flush, reps=10)}
+        del m
+    out["served"] = served
+    out["launches"] = totals
+
+    # (c) K23 against its plain version at every row count of both R
+    # shapes (M = R x 64 rows of d 256), bf16 and f32, with and without
+    # a residual: bit for bit
+    g = torch.Generator(device=dev).manual_seed(5)
+    k23: dict = {}
+    N = TransformerConfig().d_model
+    for R in R_SHAPES:
+        M = R * 64
+        acc = torch.randn(M, N, generator=g, device=dev) * 4
+        for dt in (torch.bfloat16, torch.float32):
+            b = torch.randn(N, generator=g, device=dev).to(dt)
+            res = torch.randn(M, N, generator=g, device=dev).to(dt)
+            for with_res in (True, False):
+                r_ = res if with_res else None
+                got = dense.tp_epilogue(acc, b, r_)
+                ref = dense.tp_epilogue_plain(acc, b, r_)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref),
+                      f"tp_epilogue R{R} {dt} res={with_res}: not "
+                      f"bit-equal to its plain version")
+                esz = torch.tensor([], dtype=dt).element_size()
+                nbytes = M * N * (4 + esz * (2 if with_res else 1)) \
+                    + N * esz
+                bms, by = bound(nbytes, 2 * M * N, 67e12)
+
+                def lib(acc=acc, b=b, r_=r_, dt=dt):
+                    y = torch.add(acc.to(dt), b)
+                    return y if r_ is None else torch.add(r_, y)
+
+                t = timings(lambda: dense.tp_epilogue(acc, b, r_),
+                            lambda: dense.tp_epilogue_plain(acc, b, r_),
+                            lib, flush)
+                k23[f"R{R}_{str(dt)[6:]}_{'res' if with_res else 'none'}"] = {
+                    **t, "max_abs_diff": 0.0, "bound": 0.0, "M": M, "N": N,
+                    "bound_ms": bms, "bound_by": by,
+                    "library": "torch.add(res, torch.add(acc.to(dt), b))",
+                    **_ratios({**t, "bound_ms": bms})}
+    out["k23"] = k23
+
+    # (d) K15 "partial" against gemm_bf16_plain's, both routes, at the
+    # tp-2 shard's out-projection (K = d / 2) and FFN2 (K = d_ff / 2);
+    # beside K15 "residual" at the same shape
+    partial: dict = {}
+    cfg = TransformerConfig()
+    for R in R_SHAPES:
+        M = R * 64
+        for name, K in (("out", cfg.d_model // 2), ("ffn2", cfg.d_ff // 2)):
+            for dt in (torch.bfloat16, torch.float32):
+                x = (torch.randn(M, K, generator=g, device=dev)).to(dt)
+                w = (torch.randn(N, K, generator=g, device=dev)
+                     / math.sqrt(K)).to(dt)
+                b = torch.randn(N, generator=g, device=dev).to(dt)
+                res = torch.randn(M, N, generator=g, device=dev).to(dt)
+                got = dense.gemm_bf16(x, w, None, "partial")
+                ref = dense.gemm_bf16_plain(x, w, None, "partial")
+                torch.cuda.synchronize()
+                check(got.dtype == torch.float32, "partial is not f32")
+                if dt == torch.bfloat16:
+                    lim = gemm_bound(x, w, ref, "none")
+                    diff, n_diff = _gemm_diff(got, ref, lim,
+                                              f"gemm_bf16 partial {name} "
+                                              f"R{R}")
+                else:
+                    diff, lim = _rel_check(got, ref, MA_F32_PARTIAL_RTOL,
+                                           f"gemm_f32 partial {name} R{R}")
+                    n_diff = int((got != ref).sum().item())
+                esz = x.element_size()
+                bms, by = bound(M * K * esz + N * K * esz + M * N * 4,
+                                2 * M * N * K,
+                                989e12 if dt == torch.bfloat16 else 67e12)
+
+                def lib(x=x, w=w, dt=dt):
+                    if dt == torch.float32:
+                        return torch.mm(x, w.t())
+                    return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+                try:
+                    lib()
+                    library = lib
+                except (RuntimeError, TypeError):
+                    library = None  # no one call in this PyTorch
+                t = timings(lambda: dense.gemm_bf16(x, w, None, "partial"),
+                            lambda: dense.gemm_bf16_plain(x, w, None,
+                                                          "partial"),
+                            library, flush)
+                t_res = device_ms(lambda: dense.gemm_bf16(
+                    x, w, b, "residual", res), flush)
+                partial[f"{name}_R{R}_{str(dt)[6:]}"] = {
+                    **t, "max_abs_diff": diff, "bound": lim,
+                    "differing": n_diff, "M": M, "N": N, "K": K,
+                    "bound_ms": bms, "bound_by": by,
+                    "residual_device_ms": t_res,
+                    "library": None if library is None else (
+                        "torch.mm(x, w.t()" + (")" if dt == torch.float32
+                                               else ", out_dtype=f32)")),
+                    **_ratios({**t, "bound_ms": bms})}
+    out["k15_partial"] = partial
+
+    # (e) three tp-2 training steps on the in-process axis at the
+    # trainer's width (f32) against tp 1 from the same weights
+    tcfg = TransformerConfig(max_len=TRAIN_LEN, dtype=torch.float32)
+    data = labeled_sequences(TRAIN_TRACES, max_len=TRAIN_LEN, seed=0,
+                             pad_traces_to=TRAIN_TRACES)
+    targs = (data.categorical, data.continuous, data.mask, data.span_labels,
+             data.trace_labels)
+    state = transformer_state(tcfg, 0)
+    runs = {}
+    for tp in (1, 2):
+        m = TraceTransformer(tcfg, device="cuda",
+                             model_axis=None if tp == 1
+                             else LocalModelAxis(tp))
+        m.load_state_dict(state)
+        opt = torch.optim.AdamW(m.parameters(), lr=3e-3, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4)
+        losses, grads0 = [], None
+        _zero_tp()
+        with _PlainCalls(BWD_PLAINS + MA_PLAINS) as plain:
+            for i in range(MA_TRAIN_STEPS):
+                m.train()
+                opt.zero_grad(set_to_none=True)
+                loss = m.loss_fn(*targs)
+                loss.backward()
+                if i == 0:
+                    shards = [{n: (p.grad if p.grad is not None
+                                   else torch.zeros_like(p)).detach().clone()
+                               for n, p in sm.named_parameters()}
+                              for sm in m.shards]
+                    grads0 = shards[0] if tp == 1 else unshard_state(
+                        shards, {"model": tp}, tcfg)
+                opt.step()
+                losses.append(float(loss.detach()))
+            m.train(False)
+            torch.cuda.synchronize()
+        check(plain.calls == {}, f"tp {tp} training called plain versions: "
+                                 f"{plain.calls}")
+        runs[tp] = {"losses": losses, "grads0": grads0,
+                    "launches": {**_read_counters(
+                        TP_COUNTERS + BWD_COUNTERS)}}
+    top = max(v.abs().max().item() for v in runs[1]["grads0"].values())
+    worst = 0.0
+    for n, ref in runs[1]["grads0"].items():
+        lim = TRAIN_GRAD_RTOL * ref.abs().max().item() + TRAIN_GRAD_FLOOR * top
+        diff = (runs[2]["grads0"][n] - ref).abs().max().item()
+        check(diff <= lim, f"tp 2 step 0 gradient {n}: max |tp2 - tp1| "
+                           f"{diff} > {lim}")
+        worst = max(worst, diff / lim)
+    for a, b in zip(runs[2]["losses"], runs[1]["losses"]):
+        check(abs(a - b) <= TRAJ_RTOL * abs(b),
+              f"tp 2 losses {runs[2]['losses']} vs tp 1 {runs[1]['losses']}")
+    nl = tcfg.n_layers
+    tl = runs[2]["launches"]
+    check(tl["tp_epilogue"] == 2 * nl * MA_TRAIN_STEPS
+          and tl["gemm_bf16"] == 4 * nl * 2 * MA_TRAIN_STEPS
+          and all(v > 0 for v in tl.values()),
+          f"tp 2 training launches {tl}")
+    out["train"] = {"losses_tp1": runs[1]["losses"],
+                    "losses_tp2": runs[2]["losses"],
+                    "grad_worst_ratio_to_bound": worst,
+                    "launches_tp2": tl, "launches_tp1": runs[1]["launches"]}
+    emit({"phase": "model_axis", **out})
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -5818,6 +6131,7 @@ def main() -> int:
     ring_kern = timed(phase_ring_kernels, card)
     parallel = timed(phase_parallel_path, card)
     timed(phase_engine_contract, card)
+    model_axis = timed(phase_model_axis, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
@@ -5842,7 +6156,8 @@ def main() -> int:
                "gelu_tanh_bwd": src + "gelu_bwd.cu",
                "recon_ce_bwd": src + "recon_ce_bwd.cu",
                "ln_masked_pool_bwd": src + "ae_pool_bwd.cu",
-               "ring_block_attention": src + "ring_attention.cu"}
+               "ring_block_attention": src + "ring_attention.cu",
+               "tp_epilogue": src + "dense.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -5866,7 +6181,11 @@ def main() -> int:
                 "recon_ce_bwd": "odigos_tpu/training/trainer.py:171",
                 "ln_masked_pool_bwd": "odigos_tpu/training/trainer.py:171",
                 "ring_block_attention":
-                    "odigos_tpu/parallel/ring_attention.py:41"}
+                    "odigos_tpu/parallel/ring_attention.py:41",
+                # XLA's psum of the row-parallel out-projection (and
+                # Dense_1), its bias and the residual add under the
+                # "model" axis (odigos_tpu/parallel/sharding.py:97-106)
+                "tp_epilogue": "odigos_tpu/models/layers.py:76"}
     designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
                                     "persistent 2-stage; past them 64-key "
                                     "tiles, online softmax (mma.sync bf16, "
@@ -6089,7 +6408,15 @@ def main() -> int:
                                        "registers and, keys permuted, as "
                                        "P.V's A fragments; masked weights "
                                        "zeroed, the division on the ring's "
-                                       "last step"}
+                                       "last step",
+               "tp_epilogue": "one pass over (M, N), grid-stride on the "
+                              "CTAs the SMs hold: 8 bf16 (4 f32) outputs a "
+                              "thread a step, the all-reduced f32 partials "
+                              "as two float4, bias, residual and output as "
+                              "16-byte vectors; K15's pair arithmetic "
+                              "(round(res + round(round(acc) + b)) by "
+                              "bf16x2 adds; f32 __fadd_rn), so at tp 1 "
+                              "its bits are K15's"}
     # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
     # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
@@ -6360,6 +6687,23 @@ def main() -> int:
             ln_["train_f32_forward"] = mine
         if ln_["name"] == "gemm_bf16":
             ln_["f32_source"] = src + "gemm_f32.cu"
+    # K23 on the model axis (phase_model_axis): its numbers at R 2048,
+    # bf16 with the residual; launches over the phase's scoring calls.
+    # K15's "partial" rows ride in K15's line.
+    launches["tp_epilogue"] = model_axis["launches"]["tp_epilogue"]
+    head = model_axis["k23"][f"R{R}_bfloat16_res"]
+    lines.append(line("tp_epilogue", head, {
+        "shape": [head["M"], head["N"]], "library": head["library"],
+        "ratio_to_bound": head["ratio_to_bound"],
+        "ratio_to_library": head["ratio_to_library"],
+        "launches_per_call": {k: v["launches_per_call"]["tp_epilogue"]
+                              for k, v in model_axis["served"].items()},
+        **{k: v for k, v in model_axis["k23"].items()
+           if k != f"R{R}_bfloat16_res"}}))
+    for ln_ in lines:
+        if ln_["name"] == "gemm_bf16":
+            ln_["partial"] = model_axis["k15_partial"]
+            ln_["model_axis_launches"] = model_axis["launches"]["gemm_bf16"]
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,11 @@ hand-written kernel too:
   FFN1's: there K19 ``gelu_tanh_bwd`` gives ``dPre`` and the bias
   gradient in one pass. Several weights (q, k and v) are one launch over
   their concatenation, their gradients split back into the parts;
+* :func:`tp_epilogue` — a tensor-parallel block's row-parallel product:
+  forward K23 on the all-reduced ``"partial"`` products (K15 writes each
+  shard's through :func:`dense`, whose backward products are the same),
+  backward the identity to the partials and the residual and the bias
+  gradient as a column sum;
 * :func:`attention` — forward K1 ``segment_attention`` with its
   log-sum-exp, backward K16 ``segment_attention_bwd``, on the fused QKV
   product's three planes;
@@ -84,10 +89,11 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 class _Dense(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, residual, epilogue, planes, reference, *params):
-        n = len(params) // 2
+        # "partial" takes no bias: its params are the weights alone
+        n = len(params) if epilogue == "partial" else len(params) // 2
         ws, bs = params[:n], params[n:]
         w = ws[0] if n == 1 else torch.cat(ws)
-        b = bs[0] if n == 1 else torch.cat(bs)
+        b = None if not bs else bs[0] if n == 1 else torch.cat(bs)
         gemm = _dense.gemm_bf16_plain if reference else _dense.gemm_bf16
         pre = torch.empty((x.shape[0], w.shape[0]), dtype=x.dtype,
                           device=x.device) \
@@ -109,7 +115,7 @@ class _Dense(torch.autograd.Function):
             bwd = (_dense.gelu_tanh_bwd_plain if ctx.reference
                    else _dense.gelu_tanh_bwd)
             dy, db = bwd(dy.contiguous(), pre)
-        elif planes == 1:
+        elif planes == 1 and ctx.epilogue != "partial":
             db = dy.sum(0)
         if planes == 1:
             dy = dy.contiguous()
@@ -126,8 +132,9 @@ class _Dense(torch.autograd.Function):
                 torch.mm(dy[p].t(), x, out=dw[p * pc:(p + 1) * pc])
                 torch.sum(dy[p], 0, out=db[p * pc:(p + 1) * pc])
         dres = dy if ctx.epilogue == "residual" else None
-        return (dx, dres, None, None, None,
-                *torch.split(dw, ctx.sizes), *torch.split(db, ctx.sizes))
+        dbs = () if ctx.epilogue == "partial" else torch.split(db, ctx.sizes)
+        return (dx, dres, None, None, None, *torch.split(dw, ctx.sizes),
+                *dbs)
 
 
 def dense(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -136,10 +143,33 @@ def dense(x: torch.Tensor, weights: Sequence[torch.Tensor],
           reference: bool = False) -> torch.Tensor:
     """K15's ``epilogue(x . W^T + b)`` over ``W = [weights]`` stacked (one
     launch; ``planes`` as K15 splits its output), with the backward
-    products, the bias sums and (FFN1) K19 behind it."""
+    products, the bias sums and (FFN1) K19 behind it. ``"partial"``: no
+    biases, the f32 product."""
     _trainable(x, "dense")
     return _Dense.apply(x.contiguous(), residual, epilogue, planes,
                         reference, *weights, *biases)
+
+
+class _TpEpilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, b, residual, reference):
+        epi = _dense.tp_epilogue_plain if reference else _dense.tp_epilogue
+        ctx.res = residual is not None
+        return epi(acc, b, residual)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, dy.sum(0), dy if ctx.res else None, None
+
+
+def tp_epilogue(acc: torch.Tensor, b: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                reference: bool = False) -> torch.Tensor:
+    """K23 on the all-reduced partials, the bias and the residual (the
+    trainer's type: f32, where every rounding is the identity, so the
+    gradient passes to ``acc`` and the residual unchanged)."""
+    _trainable(acc, "tp_epilogue")
+    return _TpEpilogue.apply(acc.contiguous(), b, residual, reference)
 
 
 # -------------------------------------------------------------- attention

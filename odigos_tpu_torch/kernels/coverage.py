@@ -42,13 +42,23 @@ MAX_HEAD_DIM = 256
 RING_MAX_HEAD_DIM = 256
 
 
-def check(cfg: Any) -> None:
+def check(cfg: Any, tp: int = 1) -> None:
     """Raise ``ValueError`` naming the first limit ``cfg`` (a
     ``TransformerConfig`` or ``AutoencoderConfig``: ``d_model``,
     ``n_heads``, ``d_ff``, ``max_len``) breaks on the card route, float or
-    int8 (K9 and K10 take the float kernels' limits)."""
+    int8 (K9 and K10 take the float kernels' limits). ``tp``: a shard of
+    a ``"model"`` axis of that size, whose local widths (``d_model /
+    tp`` of attention where the heads divide, ``d_ff / tp`` where d_ff
+    does) are the K of its row-parallel products: multiples of 16."""
     what = "the card route"
     d, h, ff, L = cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.max_len
+    if tp > 1 and h > 0:
+        width = d // tp if h % tp == 0 else d
+        local = ff // tp if ff % tp == 0 else ff
+        if width % ALIGN or local % ALIGN:
+            raise ValueError(f"{what} on a model axis of {tp} takes local "
+                             f"widths a multiple of {ALIGN}, not attention "
+                             f"{width} / FFN {local}")
     if d % ALIGN or d <= 0 or d > MAX_D_MODEL:
         raise ValueError(f"{what} takes d_model a multiple of {ALIGN} up to "
                          f"{MAX_D_MODEL}, not {d}")

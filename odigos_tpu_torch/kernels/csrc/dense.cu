@@ -35,6 +35,8 @@
 //   mode 0 "none"      round(round(acc) + b)                (q, k, v)
 //   mode 1 "residual"  round(res + round(round(acc) + b))   (out, FFN2)
 //   mode 2 "gelu_tanh" round(gelu(round(round(acc) + b)))  (FFN1)
+//   mode 4 "partial"   acc, in f32, no bias  (a row-parallel product's
+//                      share on one rank of the "model" axis: out, FFN2)
 // with gelu the tanh form of jax.nn.gelu in f32 (K10's gelu_tanh, IEEE
 // steps, tanhf) and the adds bf16x2 adds (correctly rounded, equal to the
 // plain version's f32 add then round). The output is written in `planes`
@@ -74,6 +76,21 @@
 // for 51.5 GFLOP (0.052 ms at 989 TFLOP/s); FFN1 (N 1024) 67 + 268 MB
 // (0.100 ms); FFN2 (K 1024, + residual) 268 + 67 + 67 MB (0.120 ms).
 // Measured times are in PERF.md.
+//
+// Mode 4 writes the warpgroup's accumulators straight from registers as
+// 8-byte f32 pairs (a quad of lanes covers 32 contiguous bytes of a row):
+// no rounding, no bias, no staging. Its sum over the ranks of the
+// "model" axis is all-reduced in f32, then K23 rounds it.
+//
+// K23 tp_epilogue: Flax's rounding chain on the all-reduced partials of a
+// row-parallel product, out = round(res + round(round(acc) + b)) (or
+// round(round(acc) + b) without a residual) in the working type, with
+// K15's own pair arithmetic (epi_bf16x2 modes 1 and 0; f32: __fadd_rn),
+// so that at tp = 1 K23 of a whole "partial" product gives K15's bits.
+// One pass over (M, N): a thread takes 8 bf16 (or 4 f32) outputs a step,
+// every load and store a 16-byte vector, grid-stride. Bound: bytes. At
+// the served R 2048, L 64, d 256 (bf16): 134 MB of partials, 33.5 MB of
+// residual read and 33.5 MB written: 0.060 ms at 3.35 TB/s.
 //
 // The TMA descriptors are encoded on the host for every launch with the
 // driver's cuTensorMapEncodeTiled, fetched through the runtime's
@@ -335,13 +352,13 @@ template <int MODE, bool WS>
 struct TcCfg {
   static constexpr bool kHalf = !(WS && MODE == 1);
   static constexpr int kStages =
-      WS ? (MODE == 0 ? 4 : 3) : (MODE < 2 ? 3 : 2);
+      WS ? (MODE == 0 || MODE == 4 ? 4 : 3) : (MODE < 2 || MODE == 4 ? 3 : 2);
   static constexpr int kStageBytes = WS ? kTileA : kTileA + kTileB;
   static constexpr int kBoxRows = kHalf ? BM / 2 : BM;
   static constexpr int kBoxBytes = kBoxRows * 64 * 2;  // rows x 64 columns
   static constexpr int kWgBytes = kStages * kStageBytes + 2 * kBoxBytes;
   static constexpr int kMain = (WS ? kWsSlice : 0) + kConsumerWgs * kWgBytes;
-  static constexpr int kTab = MODE >= 2 ? kGeluEntries * 2 : 0;
+  static constexpr int kTab = MODE == 2 || MODE == 3 ? kGeluEntries * 2 : 0;
   static constexpr int kSmem = 1024 + kMain + kTab + kConsumerWgs * BN * 2;
   static_assert(kStages <= kMaxStages, "barrier arrays");
   static_assert(kSmem + 256 <= 232448, "over the 227 KB a block may use");
@@ -455,6 +472,30 @@ __device__ __forceinline__ void epilogue_rows(
   }
 }
 
+// Mode 4: one warpgroup's 64 rows x 128 columns of f32 accumulators
+// stored as they are, each thread's column pairs as 8-byte stores (rows
+// past M and columns past N skipped; N % 8 == 0, so a pair is in or out).
+__device__ __forceinline__ void store_partial(const float (&acc)[64],
+                                              long long row0, int n0,
+                                              long long M, int N,
+                                              float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long rw = row0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long r = rw + 8 * h;
+    if (r >= M) continue;
+    float* row = out + r * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (lane & 3);
+      if (c < N)
+        *reinterpret_cast<float2*>(row + c) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // Persistent; each CTA's tiles alternate between its two consumer
 // warpgroups (ping-pong: one warpgroup's epilogue overlaps the other's
 // products). Each warpgroup has its own ring of stages, filled by its own
@@ -486,7 +527,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
     const __grid_constant__ CUtensorMap map_res,
     const __nv_bfloat16* __restrict__ bias, long long M, int N, int K,
     int plane_cols, int n_tiles, long long m_tiles,
-    const int* __restrict__ live, int per) {
+    const int* __restrict__ live, int per, float* __restrict__ out_f32) {
   using C = TcCfg<MODE, WS>;
   constexpr int S = C::kStages;
   constexpr int kStageBytes = C::kStageBytes;
@@ -608,6 +649,11 @@ __global__ void __launch_bounds__(kTcThreads, 1) gemm_tc_kernel(
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[(it - 1) % S]);
+    if constexpr (MODE == 4) {  // the shard's partial product, unrounded
+      store_partial(acc0, m0, n0, M, N, out_f32);
+      store_partial(acc1, m0 + 64, n0, M, N, out_f32);
+      continue;
+    }
 
     // the staging buffer is free once the last store has read it
     if (MODE != 1 && leader)
@@ -664,6 +710,7 @@ struct TcArgs {
   int N, K, pc, sms;
   const int* live;
   int per;
+  float* out_f32;  // mode 4's output
 };
 
 template <int MODE, bool WS>
@@ -686,7 +733,7 @@ cudaError_t launch_tc_mode(const TcArgs& a, cudaStream_t st) {
   gemm_tc_kernel<MODE, WS><<<(unsigned)grid, kTcThreads, C::kSmem, st>>>(
       a.mx, a.mw, C::kHalf ? a.mo_half : a.mo, C::kHalf ? a.mr_half : a.mr,
       a.b, a.M, a.N, a.K,
-      a.pc, n_tiles, m_tiles, a.live, a.per);
+      a.pc, n_tiles, m_tiles, a.live, a.per, a.out_f32);
   return cudaGetLastError();
 }
 
@@ -696,7 +743,8 @@ cudaError_t launch_tc_walk(int mode, const TcArgs& a, cudaStream_t st) {
     case 0: return launch_tc_mode<0, WS>(a, st);
     case 1: return launch_tc_mode<1, WS>(a, st);
     case 2: return launch_tc_mode<2, WS>(a, st);
-    default: return launch_tc_mode<3, WS>(a, st);
+    case 3: return launch_tc_mode<3, WS>(a, st);
+    default: return launch_tc_mode<4, WS>(a, st);
   }
 }
 
@@ -706,6 +754,7 @@ cudaError_t launch_tc(int mode, const void* x, const void* w, const void* b,
   TcArgs a;
   a.live = live;
   a.per = per;
+  a.out_f32 = mode == 4 ? static_cast<float*>(out) : nullptr;
   a.pc = N / planes;
   if (planes > 1 && a.pc % 64 != 0) return cudaErrorInvalidValue;
   int dev = 0;
@@ -738,6 +787,101 @@ cudaError_t launch_tc(int mode, const void* x, const void* w, const void* b,
   return launch_tc_walk<false>(mode, a, st);
 }
 
+// ------------------------------------------------------------------- K23
+constexpr int kEpiThreads = 256;
+
+// bf16: 8 outputs a step (two float4 of acc, a 16-byte vector each of b,
+// the residual and the output); N % 8 == 0, so a step lies in one row
+template <bool RES>
+__global__ void __launch_bounds__(kEpiThreads) tp_epilogue_bf16_kernel(
+    const float* __restrict__ acc, const __nv_bfloat16* __restrict__ b,
+    const __nv_bfloat16* __restrict__ res, __nv_bfloat16* __restrict__ out,
+    long long steps, int N) {
+  const int steps_row = N / 8;
+  for (long long i = blockIdx.x * (long long)kEpiThreads + threadIdx.x;
+       i < steps; i += (long long)gridDim.x * kEpiThreads) {
+    const long long e = i * 8;
+    const int c = (int)(i % steps_row) * 8;
+    const float4 a0 = __ldg(reinterpret_cast<const float4*>(acc + e));
+    const float4 a1 = __ldg(reinterpret_cast<const float4*>(acc + e + 4));
+    const uint4 bv = __ldg(reinterpret_cast<const uint4*>(b + c));
+    uint4 rv = make_uint4(0, 0, 0, 0);
+    if constexpr (RES) rv = __ldg(reinterpret_cast<const uint4*>(res + e));
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&bv);
+    const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv);
+    uint4 ov;
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      o2[p] = epi_bf16x2<RES ? 1 : 0>(a[2 * p], a[2 * p + 1], b2[p], r2[p]);
+    *reinterpret_cast<uint4*>(out + e) = ov;
+  }
+}
+
+// f32: 4 outputs a step, res + (acc + b) as K15's f32 route adds them
+template <bool RES>
+__global__ void __launch_bounds__(kEpiThreads) tp_epilogue_f32_kernel(
+    const float* __restrict__ acc, const float* __restrict__ b,
+    const float* __restrict__ res, float* __restrict__ out, long long steps,
+    int N) {
+  const int steps_row = N / 4;
+  for (long long i = blockIdx.x * (long long)kEpiThreads + threadIdx.x;
+       i < steps; i += (long long)gridDim.x * kEpiThreads) {
+    const long long e = i * 4;
+    const int c = (int)(i % steps_row) * 4;
+    const float4 a = __ldg(reinterpret_cast<const float4*>(acc + e));
+    const float4 bv = __ldg(reinterpret_cast<const float4*>(b + c));
+    float4 y = make_float4(__fadd_rn(a.x, bv.x), __fadd_rn(a.y, bv.y),
+                           __fadd_rn(a.z, bv.z), __fadd_rn(a.w, bv.w));
+    if constexpr (RES) {
+      const float4 r = __ldg(reinterpret_cast<const float4*>(res + e));
+      y = make_float4(__fadd_rn(r.x, y.x), __fadd_rn(r.y, y.y),
+                      __fadd_rn(r.z, y.z), __fadd_rn(r.w, y.w));
+    }
+    *reinterpret_cast<float4*>(out + e) = y;
+  }
+}
+
+// The grid: as many CTAs as the SMs hold at once, fewer for small calls
+template <typename K>
+cudaError_t epi_grid(K kernel, int (&cache)[kMaxDevices], long long steps,
+                     int* grid) {
+  cudaError_t e = persistent_grid(kernel, kEpiThreads, cache, grid);
+  if (e != cudaSuccess) return e;
+  const long long need = (steps + kEpiThreads - 1) / kEpiThreads;
+  if (need < *grid) *grid = (int)(need > 0 ? need : 1);
+  return cudaSuccess;
+}
+
+template <bool RES>
+cudaError_t tp_epilogue_t(int dtype, const void* acc, const void* b,
+                          const void* res, void* out, long long M, int N,
+                          cudaStream_t st) {
+  int grid = 0;
+  cudaError_t e;
+  const float* a = static_cast<const float*>(acc);
+  if (dtype == 1) {
+    static int cache[kMaxDevices];
+    const long long steps = M * (N / 8);
+    e = epi_grid(tp_epilogue_bf16_kernel<RES>, cache, steps, &grid);
+    if (e != cudaSuccess) return e;
+    tp_epilogue_bf16_kernel<RES><<<grid, kEpiThreads, 0, st>>>(
+        a, static_cast<const __nv_bfloat16*>(b),
+        static_cast<const __nv_bfloat16*>(res),
+        static_cast<__nv_bfloat16*>(out), steps, N);
+  } else {
+    static int cache[kMaxDevices];
+    const long long steps = M * (N / 4);
+    e = epi_grid(tp_epilogue_f32_kernel<RES>, cache, steps, &grid);
+    if (e != cudaSuccess) return e;
+    tp_epilogue_f32_kernel<RES><<<grid, kEpiThreads, 0, st>>>(
+        a, static_cast<const float*>(b), static_cast<const float*>(res),
+        static_cast<float*>(out), steps, N);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K14. x: (rows, d) bf16 (dtype 1) or f32 (dtype 0), 16-byte aligned;
@@ -765,7 +909,8 @@ extern "C" int ln_bf16_launch(const void* x, int dtype, const void* gamma,
 }
 
 // K15, bf16. mode 0 none, 1 residual, 2 gelu_tanh, 3 gelu_tanh by the
-// formula per output (the same results as 2). x: (M, K), w: (N, K), both
+// formula per output (the same results as 2), 4 partial (out: (M, N) f32,
+// the accumulators unrounded; b null, planes 1, no row count). x: (M, K), w: (N, K), both
 // 16-byte aligned with K % 16 == 0; b: (N,), 4-byte aligned; res: (M, N)
 // for mode 1, else null; out: (planes, M, N / planes), 16-byte aligned;
 // N % 8 == 0 and (N / planes) % 8 == 0 (with planes > 1: % 64 == 0),
@@ -777,12 +922,28 @@ extern "C" int gemm_bf16_launch(const void* x, const void* w, const void* b,
                                 long long M, int N, int K, int planes,
                                 const void* live, int per, void* stream) {
   if (M < 0 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 || planes < 1 ||
-      N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 3 ||
+      N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 4 ||
       (mode == 1) != (res != nullptr) || (mode == 1 && planes != 1) ||
-      per < 1)
+      per < 1 || (mode != 4) != (b != nullptr) ||
+      (mode == 4 && (planes != 1 || live != nullptr)))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   return (int)launch_tc(mode, x, w, b, res, out, M, N, K, planes,
                         static_cast<const int*>(live), per,
                         static_cast<cudaStream_t>(stream));
+}
+
+// K23. acc: (M, N) f32; b: (N,) and res (nullable): (M, N) in the working
+// type (dtype 1 bf16, 0 f32); out: (M, N) in it; every pointer 16-byte
+// aligned, N % 8 == 0.
+extern "C" int tp_epilogue_launch(const void* acc, const void* b,
+                                  const void* res, void* out, int dtype,
+                                  long long M, int N, void* stream) {
+  if (M < 0 || N < 8 || N % 8 != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(res != nullptr
+                   ? tp_epilogue_t<true>(dtype, acc, b, res, out, M, N, st)
+                   : tp_epilogue_t<false>(dtype, acc, b, res, out, M, N, st));
 }

@@ -11,6 +11,8 @@
 //   mode 0 none       acc + b
 //   mode 1 residual   res + (acc + b)
 //   mode 2/3 gelu     gelu_tanh(acc + b), acc + b also into `pre` if given
+//   mode 4 partial    acc (no bias: a row-parallel product's share on one
+//                     rank of the "model" axis, finished by K23)
 // in `planes` contiguous planes of N / planes columns (the fused QKV).
 //
 // The bits: each output is one fmaf chain over k = 0 .. K - 1 in order,
@@ -210,8 +212,9 @@ __global__ void __launch_bounds__(kThreads, (min_ctas<TM, TN>())) gemm_f32_kerne
       float y[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        y[q] = __fadd_rn(acc[i][g * 4 + q], __ldg(bias + n + q));
-      if constexpr (MODE >= 2) {
+        y[q] = MODE == 4 ? acc[i][g * 4 + q]
+                         : __fadd_rn(acc[i][g * 4 + q], __ldg(bias + n + q));
+      if constexpr (MODE == 2 || MODE == 3) {
         if (pre != nullptr)  // planes == 1 here
           *reinterpret_cast<float4*>(pre + m * N + n) =
               make_float4(y[0], y[1], y[2], y[3]);
@@ -329,7 +332,7 @@ extern "C" int gemm_f32_tile(long long M, int N) {
 }
 
 // mode 0 none, 1 residual, 2 gelu_tanh, 3 the same GELU (the bf16 route's
-// formula mode). x: (M, K), w: (N, K), 16-byte aligned, K % 16 == 0; b:
+// formula mode), 4 partial (acc; b null, planes 1, no row count). x: (M, K), w: (N, K), 16-byte aligned, K % 16 == 0; b:
 // (N,), 4-byte aligned; res: (M, N) for mode 1, else null, 16-byte
 // aligned; out: (planes, M, N / planes), 16-byte aligned; N % 8 == 0, (N
 // / planes) % 8 == 0, planes == 1 for mode 1. live (nullable): a (1,)
@@ -343,9 +346,11 @@ extern "C" int gemm_f32_launch(const void* x, const void* w, const void* b,
                                const void* live, int per, void* pre,
                                void* stream) {
   if (M < 0 || N < 8 || N % 8 != 0 || K < 16 || K % 16 != 0 || planes < 1 ||
-      N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 3 ||
+      N % planes != 0 || (N / planes) % 8 != 0 || mode < 0 || mode > 4 ||
       (mode == 1) != (res != nullptr) || (mode == 1 && planes != 1) ||
-      per < 1 || (pre != nullptr && (mode < 2 || planes != 1)))
+      per < 1 || (pre != nullptr && (mode < 2 || mode > 3 || planes != 1)) ||
+      (mode != 4) != (b != nullptr) ||
+      (mode == 4 && (planes != 1 || live != nullptr)))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   int tile = 0;
@@ -365,6 +370,9 @@ extern "C" int gemm_f32_launch(const void* x, const void* w, const void* b,
                        nullptr, st);
   else if (mode == 1)
     e = launch_mode<1>(tile, xx, ww, bb, rr, oo, M, N, K, pc, lv, per,
+                       nullptr, st);
+  else if (mode == 4)
+    e = launch_mode<4>(tile, xx, ww, bb, rr, oo, M, N, K, pc, lv, per,
                        nullptr, st);
   else
     e = launch_mode<2>(tile, xx, ww, bb, rr, oo, M, N, K, pc, lv, per, pp,

@@ -40,7 +40,12 @@ two kernels here:
     (:func:`gelu_bf16_lookup_plain` is the lookup's plain twin); the
     formula runs elsewhere;
   - ``"gelu_tanh_formula"``: the same function with the formula evaluated
-    per output on the card (no table), kept to hold the table to it.
+    per output on the card (no table), kept to hold the table to it;
+  - ``"partial"``: ``acc`` itself, the ``(M, N)`` f32 accumulator,
+    unrounded, with no bias (``b`` is None), no residual and no row
+    count: a row-parallel product's share on one rank of the ``"model"``
+    axis (the out-projection and FFN2 of a tensor-parallel block), whose
+    sum over the axis K23 finishes.
 
   ``planes > 1`` splits the N columns into ``planes`` blocks returned as
   ``(planes, M, N / planes)``: the fused QKV product over ``[W_q; W_k;
@@ -50,6 +55,15 @@ two kernels here:
   hold no row below ``live[0] * per`` are neither read nor written, and
   the rest of the last one holds whatever the product of its inputs gives;
   the plain version writes NaN in every row at or past the count.
+
+* **K23** ``tp_epilogue(acc, b, residual)``: Flax's rounding chain on the
+  all-reduced partials, ``round(res + round(round(acc) + b))`` in ``b``'s
+  type, or ``round(round(acc) + b)`` without a residual: the arithmetic
+  of K15's ``"residual"`` and ``"none"`` modes, so at tp = 1 K23 on a
+  whole product's ``"partial"`` gives K15's bits. ``acc`` is f32, ``b``
+  and the residual f32 or bf16; one elementwise launch of 16-byte vectors
+  (``csrc/dense.cu``). Bound: bytes (acc, b, the residual read once, the
+  output written once).
 
 Both wrappers take an ``out`` buffer of their output's shape, type and
 device (contiguous, 16-byte aligned), else allocate one: rows the kernel
@@ -70,7 +84,8 @@ shape to cover the SMs), with
 ``planes > 1`` (each 64-column box of the output lies in one plane),
 contiguous operands and 16-byte aligned ``x``, ``w``, ``residual`` and
 output. A CPU tensor takes :func:`ln_bf16_plain` / :func:`gemm_bf16_plain`.
-``ln_launches`` and ``gemm_launches`` count the calls that launched.
+``ln_launches`` and ``gemm_launches`` count the calls that launched
+(``gemm_mode_launches`` by epilogue), ``tp_epilogue_launches`` K23's.
 
 On the card the plain product is f32 (TF32 off) rounded once, and the
 kernel's bf16 x bf16 products are exact in its f32 accumulators: the two
@@ -126,7 +141,7 @@ from .quant import layer_norm_plain
 LN_EPS = 1e-6
 MAX_LN_D = 1024  # the models' widest d_model (coverage.MAX_D_MODEL)
 EPILOGUES = {"none": 0, "residual": 1, "gelu_tanh": 2,
-             "gelu_tanh_formula": 3}
+             "gelu_tanh_formula": 3, "partial": 4}
 GELU_EPILOGUES = ("gelu_tanh", "gelu_tanh_formula")
 # the f32 route's tiles (csrc/gemm_f32.cu kTiles): 8 x 8, 8 x 4 and 4 x 4
 # outputs a thread of 128
@@ -141,6 +156,8 @@ GELU_K3 = float(np.float32(3) * np.float32(GELU_K))  # the kernel's 3 K
 
 ln_launches = 0
 gemm_launches = 0
+gemm_mode_launches = dict.fromkeys(EPILOGUES, 0)
+tp_epilogue_launches = 0
 ln_bwd_launches = 0
 gelu_bwd_launches = 0
 gelu_bwd_device_launches = 0
@@ -182,8 +199,8 @@ def _nan_past(y: torch.Tensor, live: Optional[torch.Tensor],
                                            device=y.device))
 
 
-def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    epilogue: str = "none",
+def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], epilogue: str = "none",
                     residual: Optional[torch.Tensor] = None,
                     planes: int = 1, live: Optional[torch.Tensor] = None,
                     per: int = 1,
@@ -191,10 +208,13 @@ def gemm_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """K15's plain version: the product in f32 rounded to the working type,
     the bias added and rounded, then the epilogue (module docstring); NaN
     in the rows at or past ``live[0] * per``. ``pre`` takes the GELU's
-    input (f64 inputs compute in f64: the gradient checks)."""
+    input (f64 inputs compute in f64: the gradient checks). ``"partial"``
+    returns the product in f32 (f64), unrounded."""
     _check_gemm(x, w, b, epilogue, residual, planes, live, per, pre)
     dt = x.dtype
     acc = torch.float64 if dt == torch.float64 else torch.float32
+    if epilogue == "partial":
+        return x.to(acc) @ w.to(acc).t()
     y = (x.to(acc) @ w.to(acc).t()).to(dt)
     y = (y.to(acc) + b.to(acc)).to(dt)
     if epilogue == "residual":
@@ -227,6 +247,23 @@ def gelu_bf16_lookup_plain(y: torch.Tensor) -> torch.Tensor:
                    | (b >> 15)]
     return torch.where(rare, gelu_tanh_plain(y.float()).to(torch.bfloat16),
                        looked)
+
+
+def tp_epilogue_plain(acc: torch.Tensor, b: torch.Tensor,
+                      residual: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """K23's plain version: ``round(res + round(round(acc) + b))`` in
+    ``b``'s type (without a residual ``round(round(acc) + b)``), every
+    step in f32 (f64 for f64 inputs), as :func:`gemm_bf16_plain` rounds
+    its ``"residual"`` and ``"none"`` modes."""
+    _check_tp_epilogue(acc, b, residual)
+    dt = b.dtype
+    f = torch.float64 if dt == torch.float64 else torch.float32
+    y = acc.to(dt)
+    y = (y.to(f) + b.to(f)).to(dt)
+    if residual is not None:
+        y = (residual.to(f) + y.to(f)).to(dt)
+    return y
 
 
 # ----------------------------------------------------------------- checks
@@ -262,8 +299,13 @@ def _check_gemm(x, w, b, epilogue, residual, planes, live=None,
         raise ValueError(f"x (M, K) and w (N, K) expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
     M, N = x.shape[0], w.shape[0]
-    if b.shape != (N,):
-        raise ValueError(f"b must be ({N},), got {tuple(b.shape)}")
+    if epilogue == "partial":
+        if b is not None or planes != 1 or live is not None:
+            raise ValueError("the 'partial' epilogue takes no bias, no "
+                             "planes and no row count")
+    elif b is None or b.shape != (N,):
+        raise ValueError(f"b must be ({N},), got "
+                         f"{None if b is None else tuple(b.shape)}")
     if (epilogue == "residual") != (residual is not None):
         raise ValueError("a residual is given exactly with the 'residual' "
                          "epilogue")
@@ -283,6 +325,20 @@ def _check_gemm(x, w, b, epilogue, residual, planes, live=None,
                             or not pre.is_contiguous()):
         raise ValueError(f"pre takes a GELU epilogue's input: a contiguous "
                          f"({M}, {N}) {x.dtype} buffer, planes 1")
+
+
+def _check_tp_epilogue(acc, b, residual) -> None:
+    if acc.dim() != 2 or b.shape != (acc.shape[1],):
+        raise ValueError(f"acc (M, N) and b (N,) expected, got "
+                         f"{tuple(acc.shape)} and {tuple(b.shape)}")
+    want = torch.float64 if b.dtype == torch.float64 else torch.float32
+    if acc.dtype != want:
+        raise TypeError(f"acc must be {want} for a {b.dtype} bias, not "
+                        f"{acc.dtype}")
+    if residual is not None and (residual.shape != acc.shape
+                                 or residual.dtype != b.dtype):
+        raise ValueError(f"residual must be {tuple(acc.shape)} {b.dtype}")
+    _same_device(acc, b, residual)
 
 
 def _card(dev: torch.device, what: str) -> None:
@@ -329,15 +385,17 @@ def f32_tile(M: int, N: int) -> tuple[int, int]:
 
 # ---------------------------------------------------------------- kernels
 def _out(out: Optional[torch.Tensor], shape, x: torch.Tensor,
-         what: str) -> torch.Tensor:
-    """The caller's output buffer, checked, or a new one."""
+         what: str, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The caller's output buffer, checked, or a new one (of ``dtype``,
+    else ``x``'s)."""
+    dtype = dtype or x.dtype
     if out is None:
-        return torch.empty(shape, dtype=x.dtype, device=x.device)
-    if (tuple(out.shape) != tuple(shape) or out.dtype != x.dtype
+        return torch.empty(shape, dtype=dtype, device=x.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
             or out.device != x.device or not out.is_contiguous()
             or out.data_ptr() % 16):
         raise ValueError(f"{what}: out must be a contiguous, 16-byte "
-                         f"aligned {x.dtype} buffer of shape {tuple(shape)} "
+                         f"aligned {dtype} buffer of shape {tuple(shape)} "
                          f"on {x.device}")
     return out
 
@@ -391,7 +449,7 @@ def ln_bf16(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
               epilogue: str = "none",
               residual: Optional[torch.Tensor] = None,
               planes: int = 1, live: Optional[torch.Tensor] = None,
@@ -401,14 +459,16 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     into ``out`` if given; with ``live``, the row tiles past ``live[0] *
     per`` are left unwritten (see the module docstring). ``pre`` (the f32
     route's GELU epilogues): an ``(M, N)`` buffer that takes the GELU's
-    input. Nothing is synchronised."""
+    input. ``"partial"``: the ``(M, N)`` f32 product, ``b`` None. Nothing
+    is synchronised."""
     global gemm_launches
     dev = x.device
+    odt = torch.float32 if epilogue == "partial" else None
     if dev.type == "cpu":
         y = gemm_bf16_plain(x, w, b, epilogue, residual, planes, live, per,
                             pre)
-        return y if out is None else _out(out, y.shape, x,
-                                          "gemm_bf16").copy_(y)
+        return y if out is None else _out(out, y.shape, x, "gemm_bf16",
+                                          y.dtype).copy_(y)
     _check_gemm(x, w, b, epilogue, residual, planes, live, per, pre)
     _card(dev, "gemm_bf16")
     if x.dtype not in _DTYPE_CODES:
@@ -421,21 +481,21 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"gemm_bf16 takes K % 16 == 0, N % 8 == 0 and, "
                          f"with planes, N / planes % 64 == 0; got K = {K}, "
                          f"N = {N}, planes = {planes}")
-    ts = (x, w, b) + (() if residual is None else (residual,))
+    ts = (x, w) + tuple(t for t in (b, residual) if t is not None)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("gemm_bf16 needs contiguous inputs")
     if any(t.data_ptr() % 16 for t in (x, w, residual) if t is not None):
         raise ValueError("gemm_bf16 needs x, w and the residual 16-byte "
                          "aligned")
-    if b.data_ptr() % 4:
+    if b is not None and b.data_ptr() % 4:
         raise ValueError("gemm_bf16 needs b 4-byte aligned")
     if pre is not None and pre.data_ptr() % 16:
         raise ValueError("gemm_bf16 needs pre 16-byte aligned")
     shape = (M, N) if planes == 1 else (planes, M, N // planes)
-    out = _out(out, shape, x, "gemm_bf16")
+    out = _out(out, shape, x, "gemm_bf16", odt)
     if M == 0:
         return out
-    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(),
+    ptrs = (x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             None if residual is None else residual.data_ptr(),
             out.data_ptr(), EPILOGUES[epilogue], M, N, K, planes,
             None if live is None else live.data_ptr(), per)
@@ -450,6 +510,56 @@ def gemm_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"gemm_bf16 launch failed: CUDA error {rc}")
     with _count_lock:
         gemm_launches += 1
+        gemm_mode_launches[epilogue] += 1
+    return out
+
+
+def tp_epilogue(acc: torch.Tensor, b: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K23: the all-reduced ``(M, N)`` f32 partials through Flax's
+    rounding chain (module docstring), in ``b``'s type, into ``out`` if
+    given. A CUDA tensor launches the kernel or raises. Nothing is
+    synchronised."""
+    global tp_epilogue_launches
+    dev = acc.device
+    if dev.type == "cpu":
+        y = tp_epilogue_plain(acc, b, residual)
+        return y if out is None else _out(out, y.shape, b, "tp_epilogue",
+                                          y.dtype).copy_(y)
+    _check_tp_epilogue(acc, b, residual)
+    _card(dev, "tp_epilogue")
+    if b.dtype not in _DTYPE_CODES:
+        raise TypeError(f"b must be float32 or bfloat16, not {b.dtype}")
+    M, N = acc.shape
+    if N % 8:
+        raise ValueError(f"tp_epilogue takes N % 8 == 0, not {N}")
+    ts = (acc, b) + (() if residual is None else (residual,))
+    if not all(t.is_contiguous() for t in ts) or any(
+            t.data_ptr() % 16 for t in ts):
+        raise ValueError("tp_epilogue needs contiguous, 16-byte aligned "
+                         "inputs")
+    out = _out(out, (M, N), b, "tp_epilogue")
+    if M == 0:
+        return out
+    fn = _fns.get("tp_epilogue_launch")
+    if fn is None:
+        fn = build.load("dense").tp_epilogue_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                ctypes.c_longlong,
+                                                ctypes.c_int,
+                                                ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns["tp_epilogue_launch"] = fn
+    with torch.cuda.device(dev):
+        rc = fn(acc.data_ptr(), b.data_ptr(),
+                None if residual is None else residual.data_ptr(),
+                out.data_ptr(), _DTYPE_CODES[b.dtype], M, N,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tp_epilogue launch failed: CUDA error {rc}")
+    with _count_lock:
+        tp_epilogue_launches += 1
     return out
 
 

@@ -33,18 +33,34 @@ graph the backward pass walks. There the fused QKV launch's gradient goes
 back to ``query``, ``key`` and ``value`` (its ``dW`` and ``db`` split into
 the three parts). Serving's modules are in eval mode and run under
 ``inference_mode``: their launches are unchanged.
+
+**A block on a shard of the ``"model"`` axis** (``EncoderBlock(...,
+tp=)``, the reference's ``PARTITION_RULES``): it holds ``H / tp`` heads
+(its rows of ``[W_q; W_k; W_v]`` and their biases, its columns of
+``W_out``) and ``d_ff / tp`` FFN columns (its rows of ``ff1`` with their
+bias, its columns of ``ff2``); the LayerNorms and the ``out`` and ``ff2``
+biases are whole. :func:`run_block` runs the blocks of a model axis's
+local shards (``parallel/tp.py``): K14 once, each shard's fused QKV K15,
+K1 on its heads and K15 ``"partial"`` for ``out``, the axis's sum of the
+partials, K23 (the ``out`` bias and the residual added once, after the
+sum), K14, each shard's K15 ``"gelu_tanh"`` and ``"partial"`` for FFN2,
+the sum, K23. A group whose axis does not divide it (heads, or d_ff, not
+a multiple of tp: the reference's mesh guard replicates it) runs whole on
+every shard with no sum. ``fused_qkv`` is decided by the local width.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 from torch import nn
 
 from ..kernels import autograd
 from ..kernels.attention import segment_attention, segment_attention_plain
-from ..kernels.dense import gemm_bf16, gemm_bf16_plain, ln_bf16, ln_bf16_plain
+from ..kernels.dense import (gemm_bf16, gemm_bf16_plain, ln_bf16,
+                             ln_bf16_plain, tp_epilogue, tp_epilogue_plain)
 from ..kernels.embed import (EmbedTables, KIND_VOCAB, STATUS_VOCAB,
                              span_embed, span_embed_plain)
 
@@ -103,24 +119,31 @@ class EncoderBlock(nn.Module):
     LN → Dense(d_ff) → tanh-GELU → Dense(d) → residual."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, tp: int = 1):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by "
                              f"n_heads {n_heads}")
-        self.n_heads = n_heads
+        # the mesh guard: an axis that does not divide the group's
+        # dimension replicates the group (it runs whole on every shard)
+        self.tp_attn = tp if n_heads % tp == 0 else 1
+        self.tp_ffn = tp if d_ff % tp == 0 else 1
+        self.n_heads = n_heads // self.tp_attn  # this shard's heads
+        self.head_dim = d_model // n_heads
+        width = self.n_heads * self.head_dim
+        ff = d_ff // self.tp_ffn
         self.ln1 = LayerNorm(d_model, dtype)
-        self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.query = nn.Linear(d_model, width)
+        self.key = nn.Linear(d_model, width)
+        self.value = nn.Linear(d_model, width)
+        self.out = nn.Linear(width, d_model)
         self.ln2 = LayerNorm(d_model, dtype)
-        self.ff1 = nn.Linear(d_model, d_ff)
-        self.ff2 = nn.Linear(d_ff, d_model)
+        self.ff1 = nn.Linear(d_model, ff)
+        self.ff2 = nn.Linear(ff, d_model)
         self._qkv: tuple = ((), (), None, None)  # key, held, weight, bias
-        # K15 writes q, k, v as planes of 64-column boxes: a d_model off a
-        # multiple of 64 takes three launches instead
-        self.fused_qkv = d_model % 64 == 0
+        # K15 writes q, k, v as planes of 64-column boxes: a local width
+        # off a multiple of 64 takes three launches instead
+        self.fused_qkv = width % 64 == 0
 
     def dense_layers(self) -> list[nn.Linear]:
         return [self.query, self.key, self.value, self.out, self.ff1,
@@ -147,6 +170,73 @@ class EncoderBlock(nn.Module):
             self._qkv = (key, held, w, b)
         return self._qkv[2], self._qkv[3]
 
+    def _ops(self, segments: torch.Tensor, reference: bool,
+             live: torch.Tensor | None, L: int, trains: bool):
+        """The block's ``dense(t, linears, epilogue, ...)`` and
+        ``attend(qkv)``: the trainer's Functions (``trains``: training
+        mode, gradients enabled), else the kernels (or their plain
+        versions)."""
+        if trains:
+            def dense(t, lins, *args, **kw):
+                bs = ([] if args and args[0] == "partial"
+                      else [m.bias for m in lins])
+                return autograd.dense(t, [m.weight for m in lins], bs,
+                                      *args, reference=reference, **kw)
+
+            def attend(qkv):
+                if not torch.is_tensor(qkv):
+                    qkv = torch.stack(qkv)
+                return autograd.attention(qkv, segments, reference)
+            return dense, attend
+        gemm = gemm_bf16_plain if reference else gemm_bf16
+        kernel = segment_attention_plain if reference else segment_attention
+
+        def dense(t, lins, *args, **kw):
+            w, b = self.qkv() if len(lins) == 3 else (lins[0].weight,
+                                                      lins[0].bias)
+            if args and args[0] == "partial":  # no bias, no row count
+                return gemm(t, w, None, *args, **kw)
+            return gemm(t, w, b, *args, live=live, per=L, **kw)
+
+        def attend(qkv):
+            return kernel(*qkv, segments)
+        return dense, attend
+
+    def attention_out(self, h: torch.Tensor, segments: torch.Tensor, R: int,
+                      L: int, reference: bool, live: torch.Tensor | None,
+                      epilogue: str = "partial",
+                      residual: torch.Tensor | None = None,
+                      trains: bool | None = None) -> torch.Tensor:
+        """The attention sublayer after LN1 on this block's heads: the QKV
+        product, K1, then the out-projection with ``epilogue``
+        (``"residual"``: the whole sublayer; ``"partial"``: this shard's
+        f32 share of the out-projection, no bias). ``trains``: the
+        trainer's forward (default: this block's own mode)."""
+        trains = _trains(self) if trains is None else trains
+        dense, attend = self._ops(segments, reference, live, L, trains)
+        H, hd = self.n_heads, self.head_dim
+        # q, k, v as three contiguous (R, L, H, hd) planes: JAX's
+        # DenseGeneral layout, K1's input
+        parts = (self.query, self.key, self.value)
+        if self.fused_qkv:
+            qkv = dense(h, parts, planes=3).view(3, R, L, H, hd)
+        else:
+            qkv = [dense(h, (p,)).view(R, L, H, hd) for p in parts]
+        a = attend(qkv).view(R * L, H * hd)
+        return dense(a, (self.out,), epilogue, residual=residual)
+
+    def ffn_out(self, h: torch.Tensor, segments: torch.Tensor, L: int,
+                reference: bool, live: torch.Tensor | None,
+                epilogue: str = "partial",
+                residual: torch.Tensor | None = None,
+                trains: bool | None = None) -> torch.Tensor:
+        """FFN1 + GELU on this block's columns, then FFN2 with
+        ``epilogue`` (as :meth:`attention_out`)."""
+        trains = _trains(self) if trains is None else trains
+        dense, _ = self._ops(segments, reference, live, L, trains)
+        g = dense(h, (self.ff1,), "gelu_tanh")
+        return dense(g, (self.ff2,), epilogue, residual=residual)
+
     def forward(self, x: torch.Tensor, segments: torch.Tensor,
                 reference: bool = False,
                 live: torch.Tensor | None = None) -> torch.Tensor:
@@ -156,47 +246,60 @@ class EncoderBlock(nn.Module):
         trainer's forward (training mode, gradients enabled) runs the same
         chain through ``kernels.autograd``'s Functions, which take no row
         count; serving's calls the kernels directly, the fused QKV product
-        on the cached ``[W_q; W_k; W_v]``."""
+        on the cached ``[W_q; W_k; W_v]``. A block built for ``tp > 1``
+        runs through :func:`run_block` with a model axis."""
+        if self.tp_attn > 1 or self.tp_ffn > 1:
+            raise ValueError("a block on a shard of the model axis runs "
+                             "through run_block with its axis")
         R, L, d = x.shape
-        H = self.n_heads
-        hd = d // H
-        if _trains(self):
-            def dense(t, lins, *args, **kw):
-                return autograd.dense(t, [m.weight for m in lins],
-                                      [m.bias for m in lins], *args,
-                                      reference=reference, **kw)
-
-            def attend(qkv):
-                if not torch.is_tensor(qkv):
-                    qkv = torch.stack(qkv)
-                return autograd.attention(qkv, segments, reference)
-        else:
-            gemm = gemm_bf16_plain if reference else gemm_bf16
-            kernel = (segment_attention_plain if reference
-                      else segment_attention)
-
-            def dense(t, lins, *args, **kw):
-                w, b = self.qkv() if len(lins) == 3 else (lins[0].weight,
-                                                          lins[0].bias)
-                return gemm(t, w, b, *args, live=live, per=L, **kw)
-
-            def attend(qkv):
-                return kernel(*qkv, segments)
-
         x = x.reshape(R * L, d)
         h = self.ln1(x, reference, live, L)
-        # q, k, v as three contiguous (R, L, H, hd) planes: JAX's
-        # DenseGeneral layout, K1's input
-        parts = (self.query, self.key, self.value)
-        if self.fused_qkv:
-            qkv = dense(h, parts, planes=3).view(3, R, L, H, hd)
-        else:
-            qkv = [dense(h, (p,)).view(R, L, H, hd) for p in parts]
-        a = attend(qkv).view(R * L, d)
-        x = dense(a, (self.out,), "residual", residual=x)
-        h = dense(self.ln2(x, reference, live, L), (self.ff1,), "gelu_tanh")
-        x = dense(h, (self.ff2,), "residual", residual=x)
+        x = self.attention_out(h, segments, R, L, reference, live,
+                               "residual", x)
+        h = self.ln2(x, reference, live, L)
+        x = self.ffn_out(h, segments, L, reference, live, "residual", x)
         return x.view(R, L, d)
+
+
+def run_block(blocks: list[EncoderBlock], axis: Any, x: torch.Tensor,
+              segments: torch.Tensor, reference: bool = False,
+              live: torch.Tensor | None = None) -> torch.Tensor:
+    """One encoder block over the shards ``blocks`` of a model axis
+    (``axis.shards``, in order; one a rank under ``GroupModelAxis``, all of
+    them under ``LocalModelAxis``): the module docstring's chain. The
+    replicated parameters (the LayerNorms, the ``out`` and ``ff2``
+    biases) are ``blocks[0]``'s. ``live`` reaches the LayerNorms and the
+    column-parallel products; the partials and K23 take every row."""
+    b0 = blocks[0]
+    R, L, d = x.shape
+    x = x.reshape(R * L, d)
+    trains = _trains(b0)
+
+    def finish(acc, bias, res):
+        if trains:
+            return autograd.tp_epilogue(acc, bias, res, reference)
+        epi = tp_epilogue_plain if reference else tp_epilogue
+        return epi(acc, bias, res)
+
+    h = b0.ln1(x, reference, live, L)
+    if b0.tp_attn > 1:
+        hin = axis.enter(h)
+        acc = axis.reduce([blk.attention_out(hin, segments, R, L, reference,
+                                             live, trains=trains)
+                           for blk in blocks])
+        x = finish(acc, b0.out.bias, x)
+    else:
+        x = b0.attention_out(h, segments, R, L, reference, live, "residual",
+                             x)
+    h = b0.ln2(x, reference, live, L)
+    if b0.tp_ffn > 1:
+        hin = axis.enter(h)
+        acc = axis.reduce([blk.ffn_out(hin, segments, L, reference, live,
+                                       trains=trains) for blk in blocks])
+        x = finish(acc, b0.ff2.bias, x)
+    else:
+        x = b0.ffn_out(h, segments, L, reference, live, "residual", x)
+    return x.view(R, L, d)
 
 
 class Encoder(nn.Module):
@@ -206,16 +309,20 @@ class Encoder(nn.Module):
 
     def __init__(self, service_vocab: int, name_vocab: int, attr_vocab: int,
                  attr_slots: int, d_model: int, n_heads: int, n_layers: int,
-                 d_ff: int, max_len: int, dtype: torch.dtype):
+                 d_ff: int, max_len: int, dtype: torch.dtype, tp: int = 1):
         super().__init__()
         self.dtype = dtype
         self.embed = SpanEmbedder(service_vocab, name_vocab, attr_vocab,
                                   attr_slots, d_model)
         self.pos_embed = nn.Embedding(max_len, d_model)
         self.blocks = nn.ModuleList(
-            EncoderBlock(d_model, n_heads, d_ff, dtype)
+            EncoderBlock(d_model, n_heads, d_ff, dtype, tp)
             for _ in range(n_layers))
         self.final_ln = LayerNorm(d_model, dtype)
+        # a shard of the model axis: the axis and the encoders of its
+        # local shards (this one first), set by the model that holds them
+        self.model_axis: Any = None
+        self.peers: list = []
 
     def tables(self) -> EmbedTables:
         e = self.embed
@@ -246,8 +353,12 @@ class Encoder(nn.Module):
             embed = span_embed_plain if reference else span_embed
             x = embed(categorical, continuous, positions, segments,
                       self.tables(), self.dtype)
-        for blk in self.blocks:
-            x = blk(x, segments, reference=reference, live=live)
+        for i, blk in enumerate(self.blocks):
+            if self.model_axis is None:
+                x = blk(x, segments, reference=reference, live=live)
+            else:
+                x = run_block([e.blocks[i] for e in self.peers],
+                              self.model_axis, x, segments, reference, live)
         if not final_ln:
             return x
         return self.final_ln(x, reference, live, x.shape[1])

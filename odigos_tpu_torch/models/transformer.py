@@ -20,6 +20,17 @@ through ``kernels.autograd``'s Functions and the loss is the reference's
 ``loss_fn`` (masked span BCE plus trace BCE weighted by trace validity);
 the heads and the trace pool stay f32 PyTorch ops, as in scoring.
 
+``TraceTransformer(..., model_axis=)`` holds the shards of the ``"model"``
+axis that a model axis (``parallel/tp.py``) places in this process, each
+a module at the shard's geometry (``H / tp`` heads, ``d_ff / tp`` FFN
+columns; ``models/layers.py`` :func:`~.layers.run_block`): one under
+``GroupModelAxis``, every one under ``LocalModelAxis``. Its weights are
+the whole model's, sliced by ``parallel.sharding.shard_state``: from the
+seed (the unsharded model's draws) or from :meth:`load_state_dict`, which
+takes the WHOLE state dict. ``module`` is the first local shard (the
+replicated embedding, LayerNorms and heads are its), ``shards`` all of
+them, and :meth:`state_dict` the first shard's.
+
 Float32 matmuls run in full f32: constructing a model sets
 ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False (TF32 keeps ~3 decimal digits,
@@ -56,12 +67,12 @@ class TransformerConfig:
 
 
 class _TraceTransformerModule(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, tp: int = 1):
         super().__init__()
         c = cfg
         self.encoder = Encoder(c.service_vocab, c.name_vocab, c.attr_vocab,
                                c.attr_slots, c.d_model, c.n_heads,
-                               c.n_layers, c.d_ff, c.max_len, c.dtype)
+                               c.n_layers, c.d_ff, c.max_len, c.dtype, tp)
         self.span_head = nn.Linear(c.d_model, 1)
         self.trace_head = nn.Linear(c.d_model, 1)
 
@@ -111,34 +122,73 @@ class TraceTransformer:
     """
 
     def __init__(self, config: TransformerConfig | None = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0,
+                 model_axis: Any = None):
         self.cfg = config or TransformerConfig()
         if self.cfg.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"working dtype must be float32 or bfloat16, "
                              f"not {self.cfg.dtype}")
         self.device = resolve_device(device)
+        self.model_axis = model_axis
+        tp = 1 if model_axis is None else model_axis.tp
         if self.device.type == "cuda":  # no plain route on the card
-            coverage.check(self.cfg)
+            coverage.check(self.cfg, tp)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         module = _TraceTransformerModule(self.cfg)
         init_parameters(module, torch.Generator().manual_seed(seed))
-        # a Dense with dtype=bf16 casts its kernel to bf16 on every call
-        # in Flax; holding the block weights in the working type is the
-        # same arithmetic, paid once
-        for blk in module.encoder.blocks:
-            for lin in blk.dense_layers():
-                lin.to(self.cfg.dtype)
-        self.module = module.to(self.device).eval()
+        shards = [module]
+        if model_axis is not None:  # the seed's draws, sliced
+            state = module.state_dict()
+            shards = [_TraceTransformerModule(self.cfg, tp)
+                      for _ in model_axis.shards]
+            self._load_shards(shards, state)
+        for m in shards:
+            # a Dense with dtype=bf16 casts its kernel to bf16 on every
+            # call in Flax; holding the block weights in the working type
+            # is the same arithmetic, paid once
+            for blk in m.encoder.blocks:
+                for lin in blk.dense_layers():
+                    lin.to(self.cfg.dtype)
+            m.to(self.device).eval()
+        self.shards = shards
+        self.module = shards[0]
+        if model_axis is not None:
+            self.module.encoder.model_axis = model_axis
+            self.module.encoder.peers = [m.encoder for m in shards]
 
     # ------------------------------------------------------------ weights
     def state_dict(self) -> dict[str, torch.Tensor]:
+        """The state dict of the first local shard (the whole model's
+        without a model axis)."""
         return self.module.state_dict()
 
+    def _load_shards(self, shards: list, state: Mapping[str, Any]) -> None:
+        from ..parallel.sharding import shard_state
+
+        tp = self.model_axis.tp
+        for r, m in zip(self.model_axis.shards, shards):
+            load_module_state(m, shard_state(state, {"model": tp}, self.cfg,
+                                             rank=r))
+
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        """Load a state dict (tensors or numpy arrays); each value is
-        cast to the parameter's own dtype and device."""
-        load_module_state(self.module, state)
+        """Load a state dict (tensors or numpy arrays) of the WHOLE model;
+        each value is cast to the parameter's own dtype and device, and
+        under a model axis each local shard takes its slice."""
+        if self.model_axis is None:
+            load_module_state(self.module, state)
+        else:
+            self._load_shards(self.shards, state)
+
+    def parameters(self) -> list[torch.nn.Parameter]:
+        """Every local shard's parameters (the replicated ones of the
+        shards past the first are not used)."""
+        return [p for m in self.shards for p in m.parameters()]
+
+    def train(self, mode: bool = True) -> None:
+        """Every local shard into training (or eval) mode."""
+        for m in self.shards:
+            m.train(mode)
 
     # ------------------------------------------------------------ scoring
     @torch.inference_mode()

@@ -1,27 +1,25 @@
-"""The multi-device dry run: one data-parallel train step, data-parallel
-scoring and one ring-attention call, on n ranks.
+"""The multi-device dry run: one train step on a dp x tp mesh, a started
+mesh-owning engine, and one ring-attention call, on n ranks.
 
 The port's twin of ``__graft_entry__.dryrun_multichip``:
 
     python -m odigos_tpu_torch.parallel.dryrun --devices N --device cpu|cuda
 
-From ``jax_init.transformer_params`` seed 0 at the reference's dry-run
-config (d 64, 4 heads, 2 layers, d_ff 128, max_len 16, f32; Adam 1e-3) it
-takes one :func:`~.sharding.make_sharded_train_step` step on a
-``{"data": n}`` mesh, scores ``4 n`` traces with
-:func:`~.sharding.make_sharded_score_fn`, and runs :func:`~.ring_attention.
-ring_attention` on a ``{"seq": n}`` mesh at (2, 8n, 4, 16), held to
-``reference_attention`` within 1e-5. It prints one line, as the
-reference's does.
-
-Where it differs: the reference's mesh is ``{"data": dp, "model": tp}``
-with tp = 2 where n is even, and it serves through a mesh-owning engine.
-The port refuses a ``"model"`` axis above 1 (ROADMAP A8.2) and its engine
-takes no mesh yet (A8.3), so every rank is on the data axis and the
-scoring goes through the sharded score function. n = 1 runs in this
-process (a world of 1: NCCL on the card, gloo on the CPU); n > 1 starts
-n ranks by ``parallel.launch.spawn`` (gloo processes on the CPU, one card
-a rank with NCCL).
+On the reference's mesh, ``{"data": dp, "model": tp}`` with tp = 2 where
+n is even and dp = n // tp, from ``jax_init.transformer_params`` seed 0
+at the reference's dry-run config (d 64, 4 heads, 2 layers, d_ff 128,
+max_len 16, f32; Adam 1e-3) it takes one
+:func:`~.sharding.make_sharded_train_step` step on this rank's shard
+(:func:`~.sharding.shard_model`), starts a ``ScoringEngine`` that owns
+the same mesh (``warm_ladder``, rungs of ``8 n`` rows, one rung) on every
+rank, serves ``4 n`` traces through its leader with no ladder miss after
+the warm, and runs :func:`~.ring_attention.ring_attention` on a ``{"seq":
+n}`` mesh at (2, 8n, 4, 16), held to ``reference_attention`` within
+1e-5. It prints one line, as the reference's does. n = 1 runs in this
+process (a world of 1: NCCL on the card, gloo on the CPU; the engine's
+mesh normalizes to one device, as the reference's does); n > 1 starts n
+ranks by ``parallel.launch.spawn`` (gloo processes on the CPU, one card a
+rank with NCCL).
 """
 
 from __future__ import annotations
@@ -45,24 +43,29 @@ def _dryrun_rank(device: str) -> dict:
     from .mesh import make_mesh
     from .ring_attention import (gather_seq, reference_attention,
                                  ring_attention, shard_seq)
-    from .sharding import make_sharded_score_fn, make_sharded_train_step
+    from ..serving.engine import EngineConfig, ScoringEngine
+    from .sharding import make_sharded_train_step, shard_model
 
     n = dist.get_world_size()
     rank = dist.get_rank()
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device == "cuda" else torch.device("cpu"))
-    mesh = make_mesh({"data": n}, axes=("data",), device=device)
+    # dp x tp: tp = 2 wherever n is even, the rest data-parallel
+    tp = 2 if n % 2 == 0 else 1
+    dp = n // tp
+    mesh = make_mesh({"data": dp, "model": tp}, device=device)
 
     cfg = TransformerConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128,
                             max_len=16, dtype=torch.float32)
-    model = TraceTransformer(cfg, device=dev)
-    model.load_state_dict(transformer_state(cfg, 0))
-    opt = torch.optim.Adam(model.module.parameters(), lr=1e-3)
+    whole = TraceTransformer(cfg, device=dev)
+    whole.load_state_dict(transformer_state(cfg, 0))
+    model = shard_model(whole, mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     step = make_sharded_train_step(model, opt, mesh)
 
-    batch = synthesize_traces(2 * n, seed=0)
+    batch = synthesize_traces(2 * dp, seed=0)
     seqs = assemble_sequences(batch, featurize(batch), max_len=16,
-                              pad_traces_to=2 * n)
+                              pad_traces_to=2 * dp)
     rng = np.random.default_rng(0)
     span_labels = (rng.random(seqs.mask.shape) < 0.2) & seqs.mask
     trace_labels = rng.random(seqs.mask.shape[0]) < 0.5
@@ -71,14 +74,28 @@ def _dryrun_rank(device: str) -> dict:
     if not np.isfinite(loss):
         raise RuntimeError(f"non-finite loss {loss}")
 
-    score = make_sharded_score_fn(model, mesh)
-    serve = synthesize_traces(4 * n, seed=3)
-    sseqs = assemble_sequences(serve, featurize(serve), max_len=16)
-    span_p, trace_p = score(sseqs.categorical, sseqs.continuous, sseqs.mask)
-    if tuple(trace_p.shape) != (sseqs.mask.shape[0],) or not bool(
-            torch.isfinite(span_p).all() and torch.isfinite(trace_p).all()):
-        raise RuntimeError(f"sharded scoring gave {tuple(span_p.shape)} / "
-                           f"{tuple(trace_p.shape)} or non-finite scores")
+    # the production route: a started engine that owns the dp x tp mesh,
+    # every packed call through the partition-rule plan, a warm ladder
+    eng = ScoringEngine(EngineConfig(
+        model="transformer", mesh={"data": dp, "model": tp},
+        trace_bucket=8 * n, max_len=16, bucket_ladder=1, warm_ladder=True,
+        model_config=cfg, device=device)).start()
+    scored = 0
+    try:
+        if not eng.is_follower:
+            if eng.backend.ladder.misses:
+                raise RuntimeError("the warm ladder counted a miss")
+            serve = synthesize_traces(4 * n, seed=3)
+            scores = eng.score_sync(serve, featurize(serve), timeout_s=300.0)
+            if scores is None or scores.shape != (len(serve),) or \
+                    not np.isfinite(scores).all():
+                raise RuntimeError("the mesh engine gave no scores, or "
+                                   "non-finite ones")
+            if eng.backend.ladder.misses:
+                raise RuntimeError("serving missed the warm ladder")
+            scored = 4 * n
+    finally:
+        eng.shutdown()
 
     seq_mesh = make_mesh({"seq": n}, axes=("seq",), device=device)
     L = 8 * n
@@ -92,11 +109,13 @@ def _dryrun_rank(device: str) -> dict:
     if not bool(torch.isfinite(out).all()) or float(ring_err) > RING_ATOL:
         raise RuntimeError(f"ring attention off the reference by "
                            f"{float(ring_err)}")
-    return {"rank": rank, "n": n, "loss": loss,
-            "scored": int(sseqs.mask.shape[0]), "L": L,
+    mesh_label = eng.stats()["adaptive"]["mesh"]
+    return {"rank": rank, "n": n, "dp": dp, "tp": tp, "loss": loss,
+            "scored": scored, "mesh": mesh_label, "L": L,
             "ring_max_abs_err": float(ring_err),
-            "line": f"dryrun_multichip({n}): dp={n} tp=1 loss={loss:.4f} "
-                    f"sharded scoring scored {sseqs.mask.shape[0]} traces, "
+            "line": f"dryrun_multichip({n}): dp={dp} tp={tp} "
+                    f"loss={loss:.4f} mesh engine ({mesh_label}) served "
+                    f"{scored} traces with a warm ladder, "
                     f"ring_attention L={L} OK (max |ring - reference| "
                     f"{float(ring_err):.2e}, backend {dist.get_backend()})"}
 

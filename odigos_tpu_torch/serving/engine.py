@@ -88,9 +88,34 @@ model serves in the bundle's own working type (f32 from the trainer).
 Without a bundle the sequence models' weights are random, drawn from
 ``seed``.
 
-Not ported yet (later slices, listed in ROADMAP.md): device meshes and
-their adaptive priors, the flow ledger and its ``ModelFailover`` health
-rollup, the pack buffer pool (``on_features_consumed``), the self-tracer
+**The engine's mesh** (``EngineConfig.mesh``, ``{"data": dp, "model":
+tp}`` or pairs; ``data_parallel`` is the legacy ``{"data": N}``): the
+engine owns one ``DeviceMesh`` (``parallel.make_mesh``) and the sequence
+backends receive it and score every call through the partition-rule plan
+(``parallel.compile_plan``): rows on the data axis, the transformer's
+heads and FFN columns on the model axis; the bucket ladder's rungs are
+``lcm(base, dp)``. A mesh the world cannot back serves on one device,
+counted in ``odigos_engine_mesh_unavailable_total{model=}``; a mesh with
+``quantized=True`` is refused; under a plan the fused route falls back
+with reason ``"backend"``; the adaptive coalescer's estimates are learned
+per (model, geometry, mesh) (``_ADAPT_PRIORS``). The reference is one
+process over every device; the port is SPMD: every rank of the mesh
+builds the same engine from the same config. The mesh's first rank is the
+leader: it alone takes requests and runs the queue, coalescing, deadlines,
+failover and the depth-2 window. At each dispatch it broadcasts a header
+(op, shapes) and the packed arrays to the mesh's ranks (``_MeshLink``);
+every rank takes its data shard's rows and runs the plan's call (the
+model axis's all-reduces, the all-gather of the scores over the data
+axis). Every collective is issued at dispatch, in the same order on every
+rank (the harvest issues none). ``start()`` on another rank runs a
+follower loop that mirrors the leader's calls until its ``shutdown()``
+broadcasts a stop; ``warmup`` on a follower mirrors the leader's
+``warmup``; ``submit`` on a follower raises. A rank's failure between a
+header and its arrays leaves the others waiting in their collective
+until its group's timeout.
+
+Not ported yet (later slices, listed in ROADMAP.md): the flow ledger and
+its ``ModelFailover`` health rollup, the pack buffer pool (``on_features_consumed``), the self-tracer
 and latency attribution (``stage_ns``, the score span's attributes and
 the first-call compile estimate).
 """
@@ -98,6 +123,7 @@ the first-call compile estimate).
 from __future__ import annotations
 
 import logging
+import math
 import queue
 import threading
 import time
@@ -132,6 +158,7 @@ STAGE_PACK_METRIC = "odigos_anomaly_stage_pack_ms"
 STAGE_DEVICE_METRIC = "odigos_anomaly_stage_device_ms"
 STAGE_HARVEST_METRIC = "odigos_anomaly_stage_harvest_ms"
 ADAPTIVE_CAP_GAUGE = "odigos_engine_adaptive_cap_spans"
+MESH_UNAVAILABLE_METRIC = "odigos_engine_mesh_unavailable_total"
 FUSED_FRAMES_METRIC = "odigos_fastpath_fused_frames_total"
 FUSED_FALLBACK_METRIC = "odigos_fastpath_fused_fallback_total"
 
@@ -139,6 +166,13 @@ FUSED_FALLBACK_METRIC = "odigos_fastpath_fused_fallback_total"
 # shifts within ~5 calls without letting one outlier call resize the next
 # batch
 _ADAPT_ALPHA = 0.2
+
+
+def _mesh_label(mesh_spec) -> str:
+    """The gauge and stats label of a normalized mesh spec
+    (``"data4xmodel2"``; ``"single"`` for none), ``parallel.mesh_key``'s."""
+    parts = [f"{a}{int(n)}" for a, n in (mesh_spec or ()) if int(n) > 1]
+    return "x".join(parts) if parts else "single"
 
 
 @dataclass(frozen=True)
@@ -176,8 +210,29 @@ class EngineConfig:
     # below; None/False/{"enabled": False} = no breaker
     failover: Any = None
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
+    # the engine's device mesh (sequence models): {"data": N, "model": M}
+    # or ((axis, size), ...) pairs, normalized below to a hashable tuple,
+    # None when the product is 1; every rank of the mesh builds the same
+    # engine (the module docstring)
+    mesh: Any = None
+    # the legacy spelling of mesh={"data": N}; ignored when mesh is set
+    data_parallel: int = 0
 
     def __post_init__(self) -> None:
+        m = self.mesh
+        if m is not None:
+            items = m.items() if isinstance(m, dict) else tuple(m)
+            m = tuple((str(a), int(n)) for a, n in items)
+            bad = [(a, n) for a, n in m if n <= 0]
+            if bad:
+                # dropping a zero-size axis would serve data-parallel
+                # while the operator believes tp is on: refuse
+                raise ValueError(f"mesh axes must be positive: {bad}")
+        if m is None and self.data_parallel and self.data_parallel > 1:
+            m = (("data", int(self.data_parallel)),)
+        if m is not None and math.prod(n for _, n in m) <= 1:
+            m = None  # a 1x1 mesh is the one-device path
+        object.__setattr__(self, "mesh", m)
         if self.quantized and self.model != "transformer":
             # as the reference: refuse rather than serve float quietly
             raise ValueError(
@@ -200,6 +255,10 @@ class EngineConfig:
                 f = tuple(sorted((str(k), v) for k, v in items.items()))
         object.__setattr__(self, "failover", f)
 
+    def mesh_shape(self) -> Optional[dict[str, int]]:
+        """The normalized mesh as the dict ``parallel.make_mesh`` takes."""
+        return dict(self.mesh) if self.mesh else None
+
     def failover_spec(self) -> Optional[dict[str, Any]]:
         """Normalized failover mapping (None = breaker disabled)."""
         return dict(self.failover) if self.failover is not None else None
@@ -219,12 +278,15 @@ class BucketLadder:
     bucket round up to a multiple of it. ``observe`` tracks which shapes
     have already run this process (LRU-bounded), feeding the hit rate;
     ``mark_warm`` pre-seeds it from ``warm()``; ``floor_rows`` snaps the
-    adaptive coalescer's row budget down onto the ladder. (The reference's
-    mesh ``align`` comes with device meshes.)
+    adaptive coalescer's row budget down onto the ladder. ``align`` lifts
+    every rung to ``lcm(base, align)``: under a mesh of dp data ranks each
+    padded row count divides among them, so the sharded call never pads
+    again.
     """
 
-    def __init__(self, base: int, n_buckets: int = 4):
-        self.base = max(1, int(base))
+    def __init__(self, base: int, n_buckets: int = 4, align: int = 1):
+        self.align = max(1, int(align))
+        self.base = math.lcm(max(1, int(base)), self.align)
         self.buckets = [self.base << k for k in range(max(1, int(n_buckets)))]
         self.hits = 0
         self.misses = 0
@@ -278,6 +340,7 @@ class BucketLadder:
             "misses": self.misses,
             "hit_rate": round(self.hits / total, 4) if total else 0.0,
             "buckets": list(self.buckets),
+            "align": self.align,
         }
 
 
@@ -312,9 +375,15 @@ class SequenceBackend:
     # the geometry EngineConfig.model_config must hold
     config_cls: type = TransformerConfig
 
-    def __init__(self, cfg: EngineConfig):
+    def __init__(self, cfg: EngineConfig, mesh: Any = None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        # the ENGINE's mesh (one mesh, one owner): never built here
+        self.mesh = mesh
+        if mesh is not None and cfg.quantized:
+            # refusing beats serving float while holding int8 weights
+            raise ValueError("quantized serving does not compose with a "
+                             "device mesh yet; pick one")
         variables = None
         model_config = cfg.model_config
         if cfg.checkpoint_path:
@@ -353,7 +422,25 @@ class SequenceBackend:
             self.model.load_state_dict(variables)
         # the positional table bounds the row length
         self.max_len = min(cfg.max_len, model_config.max_len)
-        self.ladder = BucketLadder(cfg.trace_bucket, cfg.bucket_ladder)
+        dp = 1
+        if mesh is not None:
+            dp = int(dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get(
+                "data", 1))
+        # rungs lcm-aligned to the data axis: every call divides among
+        # the data ranks
+        self.ladder = BucketLadder(cfg.trace_bucket, cfg.bucket_ladder,
+                                   align=dp)
+        self._plan = None
+        self.variables: Optional[dict] = None
+        # the leader's broadcast to the mesh's ranks (the engine sets it)
+        self.link: Optional["_MeshLink"] = None
+        if mesh is not None:
+            from ..parallel.sharding import compile_plan
+
+            # the whole model's weights, placed once by the plan (its
+            # identity cache holds this dict)
+            self.variables = self.model.state_dict()
+            self._plan = compile_plan(self.model, mesh)
         self.device_label = (torch.cuda.get_device_name(self.device)
                              if self.device.type == "cuda" else "cpu")
         self.last_shape: Optional[list[int]] = None
@@ -368,19 +455,28 @@ class SequenceBackend:
     # ------------------------------------------------------- device stage
     def _forward(self, *arrays: Any) -> torch.Tensor:
         """The model's ``(R, L)`` probabilities over (categorical,
-        continuous, segments, positions)."""
+        continuous, segments, positions); under a mesh, the plan's
+        sharded call."""
+        if self._plan is not None:
+            return self._plan.score_packed(self.variables, *arrays)
         return self.model.score_packed(*arrays)
 
     @torch.inference_mode()
     def _device_call(self, *arrays: np.ndarray
                      ) -> tuple[torch.Tensor, Any, tuple]:
         """Enqueue the forward; returns (scores, event, keepalive)
-        WITHOUT waiting on the card."""
+        WITHOUT waiting on the card. Under a mesh the leader first
+        broadcasts the arrays to the mesh's ranks (``_MeshLink``)."""
         if self.device.type == "cpu":
+            if self.link is not None:
+                arrays = self.link.send([torch.from_numpy(
+                    np.ascontiguousarray(a)) for a in arrays])
             return self._forward(*arrays), None, ()
         host = tuple(torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
                      for a in arrays)
         dev = [h.to(self.device, non_blocking=True) for h in host]
+        if self.link is not None:
+            dev = self.link.send(dev)
         probs = self._forward(*dev)
         out = torch.empty(probs.shape, dtype=torch.float32, pin_memory=True)
         out.copy_(probs, non_blocking=True)
@@ -417,11 +513,19 @@ class SequenceBackend:
     def score(self, batch: Any, features: SpanFeatures) -> np.ndarray:
         return self.harvest(self.dispatch(batch, features))
 
+    @torch.inference_mode()
+    def follow(self, arrays: list[torch.Tensor]) -> None:
+        """A follower rank's part of one leader call: the plan's sharded
+        forward on the broadcast arrays (its collectives in the leader's
+        order); the scores are the leader's."""
+        self._forward(*arrays)
+
     def warm(self) -> None:
         """Run every ladder rung once on all-padding rows and wait: the
         kernels build and load, the CUDA context and cuBLAS handles come
         up, and the caching allocator holds each shape's buffers before
-        the first request."""
+        the first request. Under a mesh each rung runs once on the
+        mesh (the followers mirror it)."""
         for R in self.ladder.buckets:
             _, event, _ = self._device_call(*self._padding_rows(R))
             if event is not None:
@@ -444,8 +548,8 @@ class MockBackend:
     in the reference; the device is resolved like every model's, so
     ``"cuda"`` without a card raises here too."""
 
-    def __init__(self, cfg: EngineConfig):
-        self.cfg = cfg
+    def __init__(self, cfg: EngineConfig, mesh: Any = None):
+        self.cfg = cfg  # mesh ignored: no device work to shard
         self.device = resolve_device(cfg.device)
         self.device_label = "host"
 
@@ -469,8 +573,8 @@ class ZScoreBackend:
     # scoring reads features only: a coalesced group needs no merged batch
     coalesce_columns: tuple = ()
 
-    def __init__(self, cfg: EngineConfig):
-        self.cfg = cfg
+    def __init__(self, cfg: EngineConfig, mesh: Any = None):
+        self.cfg = cfg  # mesh ignored: the streaming state is unsharded
         self.det = ZScoreDetector(device=cfg.device)
         self.device = self.det.device
         self.device_label = (torch.cuda.get_device_name(self.device)
@@ -503,25 +607,25 @@ class ZScoreBackend:
         self.det.update(featurize(batch, self.cfg.featurizer))
 
 
-def _fused_backend(cfg: EngineConfig):
+def _fused_backend(cfg: EngineConfig, mesh: Any = None):
     # FusedSequenceBackend IS a SequenceBackend: the host route stays as it
     # is and the subclass adds the columns → scores route. Imported here:
     # serving/fused.py imports this module.
     from .fused import FusedSequenceBackend
 
-    return FusedSequenceBackend(cfg)
+    return FusedSequenceBackend(cfg, mesh=mesh)
 
 
-def _autoencoder_backend(cfg: EngineConfig):
+def _autoencoder_backend(cfg: EngineConfig, mesh: Any = None):
     from .fused import AutoencoderBackend
 
-    return AutoencoderBackend(cfg)
+    return AutoencoderBackend(cfg, mesh=mesh)
 
 
-def _remote_backend(cfg: EngineConfig):
+def _remote_backend(cfg: EngineConfig, mesh: Any = None):
     from .sidecar import RemoteBackend
 
-    return RemoteBackend(cfg)
+    return RemoteBackend(cfg)  # the mesh lives sidecar-side for remote
 
 
 _BACKENDS = {
@@ -615,6 +719,73 @@ class _InflightGroup:
     fused: bool = False
 
 
+class _MeshLink:
+    """The leader's broadcast of each call to the ranks of the engine's
+    mesh, and the followers' receipt of it.
+
+    One header (int64: the op, then a dtype code, rank and up to three
+    dimensions for each array) and then each array, every one a broadcast
+    from the mesh's first rank over a group of the mesh's ranks (the
+    world's when the mesh spans it). On the card the tensors are the
+    card's (NCCL); the CPU's on gloo. A follower reads the header on the
+    host (a synchronisation it waits on anyway) and receives into new
+    buffers."""
+
+    SCORE, END, STOP = 1, 2, 3
+    _MAX = 4  # arrays a call
+    _CODES = (torch.int32, torch.float32, torch.bool)
+
+    def __init__(self, mesh: Any, device: torch.device):
+        import torch.distributed as dist
+
+        self.dist = dist
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        self.leader = ranks[0]
+        self.is_leader = dist.get_rank() == self.leader
+        # every rank of the world takes part in making a group
+        self.group = None if len(ranks) == dist.get_world_size() \
+            else dist.new_group(ranks)
+        self.device = device
+
+    def _bcast(self, t: torch.Tensor) -> None:
+        self.dist.broadcast(t, src=self.leader, group=self.group)
+
+    def send(self, arrays: list, op: int = SCORE) -> list:
+        """The leader: broadcast ``op`` and ``arrays`` (tensors on the
+        link's device, or CPU tensors that are moved there); returns the
+        tensors broadcast (the bools as sent)."""
+        head = torch.zeros(2 + 5 * self._MAX, dtype=torch.int64)
+        head[0], head[1] = op, len(arrays)
+        out = []
+        for i, a in enumerate(arrays):
+            a = a.to(self.device).contiguous()
+            head[2 + 5 * i] = self._CODES.index(a.dtype)
+            head[3 + 5 * i] = a.dim()
+            head[4 + 5 * i:4 + 5 * i + a.dim()] = torch.tensor(a.shape)
+            out.append(a)
+        self._bcast(head.to(self.device))
+        for a in out:
+            # bools travel as bytes: NCCL has no bool
+            self._bcast(a.view(torch.uint8) if a.dtype == torch.bool else a)
+        return out
+
+    def recv(self) -> tuple[int, list]:
+        """A follower: the next op and its arrays."""
+        head = torch.zeros(2 + 5 * self._MAX, dtype=torch.int64,
+                           device=self.device)
+        self._bcast(head)
+        head = head.cpu()
+        out = []
+        for i in range(int(head[1])):
+            dtype = self._CODES[int(head[2 + 5 * i])]
+            shape = [int(n) for n in
+                     head[4 + 5 * i:4 + 5 * i + int(head[3 + 5 * i])]]
+            a = torch.empty(shape, dtype=dtype, device=self.device)
+            self._bcast(a.view(torch.uint8) if dtype == torch.bool else a)
+            out.append(a)
+        return int(head[0]), out
+
+
 class ScoringEngine:
     """One engine per process.
 
@@ -622,9 +793,42 @@ class ScoringEngine:
     >>> scores = eng.score_sync(batch, timeout_s=0.5)  # None on timeout
     """
 
+    # per-(model, geometry, mesh) learned adaptive-batching estimates,
+    # shared across engines: a new engine on a mesh it has served starts
+    # from the last learned cost. Only engines on a mesh read or write it
+    # (the one-device path keeps its exact cold start).
+    _ADAPT_PRIORS: dict[tuple, tuple] = {}
+
     def __init__(self, config: Optional[EngineConfig] = None):
         self.cfg = config or EngineConfig()
-        self.backend = _BACKENDS[self.cfg.model](self.cfg)
+        # the engine owns THE mesh (one mesh, one owner): the backend
+        # receives it; sequence models only
+        self.mesh = None
+        if self.cfg.mesh is not None and self.cfg.model in (
+                "transformer", "autoencoder"):
+            from ..parallel.mesh import make_mesh
+
+            try:
+                self.mesh = make_mesh(self.cfg.mesh_shape(),
+                                      device=self.cfg.device)
+            except ValueError:
+                # a mesh the world cannot back: one device, LOUDLY
+                meter.add(labeled_key(MESH_UNAVAILABLE_METRIC,
+                                      model=self.cfg.model))
+        self._link: Optional[_MeshLink] = None
+        if self.mesh is not None:
+            # every rank of the world makes the link's group first
+            self._link = _MeshLink(self.mesh, resolve_device(self.cfg.device))
+            if self.mesh.get_coordinate() is None:
+                raise ValueError("this rank holds no coordinate of the "
+                                 "engine's mesh")
+        self.backend = _BACKENDS[self.cfg.model](self.cfg, mesh=self.mesh)
+        if self._link is not None and self._link.is_leader:
+            self.backend.link = self._link
+        # a follower's loop: its thread, and the END ops it has seen
+        self._follower: Optional[threading.Thread] = None
+        self._ends = 0
+        self._ends_cv = threading.Condition()
         # failover: the supervisor picks the backend per group; the
         # fallback is a CPU route, so it serves when the card does not
         self.failover: Optional[FailoverSupervisor] = None
@@ -650,7 +854,7 @@ class ScoringEngine:
                 seed=self.cfg.seed, device="cpu")
             self.failover = FailoverSupervisor(
                 self.cfg.model, self.backend,
-                _BACKENDS[fo_cfg.fallback_model](fb_cfg), fo_cfg)
+                _BACKENDS[fo_cfg.fallback_model](fb_cfg, mesh=None), fo_cfg)
         # only a backend with a non-blocking dispatch can overlap; the
         # others (zscore's ordered online update, mock, the remote
         # sidecar with its own deadline) run serially. A fallback group
@@ -659,6 +863,7 @@ class ScoringEngine:
             if _pipelined(self.backend) else 1
         self._queue: queue.Queue[ScoreRequest] = queue.Queue(
             self.cfg.max_queue)
+        self._link_stopped = False
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         # serializes backend access between the worker and warmup()
@@ -694,8 +899,33 @@ class ScoringEngine:
         self._ewma_spans_per_row: Optional[float] = None
         self._ewma_harvest_ms = 0.0
         self._last_adaptive_cap: Optional[int] = None
-        self._adaptive_gauge_key = labeled_key(ADAPTIVE_CAP_GAUGE,
-                                               model=self.cfg.model)
+        # keyed by the mesh the engine BUILT (a degraded one is "single")
+        # and the model's geometry; an unhashable geometry opts out
+        self._mesh_label = _mesh_label(self.cfg.mesh) \
+            if self.mesh is not None else "single"
+        try:
+            self._adapt_key: Optional[tuple] = (
+                self.cfg.model, self.cfg.model_config, self.cfg.mesh)
+            hash(self._adapt_key)
+        except TypeError:
+            self._adapt_key = None
+        if self.mesh is not None and self._adapt_key is not None:
+            prior = ScoringEngine._ADAPT_PRIORS.get(self._adapt_key)
+            if prior is not None:
+                (self._ewma_call_ms, self._ewma_call_spans,
+                 self._ewma_spans_per_row, self._ewma_harvest_ms) = prior
+        if self.mesh is not None:
+            self._adaptive_gauge_key = labeled_key(
+                ADAPTIVE_CAP_GAUGE, model=self.cfg.model,
+                mesh=self._mesh_label)
+        else:
+            self._adaptive_gauge_key = labeled_key(ADAPTIVE_CAP_GAUGE,
+                                                   model=self.cfg.model)
+
+    @property
+    def is_follower(self) -> bool:
+        """A rank of the engine's mesh other than its leader."""
+        return self._link is not None and not self._link.is_leader
 
     def _backends(self) -> tuple:
         """The primary and, with a breaker, the fallback."""
@@ -705,6 +935,15 @@ class ScoringEngine:
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> "ScoringEngine":
+        if self.is_follower:
+            # the follower loop mirrors the leader's calls (its warm
+            # rungs among them) until the leader's shutdown
+            if self._follower is None or not self._follower.is_alive():
+                self._follower = threading.Thread(
+                    target=self._follow, name="scoring-engine-follower",
+                    daemon=True)
+                self._follower.start()
+            return self
         if self._thread is None or not self._thread.is_alive():
             if self.cfg.warm_ladder:
                 # blocking: the caller opted in; the fallback warms too,
@@ -725,12 +964,55 @@ class ScoringEngine:
             self._thread.start()
         return self
 
+    def _follow(self, until_end: bool = False) -> None:
+        """A follower's loop: each SCORE op through the backend's sharded
+        call, until a STOP (or, with ``until_end``, an END)."""
+        if self.backend.device.type == "cuda":  # per thread: this rank's
+            torch.cuda.set_device(self.backend.device)
+        while True:
+            try:
+                op, arrays = self._link.recv()
+            except Exception:
+                self._count_error()
+                log.exception("follower lost the leader's broadcast")
+                return
+            if op == _MeshLink.STOP:
+                return
+            if op == _MeshLink.END:
+                with self._ends_cv:
+                    self._ends += 1
+                    self._ends_cv.notify_all()
+                if until_end:
+                    return
+                continue
+            try:
+                self.backend.follow(arrays)
+            except Exception:
+                self._count_error()
+                log.exception("follower call failed")
+
     def shutdown(self) -> None:
+        if self.is_follower:
+            # the loop ends at the leader's stop, however long the leader
+            # serves (a lost leader fails the loop's collective at its
+            # group's timeout); with no loop running, the stop (and any
+            # call before it) is taken here
+            if self._follower is not None:
+                self._follower.join()
+                self._follower = None
+            elif not self._link_stopped:
+                self._follow()
+            self._link_stopped = True
+            return
         self._stop.set()
         if self._thread is not None:
             # the worker drains queued + in-flight work losslessly first
             self._thread.join(timeout=30.0)
             self._thread = None
+        if self._link is not None and not self._link_stopped:
+            with self._backend_lock:
+                self._link.send([], _MeshLink.STOP)
+            self._link_stopped = True
         # fail-fast any request that raced past submit()'s stop check
         while True:
             try:
@@ -753,7 +1035,12 @@ class ScoringEngine:
         ``on_done`` is called once when the request resolves. A request
         with ``columns`` (``fused.extract_columns(batch)[0]``) is not
         featurized here: its group scores on the fused route, or the pack
-        stage featurizes it; the remote model featurizes in the sidecar."""
+        stage featurizes it; the remote model featurizes in the sidecar.
+        A follower rank of the mesh raises: requests go to the leader."""
+        if self.is_follower:
+            raise RuntimeError(
+                f"rank {self._link.dist.get_rank()} follows the engine's "
+                f"mesh: submit on its leader, rank {self._link.leader}")
         if self._stop.is_set():
             self._reject()
             return None
@@ -797,7 +1084,18 @@ class ScoringEngine:
         engine with ``online_update`` folds the batch in twice. With a
         breaker the fallback is warmed the same way (the module
         docstring's departure). Runs under the backend lock: a worker
-        scoring concurrent traffic must not interleave with the fit."""
+        scoring concurrent traffic must not interleave with the fit. On a
+        follower rank it mirrors the leader's ``warmup`` (the follower
+        loop, or here if none runs) up to the leader's END."""
+        if self.is_follower:
+            with self._ends_cv:
+                seen = self._ends
+            if self._follower is not None and self._follower.is_alive():
+                with self._ends_cv:
+                    self._ends_cv.wait_for(lambda: self._ends > seen)
+            else:
+                self._follow(until_end=True)
+            return
         feats = featurize(batch, self.cfg.featurizer)
         with self._backend_lock:
             for backend in self._backends():
@@ -805,6 +1103,8 @@ class ScoringEngine:
                 if w is not None:
                     w(batch)
                 backend.score(batch, feats)
+            if self._link is not None:
+                self._link.send([], _MeshLink.END)
 
     def count_fused_fallback(self, reason: str) -> None:
         """Count a frame its caller sent down the host route, by reason
@@ -869,9 +1169,11 @@ class ScoringEngine:
                 "spans_per_row": self._ewma_spans_per_row,
                 "harvest_ms": round(self._ewma_harvest_ms, 4),
                 "last_cap_spans": self._last_adaptive_cap,
-                "mesh": None,  # device meshes: a later slice
+                "mesh": self._mesh_label,
             },
         }
+        if self.mesh is not None:
+            out["mesh"] = dict(self.cfg.mesh)
         ladder = getattr(self.backend, "ladder", None)
         if ladder is not None:
             out["bucket_ladder"] = ladder.stats()
@@ -889,6 +1191,9 @@ class ScoringEngine:
         """Fill the in-flight window (pack + dispatch) ahead of
         harvesting, retire FIFO. With an empty queue the window drains at
         once; on stop the queue and the window drain losslessly."""
+        if self._link is not None and self.backend.device.type == "cuda":
+            # the current card is per thread: the leader's own
+            torch.cuda.set_device(self.backend.device)
         inflight: deque[_InflightGroup] = deque()
         while True:
             stopping = stop.is_set()
@@ -1155,6 +1460,12 @@ class ScoringEngine:
                     else (1 - a) * self._ewma_spans_per_row + a * spr
         self._ewma_harvest_ms = (1 - a) * self._ewma_harvest_ms \
             + a * harvest_ms
+        if self.mesh is not None and self._adapt_key is not None:
+            # the next engine on this (model geometry, mesh) starts
+            # informed; the worker is the only writer for its key
+            ScoringEngine._ADAPT_PRIORS[self._adapt_key] = (
+                self._ewma_call_ms, self._ewma_call_spans,
+                self._ewma_spans_per_row, self._ewma_harvest_ms)
 
 
 def _pipelined(backend: Any) -> bool:

@@ -224,8 +224,8 @@ class FusedSequenceBackend(SequenceBackend):
     already in span order.
     """
 
-    def __init__(self, cfg: EngineConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: EngineConfig, mesh: Any = None):
+        super().__init__(cfg, mesh=mesh)
         # (span bucket, rows) shapes already run: bucket_hit, LRU-bounded
         self._fused_shapes: OrderedDict = OrderedDict()
         self.last_span_bucket: Optional[int] = None
@@ -240,8 +240,10 @@ class FusedSequenceBackend(SequenceBackend):
 
     @property
     def supports_fused(self) -> bool:
-        """Attr-slot features need the host attr matrix: no fused route."""
-        return self.cfg.featurizer.attr_slots == 0
+        """Attr-slot features need the host attr matrix, and the mesh's
+        plan keeps its own sharded call: no fused route for either (the
+        reference's ``supports_fused``)."""
+        return self._plan is None and self.cfg.featurizer.attr_slots == 0
 
     def rows_for(self, n_real: int) -> int:
         """The packed rows of a fused call: the next-fit bound
@@ -413,6 +415,8 @@ class FusedSequenceBackend(SequenceBackend):
         the allocator holds each bucket's buffers before the first
         request."""
         super().warm()
+        if not self.supports_fused:
+            return
         top = _span_bucket(self.cfg.max_batch_spans)
         N = 512
         while N <= top:
@@ -455,7 +459,9 @@ class AutoencoderBackend(FusedSequenceBackend):
 
     def _forward(self, *arrays: Any) -> torch.Tensor:
         """The ``(R, L)`` reconstruction errors over (categorical,
-        continuous, mask)."""
+        continuous, mask); under a mesh, the plan's sharded call."""
+        if self._plan is not None:
+            return self._plan.score_spans(self.variables, *arrays)[0]
         return self.model.span_errors(*arrays)
 
     def dispatch(self, batch: Any, features: SpanFeatures) -> _Handle:

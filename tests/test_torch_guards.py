@@ -76,7 +76,7 @@ def test_port_has_the_slice_modules():
                 "kernels/ring.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/launch.py",
                 "parallel/ring_attention.py", "parallel/sharding.py",
-                "parallel/dryrun.py"):
+                "parallel/dryrun.py", "parallel/tp.py"):
         assert mod in rel, mod
     for src in ("segment_attention.cu", "span_embed.cu", "zscore.cu",
                 "trace_sort.cu", "featurize.cu", "trace_pack.cu",

@@ -19,9 +19,10 @@ which imports no JAX.
   (``tests/test_parallel.py:116``); the all-masked input gives finite zeros;
   a length that is not a multiple of the ring raises;
 * ``mesh_key`` gives the reference's labels; ``make_mesh``'s default,
-  prefix and "needs" cases; a ``"model"`` axis above 1 raises, naming
-  ROADMAP A8.2; the entry points default to the card and raise without
-  one;
+  prefix and "needs" cases; on a ``"model"`` axis above 1 the
+  transformer's score function and (on its shard) train step are built,
+  and the autoencoder's raises, naming ROADMAP A8.4; the entry points
+  default to the card and raise without one;
 * the data-parallel score function on ``{"data": 4}`` against the JAX
   ``make_sharded_score_fn`` on ``{"data": 4, "model": 1}`` (5 traces, padded
   to 8, and 12) within ``SCORE_ATOL``, the reference's own bound;
@@ -292,10 +293,15 @@ def test_make_mesh_default_prefix_and_needs(ring8):
 
 
 def test_a_model_axis_raises_naming_a8_2(ring8):
-    for c in ring8[1]:
-        for key in ("tp_step", "tp_score"):
-            assert c[key].startswith("ValueError") and "A8.2" in c[key], \
-                c[key]
+    """A model axis above 1 (ROADMAP A8.2, the transformer's): the
+    transformer's entry points take ``{"model": 2}``, each rank holding
+    its shard (one of the two heads); the autoencoder's raise, naming
+    ROADMAP A8.4."""
+    for rank, c in enumerate(ring8[1]):
+        assert c["tp_shard"] == (2, (rank % 2,), 1)
+        assert c["tp_step"] == "" and c["tp_score"] == "", c
+        assert c["ae_score"].startswith("ValueError") and \
+            "A8.4" in c["ae_score"], c["ae_score"]
 
 
 def test_partition_data_is_the_reference_s():

@@ -46,10 +46,14 @@ def ring_rank(q, k, v, mask, masked_inputs, mesh_cases=False):
 
 def mesh_rank():
     """``make_mesh`` on 8 ranks: the default shape, a prefix of the ranks,
-    a shape that needs more, and the refusals of a ``"model"`` axis."""
-    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
+    a shape that needs more; on a ``"model"`` axis of 2 the transformer's
+    entry points built (its shard for the train step) and the
+    autoencoder's refused."""
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
     from odigos_tpu_torch.parallel import (make_mesh, make_sharded_score_fn,
-                                           make_sharded_train_step, mesh_key)
+                                           make_sharded_train_step, mesh_key,
+                                           shard_model)
 
     full = make_mesh(device="cpu")
     prefix = make_mesh({"data": 3, "model": 2}, device="cpu")
@@ -58,15 +62,22 @@ def mesh_rank():
     model = TraceTransformer(TransformerConfig(
         d_model=16, n_heads=2, n_layers=1, d_ff=32, max_len=8,
         dtype=torch.float32), device="cpu")
-    opt = torch.optim.Adam(model.module.parameters(), lr=1e-3)
+    shard = shard_model(model, tp)
+    opt = torch.optim.Adam(shard.parameters(), lr=1e-3)
+    ae = SpanAutoencoder(AutoencoderConfig(
+        d_model=16, d_latent=8, n_heads=2, n_layers=1, d_ff=32, max_len=8,
+        dtype=torch.float32), device="cpu")
     return {"full": (mesh_key(full), dict(zip(full.mesh_dim_names,
                                                full.mesh.shape))),
             "prefix": (prefix.mesh.numel(), prefix.get_coordinate(),
                        mesh_key(prefix)),
             "needs": needs,
-            "tp_step": _raises(lambda: make_sharded_train_step(model, opt,
+            "tp_shard": (shard.model_axis.tp, shard.model_axis.shards,
+                         shard.module.encoder.blocks[0].n_heads),
+            "tp_step": _raises(lambda: make_sharded_train_step(shard, opt,
                                                                tp)),
-            "tp_score": _raises(lambda: make_sharded_score_fn(model, tp))}
+            "tp_score": _raises(lambda: make_sharded_score_fn(model, tp)),
+            "ae_score": _raises(lambda: make_sharded_score_fn(ae, tp))}
 
 
 def dp_rank(cfg_kwargs, state, score_inputs, train_inputs, steps, lr):
@@ -96,3 +107,139 @@ def dp_rank(cfg_kwargs, state, score_inputs, train_inputs, steps, lr):
               for k, v in model.state_dict().items()}
     return {"scores": scores, "losses": losses, "grads": grads,
             "params": params, "training": model.module.training}
+
+
+# ------------------------------------------------- the model axis (tp)
+def tp_rank(cfg_kwargs, state, score_inputs, packed_inputs, train_inputs,
+            steps, lr):
+    """The transformer on ``{"data": 2, "model": 2}`` of four ranks, from
+    the whole model's weights: ``make_sharded_score_fn`` and the plan's
+    ``score_packed`` in f32 and bf16 (and the plan's refusal of rows not
+    divisible by dp), ``steps`` train steps on this rank's shard (its
+    losses, its first step's gradients and its final parameters, in its
+    own layout), and the autoencoder's refusal of the model axis."""
+    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
+                                         TraceTransformer, TransformerConfig)
+    from odigos_tpu_torch.parallel import (compile_plan, make_mesh,
+                                           make_sharded_score_fn,
+                                           make_sharded_train_step,
+                                           shard_model)
+
+    mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        whole = TraceTransformer(TransformerConfig(dtype=dt, **cfg_kwargs),
+                                 device="cpu")
+        whole.load_state_dict(state)
+        score = make_sharded_score_fn(whole, mesh)
+        out[f"scores_{name}"] = [tuple(t.float().numpy() for t in score(*a))
+                                 for a in score_inputs]
+        plan = compile_plan(whole, mesh)
+        out[f"packed_{name}"] = [plan.score_packed(state, *a).numpy()
+                                 for a in packed_inputs]
+        out[f"placed_bytes_{name}"] = plan.placed_bytes()
+    odd = [a[:-1] for a in packed_inputs[0]]
+    out["odd_rows"] = _raises(lambda: plan.score_packed(state, *odd))
+    whole = TraceTransformer(TransformerConfig(dtype=torch.float32,
+                                               **cfg_kwargs), device="cpu")
+    whole.load_state_dict(state)
+    model = shard_model(whole, mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    step = make_sharded_train_step(model, opt, mesh)
+    losses = [float(step(*train_inputs))]
+    out["grads"] = {name: p.grad.numpy().copy()
+                    for name, p in model.module.named_parameters()}
+    losses += [float(step(*train_inputs)) for _ in range(steps - 1)]
+    out["losses"] = losses
+    out["params"] = {k: v.detach().numpy().copy()
+                     for k, v in model.state_dict().items()}
+    out["unsharded_step"] = _raises(
+        lambda: make_sharded_train_step(whole, opt, mesh))
+    ae = SpanAutoencoder(AutoencoderConfig(
+        d_model=32, d_latent=16, n_heads=2, n_layers=1, d_ff=64,
+        max_len=16, dtype=torch.float32), device="cpu")
+    out["ae_score"] = _raises(lambda: make_sharded_score_fn(ae, mesh))
+    out["ae_plan"] = _raises(lambda: compile_plan(ae, mesh))
+    return out
+
+
+def engine_mesh_rank(bundle, batches, max_len, trace_bucket, rungs,
+                     ae_kwargs):
+    """The engine on the meshes ``{"data": 4}`` and ``{"data": 2,
+    "model": 2}`` of four ranks, serving a bundle: who owns the mesh, the
+    ladder's alignment and misses, the leader's scores of ``batches`` on
+    the host route and with columns (the fused route falling back), the
+    per-mesh priors, a follower's ``submit`` refusal and every rank's
+    shutdown; the autoencoder (``ae_kwargs``) on ``{"data": 4}``; then an
+    unbackable mesh and the quantized refusal."""
+    from odigos_tpu_torch.serving.engine import (
+        MESH_UNAVAILABLE_METRIC, EngineConfig, ScoringEngine)
+    from odigos_tpu_torch.serving.fused import extract_columns
+    from odigos_tpu_torch.utils.telemetry import labeled_key, meter
+
+    def cfg(mesh, **kw):
+        return EngineConfig(model="transformer", checkpoint_path=bundle,
+                            mesh=mesh, max_len=max_len,
+                            trace_bucket=trace_bucket, bucket_ladder=rungs,
+                            device="cpu", **kw)
+
+    out = {"rank": dist.get_rank()}
+    for key, mesh in (("dp", {"data": 4}), ("tp", {"data": 2, "model": 2})):
+        eng = ScoringEngine(cfg(mesh, warm_ladder=True)).start()
+        r = {"owner": (eng.mesh is not None and eng.backend.mesh is eng.mesh
+                       and eng.backend._plan is not None
+                       and eng.backend._plan.mesh is eng.mesh),
+             "mesh_shape": dict(zip(eng.mesh.mesh_dim_names,
+                                    eng.mesh.mesh.shape)),
+             "align": eng.backend.ladder.align,
+             "buckets": list(eng.backend.ladder.buckets),
+             "follower": eng.is_follower}
+        if eng.is_follower:
+            r["submit"] = _raises(lambda: eng.submit(batches[0]))
+        else:
+            r["misses_after_warm"] = eng.backend.ladder.misses
+            r["scores"] = [eng.score_sync(b, timeout_s=120.0)
+                           for b in batches]
+            r["col_scores"] = []
+            for b in batches:  # one at a time: the host route's groups
+                q = eng.submit(b, columns=extract_columns(b)[0])
+                r["col_scores"].append(q.scores if q.done.wait(120.0)
+                                       else None)
+            st = eng.stats()
+            r["fallback_backend"] = st["odigos_fastpath_fused_fallback_total"][
+                "backend"]
+            r["fused_calls"] = st["fused_calls"]
+            r["misses"] = eng.backend.ladder.misses
+            r["hits"] = eng.backend.ladder.hits
+            r["stats_mesh"] = (st["adaptive"]["mesh"], st.get("mesh"))
+            r["learned"] = eng._ms_per_span() is not None
+        loop = eng._follower
+        eng.shutdown()
+        r["loop_alive"] = loop is not None and loop.is_alive()
+        # a new engine on the same mesh starts from the learned estimates
+        # (the leader's: the followers retire no calls)
+        eng2 = ScoringEngine(cfg(mesh))
+        r["prior"] = eng2._ms_per_span() is not None
+        eng2.shutdown()
+        out[key] = r
+    # the autoencoder on the data axis, its weights from the seed
+    from odigos_tpu_torch.models import AutoencoderConfig
+
+    ae = ScoringEngine(EngineConfig(
+        model="autoencoder", mesh={"data": 4}, max_len=max_len,
+        trace_bucket=trace_bucket, bucket_ladder=rungs, device="cpu",
+        model_config=AutoencoderConfig(**ae_kwargs))).start()
+    if not ae.is_follower:
+        out["ae_scores"] = [ae.score_sync(b, timeout_s=120.0)
+                            for b in batches]
+    ae.shutdown()
+    meter.reset()
+    eng = ScoringEngine(cfg({"data": 64}))
+    out["unbackable"] = (eng.mesh is None, eng.backend._plan is None,
+                         eng.backend.ladder.align,
+                         meter.counter(labeled_key(MESH_UNAVAILABLE_METRIC,
+                                                   model="transformer")),
+                         eng.stats()["adaptive"]["mesh"])
+    out["quantized"] = _raises(lambda: ScoringEngine(
+        cfg({"data": 2, "model": 2}, quantized=True)))
+    return out
