@@ -6092,6 +6092,520 @@ def phase_model_axis(card: str) -> dict:
     return out
 
 
+# ------------------------------------- phase 22: the autoencoder's axis
+AEMA_TRACES = (512, 4096)       # requests: M = 32,768 and 262,144 positions
+AEMA_KERNEL_T = 2048            # K11 "slice" / K24 on the decoder's rows
+# the served bf16 model at tp 2 / 4 vs the unsharded kernel path, on the
+# squashed scores 1 - exp(-err) with AE_SCALED_WEIGHTS: sound runs read
+# 4.9e-4 at most (NVIDIA H100 80GB HBM3 at 700.00 W); a merge that drops the log-sum-exps of
+# the shards past the first reads ~1e-2 (_planted_merge, run by the phase)
+AEMA_BF16_BOUND = 2e-3
+AE_TP_COUNTERS = (("segment_attention", "attention"), ("span_embed", "embed"),
+                  ("ln_bf16", "dense", "ln_launches"),
+                  ("gemm_bf16", "dense", "gemm_launches"),
+                  ("tp_epilogue", "dense", "tp_epilogue_launches"),
+                  ("ln_masked_pool", "pool"),
+                  ("recon_ce", "recon"),
+                  ("recon_ce_slice", "recon", "slice_launches"),
+                  ("vocab_ce_merge", "recon", "merge_launches"))
+AE_TP_BWD_COUNTERS = (("recon_ce_bwd", "recon", "bwd_launches"),
+                      ("recon_ce_bwd_slice", "recon", "bwd_slice_launches"))
+AE_TP_PLAINS = MA_PLAINS + (("pool", "ln_masked_pool_plain"),
+                            ("recon", "recon_ce_plain"),
+                            ("recon", "recon_ce_slice_plain"),
+                            ("recon", "vocab_ce_merge_plain"))
+
+
+def _zero_ae_tp() -> None:
+    from odigos_tpu_torch import kernels
+
+    _zero_tp()
+    for _, mod, *attr in AE_TP_COUNTERS + AE_TP_BWD_COUNTERS:
+        setattr(getattr(kernels, mod), attr[0] if attr else "launches", 0)
+
+
+def _ae_tp_launches(cfg, tp: int) -> tuple[dict, dict]:
+    """``score_spans``' launches on ``tp`` in-process shards of the
+    autoencoder, and K15's by epilogue: a group the axis does not divide
+    (attention heads, encoder FFN, decoder FFN; ``sharding.group_tp``, the
+    rule the shards are built by) runs whole on the first shard."""
+    from odigos_tpu_torch.parallel.sharding import group_tp
+
+    nl = cfg.n_layers
+    groups = group_tp(cfg, {"model": tp})
+    ta, tf, td = groups["attn"], groups["ffn"], groups["dec_ff"]
+    modes = {"none": nl * ta + (td == 1), "gelu_tanh_formula": 0,
+             "residual": nl * (ta == 1) + nl * (tf == 1),
+             "gelu_tanh": nl * tf + td,
+             "partial": nl * ta * (ta > 1) + nl * tf * (tf > 1)
+             + td * (td > 1)}
+    launches = {"segment_attention": nl * ta, "span_embed": 1,
+                "ln_bf16": 2 * nl, "gemm_bf16": sum(modes.values()),
+                "tp_epilogue": nl * (ta > 1) + nl * (tf > 1) + (td > 1),
+                "ln_masked_pool": 1, "recon_ce": tp, "recon_ce_slice": tp,
+                "vocab_ce_merge": 1}
+    return launches, modes
+
+
+def _planted_merge(merge):
+    """``merge`` (K24) made to drop the log-sum-exps of every shard past
+    the first (a planted fault: the served check must see it)."""
+    def planted(rec, *args, **kw):
+        rec = rec.clone()
+        rec[1:, :, 0] = float("-inf")
+        rec[1:, :, 2] = float("-inf")
+        return merge(rec, *args, **kw)
+    return planted
+
+
+def phase_ae_model_axis(card: str) -> dict:
+    """The autoencoder on the in-process model axis (``LocalModelAxis``):
+    the served model (bf16, full width) at tp 2 and 4 on requests of 512 and
+    4,096 traces against the unsharded kernel path (within
+    ``AEMA_BF16_BOUND``, which a planted fault in the merge must break),
+    the f32 model at tp 2;
+    K11 "slice" on both routes against its plain version at the tp-2 and
+    tp-4 shard shapes (tp 1: K11's bits), timed beside K11 and the library
+    chain; K24 bit-equal to its plain version; K15 "partial" at the
+    decoder's N 128 on both routes; K20 "slice" at the trainer's shape;
+    three tp-2 training steps against tp 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from odigos_tpu_torch.kernels import dense
+    from odigos_tpu_torch.kernels import recon as krecon
+    from odigos_tpu_torch.kernels.quant import layer_norm_plain
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.models import autoencoder as ae_mod
+    from odigos_tpu_torch.models.jax_init import autoencoder_state
+    from odigos_tpu_torch.parallel import LocalModelAxis, unshard_state
+
+    dev = torch.device("cuda")
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    out: dict = {"card": card}
+    rows = {T: _ae_rows(T, dev) for T in AEMA_TRACES}
+
+    # (a) the served model at tp 2 and 4, the f32 model at tp 2, against
+    # the unsharded kernel path on the same weights; scores 1 - exp(-err)
+    # with the loss weights scaled down (off the squash's ceiling)
+    served: dict = {}
+    totals: dict = {}
+    calls = 0  # score_spans calls under the counters
+    cases = [(AutoencoderConfig(**AE_SCALED_WEIGHTS), tp) for tp in MA_TP] + [
+        (AutoencoderConfig(dtype=torch.float32, **AE_SCALED_WEIGHTS),
+         MA_F32_TP)]
+    wholes: dict = {}
+    # the models are made outside inference_mode (score_spans runs in it):
+    # parameters made there count no versions, and K11's planes would be
+    # split anew on every call instead of once a weight tree
+    for cfg, tp in cases:
+        key = str(cfg.dtype)[6:]
+        if key not in wholes:
+            wholes[key] = SpanAutoencoder(cfg, device="cuda", seed=0)
+        whole = wholes[key]
+        m = SpanAutoencoder(cfg, device="cuda", seed=0,
+                            model_axis=LocalModelAxis(tp))
+        want_l, want_m = _ae_tp_launches(cfg, tp)
+        for T, a in rows.items():
+            ref, _ = whole.score_spans(*a)
+            _zero_ae_tp()
+            with _PlainCalls(AE_TP_PLAINS) as plain:
+                err, _ = m.score_spans(*a)
+                torch.cuda.synchronize()
+            launches = _read_counters(AE_TP_COUNTERS)
+            calls += 1
+            modes = {k: v for k, v in dense.gemm_mode_launches.items()
+                     if k in want_m}
+            check(plain.calls == {}, f"ae tp {tp} {key} T{T} called "
+                                     f"plain versions: {plain.calls}")
+            check(launches == want_l, f"ae tp {tp} {key} T{T} launches "
+                                      f"{launches} != {want_l}")
+            check(modes == want_m, f"ae tp {tp} {key} T{T} K15 modes "
+                                   f"{modes} != {want_m}")
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            live = a[2]
+            check(bool(torch.isfinite(err[live]).all()),
+                  f"ae tp {tp} {key} T{T}: non-finite errors")
+            check(bool((err[~live] == 0).all()),
+                  f"ae tp {tp} {key} T{T}: padding scored")
+            p, p_ref = 1 - torch.exp(-err), 1 - torch.exp(-ref)
+            diff = (p - p_ref).abs()[live]
+            lim = AEMA_BF16_BOUND if key == "bfloat16" else MA_F32_ATOL
+            check(diff.max().item() <= lim,
+                  f"ae tp {tp} {key} T{T}: max |tp - unsharded| "
+                  f"{diff.max().item()} > {lim}")
+            rel = ((err - ref).abs() / ref.abs().clamp(min=1e-6))[live]
+            planted = {}
+            if key == "bfloat16" and T == AEMA_TRACES[0]:
+                # the planted fault, past the counters: the same check
+                # must fail on it
+                ae_mod.vocab_ce_merge = _planted_merge(krecon.vocab_ce_merge)
+                try:
+                    bad, _ = m.score_spans(*a)
+                finally:
+                    ae_mod.vocab_ce_merge = krecon.vocab_ce_merge
+                pd = ((1 - torch.exp(-bad)) - p_ref).abs()[live].max().item()
+                check(pd > lim, f"ae tp {tp}: a merge that drops shards' "
+                                f"log-sum-exps reads {pd} <= {lim}")
+                planted = {"planted_fault_max_abs_diff": pd}
+            served[f"{key}_tp{tp}_T{T}"] = {
+                **planted,
+                "M": T * 64, "real_positions": int(live.sum().item()),
+                "max_abs_diff": diff.max().item(), "bound": lim,
+                "max_rel_err_diff": rel.max().item(),
+                "bit_equal_share": (diff == 0).float().mean().item(),
+                "launches_per_call": launches, "k15_modes": modes,
+                "device_ms": device_ms(lambda: m.score_spans(*a), flush,
+                                       reps=10),
+                "unsharded_device_ms": device_ms(
+                    lambda: whole.score_spans(*a), flush, reps=10),
+                # the host's enqueue a call: where it passes the card's
+                # spin, device_ms counts the card waiting for it
+                "host_ms_per_call": host_us(lambda: m.score_spans(*a),
+                                            calls=10) / 1e3,
+                "unsharded_host_ms_per_call": host_us(
+                    lambda: whole.score_spans(*a), calls=10) / 1e3}
+            print(f"chip_smoke: ae tp {tp} {key} T{T}: "
+                  f"{served[f'{key}_tp{tp}_T{T}']['device_ms']:.3f} ms "
+                  f"(unsharded "
+                  f"{served[f'{key}_tp{tp}_T{T}']['unsharded_device_ms']:.3f}"
+                  f"); max diff {diff.max().item():.3g}", flush=True)
+        del m
+    out["served"] = served
+    out["launches"] = totals
+    out["calls"] = calls
+
+    # (b) K11 "slice" on the served model's own decoder rows at T 2048, the
+    # first shard of tp 1, 2 and 4, both routes, against its plain version
+    # (RECON_ATOL on every record field; the label logits' NaN where the
+    # shard holds no label equal), timed beside the unsharded K11 and the
+    # library chain; tp 1 through K24 is K11's errors bit for bit. (c) K24
+    # on those records: bit-equal to its plain version, timed beside it.
+    cfg = AutoencoderConfig(**AE_SCALED_WEIGHTS)
+    weights = (cfg.w_service, cfg.w_name, cfg.w_kind, cfg.w_duration)
+    k11s: dict = {}
+    k24: dict = {}
+    T = AEMA_KERNEL_T
+    cat, cont, mask = _ae_rows(T, dev)
+    M, d = T * 64, cfg.d_model
+    flat = (cat.reshape(M, -1), cont.reshape(M, -1), mask.reshape(M))
+    real = int(flat[2].sum().item())
+    idx = torch.nonzero(flat[2]).flatten()
+    lab = flat[0][idx].long()
+    with torch.no_grad():
+        whole = wholes["bfloat16"]
+        dec16 = whole._decode(cat, cont, mask, reference=False)
+        dl = whole.module.dec_ln
+        for tp in (1,) + MA_TP:
+            m = SpanAutoencoder(cfg, device="cuda", seed=0,
+                                model_axis=LocalModelAxis(tp))
+            m0 = m.module  # the first shard: K11 "slice"'s inputs
+            heads, vsl = m0.heads(), m0.vocab_slice()
+            planes = m0.head_planes()
+            vs = tuple(h[0].shape[0] for h in heads[:2])
+            for route, dec in (("tc", dec16), ("cuda_core", dec16.float())):
+                pl = planes if route == "tc" else None
+                sargs = (dec, dl.weight, dl.bias, heads, *flat, vsl)
+                got = krecon.recon_ce_slice(*sargs, planes=pl, route=route)
+                ref = krecon.recon_ce_slice_plain(*sargs)
+                torch.cuda.synchronize()
+                g, r = got[idx], ref[idx]
+                cols = [0, 2, 4, 5] + ([6] if route == "cuda_core" else [])
+                diff = (g[:, cols] - r[:, cols]).abs().max().item()
+                zl, zl_r = g[:, [1, 3]], r[:, [1, 3]]
+                check(torch.equal(zl.isnan(), zl_r.isnan()),
+                      f"recon_ce_slice tp {tp} {route}: label logits held "
+                      f"elsewhere")
+                diff = max(diff, (zl - zl_r).nan_to_num().abs().max().item())
+                check(diff <= RECON_ATOL, f"recon_ce_slice tp {tp} {route}: "
+                                          f"max |kernel - plain| {diff} > "
+                                          f"{RECON_ATOL}")
+                if tp == 1:
+                    err = krecon.vocab_ce_merge(got[None], flat[0], flat[2],
+                                                vsl.vf, vs, weights)
+                    k11 = krecon.recon_ce(dec, dl.weight, dl.bias, heads,
+                                          *flat, weights, planes=pl,
+                                          route=route)
+                    check(torch.equal(err, k11), f"recon_ce_slice {route}: "
+                                                 f"tp 1 + K24 is not K11")
+                y = layer_norm_plain(dec[idx], dl.weight, dl.bias).float()
+
+                def library(y=y, heads=heads, vsl=vsl):
+                    lo = [F.linear(y, w, b) for w, b in heads]
+                    outs = []
+                    for h in range(2):
+                        i, _, own = krecon.take_slice_labels(
+                            lab[:, h], vsl.vf[h], vsl.lo[h], lo[h].shape[1])
+                        outs += [torch.logsumexp(lo[h], -1),
+                                 lo[h].gather(1, i[:, None])[:, 0]]
+                    return outs
+
+                V = vs[0] + vs[1] + 9
+                b_ms, b_by, nb = _k11_bound(real, M, d, V, vs[0] + vs[1],
+                                            route, dec.element_size())
+                t = timings(lambda: krecon.recon_ce_slice(*sargs, planes=pl,
+                                                          route=route),
+                            lambda: krecon.recon_ce_slice_plain(*sargs),
+                            library, flush)
+                wpl = whole.module.head_planes() if route == "tc" else None
+                k11_ms = device_ms(lambda: krecon.recon_ce(
+                    dec, dl.weight, dl.bias, whole.module.heads(), *flat,
+                    weights, planes=wpl, route=route), flush)
+                k11s[f"{route}_tp{tp}"] = {
+                    **t, "route": route, "tp": tp, "T": T, "M": M,
+                    "real_positions": real, "vocab_slice": list(vs),
+                    "max_abs_diff": diff, "bound": RECON_ATOL,
+                    "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                    "unsharded_k11_device_ms": k11_ms,
+                    "library": "F.linear on the slice + torch.logsumexp + "
+                               "the label gather (y precomputed)",
+                    **_ratios({**t, "bound_ms": b_ms})}
+                print(f"chip_smoke: recon_ce_slice {route} tp {tp}: "
+                      f"{t['device_ms']:.4f} ms (K11 {k11_ms:.4f}, bound "
+                      f"{b_ms:.5f}); diff {diff:.3g}", flush=True)
+                if tp == 1 or route != "cuda_core":
+                    continue
+                # K24 on every shard's records (the f32 route: with the
+                # merged log-sum-exps K20 reads)
+                recs = torch.stack([krecon.recon_ce_slice(
+                    dec, dl.weight, dl.bias, sm.heads(), *flat,
+                    sm.vocab_slice(), route=route) for sm in m.shards])
+                lse = torch.empty(M, 3, device=dev)
+                lse_p = torch.empty(M, 3, device=dev)
+                margs = (recs, flat[0], flat[2], vsl.vf, vs, weights)
+                got = krecon.vocab_ce_merge(*margs, lse=lse)
+                ref = krecon.vocab_ce_merge_plain(*margs, lse=lse_p)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref) and torch.equal(lse, lse_p),
+                      f"vocab_ce_merge tp {tp}: not bit-equal to plain")
+                k11_err = krecon.recon_ce(dec, dl.weight, dl.bias,
+                                          whole.module.heads(), *flat,
+                                          weights, route=route)
+                vs_diff = (got - k11_err).abs().max().item()
+                check(vs_diff <= RECON_ATOL, f"vocab_ce_merge tp {tp}: "
+                                             f"{vs_diff} from K11")
+                # what the kernel moves: at a real position rank 0's
+                # record, the first half of each other rank's (a sliced
+                # head's lse and label logit) and two labels; at every
+                # position the mask byte, the error and the merged lse
+                nb = real * (32 + 16 * (tp - 1) + 8) + M * (1 + 4 + 12)
+                b_ms, b_by = bound(nb, real * (8 * tp + 14), F32_FLOPS)
+                t = timings(lambda: krecon.vocab_ce_merge(*margs, lse=lse),
+                            lambda: krecon.vocab_ce_merge_plain(
+                                *margs, lse=lse_p), None, flush)
+                k24[f"tp{tp}"] = {
+                    **t, "tp": tp, "T": T, "M": M, "real_positions": real,
+                    "max_abs_diff": 0.0, "bound": "bit-equal",
+                    "max_abs_diff_to_k11": vs_diff, "bound_ms": b_ms,
+                    "bound_by": b_by, "bytes": nb,
+                    "library": None, **_ratios({**t, "bound_ms": b_ms})}
+                print(f"chip_smoke: vocab_ce_merge tp {tp}: "
+                      f"{t['device_ms']:.4f} ms (bound {b_ms:.5f}, torch "
+                      f"chain {t['plain_device_ms']:.4f})", flush=True)
+            del m
+    out["k11_slice"] = k11s
+    out["k24"] = k24
+
+    # K15 "partial" at the decoder's dec_ff2 shard (N = d_model 128, K =
+    # d_ff / tp), both routes, against gemm_bf16_plain's, as phase 21 (d)
+    # holds it at N 256; beside K15 "none" at the same shape
+    g = torch.Generator(device=dev).manual_seed(6)
+    partial: dict = {}
+    N = cfg.d_model
+    for tp in MA_TP:
+        K = cfg.d_ff // tp
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(M, K, generator=g, device=dev).to(dt)
+            w = (torch.randn(N, K, generator=g, device=dev)
+                 / math.sqrt(K)).to(dt)
+            b = torch.randn(N, generator=g, device=dev).to(dt)
+            got = dense.gemm_bf16(x, w, None, "partial")
+            ref = dense.gemm_bf16_plain(x, w, None, "partial")
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32, "partial is not f32")
+            if dt == torch.bfloat16:
+                lim = gemm_bound(x, w, ref, "none")
+                diff, n_diff = _gemm_diff(got, ref, lim, f"gemm_bf16 partial "
+                                                         f"dec_ff2 tp {tp}")
+            else:
+                diff, lim = _rel_check(got, ref, MA_F32_PARTIAL_RTOL,
+                                       f"gemm_f32 partial dec_ff2 tp {tp}")
+                n_diff = int((got != ref).sum().item())
+            esz = x.element_size()
+            bms, by = bound(M * K * esz + N * K * esz + M * N * 4,
+                            2 * M * N * K,
+                            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+
+            def lib(x=x, w=w, dt=dt):
+                if dt == torch.float32:
+                    return torch.mm(x, w.t())
+                return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+            try:
+                lib()
+                library = lib
+            except (RuntimeError, TypeError):
+                library = None  # no one call in this PyTorch
+            t = timings(lambda: dense.gemm_bf16(x, w, None, "partial"),
+                        lambda: dense.gemm_bf16_plain(x, w, None, "partial"),
+                        library, flush)
+            partial[f"dec_ff2_tp{tp}_{str(dt)[6:]}"] = {
+                **t, "max_abs_diff": diff, "bound": lim, "differing": n_diff,
+                "M": M, "N": N, "K": K, "bound_ms": bms, "bound_by": by,
+                "none_device_ms": device_ms(lambda: dense.gemm_bf16(
+                    x, w, b), flush),
+                **_ratios({**t, "bound_ms": bms})}
+    out["k15_partial_n128"] = partial
+
+    # (d) K20 "slice" at the trainer's shape (f32, 64 traces of L 32, the
+    # reference's seed weights) on both shards of tp 2, against its plain
+    # version; beside the unsharded K20
+    tcfg = AutoencoderConfig(max_len=TRAIN_LEN, dtype=torch.float32)
+    state = autoencoder_state(tcfg, 0)
+    data = _ae_train_step_data()
+    targs = (data.categorical, data.continuous, data.mask)
+    k20: dict = {}
+    with torch.no_grad():
+        whole = SpanAutoencoder(tcfg, device="cuda")
+        whole.load_state_dict(state)
+        c_, k_, m_ = whole._inputs(*targs)
+        dec = whole._decode(c_, k_, m_, reference=False)
+        Mt = dec.shape[0]
+        tflat = (c_.reshape(Mt, -1), k_.reshape(Mt, -1), m_.reshape(Mt))
+        dl = whole.module.dec_ln
+        tw = (tcfg.w_service, tcfg.w_name, tcfg.w_kind, tcfg.w_duration)
+        lse = torch.empty(Mt, 3, device=dev)
+        krecon.recon_ce(dec, dl.weight, dl.bias, whole.module.heads(),
+                        *tflat, tw, route="cuda_core", lse=lse)
+        derr = tflat[2].float() / tflat[2].sum().float()
+        treal = int(tflat[2].sum().item())
+        m = SpanAutoencoder(tcfg, device="cuda",
+                            model_axis=LocalModelAxis(MA_F32_TP))
+        m.load_state_dict(state)
+        for sm in m.shards:
+            bargs = (dec, dl.weight, dl.bias, sm.heads(), lse, *tflat, derr,
+                     tw)
+            kw = dict(vslice=sm.vocab_slice(), dy_heads=sm.dy_heads())
+            got = krecon.recon_ce_bwd(*bargs, **kw)
+            ref = krecon.recon_ce_bwd_plain(*bargs, **kw)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for what, a, b in [("dy", got.dy, ref.dy)] + [
+                    (f"{p}{h}", x, y) for h, (gp, rp) in enumerate(
+                        zip(got.heads, ref.heads))
+                    for p, x, y in (("dW", gp[0], rp[0]),
+                                    ("db", gp[1], rp[1]))]:
+                lim = RECON_BWD_RTOL * b.abs().max().item()
+                e = (a - b).abs().max().item()
+                check(e <= lim, f"recon_ce_bwd slice r{sm.rank} {what}: "
+                                f"{e} > {lim}")
+                worst = max(worst, e / lim if lim else 0.0)
+            vsr = [h[0].shape[0] for h in sm.heads()]
+            V = sum(vsr)
+            nb = treal * (d * 4 + 12 + 16 + 4) + Mt * (1 + d * 4) \
+                + V * d * 4 * 2 + V * 8
+            b_ms, b_by = bound(nb, 3 * 2 * treal * V * d, F32_FLOPS)
+            t = timings(lambda: krecon.recon_ce_bwd(*bargs, **kw),
+                        lambda: krecon.recon_ce_bwd_plain(*bargs, **kw),
+                        None, flush)
+            k20[f"tp{MA_F32_TP}_r{sm.rank}"] = {
+                **t, "tp": MA_F32_TP, "rank": sm.rank, "M": Mt,
+                "real_positions": treal, "dy_heads": kw["dy_heads"],
+                "max_abs_diff": max((got.dy - ref.dy).abs().max().item(),
+                                    0.0),
+                "worst_ratio_to_bound": worst, "bound": RECON_BWD_RTOL,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nb,
+                "unsharded_k20_device_ms": device_ms(
+                    lambda: krecon.recon_ce_bwd(
+                        dec, dl.weight, dl.bias, whole.module.heads(), lse,
+                        *tflat, derr, tw), flush),
+                "library": None, **_ratios({**t, "bound_ms": b_ms})}
+        del m
+    out["k20_slice"] = k20
+
+    # (e) three tp-2 training steps at the autoencoder trainer's width (f32)
+    # against tp 1 from the same weights: step 0's gradients, the losses,
+    # and the replicated parameters every shard steps (the kind and
+    # duration heads, the vocabulary heads' whole biases) bit-equal
+    runs = {}
+    for tp in (1, MA_F32_TP):
+        m = SpanAutoencoder(tcfg, device="cuda",
+                            model_axis=None if tp == 1
+                            else LocalModelAxis(tp))
+        m.load_state_dict(state)
+        opt = torch.optim.AdamW(m.parameters(), lr=3e-3, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4)
+        losses, grads0 = [], None
+        _zero_ae_tp()
+        with _PlainCalls(AE_BWD_PLAINS + AE_TP_PLAINS) as plain:
+            for i in range(MA_TRAIN_STEPS):
+                m.train()
+                opt.zero_grad(set_to_none=True)
+                loss = m.loss_fn(*targs)
+                loss.backward()
+                if i == 0:
+                    shards = [{n: (p.grad if p.grad is not None
+                                   else torch.zeros_like(p)).detach().clone()
+                               for n, p in sm.named_parameters()}
+                              for sm in m.shards]
+                    grads0 = shards[0] if tp == 1 else unshard_state(
+                        shards, {"model": tp}, tcfg)
+                opt.step()
+                losses.append(float(loss.detach()))
+            m.train(False)
+            torch.cuda.synchronize()
+        check(plain.calls == {}, f"ae tp {tp} training called plain "
+                                 f"versions: {plain.calls}")
+        replicas = None
+        if tp > 1:
+            names = ("kind_head.weight", "kind_head.bias",
+                     "duration_head.weight", "duration_head.bias",
+                     "service_head.bias", "name_head.bias")
+            sds = [sm.state_dict() for sm in m.shards]
+            for n in names:
+                check(all(torch.equal(sd[n], sds[0][n]) for sd in sds[1:]),
+                      f"ae tp {tp} training: {n} differs across shards")
+            replicas = list(names)
+        runs[tp] = {"losses": losses, "grads0": grads0, "replicas": replicas,
+                    "launches": _read_counters(
+                        AE_TP_COUNTERS + AE_TP_BWD_COUNTERS
+                        + AE_BWD_COUNTERS)}
+    top = max(v.abs().max().item() for v in runs[1]["grads0"].values())
+    worst = 0.0
+    for n, ref in runs[1]["grads0"].items():
+        if n.endswith("key.bias"):  # no gradient: softmax's invariance
+            continue
+        lim = TRAIN_GRAD_RTOL * ref.abs().max().item() + TRAIN_GRAD_FLOOR * top
+        diff = (runs[MA_F32_TP]["grads0"][n] - ref).abs().max().item()
+        check(diff <= lim, f"ae tp {MA_F32_TP} step 0 gradient {n}: max "
+                           f"|tp - tp1| {diff} > {lim}")
+        worst = max(worst, diff / lim)
+    for a, b in zip(runs[MA_F32_TP]["losses"], runs[1]["losses"]):
+        check(abs(a - b) <= TRAJ_RTOL * abs(b),
+              f"ae tp {MA_F32_TP} losses {runs[MA_F32_TP]['losses']} vs tp 1 "
+              f"{runs[1]['losses']}")
+    tl = runs[MA_F32_TP]["launches"]
+    steps = MA_TRAIN_STEPS
+    check(tl["recon_ce_slice"] == MA_F32_TP * steps
+          and tl["vocab_ce_merge"] == steps
+          and tl["recon_ce_bwd_slice"] == MA_F32_TP * steps
+          and tl["recon_ce_bwd"] == MA_F32_TP * steps,
+          f"ae tp {MA_F32_TP} training launches {tl}")
+    out["train"] = {"losses_tp1": runs[1]["losses"],
+                    f"losses_tp{MA_F32_TP}": runs[MA_F32_TP]["losses"],
+                    "grad_worst_ratio_to_bound": worst,
+                    "replicas_bit_equal": runs[MA_F32_TP]["replicas"],
+                    f"launches_tp{MA_F32_TP}": tl,
+                    "launches_tp1": runs[1]["launches"]}
+    emit({"phase": "ae_model_axis", **out})
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -6132,6 +6646,7 @@ def main() -> int:
     parallel = timed(phase_parallel_path, card)
     timed(phase_engine_contract, card)
     model_axis = timed(phase_model_axis, card)
+    ae_axis = timed(phase_ae_model_axis, card)
     emit({"phase_seconds": seconds})
     R = max(R_SHAPES)
     src = "odigos_tpu_torch/kernels/csrc/"
@@ -6157,7 +6672,8 @@ def main() -> int:
                "recon_ce_bwd": src + "recon_ce_bwd.cu",
                "ln_masked_pool_bwd": src + "ae_pool_bwd.cu",
                "ring_block_attention": src + "ring_attention.cu",
-               "tp_epilogue": src + "dense.cu"}
+               "tp_epilogue": src + "dense.cu",
+               "vocab_ce_merge": src + "vocab_merge.cu"}
     replaces = {"segment_attention": "odigos_tpu/models/layers.py:72",
                 "span_embed": "odigos_tpu/models/layers.py:35",
                 "zscore_update": "odigos_tpu/models/zscore.py:101",
@@ -6185,7 +6701,11 @@ def main() -> int:
                 # XLA's psum of the row-parallel out-projection (and
                 # Dense_1), its bias and the residual add under the
                 # "model" axis (odigos_tpu/parallel/sharding.py:97-106)
-                "tp_epilogue": "odigos_tpu/models/layers.py:76"}
+                "tp_epilogue": "odigos_tpu/models/layers.py:76",
+                # XLA's cross-shard max, sum and label gather of _ce's
+                # log_softmax over the "model"-sliced vocabulary heads
+                # (odigos_tpu/parallel/sharding.py:104), then _errors' sum
+                "vocab_ce_merge": "odigos_tpu/models/autoencoder.py:93"}
     designs = {"segment_attention": "L, hd <= 64: mma.sync+cp.async "
                                     "persistent 2-stage; past them 64-key "
                                     "tiles, online softmax (mma.sync bf16, "
@@ -6416,7 +6936,18 @@ def main() -> int:
                               "16-byte vectors; K15's pair arithmetic "
                               "(round(res + round(round(acc) + b)) by "
                               "bf16x2 adds; f32 __fadd_rn), so at tp 1 "
-                              "its bits are K15's"}
+                              "its bits are K15's",
+               "vocab_ce_merge": "a thread a position, grid-stride: the "
+                                 "shards' gathered records (two float4 "
+                                 "each), each sliced head's log-sum-exp "
+                                 "merged over the parts in rank order "
+                                 "(max, then the sum of expf(l - max), "
+                                 "IEEE steps), a whole head's rank 0's, "
+                                 "the label's logit from the owning rank "
+                                 "(take_label against the whole head: NaN "
+                                 "past it), the error in K11's "
+                                 "weighted_error steps, the merged "
+                                 "log-sum-exps for K20"}
     # each kernel's launches on its own path's run: K1, K2, K14 and K15 on
     # the main path (the host route), K5-K8 on the fused path
     launches = {**fused_path["launches"], **zs_path["launches"],
@@ -6704,6 +7235,33 @@ def main() -> int:
         if ln_["name"] == "gemm_bf16":
             ln_["partial"] = model_axis["k15_partial"]
             ln_["model_axis_launches"] = model_axis["launches"]["gemm_bf16"]
+    # the autoencoder on the model axis (phase_ae_model_axis): K24's line
+    # (its numbers at tp 2 on T 2048's records; launches over the phase's
+    # served calls), K11's and K20's "slice" rows on their lines
+    launches["vocab_ce_merge"] = ae_axis["launches"]["vocab_ce_merge"]
+    head = ae_axis["k24"]["tp2"]
+    lines.append(line("vocab_ce_merge", head, {
+        "shape": [head["tp"], head["M"], 8],
+        "real_positions": head["real_positions"], "library": None,
+        "torch_chain": "vocab_ce_merge_plain (the plain version)",
+        "ratio_to_bound": head["ratio_to_bound"],
+        "max_abs_diff_to_k11": head["max_abs_diff_to_k11"],
+        "launches_per_call": ae_axis["launches"]["vocab_ce_merge"]
+        / ae_axis["calls"],
+        **{k: v for k, v in ae_axis["k24"].items() if k != "tp2"}}))
+    for ln_ in lines:
+        if ln_["name"] == "gemm_bf16":
+            ln_["partial_n128"] = ae_axis["k15_partial_n128"]
+        if ln_["name"] == "recon_ce":
+            ln_["slice"] = ae_axis["k11_slice"]
+            ln_["slice_launches"] = ae_axis["launches"]["recon_ce_slice"]
+        if ln_["name"] == "recon_ce_bwd":
+            ln_["slice"] = ae_axis["k20_slice"]
+            ln_["slice_launches"] = ae_axis["train"][
+                f"launches_tp{MA_F32_TP}"]["recon_ce_bwd_slice"]
+        if ln_["name"] in ae_axis["launches"] and ln_["name"] not in (
+                "recon_ce", "vocab_ce_merge"):
+            ln_["ae_model_axis_launches"] = ae_axis["launches"][ln_["name"]]
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

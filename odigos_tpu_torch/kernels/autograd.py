@@ -32,6 +32,13 @@ hand-written kernel too:
   log-sum-exps), backward K20 ``recon_ce_bwd`` (the gradient at
   ``dec_ln``'s output and the heads'), then K17 ``ln_bwd`` through
   ``dec_ln``.
+* :func:`recon_ce_slice` — the same on a ``"model"`` axis (the service
+  and name heads' rows sliced over it): forward each local shard's K11
+  ``"slice"`` records, the axis's gather in rank order and K24
+  ``vocab_ce_merge`` (writing the merged log-sum-exps), backward each
+  shard's K20 ``"slice"``, the shards' ``dy`` summed over the axis, K17
+  through ``dec_ln``; a sliced head's whole bias takes the shards' bias
+  gradients gathered in rank order.
 
 ``reference=True`` runs every forward and backward through the plain
 versions (a check on the card: the smoke run holds a step's gradients on
@@ -342,3 +349,97 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
     return _ReconCE.apply(dec.contiguous(), ln_weight, ln_bias, categorical,
                           continuous, mask, tuple(loss_weights), eps,
                           reference, *(t for pair in heads for t in pair))
+
+
+class _ReconCESlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dec, ln_w, ln_b, categorical, continuous, mask,
+                loss_weights, eps, reference, axis, slices, dy_heads,
+                *head_params):
+        shards = _shard_heads(head_params, slices)
+        lse = torch.empty((dec.shape[0], 3), dtype=_recon._acc(dec.dtype),
+                          device=dec.device)
+        if reference:
+            recs = [_recon.recon_ce_slice_plain(dec, ln_w, ln_b, heads,
+                                                categorical, continuous,
+                                                mask, vsl, eps)
+                    for heads, vsl in zip(shards, slices)]
+        else:
+            recs = [_recon.recon_ce_slice(dec, ln_w, ln_b, heads, categorical,
+                                          continuous, mask, vsl, eps,
+                                          route="cuda_core")
+                    for heads, vsl in zip(shards, slices)]
+        merge = (_recon.vocab_ce_merge_plain if reference
+                 else _recon.vocab_ce_merge)
+        vs = tuple(h[0].shape[0] for h in shards[0][:2])
+        err = merge(axis.gather(recs), categorical, mask, slices[0].vf, vs,
+                    loss_weights, lse=lse)
+        ctx.save_for_backward(dec, ln_w, ln_b, categorical, continuous, mask,
+                              lse, *head_params)
+        ctx.meta = (loss_weights, eps, reference, axis, slices, dy_heads)
+        return err
+
+    @staticmethod
+    def backward(ctx, derr):
+        (dec, ln_w, ln_b, categorical, continuous, mask, lse,
+         *head_params) = ctx.saved_tensors
+        loss_weights, eps, ref, axis, slices, dy_heads = ctx.meta
+        shards = _shard_heads(head_params, slices)
+        bwd = _recon.recon_ce_bwd_plain if ref else _recon.recon_ce_bwd
+        gs = [bwd(dec, ln_w, ln_b, heads, lse, categorical, continuous, mask,
+                  derr.contiguous(), loss_weights, eps, vsl, dyh)
+              for heads, vsl, dyh in zip(shards, slices, dy_heads)]
+        dy = axis.reduce([g.dy for g in gs])
+        ln_bwd = _dense.ln_bwd_plain if ref else _dense.ln_bwd
+        ddec, dlnw, dlnb = ln_bwd(dec, ln_w, dy, eps)
+        # a sliced head's whole bias: every shard's rows, in rank order
+        whole_db = {h: axis.gather([g.heads[h][1] for g in gs]).reshape(-1)
+                    for h in range(2)
+                    if shards[0][h][0].shape[0] < slices[0].vf[h]}
+        grads = []
+        for i, g in enumerate(gs):
+            for h, (dw, db) in enumerate(g.heads):
+                if h in whole_db:
+                    db = whole_db[h] if i == 0 else whole_db[h].clone()
+                grads += [dw, db]
+        return (ddec, dlnw, dlnb, None, None, None, None, None, None, None,
+                None, None, *grads)
+
+
+def _shard_heads(head_params, slices) -> list:
+    """Each local shard's four heads from its eight tensors, a sliced
+    head's bias cut to the shard's rows."""
+    out = []
+    for i, vsl in enumerate(slices):
+        t = head_params[8 * i:8 * i + 8]
+        heads = []
+        for h in range(4):
+            w, b = t[2 * h], t[2 * h + 1]
+            if h < 2 and w.shape[0] < vsl.vf[h]:
+                b = b[vsl.lo[h]:vsl.lo[h] + w.shape[0]]
+            heads.append((w, b))
+        out.append(heads)
+    return out
+
+
+def recon_ce_slice(dec: torch.Tensor, ln_weight: torch.Tensor,
+                   ln_bias: torch.Tensor,
+                   shard_params: Sequence[Sequence[tuple[torch.Tensor,
+                                                         torch.Tensor]]],
+                   slices: Sequence[_recon.VocabSlice],
+                   dy_heads: Sequence[int], axis,
+                   categorical: torch.Tensor, continuous: torch.Tensor,
+                   mask: torch.Tensor, loss_weights: Sequence[float],
+                   eps: float, reference: bool = False) -> torch.Tensor:
+    """K24's ``(M,)`` errors over a model axis ``axis`` from each local
+    shard's K11 ``"slice"`` (``shard_params``: each shard's four heads'
+    ``(weight, bias)``, a sliced head's weight its rows and its bias the
+    WHOLE bias parameter; ``slices`` and ``dy_heads``: each shard's
+    :class:`~.recon.VocabSlice` and K20 mask), with K20 ``"slice"``, the
+    axis's sum of ``dy`` and K17 behind them."""
+    _trainable(dec, "recon_ce_slice")
+    params = [t for heads in shard_params for pair in heads for t in pair]
+    return _ReconCESlice.apply(dec.contiguous(), ln_weight, ln_bias,
+                               categorical, continuous, mask,
+                               tuple(loss_weights), eps, reference, axis,
+                               tuple(slices), tuple(dy_heads), *params)

@@ -59,6 +59,7 @@ SOURCES = {
     "recon_ce_bwd": "recon_ce_bwd.cu",
     "ae_pool_bwd": "ae_pool_bwd.cu",
     "ring_attention": "ring_attention.cu",
+    "vocab_merge": "vocab_merge.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -13,7 +13,13 @@ whether its kernels take its geometry. :func:`check` is that statement:
 * ``max_len <= 1024``: K7's walk (``pack.MAX_WALK_LEN``) and K1's key
   tiles;
 * head dim ``d_model / n_heads`` at most 256: K1's tensor-core tiles keep
-  a 16-query block's output in registers.
+  a 16-query block's output in registers;
+* on a ``"model"`` axis of tp (``check(cfg, tp)``): the local widths of
+  the row-parallel products (attention ``d_model / tp``, the FFNs' ``d_ff /
+  tp``, the autoencoder's decoder FFN among them) multiples of 16. A
+  vocabulary slice of any width runs: K11's tensor-core planes pad each
+  head of a shard to whole ``recon.PLANE_PAD`` (64) columns, as they pad
+  a whole head.
 
 The float and int8 transformers and the autoencoder call it when their
 device is a card and raise the ``ValueError`` it raises, naming the limit;

@@ -26,4 +26,14 @@ __device__ __forceinline__ int take_label(int lab, int v) {
   return r >= 0 && r < v ? r : -1;
 }
 
+// The row of a head's slice [lo, lo + v) that a label takes, the label read
+// against the whole head of vf rows (take_label): -1 where it takes no row
+// of the whole head or one of another shard's slice. At lo 0 and vf v it
+// is take_label(lab, v): the unsliced heads' rule
+__device__ __forceinline__ int take_slice_label(int lab, int vf, int lo,
+                                                int v) {
+  const int r = take_label(lab, vf);
+  return r >= lo && r < lo + v ? r - lo : -1;
+}
+
 }  // namespace

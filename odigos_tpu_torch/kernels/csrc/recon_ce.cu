@@ -29,6 +29,19 @@
 // The f32 kernel (the trainer's forward) can also write each real
 // position's three log-sum-exps (lse, (M, 3)), which K20 (recon_ce_bwd.cu)
 // turns into the softmax without a second sweep of the vocabularies.
+// Slice mode (a shard of the "model" axis: odigos_tpu/parallel/sharding.py
+// :104 puts the service and name heads' columns on it, and XLA takes _ce's
+// log_softmax across the split vocabulary): the service and name heads are
+// this shard's rows [lo, lo + v) of heads of vf rows (vf = v, lo = 0: a head
+// the mesh guard keeps whole), a label read against the whole head and
+// then found in the slice (embed_take.cuh take_slice_label), and each real
+// position writes a record of kRec floats in place of its error: (lse_s,
+// zl_s, lse_n, zl_n, ce_k, dd, lse_k, 0), the slice's log-sum-exps, the
+// label's logit where the slice holds it (NaN elsewhere), the kind head's
+// cross-entropy lse_k - zl_k, dd = duration - continuous[..., 0] and lse_k
+// (0 on the wide bf16 route). K24 (vocab_merge.cu) merges the shards'
+// records into the error in weighted_error's steps, so at tp = 1 the two
+// give this kernel's bits.
 // Masked positions write 0 (the reference multiplies finite values by 0
 // there) and are not scored: on the host route ~84% of a row is padding on
 // the otel mix (10.3 spans a trace in L = 64), on the fused route (one row
@@ -158,6 +171,18 @@ __device__ __forceinline__ float weighted_error(
   e = __fadd_rn(e, __fmul_rn(w_n, __fsub_rn(lse_n, zl_n)));
   e = __fadd_rn(e, __fmul_rn(w_k, __fsub_rn(lse_k, zl_k)));
   return __fadd_rn(e, __fmul_rn(w_d, __fmul_rn(dd, dd)));
+}
+
+// slice mode: a position's record for K24 (the header's layout)
+constexpr int kRec = 8;
+
+__device__ __forceinline__ void write_record(float* r, float lse_s,
+                                             float zl_s, float lse_n,
+                                             float zl_n, float ce_k,
+                                             float dd, float lse_k) {
+  float4* r4 = reinterpret_cast<float4*>(r);
+  r4[0] = make_float4(lse_s, zl_s, lse_n, zl_n);
+  r4[1] = make_float4(ce_k, dd, lse_k, 0.f);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -301,6 +326,9 @@ struct F32Args {
   const int32_t* span_map;
   float* scores;
   float* lse;
+  int vf[2], lo[2];  // the service and name heads' whole widths and this
+                     // shard's first row (vf = v, lo = 0 unsliced)
+  float* rec;        // slice mode: (M, kRec) records, err unwritten
   F32Scratch sc;
 };
 
@@ -326,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) recon_ce_list_kernel(
   const bool in = tid < kListPos && q < M;
   const bool real = in && mask[q];
   if (in && !real) {
-    err[q] = 0.f;
+    if (err != nullptr) err[q] = 0.f;
     if (lse != nullptr)
       for (int h = 0; h < 3; ++h) lse[q * 3 + h] = 0.f;
   }
@@ -428,7 +456,8 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(const F32Args a) {
       float2 st = make_float2(0.f, 0.f);
       if (tid < np) {
         q = a.sc.list[p0 + tid];
-        lab = take_label(a.cat[(long long)q * a.C + h], V);
+        lab = take_slice_label(a.cat[(long long)q * a.C + h], a.vf[h],
+                               a.lo[h], V);
         st = a.sc.stats[p0 + tid];
       }
       s_q[tid] = q;
@@ -628,8 +657,10 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(const F32Args a) {
           lse_merge(mm, ss, mo, so);
         }
         lse3[hh] = mm + logf(ss);
-        const int lab =
-            live ? take_label(a.cat[q * a.C + hh], a.heads.v[hh]) : -1;
+        const int lab = live ? take_slice_label(a.cat[q * a.C + hh],
+                                                a.vf[hh], a.lo[hh],
+                                                a.heads.v[hh])
+                             : -1;
         zl3[hh] = lab < 0 ? NAN : __ldcg(a.sc.zl + slot * 2 + hh);
       }
       {
@@ -654,6 +685,12 @@ __global__ void __launch_bounds__(kThreads) recon_ce_kernel(const F32Args a) {
       }
       if (live && tv == 0) {
         const float dur = __ldcg(a.sc.zk + slot * nk + nk - 1);
+        if (a.rec != nullptr) {
+          write_record(a.rec + q * kRec, lse3[0], zl3[0], lse3[1], zl3[1],
+                       __fsub_rn(lse3[2], zl3[2]),
+                       __fsub_rn(dur, a.cont[q * a.D]), lse3[2]);
+          continue;
+        }
         const float e = weighted_error(lse3[0], zl3[0], lse3[1], zl3[1],
                                        lse3[2], zl3[2], dur, a.cont[q * a.D],
                                        a.w_s, a.w_n, a.w_k, a.w_d);
@@ -782,6 +819,8 @@ struct TcArgs {
   float* err;
   const int32_t* span_map;
   float* scores;
+  int vf_s, lo_s, vf_n, lo_n;  // slice mode's heads (as F32Args' vf, lo)
+  float* rec;                  // slice mode: (M, kRec) records
   const int32_t* list;   // the compacted real positions
   const float2* stats;   // their LayerNorm statistics (mean, 1 / std)
   const int32_t* count;  // how many
@@ -887,7 +926,7 @@ __global__ void __launch_bounds__(kThreads) recon_compact_kernel(
   const long long base = (long long)blockIdx.x * kThreads;
   const long long q = base + tid;
   const bool real = q < M && mask[q];
-  if (q < M && !real) err[q] = 0.f;
+  if (q < M && !real && err != nullptr) err[q] = 0.f;
   const unsigned bal = __ballot_sync(0xffffffffu, real);
   if (lane == 0) s_wcount[wid] = __popc(bal);
   __syncthreads();
@@ -1072,7 +1111,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         q = list[tid];
         st = a.stats[(long long)tile * kBM + tid];
         const int32_t* c = a.cat + (long long)q * a.C;
-        const int l0 = take_label(c[0], a.v_s), l1 = take_label(c[1], a.v_n);
+        const int l0 = take_slice_label(c[0], a.vf_s, a.lo_s, a.v_s);
+        const int l1 = take_slice_label(c[1], a.vf_n, a.lo_n, a.v_n);
         s_lab[0][tid] = l0;
         s_lab[1][tid] = l1 < 0 ? -1 : a.vs_pad + l1;
         s_lab[2][tid] = take_label(c[2], a.v_k);
@@ -1254,12 +1294,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       float km = -INFINITY, ks = 0.f;
       for (int j = 0; j < a.v_k; ++j) km = fmaxf(km, s_kz[tid][j]);
       for (int j = 0; j < a.v_k; ++j) ks += expf(s_kz[tid][j] - km);
-      const float e = weighted_error(
-          fm[0] + logf(fs[0]), fz[0], fm[1] + logf(fs[1]), fz[1],
-          km + logf(ks),
-          s_lab[2][tid] < 0 ? NAN : s_kz[tid][s_lab[2][tid]], s_kz[tid][a.v_k],
-          s_c0[tid], a.w_s, a.w_n, a.w_k, a.w_d);
+      const float lse_k = km + logf(ks);
+      const float zl_k = s_lab[2][tid] < 0 ? NAN : s_kz[tid][s_lab[2][tid]];
       const long long q = s_q[tid];
+      if (a.rec != nullptr) {
+        write_record(a.rec + q * kRec, fm[0] + logf(fs[0]), fz[0],
+                     fm[1] + logf(fs[1]), fz[1], __fsub_rn(lse_k, zl_k),
+                     __fsub_rn(s_kz[tid][a.v_k], s_c0[tid]), lse_k);
+        continue;
+      }
+      const float e = weighted_error(
+          fm[0] + logf(fs[0]), fz[0], fm[1] + logf(fs[1]), fz[1], lse_k,
+          zl_k, s_kz[tid][a.v_k], s_c0[tid], a.w_s, a.w_n, a.w_k, a.w_d);
       a.err[q] = e;
       if (a.span_map != nullptr) {
         const int idx = a.span_map[q];
@@ -1341,7 +1387,7 @@ __global__ void __launch_bounds__(kThreads) recon_prep_kernel(
   const long long base = (long long)blockIdx.x * kThreads;
   const long long q = base + tid;
   const bool real = q < M && mask[q];
-  if (q < M && !real) err[q] = 0.f;
+  if (q < M && !real && err != nullptr) err[q] = 0.f;
   const unsigned bal = __ballot_sync(0xffffffffu, real);
   if (lane == 0) s_wcount[wid] = __popc(bal);
   __syncthreads();
@@ -1452,7 +1498,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         q = a.list[(long long)tile * kWBM + tid];
         r4 = rec[(long long)tile * kWBM + tid];
         const int32_t* c = a.cat + (long long)q * a.C;
-        const int l0 = take_label(c[0], a.v_s), l1 = take_label(c[1], a.v_n);
+        const int l0 = take_slice_label(c[0], a.vf_s, a.lo_s, a.v_s);
+        const int l1 = take_slice_label(c[1], a.vf_n, a.lo_n, a.v_n);
         s_lab[0][tid] = l0;
         s_lab[1][tid] = l1 < 0 ? -1 : a.vs_pad + l1;
         s_c0[tid] = a.cont[(long long)q * a.Dc];
@@ -1606,11 +1653,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         lse_merge(fm[h], fs[h], s_pm[1][h][tid], s_ps[1][h][tid]);
       }
       const float4 r4 = s_rec[tid];
+      const long long q = s_q[tid];
+      if (a.rec != nullptr) {  // no kind log-sum-exp here: lse_k 0
+        write_record(a.rec + q * kRec, fm[0] + logf(fs[0]), s_zl[0][tid],
+                     fm[1] + logf(fs[1]), s_zl[1][tid], r4.z,
+                     __fsub_rn(r4.w, s_c0[tid]), 0.f);
+        continue;
+      }
       const float e = weighted_error(fm[0] + logf(fs[0]), s_zl[0][tid],
                                      fm[1] + logf(fs[1]), s_zl[1][tid], r4.z,
                                      0.f, r4.w, s_c0[tid], a.w_s, a.w_n,
                                      a.w_k, a.w_d);
-      const long long q = s_q[tid];
       a.err[q] = e;
       if (a.span_map != nullptr) {
         const int idx = a.span_map[q];
@@ -1682,6 +1735,11 @@ extern "C" long long recon_ce_f32_counters(long long M) {
 // scores: zero-filled f32, written at span_map[q] for each real q.
 // lse (nullable): (M, 3) f32 out, each real position's log-sum-exps of the
 // service, name and kind logits (0 at padding), for K20's backward.
+// vf0, lo0, vf1, lo1: the service and name heads' whole widths and the
+// first row of the slice w0 and w1 hold (v0 = vf0, lo0 = 0 unsliced).
+// rec (nullable, slice mode): (M, 8) f32 out, each real position's record
+// (the header's layout) in place of err, lse and scores (err, span_map and
+// lse then null).
 // counters: recon_ce_f32_counters(M) int32, zero before their first call
 // and left so by each (one set a stream: calls on one stream run in
 // order); scratch: recon_ce_f32_scratch(M, v0, v1, v2) bytes, 16-byte
@@ -1695,14 +1753,18 @@ extern "C" int recon_ce_f32_launch(
     const void* b2, const void* b3, int v0, int v1, int v2, int v3,
     const void* cat, int C, const void* cont, int D, const void* mask,
     float w_s, float w_n, float w_k, float w_d, void* err,
-    const void* span_map, void* scores, void* lse, void* counters,
-    void* scratch, int sms, int* launches, void* stream) {
+    const void* span_map, void* scores, void* lse, int vf0, int lo0,
+    int vf1, int lo1, void* rec, void* counters, void* scratch, int sms,
+    int* launches, void* stream) {
   *launches = 0;
   if (M < 0 || M > 0x7fffffffLL || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 ||
       C < 3 || D < 1 || d < 4 || d % 4 != 0 || d > 1024 ||
       (dtype != 0 && dtype != 1) || counters == nullptr ||
       scratch == nullptr || sms < 1 ||
-      (span_map != nullptr && scores == nullptr))
+      (span_map != nullptr && scores == nullptr) || lo0 < 0 || lo1 < 0 ||
+      lo0 + v0 > vf0 || lo1 + v1 > vf1 ||
+      (rec != nullptr ? span_map != nullptr || lse != nullptr
+                      : err == nullptr))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   F32Args a;
@@ -1732,6 +1794,11 @@ extern "C" int recon_ce_f32_launch(
   a.span_map = static_cast<const int32_t*>(span_map);
   a.scores = static_cast<float*>(scores);
   a.lse = static_cast<float*>(lse);
+  a.vf[0] = vf0;
+  a.vf[1] = vf1;
+  a.lo[0] = lo0;
+  a.lo[1] = lo1;
+  a.rec = static_cast<float*>(rec);
   a.sc = carve_f32(counters, scratch, M, items_per_tile(v0, v1));
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1746,7 +1813,9 @@ extern "C" int recon_ce_f32_launch(
 // rows [0, vs_pad), name rows [vs_pad, v_tc)); pbias: (v_tc,) f32, -inf at
 // the padding; v_s, v_n: the real widths; wk, bk: the kind head (v_k <=
 // 16); wd, bd: the duration head; cat, cont, mask, the loss weights, err,
-// span_map and scores as above. d: 32, 64, 128 or 256 (the 128-position
+// span_map and scores as above; vf_s, lo_s, vf_n, lo_n and rec as the f32
+// launcher's (slice mode: err and span_map null). d: 32, 64, 128 or 256
+// (the 128-position
 // kernel), else d % 16 == 0 up to 1024 (the 64-position kernel chunked
 // along d). Scratch: list (M,) int32; stats (M, 2) f32 (each listed
 // position's LayerNorm mean and 1 / std; (M, 4) 16-byte aligned off the
@@ -1763,13 +1832,16 @@ extern "C" int recon_ce_tc_launch(
     const void* wd, const void* bd, const void* cat, int C,
     const void* cont, int D, const void* mask, float w_s, float w_n,
     float w_k, float w_d, void* err, const void* span_map, void* scores,
-    void* list, void* stats, void* count, void* part, long long part_floats,
+    int vf_s, int lo_s, int vf_n, int lo_n, void* rec, void* list,
+    void* stats, void* count, void* part, long long part_floats,
     void* tile_done, int sms, int* launches, void* stream) {
   *launches = 0;
   if (M < 0 || M > 0x7fffffffLL || v_s < 1 || v_n < 1 || v_k < 1 ||
       v_k > kMaxKind || vs_pad < v_s || vs_pad % kPlanePad ||
       v_tc - vs_pad < v_n || v_tc % kPlanePad || C < 3 || D < 1 ||
-      part_floats < 0 || sms < 1 || (span_map != nullptr && scores == nullptr))
+      part_floats < 0 || sms < 1 || (span_map != nullptr && scores == nullptr)
+      || lo_s < 0 || lo_n < 0 || lo_s + v_s > vf_s || lo_n + v_n > vf_n ||
+      (rec != nullptr ? span_map != nullptr : err == nullptr))
     return (int)cudaErrorInvalidValue;
   if (M == 0) return (int)cudaSuccess;
   TcArgs a;
@@ -1799,6 +1871,11 @@ extern "C" int recon_ce_tc_launch(
   a.err = static_cast<float*>(err);
   a.span_map = static_cast<const int32_t*>(span_map);
   a.scores = static_cast<float*>(scores);
+  a.vf_s = vf_s;
+  a.lo_s = lo_s;
+  a.vf_n = vf_n;
+  a.lo_n = lo_n;
+  a.rec = static_cast<float*>(rec);
   a.list = static_cast<const int32_t*>(list);
   a.stats = static_cast<const float2*>(stats);
   a.count = static_cast<const int32_t*>(count);

@@ -22,6 +22,19 @@
 // and over the real positions dW_h = dlogit_h^T y, db_h = sum dlogit_h.
 // dy is 0 at padding. K17 (ln_bwd.cu) then takes dy through dec_ln.
 //
+// Slice mode (a shard of the "model" axis, K11's slice mode in the forward):
+// the service and name heads are this shard's rows [lo, lo + v) of heads of
+// vf rows and lse is the whole heads' (K24's merge). A label is read
+// against the whole head: one no row of it holds zeroes the head's dlogit
+// at the position, one in another shard's slice leaves it the softmax
+// (embed_take.cuh take_slice_label: no onehot here). dy_heads names the
+// heads whose dlogit . W enters this shard's dy: the sliced heads on every
+// shard, a head every shard holds whole on one of them only, so that the
+// sum of the shards' dy over the axis counts it once; dW and db are every
+// head's. The mode is a template argument (SLICED) of both kernels: the
+// launcher takes the unsliced instantiation, the first design's code,
+// where vf = v, lo = 0 and every head is in dy_heads.
+//
 // The f32 chains are the first design's, kept to the bit whatever the
 // grid: a logit is one fmaf chain over k ascending from 0, plus the bias;
 // dy is, a vocabulary slice at a time (128 rows aligned to each head's
@@ -75,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "embed_take.cuh"
 #include "ln_exact.cuh"
@@ -101,6 +115,12 @@ struct Heads {
   int v[4];
   int off[4];  // first row of head h among the V = sum V_h rows
   float wt[4];  // the loss weights
+};
+
+// slice mode: the service and name heads' whole widths and the first row
+// of this shard's slice (the prep launch's label rule)
+struct SliceOf {
+  int vf[2], lo[2];
 };
 
 __host__ __device__ inline int slices_of(int v) {
@@ -211,8 +231,9 @@ __device__ __forceinline__ void ln_row_in(const float (&v)[PER], int d,
   }
 }
 
-// positions [p0, p0 + P) a CTA, 32 at a time; d <= 32 PER
-template <int PER>
+// positions [p0, p0 + P) a CTA, 32 at a time; d <= 32 PER; sl: the
+// slice (read where SLICED)
+template <int PER, bool SLICED>
 __global__ void __launch_bounds__(kPrepThreads) recon_bwd_prep_kernel(
     const float* __restrict__ dec, long long M, int d,
     const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -223,7 +244,7 @@ __global__ void __launch_bounds__(kPrepThreads) recon_bwd_prep_kernel(
     int32_t* __restrict__ list, int32_t* __restrict__ count,
     float* __restrict__ coef, int32_t* __restrict__ lab,
     float* __restrict__ aux, float* __restrict__ ybuf,
-    float* __restrict__ dy) {
+    float* __restrict__ dy, SliceOf sl) {
   // rows a warp has in flight (their loads issued together)
   constexpr int R = PER <= 4 ? 4 : PER <= 8 ? 2 : 1;
   launch_dependents();
@@ -299,11 +320,19 @@ __global__ void __launch_bounds__(kPrepThreads) recon_bwd_prep_kernel(
           float cf = __fmul_rn(heads.wt[h], c[r]);
           int t = -1;
           if (h < 3) {
-            // a label no row of the head holds (take_label -1): the
-            // head's dlogit is zero at this position, as jax.grad gives
-            // through the fill-mode gather
-            t = take_label(lb[r], heads.v[h]);
-            if (t < 0) cf = 0.f;
+            // a label no row of the (whole) head holds (take_label -1):
+            // the head's dlogit is zero at this position, as jax.grad
+            // gives through the fill-mode gather; one in another
+            // shard's slice keeps it (t = -1: no onehot here)
+            if constexpr (SLICED) {
+              const int vf = h < 2 ? sl.vf[h] : heads.v[h];
+              if (take_label(lb[r], vf) < 0) cf = 0.f;
+              t = h < 2 ? take_slice_label(lb[r], vf, sl.lo[h], heads.v[h])
+                        : take_label(lb[r], vf);
+            } else {
+              t = take_label(lb[r], heads.v[h]);
+              if (t < 0) cf = 0.f;
+            }
           }
           coef[(long long)i * 4 + h] = cf;
           lab[(long long)i * 4 + h] = t;
@@ -420,11 +449,12 @@ __device__ __forceinline__ void load_w(const Work& w, const SliceAt& a,
 
 // One (tile, slice) item: the logits, dlogit, and the slice's dy partial;
 // the tile's last item folds the partials into dy. Its weight tile j
-// lands in ring stage j.
-template <int TS, int NC4>
+// lands in ring stage j. dy_heads: read where SLICED.
+template <int TS, int NC4, bool SLICED>
 __device__ void slice_item(const Work& w, int tile, int gs, float* smem,
                            float* s_coef, int* s_lab, float* s_lse,
-                           float* s_c0, float* s_bias, int* s_flag) {
+                           float* s_c0, float* s_bias, int* s_flag,
+                           int dy_heads) {
   constexpr int kTP = tile_positions(TS);
   constexpr int kVR = 16 * TS;
   constexpr int kLdt = kTP + 4;
@@ -578,7 +608,17 @@ __device__ void slice_item(const Work& w, int tile, int gs, float* smem,
       cp_commit();
     }
   }
-  // ---- the slice's dy partial
+  // ---- the slice's dy partial: zero for a head not in dy_heads (its
+  // products ran all the same, so the loop above is the unsliced one)
+  if constexpr (SLICED) {
+    if (!((dy_heads >> h) & 1)) {  // CTA-uniform
+#pragma unroll
+      for (int i = 0; i < TS; ++i)
+#pragma unroll
+        for (int k = 0; k < NC4; ++k)
+          acc_dy[i][k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
   float* my = w.part + ((long long)tile * w.S + gs) * kTP * d;
 #pragma unroll
   for (int i = 0; i < TS; ++i) {
@@ -748,7 +788,7 @@ __device__ void dw_item(const Work& w, int item, float* smem) {
   }
 }
 
-template <int TS, int NC4>
+template <int TS, int NC4, bool SLICED>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm)
 recon_bwd_main_kernel(
     Heads heads, int d, const int32_t* __restrict__ count,
@@ -756,7 +796,8 @@ recon_bwd_main_kernel(
     const int32_t* __restrict__ lab, const float* __restrict__ aux,
     const float* __restrict__ ybuf, float* __restrict__ dl, int vtot,
     int vp, int S, float* __restrict__ part, float* __restrict__ dy,
-    float* __restrict__ dw, float* __restrict__ db, int* __restrict__ cnt) {
+    float* __restrict__ dw, float* __restrict__ db, int* __restrict__ cnt,
+    int dy_heads) {
   constexpr int kTP = tile_positions(TS);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -796,8 +837,10 @@ recon_bwd_main_kernel(
     __syncthreads();  // s_item read before a later draw rewrites it
     if (item >= slice_items + dw_items) break;  // CTA-uniform
     if (item < slice_items)
-      slice_item<TS, NC4>(w, (int)(item % w.ntiles), (int)(item / w.ntiles),
-                          smem, s_coef, s_lab, s_lse, s_c0, s_bias, &s_flag);
+      slice_item<TS, NC4, SLICED>(w, (int)(item % w.ntiles),
+                                  (int)(item / w.ntiles), smem, s_coef,
+                                  s_lab, s_lse, s_c0, s_bias, &s_flag,
+                                  dy_heads);
     else
       dw_item(w, (int)(item - slice_items), smem);
     __syncthreads();
@@ -810,9 +853,10 @@ recon_bwd_main_kernel(
   }
 }
 
-template <int PER, int TS, int NC4>
+template <int PER, int TS, int NC4, bool SLICED>
 int launch_all(const float* dec, long long M, int d, const float* gamma,
                const float* beta, float eps, const Heads& heads,
+               const SliceOf& sl, int dy_heads,
                const float* lse, const int32_t* cat, int C, const float* cont,
                int D, const uint8_t* mask, const float* derr, int vtot, int S,
                int* cnt, char* scratch, float* dy, float* dw, float* db,
@@ -829,7 +873,7 @@ int launch_all(const float* dec, long long M, int d, const float* gamma,
   const int smem = main_smem_floats<TS>(d) * (int)sizeof(float);
   // the most this instantiation takes: at its largest d (64 NC4)
   const int smem_max = main_smem_floats<TS>(64 * NC4) * (int)sizeof(float);
-  auto* kernel = recon_bwd_main_kernel<TS, NC4>;
+  auto* kernel = recon_bwd_main_kernel<TS, NC4, SLICED>;
   static int g_grid[kMaxDevices];  // the persistent grid, a device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -858,9 +902,9 @@ int launch_all(const float* dec, long long M, int d, const float* gamma,
   const long long P = kPrepPos * ((M + (long long)kPrepPos * kPrepMaxCtas -
                                    1) / ((long long)kPrepPos * kPrepMaxCtas));
   const unsigned prep = (unsigned)((M + P - 1) / P);
-  recon_bwd_prep_kernel<PER><<<prep, kPrepThreads, 0, st>>>(
+  recon_bwd_prep_kernel<PER, SLICED><<<prep, kPrepThreads, 0, st>>>(
       dec, M, d, gamma, beta, eps, heads, lse, cat, C, cont, D, mask, derr,
-      P, list, count, coef, lab, aux, ybuf, dy);
+      P, list, count, coef, lab, aux, ybuf, dy, sl);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   ++*launched;
 
@@ -878,7 +922,7 @@ int launch_all(const float* dec, long long M, int d, const float* gamma,
                          (const int32_t*)list, (const float*)coef,
                          (const int32_t*)lab, (const float*)aux,
                          (const float*)ybuf, dl, vtot, o.vp, S, part, dy, dw,
-                         db, cnt);
+                         db, cnt, dy_heads);
   if (e != cudaSuccess || (e = cudaGetLastError()) != cudaSuccess)
     return (int)e;
   ++*launched;
@@ -916,7 +960,10 @@ extern "C" long long recon_ce_bwd_scratch(long long M, int d, int v0, int v1,
 // aligned) and b0..b3: the service, name, kind and duration heads, (V_h, d)
 // and (V_h,) f32 (V_3 = 1); lse: (M, 3) f32, K11's log-sum-exps; cat: (M,
 // C) int32, cont: (M, D) f32, mask: (M,) bytes; derr: (M,) f32, the
-// gradient of each position's error; the four loss weights. cnt:
+// gradient of each position's error; the four loss weights; vf0, lo0,
+// vf1, lo1: the service and name heads' whole widths and the first row of
+// the slice w0 and w1 hold (v0 = vf0, lo0 = 0 unsliced); dy_heads: bit h
+// where head h's dlogit . W enters dy (15: every head). cnt:
 // recon_ce_bwd_counters(...) int32, zero before the first call and reused
 // as each call leaves it; scratch: recon_ce_bwd_scratch(...) bytes,
 // 256-byte aligned. Out, written whole: dy (M, d) f32, 16-byte aligned; dw
@@ -929,14 +976,17 @@ extern "C" int recon_ce_bwd_launch(
     const void* w3, const void* b0, const void* b1, const void* b2,
     const void* b3, int v0, int v1, int v2, int v3, const void* lse,
     const void* cat, int C, const void* cont, int D, const void* mask,
-    const void* derr, float w_s, float w_n, float w_k, float w_d, void* cnt,
-    void* scratch, void* dy, void* dw, void* db, int sms, int* launched,
-    void* stream) {
+    const void* derr, float w_s, float w_n, float w_k, float w_d, int vf0,
+    int lo0, int vf1, int lo1, int dy_heads, void* cnt, void* scratch,
+    void* dy, void* dw, void* db, int sms, int* launched, void* stream) {
   *launched = 0;
   if (M <= 0 || M > 0x7fffffffLL || v0 < 1 || v1 < 1 || v2 < 1 || v3 != 1 ||
-      C < 3 || D < 1 || d < 4 || d % 4 != 0 || d > 1024 || sms <= 0)
+      C < 3 || D < 1 || d < 4 || d % 4 != 0 || d > 1024 || sms <= 0 ||
+      lo0 < 0 || lo1 < 0 || lo0 + v0 > vf0 || lo1 + v1 > vf1 ||
+      dy_heads < 0 || dy_heads > 15)
     return (int)cudaErrorInvalidValue;
   Heads heads;
+  const SliceOf sl = {{vf0, vf1}, {lo0, lo1}};
   const void* ws[4] = {w0, w1, w2, w3};
   const void* bs[4] = {b0, b1, b2, b3};
   const int vs[4] = {v0, v1, v2, v3};
@@ -966,20 +1016,29 @@ extern "C" int recon_ce_bwd_launch(
   auto* ow = static_cast<float*>(dw);
   auto* ob = static_cast<float*>(db);
   // the tile by d: 64 positions up to d 128, 32 to 256, 16 past (dy's
-  // registers: TS x 4 NC4 = 16 TS x d / 256 a thread)
-  if (d <= 128)
-    return launch_all<4, 4, 2>(x, M, d, g, bt, eps, heads, ls, ct, C, cf, D,
-                               mk, de, vtot, S, cn, sc, oy, ow, ob, sms,
-                               launched, st);
-  if (d <= 256)
-    return launch_all<8, 2, 4>(x, M, d, g, bt, eps, heads, ls, ct, C, cf, D,
-                               mk, de, vtot, S, cn, sc, oy, ow, ob, sms,
-                               launched, st);
-  if (d <= 512)
-    return launch_all<16, 1, 8>(x, M, d, g, bt, eps, heads, ls, ct, C, cf,
-                                D, mk, de, vtot, S, cn, sc, oy, ow, ob, sms,
-                                launched, st);
-  return launch_all<32, 1, 16>(x, M, d, g, bt, eps, heads, ls, ct, C, cf, D,
-                               mk, de, vtot, S, cn, sc, oy, ow, ob, sms,
-                               launched, st);
+  // registers: TS x 4 NC4 = 16 TS x d / 256 a thread); the slice mode's
+  // instantiation only where the heads are a slice or dy_heads leaves one
+  // out
+  const bool sliced = vf0 != v0 || vf1 != v1 || lo0 != 0 || lo1 != 0 ||
+                      dy_heads != 15;
+  auto run = [&](auto mode) -> int {
+    constexpr bool SL = decltype(mode)::value;
+    if (d <= 128)
+      return launch_all<4, 4, 2, SL>(x, M, d, g, bt, eps, heads, sl, dy_heads,
+                                     ls, ct, C, cf, D, mk, de, vtot, S, cn, sc,
+                                     oy, ow, ob, sms, launched, st);
+    if (d <= 256)
+      return launch_all<8, 2, 4, SL>(x, M, d, g, bt, eps, heads, sl, dy_heads,
+                                     ls, ct, C, cf, D, mk, de, vtot, S, cn, sc,
+                                     oy, ow, ob, sms, launched, st);
+    if (d <= 512)
+      return launch_all<16, 1, 8, SL>(x, M, d, g, bt, eps, heads, sl,
+                                      dy_heads, ls, ct, C, cf, D, mk, de, vtot,
+                                      S, cn, sc, oy, ow, ob, sms, launched,
+                                      st);
+    return launch_all<32, 1, 16, SL>(x, M, d, g, bt, eps, heads, sl,
+                                     dy_heads, ls, ct, C, cf, D, mk, de, vtot,
+                                     S, cn, sc, oy, ow, ob, sms, launched, st);
+  };
+  return sliced ? run(std::true_type{}) : run(std::false_type{});
 }

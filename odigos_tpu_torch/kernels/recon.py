@@ -68,6 +68,34 @@ real positions listed with their ``dec_ln`` output, then persistent CTAs
 over (tile of listed positions, vocabulary slice) and dW items, paired by
 programmatic dependent launch; its counters and data are
 ``build.stream_scratch``'s, dropped after a failed launch).
+
+**The vocabulary on the ``"model"`` axis** (the reference's
+``PARTITION_RULES`` put the service and name heads' columns on it; XLA
+then takes ``_ce``'s ``log_softmax`` across the split vocabulary). Each
+shard holds a slice of rows of each head (:class:`VocabSlice`: the whole
+widths and its first rows; a head the mesh guard keeps whole is the whole
+head on every shard). :func:`recon_ce_slice` is K11's ``"slice"`` mode on
+both kernels: per real position, the ``(M, 8)`` record (``lse_s, zl_s,
+lse_n, zl_n, ce_k, dd, lse_k, 0``) of the slice's log-sum-exps, the
+label's logit where the slice holds it (NaN elsewhere; the label read
+against the whole head, :func:`take_slice_labels`), the replicated kind
+head's cross-entropy, ``duration - continuous[:, 0]`` and the kind head's
+log-sum-exp (0 on the wide bf16 kernel). The model axis gathers the
+shards' records in rank order (``parallel/tp.py``) and
+:func:`vocab_ce_merge` (K24, ``csrc/vocab_merge.cu``) merges them: each
+sliced head's log-sum-exp over the parts in rank order, the label's logit
+from the shard that holds it, the error in K11's steps, and (the
+trainer's) the merged ``(M, 3)`` log-sum-exps K20 reads. A whole head is
+one part, rank 0's, counted once. At tp = 1 the two are K11's error bit
+for bit. :func:`recon_ce_bwd` takes the same slice (``vslice``) and
+``dy_heads``, the heads whose ``dlogit . W`` enters this shard's ``dy``
+(a whole head on one shard only, so that the sum over the axis counts it
+once). ``slice_launches`` counts K11's slice-mode calls that launched,
+``merge_launches`` the kernels K24's launcher reports (one a call), and
+``bwd_slice_launches`` the K20 calls that launched its slice mode (a
+template argument of its kernels, taken where the heads are a slice or
+``dy_heads`` leaves one out; ``launches`` and ``bwd_launches`` count them
+too); the fused route's squash and scatter has no slice mode.
 """
 
 from __future__ import annotations
@@ -99,8 +127,12 @@ PART_ITEMS_PER_SM = 8
 launches = 0
 tc_launches = 0
 device_launches = 0
+slice_launches = 0
+merge_launches = 0
 bwd_launches = 0
 bwd_device_launches = 0
+bwd_slice_launches = 0
+REC = 8  # floats a slice-mode record
 _count_lock = threading.Lock()
 _fns: dict = {}
 
@@ -121,6 +153,18 @@ class HeadPlanes(NamedTuple):
     v_n: int
 
 
+class VocabSlice(NamedTuple):
+    """A shard's rows of the service and name heads: each head's whole
+    width and this shard's first row (its own rows: its weights')."""
+    vf: tuple[int, int]
+    lo: tuple[int, int]
+
+
+def whole_slice(heads: Heads) -> VocabSlice:
+    """The unsliced heads as a slice (every shard holds them whole)."""
+    return VocabSlice((heads[0][0].shape[0], heads[1][0].shape[0]), (0, 0))
+
+
 def take_labels(labels: torch.Tensor, rows: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``jnp.take_along_axis``'s fill mode on a head of ``rows`` logits:
@@ -134,6 +178,43 @@ def take_labels(labels: torch.Tensor, rows: int
     return torch.where(takes, i, 0), takes
 
 
+def take_slice_labels(labels: torch.Tensor, vf: int, lo: int, rows: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A label read against the whole head of ``vf`` rows, then found in
+    the slice ``[lo, lo + rows)``: ``(row, takes, owned)``, ``row`` the
+    slice's row (0 where it holds none), ``takes`` the whole head's rule
+    (:func:`take_labels`) and ``owned`` True where this slice holds the
+    label. The kernels' rule is ``csrc/embed_take.cuh``
+    ``take_slice_label``."""
+    i, takes = take_labels(labels, vf)
+    owned = takes & (i >= lo) & (i < lo + rows)
+    return torch.where(owned, i - lo, 0), takes, owned
+
+
+def _heads_out(y: torch.Tensor, heads: Heads, acc: torch.dtype,
+               labels: torch.Tensor, vslice: VocabSlice):
+    """The four heads' logits of ``y`` and each cross-entropy head's
+    ``(lse, zl, has)``: ``torch.logsumexp``, the logit of the label's row
+    (row 0's where the (slice of the) head holds none) and where it holds
+    it."""
+    logits = [F.linear(y, w.to(acc), b.to(acc)) for w, b in heads]
+    out = []
+    for h in range(3):
+        z = logits[h]
+        if h < 2:
+            lab, _, has = take_slice_labels(labels[:, h], vslice.vf[h],
+                                            vslice.lo[h], z.shape[1])
+        else:
+            lab, has = take_labels(labels[:, h], z.shape[1])
+        out.append((torch.logsumexp(z, -1), z.gather(1, lab[:, None])[:, 0],
+                    has))
+    return logits, out
+
+
+def _nan_where_not(has: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(has, x, torch.full_like(x, float("nan")))
+
+
 def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
                    ln_bias: torch.Tensor, heads: Heads,
                    categorical: torch.Tensor, continuous: torch.Tensor,
@@ -142,31 +223,29 @@ def recon_ce_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
                    eps: float = LN_EPS, lse: Optional[torch.Tensor] = None):
     """The plain version, on the real positions only: the LayerNorm, four
     ``F.linear`` heads in f32 (f64 for f64 inputs: the gradient checks),
-    three ``F.cross_entropy`` and the squared error, summed in the
-    reference's order; ``lse`` gets ``torch.logsumexp`` of the three
-    heads' logits at the real positions, 0 elsewhere."""
+    three cross-entropies as the kernel takes them (``torch.logsumexp``
+    less the label's logit) and the squared error, summed in the
+    reference's order; ``lse`` gets the three log-sum-exps at the real
+    positions, 0 elsewhere."""
     M = dec.shape[0]
     acc = _acc(dec.dtype)
     err = torch.zeros(M, dtype=acc, device=dec.device)
     real = torch.nonzero(mask).flatten()
     y = layer_norm_plain(dec[real], ln_weight, ln_bias, eps).to(acc)
-    logits = [F.linear(y, w.to(acc), b.to(acc)) for w, b in heads]
+    logits, ces = _heads_out(y, heads, acc, categorical[real].long(),
+                             whole_slice(heads))
     if lse is not None:
         lse.zero_()
-        lse[real] = torch.stack([torch.logsumexp(z, -1) for z in logits[:3]],
-                                -1).to(lse.dtype)
+        lse[real] = torch.stack([c[0] for c in ces], -1).to(lse.dtype)
     w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
-    labels = categorical[real].long()
-
-    def ce(h: int) -> torch.Tensor:
-        lab, takes = take_labels(labels[:, h], logits[h].shape[1])
-        e = F.cross_entropy(logits[h], lab, reduction="none")
-        return torch.where(takes, e, torch.full_like(e, float("nan")))
-
-    e = w_s * ce(0)
-    e = e + w_n * ce(1)
-    e = e + w_k * ce(2)
-    e = e + w_d * (logits[3][:, 0] - continuous[real, 0].to(acc)) ** 2
+    # each cross-entropy as K11 takes it, lse - zl; NaN (and no gradient)
+    # where the label takes no row
+    ce = [_nan_where_not(has, l - zl) for l, zl, has in ces]
+    dd = logits[3][:, 0] - continuous[real, 0].to(acc)
+    e = w_s * ce[0]
+    e = e + w_n * ce[1]
+    e = e + w_k * ce[2]
+    e = e + w_d * (dd * dd)
     err[real] = e
     if span_map is None:
         return err
@@ -269,7 +348,8 @@ def _kernel(name: str):
                            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
                            + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                               ctypes.c_void_p])
         else:
@@ -281,7 +361,8 @@ def _kernel(name: str):
                               ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_int, ctypes.c_void_p]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7
+                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
                            + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                               ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -343,7 +424,6 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
     ``planes``: the tensor-core kernel's :func:`head_planes` of ``heads``
     (made here when None); ``lse``: an ``(M, 3)`` buffer for the
     log-sum-exps (the CUDA-core kernel only). Nothing is synchronised."""
-    global launches, tc_launches, device_launches
     n_out = int(n_out)
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
            loss_weights, span_map, n_out)
@@ -357,6 +437,27 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
         return recon_ce_plain(dec, ln_weight, ln_bias, heads, categorical,
                               continuous, mask, loss_weights, span_map,
                               n_out, eps, lse)
+    if dev.type != "cuda":
+        raise ValueError(f"recon_ce runs on cuda or cpu, not {dev}")
+    err = torch.empty(M, dtype=torch.float32, device=dev)
+    scores = None
+    if span_map is not None:
+        scores = torch.zeros(n_out, dtype=torch.float32, device=dev)
+    _launch_k11(dec, ln_weight, ln_bias, heads, categorical, continuous,
+                mask, loss_weights, span_map, err, scores, eps, planes,
+                route, lse, whole_slice(heads), None)
+    return err if span_map is None else (err, scores)
+
+
+def _launch_k11(dec, ln_weight, ln_bias, heads, categorical, continuous,
+                mask, loss_weights, span_map, err, scores, eps, planes,
+                route, lse, vslice: VocabSlice,
+                rec: Optional[torch.Tensor]) -> None:
+    """K11's checks on the card and its launch: the errors into ``err``
+    (and ``scores``, ``lse``), or in slice mode (``rec``) the records."""
+    global launches, tc_launches, device_launches, slice_launches
+    dev = dec.device
+    M = dec.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"recon_ce runs on cuda or cpu, not {dev}")
     if dec.dtype not in (torch.float32, torch.bfloat16):
@@ -406,74 +507,251 @@ def recon_ce(dec: torch.Tensor, ln_weight: torch.Tensor,
     elif dec.data_ptr() % 16 or any(w.data_ptr() % 16 for w, _ in heads):
         raise ValueError("recon_ce needs a 16-byte aligned dec and head "
                          "weights")
+    if M == 0:
+        return
+    (w0, b0), (w1, b1), (w2, b2), (w3, b3) = heads
+    w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
+    smap = None if span_map is None else span_map.data_ptr()
+    out = None if scores is None else scores.data_ptr()
+    e_ptr = None if err is None else err.data_ptr()
+    r_ptr = None if rec is None else rec.data_ptr()
+    (vf0, vf1), (lo0, lo1) = vslice
+    cur = torch.cuda.current_stream(dev)
+    stream = cur.cuda_stream
+    count = ctypes.c_int(0)  # the kernels launched (the launcher's own)
+    with torch.cuda.device(dev):
+        if tc:
+            sms = build.sm_count(dev)
+            part_items = PART_ITEMS_PER_SM * sms
+            lst = torch.empty(M, dtype=torch.int32, device=dev)
+            # (mean, 1 / std) a listed position; off TC_WIDTHS also the
+            # kind CE and the duration logit
+            stats = torch.empty((2 if d in TC_WIDTHS else 4) * M,
+                                dtype=torch.float32, device=dev)
+            # the count and each split tile's finished slices, zeroed
+            zeros = torch.zeros(2 + part_items // 2, dtype=torch.int32,
+                                device=dev)
+            part = torch.empty(part_items * 6 * TILE, dtype=torch.float32,
+                               device=dev)
+            rc = _kernel("recon_ce_tc_launch")(
+                dec.data_ptr(), M, d, ln_weight.data_ptr(),
+                ln_bias.data_ptr(), eps, planes.w.data_ptr(),
+                planes.b.data_ptr(), planes.vs_pad, v_tc, planes.v_s,
+                planes.v_n, w2.data_ptr(), b2.data_ptr(), w2.shape[0],
+                w3.data_ptr(), b3.data_ptr(), categorical.data_ptr(),
+                categorical.shape[1], continuous.data_ptr(),
+                continuous.shape[1], mask.data_ptr(), w_s, w_n, w_k, w_d,
+                e_ptr, smap, out, vf0, lo0, vf1, lo1, r_ptr, lst.data_ptr(),
+                stats.data_ptr(), zeros.data_ptr(), part.data_ptr(),
+                part.numel(), zeros.data_ptr() + 4, sms,
+                ctypes.byref(count), stream)
+        else:
+            # int32 counters, left at zero by every call, and bytes
+            cnt, scratch = build.stream_scratch(
+                "recon_ce_f32", dev, cur,
+                _kernel("recon_ce_f32_counters")(M), torch.int32,
+                _kernel("recon_ce_f32_scratch")(M, w0.shape[0], w1.shape[0],
+                                                w2.shape[0]),
+                torch.uint8)
+            rc = _kernel("recon_ce_f32_launch")(
+                dec.data_ptr(), int(dec.dtype == torch.bfloat16), M, d,
+                ln_weight.data_ptr(), ln_bias.data_ptr(), eps, w0.data_ptr(),
+                w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), b0.data_ptr(),
+                b1.data_ptr(), b2.data_ptr(), b3.data_ptr(), w0.shape[0],
+                w1.shape[0], w2.shape[0], w3.shape[0],
+                categorical.data_ptr(), categorical.shape[1],
+                continuous.data_ptr(), continuous.shape[1],
+                mask.data_ptr(), w_s, w_n, w_k, w_d, e_ptr, smap, out,
+                None if lse is None else lse.data_ptr(), vf0, lo0, vf1, lo1,
+                r_ptr, cnt.data_ptr(), scratch.data_ptr(),
+                build.sm_count(dev), ctypes.byref(count), stream)
+            if rc != 0:  # the list kernel may have left its count
+                build.drop_scratch("recon_ce_f32", dev, cur)
+    if rc != 0:
+        raise RuntimeError(f"recon_ce launch failed: CUDA error {rc}")
+    with _count_lock:
+        launches += 1
+        tc_launches += int(tc)
+        slice_launches += int(rec is not None)
+        device_launches += count.value
+
+
+def recon_ce_slice_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
+                         ln_bias: torch.Tensor, heads: Heads,
+                         categorical: torch.Tensor, continuous: torch.Tensor,
+                         mask: torch.Tensor, vslice: VocabSlice,
+                         eps: float = LN_EPS) -> torch.Tensor:
+    """K11 ``"slice"``'s plain version: the ``(M, REC)`` records (module
+    docstring) at the real positions, 0 elsewhere, in f32 (f64 for f64
+    inputs), the heads' logits as :func:`recon_ce_plain` takes them."""
+    M = dec.shape[0]
+    acc = _acc(dec.dtype)
+    rec = torch.zeros((M, REC), dtype=acc, device=dec.device)
+    real = torch.nonzero(mask).flatten()
+    y = layer_norm_plain(dec[real], ln_weight, ln_bias, eps).to(acc)
+    logits, ces = _heads_out(y, heads, acc, categorical[real].long(), vslice)
+    dd = logits[3][:, 0] - continuous[real, 0].to(acc)
+    (ls, zs, hs), (ln, zn, hn), (lk, zk, hk) = ces
+    rec[real] = torch.stack(
+        [ls, _nan_where_not(hs, zs), ln, _nan_where_not(hn, zn),
+         _nan_where_not(hk, lk - zk), dd, lk, torch.zeros_like(dd)], -1)
+    return rec
+
+
+def _check_slice(heads: Heads, vslice: VocabSlice) -> None:
+    for h in range(2):
+        v, vf, lo = heads[h][0].shape[0], vslice.vf[h], vslice.lo[h]
+        if lo < 0 or lo + v > vf:
+            raise ValueError(f"head {h}: a slice of {v} rows from {lo} lies "
+                             f"outside a head of {vf}")
+
+
+def recon_ce_slice(dec: torch.Tensor, ln_weight: torch.Tensor,
+                   ln_bias: torch.Tensor, heads: Heads,
+                   categorical: torch.Tensor, continuous: torch.Tensor,
+                   mask: torch.Tensor, vslice: VocabSlice,
+                   eps: float = LN_EPS, planes: Optional[HeadPlanes] = None,
+                   route: Optional[str] = None) -> torch.Tensor:
+    """K11 ``"slice"``: this shard's ``(M, REC)`` f32 records (module
+    docstring; padding rows unwritten), ``heads`` the shard's (its rows of
+    the service and name heads with their bias rows, the whole kind and
+    duration heads). ``route`` and ``planes`` as :func:`recon_ce`'s, the
+    planes those of this shard's heads. Nothing is synchronised."""
+    _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
+           (0.0,) * 4, None, 0)
+    _check_slice(heads, vslice)
+    if dec.device.type == "cpu":
+        return recon_ce_slice_plain(dec, ln_weight, ln_bias, heads,
+                                    categorical, continuous, mask, vslice,
+                                    eps)
+    if dec.device.type != "cuda":
+        raise ValueError(f"recon_ce runs on cuda or cpu, not {dec.device}")
+    rec = torch.empty((dec.shape[0], REC), dtype=torch.float32,
+                      device=dec.device)
+    _launch_k11(dec, ln_weight, ln_bias, heads, categorical, continuous,
+                mask, (0.0,) * 4, None, None, None, eps, planes, route, None,
+                vslice, rec)
+    return rec
+
+
+def vocab_ce_merge_plain(rec: torch.Tensor, categorical: torch.Tensor,
+                         mask: torch.Tensor, vf: Sequence[int],
+                         vs: Sequence[int], loss_weights: Sequence[float],
+                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K24's plain version: the ``(M,)`` errors from the ``(tp, M, REC)``
+    records in rank order (``vf``: the service and name heads' whole
+    widths, ``vs``: a shard's slice of each, ``vs = vf`` for a whole
+    head), the arithmetic in the kernel's order; ``lse`` gets the merged
+    log-sum-exps at the real positions, 0 elsewhere."""
+    M = mask.shape[0]
+    err = torch.zeros(M, dtype=rec.dtype, device=rec.device)
+    real = torch.nonzero(mask).flatten()
+    r = rec[:, real]
+    rows = torch.arange(real.numel(), device=rec.device)
+    labels = categorical[real].long()
+    lses, zls = [], []
+    for h in range(2):
+        parts = vf[h] // vs[h]
+        if parts == 1:
+            l = r[0, :, 2 * h]
+        else:
+            m = r[:parts, :, 2 * h].max(0).values
+            s = torch.zeros_like(m)
+            for i in range(parts):
+                s = s + torch.exp(r[i, :, 2 * h] - m)
+            l = m + torch.log(s)
+        lab, takes = take_labels(labels[:, h], vf[h])
+        zl = r[lab // vs[h], rows, 2 * h + 1]
+        lses.append(l)
+        zls.append(torch.where(takes, zl, torch.full_like(zl, float("nan"))))
+    w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
+    dd = r[0, :, 5]
+    e = w_s * (lses[0] - zls[0])
+    e = e + w_n * (lses[1] - zls[1])
+    e = e + w_k * r[0, :, 4]
+    e = e + w_d * (dd * dd)
+    err[real] = e
+    if lse is not None:
+        lse.zero_()
+        lse[real] = torch.stack([lses[0], lses[1], r[0, :, 6]], -1).to(
+            lse.dtype)
+    return err
+
+
+def _merge_fn():
+    fn = _fns.get("vocab_ce_merge_launch")
+    if fn is None:
+        fn = build.load("vocab_merge").vocab_ce_merge_launch
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns["vocab_ce_merge_launch"] = fn
+    return fn
+
+
+def vocab_ce_merge(rec: torch.Tensor, categorical: torch.Tensor,
+                   mask: torch.Tensor, vf: Sequence[int], vs: Sequence[int],
+                   loss_weights: Sequence[float],
+                   lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K24: the ``(M,)`` f32 errors merged from the shards' ``(tp, M,
+    REC)`` records (:func:`vocab_ce_merge_plain`'s arguments); ``lse``: an
+    ``(M, 3)`` f32 buffer for the merged log-sum-exps (the trainer's).
+    Nothing is synchronised."""
+    global merge_launches
+    M = mask.shape[0]
+    if rec.dim() != 3 or rec.shape[1:] != (M, REC):
+        raise ValueError(f"rec must be (tp, {M}, {REC}), got "
+                         f"{tuple(rec.shape)}")
+    tp = rec.shape[0]
+    if (categorical.dim() != 2 or categorical.shape[0] != M
+            or categorical.shape[1] < 2 or categorical.dtype != torch.int32):
+        raise ValueError(f"categorical must be ({M}, C >= 2) int32")
+    if mask.dtype != torch.bool or mask.dim() != 1:
+        raise ValueError(f"mask must be ({M},) bool")
+    for h in range(2):
+        if vs[h] < 1 or vf[h] % vs[h] or vf[h] // vs[h] not in (1, tp):
+            raise ValueError(f"head {h}: slices of {vs[h]} rows of a head "
+                             f"of {vf[h]} on a model axis of {tp}")
+    if lse is not None and (lse.shape != (M, 3) or not lse.is_contiguous()
+                            or lse.device != rec.device):
+        raise ValueError(f"lse must be a contiguous ({M}, 3) tensor on the "
+                         f"records' device")
+    if len({rec.device, categorical.device, mask.device}) != 1:
+        raise ValueError("inputs on several devices")
+    dev = rec.device
+    if dev.type == "cpu":
+        return vocab_ce_merge_plain(rec, categorical, mask, vf, vs,
+                                    loss_weights, lse)
+    if dev.type != "cuda":
+        raise ValueError(f"vocab_ce_merge runs on cuda or cpu, not {dev}")
+    if rec.dtype != torch.float32 or (lse is not None
+                                      and lse.dtype != torch.float32):
+        raise TypeError("vocab_ce_merge takes float32 records")
+    if not all(t.is_contiguous() for t in (rec, categorical, mask)) \
+            or rec.data_ptr() % 16:
+        raise ValueError("vocab_ce_merge needs contiguous inputs and 16-byte "
+                         "aligned records")
     err = torch.empty(M, dtype=torch.float32, device=dev)
-    scores = None
-    if span_map is not None:
-        scores = torch.zeros(n_out, dtype=torch.float32, device=dev)
     if M > 0:
-        (w0, b0), (w1, b1), (w2, b2), (w3, b3) = heads
-        w_s, w_n, w_k, w_d = (float(w) for w in loss_weights)
-        smap = None if span_map is None else span_map.data_ptr()
-        out = None if scores is None else scores.data_ptr()
-        cur = torch.cuda.current_stream(dev)
-        stream = cur.cuda_stream
-        count = ctypes.c_int(0)  # the kernels launched (the launcher's own)
+        count = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            if tc:
-                sms = build.sm_count(dev)
-                part_items = PART_ITEMS_PER_SM * sms
-                lst = torch.empty(M, dtype=torch.int32, device=dev)
-                # (mean, 1 / std) a listed position; off TC_WIDTHS also
-                # the kind CE and the duration logit
-                stats = torch.empty((2 if d in TC_WIDTHS else 4) * M,
-                                    dtype=torch.float32, device=dev)
-                # the count and each split tile's finished slices, zeroed
-                zeros = torch.zeros(2 + part_items // 2, dtype=torch.int32,
-                                    device=dev)
-                part = torch.empty(part_items * 6 * TILE,
-                                   dtype=torch.float32, device=dev)
-                rc = _kernel("recon_ce_tc_launch")(
-                    dec.data_ptr(), M, d, ln_weight.data_ptr(),
-                    ln_bias.data_ptr(), eps, planes.w.data_ptr(),
-                    planes.b.data_ptr(), planes.vs_pad, v_tc, planes.v_s,
-                    planes.v_n, w2.data_ptr(), b2.data_ptr(), w2.shape[0],
-                    w3.data_ptr(), b3.data_ptr(), categorical.data_ptr(),
-                    categorical.shape[1], continuous.data_ptr(),
-                    continuous.shape[1], mask.data_ptr(), w_s, w_n, w_k, w_d,
-                    err.data_ptr(), smap, out, lst.data_ptr(),
-                    stats.data_ptr(), zeros.data_ptr(), part.data_ptr(),
-                    part.numel(),
-                    zeros.data_ptr() + 4, sms, ctypes.byref(count), stream)
-            else:
-                # int32 counters, left at zero by every call, and bytes
-                cnt, scratch = build.stream_scratch(
-                    "recon_ce_f32", dev, cur,
-                    _kernel("recon_ce_f32_counters")(M), torch.int32,
-                    _kernel("recon_ce_f32_scratch")(M, w0.shape[0],
-                                                    w1.shape[0], w2.shape[0]),
-                    torch.uint8)
-                rc = _kernel("recon_ce_f32_launch")(
-                    dec.data_ptr(), int(dec.dtype == torch.bfloat16), M, d,
-                    ln_weight.data_ptr(),
-                    ln_bias.data_ptr(), eps, w0.data_ptr(), w1.data_ptr(),
-                    w2.data_ptr(), w3.data_ptr(), b0.data_ptr(),
-                    b1.data_ptr(), b2.data_ptr(), b3.data_ptr(), w0.shape[0],
-                    w1.shape[0], w2.shape[0], w3.shape[0],
-                    categorical.data_ptr(), categorical.shape[1],
-                    continuous.data_ptr(), continuous.shape[1],
-                    mask.data_ptr(), w_s, w_n, w_k, w_d, err.data_ptr(),
-                    smap, out, None if lse is None else lse.data_ptr(),
-                    cnt.data_ptr(), scratch.data_ptr(), build.sm_count(dev),
-                    ctypes.byref(count), stream)
-                if rc != 0:  # the list kernel may have left its count
-                    build.drop_scratch("recon_ce_f32", dev, cur)
+            rc = _merge_fn()(
+                rec.data_ptr(), tp, M, categorical.data_ptr(),
+                categorical.shape[1], mask.data_ptr(), int(vf[0]),
+                int(vs[0]), int(vf[1]), int(vs[1]),
+                *(float(w) for w in loss_weights), err.data_ptr(),
+                None if lse is None else lse.data_ptr(), build.sm_count(dev),
+                ctypes.byref(count),
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"recon_ce launch failed: CUDA error {rc}")
+            raise RuntimeError(f"vocab_ce_merge launch failed: CUDA error "
+                               f"{rc}")
         with _count_lock:
-            launches += 1
-            tc_launches += int(tc)
-            device_launches += count.value
-    return err if span_map is None else (err, scores)
+            merge_launches += count.value
+    return err
 
 
 # ------------------------------------------------------- K20: the backward
@@ -489,16 +767,22 @@ def recon_ce_bwd_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
                        categorical: torch.Tensor, continuous: torch.Tensor,
                        mask: torch.Tensor, derr: torch.Tensor,
                        loss_weights: Sequence[float],
-                       eps: float = LN_EPS) -> HeadGrads:
+                       eps: float = LN_EPS,
+                       vslice: Optional[VocabSlice] = None,
+                       dy_heads: int = 15) -> HeadGrads:
     """K20's plain version, on the real positions: ``y = dec_ln(dec)``,
     each head's logits by ``F.linear``, ``dlogit_h = (w_h derr) (softmax_h
     - onehot(label_h))`` with the softmax from ``lse`` (the forward's), 0
     where the label takes no row of the head (:func:`take_labels`), the
     duration's ``(w_d derr) 2 (pred - cont[:, 0])``; ``dy = sum_h dlogit_h
-    W_h``, ``dW_h = dlogit_h^T y``, ``db_h = sum dlogit_h`` (f64 for f64
-    inputs)."""
+    W_h`` over the heads of ``dy_heads`` (bit h), ``dW_h = dlogit_h^T y``,
+    ``db_h = sum dlogit_h`` (f64 for f64 inputs). ``vslice``: the service
+    and name heads are that slice (module docstring): a label another
+    shard's slice holds keeps the softmax and takes no onehot here."""
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
            loss_weights, None, 0)
+    vslice = whole_slice(heads) if vslice is None else vslice
+    _check_slice(heads, vslice)
     M, d = dec.shape
     acc = _acc(dec.dtype)
     real = torch.nonzero(mask).flatten()
@@ -513,15 +797,21 @@ def recon_ce_bwd_plain(dec: torch.Tensor, ln_weight: torch.Tensor,
         coef = float(wt) * g
         if h < 3:
             p = torch.exp(z - lse[real, h, None].to(acc))
-            lab, takes = take_labels(labels[:, h], w.shape[0])
+            if h < 2:
+                lab, takes, owned = take_slice_labels(
+                    labels[:, h], vslice.vf[h], vslice.lo[h], w.shape[0])
+            else:
+                lab, takes = take_labels(labels[:, h], w.shape[0])
+                owned = takes
             rows = torch.arange(real.numel(), device=dec.device)
-            p[rows[takes], lab[takes]] -= 1.0
+            p[rows[owned], lab[owned]] -= 1.0
             # a label past the head: zero dlogit there (jax.grad's)
             dl = p * torch.where(takes, coef, torch.zeros_like(coef))[:, None]
         else:
             cont = continuous[real, 0].to(acc)
             dl = (coef * (2.0 * (z[:, 0] - cont)))[:, None]
-        dy_real = dy_real + dl @ w
+        if (dy_heads >> h) & 1:
+            dy_real = dy_real + dl @ w
         grads.append((dl.t() @ y, dl.sum(0)))
     dy = torch.zeros((M, d), dtype=acc, device=dec.device)
     dy[real] = dy_real
@@ -547,7 +837,8 @@ def _bwd_kernel(name: str):
                            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_void_p]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5
+                           + [ctypes.c_float] * 4 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] * 5
                            + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                               ctypes.c_void_p])
         if name in ("recon_ce_bwd_slices", "recon_ce_bwd_launch"):
@@ -561,14 +852,25 @@ def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
                  categorical: torch.Tensor, continuous: torch.Tensor,
                  mask: torch.Tensor, derr: torch.Tensor,
                  loss_weights: Sequence[float],
-                 eps: float = LN_EPS) -> HeadGrads:
+                 eps: float = LN_EPS, vslice: Optional[VocabSlice] = None,
+                 dy_heads: int = 15) -> HeadGrads:
     """K20: the gradients of ``recon_ce``'s errors (module docstring), f32.
-    ``lse``: the ``(M, 3)`` log-sum-exps K11 wrote in the forward; ``derr``:
-    ``(M,)`` the gradient of each position's error. Nothing is
-    synchronised."""
-    global bwd_launches, bwd_device_launches
+    ``lse``: the ``(M, 3)`` log-sum-exps K11 wrote in the forward (K24's
+    merged ones in slice mode); ``derr``: ``(M,)`` the gradient of each
+    position's error; ``vslice`` and ``dy_heads`` as the plain version's
+    (slice mode: a shard of the model axis). Nothing is synchronised."""
+    global bwd_launches, bwd_device_launches, bwd_slice_launches
     _check(dec, ln_weight, ln_bias, heads, categorical, continuous, mask,
            loss_weights, None, 0)
+    vslice = whole_slice(heads) if vslice is None else vslice
+    # the launcher's own rule: the slice mode's instantiation where the
+    # heads are a slice or dy_heads leaves a head out
+    sliced = (any(vslice.lo) or dy_heads != 15
+              or list(vslice.vf) != [w.shape[0] for w, _ in heads[:2]])
+    _check_slice(heads, vslice)
+    if not 0 <= dy_heads <= 15:
+        raise ValueError(f"dy_heads is a mask of the four heads, not "
+                         f"{dy_heads}")
     M, d = dec.shape
     if lse.shape != (M, 3) or derr.shape != (M,):
         raise ValueError(f"lse must be ({M}, 3) and derr ({M},), got "
@@ -579,7 +881,7 @@ def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
     if dev.type == "cpu":
         return recon_ce_bwd_plain(dec, ln_weight, ln_bias, heads, lse,
                                   categorical, continuous, mask, derr,
-                                  loss_weights, eps)
+                                  loss_weights, eps, vslice, dy_heads)
     if dev.type != "cuda":
         raise ValueError(f"recon_ce_bwd runs on cuda or cpu, not {dev}")
     params = (ln_weight, ln_bias, *(t for pair in heads for t in pair))
@@ -623,6 +925,7 @@ def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
             lse.data_ptr(), categorical.data_ptr(), categorical.shape[1],
             continuous.data_ptr(), continuous.shape[1], mask.data_ptr(),
             derr.data_ptr(), *(float(w) for w in loss_weights),
+            vslice.vf[0], vslice.lo[0], vslice.vf[1], vslice.lo[1], dy_heads,
             cnt.data_ptr(), scratch.data_ptr(), dy.data_ptr(),
             dw.data_ptr(), db.data_ptr(), build.sm_count(dev),
             ctypes.byref(launched), stream.cuda_stream)
@@ -632,5 +935,6 @@ def recon_ce_bwd(dec: torch.Tensor, ln_weight: torch.Tensor,
         raise RuntimeError(f"recon_ce_bwd launch failed: CUDA error {rc}")
     with _count_lock:
         bwd_launches += 1
+        bwd_slice_launches += int(sliced)
         bwd_device_launches += launched.value
     return HeadGrads(dy, list(zip(torch.split(dw, vs), torch.split(db, vs))))

@@ -48,6 +48,32 @@ cast to it and added to the latent projection in it, each Dense rounds its
 product before adding its bias, and ``dec_ln``'s output is rounded to the
 working type before the f32 heads.
 
+``SpanAutoencoder(..., model_axis=)`` holds the shards of the ``"model"``
+axis that a model axis (``parallel/tp.py``) places in this process, as
+``TraceTransformer`` does: each shard's encoder blocks hold ``H / tp``
+heads and ``d_ff / tp`` FFN columns (``models/layers.py``
+:func:`~.layers.run_block`), its ``dec_ff1`` ``d_ff / tp`` columns (the rows
+of its weight and bias) and ``dec_ff2`` the matching columns of its weight,
+and the service and name heads :class:`VocabHead` slices: ``V / tp`` rows
+of the weight and the WHOLE bias (the reference's ``P()``), K11 reading the
+shard's rows of it. A group whose width the axis does not divide (the
+reference's mesh guard) stays whole on every shard. The decoder then runs
+each shard's K15 ``"gelu_tanh"`` on its columns and ``"partial"`` for
+``dec_ff2``, the axis's sum of the partials and K23 with no residual; the
+heads each shard's K11 ``"slice"`` (``kernels.recon.recon_ce_slice``), the
+axis's gather of the shards' records in rank order and K24
+(``recon.vocab_ce_merge``), so that every rank holds the same errors. In
+training (``kernels.autograd.recon_ce_slice``) each shard's K20 ``"slice"``
+gives its part of ``dy`` (a head every shard holds whole on the first shard
+only), the parts are summed over the axis before K17, and each whole bias
+of a sliced head takes the shards' bias gradients gathered in rank order,
+so every replicated parameter's gradient is the same on every shard. The
+fused route (squash and scatter) has no slice mode and is refused there.
+Its weights are the whole model's, sliced by
+``parallel.sharding.shard_state``: from the seed or from
+:meth:`load_state_dict`, which takes the WHOLE state dict; ``module`` is the
+first local shard and :meth:`state_dict` its.
+
 Defaults match ``odigos_tpu.models.autoencoder.AutoencoderConfig``: d_model
 128, d_latent 64, 2 heads, 2 layers, d_ff 512, max_len 64, vocabs
 512/2048/4096, bf16 over f32 parameters, loss weights 1, 1, 0.5, 1.
@@ -62,11 +88,14 @@ import torch
 from torch import nn
 
 from ..kernels import autograd
-from ..kernels.dense import gemm_bf16, gemm_bf16_plain
+from ..kernels.dense import (gemm_bf16, gemm_bf16_plain, tp_epilogue,
+                             tp_epilogue_plain)
 from ..kernels.embed import KIND_VOCAB
 from ..kernels.pool import ln_masked_pool, ln_masked_pool_plain
-from ..kernels.recon import (HeadPlanes, kernel_route, recon_ce,
-                             recon_ce_plain, split_planes)
+from ..kernels.recon import (HeadPlanes, VocabSlice, kernel_route, recon_ce,
+                             recon_ce_plain, recon_ce_slice,
+                             recon_ce_slice_plain, split_planes,
+                             vocab_ce_merge, vocab_ce_merge_plain)
 from ..kernels import coverage
 from ..utils.device import resolve_device
 from .layers import Encoder, LayerNorm, _trains, init_parameters
@@ -92,22 +121,61 @@ class AutoencoderConfig:
     w_kind: float = 0.5
     w_duration: float = 1.0
 
+    def tp_kernels(self) -> dict[str, tuple[str, tuple[int, int]]]:
+        """The groups this model adds to the encoder's on the ``"model"``
+        axis, each with the Flax kernel the reference's rules guard it on
+        (``parallel.sharding.group_tp``): the decoder FFN and the service
+        and name heads."""
+        return {"dec_ff": ("dec_ff1/kernel", (self.d_model, self.d_ff)),
+                "service": ("service_head/kernel",
+                            (self.d_model, self.service_vocab)),
+                "name": ("name_head/kernel",
+                         (self.d_model, self.name_vocab))}
+
+
+class VocabHead(nn.Module):
+    """A vocabulary head on a shard of the ``"model"`` axis: its rows
+    ``[lo, lo + V / ways)`` of the whole head's ``(V, d)`` weight and the
+    whole ``(V,)`` bias (the reference's ``P()`` on a Dense bias)."""
+
+    def __init__(self, d: int, V: int, ways: int, rank: int):
+        super().__init__()
+        self.rows = V // ways
+        self.lo = rank * self.rows
+        self.weight = nn.Parameter(torch.zeros(self.rows, d))
+        self.bias = nn.Parameter(torch.zeros(V))
+
+    def pair(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The weight and this shard's rows of the bias, K11's head."""
+        return self.weight, self.bias[self.lo:self.lo + self.rows]
+
 
 class _AutoencoderModule(nn.Module):
-    def __init__(self, cfg: AutoencoderConfig):
+    def __init__(self, cfg: AutoencoderConfig, tp: int = 1, rank: int = 0):
         super().__init__()
         c = cfg
         self.encoder = Encoder(c.service_vocab, c.name_vocab, c.attr_vocab,
                                c.attr_slots, c.d_model, c.n_heads,
-                               c.n_layers, c.d_ff, c.max_len, c.dtype)
+                               c.n_layers, c.d_ff, c.max_len, c.dtype, tp)
         self.bottleneck = nn.Linear(c.d_model, c.d_latent)
         self.dec_pos_embed = nn.Embedding(c.max_len, c.d_model)
         self.latent_proj = nn.Linear(c.d_latent, c.d_model)
-        self.dec_ff1 = nn.Linear(c.d_model, c.d_ff)
-        self.dec_ff2 = nn.Linear(c.d_ff, c.d_model)
+        # the decoder FFN's group and the two vocabulary heads' on the axis:
+        # tp, or 1 where the reference's mesh guard keeps the group whole
+        from ..parallel.sharding import group_tp
+
+        groups = group_tp(c, {"model": tp})
+        self.tp_dec = groups["dec_ff"]
+        self.dec_ff1 = nn.Linear(c.d_model, c.d_ff // self.tp_dec)
+        self.dec_ff2 = nn.Linear(c.d_ff // self.tp_dec, c.d_model)
         self.dec_ln = LayerNorm(c.d_model, c.dtype)
-        self.service_head = nn.Linear(c.d_model, c.service_vocab)
-        self.name_head = nn.Linear(c.d_model, c.name_vocab)
+        self.rank = rank
+        self.tp_heads = (groups["service"], groups["name"])
+        self.service_head, self.name_head = (
+            VocabHead(c.d_model, V, ways, rank) if ways > 1
+            else nn.Linear(c.d_model, V)
+            for V, ways in zip((c.service_vocab, c.name_vocab),
+                               self.tp_heads))
         self.kind_head = nn.Linear(c.d_model, KIND_VOCAB)
         self.duration_head = nn.Linear(c.d_model, 1)
         self._planes: tuple = ((), (), None)  # key, held, planes
@@ -119,10 +187,33 @@ class _AutoencoderModule(nn.Module):
 
     def heads(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """The four f32 heads in K11's order: service, name, kind,
-        duration."""
+        duration (a sliced head's rows of its bias)."""
+        return [h.pair() if isinstance(h, VocabHead) else (h.weight, h.bias)
+                for h in (self.service_head, self.name_head, self.kind_head,
+                          self.duration_head)]
+
+    def head_params(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """The four heads' parameters, a sliced head's whole bias."""
         return [(h.weight, h.bias) for h in (
             self.service_head, self.name_head, self.kind_head,
             self.duration_head)]
+
+    def vocab_slice(self) -> VocabSlice:
+        """This shard's rows of the service and name heads."""
+        heads = (self.service_head, self.name_head)
+        return VocabSlice(
+            tuple(h.bias.shape[0] for h in heads),
+            tuple(h.lo if isinstance(h, VocabHead) else 0 for h in heads))
+
+    def dy_heads(self) -> int:
+        """K20's ``dy_heads`` on this shard: its sliced heads, and the
+        heads every shard holds whole on the first shard only."""
+        first = self.rank == 0
+        bits = 12 if first else 0  # kind and duration: always whole
+        for h, ways in enumerate(self.tp_heads):
+            if ways > 1 or first:
+                bits |= 1 << h
+        return bits
 
     def head_planes(self) -> Optional[HeadPlanes]:
         """K11's three bf16 planes of the service and name heads
@@ -132,8 +223,7 @@ class _AutoencoderModule(nn.Module):
         version counters, so a ``load_state_dict``, an in-place copy or a
         move rebuilds them; parameters made under ``inference_mode`` count
         no versions and are split anew on every call."""
-        parts = [t for h in (self.service_head, self.name_head)
-                 for t in (h.weight, h.bias)]
+        parts = [t for pair in self.heads()[:2] for t in pair]
         key = None if any(t.is_inference() for t in parts) else tuple(
             (t.data_ptr(), t._version, t.dtype, t.device) for t in parts)
         if key is None or key != self._planes[0]:
@@ -156,32 +246,71 @@ class SpanAutoencoder:
     """
 
     def __init__(self, config: Optional[AutoencoderConfig] = None,
-                 device: str | torch.device = "cuda", seed: int = 0):
+                 device: str | torch.device = "cuda", seed: int = 0,
+                 model_axis: Any = None):
         self.cfg = config or AutoencoderConfig()
         if self.cfg.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"working dtype must be float32 or bfloat16, "
                              f"not {self.cfg.dtype}")
         self.device = resolve_device(device)
+        self.model_axis = model_axis
+        tp = 1 if model_axis is None else model_axis.tp
         if self.device.type == "cuda":  # no plain route on the card
-            coverage.check(self.cfg)
+            coverage.check(self.cfg, tp)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         module = _AutoencoderModule(self.cfg)
         init_parameters(module, torch.Generator().manual_seed(seed))
-        for lin in module.dense_layers() + [
-                lin for blk in module.encoder.blocks
-                for lin in blk.dense_layers()]:
-            lin.to(self.cfg.dtype)
-        self.module = module.to(self.device).eval()
+        shards = [module]
+        if model_axis is not None:  # the seed's draws, sliced
+            state = module.state_dict()
+            shards = [_AutoencoderModule(self.cfg, tp, r)
+                      for r in model_axis.shards]
+            self._load_shards(shards, state)
+        for m in shards:
+            for lin in m.dense_layers() + [
+                    lin for blk in m.encoder.blocks
+                    for lin in blk.dense_layers()]:
+                lin.to(self.cfg.dtype)
+            m.to(self.device).eval()
+        self.shards = shards
+        self.module = shards[0]
+        if model_axis is not None:
+            self.module.encoder.model_axis = model_axis
+            self.module.encoder.peers = [m.encoder for m in shards]
 
     # ------------------------------------------------------------ weights
     def state_dict(self) -> dict[str, torch.Tensor]:
+        """The state dict of the first local shard (the whole model's
+        without a model axis)."""
         return self.module.state_dict()
 
+    def _load_shards(self, shards: list, state: Mapping[str, Any]) -> None:
+        from ..parallel.sharding import shard_state
+
+        tp = self.model_axis.tp
+        for r, m in zip(self.model_axis.shards, shards):
+            load_module_state(m, shard_state(state, {"model": tp}, self.cfg,
+                                             rank=r))
+
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        """Load a state dict (tensors or numpy arrays); each value is
-        cast to the parameter's own dtype and device."""
-        load_module_state(self.module, state)
+        """Load a state dict (tensors or numpy arrays) of the WHOLE model;
+        each value is cast to the parameter's own dtype and device, and
+        under a model axis each local shard takes its slice."""
+        if self.model_axis is None:
+            load_module_state(self.module, state)
+        else:
+            self._load_shards(self.shards, state)
+
+    def parameters(self) -> list[torch.nn.Parameter]:
+        """Every local shard's parameters (the replicated ones of the
+        shards past the first take part in the heads only)."""
+        return [p for m in self.shards for p in m.parameters()]
+
+    def train(self, mode: bool = True) -> None:
+        """Every local shard into training (or eval) mode."""
+        for m in self.shards:
+            m.train(mode)
 
     # ------------------------------------------------------------ scoring
     def _inputs(self, categorical: Any, continuous: Any, mask: Any):
@@ -224,6 +353,8 @@ class SpanAutoencoder:
         skips their row tiles)."""
         m = self.module
         x = self._decoder_input(cat, cont, mask, reference, live)
+        if m.tp_dec > 1:
+            return self._decode_sharded(x, reference)
         if _trains(m):
             x = autograd.dense(x, [m.dec_ff1.weight], [m.dec_ff1.bias],
                                "gelu_tanh", reference=reference)
@@ -235,11 +366,40 @@ class SpanAutoencoder:
                    live=live, per=L)
         return gemm(dec, m.dec_ff2.weight, m.dec_ff2.bias, live=live, per=L)
 
+    def _decode_sharded(self, x: torch.Tensor,
+                        reference: bool) -> torch.Tensor:
+        """The decoder FFN over the model axis: each shard's ``dec_ff1``
+        columns with the GELU (K15 ``"gelu_tanh"``) and its f32 share of
+        ``dec_ff2`` (K15 ``"partial"``), the axis's sum, then K23 with the
+        ``dec_ff2`` bias and no residual."""
+        axis, m0 = self.model_axis, self.module
+        if _trains(m0):
+            xin = axis.enter(x)
+            parts = [autograd.dense(
+                autograd.dense(xin, [m.dec_ff1.weight], [m.dec_ff1.bias],
+                               "gelu_tanh", reference=reference),
+                [m.dec_ff2.weight], [], "partial", reference=reference)
+                for m in self.shards]
+            return autograd.tp_epilogue(axis.reduce(parts), m0.dec_ff2.bias,
+                                        None, reference)
+        gemm = gemm_bf16_plain if reference else gemm_bf16
+        parts = [gemm(gemm(x, m.dec_ff1.weight, m.dec_ff1.bias, "gelu_tanh"),
+                      m.dec_ff2.weight, None, "partial")
+                 for m in self.shards]
+        epi = tp_epilogue_plain if reference else tp_epilogue
+        return epi(axis.reduce(parts), m0.dec_ff2.bias, None)
+
     def _errors(self, cat, cont, mask, reference: bool, span_map=None,
                 n_out: int = 0, live: Optional[torch.Tensor] = None):
         c = self.cfg
         T, L = mask.shape
+        if self.model_axis is not None and span_map is not None:
+            raise ValueError("the fused route's squash and scatter has no "
+                             "model-axis mode (K11 'slice' writes records); "
+                             "score a model axis through score_spans")
         dec = self._decode(cat, cont, mask, reference, live)
+        if self.model_axis is not None:
+            return self._errors_sliced(dec, cat, cont, mask, reference)
         ln = self.module.dec_ln
         args = (dec, ln.weight, ln.bias, self.module.heads(),
                 cat.reshape(T * L, -1), cont.reshape(T * L, -1),
@@ -258,6 +418,43 @@ class SpanAutoencoder:
         return recon_ce(*args, span_map=span_map, n_out=n_out, eps=ln.eps,
                         planes=planes,
                         route=kernel_route(dec.dtype, planes is not None))
+
+    def _errors_sliced(self, dec, cat, cont, mask, reference: bool):
+        """The heads over the model axis: each shard's K11 ``"slice"``
+        records, their gather over the axis in rank order and K24's merge
+        (the trainer's forward: ``autograd.recon_ce_slice``, with K20
+        ``"slice"``, the sum of ``dy`` and K17 behind it)."""
+        c = self.cfg
+        T, L = mask.shape
+        m0 = self.module
+        ln = m0.dec_ln
+        weights = (c.w_service, c.w_name, c.w_kind, c.w_duration)
+        args = (cat.reshape(T * L, -1), cont.reshape(T * L, -1),
+                mask.reshape(T * L))
+        slices = [m.vocab_slice() for m in self.shards]
+        if _trains(m0):
+            return autograd.recon_ce_slice(
+                dec, ln.weight, ln.bias,
+                [m.head_params() for m in self.shards],
+                slices, [m.dy_heads() for m in self.shards], self.model_axis,
+                *args, weights, ln.eps, reference)
+        recs = []
+        for m, vsl in zip(self.shards, slices):
+            if reference or not dec.is_cuda:
+                fn = recon_ce_slice_plain if reference else recon_ce_slice
+                recs.append(fn(dec, ln.weight, ln.bias, m.heads(), *args,
+                               vsl, ln.eps))
+                continue
+            planes = m.head_planes() if dec.dtype == torch.bfloat16 else None
+            recs.append(recon_ce_slice(
+                dec, ln.weight, ln.bias, m.heads(), *args, vsl, ln.eps,
+                planes=planes,
+                route=kernel_route(dec.dtype, planes is not None)))
+        merge = vocab_ce_merge_plain if reference else vocab_ce_merge
+        vf = slices[0].vf
+        vs = tuple(h[0].shape[0] for h in m0.heads()[:2])
+        return merge(self.model_axis.gather(recs), args[0], args[2], vf, vs,
+                     weights)
 
     @property
     def recon_route(self) -> str:
@@ -309,6 +506,20 @@ class SpanAutoencoder:
                                  live=live)
         return scores
 
+    def loss_terms(self, categorical: Any, continuous: Any, mask: Any,
+                   span_labels: Any = None, trace_labels: Any = None,
+                   reference: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The sum :meth:`loss_fn` divides and its count: ``(the masked
+        reconstruction error summed, real spans)`` (labels ignored: the
+        model is unsupervised). The sharded train step all-reduces the
+        count over the data axis to take the loss over the global batch.
+        With the module in training mode and gradients enabled it has a
+        graph behind it."""
+        cat, cont, m = self._inputs(categorical, continuous, mask)
+        err = self._errors(cat, cont, m, reference)
+        return err.sum(), m.sum().float()
+
     def loss_fn(self, categorical: Any, continuous: Any, mask: Any,
                 reference: bool = False) -> torch.Tensor:
         """The reference's ``loss_fn``: the mean masked reconstruction
@@ -324,6 +535,6 @@ class SpanAutoencoder:
 
     def _loss(self, categorical, continuous, mask, reference: bool
               ) -> torch.Tensor:
-        cat, cont, m = self._inputs(categorical, continuous, mask)
-        err = self._errors(cat, cont, m, reference)
-        return err.sum() / m.sum().clamp(min=1).float()
+        total, n = self.loss_terms(categorical, continuous, mask,
+                                   reference=reference)
+        return total / n.clamp(min=1.0)

@@ -65,6 +65,11 @@ class TransformerConfig:
     max_len: int = 64
     dtype: torch.dtype = torch.bfloat16
 
+    def tp_kernels(self) -> dict[str, tuple[str, tuple[int, int]]]:
+        """The groups this model adds to the encoder's on the ``"model"``
+        axis (``parallel.sharding.group_tp``): none."""
+        return {}
+
 
 class _TraceTransformerModule(nn.Module):
     def __init__(self, cfg: TransformerConfig, tp: int = 1):

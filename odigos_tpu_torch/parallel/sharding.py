@@ -20,7 +20,12 @@ port is SPMD over ranks, one rank a device:
   ``ff2``. The ``out`` and ``ff2`` biases stay whole: the block adds them
   once, after the all-reduce (K23). The attention group (``H``) and the
   FFN group (``d_ff``) are each guarded as a unit, from the rules
-  resolved on block 0's kernels;
+  resolved on block 0's kernels. The autoencoder adds three groups, each
+  guarded on its own kernel: its decoder FFN (``dec_ff1``'s columns, the
+  rows of its weight and bias; ``dec_ff2``'s rows, the columns of its
+  weight; the ``dec_ff2`` bias whole) and the service and name heads (the
+  rows of each weight; each bias whole, the reference's ``P()``: a shard
+  reads its rows of it);
 * **the data axis**: every rank is handed the same global batch,
   :func:`shard_batch` pads it to a multiple of dp (``_shard_inputs``:
   mask rows stay False) and keeps this rank's rows; scores are
@@ -28,15 +33,19 @@ port is SPMD over ranks, one rank a device:
   SUM after the loss is taken over the GLOBAL batch (the counts of real
   spans and valid traces all-reduced first), so every replica takes the
   same update;
-* **the model axis** (tensor parallelism, the transformer only): each rank
-  holds its shard of the blocks (``models/layers.py`` ``run_block``, a
-  ``GroupModelAxis`` over the mesh's ``"model"`` group), K15's
-  ``"partial"`` products all-reduced in f32 and finished by K23; in
-  training the Megatron pair (``parallel/tp.py``). Every replicated
-  parameter's gradient is the same on every rank of the model group (its
-  inputs are all-reduced), so it stays bit-equal there; the optimizer
-  steps each rank's own shard. ``SpanAutoencoder`` on a model axis above
-  1 raises (its decoder FFN and vocab heads are ROADMAP A8.4).
+* **the model axis** (tensor parallelism): each rank holds its shard of
+  the blocks (``models/layers.py`` ``run_block``, a ``GroupModelAxis``
+  over the mesh's ``"model"`` group), K15's ``"partial"`` products
+  all-reduced in f32 and finished by K23; in training the Megatron pair
+  (``parallel/tp.py``). ``SpanAutoencoder`` shards its decoder FFN the
+  same way (K23 without a residual) and its vocabulary heads by rows: each
+  rank's K11 ``"slice"`` records are all-gathered over the model group and
+  merged by K24 in rank order, so the errors are bit-equal there; in
+  training each rank's K20 ``"slice"`` part of ``dy`` is all-reduced
+  before K17 (``models/autoencoder.py``). Every replicated parameter's
+  gradient is the same on every rank of the model group (its inputs are
+  all-reduced or gathered), so it stays bit-equal there; the optimizer
+  steps each rank's own shard.
 
 All-reducing f32 partials and rounding once departs from the reference in
 bf16, where XLA's ``psum`` adds the Dense outputs in the working type:
@@ -86,9 +95,9 @@ SHAPE_BUCKETING = {
 }
 
 PARTITION_SPECS = {
-    "compile_plan": "params via PARTITION_RULES (heads/d_ff on 'model', "
-                    "rest replicated; shard_state); packed inputs and "
-                    "scores on 'data' by rows",
+    "compile_plan": "params via PARTITION_RULES (heads/d_ff/vocab on "
+                    "'model', rest replicated; shard_state); packed inputs "
+                    "and scores on 'data' by rows",
     "make_sharded_score_fn": "params via PARTITION_RULES; (T, L, *) "
                              "inputs on 'data' by traces",
     "make_sharded_packed_score_fn": "alias of compile_plan (packed rows "
@@ -225,33 +234,56 @@ def batch_spec(mesh: Any) -> tuple:
     return ("data",)
 
 
-def _group_tp(cfg: Any, mesh: Any, rules: tuple = PARTITION_RULES
-              ) -> tuple[int, int]:
-    """The model axis's width over the attention heads and over the FFN
-    columns: the rules resolved and guarded on block 0's Flax query and
-    Dense_0 kernels, ``(tp, tp)`` where both shard, 1 where the guard
-    replicates the group."""
+def group_tp(cfg: Any, mesh: Any, rules: tuple = PARTITION_RULES
+              ) -> dict[str, int]:
+    """The model axis's width over each group of a config's leaves: the
+    rules resolved and guarded on the group's Flax kernel (``attn``: block
+    0's query, ``ffn``: its Dense_0, and the groups the config declares in
+    ``tp_kernels()``: the autoencoder's ``dec_ff`` on ``dec_ff1``,
+    ``service`` and ``name`` on the two heads), tp where it shards, 1 where
+    the guard replicates the group."""
     tp = _dims(mesh).get("model", 1)
     hd = cfg.d_model // cfg.n_heads
-    q = _guard_spec(_rule_spec(f"encoder/block_0/{_MHA}/query/kernel",
-                               (cfg.d_model, cfg.n_heads, hd), rules),
-                    np.empty((cfg.d_model, cfg.n_heads, hd)), mesh)
-    f = _guard_spec(_rule_spec("encoder/block_0/Dense_0/kernel",
-                               (cfg.d_model, cfg.d_ff), rules),
-                    np.empty((cfg.d_model, cfg.d_ff)), mesh)
-    return (tp if "model" in q else 1, tp if "model" in f else 1)
+    kernels = {"attn": (f"encoder/block_0/{_MHA}/query/kernel",
+                        (cfg.d_model, cfg.n_heads, hd)),
+               "ffn": ("encoder/block_0/Dense_0/kernel",
+                       (cfg.d_model, cfg.d_ff)),
+               **cfg.tp_kernels()}
+    out = {}
+    for group, (path, shape) in kernels.items():
+        spec = _guard_spec(_rule_spec(path, shape, rules), np.empty(shape),
+                           mesh)
+        out[group] = tp if "model" in spec else 1
+    return out
 
 
 _BLOCK_LEAF = re.compile(
     r"encoder\.blocks\.\d+\.(query|key|value|out|ff1|ff2)\.(weight|bias)$")
+_AE_LEAF = re.compile(r"^(dec_ff1|dec_ff2|service_head|name_head)\."
+                      r"(weight|bias)$")
 
 
-def _split_dim(name: str, ta: int, tf: int) -> tuple[Optional[int], int]:
+def _split_dim(name: str, groups: Mapping[str, int]
+               ) -> tuple[Optional[int], int]:
     """``(dim, ways)`` a port state-dict leaf is cut along on the model
-    axis, ``(None, 1)`` where it is whole."""
+    axis (``groups``: :func:`group_tp`'s), ``(None, 1)`` where it is
+    whole."""
+    m = _AE_LEAF.search(name)
+    if m is not None:
+        lin, kind = m.groups()
+        td = groups.get("dec_ff", 1)
+        if lin == "dec_ff1" and td > 1:
+            return 0, td  # the columns: rows of the weight and the bias
+        if lin == "dec_ff2" and kind == "weight" and td > 1:
+            return 1, td
+        ways = groups.get(lin[:-len("_head")], 1)
+        if lin.endswith("_head") and kind == "weight" and ways > 1:
+            return 0, ways  # the vocabulary's rows; the bias stays whole
+        return None, 1
     m = _BLOCK_LEAF.search(name)
     if m is None:
         return None, 1
+    ta, tf = groups["attn"], groups["ffn"]
     lin, kind = m.groups()
     if lin in ("query", "key", "value") and ta > 1:
         return 0, ta  # the heads' rows (and their bias)
@@ -277,16 +309,17 @@ def _model_rank(mesh: Any, rank: Optional[int]) -> int:
 def shard_state(state: Mapping[str, Any], mesh: Any, cfg: Any,
                 rank: Optional[int] = None) -> dict[str, torch.Tensor]:
     """This rank's shard of the port's state dict of a ``TraceTransformer``
-    (``cfg`` its ``TransformerConfig``) on ``mesh`` (a ``DeviceMesh``, or
-    a shape mapping with ``rank=`` the model-axis index): the module
-    docstring's slices, each contiguous; every other leaf as given."""
-    ta, tf = _group_tp(cfg, mesh)
+    or a ``SpanAutoencoder`` (``cfg`` its config) on ``mesh`` (a
+    ``DeviceMesh``, or a shape mapping with ``rank=`` the model-axis
+    index): the module docstring's slices, each contiguous; every other
+    leaf as given."""
+    groups = group_tp(cfg, mesh)
     r = _model_rank(mesh, rank)
     out = {}
     for name, v in state.items():
         t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
             np.asarray(v))
-        dim, ways = _split_dim(name, ta, tf)
+        dim, ways = _split_dim(name, groups)
         out[name] = t if dim is None else torch.chunk(
             t, ways, dim)[r].contiguous()
     return out
@@ -297,12 +330,12 @@ def unshard_state(shards: Sequence[Mapping[str, Any]], mesh: Any, cfg: Any
     """The whole state dict from every model-axis rank's shard, in rank
     order (the inverse of :func:`shard_state`; replicated leaves are
     rank 0's)."""
-    ta, tf = _group_tp(cfg, mesh)
+    groups = group_tp(cfg, mesh)
     out = {}
     for name in shards[0]:
         ts = [s[name] if isinstance(s[name], torch.Tensor)
               else torch.as_tensor(np.asarray(s[name])) for s in shards]
-        dim, _ = _split_dim(name, ta, tf)
+        dim, _ = _split_dim(name, groups)
         out[name] = ts[0] if dim is None else torch.cat(ts, dim)
     return out
 
@@ -318,31 +351,26 @@ def _data_axis(mesh: DeviceMesh) -> tuple[Any, int, int]:
 
 
 def _model_axis(model: Any, mesh: DeviceMesh) -> Optional[GroupModelAxis]:
-    """The mesh's model axis above 1 (the transformer only), else None."""
+    """The mesh's model axis above 1, else None (a model with no model
+    axis raises)."""
     tp = _dims(mesh).get("model", 1)
     if tp <= 1:
         return None
-    from ..models.transformer import TraceTransformer
-
-    if not isinstance(model, TraceTransformer):
-        raise ValueError(
-            f"a 'model' axis of {tp} shards the transformer only: the "
-            f"{type(model).__name__}'s decoder FFN and vocab heads on the "
-            f"model axis are ROADMAP A8.4, not ported yet; use a mesh "
-            f"whose 'model' axis is 1")
+    if not hasattr(model, "model_axis"):
+        raise ValueError(f"a 'model' axis of {tp} shards the transformer and "
+                         f"the autoencoder, not a {type(model).__name__}")
     return GroupModelAxis.of(mesh)
 
 
 def shard_model(model: Any, mesh: DeviceMesh) -> Any:
-    """``model`` (a whole ``TraceTransformer``) as this rank's shard of the
-    mesh's model axis: a ``TraceTransformer`` on a ``GroupModelAxis`` with
-    the same weights. Without a model axis above 1, ``model`` itself."""
+    """``model`` (a whole ``TraceTransformer`` or ``SpanAutoencoder``) as
+    this rank's shard of the mesh's model axis: the same class on a
+    ``GroupModelAxis`` with the same weights. Without a model axis above 1,
+    ``model`` itself."""
     axis = _model_axis(model, mesh)
     if axis is None or model.model_axis is not None:
         return model
-    from ..models.transformer import TraceTransformer
-
-    shard = TraceTransformer(model.cfg, device=model.device, model_axis=axis)
+    shard = type(model)(model.cfg, device=model.device, model_axis=axis)
     shard.load_state_dict(model.state_dict())
     return shard
 
@@ -406,9 +434,13 @@ def make_sharded_train_step(model, optimizer: torch.optim.Optimizer,
     ``make_sharded_train_step`` returns new variables and optimizer state;
     here ``model``'s parameters and ``optimizer`` (built over them) are
     updated in place. The model must be the trainer's: a
-    ``TraceTransformer`` in f32 on the card (the backward kernels' type,
-    ``trainer.card_checks``); on a model axis above 1, this rank's shard
-    (:func:`shard_model`), its optimizer over ``model.parameters()``."""
+    ``TraceTransformer`` or a ``SpanAutoencoder`` in f32 on the card (the
+    backward kernels' type, ``trainer.card_checks``); on a model axis above
+    1, this rank's shard (:func:`shard_model`), its optimizer over
+    ``model.parameters()``. The loss is the model's ``loss_terms``: each
+    sum over the GLOBAL batch's count (the transformer's span and trace
+    terms, the autoencoder's masked error over its real spans), the counts
+    all-reduced over the data axis first."""
     group, dp, _ = _data_axis(mesh)
     axis = _model_axis(model, mesh)
     if axis is not None and (model.model_axis is None
@@ -436,12 +468,13 @@ def make_sharded_train_step(model, optimizer: torch.optim.Optimizer,
         try:
             optimizer.zero_grad(set_to_none=True)
             with torch.enable_grad():
-                span_sum, span_n, trace_sum, trace_n = model.loss_terms(
-                    cat, cont, mask, span_labels, trace_labels)
-                counts = torch.stack([span_n, trace_n]).detach()
+                terms = model.loss_terms(cat, cont, mask, span_labels,
+                                         trace_labels)
+                counts = torch.stack(terms[1::2]).detach()
                 all_reduce(counts)
-                loss = (span_sum / counts[0].clamp(min=1.0)
-                        + trace_sum / counts[1].clamp(min=1.0))
+                loss = terms[0] / counts[0].clamp(min=1.0)
+                for i in range(1, len(terms) // 2):
+                    loss = loss + terms[2 * i] / counts[i].clamp(min=1.0)
                 loss.backward()
         finally:
             model.train(was_training)

@@ -23,6 +23,13 @@ and K23 rounds it. Two axes:
   with it. Autograd differentiates its sum and the fan-out of the
   replicated input itself.
 
+Both also gather a tensor over the axis (:meth:`gather`): each shard's
+``(n, ...)`` tensor into one ``(tp, n, ...)`` in rank order, every rank
+given the same bytes (``dist.all_gather_into_tensor``; in one process a
+``torch.stack``). The autoencoder's vocabulary-sliced heads gather each
+shard's per-position cross-entropy record this way, so that every rank
+merges them (K24) to the same bits.
+
 ``shards`` is the shards a process holds: ``(rank in the group,)`` or
 ``range(tp)``.
 """
@@ -93,6 +100,15 @@ class GroupModelAxis:
         dist.all_reduce(p, op=dist.ReduceOp.SUM, group=self.group)
         return p
 
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """This rank's ``(n, ...)`` tensor from every rank of the group,
+        as one ``(tp, n, ...)`` tensor in rank order (no gradient)."""
+        (p,) = parts
+        p = p.contiguous()
+        out = p.new_empty((self.tp * p.shape[0],) + tuple(p.shape[1:]))
+        dist.all_gather_into_tensor(out, p, group=self.group)
+        return out.view((self.tp,) + tuple(p.shape))
+
 
 class LocalModelAxis:
     """The model axis in one process: all ``tp`` shards on one device, the
@@ -115,3 +131,10 @@ class LocalModelAxis:
         for p in partials[1:]:
             acc = acc + p
         return acc
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Every shard's tensor stacked in rank order."""
+        if len(parts) != self.tp:
+            raise ValueError(f"{len(parts)} parts on a model axis of "
+                             f"{self.tp}")
+        return torch.stack(list(parts))

@@ -92,9 +92,11 @@ Without a bundle the sequence models' weights are random, drawn from
 tp}`` or pairs; ``data_parallel`` is the legacy ``{"data": N}``): the
 engine owns one ``DeviceMesh`` (``parallel.make_mesh``) and the sequence
 backends receive it and score every call through the partition-rule plan
-(``parallel.compile_plan``): rows on the data axis, the transformer's
-heads and FFN columns on the model axis; the bucket ladder's rungs are
-``lcm(base, dp)``. A mesh the world cannot back serves on one device,
+(``parallel.compile_plan``): rows on the data axis; on the model axis
+the attention heads and FFN columns of either model's blocks, and the
+autoencoder's decoder FFN columns and vocabulary heads' rows (each rank's
+K11 ``"slice"`` records gathered and merged by K24, so every rank holds
+the same errors); the bucket ladder's rungs are ``lcm(base, dp)``. A mesh the world cannot back serves on one device,
 counted in ``odigos_engine_mesh_unavailable_total{model=}``; a mesh with
 ``quantized=True`` is refused; under a plan the fused route falls back
 with reason ``"backend"``; the adaptive coalescer's estimates are learned

@@ -449,7 +449,10 @@ class AutoencoderBackend(FusedSequenceBackend):
     fused route is the transformer's up to the sort; then K13 packs one
     trace per row and the model scores, K11 squashing each error and
     writing it at the span's original index. ``quantized`` is refused by
-    ``EngineConfig``, as in the reference.
+    ``EngineConfig``, as in the reference. Under the engine's mesh the
+    host route scores through the plan's ``score_spans`` on ``{"data": dp,
+    "model": tp}`` (``parallel.sharding``); the fused route falls back
+    there, as the transformer's does.
     """
 
     config_cls = AutoencoderConfig

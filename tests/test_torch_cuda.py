@@ -2877,3 +2877,144 @@ def test_gpu_engine_fails_over_to_the_cpu_zscore_and_recovers(dev):
     finally:
         eng.shutdown()
         plain.shutdown()
+
+
+# ------------------------------------ the autoencoder on the model axis
+# K11 "slice" writes each real position's record (the slice's log-sum-exps
+# and label logits, the kind CE, duration - target, the kind LSE); K24
+# merges the shards' records (kernels/recon.py). Records: within
+# RECON_ATOL of the plain version's (another summation order); K24: bit
+# for bit (the same IEEE steps, expf/logf as torch's on the card); at tp 1
+# K11 "slice" + K24 is K11 bit for bit on both routes.
+def _slice_heads(heads, tp, r):
+    """Rank r's heads and slice: the service and name heads' rows where tp
+    divides them."""
+    out, lo = [], []
+    for h, (w, b) in enumerate(heads):
+        V = w.shape[0]
+        if h < 2 and V % tp == 0:
+            n = V // tp
+            out.append((w[r * n:(r + 1) * n].contiguous(),
+                        b[r * n:(r + 1) * n].contiguous()))
+            lo.append(r * n)
+        else:
+            out.append((w, b))
+            lo.append(0)
+    vf = (heads[0][0].shape[0], heads[1][0].shape[0])
+    return out, krecon.VocabSlice(vf, tuple(lo[:2]))
+
+
+def _labels_past_every_slice(cat, mask, vocabs):
+    cat = cat.clone()
+    cat[::9, 0] = -vocabs[0] + 3  # wrapped from [-V, 0)
+    cat[1::11, 1] = vocabs[1] + 4  # past every slice: NaN (C5)
+    past = torch.zeros_like(mask)
+    past[1::11] = True
+    return cat, past & mask
+
+
+@pytest.mark.parametrize("dtype,route", [("bfloat16", "tc"),
+                                         ("float32", "cuda_core")])
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("d,M", [(128, 32768), (96, 4096)])
+@pytest.mark.parametrize("vocabs", [(512, 2048, 8, 1), (96, 200, 8, 1)],
+                         ids=["served", "ragged"])
+def test_k11_slice_and_k24_match_plain_and_k11(dev, dtype, route, tp, d, M,
+                                               vocabs):
+    # "ragged": slices of 48 / 24 and 100 / 50 rows, which K11's planes pad
+    # to whole PLANE_PAD rows as they pad a whole head
+    x, w, b, heads, cat, cont, mask, wts = _recon_args(dev, M, d, dtype,
+                                                       vocabs, 0.2)
+    cat, past = _labels_past_every_slice(cat, mask, vocabs)
+    recs, recs_p = [], []
+    s0 = krecon.slice_launches
+    for r in range(tp):
+        hs, vsl = _slice_heads(heads, tp, r)
+        planes = krecon.head_planes(hs) if route == "tc" else None
+        recs.append(krecon.recon_ce_slice(x, w, b, hs, cat, cont, mask, vsl,
+                                          planes=planes, route=route))
+        recs_p.append(krecon.recon_ce_slice_plain(x, w, b, hs, cat, cont,
+                                                  mask, vsl))
+    assert krecon.slice_launches == s0 + tp
+    rec, rec_p = torch.stack(recs), torch.stack(recs_p)
+    torch.cuda.synchronize()
+    m = mask
+    cols = [0, 2, 4, 5] + ([6] if route == "cuda_core" else [])
+    diff = (rec[:, m][..., cols] - rec_p[:, m][..., cols]).abs()
+    assert diff.max().item() <= RECON_ATOL
+    zl, zl_p = rec[:, m][..., [1, 3]], rec_p[:, m][..., [1, 3]]
+    assert torch.equal(zl.isnan(), zl_p.isnan())
+    assert (zl - zl_p).nan_to_num().abs().max().item() <= RECON_ATOL
+    vs = tuple(h[0].shape[0] for h in _slice_heads(heads, tp, 0)[0][:2])
+    m0 = krecon.merge_launches
+    err = krecon.vocab_ce_merge(rec, cat, mask, vocabs[:2], vs, wts)
+    assert krecon.merge_launches == m0 + 1
+    err_p = krecon.vocab_ce_merge_plain(rec, cat, mask, vocabs[:2], vs, wts)
+    assert torch.equal(err.isnan(), past) and torch.equal(err_p.isnan(), past)
+    assert torch.equal(err.nan_to_num(), err_p.nan_to_num())  # K24: bits
+    ref = krecon.recon_ce_plain(x, w, b, heads, cat, cont, mask, wts)
+    assert (err - ref)[~past].abs().max().item() <= RECON_ATOL
+    if tp == 1:  # K11 "slice" + K24 is K11
+        k11 = krecon.recon_ce(x, w, b, heads, cat, cont, mask, wts,
+                              route=route, planes=krecon.head_planes(heads)
+                              if route == "tc" else None)
+        assert torch.equal(err.nan_to_num(), k11.nan_to_num())
+        assert torch.equal(err.isnan(), k11.isnan())
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_k24_merged_lse_is_its_plain_version_s(dev, tp):
+    M = 50000
+    g = torch.Generator(device=dev).manual_seed(tp)
+    rec = torch.randn(tp, M, 8, generator=g, device=dev) * 5
+    mask = torch.rand(M, generator=g, device=dev) < 0.4
+    cat = torch.stack([torch.randint(-512, 520, (M,), generator=g,
+                                     device=dev),
+                       torch.randint(0, 2048, (M,), generator=g, device=dev),
+                       torch.zeros(M, dtype=torch.int64, device=dev)],
+                      1).to(torch.int32)
+    vs = (512 // tp, 2048)  # the name head whole on every shard
+    lse = torch.full((M, 3), float("nan"), device=dev)
+    lse_p = torch.zeros(M, 3, device=dev)
+    err = krecon.vocab_ce_merge(rec, cat, mask, (512, 2048), vs,
+                                (1.0, 1.0, 0.5, 1.0), lse=lse)
+    err_p = krecon.vocab_ce_merge_plain(rec, cat, mask, (512, 2048), vs,
+                                        (1.0, 1.0, 0.5, 1.0), lse=lse_p)
+    torch.cuda.synchronize()
+    assert torch.equal(err.isnan(), err_p.isnan())
+    assert torch.equal(err.nan_to_num(), err_p.nan_to_num())
+    assert torch.equal(lse, lse_p)
+    assert (err[~mask] == 0).all() and (lse[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+@pytest.mark.parametrize("M,d", [(2048, 128), (700, 256)])
+def test_k20_slice_matches_plain_and_is_k20_at_tp1(dev, tp, M, d):
+    vocabs = (512, 2048, 8, 1)
+    x, w, b, heads, lse, cat, cont, mask, derr, wts = _k20_inputs(
+        dev, M, d, 0.3, vocabs)
+    cat, past = _labels_past_every_slice(cat, mask, vocabs)
+    derr[past] = 0.0
+    s0, b0 = krecon.bwd_slice_launches, krecon.bwd_launches
+    for r in range(tp):
+        hs, vsl = _slice_heads(heads, tp, r)
+        dyh = 15 if r == 0 else 3
+        got = krecon.recon_ce_bwd(x, w, b, hs, lse, cat, cont, mask, derr,
+                                  wts, vslice=vsl, dy_heads=dyh)
+        ref = krecon.recon_ce_bwd_plain(x, w, b, hs, lse, cat, cont, mask,
+                                        derr, wts, vslice=vsl, dy_heads=dyh)
+        _close(got.dy, ref.dy, RECON_BWD_RTOL, f"dy r{r}")
+        for h, ((dw, db), (rw, rb)) in enumerate(zip(got.heads, ref.heads)):
+            _close(dw, rw, RECON_BWD_RTOL, f"dW{h} r{r}")
+            _close(db, rb, RECON_BWD_RTOL, f"db{h} r{r}")
+        if tp == 1:  # the slice mode of the whole heads is K20's bits
+            k20 = krecon.recon_ce_bwd(x, w, b, heads, lse, cat, cont, mask,
+                                      derr, wts)
+            assert torch.equal(got.dy, k20.dy)
+            assert all(torch.equal(a, c) for p, q in zip(got.heads,
+                                                         k20.heads)
+                       for a, c in zip(p, q))
+    # the slice mode's instantiation runs where the heads are a slice; the
+    # whole heads (tp 1) take the unsliced kernel
+    assert krecon.bwd_slice_launches == s0 + (tp if tp > 1 else 0)
+    assert krecon.bwd_launches == b0 + tp + (tp == 1)

@@ -22,7 +22,13 @@ reference's seed weights on ``{"data": 4}`` and ``{"data": 2, "model":
   with ``quantized=True`` is refused; with columns the fused route falls
   back with reason ``"backend"``;
 * a follower's ``submit`` raises, and every rank shuts down cleanly;
-* the autoencoder on ``{"data": 4}`` scores as the one-device engine.
+* the autoencoder on ``{"data": 4}`` scores as the one-device engine; on
+  ``{"data": 2, "model": 2}`` (its decoder FFN and vocabulary heads on
+  the model axis), serving a bundle of the JAX engine's weights, it
+  matches the JAX engine on the same mesh within ``SCORE_ATOL`` and tags
+  the same spans;
+* a mesh of three of the four ranks: the fourth rank's engine raises
+  "this rank holds no coordinate of the engine's mesh".
 """
 
 import tempfile
@@ -35,10 +41,12 @@ import torch
 from odigos_tpu.features import featurize as jfeaturize
 from odigos_tpu.models import TraceTransformer as JTraceTransformer
 from odigos_tpu.models import TransformerConfig as JTransformerConfig
+from odigos_tpu.models.autoencoder import AutoencoderConfig as JAEConfig
 from odigos_tpu.pdata import synthesize_traces as jsynth
 from odigos_tpu.serving.engine import EngineConfig as JEngineConfig
 from odigos_tpu.serving.engine import ScoringEngine as JEngine
 from odigos_tpu_torch.models import (AutoencoderConfig, TransformerConfig,
+                                     flax_autoencoder_to_torch,
                                      flax_to_torch)
 from odigos_tpu_torch.parallel.launch import spawn
 from odigos_tpu_torch.pdata import synthesize_traces as psynth
@@ -60,6 +68,11 @@ SPAWN_TIMEOUT = 240.0
 BUCKET, RUNGS = 6, 3  # rungs 6 (dp 4: 12), 12, 24: every call warm
 AE = dict(d_model=32, d_latent=16, n_heads=2, n_layers=1, d_ff=64,
           max_len=16, dtype=torch.float32)
+# the autoencoder on the model axis: the loss weights scaled down so that
+# the squashed scores spread (random weights put every error near 20)
+AE_TP = dict(d_model=32, d_latent=16, n_heads=2, n_layers=1, d_ff=64,
+             max_len=16, w_service=0.05, w_name=0.05, w_kind=0.02,
+             w_duration=0.01)
 
 
 # ------------------------------------------------------------- the config
@@ -115,12 +128,22 @@ def mesh_case():
     variables = jax.tree_util.tree_map(
         np.asarray, JTraceTransformer(jcfg).init(jax.random.PRNGKey(0)))
     cfg = TransformerConfig(dtype=torch.float32, **TINY)
+    jae = JEngine(JEngineConfig(
+        model="autoencoder", model_config=JAEConfig(dtype=jnp.float32,
+                                                    **AE_TP),
+        mesh={"data": 2, "model": 2}, max_len=16, trace_bucket=BUCKET,
+        bucket_ladder=RUNGS, seed=0))
+    acfg = AutoencoderConfig(dtype=torch.float32, **AE_TP)
     with tempfile.TemporaryDirectory() as tmp:
         bundle = save_bundle(tmp + "/bundle", flax_to_torch(variables, cfg),
                              model="transformer", model_config=cfg)
+        ae_bundle = save_bundle(
+            tmp + "/ae", flax_autoencoder_to_torch(jax.tree_util.tree_map(
+                np.asarray, jae.backend.variables), acfg),
+            model="autoencoder", model_config=acfg)
         batches = [psynth(n, seed=s) for n, s in BATCHES]
         got = spawn(ranks.engine_mesh_rank, 4, device="cpu",
-                    args=(bundle, batches, 16, BUCKET, RUNGS, AE),
+                    args=(bundle, batches, 16, BUCKET, RUNGS, AE, ae_bundle),
                     timeout=SPAWN_TIMEOUT)
         one = ScoringEngine(EngineConfig(
             model="transformer", checkpoint_path=bundle, max_len=16,
@@ -149,7 +172,16 @@ def mesh_case():
             jscores.append(jeng.score_sync(b, jfeaturize(b), timeout_s=120.0))
     finally:
         jeng.shutdown()
-    return got, single, jscores, ae_single
+    jae.start()
+    try:
+        jae_scores = []
+        for n, s in BATCHES:
+            b = jsynth(n, seed=s)
+            jae_scores.append(jae.score_sync(b, jfeaturize(b),
+                                             timeout_s=120.0))
+    finally:
+        jae.shutdown()
+    return got, single, jscores, ae_single, jae_scores
 
 
 def _leader(got):
@@ -188,6 +220,37 @@ def test_the_autoencoder_serves_on_the_data_axis(mesh_case):
     for s, ref in zip(_leader(got)["ae_scores"], ae_single):
         assert s is not None and s.shape == ref.shape
         np.testing.assert_allclose(s, ref, atol=DP_ATOL, rtol=0)
+
+
+def test_the_autoencoder_on_dp_x_tp_matches_the_jax_engine(mesh_case):
+    """The autoencoder engine on ``{"data": 2, "model": 2}`` against the JAX
+    engine on the same mesh and weights: the squashed scores within
+    ``SCORE_ATOL``, and the same spans tagged at a threshold between two
+    of the reference's scores (the middle widest gap)."""
+    got, jae_scores = mesh_case[0], mesh_case[4]
+    for r in got:
+        assert r["ae_tp_runner"] == (2, 256)  # the service head's rows
+    ref_all = np.concatenate(jae_scores)
+    vals = np.unique(ref_all)
+    mid = vals[len(vals) // 4:3 * len(vals) // 4 + 1]
+    gaps = np.diff(mid)
+    thr = float(mid[gaps.argmax()] + gaps.max() / 2)
+    assert gaps.max() / 2 > 2 * SCORE_ATOL
+    assert 0.05 < (ref_all > thr).mean() < 0.95
+    for s, ref in zip(_leader(got)["ae_tp_scores"], jae_scores):
+        assert s is not None and s.shape == ref.shape
+        np.testing.assert_allclose(s, ref, atol=SCORE_ATOL, rtol=0)
+        np.testing.assert_array_equal(s > thr, ref > thr)
+
+
+def test_a_rank_outside_the_engine_s_mesh_is_refused(mesh_case):
+    for r in mesh_case[0]:
+        if r["rank"] < 3:
+            assert r["prefix"] == "", r["prefix"]
+        else:
+            assert r["prefix"].startswith("ValueError")
+            assert "this rank holds no coordinate of the engine's mesh" in \
+                r["prefix"]
 
 
 def test_dp_tp_scores_match_the_jax_engine_with_the_same_tags(mesh_case):

@@ -21,7 +21,7 @@ which imports no JAX.
 * ``mesh_key`` gives the reference's labels; ``make_mesh``'s default,
   prefix and "needs" cases; on a ``"model"`` axis above 1 the
   transformer's score function and (on its shard) train step are built,
-  and the autoencoder's raises, naming ROADMAP A8.4; the entry points
+  and the autoencoder's build too (ROADMAP A8.4, ported); the entry points
   default to the card and raise without one;
 * the data-parallel score function on ``{"data": 4}`` against the JAX
   ``make_sharded_score_fn`` on ``{"data": 4, "model": 1}`` (5 traces, padded
@@ -293,15 +293,14 @@ def test_make_mesh_default_prefix_and_needs(ring8):
 
 
 def test_a_model_axis_raises_naming_a8_2(ring8):
-    """A model axis above 1 (ROADMAP A8.2, the transformer's): the
-    transformer's entry points take ``{"model": 2}``, each rank holding
-    its shard (one of the two heads); the autoencoder's raise, naming
-    ROADMAP A8.4."""
+    """A model axis above 1 (ROADMAP A8.2, the transformer's, and A8.4,
+    the autoencoder's): the transformer's entry points take ``{"model":
+    2}``, each rank holding its shard (one of the two heads); so do the
+    autoencoder's, which raised (naming A8.4) before it was ported."""
     for rank, c in enumerate(ring8[1]):
         assert c["tp_shard"] == (2, (rank % 2,), 1)
         assert c["tp_step"] == "" and c["tp_score"] == "", c
-        assert c["ae_score"].startswith("ValueError") and \
-            "A8.4" in c["ae_score"], c["ae_score"]
+        assert c["ae_score"] == "", c["ae_score"]
 
 
 def test_partition_data_is_the_reference_s():

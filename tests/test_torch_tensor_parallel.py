@@ -35,8 +35,8 @@ function in ``torch_parallel_ranks.py``) or every shard in one process
   ``GRAD_RTOL``/``GRAD_ATOL`` of ``jax.grad``, the parameters within
   ``PARAM_ATOL`` (``tests/test_torch_parallel.py``'s bounds and reasons),
   every replicated parameter bit-equal over the model group and every
-  parameter over the data group;
-* the autoencoder on a model axis above 1 raises, naming ROADMAP A8.4.
+  parameter over the data group. The autoencoder on the axis is
+  ``tests/test_torch_ae_tensor_parallel.py``'s.
 """
 
 import jax
@@ -396,10 +396,3 @@ def test_tp_train_parameters_match_and_replicas_agree(tp_case):
                 for lin in ("query", "key", "value", "ff1")) and not (
                 name.endswith(("out.weight", "ff2.weight"))):
             np.testing.assert_array_equal(v, by[(0, 1)][name], err_msg=name)
-
-
-def test_the_autoencoder_refuses_the_model_axis_naming_a8_4(tp_case):
-    for r in tp_case[0]:
-        for key in ("ae_score", "ae_plan"):
-            assert r[key].startswith("ValueError") and "A8.4" in r[key], \
-                r[key]

@@ -47,8 +47,8 @@ def ring_rank(q, k, v, mask, masked_inputs, mesh_cases=False):
 def mesh_rank():
     """``make_mesh`` on 8 ranks: the default shape, a prefix of the ranks,
     a shape that needs more; on a ``"model"`` axis of 2 the transformer's
-    entry points built (its shard for the train step) and the
-    autoencoder's refused."""
+    and the autoencoder's entry points built (the transformer's shard for
+    the train step)."""
     from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
                                          TraceTransformer, TransformerConfig)
     from odigos_tpu_torch.parallel import (make_mesh, make_sharded_score_fn,
@@ -117,9 +117,8 @@ def tp_rank(cfg_kwargs, state, score_inputs, packed_inputs, train_inputs,
     ``score_packed`` in f32 and bf16 (and the plan's refusal of rows not
     divisible by dp), ``steps`` train steps on this rank's shard (its
     losses, its first step's gradients and its final parameters, in its
-    own layout), and the autoencoder's refusal of the model axis."""
-    from odigos_tpu_torch.models import (AutoencoderConfig, SpanAutoencoder,
-                                         TraceTransformer, TransformerConfig)
+    own layout)."""
+    from odigos_tpu_torch.models import TraceTransformer, TransformerConfig
     from odigos_tpu_torch.parallel import (compile_plan, make_mesh,
                                            make_sharded_score_fn,
                                            make_sharded_train_step,
@@ -155,23 +154,20 @@ def tp_rank(cfg_kwargs, state, score_inputs, packed_inputs, train_inputs,
                      for k, v in model.state_dict().items()}
     out["unsharded_step"] = _raises(
         lambda: make_sharded_train_step(whole, opt, mesh))
-    ae = SpanAutoencoder(AutoencoderConfig(
-        d_model=32, d_latent=16, n_heads=2, n_layers=1, d_ff=64,
-        max_len=16, dtype=torch.float32), device="cpu")
-    out["ae_score"] = _raises(lambda: make_sharded_score_fn(ae, mesh))
-    out["ae_plan"] = _raises(lambda: compile_plan(ae, mesh))
     return out
 
 
 def engine_mesh_rank(bundle, batches, max_len, trace_bucket, rungs,
-                     ae_kwargs):
+                     ae_kwargs, ae_bundle=None):
     """The engine on the meshes ``{"data": 4}`` and ``{"data": 2,
     "model": 2}`` of four ranks, serving a bundle: who owns the mesh, the
     ladder's alignment and misses, the leader's scores of ``batches`` on
     the host route and with columns (the fused route falling back), the
     per-mesh priors, a follower's ``submit`` refusal and every rank's
-    shutdown; the autoencoder (``ae_kwargs``) on ``{"data": 4}``; then an
-    unbackable mesh and the quantized refusal."""
+    shutdown; the autoencoder (``ae_kwargs``) on ``{"data": 4}``, and the
+    autoencoder bundle ``ae_bundle`` on ``{"data": 2, "model": 2}``; then
+    a mesh of three of the four ranks (the fourth holds no coordinate of
+    it), an unbackable mesh and the quantized refusal."""
     from odigos_tpu_torch.serving.engine import (
         MESH_UNAVAILABLE_METRIC, EngineConfig, ScoringEngine)
     from odigos_tpu_torch.serving.fused import extract_columns
@@ -233,6 +229,27 @@ def engine_mesh_rank(bundle, batches, max_len, trace_bucket, rungs,
         out["ae_scores"] = [ae.score_sync(b, timeout_s=120.0)
                             for b in batches]
     ae.shutdown()
+    if ae_bundle is not None:  # ... and on the model axis, from a bundle
+        ae = ScoringEngine(EngineConfig(
+            model="autoencoder", checkpoint_path=ae_bundle,
+            mesh={"data": 2, "model": 2}, max_len=max_len,
+            trace_bucket=trace_bucket, bucket_ladder=rungs,
+            device="cpu")).start()
+        runner = ae.backend._plan.runner
+        out["ae_tp_runner"] = (runner.model_axis.tp,
+                               runner.module.service_head.weight.shape[0])
+        if not ae.is_follower:
+            out["ae_tp_scores"] = [ae.score_sync(b, timeout_s=120.0)
+                                   for b in batches]
+        ae.shutdown()
+    # a mesh of the first three ranks: the fourth is refused
+    try:
+        eng = ScoringEngine(cfg({"data": 3}))
+    except ValueError as e:
+        out["prefix"] = f"{type(e).__name__}: {e}"
+    else:
+        out["prefix"] = ""
+        eng.shutdown()
     meter.reset()
     eng = ScoringEngine(cfg({"data": 64}))
     out["unbackable"] = (eng.mesh is None, eng.backend._plan is None,
@@ -242,4 +259,54 @@ def engine_mesh_rank(bundle, batches, max_len, trace_bucket, rungs,
                          eng.stats()["adaptive"]["mesh"])
     out["quantized"] = _raises(lambda: ScoringEngine(
         cfg({"data": 2, "model": 2}, quantized=True)))
+    return out
+
+
+# ----------------------------------------- the autoencoder on the axis
+def ae_tp_rank(cfg_kwargs, state, score_inputs, train_inputs, steps, lr):
+    """The autoencoder on ``{"data": 2, "model": 2}`` of four ranks, from
+    the whole model's weights: ``make_sharded_score_fn`` and the plan's
+    ``score_spans`` in f32 and bf16, ``steps`` train steps on this rank's
+    shard (its losses, its first step's gradients and its final
+    parameters, in its own layout); then the same steps on ``{"data": 4}``
+    (the data axis alone) from the same weights."""
+    from odigos_tpu_torch.models import AutoencoderConfig, SpanAutoencoder
+    from odigos_tpu_torch.parallel import (compile_plan, make_mesh,
+                                           make_sharded_score_fn,
+                                           make_sharded_train_step,
+                                           shard_model)
+
+    def whole(dt):
+        m = SpanAutoencoder(AutoencoderConfig(dtype=dt, **cfg_kwargs),
+                            device="cpu")
+        m.load_state_dict(state)
+        return m
+
+    def train(model, mesh):
+        opt = torch.optim.Adam(model.parameters(), lr=lr)
+        step = make_sharded_train_step(model, opt, mesh)
+        losses = [float(step(*train_inputs))]
+        grads = {name: p.grad.numpy().copy()
+                 for name, p in model.module.named_parameters()}
+        losses += [float(step(*train_inputs)) for _ in range(steps - 1)]
+        params = {k: v.detach().numpy().copy()
+                  for k, v in model.state_dict().items()}
+        return losses, grads, params
+
+    mesh = make_mesh({"data": 2, "model": 2}, device="cpu")
+    out = {"coord": tuple(mesh.get_coordinate())}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        m = whole(dt)
+        score = make_sharded_score_fn(m, mesh)
+        out[f"scores_{name}"] = [tuple(t.float().numpy() for t in score(*a))
+                                 for a in score_inputs]
+        plan = compile_plan(m, mesh)
+        out[f"plan_{name}"] = [tuple(t.float().numpy()
+                                     for t in plan.score_spans(state, *a))
+                               for a in score_inputs]
+    out["losses"], out["grads"], out["params"] = train(
+        shard_model(whole(torch.float32), mesh), mesh)
+    dp = make_mesh({"data": 4}, axes=("data",), device="cpu")
+    out["dp_losses"], out["dp_grads"], out["dp_params"] = train(
+        whole(torch.float32), dp)
     return out

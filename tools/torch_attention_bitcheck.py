@@ -134,7 +134,12 @@ def _ptxas(log: str) -> list[str]:
     return out
 
 
-def _bind(lib: ctypes.CDLL, name: str):
+def _bind(lib: ctypes.CDLL, name: str, src: str = ""):
+    """``name``'s launcher(s) of ``lib`` with their argument types, by the
+    build's own signature (``src``: the source it was built from; K11's
+    and K20's launchers take the "model" axis's vocabulary slice and
+    records in the sources that have ``take_slice_label``)."""
+    sliced = "take_slice_label" in src
     if name == "gemm_f32":
         # (launcher, True) for gemm_f32.cu's own; (launcher, False) for
         # dense.cu's gemm_bf16_launch with its dtype and pre arguments
@@ -175,11 +180,11 @@ def _bind(lib: ctypes.CDLL, name: str):
             sizes.restype = ctypes.c_longlong
         return f, sizes
     elif name == "recon_ce":
-        # (f32 launcher, its scratch sizes or None, tensor-core launcher):
-        # a build with recon_ce_f32_counters takes the f32 route's
-        # counters, its data scratch, the card's SM count and a launch
-        # count before the stream; the tensor-core launcher is the same
-        # in both
+        # (f32 launcher, its scratch sizes or None, tensor-core launcher,
+        # sliced): a build with recon_ce_f32_counters takes the f32
+        # route's counters, its data scratch, the card's SM count and a
+        # launch count before the stream; a sliced build takes both
+        # launchers' slice (4 ints) and records after their outputs
         tc = lib.recon_ce_tc_launch
         tc.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
@@ -189,7 +194,10 @@ def _bind(lib: ctypes.CDLL, name: str):
                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                           ctypes.c_void_p]
-                       + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 7
+                       + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+                       + ([ctypes.c_int] * 4 + [ctypes.c_void_p]
+                          if sliced else [])
+                       + [ctypes.c_void_p] * 4
                        + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
         tc.restype = ctypes.c_int
@@ -202,6 +210,8 @@ def _bind(lib: ctypes.CDLL, name: str):
                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_int, ctypes.c_void_p]
                       + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4
+                      + ([ctypes.c_int] * 4 + [ctypes.c_void_p]
+                         if sliced else [])
                       + ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                           ctypes.POINTER(ctypes.c_int)] if new else [])
                       + [ctypes.c_void_p])
@@ -215,7 +225,7 @@ def _bind(lib: ctypes.CDLL, name: str):
             cnt.argtypes = [ctypes.c_longlong]
             cnt.restype = ctypes.c_longlong
             size = (cnt, data)
-        return f, size, tc
+        return f, size, tc, sliced
     elif name == "gelu_bwd":
         # (launcher, flags(M, N) or None, partials(M, N)): a build with
         # gelu_bwd_flags takes its flags before its partials, then the
@@ -268,10 +278,12 @@ def _bind(lib: ctypes.CDLL, name: str):
         parts.restype = ctypes.c_longlong
         return f, parts
     elif name == "recon_ce_bwd":
-        # (launcher, (counters, scratch) or None, slices): a build with
-        # recon_ce_bwd_scratch takes its counters and byte scratch, dy,
-        # dW and db, the card's SM count and a launch count; the parent
-        # takes its list, count, dl, y and dy partials, and a zeroed dy
+        # (launcher, (counters, scratch) or None, slices, sliced): a build
+        # with recon_ce_bwd_scratch takes its counters and byte scratch,
+        # dy, dW and db, the card's SM count and a launch count; the
+        # parent takes its list, count, dl, y and dy partials, and a
+        # zeroed dy; a sliced build takes the slice (4 ints) and dy_heads
+        # after the loss weights
         f = lib.recon_ce_bwd_launch
         one = hasattr(lib, "recon_ce_bwd_scratch")
         f.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -280,6 +292,7 @@ def _bind(lib: ctypes.CDLL, name: str):
                       + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_void_p] + [ctypes.c_float] * 4
+                      + ([ctypes.c_int] * 5 if sliced else [])
                       + ([ctypes.c_void_p] * 5
                          + [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                             ctypes.c_void_p] if one
@@ -295,8 +308,8 @@ def _bind(lib: ctypes.CDLL, name: str):
             data = lib.recon_ce_bwd_scratch
             data.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 5
             data.restype = ctypes.c_longlong
-            return f, (cnt, data), sl
-        return f, None, sl
+            return f, (cnt, data), sl, sliced
+        return f, None, sl, sliced
     elif name == "ring_attention":
         f = lib.ring_block_attention_launch
         f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -328,18 +341,19 @@ def _builds(old_dir: Path, out: Path, names):
         procs[name] = (subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
              str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
+            stderr=subprocess.STDOUT, text=True), so, src)
     build.build(list(names))
     old, new = {}, {}
-    for name, (p, so) in procs.items():
+    for name, (p, so, src) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             raise RuntimeError(f"old {name} failed to build:\n{log}")
         print("old", name, _ptxas(log))
         print("new", name, _ptxas(build.build_logs[name])
               if name in build.build_logs else "(built before this run)")
-        old[name] = _bind(ctypes.CDLL(str(so)), name)
-        new[name] = _bind(ctypes.CDLL(str(build.library_path(name))), name)
+        old[name] = _bind(ctypes.CDLL(str(so)), name, src.read_text())
+        new[name] = _bind(ctypes.CDLL(str(build.library_path(name))), name,
+                          (build.CSRC / build.SOURCES[name]).read_text())
     return old, new
 
 
@@ -728,7 +742,7 @@ def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
         ln weight and bias, heads, cat, cont, mask, loss weights, eps,
         span_map) into ``out`` (err, scores or None, lse or None); the
         new build's scratch made once, as the wrapper keeps it."""
-        fn, size, _ = lib
+        fn, size, _, sliced = lib
         dec, lw, lb, heads, cat, cont, mask, wts, eps, smap = args
         err, scores, lse = out
         M, d = dec.shape
@@ -742,7 +756,8 @@ def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
                 + [float(w) for w in wts]
                 + [err.data_ptr(), None if smap is None else smap.data_ptr(),
                    None if scores is None else scores.data_ptr(),
-                   None if lse is None else lse.data_ptr()])
+                   None if lse is None else lse.data_ptr()]
+                + ([vs[0], 0, vs[1], 0, None] if sliced else []))
         if size is not None:
             n, nb = size[0](M), size[1](M, *vs[:3])
             if n < 0 or nb < 0:
@@ -777,7 +792,7 @@ def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
         its scratch made as the wrapper makes it (the zeroed count and
         tiles' slices zeroed again before each launch, as the wrapper's
         fresh ``torch.zeros``)."""
-        tc = lib[2]
+        tc, sliced = lib[2], lib[3]
         dec, lw, lb, heads, cat, cont, mask, wts, eps, smap = args
         err, scores, _ = out
         M, d = dec.shape
@@ -806,6 +821,8 @@ def _k11_k19_checks(old, new, only, dev, rng, randn, same_bits, stream,
                     *(float(w) for w in wts), err.data_ptr(),
                     None if smap is None else smap.data_ptr(),
                     None if scores is None else scores.data_ptr(),
+                    *((planes.v_s, 0, planes.v_n, 0, None) if sliced
+                      else ()),
                     lst.data_ptr(), stats.data_ptr(), zeros.data_ptr(),
                     part.data_ptr(), part.numel(), zeros.data_ptr() + 4, sms,
                     ctypes.byref(launched), stream())
@@ -1182,7 +1199,7 @@ def _k20_k21_checks(old, new, only, dev, rng, randn, same_bits, stream,
         ``out`` (dy, dW, db): the new build's scratch made once, as the
         wrapper keeps it; the parent's as its wrapper made it, dy
         zero-filled before each launch (its wrapper's torch.zeros)."""
-        fn, size, slices = lib
+        fn, size, slices, sliced = lib
         dec, lw, lb, heads, lse, cat, cont, mask, derr, wts, eps = args
         dy, dw, db = out
         M, d = dec.shape
@@ -1192,7 +1209,8 @@ def _k20_k21_checks(old, new, only, dev, rng, randn, same_bits, stream,
                 + [b.data_ptr() for _, b in heads] + vs
                 + [lse.data_ptr(), cat.data_ptr(), cat.shape[1],
                    cont.data_ptr(), cont.shape[1], mask.data_ptr(),
-                   derr.data_ptr()] + [float(w) for w in wts])
+                   derr.data_ptr()] + [float(w) for w in wts]
+                + ([vs[0], 0, vs[1], 0, 15] if sliced else []))
         launched = None
         if size is not None:
             cnt = torch.zeros(max(size[0](M, *vs), 1), dtype=torch.int32,

@@ -123,9 +123,10 @@ NO_QUANT_EPILOGUE = {
 # K20's parts, for its variants below: the dW items alone (no slice items,
 # no waits), the slice items alone
 DW_ONLY = {
-    "      slice_item<TS, NC4>(w, (int)(item % w.ntiles), "
-    "(int)(item / w.ntiles),\n                          smem, s_coef, s_lab, "
-    "s_lse, s_c0, s_bias, &s_flag);": "      (void)0;",
+    "      slice_item<TS, NC4, SLICED>(w, (int)(item % w.ntiles),\n"
+    "                                  (int)(item / w.ntiles), smem, s_coef,\n"
+    "                                  s_lab, s_lse, s_c0, s_bias, &s_flag,\n"
+    "                                  dy_heads);": "      (void)0;",
     "        while (load_acquire(w.cnt + kLead + base + s) < w.ntiles)":
     "        while (false)"}
 NO_DW = {"      dw_item(w, (int)(item - slice_items), smem);": "      (void)0;"}

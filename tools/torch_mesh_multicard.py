@@ -21,8 +21,21 @@ share of the call (a rank's all-reduce also waits for the other ranks to
 arrive). Then one all-reduce of a partial's bytes alone, after a
 barrier: the transfer's own time. Rank 0 holds the rows it scored
 against ``LocalModelAxis(2)`` (the in-process axis) on the same rows: at
-tp = 2 the NCCL sum of two partials is the in-process one, so bit-equal. Last, ``dryrun_multichip(ranks, "cuda")``. Prints the
-card's name and power limit, one JSON line of results and ``{"ok": ...}``.
+tp = 2 the NCCL sum of two partials is the in-process one, so bit-equal.
+Then the autoencoder engine on the same mesh (the served
+``AutoencoderConfig()`` with its loss weights scaled down so that the
+squashed scores spread, weights from seed 0; its decoder FFN and
+vocabulary heads on the model axis, K24 merging the gathered records)
+against a one-card autoencoder engine of the same weights, within
+``PLAIN_PATH_BOUND``, with both engines' spans/s. With a multiple of 4
+ranks, NCCL's sum over a ``"model"`` axis of 4 (``GroupModelAxis``) of
+four f32 partials of a served shard's shape against
+``LocalModelAxis(4)``'s rank-order sum of the same partials on rank 0's
+card: NCCL's ring may add in another order, so the two agree within
+``TP4_SUM_BOUND`` (2 x 3 f32 rounding units of the sum of the four
+magnitudes: each order is within 3 of the exact sum), the bit-equal share
+reported. Last, ``dryrun_multichip(ranks, "cuda")``. Prints the card's
+name and power limit, one JSON line of results and ``{"ok": ...}``.
 Needs ``--ranks`` cards (an even number).
 """
 
@@ -42,6 +55,86 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 PLAIN_PATH_BOUND = 2e-2  # chip_smoke.py's: probabilities, two bf16 paths
 REPS = 10
 TOP_ROWS = 2048          # the engine ladder's top rung (EngineConfig())
+TP4_SUM_BOUND = 6 * 2.0 ** -24  # of sum_r |p_r|, element by element
+TP4_SHAPE = (2048 * 64, 256)    # a partial at R 2048: (rows x L, d_model)
+AE_WEIGHTS = dict(w_service=0.01, w_name=0.01, w_kind=0.005,
+                  w_duration=0.002)  # chip_smoke.py's AE_SCALED_WEIGHTS
+
+
+def _ae_engine(out: dict, shape: dict, batches: list, rank: int) -> bool:
+    """The autoencoder engine on ``shape`` against a one-card engine of the
+    same weights (rank 0): the squashed scores' largest difference and
+    both engines' spans/s. Returns the check."""
+    import numpy as np
+
+    from odigos_tpu_torch.features import featurize
+    from odigos_tpu_torch.models import AutoencoderConfig
+    from odigos_tpu_torch.serving import EngineConfig, ScoringEngine
+
+    def engine(mesh):
+        return ScoringEngine(EngineConfig(
+            model="autoencoder", mesh=mesh, warm_ladder=True, device="cuda",
+            model_config=AutoencoderConfig(**AE_WEIGHTS))).start()
+
+    def serve(eng):
+        scores, walls = [], []
+        for b in batches:
+            t1 = time.perf_counter()
+            scores.append(eng.score_sync(b, featurize(b), timeout_s=300.0))
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return scores, sum(len(b) for b in batches) / (sum(walls) / 1e3)
+
+    eng = engine(shape)
+    r: dict = {"tp_shard_service_rows":
+               eng.backend._plan.runner.module.service_head.weight.shape[0]}
+    if not eng.is_follower:
+        scores, r["spans_per_s"] = serve(eng)
+        r["misses"] = eng.backend.ladder.misses
+    eng.shutdown()
+    if rank != 0:
+        out["autoencoder"] = r
+        return True
+    one = engine(None)
+    ref, r["one_card_spans_per_s"] = serve(one)
+    one.shutdown()
+    r["vs_one_card_max_abs_diff"] = max(float(np.abs(s - f).max())
+                                        for s, f in zip(scores, ref))
+    r["vs_one_card_bit_equal_share"] = float(np.mean(
+        np.concatenate([s == f for s, f in zip(scores, ref)])))
+    out["autoencoder"] = r
+    return (r["vs_one_card_max_abs_diff"] <= PLAIN_PATH_BOUND
+            and r["misses"] == 0)
+
+
+def _tp4_sum(out: dict, n: int, rank: int) -> None:
+    """NCCL's sum over a model axis of 4 against the in-process one."""
+    import torch
+
+    from odigos_tpu_torch.parallel import (GroupModelAxis, LocalModelAxis,
+                                           make_mesh)
+
+    mesh = make_mesh({"data": n // 4, "model": 4}, device="cuda")
+    axis = GroupModelAxis.of(mesh)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def partial(r):
+        g = torch.Generator(device=dev).manual_seed(1000 + r)
+        return torch.randn(TP4_SHAPE, generator=g, device=dev) * (1 + r)
+
+    got = axis.reduce([partial(axis.shards[0])])
+    torch.cuda.synchronize()
+    if rank != 0:
+        return
+    parts = [partial(r) for r in range(4)]
+    ref = LocalModelAxis(4).reduce(parts)
+    mag = sum(p.abs() for p in parts)
+    diff = (got - ref).abs()
+    out["tp4_sum"] = {
+        "shape": list(TP4_SHAPE), "max_abs_diff": float(diff.max()),
+        "worst_ratio_to_bound": float(torch.where(
+            diff > 0, diff / (TP4_SUM_BOUND * mag), 0.0).max()),
+        "bit_equal_share": float((diff == 0).float().mean()),
+        "bound": "6 x 2^-24 x sum_r |p_r|"}
 
 
 def _rank(requests: int, traces: int) -> dict:
@@ -184,6 +277,9 @@ def _rank(requests: int, traces: int) -> dict:
                     "one_all_reduce_alone_ms": statistics.median(alone),
                     "alone_share": len(marks) * statistics.median(alone)
                     / statistics.median(calls)}
+    out["autoencoder_ok"] = _ae_engine(out, shape, batches, rank)
+    if n % 4 == 0:
+        _tp4_sum(out, n, rank)
     gathered = [None] * n
     dist.all_gather_object(gathered, out)
     return {"ranks": gathered}
@@ -214,7 +310,10 @@ def main(argv=None) -> int:
     lead = res["ranks"][0]
     ok = (lead["misses_after_warm"] == 0 and lead["misses"] == 0
           and lead["vs_one_card_max_abs_diff"] <= PLAIN_PATH_BOUND
-          and lead["plan_vs_in_process_bit_equal"])
+          and lead["plan_vs_in_process_bit_equal"]
+          and lead["autoencoder_ok"]
+          and lead.get("tp4_sum", {}).get("worst_ratio_to_bound", 0.0)
+          <= 1.0)
     result = {"engine": res["ranks"]}
     if not args.no_dryrun:
         dry = dryrun_multichip(args.ranks, "cuda")
